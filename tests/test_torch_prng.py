@@ -1,0 +1,74 @@
+"""The port's threefry2x32 PRNG is BITWISE ``jax.random``.
+
+``sketch_rnn_tpu_torch/utils/prng.py`` reproduces key construction,
+``fold_in``, ``split`` and ``uniform(key, (4,))`` in torch integer ops,
+so one request key drives the same per-step uniforms in both packages
+(the serving engine's determinism contract, ``u = uniform(fold_in(
+request_key, t), (4,))``). The layout checked is the partitionable one
+(``jax_threefry_partitionable=True``, the default of the JAX this repo
+runs); the first test pins that assumption.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sketch_rnn_tpu.ops.pallas_decode import make_uniforms as j_make_uniforms
+from sketch_rnn_tpu_torch.ops.cuda_decode import make_uniforms
+from sketch_rnn_tpu_torch.utils import prng
+
+TS = np.arange(301)
+
+
+def _words(jkey) -> np.ndarray:
+    return np.asarray(jax.random.key_data(jkey)).astype(np.int64)
+
+
+def test_partitionable_layout_and_key_data():
+    assert jax.config.jax_threefry_partitionable
+    for seed in (0, 1, 7, 12345, 2 ** 31 - 1, -1, -2 ** 31):
+        np.testing.assert_array_equal(_words(jax.random.key(seed)),
+                                      prng.key(seed).numpy())
+    with pytest.raises(ValueError, match="int32"):
+        prng.key(2 ** 31)
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_fold_in_and_uniform_bitwise(seed):
+    """fold_in(key(seed), t) and uniform(., (4,)) for t in 0..300."""
+    jk = jax.random.key(seed)
+    jsteps = jax.vmap(jax.random.fold_in, (None, 0))(jk, jnp.asarray(TS))
+    ju = jax.vmap(lambda k: jax.random.uniform(k, (4,)))(jsteps)
+    tsteps = prng.fold_in(prng.key(seed), torch.from_numpy(TS))
+    tu = prng.uniform(tsteps, (4,))
+    np.testing.assert_array_equal(
+        np.asarray(jax.random.key_data(jsteps)).astype(np.int64),
+        tsteps.numpy())
+    assert tu.dtype == torch.float32
+    np.testing.assert_array_equal(np.asarray(ju).view(np.uint32),
+                                  tu.numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("num", [2, 3, 10])
+def test_split_bitwise(num):
+    for seed in range(8):
+        np.testing.assert_array_equal(
+            _words(jax.random.split(jax.random.key(seed), num)),
+            prng.split(prng.key(seed), num).numpy())
+
+
+def test_make_uniforms_matches_pallas_decode():
+    """``cuda_decode.make_uniforms`` is bitwise
+    ``pallas_decode.make_uniforms``: per-slot keys at per-slot step
+    offsets, ``[K, B, 4]``."""
+    jkeys = jax.vmap(jax.random.fold_in, (None, 0))(
+        jax.random.key(9), jnp.arange(5))
+    t0 = np.asarray([0, 5, 11, 250, 299], np.int32)
+    ju = j_make_uniforms(jkeys, jnp.asarray(t0), 8)
+    tu = make_uniforms(torch.from_numpy(_words(jkeys)),
+                       torch.from_numpy(t0), 8)
+    assert tuple(tu.shape) == (8, 5, 4)
+    np.testing.assert_array_equal(np.asarray(ju).view(np.uint32),
+                                  tu.numpy().view(np.uint32))

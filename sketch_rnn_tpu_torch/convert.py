@@ -6,8 +6,10 @@ A parameter tree of ``sketch_rnn_tpu.models.vae.SketchRNN.init_params``
 leaves maps to the port's dict of tensors with the SAME names and the
 SAME layouts — ``[in, out]`` weights, ``[4, H]`` layer-norm parameters —
 so no transpose hides in the conversion and the round trip is bitwise.
-This module never imports JAX: callers hand it numpy leaves
-(``jax.device_get(tree)``).
+A training state carries across the same way, optax's Adam moments and
+counts included (:func:`train_state_from_jax`, :func:`train_state_to_jax`),
+so a run started in one package continues in the other. This module
+never imports JAX: callers hand it numpy leaves (``jax.device_get(tree)``).
 """
 
 from __future__ import annotations
@@ -39,3 +41,37 @@ def params_to_jax(params: Dict[str, Any]) -> Dict[str, Any]:
     if isinstance(params, dict):
         return {k: params_to_jax(v) for k, v in params.items()}
     return params.detach().cpu().numpy().copy()
+
+
+def train_state_from_jax(state, device=None):
+    """A JAX ``TrainState(params, opt_state, step)`` with numpy leaves
+    (``jax.device_get(state)``) -> the port's ``TrainState``. The optax
+    state is read by position, ``(clip state, (ScaleByAdamState(count,
+    mu, nu), ScaleByScheduleState(count)))``, so the same layout as
+    nested tuples (what :func:`train_state_to_jax` returns) works too."""
+    from sketch_rnn_tpu_torch.train.state import (AdamState, OptState,
+                                                  TrainState)
+
+    params, opt_state, step = state[0], state[1], state[2]
+    adam, sched = opt_state[1][0], opt_state[1][1]
+    return TrainState(
+        params_from_jax(params, device),
+        OptState(AdamState(int(np.asarray(adam[0])),
+                           params_from_jax(adam[1], device),
+                           params_from_jax(adam[2], device)),
+                 int(np.asarray(sched[0]))),
+        int(np.asarray(step)))
+
+
+def train_state_to_jax(state):
+    """The port's ``TrainState`` -> ``(params, ((), ((count, mu, nu),
+    (schedule_count,))), step)`` with numpy leaves and int32 counts: the
+    leaves in the order of the JAX package's optax ``TrainState``, ready
+    for ``jax.tree_util.tree_unflatten`` with that state's structure."""
+    adam = state.opt_state.adam
+    i32 = lambda v: np.asarray(v, np.int32)
+    return (params_to_jax(state.params),
+            ((), ((i32(adam.count), params_to_jax(adam.mu),
+                   params_to_jax(adam.nu)),
+                  (i32(state.opt_state.schedule_count),))),
+            i32(state.step))

@@ -46,6 +46,12 @@ SIGNATURES = {
         "srt_decode_chunk": [_P] * 19 + [_I] * 6 + [_F] + [_P] * 6,
         "srt_replay_chunk": [_P] * 12 + [_I] * 4 + [_F] + [_P] * 3,
     },
+    "fused_rnn": {
+        "srt_lstm_seq_fwd": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_P] * 3,
+        "srt_lstm_seq_bwd": [_P] * 10 + [_I] * 4 + [_F] * 3 + [_P] * 5,
+        "srt_ln_lstm_fwd": [_P] * 12 + [_I] * 4 + [_F] * 3 + [_P] * 5,
+        "srt_ln_lstm_bwd": [_P] * 16 + [_I] * 4 + [_F] * 3 + [_P] * 10,
+    },
 }
 
 

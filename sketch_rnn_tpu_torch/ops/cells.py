@@ -6,13 +6,14 @@ static configuration; parameters are plain dicts of tensors with the
 JAX package's names and layouts (``wx [D, 4H]``, ``wh [H, 4H]``,
 ``ln_gamma/ln_beta [4, H]``). Gate order is ``(i, g, f, o)``; the
 forget bias is added to the forget pre-activation, after the layer norm
-in the LN variant. Forward only: recurrent dropout comes with the
-training slice.
+in the LN variant. Recurrent dropout multiplies the candidate ``g``
+after its ``tanh`` by a per-step mask (``rdrop_mask [B, H]``), as the JAX
+cells and the fused kernels (``ops/cuda_fused.py``) do.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -53,14 +54,18 @@ class LSTMCell:
         c, h = torch.chunk(flat, 2, dim=-1)
         return (c, h)
 
-    def __call__(self, params: Params, carry: Carry, x: torch.Tensor
+    def __call__(self, params: Params, carry: Carry, x: torch.Tensor,
+                 rdrop_mask: Optional[torch.Tensor] = None
                  ) -> Tuple[Carry, torch.Tensor]:
         c, h = carry
         xp = L.matmul(x, params["wx"], self.compute_dtype) + params["b"]
         pre = xp + L.matmul(h, params["wh"], self.compute_dtype)
         i, g, f, o = torch.chunk(pre, 4, dim=-1)
+        g = torch.tanh(g)
+        if rdrop_mask is not None:
+            g = g * rdrop_mask
         new_c = c * torch.sigmoid(f + self.forget_bias) \
-            + torch.sigmoid(i) * torch.tanh(g)
+            + torch.sigmoid(i) * g
         new_h = torch.tanh(new_c) * torch.sigmoid(o)
         return (new_c, new_h), new_h
 
@@ -90,7 +95,8 @@ class LayerNormLSTMCell:
     carry_size = LSTMCell.carry_size
     unflatten_carry = LSTMCell.unflatten_carry
 
-    def __call__(self, params: Params, carry: Carry, x: torch.Tensor
+    def __call__(self, params: Params, carry: Carry, x: torch.Tensor,
+                 rdrop_mask: Optional[torch.Tensor] = None
                  ) -> Tuple[Carry, torch.Tensor]:
         c, h = carry
         xp = L.matmul(x, params["wx"], self.compute_dtype)
@@ -98,8 +104,11 @@ class LayerNormLSTMCell:
         i, g, f, o = (L.layer_norm(gate, params["ln_gamma"][j],
                                    params["ln_beta"][j])
                       for j, gate in enumerate(torch.chunk(pre, 4, dim=-1)))
+        g = torch.tanh(g)
+        if rdrop_mask is not None:
+            g = g * rdrop_mask
         new_c = c * torch.sigmoid(f + self.forget_bias) \
-            + torch.sigmoid(i) * torch.tanh(g)
+            + torch.sigmoid(i) * g
         normed_c = L.layer_norm(new_c, params["lnc_gamma"],
                                 params["lnc_beta"])
         new_h = torch.tanh(normed_c) * torch.sigmoid(o)

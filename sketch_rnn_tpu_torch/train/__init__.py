@@ -1,0 +1,1 @@
+"""Port of ``sketch_rnn_tpu.train``."""

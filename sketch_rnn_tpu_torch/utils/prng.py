@@ -23,6 +23,7 @@ from __future__ import annotations
 import math
 from typing import Sequence, Union
 
+import numpy as np
 import torch
 
 _MASK = 0xFFFFFFFF
@@ -83,17 +84,85 @@ def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([y0, y1], dim=-1)
 
 
-def uniform(k: torch.Tensor, shape: Union[int, Sequence[int]] = (4,)
-            ) -> torch.Tensor:
-    """``jax.random.uniform(key, shape)`` in ``[0, 1)``, float32, shape
-    ``[..., *shape]``. Element ``i``'s 32 random bits are the XOR of the
-    two words hashed from the counter ``(0, i)`` (partitionable layout);
-    their top 23 bits become the mantissa of a float in ``[1, 2)``, minus
-    1."""
+def random_bits(k: torch.Tensor, shape: Union[int, Sequence[int]]
+                ) -> torch.Tensor:
+    """``jax.random.bits(key, shape)`` (uint32 words as int64), shape
+    ``[..., *shape]``: element ``i``'s bits are the XOR of the two words
+    hashed from the counter ``(0, i)`` (partitionable layout)."""
     shape = (shape,) if isinstance(shape, int) else tuple(shape)
     i = torch.arange(math.prod(shape), dtype=torch.int64, device=k.device)
     kk = k[..., None, :]
     y0, y1 = threefry2x32(kk[..., 0], kk[..., 1], torch.zeros_like(i), i)
-    bits = (y0 ^ y1).reshape(*k.shape[:-1], *shape)
+    return (y0 ^ y1).reshape(tuple(k.shape[:-1]) + shape)
+
+
+def uniform(k: torch.Tensor, shape: Union[int, Sequence[int]] = (4,),
+            minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``, shape
+    ``[..., *shape]``: the top 23 of each element's random bits become
+    the mantissa of a float in ``[1, 2)``, minus 1, then scaled to the
+    range in float32 and held at ``minval`` or above."""
+    bits = random_bits(k, shape)
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
-    return torch.clamp_min(f - 1.0, 0.0)
+    f = f - 1.0
+    if (minval, maxval) == (0.0, 1.0):
+        return torch.clamp_min(f, 0.0)
+    lo = torch.tensor(minval, dtype=torch.float32, device=k.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=k.device)
+    return torch.maximum(lo, f * (hi - lo) + lo)
+
+
+def randint(k: torch.Tensor, minval: int, maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, (), minval, maxval, jnp.int32)`` for
+    ``0 <= minval < maxval <= 2**31 - 1``: a scalar int32 per key
+    (``[...]``). JAX draws 32 bits from each half of ``split(key)`` and
+    folds them into the span in uint32 arithmetic,
+    ``((hi % span) * mult + lo % span) % span`` with ``mult = ((2**16 %
+    span)**2 mod 2**32) % span`` — which wraps to 0 for spans above
+    2**16, so there only ``lo`` counts."""
+    if not 0 <= minval < maxval <= 2 ** 31 - 1:
+        raise ValueError(f"randint covers 0 <= minval < maxval <= 2**31-1, "
+                         f"got [{minval}, {maxval})")
+    k1, k2 = split(k, 2).unbind(dim=-2)
+    hi = random_bits(k1, ())
+    lo = random_bits(k2, ())
+    span = maxval - minval
+    mult = ((((2 ** 16) % span) ** 2) & _MASK) % span
+    off = (((hi % span) * mult & _MASK) + lo % span) & _MASK
+    return (minval + off % span).to(torch.int32)
+
+
+# XLA's float32 erf_inv (Giles 2010): a degree-8 polynomial in
+# w = -log1p(-x*x), one branch for w < 5 and one for the tails
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def erfinv(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``erf_inv`` as XLA lowers it (not torch.erfinv's)."""
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    p = None
+    for a, b in zip(_ERFINV_LT5, _ERFINV_GE5):
+        c = torch.where(lt, torch.tensor(a, dtype=torch.float32),
+                        torch.tensor(b, dtype=torch.float32)).to(x.device)
+        p = c if p is None else c + p * w
+    return torch.where(x.abs() == 1.0, x * torch.finfo(torch.float32).max,
+                       p * x)
+
+
+def normal(k: torch.Tensor, shape: Union[int, Sequence[int]]
+           ) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)``: ``sqrt(2) *
+    erf_inv(u)`` with ``u`` uniform in ``(-1, 1)``. The uniform is
+    bitwise JAX's; ``erf_inv`` follows XLA's polynomial, whose log1p and
+    multiply-adds the CPU backends may round apart by an ulp
+    (``tests/test_torch_prng.py`` states the tolerance)."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(k, shape, lo, 1.0)
+    return float(np.float32(np.sqrt(2.0))) * erfinv(u)

@@ -13,40 +13,54 @@ without the final line. With no CUDA device it exits 2 at once.
    nvcc (ops/_build.py), one nvcc per source started together, and
    reports the build time.
 3. kernel  — each kernel against its plain PyTorch version on the same
-   CUDA tensors, with times (CUDA events) beside the card's bound for
-   the same work:
+   CUDA tensors, at float32 and at bfloat16 (``dtype`` in each line),
+   with times (CUDA events) beside the card's bound for the same work:
    - the serving kernels at the serving shapes of the full-width model
-     (B=64 slots, K=8 steps, H=512, M=20, Nz=128; replay at E=64):
-     errors, exact agreement of t/done/pen away from CDF near-ties;
-   - the four training kernels (``fused_lstm_seq`` and ``fused_ln_lstm``,
-     forward and backward) at the training shapes (B=100, T=250, encoder
-     H=256, decoder H=512 with its x_bias, dropout seeded at keep 0.9):
-     every output and gradient within FUSED_TOL, the in-kernel dropout
-     masks bitwise the plain ``prng_mask`` ones, every result identical
-     run to run; cuDNN's LSTM (``torch.nn.LSTM``) timed beside
-     ``fused_lstm_seq`` as a yardstick only.
+     (B=64 slots, K=8 steps, H=512, M=20, Nz=128; replay at E=64), at
+     compute_dtype float32 and bfloat16: errors, exact agreement of
+     t/done/pen away from CDF near-ties;
+   - the training kernels at the training shapes (B=100, T=250, dropout
+     seeded at keep 0.9): ``fused_lstm_seq`` (encoder H=256) and
+     ``fused_ln_lstm`` (decoder H=512 with its x_bias) of the flagship
+     model, ``fused_lstm`` (the ``vae`` preset's lstm decoder, H=512 with
+     x_bias [100, 2048] and a nonzero initial carry), each forward and
+     backward, at float32 and at bfloat16 weights and residuals: every
+     output and gradient within FUSED_TOL of its dtype, the in-kernel
+     dropout masks bitwise the plain ``prng_mask`` ones, every result
+     identical run to run;
+   - kernel_library: cuDNN's LSTM (``torch.nn.LSTM``, TF32 off) timed
+     beside ``fused_lstm_seq`` and ``fused_lstm`` (over the unfolded
+     inputs [x; z], D=133) as a yardstick only.
 4. serve   — the serving main path: ``ServeEngine`` at the full
    ``layer_norm`` preset (conditional VAE, bi-LSTM encoder 256,
    LayerNorm-LSTM decoder 512, serve_slots=64, serve_chunk=8,
-   max_seq_len=250) on seeded random weights serves 128 ``generate``
-   requests, then ``serve_requests`` serves 32 ``complete`` and 32
-   ``reconstruct`` requests on synthetic prefixes. The serving kernels'
-   launch counters are zeroed just before and read just after, and must
-   show both kernels launched. A small burst served on the card is then
-   held against the same burst served by the plain versions on the CPU.
-5. profile — a 64-request burst timed, then profiled: device time by
-   kernel and the device's busy share of the burst.
+   max_seq_len=250) at the flagship's compute_dtype bfloat16, on seeded
+   random weights, serves 128 ``generate`` requests, then
+   ``serve_requests`` serves 32 ``complete`` and 32 ``reconstruct``
+   requests on synthetic prefixes. The serving kernels' launch counters
+   are zeroed just before and read just after, and must show both
+   kernels launched. The same burst is then served at float32. A small
+   burst served on the card is held against the same burst served by the
+   plain versions on the CPU, at both dtypes.
+5. profile — a 64-request bfloat16 burst timed, then profiled: device
+   time by kernel and the device's busy share of the burst.
 6. train   — the training main path: ``train/loop.train`` on the
-   flagship ``quickdraw345_dp`` model at float32 (seeded random weights,
-   the synthetic 345-class corpus), 2 warm-up steps, then 10 steps timed
-   with the training kernels' launch counters zeroed just before and read
-   just after: exactly 2 launches per step of each ``fused_lstm_seq``
-   kernel and 1 of each ``fused_ln_lstm`` kernel, finite losses.
+   flagship ``quickdraw345_dp`` model at its own bfloat16 compute and
+   residuals (seeded random weights, the synthetic 345-class corpus), 2
+   warm-up steps, then 10 steps timed with the training kernels' launch
+   counters zeroed just before and read just after: exactly 2 launches
+   per step of each ``fused_lstm_seq`` kernel and 1 of each
+   ``fused_ln_lstm`` kernel, finite losses.
 7. train_reference — one full-width step through the kernels against the
    same step through the plain versions on the card, and one small step
    on the card against the same step on the CPU.
 8. train_profile — two train steps timed, then profiled.
-9. the kernels line, the ``nvidia-smi`` line, and the result line.
+9. train_lstm — the ``vae`` preset (lstm decoder) with ``fused_rnn=true``
+   at full width and float32: 1 warm-up step, then 5 timed steps with the
+   counters zeroed just before and read just after (2 launches per step
+   of each ``fused_lstm_seq`` kernel, 1 of each ``fused_lstm`` kernel),
+   then its one-step references as in 7.
+10. the kernels line, the ``nvidia-smi`` line, and the result line.
 
 Random serving weights carry the pen-suppression sentinel ``out_b[2] =
 -1e9`` (an untrained model ends a sketch after a few steps) and requests
@@ -61,21 +75,28 @@ import sys
 import time
 
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
-# HBM3 bandwidth
-PEAK_F32_FLOPS = 67e12
+# dense bfloat16 on the tensor cores, HBM3 bandwidth
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES_S = 3.35e12
+DTYPES = ("float32", "bfloat16")
+DEV = "cuda"
 
 B, K, E = 64, 8, 64
-# kernel vs plain version on the card, float32. Both sum 512-term dot
-# products, in different orders, so they round differently (~1e-7
-# relative per step), and the gaps compound through the recurrence and
-# the sampler's exp(log_sigma) * normal scaling. Measured on an H100
-# (PERF.md): decode (8 steps) <= 1.5e-6 on carries and offsets, replay
-# (64 steps) <= 7.7e-6 on carries. TOL keeps a 13x margin over the
-# largest; a wrong gate order or layer-norm association errs by ~1e-1.
-TOL = 1e-4
-NEAR_TIE = 1e-5    # a draw whose uniform is this close to a CDF edge may
-#                    flip under rounding; such rows are counted, not held
+# serving kernels vs their plain versions on the card. float32: both sum
+# 512-term dot products, in different orders, so they round differently
+# (~1e-7 relative per step), and the gaps compound through the recurrence
+# and the sampler's exp(log_sigma) * normal scaling. Measured on an H100
+# (PERF.md): decode (8 steps) <= 1.5e-6 on carries and offsets, replay (64
+# steps) <= 7.7e-6 on carries; 1e-4 keeps a 13x margin, a wrong gate order
+# or layer-norm association errs by ~1e-1. bfloat16: where the two float
+# sums straddle a rounding boundary a product operand moves by one
+# bfloat16 ulp (up to 2**-7 relative) and the step by ~1e-4; measured on
+# an H100: decode <= 1.2e-3, replay <= 2.5e-3. 1e-2 holds that and still
+# catches a wrong association.
+SERVE_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# a draw whose uniform is this close to a CDF edge may flip under
+# rounding; such rows are counted, not held
+NEAR_TIE = {"float32": 1e-5, "bfloat16": 1e-3}
 
 
 def log(phase, **kw):
@@ -112,40 +133,63 @@ def nbytes(*tensors):
                if t is not None)
 
 
-def bound_ms(flops, moved_bytes):
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+def bound_ms(flops, moved_bytes, dt):
+    """The least time for the work: the products at the peak of their
+    operand dtype, the bytes at HBM bandwidth; the larger of the two."""
+    t_ops = flops / PEAK_FLOPS[dt] * 1e3
     t_bytes = moved_bytes / PEAK_BYTES_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
 
 
-def full_width(cell, seed=0):
+def torch_dtype(dt):
+    import torch
+
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[dt]
+
+
+def dtype_over(dt):
+    """The hparams of a compute and residual dtype."""
+    return dict(compute_dtype=dt, fused_residual_dtype=dt)
+
+
+def full_width(cell, seed=0, dt="float32"):
     import torch
 
     from sketch_rnn_tpu_torch import HParams
     from sketch_rnn_tpu_torch.models.vae import SketchRNN
 
     hps = HParams(conditional=True, dec_model=cell, serve_slots=B,
-                  serve_chunk=K)
+                  serve_chunk=K, compute_dtype=dt)
     model = SketchRNN(hps)
     params = model.init_params(torch.Generator().manual_seed(seed),
-                               device="cuda")
+                               device=DEV)
     return hps, model, params
 
 
-def check_decode(cell):
+def serving_weights(model, params):
+    """The decoder's weight matrices in the kernels' weight dtype."""
+    from sketch_rnn_tpu_torch.ops import cuda_decode as cd
+
+    cdt = model.dec.compute_dtype
+    return (cd.cast_weights(params["dec"], cdt),
+            params["out_w"].to(cd.weight_dtype(cdt)))
+
+
+def check_decode(cell, dt):
     """decode_chunk vs its plain version at the serving shapes."""
     import torch
 
     from sketch_rnn_tpu_torch.ops import cuda_decode as cd
     from sketch_rnn_tpu_torch.utils import prng
 
-    hps, model, params = full_width(cell)
+    hps, model, params = full_width(cell, dt=dt)
     # a p3 logit bias of -3 keeps most rows drawing through the chunk
     # while some still end on their own; every 4th row hits its cap
     # mid-chunk and every 16th starts done
     params["out_b"][2] = -3.0
-    dev = torch.device("cuda")
+    dec, out_w = serving_weights(model, params)
+    dev = torch.device(DEV)
     g = torch.Generator().manual_seed(1)
     z = torch.randn((B, hps.z_size), generator=g).to(dev)
     c0, h0 = (x.contiguous() for x in
@@ -162,58 +206,62 @@ def check_decode(cell):
     temps = (0.4 + torch.rand((B,), generator=g)).to(dev)
     done0 = (torch.arange(B) % 16 == 3).to(dev)
     end = torch.tensor([0, 0, 0, 0, 1.0]).to(dev)
-    args = (params["dec"], params["out_w"], params["out_b"], c0, h0, prev0,
-            z, u, temps, t0, done0, caps, end)
-    kw = dict(cell_kind=cell, num_mixture=hps.num_mixture)
+    args = (dec, out_w, params["out_b"], c0, h0, prev0, z, u, temps, t0,
+            done0, caps, end)
+    kw = dict(cell_kind=cell, num_mixture=hps.num_mixture,
+              compute_dtype=model.dec.compute_dtype)
+    tol = SERVE_TOL[dt]
     got = cd.decode_chunk(*args, **kw)
     torch.cuda.synchronize()
     *want, margin = cd.decode_chunk_reference(*args, **kw,
                                               return_margin=True)
-    near = (margin < NEAR_TIE).cpu()
+    near = (margin < NEAR_TIE[dt]).cpu()
     keep = ~near
     s_k, s_p = got[0].cpu()[:, keep], want[0].cpu()[:, keep]
     for name, a, b in (("t", got[3], want[3]), ("done", got[4], want[4])):
         if not torch.equal(a.cpu()[keep], b.cpu()[keep]):
-            raise AssertionError(f"decode_chunk[{cell}]: {name} differs "
-                                 f"from the plain version")
+            raise AssertionError(f"decode_chunk[{cell}, {dt}]: {name} "
+                                 f"differs from the plain version")
     if not torch.equal(s_k[..., 2:], s_p[..., 2:]):
-        raise AssertionError(f"decode_chunk[{cell}]: pen states differ")
+        raise AssertionError(f"decode_chunk[{cell}, {dt}]: pen states "
+                             f"differ")
     off_err = float((s_k[..., :2] - s_p[..., :2]).abs().max())
     carry_err = max(float((a.cpu()[keep] - b.cpu()[keep]).abs().max())
                     for a, b in ((got[1], want[1]), (got[2], want[2])))
-    if not (off_err <= TOL and carry_err <= TOL):
+    if not (off_err <= tol and carry_err <= tol):
         raise AssertionError(
-            f"decode_chunk[{cell}]: offsets err {off_err}, carry err "
-            f"{carry_err} (tol {TOL})")
+            f"decode_chunk[{cell}, {dt}]: offsets err {off_err}, carry err "
+            f"{carry_err} (tol {tol})")
     ms = cuda_ms(lambda: cd.decode_chunk(*args, **kw), 50)
     plain_ms = cuda_ms(lambda: cd.decode_chunk_reference(*args, **kw), 5)
     # the work this run's data needs: the live row-steps' products
     h, p = hps.dec_rnn_size, 6 * hps.num_mixture + 3
     live = int((got[3] - t0).sum())
     flops = 2 * live * (5 * 4 * h + h * 4 * h + h * p)
-    cp = params["dec"]
-    moved = (nbytes(*(cp[k] for k in cp if k != "wx"), params["out_w"],
+    ws = out_w.element_size()
+    moved = (nbytes(*(dec[k] for k in dec if k != "wx"), out_w,
                     params["out_b"], c0, h0, prev0, u, temps, t0, done0,
                     caps, end, *got)
-             + 5 * 4 * h * 4 + B * 4 * h * 4)  # wx[:5], extra @ wx[5:]
-    bms, by = bound_ms(flops, moved)
-    log("kernel", name="decode_chunk", cell=cell, B=B, K=K, H=h,
+             + 5 * 4 * h * ws + B * 4 * h * 4)  # wx[:5], extra @ wx[5:]
+    bms, by = bound_ms(flops, moved, dt)
+    log("kernel", name="decode_chunk", cell=cell, dtype=dt, B=B, K=K, H=h,
         M=hps.num_mixture, near_tie_rows=int(near.sum()),
-        offset_err=off_err, carry_err=carry_err, tol=TOL, ms=ms,
+        offset_err=off_err, carry_err=carry_err, tol=tol, ms=ms,
         plain_ms=plain_ms, bound_ms=bms, bound_by=by, live_row_steps=live,
         flops=flops, bytes=moved)
     return {"err": max(off_err, carry_err), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by}
+            "bound_ms": bms, "bound_by": by, "library_ms": None}
 
 
-def check_replay(cell):
+def check_replay(cell, dt):
     """replay_chunk vs its plain version at B=64, E=64."""
     import torch
 
     from sketch_rnn_tpu_torch.ops import cuda_decode as cd
 
-    hps, model, params = full_width(cell)
-    dev = torch.device("cuda")
+    hps, model, params = full_width(cell, dt=dt)
+    dec, _ = serving_weights(model, params)
+    dev = torch.device(DEV)
     g = torch.Generator().manual_seed(2)
     z = torch.randn((B, hps.z_size), generator=g).to(dev)
     c0, h0 = (x.contiguous() for x in
@@ -226,30 +274,30 @@ def check_replay(cell):
     xs = xs.to(dev)
     seq_len = torch.randint(1, E + 1, (B,), generator=g,
                             dtype=torch.int32).to(dev)
-    args = (params["dec"], c0, h0, xs, z, seq_len)
-    kw = dict(cell_kind=cell)
+    args = (dec, c0, h0, xs, z, seq_len)
+    kw = dict(cell_kind=cell, compute_dtype=model.dec.compute_dtype)
+    tol = SERVE_TOL[dt]
     got = cd.replay_chunk(*args, **kw)
     torch.cuda.synchronize()
     want = cd.replay_chunk_reference(*args, **kw)
     err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-    if not err <= TOL:
-        raise AssertionError(f"replay_chunk[{cell}]: carry err {err} "
-                             f"(tol {TOL})")
+    if not err <= tol:
+        raise AssertionError(f"replay_chunk[{cell}, {dt}]: carry err {err} "
+                             f"(tol {tol})")
     ms = cuda_ms(lambda: cd.replay_chunk(*args, **kw), 20)
     plain_ms = cuda_ms(lambda: cd.replay_chunk_reference(*args, **kw), 3)
     h = hps.dec_rnn_size
     live = int(seq_len.sum())
     flops = 2 * live * (5 * 4 * h + h * 4 * h)
-    cp = params["dec"]
-    moved = (nbytes(*(cp[k] for k in cp if k != "wx"), c0, h0, xs,
-                    seq_len, *got) + 5 * 4 * h * 4 + B * 4 * h * 4)
-    bms, by = bound_ms(flops, moved)
-    log("kernel", name="replay_chunk", cell=cell, B=B, E=E, H=h,
-        carry_err=err, tol=TOL, ms=ms, plain_ms=plain_ms,
-        bound_ms=bms, bound_by=by, live_row_steps=live, flops=flops,
-        bytes=moved)
+    ws = dec["wh"].element_size()
+    moved = (nbytes(*(dec[k] for k in dec if k != "wx"), c0, h0, xs,
+                    seq_len, *got) + 5 * 4 * h * ws + B * 4 * h * 4)
+    bms, by = bound_ms(flops, moved, dt)
+    log("kernel", name="replay_chunk", cell=cell, dtype=dt, B=B, E=E, H=h,
+        carry_err=err, tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, live_row_steps=live, flops=flops, bytes=moved)
     return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-            "bound_by": by}
+            "bound_by": by, "library_ms": None}
 
 
 def synthetic_prefix(rng, n):
@@ -275,7 +323,7 @@ def check_result(res, cap):
         raise AssertionError(f"request {res.uid}: pen rows not one-hot")
 
 
-def serve_main_path(card):
+def serve_main_path(card, dt):
     import numpy as np
     import torch
 
@@ -284,9 +332,9 @@ def serve_main_path(card):
     from sketch_rnn_tpu_torch.serve.engine import Request, ServeEngine
     from sketch_rnn_tpu_torch.utils import prng
 
-    hps, model, params = full_width("layer_norm")
+    hps, model, params = full_width("layer_norm", dt=dt)
     params["out_b"][2] = -1e9          # pen-suppression sentinel
-    engine = ServeEngine(model, hps, params)
+    engine = ServeEngine(model, hps, params, device=DEV)
     rng = np.random.default_rng(0)
     n_gen, n_enc = 128, 32
     z = rng.normal(size=(n_gen, hps.z_size)).astype(np.float32)
@@ -325,8 +373,8 @@ def serve_main_path(card):
     if launches != {"decode_chunk": chunks, "replay_chunk": 1}:
         raise AssertionError(f"kernel launches {launches}, expected "
                              f"{chunks} decode_chunk and 1 replay_chunk")
-    log("serve", card=card, preset="layer_norm", slots=B, chunk=K,
-        launches=launches,
+    log("serve", card=card, preset="layer_norm", dtype=dt, slots=B,
+        chunk=K, launches=launches,
         generate={k: m_gen[k] for k in (
             "completed", "wall_s", "sketches_per_sec", "chunks",
             "decode_steps", "slot_utilization", "latency_p50_s",
@@ -339,18 +387,18 @@ def serve_main_path(card):
     return launches
 
 
-def serve_small_vs_cpu():
+def serve_small_vs_cpu(dt):
     """A small full-width burst served on the card and by the plain
     versions on the CPU: steps and pens equal, offsets within tolerance.
-    8 requests x 8 steps: a near-tie flip (~1e-7 rounding against CDF
-    edges) has a chance of order 1e-4 here."""
+    8 requests x 8 steps: a near-tie flip has a chance of order 1e-4
+    here."""
     import numpy as np
 
     from sketch_rnn_tpu_torch.serve.engine import Request, ServeEngine
     from sketch_rnn_tpu_torch.utils import prng
     from sketch_rnn_tpu_torch.utils.device import tree_to
 
-    hps, model, params = full_width("layer_norm", seed=3)
+    hps, model, params = full_width("layer_norm", seed=3, dt=dt)
     rng = np.random.default_rng(3)
     z = rng.normal(size=(8, hps.z_size)).astype(np.float32)
 
@@ -360,7 +408,7 @@ def serve_small_vs_cpu():
         out = ServeEngine(model, hps, p, slots=8, device=device).run(reqs)
         return {r.uid: r for r in out["results"]}
 
-    card = burst(None, params)
+    card = burst(DEV, params)
     cpu = burst("cpu", tree_to(params, "cpu"))
     err = 0.0
     for uid, r in cpu.items():
@@ -368,14 +416,15 @@ def serve_small_vs_cpu():
         if a.steps != r.steps or not np.array_equal(
                 a.strokes5[:, 2:], r.strokes5[:, 2:]):
             raise AssertionError(f"request {uid}: card and CPU differ in "
-                                 f"steps or pen states")
+                                 f"steps or pen states ({dt})")
         err = max(err, float(np.abs(a.strokes5 - r.strokes5).max()))
-    if not err <= TOL:
-        raise AssertionError(f"card vs CPU offsets err {err}")
-    log("reference", requests=8, steps=K, max_abs_err=err, tol=TOL)
+    if not err <= SERVE_TOL[dt]:
+        raise AssertionError(f"card vs CPU offsets err {err} ({dt})")
+    log("reference", dtype=dt, requests=8, steps=K, max_abs_err=err,
+        tol=SERVE_TOL[dt])
 
 
-def profile_generate():
+def profile_generate(dt):
     """Where a generate burst's time goes: 64 requests of 64 steps on the
     main-path engine, timed once without and once under torch.profiler
     (CPU and CUDA activity). Reports the kernels' device time by name
@@ -388,9 +437,9 @@ def profile_generate():
     from sketch_rnn_tpu_torch.serve.engine import Request, ServeEngine
     from sketch_rnn_tpu_torch.utils import prng
 
-    hps, model, params = full_width("layer_norm")
+    hps, model, params = full_width("layer_norm", dt=dt)
     params["out_b"][2] = -1e9          # pen-suppression sentinel
-    engine = ServeEngine(model, hps, params)
+    engine = ServeEngine(model, hps, params, device=DEV)
     z = np.random.default_rng(5).normal(
         size=(B, hps.z_size)).astype(np.float32)
 
@@ -413,8 +462,8 @@ def profile_generate():
     total = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: e.self_device_time_total,
                  reverse=True)[:5]
-    log("profile", requests=B, chunks=m["chunks"], wall_ms=wall * 1e3,
-        host_ms_per_chunk=wall * 1e3 / m["chunks"],
+    log("profile", dtype=dt, requests=B, chunks=m["chunks"],
+        wall_ms=wall * 1e3, host_ms_per_chunk=wall * 1e3 / m["chunks"],
         profiled_wall_ms=wall_prof * 1e3, device_ms=total / 1e3,
         device_busy_share=total / 1e6 / wall,
         device_kernels_per_chunk=sum(e.count for e in kernels)
@@ -425,52 +474,70 @@ def profile_generate():
 
 # -- the training path -----------------------------------------------------
 
-DEV = "cuda"
 KEEP = 0.9             # recurrent-dropout keep probability (hps default)
 TRAIN_STEPS, WARM_STEPS = 10, 2
+LSTM_STEPS = 5
 FUSED_SRC = "sketch_rnn_tpu_torch/csrc/fused_rnn.cu"
 FUSED_REPLACES = {     # the Pallas kernel bodies each CUDA kernel replaces
     "fused_lstm_seq_fwd": "sketch_rnn_tpu/ops/pallas_fused.py:621",
     "fused_lstm_seq_bwd": "sketch_rnn_tpu/ops/pallas_fused.py:648",
+    "fused_lstm_fwd": "sketch_rnn_tpu/ops/pallas_fused.py:240",
+    "fused_lstm_bwd": "sketch_rnn_tpu/ops/pallas_fused.py:279",
     "fused_ln_lstm_fwd": "sketch_rnn_tpu/ops/pallas_fused.py:826",
     "fused_ln_lstm_bwd": "sketch_rnn_tpu/ops/pallas_fused.py:900",
 }
-# training kernels vs their plain versions on the card, float32, as the
-# largest error of each output relative to that output's largest
-# magnitude. Both sum 256/512-term (and, for the weight gradients,
+# training kernels vs their plain versions on the card, as the largest
+# error of each output relative to that output's largest magnitude.
+# float32: both sum 256/512-term (and, for the weight gradients,
 # 25,000-term) products in different orders; the gaps compound through
-# 250 steps of recurrence. Measured on an H100 (PERF.md): seq fwd
-# 2.1e-7, seq bwd 4.2e-6, LN fwd 1.5e-6, LN bwd 5.0e-6. TOL keeps a 20x
-# margin over the largest; a wrong gate, mask or LN term errs by ~1e-1.
-FUSED_TOL = 1e-4
+# 250 steps of recurrence. Measured on an H100 (PERF.md): seq fwd 2.1e-7,
+# seq bwd 4.2e-6, LN fwd 1.5e-6, LN bwd 5.0e-6; 1e-4 keeps a 20x margin,
+# a wrong gate, mask or LN term errs by ~1e-1. bfloat16: a stored value
+# or a weight gradient whose two float sums straddle a rounding boundary
+# moves by one ulp, at most 2**-7 = 7.8e-3 of its magnitude (measured on
+# an H100: largest 5.2e-3, fused_lstm fwd's cs).
+FUSED_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # one train step through the kernels vs the same step (state, batch,
 # key) through the plain versions: loss and grad norm relative, the
-# parameter update absolute (Adam's updates are ~lr = 1e-3). Measured on
-# an H100: loss and grad norm 0 (full width) and 1.2e-7 (small step,
-# card vs CPU), updates 6.0e-8 and 3.0e-8. Margins: 85x and 17x.
-STEP_REL_TOL = 1e-5
-UPDATE_TOL = 1e-6
+# parameter update absolute (Adam's updates are ~lr = 1e-3). float32,
+# measured on an H100: loss and grad norm 0 (full width) and 1.2e-7
+# (small step, card vs CPU), updates 6.0e-8 and 3.0e-8; margins 85x and
+# 17x. bfloat16: a rounding flip moves an activation or a gradient
+# element by an ulp; in a parameter whose gradient is at that noise level
+# Adam's normalisation turns it into a few percent of lr. Measured on an
+# H100: loss 2.2e-5 and grad norm 3.8e-5 relative, updates 3.4e-5 (full
+# width) and 2.5e-5 (small step); margins 26x and 2.9x.
+STEP_TOL = {"float32": (1e-5, 1e-6), "bfloat16": (1e-3, 1e-4)}
 
 
 def train_hps(**over):
     """The model of the flagship ``quickdraw345_dp`` preset
     (``sketch_rnn_tpu/cli.py`` PRESETS): conditional VAE, bi-LSTM encoder
     256, LayerNorm-LSTM decoder 512, Nz=128, M=20, 345 classes, fused
-    RNN kernels, recurrent dropout at keep 0.9, B=100, T=250, at float32
-    compute and residuals."""
+    RNN kernels, recurrent dropout at keep 0.9, B=100, T=250; the preset's
+    bfloat16 compute and residuals come from ``over``."""
     from sketch_rnn_tpu_torch import HParams
 
     return HParams(**{**dict(conditional=True, dec_model="layer_norm",
                              num_classes=345, fused_rnn=True), **over})
 
 
-def train_setup(seed=0, **over):
+def vae_hps(**over):
+    """The ``vae`` preset (``sketch_rnn_tpu/cli.py`` PRESETS): conditional
+    VAE, bi-LSTM encoder 256, lstm decoder 512, Nz=128, M=20, no classes,
+    here with the fused RNN kernels, B=100, T=250."""
+    from sketch_rnn_tpu_torch import HParams
+
+    return HParams(**{**dict(conditional=True, dec_model="lstm",
+                             fused_rnn=True), **over})
+
+
+def setup(hps, seed=0):
     import torch
 
     from sketch_rnn_tpu_torch.data.loader import synthetic_loader
     from sketch_rnn_tpu_torch.models.vae import SketchRNN
 
-    hps = train_hps(**over)
     model = SketchRNN(hps)
     params = model.init_params(torch.Generator().manual_seed(seed),
                                device=DEV)
@@ -481,6 +548,8 @@ def train_setup(seed=0, **over):
 FUSED_OUTPUTS = {
     "fused_lstm_seq_fwd": ("hs", "cs"),
     "fused_lstm_seq_bwd": ("dwx", "db", "dwh"),
+    "fused_lstm_fwd": ("hs", "cs", "cT", "hT"),
+    "fused_lstm_bwd": ("dxs", "dx_bias", "dwx", "db", "dwh", "dc0", "dh0"),
     "fused_ln_lstm_fwd": ("hs", "cs", "cT", "hT"),
     "fused_ln_lstm_bwd": ("dxs", "dx_bias", "dwx", "dwh", "dln_gamma",
                           "dln_beta", "dlnc_gamma", "dlnc_beta", "dc0",
@@ -494,6 +563,9 @@ def rel_errs(names, got, want):
     ab = rel = 0.0
     per = {}
     for n, a, b in zip(names, got, want):
+        if a.dtype != b.dtype:
+            raise AssertionError(f"{n}: dtype {a.dtype} vs {b.dtype}")
+        a, b = a.float(), b.float()
         d = float((a - b).abs().max())
         per[n] = d
         ab = max(ab, d)
@@ -510,45 +582,56 @@ def streamed_masks(seed, t, b, h):
     return torch.stack([CF.prng_mask(seed, s, b, h, KEEP) for s in range(t)])
 
 
-def fused_inputs():
-    """The training kernels' inputs as the main path builds them: one
-    synthetic batch, the model's own weights, the decoder's per-example
+def fused_inputs(hps_fn, dt):
+    """The training kernels' inputs as the main path builds them at
+    compute and residual dtype ``dt``: one synthetic batch, the model's
+    own weights (cast to the weight dtype), the decoder's per-example
     gate bias and initial carry from a seeded z, dropout seeds drawn as
-    ``ops/rnn.py`` draws them, and seeded output cotangents."""
+    ``ops/rnn.py`` draws them, and seeded output cotangents (in the
+    residual dtype, as autograd hands them over)."""
     import torch
 
+    from sketch_rnn_tpu_torch.ops import linear as L
     from sketch_rnn_tpu_torch.train.step import batch_to_device
     from sketch_rnn_tpu_torch.utils import prng
 
-    hps, model, params, loader = train_setup()
+    hps, model, params, loader = setup(hps_fn(**dtype_over(dt)))
+    cdt = model.dec.compute_dtype
+    wdt = rdt = torch_dtype(dt)
     batch = batch_to_device(loader.next_batch(), DEV)
     strokes = batch["strokes"].transpose(0, 1).float()
     g = torch.Generator().manual_seed(7)
     b = hps.batch_size
     z = torch.randn((b, hps.z_size), generator=g).to(DEV)
-    extra = model._decoder_extra(params, z, batch["labels"])
+    extra = model._decoder_extra(params, z, batch.get("labels"))
     c0, h0 = (x.contiguous()
               for x in model.decoder_initial_carry(params, z, b))
     seeds = [prng.randint(prng.key(s), 0, 2 ** 31 - 1).to(DEV)
              for s in (1, 2)]
     t = hps.max_seq_len
+    dp, ep = params["dec"], params["enc_fwd"]
 
     def cot(h):
-        return (0.01 * torch.randn((t, b, h), generator=g)).to(DEV)
+        return (0.01 * torch.randn((t, b, h), generator=g)).to(DEV).to(rdt)
 
-    return {"hps": hps, "model": model, "params": params,
+    return {"dt": dt, "hps": hps, "model": model, "params": params,
+            "rdt": None if dt == "float32" else rdt,
+            "enc": {"wx": ep["wx"].to(wdt), "b": ep["b"],
+                    "wh": ep["wh"].to(wdt)},
+            "dec": {"wx": dp["wx"][:5].to(wdt), "wh": dp["wh"].to(wdt)},
             "x_in": strokes[:-1].contiguous(),
-            "x_tgt": strokes[1:].contiguous(),
-            "x_bias": extra @ params["dec"]["wx"][5:], "c0": c0, "h0": h0,
-            "seed_enc": seeds[0], "seed_dec": seeds[1],
-            "dhs_enc": cot(hps.enc_rnn_size), "dhs_dec": cot(hps.dec_rnn_size),
+            "x_tgt": strokes[1:].contiguous(), "z": z,
+            "x_bias": L.matmul(extra, dp["wx"][5:], cdt), "c0": c0,
+            "h0": h0, "seed_enc": seeds[0], "seed_dec": seeds[1],
+            "dhs_enc": cot(hps.enc_rnn_size),
+            "dhs_dec": cot(hps.dec_rnn_size),
             "dcT": (0.01 * torch.randn((b, hps.dec_rnn_size),
                                        generator=g)).to(DEV),
             "dhT": (0.01 * torch.randn((b, hps.dec_rnn_size),
                                        generator=g)).to(DEV)}
 
 
-def hold_fused(name, run, ref, seed_kw, masks_kw, rows):
+def hold_fused(name, dt, run, ref, seed_kw, masks_kw, rows):
     """One training kernel against its plain version on the same inputs
     (``run``/``ref`` take keyword dropout arguments): outputs within
     FUSED_TOL, the in-kernel masks bitwise the streamed ``prng_mask``
@@ -562,49 +645,69 @@ def hold_fused(name, run, ref, seed_kw, masks_kw, rows):
     torch.cuda.synchronize()
     want = ref(**seed_kw)
     ab, rel, per = rel_errs(FUSED_OUTPUTS[name], got, want)
-    same = lambda x, y: all(torch.equal(a, b) for a, b in zip(x, y))
+    same = lambda x, y: all(a is None and b is None or torch.equal(a, b)
+                            for a, b in zip(x, y))
     masks_bitwise, deterministic = same(got, streamed), same(got, again)
-    if not (rel <= FUSED_TOL and masks_bitwise and deterministic):
+    if not (rel <= FUSED_TOL[dt] and masks_bitwise and deterministic):
         raise AssertionError(
-            f"{name}: rel err {rel} (tol {FUSED_TOL}), masks bitwise "
-            f"{masks_bitwise}, deterministic {deterministic}")
-    rows[name] = {"err": ab, "rel_err": rel, "errs": per,
-                  "masks_bitwise": masks_bitwise,
-                  "deterministic": deterministic}
+            f"{name} [{dt}]: rel err {rel} (tol {FUSED_TOL[dt]}), per "
+            f"output {per}, masks bitwise {masks_bitwise}, deterministic "
+            f"{deterministic}")
+    rows.setdefault(name, {})[dt] = {
+        "err": ab, "rel_err": rel, "errs": per,
+        "masks_bitwise": masks_bitwise, "deterministic": deterministic}
     return got
 
 
-def time_fused(name, run, ref, kw, iters, flops, moved, rows, **extra):
+def time_fused(name, dt, run, ref, kw, iters, flops, moved, rows, **extra):
     ms = cuda_ms(lambda: run(**kw), iters)
     plain_ms = cuda_ms(lambda: ref(**kw), 2)
-    bms, by = bound_ms(flops, moved)
-    rows[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                      library_ms=None, **extra)
-    log("kernel", name=name, tol=FUSED_TOL, flops=flops, bytes=moved,
-        **rows[name])
+    bms, by = bound_ms(flops, moved, dt)
+    r = rows[name][dt]
+    r.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+             library_ms=None, **extra)
+    log("kernel", name=name, dtype=dt, tol=FUSED_TOL[dt], flops=flops,
+        bytes=moved, **r)
 
 
-def cudnn_lstm(ep, forget_bias):
-    """``torch.nn.LSTM`` (cuDNN) holding the same weights: gates permuted
-    from (i, g, f, o) to (i, f, g, o), the forget bias folded into the
-    input bias. A yardstick only: the port never calls it."""
+def cudnn_lstm(wx, wh, b, forget_bias, dtype):
+    """``torch.nn.LSTM`` (cuDNN) holding the same weights (``wx [D, 4H]``,
+    float32 masters): gates permuted from (i, g, f, o) to (i, f, g, o),
+    the forget bias folded into the input bias, in ``dtype``. A yardstick
+    only: the port never calls it."""
     import torch
 
-    d, g4 = ep["wx"].shape
+    d, g4 = wx.shape
     lstm = torch.nn.LSTM(d, g4 // 4).to(DEV)
 
     def perm(w):
         i, g, f, o = w.chunk(4, 0)
         return torch.cat([i, f, g, o], 0)
 
-    b = ep["b"].clone()
+    b = b.clone()
     b[g4 // 2:3 * g4 // 4] += forget_bias
     with torch.no_grad():
-        lstm.weight_ih_l0.copy_(perm(ep["wx"].T))
-        lstm.weight_hh_l0.copy_(perm(ep["wh"].T))
+        lstm.weight_ih_l0.copy_(perm(wx.T))
+        lstm.weight_hh_l0.copy_(perm(wh.T))
         lstm.bias_ih_l0.copy_(perm(b))
         lstm.bias_hh_l0.zero_()
+    lstm = lstm.to(dtype)
+    lstm.flatten_parameters()
     return lstm
+
+
+def library_times(lstm, xs, h0, c0, dhs, grad_inputs):
+    """cuDNN's training forward and its backward alone (weights, and the
+    ``grad_inputs`` among ``(xs, h0, c0)``); ``(fwd_ms, bwd_ms, out)``."""
+    import torch
+
+    hc = (h0[None], c0[None])
+    out, _ = lstm(xs, hc)
+    fwd = cuda_ms(lambda: lstm(xs, hc), 20)
+    wrt = list(lstm.parameters()) + list(grad_inputs)
+    bwd = cuda_ms(lambda: torch.autograd.grad(
+        out, wrt, dhs.to(out.dtype), retain_graph=True), 10)
+    return fwd, bwd, out.detach()
 
 
 def check_lstm_seq(inp, rows):
@@ -614,57 +717,127 @@ def check_lstm_seq(inp, rows):
 
     from sketch_rnn_tpu_torch.ops import cuda_fused as CF
 
-    ep, cell = inp["params"]["enc_fwd"], inp["model"].enc_fwd
+    dt, ep = inp["dt"], inp["enc"]
+    cell = inp["model"].enc_fwd
     xs, dhs = inp["x_tgt"], inp["dhs_enc"]
     t, b, d = xs.shape
     h = ep["wh"].shape[0]
     zero = torch.zeros((b, h), device=DEV)
     fargs = dict(xs=xs, wx=ep["wx"], b=ep["b"], wh=ep["wh"], c0=zero,
-                 h0=zero, forget_bias=cell.forget_bias)
+                 h0=zero, forget_bias=cell.forget_bias,
+                 residual_dtype=inp["rdt"])
     seed_kw = dict(dropout_seed=inp["seed_enc"], keep_prob=KEEP)
     masks_kw = dict(masks=streamed_masks(inp["seed_enc"], t, b, h),
                     keep_prob=KEEP)
-    hs, cs = hold_fused("fused_lstm_seq_fwd",
+    hs, cs = hold_fused("fused_lstm_seq_fwd", dt,
                         lambda **k: CF.lstm_seq_fwd(**fargs, **k),
                         lambda **k: CF.lstm_seq_fwd_reference(**fargs, **k),
                         seed_kw, masks_kw, rows)
     bargs = dict(xs=xs, wx=ep["wx"], b=ep["b"], wh=ep["wh"], h0=zero, hs=hs,
                  cs=cs, dhs=dhs, forget_bias=cell.forget_bias)
-    grads = hold_fused("fused_lstm_seq_bwd",
+    grads = hold_fused("fused_lstm_seq_bwd", dt,
                        lambda **k: CF.lstm_seq_bwd(**bargs, **k),
                        lambda **k: CF.lstm_seq_bwd_reference(**bargs, **k),
                        seed_kw, masks_kw, rows)
 
     # cuDNN's LSTM computes the same function without dropout: check it
-    # does, then time its training forward and its backward
-    lstm = cudnn_lstm(ep, cell.forget_bias)
-    hc = (zero[None], zero[None])
-    out, _ = lstm(xs, hc)
+    # does (at float32), then time its training forward and its backward
+    master = inp["params"]["enc_fwd"]
+    lstm = cudnn_lstm(master["wx"], master["wh"], master["b"],
+                      cell.forget_bias, torch_dtype(dt))
+    lib_fwd, lib_bwd, out = library_times(
+        lstm, xs.to(torch_dtype(dt)), zero.to(torch_dtype(dt)),
+        zero.to(torch_dtype(dt)), dhs, ())
     nodrop = CF.lstm_seq_fwd(**fargs)[0]
-    lib_err = float((out.detach() - nodrop).abs().max())
-    if not lib_err <= FUSED_TOL:
+    lib_err = float((out.float() - nodrop.float()).abs().max())
+    if dt == "float32" and not lib_err <= FUSED_TOL[dt]:
         raise AssertionError(f"cuDNN LSTM vs fused_lstm_seq: {lib_err}")
-    lib_fwd = cuda_ms(lambda: lstm(xs, hc), 20)
-    params = list(lstm.parameters())
-    lib_bwd = cuda_ms(lambda: torch.autograd.grad(out, params, dhs,
-                                                  retain_graph=True), 10)
 
     g4 = 4 * h
     fwd_flops = 2 * t * b * (d + h) * g4
-    time_fused("fused_lstm_seq_fwd", CF.lstm_seq_fwd,
+    time_fused("fused_lstm_seq_fwd", dt, CF.lstm_seq_fwd,
                CF.lstm_seq_fwd_reference, {**fargs, **seed_kw}, 20,
                fwd_flops, nbytes(xs, ep["wx"], ep["b"], ep["wh"], zero, zero,
                                  inp["seed_enc"], hs, cs), rows,
                cudnn_err_no_dropout=lib_err)
-    rows["fused_lstm_seq_fwd"]["library_ms"] = lib_fwd
-    time_fused("fused_lstm_seq_bwd", CF.lstm_seq_bwd,
+    rows["fused_lstm_seq_fwd"][dt]["library_ms"] = lib_fwd
+    time_fused("fused_lstm_seq_bwd", dt, CF.lstm_seq_bwd,
                CF.lstm_seq_bwd_reference, {**bargs, **seed_kw}, 10,
                fwd_flops + 2 * t * b * h * g4 + 2 * t * b * (d + h + 1) * g4,
                nbytes(xs, ep["wx"], ep["b"], ep["wh"], zero, hs, cs, dhs,
                       inp["seed_enc"], *grads), rows)
-    rows["fused_lstm_seq_bwd"]["library_ms"] = lib_bwd
-    log("kernel_library", name="fused_lstm_seq", library="torch.nn.LSTM "
-        "(cuDNN), TF32 off", fwd_ms=lib_fwd, bwd_ms=lib_bwd,
+    rows["fused_lstm_seq_bwd"][dt]["library_ms"] = lib_bwd
+    log("kernel_library", name="fused_lstm_seq", dtype=dt,
+        library=f"torch.nn.LSTM (cuDNN, {dt}), TF32 off", fwd_ms=lib_fwd,
+        bwd_ms=lib_bwd, err_vs_kernel_no_dropout=lib_err)
+
+
+def check_lstm(inp, rows):
+    """fused_lstm forward and backward (the ``vae`` preset's lstm
+    decoder) at B=100, T=250, H=512, D=5, with its x_bias and its
+    nonzero initial carry, dropout seeded; cuDNN's LSTM over the unfolded
+    inputs [x; z] (D=133) as its yardstick."""
+    import torch
+
+    from sketch_rnn_tpu_torch.ops import cuda_fused as CF
+
+    dt, w = inp["dt"], inp["dec"]
+    dp, cell = inp["params"]["dec"], inp["model"].dec
+    xs, dhs = inp["x_in"], inp["dhs_dec"]
+    t, b, d = xs.shape
+    h = w["wh"].shape[0]
+    common = dict(xs=xs, wx=w["wx"], b=dp["b"], wh=w["wh"],
+                  forget_bias=cell.forget_bias, x_bias=inp["x_bias"])
+    fargs = dict(common, c0=inp["c0"], h0=inp["h0"],
+                 residual_dtype=inp["rdt"])
+    seed_kw = dict(dropout_seed=inp["seed_dec"], keep_prob=KEEP)
+    masks_kw = dict(masks=streamed_masks(inp["seed_dec"], t, b, h),
+                    keep_prob=KEEP)
+    hs, cs, ct, ht = hold_fused(
+        "fused_lstm_fwd", dt, lambda **k: CF.lstm_fwd(**fargs, **k),
+        lambda **k: CF.lstm_fwd_reference(**fargs, **k), seed_kw, masks_kw,
+        rows)
+    bargs = dict(common, h0=inp["h0"], hs=hs, cs=cs, dhs=dhs,
+                 dcT=inp["dcT"], dhT=inp["dhT"])
+    grads = hold_fused(
+        "fused_lstm_bwd", dt, lambda **k: CF.lstm_bwd(**bargs, **k),
+        lambda **k: CF.lstm_bwd_reference(**bargs, **k), seed_kw, masks_kw,
+        rows)
+
+    # the same function without dropout, x_bias unfolded: cuDNN over
+    # [x; z] with the full input weight, from the same (h0, c0)
+    tdt = torch_dtype(dt)
+    lstm = cudnn_lstm(dp["wx"], dp["wh"], dp["b"], cell.forget_bias, tdt)
+    x_full = torch.cat([xs, inp["z"][None].expand(t, b, -1)], -1).to(tdt)
+    x_full.requires_grad_(True)
+    h0 = inp["h0"].to(tdt).requires_grad_(True)
+    c0 = inp["c0"].to(tdt).requires_grad_(True)
+    lib_fwd, lib_bwd, out = library_times(lstm, x_full, h0, c0, dhs,
+                                          (x_full, h0, c0))
+    nodrop = CF.lstm_fwd(**fargs)[0]
+    lib_err = float((out.float() - nodrop.float()).abs().max())
+    if dt == "float32" and not lib_err <= FUSED_TOL[dt]:
+        raise AssertionError(f"cuDNN LSTM vs fused_lstm: {lib_err}")
+
+    g4 = 4 * h
+    fwd_flops = 2 * t * b * (d + h) * g4
+    params_in = (w["wx"], dp["b"], w["wh"], inp["x_bias"])
+    time_fused("fused_lstm_fwd", dt, CF.lstm_fwd, CF.lstm_fwd_reference,
+               {**fargs, **seed_kw}, 10, fwd_flops,
+               nbytes(xs, *params_in, inp["c0"], inp["h0"],
+                      inp["seed_dec"], hs, cs, ct, ht), rows,
+               cudnn_err_no_dropout=lib_err)
+    rows["fused_lstm_fwd"][dt]["library_ms"] = lib_fwd
+    time_fused("fused_lstm_bwd", dt, CF.lstm_bwd, CF.lstm_bwd_reference,
+               {**bargs, **seed_kw}, 5,
+               fwd_flops + 2 * t * b * (d + h) * g4
+               + 2 * t * b * (d + h + 1) * g4,
+               nbytes(xs, *params_in, inp["h0"], hs, cs, dhs, inp["dcT"],
+                      inp["dhT"], inp["seed_dec"], *grads), rows)
+    rows["fused_lstm_bwd"][dt]["library_ms"] = lib_bwd
+    log("kernel_library", name="fused_lstm", dtype=dt,
+        library=f"torch.nn.LSTM (cuDNN, {dt}) over [x; z], D={d + 128}, "
+                f"TF32 off", fwd_ms=lib_fwd, bwd_ms=lib_bwd,
         err_vs_kernel_no_dropout=lib_err)
 
 
@@ -673,47 +846,50 @@ def check_ln_lstm(inp, rows):
     H=512, with its x_bias, dropout seeded."""
     from sketch_rnn_tpu_torch.ops import cuda_fused as CF
 
+    dt, w = inp["dt"], inp["dec"]
     dp, cell = inp["params"]["dec"], inp["model"].dec
     xs, dhs = inp["x_in"], inp["dhs_dec"]
     t, b, d = xs.shape
-    h = dp["wh"].shape[0]
+    h = w["wh"].shape[0]
     ln = dict(ln_gamma=dp["ln_gamma"], ln_beta=dp["ln_beta"],
               lnc_gamma=dp["lnc_gamma"], lnc_beta=dp["lnc_beta"])
-    common = dict(xs=xs, wx=dp["wx"][:d], wh=dp["wh"], **ln,
+    common = dict(xs=xs, wx=w["wx"], wh=w["wh"], **ln,
                   forget_bias=cell.forget_bias, x_bias=inp["x_bias"])
-    fargs = dict(common, c0=inp["c0"], h0=inp["h0"])
+    fargs = dict(common, c0=inp["c0"], h0=inp["h0"],
+                 residual_dtype=inp["rdt"])
     seed_kw = dict(dropout_seed=inp["seed_dec"], keep_prob=KEEP)
     masks_kw = dict(masks=streamed_masks(inp["seed_dec"], t, b, h),
                     keep_prob=KEEP)
     hs, cs, ct, ht = hold_fused(
-        "fused_ln_lstm_fwd", lambda **k: CF.ln_lstm_fwd(**fargs, **k),
+        "fused_ln_lstm_fwd", dt, lambda **k: CF.ln_lstm_fwd(**fargs, **k),
         lambda **k: CF.ln_lstm_fwd_reference(**fargs, **k), seed_kw,
         masks_kw, rows)
     bargs = dict(common, h0=inp["h0"], hs=hs, cs=cs, dhs=dhs,
                  dcT=inp["dcT"], dhT=inp["dhT"])
     grads = hold_fused(
-        "fused_ln_lstm_bwd", lambda **k: CF.ln_lstm_bwd(**bargs, **k),
+        "fused_ln_lstm_bwd", dt, lambda **k: CF.ln_lstm_bwd(**bargs, **k),
         lambda **k: CF.ln_lstm_bwd_reference(**bargs, **k), seed_kw,
         masks_kw, rows)
     g4 = 4 * h
     fwd_flops = 2 * t * b * (d + h) * g4
-    params_in = (dp["wx"][:d], dp["wh"], *ln.values(), inp["x_bias"])
-    time_fused("fused_ln_lstm_fwd", CF.ln_lstm_fwd,
+    params_in = (w["wx"], w["wh"], *ln.values(), inp["x_bias"])
+    time_fused("fused_ln_lstm_fwd", dt, CF.ln_lstm_fwd,
                CF.ln_lstm_fwd_reference, {**fargs, **seed_kw}, 10,
                fwd_flops, nbytes(xs, *params_in, inp["c0"], inp["h0"],
                                  inp["seed_dec"], hs, cs, ct, ht), rows)
-    time_fused("fused_ln_lstm_bwd", CF.ln_lstm_bwd,
+    time_fused("fused_ln_lstm_bwd", dt, CF.ln_lstm_bwd,
                CF.ln_lstm_bwd_reference, {**bargs, **seed_kw}, 5,
                3 * fwd_flops,
                nbytes(xs, *params_in, inp["h0"], hs, cs, dhs, inp["dcT"],
                       inp["dhT"], inp["seed_dec"], *grads), rows)
 
 
-def train_main_path(card):
-    """The training main path: ``train/loop.train`` on the flagship model
-    at full width, a WARM_STEPS-step warm-up run, then a TRAIN_STEPS-step
-    run from the same weights, timed, with the kernels' launch counters
-    zeroed just before and read just after."""
+def train_main_path(card, hps, label, per_step, steps, warm):
+    """A training main path: ``train/loop.train`` at full width, a
+    ``warm``-step warm-up run, then a ``steps``-step run from the same
+    weights, timed, with the kernels' launch counters zeroed just before
+    and read just after; ``per_step``: the launches each step must make.
+    """
     import math
 
     import torch
@@ -721,31 +897,29 @@ def train_main_path(card):
     from sketch_rnn_tpu_torch.ops import cuda_fused as CF
     from sketch_rnn_tpu_torch.train.loop import train
 
-    hps, model, params, loader = train_setup()
-    train(hps, loader, seed=0, num_steps=WARM_STEPS, params=params,
-          device=DEV)
+    hps, model, params, loader = setup(hps)
+    train(hps, loader, seed=0, num_steps=warm, params=params, device=DEV)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     CF.reset_launch_counts()
     t0 = time.perf_counter()
-    state, rows = train(hps, loader, seed=0, num_steps=TRAIN_STEPS,
+    state, rows = train(hps, loader, seed=0, num_steps=steps,
                         params=params, device=DEV)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = CF.launch_counts()
-    n = TRAIN_STEPS
-    want = {"fused_lstm_seq_fwd": 2 * n, "fused_lstm_seq_bwd": 2 * n,
-            "fused_ln_lstm_fwd": n, "fused_ln_lstm_bwd": n}
+    want = {k: per_step.get(k, 0) * steps for k in launches}
     if launches != want:
         raise AssertionError(f"training kernel launches {launches}, "
                              f"expected {want}")
     for r in rows:
         if not all(math.isfinite(r[k]) for k in ("loss", "grad_norm", "kl")):
             raise AssertionError(f"step {r['step']}: non-finite metrics {r}")
-    log("train", card=card, preset="quickdraw345_dp (float32)",
-        batch=hps.batch_size, max_seq_len=hps.max_seq_len,
-        steps=n, warmup_steps=WARM_STEPS, launches=launches,
-        ms_per_step=wall * 1e3 / n, steps_per_s=n / wall,
+    log("train" if label.startswith("quickdraw") else "train_lstm",
+        card=card, preset=label, batch=hps.batch_size,
+        max_seq_len=hps.max_seq_len, steps=steps, warmup_steps=warm,
+        launches=launches, ms_per_step=wall * 1e3 / steps,
+        steps_per_s=steps / wall,
         peak_mem_bytes=torch.cuda.max_memory_allocated(),
         per_step=[{k: r[k] for k in ("step", "loss", "recon", "kl",
                                      "grad_norm", "lr")} for r in rows])
@@ -755,11 +929,12 @@ def train_main_path(card):
 @contextlib.contextmanager
 def plain_kernels():
     """Run the training kernels' plain versions on CUDA tensors (for the
-    reference step only): swaps the four kernel wrappers of
+    reference step only): swaps the six kernel wrappers of
     ``ops/cuda_fused.py`` for their plain versions, then restores them."""
     from sketch_rnn_tpu_torch.ops import cuda_fused as CF
 
-    names = ("lstm_seq_fwd", "lstm_seq_bwd", "ln_lstm_fwd", "ln_lstm_bwd")
+    names = ("lstm_seq_fwd", "lstm_seq_bwd", "lstm_fwd", "lstm_bwd",
+             "ln_lstm_fwd", "ln_lstm_bwd")
     saved = {n: getattr(CF, n) for n in names}
     for n in names:
         setattr(CF, n, getattr(CF, n + "_reference"))
@@ -801,15 +976,16 @@ def compare_steps(state, a, b):
             "update_max": upd_max}
 
 
-def hold_step(what, gaps):
-    if not (gaps["loss_rel_err"] <= STEP_REL_TOL
-            and gaps["grad_norm_rel_err"] <= STEP_REL_TOL
-            and gaps["update_err"] <= UPDATE_TOL):
-        raise AssertionError(f"{what}: {gaps} (tol rel {STEP_REL_TOL}, "
-                             f"update {UPDATE_TOL})")
+def hold_step(what, gaps, dt):
+    rel_tol, upd_tol = STEP_TOL[dt]
+    if not (gaps["loss_rel_err"] <= rel_tol
+            and gaps["grad_norm_rel_err"] <= rel_tol
+            and gaps["update_err"] <= upd_tol):
+        raise AssertionError(f"{what} [{dt}]: {gaps} (tol rel {rel_tol}, "
+                             f"update {upd_tol})")
 
 
-def train_reference(hps, model, loader, state):
+def train_reference(hps_fn, dt, hps, model, loader, state):
     """One full-width step through the kernels against the same step
     (state, batch, key) through the plain versions on the card, from the
     main path's final state (Adam's moments carry history there, so an
@@ -829,11 +1005,12 @@ def train_reference(hps, model, loader, state):
     with plain_kernels():
         plain = step(state, batch, key)
     full = compare_steps(state, kern, plain)
-    hold_step("full-width step, kernels vs plain versions", full)
+    hold_step("full-width step, kernels vs plain versions", full, dt)
 
-    small = train_hps(batch_size=8, max_seq_len=24, enc_rnn_size=16,
-                      dec_rnn_size=32, z_size=8, num_mixture=3,
-                      num_classes=5, class_embed_size=4)
+    small = hps_fn(batch_size=8, max_seq_len=24, enc_rnn_size=16,
+                   dec_rnn_size=32, z_size=8, num_mixture=3,
+                   **({"num_classes": 5, "class_embed_size": 4}
+                      if hps.num_classes else {}), **dtype_over(dt))
     sm = SketchRNN(small)
     params = sm.init_params(torch.Generator().manual_seed(4), device="cpu")
     sl, _ = synthetic_loader(small, num=64, seed=4)
@@ -844,10 +1021,10 @@ def train_reference(hps, model, loader, state):
     on_card = make_train_step(sm, small, device=DEV)(state_to(st, DEV),
                                                      batch, key)
     vs_cpu = compare_steps(st, on_card, on_cpu)
-    hold_step("small step, card vs CPU", vs_cpu)
-    log("train_reference", step=state.step, kernels_vs_plain=full,
-        small_card_vs_cpu=vs_cpu, rel_tol=STEP_REL_TOL,
-        update_tol=UPDATE_TOL)
+    hold_step("small step, card vs CPU", vs_cpu, dt)
+    log("train_reference", dec_model=hps.dec_model, dtype=dt,
+        step=state.step, kernels_vs_plain=full, small_card_vs_cpu=vs_cpu,
+        rel_tol=STEP_TOL[dt][0], update_tol=STEP_TOL[dt][1])
 
 
 def profile_train(hps, loader, state):
@@ -877,12 +1054,23 @@ def profile_train(hps, loader, state):
     total = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: e.self_device_time_total,
                  reverse=True)[:8]
-    log("train_profile", steps=2, wall_ms=wall * 1e3,
-        profiled_wall_ms=wall_prof * 1e3, device_ms=total / 1e3,
-        device_busy_share=total / 1e6 / wall,
+    log("train_profile", dtype=hps.compute_dtype, steps=2,
+        wall_ms=wall * 1e3, profiled_wall_ms=wall_prof * 1e3,
+        device_ms=total / 1e3, device_busy_share=total / 1e6 / wall,
         device_kernels_per_step=sum(e.count for e in kernels) / 2,
         top=[{"name": e.key[:60], "device_ms": e.self_device_time_total
               / 1e3, "count": e.count} for e in top])
+
+
+# the kernels line: (name, source, TPU kernel, the dtype of its main path)
+KERNEL_ROWS = (
+    ("decode_chunk", "sketch_rnn_tpu_torch/csrc/decode.cu",
+     "sketch_rnn_tpu/ops/pallas_decode.py:182", "bfloat16"),
+    ("replay_chunk", "sketch_rnn_tpu_torch/csrc/decode.cu",
+     "sketch_rnn_tpu/ops/pallas_decode.py:339", "bfloat16"),
+    *((n, FUSED_SRC, r, "float32" if n.startswith("fused_lstm_")
+       and not n.startswith("fused_lstm_seq") else "bfloat16")
+      for n, r in FUSED_REPLACES.items()))
 
 
 def main():
@@ -907,43 +1095,61 @@ def main():
     log("build", seconds=time.perf_counter() - t0,
         flags=" ".join(_build.NVCC_FLAGS))
 
-    dec = {cell: check_decode(cell) for cell in ("layer_norm", "lstm")}
-    rep = {cell: check_replay(cell) for cell in ("layer_norm", "lstm")}
-    fused = {}
-    inp = fused_inputs()
-    check_lstm_seq(inp, fused)
-    check_ln_lstm(inp, fused)
-    del inp
-    launches = serve_main_path(card)
-    serve_small_vs_cpu()
-    profile_generate()
-    train_launches, (hps, model, loader, state) = train_main_path(card)
-    train_reference(hps, model, loader, state)
+    rows = {"decode_chunk": {}, "replay_chunk": {}}
+    for dt in DTYPES:
+        dec = {cell: check_decode(cell, dt) for cell in ("layer_norm",
+                                                         "lstm")}
+        rep = {cell: check_replay(cell, dt) for cell in ("layer_norm",
+                                                         "lstm")}
+        for name, res in (("decode_chunk", dec), ("replay_chunk", rep)):
+            rows[name][dt] = dict(res["layer_norm"], err=max(
+                r["err"] for r in res.values()))
+    for dt in DTYPES:
+        inp = fused_inputs(train_hps, dt)
+        check_lstm_seq(inp, rows)
+        check_ln_lstm(inp, rows)
+        del inp
+        inp = fused_inputs(vae_hps, dt)
+        check_lstm(inp, rows)
+        del inp
+    torch.cuda.empty_cache()
+
+    launches = serve_main_path(card, "bfloat16")
+    serve_main_path(card, "float32")
+    for dt in DTYPES:
+        serve_small_vs_cpu(dt)
+    profile_generate("bfloat16")
+
+    seq2 = {"fused_lstm_seq_fwd": 2, "fused_lstm_seq_bwd": 2}
+    flagship = train_hps(**dtype_over("bfloat16"))
+    train_launches, (hps, model, loader, state) = train_main_path(
+        card, flagship, "quickdraw345_dp (bfloat16 compute and residuals)",
+        {**seq2, "fused_ln_lstm_fwd": 1, "fused_ln_lstm_bwd": 1},
+        TRAIN_STEPS, WARM_STEPS)
+    train_reference(train_hps, "bfloat16", hps, model, loader, state)
     profile_train(hps, loader, state)
+    del state
+    lstm_launches, (hps, model, loader, state) = train_main_path(
+        card, vae_hps(), "vae (lstm decoder, fused_rnn=true, float32)",
+        {**seq2, "fused_lstm_fwd": 1, "fused_lstm_bwd": 1}, LSTM_STEPS, 1)
+    train_reference(vae_hps, "float32", hps, model, loader, state)
+    main_launches = {**launches, **train_launches,
+                     "fused_lstm_fwd": lstm_launches["fused_lstm_fwd"],
+                     "fused_lstm_bwd": lstm_launches["fused_lstm_bwd"]}
 
-    def row(name, line, res):
-        main_ = res["layer_norm"]
-        return {"name": name, "route": "cuda",
-                "source": "sketch_rnn_tpu_torch/csrc/decode.cu",
-                "replaces": f"sketch_rnn_tpu/ops/pallas_decode.py:{line}",
-                "launches": launches[name],
-                "max_abs_err": max(r["err"] for r in res.values()),
-                "ms": main_["ms"], "plain_ms": main_["plain_ms"],
-                "bound_ms": main_["bound_ms"],
-                "bound_by": main_["bound_by"], "library_ms": None}
-
-    def fused_row(name):
-        r = fused[name]
-        return {"name": name, "route": "cuda", "source": FUSED_SRC,
-                "replaces": FUSED_REPLACES[name],
-                "launches": train_launches[name], "max_abs_err": r["err"],
-                **{k: r[k] for k in ("ms", "plain_ms", "bound_ms",
-                                     "bound_by", "library_ms")}}
+    def row(name, source, replaces, dt):
+        r = rows[name][dt]
+        other = next(d for d in DTYPES if d != dt)
+        o = rows[name][other]
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": main_launches[name],
+                "max_abs_err": r["err"], **{k: r[k] for k in keys},
+                "dtype": dt, "at_" + other: {"max_abs_err": o["err"],
+                                             **{k: o[k] for k in keys}}}
 
     log("done", seconds=time.perf_counter() - t_start)
-    print(json.dumps({"kernels": [row("decode_chunk", 182, dec),
-                                  row("replay_chunk", 339, rep)]
-                      + [fused_row(n) for n in FUSED_REPLACES]}))
+    print(json.dumps({"kernels": [row(*k) for k in KERNEL_ROWS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

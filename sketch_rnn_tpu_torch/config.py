@@ -83,8 +83,8 @@ class HParams:
 
     # --- precision / parallelism ---
     transfer_dtype: str = "float32"
-    compute_dtype: str = "float32"     # matmul operand dtype; the port's
-    #   serving kernels refuse "bfloat16" (a later slice)
+    compute_dtype: str = "float32"     # matmul operand dtype ("bfloat16":
+    #   bf16 operands, f32 accumulation, in every kernel)
     fused_rnn: bool = False
     fused_residual_dtype: str = "float32"
     remat: bool = False

@@ -47,8 +47,15 @@
 //
 // Numerics: f32 throughout, no fast-math intrinsics (the sampler's
 // log(max(u, 1e-12)) and cos(2 pi u) feed the strokes directly), rsqrtf
-// for the layer norm as ops/linear.py uses rsqrt.
+// for the layer norm as ops/linear.py uses rsqrt. At compute_dtype
+// bfloat16 the three weight matrices (wx, wh, out_w) arrive as bf16 (W)
+// and every product rounds its activation operand (the stroke, h, the new
+// h) to bf16 and accumulates in float -- ops/linear.py::matmul's contract,
+// as pallas_decode._cell_step and its out_w product apply it -- so each
+// product is exact and only the order of the float sums differs from the
+// plain version. The carry, the layer norms and the sampler stay float.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -60,9 +67,25 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kQuarters = 4;  // H split of the MDN projection
 constexpr float kTwoPi = 6.28318530717958647692f;
 
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+
+// v rounded to W's precision (round to nearest even), held as a float
+template <typename W>
+__device__ __forceinline__ float rnd(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ float rnd<bf16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+template <typename W>
 struct CellParams {
-  const float* wx;         // [XD, 4H] (the stroke rows of the input weight)
-  const float* wh;         // [H, 4H]
+  const W* wx;             // [XD, 4H] (the stroke rows of the input weight)
+  const W* wh;             // [H, 4H]
   const float* b;          // [4H] (lstm) or nullptr (layer_norm)
   const float* ln_gamma;   // [4, H] (layer_norm only)
   const float* ln_beta;    // [4, H]
@@ -107,8 +130,8 @@ __device__ void block_sum(float (&v)[N], float* s_red) {
 // One cell step for this block's row. Reads s_x (the XD input features),
 // s_c and s_h (the carry); writes the new carry to s_cn / s_hn.
 // s_pre holds 4H floats. extra_row: this row's extra_xp [4H] or nullptr.
-template <int XD>
-__device__ void cell_step(const CellParams& p, const float* s_x,
+template <int XD, typename W>
+__device__ void cell_step(const CellParams<W>& p, const float* s_x,
                           const float* extra_row, const float* s_c,
                           const float* s_h, float* s_pre, float* s_cn,
                           float* s_hn, float* s_red) {
@@ -120,18 +143,19 @@ __device__ void cell_step(const CellParams& p, const float* s_x,
       const int col = g * H + j;
       float xp = 0.0f;
 #pragma unroll
-      for (int k = 0; k < XD; ++k) xp = fmaf(s_x[k], p.wx[k * G + col], xp);
+      for (int k = 0; k < XD; ++k)
+        xp = fmaf(rnd<W>(s_x[k]), to_f(p.wx[k * G + col]), xp);
       if (extra_row != nullptr) xp = xp + extra_row[col];
       if (p.b != nullptr) xp = xp + p.b[col];
       s_pre[col] = xp;
       acc[g] = 0.0f;
     }
-    const float* w = p.wh + j;
+    const W* w = p.wh + j;
 #pragma unroll 4
     for (int k = 0; k < H; ++k, w += G) {
-      const float hk = s_h[k];
+      const float hk = rnd<W>(s_h[k]);
 #pragma unroll
-      for (int g = 0; g < 4; ++g) acc[g] = fmaf(hk, w[g * H], acc[g]);
+      for (int g = 0; g < 4; ++g) acc[g] = fmaf(hk, to_f(w[g * H]), acc[g]);
     }
 #pragma unroll
     for (int g = 0; g < 4; ++g) s_pre[g * H + j] += acc[g];
@@ -241,8 +265,9 @@ __host__ __device__ inline size_t decode_smem_floats(int H, int P, int M) {
          + (size_t)kWarps * 4 + 4;  // s_red
 }
 
+template <typename W>
 __global__ void __launch_bounds__(kThreads)
-decode_chunk_kernel(CellParams p, const float* __restrict__ out_w,
+decode_chunk_kernel(CellParams<W> p, const W* __restrict__ out_w,
                     const float* __restrict__ out_b,
                     const float* __restrict__ c0,
                     const float* __restrict__ h0,
@@ -291,7 +316,7 @@ decode_chunk_kernel(CellParams p, const float* __restrict__ out_w,
   const int kq = (H + kQuarters - 1) / kQuarters;
 
   for (int s = 0; s < K; ++s) {
-    cell_step<5>(p, s_x, extra_row, s_c, s_h, s_pre, s_cn, s_hn, s_red);
+    cell_step<5, W>(p, s_x, extra_row, s_c, s_h, s_pre, s_cn, s_hn, s_red);
 
     // raw = h_new @ out_w + out_b; H split into four quarters
     for (int col0 = 0; col0 < P; col0 += 128) {
@@ -300,7 +325,7 @@ decode_chunk_kernel(CellParams p, const float* __restrict__ out_w,
       if (col < P) {
         const int k1 = min(H, (quarter + 1) * kq);
         for (int k = quarter * kq; k < k1; ++k)
-          acc = fmaf(s_hn[k], out_w[(size_t)k * P + col], acc);
+          acc = fmaf(rnd<W>(s_hn[k]), to_f(out_w[(size_t)k * P + col]), acc);
       }
       s_part[quarter * 128 + lane128] = acc;
       __syncthreads();
@@ -395,8 +420,9 @@ __host__ __device__ inline size_t replay_smem_floats(int H) {
   return (size_t)4 * H + (size_t)4 * H + 8 + (size_t)kWarps * 4 + 4;
 }
 
+template <typename W>
 __global__ void __launch_bounds__(kThreads)
-replay_chunk_kernel(CellParams p, const float* __restrict__ c0,
+replay_chunk_kernel(CellParams<W> p, const float* __restrict__ c0,
                     const float* __restrict__ h0,
                     const float* __restrict__ xs,
                     const float* __restrict__ extra_xp,
@@ -424,7 +450,7 @@ replay_chunk_kernel(CellParams p, const float* __restrict__ c0,
     if (threadIdx.x < 5)
       s_x[threadIdx.x] = xs[((size_t)s * B + row) * 5 + threadIdx.x];
     __syncthreads();
-    cell_step<5>(p, s_x, extra_row, s_c, s_h, s_pre, s_cn, s_hn, s_red);
+    cell_step<5, W>(p, s_x, extra_row, s_c, s_h, s_pre, s_cn, s_hn, s_red);
     if (s < len) {
       for (int j = threadIdx.x; j < H; j += kThreads) {
         s_c[j] = s_cn[j];
@@ -445,13 +471,14 @@ cudaError_t set_smem(const void* fn, size_t bytes) {
                               (int)bytes);
 }
 
-CellParams make_params(const float* wx, const float* wh, const float* b,
-                       const float* ln_gamma, const float* ln_beta,
-                       const float* lnc_gamma, const float* lnc_beta, int H,
-                       int layer_norm, float forget_bias) {
-  CellParams p;
-  p.wx = wx;
-  p.wh = wh;
+template <typename W>
+CellParams<W> make_params(const void* wx, const void* wh, const float* b,
+                          const float* ln_gamma, const float* ln_beta,
+                          const float* lnc_gamma, const float* lnc_beta,
+                          int H, int layer_norm, float forget_bias) {
+  CellParams<W> p;
+  p.wx = static_cast<const W*>(wx);
+  p.wh = static_cast<const W*>(wh);
   p.b = b;
   p.ln_gamma = ln_gamma;
   p.ln_beta = ln_beta;
@@ -463,6 +490,51 @@ CellParams make_params(const float* wx, const float* wh, const float* b,
   return p;
 }
 
+template <typename W>
+cudaError_t launch_decode(const void* wx, const void* wh, const float* b,
+                          const float* ln_gamma, const float* ln_beta,
+                          const float* lnc_gamma, const float* lnc_beta,
+                          const void* out_w, const float* out_b,
+                          const float* c0, const float* h0,
+                          const float* prev0, const float* extra_xp,
+                          const float* u, const float* temps, const int* t0,
+                          const int* done0, const int* caps,
+                          const float* end_token, int B, int K, int H, int M,
+                          int layer_norm, int greedy, float forget_bias,
+                          float* strokes, float* c_out, float* h_out,
+                          int* t_out, int* done_out, cudaStream_t stream) {
+  const CellParams<W> p = make_params<W>(wx, wh, b, ln_gamma, ln_beta,
+                                         lnc_gamma, lnc_beta, H, layer_norm,
+                                         forget_bias);
+  const size_t smem = decode_smem_floats(H, 6 * M + 3, M) * sizeof(float);
+  cudaError_t err = set_smem((const void*)decode_chunk_kernel<W>, smem);
+  if (err != cudaSuccess) return err;
+  decode_chunk_kernel<W><<<B, kThreads, smem, stream>>>(
+      p, static_cast<const W*>(out_w), out_b, c0, h0, prev0, extra_xp, u,
+      temps, t0, done0, caps, end_token, B, K, M, greedy, strokes, c_out,
+      h_out, t_out, done_out);
+  return cudaGetLastError();
+}
+
+template <typename W>
+cudaError_t launch_replay(const void* wx, const void* wh, const float* b,
+                          const float* ln_gamma, const float* ln_beta,
+                          const float* lnc_gamma, const float* lnc_beta,
+                          const float* c0, const float* h0, const float* xs,
+                          const float* extra_xp, const int* seq_len, int B,
+                          int E, int H, int layer_norm, float forget_bias,
+                          float* c_out, float* h_out, cudaStream_t stream) {
+  const CellParams<W> p = make_params<W>(wx, wh, b, ln_gamma, ln_beta,
+                                         lnc_gamma, lnc_beta, H, layer_norm,
+                                         forget_bias);
+  const size_t smem = replay_smem_floats(H) * sizeof(float);
+  cudaError_t err = set_smem((const void*)replay_chunk_kernel<W>, smem);
+  if (err != cudaSuccess) return err;
+  replay_chunk_kernel<W><<<B, kThreads, smem, stream>>>(
+      p, c0, h0, xs, extra_xp, seq_len, B, E, c_out, h_out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -472,46 +544,44 @@ const char* srt_error_string(int err) {
 }
 
 // All pointers are device pointers of contiguous tensors (float32 unless
-// named int32); b is null for layer_norm, the ln_* are null for lstm,
-// extra_xp is null for an unconditional, classless model. Returns the
-// launch's cudaGetLastError().
-int srt_decode_chunk(const float* wx, const float* wh, const float* b,
+// named int32; wx, wh and out_w are bfloat16 when w_bf16); b is null for
+// layer_norm, the ln_* are null for lstm, extra_xp is null for an
+// unconditional, classless model. Returns the launch's cudaGetLastError().
+int srt_decode_chunk(const void* wx, const void* wh, const float* b,
                      const float* ln_gamma, const float* ln_beta,
                      const float* lnc_gamma, const float* lnc_beta,
-                     const float* out_w, const float* out_b, const float* c0,
+                     const void* out_w, const float* out_b, const float* c0,
                      const float* h0, const float* prev0,
                      const float* extra_xp, const float* u,
                      const float* temps, const int* t0, const int* done0,
                      const int* caps, const float* end_token, int B, int K,
-                     int H, int M, int layer_norm, int greedy,
+                     int H, int M, int layer_norm, int greedy, int w_bf16,
                      float forget_bias, float* strokes, float* c_out,
                      float* h_out, int* t_out, int* done_out, void* stream) {
-  const CellParams p = make_params(wx, wh, b, ln_gamma, ln_beta, lnc_gamma,
-                                   lnc_beta, H, layer_norm, forget_bias);
-  const size_t smem = decode_smem_floats(H, 6 * M + 3, M) * sizeof(float);
-  cudaError_t err = set_smem((const void*)decode_chunk_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  decode_chunk_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      p, out_w, out_b, c0, h0, prev0, extra_xp, u, temps, t0, done0, caps,
-      end_token, B, K, M, greedy, strokes, c_out, h_out, t_out, done_out);
-  return (int)cudaGetLastError();
+#define SRT_DECODE_ARGS                                                     \
+  wx, wh, b, ln_gamma, ln_beta, lnc_gamma, lnc_beta, out_w, out_b, c0, h0,  \
+      prev0, extra_xp, u, temps, t0, done0, caps, end_token, B, K, H, M,    \
+      layer_norm, greedy, forget_bias, strokes, c_out, h_out, t_out,        \
+      done_out, (cudaStream_t)stream
+  if (w_bf16) return (int)launch_decode<bf16>(SRT_DECODE_ARGS);
+  return (int)launch_decode<float>(SRT_DECODE_ARGS);
+#undef SRT_DECODE_ARGS
 }
 
-int srt_replay_chunk(const float* wx, const float* wh, const float* b,
+int srt_replay_chunk(const void* wx, const void* wh, const float* b,
                      const float* ln_gamma, const float* ln_beta,
                      const float* lnc_gamma, const float* lnc_beta,
                      const float* c0, const float* h0, const float* xs,
                      const float* extra_xp, const int* seq_len, int B, int E,
-                     int H, int layer_norm, float forget_bias, float* c_out,
-                     float* h_out, void* stream) {
-  const CellParams p = make_params(wx, wh, b, ln_gamma, ln_beta, lnc_gamma,
-                                   lnc_beta, H, layer_norm, forget_bias);
-  const size_t smem = replay_smem_floats(H) * sizeof(float);
-  cudaError_t err = set_smem((const void*)replay_chunk_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  replay_chunk_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      p, c0, h0, xs, extra_xp, seq_len, B, E, c_out, h_out);
-  return (int)cudaGetLastError();
+                     int H, int layer_norm, int w_bf16, float forget_bias,
+                     float* c_out, float* h_out, void* stream) {
+#define SRT_REPLAY_ARGS                                                     \
+  wx, wh, b, ln_gamma, ln_beta, lnc_gamma, lnc_beta, c0, h0, xs, extra_xp,  \
+      seq_len, B, E, H, layer_norm, forget_bias, c_out, h_out,              \
+      (cudaStream_t)stream
+  if (w_bf16) return (int)launch_replay<bf16>(SRT_REPLAY_ARGS);
+  return (int)launch_replay<float>(SRT_REPLAY_ARGS);
+#undef SRT_REPLAY_ARGS
 }
 
 }  // extern "C"

@@ -4,25 +4,39 @@
 // ops/cuda_fused.py, whose plain PyTorch versions they are held against.
 //
 // Which TPU kernels they replace (sketch_rnn_tpu/ops/pallas_fused.py):
-//   srt_lstm_seq_fwd  <- fused_lstm_seq forward, _lstm_seq_fwd_kernel
-//                        (pallas_call at :731)
-//   srt_lstm_seq_bwd  <- fused_lstm_seq backward, _lstm_seq_bwd_kernel
-//                        (pallas_call at :771)
-//   srt_ln_lstm_fwd   <- fused_ln_lstm forward, _lnlstm_fwd_kernel
-//                        (pallas_call at :1016)
-//   srt_ln_lstm_bwd   <- fused_ln_lstm backward, _lnlstm_bwd_kernel
-//                        (pallas_call at :1066)
+//   srt_lstm_fwd     <- fused_lstm forward, _lstm_fwd_kernel (pallas_call at
+//                       :516), and, with no x_bias and no final carry,
+//                       fused_lstm_seq forward, _lstm_seq_fwd_kernel (:731)
+//   srt_lstm_bwd     <- fused_lstm backward, _lstm_bwd_kernel (:564), and,
+//                       with no carry cotangents and no input or carry
+//                       gradients, fused_lstm_seq backward,
+//                       _lstm_seq_bwd_kernel (:771)
+//   srt_ln_lstm_fwd  <- fused_ln_lstm forward, _lnlstm_fwd_kernel (:1016)
+//   srt_ln_lstm_bwd  <- fused_ln_lstm backward, _lnlstm_bwd_kernel (:1066)
 //
-// What they compute. The forward runs T steps of the LSTM (seq: gates
-// (i, g, f, o), pre = (x @ wx + b) + h @ wh) or of the LayerNorm-LSTM
-// (pre = (x @ wx + h @ wh) + x_bias, a two-pass layer norm per gate, the
-// forget bias after the norm, a layer norm of the new cell state), with
-// recurrent dropout on the candidate g. It writes hs and the PRE-step cell
-// states cs and nothing else: no [T, B, 4H] gate buffer, no mask buffer.
-// The backward walks time backwards, recomputes each step's gates from
-// (x_t, h_{t-1}, c_{t-1}) -- h_{t-1} read as hs[t-1], or h0 at t = 0 --
-// and back-propagates through the gate block into the pre-activation
-// gradient d_pre, the carries' gradients and (LN) the LN parameters'.
+// What they compute. The forward runs T steps of the LSTM (gates
+// (i, g, f, o), pre = ((x @ wx + b) + h @ wh) [+ x_bias]) or of the
+// LayerNorm-LSTM (pre = (x @ wx + h @ wh) [+ x_bias], a two-pass layer
+// norm per gate, the forget bias after the norm, a layer norm of the new
+// cell state), with recurrent dropout on the candidate g. It writes hs and
+// the PRE-step cell states cs (and the final carry when asked) and nothing
+// else: no [T, B, 4H] gate buffer, no mask buffer. The backward walks time
+// backwards, recomputes each step's gates from (x_t, h_{t-1}, c_{t-1}) --
+// h_{t-1} read as hs[t-1], or h0 at t = 0 -- and back-propagates through
+// the gate block into the pre-activation gradient d_pre, the carries'
+// gradients, the inputs' (dxs, dx_bias) and (LN) the LN parameters'.
+//
+// Mixed precision, the Pallas contract (pallas_fused.py:28-51, _cast):
+// the weights wx/wh arrive as W (float or bf16, pre-cast by the caller);
+// every product rounds its activation operand (x, h, d_pre) to W and
+// accumulates in float, so a bf16 product is exact and only the order of
+// the float sums differs from the plain version. b, x_bias and the LN
+// parameters are float. hs/cs (and dhs) are stored as R (float or bf16):
+// the recurrence reads its unrounded float carry from registers, while
+// the backward recomputes from the STORED values (h0 rounded to R at step
+// 0, as pallas_fused._prev_block). d_pre is rounded to W for the
+// transposed products and the weight-gradient sums; dx_bias, db and the
+// LN-parameter sums take the unrounded float d_pre.
 //
 // Dropout. A mask is streamed ([T, B, H]) or drawn here from a seed by the
 // counter of pallas_fused._prng_mask: seed * 2654435761 + (t * B + row) * H
@@ -44,40 +58,69 @@
 // Weight gradients cross every row, and blocks run in no fixed order, so
 // they are NOT accumulated across blocks with atomics (whose order, and so
 // whose rounding, would change from run to run). The recurrence writes
-// d_pre [T, B, 4H] to a scratch the wrapper allocates, and a second kernel
-// (weight_grad_kernel) reduces
+// d_pre [T, B, 4H] (float, unrounded) to a scratch the wrapper allocates,
+// and a second kernel (weight_grad_kernel) reduces
 //   [dwx; dwh; db] = sum over (t, b) of [x_t; h_{t-1}; 1]^T d_pre_t
 // (K = T*B terms) as a tiled product in a fixed order, gathering its left
-// operand from xs, hs and h0 in place. Per-row quantities need no cross-
-// block reduction: dxb (LN) sums d_pre over time in registers; the LN
-// parameters' gradients are summed over time per row into a [B, 10H]
-// partials scratch that a third kernel (sum_rows_kernel) adds up in row
-// order. Every result is therefore the same, bit for bit, on every run.
+// operand from xs, hs and h0 in place. It rounds d_pre to W on load for the
+// dwx/dwh rows and keeps it unrounded for the db row of ones, so the one
+// float scratch serves both. Per-row quantities need no cross-block
+// reduction: dx_bias sums d_pre over time in registers; the LN parameters'
+// gradients are summed over time per row into a [B, 10H] partials scratch
+// that a third kernel (sum_rows_kernel) adds up in row order. Every result
+// is therefore the same, bit for bit, on every run. The weight gradients
+// are written as float; the wrapper rounds them to W (the cotangent of a
+// bf16 primal), as the JAX package's custom VJP does.
 //
-// Bound on the H100 at the training shapes (B=100, T=250, f32; the seq
-// kernel at H=256, the LN kernel at H=512): the recurrences are f32
-// multiply-adds outside the tensor cores (67 TFLOP/s): seq fwd 13.4
-// GFLOP, seq bwd ~39.8, LN fwd 52.9, LN bwd ~158.7 GFLOP (including the
-// weight-gradient products), i.e. 0.20 / 0.59 / 0.79 / 2.37 ms, above the
-// time their bytes need at 3.35 TB/s -- bound by operations. This first
-// design does not approach that: only B=100 of the 132 SMs hold a row,
-// each row's block re-reads wh from L2 on every step (1 MiB encoder, 4 MiB
-// decoder; twice a step backwards), and the step-to-step dependency leaves
-// a block's memory latency exposed. Sharing weight tiles across rows,
-// tensor cores (TF32/bf16 wgmma) and TMA are later work; PERF.md keeps the
-// measured times beside these bounds.
+// Bound on the H100 at the training shapes (B=100, T=250; the encoder at
+// H=256, the decoders at H=512, D=5): the recurrences' products are SIMT
+// multiply-adds, outside the tensor cores: float 67 TFLOP/s. fused_lstm_seq
+// fwd 13.4 GFLOP, bwd ~39.8; fused_lstm / fused_ln_lstm fwd 52.9, bwd
+// ~158.9 GFLOP (including the weight-gradient products), i.e. 0.20 / 0.59 /
+// 0.79 / 2.37 ms, above the time their bytes need at 3.35 TB/s -- bound by
+// operations. With bf16 operands the same products could run on the tensor
+// cores (989 TFLOP/s dense bf16), a bound 15x lower. This first design does
+// not approach either: only B=100 of the 132 SMs hold a row, each row's
+// block re-reads wh from L2 on every step (1 MiB encoder, 4 MiB decoder at
+// float; half that at bf16; twice a step backwards), and the step-to-step
+// dependency leaves a block's memory latency exposed. Sharing weight tiles
+// across rows, tensor cores (TF32/bf16 wgmma) and TMA are later work;
+// PERF.md keeps the measured times beside these bounds.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
 constexpr int kMaxThreads = 512;
 constexpr int kRedMax = 8;  // most values one block_sum reduces
 
 __device__ __forceinline__ float sigmoidf_(float x) {
   return 1.0f / (1.0f + expf(-x));
+}
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// v rounded to T's precision (round to nearest even), held as a float
+template <typename T>
+__device__ __forceinline__ float rnd(float v) {
+  return to_f(from_f<T>(v));
 }
 
 // pallas_fused._hash32: murmur3-style avalanche over uint32
@@ -140,11 +183,12 @@ __device__ void block_sum(float (&v)[N], float* s_red) {
   __syncthreads();
 }
 
+template <typename W>
 struct Cell {
-  const float* wx;         // [D, 4H]
-  const float* wh;         // [H, 4H]
+  const W* wx;             // [D, 4H]
+  const W* wh;             // [H, 4H]
   const float* b;          // [4H] (lstm) or null
-  const float* xb;         // [B, 4H] per-row gate bias (LN) or null
+  const float* xb;         // [B, 4H] per-row gate bias or null
   const float* ln_gamma;   // [4, H] (LN)
   const float* ln_beta;    // [4, H]
   const float* lnc_gamma;  // [H]
@@ -155,8 +199,10 @@ struct Cell {
 
 // Column j of the four pre-activations of one row:
 //   ((x @ wx [+ b]) + h @ wh) [+ xb]
-// s_x holds the D inputs, s_h the H previous hidden values.
-__device__ __forceinline__ void gate_pre(const Cell& p, const float* s_x,
+// s_x holds the D inputs, s_h the H previous hidden values, both already
+// rounded to W.
+template <typename W>
+__device__ __forceinline__ void gate_pre(const Cell<W>& p, const float* s_x,
                                          const float* s_h, int row, int j,
                                          float (&pre)[4]) {
   const int H = p.H, G = 4 * H;
@@ -164,17 +210,18 @@ __device__ __forceinline__ void gate_pre(const Cell& p, const float* s_x,
   for (int g = 0; g < 4; ++g) {
     const int col = g * H + j;
     float xp = 0.0f;
-    for (int q = 0; q < p.D; ++q) xp = fmaf(s_x[q], p.wx[q * G + col], xp);
+    for (int q = 0; q < p.D; ++q)
+      xp = fmaf(s_x[q], to_f(p.wx[q * G + col]), xp);
     if (p.b != nullptr) xp = xp + p.b[col];
     pre[g] = xp;
   }
   float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  const float* w = p.wh + j;
+  const W* w = p.wh + j;
 #pragma unroll 4
   for (int k = 0; k < H; ++k, w += G) {
     const float hk = s_h[k];
 #pragma unroll
-    for (int g = 0; g < 4; ++g) acc[g] = fmaf(hk, w[g * H], acc[g]);
+    for (int g = 0; g < 4; ++g) acc[g] = fmaf(hk, to_f(w[g * H]), acc[g]);
   }
 #pragma unroll
   for (int g = 0; g < 4; ++g) {
@@ -218,40 +265,41 @@ __device__ __forceinline__ void row_stats(float v, bool own, int H,
   rs = rsqrtf(q[0] / (float)H + 1e-6f);
 }
 
+template <typename W, typename R>
 struct Fwd {
-  Cell p;
+  Cell<W> p;
   const float* xs;  // [T, B, D]
   const float* c0;  // [B, H]
   const float* h0;  // [B, H]
   Dropout drop;
-  float* hs;  // [T, B, H]
-  float* cs;  // [T, B, H] pre-step cell states
+  R* hs;      // [T, B, H]
+  R* cs;      // [T, B, H] pre-step cell states
   float* cT;  // [B, H] or null
   float* hT;  // [B, H] or null
   int T, B;
 };
 
-template <bool LN>
-__global__ void __launch_bounds__(kMaxThreads) rnn_fwd_kernel(Fwd a) {
+template <bool LN, typename W, typename R>
+__global__ void __launch_bounds__(kMaxThreads) rnn_fwd_kernel(Fwd<W, R> a) {
   extern __shared__ float smem[];
   __shared__ float s_red[33 * kRedMax];
-  const Cell& p = a.p;
+  const Cell<W>& p = a.p;
   const int H = p.H, D = p.D, B = a.B;
   const int row = blockIdx.x, j = threadIdx.x;
   const bool own = j < H;
-  float* s_h = smem;       // H
-  float* s_x = s_h + H;    // D
+  float* s_h = smem;       // H: h_{t-1} rounded to W (the product's operand)
+  float* s_x = s_h + H;    // D: x_t rounded to W
   const uint32_t seed = a.drop.seed != nullptr ? (uint32_t)*a.drop.seed : 0u;
 
   float c = 0.0f, h = 0.0f;
   if (own) {
     c = a.c0[(size_t)row * H + j];
     h = a.h0[(size_t)row * H + j];
-    s_h[j] = h;
+    s_h[j] = rnd<W>(h);
   }
   for (int t = 0; t < a.T; ++t) {
     for (int q = threadIdx.x; q < D; q += blockDim.x)
-      s_x[q] = a.xs[((size_t)t * B + row) * D + q];
+      s_x[q] = rnd<W>(a.xs[((size_t)t * B + row) * D + q]);
     __syncthreads();  // s_x and s_h ready
     float pre[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     if (own) gate_pre(p, s_x, s_h, row, j, pre);
@@ -283,9 +331,9 @@ __global__ void __launch_bounds__(kMaxThreads) rnn_fwd_kernel(Fwd a) {
     __syncthreads();  // every read of s_h and s_x of this step is done
     if (own) {
       const size_t at = ((size_t)t * B + row) * H + j;
-      a.cs[at] = c;
-      a.hs[at] = nh;
-      s_h[j] = nh;
+      a.cs[at] = from_f<R>(c);
+      a.hs[at] = from_f<R>(nh);
+      s_h[j] = rnd<W>(nh);
       c = nc;
       h = nh;
     }
@@ -296,13 +344,14 @@ __global__ void __launch_bounds__(kMaxThreads) rnn_fwd_kernel(Fwd a) {
   }
 }
 
+template <typename W, typename R>
 struct Bwd {
-  Cell p;
+  Cell<W> p;
   const float* xs;   // [T, B, D]
   const float* h0;   // [B, H]
-  const float* hs;   // [T, B, H]
-  const float* cs;   // [T, B, H]
-  const float* dhs;  // [T, B, H]
+  const R* hs;       // [T, B, H]
+  const R* cs;       // [T, B, H]
+  const R* dhs;      // [T, B, H]
   const float* dcT;  // [B, H] or null (zero)
   const float* dhT;  // [B, H] or null (zero)
   Dropout drop;
@@ -315,20 +364,20 @@ struct Bwd {
   int T, B;
 };
 
-template <bool LN>
-__global__ void __launch_bounds__(kMaxThreads) rnn_bwd_kernel(Bwd a) {
+template <bool LN, typename W, typename R>
+__global__ void __launch_bounds__(kMaxThreads) rnn_bwd_kernel(Bwd<W, R> a) {
   extern __shared__ float smem[];
   __shared__ float s_red[33 * kRedMax];
-  const Cell& p = a.p;
+  const Cell<W>& p = a.p;
   const int H = p.H, D = p.D, G = 4 * H, B = a.B;
   const int row = blockIdx.x, j = threadIdx.x;
   const bool own = j < H;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
-  float* s_hp = smem;         // H: h_{t-1}
+  float* s_hp = smem;         // H: h_{t-1} (stored value) rounded to W
   float* s_dhn = s_hp + H;    // H: dh_{t-1}
-  float* s_dp = s_dhn + H;    // 4H: d_pre of this step
-  float* s_x = s_dp + G;      // D
+  float* s_dp = s_dhn + H;    // 4H: d_pre of this step rounded to W
+  float* s_x = s_dp + G;      // D: x_t rounded to W
   const uint32_t seed = a.drop.seed != nullptr ? (uint32_t)*a.drop.seed : 0u;
 
   float dh = 0.0f, dc = 0.0f;
@@ -345,13 +394,15 @@ __global__ void __launch_bounds__(kMaxThreads) rnn_bwd_kernel(Bwd a) {
 
   for (int s = a.T - 1; s >= 0; --s) {
     for (int q = threadIdx.x; q < D; q += blockDim.x)
-      s_x[q] = a.xs[((size_t)s * B + row) * D + q];
+      s_x[q] = rnd<W>(a.xs[((size_t)s * B + row) * D + q]);
     float c_prev = 0.0f, dh_tot = 0.0f;
     if (own) {
       const size_t at = ((size_t)s * B + row) * H + j;
-      s_hp[j] = s > 0 ? a.hs[at - (size_t)B * H] : a.h0[(size_t)row * H + j];
-      c_prev = a.cs[at];
-      dh_tot = dh + a.dhs[at];
+      const float hp = s > 0 ? to_f(a.hs[at - (size_t)B * H])
+                             : rnd<R>(a.h0[(size_t)row * H + j]);
+      s_hp[j] = rnd<W>(hp);
+      c_prev = to_f(a.cs[at]);
+      dh_tot = dh + to_f(a.dhs[at]);
     }
     __syncthreads();  // s_x, s_hp ready
     float pre[4] = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -428,16 +479,17 @@ __global__ void __launch_bounds__(kMaxThreads) rnn_bwd_kernel(Bwd a) {
 #pragma unroll
       for (int g = 0; g < 4; ++g) {
         out[g * H + j] = dp[g];
-        s_dp[g * H + j] = dp[g];
+        s_dp[g * H + j] = rnd<W>(dp[g]);
         xb_acc[g] += dp[g];
       }
     }
     __syncthreads();  // s_dp complete
     // dh_{t-1}[k] = sum_c d_pre[c] wh[k, c]; dx[q] = sum_c d_pre[c] wx[q, c]
     for (int r = r_first + warp; r < D + H; r += nw) {
-      const float* wr = r < D ? p.wx + (size_t)r * G : p.wh + (size_t)(r - D) * G;
+      const W* wr = r < D ? p.wx + (size_t)r * G : p.wh + (size_t)(r - D) * G;
       float acc = 0.0f;
-      for (int col = lane; col < G; col += 32) acc = fmaf(s_dp[col], wr[col], acc);
+      for (int col = lane; col < G; col += 32)
+        acc = fmaf(s_dp[col], to_f(wr[col]), acc);
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -475,14 +527,17 @@ __global__ void __launch_bounds__(kMaxThreads) rnn_bwd_kernel(Bwd a) {
 
 // [dwx; dwh; db] (R = D + H + ones rows, N = 4H columns)
 //   = sum over k = t*B + b of A[k, r] * dpre[k, n],
-// A[k] = [xs[t, b]; h_{t-1}[b] (h0 at t = 0); 1]. One 64 x 64 output tile
-// per block, 256 threads of 4 x 4 (strided) outputs, K in chunks of 16 in
-// a fixed order: deterministic.
+// A[k] = [xs[t, b]; h_{t-1}[b] (h0 rounded to RT at t = 0); 1], the x and
+// h entries rounded to W; dpre rounded to W for the dwx/dwh rows and taken
+// unrounded by the row of ones (db). One 64 x 64 output tile per block,
+// 256 threads of 4 x 4 (strided) outputs, K in chunks of 16 in a fixed
+// order: deterministic.
 constexpr int kTM = 64, kTN = 64, kTK = 16, kGemmThreads = 256;
 
+template <typename W, typename RT>
 __global__ void __launch_bounds__(kGemmThreads)
 weight_grad_kernel(const float* __restrict__ xs, const float* __restrict__ h0,
-                   const float* __restrict__ hs,
+                   const RT* __restrict__ hs,
                    const float* __restrict__ dpre, int T, int B, int D,
                    int H, int ones, float* __restrict__ dwx,
                    float* __restrict__ dwh, float* __restrict__ db) {
@@ -492,10 +547,13 @@ weight_grad_kernel(const float* __restrict__ xs, const float* __restrict__ h0,
   const int r0 = blockIdx.y * kTM, n0 = blockIdx.x * kTN;
   const int tid = threadIdx.x, tr = tid >> 4, tc = tid & 15;
   float acc[4][4];
+  bool one[4];  // this output row is the row of ones (db)
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i) {
+    one[i] = ones && r0 + tr + 16 * i == D + H;
 #pragma unroll
     for (int q = 0; q < 4; ++q) acc[i][q] = 0.0f;
+  }
 
   for (int k0 = 0; k0 < K; k0 += kTK) {
     for (int e = tid; e < kTK * kTM; e += kGemmThreads) {
@@ -504,10 +562,10 @@ weight_grad_kernel(const float* __restrict__ xs, const float* __restrict__ h0,
       float v = 0.0f;
       if (k < K && r < R) {
         if (r < D) {
-          v = xs[(size_t)k * D + r];
+          v = rnd<W>(xs[(size_t)k * D + r]);
         } else if (r < D + H) {
-          v = k < B ? h0[(size_t)k * H + (r - D)]
-                    : hs[(size_t)(k - B) * H + (r - D)];
+          v = rnd<W>(k < B ? rnd<RT>(h0[(size_t)k * H + (r - D)])
+                           : to_f(hs[(size_t)(k - B) * H + (r - D)]));
         } else {
           v = 1.0f;
         }
@@ -522,16 +580,18 @@ weight_grad_kernel(const float* __restrict__ xs, const float* __restrict__ h0,
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < kTK; ++kk) {
-      float av[4], bv[4];
+      float av[4], bv[4], bw[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         av[i] = sA[kk][tr + 16 * i];
         bv[i] = sB[kk][tc + 16 * i];
+        bw[i] = rnd<W>(bv[i]);
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(av[i], bv[q], acc[i][q]);
+        for (int q = 0; q < 4; ++q)
+          acc[i][q] = fmaf(av[i], one[i] ? bv[q] : bw[q], acc[i][q]);
     }
     __syncthreads();
   }
@@ -567,13 +627,14 @@ cudaError_t set_smem(const void* fn, size_t bytes) {
                               (int)bytes);
 }
 
-Cell make_cell(const float* wx, const float* wh, const float* b,
-               const float* xb, const float* ln_gamma, const float* ln_beta,
-               const float* lnc_gamma, const float* lnc_beta, int D, int H,
-               float forget_bias) {
-  Cell p;
-  p.wx = wx;
-  p.wh = wh;
+template <typename W>
+Cell<W> make_cell(const void* wx, const void* wh, const float* b,
+                  const float* xb, const float* ln_gamma,
+                  const float* ln_beta, const float* lnc_gamma,
+                  const float* lnc_beta, int D, int H, float forget_bias) {
+  Cell<W> p;
+  p.wx = static_cast<const W*>(wx);
+  p.wh = static_cast<const W*>(wh);
   p.b = b;
   p.xb = xb;
   p.ln_gamma = ln_gamma;
@@ -596,34 +657,37 @@ Dropout make_dropout(const float* masks, const int* seed, float keep,
   return d;
 }
 
-template <bool LN>
-cudaError_t launch_fwd(const Fwd& a, cudaStream_t stream) {
+// Call f(W{}, R{}) with the weight and residual types the flags name.
+template <typename F>
+cudaError_t with_types(int w_bf16, int r_bf16, F&& f) {
+  if (w_bf16) return r_bf16 ? f(bf16{}, bf16{}) : f(bf16{}, 0.0f);
+  return r_bf16 ? f(0.0f, bf16{}) : f(0.0f, 0.0f);
+}
+
+template <bool LN, typename W, typename R>
+cudaError_t launch_fwd(const Fwd<W, R>& a, cudaStream_t stream) {
   if (a.p.H < 1 || a.p.H > kMaxThreads) return cudaErrorInvalidValue;
   const size_t smem = (size_t)(a.p.H + a.p.D) * sizeof(float);
-  cudaError_t err = set_smem((const void*)rnn_fwd_kernel<LN>, smem);
+  cudaError_t err = set_smem((const void*)rnn_fwd_kernel<LN, W, R>, smem);
   if (err != cudaSuccess) return err;
-  rnn_fwd_kernel<LN><<<a.B, threads_for(a.p.H), smem, stream>>>(a);
+  rnn_fwd_kernel<LN, W, R><<<a.B, threads_for(a.p.H), smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <bool LN>
-cudaError_t launch_bwd(const Bwd& a, cudaStream_t stream) {
-  const int H = a.p.H;
+template <bool LN, typename W, typename R>
+cudaError_t launch_bwd(const Bwd<W, R>& a, int ones, float* dwx, float* dwh,
+                       float* db, cudaStream_t stream) {
+  const int H = a.p.H, D = a.p.D;
   if (H < 1 || H > kMaxThreads) return cudaErrorInvalidValue;
-  const size_t smem = (size_t)(6 * H + a.p.D) * sizeof(float);
-  cudaError_t err = set_smem((const void*)rnn_bwd_kernel<LN>, smem);
+  const size_t smem = (size_t)(6 * H + D) * sizeof(float);
+  cudaError_t err = set_smem((const void*)rnn_bwd_kernel<LN, W, R>, smem);
   if (err != cudaSuccess) return err;
-  rnn_bwd_kernel<LN><<<a.B, threads_for(H), smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_weight_grad(const float* xs, const float* h0,
-                               const float* hs, const float* dpre, int T,
-                               int B, int D, int H, int ones, float* dwx,
-                               float* dwh, float* db, cudaStream_t stream) {
+  rnn_bwd_kernel<LN, W, R><<<a.B, threads_for(H), smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
   const dim3 grid((4 * H + kTN - 1) / kTN, (D + H + ones + kTM - 1) / kTM);
-  weight_grad_kernel<<<grid, kGemmThreads, 0, stream>>>(
-      xs, h0, hs, dpre, T, B, D, H, ones, dwx, dwh, db);
+  weight_grad_kernel<W, R><<<grid, kGemmThreads, 0, stream>>>(
+      a.xs, a.h0, a.hs, a.dpre, a.T, a.B, D, H, ones, dwx, dwh, db);
   return cudaGetLastError();
 }
 
@@ -635,122 +699,141 @@ const char* srt_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// All pointers are device pointers of contiguous float32 tensors unless
-// named int32; masks / seed / x_bias may be null (no streamed masks, no
-// in-kernel dropout, no per-row bias). Each returns the cudaError_t of its
+// Pointers are device pointers of contiguous tensors: wx/wh are float32,
+// or bfloat16 when w_bf16; hs/cs/dhs are float32, or bfloat16 when
+// r_bf16; everything else is float32 unless named int32. masks / seed /
+// xb may be null (no streamed masks, no in-kernel dropout, no per-row
+// bias), and so may every output of the LSTM entry points marked
+// "or null" (the sequence-only kernel asks for none of them). The weight
+// gradients are written as float32. Each returns the cudaError_t of its
 // launches (0 when all were accepted).
 
-int srt_lstm_seq_fwd(const float* xs, const float* wx, const float* b,
-                     const float* wh, const float* c0, const float* h0,
-                     const float* masks, const int* seed, int T, int B, int D,
-                     int H, float keep, float inv_keep, float forget_bias,
-                     float* hs, float* cs, void* stream) {
-  Fwd a;
-  a.p = make_cell(wx, wh, b, nullptr, nullptr, nullptr, nullptr, nullptr, D,
-                  H, forget_bias);
-  a.xs = xs;
-  a.c0 = c0;
-  a.h0 = h0;
-  a.drop = make_dropout(masks, seed, keep, inv_keep);
-  a.hs = hs;
-  a.cs = cs;
-  a.cT = nullptr;
-  a.hT = nullptr;
-  a.T = T;
-  a.B = B;
-  return (int)launch_fwd<false>(a, (cudaStream_t)stream);
+// cT, hT: or null.
+int srt_lstm_fwd(const float* xs, const float* xb, const void* wx,
+                 const float* b, const void* wh, const float* c0,
+                 const float* h0, const float* masks, const int* seed, int T,
+                 int B, int D, int H, int w_bf16, int r_bf16, float keep,
+                 float inv_keep, float forget_bias, void* hs, void* cs,
+                 float* cT, float* hT, void* stream) {
+  return (int)with_types(w_bf16, r_bf16, [&](auto w, auto r) {
+    using W = decltype(w);
+    using R = decltype(r);
+    Fwd<W, R> a;
+    a.p = make_cell<W>(wx, wh, b, xb, nullptr, nullptr, nullptr, nullptr, D,
+                       H, forget_bias);
+    a.xs = xs;
+    a.c0 = c0;
+    a.h0 = h0;
+    a.drop = make_dropout(masks, seed, keep, inv_keep);
+    a.hs = static_cast<R*>(hs);
+    a.cs = static_cast<R*>(cs);
+    a.cT = cT;
+    a.hT = hT;
+    a.T = T;
+    a.B = B;
+    return launch_fwd<false>(a, (cudaStream_t)stream);
+  });
 }
 
-int srt_lstm_seq_bwd(const float* xs, const float* wx, const float* b,
-                     const float* wh, const float* h0, const float* hs,
-                     const float* cs, const float* dhs, const float* masks,
-                     const int* seed, int T, int B, int D, int H, float keep,
-                     float inv_keep, float forget_bias, float* dpre,
-                     float* dwx, float* db, float* dwh, void* stream) {
-  Bwd a;
-  a.p = make_cell(wx, wh, b, nullptr, nullptr, nullptr, nullptr, nullptr, D,
-                  H, forget_bias);
-  a.xs = xs;
-  a.h0 = h0;
-  a.hs = hs;
-  a.cs = cs;
-  a.dhs = dhs;
-  a.dcT = nullptr;
-  a.dhT = nullptr;
-  a.drop = make_dropout(masks, seed, keep, inv_keep);
-  a.dpre = dpre;
-  a.dxs = nullptr;
-  a.dxb = nullptr;
-  a.dc0 = nullptr;
-  a.dh0 = nullptr;
-  a.part = nullptr;
-  a.T = T;
-  a.B = B;
-  const cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = launch_bwd<false>(a, st);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_weight_grad(xs, h0, hs, dpre, T, B, D, H, 1, dwx, dwh,
-                                 db, st);
+// dcT, dhT, dxs, dxb, dc0, dh0: or null.
+int srt_lstm_bwd(const float* xs, const float* xb, const void* wx,
+                 const float* b, const void* wh, const float* h0,
+                 const void* hs, const void* cs, const void* dhs,
+                 const float* dcT, const float* dhT, const float* masks,
+                 const int* seed, int T, int B, int D, int H, int w_bf16,
+                 int r_bf16, float keep, float inv_keep, float forget_bias,
+                 float* dpre, float* dxs, float* dxb, float* dwx, float* db,
+                 float* dwh, float* dc0, float* dh0, void* stream) {
+  return (int)with_types(w_bf16, r_bf16, [&](auto w, auto r) {
+    using W = decltype(w);
+    using R = decltype(r);
+    Bwd<W, R> a;
+    a.p = make_cell<W>(wx, wh, b, xb, nullptr, nullptr, nullptr, nullptr, D,
+                       H, forget_bias);
+    a.xs = xs;
+    a.h0 = h0;
+    a.hs = static_cast<const R*>(hs);
+    a.cs = static_cast<const R*>(cs);
+    a.dhs = static_cast<const R*>(dhs);
+    a.dcT = dcT;
+    a.dhT = dhT;
+    a.drop = make_dropout(masks, seed, keep, inv_keep);
+    a.dpre = dpre;
+    a.dxs = dxs;
+    a.dxb = dxb;
+    a.dc0 = dc0;
+    a.dh0 = dh0;
+    a.part = nullptr;
+    a.T = T;
+    a.B = B;
+    return launch_bwd<false>(a, 1, dwx, dwh, db, (cudaStream_t)stream);
+  });
 }
 
-int srt_ln_lstm_fwd(const float* xs, const float* xb, const float* wx,
-                    const float* wh, const float* ln_gamma,
+int srt_ln_lstm_fwd(const float* xs, const float* xb, const void* wx,
+                    const void* wh, const float* ln_gamma,
                     const float* ln_beta, const float* lnc_gamma,
                     const float* lnc_beta, const float* c0, const float* h0,
                     const float* masks, const int* seed, int T, int B, int D,
-                    int H, float keep, float inv_keep, float forget_bias,
-                    float* hs, float* cs, float* cT, float* hT,
-                    void* stream) {
-  Fwd a;
-  a.p = make_cell(wx, wh, nullptr, xb, ln_gamma, ln_beta, lnc_gamma,
-                  lnc_beta, D, H, forget_bias);
-  a.xs = xs;
-  a.c0 = c0;
-  a.h0 = h0;
-  a.drop = make_dropout(masks, seed, keep, inv_keep);
-  a.hs = hs;
-  a.cs = cs;
-  a.cT = cT;
-  a.hT = hT;
-  a.T = T;
-  a.B = B;
-  return (int)launch_fwd<true>(a, (cudaStream_t)stream);
+                    int H, int w_bf16, int r_bf16, float keep,
+                    float inv_keep, float forget_bias, void* hs, void* cs,
+                    float* cT, float* hT, void* stream) {
+  return (int)with_types(w_bf16, r_bf16, [&](auto w, auto r) {
+    using W = decltype(w);
+    using R = decltype(r);
+    Fwd<W, R> a;
+    a.p = make_cell<W>(wx, wh, nullptr, xb, ln_gamma, ln_beta, lnc_gamma,
+                       lnc_beta, D, H, forget_bias);
+    a.xs = xs;
+    a.c0 = c0;
+    a.h0 = h0;
+    a.drop = make_dropout(masks, seed, keep, inv_keep);
+    a.hs = static_cast<R*>(hs);
+    a.cs = static_cast<R*>(cs);
+    a.cT = cT;
+    a.hT = hT;
+    a.T = T;
+    a.B = B;
+    return launch_fwd<true>(a, (cudaStream_t)stream);
+  });
 }
 
-int srt_ln_lstm_bwd(const float* xs, const float* xb, const float* wx,
-                    const float* wh, const float* ln_gamma,
+int srt_ln_lstm_bwd(const float* xs, const float* xb, const void* wx,
+                    const void* wh, const float* ln_gamma,
                     const float* ln_beta, const float* lnc_gamma,
-                    const float* lnc_beta, const float* h0, const float* hs,
-                    const float* cs, const float* dhs, const float* dcT,
+                    const float* lnc_beta, const float* h0, const void* hs,
+                    const void* cs, const void* dhs, const float* dcT,
                     const float* dhT, const float* masks, const int* seed,
-                    int T, int B, int D, int H, float keep, float inv_keep,
-                    float forget_bias, float* dpre, float* part, float* dxs,
-                    float* dxb, float* dwx, float* dwh, float* dln,
-                    float* dc0, float* dh0, void* stream) {
-  Bwd a;
-  a.p = make_cell(wx, wh, nullptr, xb, ln_gamma, ln_beta, lnc_gamma,
-                  lnc_beta, D, H, forget_bias);
-  a.xs = xs;
-  a.h0 = h0;
-  a.hs = hs;
-  a.cs = cs;
-  a.dhs = dhs;
-  a.dcT = dcT;
-  a.dhT = dhT;
-  a.drop = make_dropout(masks, seed, keep, inv_keep);
-  a.dpre = dpre;
-  a.dxs = dxs;
-  a.dxb = dxb;
-  a.dc0 = dc0;
-  a.dh0 = dh0;
-  a.part = part;
-  a.T = T;
-  a.B = B;
+                    int T, int B, int D, int H, int w_bf16, int r_bf16,
+                    float keep, float inv_keep, float forget_bias,
+                    float* dpre, float* part, float* dxs, float* dxb,
+                    float* dwx, float* dwh, float* dln, float* dc0,
+                    float* dh0, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = launch_bwd<true>(a, st);
-  if (err != cudaSuccess) return (int)err;
-  err = launch_weight_grad(xs, h0, hs, dpre, T, B, D, H, 0, dwx, dwh,
-                           nullptr, st);
+  cudaError_t err = with_types(w_bf16, r_bf16, [&](auto w, auto r) {
+    using W = decltype(w);
+    using R = decltype(r);
+    Bwd<W, R> a;
+    a.p = make_cell<W>(wx, wh, nullptr, xb, ln_gamma, ln_beta, lnc_gamma,
+                       lnc_beta, D, H, forget_bias);
+    a.xs = xs;
+    a.h0 = h0;
+    a.hs = static_cast<const R*>(hs);
+    a.cs = static_cast<const R*>(cs);
+    a.dhs = static_cast<const R*>(dhs);
+    a.dcT = dcT;
+    a.dhT = dhT;
+    a.drop = make_dropout(masks, seed, keep, inv_keep);
+    a.dpre = dpre;
+    a.dxs = dxs;
+    a.dxb = dxb;
+    a.dc0 = dc0;
+    a.dh0 = dh0;
+    a.part = part;
+    a.T = T;
+    a.B = B;
+    return launch_bwd<true>(a, 0, dwx, dwh, nullptr, st);
+  });
   if (err != cudaSuccess) return (int)err;
   const int cols = 10 * H;
   sum_rows_kernel<<<(cols + 255) / 256, 256, 0, st>>>(part, B, cols, dln);

@@ -43,14 +43,14 @@ _F = ctypes.c_float
 # argtypes of every C entry point, by library
 SIGNATURES = {
     "decode": {
-        "srt_decode_chunk": [_P] * 19 + [_I] * 6 + [_F] + [_P] * 6,
-        "srt_replay_chunk": [_P] * 12 + [_I] * 4 + [_F] + [_P] * 3,
+        "srt_decode_chunk": [_P] * 19 + [_I] * 7 + [_F] + [_P] * 6,
+        "srt_replay_chunk": [_P] * 12 + [_I] * 5 + [_F] + [_P] * 3,
     },
     "fused_rnn": {
-        "srt_lstm_seq_fwd": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_P] * 3,
-        "srt_lstm_seq_bwd": [_P] * 10 + [_I] * 4 + [_F] * 3 + [_P] * 5,
-        "srt_ln_lstm_fwd": [_P] * 12 + [_I] * 4 + [_F] * 3 + [_P] * 5,
-        "srt_ln_lstm_bwd": [_P] * 16 + [_I] * 4 + [_F] * 3 + [_P] * 10,
+        "srt_lstm_fwd": [_P] * 9 + [_I] * 6 + [_F] * 3 + [_P] * 5,
+        "srt_lstm_bwd": [_P] * 13 + [_I] * 6 + [_F] * 3 + [_P] * 9,
+        "srt_ln_lstm_fwd": [_P] * 12 + [_I] * 6 + [_F] * 3 + [_P] * 5,
+        "srt_ln_lstm_bwd": [_P] * 16 + [_I] * 6 + [_F] * 3 + [_P] * 10,
     },
 }
 

@@ -62,12 +62,26 @@ def check_cell_kind(kind: str) -> None:
             f"PyTorch port)")
 
 
-def check_compute_dtype(compute_dtype) -> None:
-    if compute_dtype is not None:
-        raise NotImplementedError(
-            f"compute_dtype={compute_dtype} is not served yet: bfloat16 "
-            f"compute comes with a later slice of the PyTorch port (with "
-            f"the training kernels); serve compute_dtype=float32")
+def weight_dtype(compute_dtype) -> torch.dtype:
+    """The dtype of the kernels' weight matrices at ``compute_dtype``
+    (None: float32); any other compute dtype is refused by name."""
+    if compute_dtype is None:
+        return torch.float32
+    if compute_dtype != torch.bfloat16:
+        raise TypeError(f"compute_dtype={compute_dtype}: the CUDA decode "
+                        f"kernels compute in float32 or bfloat16")
+    return compute_dtype
+
+
+def cast_weights(cell_params, compute_dtype):
+    """The decoder cell's ``wx``/``wh`` cast once to the kernels' weight
+    dtype, as the engine holds them (``out_w`` goes the same way); the
+    products round them to ``compute_dtype`` anyway, so the kernels see
+    the same values as with float32 weights."""
+    wd = weight_dtype(compute_dtype)
+    cp = dict(cell_params)
+    cp["wx"], cp["wh"] = cp["wx"].to(wd), cp["wh"].to(wd)
+    return cp
 
 
 def make_uniforms(key_data: torch.Tensor, t0: torch.Tensor, chunk: int
@@ -240,11 +254,12 @@ def _require(name, t, dev, dtype, shape):
         raise ValueError(f"{name} is not contiguous")
 
 
-def _cell_args(cell_kind, cp, dev, x_dim, h):
-    """Validated cell-param pointers in the C entry points' order."""
+def _cell_args(cell_kind, cp, dev, x_dim, h, wd):
+    """Validated cell-param pointers in the C entry points' order;
+    ``wx``/``wh`` must be of the weight dtype ``wd``."""
     f32 = torch.float32
-    _require("wx", cp["wx"], dev, f32, (x_dim, 4 * h))
-    _require("wh", cp["wh"], dev, f32, (h, 4 * h))
+    _require("wx", cp["wx"], dev, wd, (x_dim, 4 * h))
+    _require("wh", cp["wh"], dev, wd, (h, 4 * h))
     if cell_kind == "lstm":
         _require("b", cp["b"], dev, f32, (4 * h,))
         return [cp["wx"].data_ptr(), cp["wh"].data_ptr(),
@@ -277,18 +292,22 @@ def decode_chunk(cell_params, out_w, out_b, c0, h0, prev0,
       temps: ``[B]``; t0 ``[B]`` int32; done0 ``[B]`` bool; caps ``[B]``
         int32; end_token: the frozen-slot stroke row ``[5]``.
 
+    At ``compute_dtype=torch.bfloat16`` the kernel takes ``wx``, ``wh``
+    and ``out_w`` as bfloat16 (:func:`cast_weights`) and rounds each
+    product's activation operand to it, accumulating in float32.
+
     Returns ``(strokes [K, B, 5], c, h, t, done)``. CPU tensors take the
     plain version; CUDA tensors launch the kernel.
     """
     global decode_chunk_launches
     check_cell_kind(cell_kind)
-    check_compute_dtype(compute_dtype)
+    wd = weight_dtype(compute_dtype)
     if c0.device.type == "cpu":
         return decode_chunk_reference(
             cell_params, out_w, out_b, c0, h0, prev0, extra, u, temps, t0,
             done0, caps, end_token, cell_kind=cell_kind,
             num_mixture=num_mixture, forget_bias=forget_bias,
-            greedy=greedy)
+            compute_dtype=compute_dtype, greedy=greedy)
     if c0.device.type != "cuda":
         raise ValueError(f"decode_chunk runs on CUDA or CPU tensors, not "
                          f"{c0.device}")
@@ -298,11 +317,12 @@ def decode_chunk(cell_params, out_w, out_b, c0, h0, prev0,
     k, b, _ = u.shape
     h = h0.shape[-1]
     p = 6 * num_mixture + 3
-    cp, extra_xp = _hoist(cell_params, extra, prev0.shape[-1], None)
+    cp, extra_xp = _hoist(cell_params, extra, prev0.shape[-1],
+                          compute_dtype)
     f32, i32 = torch.float32, torch.int32
-    args = _cell_args(cell_kind, cp, dev, prev0.shape[-1], h)
+    args = _cell_args(cell_kind, cp, dev, prev0.shape[-1], h, wd)
     for n, t, dt, shape in (
-            ("out_w", out_w, f32, (h, p)), ("out_b", out_b, f32, (p,)),
+            ("out_w", out_w, wd, (h, p)), ("out_b", out_b, f32, (p,)),
             ("c0", c0, f32, (b, h)), ("h0", h0, f32, (b, h)),
             ("prev0", prev0, f32, (b, 5)), ("u", u, f32, (k, b, 4)),
             ("temps", temps, f32, (b,)), ("t0", t0, i32, (b,)),
@@ -324,9 +344,10 @@ def decode_chunk(cell_params, out_w, out_b, c0, h0, prev0,
         None if extra_xp is None else extra_xp.data_ptr(), u.data_ptr(),
         temps.data_ptr(), t0.data_ptr(), done_i.data_ptr(),
         caps.data_ptr(), end_token.data_ptr(), b, k, h, num_mixture,
-        int(cell_kind == "layer_norm"), int(greedy), float(forget_bias),
-        strokes.data_ptr(), c_out.data_ptr(), h_out.data_ptr(),
-        t_out.data_ptr(), done_out.data_ptr(),
+        int(cell_kind == "layer_norm"), int(greedy),
+        int(wd == torch.bfloat16), float(forget_bias), strokes.data_ptr(),
+        c_out.data_ptr(), h_out.data_ptr(), t_out.data_ptr(),
+        done_out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "decode_chunk")
     decode_chunk_launches += 1
@@ -338,15 +359,16 @@ def replay_chunk(cell_params, c0, h0, xs, extra: Optional[torch.Tensor],
                  compute_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forced replay of ``xs [E, B, 5]`` from the carry ``(c0,
     h0) [B, H]``; row ``b`` advances only while ``t < seq_len[b]``
-    (``[B]`` int32). Returns the final ``(c, h)``. CPU tensors take the
-    plain version; CUDA tensors launch the kernel."""
+    (``[B]`` int32). Returns the final ``(c, h)``. ``compute_dtype`` as
+    in :func:`decode_chunk`. CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
     global replay_chunk_launches
     check_cell_kind(cell_kind)
-    check_compute_dtype(compute_dtype)
+    wd = weight_dtype(compute_dtype)
     if c0.device.type == "cpu":
         return replay_chunk_reference(
             cell_params, c0, h0, xs, extra, seq_len, cell_kind=cell_kind,
-            forget_bias=forget_bias)
+            forget_bias=forget_bias, compute_dtype=compute_dtype)
     if c0.device.type != "cuda":
         raise ValueError(f"replay_chunk runs on CUDA or CPU tensors, not "
                          f"{c0.device}")
@@ -355,9 +377,9 @@ def replay_chunk(cell_params, c0, h0, xs, extra: Optional[torch.Tensor],
     dev = c0.device
     e, b, x_dim = xs.shape
     h = h0.shape[-1]
-    cp, extra_xp = _hoist(cell_params, extra, x_dim, None)
+    cp, extra_xp = _hoist(cell_params, extra, x_dim, compute_dtype)
     f32 = torch.float32
-    args = _cell_args(cell_kind, cp, dev, x_dim, h)
+    args = _cell_args(cell_kind, cp, dev, x_dim, h, wd)
     for n, t, dt, shape in (
             ("c0", c0, f32, (b, h)), ("h0", h0, f32, (b, h)),
             ("xs", xs, f32, (e, b, 5)),
@@ -372,8 +394,8 @@ def replay_chunk(cell_params, c0, h0, xs, extra: Optional[torch.Tensor],
         *args, c0.data_ptr(), h0.data_ptr(), xs.data_ptr(),
         None if extra_xp is None else extra_xp.data_ptr(),
         seq_len.data_ptr(), b, e, h, int(cell_kind == "layer_norm"),
-        float(forget_bias), c_out.data_ptr(), h_out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        int(wd == torch.bfloat16), float(forget_bias), c_out.data_ptr(),
+        h_out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "replay_chunk")
     replay_chunk_launches += 1
     return c_out, h_out

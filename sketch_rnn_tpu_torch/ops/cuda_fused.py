@@ -1,8 +1,8 @@
 """The training kernels: the encoder's and the decoder's recurrences.
 
-The port of the two kernel families of ``sketch_rnn_tpu/ops/pallas_fused.py``
-that training at the flagship configuration runs. Four hand-written CUDA
-kernels (``csrc/fused_rnn.cu``) replace four Pallas kernels:
+The port of the three kernel families of ``sketch_rnn_tpu/ops/pallas_fused.py``
+that training runs. Six hand-written CUDA kernels (``csrc/fused_rnn.cu``)
+replace six Pallas kernels:
 
 - :func:`fused_lstm_seq` (the bi-LSTM encoder, each direction): the
   forward replaces ``pallas_fused._lstm_seq_fwd_kernel``, the backward
@@ -10,12 +10,16 @@ kernels (``csrc/fused_rnn.cu``) replace four Pallas kernels:
   backward defines the ``xs``, ``c0`` and ``h0`` gradients as ZERO (the
   encoder's contract: the strokes are data, the carries constant zeros),
   exactly as the JAX package's custom VJP does.
+- :func:`fused_lstm` (the ``lstm`` decoder, and any LSTM with a final
+  carry or ``x_bias``): the forward replaces
+  ``pallas_fused._lstm_fwd_kernel``, the backward
+  ``pallas_fused._lstm_bwd_kernel``, with every input's gradient.
 - :func:`fused_ln_lstm` (the LayerNorm-LSTM decoder): the forward
   replaces ``pallas_fused._lnlstm_fwd_kernel``, the backward
   ``pallas_fused._lnlstm_bwd_kernel``, with the per-example gate bias
   ``x_bias`` and every input's gradient.
 
-Both keep the Pallas kernels' memory contract: no ``[T, B, 4H]`` gate
+All keep the Pallas kernels' memory contract: no ``[T, B, 4H]`` gate
 buffer and no mask buffer exist in the forward; it saves only ``hs`` and
 the pre-step cell states ``cs``, and the backward recomputes the gates
 from ``(x, h_prev, c_prev)`` walking time backwards. Recurrent dropout on
@@ -24,14 +28,27 @@ the kernel from ``dropout_seed`` by :func:`prng_mask`, whose counter does
 not depend on any tiling, so the CUDA kernels reproduce the JAX package's
 masks bit for bit.
 
+Mixed precision follows the Pallas contract (``pallas_fused.py``'s
+module docstring and ``_cast``): ``wx``/``wh`` arrive pre-cast (float32
+or bfloat16); each product rounds its activation operand to the weight
+dtype and accumulates in float32; ``b``, the LN parameters and
+``x_bias`` stay float32. ``residual_dtype`` (float32 or bfloat16) is the
+storage dtype of ``hs`` and ``cs``; the recurrence itself reads the
+unrounded float32 carry. The backward recomputes from the STORED ``hs``
+and ``cs`` (step 0 from ``h0`` rounded to ``hs``'s dtype), rounds
+``d_pre`` to the weight dtype for the transposed products and the
+weight-gradient sums, and takes ``db``, ``dx_bias`` and the LN-parameter
+sums from the unrounded ``d_pre``. Gradients come back in the primals'
+dtypes: bfloat16 ``dwx``/``dwh`` are float32 sums rounded once.
+
 Beside each kernel pair are its plain PyTorch versions: a forward and a
 backward written step by step (the backward mirrors
 ``_lstm_step_bwd_math`` and ``_ln_lstm_bwd_gates``; it does not run
 autograd of the forward). Each kernel has one wrapper with its plain
-version's signature (``lstm_seq_fwd``, ``lstm_seq_bwd``, ``ln_lstm_fwd``,
-``ln_lstm_bwd``): the plain version for CPU tensors, for CUDA tensors
-the kernel or a raise. The public functions are
-``torch.autograd.Function``s over those wrappers. The ``*_launches``
+version's signature (``lstm_seq_fwd``, ``lstm_seq_bwd``, ``lstm_fwd``,
+``lstm_bwd``, ``ln_lstm_fwd``, ``ln_lstm_bwd``): the plain version for
+CPU tensors, for CUDA tensors the kernel or a raise. The public functions
+are ``torch.autograd.Function``s over those wrappers. The ``*_launches``
 counters count kernel launches only (one per wrapper call, whatever the
 number of CUDA kernels inside), never plain-version calls.
 """
@@ -48,25 +65,21 @@ from sketch_rnn_tpu_torch.ops.cuda_decode import _require
 _MASK = 0xFFFFFFFF
 _LN_EPS = 1e-6
 MAX_HIDDEN = 512    # one thread per hidden unit, 512 threads per block
+WEIGHT_DTYPES = (torch.float32, torch.bfloat16)
+RESIDUAL_DTYPES = (torch.float32, torch.bfloat16)
 
-fused_lstm_seq_fwd_launches = 0
-fused_lstm_seq_bwd_launches = 0
-fused_ln_lstm_fwd_launches = 0
-fused_ln_lstm_bwd_launches = 0
+_KERNELS = ("fused_lstm_seq_fwd", "fused_lstm_seq_bwd", "fused_lstm_fwd",
+            "fused_lstm_bwd", "fused_ln_lstm_fwd", "fused_ln_lstm_bwd")
+_launches = dict.fromkeys(_KERNELS, 0)
 
 
 def reset_launch_counts() -> None:
-    global fused_lstm_seq_fwd_launches, fused_lstm_seq_bwd_launches
-    global fused_ln_lstm_fwd_launches, fused_ln_lstm_bwd_launches
-    fused_lstm_seq_fwd_launches = fused_lstm_seq_bwd_launches = 0
-    fused_ln_lstm_fwd_launches = fused_ln_lstm_bwd_launches = 0
+    for k in _launches:
+        _launches[k] = 0
 
 
 def launch_counts() -> dict:
-    return {"fused_lstm_seq_fwd": fused_lstm_seq_fwd_launches,
-            "fused_lstm_seq_bwd": fused_lstm_seq_bwd_launches,
-            "fused_ln_lstm_fwd": fused_ln_lstm_fwd_launches,
-            "fused_ln_lstm_bwd": fused_ln_lstm_bwd_launches}
+    return dict(_launches)
 
 
 # -- the in-kernel dropout mask ---------------------------------------------
@@ -113,17 +126,47 @@ def _step_mask(masks, seed, t, b, h, keep):
     return None
 
 
-def _check_dropout(masks, seed):
+def _check_args(wx, wh, masks, seed, residual_dtype):
+    """What every public function refuses on any device: both dropout
+    forms at once, weights outside float32/bfloat16 or of two dtypes,
+    a residual dtype outside float32/bfloat16."""
     if masks is not None and seed is not None:
         raise ValueError("pass masks or dropout_seed, not both")
+    if wx.dtype not in WEIGHT_DTYPES or wh.dtype != wx.dtype:
+        raise TypeError(f"wx/wh have dtypes {wx.dtype}/{wh.dtype}: the "
+                        f"fused RNN kernels take both in one of "
+                        f"{WEIGHT_DTYPES}")
+    _residual(residual_dtype)
 
 
-def _check_residual(residual_dtype):
-    if residual_dtype not in (None, torch.float32):
-        raise NotImplementedError(
-            f"residual_dtype={residual_dtype}: bfloat16 residuals of the "
-            f"fused kernels come with the next slice of the PyTorch port; "
-            f"train with fused_residual_dtype=float32")
+# -- mixed precision --------------------------------------------------------
+
+
+def _rnd(x, dtype):
+    """``x`` rounded to ``dtype``'s precision when that is bfloat16 (the
+    Pallas ``_cast`` of an activation operand), held in float32."""
+    return x.to(dtype).float() if dtype == torch.bfloat16 else x
+
+
+def _wide(w):
+    """A weight as the accumulation dtype sees it (bfloat16 -> float32,
+    exactly; float32 and float64 as they are)."""
+    return w.float() if w.dtype == torch.bfloat16 else w
+
+
+def _acc_dtype(w):
+    return torch.float32 if w.dtype == torch.bfloat16 else w.dtype
+
+
+def _mm(a, w, wide):
+    """``a @ w`` as the Pallas kernels compute it: ``a`` rounded to the
+    weight dtype, products accumulated in float32 (``wide`` is ``w``
+    widened once per call)."""
+    return _rnd(a, w.dtype) @ wide
+
+
+def _store(x, residual_dtype):
+    return x if residual_dtype is None else x.to(residual_dtype)
 
 
 # -- plain PyTorch versions: forward ----------------------------------------
@@ -176,76 +219,135 @@ def _ln_gates(pre, c_prev, m, gam, bet, gc, bc, forget_bias):
     return i, g_u, f, o, new_c, new_h, yc, xhat_c, r_c, xhats, rs
 
 
-def _lstm_pre(x, h_prev, wx, b, wh):
-    return x @ wx + b + h_prev @ wh
+class _Weights:
+    """``wx``/``wh`` with their float32 views, widened once per call."""
+
+    def __init__(self, wx, wh):
+        self.wx, self.wh = wx, wh
+        self.wxf, self.whf = _wide(wx), _wide(wh)
+
+    def lstm_pre(self, x, h_prev, b, xb):
+        """``((x @ wx + b) + h @ wh) [+ xb]``, the Pallas association."""
+        pre = _mm(x, self.wx, self.wxf) + b + _mm(h_prev, self.wh, self.whf)
+        return pre + xb if xb is not None else pre
+
+    def ln_pre(self, x, h_prev, xb):
+        """``(x @ wx + h @ wh) [+ xb]``."""
+        pre = _mm(x, self.wx, self.wxf) + _mm(h_prev, self.wh, self.whf)
+        return pre + xb if xb is not None else pre
 
 
-def _ln_pre(x, h_prev, wx, wh, xb):
-    pre = x @ wx + h_prev @ wh
-    return pre + xb if xb is not None else pre
-
-
-def lstm_seq_fwd_reference(xs, wx, b, wh, c0, h0, forget_bias=1.0,
-                           masks=None, dropout_seed=None, keep_prob=1.0
-                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain forward of :func:`fused_lstm_seq`: ``(hs, cs)``, ``cs``
-    being the pre-step cell states the backward reads."""
+def lstm_fwd_reference(xs, wx, b, wh, c0, h0, forget_bias=1.0, masks=None,
+                       dropout_seed=None, keep_prob=1.0, x_bias=None,
+                       residual_dtype=None):
+    """The plain forward of :func:`fused_lstm` (and, without ``x_bias``
+    and the final carry, of :func:`fused_lstm_seq`): ``(hs, cs, cT,
+    hT)``, ``cs`` being the pre-step cell states the backward reads,
+    ``hs``/``cs`` in ``residual_dtype``, the final carry float32."""
     t_len, bsz, _ = xs.shape
     h = wh.shape[0]
+    w = _Weights(wx, wh)
     c, hh = c0, h0
     hs, cs = [], []
     for t in range(t_len):
-        pre = _lstm_pre(xs[t], hh, wx, b, wh)
+        pre = w.lstm_pre(xs[t], hh, b, x_bias)
         m = _step_mask(masks, dropout_seed, t, bsz, h, keep_prob)
         _, _, _, o, new_c = _lstm_gates(pre, c, m, forget_bias)
-        cs.append(c)
+        cs.append(_store(c, residual_dtype))
         c, hh = new_c, torch.tanh(new_c) * o
-        hs.append(hh)
-    return torch.stack(hs), torch.stack(cs)
+        hs.append(_store(hh, residual_dtype))
+    return torch.stack(hs), torch.stack(cs), c, hh
+
+
+def lstm_seq_fwd_reference(xs, wx, b, wh, c0, h0, forget_bias=1.0,
+                           masks=None, dropout_seed=None, keep_prob=1.0,
+                           residual_dtype=None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain forward of :func:`fused_lstm_seq`: ``(hs, cs)``."""
+    return lstm_fwd_reference(xs, wx, b, wh, c0, h0, forget_bias, masks,
+                              dropout_seed, keep_prob, None,
+                              residual_dtype)[:2]
 
 
 def ln_lstm_fwd_reference(xs, wx, wh, ln_gamma, ln_beta, lnc_gamma,
                           lnc_beta, c0, h0, forget_bias=1.0, masks=None,
-                          dropout_seed=None, keep_prob=1.0, x_bias=None):
+                          dropout_seed=None, keep_prob=1.0, x_bias=None,
+                          residual_dtype=None):
     """The plain forward of :func:`fused_ln_lstm`: ``(hs, cs, cT, hT)``."""
     t_len, bsz, _ = xs.shape
     h = wh.shape[0]
+    w = _Weights(wx, wh)
     c, hh = c0, h0
     hs, cs = [], []
     for t in range(t_len):
-        pre = _ln_pre(xs[t], hh, wx, wh, x_bias)
+        pre = w.ln_pre(xs[t], hh, x_bias)
         m = _step_mask(masks, dropout_seed, t, bsz, h, keep_prob)
         res = _ln_gates(pre, c, m, ln_gamma, ln_beta, lnc_gamma, lnc_beta,
                         forget_bias)
-        cs.append(c)
+        cs.append(_store(c, residual_dtype))
         c, hh = res[4], res[5]
-        hs.append(hh)
+        hs.append(_store(hh, residual_dtype))
     return torch.stack(hs), torch.stack(cs), c, hh
 
 
 # -- plain PyTorch versions: backward ---------------------------------------
 
 
-def lstm_seq_bwd_reference(xs, wx, b, wh, h0, hs, cs, dhs, forget_bias=1.0,
-                           masks=None, dropout_seed=None, keep_prob=1.0):
-    """The plain backward of :func:`fused_lstm_seq`, step by step
+class _BwdStep:
+    """What every backward step shares: the recompute operands read from
+    the stored residuals, and the products of ``d_pre`` (rounded to the
+    weight dtype) into the transposed and weight-gradient sums."""
+
+    def __init__(self, xs, wx, wh, h0, hs, cs, dhs):
+        self.xs, self.hs, self.cs, self.dhs = xs, hs, cs, dhs
+        self.w = _Weights(wx, wh)
+        self.h00 = h0.to(hs.dtype)      # pallas_fused._prev_block
+        acc = _acc_dtype(wx)
+        self.dwx = torch.zeros(wx.shape, dtype=acc, device=wx.device)
+        self.dwh = torch.zeros(wh.shape, dtype=acc, device=wh.device)
+
+    def operands(self, s, dh):
+        """``(x, h_prev, c_prev, dh + dhs[s])`` at step ``s``."""
+        h_prev = self.hs[s - 1] if s > 0 else self.h00
+        return (self.xs[s], h_prev.to(dh.dtype), self.cs[s].to(dh.dtype),
+                dh + self.dhs[s].to(dh.dtype))
+
+    def products(self, x, h_prev, d_pre, want_dx):
+        """Accumulate ``dwx``/``dwh``; return ``(dx or None, dh_prev)``."""
+        w = self.w
+        dpc = _rnd(d_pre, w.wx.dtype)
+        dx = dpc @ w.wxf.T if want_dx else None
+        self.dwx += _rnd(x, w.wx.dtype).T @ dpc
+        dh = dpc @ w.whf.T
+        self.dwh += _rnd(h_prev, w.wh.dtype).T @ dpc
+        return dx, dh
+
+    def weight_grads(self):
+        return self.dwx.to(self.w.wx.dtype), self.dwh.to(self.w.wh.dtype)
+
+
+def lstm_bwd_reference(xs, wx, b, wh, h0, hs, cs, dhs, dcT=None, dhT=None,
+                       forget_bias=1.0, masks=None, dropout_seed=None,
+                       keep_prob=1.0, x_bias=None):
+    """The plain backward of :func:`fused_lstm`, step by step
     (``pallas_fused._lstm_step_bwd_math``): recompute each step's gates
-    from ``(x, h_prev, c_prev)``, walk time backwards from zero carry
-    cotangents. Returns ``(dwx, db, dwh)``."""
+    from ``(x, h_prev, c_prev)``, walk time backwards from the final
+    carry's cotangents (zero when None). Returns ``(dxs, dxb, dwx, db,
+    dwh, dc0, dh0)``; ``dxb`` is None without ``x_bias``."""
     t_len, bsz, _ = xs.shape
     h = wh.shape[0]
-    dwx = torch.zeros_like(wx)
-    db = torch.zeros_like(b)
-    dwh = torch.zeros_like(wh)
-    dc = torch.zeros((bsz, h), dtype=xs.dtype, device=xs.device)
-    dh = torch.zeros_like(dc)
+    st = _BwdStep(xs, wx, wh, h0, hs, cs, dhs)
+    acc = _acc_dtype(wx)
+    dxs = torch.empty(xs.shape, dtype=acc, device=xs.device)
+    dxb = torch.zeros_like(x_bias) if x_bias is not None else None
+    db = torch.zeros(b.shape, dtype=acc, device=b.device)
+    zero = torch.zeros((bsz, h), dtype=acc, device=xs.device)
+    dc = dcT if dcT is not None else zero
+    dh = dhT if dhT is not None else zero
     for s in range(t_len - 1, -1, -1):
-        x = xs[s]
-        h_prev = hs[s - 1] if s > 0 else h0
-        c_prev = cs[s]
+        x, h_prev, c_prev, dh = st.operands(s, dh)
         m = _step_mask(masks, dropout_seed, s, bsz, h, keep_prob)
-        dh = dh + dhs[s]
-        pre = _lstm_pre(x, h_prev, wx, b, wh)
+        pre = st.w.lstm_pre(x, h_prev, b, x_bias)
         i, g_u, f, o, new_c = _lstm_gates(pre, c_prev, m, forget_bias)
         tanh_c = torch.tanh(new_c)
         dc = dc + dh * o * (1.0 - tanh_c * tanh_c)
@@ -256,11 +358,22 @@ def lstm_seq_bwd_reference(xs, wx, b, wh, h0, hs, cs, dhs, forget_bias=1.0,
         dg_u = dc * i * m if m is not None else dc * i
         d_pre = torch.cat([di * i * (1.0 - i), dg_u * (1.0 - g_u * g_u),
                            df * f * (1.0 - f), do * o * (1.0 - o)], dim=-1)
-        dwx += x.T @ d_pre
+        if dxb is not None:
+            dxb += d_pre
         db += d_pre.sum(dim=0)
-        dh = d_pre @ wh.T
-        dwh += h_prev.T @ d_pre
+        dxs[s], dh = st.products(x, h_prev, d_pre, True)
         dc = dc * f
+    dwx, dwh = st.weight_grads()
+    return dxs.to(xs.dtype), dxb, dwx, db, dwh, dc, dh
+
+
+def lstm_seq_bwd_reference(xs, wx, b, wh, h0, hs, cs, dhs, forget_bias=1.0,
+                           masks=None, dropout_seed=None, keep_prob=1.0):
+    """The plain backward of :func:`fused_lstm_seq`: zero carry
+    cotangents at the end; returns ``(dwx, db, dwh)``."""
+    _, _, dwx, db, dwh, _, _ = lstm_bwd_reference(
+        xs, wx, b, wh, h0, hs, cs, dhs, None, None, forget_bias, masks,
+        dropout_seed, keep_prob)
     return dwx, db, dwh
 
 
@@ -274,25 +387,21 @@ def ln_lstm_bwd_reference(xs, wx, wh, ln_gamma, ln_beta, lnc_gamma,
     ``x_bias``."""
     t_len, bsz, _ = xs.shape
     h = wh.shape[0]
-    dxs = torch.empty_like(xs)
+    st = _BwdStep(xs, wx, wh, h0, hs, cs, dhs)
+    dxs = torch.empty(xs.shape, dtype=_acc_dtype(wx), device=xs.device)
     dxb = torch.zeros_like(x_bias) if x_bias is not None else None
-    dwx = torch.zeros_like(wx)
-    dwh = torch.zeros_like(wh)
     dgam = torch.zeros_like(ln_gamma)
     dbet = torch.zeros_like(ln_beta)
     dgc = torch.zeros_like(lnc_gamma)
     dbc = torch.zeros_like(lnc_beta)
     dc, dh = dcT, dhT
     for s in range(t_len - 1, -1, -1):
-        x = xs[s]
-        h_prev = hs[s - 1] if s > 0 else h0
-        c_prev = cs[s]
-        pre = _ln_pre(x, h_prev, wx, wh, x_bias)
+        x, h_prev, c_prev, dh = st.operands(s, dh)
+        pre = st.w.ln_pre(x, h_prev, x_bias)
         m = _step_mask(masks, dropout_seed, s, bsz, h, keep_prob)
         (i, g_u, f, o, _, _, yc, xhat_c, r_c, xhats, rs) = _ln_gates(
             pre, c_prev, m, ln_gamma, ln_beta, lnc_gamma, lnc_beta,
             forget_bias)
-        dh = dh + dhs[s]
         tanh_yc = torch.tanh(yc)
         do = dh * tanh_yc
         dyc = dh * o * (1.0 - tanh_yc * tanh_yc)
@@ -313,12 +422,10 @@ def ln_lstm_bwd_reference(xs, wx, wh, ln_gamma, ln_beta, lnc_gamma,
         d_pre = torch.cat(parts, dim=-1)
         if dxb is not None:
             dxb += d_pre
-        dxs[s] = d_pre @ wx.T
-        dwx += x.T @ d_pre
-        dh = d_pre @ wh.T
-        dwh += h_prev.T @ d_pre
+        dxs[s], dh = st.products(x, h_prev, d_pre, True)
         dc = dc * f
-    return dxs, dxb, dwx, dwh, dgam, dbet, dgc, dbc, dc, dh
+    dwx, dwh = st.weight_grads()
+    return (dxs.to(xs.dtype), dxb, dwx, dwh, dgam, dbet, dgc, dbc, dc, dh)
 
 
 # -- the kernels ------------------------------------------------------------
@@ -328,9 +435,18 @@ def ln_lstm_bwd_reference(xs, wx, wh, ln_gamma, ln_beta, lnc_gamma,
 # Each adds one to its launch counter when it launches.
 
 
+def _residual(residual_dtype):
+    rd = torch.float32 if residual_dtype is None else residual_dtype
+    if rd not in RESIDUAL_DTYPES:
+        raise TypeError(f"residual_dtype {rd}: the fused RNN kernels store "
+                        f"residuals as {RESIDUAL_DTYPES}")
+    return rd
+
+
 def _kernel_common(xs, wx, wh, c0, h0, masks, seed):
-    """Validate what both kernel families share; returns ``(dev, t, b,
-    d, h, mask_ptr, seed_ptr)``."""
+    """Validate what every kernel shares; returns ``(dev, t, b, d, h,
+    mask_ptr, seed_ptr, w_bf16)``. ``wx`` and ``wh`` are float32, or
+    both bfloat16 (pre-cast); every other float operand is float32."""
     if xs.device.type != "cuda":
         raise ValueError(f"the fused RNN kernels run on CUDA or CPU "
                          f"tensors, not {xs.device}")
@@ -340,25 +456,44 @@ def _kernel_common(xs, wx, wh, c0, h0, masks, seed):
     if not 0 < h <= MAX_HIDDEN:
         raise ValueError(f"hidden size {h}: the fused RNN kernels hold one "
                          f"thread per hidden unit, at most {MAX_HIDDEN}")
+    wd = wx.dtype
+    if wd not in WEIGHT_DTYPES:
+        raise TypeError(f"wx has dtype {wd}: the fused RNN kernels take "
+                        f"weights in {WEIGHT_DTYPES}")
     f32 = torch.float32
-    for n, x, shape in (("xs", xs, (t, b, d)), ("wx", wx, (d, 4 * h)),
-                        ("wh", wh, (h, 4 * h)), ("c0", c0, (b, h)),
-                        ("h0", h0, (b, h))):
-        _require(n, x, dev, f32, shape)
+    for n, x, dt, shape in (("xs", xs, f32, (t, b, d)),
+                            ("wx", wx, wd, (d, 4 * h)),
+                            ("wh", wh, wd, (h, 4 * h)),
+                            ("c0", c0, f32, (b, h)),
+                            ("h0", h0, f32, (b, h))):
+        _require(n, x, dev, dt, shape)
     if masks is not None:
         _require("masks", masks, dev, f32, (t, b, h))
     if seed is not None:
         _require("dropout_seed", seed, dev, torch.int32, ())
-    return dev, t, b, d, h, _ptr(masks), _ptr(seed)
+    return dev, t, b, d, h, _ptr(masks), _ptr(seed), int(wd == torch.bfloat16)
+
+
+def _residuals_check(dev, t, b, h, hs, cs, dhs):
+    rd = hs.dtype
+    if rd not in RESIDUAL_DTYPES:
+        raise TypeError(f"hs has dtype {rd}: the fused RNN kernels store "
+                        f"residuals as {RESIDUAL_DTYPES}")
+    for n, x in (("hs", hs), ("cs", cs), ("dhs", dhs)):
+        _require(n, x, dev, rd, (t, b, h))
+    return int(rd == torch.bfloat16)
+
+
+def _f32_check(dev, named):
+    for n, x, shape in named:
+        if x is not None:
+            _require(n, x, dev, torch.float32, shape)
 
 
 def _ln_params_check(dev, h, gam, bet, gc, bc, x_bias, bsz):
-    f32 = torch.float32
-    for n, x, shape in (("ln_gamma", gam, (4, h)), ("ln_beta", bet, (4, h)),
-                        ("lnc_gamma", gc, (h,)), ("lnc_beta", bc, (h,))):
-        _require(n, x, dev, f32, shape)
-    if x_bias is not None:
-        _require("x_bias", x_bias, dev, f32, (bsz, 4 * h))
+    _f32_check(dev, (("ln_gamma", gam, (4, h)), ("ln_beta", bet, (4, h)),
+                     ("lnc_gamma", gc, (h,)), ("lnc_beta", bc, (h,)),
+                     ("x_bias", x_bias, (bsz, 4 * h))))
 
 
 def _ptr(t):
@@ -373,98 +508,146 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def lstm_seq_fwd(xs, wx, b, wh, c0, h0, forget_bias=1.0, masks=None,
-                 dropout_seed=None, keep_prob=1.0):
-    """Forward of :func:`fused_lstm_seq`: ``(hs, cs)`` (kernel
-    ``srt_lstm_seq_fwd``)."""
-    global fused_lstm_seq_fwd_launches
-    if xs.device.type == "cpu":
-        return lstm_seq_fwd_reference(xs, wx, b, wh, c0, h0, forget_bias,
-                                      masks, dropout_seed, keep_prob)
+def _launch(entry, what, counter, *args):
     from sketch_rnn_tpu_torch.ops import _build
 
-    dev, t, bsz, d, h, mp, sp = _kernel_common(xs, wx, wh, c0, h0, masks,
-                                               dropout_seed)
-    _require("b", b, dev, torch.float32, (4 * h,))
-    hs = torch.empty((t, bsz, h), dtype=torch.float32, device=dev)
-    cs = torch.empty_like(hs)
-    keep, inv = _keep_args(keep_prob)
     lib = _build.load("fused_rnn")
-    err = lib.srt_lstm_seq_fwd(
-        xs.data_ptr(), wx.data_ptr(), b.data_ptr(), wh.data_ptr(),
-        c0.data_ptr(), h0.data_ptr(), mp, sp, t, bsz, d, h, keep, inv,
-        float(forget_bias), hs.data_ptr(), cs.data_ptr(), _stream(dev))
-    _build.check(lib, err, "fused_lstm_seq forward")
-    fused_lstm_seq_fwd_launches += 1
-    return hs, cs
+    _build.check(lib, getattr(lib, entry)(*args), what)
+    _launches[counter] += 1
+
+
+def _lstm_fwd_kernel(counter, xs, wx, b, wh, c0, h0, forget_bias, masks,
+                     seed, keep_prob, x_bias, residual_dtype, final):
+    dev, t, bsz, d, h, mp, sp, wb = _kernel_common(xs, wx, wh, c0, h0,
+                                                   masks, seed)
+    rd = _residual(residual_dtype)
+    _f32_check(dev, (("b", b, (4 * h,)), ("x_bias", x_bias, (bsz, 4 * h))))
+    hs = torch.empty((t, bsz, h), dtype=rd, device=dev)
+    cs = torch.empty_like(hs)
+    cT = hT = None
+    if final:
+        cT = torch.empty((bsz, h), dtype=torch.float32, device=dev)
+        hT = torch.empty_like(cT)
+    _launch("srt_lstm_fwd", counter.replace("_", " "), counter,
+            xs.data_ptr(), _ptr(x_bias), wx.data_ptr(), b.data_ptr(),
+            wh.data_ptr(), c0.data_ptr(), h0.data_ptr(), mp, sp, t, bsz, d,
+            h, wb, int(rd == torch.bfloat16), *_keep_args(keep_prob),
+            float(forget_bias), hs.data_ptr(), cs.data_ptr(), _ptr(cT),
+            _ptr(hT), _stream(dev))
+    return hs, cs, cT, hT
+
+
+def _lstm_bwd_kernel(counter, xs, wx, b, wh, h0, hs, cs, dhs, dcT, dhT,
+                     forget_bias, masks, seed, keep_prob, x_bias, full):
+    dev, t, bsz, d, h, mp, sp, wb = _kernel_common(xs, wx, wh, h0, h0,
+                                                   masks, seed)
+    rb = _residuals_check(dev, t, bsz, h, hs, cs, dhs)
+    _f32_check(dev, (("b", b, (4 * h,)), ("x_bias", x_bias, (bsz, 4 * h)),
+                     ("dcT", dcT, (bsz, h)), ("dhT", dhT, (bsz, h))))
+    f32 = torch.float32
+    # scratch: the pre-activation gradients of every step (float32,
+    # unrounded), read by the weight-gradient pass
+    dpre = torch.empty((t, bsz, 4 * h), dtype=f32, device=dev)
+    dwx = torch.empty(wx.shape, dtype=f32, device=dev)
+    dwh = torch.empty(wh.shape, dtype=f32, device=dev)
+    db = torch.empty((4 * h,), dtype=f32, device=dev)
+    dxs = dc0 = dh0 = dxb = None
+    if full:
+        dxs = torch.empty_like(xs)
+        dc0 = torch.empty((bsz, h), dtype=f32, device=dev)
+        dh0 = torch.empty_like(dc0)
+        dxb = torch.empty_like(x_bias) if x_bias is not None else None
+    _launch("srt_lstm_bwd", counter.replace("_", " "), counter,
+            xs.data_ptr(), _ptr(x_bias), wx.data_ptr(), b.data_ptr(),
+            wh.data_ptr(), h0.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+            dhs.data_ptr(), _ptr(dcT), _ptr(dhT), mp, sp, t, bsz, d, h, wb,
+            rb, *_keep_args(keep_prob), float(forget_bias), dpre.data_ptr(),
+            _ptr(dxs), _ptr(dxb), dwx.data_ptr(), db.data_ptr(),
+            dwh.data_ptr(), _ptr(dc0), _ptr(dh0), _stream(dev))
+    return dxs, dxb, dwx.to(wx.dtype), db, dwh.to(wh.dtype), dc0, dh0
+
+
+def lstm_seq_fwd(xs, wx, b, wh, c0, h0, forget_bias=1.0, masks=None,
+                 dropout_seed=None, keep_prob=1.0, residual_dtype=None):
+    """Forward of :func:`fused_lstm_seq`: ``(hs, cs)`` (kernel
+    ``srt_lstm_fwd`` with no ``x_bias`` and no final carry)."""
+    if xs.device.type == "cpu":
+        return lstm_seq_fwd_reference(xs, wx, b, wh, c0, h0, forget_bias,
+                                      masks, dropout_seed, keep_prob,
+                                      residual_dtype)
+    return _lstm_fwd_kernel("fused_lstm_seq_fwd", xs, wx, b, wh, c0, h0,
+                            forget_bias, masks, dropout_seed, keep_prob,
+                            None, residual_dtype, False)[:2]
 
 
 def lstm_seq_bwd(xs, wx, b, wh, h0, hs, cs, dhs, forget_bias=1.0,
                  masks=None, dropout_seed=None, keep_prob=1.0):
     """Backward of :func:`fused_lstm_seq`: ``(dwx, db, dwh)`` (kernel
-    ``srt_lstm_seq_bwd``: the recurrence, then the weight-gradient
-    pass)."""
-    global fused_lstm_seq_bwd_launches
+    ``srt_lstm_bwd``: the recurrence, then the weight-gradient pass)."""
     if xs.device.type == "cpu":
         return lstm_seq_bwd_reference(xs, wx, b, wh, h0, hs, cs, dhs,
                                       forget_bias, masks, dropout_seed,
                                       keep_prob)
-    from sketch_rnn_tpu_torch.ops import _build
-
-    dev, t, bsz, d, h, mp, sp = _kernel_common(xs, wx, wh, h0, h0, masks,
-                                               dropout_seed)
-    _require("b", b, dev, torch.float32, (4 * h,))
-    for n, x in (("hs", hs), ("cs", cs), ("dhs", dhs)):
-        _require(n, x, dev, torch.float32, (t, bsz, h))
-    # scratch: the pre-activation gradients of every step, read by the
-    # weight-gradient pass
-    dpre = torch.empty((t, bsz, 4 * h), dtype=torch.float32, device=dev)
-    dwx = torch.empty_like(wx)
-    db = torch.empty_like(b)
-    dwh = torch.empty_like(wh)
-    keep, inv = _keep_args(keep_prob)
-    lib = _build.load("fused_rnn")
-    err = lib.srt_lstm_seq_bwd(
-        xs.data_ptr(), wx.data_ptr(), b.data_ptr(), wh.data_ptr(),
-        h0.data_ptr(), hs.data_ptr(), cs.data_ptr(), dhs.data_ptr(), mp,
-        sp, t, bsz, d, h, keep, inv, float(forget_bias), dpre.data_ptr(),
-        dwx.data_ptr(), db.data_ptr(), dwh.data_ptr(), _stream(dev))
-    _build.check(lib, err, "fused_lstm_seq backward")
-    fused_lstm_seq_bwd_launches += 1
+    _, _, dwx, db, dwh, _, _ = _lstm_bwd_kernel(
+        "fused_lstm_seq_bwd", xs, wx, b, wh, h0, hs, cs, dhs, None, None,
+        forget_bias, masks, dropout_seed, keep_prob, None, False)
     return dwx, db, dwh
+
+
+def lstm_fwd(xs, wx, b, wh, c0, h0, forget_bias=1.0, masks=None,
+             dropout_seed=None, keep_prob=1.0, x_bias=None,
+             residual_dtype=None):
+    """Forward of :func:`fused_lstm`: ``(hs, cs, cT, hT)`` (kernel
+    ``srt_lstm_fwd``)."""
+    if xs.device.type == "cpu":
+        return lstm_fwd_reference(xs, wx, b, wh, c0, h0, forget_bias, masks,
+                                  dropout_seed, keep_prob, x_bias,
+                                  residual_dtype)
+    return _lstm_fwd_kernel("fused_lstm_fwd", xs, wx, b, wh, c0, h0,
+                            forget_bias, masks, dropout_seed, keep_prob,
+                            x_bias, residual_dtype, True)
+
+
+def lstm_bwd(xs, wx, b, wh, h0, hs, cs, dhs, dcT, dhT, forget_bias=1.0,
+             masks=None, dropout_seed=None, keep_prob=1.0, x_bias=None):
+    """Backward of :func:`fused_lstm`: ``(dxs, dxb, dwx, db, dwh, dc0,
+    dh0)`` (kernel ``srt_lstm_bwd``: the recurrence, then the
+    weight-gradient pass with its row of ones for ``db``)."""
+    if xs.device.type == "cpu":
+        return lstm_bwd_reference(xs, wx, b, wh, h0, hs, cs, dhs, dcT, dhT,
+                                  forget_bias, masks, dropout_seed,
+                                  keep_prob, x_bias)
+    return _lstm_bwd_kernel("fused_lstm_bwd", xs, wx, b, wh, h0, hs, cs,
+                            dhs, dcT, dhT, forget_bias, masks, dropout_seed,
+                            keep_prob, x_bias, True)
 
 
 def ln_lstm_fwd(xs, wx, wh, ln_gamma, ln_beta, lnc_gamma, lnc_beta, c0,
                 h0, forget_bias=1.0, masks=None, dropout_seed=None,
-                keep_prob=1.0, x_bias=None):
+                keep_prob=1.0, x_bias=None, residual_dtype=None):
     """Forward of :func:`fused_ln_lstm`: ``(hs, cs, cT, hT)`` (kernel
     ``srt_ln_lstm_fwd``)."""
-    global fused_ln_lstm_fwd_launches
     if xs.device.type == "cpu":
         return ln_lstm_fwd_reference(xs, wx, wh, ln_gamma, ln_beta,
                                      lnc_gamma, lnc_beta, c0, h0,
                                      forget_bias, masks, dropout_seed,
-                                     keep_prob, x_bias)
-    from sketch_rnn_tpu_torch.ops import _build
-
-    dev, t, bsz, d, h, mp, sp = _kernel_common(xs, wx, wh, c0, h0, masks,
-                                               dropout_seed)
+                                     keep_prob, x_bias, residual_dtype)
+    dev, t, bsz, d, h, mp, sp, wb = _kernel_common(xs, wx, wh, c0, h0, masks,
+                                                   dropout_seed)
+    rd = _residual(residual_dtype)
     _ln_params_check(dev, h, ln_gamma, ln_beta, lnc_gamma, lnc_beta, x_bias,
                      bsz)
-    hs = torch.empty((t, bsz, h), dtype=torch.float32, device=dev)
+    hs = torch.empty((t, bsz, h), dtype=rd, device=dev)
     cs = torch.empty_like(hs)
     cT = torch.empty((bsz, h), dtype=torch.float32, device=dev)
     hT = torch.empty_like(cT)
-    keep, inv = _keep_args(keep_prob)
-    lib = _build.load("fused_rnn")
-    err = lib.srt_ln_lstm_fwd(
-        xs.data_ptr(), _ptr(x_bias), wx.data_ptr(), wh.data_ptr(),
-        ln_gamma.data_ptr(), ln_beta.data_ptr(), lnc_gamma.data_ptr(),
-        lnc_beta.data_ptr(), c0.data_ptr(), h0.data_ptr(), mp, sp, t, bsz,
-        d, h, keep, inv, float(forget_bias), hs.data_ptr(), cs.data_ptr(),
-        cT.data_ptr(), hT.data_ptr(), _stream(dev))
-    _build.check(lib, err, "fused_ln_lstm forward")
-    fused_ln_lstm_fwd_launches += 1
+    _launch("srt_ln_lstm_fwd", "fused_ln_lstm forward", "fused_ln_lstm_fwd",
+            xs.data_ptr(), _ptr(x_bias), wx.data_ptr(), wh.data_ptr(),
+            ln_gamma.data_ptr(), ln_beta.data_ptr(), lnc_gamma.data_ptr(),
+            lnc_beta.data_ptr(), c0.data_ptr(), h0.data_ptr(), mp, sp, t,
+            bsz, d, h, wb, int(rd == torch.bfloat16), *_keep_args(keep_prob),
+            float(forget_bias), hs.data_ptr(), cs.data_ptr(), cT.data_ptr(),
+            hT.data_ptr(), _stream(dev))
     return hs, cs, cT, hT
 
 
@@ -474,49 +657,42 @@ def ln_lstm_bwd(xs, wx, wh, ln_gamma, ln_beta, lnc_gamma, lnc_beta, h0, hs,
     """Backward of :func:`fused_ln_lstm`: ``(dxs, dxb, dwx, dwh, dgam,
     dbet, dgc, dbc, dc0, dh0)`` (kernel ``srt_ln_lstm_bwd``: the
     recurrence, the weight-gradient pass and the LN-parameter sum)."""
-    global fused_ln_lstm_bwd_launches
     if xs.device.type == "cpu":
         return ln_lstm_bwd_reference(xs, wx, wh, ln_gamma, ln_beta,
                                      lnc_gamma, lnc_beta, h0, hs, cs, dhs,
                                      dcT, dhT, forget_bias, masks,
                                      dropout_seed, keep_prob, x_bias)
-    from sketch_rnn_tpu_torch.ops import _build
-
-    dev, t, bsz, d, h, mp, sp = _kernel_common(xs, wx, wh, h0, h0, masks,
-                                               dropout_seed)
+    dev, t, bsz, d, h, mp, sp, wb = _kernel_common(xs, wx, wh, h0, h0, masks,
+                                                   dropout_seed)
+    rb = _residuals_check(dev, t, bsz, h, hs, cs, dhs)
     _ln_params_check(dev, h, ln_gamma, ln_beta, lnc_gamma, lnc_beta, x_bias,
                      bsz)
+    _f32_check(dev, (("dcT", dcT, (bsz, h)), ("dhT", dhT, (bsz, h))))
     f32 = torch.float32
-    for n, g, shape in (("hs", hs, (t, bsz, h)), ("cs", cs, (t, bsz, h)),
-                        ("dhs", dhs, (t, bsz, h)), ("dcT", dcT, (bsz, h)),
-                        ("dhT", dhT, (bsz, h))):
-        _require(n, g, dev, f32, shape)
-    # scratch: every step's pre-activation gradients (read by the
-    # weight-gradient pass) and each row's LN-parameter partials
+    # scratch: every step's pre-activation gradients (float32, unrounded;
+    # read by the weight-gradient pass) and each row's LN-parameter
+    # partials
     dpre = torch.empty((t, bsz, 4 * h), dtype=f32, device=dev)
     part = torch.empty((bsz, 10 * h), dtype=f32, device=dev)
     dxs = torch.empty_like(xs)
     dxb = torch.empty_like(x_bias) if x_bias is not None else None
-    dwx = torch.empty_like(wx)
-    dwh = torch.empty_like(wh)
+    dwx = torch.empty(wx.shape, dtype=f32, device=dev)
+    dwh = torch.empty(wh.shape, dtype=f32, device=dev)
     dln = torch.empty((10 * h,), dtype=f32, device=dev)
     dc0 = torch.empty((bsz, h), dtype=f32, device=dev)
     dh0 = torch.empty_like(dc0)
-    keep, inv = _keep_args(keep_prob)
-    lib = _build.load("fused_rnn")
-    err = lib.srt_ln_lstm_bwd(
-        xs.data_ptr(), _ptr(x_bias), wx.data_ptr(), wh.data_ptr(),
-        ln_gamma.data_ptr(), ln_beta.data_ptr(), lnc_gamma.data_ptr(),
-        lnc_beta.data_ptr(), h0.data_ptr(), hs.data_ptr(), cs.data_ptr(),
-        dhs.data_ptr(), dcT.data_ptr(), dhT.data_ptr(), mp, sp, t, bsz, d,
-        h, keep, inv, float(forget_bias), dpre.data_ptr(), part.data_ptr(),
-        dxs.data_ptr(), _ptr(dxb), dwx.data_ptr(), dwh.data_ptr(),
-        dln.data_ptr(), dc0.data_ptr(), dh0.data_ptr(), _stream(dev))
-    _build.check(lib, err, "fused_ln_lstm backward")
-    fused_ln_lstm_bwd_launches += 1
-    return (dxs, dxb, dwx, dwh, dln[:4 * h].view(4, h),
-            dln[4 * h:8 * h].view(4, h), dln[8 * h:9 * h], dln[9 * h:], dc0,
-            dh0)
+    _launch("srt_ln_lstm_bwd", "fused_ln_lstm backward", "fused_ln_lstm_bwd",
+            xs.data_ptr(), _ptr(x_bias), wx.data_ptr(), wh.data_ptr(),
+            ln_gamma.data_ptr(), ln_beta.data_ptr(), lnc_gamma.data_ptr(),
+            lnc_beta.data_ptr(), h0.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+            dhs.data_ptr(), dcT.data_ptr(), dhT.data_ptr(), mp, sp, t, bsz,
+            d, h, wb, rb, *_keep_args(keep_prob), float(forget_bias),
+            dpre.data_ptr(), part.data_ptr(), dxs.data_ptr(), _ptr(dxb),
+            dwx.data_ptr(), dwh.data_ptr(), dln.data_ptr(), dc0.data_ptr(),
+            dh0.data_ptr(), _stream(dev))
+    return (dxs, dxb, dwx.to(wx.dtype), dwh.to(wh.dtype),
+            dln[:4 * h].view(4, h), dln[4 * h:8 * h].view(4, h),
+            dln[8 * h:9 * h], dln[9 * h:], dc0, dh0)
 
 
 # -- the autograd Functions -------------------------------------------------
@@ -533,9 +709,9 @@ class _FusedLSTMSeq(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xs, wx, b, wh, c0, h0, masks, seed, forget_bias,
-                keep_prob):
+                keep_prob, residual_dtype):
         hs, cs = lstm_seq_fwd(xs, wx, b, wh, c0, h0, forget_bias, masks,
-                              seed, keep_prob)
+                              seed, keep_prob, residual_dtype)
         ctx.save_for_backward(xs, wx, b, wh, c0, h0, hs, cs, masks, seed)
         ctx.forget_bias, ctx.keep_prob = forget_bias, keep_prob
         return hs
@@ -547,7 +723,7 @@ class _FusedLSTMSeq(torch.autograd.Function):
                                     dhs.contiguous(), ctx.forget_bias, masks,
                                     seed, ctx.keep_prob)
         return (torch.zeros_like(xs), dwx, db, dwh, torch.zeros_like(c0),
-                torch.zeros_like(h0), None, None, None, None)
+                torch.zeros_like(h0), None, None, None, None, None)
 
 
 def fused_lstm_seq(xs, wx, b, wh, c0, h0, forget_bias: float = 1.0,
@@ -555,27 +731,68 @@ def fused_lstm_seq(xs, wx, b, wh, c0, h0, forget_bias: float = 1.0,
                    keep_prob: float = 1.0, residual_dtype=None
                    ) -> torch.Tensor:
     """Sequence-only fused LSTM over ``xs [T, B, D]``: returns ``hs [T,
-    B, H]`` alone. ``wx [D, 4H]``, ``b [4H]``, ``wh [H, 4H]``, carries
-    ``[B, H]``; gates ``(i, g, f, o)``, the forget bias added to ``f``.
-    Dropout on the candidate: ``masks [T, B, H]`` or ``dropout_seed`` (an
-    int32 scalar) with ``keep_prob``. Only the weights are
-    differentiated: the gradients of ``xs``, ``c0`` and ``h0`` are zero
-    by definition (the encoder's contract, as in the JAX package)."""
-    _check_dropout(masks, dropout_seed)
-    _check_residual(residual_dtype)
+    B, H]`` alone, in ``residual_dtype`` (float32 when None). ``wx [D,
+    4H]``, ``wh [H, 4H]`` (float32 or pre-cast bfloat16), ``b [4H]``,
+    carries ``[B, H]``; gates ``(i, g, f, o)``, the forget bias added to
+    ``f``. Dropout on the candidate: ``masks [T, B, H]`` or
+    ``dropout_seed`` (an int32 scalar) with ``keep_prob``. Only the
+    weights are differentiated: the gradients of ``xs``, ``c0`` and
+    ``h0`` are zero by definition (the encoder's contract, as in the JAX
+    package)."""
+    _check_args(wx, wh, masks, dropout_seed, residual_dtype)
     return _FusedLSTMSeq.apply(xs, wx, b, wh, c0, h0, masks,
                                _as_seed(dropout_seed, xs), forget_bias,
-                               keep_prob)
+                               keep_prob, residual_dtype)
+
+
+class _FusedLSTM(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, xs, wx, b, wh, c0, h0, masks, seed, x_bias,
+                forget_bias, keep_prob, residual_dtype):
+        hs, cs, cT, hT = lstm_fwd(xs, wx, b, wh, c0, h0, forget_bias, masks,
+                                  seed, keep_prob, x_bias, residual_dtype)
+        ctx.save_for_backward(xs, wx, b, wh, h0, hs, cs, masks, seed,
+                              x_bias)
+        ctx.forget_bias, ctx.keep_prob = forget_bias, keep_prob
+        return hs, cT, hT
+
+    @staticmethod
+    def backward(ctx, dhs, dcT, dhT):
+        xs, wx, b, wh, h0, hs, cs, masks, seed, x_bias = ctx.saved_tensors
+        dxs, dxb, dwx, db, dwh, dc0, dh0 = lstm_bwd(
+            xs, wx, b, wh, h0, hs, cs, dhs.contiguous(), dcT.contiguous(),
+            dhT.contiguous(), ctx.forget_bias, masks, seed, ctx.keep_prob,
+            x_bias)
+        return (dxs, dwx, db, dwh, dc0, dh0, None, None, dxb, None, None,
+                None)
+
+
+def fused_lstm(xs, wx, b, wh, c0, h0, forget_bias: float = 1.0,
+               masks: Optional[torch.Tensor] = None, dropout_seed=None,
+               keep_prob: float = 1.0, residual_dtype=None,
+               x_bias: Optional[torch.Tensor] = None):
+    """Fused LSTM over ``xs [T, B, D]`` with its final carry (the
+    ``lstm`` decoder's cell): the arguments of :func:`fused_lstm_seq`,
+    plus ``x_bias [B, 4H]`` added to every step's pre-activations (the
+    projection of time-invariant inputs). Returns ``(hs [T, B, H], (cT,
+    hT))``, ``hs`` in ``residual_dtype``, the final carry float32; every
+    input is differentiated."""
+    _check_args(wx, wh, masks, dropout_seed, residual_dtype)
+    hs, cT, hT = _FusedLSTM.apply(xs, wx, b, wh, c0, h0, masks,
+                                  _as_seed(dropout_seed, xs), x_bias,
+                                  forget_bias, keep_prob, residual_dtype)
+    return hs, (cT, hT)
 
 
 class _FusedLNLSTM(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xs, wx, wh, gam, bet, gc, bc, c0, h0, masks, seed,
-                x_bias, forget_bias, keep_prob):
+                x_bias, forget_bias, keep_prob, residual_dtype):
         hs, cs, cT, hT = ln_lstm_fwd(xs, wx, wh, gam, bet, gc, bc, c0, h0,
                                      forget_bias, masks, seed, keep_prob,
-                                     x_bias)
+                                     x_bias, residual_dtype)
         ctx.save_for_backward(xs, wx, wh, gam, bet, gc, bc, h0, hs, cs,
                               masks, seed, x_bias)
         ctx.forget_bias, ctx.keep_prob = forget_bias, keep_prob
@@ -590,7 +807,7 @@ class _FusedLNLSTM(torch.autograd.Function):
             dcT.contiguous(), dhT.contiguous(), ctx.forget_bias, masks,
             seed, ctx.keep_prob, x_bias)
         return (dxs, dwx, dwh, dgam, dbet, dgc, dbc, dc0, dh0, None, None,
-                dxb, None, None)
+                dxb, None, None, None)
 
 
 def fused_ln_lstm(xs, wx, wh, ln_gamma, ln_beta, lnc_gamma, lnc_beta, c0,
@@ -603,11 +820,11 @@ def fused_ln_lstm(xs, wx, wh, ln_gamma, ln_beta, lnc_gamma, lnc_beta, c0,
     lnc_beta [H]``), no linear bias, the forget bias after the norm,
     dropout on the candidate. ``x_bias [B, 4H]`` is added to every
     step's pre-activations (the projection of time-invariant inputs).
-    Returns ``(hs [T, B, H], (cT, hT))``; every input is differentiated.
-    """
-    _check_dropout(masks, dropout_seed)
-    _check_residual(residual_dtype)
+    Returns ``(hs [T, B, H], (cT, hT))``, ``hs`` in ``residual_dtype``;
+    every input is differentiated."""
+    _check_args(wx, wh, masks, dropout_seed, residual_dtype)
     hs, cT, hT = _FusedLNLSTM.apply(
         xs, wx, wh, ln_gamma, ln_beta, lnc_gamma, lnc_beta, c0, h0, masks,
-        _as_seed(dropout_seed, xs), x_bias, forget_bias, keep_prob)
+        _as_seed(dropout_seed, xs), x_bias, forget_bias, keep_prob,
+        residual_dtype)
     return hs, (cT, hT)

@@ -41,10 +41,14 @@ def normal_init(gen: torch.Generator, shape, stddev: float
 def matmul(x: torch.Tensor, w: torch.Tensor, compute_dtype=None
            ) -> torch.Tensor:
     """``x @ w`` in float32; with ``compute_dtype`` the operands are first
-    rounded to it (products of the rounded values, f32 accumulation)."""
+    rounded to it (products of the rounded values, f32 accumulation).
+    Without it, operands of mixed or bfloat16 dtypes are promoted to
+    float32 (``jnp.matmul``'s promotion with a float32 result)."""
     if compute_dtype is not None:
         x = x.to(compute_dtype).float()
         w = w.to(compute_dtype).float()
+    elif x.dtype != w.dtype or x.dtype == torch.bfloat16:
+        x, w = x.float(), w.float()
     return torch.matmul(x, w)
 
 

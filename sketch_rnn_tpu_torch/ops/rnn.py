@@ -9,8 +9,9 @@ The port of ``run_rnn``, ``final_hidden``, ``length_reverse_indices`` and
 - the fused path (``fused=True``, training): the whole recurrence and its
   backward go through the training kernels of ``ops/cuda_fused.py``
   (``_run_fused``, the port of the JAX package's dispatch of the same
-  name). The encoder's LSTM takes ``fused_lstm_seq``, the LayerNorm-LSTM
-  decoder ``fused_ln_lstm`` with its per-example ``x_bias``.
+  name). The encoder's LSTM takes ``fused_lstm_seq``, the LSTM decoder
+  ``fused_lstm`` and the LayerNorm-LSTM decoder ``fused_ln_lstm``, both
+  with their per-example ``x_bias``.
 
 Everything is time-major ``[T, B, D]``.
 """
@@ -22,6 +23,7 @@ from typing import Any, Optional, Tuple
 import torch
 
 from sketch_rnn_tpu_torch.ops import cuda_fused as CF
+from sketch_rnn_tpu_torch.ops import linear as L
 from sketch_rnn_tpu_torch.ops.cells import LayerNormLSTMCell
 from sketch_rnn_tpu_torch.utils import prng
 
@@ -30,19 +32,16 @@ INT32_MAX = 2 ** 31 - 1
 
 def _run_fused(cell, params, xs, carry0, rdrop_masks, reverse, rdrop_gen,
                residual_dtype=None, x_extra=None, seq_only=False):
-    """Dispatch to the fused training kernels. ``reverse`` flips inputs
-    and outputs around the kernel. ``rdrop_gen = (key, keep)`` becomes
-    the kernels' in-kernel dropout: the seed is ``randint(key, 0,
-    2**31-1)``, bitwise the JAX package's, so the masks are too.
-    ``x_extra [B, E]`` (time-invariant inputs) is projected once into the
-    per-example gate bias ``x_extra @ wx[d_s:]`` (a plain product, as the
-    JAX package leaves it to XLA) while ``wx[:d_s]`` goes into the
-    kernel."""
-    if cell.compute_dtype is not None:
-        raise NotImplementedError(
-            "compute_dtype=bfloat16 on the fused training kernels comes "
-            "with the next slice of the PyTorch port; train with "
-            "compute_dtype=float32")
+    """Dispatch to the fused training kernels, as the JAX package's
+    ``_run_fused`` does. ``reverse`` flips inputs and outputs around the
+    kernel. ``rdrop_gen = (key, keep)`` becomes the kernels' in-kernel
+    dropout: the seed is ``randint(key, 0, 2**31-1)``, bitwise the JAX
+    package's, so the masks are too. With the cell's ``compute_dtype``
+    the weights are cast inside the autograd graph (their gradients come
+    back through the cast as float32). ``x_extra [B, E]`` (time-invariant
+    inputs) is projected once into the per-example gate bias ``x_extra @
+    wx[d_s:]`` (a plain product with float32 accumulation, as the JAX
+    package leaves it to XLA) while ``wx[:d_s]`` goes into the kernel."""
     masks = rdrop_masks
     seed, keep = None, 1.0
     if rdrop_gen is not None:
@@ -53,11 +52,13 @@ def _run_fused(cell, params, xs, carry0, rdrop_masks, reverse, rdrop_gen,
         if masks is not None:
             masks = torch.flip(masks, dims=(0,))
     xs = xs.contiguous()
-    wx, wh = params["wx"], params["wh"]
+    cd = cell.compute_dtype
+    cast = (lambda w: w.to(cd)) if cd is not None else (lambda w: w)
+    wx, wh = cast(params["wx"]), cast(params["wh"])
     xb = None
     if x_extra is not None:
         d_s = xs.shape[-1]
-        xb = torch.matmul(x_extra, wx[d_s:])
+        xb = L.matmul(x_extra, wx[d_s:], cd)
         wx = wx[:d_s]
     c0, h0 = (c.contiguous() for c in carry0)
     if isinstance(cell, LayerNormLSTMCell):
@@ -73,10 +74,9 @@ def _run_fused(cell, params, xs, carry0, rdrop_masks, reverse, rdrop_gen,
                                residual_dtype)
         fin = None
     else:
-        raise NotImplementedError(
-            "the fused LSTM with a final carry or x_bias (fused_lstm, the "
-            "lstm decoder's kernel) comes with the next slice of the "
-            "PyTorch port; train the layer_norm decoder")
+        hs, fin = CF.fused_lstm(xs, wx, params["b"], wh, c0, h0,
+                                cell.forget_bias, masks, seed, keep,
+                                residual_dtype, xb)
     if reverse:
         hs = torch.flip(hs, dims=(0,))
     return fin, hs
@@ -184,9 +184,12 @@ def bidirectional_rnn(cell_fwd, cell_bwd, params_fwd, params_bwd,
                               rdrop_masks=rdrop_masks_bwd,
                               rdrop_gen=rdrop_gen_bwd, need_final=False,
                               **kw)
+        # float32 accumulation, then back to the residual dtype, as the
+        # JAX package's preferred_element_type einsum and astype
         last = torch.clamp(seq_len.long() - 1, 0, t - 1)
-        onehot = torch.nn.functional.one_hot(last, t).to(hs_f.dtype)
-        h_f = torch.einsum("tbh,bt->bh", hs_f, onehot)
-        h_b = torch.einsum("tbh,bt->bh", hs_b_rev, onehot)
+        onehot = torch.nn.functional.one_hot(last, t).float()
+        h_f = torch.einsum("tbh,bt->bh", hs_f.float(), onehot).to(hs_f.dtype)
+        h_b = torch.einsum("tbh,bt->bh", hs_b_rev.float(),
+                           onehot).to(hs_b_rev.dtype)
         hs_b = torch.take_along_dim(hs_b_rev, rev_idx[:, :, None], dim=0)
     return torch.cat([h_f, h_b], dim=-1), torch.cat([hs_f, hs_b], dim=-1)

@@ -37,7 +37,8 @@ import numpy as np
 import torch
 
 from sketch_rnn_tpu_torch.config import HParams
-from sketch_rnn_tpu_torch.ops.cuda_decode import (check_cell_kind,
+from sketch_rnn_tpu_torch.ops.cuda_decode import (cast_weights,
+                                                  check_cell_kind,
                                                   replay_chunk)
 from sketch_rnn_tpu_torch.utils.device import resolve_device, tree_to
 
@@ -155,6 +156,9 @@ def make_encode_step(model, hps: HParams, params):
       first input.
     """
     check_cell_kind(hps.dec_model)
+    cd = model.dec.compute_dtype
+    # the kernel's weight matrices in its weight dtype, cast once
+    dec_params = cast_weights(params["dec"], cd)
 
     def fn(strokes, seq_len, labels):
         b = strokes.shape[0]
@@ -163,10 +167,10 @@ def make_encode_step(model, hps: HParams, params):
         c0, h0 = model.decoder_initial_carry(params, mu, b)
         extra = model._decoder_extra(params, mu, labels)
         c, h = replay_chunk(
-            params["dec"], c0.contiguous(), h0.contiguous(),
+            dec_params, c0.contiguous(), h0.contiguous(),
             x_tm[:-1].contiguous(), extra, seq_len,
             cell_kind=hps.dec_model, forget_bias=model.dec.forget_bias,
-            compute_dtype=model.dec.compute_dtype)
+            compute_dtype=cd)
         prev = strokes[torch.arange(b, device=strokes.device),
                        seq_len.long()]
         return mu, torch.cat([c, h], dim=-1), prev

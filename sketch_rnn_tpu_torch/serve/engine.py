@@ -44,10 +44,11 @@ import numpy as np
 import torch
 
 from sketch_rnn_tpu_torch.config import HParams
-from sketch_rnn_tpu_torch.ops.cuda_decode import (check_cell_kind,
-                                                  check_compute_dtype,
+from sketch_rnn_tpu_torch.ops.cuda_decode import (cast_weights,
+                                                  check_cell_kind,
                                                   decode_chunk,
-                                                  make_uniforms)
+                                                  make_uniforms,
+                                                  weight_dtype)
 from sketch_rnn_tpu_torch.sample.sampler import END_TOKEN, START_TOKEN
 from sketch_rnn_tpu_torch.utils.device import resolve_device, tree_to
 from sketch_rnn_tpu_torch.utils.telemetry import attribute_chunk_steps
@@ -129,7 +130,10 @@ def make_chunk_step(model, hps: HParams, chunk: int, params,
     emit END_TOKEN rows and keep their carry.
     """
     check_cell_kind(hps.dec_model)
-    check_compute_dtype(model.dec.compute_dtype)
+    cd = model.dec.compute_dtype
+    # the kernel's weight matrices in its weight dtype, cast once
+    dec_params = cast_weights(params["dec"], cd)
+    out_w = params["out_w"].to(weight_dtype(cd))
     num_mixture = hps.num_mixture
     # START/END rows per device, copied once: a host->device copy inside
     # the chunk would wait for the card and break the pipelining
@@ -167,11 +171,10 @@ def make_chunk_step(model, hps: HParams, chunk: int, params,
         extra = model._decoder_extra(params, z, labels)
         u = make_uniforms(key_data, t, chunk)
         strokes, c, h, t, done = decode_chunk(
-            params["dec"], params["out_w"], params["out_b"], c0, h0, prev,
-            extra, u, temps, t, done, max_steps, end_row,
-            cell_kind=hps.dec_model, num_mixture=num_mixture,
-            forget_bias=model.dec.forget_bias,
-            compute_dtype=model.dec.compute_dtype, greedy=greedy)
+            dec_params, out_w, params["out_b"], c0, h0, prev, extra, u,
+            temps, t, done, max_steps, end_row, cell_kind=hps.dec_model,
+            num_mixture=num_mixture, forget_bias=model.dec.forget_bias,
+            compute_dtype=cd, greedy=greedy)
         return (c, h), strokes[-1], t, done, strokes
 
     return chunk_fn

@@ -30,25 +30,15 @@ from sketch_rnn_tpu_torch.utils.device import resolve_device
 Metrics = Dict[str, torch.Tensor]
 StepFn = Callable[..., Tuple[TrainState, Metrics]]
 
-_NEXT = "comes with the next slice of the PyTorch port"
 _LATER = "comes with a later slice of the PyTorch port"
 
 
 def check_trainable(hps: HParams) -> None:
     """Refuse, by name, the training requests this slice does not serve."""
-    if hps.compute_dtype != "float32" or hps.fused_residual_dtype != \
-            "float32":
-        raise NotImplementedError(
-            f"compute_dtype={hps.compute_dtype}, fused_residual_dtype="
-            f"{hps.fused_residual_dtype}: bfloat16 training {_NEXT}; train "
-            f"with compute_dtype=float32,fused_residual_dtype=float32")
     if "hyper" in (hps.dec_model, hps.enc_model):
         raise NotImplementedError(
-            f"the hyper cell (fused_hyper_lstm) {_LATER}")
-    if hps.dec_model == "lstm":
-        raise NotImplementedError(
-            f"training the lstm decoder (its fused_lstm kernel) {_NEXT}; "
-            f"train dec_model=layer_norm")
+            "the hyper cell (fused_hyper_lstm) comes with the next slice "
+            "of the PyTorch port; train dec_model=lstm or layer_norm")
     if not hps.fused_rnn:
         raise NotImplementedError(
             f"fused_rnn=false in training (its scan path draws bernoulli "

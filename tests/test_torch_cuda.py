@@ -1,11 +1,12 @@
 """The port's CUDA kernels on the card; every test skips without one.
 
 These hold each kernel against its plain PyTorch version on the same
-CUDA tensors at the test suite's tiny shapes (H=16, M=3: widths the
-full-width run in ``chip_smoke.py`` does not reach), check that the
-wrappers refuse what the kernels do not take, and serve a small burst on
-the card against the same burst on the CPU. The card machine has no JAX,
-so run them there without the JAX conftest:
+CUDA tensors at the test suite's tiny shapes (H=16/40, M=3: widths the
+full-width run in ``chip_smoke.py`` does not reach), at float32 and at
+bfloat16 weights and residuals, check that the wrappers refuse what the
+kernels do not take, and serve a small burst on the card against the
+same burst on the CPU. The card machine has no JAX, so run them there
+without the JAX conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
@@ -30,6 +31,10 @@ B, K = 4, 4
 # tiny widths: float32 rounding differs by ~1e-7 between the kernel's
 # sums and the plain version's; 1e-5 is the JAX package's own budget
 TOL = 1e-5
+# bfloat16: where the two float32 sums straddle a rounding boundary, a
+# bfloat16 value (a stored hs, a rounded product operand, a weight
+# gradient) moves by one ulp, 2**-8 relative
+BF_TOL = 1e-2
 
 
 @pytest.fixture
@@ -121,29 +126,38 @@ def test_wrappers_refuse_bad_inputs(dev):
     args = list(_decode_args(hps, model, params, dev))
     kw = dict(cell_kind="lstm", num_mixture=hps.num_mixture)
     before = cd.decode_chunk_launches
+    bf = torch.bfloat16
     bad = {3: args[3].t().contiguous().t(),      # non-contiguous c0
            8: args[8].double(),                  # float64 temps
            9: args[9].cpu(),                     # t0 on the CPU
-           11: args[11].long()}                  # int64 caps
+           11: args[11].long(),                  # int64 caps
+           1: args[1].to(bf)}                    # bf16 out_w, f32 compute
     for i, t in bad.items():
         a = list(args)
         a[i] = t
         with pytest.raises((ValueError, TypeError)):
             cd.decode_chunk(*a, **kw)
+    # bfloat16 weights need the bfloat16 path, and float32 weights are
+    # not taken by it: each raises, none falls back
+    with pytest.raises(TypeError):
+        cd.decode_chunk(cd.cast_weights(args[0], bf), *args[1:], **kw)
+    with pytest.raises(TypeError):
+        cd.decode_chunk(*args, **kw, compute_dtype=bf)
     assert cd.decode_chunk_launches == before
 
 
 FT, FB, FD = 7, 6, 5    # fused kernels: steps, rows, input width
 
 
-def _fused_inputs(cell, h, dev, x_bias, mode):
+def _fused_inputs(cell, h, dev, x_bias, mode, wdt=torch.float32):
     g = torch.Generator().manual_seed(h + 3 * x_bias)
     r = lambda *s, sc=1.0: (torch.randn(s, generator=g) * sc).to(dev)
-    d = {"xs": r(FT, FB, FD), "wx": r(FD, 4 * h, sc=0.4),
-         "wh": r(h, 4 * h, sc=0.25), "c0": r(FB, h, sc=0.3),
+    d = {"xs": r(FT, FB, FD), "wx": r(FD, 4 * h, sc=0.4).to(wdt),
+         "wh": r(h, 4 * h, sc=0.25).to(wdt), "c0": r(FB, h, sc=0.3),
          "h0": r(FB, h, sc=0.3)}
-    if cell == "lstm":
+    if cell in ("lstm", "lstm_full"):
         d["b"] = r(4 * h, sc=0.1)
+        d["x_bias"] = r(FB, 4 * h, sc=0.3) if x_bias else None
     else:
         d.update(ln_gamma=1 + r(4, h, sc=0.1), ln_beta=r(4, h, sc=0.1),
                  lnc_gamma=1 + r(h, sc=0.1), lnc_beta=r(h, sc=0.1),
@@ -157,62 +171,143 @@ def _fused_inputs(cell, h, dev, x_bias, mode):
     return d, masks, seed
 
 
-def _run_fused(cell, d, masks, seed):
+def _run_fused(cell, d, masks, seed, rdt=None):
     """Forward + backward of one wrapper; returns (outputs, grads) with
-    leaves cloned so the kernel and plain runs do not share grads."""
+    leaves cloned so the kernel and plain runs do not share grads.
+    ``cell``: "lstm" (fused_lstm_seq), "lstm_full" (fused_lstm) or
+    "layer_norm" (fused_ln_lstm); ``rdt``: the residual dtype."""
     from sketch_rnn_tpu_torch.ops import cuda_fused as cf
 
     p = {k: (v.clone().requires_grad_(True) if v is not None else None)
          for k, v in d.items()}
     keep = 0.9 if seed is not None else 1.0
+
+    def weighted(hs):
+        return (hs.float() * torch.linspace(-1, 1, hs.numel(),
+                                            device=hs.device)
+                .view_as(hs)).sum()
+
     if cell == "lstm":
         hs = cf.fused_lstm_seq(p["xs"], p["wx"], p["b"], p["wh"], p["c0"],
-                               p["h0"], 1.0, masks, seed, keep)
+                               p["h0"], 1.0, masks, seed, keep, rdt)
         outs = (hs,)
-        loss = (hs * torch.linspace(-1, 1, hs.numel(), device=hs.device)
-                .view_as(hs)).sum()
+        loss = weighted(hs)
         names = ("wx", "b", "wh")
     else:
-        hs, (cT, hT) = cf.fused_ln_lstm(
-            p["xs"], p["wx"], p["wh"], p["ln_gamma"], p["ln_beta"],
-            p["lnc_gamma"], p["lnc_beta"], p["c0"], p["h0"], 1.0, masks,
-            seed, keep, None, p["x_bias"])
+        if cell == "lstm_full":
+            hs, (cT, hT) = cf.fused_lstm(
+                p["xs"], p["wx"], p["b"], p["wh"], p["c0"], p["h0"], 1.0,
+                masks, seed, keep, rdt, p["x_bias"])
+            names = ("xs", "wx", "b", "wh", "c0", "h0")
+        else:
+            hs, (cT, hT) = cf.fused_ln_lstm(
+                p["xs"], p["wx"], p["wh"], p["ln_gamma"], p["ln_beta"],
+                p["lnc_gamma"], p["lnc_beta"], p["c0"], p["h0"], 1.0, masks,
+                seed, keep, rdt, p["x_bias"])
+            names = ("xs", "wx", "wh", "ln_gamma", "ln_beta", "lnc_gamma",
+                     "lnc_beta", "c0", "h0")
         outs = (hs, cT, hT)
-        loss = (hs * torch.linspace(-1, 1, hs.numel(), device=hs.device)
-                .view_as(hs)).sum() + cT.sum() + 0.5 * hT.sum()
-        names = ("xs", "wx", "wh", "ln_gamma", "ln_beta", "lnc_gamma",
-                 "lnc_beta", "c0", "h0") + (
-            ("x_bias",) if p["x_bias"] is not None else ())
+        loss = weighted(hs) + cT.sum() + 0.5 * hT.sum()
+        names += ("x_bias",) if p["x_bias"] is not None else ()
     loss.backward()
     return outs, [p[n].grad for n in names]
 
 
-@pytest.mark.parametrize("cell,h,x_bias,mode", [
-    ("lstm", 16, False, "none"), ("lstm", 16, False, "seed"),
-    ("lstm", 40, False, "masks"), ("layer_norm", 16, False, "none"),
-    ("layer_norm", 16, True, "seed"), ("layer_norm", 40, True, "masks")])
-def test_fused_kernels_match_plain_versions(dev, cell, h, x_bias, mode):
-    """Each of the four training kernels against its plain version on the
-    same CUDA tensors (forward values and every gradient), with and
-    without dropout and x_bias; H=40 leaves part of the last warp idle."""
+_COUNTER = {"lstm": "fused_lstm_seq", "lstm_full": "fused_lstm",
+            "layer_norm": "fused_ln_lstm"}
+
+
+def _hold_fused(dev, cell, d, masks, seed, tol, rdt=None):
+    """One kernel pair (forward + backward, one launch each) against its
+    plain version on the same tensors, each output within ``tol`` of the
+    plain one relative to max(1, its largest magnitude)."""
     from sketch_rnn_tpu_torch.ops import cuda_fused as cf
 
-    d, masks, seed = _fused_inputs(cell, h, dev, x_bias, mode)
     before = cf.launch_counts()
-    outs, grads = _run_fused(cell, d, masks, seed)
+    outs, grads = _run_fused(cell, d, masks, seed, rdt)
     torch.cuda.synchronize()
     after = cf.launch_counts()
-    key = "fused_lstm_seq" if cell == "lstm" else "fused_ln_lstm"
+    key = _COUNTER[cell]
     assert after[key + "_fwd"] == before[key + "_fwd"] + 1
     assert after[key + "_bwd"] == before[key + "_bwd"] + 1
     cpu = {k: (v.cpu() if v is not None else None) for k, v in d.items()}
     want_outs, want_grads = _run_fused(
         cell, cpu, masks.cpu() if masks is not None else None,
-        seed.cpu() if seed is not None else None)
+        seed.cpu() if seed is not None else None, rdt)
     for a, b in zip(outs + tuple(grads), want_outs + tuple(want_grads)):
-        a, b = a.detach().cpu(), b.detach()
-        assert float((a - b).abs().max()) <= TOL * max(
+        assert a.dtype == b.dtype
+        a, b = a.detach().cpu().float(), b.detach().float()
+        assert float((a - b).abs().max()) <= tol * max(
             1.0, float(b.abs().max()))
+
+
+@pytest.mark.parametrize("cell,h,x_bias,mode", [
+    ("lstm", 16, False, "none"), ("lstm", 16, False, "seed"),
+    ("lstm", 40, False, "masks"), ("layer_norm", 16, False, "none"),
+    ("layer_norm", 16, True, "seed"), ("layer_norm", 40, True, "masks"),
+    ("lstm_full", 16, False, "none"), ("lstm_full", 16, True, "seed"),
+    ("lstm_full", 40, True, "masks")])
+def test_fused_kernels_match_plain_versions(dev, cell, h, x_bias, mode):
+    """Each of the six training kernels against its plain version on the
+    same CUDA tensors (forward values and every gradient), with and
+    without dropout and x_bias; H=40 leaves part of the last warp idle."""
+    d, masks, seed = _fused_inputs(cell, h, dev, x_bias, mode)
+    _hold_fused(dev, cell, d, masks, seed, TOL)
+
+
+@pytest.mark.parametrize("cell,h,mode,wdt,rdt", [
+    ("lstm", 16, "seed", torch.bfloat16, torch.bfloat16),
+    ("lstm_full", 40, "masks", torch.bfloat16, torch.bfloat16),
+    ("lstm_full", 16, "seed", torch.bfloat16, torch.float32),
+    ("layer_norm", 16, "seed", torch.bfloat16, torch.bfloat16),
+    ("layer_norm", 40, "none", torch.float32, torch.bfloat16)])
+def test_fused_kernels_bf16_match_plain_versions(dev, cell, h, mode, wdt,
+                                                 rdt):
+    """The training kernels at bfloat16 weights and/or residuals (the
+    flagship preset's setting) against their plain versions: outputs and
+    gradients in the same dtypes, within a bfloat16 ulp's reach."""
+    d, masks, seed = _fused_inputs(cell, h, dev, True, mode, wdt)
+    _hold_fused(dev, cell, d, masks, seed, BF_TOL, rdt)
+
+
+@pytest.mark.parametrize("cell", ["lstm", "layer_norm"])
+def test_bf16_serving_kernels_match_plain_versions(dev, cell):
+    """decode_chunk and replay_chunk at compute_dtype=bfloat16, bfloat16
+    weights (as the engine casts them), against their plain versions."""
+    hps, model, params = _model(cell, True, dev)
+    bf = torch.bfloat16
+    args = list(_decode_args(hps, model, params, dev))
+    args[0] = cd.cast_weights(args[0], bf)
+    args[1] = args[1].to(bf)
+    kw = dict(cell_kind=cell, num_mixture=hps.num_mixture,
+              compute_dtype=bf)
+    before = (cd.decode_chunk_launches, cd.replay_chunk_launches)
+    got = cd.decode_chunk(*args, **kw)
+    xs = torch.randn((6, B, 5), generator=torch.Generator().manual_seed(2)
+                     ).to(dev)
+    seq_len = torch.tensor([6, 2, 4, 1], dtype=torch.int32).to(dev)
+    rkw = dict(cell_kind=cell, compute_dtype=bf)
+    rgot = cd.replay_chunk(args[0], args[3], args[4], xs, args[6], seq_len,
+                           **rkw)
+    torch.cuda.synchronize()
+    assert (cd.decode_chunk_launches, cd.replay_chunk_launches) == (
+        before[0] + 1, before[1] + 1)
+    *want, margin = cd.decode_chunk_reference(*args, **kw,
+                                              return_margin=True)
+    rwant = cd.replay_chunk_reference(args[0], args[3], args[4], xs,
+                                      args[6], seq_len, **rkw)
+    keep = (margin >= 1e-3).cpu()
+    assert bool(keep.any())
+    for a, b in zip(got, want):
+        a, b = a.cpu(), b.cpu()
+        a, b = (a[:, keep], b[:, keep]) if a.dim() == 3 else (a[keep],
+                                                              b[keep])
+        if a.dtype in (torch.int32, torch.bool):
+            assert torch.equal(a, b)
+        else:
+            assert float((a - b).abs().max()) <= 1e-3
+    for a, b in zip(rgot, rwant):
+        assert float((a - b).abs().max()) <= 1e-3
 
 
 def test_fused_prng_mask_bitwise_on_card(dev):
@@ -254,6 +349,19 @@ def test_fused_wrappers_refuse_bad_inputs(dev):
     with pytest.raises(ValueError):
         cf.fused_ln_lstm(*(d[m] for m in names),
                          x_bias=d["x_bias"][:, :10].contiguous())
+    # float16 weights, weights of two dtypes, float16 residuals
+    for wx, wh, rdt in ((d["wx"].half(), d["wh"].half(), None),
+                        (d["wx"].to(torch.bfloat16), d["wh"], None),
+                        (d["wx"], d["wh"], torch.float16)):
+        args = [wx if m == "wx" else wh if m == "wh" else d[m]
+                for m in names]
+        with pytest.raises(TypeError):
+            cf.fused_ln_lstm(*args, residual_dtype=rdt, x_bias=d["x_bias"])
+    # a bfloat16 residual stream handed to the float32 backward
+    hs = torch.zeros((FT, FB, 16), device=dev)
+    with pytest.raises(TypeError):
+        cf.ln_lstm_bwd(*(d[m] for m in names[:7]), d["h0"], hs,
+                       hs.to(torch.bfloat16), hs, d["c0"], d["h0"])
     big = torch.zeros((2, 2, 5), device=dev)
     with pytest.raises(ValueError, match="at most"):
         cf.fused_lstm_seq(big, torch.zeros((5, 2052), device=dev),

@@ -7,7 +7,9 @@ and its ``lax.scan`` chunk program, on the same JAX-made weights, request
 keys, z and state. The rule, the JAX package's own conditional budget
 (``tests/test_pallas_decode.py::COND_TOL``): step counts, done flags and
 pen columns EXACTLY equal; offsets and the carry within 1e-5. Measured on
-this suite's shapes: max gap 4.8e-7 (float32 summation order). A pen or
+this suite's shapes: max gap 4.8e-7 (float32 summation order). The same
+rule holds at ``compute_dtype=bfloat16`` (bfloat16 weights and product
+operands, float32 sums on both sides): max gap 2.4e-7. A pen or
 component flip is a discrete divergence; were one to show up the test
 reports the row's CDF margin (a near-tie is rounding, a flip far from
 any tie is a bug).
@@ -38,9 +40,9 @@ B = 4
 TOL = 1e-5
 
 
-def _setup(cell, conditional, num_classes=0, seed=0):
+def _setup(cell, conditional, num_classes=0, seed=0, **over):
     kw = dict(TINY, dec_model=cell, conditional=conditional,
-              num_classes=num_classes)
+              num_classes=num_classes, **over)
     jmodel = JSketchRNN(JHParams(**kw))
     jparams = jmodel.init_params(jax.random.key(seed))
     model = SketchRNN(HParams(**kw))
@@ -208,9 +210,59 @@ def test_replay_matches_pallas_encode(cell):
     np.testing.assert_array_equal(np.asarray(jprev), prev.numpy())
 
 
+# bfloat16 compute: both packages round each product's operands to
+# bfloat16 and accumulate in float32, so only the order of the float32
+# sums differs, as at float32. Measured at these shapes: largest
+# stroke/carry/mu gap 2.4e-7 with steps, done flags and pens exact; held
+# at the float32 budget TOL.
+
+
+@pytest.mark.parametrize("cell", ["lstm", "layer_norm"])
+@pytest.mark.parametrize("conditional,ncls", [(False, 0), (True, 3)])
+def test_bf16_decode_chunk_matches_pallas(cell, conditional, ncls):
+    """At ``compute_dtype=bfloat16`` (the flagship preset's): the port's
+    chunk program (bfloat16 weights, plain version of the kernel) against
+    the JAX Pallas chunk program at the same compute dtype."""
+    jmodel, jparams, model, params = _setup(cell, conditional, ncls,
+                                            compute_dtype="bfloat16")
+    pool = _pool(model.hps)
+    tout = make_chunk_step(model, model.hps, CHUNK, params)(
+        *_port_state(model, params, pool))
+    jout = jax.jit(j_chunk_step(jmodel, jmodel.hps, CHUNK, jparams,
+                                kernel="pallas"))(
+        *_jax_state(jmodel, jparams, pool))
+    gap = _compare(jout, tout, "bf16 vs JAX pallas")
+    print(f"\nbf16 decode {cell} cond={conditional}: gap {gap}")
+
+
+@pytest.mark.parametrize("cell", ["lstm", "layer_norm"])
+def test_bf16_replay_matches_pallas_encode(cell):
+    """The encode step at ``compute_dtype=bfloat16``: mu and the carry
+    replayed through the plain version of ``replay_chunk`` against JAX's
+    Pallas encode step."""
+    jmodel, jparams, model, params = _setup(cell, True,
+                                            compute_dtype="bfloat16")
+    edge = 6
+    rng = np.random.default_rng(1)
+    strokes = rng.normal(0, 2, (B, edge + 1, 5)).astype(np.float32)
+    strokes[..., 2:] = 0
+    strokes[..., 2] = 1.0
+    seq_len = np.asarray([6, 2, 4, 1], np.int32)
+    jmu, jcarry, _ = jax.jit(j_encode_step(
+        jmodel, jmodel.hps, jparams, edge, kernel="pallas"))(
+        jnp.asarray(strokes), jnp.asarray(seq_len), None)
+    mu, carry, _ = make_encode_step(model, model.hps, params)(
+        torch.from_numpy(strokes), torch.from_numpy(seq_len), None)
+    gap = max(np.max(np.abs(np.asarray(jmu) - mu.numpy())),
+              np.max(np.abs(np.asarray(jcarry) - carry.numpy())))
+    print(f"\nbf16 replay {cell}: gap {gap}")
+    assert gap <= TOL
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take():
-    """The hyper cell and bfloat16 compute are refused by name, and a
-    non-CPU, non-CUDA tensor is not silently served."""
+    """The hyper cell and compute dtypes other than float32/bfloat16 are
+    refused by name, bfloat16 compute is served, and a non-CPU, non-CUDA
+    tensor is not silently served."""
     with pytest.raises(ValueError, match="hyper"):
         cuda_decode.check_cell_kind("hyper")
     _, _, model, params = _setup("lstm", conditional=False)
@@ -220,9 +272,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
             torch.ones((B,)), torch.zeros((B,), dtype=torch.int32),
             torch.zeros((B,), dtype=torch.bool),
             torch.ones((B,), dtype=torch.int32), torch.zeros((5,)))
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
         cuda_decode.decode_chunk(*args, cell_kind="lstm", num_mixture=3,
-                                 compute_dtype=torch.bfloat16)
+                                 compute_dtype=torch.float16)
+    bf = cuda_decode.decode_chunk(*args, cell_kind="lstm", num_mixture=3,
+                                  compute_dtype=torch.bfloat16)
+    assert bf[0].dtype == torch.float32 and bf[0].shape == (CHUNK, B, 5)
     with pytest.raises(ValueError, match="CUDA or CPU"):
         cuda_decode.decode_chunk(*args[:3], c.to("meta"), *args[4:],
                                  cell_kind="lstm", num_mixture=3)

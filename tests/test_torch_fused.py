@@ -1,18 +1,29 @@
 """The training kernels' plain versions against the JAX package's kernels.
 
-``sketch_rnn_tpu_torch/ops/cuda_fused.py`` holds ``fused_lstm_seq`` and
-``fused_ln_lstm`` as ``torch.autograd.Function``s whose CPU path is their
-plain PyTorch forward and step-by-step backward. Here the same numpy-made
-inputs go through them and through the JAX package's custom-VJP Pallas
-kernels (run in interpret mode on the CPU, as the JAX package's own tests
-run them): forward values and every gradient, with dropout off, with
-streamed masks and with an in-kernel dropout seed, with ``x_bias`` on and
-off, and with a batch of three Pallas tiles (B=24 at H=16 gives tile 8;
-the mask counter must not depend on the tiling). The tolerance is the
-JAX kernels' own, ``rtol=2e-5, atol=2e-6``
-(``tests/test_pallas_fused.py``). The plain backward is also held against
-autograd of the plain forward, and ``prng_mask`` bitwise against
-``pallas_fused._prng_mask``.
+``sketch_rnn_tpu_torch/ops/cuda_fused.py`` holds ``fused_lstm_seq``,
+``fused_lstm`` and ``fused_ln_lstm`` as ``torch.autograd.Function``s whose
+CPU path is their plain PyTorch forward and step-by-step backward. Here
+the same numpy-made inputs go through them and through the JAX package's
+custom-VJP Pallas kernels (run in interpret mode on the CPU, as the JAX
+package's own tests run them): forward values and every gradient, with
+dropout off, with streamed masks and with an in-kernel dropout seed, with
+``x_bias`` on and off, nonzero initial carries, and with a batch of three
+Pallas tiles (B=24 at H=16 gives tile 8; the mask counter must not depend
+on the tiling). The tolerance is the JAX kernels' own, ``rtol=2e-5,
+atol=2e-6`` (``tests/test_pallas_fused.py``).
+
+At bfloat16 weights and residuals (the flagship preset's setting) the
+same comparison holds at ``rtol=1e-2, atol=1e-3``: one bfloat16 ulp is
+2**-8 relative, and both sides round the same float32 values at the same
+places (each product's activation operand, the stored ``hs``/``cs``,
+``d_pre`` for the transposed and weight-gradient products, the weight
+gradients once at the end), so they part only where float32 sums taken
+in another order straddle a rounding boundary. Measured at these shapes:
+largest gap 1.95e-3 (one bfloat16 ulp of an LN-LSTM weight gradient),
+every bfloat16 ``hs`` element bitwise equal (the test asks for 90%).
+
+The plain backward is also held against autograd of the plain forward,
+and ``prng_mask`` bitwise against ``pallas_fused._prng_mask``.
 """
 
 import jax
@@ -211,5 +222,153 @@ def test_wrappers_refuse_what_they_do_not_take():
     args = (d["xs"], d["wx"], d["b"], d["wh"], d["c0"], d["h0"])
     with pytest.raises(ValueError, match="not both"):
         CF.fused_lstm_seq(*args, 1.0, torch.ones(T, B, H), 3, 0.9)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        CF.fused_lstm_seq(*args, residual_dtype=torch.bfloat16)
+    # bfloat16 residuals are served; other storage and weight dtypes, or
+    # weights of two dtypes, are refused on every device
+    assert CF.fused_lstm_seq(
+        *args, residual_dtype=torch.bfloat16).dtype == torch.bfloat16
+    with pytest.raises(TypeError, match="residual"):
+        CF.fused_lstm_seq(*args, residual_dtype=torch.float16)
+    bf = d["wh"].to(torch.bfloat16)
+    for wx, wh in ((d["wx"], bf), (d["wx"].half(), d["wh"].half())):
+        with pytest.raises(TypeError, match="wx/wh"):
+            CF.fused_lstm(d["xs"], wx, d["b"], wh, d["c0"], d["h0"])
+
+
+def _lstm_jloss(names, jm, js, keep, wout, rd=jnp.float32):
+    def jloss(*args):
+        kw = dict(zip(names, args))
+        hs, (cT, hT) = PF.fused_lstm(
+            kw["xs"], kw["wx"], kw["b"], kw["wh"], kw["c0"], kw["h0"], 1.0,
+            jm, js, keep, rd, kw.get("x_bias"))
+        loss = jnp.sum(hs.astype(jnp.float32) * wout) + jnp.sum(cT) \
+            + 0.5 * jnp.sum(hT)
+        return loss, (hs, cT, hT)
+    return jloss
+
+
+@pytest.mark.parametrize("mode,xb,b", [
+    ("none", False, B), ("none", True, B), ("masks", True, B),
+    ("seed", False, B), ("seed", True, B), ("seed", True, 24)])
+def test_lstm_matches_pallas(mode, xb, b):
+    """``fused_lstm`` (the lstm decoder's kernel) forward and every
+    gradient, from nonzero carries, against ``pallas_fused.fused_lstm``."""
+    d = _inputs("lstm", b)
+    if xb:
+        d["x_bias"] = _inputs("layer_norm", b, seed=1, x_bias=True)["x_bias"]
+    (jm, js), (tm, ts) = _dropout_args(mode, b)
+    keep = KEEP if mode == "seed" else 1.0
+    names = ["xs", "wx", "b", "wh", "c0", "h0"] + (["x_bias"] if xb else [])
+    jloss = _lstm_jloss(names, jm, js, keep, jnp.asarray(d["w_out"]))
+    (_, jout), jg = jax.value_and_grad(
+        jloss, argnums=tuple(range(len(names))), has_aux=True)(
+        *(jnp.asarray(d[n]) for n in names))
+    p = _torch_leaves(d, names)
+    hs, (cT, hT) = CF.fused_lstm(p["xs"], p["wx"], p["b"], p["wh"], p["c0"],
+                                 p["h0"], 1.0, tm, ts, keep, None,
+                                 p.get("x_bias"))
+    ((hs * torch.from_numpy(d["w_out"])).sum() + cT.sum()
+     + 0.5 * hT.sum()).backward()
+    for name, a, t in zip(("hs", "cT", "hT"), jout, (hs, cT, hT)):
+        _close(a, t, name)
+    for name, g in zip(names, jg):
+        _close(g, p[name].grad, f"d{name}")
+
+
+BF_RTOL, BF_ATOL = 1e-2, 1e-3
+
+
+def _bf_close(a, b, what, stats):
+    """bfloat16-level agreement; records the gap and, for hs, the share
+    of bitwise-equal elements."""
+    a = np.asarray(jnp.asarray(a, jnp.float32))
+    b = b.detach().float().numpy()
+    assert a.shape == b.shape, what
+    stats[what] = float(np.max(np.abs(a - b)))
+    np.testing.assert_allclose(b, a, rtol=BF_RTOL, atol=BF_ATOL,
+                               err_msg=what)
+
+
+@pytest.mark.parametrize("kernel,wdt,rdt", [
+    ("lstm_seq", "bf16", "bf16"), ("lstm", "bf16", "bf16"),
+    ("layer_norm", "bf16", "bf16"), ("lstm", "f32", "bf16"),
+    ("layer_norm", "bf16", "f32")])
+def test_bf16_kernels_match_pallas(kernel, wdt, rdt):
+    """Each kernel pair at bfloat16 weights and/or residuals (in-kernel
+    dropout, x_bias where the kernel takes it, B over three Pallas tiles)
+    against the Pallas kernel at the same settings."""
+    b = 24
+    d = _inputs("layer_norm" if kernel == "layer_norm" else "lstm", b,
+                seed=3, x_bias=True)
+    if kernel == "lstm":
+        d["x_bias"] = _inputs("layer_norm", b, seed=4, x_bias=True)["x_bias"]
+    (jm, js), (tm, ts) = _dropout_args("seed", b)
+    wj = jnp.bfloat16 if wdt == "bf16" else jnp.float32
+    wt = torch.bfloat16 if wdt == "bf16" else torch.float32
+    rj = jnp.bfloat16 if rdt == "bf16" else jnp.float32
+    rt = torch.bfloat16 if rdt == "bf16" else torch.float32
+    if kernel == "lstm_seq":
+        names = ["wx", "b", "wh"]
+    elif kernel == "lstm":
+        names = ["xs", "wx", "b", "wh", "c0", "h0", "x_bias"]
+    else:
+        names = ["xs", "wx", "wh", "ln_gamma", "ln_beta", "lnc_gamma",
+                 "lnc_beta", "c0", "h0", "x_bias"]
+    jin = {n: jnp.asarray(v) for n, v in d.items()}
+    jin["wx"], jin["wh"] = jin["wx"].astype(wj), jin["wh"].astype(wj)
+    wout = jin["w_out"]
+
+    if kernel == "lstm_seq":
+        def jloss(wx, bb, wh):
+            hs = PF.fused_lstm_seq(jin["xs"], wx, bb, wh, jin["c0"],
+                                   jin["h0"], 1.0, jm, js, KEEP, rj)
+            return jnp.sum(hs.astype(jnp.float32) * wout), (hs,)
+    elif kernel == "lstm":
+        jloss = _lstm_jloss(names, jm, js, KEEP, wout, rj)
+    else:
+        def jloss(*args):
+            kw = dict(zip(names, args))
+            hs, (cT, hT) = PF.fused_ln_lstm(
+                kw["xs"], kw["wx"], kw["wh"], kw["ln_gamma"], kw["ln_beta"],
+                kw["lnc_gamma"], kw["lnc_beta"], kw["c0"], kw["h0"], 1.0, jm,
+                js, KEEP, rj, kw["x_bias"])
+            loss = jnp.sum(hs.astype(jnp.float32) * wout) + jnp.sum(cT) \
+                + 0.5 * jnp.sum(hT)
+            return loss, (hs, cT, hT)
+
+    (_, jout), jg = jax.value_and_grad(
+        jloss, argnums=tuple(range(len(names))), has_aux=True)(
+        *(jin[n] for n in names))
+    p = {n: torch.from_numpy(v) for n, v in d.items()}
+    p["wx"], p["wh"] = p["wx"].to(wt), p["wh"].to(wt)
+    for n in names:
+        p[n].requires_grad_(True)
+    if kernel == "lstm_seq":
+        outs = (CF.fused_lstm_seq(p["xs"], p["wx"], p["b"], p["wh"], p["c0"],
+                                  p["h0"], 1.0, tm, ts, KEEP, rt),)
+        loss = (outs[0].float() * torch.from_numpy(d["w_out"])).sum()
+    else:
+        if kernel == "lstm":
+            hs, (cT, hT) = CF.fused_lstm(
+                p["xs"], p["wx"], p["b"], p["wh"], p["c0"], p["h0"], 1.0,
+                tm, ts, KEEP, rt, p["x_bias"])
+        else:
+            hs, (cT, hT) = CF.fused_ln_lstm(
+                *(p[n] for n in names[:-1]), 1.0, tm, ts, KEEP, rt,
+                p["x_bias"])
+        outs = (hs, cT, hT)
+        loss = (hs.float() * torch.from_numpy(d["w_out"])).sum() \
+            + cT.sum() + 0.5 * hT.sum()
+    loss.backward()
+    assert outs[0].dtype == rt
+    stats = {}
+    for name, a, t in zip(("hs", "cT", "hT"), jout, outs):
+        _bf_close(a, t, name, stats)
+    same = np.mean(np.asarray(jnp.asarray(jout[0], jnp.float32))
+                   == outs[0].detach().float().numpy())
+    for name, g in zip(names, jg):
+        assert p[name].grad.dtype == p[name].dtype, name
+        _bf_close(g, p[name].grad, f"d{name}", stats)
+    print(f"\n{kernel} w={wdt} r={rdt}: hs bitwise {same:.4f}, largest "
+          f"gaps {sorted(stats.items(), key=lambda kv: -kv[1])[:3]}")
+    if rt == torch.bfloat16:
+        assert same >= 0.9

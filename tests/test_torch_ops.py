@@ -1,4 +1,5 @@
-"""The port's ops and model pieces against the JAX package, float32.
+"""The port's ops and model pieces against the JAX package, float32
+(and ``matmul``'s promotion of bfloat16 operands).
 
 Same numpy-made inputs and JAX-made weights (carried across with
 ``convert.params_from_jax``) through ``layer_norm``, both cells' step,
@@ -49,6 +50,26 @@ def test_layer_norm():
     b = RNG.normal(0, 0.1, (32,)).astype(np.float32)
     _close(jlinear.layer_norm(x, g, b), linear.layer_norm(_t(x), _t(g),
                                                           _t(b)))
+
+
+@pytest.mark.parametrize("xdt,wdt,cd", [
+    ("bfloat16", "float32", None), ("float32", "bfloat16", None),
+    ("bfloat16", "bfloat16", None), ("float32", "float32", "bfloat16")])
+def test_matmul_dtypes_as_jnp_matmul(xdt, wdt, cd):
+    """Mixed or bfloat16 operands (a bfloat16 ``hs`` into a float32
+    projection) promote to a float32 product as ``jnp.matmul`` with
+    ``preferred_element_type=float32`` does; with ``compute_dtype`` both
+    operands round to it first. Both sides multiply the same rounded
+    values, so only the float32 summation order differs."""
+    x = RNG.normal(size=(6, 24)).astype(np.float32)
+    w = RNG.normal(size=(24, 10)).astype(np.float32)
+    jout = jlinear.matmul(jnp.asarray(x, xdt), jnp.asarray(w, wdt),
+                          None if cd is None else jnp.dtype(cd))
+    tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    tout = linear.matmul(_t(x).to(tdt[xdt]), _t(w).to(tdt[wdt]),
+                         None if cd is None else tdt[cd])
+    assert tout.dtype == torch.float32 and jout.dtype == jnp.float32
+    _close(jout, tout)
 
 
 @pytest.mark.parametrize("kind", ["lstm", "layer_norm"])

@@ -16,16 +16,22 @@ kernels run in interpret mode, the port's through their plain versions.
   ``rtol=1e-5, atol=1e-6`` (the float32 summation order of products and
   of the recurrence differs between the packages; ``z``'s noise differs
   by up to an ulp, see ``test_torch_prng.py``);
+- the same loss and gradients at the ``quickdraw345_dp`` settings
+  (bfloat16 compute and residuals): measured gap 0 on the loss and
+  3.8e-6 on gradients, held at ``rtol=1e-3, atol=1e-4``;
 - 3 steps of ``make_train_step`` against the JAX step core under
-  ``jax.jit``: parameters held at ``atol=2e-5``. Adam divides each
-  gradient by its own running RMS, so a float32 rounding gap in a
-  near-zero gradient element can move that element's update by up to
-  ``lr`` (1e-3); measured worst here 1.2e-7, because no element's
-  gradient is at the rounding level;
+  ``jax.jit``, with the LayerNorm-LSTM decoder and with the ``vae`` /
+  ``uncond_lstm`` presets' lstm decoder (``fused_lstm``): parameters
+  held at ``atol=2e-5``. Adam divides each gradient by its own running
+  RMS, so a float32 rounding gap in a near-zero gradient element can
+  move that element's update by up to ``lr`` (1e-3); measured worst here
+  1.2e-7, because no element's gradient is at the rounding level;
 - ``train_state_from_jax`` after one JAX step, then one more step in
   each package;
-- the training requests the slice does not serve raise by name, and the
-  training entry points need the card unless asked for the CPU.
+- the training requests the port does not serve yet raise by name, the
+  ones it now serves (bfloat16, the lstm decoder, the presets) train,
+  and the training entry points need the card unless asked for the
+  CPU.
 """
 
 import jax
@@ -54,7 +60,7 @@ from sketch_rnn_tpu_torch.models.vae import SketchRNN
 from sketch_rnn_tpu_torch.ops import cells, mdn
 from sketch_rnn_tpu_torch.train import schedules as tsched
 from sketch_rnn_tpu_torch.train.loop import train
-from sketch_rnn_tpu_torch.train.state import make_train_state
+from sketch_rnn_tpu_torch.train.state import make_train_state, tree_items
 from sketch_rnn_tpu_torch.train.step import check_trainable, make_train_step
 from sketch_rnn_tpu_torch.utils import prng
 
@@ -268,6 +274,46 @@ def test_loss_and_gradients_match_jax(train_mode):
     _tree_close(jg, list(tg), atol=ATOL, rtol=RTOL, what="grad ")
 
 
+BF16 = dict(compute_dtype="bfloat16", fused_residual_dtype="bfloat16")
+# measured at these shapes (train=True / False): loss equal, largest
+# gradient gap 3.8e-6 / 3.0e-8 against gradients up to ~0.3. The limits
+# leave room for a bfloat16 ulp flip (2**-8 relative) in a gradient of
+# magnitude <= 0.025, and hold the loss 10x tighter than a flip would
+# move it.
+BF_RTOL, BF_ATOL = 1e-3, 1e-4
+
+
+@pytest.mark.parametrize("train_mode", [True, False])
+def test_bf16_loss_and_gradients_match_jax(train_mode):
+    """The ``quickdraw345_dp`` settings (bfloat16 compute and residuals,
+    fused kernels): both packages round the same values at the same
+    places (the weights cast once in the graph, every product's
+    activation operand, the kernels' stored ``hs``/``cs``, the one-hot
+    final states, each weight gradient through its cast), so loss and
+    gradients agree to the bfloat16 ulps where float32 sums taken in
+    another order straddle a rounding boundary."""
+    jh, th, jm, tm, jp, tp = _models(**BF16)
+    batch = _batch(jh)
+
+    def jloss(p):
+        return jm.loss(p, {k: jnp.asarray(v) for k, v in batch.items()},
+                       jax.random.key(11), 0.37, train=train_mode)
+
+    (_, jmet), jg = jax.value_and_grad(jloss, has_aux=True)(jp)
+    flat = [x.requires_grad_(True) for x in jax.tree_util.tree_leaves(tp)]
+    ttot, tmet = tm.loss(tp, _tbatch(batch), prng.key(11), 0.37,
+                         train=train_mode)
+    tg = torch.autograd.grad(ttot, flat)
+    for k in jmet:
+        np.testing.assert_allclose(_np(tmet[k]), np.asarray(jmet[k]),
+                                   rtol=1e-4, atol=1e-6, err_msg=k)
+    gap = max(float(np.max(np.abs(_np(b) - np.asarray(a)))) for a, b in
+              zip(jax.tree_util.tree_leaves(jg), tg))
+    print(f"\nbf16 train={train_mode}: loss {_np(tmet['loss'])} vs "
+          f"{jmet['loss']}, largest gradient gap {gap}")
+    _tree_close(jg, list(tg), atol=BF_ATOL, rtol=BF_RTOL, what="grad ")
+
+
 def _jax_steps(jh, jm, jp, batches, keys):
     tx = make_optimizer(jh)
     step = jax.jit(_make_single_step_core(jm, jh, None, tx))
@@ -301,6 +347,31 @@ def test_three_train_steps_match_jax():
     jt = train_state_to_jax(state)
     _tree_close(jax.device_get(jstate.opt_state), jt[1], atol=PARAM_ATOL,
                 rtol=1e-4, what="opt ")
+
+
+@pytest.mark.parametrize("over", [
+    dict(dec_model="lstm", num_classes=0),
+    dict(dec_model="lstm", conditional=False, num_classes=0)])
+def test_three_lstm_decoder_train_steps_match_jax(over):
+    """The ``vae`` and ``uncond_lstm`` presets' cell (the lstm decoder,
+    through ``fused_lstm``) at ``fused_rnn=true``: 3 port steps against
+    3 jitted JAX steps, as ``test_three_train_steps_match_jax``."""
+    jh, th, jm, tm, jp, tp = _models(**over)
+    loader, _ = jloader.synthetic_loader(jh, num=24, seed=1)
+    batches = [loader.random_batch() for _ in range(3)]
+    root = jax.random.key(7)
+    jstate, jmets = _jax_steps(jh, jm, jp, batches,
+                               [jax.random.fold_in(root, s)
+                                for s in range(3)])
+    step = make_train_step(tm, th, device="cpu")
+    state = make_train_state(tp)
+    for s, b in enumerate(batches):
+        state, met = step(state, b, prng.fold_in(prng.key(7), s))
+        for k in jmets[s]:
+            np.testing.assert_allclose(_np(met[k]), np.asarray(jmets[s][k]),
+                                       rtol=RTOL, atol=ATOL, err_msg=k)
+    _tree_close(jax.device_get(jstate.params), params_to_jax(state.params),
+                atol=PARAM_ATOL, what="params ")
 
 
 def test_train_state_carries_across_and_continues():
@@ -352,10 +423,7 @@ def test_train_loop_keys_and_rows():
 
 
 @pytest.mark.parametrize("over,match", [
-    ("compute_dtype=bfloat16", "next slice"),
-    ("fused_residual_dtype=bfloat16", "next slice"),
-    ("dec_model=lstm", "next slice"),
-    ("dec_model=hyper", "later slice"),
+    ("dec_model=hyper", "next slice"),
     ("fused_rnn=false", "later slice"),
     ("use_input_dropout=true", "later slice"),
     ("use_output_dropout=true", "later slice"),
@@ -366,6 +434,40 @@ def test_unserved_training_requests_raise_by_name(over, match):
     _, th = _pair()
     with pytest.raises(NotImplementedError, match=match):
         check_trainable(th.parse(over))
+
+
+@pytest.mark.parametrize("over", ["compute_dtype=bfloat16",
+                                  "fused_residual_dtype=bfloat16",
+                                  "dec_model=lstm"])
+def test_formerly_refused_requests_now_train(over):
+    """bfloat16 compute, bfloat16 residuals and the lstm decoder (its
+    fused_lstm kernel) are served: check_trainable accepts them, and a
+    step on the CPU gives finite metrics and moves every parameter."""
+    jh, th = _pair()
+    th = th.parse(over)
+    check_trainable(th)
+    tm = SketchRNN(th)
+    tp = tm.init_params(torch.Generator().manual_seed(0), device="cpu")
+    state, met = make_train_step(tm, th, device="cpu")(
+        make_train_state(tp), _batch(jh), prng.key(1))
+    assert all(np.isfinite(float(v)) for v in met.values())
+    for (_, a), (_, b) in zip(tree_items(tp), tree_items(state.params)):
+        assert a.dtype == b.dtype == torch.float32
+        assert not torch.equal(a, b)
+
+
+@pytest.mark.parametrize("over", ["", "vae", "uncond_lstm",
+                                  "quickdraw345_dp"])
+def test_presets_trainable_on_the_fused_path(over):
+    """The presets the port trains, as ``sketch_rnn_tpu/cli.py`` spells
+    them (the 345 classes of ``quickdraw345_dp`` aside)."""
+    presets = {"": "", "vae": "conditional=true,dec_model=lstm",
+               "uncond_lstm": "conditional=false,dec_model=lstm",
+               "quickdraw345_dp": "conditional=true,dec_model=layer_norm,"
+                                  "compute_dtype=bfloat16,fused_rnn=true,"
+                                  "fused_residual_dtype=bfloat16,remat=true"}
+    _, th = _pair()
+    check_trainable(th.parse(presets[over]) if over else th)
 
 
 def test_train_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):

@@ -23,11 +23,14 @@ without the final line. With no CUDA device it exits 2 at once.
      seeded at keep 0.9): ``fused_lstm_seq`` (encoder H=256) and
      ``fused_ln_lstm`` (decoder H=512 with its x_bias) of the flagship
      model, ``fused_lstm`` (the ``vae`` preset's lstm decoder, H=512 with
-     x_bias [100, 2048] and a nonzero initial carry), each forward and
-     backward, at float32 and at bfloat16 weights and residuals: every
-     output and gradient within FUSED_TOL of its dtype, the in-kernel
-     dropout masks bitwise the plain ``prng_mask`` ones, every result
-     identical run to run;
+     x_bias [100, 2048] and a nonzero initial carry), ``fused_hyper_lstm``
+     (the ``hyper`` preset's decoder, H=512, HH=256, e=32, both
+     per-example biases, four nonzero carries; also at the narrow shapes
+     H=16/HH=32 and H=40/HH=8), each forward and backward, at float32 and
+     at bfloat16 weights and residuals: every output and gradient within
+     FUSED_TOL of its dtype, the in-kernel dropout masks bitwise the plain
+     ``prng_mask`` ones, every result identical run to run; for the
+     HyperLSTM backward also its scratch and peak bytes;
    - kernel_library: cuDNN's LSTM (``torch.nn.LSTM``, TF32 off) timed
      beside ``fused_lstm_seq`` and ``fused_lstm`` (over the unfolded
      inputs [x; z], D=133) as a yardstick only.
@@ -60,7 +63,20 @@ without the final line. With no CUDA device it exits 2 at once.
    counters zeroed just before and read just after (2 launches per step
    of each ``fused_lstm_seq`` kernel, 1 of each ``fused_lstm`` kernel),
    then its one-step references as in 7.
-10. the kernels line, the ``nvidia-smi`` line, and the result line.
+10. train_hyper — the ``hyper`` preset (HyperLSTM decoder 512 with its
+   auxiliary LSTM 256 and embeddings 32) with ``fused_rnn=true`` at full
+   width and float32: 1 warm-up step, then 5 timed steps with the
+   counters zeroed just before and read just after (2 launches per step
+   of each ``fused_lstm_seq`` kernel, 1 of each ``fused_hyper_lstm``
+   kernel), losses finite and falling, then its one-step references as
+   in 7 and its profile as in 8.
+11. serve_hyper — the ``hyper`` preset served at full width through the
+   engine's plain chunk program (the JAX package has no decode kernel for
+   this cell either): the same burst as in 4, ``decode_kernel`` reported
+   as ``plain``, no ``decode_chunk``/``replay_chunk`` launch; a small
+   burst against the CPU; a profiled 64-request burst.
+12. the kernels line (ten kernels), the ``nvidia-smi`` line, and the
+   result line.
 
 Random serving weights carry the pen-suppression sentinel ``out_b[2] =
 -1e9`` (an untrained model ends a sketch after a few steps) and requests
@@ -133,10 +149,12 @@ def nbytes(*tensors):
                if t is not None)
 
 
-def bound_ms(flops, moved_bytes, dt):
+def bound_ms(flops, moved_bytes, dt, f32_flops=0):
     """The least time for the work: the products at the peak of their
-    operand dtype, the bytes at HBM bandwidth; the larger of the two."""
-    t_ops = flops / PEAK_FLOPS[dt] * 1e3
+    operand dtype (``f32_flops``: products whose operands stay float32
+    whatever ``dt``), the bytes at HBM bandwidth; the larger of the two."""
+    t_ops = (flops / PEAK_FLOPS[dt]
+             + f32_flops / PEAK_FLOPS["float32"]) * 1e3
     t_bytes = moved_bytes / PEAK_BYTES_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
@@ -323,7 +341,12 @@ def check_result(res, cap):
         raise AssertionError(f"request {res.uid}: pen rows not one-hot")
 
 
-def serve_main_path(card, dt):
+def serve_main_path(card, dt, cell="layer_norm"):
+    """The serving main path at the full-width ``cell`` preset. The
+    ``lstm``/``layer_norm`` decoders go through the serving kernels (one
+    ``decode_chunk`` launch per chunk, one ``replay_chunk`` launch for the
+    encode batch); the ``hyper`` decoder through the plain chunk program
+    and the plain replay loop, with no launch of either kernel."""
     import numpy as np
     import torch
 
@@ -332,7 +355,7 @@ def serve_main_path(card, dt):
     from sketch_rnn_tpu_torch.serve.engine import Request, ServeEngine
     from sketch_rnn_tpu_torch.utils import prng
 
-    hps, model, params = full_width("layer_norm", dt=dt)
+    hps, model, params = full_width(cell, dt=dt)
     params["out_b"][2] = -1e9          # pen-suppression sentinel
     engine = ServeEngine(model, hps, params, device=DEV)
     rng = np.random.default_rng(0)
@@ -368,13 +391,20 @@ def serve_main_path(card, dt):
     for res in out_enc["results"]:
         check_result(res, int(caps[n_gen + res.uid]))
     chunks = m_gen["chunks"] + m_enc["chunks"]
+    plain = cell == "hyper"
     # one encode batch: the 64 prefixes share the edge 64 and fill the
     # 64 encode rows
-    if launches != {"decode_chunk": chunks, "replay_chunk": 1}:
-        raise AssertionError(f"kernel launches {launches}, expected "
-                             f"{chunks} decode_chunk and 1 replay_chunk")
-    log("serve", card=card, preset="layer_norm", dtype=dt, slots=B,
-        chunk=K, launches=launches,
+    want = ({"decode_chunk": 0, "replay_chunk": 0} if plain
+            else {"decode_chunk": chunks, "replay_chunk": 1})
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches}, expected {want}")
+    kernel = "plain" if plain else "cuda"
+    if not m_gen["decode_kernel"] == m_enc["decode_kernel"] == kernel:
+        raise AssertionError(
+            f"decode_kernel {m_gen['decode_kernel']}/"
+            f"{m_enc['decode_kernel']}, expected {kernel}")
+    log("serve_hyper" if plain else "serve", card=card, preset=cell,
+        dtype=dt, slots=B, chunk=K, launches=launches, decode_kernel=kernel,
         generate={k: m_gen[k] for k in (
             "completed", "wall_s", "sketches_per_sec", "chunks",
             "decode_steps", "slot_utilization", "latency_p50_s",
@@ -387,7 +417,7 @@ def serve_main_path(card, dt):
     return launches
 
 
-def serve_small_vs_cpu(dt):
+def serve_small_vs_cpu(dt, cell="layer_norm"):
     """A small full-width burst served on the card and by the plain
     versions on the CPU: steps and pens equal, offsets within tolerance.
     8 requests x 8 steps: a near-tie flip has a chance of order 1e-4
@@ -398,7 +428,7 @@ def serve_small_vs_cpu(dt):
     from sketch_rnn_tpu_torch.utils import prng
     from sketch_rnn_tpu_torch.utils.device import tree_to
 
-    hps, model, params = full_width("layer_norm", seed=3, dt=dt)
+    hps, model, params = full_width(cell, seed=3, dt=dt)
     rng = np.random.default_rng(3)
     z = rng.normal(size=(8, hps.z_size)).astype(np.float32)
 
@@ -420,11 +450,11 @@ def serve_small_vs_cpu(dt):
         err = max(err, float(np.abs(a.strokes5 - r.strokes5).max()))
     if not err <= SERVE_TOL[dt]:
         raise AssertionError(f"card vs CPU offsets err {err} ({dt})")
-    log("reference", dtype=dt, requests=8, steps=K, max_abs_err=err,
-        tol=SERVE_TOL[dt])
+    log("reference", preset=cell, dtype=dt, requests=8, steps=K,
+        max_abs_err=err, tol=SERVE_TOL[dt])
 
 
-def profile_generate(dt):
+def profile_generate(dt, cell="layer_norm"):
     """Where a generate burst's time goes: 64 requests of 64 steps on the
     main-path engine, timed once without and once under torch.profiler
     (CPU and CUDA activity). Reports the kernels' device time by name
@@ -437,7 +467,7 @@ def profile_generate(dt):
     from sketch_rnn_tpu_torch.serve.engine import Request, ServeEngine
     from sketch_rnn_tpu_torch.utils import prng
 
-    hps, model, params = full_width("layer_norm", dt=dt)
+    hps, model, params = full_width(cell, dt=dt)
     params["out_b"][2] = -1e9          # pen-suppression sentinel
     engine = ServeEngine(model, hps, params, device=DEV)
     z = np.random.default_rng(5).normal(
@@ -462,7 +492,7 @@ def profile_generate(dt):
     total = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: e.self_device_time_total,
                  reverse=True)[:5]
-    log("profile", dtype=dt, requests=B, chunks=m["chunks"],
+    log("profile", preset=cell, dtype=dt, requests=B, chunks=m["chunks"],
         wall_ms=wall * 1e3, host_ms_per_chunk=wall * 1e3 / m["chunks"],
         profiled_wall_ms=wall_prof * 1e3, device_ms=total / 1e3,
         device_busy_share=total / 1e6 / wall,
@@ -476,8 +506,9 @@ def profile_generate(dt):
 
 KEEP = 0.9             # recurrent-dropout keep probability (hps default)
 TRAIN_STEPS, WARM_STEPS = 10, 2
-LSTM_STEPS = 5
+LSTM_STEPS = HYPER_STEPS = 5
 FUSED_SRC = "sketch_rnn_tpu_torch/csrc/fused_rnn.cu"
+HYPER_SRC = "sketch_rnn_tpu_torch/csrc/fused_hyper.cu"
 FUSED_REPLACES = {     # the Pallas kernel bodies each CUDA kernel replaces
     "fused_lstm_seq_fwd": "sketch_rnn_tpu/ops/pallas_fused.py:621",
     "fused_lstm_seq_bwd": "sketch_rnn_tpu/ops/pallas_fused.py:648",
@@ -485,6 +516,10 @@ FUSED_REPLACES = {     # the Pallas kernel bodies each CUDA kernel replaces
     "fused_lstm_bwd": "sketch_rnn_tpu/ops/pallas_fused.py:279",
     "fused_ln_lstm_fwd": "sketch_rnn_tpu/ops/pallas_fused.py:826",
     "fused_ln_lstm_bwd": "sketch_rnn_tpu/ops/pallas_fused.py:900",
+}
+HYPER_REPLACES = {
+    "fused_hyper_lstm_fwd": "sketch_rnn_tpu/ops/pallas_fused.py:1246",
+    "fused_hyper_lstm_bwd": "sketch_rnn_tpu/ops/pallas_fused.py:1297",
 }
 # training kernels vs their plain versions on the card, as the largest
 # error of each output relative to that output's largest magnitude.
@@ -532,6 +567,17 @@ def vae_hps(**over):
                              fused_rnn=True), **over})
 
 
+def hyper_hps(**over):
+    """The ``hyper`` preset (``sketch_rnn_tpu/cli.py`` PRESETS): conditional
+    VAE, bi-LSTM encoder 256, HyperLSTM decoder 512 with its auxiliary
+    LSTM 256 and embeddings 32, Nz=128, M=20, no classes, float32, here
+    with the fused RNN kernels, B=100, T=250."""
+    from sketch_rnn_tpu_torch import HParams
+
+    return HParams(**{**dict(conditional=True, dec_model="hyper",
+                             fused_rnn=True), **over})
+
+
 def setup(hps, seed=0):
     import torch
 
@@ -554,6 +600,13 @@ FUSED_OUTPUTS = {
     "fused_ln_lstm_bwd": ("dxs", "dx_bias", "dwx", "dwh", "dln_gamma",
                           "dln_beta", "dlnc_gamma", "dlnc_beta", "dc0",
                           "dh0"),
+    "fused_hyper_lstm_fwd": ("hs", "cs", "hycs", "hyhs", "cT", "hT", "hcT",
+                             "hhT"),
+    "fused_hyper_lstm_bwd": (
+        "dxs", "dx_bias", "dx_bias_hyper", "dwx", "db", "dwh", "dwxh_x",
+        "dwxh_h", "dbh", "dwhh", "dw_hz_x", "db_hz_x", "dw_hz_h", "db_hz_h",
+        "dw_hz_b", "dzd_x", "dzd_h", "dzd_b", "dln_gamma", "dln_beta",
+        "dlnc_gamma", "dlnc_beta", "dc0", "dh0", "dhc0", "dhh0"),
 }
 
 
@@ -604,8 +657,8 @@ def fused_inputs(hps_fn, dt):
     b = hps.batch_size
     z = torch.randn((b, hps.z_size), generator=g).to(DEV)
     extra = model._decoder_extra(params, z, batch.get("labels"))
-    c0, h0 = (x.contiguous()
-              for x in model.decoder_initial_carry(params, z, b))
+    c0, h0 = (x.contiguous() for x in model.dec.carry_leaves(
+        model.decoder_initial_carry(params, z, b))[:2])
     seeds = [prng.randint(prng.key(s), 0, 2 ** 31 - 1).to(DEV)
              for s in (1, 2)]
     t = hps.max_seq_len
@@ -659,10 +712,11 @@ def hold_fused(name, dt, run, ref, seed_kw, masks_kw, rows):
     return got
 
 
-def time_fused(name, dt, run, ref, kw, iters, flops, moved, rows, **extra):
+def time_fused(name, dt, run, ref, kw, iters, flops, moved, rows,
+               f32_flops=0, **extra):
     ms = cuda_ms(lambda: run(**kw), iters)
     plain_ms = cuda_ms(lambda: ref(**kw), 2)
-    bms, by = bound_ms(flops, moved, dt)
+    bms, by = bound_ms(flops, moved, dt, f32_flops)
     r = rows[name][dt]
     r.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
              library_ms=None, **extra)
@@ -884,12 +938,176 @@ def check_ln_lstm(inp, rows):
                       inp["dhT"], inp["seed_dec"], *grads), rows)
 
 
-def train_main_path(card, hps, label, per_step, steps, warm):
+def flat_hyper(out):
+    """A HyperLSTM kernel's outputs as a flat tuple of tensors (the
+    backward's ``HyperWeights`` of gradients unpacked in place)."""
+    flat = []
+    for o in out:
+        flat.extend(o if isinstance(o, tuple) else (o,))
+    return tuple(flat)
+
+
+def hyper_kernel_inputs(t, b, d, h, hh, e, dt, seed=0):
+    """Seeded HyperLSTM operands at any widths (every projection dense):
+    ``(xs, weights, carries, (x_bias, x_bias_hyper), cotangents)``."""
+    import torch
+
+    from sketch_rnn_tpu_torch.ops import cuda_fused as CF
+
+    g = torch.Generator().manual_seed(seed)
+    f = lambda *s, sc=1.0: (torch.randn(s, generator=g) * sc).to(DEV)
+    w = CF.HyperWeights(
+        wx=f(d, 4 * h, sc=0.4), b=f(4 * h, sc=0.1),
+        wh=f(h, 4 * h, sc=h ** -0.5), wxh_x=f(d, 4 * hh, sc=0.4),
+        wxh_h=f(h, 4 * hh, sc=h ** -0.5), bh=f(4 * hh, sc=0.1),
+        whh=f(hh, 4 * hh, sc=hh ** -0.5), w_hz_x=f(hh, 4 * e, sc=0.1),
+        b_hz_x=1 + f(4 * e, sc=0.1), w_hz_h=f(hh, 4 * e, sc=0.1),
+        b_hz_h=1 + f(4 * e, sc=0.1), w_hz_b=f(hh, 4 * e, sc=0.1),
+        zd_x=0.1 / e + f(4, e, h, sc=0.02),
+        zd_h=0.1 / e + f(4, e, h, sc=0.02), zd_b=f(4, e, h, sc=0.02),
+        ln_gamma=1 + f(4, h, sc=0.1), ln_beta=f(4, h, sc=0.1),
+        lnc_gamma=1 + f(h, sc=0.1), lnc_beta=f(h, sc=0.1))
+    w = w._replace(**{n: getattr(w, n).to(torch_dtype(dt))
+                      for n in CF.HYPER_MATRICES})
+    carries = (f(b, h, sc=0.3), f(b, h, sc=0.3), f(b, hh, sc=0.3),
+               f(b, hh, sc=0.3))
+    biases = (f(b, 4 * h, sc=0.3), f(b, 4 * hh, sc=0.3))
+    cots = (f(t, b, h, sc=0.01).to(torch_dtype(dt)), f(b, h, sc=0.01),
+            f(b, h, sc=0.01), f(b, hh, sc=0.01), f(b, hh, sc=0.01))
+    return f(t, b, d), w, carries, biases, cots
+
+
+def hold_hyper(dt, xs, w, carries, biases, cots, seed, rows):
+    """``fused_hyper_lstm`` forward and backward against their plain
+    versions on the same operands (:func:`hold_fused`); returns the
+    keyword arguments of the two kernels and their outputs."""
+    from sketch_rnn_tpu_torch.ops import cuda_fused as CF
+
+    t, b, _ = xs.shape
+    h = w.wh.shape[0]
+    c0, h0, hc0, hh0 = carries
+    rdt = None if dt == "float32" else torch_dtype(dt)
+    common = dict(xs=xs, w=w, forget_bias=1.0, x_bias=biases[0],
+                  x_bias_hyper=biases[1])
+    fargs = dict(common, c0=c0, h0=h0, hc0=hc0, hh0=hh0, residual_dtype=rdt)
+    seed_kw = dict(dropout_seed=seed, keep_prob=KEEP)
+    masks_kw = dict(masks=streamed_masks(seed, t, b, h), keep_prob=KEEP)
+    fwd = hold_fused(
+        "fused_hyper_lstm_fwd", dt, lambda **k: CF.hyper_lstm_fwd(**fargs, **k),
+        lambda **k: CF.hyper_lstm_fwd_reference(**fargs, **k), seed_kw,
+        masks_kw, rows)
+    hs, cs, hycs, hyhs = fwd[:4]
+    dhs, dcT, dhT, dhcT, dhhT = cots
+    bargs = dict(common, h0=h0, hh0=hh0, hs=hs, cs=cs, hycs=hycs, hyhs=hyhs,
+                 dhs=dhs, dcT=dcT, dhT=dhT, dhcT=dhcT, dhhT=dhhT)
+    grads = hold_fused(
+        "fused_hyper_lstm_bwd", dt,
+        lambda **k: flat_hyper(CF.hyper_lstm_bwd(**bargs, **k)),
+        lambda **k: flat_hyper(CF.hyper_lstm_bwd_reference(**bargs, **k)),
+        seed_kw, masks_kw, rows)
+    return fargs, bargs, seed_kw, fwd, grads
+
+
+def check_hyper_narrow(dt):
+    """The HyperLSTM kernels where the widths stand in another order than
+    at full width: H=16 under HH=32 and 4e=32, and H=40 over HH=8 with a
+    part-filled last warp (T=6, B=5, D=5)."""
+    import torch
+
+    from sketch_rnn_tpu_torch.utils import prng
+
+    seed = prng.randint(prng.key(5), 0, 2 ** 31 - 1).to(DEV)
+    for h, hh, e in ((16, 32, 8), (40, 8, 4)):
+        rows = {}
+        hold_hyper(dt, *hyper_kernel_inputs(6, 5, 5, h, hh, e, dt), seed,
+                   rows)
+        torch.cuda.synchronize()
+        for name, r in rows.items():
+            log("kernel", name=name, dtype=dt, shape="narrow", T=6, B=5, H=h,
+                HH=hh, e=e, tol=FUSED_TOL[dt], **r[dt])
+
+
+def check_hyper(inp, rows):
+    """fused_hyper_lstm forward and backward (the ``hyper`` preset's
+    decoder) at B=100, T=250, H=512, HH=256, e=32, D=5, with both
+    per-example biases (the projections of z) and the four nonzero initial
+    carries, dropout seeded. The model's zero- and constant-initialised
+    projections (``w_hz_x``, ``w_hz_h``, ``w_zd_*``) are perturbed, so
+    every product and every gradient works on dense values."""
+    import torch
+
+    from sketch_rnn_tpu_torch.ops import cuda_fused as CF
+    from sketch_rnn_tpu_torch.ops import linear as L
+
+    dt, model = inp["dt"], inp["model"]
+    dp, cell = inp["params"]["dec"], inp["model"].dec
+    cdt = cell.compute_dtype
+    wdt = torch_dtype(dt)
+    xs = inp["x_in"]
+    t, b, d = xs.shape
+    h, hh, e = cell.hidden_size, cell.hyper_size, cell.embed_size
+    g = torch.Generator().manual_seed(13)
+    noisy = lambda n, sc: dp[n] + (sc * torch.randn(
+        dp[n].shape, generator=g)).to(DEV)
+    d_in = dp["hyper"]["wx"].shape[0] - h
+    wxh = dp["hyper"]["wx"]
+    w = CF.HyperWeights(
+        wx=dp["wx"][:d], b=dp["b"], wh=dp["wh"], wxh_x=wxh[:d],
+        wxh_h=wxh[d_in:], bh=dp["hyper"]["b"], whh=dp["hyper"]["wh"],
+        w_hz_x=noisy("w_hz_x", 0.05), b_hz_x=dp["b_hz_x"],
+        w_hz_h=noisy("w_hz_h", 0.05), b_hz_h=dp["b_hz_h"],
+        w_hz_b=dp["w_hz_b"], zd_x=noisy("w_zd_x", 0.002),
+        zd_h=noisy("w_zd_h", 0.002), zd_b=noisy("w_zd_b", 0.002),
+        ln_gamma=dp["ln_gamma"], ln_beta=dp["ln_beta"],
+        lnc_gamma=dp["lnc_gamma"], lnc_beta=dp["lnc_beta"])
+    w = w._replace(**{n: getattr(w, n).to(wdt).contiguous()
+                      for n in CF.HYPER_MATRICES})
+    extra = inp["z"]
+    biases = (inp["x_bias"], L.matmul(extra, wxh[d:d_in], cdt))
+    carries = tuple(x.contiguous() for x in cell.carry_leaves(
+        model.decoder_initial_carry(inp["params"], extra, b)))
+    gc = torch.Generator().manual_seed(17)
+    cots = (inp["dhs_dec"], inp["dcT"], inp["dhT"],
+            (0.01 * torch.randn((b, hh), generator=gc)).to(DEV),
+            (0.01 * torch.randn((b, hh), generator=gc)).to(DEV))
+    fargs, bargs, seed_kw, fwd, grads = hold_hyper(
+        dt, xs, w, carries, biases, cots, inp["seed_dec"], rows)
+
+    # products per row-step: main, auxiliary LSTM, z (matrices of the
+    # weight dtype); the block scales (float32 at either dtype)
+    w_flops = 2 * t * b * ((d + h) * 4 * h + (d + h + hh) * 4 * hh
+                           + 3 * hh * 4 * e)
+    zd_flops = 2 * t * b * 3 * 4 * e * h
+    if dt == "float32":
+        w_flops, zd_flops = w_flops + zd_flops, 0
+    operands = (xs, *w, *biases, inp["seed_dec"])
+    time_fused("fused_hyper_lstm_fwd", dt, CF.hyper_lstm_fwd,
+               CF.hyper_lstm_fwd_reference, {**fargs, **seed_kw}, 5, w_flops,
+               nbytes(*operands, *carries, *fwd), rows, f32_flops=zd_flops)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    CF.hyper_lstm_bwd(**bargs, **seed_kw)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    # recompute + transposed products + weight-gradient products
+    time_fused("fused_hyper_lstm_bwd", dt,
+               lambda **k: CF.hyper_lstm_bwd(**k),
+               lambda **k: CF.hyper_lstm_bwd_reference(**k),
+               {**bargs, **seed_kw}, 3, 3 * w_flops,
+               nbytes(*operands, carries[1], carries[3], *fwd[:4], *cots,
+                      *grads), rows, f32_flops=3 * zd_flops,
+               scratch_bytes=CF.hyper_scratch_bytes(t, b, h, hh, e),
+               call_peak_bytes=peak)
+
+
+def train_main_path(card, hps, phase, label, per_step, steps, warm,
+                    falling=False):
     """A training main path: ``train/loop.train`` at full width, a
     ``warm``-step warm-up run, then a ``steps``-step run from the same
     weights, timed, with the kernels' launch counters zeroed just before
-    and read just after; ``per_step``: the launches each step must make.
-    """
+    and read just after; ``per_step``: the launches each step must make;
+    ``falling``: the last loss must lie under the first."""
     import math
 
     import torch
@@ -915,8 +1133,10 @@ def train_main_path(card, hps, label, per_step, steps, warm):
     for r in rows:
         if not all(math.isfinite(r[k]) for k in ("loss", "grad_norm", "kl")):
             raise AssertionError(f"step {r['step']}: non-finite metrics {r}")
-    log("train" if label.startswith("quickdraw") else "train_lstm",
-        card=card, preset=label, batch=hps.batch_size,
+    if falling and not rows[-1]["loss"] < rows[0]["loss"]:
+        raise AssertionError(f"loss did not fall: {rows[0]['loss']} -> "
+                             f"{rows[-1]['loss']}")
+    log(phase, card=card, preset=label, batch=hps.batch_size,
         max_seq_len=hps.max_seq_len, steps=steps, warmup_steps=warm,
         launches=launches, ms_per_step=wall * 1e3 / steps,
         steps_per_s=steps / wall,
@@ -929,12 +1149,13 @@ def train_main_path(card, hps, label, per_step, steps, warm):
 @contextlib.contextmanager
 def plain_kernels():
     """Run the training kernels' plain versions on CUDA tensors (for the
-    reference step only): swaps the six kernel wrappers of
+    reference step only): swaps the eight kernel wrappers of
     ``ops/cuda_fused.py`` for their plain versions, then restores them."""
     from sketch_rnn_tpu_torch.ops import cuda_fused as CF
 
     names = ("lstm_seq_fwd", "lstm_seq_bwd", "lstm_fwd", "lstm_bwd",
-             "ln_lstm_fwd", "ln_lstm_bwd")
+             "ln_lstm_fwd", "ln_lstm_bwd", "hyper_lstm_fwd",
+             "hyper_lstm_bwd")
     saved = {n: getattr(CF, n) for n in names}
     for n in names:
         setattr(CF, n, getattr(CF, n + "_reference"))
@@ -1027,7 +1248,7 @@ def train_reference(hps_fn, dt, hps, model, loader, state):
         rel_tol=STEP_TOL[dt][0], update_tol=STEP_TOL[dt][1])
 
 
-def profile_train(hps, loader, state):
+def profile_train(hps, loader, state, preset="quickdraw345_dp"):
     """Two train steps from the main path's final weights timed, then
     two more profiled: device time by kernel, kernels per step, and the
     device's busy share of the unprofiled wall time."""
@@ -1054,7 +1275,7 @@ def profile_train(hps, loader, state):
     total = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: e.self_device_time_total,
                  reverse=True)[:8]
-    log("train_profile", dtype=hps.compute_dtype, steps=2,
+    log("train_profile", preset=preset, dtype=hps.compute_dtype, steps=2,
         wall_ms=wall * 1e3, profiled_wall_ms=wall_prof * 1e3,
         device_ms=total / 1e3, device_busy_share=total / 1e6 / wall,
         device_kernels_per_step=sum(e.count for e in kernels) / 2,
@@ -1070,7 +1291,8 @@ KERNEL_ROWS = (
      "sketch_rnn_tpu/ops/pallas_decode.py:339", "bfloat16"),
     *((n, FUSED_SRC, r, "float32" if n.startswith("fused_lstm_")
        and not n.startswith("fused_lstm_seq") else "bfloat16")
-      for n, r in FUSED_REPLACES.items()))
+      for n, r in FUSED_REPLACES.items()),
+    *((n, HYPER_SRC, r, "float32") for n, r in HYPER_REPLACES.items()))
 
 
 def main():
@@ -1112,6 +1334,10 @@ def main():
         inp = fused_inputs(vae_hps, dt)
         check_lstm(inp, rows)
         del inp
+        inp = fused_inputs(hyper_hps, dt)
+        check_hyper(inp, rows)
+        del inp
+        check_hyper_narrow(dt)
     torch.cuda.empty_cache()
 
     launches = serve_main_path(card, "bfloat16")
@@ -1123,19 +1349,39 @@ def main():
     seq2 = {"fused_lstm_seq_fwd": 2, "fused_lstm_seq_bwd": 2}
     flagship = train_hps(**dtype_over("bfloat16"))
     train_launches, (hps, model, loader, state) = train_main_path(
-        card, flagship, "quickdraw345_dp (bfloat16 compute and residuals)",
+        card, flagship, "train",
+        "quickdraw345_dp (bfloat16 compute and residuals)",
         {**seq2, "fused_ln_lstm_fwd": 1, "fused_ln_lstm_bwd": 1},
         TRAIN_STEPS, WARM_STEPS)
     train_reference(train_hps, "bfloat16", hps, model, loader, state)
     profile_train(hps, loader, state)
     del state
     lstm_launches, (hps, model, loader, state) = train_main_path(
-        card, vae_hps(), "vae (lstm decoder, fused_rnn=true, float32)",
+        card, vae_hps(), "train_lstm",
+        "vae (lstm decoder, fused_rnn=true, float32)",
         {**seq2, "fused_lstm_fwd": 1, "fused_lstm_bwd": 1}, LSTM_STEPS, 1)
     train_reference(vae_hps, "float32", hps, model, loader, state)
-    main_launches = {**launches, **train_launches,
-                     "fused_lstm_fwd": lstm_launches["fused_lstm_fwd"],
-                     "fused_lstm_bwd": lstm_launches["fused_lstm_bwd"]}
+    del state
+    hyper_launches, (hps, model, loader, state) = train_main_path(
+        card, hyper_hps(), "train_hyper",
+        "hyper (HyperLSTM decoder, fused_rnn=true, float32)",
+        {**seq2, "fused_hyper_lstm_fwd": 1, "fused_hyper_lstm_bwd": 1},
+        HYPER_STEPS, 1, falling=True)
+    train_reference(hyper_hps, "float32", hps, model, loader, state)
+    profile_train(hps, loader, state, preset="hyper")
+    del state
+    torch.cuda.empty_cache()
+
+    serve_main_path(card, "float32", cell="hyper")
+    serve_small_vs_cpu("float32", cell="hyper")
+    profile_generate("float32", cell="hyper")
+
+    picked = lambda src, *names: {n: src[n] for n in names}
+    main_launches = {
+        **launches, **train_launches,
+        **picked(lstm_launches, "fused_lstm_fwd", "fused_lstm_bwd"),
+        **picked(hyper_launches, "fused_hyper_lstm_fwd",
+                 "fused_hyper_lstm_bwd")}
 
     def row(name, source, replaces, dt):
         r = rows[name][dt]

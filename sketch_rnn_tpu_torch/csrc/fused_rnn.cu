@@ -87,101 +87,9 @@
 // across rows, tensor cores (TF32/bf16 wgmma) and TMA are later work;
 // PERF.md keeps the measured times beside these bounds.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "rnn_common.cuh"
 
 namespace {
-
-using bf16 = __nv_bfloat16;
-
-constexpr int kMaxThreads = 512;
-constexpr int kRedMax = 8;  // most values one block_sum reduces
-
-__device__ __forceinline__ float sigmoidf_(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// v rounded to T's precision (round to nearest even), held as a float
-template <typename T>
-__device__ __forceinline__ float rnd(float v) {
-  return to_f(from_f<T>(v));
-}
-
-// pallas_fused._hash32: murmur3-style avalanche over uint32
-__device__ __forceinline__ uint32_t hash32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7feb352du;
-  x ^= x >> 15;
-  x *= 0x846ca68bu;
-  x ^= x >> 16;
-  return x;
-}
-
-struct Dropout {
-  const float* masks;  // [T, B, H] streamed masks, or null
-  const int* seed;     // device int32 scalar for in-kernel masks, or null
-  float keep;          // f32(keep_prob)
-  float inv_keep;      // f32(1 / keep_prob)
-};
-
-// The mask of (t, row, col); 1 when there is no dropout (g * 1 == g).
-__device__ __forceinline__ float dropout_mask(const Dropout& d,
-                                              uint32_t seed, int t, int B,
-                                              int row, int H, int col) {
-  if (d.masks != nullptr) return d.masks[((size_t)t * B + row) * H + col];
-  if (d.seed == nullptr) return 1.0f;
-  const uint32_t ctr = seed * 2654435761u +
-                       ((uint32_t)t * (uint32_t)B + (uint32_t)row) *
-                           (uint32_t)H +
-                       (uint32_t)col;
-  const uint32_t bits = hash32(ctr);
-  const float u = (float)(int)(bits >> 8) * (1.0f / 16777216.0f);
-  return u < d.keep ? d.inv_keep : 0.0f;
-}
-
-// Sum N values per thread across the block; every thread gets the sums.
-// s_red holds 33 * kRedMax floats. All threads of the block must call it.
-template <int N>
-__device__ void block_sum(float (&v)[N], float* s_red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-#pragma unroll
-  for (int g = 0; g < N; ++g) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v[g] += __shfl_down_sync(0xffffffffu, v[g], off);
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int g = 0; g < N; ++g) s_red[warp * N + g] = v[g];
-  }
-  __syncthreads();
-  if (threadIdx.x < N) {
-    float s = 0.0f;
-    for (int w = 0; w < nw; ++w) s += s_red[w * N + threadIdx.x];
-    s_red[32 * kRedMax + threadIdx.x] = s;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int g = 0; g < N; ++g) v[g] = s_red[32 * kRedMax + g];
-  __syncthreads();
-}
 
 template <typename W>
 struct Cell {
@@ -230,41 +138,6 @@ __device__ __forceinline__ void gate_pre(const Cell<W>& p, const float* s_x,
   }
 }
 
-// Per-gate layer-norm statistics of pre over the H columns (two-pass:
-// mean, then the biased variance): mean[g] and rs[g] = rsqrt(var + eps).
-// Threads past H (own == false) contribute nothing.
-__device__ __forceinline__ void gate_stats(const float (&pre)[4], bool own,
-                                           int H, float* s_red,
-                                           float (&mean)[4], float (&rs)[4]) {
-#pragma unroll
-  for (int g = 0; g < 4; ++g) mean[g] = own ? pre[g] : 0.0f;
-  block_sum<4>(mean, s_red);
-#pragma unroll
-  for (int g = 0; g < 4; ++g) mean[g] = mean[g] / (float)H;
-  float var[4];
-#pragma unroll
-  for (int g = 0; g < 4; ++g) {
-    const float d = pre[g] - mean[g];
-    var[g] = own ? d * d : 0.0f;
-  }
-  block_sum<4>(var, s_red);
-#pragma unroll
-  for (int g = 0; g < 4; ++g) rs[g] = rsqrtf(var[g] / (float)H + 1e-6f);
-}
-
-// Layer-norm statistics of one value per column.
-__device__ __forceinline__ void row_stats(float v, bool own, int H,
-                                          float* s_red, float& mean,
-                                          float& rs) {
-  float s[1] = {own ? v : 0.0f};
-  block_sum<1>(s, s_red);
-  mean = s[0] / (float)H;
-  const float d = v - mean;
-  float q[1] = {own ? d * d : 0.0f};
-  block_sum<1>(q, s_red);
-  rs = rsqrtf(q[0] / (float)H + 1e-6f);
-}
-
 template <typename W, typename R>
 struct Fwd {
   Cell<W> p;
@@ -306,22 +179,8 @@ __global__ void __launch_bounds__(kMaxThreads) rnn_fwd_kernel(Fwd<W, R> a) {
     const float m = own ? dropout_mask(a.drop, seed, t, B, row, H, j) : 1.0f;
     float nc, nh;
     if (LN) {
-      float mean[4], rs[4];
-      gate_stats(pre, own, H, s_red, mean, rs);
-      float y[4];
-#pragma unroll
-      for (int g = 0; g < 4; ++g)
-        y[g] = own ? (pre[g] - mean[g]) * rs[g] * p.ln_gamma[g * H + j] +
-                         p.ln_beta[g * H + j]
-                   : 0.0f;
-      const float i = sigmoidf_(y[0]), gu = tanhf(y[1]);
-      const float f = sigmoidf_(y[2] + p.forget_bias), o = sigmoidf_(y[3]);
-      nc = c * f + i * (gu * m);
-      float cmean, crs;
-      row_stats(nc, own, H, s_red, cmean, crs);
-      const float yc =
-          own ? (nc - cmean) * crs * p.lnc_gamma[j] + p.lnc_beta[j] : 0.0f;
-      nh = tanhf(yc) * o;
+      ln_gates_fwd(pre, c, m, own, H, j, p.ln_gamma, p.ln_beta, p.lnc_gamma,
+                   p.lnc_beta, p.forget_bias, s_red, nc, nh);
     } else {
       const float i = sigmoidf_(pre[0]), gu = tanhf(pre[1]);
       const float f = sigmoidf_(pre[2] + p.forget_bias), o = sigmoidf_(pre[3]);
@@ -382,9 +241,8 @@ __global__ void __launch_bounds__(kMaxThreads) rnn_bwd_kernel(Bwd<W, R> a) {
 
   float dh = 0.0f, dc = 0.0f;
   float xb_acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  float dgam[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  float dbet[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  float dgc = 0.0f, dbc = 0.0f;
+  const LnParams ln = {p.ln_gamma, p.ln_beta, p.lnc_gamma, p.lnc_beta};
+  LnGrads lg;
   if (own) {
     if (a.dhT != nullptr) dh = a.dhT[(size_t)row * H + j];
     if (a.dcT != nullptr) dc = a.dcT[(size_t)row * H + j];
@@ -410,54 +268,8 @@ __global__ void __launch_bounds__(kMaxThreads) rnn_bwd_kernel(Bwd<W, R> a) {
     const float m = own ? dropout_mask(a.drop, seed, s, B, row, H, j) : 1.0f;
     float dp[4], dc_next;
     if (LN) {
-      float mean[4], rs[4], xhat[4], y[4];
-      gate_stats(pre, own, H, s_red, mean, rs);
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        xhat[g] = (pre[g] - mean[g]) * rs[g];
-        y[g] = own ? xhat[g] * p.ln_gamma[g * H + j] + p.ln_beta[g * H + j]
-                   : 0.0f;
-      }
-      const float i = sigmoidf_(y[0]), gu = tanhf(y[1]);
-      const float f = sigmoidf_(y[2] + p.forget_bias), o = sigmoidf_(y[3]);
-      const float nc = c_prev * f + i * (gu * m);
-      float cmean, crs;
-      row_stats(nc, own, H, s_red, cmean, crs);
-      const float xhat_c = (nc - cmean) * crs;
-      const float gc = own ? p.lnc_gamma[j] : 0.0f;
-      const float yc = own ? xhat_c * gc + p.lnc_beta[j] : 0.0f;
-      const float tanh_yc = tanhf(yc);
-      const float do_ = dh_tot * tanh_yc;
-      const float dyc = dh_tot * o * (1.0f - tanh_yc * tanh_yc);
-      dgc += dyc * xhat_c;
-      dbc += dyc;
-      // layer-norm backward of the cell norm: r * (dxhat - mean(dxhat)
-      //   - xhat * mean(dxhat * xhat))
-      const float dxh_c = dyc * gc;
-      float q2[2] = {own ? dxh_c : 0.0f, own ? dxh_c * xhat_c : 0.0f};
-      block_sum<2>(q2, s_red);
-      const float dcv =
-          dc + crs * (dxh_c - q2[0] / (float)H - xhat_c * (q2[1] / (float)H));
-      const float df = dcv * c_prev;
-      const float di = dcv * (gu * m);
-      const float dgu = dcv * i * m;
-      const float dy[4] = {di * i * (1.0f - i), dgu * (1.0f - gu * gu),
-                           df * f * (1.0f - f), do_ * o * (1.0f - o)};
-      float q8[8], dxh[4];
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        dgam[g] += dy[g] * xhat[g];
-        dbet[g] += dy[g];
-        dxh[g] = own ? dy[g] * p.ln_gamma[g * H + j] : 0.0f;
-        q8[g] = dxh[g];
-        q8[4 + g] = own ? dxh[g] * xhat[g] : 0.0f;
-      }
-      block_sum<8>(q8, s_red);
-#pragma unroll
-      for (int g = 0; g < 4; ++g)
-        dp[g] = rs[g] * (dxh[g] - q8[g] / (float)H -
-                         xhat[g] * (q8[4 + g] / (float)H));
-      dc_next = dcv * f;
+      ln_gates_bwd(pre, c_prev, m, dh_tot, dc, own, H, j, ln, p.forget_bias,
+                   s_red, lg, dp, dc_next);
     } else {
       const float i = sigmoidf_(pre[0]), gu = tanhf(pre[1]);
       const float f = sigmoidf_(pre[2] + p.forget_bias), o = sigmoidf_(pre[3]);
@@ -517,11 +329,11 @@ __global__ void __launch_bounds__(kMaxThreads) rnn_bwd_kernel(Bwd<W, R> a) {
     float* pr = a.part + (size_t)row * 10 * H;
 #pragma unroll
     for (int g = 0; g < 4; ++g) {
-      pr[g * H + j] = dgam[g];
-      pr[4 * H + g * H + j] = dbet[g];
+      pr[g * H + j] = lg.dgam[g];
+      pr[4 * H + g * H + j] = lg.dbet[g];
     }
-    pr[8 * H + j] = dgc;
-    pr[9 * H + j] = dbc;
+    pr[8 * H + j] = lg.dgc;
+    pr[9 * H + j] = lg.dbc;
   }
 }
 
@@ -609,24 +421,6 @@ weight_grad_kernel(const float* __restrict__ xs, const float* __restrict__ h0,
   }
 }
 
-// out[c] = sum over r of part[r, c], r in order.
-__global__ void sum_rows_kernel(const float* __restrict__ part, int rows,
-                                int cols, float* __restrict__ out) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= cols) return;
-  float s = 0.0f;
-  for (int r = 0; r < rows; ++r) s += part[(size_t)r * cols + c];
-  out[c] = s;
-}
-
-int threads_for(int H) { return (H + 31) / 32 * 32; }
-
-cudaError_t set_smem(const void* fn, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
-
 template <typename W>
 Cell<W> make_cell(const void* wx, const void* wh, const float* b,
                   const float* xb, const float* ln_gamma,
@@ -645,23 +439,6 @@ Cell<W> make_cell(const void* wx, const void* wh, const float* b,
   p.H = H;
   p.forget_bias = forget_bias;
   return p;
-}
-
-Dropout make_dropout(const float* masks, const int* seed, float keep,
-                     float inv_keep) {
-  Dropout d;
-  d.masks = masks;
-  d.seed = seed;
-  d.keep = keep;
-  d.inv_keep = inv_keep;
-  return d;
-}
-
-// Call f(W{}, R{}) with the weight and residual types the flags name.
-template <typename F>
-cudaError_t with_types(int w_bf16, int r_bf16, F&& f) {
-  if (w_bf16) return r_bf16 ? f(bf16{}, bf16{}) : f(bf16{}, 0.0f);
-  return r_bf16 ? f(0.0f, bf16{}) : f(0.0f, 0.0f);
 }
 
 template <bool LN, typename W, typename R>

@@ -50,10 +50,12 @@ class SketchRNN:
     def __init__(self, hps: HParams):
         self.hps = hps
         cd = _dtype(hps)
+        kw = dict(hyper_size=hps.hyper_rnn_size,
+                  hyper_embed_size=hps.hyper_embed_size, compute_dtype=cd)
         if hps.conditional:
-            self.enc_fwd = make_cell(hps.enc_model, hps.enc_rnn_size, cd)
-            self.enc_bwd = make_cell(hps.enc_model, hps.enc_rnn_size, cd)
-        self.dec = make_cell(hps.dec_model, hps.dec_rnn_size, cd)
+            self.enc_fwd = make_cell(hps.enc_model, hps.enc_rnn_size, **kw)
+            self.enc_bwd = make_cell(hps.enc_model, hps.enc_rnn_size, **kw)
+        self.dec = make_cell(hps.dec_model, hps.dec_rnn_size, **kw)
         self.out_dim = 6 * hps.num_mixture + 3
 
     # -- parameters --------------------------------------------------------

@@ -9,7 +9,8 @@ Each source under ``sketch_rnn_tpu_torch/csrc/`` has a plain C interface
 The library lands in ``build/kernels/`` at the repository root (listed
 in ``.gitignore``), named by the hash of its source and flags, so a
 changed source is rebuilt at first use and an unchanged one is loaded
-as it is. :func:`build_all` starts one ``nvcc`` per source, all at
+as it is (the shared headers ``csrc/*.cuh`` count as part of every
+source). :func:`build_all` starts one ``nvcc`` per source, all at
 once. ``nvcc`` is looked up in ``$CUDA_HOME/bin``, then
 ``/usr/local/cuda/bin``, then ``PATH``; a missing compiler is an error.
 Nothing here runs at import time.
@@ -52,6 +53,10 @@ SIGNATURES = {
         "srt_ln_lstm_fwd": [_P] * 12 + [_I] * 6 + [_F] * 3 + [_P] * 5,
         "srt_ln_lstm_bwd": [_P] * 16 + [_I] * 6 + [_F] * 3 + [_P] * 10,
     },
+    "fused_hyper": {
+        "srt_hyper_fwd": [_P] * 28 + [_I] * 8 + [_F] * 3 + [_P] * 9,
+        "srt_hyper_bwd": [_P] * 35 + [_I] * 8 + [_F] * 3 + [_P] * 30,
+    },
 }
 
 
@@ -75,6 +80,8 @@ def find_nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):      # shared by the sources
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

@@ -54,12 +54,14 @@ def reset_launch_counts() -> None:
 
 
 def check_cell_kind(kind: str) -> None:
-    """Refuse cells the decode kernels do not cover, by name."""
+    """Refuse cells the decode kernels do not cover, by name. The JAX
+    package has no decode kernel for the hyper cell either: both packages
+    serve it through the plain chunk program (``serve/engine.py``)."""
     if kind not in SUPPORTED_CELLS:
         raise ValueError(
             f"the CUDA decode kernels support cells {SUPPORTED_CELLS}, not "
-            f"{kind!r} (the hyper cell comes with a later slice of the "
-            f"PyTorch port)")
+            f"{kind!r} (the hyper cell is served by the engine's plain "
+            f"chunk program, never by these kernels)")
 
 
 def weight_dtype(compute_dtype) -> torch.dtype:

@@ -1,8 +1,8 @@
 """The training kernels: the encoder's and the decoder's recurrences.
 
-The port of the three kernel families of ``sketch_rnn_tpu/ops/pallas_fused.py``
-that training runs. Six hand-written CUDA kernels (``csrc/fused_rnn.cu``)
-replace six Pallas kernels:
+The port of the four kernel families of ``sketch_rnn_tpu/ops/pallas_fused.py``
+that training runs. Eight hand-written CUDA kernels (``csrc/fused_rnn.cu``,
+``csrc/fused_hyper.cu``) replace eight Pallas kernels:
 
 - :func:`fused_lstm_seq` (the bi-LSTM encoder, each direction): the
   forward replaces ``pallas_fused._lstm_seq_fwd_kernel``, the backward
@@ -18,6 +18,14 @@ replace six Pallas kernels:
   replaces ``pallas_fused._lnlstm_fwd_kernel``, the backward
   ``pallas_fused._lnlstm_bwd_kernel``, with the per-example gate bias
   ``x_bias`` and every input's gradient.
+- :func:`fused_hyper_lstm` (the HyperLSTM, layer-norm variant): the
+  forward replaces ``pallas_fused._hyper_fwd_kernel``, the backward
+  ``pallas_fused._hyper_bwd_kernel``: an auxiliary LSTM over ``[x; h]``,
+  the ``hyper_h -> z -> s`` projections, the scaled pre-activation ``s_x
+  * (x @ wx + x_bias) + s_h * (h @ wh) + s_b + b``, the LayerNorm-LSTM
+  gate block, four carry streams, two per-example biases and the
+  gradient of every input (nineteen parameters among them). Its
+  weights travel as one :class:`HyperWeights`.
 
 All keep the Pallas kernels' memory contract: no ``[T, B, 4H]`` gate
 buffer and no mask buffer exist in the forward; it saves only ``hs`` and
@@ -46,7 +54,8 @@ backward written step by step (the backward mirrors
 ``_lstm_step_bwd_math`` and ``_ln_lstm_bwd_gates``; it does not run
 autograd of the forward). Each kernel has one wrapper with its plain
 version's signature (``lstm_seq_fwd``, ``lstm_seq_bwd``, ``lstm_fwd``,
-``lstm_bwd``, ``ln_lstm_fwd``, ``ln_lstm_bwd``): the plain version for
+``lstm_bwd``, ``ln_lstm_fwd``, ``ln_lstm_bwd``, ``hyper_lstm_fwd``,
+``hyper_lstm_bwd``): the plain version for
 CPU tensors, for CUDA tensors the kernel or a raise. The public functions
 are ``torch.autograd.Function``s over those wrappers. The ``*_launches``
 counters count kernel launches only (one per wrapper call, whatever the
@@ -55,7 +64,7 @@ number of CUDA kernels inside), never plain-version calls.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -69,7 +78,8 @@ WEIGHT_DTYPES = (torch.float32, torch.bfloat16)
 RESIDUAL_DTYPES = (torch.float32, torch.bfloat16)
 
 _KERNELS = ("fused_lstm_seq_fwd", "fused_lstm_seq_bwd", "fused_lstm_fwd",
-            "fused_lstm_bwd", "fused_ln_lstm_fwd", "fused_ln_lstm_bwd")
+            "fused_lstm_bwd", "fused_ln_lstm_fwd", "fused_ln_lstm_bwd",
+            "fused_hyper_lstm_fwd", "fused_hyper_lstm_bwd")
 _launches = dict.fromkeys(_KERNELS, 0)
 
 
@@ -290,6 +300,138 @@ def ln_lstm_fwd_reference(xs, wx, wh, ln_gamma, ln_beta, lnc_gamma,
     return torch.stack(hs), torch.stack(cs), c, hh
 
 
+class HyperWeights(NamedTuple):
+    """The HyperLSTM's parameters as ``fused_hyper_lstm`` takes them (and,
+    from the backward, their gradients in the same slots).
+
+    ``wx [D, 4H]``, ``b [4H]``, ``wh [H, 4H]``: the main gates. ``wxh_x
+    [D, 4HH]``, ``wxh_h [H, 4HH]``, ``bh [4HH]``, ``whh [HH, 4HH]``: the
+    auxiliary LSTM over ``[x; h]`` (its input weight split row-wise) and
+    its recurrent weight. ``w_hz_p [HH, 4e]`` (``b_hz_p [4e]`` for p in
+    x, h): ``hyper_h`` to the per-gate embeddings. ``zd_p [4, e, H]``: the
+    per-gate embedding-to-scale blocks. ``ln_gamma/ln_beta [4, H]``,
+    ``lnc_gamma/lnc_beta [H]``. The matrices ``wx, wh, wxh_x, wxh_h,
+    whh, w_hz_*`` share one dtype (float32 or pre-cast bfloat16);
+    everything else is float32."""
+
+    wx: torch.Tensor
+    b: torch.Tensor
+    wh: torch.Tensor
+    wxh_x: torch.Tensor
+    wxh_h: torch.Tensor
+    bh: torch.Tensor
+    whh: torch.Tensor
+    w_hz_x: torch.Tensor
+    b_hz_x: torch.Tensor
+    w_hz_h: torch.Tensor
+    b_hz_h: torch.Tensor
+    w_hz_b: torch.Tensor
+    zd_x: torch.Tensor
+    zd_h: torch.Tensor
+    zd_b: torch.Tensor
+    ln_gamma: torch.Tensor
+    ln_beta: torch.Tensor
+    lnc_gamma: torch.Tensor
+    lnc_beta: torch.Tensor
+
+
+# the slots of HyperWeights that hold matrices of the weight dtype
+HYPER_MATRICES = ("wx", "wh", "wxh_x", "wxh_h", "whh", "w_hz_x", "w_hz_h",
+                  "w_hz_b")
+
+
+def _block_scale(z, zd):
+    """``[B, 4e] x [4, e, H] -> [B, 4H]``: each gate's embedding slice
+    times its own block (``pallas_fused._block_scale``)."""
+    e = zd.shape[1]
+    return torch.cat([z[:, j * e:(j + 1) * e] @ zd[j] for j in range(4)],
+                     dim=-1)
+
+
+def _block_unscale(ds, zd):
+    """The backward of :func:`_block_scale` w.r.t. ``z``."""
+    h = zd.shape[2]
+    return torch.cat([ds[:, j * h:(j + 1) * h] @ zd[j].T for j in range(4)],
+                     dim=-1)
+
+
+def _block_scale_grad(z, ds, zd):
+    """``[4, e, H]``: ``z_j^T @ ds_j`` per gate."""
+    e, h = zd.shape[1], zd.shape[2]
+    return torch.stack([z[:, j * e:(j + 1) * e].T @ ds[:, j * h:(j + 1) * h]
+                        for j in range(4)])
+
+
+class _HyperStep:
+    """One HyperLSTM step from ``(x, carries)``, shared by the plain
+    forward and backward (``pallas_fused._hyper_recompute``)."""
+
+    def __init__(self, w: HyperWeights, forget_bias, xb, xbh):
+        self.w = w
+        self.wide = {n: _wide(getattr(w, n)) for n in HYPER_MATRICES}
+        self.forget_bias, self.xb, self.xbh = forget_bias, xb, xbh
+
+    def mm(self, a, name):
+        return _mm(a, getattr(self.w, name), self.wide[name])
+
+    def __call__(self, x, h, c, hc, hh, m):
+        w = self.w
+        hyper_pre = (self.mm(x, "wxh_x") + self.mm(h, "wxh_h") + w.bh
+                     + self.mm(hh, "whh"))
+        if self.xbh is not None:
+            hyper_pre = hyper_pre + self.xbh
+        hi, hg, hf, ho, new_hc = _lstm_gates(hyper_pre, hc, None,
+                                             self.forget_bias)
+        new_hh = torch.tanh(new_hc) * ho
+        xp = self.mm(x, "wx")
+        if self.xb is not None:
+            xp = xp + self.xb
+        hp = self.mm(h, "wh")
+        zx = self.mm(new_hh, "w_hz_x") + w.b_hz_x
+        zh = self.mm(new_hh, "w_hz_h") + w.b_hz_h
+        zb = self.mm(new_hh, "w_hz_b")
+        sx = _block_scale(zx, w.zd_x)
+        sh = _block_scale(zh, w.zd_h)
+        sb = _block_scale(zb, w.zd_b)
+        pre = sx * xp + sh * hp + sb + w.b
+        ln = _ln_gates(pre, c, m, w.ln_gamma, w.ln_beta, w.lnc_gamma,
+                       w.lnc_beta, self.forget_bias)
+        return ln, (hi, hg, hf, ho, new_hc, new_hh, xp, hp, zx, zh, zb, sx,
+                    sh)
+
+
+def _check_bias_pair(x_bias, x_bias_hyper):
+    if (x_bias is None) != (x_bias_hyper is None):
+        raise ValueError("pass both x_bias and x_bias_hyper or neither")
+
+
+def hyper_lstm_fwd_reference(xs, w: HyperWeights, c0, h0, hc0, hh0,
+                             forget_bias=1.0, masks=None, dropout_seed=None,
+                             keep_prob=1.0, x_bias=None, x_bias_hyper=None,
+                             residual_dtype=None):
+    """The plain forward of :func:`fused_hyper_lstm`: ``(hs, cs, hycs,
+    hyhs, cT, hT, hcT, hhT)``. ``cs``/``hycs`` are the PRE-step main and
+    auxiliary cell states, ``hs``/``hyhs`` the post-step hidden states,
+    all in ``residual_dtype``; the final carries are float32. Dropout
+    masks the main candidate only, with the main ``H`` in its counter."""
+    _check_bias_pair(x_bias, x_bias_hyper)
+    t_len, bsz, _ = xs.shape
+    h = w.wh.shape[0]
+    step = _HyperStep(w, forget_bias, x_bias, x_bias_hyper)
+    c, hm, hc, hh = c0, h0, hc0, hh0
+    hs, cs, hycs, hyhs = [], [], [], []
+    for t in range(t_len):
+        m = _step_mask(masks, dropout_seed, t, bsz, h, keep_prob)
+        ln, aux = step(xs[t], hm, c, hc, hh, m)
+        cs.append(_store(c, residual_dtype))
+        hycs.append(_store(hc, residual_dtype))
+        c, hm, hc, hh = ln[4], ln[5], aux[4], aux[5]
+        hs.append(_store(hm, residual_dtype))
+        hyhs.append(_store(hh, residual_dtype))
+    return (torch.stack(hs), torch.stack(cs), torch.stack(hycs),
+            torch.stack(hyhs), c, hm, hc, hh)
+
+
 # -- plain PyTorch versions: backward ---------------------------------------
 
 
@@ -428,6 +570,124 @@ def ln_lstm_bwd_reference(xs, wx, wh, ln_gamma, ln_beta, lnc_gamma,
     return (dxs.to(xs.dtype), dxb, dwx, dwh, dgam, dbet, dgc, dbc, dc, dh)
 
 
+def hyper_lstm_bwd_reference(xs, w: HyperWeights, h0, hh0, hs, cs, hycs,
+                             hyhs, dhs, dcT, dhT, dhcT, dhhT,
+                             forget_bias=1.0, masks=None, dropout_seed=None,
+                             keep_prob=1.0, x_bias=None, x_bias_hyper=None):
+    """The plain backward of :func:`fused_hyper_lstm`, step by step
+    (``pallas_fused._hyper_bwd_kernel``): recompute each step from the
+    stored residuals (``h0``/``hh0`` rounded to their dtype at step 0),
+    back through the LayerNorm-LSTM gate block, the scaling, the block
+    and ``z`` projections and the auxiliary LSTM. ``x_bias`` sits inside
+    the scaling, so its gradient sums ``d_pre * s_x``. Operands of
+    products with a bfloat16 matrix are rounded to it; the ``zd_*``
+    products, every bias gradient and the LN sums take float32 values.
+    Returns ``(dxs, dxb, dxbh, dw, dc0, dh0, dhc0, dhh0)``, ``dw`` a
+    :class:`HyperWeights` of gradients in the primals' dtypes; ``dxb``
+    and ``dxbh`` are None without the biases."""
+    _check_bias_pair(x_bias, x_bias_hyper)
+    t_len, bsz, _ = xs.shape
+    h = w.wh.shape[0]
+    wd = w.wx.dtype
+    acc = _acc_dtype(w.wx)
+    step = _HyperStep(w, forget_bias, x_bias, x_bias_hyper)
+    h00, hh00 = h0.to(hs.dtype), hh0.to(hyhs.dtype)   # _prev_block
+    g = {n: torch.zeros(getattr(w, n).shape, dtype=acc, device=xs.device)
+         for n in HyperWeights._fields}
+    dxs = torch.empty(xs.shape, dtype=acc, device=xs.device)
+    dxb = torch.zeros_like(x_bias) if x_bias is not None else None
+    dxbh = torch.zeros_like(x_bias_hyper) if x_bias is not None else None
+    dc, dh, dhc, dhh = dcT, dhT, dhcT, dhhT
+    for s in range(t_len - 1, -1, -1):
+        x = xs[s]
+        h_prev = (hs[s - 1] if s > 0 else h00).to(acc)
+        hh_prev = (hyhs[s - 1] if s > 0 else hh00).to(acc)
+        c_prev, hc_prev = cs[s].to(acc), hycs[s].to(acc)
+        m = _step_mask(masks, dropout_seed, s, bsz, h, keep_prob)
+        ln, aux = step(x, h_prev, c_prev, hc_prev, hh_prev, m)
+        (i, g_u, f, o, _, _, yc, xhat_c, r_c, xhats, rs) = ln
+        (hi, hg, hf, ho, new_hc, new_hh, xp, hp, zx, zh, zb, sx, sh) = aux
+
+        # the LayerNorm-LSTM gate block (as ln_lstm_bwd_reference)
+        dh = dh + dhs[s].to(acc)
+        tanh_yc = torch.tanh(yc)
+        do = dh * tanh_yc
+        dyc = dh * o * (1.0 - tanh_yc * tanh_yc)
+        g["lnc_gamma"] += (dyc * xhat_c).sum(dim=0)
+        g["lnc_beta"] += dyc.sum(dim=0)
+        dc = dc + _ln_bwd_input(dyc, w.lnc_gamma, xhat_c, r_c)
+        df = dc * c_prev
+        gm = g_u * m if m is not None else g_u
+        di = dc * gm
+        dg_u = dc * i * m if m is not None else dc * i
+        dys = [di * i * (1.0 - i), dg_u * (1.0 - g_u * g_u),
+               df * f * (1.0 - f), do * o * (1.0 - o)]
+        parts = []
+        for j in range(4):
+            g["ln_gamma"][j] += (dys[j] * xhats[j]).sum(dim=0)
+            g["ln_beta"][j] += dys[j].sum(dim=0)
+            parts.append(_ln_bwd_input(dys[j], w.ln_gamma[j], xhats[j],
+                                       rs[j]))
+        d_pre = torch.cat(parts, dim=-1)
+        dc = dc * f
+
+        # pre = sx * xp + sh * hp + sb + b
+        dsx, dxp = d_pre * xp, d_pre * sx
+        dsh, dhp = d_pre * hp, d_pre * sh
+        g["b"] += d_pre.sum(dim=0)
+        if dxb is not None:
+            dxb += dxp
+
+        # the per-gate block projections (float32 products)
+        dzx = _block_unscale(dsx, w.zd_x)
+        dzh = _block_unscale(dsh, w.zd_h)
+        dzb = _block_unscale(d_pre, w.zd_b)
+        g["zd_x"] += _block_scale_grad(zx, dsx, w.zd_x)
+        g["zd_h"] += _block_scale_grad(zh, dsh, w.zd_h)
+        g["zd_b"] += _block_scale_grad(zb, d_pre, w.zd_b)
+
+        # hyper_h -> z
+        dzx_c, dzh_c, dzb_c = (_rnd(d, wd) for d in (dzx, dzh, dzb))
+        dhh = (dhh + dzx_c @ step.wide["w_hz_x"].T
+               + dzh_c @ step.wide["w_hz_h"].T
+               + dzb_c @ step.wide["w_hz_b"].T)
+        hh_c = _rnd(new_hh, wd)
+        g["w_hz_x"] += hh_c.T @ dzx_c
+        g["w_hz_h"] += hh_c.T @ dzh_c
+        g["w_hz_b"] += hh_c.T @ dzb_c
+        g["b_hz_x"] += dzx.sum(dim=0)
+        g["b_hz_h"] += dzh.sum(dim=0)
+
+        # the auxiliary LSTM (no dropout)
+        tanh_hc = torch.tanh(new_hc)
+        dhc = dhc + dhh * ho * (1.0 - tanh_hc * tanh_hc)
+        dho = dhh * tanh_hc
+        dhf, dhi, dhg = dhc * hc_prev, dhc * hg, dhc * hi
+        dh_pre = torch.cat([dhi * hi * (1.0 - hi), dhg * (1.0 - hg * hg),
+                            dhf * hf * (1.0 - hf), dho * ho * (1.0 - ho)],
+                           dim=-1)
+        dhc = dhc * hf
+        if dxbh is not None:
+            dxbh += dh_pre
+        dh_pre_c = _rnd(dh_pre, wd)
+        x_c, h_c = _rnd(x, wd), _rnd(h_prev, wd)
+        g["bh"] += dh_pre.sum(dim=0)
+        g["wxh_x"] += x_c.T @ dh_pre_c
+        g["wxh_h"] += h_c.T @ dh_pre_c
+        g["whh"] += _rnd(hh_prev, wd).T @ dh_pre_c
+        dhh = dh_pre_c @ step.wide["whh"].T
+
+        # the main projections and the carries' gradients
+        dxp_c, dhp_c = _rnd(dxp, wd), _rnd(dhp, wd)
+        dxs[s] = dxp_c @ step.wide["wx"].T + dh_pre_c @ step.wide["wxh_x"].T
+        g["wx"] += x_c.T @ dxp_c
+        g["wh"] += h_c.T @ dhp_c
+        dh = dhp_c @ step.wide["wh"].T + dh_pre_c @ step.wide["wxh_h"].T
+    dw = HyperWeights(**{n: g[n].to(getattr(w, n).dtype)
+                         for n in HyperWeights._fields})
+    return dxs.to(xs.dtype), dxb, dxbh, dw, dc, dh, dhc, dhh
+
+
 # -- the kernels ------------------------------------------------------------
 #
 # One function per kernel, with its plain version's signature: the plain
@@ -508,10 +768,10 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def _launch(entry, what, counter, *args):
+def _launch(entry, what, counter, *args, lib="fused_rnn"):
     from sketch_rnn_tpu_torch.ops import _build
 
-    lib = _build.load("fused_rnn")
+    lib = _build.load(lib)
     _build.check(lib, getattr(lib, entry)(*args), what)
     _launches[counter] += 1
 
@@ -695,6 +955,178 @@ def ln_lstm_bwd(xs, wx, wh, ln_gamma, ln_beta, lnc_gamma, lnc_beta, h0, hs,
             dln[8 * h:9 * h], dln[9 * h:], dc0, dh0)
 
 
+def _hyper_common(xs, w: HyperWeights, x_bias, x_bias_hyper, masks, seed,
+                  carries):
+    """Validate the HyperLSTM kernels' shared operands; returns ``(dev,
+    t, b, d, h, hh, e, w_bf16)``. ``carries``: ``(name, tensor, width)``
+    float32 ``[B, width]`` operands (``width`` "h" or "hh")."""
+    _check_bias_pair(x_bias, x_bias_hyper)
+    if xs.device.type != "cuda":
+        raise ValueError(f"the fused RNN kernels run on CUDA or CPU "
+                         f"tensors, not {xs.device}")
+    dev = xs.device
+    t, b, d = xs.shape
+    h, hh = w.wh.shape[0], w.whh.shape[0]
+    e = w.zd_x.shape[1]
+    if not (0 < h <= MAX_HIDDEN and 0 < hh <= MAX_HIDDEN):
+        raise ValueError(
+            f"hidden sizes {h}/{hh}: the fused HyperLSTM kernels hold one "
+            f"thread per main and per auxiliary hidden unit, at most "
+            f"{MAX_HIDDEN} each")
+    wd = w.wx.dtype
+    if wd not in WEIGHT_DTYPES:
+        raise TypeError(f"wx has dtype {wd}: the fused RNN kernels take "
+                        f"weights in {WEIGHT_DTYPES}")
+    f32 = torch.float32
+    shapes = {"wx": (d, 4 * h), "b": (4 * h,), "wh": (h, 4 * h),
+              "wxh_x": (d, 4 * hh), "wxh_h": (h, 4 * hh), "bh": (4 * hh,),
+              "whh": (hh, 4 * hh), "w_hz_x": (hh, 4 * e),
+              "b_hz_x": (4 * e,), "w_hz_h": (hh, 4 * e), "b_hz_h": (4 * e,),
+              "w_hz_b": (hh, 4 * e), "zd_x": (4, e, h), "zd_h": (4, e, h),
+              "zd_b": (4, e, h), "ln_gamma": (4, h), "ln_beta": (4, h),
+              "lnc_gamma": (h,), "lnc_beta": (h,)}
+    for n in HyperWeights._fields:
+        _require(n, getattr(w, n), dev, wd if n in HYPER_MATRICES else f32,
+                 shapes[n])
+    _require("xs", xs, dev, f32, (t, b, d))
+    width = {"h": h, "hh": hh}
+    _f32_check(dev, [(n, x, (b, width[k])) for n, x, k in carries]
+               + [("x_bias", x_bias, (b, 4 * h)),
+                  ("x_bias_hyper", x_bias_hyper, (b, 4 * hh))])
+    if masks is not None:
+        _require("masks", masks, dev, f32, (t, b, h))
+    if seed is not None:
+        _require("dropout_seed", seed, dev, torch.int32, ())
+    return dev, t, b, d, h, hh, e, int(wd == torch.bfloat16)
+
+
+def _weight_ptrs(w: HyperWeights):
+    return [getattr(w, n).data_ptr() for n in HyperWeights._fields]
+
+
+def hyper_lstm_fwd(xs, w: HyperWeights, c0, h0, hc0, hh0, forget_bias=1.0,
+                   masks=None, dropout_seed=None, keep_prob=1.0,
+                   x_bias=None, x_bias_hyper=None, residual_dtype=None):
+    """Forward of :func:`fused_hyper_lstm`: ``(hs, cs, hycs, hyhs, cT, hT,
+    hcT, hhT)`` (kernel ``srt_hyper_fwd``)."""
+    if xs.device.type == "cpu":
+        return hyper_lstm_fwd_reference(
+            xs, w, c0, h0, hc0, hh0, forget_bias, masks, dropout_seed,
+            keep_prob, x_bias, x_bias_hyper, residual_dtype)
+    dev, t, b, d, h, hh, e, wb = _hyper_common(
+        xs, w, x_bias, x_bias_hyper, masks, dropout_seed,
+        (("c0", c0, "h"), ("h0", h0, "h"), ("hc0", hc0, "hh"),
+         ("hh0", hh0, "hh")))
+    rd = _residual(residual_dtype)
+    f32 = torch.float32
+    hs = torch.empty((t, b, h), dtype=rd, device=dev)
+    cs = torch.empty_like(hs)
+    hycs = torch.empty((t, b, hh), dtype=rd, device=dev)
+    hyhs = torch.empty_like(hycs)
+    cT = torch.empty((b, h), dtype=f32, device=dev)
+    hT = torch.empty_like(cT)
+    hcT = torch.empty((b, hh), dtype=f32, device=dev)
+    hhT = torch.empty_like(hcT)
+    _launch("srt_hyper_fwd", "fused_hyper_lstm forward",
+            "fused_hyper_lstm_fwd", xs.data_ptr(), _ptr(x_bias),
+            _ptr(x_bias_hyper), *_weight_ptrs(w), c0.data_ptr(),
+            h0.data_ptr(), hc0.data_ptr(), hh0.data_ptr(), _ptr(masks),
+            _ptr(dropout_seed), t, b, d, h, hh, e, wb,
+            int(rd == torch.bfloat16), *_keep_args(keep_prob),
+            float(forget_bias), hs.data_ptr(), cs.data_ptr(),
+            hycs.data_ptr(), hyhs.data_ptr(), cT.data_ptr(), hT.data_ptr(),
+            hcT.data_ptr(), hhT.data_ptr(), _stream(dev), lib="fused_hyper")
+    return hs, cs, hycs, hyhs, cT, hT, hcT, hhT
+
+
+def hyper_scratch_bytes(t, b, h, hh, e) -> int:
+    """The float32 scratch :func:`hyper_lstm_bwd` allocates on the card:
+    five ``[T, B, 4H]`` streams (``d_pre`` and its four products with
+    ``s_x, s_h, xp, hp``), ``dh_pre [T, B, 4HH]``, the recomputed ``z``
+    and their gradients ``[3, T, B, 4e]`` each, the recomputed
+    ``hyper_h [T, B, HH]`` and the per-row partial sums."""
+    return 4 * (t * b * (5 * 4 * h + 4 * hh + 2 * 3 * 4 * e + hh)
+                + b * _hyper_vec_width(h, hh, e))
+
+
+def _hyper_vec_width(h, hh, e):
+    """dgam 4H | dbet 4H | dgc H | dbc H | db 4H | dbh 4HH | dbhzx 4e |
+    dbhzh 4e: the per-row sums the recurrence keeps, summed over rows."""
+    return 14 * h + 4 * hh + 8 * e
+
+
+def hyper_lstm_bwd(xs, w: HyperWeights, h0, hh0, hs, cs, hycs, hyhs, dhs,
+                   dcT, dhT, dhcT, dhhT, forget_bias=1.0, masks=None,
+                   dropout_seed=None, keep_prob=1.0, x_bias=None,
+                   x_bias_hyper=None):
+    """Backward of :func:`fused_hyper_lstm`: ``(dxs, dxb, dxbh, dw, dc0,
+    dh0, dhc0, dhh0)`` (kernel ``srt_hyper_bwd``: the recurrence, which
+    writes every step's gradient streams to scratch, then the
+    weight-gradient products over ``T * B`` in a fixed order and the sum
+    of the per-row partials)."""
+    if xs.device.type == "cpu":
+        return hyper_lstm_bwd_reference(
+            xs, w, h0, hh0, hs, cs, hycs, hyhs, dhs, dcT, dhT, dhcT, dhhT,
+            forget_bias, masks, dropout_seed, keep_prob, x_bias,
+            x_bias_hyper)
+    dev, t, b, d, h, hh, e, wb = _hyper_common(
+        xs, w, x_bias, x_bias_hyper, masks, dropout_seed,
+        (("h0", h0, "h"), ("hh0", hh0, "hh"), ("dcT", dcT, "h"),
+         ("dhT", dhT, "h"), ("dhcT", dhcT, "hh"), ("dhhT", dhhT, "hh")))
+    rb = _residuals_check(dev, t, b, h, hs, cs, dhs)
+    for n, x in (("hycs", hycs), ("hyhs", hyhs)):
+        _require(n, x, dev, hs.dtype, (t, b, hh))
+    f32 = torch.float32
+
+    def new(*shape):
+        return torch.empty(shape, dtype=f32, device=dev)
+
+    # scratch (see hyper_scratch_bytes)
+    wide = [new(t, b, 4 * h) for _ in range(5)]   # dpre dxp dhp dsx dsh
+    dhpre = new(t, b, 4 * hh)
+    zs, dzs = new(3, t, b, 4 * e), new(3, t, b, 4 * e)
+    hhn = new(t, b, hh)
+    nvec = _hyper_vec_width(h, hh, e)
+    part = new(b, nvec)
+    # outputs
+    dxs = torch.empty_like(xs)
+    dxb = torch.empty_like(x_bias) if x_bias is not None else None
+    dxbh = torch.empty_like(x_bias_hyper) if x_bias is not None else None
+    dmat = {n: new(*getattr(w, n).shape)
+            for n in HYPER_MATRICES + ("zd_x", "zd_h", "zd_b")}
+    dvec = new(nvec)
+    dc0, dh0 = new(b, h), new(b, h)
+    dhc0, dhh0 = new(b, hh), new(b, hh)
+    _launch("srt_hyper_bwd", "fused_hyper_lstm backward",
+            "fused_hyper_lstm_bwd", xs.data_ptr(), _ptr(x_bias),
+            _ptr(x_bias_hyper), *_weight_ptrs(w), h0.data_ptr(),
+            hh0.data_ptr(), hs.data_ptr(), cs.data_ptr(), hycs.data_ptr(),
+            hyhs.data_ptr(), dhs.data_ptr(), dcT.data_ptr(), dhT.data_ptr(),
+            dhcT.data_ptr(), dhhT.data_ptr(), _ptr(masks),
+            _ptr(dropout_seed), t, b, d, h, hh, e, wb, rb,
+            *_keep_args(keep_prob), float(forget_bias),
+            *(x.data_ptr() for x in wide), dhpre.data_ptr(), zs.data_ptr(),
+            dzs.data_ptr(), hhn.data_ptr(), part.data_ptr(), dxs.data_ptr(),
+            _ptr(dxb), _ptr(dxbh),
+            *(dmat[n].data_ptr() for n in HYPER_MATRICES),
+            dmat["zd_x"].data_ptr(), dmat["zd_h"].data_ptr(),
+            dmat["zd_b"].data_ptr(), dvec.data_ptr(), dc0.data_ptr(),
+            dh0.data_ptr(), dhc0.data_ptr(), dhh0.data_ptr(), _stream(dev),
+            lib="fused_hyper")
+    dgam, dbet, dgc, dbc, db, dbh, dbzx, dbzh = torch.split(
+        dvec, [4 * h, 4 * h, h, h, 4 * h, 4 * hh, 4 * e, 4 * e])
+    wdt = w.wx.dtype
+    dw = HyperWeights(
+        wx=dmat["wx"].to(wdt), b=db, wh=dmat["wh"].to(wdt),
+        wxh_x=dmat["wxh_x"].to(wdt), wxh_h=dmat["wxh_h"].to(wdt), bh=dbh,
+        whh=dmat["whh"].to(wdt), w_hz_x=dmat["w_hz_x"].to(wdt), b_hz_x=dbzx,
+        w_hz_h=dmat["w_hz_h"].to(wdt), b_hz_h=dbzh,
+        w_hz_b=dmat["w_hz_b"].to(wdt), zd_x=dmat["zd_x"],
+        zd_h=dmat["zd_h"], zd_b=dmat["zd_b"], ln_gamma=dgam.view(4, h),
+        ln_beta=dbet.view(4, h), lnc_gamma=dgc, lnc_beta=dbc)
+    return dxs, dxb, dxbh, dw, dc0, dh0, dhc0, dhh0
+
+
 # -- the autograd Functions -------------------------------------------------
 
 
@@ -828,3 +1260,70 @@ def fused_ln_lstm(xs, wx, wh, ln_gamma, ln_beta, lnc_gamma, lnc_beta, c0,
         _as_seed(dropout_seed, xs), x_bias, forget_bias, keep_prob,
         residual_dtype)
     return hs, (cT, hT)
+
+
+_NW = len(HyperWeights._fields)
+
+
+class _FusedHyperLSTM(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, xs, *rest):
+        w = HyperWeights(*rest[:_NW])
+        (c0, h0, hc0, hh0, masks, seed, x_bias, x_bias_hyper, forget_bias,
+         keep_prob, residual_dtype) = rest[_NW:]
+        hs, cs, hycs, hyhs, cT, hT, hcT, hhT = hyper_lstm_fwd(
+            xs, w, c0, h0, hc0, hh0, forget_bias, masks, seed, keep_prob,
+            x_bias, x_bias_hyper, residual_dtype)
+        ctx.save_for_backward(xs, *w, h0, hh0, hs, cs, hycs, hyhs, masks,
+                              seed, x_bias, x_bias_hyper)
+        ctx.forget_bias, ctx.keep_prob = forget_bias, keep_prob
+        return hs, cT, hT, hcT, hhT
+
+    @staticmethod
+    def backward(ctx, dhs, dcT, dhT, dhcT, dhhT):
+        xs, *saved = ctx.saved_tensors
+        w = HyperWeights(*saved[:_NW])
+        (h0, hh0, hs, cs, hycs, hyhs, masks, seed, x_bias,
+         x_bias_hyper) = saved[_NW:]
+        dxs, dxb, dxbh, dw, dc0, dh0, dhc0, dhh0 = hyper_lstm_bwd(
+            xs, w, h0, hh0, hs, cs, hycs, hyhs, dhs.contiguous(),
+            dcT.contiguous(), dhT.contiguous(), dhcT.contiguous(),
+            dhhT.contiguous(), ctx.forget_bias, masks, seed, ctx.keep_prob,
+            x_bias, x_bias_hyper)
+        return (dxs, *dw, dc0, dh0, dhc0, dhh0, None, None, dxb, dxbh,
+                None, None, None)
+
+
+def fused_hyper_lstm(xs, wx, b, wh, wxh_x, wxh_h, bh, whh, w_hz_x, b_hz_x,
+                     w_hz_h, b_hz_h, w_hz_b, zd_x, zd_h, zd_b, ln_gamma,
+                     ln_beta, lnc_gamma, lnc_beta, c0, h0, hc0, hh0,
+                     forget_bias: float = 1.0,
+                     masks: Optional[torch.Tensor] = None,
+                     dropout_seed=None, keep_prob: float = 1.0,
+                     residual_dtype=None,
+                     x_bias: Optional[torch.Tensor] = None,
+                     x_bias_hyper: Optional[torch.Tensor] = None):
+    """Fused HyperLSTM (layer-norm variant) over ``xs [T, B, D]``; the
+    weights as :class:`HyperWeights` describes them, carries ``c0, h0 [B,
+    H]`` and ``hc0, hh0 [B, HH]``. ``x_bias [B, 4H]`` is added to the
+    input projection BEFORE the hyper scaling and ``x_bias_hyper [B,
+    4HH]`` to the auxiliary LSTM's pre-activations: pass both or neither.
+    Dropout (``masks [T, B, H]`` or ``dropout_seed`` with ``keep_prob``)
+    masks the main candidate only. Returns ``(hs [T, B, H], ((cT, hT),
+    (hcT, hhT)))``, ``hs`` in ``residual_dtype``, the final carries
+    float32; every input is differentiated."""
+    w = HyperWeights(wx, b, wh, wxh_x, wxh_h, bh, whh, w_hz_x, b_hz_x,
+                     w_hz_h, b_hz_h, w_hz_b, zd_x, zd_h, zd_b, ln_gamma,
+                     ln_beta, lnc_gamma, lnc_beta)
+    _check_bias_pair(x_bias, x_bias_hyper)
+    _check_args(wx, wh, masks, dropout_seed, residual_dtype)
+    for n in HYPER_MATRICES:
+        if getattr(w, n).dtype != wx.dtype:
+            raise TypeError(f"{n} has dtype {getattr(w, n).dtype}, wx "
+                            f"{wx.dtype}: the HyperLSTM's matrices share "
+                            f"one of {WEIGHT_DTYPES}")
+    hs, cT, hT, hcT, hhT = _FusedHyperLSTM.apply(
+        xs, *w, c0, h0, hc0, hh0, masks, _as_seed(dropout_seed, xs),
+        x_bias, x_bias_hyper, forget_bias, keep_prob, residual_dtype)
+    return hs, ((cT, hT), (hcT, hhT))

@@ -10,8 +10,13 @@ The port of ``run_rnn``, ``final_hidden``, ``length_reverse_indices`` and
   backward go through the training kernels of ``ops/cuda_fused.py``
   (``_run_fused``, the port of the JAX package's dispatch of the same
   name). The encoder's LSTM takes ``fused_lstm_seq``, the LSTM decoder
-  ``fused_lstm`` and the LayerNorm-LSTM decoder ``fused_ln_lstm``, both
-  with their per-example ``x_bias``.
+  ``fused_lstm``, the LayerNorm-LSTM decoder ``fused_ln_lstm`` and the
+  HyperLSTM (decoder or encoder) ``fused_hyper_lstm``, each decoder with
+  its per-example ``x_bias`` (the HyperLSTM with a second one for its
+  auxiliary LSTM).
+
+Carries are the cells': ``(c, h)``, or ``((c, h), (hc, hh))`` for the
+HyperLSTM.
 
 Everything is time-major ``[T, B, D]``.
 """
@@ -24,7 +29,7 @@ import torch
 
 from sketch_rnn_tpu_torch.ops import cuda_fused as CF
 from sketch_rnn_tpu_torch.ops import linear as L
-from sketch_rnn_tpu_torch.ops.cells import LayerNormLSTMCell
+from sketch_rnn_tpu_torch.ops.cells import HyperLSTMCell, LayerNormLSTMCell
 from sketch_rnn_tpu_torch.utils import prng
 
 INT32_MAX = 2 ** 31 - 1
@@ -41,7 +46,12 @@ def _run_fused(cell, params, xs, carry0, rdrop_masks, reverse, rdrop_gen,
     back through the cast as float32). ``x_extra [B, E]`` (time-invariant
     inputs) is projected once into the per-example gate bias ``x_extra @
     wx[d_s:]`` (a plain product with float32 accumulation, as the JAX
-    package leaves it to XLA) while ``wx[:d_s]`` goes into the kernel."""
+    package leaves it to XLA) while ``wx[:d_s]`` goes into the kernel.
+    The HyperLSTM's auxiliary LSTM reads ``[x; h]``: its input weight
+    splits into the rows of the strokes (kernel), of ``x_extra`` (a
+    second per-example bias, ``x_extra @ hyper_wx[d_s:d_in]``) and of
+    ``h`` (kernel); the ``w_zd_*`` block projections, every bias and the
+    LN parameters stay float32."""
     masks = rdrop_masks
     seed, keep = None, 1.0
     if rdrop_gen is not None:
@@ -60,8 +70,27 @@ def _run_fused(cell, params, xs, carry0, rdrop_masks, reverse, rdrop_gen,
         d_s = xs.shape[-1]
         xb = L.matmul(x_extra, wx[d_s:], cd)
         wx = wx[:d_s]
-    c0, h0 = (c.contiguous() for c in carry0)
-    if isinstance(cell, LayerNormLSTMCell):
+    leaves = tuple(c.contiguous() for c in cell.carry_leaves(carry0))
+    if isinstance(cell, HyperLSTMCell):
+        hyper = params["hyper"]
+        d_in = hyper["wx"].shape[0] - cell.hidden_size
+        wxh = cast(hyper["wx"])
+        xbh = None
+        wxh_x = wxh[:d_in]
+        if x_extra is not None:
+            d_s = xs.shape[-1]
+            xbh = L.matmul(x_extra, wxh[d_s:d_in], cd)
+            wxh_x = wxh[:d_s]
+        hs, fin = CF.fused_hyper_lstm(
+            xs, wx, params["b"], wh, wxh_x, wxh[d_in:], hyper["b"],
+            cast(hyper["wh"]), cast(params["w_hz_x"]), params["b_hz_x"],
+            cast(params["w_hz_h"]), params["b_hz_h"],
+            cast(params["w_hz_b"]), params["w_zd_x"], params["w_zd_h"],
+            params["w_zd_b"], params["ln_gamma"], params["ln_beta"],
+            params["lnc_gamma"], params["lnc_beta"], *leaves,
+            cell.forget_bias, masks, seed, keep, residual_dtype, xb, xbh)
+    elif isinstance(cell, LayerNormLSTMCell):
+        c0, h0 = leaves
         hs, fin = CF.fused_ln_lstm(
             xs, wx, wh, params["ln_gamma"], params["ln_beta"],
             params["lnc_gamma"], params["lnc_beta"], c0, h0,
@@ -69,11 +98,13 @@ def _run_fused(cell, params, xs, carry0, rdrop_masks, reverse, rdrop_gen,
     elif seq_only and xb is None:
         # encoder: no final carry; xs and the zero carries are not
         # differentiated, so the sequence-only kernel serves
+        c0, h0 = leaves
         hs = CF.fused_lstm_seq(xs, wx, params["b"], wh, c0, h0,
                                cell.forget_bias, masks, seed, keep,
                                residual_dtype)
         fin = None
     else:
+        c0, h0 = leaves
         hs, fin = CF.fused_lstm(xs, wx, params["b"], wh, c0, h0,
                                 cell.forget_bias, masks, seed, keep,
                                 residual_dtype, xb)
@@ -130,7 +161,11 @@ def run_rnn(cell, params, xs: torch.Tensor, carry0: Optional[Any] = None,
 
 
 def final_hidden(cell, carry) -> torch.Tensor:
-    """The hidden state ``h`` of a cell's ``(c, h)`` carry."""
+    """The hidden state ``h`` of a cell's carry: ``(c, h)``, or the
+    HyperLSTM's ``((c, h), hyper_carry)``."""
+    head = carry[0]
+    if isinstance(head, tuple):
+        return head[1]
     return carry[1]
 
 

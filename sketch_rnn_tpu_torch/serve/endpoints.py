@@ -7,8 +7,10 @@ The port of ``sketch_rnn_tpu/serve/endpoints.py`` for the ``generate``,
 - ``complete``    — encode a stroke-3 ``prefix`` with the bidirectional
   encoder (posterior mean), seed the decoder carry by REPLAYING the
   prefix teacher-forced through the CUDA kernel
-  ``ops/cuda_decode.replay_chunk``, then decode the continuation through
-  the normal chunked pool.
+  ``ops/cuda_decode.replay_chunk`` (for the ``hyper`` decoder, which has
+  no decode kernel in either package, through a plain loop of cell steps:
+  the counterpart of the JAX package's replay scan), then decode the
+  continuation through the normal chunked pool.
 - ``reconstruct`` — encode a full sketch -> z = mu -> a plain decode
   conditioned on it.
 
@@ -154,26 +156,44 @@ def make_encode_step(model, hps: HParams, params):
       masking at ``t < seq_len``;
     - ``prev``: each row's LAST prefix stroke ``S_p``, the decode loop's
       first input.
+
+    ``carry_flat`` concatenates the carry's tensors in leaf order (``c,
+    h``, then the hyper cell's ``hc, hh``). The hyper decoder replays
+    through a plain loop of cell steps with the same masking.
     """
-    check_cell_kind(hps.dec_model)
-    cd = model.dec.compute_dtype
-    # the kernel's weight matrices in its weight dtype, cast once
-    dec_params = cast_weights(params["dec"], cd)
+    plain = hps.dec_model == "hyper"
+    cell = model.dec
+    cd = cell.compute_dtype
+    if not plain:
+        check_cell_kind(hps.dec_model)
+        # the kernel's weight matrices in its weight dtype, cast once
+        dec_params = cast_weights(params["dec"], cd)
 
     def fn(strokes, seq_len, labels):
         b = strokes.shape[0]
         x_tm = strokes.transpose(0, 1)                 # [E+1, B, 5]
         mu, _ = model.encode(params, x_tm[1:], seq_len)
-        c0, h0 = model.decoder_initial_carry(params, mu, b)
+        carry = cell.carry_leaves(
+            model.decoder_initial_carry(params, mu, b))
         extra = model._decoder_extra(params, mu, labels)
-        c, h = replay_chunk(
-            dec_params, c0.contiguous(), h0.contiguous(),
-            x_tm[:-1].contiguous(), extra, seq_len,
-            cell_kind=hps.dec_model, forget_bias=model.dec.forget_bias,
-            compute_dtype=cd)
+        if plain:
+            for s in range(x_tm.shape[0] - 1):
+                new_carry, _ = cell(
+                    params["dec"], cell.carry_from_leaves(carry),
+                    torch.cat([x_tm[s], extra], dim=-1))
+                live = (s < seq_len)[:, None]
+                carry = tuple(torch.where(live, new, old) for new, old in
+                              zip(cell.carry_leaves(new_carry), carry))
+        else:
+            c0, h0 = carry
+            carry = replay_chunk(
+                dec_params, c0.contiguous(), h0.contiguous(),
+                x_tm[:-1].contiguous(), extra, seq_len,
+                cell_kind=hps.dec_model, forget_bias=cell.forget_bias,
+                compute_dtype=cd)
         prev = strokes[torch.arange(b, device=strokes.device),
                        seq_len.long()]
-        return mu, torch.cat([c, h], dim=-1), prev
+        return mu, torch.cat(carry, dim=-1), prev
 
     return fn
 

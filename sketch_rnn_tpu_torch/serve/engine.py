@@ -3,9 +3,11 @@
 The port of ``sketch_rnn_tpu/serve/engine.py``'s serving core:
 
 - **One K-step chunk per dispatch.** Every dispatch advances all ``B``
-  slots by ``K`` decode steps through ONE launch of the hand-written
-  CUDA kernel ``ops/cuda_decode.decode_chunk``, which holds the carry,
-  the previous stroke and t/done on-chip across the K steps.
+  slots by ``K`` decode steps: for the ``lstm`` and ``layer_norm``
+  decoders through ONE launch of the hand-written CUDA kernel
+  ``ops/cuda_decode.decode_chunk``, which holds the carry, the previous
+  stroke and t/done on-chip across the K steps; for the ``hyper``
+  decoder through the plain chunk program (below).
 - **Slot scheduler.** A host-side queue admits pending requests into
   finished slots BETWEEN chunks, by pointing the slot at the request's
   row of the device-resident request pool and flagging it for
@@ -26,11 +28,26 @@ The JAX package's two chunk flavors (``hps.decode_kernel`` ``scan``, a
 ``lax.scan`` of the step, and ``pallas``, the fused Pallas kernel)
 compute the same math (``ops/pallas_decode.py``'s semantics contract).
 ``HParams`` accepts either name so sidecars load, and the port serves
-both through its one CUDA kernel; its metrics report ``decode_kernel:
-"cuda"``. The sampler is ``ops/cuda_decode.sample_mixture_rows``.
-Telemetry, fault points, SLO tracking, the metrics writer, static
-batching, pool padding, speculative decoding, value-paged params and hot
-swap come with later slices.
+the ``lstm`` and ``layer_norm`` decoders through its one CUDA kernel
+whatever the name; its metrics then report ``decode_kernel: "cuda"``.
+
+**The plain chunk program.** The JAX package has no decode kernel for
+the HyperLSTM (its Pallas kernel refuses the cell; the engine serves it
+with the scan). The port follows that design: ``dec_model == "hyper"``
+alone selects a chunk written in plain PyTorch, the counterpart of the
+scan body: ``K`` steps of ``model.decode_step`` -> mixture parameters ->
+``sample_mixture_rows`` -> the live/done masking, with the chunk's
+uniforms pre-drawn by ``make_uniforms`` (live steps are a prefix of the
+chunk, so ``fold_in(key, t0 + k)`` is the scan's in-loop draw on every
+live step). It makes no host synchronisation, so the depth-1 pipeline
+holds. Metrics report ``decode_kernel: "plain"``. It is no fallback:
+the other cells never take it, and they raise if their kernel cannot
+launch.
+
+The sampler is ``ops/cuda_decode.sample_mixture_rows``. Telemetry, fault
+points, SLO tracking, the metrics writer, static batching, pool padding,
+speculative decoding, value-paged params and hot swap come with later
+slices.
 """
 
 from __future__ import annotations
@@ -44,10 +61,12 @@ import numpy as np
 import torch
 
 from sketch_rnn_tpu_torch.config import HParams
+from sketch_rnn_tpu_torch.ops import mdn
 from sketch_rnn_tpu_torch.ops.cuda_decode import (cast_weights,
                                                   check_cell_kind,
                                                   decode_chunk,
                                                   make_uniforms,
+                                                  sample_mixture_rows,
                                                   weight_dtype)
 from sketch_rnn_tpu_torch.sample.sampler import END_TOKEN, START_TOKEN
 from sketch_rnn_tpu_torch.utils.device import resolve_device, tree_to
@@ -116,7 +135,9 @@ def make_chunk_step(model, hps: HParams, chunk: int, params,
     """Build the fixed-shape K-step decode program.
 
     ``fn(carry, prev, t, done, reset, slot_idx, pool) -> (carry, prev, t,
-    done, strokes [K, B, 5])``.
+    done, strokes [K, B, 5])``; ``carry`` is the decoder carry's tensors
+    in leaf order (``cell.carry_leaves``: two, or four for the hyper
+    cell).
 
     ``pool`` is the device-resident REQUEST POOL (``[N, ...]`` tensors
     of every request's key words, z, label, temperature, step cap and
@@ -126,14 +147,18 @@ def make_chunk_step(model, hps: HParams, chunk: int, params,
     re-initializes their carry (``tanh(z @ W + b)``, or the replayed
     carry of a planned ``complete`` request), previous stroke, step
     count and done flag — the JAX prologue, op for op — then runs the
-    chunk as one ``decode_chunk`` launch. Done slots are frozen: they
+    chunk as one ``decode_chunk`` launch, or for the hyper cell as the
+    plain chunk program (module docstring). Done slots are frozen: they
     emit END_TOKEN rows and keep their carry.
     """
-    check_cell_kind(hps.dec_model)
-    cd = model.dec.compute_dtype
-    # the kernel's weight matrices in its weight dtype, cast once
-    dec_params = cast_weights(params["dec"], cd)
-    out_w = params["out_w"].to(weight_dtype(cd))
+    plain = hps.dec_model == "hyper"
+    cell = model.dec
+    cd = cell.compute_dtype
+    if not plain:
+        check_cell_kind(hps.dec_model)
+        # the kernel's weight matrices in its weight dtype, cast once
+        dec_params = cast_weights(params["dec"], cd)
+        out_w = params["out_w"].to(weight_dtype(cd))
     num_mixture = hps.num_mixture
     # START/END rows per device, copied once: a host->device copy inside
     # the chunk would wait for the card and break the pipelining
@@ -155,21 +180,42 @@ def make_chunk_step(model, hps: HParams, chunk: int, params,
         # on-device admission: freshly admitted slots start from the
         # request's initial state (computed for all slots; the reset
         # mask keeps live slots' carries)
-        carry0 = model.decoder_initial_carry(params, z, b, device=dev)
+        carry0 = cell.carry_leaves(
+            model.decoder_initial_carry(params, z, b, device=dev))
         start = start_row.expand(b, 5)
         if pool_init_carry is not None:
             use = pool_init_mask[slot_idx][:, None]
-            planned = model.dec.unflatten_carry(pool_init_carry[slot_idx])
+            planned = cell.carry_leaves(
+                cell.unflatten_carry(pool_init_carry[slot_idx]))
             carry0 = tuple(torch.where(use, p, d)
                            for p, d in zip(planned, carry0))
             start = torch.where(use, pool_init_prev[slot_idx], start)
-        c0, h0 = (torch.where(reset[:, None], new, old)
-                  for new, old in zip(carry0, carry))
+        carry = tuple(torch.where(reset[:, None], new, old)
+                      for new, old in zip(carry0, carry))
         prev = torch.where(reset[:, None], start, prev)
         t = torch.where(reset, torch.zeros_like(t), t)
         done = done & ~reset
-        extra = model._decoder_extra(params, z, labels)
         u = make_uniforms(key_data, t, chunk)
+        if plain:
+            strokes = []
+            for k in range(chunk):
+                new_carry, raw = model.decode_step(
+                    params, cell.carry_from_leaves(carry), prev, z, labels)
+                mp = mdn.get_mixture_params(raw, num_mixture)
+                stroke, _ = sample_mixture_rows(mp, u[k], temps, greedy)
+                live = ~done
+                stroke = torch.where(live[:, None], stroke, end_row[None])
+                carry = tuple(torch.where(live[:, None], new, old)
+                              for new, old in zip(
+                                  cell.carry_leaves(new_carry), carry))
+                t = t + live.to(t.dtype)
+                done = done | (stroke[:, 4] > 0.5) | (live
+                                                      & (t >= max_steps))
+                prev = stroke
+                strokes.append(stroke)
+            return carry, prev, t, done, torch.stack(strokes)
+        c0, h0 = carry
+        extra = model._decoder_extra(params, z, labels)
         strokes, c, h, t, done = decode_chunk(
             dec_params, out_w, params["out_b"], c0, h0, prev, extra, u,
             temps, t, done, max_steps, end_row, cell_kind=hps.dec_model,
@@ -354,7 +400,8 @@ class ServeEngine:
 
         # device-resident loop state (an opaque round-trip); the host owns
         # only the two [B] scheduling vectors
-        carry = self.model.dec.initial_carry(nslots, device=dev)
+        carry = self.model.dec.carry_leaves(
+            self.model.dec.initial_carry(nslots, device=dev))
         prev = START_TOKEN.to(dev).expand(nslots, 5).contiguous()
         t_dev = torch.zeros((nslots,), dtype=torch.int32, device=dev)
         done_dev = torch.ones((nslots,), dtype=torch.bool, device=dev)
@@ -501,5 +548,6 @@ class ServeEngine:
             "latency_p50_s": round(float(np.percentile(lat, 50)), 6),
             "latency_p95_s": round(float(np.percentile(lat, 95)), 6),
             "latency_p99_s": round(float(np.percentile(lat, 99)), 6),
-            "decode_kernel": "cuda",
+            "decode_kernel": "plain" if self.hps.dec_model == "hyper"
+            else "cuda",
         }}

@@ -35,10 +35,6 @@ _LATER = "comes with a later slice of the PyTorch port"
 
 def check_trainable(hps: HParams) -> None:
     """Refuse, by name, the training requests this slice does not serve."""
-    if "hyper" in (hps.dec_model, hps.enc_model):
-        raise NotImplementedError(
-            "the hyper cell (fused_hyper_lstm) comes with the next slice "
-            "of the PyTorch port; train dec_model=lstm or layer_norm")
     if not hps.fused_rnn:
         raise NotImplementedError(
             f"fused_rnn=false in training (its scan path draws bernoulli "

@@ -390,3 +390,153 @@ def test_engine_on_card_matches_cpu(dev):
         assert a.steps == r.steps
         np.testing.assert_array_equal(a.strokes5[:, 2:], r.strokes5[:, 2:])
         assert float(np.abs(a.strokes5 - r.strokes5).max()) <= TOL
+
+
+# -- the HyperLSTM kernels ----------------------------------------------------
+
+
+def _hyper_inputs(h, hh, e, dev, biases, mode, wdt=torch.float32, seed=0):
+    """HyperLSTM weights, inputs, carries and dropout operands on ``dev``;
+    every projection dense so every gradient is live."""
+    from sketch_rnn_tpu_torch.ops import cuda_fused as cf
+
+    g = torch.Generator().manual_seed(seed)
+    f = lambda *s, sc=1.0: (torch.randn(s, generator=g) * sc).to(dev)
+    w = cf.HyperWeights(
+        wx=f(FD, 4 * h, sc=0.4), b=f(4 * h, sc=0.1), wh=f(h, 4 * h, sc=0.25),
+        wxh_x=f(FD, 4 * hh, sc=0.4), wxh_h=f(h, 4 * hh, sc=0.25),
+        bh=f(4 * hh, sc=0.1), whh=f(hh, 4 * hh, sc=0.25),
+        w_hz_x=f(hh, 4 * e, sc=0.2), b_hz_x=1 + f(4 * e, sc=0.1),
+        w_hz_h=f(hh, 4 * e, sc=0.2), b_hz_h=1 + f(4 * e, sc=0.1),
+        w_hz_b=f(hh, 4 * e, sc=0.2), zd_x=0.1 / e + f(4, e, h, sc=0.05),
+        zd_h=0.1 / e + f(4, e, h, sc=0.05), zd_b=f(4, e, h, sc=0.05),
+        ln_gamma=1 + f(4, h, sc=0.1), ln_beta=f(4, h, sc=0.1),
+        lnc_gamma=1 + f(h, sc=0.1), lnc_beta=f(h, sc=0.1))
+    w = w._replace(**{n: getattr(w, n).to(wdt) for n in cf.HYPER_MATRICES})
+    d = {"xs": f(FT, FB, FD), "c0": f(FB, h, sc=0.3), "h0": f(FB, h, sc=0.3),
+         "hc0": f(FB, hh, sc=0.3), "hh0": f(FB, hh, sc=0.3),
+         "x_bias": f(FB, 4 * h, sc=0.3) if biases else None,
+         "x_bias_hyper": f(FB, 4 * hh, sc=0.3) if biases else None,
+         "w_out": f(FT, FB, h, sc=0.1)}
+    masks = seed_t = None
+    if mode == "masks":
+        masks = ((torch.rand((FT, FB, h), generator=g) < 0.9).float()
+                 / 0.9).to(dev)
+    elif mode == "seed":
+        seed_t = torch.tensor(4242, dtype=torch.int32, device=dev)
+    return w, d, masks, seed_t
+
+
+def _run_hyper(w, d, masks, seed, rdt=None):
+    """Forward and every gradient through the autograd Function (the
+    kernels on CUDA tensors, the plain versions on CPU tensors)."""
+    from sketch_rnn_tpu_torch.ops import cuda_fused as cf
+
+    keep = 0.9 if seed is not None else 1.0
+    leaves = {n: getattr(w, n).detach().float().requires_grad_(True)
+              for n in cf.HyperWeights._fields}
+    cast = lambda n: leaves[n].to(getattr(w, n).dtype)
+    p = {k: v.detach().requires_grad_(True) for k, v in d.items()
+         if v is not None and k != "w_out"}
+    hs, ((cT, hT), (hcT, hhT)) = cf.fused_hyper_lstm(
+        p["xs"], *(cast(n) for n in cf.HyperWeights._fields), p["c0"],
+        p["h0"], p["hc0"], p["hh0"], 1.0, masks, seed, keep, rdt,
+        p.get("x_bias"), p.get("x_bias_hyper"))
+    outs = (hs, cT, hT, hcT, hhT)
+    loss = (hs.float() * d["w_out"]).sum() + cT.sum() + 0.5 * hT.sum() \
+        + 0.3 * hcT.sum() + 0.7 * hhT.sum()
+    loss.backward()
+    return outs, [x.grad for x in (*leaves.values(), *p.values())]
+
+
+def _hold_hyper(w, d, masks, seed, tol, rdt=None):
+    from sketch_rnn_tpu_torch.ops import cuda_fused as cf
+
+    before = cf.launch_counts()
+    outs, grads = _run_hyper(w, d, masks, seed, rdt)
+    again, grads2 = _run_hyper(w, d, masks, seed, rdt)
+    torch.cuda.synchronize()
+    after = cf.launch_counts()
+    for k in ("fused_hyper_lstm_fwd", "fused_hyper_lstm_bwd"):
+        assert after[k] == before[k] + 2
+    for a, b in zip(outs + tuple(grads), again + tuple(grads2)):
+        assert torch.equal(a, b)            # identical run to run
+    cpu = lambda x: None if x is None else x.cpu()
+    want_outs, want_grads = _run_hyper(
+        cf.HyperWeights(*(x.cpu() for x in w)),
+        {k: cpu(v) for k, v in d.items()}, cpu(masks), cpu(seed), rdt)
+    for a, b in zip(outs + tuple(grads), want_outs + tuple(want_grads)):
+        assert a.dtype == b.dtype
+        a, b = a.detach().cpu().float(), b.detach().float()
+        assert float((a - b).abs().max()) <= tol * max(
+            1.0, float(b.abs().max()))
+
+
+@pytest.mark.parametrize("h,hh,e,biases,mode", [
+    (16, 32, 8, True, "seed"), (16, 32, 8, False, "none"),
+    (40, 8, 4, True, "masks"), (40, 8, 4, False, "seed"),
+    (24, 24, 3, True, "none")])
+def test_hyper_kernels_match_plain_versions(dev, h, hh, e, biases, mode):
+    """``fused_hyper_lstm`` forward and backward against their plain
+    versions on the same tensors: hs, the four final carries and every
+    gradient. H=16/HH=32 has the auxiliary LSTM (and 4e) wider than the
+    main one, H=40/HH=8 leaves part of the last warp idle."""
+    w, d, masks, seed = _hyper_inputs(h, hh, e, dev, biases, mode)
+    _hold_hyper(w, d, masks, seed, TOL)
+
+
+@pytest.mark.parametrize("h,hh,e,wdt,rdt", [
+    (16, 32, 8, torch.bfloat16, torch.bfloat16),
+    (40, 8, 4, torch.bfloat16, torch.float32),
+    (40, 8, 4, torch.float32, torch.bfloat16)])
+def test_hyper_kernels_bf16_match_plain_versions(dev, h, hh, e, wdt, rdt):
+    w, d, masks, seed = _hyper_inputs(h, hh, e, dev, True, "seed", wdt)
+    _hold_hyper(w, d, masks, seed, BF_TOL, rdt)
+
+
+def test_hyper_wrappers_refuse_bad_inputs(dev):
+    from sketch_rnn_tpu_torch.ops import cuda_fused as cf
+
+    w, d, _, _ = _hyper_inputs(16, 32, 8, dev, True, "none")
+    car = (d["c0"], d["h0"], d["hc0"], d["hh0"])
+    before = cf.launch_counts()
+    for bad in (w._replace(zd_x=w.zd_x.to(torch.bfloat16)),
+                w._replace(whh=w.whh[:, :100].contiguous()),
+                w._replace(b=w.b.cpu()),
+                w._replace(w_hz_b=w.w_hz_b.t().contiguous().t())):
+        with pytest.raises((ValueError, TypeError)):
+            cf.hyper_lstm_fwd(d["xs"], bad, *car)
+    with pytest.raises(ValueError, match="both x_bias"):
+        cf.hyper_lstm_fwd(d["xs"], w, *car, x_bias=d["x_bias"])
+    with pytest.raises(ValueError):
+        cf.hyper_lstm_fwd(d["xs"], w, *car, x_bias=d["x_bias"],
+                          x_bias_hyper=d["x_bias"])
+    assert cf.launch_counts() == before
+
+
+def test_hyper_engine_on_card_matches_cpu(dev):
+    """The plain chunk program on the card against the same burst on the
+    CPU; no decode kernel launches for the hyper cell."""
+    hps, model, params = _model("hyper", True, dev)
+    hps = hps.replace(hyper_rnn_size=8, hyper_embed_size=4)
+    model = SketchRNN(hps)
+    params = model.init_params(torch.Generator().manual_seed(0), device=dev)
+    rng = np.random.default_rng(0)
+    z = rng.normal(size=(6, hps.z_size)).astype(np.float32)
+
+    def burst(device, p):
+        reqs = [Request(key=prng.fold_in(prng.key(8), i), z=z[i],
+                        temperature=0.8, max_len=10) for i in range(6)]
+        out = ServeEngine(model, hps, p, device=device).run(reqs)
+        assert out["metrics"]["decode_kernel"] == "plain"
+        return {r.uid: r for r in out["results"]}
+
+    before = cd.decode_chunk_launches
+    card = burst(None, params)
+    assert cd.decode_chunk_launches == before
+    cpu = burst("cpu", tree_to(params, "cpu"))
+    for uid, r in cpu.items():
+        a = card[uid]
+        assert a.steps == r.steps
+        np.testing.assert_array_equal(a.strokes5[:, 2:], r.strokes5[:, 2:])
+        assert float(np.abs(a.strokes5 - r.strokes5).max()) <= TOL

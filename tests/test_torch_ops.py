@@ -87,11 +87,6 @@ def test_cell_step(kind):
     assert cell.carry_size == jcell.carry_size == 32
 
 
-def test_hyper_cell_refused_by_name():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        cells.make_cell("hyper", 16)
-
-
 def test_get_mixture_params():
     raw = RNG.normal(0, 2, (3, 4, 6 * 5 + 3)).astype(np.float32)
     jmp = jmdn.get_mixture_params(jnp.asarray(raw), 5)

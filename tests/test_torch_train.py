@@ -423,7 +423,6 @@ def test_train_loop_keys_and_rows():
 
 
 @pytest.mark.parametrize("over,match", [
-    ("dec_model=hyper", "next slice"),
     ("fused_rnn=false", "later slice"),
     ("use_input_dropout=true", "later slice"),
     ("use_output_dropout=true", "later slice"),

@@ -75,8 +75,34 @@ without the final line. With no CUDA device it exits 2 at once.
    this cell either): the same burst as in 4, ``decode_kernel`` reported
    as ``plain``, no ``decode_chunk``/``replay_chunk`` launch; a small
    burst against the CPU; a profiled 64-request burst.
-12. the kernels line (ten kernels), the ``nvidia-smi`` line, and the
-   result line.
+12. lstm_seq — the cuDNN-layout LSTM with its reserve space
+   (``ops/cuda_lstm.py``, ``csrc/lstm_seq.cu``) at the ``vae`` decoder's
+   full width (B=100, T=250, H=512; ``xp`` projected from ``[x; z]``,
+   D=133; nonzero carries; masks from ``make_dropout_masks`` at keep
+   0.9): forward and backward against their plain versions (1e-4
+   relative), identical run to run, timed beside the bound and cuDNN's
+   LSTM. Then its main path, ``hoisted_lstm``: the decoder's loss and
+   gradients through the public ``lstm_seq`` with its counters zeroed
+   just before and read just after (one launch each way), against the
+   same loss through the plain ``run_rnn(hoist=True)``.
+13. train_plain — the ``vae`` preset exactly as it says, ``fused_rnn=
+   false`` (the plain cell loop under autograd, recurrent dropout from
+   ``(key, t)``), float32, full width: 1 warm-up step, then 2 timed
+   steps with every training kernel's counter zeroed just before and
+   read just after, all 0; one step without dropout against the same
+   step through the kernels; one small ``layer_norm`` step on the card
+   against the CPU; two steps profiled (device time by kernel, busy
+   share).
+14. probes — ``dual_seq_fwd`` and ``seq_fwd`` (``csrc/probe_seq.cu``,
+   ``sketch_rnn_tpu_torch/scripts/probe_*.py``) against their plain
+   versions at the probes' shape, B=4096, T=250, H=256 (1e-2 relative;
+   the dual forward and the float32-gates arm bit for bit the
+   ``fused_lstm_seq`` forward), timed beside cuDNN's bfloat16 LSTM
+   forward (bidirectional for the dual); then each probe's A/B (its
+   ``run_probe``) with 4 calls per timing and 3 reps, counters zeroed
+   just before and read just after, its record on one line.
+15. the kernels line (fourteen kernels), the ``nvidia-smi`` line, and
+   the result line.
 
 Random serving weights carry the pen-suppression sentinel ``out_b[2] =
 -1e9`` (an untrained model ends a sketch after a few steps) and requests
@@ -521,6 +547,8 @@ HYPER_REPLACES = {
     "fused_hyper_lstm_fwd": "sketch_rnn_tpu/ops/pallas_fused.py:1246",
     "fused_hyper_lstm_bwd": "sketch_rnn_tpu/ops/pallas_fused.py:1297",
 }
+LSTM_SEQ_SRC = "sketch_rnn_tpu_torch/csrc/lstm_seq.cu"
+PROBE_SRC = "sketch_rnn_tpu_torch/csrc/probe_seq.cu"
 # training kernels vs their plain versions on the card, as the largest
 # error of each output relative to that output's largest magnitude.
 # float32: both sum 256/512-term (and, for the weight gradients,
@@ -1105,14 +1133,17 @@ def train_main_path(card, hps, phase, label, per_step, steps, warm,
                     falling=False):
     """A training main path: ``train/loop.train`` at full width, a
     ``warm``-step warm-up run, then a ``steps``-step run from the same
-    weights, timed, with the kernels' launch counters zeroed just before
-    and read just after; ``per_step``: the launches each step must make;
+    weights, timed, with the training kernels' launch counters
+    (``cuda_fused``, ``cuda_lstm``) zeroed just before and read just
+    after; ``per_step``: the launches each step must make (any other
+    count must read 0);
     ``falling``: the last loss must lie under the first."""
     import math
 
     import torch
 
     from sketch_rnn_tpu_torch.ops import cuda_fused as CF
+    from sketch_rnn_tpu_torch.ops import cuda_lstm as CL
     from sketch_rnn_tpu_torch.train.loop import train
 
     hps, model, params, loader = setup(hps)
@@ -1120,12 +1151,13 @@ def train_main_path(card, hps, phase, label, per_step, steps, warm,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     CF.reset_launch_counts()
+    CL.reset_launch_counts()
     t0 = time.perf_counter()
     state, rows = train(hps, loader, seed=0, num_steps=steps,
                         params=params, device=DEV)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = CF.launch_counts()
+    launches = {**CF.launch_counts(), **CL.launch_counts()}
     want = {k: per_step.get(k, 0) * steps for k in launches}
     if launches != want:
         raise AssertionError(f"training kernel launches {launches}, "
@@ -1212,11 +1244,6 @@ def train_reference(hps_fn, dt, hps, model, loader, state):
     main path's final state (Adam's moments carry history there, so an
     update is not the sign of a first gradient). Then one small step on
     the card against the same step on the CPU."""
-    import torch
-
-    from sketch_rnn_tpu_torch.data.loader import synthetic_loader
-    from sketch_rnn_tpu_torch.models.vae import SketchRNN
-    from sketch_rnn_tpu_torch.train.state import make_train_state
     from sketch_rnn_tpu_torch.train.step import make_train_step
     from sketch_rnn_tpu_torch.utils import prng
 
@@ -1232,6 +1259,24 @@ def train_reference(hps_fn, dt, hps, model, loader, state):
                    dec_rnn_size=32, z_size=8, num_mixture=3,
                    **({"num_classes": 5, "class_embed_size": 4}
                       if hps.num_classes else {}), **dtype_over(dt))
+    vs_cpu = small_step_vs_cpu(small, dt)
+    log("train_reference", dec_model=hps.dec_model, dtype=dt,
+        step=state.step, kernels_vs_plain=full, small_card_vs_cpu=vs_cpu,
+        rel_tol=STEP_TOL[dt][0], update_tol=STEP_TOL[dt][1])
+
+
+def small_step_vs_cpu(small, dt):
+    """One step of the small model ``small`` on the card against the same
+    step (state with one step of history, batch, key) on the CPU, held
+    within STEP_TOL; returns the gaps."""
+    import torch
+
+    from sketch_rnn_tpu_torch.data.loader import synthetic_loader
+    from sketch_rnn_tpu_torch.models.vae import SketchRNN
+    from sketch_rnn_tpu_torch.train.state import make_train_state
+    from sketch_rnn_tpu_torch.train.step import make_train_step
+    from sketch_rnn_tpu_torch.utils import prng
+
     sm = SketchRNN(small)
     params = sm.init_params(torch.Generator().manual_seed(4), device="cpu")
     sl, _ = synthetic_loader(small, num=64, seed=4)
@@ -1242,10 +1287,8 @@ def train_reference(hps_fn, dt, hps, model, loader, state):
     on_card = make_train_step(sm, small, device=DEV)(state_to(st, DEV),
                                                      batch, key)
     vs_cpu = compare_steps(st, on_card, on_cpu)
-    hold_step("small step, card vs CPU", vs_cpu, dt)
-    log("train_reference", dec_model=hps.dec_model, dtype=dt,
-        step=state.step, kernels_vs_plain=full, small_card_vs_cpu=vs_cpu,
-        rel_tol=STEP_TOL[dt][0], update_tol=STEP_TOL[dt][1])
+    hold_step(f"small {small.dec_model} step, card vs CPU", vs_cpu, dt)
+    return vs_cpu
 
 
 def profile_train(hps, loader, state, preset="quickdraw345_dp"):
@@ -1283,6 +1326,379 @@ def profile_train(hps, loader, state, preset="quickdraw345_dp"):
               / 1e3, "count": e.count} for e in top])
 
 
+# -- the hoisted LSTM, the probes, the plain training path -----------------
+
+# one step of the plain cell path (fused_rnn=false) against the same step
+# through the kernels (fused_rnn=true), recurrent dropout off: the same
+# function summed in other orders (cuBLAS products and torch's gate ops
+# against the kernels' chains), float32 rounding carried through 250
+# steps and Adam's normalisation. Loss and grad norm relative, the
+# parameter update absolute (lr = 1e-3).
+PATH_TOL = (1e-4, 1e-5)
+PLAIN_STEPS = 2
+# the probes: their kernels against the plain versions, then each probe's
+# A/B, at the probes' own shape with K calls per timing
+PROBE = dict(t=250, b=4096, h=256, d=5, k=4, reps=3)
+
+
+def vae_decoder_inputs():
+    """The ``vae`` preset's decoder operands at full width (B=100, T=250,
+    H=512, Nz=128): model, parameters, the teacher-forcing inputs and
+    targets of one synthetic batch, a seeded z, and recurrent-dropout
+    masks from ``make_dropout_masks`` at keep 0.9."""
+    import torch
+
+    from sketch_rnn_tpu_torch.ops.rnn import make_dropout_masks
+    from sketch_rnn_tpu_torch.train.step import batch_to_device
+    from sketch_rnn_tpu_torch.utils import prng
+
+    hps, model, params, loader = setup(vae_hps())
+    batch = batch_to_device(loader.next_batch(), DEV)
+    strokes = batch["strokes"].transpose(0, 1).float()
+    b, t, h = hps.batch_size, hps.max_seq_len, hps.dec_rnn_size
+    z = torch.randn((b, hps.z_size),
+                    generator=torch.Generator().manual_seed(19)).to(DEV)
+    masks = make_dropout_masks(prng.key(21).to(DEV), KEEP, t, b, h)
+    return (hps, model, params, strokes[:-1].contiguous(),
+            strokes[1:].contiguous(), z, masks)
+
+
+def check_hoisted_lstm(rows):
+    """lstm_seq forward and backward (``csrc/lstm_seq.cu``) at the
+    ``vae`` decoder's full width: ``xp = LSTMCell.precompute_inputs`` over
+    ``[x; z]`` (D=133), the decoder's nonzero initial carry, masks from
+    ``make_dropout_masks`` at keep 0.9, seeded cotangents. Every output
+    within FUSED_TOL of the plain version (relative to its largest
+    magnitude), identical run to run. cuDNN's LSTM over the same ``[x;
+    z]`` is the yardstick; it also computes the input projection, which
+    lstm_seq takes precomputed."""
+    import torch
+
+    from sketch_rnn_tpu_torch.ops import cuda_lstm as CL
+
+    hps, model, params, x_in, _, z, masks = vae_decoder_inputs()
+    cell, dp = model.dec, params["dec"]
+    t, b, _ = x_in.shape
+    h = cell.hidden_size
+    x_full = torch.cat([x_in, z[None].expand(t, b, -1)], -1)
+    xp = cell.precompute_inputs(dp, x_full).contiguous()
+    c0, h0 = (x.contiguous() for x in
+              model.decoder_initial_carry(params, z, b))
+    g = torch.Generator().manual_seed(23)
+    cot = lambda *s: (0.01 * torch.randn(s, generator=g)).to(DEV)
+    dhs, dcT, dhT = cot(t, b, h), cot(b, h), cot(b, h)
+    wh, fb, dt = dp["wh"], cell.forget_bias, "float32"
+    fwd = lambda: CL.lstm_seq_fwd(xp, wh, c0, h0, fb, masks)
+    fwd_plain = lambda: CL.lstm_seq_fwd_plain(xp, wh, c0, h0, fb, masks)
+    out = fwd()
+    hs, _, _, gates, cs = out
+    h_prev = torch.cat([h0[None], hs[:-1]])
+    bwd = lambda: CL.lstm_seq_bwd(wh, gates, cs, hs, h0, masks, dhs, dcT,
+                                  dhT)
+    bwd_plain = lambda: CL.lstm_seq_bwd_plain(wh, gates, cs, h_prev, masks,
+                                              dhs, dcT, dhT)
+    grads = bwd()
+    flops = 2 * t * b * h * 4 * h
+    for name, run, plain, got, names, iters, fl, moved in (
+            ("lstm_seq_fwd", fwd, fwd_plain, out,
+             ("hs", "cT", "hT", "gates", "cs"), 10, flops,
+             nbytes(xp, wh, c0, h0, masks, *out)),
+            ("lstm_seq_bwd", bwd, bwd_plain, grads,
+             ("dxp", "dwh", "dc0", "dh0"), 5, 2 * flops,
+             nbytes(wh, gates, cs, hs, h0, masks, dhs, dcT, dhT, *grads))):
+        again = run()
+        torch.cuda.synchronize()
+        ab, rel, per = rel_errs(names, got, plain())
+        det = all(torch.equal(x, y) for x, y in zip(got, again))
+        if not (rel <= FUSED_TOL[dt] and det):
+            raise AssertionError(f"{name}: rel err {rel} (tol "
+                                 f"{FUSED_TOL[dt]}), per output {per}, "
+                                 f"deterministic {det}")
+        bms, by = bound_ms(fl, moved, dt)
+        rows[name] = {dt: {"err": ab, "rel_err": rel, "errs": per,
+                           "deterministic": det,
+                           "ms": cuda_ms(run, iters),
+                           "plain_ms": cuda_ms(plain, 2), "bound_ms": bms,
+                           "bound_by": by, "library_ms": None}}
+        log("kernel", name=name, dtype=dt, T=t, B=b, H=h, tol=FUSED_TOL[dt],
+            flops=fl, bytes=moved, **rows[name][dt])
+
+    lstm = cudnn_lstm(dp["wx"], wh, dp["b"], fb, torch.float32)
+    leaves = [x.detach().clone().requires_grad_(True)
+              for x in (x_full, h0, c0)]
+    lib_fwd, lib_bwd, lib_out = library_times(lstm, *leaves, dhs, leaves)
+    lib_err = float((lib_out - CL.lstm_seq_fwd(xp, wh, c0, h0, fb)[0])
+                    .abs().max())
+    if not lib_err <= FUSED_TOL[dt]:
+        raise AssertionError(f"cuDNN LSTM vs lstm_seq: {lib_err}")
+    rows["lstm_seq_fwd"][dt]["library_ms"] = lib_fwd
+    rows["lstm_seq_bwd"][dt]["library_ms"] = lib_bwd
+    log("kernel_library", name="lstm_seq", dtype=dt,
+        library="torch.nn.LSTM (cuDNN, float32) over [x; z], D=133, TF32 "
+                "off; it also computes the input projection that lstm_seq "
+                "takes precomputed", fwd_ms=lib_fwd, bwd_ms=lib_bwd,
+        err_vs_kernel_no_dropout=lib_err)
+
+
+def hoisted_main_path(card):
+    """lstm_seq's main path: the ``vae`` decoder's teacher-forced loss and
+    its gradients in the cuDNN layout at full width. The inputs of all
+    steps are projected at once (``LSTMCell.precompute_inputs`` over
+    ``[x; z]``), ``ops/cuda_lstm.lstm_seq`` (the public autograd
+    Function) runs the recurrence from the decoder's initial carry with
+    masks from ``make_dropout_masks``, then the output projection and the
+    MDN reconstruction loss; the gradients of the decoder, output and
+    initial-state weights. lstm_seq's launch counters are zeroed just
+    before and read just after (one forward, one backward). The same loss
+    through the plain hoisted path, ``run_rnn(hoist=True)`` with the same
+    masks, must agree within FUSED_TOL."""
+    import math
+
+    import torch
+
+    from sketch_rnn_tpu_torch.ops import cuda_lstm as CL
+    from sketch_rnn_tpu_torch.ops import mdn
+    from sketch_rnn_tpu_torch.ops.rnn import run_rnn
+
+    hps, model, params, x_in, x_tgt, z, masks = vae_decoder_inputs()
+    cell = model.dec
+    t, b, _ = x_in.shape
+
+    def loss_and_grads(kernel):
+        dec = {k: v.detach().requires_grad_(True)
+               for k, v in params["dec"].items()}
+        top = {k: params[k].detach().requires_grad_(True)
+               for k in ("out_w", "out_b", "dec_init_w", "dec_init_b")}
+        p = {**params, **top, "dec": dec}
+        c0, h0 = model.decoder_initial_carry(p, z, b)
+        if kernel:
+            x_full = torch.cat([x_in, z[None].expand(t, b, -1)], -1)
+            hs, _ = CL.lstm_seq(cell.precompute_inputs(dec, x_full),
+                                dec["wh"], c0.contiguous(), h0.contiguous(),
+                                cell.forget_bias, masks)
+        else:
+            _, hs = run_rnn(cell, dec, x_in, (c0, h0), rdrop_masks=masks,
+                            hoist=True, x_extra=z)
+        mp = mdn.get_mixture_params(hs @ p["out_w"] + p["out_b"],
+                                    hps.num_mixture)
+        total = sum(mdn.reconstruction_loss(mp, x_tgt, hps.max_seq_len))
+        leaves = [*dec.values(), *top.values()]
+        return total.detach(), torch.autograd.grad(total, leaves)
+
+    def timed(kernel):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = loss_and_grads(kernel)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    timed(True)                        # warm-up
+    CL.reset_launch_counts()
+    (loss_k, grads_k), wall_k = timed(True)
+    launches = CL.launch_counts()
+    want = {"lstm_seq_fwd": 1, "lstm_seq_bwd": 1}
+    if launches != want:
+        raise AssertionError(f"lstm_seq launches {launches}, expected {want}")
+    (loss_p, grads_p), wall_p = timed(False)
+    loss_rel = abs(float(loss_k - loss_p)) / abs(float(loss_p))
+    grad_rel = max(float((a - c).abs().max()) / max(float(c.abs().max()),
+                                                    1e-30)
+                   for a, c in zip(grads_k, grads_p))
+    if not (math.isfinite(float(loss_k)) and loss_rel <= FUSED_TOL["float32"]
+            and grad_rel <= FUSED_TOL["float32"]):
+        raise AssertionError(f"hoisted path: loss {loss_k} vs {loss_p}, "
+                             f"grad rel err {grad_rel}")
+    log("hoisted_lstm", card=card,
+        preset=f"vae decoder (lstm, H={cell.hidden_size})",
+        batch=b, max_seq_len=t, launches=launches, loss=float(loss_k),
+        loss_rel_err=loss_rel, grad_rel_err=grad_rel, tol=FUSED_TOL[
+            "float32"], kernel_wall_ms=wall_k * 1e3,
+        plain_hoisted_wall_ms=wall_p * 1e3)
+    return launches
+
+
+def cudnn_bilstm(w, dtype):
+    """A bidirectional ``torch.nn.LSTM`` (cuDNN) holding the dual probe's
+    two directions, in ``dtype``: a yardstick only."""
+    import torch
+
+    fwd = cudnn_lstm(w["wx_f"].float(), w["wh_f"].float(), w["b_f"], 1.0,
+                     dtype)
+    bwd = cudnn_lstm(w["wx_b"].float(), w["wh_b"].float(), w["b_b"], 1.0,
+                     dtype)
+    d, g4 = w["wx_f"].shape
+    bi = torch.nn.LSTM(d, g4 // 4, bidirectional=True).to(DEV).to(dtype)
+    with torch.no_grad():
+        for suffix, src in (("", fwd), ("_reverse", bwd)):
+            for n in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
+                getattr(bi, f"{n}_l0{suffix}").copy_(getattr(src, f"{n}_l0"))
+    bi.flatten_parameters()
+    return bi
+
+
+def check_probes(card, rows):
+    """The two probe kernels (``csrc/probe_seq.cu``) at the probes' shape,
+    B=4096, T=250, H=256, D=5, with bfloat16 weights (the encoder's
+    initialisation) and residuals. Each against its plain version within
+    FUSED_TOL["bfloat16"] relative to each output's largest magnitude and
+    identical run to run; the dual forward and the float32-gates arm of
+    ``seq_fwd`` bit for bit the ``fused_lstm_seq`` forward kernel. The plain
+    versions are timed on the same inputs, cuDNN's bidirectional (dual)
+    and unidirectional (bf16 gates) LSTM forward, bfloat16, as the
+    yardsticks. Then each probe's A/B (``run_probe``, its main path) with
+    K=4 calls per timing and 3 reps, the probes' launch counters zeroed
+    just before and read just after, and its record on one line."""
+    import torch
+
+    from sketch_rnn_tpu_torch.ops import cuda_fused as CF
+    from sketch_rnn_tpu_torch.ops.cells import LSTMCell
+    from sketch_rnn_tpu_torch.scripts import probe_bf16_gates as PB
+    from sketch_rnn_tpu_torch.scripts import probe_dual_encoder as PD
+
+    dt, tol, bf = "bfloat16", FUSED_TOL["bfloat16"], torch.bfloat16
+    t, b, h, d = PROBE["t"], PROBE["b"], PROBE["h"], PROBE["d"]
+
+    def hold(name, run, plain, names):
+        got, again = run(), run()
+        torch.cuda.synchronize()
+        ab, rel, per = rel_errs(names, got, plain())
+        det = all(torch.equal(x, y) for x, y in zip(got, again))
+        if not (rel <= tol and det):
+            raise AssertionError(f"{name}: rel err {rel} (tol {tol}), per "
+                                 f"output {per}, deterministic {det}")
+        return got, {"err": ab, "rel_err": rel, "errs": per,
+                     "deterministic": det}
+
+    def bitwise(name, got, *pairs):
+        same = all(torch.equal(x, y) for x, y in zip(got, pairs))
+        if not same:
+            raise AssertionError(f"{name} is not bitwise the fused_lstm_seq "
+                                 f"forward")
+        return same
+
+    # the checks take the encoder's own initialisation (orthogonal wh):
+    # the probes' N(0, 0.1) weights make the recurrence chaotic at H=256,
+    # so a float32 rounding gap grows to O(1) over 250 steps whatever the
+    # kernel (measured on the CPU with the plain versions)
+    zc = torch.zeros((b, h), device=DEV)
+    xs, xs_rev, _ = PD.probe_inputs(t, b, h, d, 1, DEV)
+    enc = [LSTMCell(h).init_params(torch.Generator().manual_seed(s), d)
+           for s in (31, 32)]
+    w = {f"{n}_{k}": (p[n].to(bf) if n != "b" else p[n]).to(DEV)
+         for k, p in zip("fb", enc) for n in ("wx", "b", "wh")}
+    dargs = (xs[0], xs_rev[0], w["wx_f"], w["b_f"], w["wh_f"], w["wx_b"],
+             w["b_b"], w["wh_b"])
+    sargs = (xs[0], w["wx_f"], w["b_f"], w["wh_f"])
+    dual_plain = lambda: PD.dual_seq_fwd_plain(*dargs)
+    seq_plain = lambda: PB.seq_fwd_plain(*sargs, True)
+    out_d, r_dual = hold("dual_seq_fwd", lambda: PD.dual_seq_fwd(*dargs),
+                         dual_plain, ("hs_f", "cs_f", "hs_b", "cs_b"))
+    r_dual["bitwise_fused_lstm_seq"] = bitwise(
+        "dual_seq_fwd", out_d,
+        *CF.lstm_seq_fwd(*sargs, zc, zc, residual_dtype=bf),
+        *CF.lstm_seq_fwd(xs_rev[0], w["wx_b"], w["b_b"], w["wh_b"], zc, zc,
+                         residual_dtype=bf))
+    out_f, r_f32 = hold("seq_fwd(bf16_gates=False)",
+                        lambda: PB.seq_fwd(*sargs, False),
+                        lambda: PB.seq_fwd_plain(*sargs, False), ("hs", "cs"))
+    r_f32["bitwise_fused_lstm_seq"] = bitwise(
+        "seq_fwd(bf16_gates=False)", out_f,
+        *CF.lstm_seq_fwd(*sargs, zc, zc, residual_dtype=bf))
+    del out_f
+    out_s, r_seq = hold("seq_fwd(bf16_gates=True)",
+                        lambda: PB.seq_fwd(*sargs, True), seq_plain,
+                        ("hs", "cs"))
+    r_seq["f32_gates_arm"] = r_f32
+
+    one_dir = 2 * t * b * (d + h) * 4 * h
+    x_bf = xs[0].to(bf)
+    with torch.no_grad():
+        bi = cudnn_bilstm(w, bf)
+        uni = cudnn_lstm(w["wx_f"].float(), w["wh_f"].float(), w["b_f"], 1.0,
+                         bf)
+        lib = {"dual_seq_fwd": cuda_ms(lambda: bi(x_bf), 5),
+               "seq_fwd_bf16_gates": cuda_ms(lambda: uni(x_bf), 5)}
+    for name, r, plain, fl, moved in (
+            ("dual_seq_fwd", r_dual, dual_plain, 2 * one_dir,
+             nbytes(*dargs, *out_d)),
+            ("seq_fwd_bf16_gates", r_seq, seq_plain, one_dir,
+             nbytes(*sargs, *out_s))):
+        bms, by = bound_ms(fl, moved, dt)
+        r.update(plain_ms=cuda_ms(plain, 1), bound_ms=bms, bound_by=by,
+                 library_ms=lib[name])
+        rows[name] = {dt: r}
+        log("kernel", name=name, dtype=dt, T=t, B=b, H=h, D=d, tol=tol,
+            flops=fl, bytes=moved, **r,
+            library=f"torch.nn.LSTM (cuDNN, bfloat16"
+                    f"{', bidirectional' if name == 'dual_seq_fwd' else ''})"
+                    f" forward")
+    del out_d, out_s, bi, uni
+    torch.cuda.empty_cache()
+
+    # the A/B main paths at the probes' shape and weights
+    launches = {}
+    for name, mod, counter, ms in (
+            ("dual_seq_fwd", PD, "dual_seq_fwd", "dual_ms"),
+            ("seq_fwd_bf16_gates", PB, "seq_fwd", "bf16_gates_ms")):
+        mod.reset_launch_counts()
+        CF.reset_launch_counts()
+        rec = mod.run_probe(device=DEV, **PROBE)
+        launches[name] = mod.launch_counts()[counter]
+        if launches[name] == 0:
+            raise AssertionError(f"{name}: the probe launched no kernel")
+        log(rec["kind"], card=card, launches=launches[name],
+            fused_lstm_seq_fwd_launches=CF.launch_counts()[
+                "fused_lstm_seq_fwd"], record=rec)
+        rows[name][dt].update(ms=rec[ms], record=rec)
+    return launches
+
+
+def train_plain(card):
+    """The plain training path: the ``vae`` preset exactly as it says
+    (``fused_rnn=false``, float32, recurrent dropout at keep 0.9 drawn
+    from ``(key, t)``, full width, B=100, T=250) through ``train()``: 1
+    warm-up step, then 2 timed steps with every training kernel's counter
+    zeroed just before and read just after (all must read 0). Then, from
+    the final state, one step with recurrent dropout off on the plain path
+    against the same step through the kernels (``fused_rnn=true``): the
+    same function, held within PATH_TOL. Then one small ``layer_norm``
+    step at ``fused_rnn=false`` on the card against the CPU, and two
+    steps profiled as in train_profile."""
+    from sketch_rnn_tpu_torch.models.vae import SketchRNN
+    from sketch_rnn_tpu_torch.train.step import make_train_step
+    from sketch_rnn_tpu_torch.utils import prng
+
+    launches, (hps, model, loader, state) = train_main_path(
+        card, vae_hps(fused_rnn=False), "train_plain",
+        "vae (lstm decoder, fused_rnn=false as the preset says, float32)",
+        {}, PLAIN_STEPS, 1)
+    batch, key = loader.next_batch(), prng.fold_in(prng.key(13), state.step)
+    steps = []
+    for fused in (False, True):
+        hp = vae_hps(fused_rnn=fused, use_recurrent_dropout=False)
+        steps.append(make_train_step(SketchRNN(hp), hp, device=DEV)(
+            state, batch, key))
+    paths = compare_steps(state, *steps)
+    rel_tol, upd_tol = PATH_TOL
+    if not (paths["loss_rel_err"] <= rel_tol
+            and paths["grad_norm_rel_err"] <= rel_tol
+            and paths["update_err"] <= upd_tol):
+        raise AssertionError(f"plain path vs kernels: {paths} (tol rel "
+                             f"{rel_tol}, update {upd_tol})")
+    from sketch_rnn_tpu_torch import HParams
+
+    small = HParams(conditional=True, dec_model="layer_norm", batch_size=8,
+                    max_seq_len=24, enc_rnn_size=16, dec_rnn_size=32,
+                    z_size=8, num_mixture=3)
+    vs_cpu = small_step_vs_cpu(small, "float32")
+    log("train_plain_reference", step=state.step,
+        plain_vs_kernels_no_dropout=paths, path_rel_tol=rel_tol,
+        path_update_tol=upd_tol, small_layer_norm_card_vs_cpu=vs_cpu,
+        rel_tol=STEP_TOL["float32"][0], update_tol=STEP_TOL["float32"][1])
+    profile_train(hps, loader, state, preset="vae (fused_rnn=false)")
+    return launches
+
+
 # the kernels line: (name, source, TPU kernel, the dtype of its main path)
 KERNEL_ROWS = (
     ("decode_chunk", "sketch_rnn_tpu_torch/csrc/decode.cu",
@@ -1292,7 +1708,19 @@ KERNEL_ROWS = (
     *((n, FUSED_SRC, r, "float32" if n.startswith("fused_lstm_")
        and not n.startswith("fused_lstm_seq") else "bfloat16")
       for n, r in FUSED_REPLACES.items()),
-    *((n, HYPER_SRC, r, "float32") for n, r in HYPER_REPLACES.items()))
+    *((n, HYPER_SRC, r, "float32") for n, r in HYPER_REPLACES.items()),
+    ("lstm_seq_fwd", LSTM_SEQ_SRC, "sketch_rnn_tpu/ops/pallas_lstm.py:56",
+     "float32"),
+    ("lstm_seq_bwd", LSTM_SEQ_SRC, "sketch_rnn_tpu/ops/pallas_lstm.py:94",
+     "float32"),
+    ("dual_seq_fwd", PROBE_SRC, "scripts/probe_dual_encoder.py:53",
+     "bfloat16"),
+    ("seq_fwd_bf16_gates", PROBE_SRC, "scripts/probe_bf16_gates.py:44",
+     "bfloat16"))
+# the kernels measured at one dtype only; every other row also carries the
+# other dtype's numbers under at_<dtype>
+ONE_DTYPE = ("lstm_seq_fwd", "lstm_seq_bwd", "dual_seq_fwd",
+             "seq_fwd_bf16_gates")
 
 
 def main():
@@ -1376,23 +1804,37 @@ def main():
     serve_small_vs_cpu("float32", cell="hyper")
     profile_generate("float32", cell="hyper")
 
+    check_hoisted_lstm(rows)
+    hoisted_launches = hoisted_main_path(card)
+    torch.cuda.empty_cache()
+    train_plain(card)
+    probe_launches = check_probes(card, rows)
+
     picked = lambda src, *names: {n: src[n] for n in names}
     main_launches = {
-        **launches, **train_launches,
+        **launches,
+        **picked(train_launches, "fused_lstm_seq_fwd", "fused_lstm_seq_bwd",
+                 "fused_ln_lstm_fwd", "fused_ln_lstm_bwd"),
         **picked(lstm_launches, "fused_lstm_fwd", "fused_lstm_bwd"),
-        **picked(hyper_launches, "fused_hyper_lstm_fwd",
-                 "fused_hyper_lstm_bwd")}
+        **picked(hyper_launches, *HYPER_REPLACES), **hoisted_launches,
+        **probe_launches}
 
     def row(name, source, replaces, dt):
+        want = {dt} if name in ONE_DTYPE else set(DTYPES)
+        if set(rows[name]) != want:
+            raise AssertionError(f"{name}: measured at {sorted(rows[name])}"
+                                 f", expected {sorted(want)}")
         r = rows[name][dt]
-        other = next(d for d in DTYPES if d != dt)
-        o = rows[name][other]
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": main_launches[name],
-                "max_abs_err": r["err"], **{k: r[k] for k in keys},
-                "dtype": dt, "at_" + other: {"max_abs_err": o["err"],
-                                             **{k: o[k] for k in keys}}}
+        out = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": main_launches[name],
+               "max_abs_err": r["err"], **{k: r[k] for k in keys},
+               "dtype": dt}
+        for other in want - {dt}:
+            o = rows[name][other]
+            out["at_" + other] = {"max_abs_err": o["err"],
+                                  **{k: o[k] for k in keys}}
+        return out
 
     log("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [row(*k) for k in KERNEL_ROWS]}))

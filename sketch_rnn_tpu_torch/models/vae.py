@@ -113,8 +113,10 @@ class SketchRNN:
         ``train`` with a ``key`` turns on recurrent dropout (keys
         ``split(key)`` for the two directions); ``x_rev_tm``: the
         length-aware-reversed inputs, gathered by the caller; ``fused``
-        runs both directions through ``fused_lstm_seq`` (training).
-        Serving calls it with neither, on the plain cell path."""
+        runs both directions through ``fused_lstm_seq`` (training at
+        ``fused_rnn=true``), else the plain cell path (training at
+        ``fused_rnn=false``, where ``hps.remat`` checkpoints each step,
+        and serving)."""
         hps = self.hps
         gen_f = gen_b = None
         if train and hps.use_recurrent_dropout and key is not None:
@@ -124,8 +126,8 @@ class SketchRNN:
         h_final, _ = bidirectional_rnn(
             self.enc_fwd, self.enc_bwd, params["enc_fwd"],
             params["enc_bwd"], x_tm.float(), seq_len=seq_len,
-            rdrop_gen_fwd=gen_f, rdrop_gen_bwd=gen_b, fused=fused,
-            residual_dtype=_rdtype(hps),
+            rdrop_gen_fwd=gen_f, rdrop_gen_bwd=gen_b, remat=hps.remat,
+            fused=fused, residual_dtype=_rdtype(hps),
             xs_rev=None if x_rev_tm is None else x_rev_tm.float())
         cd = _dtype(self.hps)
         mu = L.matmul(h_final, params["mu_w"], cd) + params["mu_b"]
@@ -200,7 +202,7 @@ class SketchRNN:
         carry0 = self.decoder_initial_carry(params, z, b,
                                             device=x_in_tm.device)
         _, hs = run_rnn(self.dec, params["dec"], x_in_tm, carry0,
-                        rdrop_gen=rgen, fused=fused,
+                        rdrop_gen=rgen, remat=hps.remat, fused=fused,
                         residual_dtype=_rdtype(hps), x_extra=extra)
         return L.matmul(hs, params["out_w"], _dtype(hps)) + params["out_b"]
 

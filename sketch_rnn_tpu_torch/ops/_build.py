@@ -53,6 +53,14 @@ SIGNATURES = {
         "srt_ln_lstm_fwd": [_P] * 12 + [_I] * 6 + [_F] * 3 + [_P] * 5,
         "srt_ln_lstm_bwd": [_P] * 16 + [_I] * 6 + [_F] * 3 + [_P] * 10,
     },
+    "lstm_seq": {
+        "srt_lstm_seq_fwd": [_P] * 5 + [_I] * 3 + [_F] + [_P] * 6,
+        "srt_lstm_seq_bwd": [_P] * 9 + [_I] * 3 + [_P] * 5,
+    },
+    "probe_seq": {
+        "srt_dual_seq_fwd": [_P] * 8 + [_I] * 6 + [_F] + [_P] * 5,
+        "srt_seq_fwd": [_P] * 4 + [_I] * 6 + [_F] + [_P] * 3,
+    },
     "fused_hyper": {
         "srt_hyper_fwd": [_P] * 28 + [_I] * 8 + [_F] * 3 + [_P] * 9,
         "srt_hyper_bwd": [_P] * 35 + [_I] * 8 + [_F] * 3 + [_P] * 30,

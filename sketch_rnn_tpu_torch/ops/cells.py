@@ -73,8 +73,15 @@ class LSTMCell:
     def __call__(self, params: Params, carry: Carry, x: torch.Tensor,
                  rdrop_mask: Optional[torch.Tensor] = None
                  ) -> Tuple[Carry, torch.Tensor]:
-        xp = L.matmul(x, params["wx"], self.compute_dtype) + params["b"]
-        return self.step_pre(params, carry, xp, rdrop_mask)
+        return self.step_pre(params, carry,
+                             self.precompute_inputs(params, x), rdrop_mask)
+
+    def precompute_inputs(self, params: Params, xs: torch.Tensor
+                          ) -> torch.Tensor:
+        """``[..., D] -> [..., 4H]`` input projections ``xs @ wx + b``:
+        for a whole sequence, one product outside the recurrence (the
+        cuDNN layout of ``run_rnn(hoist=True)`` and ``ops/cuda_lstm.py``)."""
+        return L.matmul(xs, params["wx"], self.compute_dtype) + params["b"]
 
     def step_pre(self, params: Params, carry: Carry, xp: torch.Tensor,
                  rdrop_mask: Optional[torch.Tensor] = None
@@ -122,8 +129,20 @@ class LayerNormLSTMCell:
     def __call__(self, params: Params, carry: Carry, x: torch.Tensor,
                  rdrop_mask: Optional[torch.Tensor] = None
                  ) -> Tuple[Carry, torch.Tensor]:
+        return self.step_pre(params, carry,
+                             self.precompute_inputs(params, x), rdrop_mask)
+
+    def precompute_inputs(self, params: Params, xs: torch.Tensor
+                          ) -> torch.Tensor:
+        """``[..., D] -> [..., 4H]``, ``xs @ wx``: no bias (the LN betas
+        take that role)."""
+        return L.matmul(xs, params["wx"], self.compute_dtype)
+
+    def step_pre(self, params: Params, carry: Carry, xp: torch.Tensor,
+                 rdrop_mask: Optional[torch.Tensor] = None
+                 ) -> Tuple[Carry, torch.Tensor]:
+        """The step from the precomputed input projection ``xp``."""
         c, h = carry
-        xp = L.matmul(x, params["wx"], self.compute_dtype)
         pre = xp + L.matmul(h, params["wh"], self.compute_dtype)
         i, g, f, o = (L.layer_norm(gate, params["ln_gamma"][j],
                                    params["ln_beta"][j])

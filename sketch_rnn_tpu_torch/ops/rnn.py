@@ -3,9 +3,15 @@
 The port of ``run_rnn``, ``final_hidden``, ``length_reverse_indices`` and
 ``bidirectional_rnn`` from ``sketch_rnn_tpu/ops/rnn.py``. Two paths:
 
-- the plain path (``fused=False``): a Python loop of cell steps, with
-  optional streamed recurrent-dropout masks. Serving's endpoint encode
-  phase runs it, as the JAX package does at ``fused_rnn=false``.
+- the plain path (``fused=False``): a Python loop of cell steps, the
+  port of the JAX package's ``lax.scan``. Training at ``fused_rnn=false``
+  runs it (every preset but ``quickdraw345_dp``), with recurrent dropout
+  drawn from ``(key, t)``, and so does serving's endpoint encode phase.
+  ``hoist=True`` projects the inputs of all steps in one product first
+  (``cell.precompute_inputs``) and steps ``cell.step_pre``: the layout
+  that ``ops/cuda_lstm.py::lstm_seq`` fuses. ``remat=True`` checkpoints
+  each step (``torch.utils.checkpoint``): the backward recomputes the
+  step's gate block instead of keeping it.
 - the fused path (``fused=True``, training): the whole recurrence and its
   backward go through the training kernels of ``ops/cuda_fused.py``
   (``_run_fused``, the port of the JAX package's dispatch of the same
@@ -25,7 +31,9 @@ from __future__ import annotations
 
 from typing import Any, Optional, Tuple
 
+import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from sketch_rnn_tpu_torch.ops import cuda_fused as CF
 from sketch_rnn_tpu_torch.ops import linear as L
@@ -33,6 +41,34 @@ from sketch_rnn_tpu_torch.ops.cells import HyperLSTMCell, LayerNormLSTMCell
 from sketch_rnn_tpu_torch.utils import prng
 
 INT32_MAX = 2 ** 31 - 1
+
+
+def make_dropout_masks(key: torch.Tensor, keep_prob: float, steps: int,
+                       batch_size: int, hidden_size: int) -> torch.Tensor:
+    """Per-step inverted-dropout masks ``[T, B, H]`` (float32), bitwise
+    the JAX package's ``make_dropout_masks``: ``bernoulli(key, keep, (T,
+    B, H)) / keep``."""
+    m = prng.bernoulli(key, keep_prob, (steps, batch_size, hidden_size))
+    return _scale_mask(m, keep_prob)
+
+
+def _scale_mask(m, keep_prob):
+    # an element is 0 or float32(1 / keep): JAX's m / keep of a 0/1 mask
+    return m.to(torch.float32) * torch.tensor(
+        np.float32(1.0) / np.float32(keep_prob), device=m.device)
+
+
+def step_dropout_masks(key: torch.Tensor, keep_prob: float, steps: int,
+                       batch_size: int, hidden_size: int) -> torch.Tensor:
+    """The masks the JAX package's scan draws in its loop under
+    ``rdrop_gen=(key, keep)``: step ``t``'s is ``bernoulli(fold_in(key,
+    t), keep, (B, H)) / keep``, ``t`` being the position in the sequence
+    (also when it is read back to front). All ``T`` are drawn by one
+    vectorised threefry (on the plain path, a draw per step would cost a
+    few hundred eager launches each); the bits are the per-step draws'."""
+    keys = prng.fold_in(key, torch.arange(steps, device=key.device))
+    m = prng.bernoulli(keys, keep_prob, (batch_size, hidden_size))
+    return _scale_mask(m, keep_prob)
 
 
 def _run_fused(cell, params, xs, carry0, rdrop_masks, reverse, rdrop_gen,
@@ -115,9 +151,9 @@ def _run_fused(cell, params, xs, carry0, rdrop_masks, reverse, rdrop_gen,
 
 def run_rnn(cell, params, xs: torch.Tensor, carry0: Optional[Any] = None,
             rdrop_masks: Optional[torch.Tensor] = None,
-            reverse: bool = False,
+            reverse: bool = False, hoist: bool = False,
             rdrop_gen: Optional[Tuple[torch.Tensor, float]] = None,
-            fused: bool = False, residual_dtype=None,
+            remat: bool = False, fused: bool = False, residual_dtype=None,
             x_extra: Optional[torch.Tensor] = None,
             need_final: bool = True) -> Tuple[Any, torch.Tensor]:
     """Step ``cell`` over time-major inputs ``xs [T, B, D]``.
@@ -125,13 +161,17 @@ def run_rnn(cell, params, xs: torch.Tensor, carry0: Optional[Any] = None,
     Returns ``(final_carry, hs [T, B, H])``. ``reverse=True`` runs back
     to front and returns the outputs in the original time order.
     Recurrent dropout: ``rdrop_masks [T, B, H]`` streams masks;
-    ``rdrop_gen = (key, keep)`` draws them inside the fused kernels.
-    ``x_extra [B, E]``: time-invariant input features (the cell's input
-    weight covers ``D + E`` rows); a per-example gate bias on the fused
-    path, broadcast and concatenated on the plain one. ``need_final=False``
-    declares that only ``hs`` is used and neither ``xs`` nor the (zero)
-    carries are differentiated: the fused LSTM then takes the
-    sequence-only kernel and returns no final carry.
+    ``rdrop_gen = (key, keep)`` draws them from ``(key, t)`` on the plain
+    path (:func:`step_dropout_masks`) and inside the fused kernels. On
+    the plain path ``hoist`` steps ``cell.step_pre`` over
+    ``cell.precompute_inputs(xs)`` and ``remat`` recomputes each step in
+    the backward; the fused path ignores both (its kernels keep no gate
+    block). ``x_extra [B, E]``: time-invariant input features (the cell's
+    input weight covers ``D + E`` rows); a per-example gate bias on the
+    fused path, broadcast and concatenated on the plain one.
+    ``need_final=False`` declares that only ``hs`` is used and neither
+    ``xs`` nor the (zero) carries are differentiated: the fused LSTM then
+    takes the sequence-only kernel and returns no final carry.
     """
     if rdrop_masks is not None and rdrop_gen is not None:
         raise ValueError("pass rdrop_masks or rdrop_gen, not both")
@@ -142,21 +182,34 @@ def run_rnn(cell, params, xs: torch.Tensor, carry0: Optional[Any] = None,
         return _run_fused(cell, params, xs, carry0, rdrop_masks, reverse,
                           rdrop_gen, residual_dtype, x_extra,
                           seq_only=not need_final and zero_carry)
+    t_len, b = xs.shape[:2]
+    masks = rdrop_masks
     if rdrop_gen is not None:
-        raise NotImplementedError(
-            "in-loop recurrent dropout on the plain path (fused_rnn=false "
-            "in training, whose scan draws bernoulli masks) comes with a "
-            "later slice of the PyTorch port; train with fused_rnn=true")
+        key, keep = rdrop_gen
+        masks = step_dropout_masks(key.to(xs.device), keep, t_len, b,
+                                   cell.hidden_size)
     if x_extra is not None:
-        xs = torch.cat([xs, x_extra[None].expand(xs.shape[0],
-                                                 *x_extra.shape)], dim=-1)
+        xs = torch.cat([xs, x_extra[None].expand(t_len, *x_extra.shape)],
+                       dim=-1)
+    inputs = cell.precompute_inputs(params, xs) if hoist else xs
+    stepper = cell.step_pre if hoist else cell
+    if remat:
+        # masks come from (key, t), so the recomputation needs no torch
+        # RNG state
+        def step(carry, x, m):
+            return checkpoint(stepper, params, carry, x, m,
+                              use_reentrant=False, preserve_rng_state=False)
+    else:
+        def step(carry, x, m):
+            return stepper(params, carry, x, m)
+    at = (lambda t: tuple(a[t] for a in inputs)) \
+        if isinstance(inputs, tuple) else (lambda t: inputs[t])
     carry = carry0
-    order = range(xs.shape[0] - 1, -1, -1) if reverse \
-        else range(xs.shape[0])
-    hs = [None] * xs.shape[0]
+    order = range(t_len - 1, -1, -1) if reverse else range(t_len)
+    hs = [None] * t_len
     for t in order:
-        m = rdrop_masks[t] if rdrop_masks is not None else None
-        carry, hs[t] = cell(params, carry, xs[t], m)
+        carry, hs[t] = step(carry, at(t),
+                            masks[t] if masks is not None else None)
     return carry, torch.stack(hs)
 
 
@@ -183,7 +236,8 @@ def bidirectional_rnn(cell_fwd, cell_bwd, params_fwd, params_bwd,
                       rdrop_masks_fwd: Optional[torch.Tensor] = None,
                       rdrop_masks_bwd: Optional[torch.Tensor] = None,
                       rdrop_gen_fwd=None, rdrop_gen_bwd=None,
-                      fused: bool = False, residual_dtype=None,
+                      remat: bool = False, fused: bool = False,
+                      residual_dtype=None,
                       xs_rev: Optional[torch.Tensor] = None,
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward + backward passes; returns ``(h_final [B, 2H], hs [T, B,
@@ -198,7 +252,7 @@ def bidirectional_rnn(cell_fwd, cell_bwd, params_fwd, params_bwd,
         raise ValueError(
             "xs_rev was supplied but seq_len is None: the no-seq_len path "
             "runs a plain reverse pass over xs and would ignore it")
-    kw = dict(fused=fused, residual_dtype=residual_dtype)
+    kw = dict(remat=remat, fused=fused, residual_dtype=residual_dtype)
     if seq_len is None:
         fwd_carry, hs_f = run_rnn(cell_fwd, params_fwd, xs,
                                   rdrop_masks=rdrop_masks_fwd,

@@ -3,8 +3,10 @@
 The port of ``sketch_rnn_tpu/train/step.py``'s single-device step
 (``_make_single_step_core`` with no mesh): ``(state, batch, key) ->
 (state, metrics)``. The loss and its gradients go through
-``SketchRNN.loss`` with ``train=True`` (on the card, the fused training
-kernels carry both RNNs forward and backward), then the hand-written
+``SketchRNN.loss`` with ``train=True`` (at ``fused_rnn=true`` the fused
+training kernels carry both RNNs forward and backward; at
+``fused_rnn=false`` the plain cell loop of ``ops/rnn.py`` does, under
+autograd, with ``hps.remat``), then the hand-written
 ``clip -> adam`` update of ``train/state.py``. The metrics are the JAX
 package's: ``loss``, ``recon``, ``offset_nll``, ``pen_ce``, ``kl``,
 ``kl_raw``, ``kl_weight``, ``grad_norm`` and ``lr``, as 0-dim tensors on
@@ -35,10 +37,6 @@ _LATER = "comes with a later slice of the PyTorch port"
 
 def check_trainable(hps: HParams) -> None:
     """Refuse, by name, the training requests this slice does not serve."""
-    if not hps.fused_rnn:
-        raise NotImplementedError(
-            f"fused_rnn=false in training (its scan path draws bernoulli "
-            f"dropout masks) {_LATER}; train with fused_rnn=true")
     if hps.use_input_dropout or hps.use_output_dropout:
         raise NotImplementedError(f"input and output dropout {_LATER}")
     if hps.steps_per_call > 1:

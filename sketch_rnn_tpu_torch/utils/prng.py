@@ -1,4 +1,4 @@
-"""The parts of ``jax.random`` that serving uses, in torch integer ops.
+"""The parts of ``jax.random`` that the port uses, in torch integer ops.
 
 The serving engine's determinism contract is per request: step ``t`` of
 a request draws ``uniform(fold_in(request_key, t), (4,))``. This module
@@ -110,6 +110,14 @@ def uniform(k: torch.Tensor, shape: Union[int, Sequence[int]] = (4,),
     lo = torch.tensor(minval, dtype=torch.float32, device=k.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=k.device)
     return torch.maximum(lo, f * (hi - lo) + lo)
+
+
+def bernoulli(k: torch.Tensor, p: float,
+              shape: Union[int, Sequence[int]]) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` for a Python float ``p``
+    (mode "low", as JAX defaults): ``uniform(key, shape) < float32(p)``,
+    a bool tensor of shape ``[..., *shape]``."""
+    return uniform(k, shape) < torch.tensor(np.float32(p), device=k.device)
 
 
 def randint(k: torch.Tensor, minval: int, maxval: int) -> torch.Tensor:

@@ -540,3 +540,146 @@ def test_hyper_engine_on_card_matches_cpu(dev):
         assert a.steps == r.steps
         np.testing.assert_array_equal(a.strokes5[:, 2:], r.strokes5[:, 2:])
         assert float(np.abs(a.strokes5 - r.strokes5).max()) <= TOL
+
+
+# -- lstm_seq (the cuDNN-layout LSTM) and the probe kernels -----------------
+
+
+def _close(got, want, tol):
+    """Each output within ``tol`` of the plain one relative to max(1, its
+    largest magnitude), in the same dtype."""
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        a, b = a.detach().float().cpu(), b.detach().float().cpu()
+        assert float((a - b).abs().max()) <= tol * max(
+            1.0, float(b.abs().max()))
+
+
+@pytest.mark.parametrize("h,masks", [(16, True), (40, False), (40, True)])
+def test_lstm_seq_kernels_match_plain_versions(dev, h, masks):
+    """lstm_seq's forward (with its gate reserve) and backward against
+    their plain versions on the same CUDA tensors, nonzero carries and
+    cotangents; H=40 leaves part of the last warp idle; the backward,
+    dwh included, the same bit for bit run to run; one launch per call;
+    the autograd Function's gradients are the wrappers'."""
+    from sketch_rnn_tpu_torch.ops import cuda_lstm as cl
+
+    g = torch.Generator().manual_seed(h)
+    r = lambda *s, sc=1.0: (torch.randn(s, generator=g) * sc).to(dev)
+    xp, wh = r(FT, FB, 4 * h, sc=0.5), r(h, 4 * h, sc=0.25)
+    c0, h0 = r(FB, h, sc=0.3), r(FB, h, sc=0.3)
+    dhs, dcT, dhT = r(FT, FB, h, sc=0.1), r(FB, h, sc=0.1), r(FB, h, sc=0.1)
+    m = ((torch.rand((FT, FB, h), generator=g) < 0.9).float() / 0.9).to(
+        dev) if masks else None
+    before = cl.launch_counts()
+    out = cl.lstm_seq_fwd(xp, wh, c0, h0, 1.0, m)
+    hs, _, _, gates, cs = out
+    bargs = (wh, gates, cs, hs, h0, m, dhs, dcT, dhT)
+    grads, again = cl.lstm_seq_bwd(*bargs), cl.lstm_seq_bwd(*bargs)
+    torch.cuda.synchronize()
+    after = cl.launch_counts()
+    assert after["lstm_seq_fwd"] == before["lstm_seq_fwd"] + 1
+    assert after["lstm_seq_bwd"] == before["lstm_seq_bwd"] + 2
+    _close(out, cl.lstm_seq_fwd_plain(xp, wh, c0, h0, 1.0, m), TOL)
+    h_prev = torch.cat([h0[None], hs[:-1]])
+    _close(grads, cl.lstm_seq_bwd_plain(wh, gates, cs, h_prev, m, dhs, dcT,
+                                        dhT), TOL)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    leaves = [x.clone().requires_grad_(True) for x in (xp, wh, c0, h0)]
+    hs2, (cT2, hT2) = cl.lstm_seq(*leaves, 1.0, m)
+    auto = torch.autograd.grad((hs2 * dhs).sum() + (cT2 * dcT).sum()
+                               + (hT2 * dhT).sum(), leaves)
+    assert all(torch.equal(a, b) for a, b in zip(auto, grads))
+
+
+def _probe_weights(h, dev, wdt):
+    g = torch.Generator().manual_seed(h)
+    r = lambda *s, sc=1.0: (torch.randn(s, generator=g) * sc).to(dev)
+    xs = r(FT, FB, FD)
+    return (xs, torch.flip(xs, dims=(0,)).contiguous(),
+            r(FD, 4 * h, sc=0.4).to(wdt), r(4 * h, sc=0.1),
+            r(h, 4 * h, sc=0.25).to(wdt), r(FD, 4 * h, sc=0.4).to(wdt),
+            r(4 * h, sc=0.1), r(h, 4 * h, sc=0.25).to(wdt))
+
+
+@pytest.mark.parametrize("h,wdt,rdt", [
+    (16, torch.bfloat16, torch.bfloat16), (40, torch.bfloat16, torch.float32),
+    (40, torch.float32, torch.bfloat16)])
+def test_dual_seq_fwd_kernel_matches_plain_version(dev, h, wdt, rdt):
+    """The dual-direction probe kernel against its plain version (two
+    plain sequence forwards) and against two launches of the
+    fused_lstm_seq forward kernel, which it equals bit for bit."""
+    from sketch_rnn_tpu_torch.ops import cuda_fused as cf
+    from sketch_rnn_tpu_torch.scripts import probe_dual_encoder as pd
+
+    args = _probe_weights(h, dev, wdt)
+    before = pd.launch_counts()["dual_seq_fwd"]
+    got = pd.dual_seq_fwd(*args, residual_dtype=rdt)
+    torch.cuda.synchronize()
+    assert pd.launch_counts()["dual_seq_fwd"] == before + 1
+    _close(got, pd.dual_seq_fwd_plain(*args, residual_dtype=rdt),
+           BF_TOL if torch.bfloat16 in (wdt, rdt) else TOL)
+    z = torch.zeros((FB, h), device=dev)
+    pair = (*cf.lstm_seq_fwd(args[0], *args[2:5], z, z, residual_dtype=rdt),
+            *cf.lstm_seq_fwd(args[1], *args[5:], z, z, residual_dtype=rdt))
+    assert all(torch.equal(a, b) for a, b in zip(got, pair))
+
+
+@pytest.mark.parametrize("h,wdt", [(16, torch.bfloat16), (40, torch.float32),
+                                   (40, torch.bfloat16)])
+def test_seq_fwd_kernel_both_gate_arms(dev, h, wdt):
+    """The bf16-gates probe kernel: the float32-gates arm bit for bit the
+    fused_lstm_seq forward kernel (and within a bfloat16 ulp of its plain
+    version), the bfloat16-gates arm within the bfloat16 tolerance of its
+    plain version."""
+    from sketch_rnn_tpu_torch.ops import cuda_fused as cf
+    from sketch_rnn_tpu_torch.scripts import probe_bf16_gates as pb
+
+    xs, _, wx, b, wh = _probe_weights(h, dev, wdt)[:5]
+    z = torch.zeros((FB, h), device=dev)
+    before = pb.launch_counts()["seq_fwd"]
+    f32 = pb.seq_fwd(xs, wx, b, wh, False)
+    bf = pb.seq_fwd(xs, wx, b, wh, True)
+    torch.cuda.synchronize()
+    assert pb.launch_counts()["seq_fwd"] == before + 2
+    same = cf.lstm_seq_fwd(xs, wx, b, wh, z, z,
+                           residual_dtype=torch.bfloat16)
+    assert all(torch.equal(a, c) for a, c in zip(f32, same))
+    _close(f32, pb.seq_fwd_plain(xs, wx, b, wh, False), BF_TOL)
+    _close(bf, pb.seq_fwd_plain(xs, wx, b, wh, True), BF_TOL)
+
+
+def test_lstm_seq_and_probe_wrappers_refuse_bad_inputs(dev):
+    from sketch_rnn_tpu_torch.ops import cuda_lstm as cl
+    from sketch_rnn_tpu_torch.scripts import probe_bf16_gates as pb
+    from sketch_rnn_tpu_torch.scripts import probe_dual_encoder as pd
+
+    h = 16
+    xp, wh = torch.zeros((FT, FB, 4 * h), device=dev), torch.zeros(
+        (h, 4 * h), device=dev)
+    c = torch.zeros((FB, h), device=dev)
+    counts = (cl.launch_counts(), pd.launch_counts(), pb.launch_counts())
+    for bad in (dict(xp=xp.double()), dict(wh=wh[:, :8].contiguous()),
+                dict(c0=c.cpu()), dict(h0=c.t().contiguous().t()),
+                dict(masks=torch.zeros((FT, FB, h + 1), device=dev))):
+        a = dict(dict(xp=xp, wh=wh, c0=c, h0=c), **bad)
+        with pytest.raises((ValueError, TypeError)):
+            cl.lstm_seq(a["xp"], a["wh"], a["c0"], a["h0"],
+                        masks=a.get("masks"))
+    with pytest.raises(ValueError, match="at most"):
+        cl.lstm_seq_fwd(torch.zeros((2, 2, 4 * 513), device=dev),
+                        torch.zeros((513, 4 * 513), device=dev),
+                        torch.zeros((2, 513), device=dev),
+                        torch.zeros((2, 513), device=dev))
+    args = list(_probe_weights(h, dev, torch.bfloat16))
+    for i, bad in ((2, args[2].half()), (4, args[4].float()),
+                   (3, args[3][:8].contiguous())):
+        with pytest.raises((ValueError, TypeError)):
+            pd.dual_seq_fwd(*(bad if j == i else a
+                              for j, a in enumerate(args)))
+    with pytest.raises(TypeError):
+        pd.dual_seq_fwd(*args, residual_dtype=torch.float16)
+    with pytest.raises((ValueError, TypeError)):
+        pb.seq_fwd(args[0], args[2], args[3], args[4].float(), True)
+    assert (cl.launch_counts(), pd.launch_counts(),
+            pb.launch_counts()) == counts

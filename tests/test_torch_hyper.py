@@ -768,13 +768,14 @@ def test_mixed_matrix_dtypes_and_both_dropout_forms_are_refused():
 
 def test_hyper_trains_fused_only_and_needs_the_card_unless_cpu(monkeypatch):
     """``check_trainable`` takes the hyper preset at ``fused_rnn=true``
-    and still refuses its default ``fused_rnn=false`` by name; the entry
-    points run on the card unless given ``device="cpu"``."""
+    and at its default ``fused_rnn=false`` (the plain cell path, since
+    the plain path came to training); the entry points run on the card
+    unless given ``device="cpu"``."""
     th = HParams(**TINY)
     check_trainable(th)
     check_trainable(th.parse("enc_model=hyper"))
-    with pytest.raises(NotImplementedError, match="fused_rnn=true"):
-        check_trainable(th.parse("fused_rnn=false"))
+    check_trainable(th.parse("fused_rnn=false"))
+    check_trainable(th.parse("fused_rnn=false,enc_model=hyper"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     tm = SketchRNN(th)
     tp = tm.init_params(torch.Generator().manual_seed(0), device="cpu")

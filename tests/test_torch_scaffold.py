@@ -1,8 +1,9 @@
 """The PyTorch port's package rules and interchange formats.
 
-- The port imports neither JAX nor anything of ``sketch_rnn_tpu``: a
-  subprocess importing every module of ``sketch_rnn_tpu_torch`` leaves
-  both out of ``sys.modules``, and an AST scan of the package and of
+- The port imports neither JAX nor anything of ``sketch_rnn_tpu`` or of
+  the root ``scripts/`` and ``bench.py``: a subprocess importing every
+  module of ``sketch_rnn_tpu_torch`` leaves JAX and the reference out of
+  ``sys.modules``, and an AST scan of the package and of
   ``chip_smoke.py`` finds no such import.
 - Entry points run on the card unless asked for the CPU: with no CUDA
   device and no ``device="cpu"`` they raise, and ``chip_smoke.py``
@@ -74,7 +75,8 @@ def test_no_jax_or_reference_import(path):
             continue
         for n in names:
             assert n.split(".")[0] not in ("jax", "jaxlib",
-                                           "sketch_rnn_tpu"), (path, n)
+                                           "sketch_rnn_tpu", "scripts",
+                                           "bench"), (path, n)
 
 
 def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):

@@ -29,7 +29,8 @@ kernels run in interpret mode, the port's through their plain versions.
 - ``train_state_from_jax`` after one JAX step, then one more step in
   each package;
 - the training requests the port does not serve yet raise by name, the
-  ones it now serves (bfloat16, the lstm decoder, the presets) train,
+  ones it now serves (bfloat16, the lstm decoder, ``fused_rnn=false``,
+  the presets) train,
   and the training entry points need the card unless asked for the
   CPU.
 """
@@ -423,7 +424,6 @@ def test_train_loop_keys_and_rows():
 
 
 @pytest.mark.parametrize("over,match", [
-    ("fused_rnn=false", "later slice"),
     ("use_input_dropout=true", "later slice"),
     ("use_output_dropout=true", "later slice"),
     ("steps_per_call=2", "later slice"),
@@ -437,10 +437,11 @@ def test_unserved_training_requests_raise_by_name(over, match):
 
 @pytest.mark.parametrize("over", ["compute_dtype=bfloat16",
                                   "fused_residual_dtype=bfloat16",
-                                  "dec_model=lstm"])
+                                  "dec_model=lstm", "fused_rnn=false"])
 def test_formerly_refused_requests_now_train(over):
-    """bfloat16 compute, bfloat16 residuals and the lstm decoder (its
-    fused_lstm kernel) are served: check_trainable accepts them, and a
+    """bfloat16 compute, bfloat16 residuals, the lstm decoder (its
+    fused_lstm kernel) and the plain cell path (``fused_rnn=false``, the
+    presets' default) are served: check_trainable accepts them, and a
     step on the CPU gives finite metrics and moves every parameter."""
     jh, th = _pair()
     th = th.parse(over)

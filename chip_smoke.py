@@ -101,8 +101,20 @@ without the final line. With no CUDA device it exits 2 at once.
    forward (bidirectional for the dual); then each probe's A/B (its
    ``run_probe``) with 4 calls per timing and 3 reps, counters zeroed
    just before and read just after, its record on one line.
-15. the kernels line (fourteen kernels), the ``nvidia-smi`` line, and
-   the result line.
+15. probe_ladder — the LayerNorm ladder (``csrc/probe_ln.cu``,
+   ``sketch_rnn_tpu_torch/scripts/probe_dec_bwd_split.py`` and
+   ``probe_ln_stats.py``) at the reference probes' shape, B=4096, T=250,
+   H=512, D=5, bfloat16: the four forward arms, the six backward arms and
+   the fake-stats backward against their plain versions (1e-2 relative;
+   the forward arms also step by step at float32 residuals, 1e-4; the two
+   arms whose dh chain overflows by T=250 at T=32), the ``prod`` arms bit
+   for bit and timed beside ``fused_ln_lstm``'s kernels; then both
+   ladders and the LN-stats A/B through their run functions with 1 call
+   per timing and 2 reps, the ladder's counters zeroed just before each
+   and read just after, each record on one line, and the phase's seconds.
+16. the kernels line (seventeen kernels; the ladder's three rows carry
+   every arm's numbers under ``arms``), the ``nvidia-smi`` line, and the
+   result line.
 
 Random serving weights carry the pen-suppression sentinel ``out_b[2] =
 -1e9`` (an untrained model ends a sketch after a few steps) and requests
@@ -1653,6 +1665,228 @@ def check_probes(card, rows):
     return launches
 
 
+# the LayerNorm ladder (csrc/probe_ln.cu): its arms against their plain
+# versions, then the two ladders and the LN-stats A/B, at the reference
+# probes' shape, one call per timing, 2 reps
+LADDER = dict(b=4096, t=250, k=1, reps=2)
+# no_gates / no_gradmm: dh_{t-1} = tile4(dh) @ wh^T grows ~2.26x a step
+# (the reference's arithmetic) and overflows before T=250; 2.26**32 ~ 2e11
+LADDER_SHORT_T = 32
+LADDER_SRC = "sketch_rnn_tpu_torch/csrc/probe_ln.cu"
+LADDER_FWD_OUTS = ("hs", "cs", "cT", "hT")
+# the kernels line's rows of the ladder: each shows at its top level the
+# arm its TPU kernel function builds first beside production, and every
+# arm's numbers under "arms"
+LADDER_ROWS = ("ln_probe_fwd", "ln_probe_bwd", "ln_probe_bwd_fake_stats")
+
+
+def ladder_bytes(inp, names, outs):
+    return nbytes(*(inp[n] for n in names), *outs)
+
+
+def check_probe_ladder(card, rows):
+    """The LayerNorm ladder (``csrc/probe_ln.cu``, scripts
+    ``probe_dec_bwd_split.py`` and ``probe_ln_stats.py``) at the reference
+    probes' shape, B=4096, T=250, H=512, D=5, on their seeded inputs
+    (bfloat16 weights and residuals, x_bias, dropout seed 5 at keep 0.9).
+
+    Forward arms: identical run to run; each against its plain version
+    run free within FUSED_TOL["bfloat16"] (relative to each output's
+    largest magnitude), except ``prod``, whose free-running gap is logged:
+    at these inputs its recurrence grows a float32 gap of 1e-7 in the
+    carry to 1.1e-2 of the largest ``hs`` by T=32 (measured on the CPU
+    with the plain version, B=4096), whatever the kernel. So every arm is
+    also held at float32 residuals step by step (the plain step taken from
+    the kernel's stored carry) within FUSED_TOL["float32"], and ``prod``
+    bit for bit ``fused_ln_lstm``'s forward kernel. Backward arms (over
+    the residuals of one production forward): identical run to run,
+    within FUSED_TOL["bfloat16"] of their plain versions, except
+    ``no_gates`` and ``no_gradmm``, whose gradient grows ~2.26x a step:
+    they are held at T=32 at float32 weights and residuals within
+    FUSED_TOL["float32"], their bfloat16 gap at T=32 and the outputs that
+    are non-finite at T=250, in the kernel and in the plain version, are
+    logged; ``prod`` bit for bit
+    ``fused_ln_lstm``'s backward kernel (its weight gradients rounded as
+    that kernel rounds them). Both ``prod`` arms are timed beside the
+    production kernels. Then each ladder's run function and the LN-stats
+    A/B, the ladder's launch counters zeroed just before each and read
+    just after, each record on one line. Returns the launches by row."""
+    import torch
+
+    from sketch_rnn_tpu_torch.ops import cuda_fused as CF
+    from sketch_rnn_tpu_torch.scripts import _probe
+    from sketch_rnn_tpu_torch.scripts import probe_dec_bwd_split as PS
+    from sketch_rnn_tpu_torch.scripts import probe_ln_stats as PL
+
+    t_phase = time.perf_counter()
+    dt, tol, bf, f32 = "bfloat16", FUSED_TOL["bfloat16"], torch.bfloat16, \
+        torch.float32
+    b, t = LADDER["b"], LADDER["t"]
+    h, d = PS.H, PS.D
+    same = lambda x, y: all(p is None and q is None or torch.equal(p, q)
+                            for p, q in zip(x, y))
+    inp = PS.probe_inputs(b, t, DEV)
+    z = torch.zeros((b, h), device=DEV)
+    fkw = dict(inp, c0=z, h0=z)
+    prod_flops = 2 * t * b * (d + h) * 4 * h
+    params = ("wx", "wh", "ln_gamma", "ln_beta", "lnc_gamma", "lnc_beta",
+              "dropout_seed")
+    arms = {}
+
+    for arm in PS.FWD_ARMS:
+        got, again = PS.fwd_arm(arm, **fkw), PS.fwd_arm(arm, **fkw)
+        torch.cuda.synchronize()
+        free = lambda: PS.fwd_plain(arm, **fkw)
+        ab, rel, per = rel_errs(LADDER_FWD_OUTS, got, free())
+        det = same(got, again)
+        got32 = PS.fwd_arm(arm, residual_dtype=f32, **fkw)
+        forced = PS.fwd_plain(arm, residual_dtype=f32, teacher=got32[:2],
+                              **fkw)
+        _, rel32, per32 = rel_errs(LADDER_FWD_OUTS, got32, forced)
+        del got32, forced
+        if not (det and rel32 <= FUSED_TOL["float32"]
+                and (arm == "prod" or rel <= tol)):
+            raise AssertionError(
+                f"fwd_arm({arm}): rel err {rel} (tol {tol}, held "
+                f"{arm != 'prod'}), per output {per}; step by step at float32"
+                f" residuals {rel32} (tol {FUSED_TOL['float32']}), "
+                f"{per32}; deterministic {det}")
+        r = {"err": ab, "rel_err": rel, "errs": per, "deterministic": det,
+             "free_running_held": arm != "prod",
+             "stepwise_f32_rel_err": rel32}
+        if arm == "prod":
+            prodk = lambda: CF.ln_lstm_fwd(c0=z, h0=z, residual_dtype=bf,
+                                           **inp)
+            r["bitwise_fused_ln_lstm_fwd"] = same(got, prodk())
+            if not r["bitwise_fused_ln_lstm_fwd"]:
+                raise AssertionError("fwd_arm(prod) is not bitwise the "
+                                     "fused_ln_lstm forward kernel")
+            r["ms_beside_fused_ln_lstm_fwd"] = dict(zip(
+                ("prod_arm", "fused_ln_lstm_fwd"), _probe.interleaved(
+                    [lambda: PS.fwd_arm("prod", **fkw), prodk], 1, 2)))
+        fl = 0 if arm == "floor" else prod_flops
+        moved = (nbytes(inp["xs"][:, :, :1], inp["x_bias"][:, :h], z, z,
+                        *got) if arm == "floor" else
+                 ladder_bytes(inp, ("xs", "x_bias", *params), (z, z, *got)))
+        bms, by = bound_ms(fl, moved, dt)
+        r.update(plain_ms=_probe.events_ms(free, 1), bound_ms=bms,
+                 bound_by=by, library_ms=None, flops=fl, bytes=moved)
+        arms[f"fwd_{arm}"] = r
+        log("kernel", name=f"ln_probe_fwd[{arm}]", dtype=dt, T=t, B=b, H=h,
+            D=d, tol=tol, **r)
+        del got, again
+
+    bi = PS.bwd_inputs(inp)
+    names = FUSED_OUTPUTS["fused_ln_lstm_bwd"]
+    short = dict(bi, **{k: bi[k][:LADDER_SHORT_T]
+                        for k in ("xs", "hs", "cs", "dhs")})
+    # the same T=32 inputs at float32 weights and residuals (the bfloat16
+    # weights widened exactly, the residuals of a float32 forward)
+    short32 = dict(short, wx=inp["wx"].float(), wh=inp["wh"].float())
+    short32["hs"], short32["cs"], _, _ = CF.ln_lstm_fwd(
+        **{k: short32[k] for k in ("xs", "x_bias", *params)}, c0=z, h0=z,
+        keep_prob=inp["keep_prob"], residual_dtype=f32)
+    short32["dhs"] = torch.ones_like(short32["hs"])
+    bwd_in = ("xs", "x_bias", *params, "h0", "hs", "cs", "dhs", "dcT",
+              "dhT")
+    fin = lambda outs: [n for n, o in zip(names, outs)
+                        if o is not None and not bool(torch.isfinite(o).all())]
+    for arm in (*PS.ARMS, "fake"):
+        run = PL.bwd_fake if arm == "fake" else (
+            lambda a=arm, **k: PS.bwd_arm(a, **k))
+        plain = lambda kw, a=arm: PS.bwd_plain(a, **kw)
+        # no_gates / no_gradmm: every step multiplies the gradient, and
+        # the gap a bfloat16 rounding flip of d_pre opens, by ~2.26, so
+        # the gap grows with T (2e-2 of the largest output at T=32 on the
+        # H100); they are held at float32, where a flip is 2**-16 as large
+        explode = arm in ("no_gates", "no_gradmm")
+        held, tol_h = (short32, FUSED_TOL["float32"]) if explode else (bi, tol)
+        got, again = run(**held), run(**held)
+        torch.cuda.synchronize()
+        ab, rel, per = rel_errs(names, got, plain(held))
+        det = same(got, again)
+        if not (rel <= tol_h and det):
+            raise AssertionError(
+                f"bwd arm {arm} (T={held['xs'].shape[0]}, wx {held['wx'].dtype}"
+                f"): rel err {rel} (tol {tol_h}), per output {per}, "
+                f"deterministic {det}")
+        r = {"err": ab, "rel_err": rel, "errs": per, "deterministic": det,
+             "held_T": held["xs"].shape[0], "held_dtype": str(
+                 held["wx"].dtype).split(".")[1], "held_tol": tol_h}
+        del got, again
+        if explode:     # logged: bfloat16 at T=32, where T=250 overflows
+            r["bf16_T32_rel_err"] = rel_errs(names, run(**short),
+                                             plain(short))[1]
+            r["non_finite_at_T250"] = {"kernel": fin(run(**bi)),
+                                       "plain": fin(plain(bi))}
+        if arm == "prod":
+            got = run(**bi)
+            prodk = lambda: CF.ln_lstm_bwd(**bi)
+            want = prodk()
+            got = (*got[:2], got[2].to(bf), got[3].to(bf), *got[4:])
+            r["bitwise_fused_ln_lstm_bwd"] = same(got, want)
+            if not r["bitwise_fused_ln_lstm_bwd"]:
+                raise AssertionError("bwd_arm(prod) is not bitwise the "
+                                     "fused_ln_lstm backward kernel")
+            del got, want
+            r["ms_beside_fused_ln_lstm_bwd"] = dict(zip(
+                ("prod_arm", "fused_ln_lstm_bwd"), _probe.interleaved(
+                    [lambda: run(**bi), prodk], 1, 2)))
+        weight = arm in ("prod", "no_lnbwd", "no_ln", "fake", "no_gates")
+        fl = (3 * prod_flops if weight else
+              prod_flops + 2 * t * b * h * 4 * h if arm == "no_gradmm"
+              else 0)
+        outs = run(**bi)
+        moved = ladder_bytes(bi, bwd_in if arm != "floor" else (
+            "xs", "x_bias", "h0", "hs", "cs", "dhs", "dcT", "dhT"), outs)
+        del outs
+        bms, by = bound_ms(fl, moved, dt)
+        r.update(plain_ms=_probe.events_ms(lambda: plain(bi), 1),
+                 bound_ms=bms, bound_by=by, library_ms=None, flops=fl,
+                 bytes=moved)
+        arms[f"bwd_{arm}"] = r
+        log("kernel", name=f"ln_probe_bwd[{arm}]", dtype=dt, T=t, B=b, H=h,
+            D=d, tol=tol, **r)
+    del bi, short, short32
+    torch.cuda.empty_cache()
+
+    # the main paths: the two ladders and the LN-stats A/B
+    launches = {}
+    for run, mod, way in ((PS.run_fwd_ladder, PS, "fwd_"),
+                          (PS.run_bwd_ladder, PS, "bwd_"),
+                          (PL.run_probe, PL, "bwd_")):
+        PS.reset_launch_counts()
+        PL.reset_launch_counts()
+        rec = run(device=DEV, **LADDER)
+        counts = {k: v for k, v in mod.launch_counts().items()
+                  if k.startswith(way)}
+        if not all(counts.values()):
+            raise AssertionError(f"{rec['kind']}: an arm launched no "
+                                 f"kernel: {counts}")
+        launches.update(counts)
+        log(rec["kind"], card=card, launches=counts, record=rec)
+        if rec["kind"] == "probe_ln_stats":
+            arms["bwd_fake"]["ms"] = rec["fake_stats_bwd_ms"]
+        else:
+            way = "fwd" if rec["kind"] == "probe_dec_fwd_split" else "bwd"
+            for arm, ms in rec["arms_ms"].items():
+                if arm != "glue":
+                    arms[f"{way}_{arm}"]["ms"] = ms
+    for key, r in arms.items():
+        r["launches"] = launches[key]
+    by_row = {}
+    for row, way, shown, names in zip(
+            LADDER_ROWS, ("fwd", "bwd", "bwd"), ("no_ln", "no_lnbwd", "fake"),
+            (PS.FWD_ARMS, PS.ARMS, ("fake",))):
+        mine = {a: arms[f"{way}_{a}"] for a in names}
+        rows[row] = {dt: dict(mine[shown], arm=shown, arms=mine,
+                              err=max(r["err"] for r in mine.values()))}
+        by_row[row] = sum(r["launches"] for r in mine.values())
+    log("probe_ladder", seconds=time.perf_counter() - t_phase,
+        launches=by_row)
+    return by_row
+
+
 def train_plain(card):
     """The plain training path: the ``vae`` preset exactly as it says
     (``fused_rnn=false``, float32, recurrent dropout at keep 0.9 drawn
@@ -1716,11 +1950,17 @@ KERNEL_ROWS = (
     ("dual_seq_fwd", PROBE_SRC, "scripts/probe_dual_encoder.py:53",
      "bfloat16"),
     ("seq_fwd_bf16_gates", PROBE_SRC, "scripts/probe_bf16_gates.py:44",
+     "bfloat16"),
+    ("ln_probe_fwd", LADDER_SRC, "scripts/probe_dec_bwd_split.py:281",
+     "bfloat16"),
+    ("ln_probe_bwd", LADDER_SRC, "scripts/probe_dec_bwd_split.py:141",
+     "bfloat16"),
+    ("ln_probe_bwd_fake_stats", LADDER_SRC, "scripts/probe_ln_stats.py:87",
      "bfloat16"))
 # the kernels measured at one dtype only; every other row also carries the
 # other dtype's numbers under at_<dtype>
 ONE_DTYPE = ("lstm_seq_fwd", "lstm_seq_bwd", "dual_seq_fwd",
-             "seq_fwd_bf16_gates")
+             "seq_fwd_bf16_gates", *LADDER_ROWS)
 
 
 def main():
@@ -1809,6 +2049,7 @@ def main():
     torch.cuda.empty_cache()
     train_plain(card)
     probe_launches = check_probes(card, rows)
+    ladder_launches = check_probe_ladder(card, rows)
 
     picked = lambda src, *names: {n: src[n] for n in names}
     main_launches = {
@@ -1817,7 +2058,7 @@ def main():
                  "fused_ln_lstm_fwd", "fused_ln_lstm_bwd"),
         **picked(lstm_launches, "fused_lstm_fwd", "fused_lstm_bwd"),
         **picked(hyper_launches, *HYPER_REPLACES), **hoisted_launches,
-        **probe_launches}
+        **probe_launches, **ladder_launches}
 
     def row(name, source, replaces, dt):
         want = {dt} if name in ONE_DTYPE else set(DTYPES)
@@ -1830,6 +2071,12 @@ def main():
                "replaces": replaces, "launches": main_launches[name],
                "max_abs_err": r["err"], **{k: r[k] for k in keys},
                "dtype": dt}
+        if "arms" in r:      # the ladder's rows: every arm's numbers
+            out["arm"] = r["arm"]
+            out["arms"] = {a: {"launches": v["launches"],
+                               "max_abs_err": v["err"],
+                               **{k: v[k] for k in keys}}
+                           for a, v in r["arms"].items()}
         for other in want - {dt}:
             o = rows[name][other]
             out["at_" + other] = {"max_abs_err": o["err"],

@@ -61,6 +61,11 @@ SIGNATURES = {
         "srt_dual_seq_fwd": [_P] * 8 + [_I] * 6 + [_F] + [_P] * 5,
         "srt_seq_fwd": [_P] * 4 + [_I] * 6 + [_F] + [_P] * 3,
     },
+    "probe_ln": {
+        "srt_ln_probe_fwd": [_I] + [_P] * 11 + [_I] * 6 + [_F] * 3 + [_P] * 5,
+        "srt_ln_probe_bwd": [_I] + [_P] * 15 + [_I] * 6 + [_F] * 3
+        + [_P] * 10,
+    },
     "fused_hyper": {
         "srt_hyper_fwd": [_P] * 28 + [_I] * 8 + [_F] * 3 + [_P] * 9,
         "srt_hyper_bwd": [_P] * 35 + [_I] * 8 + [_F] * 3 + [_P] * 30,

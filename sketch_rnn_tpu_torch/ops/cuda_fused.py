@@ -522,11 +522,12 @@ def lstm_seq_bwd_reference(xs, wx, b, wh, h0, hs, cs, dhs, forget_bias=1.0,
 def ln_lstm_bwd_reference(xs, wx, wh, ln_gamma, ln_beta, lnc_gamma,
                           lnc_beta, h0, hs, cs, dhs, dcT, dhT,
                           forget_bias=1.0, masks=None, dropout_seed=None,
-                          keep_prob=1.0, x_bias=None):
+                          keep_prob=1.0, x_bias=None, f32_weight_grads=False):
     """The plain backward of :func:`fused_ln_lstm`, step by step
     (``pallas_fused._ln_lstm_bwd_gates``). Returns ``(dxs, dxb, dwx, dwh,
     dgam, dbet, dgc, dbc, dc0, dh0)``; ``dxb`` is None without
-    ``x_bias``."""
+    ``x_bias``. ``dwx``/``dwh`` come back in the weights' dtype, or as
+    their float32 sums with ``f32_weight_grads``."""
     t_len, bsz, _ = xs.shape
     h = wh.shape[0]
     st = _BwdStep(xs, wx, wh, h0, hs, cs, dhs)
@@ -566,7 +567,7 @@ def ln_lstm_bwd_reference(xs, wx, wh, ln_gamma, ln_beta, lnc_gamma,
             dxb += d_pre
         dxs[s], dh = st.products(x, h_prev, d_pre, True)
         dc = dc * f
-    dwx, dwh = st.weight_grads()
+    dwx, dwh = (st.dwx, st.dwh) if f32_weight_grads else st.weight_grads()
     return (dxs.to(xs.dtype), dxb, dwx, dwh, dgam, dbet, dgc, dbc, dc, dh)
 
 

@@ -1,4 +1,4 @@
-"""What the probe scripts share: the kernel library's launch, operand
+"""What the probe scripts share: the kernel libraries' launch, operand
 checks, the interleaved A/B timing by CUDA events."""
 
 from __future__ import annotations
@@ -7,16 +7,17 @@ import statistics
 
 import torch
 
+from sketch_rnn_tpu_torch.ops import cuda_fused as CF
 from sketch_rnn_tpu_torch.ops.cuda_decode import _require
 from sketch_rnn_tpu_torch.ops.cuda_fused import MAX_HIDDEN, WEIGHT_DTYPES
 
 
-def launch(entry, what, *args):
-    """Call ``entry`` of the ``probe_seq`` library and raise on a refused
-    launch."""
+def launch(entry, what, *args, lib="probe_seq"):
+    """Call ``entry`` of the library ``lib`` (``probe_seq`` or
+    ``probe_ln``) and raise on a refused launch."""
     from sketch_rnn_tpu_torch.ops import _build
 
-    lib = _build.load("probe_seq")
+    lib = _build.load(lib)
     _build.check(lib, getattr(lib, entry)(*args), what)
 
 
@@ -41,6 +42,21 @@ def check_direction(dev, t, b, d, xs, wx, bias, wh):
                             ("wh", wh, wx.dtype, (h, 4 * h))):
         _require(n, x, dev, dt, shape)
     return h, int(wx.dtype == torch.bfloat16)
+
+
+def check_ln(xs, wx, wh, ln, x_bias, seed, c0, h0):
+    """The LayerNorm ladder's operands (``csrc/probe_ln.cu``): the
+    LayerNorm-LSTM kernels' (``ln`` = ``(ln_gamma, ln_beta, lnc_gamma,
+    lnc_beta)``; ``c0``/``h0``, or ``h0`` twice for the backward, float32
+    ``[B, H]``), ``H >= 2`` (the stand-in stats read two columns), no
+    streamed masks. Returns ``(dev, t, b, d, h, seed_ptr, w_bf16)``."""
+    dev, t, b, d, h, _, sp, wb = CF._kernel_common(xs, wx, wh, c0, h0, None,
+                                                   seed)
+    if h < 2:
+        raise ValueError(f"hidden size {h}: the LayerNorm ladder's "
+                         f"stand-in stats read two columns")
+    CF._ln_params_check(dev, h, *ln, x_bias, b)
+    return dev, t, b, d, h, sp, wb
 
 
 def events_ms(fn, k):

@@ -683,3 +683,100 @@ def test_lstm_seq_and_probe_wrappers_refuse_bad_inputs(dev):
         pb.seq_fwd(args[0], args[2], args[3], args[4].float(), True)
     assert (cl.launch_counts(), pd.launch_counts(),
             pb.launch_counts()) == counts
+
+
+# -- the LayerNorm ladder (csrc/probe_ln.cu) ---------------------------------
+
+
+def _ladder_inputs(h, dev, wdt, rdt):
+    """The ladder's operands at tiny widths: weights of ``wdt``, LN
+    parameters away from (1, 0), x_bias, nonzero carries and cotangents,
+    dropout seeded at keep 0.9; the backward's residuals from the
+    production forward kernel in ``rdt``."""
+    from sketch_rnn_tpu_torch.ops import cuda_fused as cf
+
+    g = torch.Generator().manual_seed(h + 7)
+    r = lambda *s, sc=1.0: (torch.randn(s, generator=g) * sc).to(dev)
+    kw = dict(xs=r(FT, FB, FD), wx=r(FD, 4 * h, sc=0.4).to(wdt),
+              wh=r(h, 4 * h, sc=0.25).to(wdt), ln_gamma=1 + r(4, h, sc=0.1),
+              ln_beta=r(4, h, sc=0.1), lnc_gamma=1 + r(h, sc=0.1),
+              lnc_beta=r(h, sc=0.1), x_bias=r(FB, 4 * h, sc=0.3),
+              dropout_seed=torch.tensor(5, dtype=torch.int32, device=dev),
+              keep_prob=0.9)
+    c0, h0 = r(FB, h, sc=0.3), r(FB, h, sc=0.3)
+    hs, cs, _, _ = cf.ln_lstm_fwd(c0=c0, h0=h0, residual_dtype=rdt, **kw)
+    bkw = dict(kw, h0=h0, hs=hs, cs=cs, dhs=r(FT, FB, h, sc=0.1).to(rdt),
+               dcT=r(FB, h, sc=0.1), dhT=r(FB, h, sc=0.1))
+    return dict(kw, c0=c0, h0=h0), bkw
+
+
+@pytest.mark.parametrize("h,wdt,rdt", [
+    (16, torch.bfloat16, torch.bfloat16), (40, torch.float32, torch.float32),
+    (40, torch.bfloat16, torch.float32)])
+def test_ln_ladder_kernels_match_plain_versions(dev, h, wdt, rdt):
+    """Every forward and backward arm of csrc/probe_ln.cu against its plain
+    version (one launch each, the backward the same bit for bit run to
+    run), and the prod arms bit for bit fused_ln_lstm's kernels (its
+    backward's weight gradients rounded as that kernel rounds them)."""
+    from sketch_rnn_tpu_torch.ops import cuda_fused as cf
+    from sketch_rnn_tpu_torch.scripts import probe_dec_bwd_split as ps
+    from sketch_rnn_tpu_torch.scripts import probe_ln_stats as pl
+
+    fkw, bkw = _ladder_inputs(h, dev, wdt, rdt)
+    tol = BF_TOL if torch.bfloat16 in (wdt, rdt) else TOL
+    before = ps.launch_counts()
+    for arm in ps.FWD_ARMS:
+        got = ps.fwd_arm(arm, residual_dtype=rdt, **fkw)
+        torch.cuda.synchronize()
+        _close(got, ps.fwd_plain(arm, residual_dtype=rdt, **fkw), tol)
+        if arm == "prod":
+            want = cf.ln_lstm_fwd(residual_dtype=rdt, **fkw)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+    for arm in (*ps.ARMS, "fake"):
+        run = pl.bwd_fake if arm == "fake" else (
+            lambda a=arm, **k: ps.bwd_arm(a, **k))
+        got, again = run(**bkw), run(**bkw)
+        torch.cuda.synchronize()
+        _close([g for g in got if g is not None],
+               [p for p in ps.bwd_plain(arm, **bkw) if p is not None], tol)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        if arm == "prod":
+            want = cf.ln_lstm_bwd(**bkw)
+            got = (*got[:2], got[2].to(wdt), got[3].to(wdt), *got[4:])
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+    after = ps.launch_counts()
+    assert all(after[f"fwd_{a}"] == before[f"fwd_{a}"] + 1
+               for a in ps.FWD_ARMS)
+    assert all(after[f"bwd_{a}"] == before[f"bwd_{a}"] + 2 for a in ps.ARMS)
+
+
+def test_ln_ladder_wrappers_refuse_bad_inputs(dev):
+    from sketch_rnn_tpu_torch.scripts import probe_dec_bwd_split as ps
+    from sketch_rnn_tpu_torch.scripts import probe_ln_stats as pl
+
+    fkw, bkw = _ladder_inputs(16, dev, torch.bfloat16, torch.bfloat16)
+    counts = (ps.launch_counts(), pl.launch_counts())
+    with pytest.raises(ValueError, match="arm"):
+        ps.fwd_arm("no_lnbwd", **fkw)
+    with pytest.raises(ValueError, match="arm"):
+        ps.bwd_arm("fake", **bkw)
+    for bad in (dict(wh=fkw["wh"].float()), dict(x_bias=fkw["x_bias"][:2]),
+                dict(ln_gamma=fkw["ln_gamma"].cpu()),
+                dict(dropout_seed=fkw["dropout_seed"].long())):
+        with pytest.raises((ValueError, TypeError)):
+            ps.fwd_arm("no_ln", **dict(fkw, **bad))
+    for bad in (dict(hs=bkw["hs"].float()), dict(dcT=bkw["dcT"][:, :8]),
+                dict(dhs=bkw["dhs"][:2])):
+        with pytest.raises((ValueError, TypeError)):
+            pl.bwd_fake(**dict(bkw, **bad))
+    one = dict(fkw, wx=fkw["wx"][:, :4].contiguous(),
+               wh=fkw["wh"][:1, :4].contiguous(),
+               ln_gamma=fkw["ln_gamma"][:, :1].contiguous(),
+               ln_beta=fkw["ln_beta"][:, :1].contiguous(),
+               lnc_gamma=fkw["lnc_gamma"][:1], lnc_beta=fkw["lnc_beta"][:1],
+               x_bias=fkw["x_bias"][:, :4].contiguous(),
+               c0=fkw["c0"][:, :1].contiguous(),
+               h0=fkw["h0"][:, :1].contiguous())
+    with pytest.raises(ValueError, match="two columns"):
+        ps.fwd_arm("no_ln", **one)
+    assert (ps.launch_counts(), pl.launch_counts()) == counts

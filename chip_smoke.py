@@ -31,6 +31,12 @@ without the final line. With no CUDA device it exits 2 at once.
      FUSED_TOL of its dtype, the in-kernel dropout masks bitwise the plain
      ``prng_mask`` ones, every result identical run to run; for the
      HyperLSTM backward also its scratch and peak bytes;
+   - lstm_bwd_ab: ``srt_lstm_bwd`` (the hoisted recompute, the
+     cooperative loop, the weight pass) against the row-block design it
+     replaced, ``srt_lstm_bwd_rowblock``, at the shapes of
+     ``fused_lstm_seq`` and ``fused_lstm`` above and both dtypes: outputs
+     within FUSED_TOL of each other, both timed in turns with CUDA events,
+     and the split of the new entry into its three launches;
    - kernel_library: cuDNN's LSTM (``torch.nn.LSTM``, TF32 off) timed
      beside ``fused_lstm_seq`` and ``fused_lstm`` (over the unfolded
      inputs [x; z], D=133) as a yardstick only.
@@ -804,6 +810,75 @@ def library_times(lstm, xs, h0, c0, dhs, grad_inputs):
     return fwd, bwd, out.detach()
 
 
+AB_REPS = 5        # turns of (new, row-block, row-block, new) per A/B
+LSTM_BWD_STAGES = ("recompute", "loop", "weight_pass")
+
+
+def lstm_bwd_ab(name, dt, bargs, drop_kw, full, rows):
+    """``srt_lstm_bwd`` (the hoisted recompute, the cooperative loop, the
+    weight pass) against the row-block design it replaced,
+    ``srt_lstm_bwd_rowblock``, on the same inputs: every output within
+    FUSED_TOL of the other's, then both timed in turns with CUDA events
+    (new, old, old, new; AB_REPS turns, medians), and the new entry's
+    split: its three launches one at a time (``srt_lstm_bwd_stage``), in
+    order, each between its own events. Uncounted launches."""
+    import statistics
+
+    import torch
+
+    from sketch_rnn_tpu_torch.ops import cuda_fused as CF
+
+    run, outs = CF.lstm_bwd_entries(**bargs, **drop_kw, full=full)
+    names = [n for n, o in zip(FUSED_OUTPUTS["fused_lstm_bwd"], outs)
+             if o is not None]
+    snap = lambda: [o.clone() for o in outs if o is not None]
+    run("srt_lstm_bwd")
+    new = snap()
+    run("srt_lstm_bwd_rowblock")
+    old = snap()
+    torch.cuda.synchronize()
+    ab, rel, per = rel_errs(names, new, old)
+    if not rel <= FUSED_TOL[dt]:
+        raise AssertionError(f"{name} [{dt}]: srt_lstm_bwd vs the row-block "
+                             f"design, rel err {rel}, per output {per}")
+
+    def timed(calls):
+        evs = [torch.cuda.Event(enable_timing=True)
+               for _ in range(len(calls) + 1)]
+        evs[0].record()
+        for fn, ev in zip(calls, evs[1:]):
+            fn()
+            ev.record()
+        return evs
+
+    entry = {"new": lambda: run("srt_lstm_bwd"),
+             "old": lambda: run("srt_lstm_bwd_rowblock")}
+    stages = [lambda k=k: run("srt_lstm_bwd_stage", k) for k in (1, 2, 3)]
+    for fn in (*entry.values(), *stages):
+        fn()
+    turns, splits = [], []
+    for _ in range(AB_REPS):
+        order = ("new", "old", "old", "new")
+        turns.append((order, timed([entry[w] for w in order])))
+        splits.append(timed(stages))
+    torch.cuda.synchronize()
+    times = {"new": [], "old": []}
+    for order, evs in turns:
+        for i, w in enumerate(order):
+            times[w].append(evs[i].elapsed_time(evs[i + 1]))
+    split = {st: statistics.median(evs[i].elapsed_time(evs[i + 1])
+                                   for evs in splits)
+             for i, st in enumerate(LSTM_BWD_STAGES)}
+    res = {"ms": statistics.median(times["new"]),
+           "rowblock_ms": statistics.median(times["old"]),
+           "new_ms_all": times["new"], "rowblock_ms_all": times["old"],
+           "split_ms": split, "err_vs_rowblock": ab,
+           "rel_err_vs_rowblock": rel}
+    res["speedup"] = res["rowblock_ms"] / res["ms"]
+    rows[name][dt]["ab"] = res
+    log("lstm_bwd_ab", name=name, dtype=dt, reps=AB_REPS, **res)
+
+
 def check_lstm_seq(inp, rows):
     """fused_lstm_seq forward and backward (the encoder's forward
     direction) at B=100, T=250, H=256, dropout seeded."""
@@ -833,6 +908,7 @@ def check_lstm_seq(inp, rows):
                        lambda **k: CF.lstm_seq_bwd(**bargs, **k),
                        lambda **k: CF.lstm_seq_bwd_reference(**bargs, **k),
                        seed_kw, masks_kw, rows)
+    lstm_bwd_ab("fused_lstm_seq_bwd", dt, bargs, seed_kw, False, rows)
 
     # cuDNN's LSTM computes the same function without dropout: check it
     # does (at float32), then time its training forward and its backward
@@ -897,6 +973,7 @@ def check_lstm(inp, rows):
         "fused_lstm_bwd", dt, lambda **k: CF.lstm_bwd(**bargs, **k),
         lambda **k: CF.lstm_bwd_reference(**bargs, **k), seed_kw, masks_kw,
         rows)
+    lstm_bwd_ab("fused_lstm_bwd", dt, bargs, seed_kw, True, rows)
 
     # the same function without dropout, x_bias unfolded: cuDNN over
     # [x; z] with the full input weight, from the same (h0, c0)
@@ -2077,10 +2154,14 @@ def main():
                                "max_abs_err": v["err"],
                                **{k: v[k] for k in keys}}
                            for a, v in r["arms"].items()}
+        if "ab" in r:        # the LSTM backward's A/B and split
+            out["ab"] = r["ab"]
         for other in want - {dt}:
             o = rows[name][other]
             out["at_" + other] = {"max_abs_err": o["err"],
                                   **{k: o[k] for k in keys}}
+            if "ab" in o:
+                out["at_" + other]["ab"] = o["ab"]
         return out
 
     log("done", seconds=time.perf_counter() - t_start)

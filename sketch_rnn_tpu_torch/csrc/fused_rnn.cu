@@ -45,15 +45,49 @@
 // masks here are bitwise those of the JAX package; the backward uses the
 // forward's t. uint32 arithmetic, no fast-math.
 //
-// Design. The recurrence of a batch row never reads another row, so each
-// recurrence kernel is one block per row (grid = B) with the T loop inside
-// the block, one thread per hidden unit j (blockDim = H rounded up to a
-// warp, H <= 512): the carry (and, backwards, dh/dc) of the row lives in
-// shared memory and registers for the whole sequence. Thread j computes
-// column j of the four gates, reading row k of wh coalesced across the
-// block; layer-norm statistics are block reductions. The backward's
-// transposed product dh_{t-1} = d_pre @ wh^T (and dx = d_pre @ wx^T) gives
-// each warp whole rows of wh, read coalesced, reduced by shuffles.
+// Design of the forwards and of the LayerNorm-LSTM backward. The
+// recurrence of a batch row never reads another row, so each of these
+// kernels is one block per row (grid = B) with the T loop inside the
+// block, one thread per hidden unit j (blockDim = H rounded up to a warp,
+// H <= 512): the carry (and, backwards, dh/dc) of the row lives in shared
+// memory and registers for the whole sequence. Thread j computes column j
+// of the four gates, reading row k of wh coalesced across the block;
+// layer-norm statistics are block reductions. The LN backward's transposed
+// product dh_{t-1} = d_pre @ wh^T (and dx = d_pre @ wx^T) gives each warp
+// whole rows of wh, read coalesced, reduced by shuffles. The LSTM backward
+// ran this row-block design too (rnn_bwd_kernel<false>); it stays
+// reachable as srt_lstm_bwd_rowblock, to be held and timed beside the
+// design that replaced it.
+//
+// Design of the LSTM backward (srt_lstm_bwd): three launches.
+//  1. The hoisted gate recompute. h_{t-1} is read from the stored hs, so
+//     the recompute depends on nothing the loop computes: one tiled
+//     product computes pre = ((rnd_W(x) @ wx + b) + rnd_W(h_prev) @ wh)
+//     [+ x_bias] for all K = T*B row-steps at once (M = T*B, K = H, N =
+//     4H; the D-wide x part and the biases in the epilogue, as the two
+//     sums gate_pre adds) into the d_pre scratch. bf16 weights: mma.sync
+//     m16n8k16 on the tensor cores, cp.async double-buffered weight tiles;
+//     float weights: a SIMT tiled product (no TF32).
+//  2. The serial loop, one persistent kernel launched cooperatively: a
+//     grid of (batch tiles x slices of 16 hidden units), at most one block
+//     per SM, refused (never replaced) when it cannot co-reside. Each
+//     block keeps the wh rows of its units (all 4H columns) resident in
+//     shared memory, and the dh, dc and dx_bias sums of its (row, unit)
+//     pairs. Per step s: the gate block of each owned pair from pre[s],
+//     d_pre written over it in place; one grid barrier; then dh_{s-1} =
+//     rnd_W(d_pre[s]) @ wh^T for its rows and units (warps split the
+//     columns, a shuffle reduce-scatter, parts summed in a fixed order).
+//     The owner of (b, j) computes dh[b, j] itself, so one barrier per step
+//     is enough. d_pre is read with ld.global.cg: other blocks write it
+//     during the kernel, and an L1 line could be stale. After the last
+//     step, dxs = rnd_W(d_pre) @ wx^T has no recurrence, so every warp of
+//     the grid takes rows of it.
+//  3. The weight pass, weight_grad_kernel over the same scratch.
+// Sizing per loop step at H=512, B=100 (32 slices x 4 tiles = 128 blocks):
+// L2 reads ~ blocks x (B / tiles) x 4H x 4 B = 26 MB; shared memory per
+// block ~ 16 x 4H x sizeof(W) (128 KiB float, 64 KiB bf16) plus the pairs'
+// sums; products ~ (B / tiles) x 16 x 4H multiply-adds per block. At H=256
+// (16 slices x 8 tiles): 6.5 MB, 64 / 32 KiB.
 //
 // Weight gradients cross every row, and blocks run in no fixed order, so
 // they are NOT accumulated across blocks with atomics (whose order, and so
@@ -65,12 +99,14 @@
 // operand from xs, hs and h0 in place. It rounds d_pre to W on load for the
 // dwx/dwh rows and keeps it unrounded for the db row of ones, so the one
 // float scratch serves both. Per-row quantities need no cross-block
-// reduction: dx_bias sums d_pre over time in registers; the LN parameters'
-// gradients are summed over time per row into a [B, 10H] partials scratch
-// that a third kernel (sum_rows_kernel) adds up in row order. Every result
-// is therefore the same, bit for bit, on every run. The weight gradients
-// are written as float; the wrapper rounds them to W (the cotangent of a
-// bf16 primal), as the JAX package's custom VJP does.
+// reduction: dx_bias sums d_pre over time in registers (shared memory in
+// the LSTM loop); the LN parameters' gradients are summed over time per
+// row into a [B, 10H] partials scratch that a third kernel
+// (sum_rows_kernel) adds up in row order. Every output is summed in a
+// fixed order, with no atomics, so every result is the same,
+// bit for bit, on every run. The weight gradients are written as float;
+// the wrapper rounds them to W (the cotangent of a bf16 primal), as the
+// JAX package's custom VJP does.
 //
 // Bound on the H100 at the training shapes (B=100, T=250; the encoder at
 // H=256, the decoders at H=512, D=5): the recurrences' products are SIMT
@@ -79,13 +115,23 @@
 // ~158.9 GFLOP (including the weight-gradient products), i.e. 0.20 / 0.59 /
 // 0.79 / 2.37 ms, above the time their bytes need at 3.35 TB/s -- bound by
 // operations. With bf16 operands the same products could run on the tensor
-// cores (989 TFLOP/s dense bf16), a bound 15x lower. This first design does
-// not approach either: only B=100 of the 132 SMs hold a row, each row's
-// block re-reads wh from L2 on every step (1 MiB encoder, 4 MiB decoder at
-// float; half that at bf16; twice a step backwards), and the step-to-step
-// dependency leaves a block's memory latency exposed. Sharing weight tiles
-// across rows, tensor cores (TF32/bf16 wgmma) and TMA are later work;
-// PERF.md keeps the measured times beside these bounds.
+// cores (989 TFLOP/s dense bf16), a bound 15x lower. What bounds each part
+// of the LSTM backward: the recompute is a product of 2*T*B*H*4H FLOP
+// (52.4 GFLOP at H=512) whose 205 MB float output takes 0.06 ms at HBM
+// rate: bound by operations, 0.78 ms float (SIMT) and 0.05 ms bf16 (tensor
+// cores). The loop's T steps are serial: each is a barrier plus a
+// (B / tiles) x 16 x 4H product per block fed by L2 (the 26 MB above at
+// H=512), so latency and L2 bandwidth bound it, not the FLOP count
+// (52.4 GFLOP of SIMT work, 0.78 ms at peak). The weight pass is
+// unchanged (a SIMT product over K = T*B, 0.78 ms at peak float, run far
+// below it: PERF.md). The forwards and the LN backward keep the row-block
+// design: only B=100 of the 132 SMs hold a row, each row's block re-reads
+// wh from L2 on every step (1 MiB encoder, 4 MiB decoder at float; half
+// that at bf16; twice a step backwards), and the step-to-step dependency
+// leaves a block's memory latency exposed. PERF.md keeps the measured
+// times beside these bounds.
+
+#include <cooperative_groups.h>
 
 #include "rnn_common.cuh"
 #include "weight_grad.cuh"
@@ -368,6 +414,17 @@ cudaError_t launch_fwd(const Fwd<W, R>& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// [dwx; dwh; db] from the d_pre scratch (weight_grad.cuh)
+template <typename W, typename R>
+cudaError_t launch_weight_grad(const Bwd<W, R>& a, int ones, float* dwx,
+                               float* dwh, float* db, cudaStream_t stream) {
+  const int H = a.p.H, D = a.p.D;
+  const dim3 grid((4 * H + kTN - 1) / kTN, (D + H + ones + kTM - 1) / kTM);
+  weight_grad_kernel<W, R><<<grid, kGemmThreads, 0, stream>>>(
+      a.xs, a.h0, a.hs, a.dpre, a.T, a.B, D, H, ones, dwx, dwh, db);
+  return cudaGetLastError();
+}
+
 template <bool LN, typename W, typename R>
 cudaError_t launch_bwd(const Bwd<W, R>& a, int ones, float* dwx, float* dwh,
                        float* db, cudaStream_t stream) {
@@ -379,10 +436,622 @@ cudaError_t launch_bwd(const Bwd<W, R>& a, int ones, float* dwx, float* dwh,
   rnn_bwd_kernel<LN, W, R><<<a.B, threads_for(H), smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid((4 * H + kTN - 1) / kTN, (D + H + ones + kTM - 1) / kTM);
-  weight_grad_kernel<W, R><<<grid, kGemmThreads, 0, stream>>>(
-      a.xs, a.h0, a.hs, a.dpre, a.T, a.B, D, H, ones, dwx, dwh, db);
+  return launch_weight_grad(a, ones, dwx, dwh, db, stream);
+}
+
+// ---------------------------------------------------------------------------
+// The LSTM backward of srt_lstm_bwd: three launches (header, "Design").
+
+// 1. The hoisted gate recompute. Its left operand is h_{t-1} of row-step
+// m = t * B + b: the stored value (h0 rounded to R at t = 0), rounded to W.
+template <typename W, typename R>
+__device__ __forceinline__ float h_prev(const Bwd<W, R>& a, int m, int k) {
+  const int H = a.p.H;
+  return rnd<W>(m < a.B ? rnd<R>(a.h0[(size_t)m * H + k])
+                        : to_f(a.hs[(size_t)(m - a.B) * H + k]));
+}
+
+// Output (m, n) of the recompute from the h-part hp: the two sums of
+// gate_pre, ((x_m @ wx[:, n] + b[n]) + hp) [+ xb[b, n]].
+template <typename W, typename R>
+__device__ __forceinline__ float pre_out(const Bwd<W, R>& a, int m, int n,
+                                         float hp) {
+  const Cell<W>& p = a.p;
+  const int G = 4 * p.H;
+  const float* x = a.xs + (size_t)m * p.D;
+  float xp = 0.0f;
+  for (int q = 0; q < p.D; ++q)
+    xp = fmaf(rnd<W>(x[q]), to_f(p.wx[(size_t)q * G + n]), xp);
+  if (p.b != nullptr) xp = xp + p.b[n];
+  float v = xp + hp;
+  if (p.xb != nullptr) v = v + p.xb[(size_t)(m % a.B) * G + n];
+  return v;
+}
+
+// Float weights: a SIMT tiled product (no TF32: it would round operands
+// the float contract keeps). 128 x 128 outputs per block, 256 threads of
+// 8 x 8, k in chunks of 8 in order, the next chunk loaded into registers
+// while this one is multiplied.
+constexpr int kRcM = 128, kRcN = 128, kRcK = 8, kRcThreads = 256;
+
+template <typename W, typename R>
+__global__ void __launch_bounds__(kRcThreads)
+recompute_simt_kernel(Bwd<W, R> a) {
+  __shared__ __align__(16) float sA[2][kRcK][kRcM];
+  __shared__ __align__(16) float sB[2][kRcK][kRcN];
+  const int H = a.p.H, G = 4 * H, M = a.T * a.B;
+  const int m0 = blockIdx.y * kRcM, n0 = blockIdx.x * kRcN;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int am = tid >> 1, ak = (tid & 1) * 4;   // A: 4 k of one row
+  const int bk = tid >> 5, bn = (tid & 31) * 4;  // B: 4 n of one k
+  float ra[4], rb[4];
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = m0 + am, k = k0 + ak + i;
+      ra[i] = (m < M && k < H) ? h_prev(a, m, k) : 0.0f;
+      const int kb = k0 + bk, n = n0 + bn + i;
+      rb[i] = (kb < H && n < G) ? to_f(a.p.wh[(size_t)kb * G + n]) : 0.0f;
+    }
+  };
+  auto store = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      sA[buf][ak + i][am] = ra[i];
+      sB[buf][bk][bn + i] = rb[i];
+    }
+  };
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  load(0);
+  store(0);
+  __syncthreads();
+  int buf = 0;
+  for (int k0 = 0; k0 < H; k0 += kRcK) {
+    const bool more = k0 + kRcK < H;
+    if (more) load(k0 + kRcK);
+#pragma unroll
+    for (int kk = 0; kk < kRcK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&sA[buf][kk][ty * 4]);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(&sA[buf][kk][64 + ty * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&sB[buf][kk][tx * 4]);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(&sB[buf][kk][64 + tx * 4]);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    if (more) store(buf ^ 1);
+    __syncthreads();
+    buf ^= 1;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
+      if (n < G) a.dpre[(size_t)m * G + n] = pre_out(a, m, n, acc[i][j]);
+    }
+  }
+}
+
+// bf16 weights: the tensor cores, mma.sync m16n8k16 (bf16 operands, float
+// sums: a product of two bf16 values is exact in float, so only the order
+// of the float sums differs from the plain version). 128 x 128 outputs per
+// block, 8 warps of 64 x 32, k in chunks of 32, two buffers: the weight
+// tile arrives by cp.async, the h tile through registers (it is gathered
+// and rounded on the way), the next chunk's copies in flight while this
+// one is multiplied. Rows padded by 8 bf16 so ldmatrix is free of bank
+// conflicts.
+constexpr int kMmM = 128, kMmN = 128, kMmK = 32, kMmThreads = 256;
+constexpr int kAPad = kMmK + 8, kBPad = kMmN + 8;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <typename R>
+__global__ void __launch_bounds__(kMmThreads)
+recompute_mma_kernel(Bwd<bf16, R> a) {
+  __shared__ __align__(16) bf16 sA[2][kMmM][kAPad];
+  __shared__ __align__(16) bf16 sB[2][kMmK][kBPad];
+  const int H = a.p.H, G = 4 * H, M = a.T * a.B;
+  const int m0 = blockIdx.y * kMmM, n0 = blockIdx.x * kMmN;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+  const int am = tid >> 1, ak = (tid & 1) * 16;  // A: 16 k of one row
+  // 16-byte copies of whole chunks need 16-byte aligned rows
+  const bool vec_b =
+      G % 8 == 0 && (reinterpret_cast<uintptr_t>(a.p.wh) & 15) == 0;
+  const bool vec_a = sizeof(R) == 2 && H % 8 == 0 &&
+                     (reinterpret_cast<uintptr_t>(a.hs) & 15) == 0;
+  uint4 ra[2];
+  auto load_a = [&](int k0) {
+    const int m = m0 + am, k = k0 + ak;
+    if (vec_a && m >= a.B && m < M && k + 16 <= H) {
+      // bf16 residuals are bf16 already: copied as they are
+      const uint4* src = reinterpret_cast<const uint4*>(
+          a.hs + (size_t)(m - a.B) * H + k);
+      ra[0] = src[0];
+      ra[1] = src[1];
+      return;
+    }
+    bf16* r = reinterpret_cast<bf16*>(ra);
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      r[i] = __float2bfloat16_rn((m < M && k + i < H) ? h_prev(a, m, k + i)
+                                                      : 0.0f);
+  };
+  auto store_a = [&](int buf) {
+    uint4* dst = reinterpret_cast<uint4*>(&sA[buf][am][ak]);
+    dst[0] = ra[0];
+    dst[1] = ra[1];
+  };
+  auto load_b = [&](int k0, int buf) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int c = tid + i * kMmThreads;
+      const int kk = c >> 4, nn = (c & 15) * 8;
+      const int k = k0 + kk, n = n0 + nn;
+      bf16* dst = &sB[buf][kk][nn];
+      if (vec_b && k < H && n + 8 <= G) {
+        cp_async16(dst, a.p.wh + (size_t)k * G + n);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          dst[e] = (k < H && n + e < G) ? a.p.wh[(size_t)k * G + n + e]
+                                        : __float2bfloat16_rn(0.0f);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+  load_a(0);
+  load_b(0, 0);
+  store_a(0);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+  int buf = 0;
+  for (int k0 = 0; k0 < H; k0 += kMmK) {
+    const bool more = k0 + kMmK < H;
+    if (more) {
+      load_a(k0 + kMmK);
+      load_b(k0 + kMmK, buf ^ 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kMmK; kk += 16) {
+      uint32_t af[4][4], bfr[4][2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        ldmatrix_x4(af[i],
+                    &sA[buf][wm + i * 16 + (lane & 15)][kk + (lane >> 4) * 8]);
+#pragma unroll
+      for (int jp = 0; jp < 2; ++jp) {
+        uint32_t r[4];
+        ldmatrix_x4_trans(
+            r, &sB[buf][kk + (lane & 7) + ((lane >> 3) & 1) * 8]
+                  [wn + jp * 16 + (lane >> 4) * 8]);
+        bfr[2 * jp][0] = r[0];
+        bfr[2 * jp][1] = r[1];
+        bfr[2 * jp + 1][0] = r[2];
+        bfr[2 * jp + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma_bf16(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
+    }
+    if (more) {
+      store_a(buf ^ 1);
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    }
+    __syncthreads();
+    buf ^= 1;
+  }
+  // accumulator (i, j): rows wm + 16 i + lane / 4 (+ 8), columns
+  // wn + 8 j + 2 (lane % 4) (+ 1)
+  const int gr = lane >> 2, gc = (lane & 3) * 2;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int m = m0 + wm + i * 16 + gr + hh * 8;
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = n0 + wn + j * 8 + gc + e;
+          if (n < G)
+            a.dpre[(size_t)m * G + n] = pre_out(a, m, n, acc[i][j][hh * 2 + e]);
+        }
+    }
+}
+
+template <typename W, typename R>
+cudaError_t launch_recompute(const Bwd<W, R>& a, cudaStream_t stream) {
+  const int G = 4 * a.p.H, M = a.T * a.B;
+  if (M == 0) return cudaSuccess;
+  if constexpr (sizeof(W) == 2) {
+    const dim3 grid((G + kMmN - 1) / kMmN, (M + kMmM - 1) / kMmM);
+    recompute_mma_kernel<R><<<grid, kMmThreads, 0, stream>>>(a);
+  } else {
+    const dim3 grid((G + kRcN - 1) / kRcN, (M + kRcM - 1) / kRcM);
+    recompute_simt_kernel<W, R><<<grid, kRcThreads, 0, stream>>>(a);
+  }
   return cudaGetLastError();
+}
+
+// 2. The serial loop, one persistent cooperative kernel. Block (tile,
+// slice) owns the batch rows of its tile and the hidden units of its
+// slice (kUnits at most): their dh, dc and dx_bias sums stay in its shared
+// memory for the whole sequence, and so do the wh rows of its units, all
+// 4H columns. Per step: the gate block of each owned (b, j) from the
+// recomputed pre (read and overwritten by d_pre in place), one grid
+// barrier, then dh_{s-1}[b, k] = sum_c rnd_W(d_pre[s, b, c]) wh[k, c] for
+// its rows b and units k. d_pre is written by other blocks during this
+// kernel, so it is read with ld.global.cg (L2, never a stale L1 line).
+constexpr int kLoopThreads = 256, kLoopWarps = kLoopThreads / 32;
+constexpr int kUnits = 16;  // hidden units (wh rows) per slice
+constexpr int kBGroup = 4;  // batch rows per warp task
+
+// Sum 32 lanes' v[64] so that lane l ends with the sums of v[2 l] and
+// v[2 l + 1] in v[0], v[1]: halve, exchange, add, five times.
+template <int HALF, int O, int N>
+__device__ __forceinline__ void rs_stage(float (&v)[N], int lane) {
+  const bool up = (lane & O) != 0;
+#pragma unroll
+  for (int i = 0; i < HALF; ++i) {
+    const float lo = v[i], hi = v[i + HALF];
+    const float keep = up ? hi : lo;
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, up ? lo : hi, O);
+  }
+}
+
+// one quad (4 columns) of a resident weight row, as float
+__device__ __forceinline__ float4 quad(const float* w) {
+  return *reinterpret_cast<const float4*>(w);
+}
+__device__ __forceinline__ float4 quad(const bf16* w) {
+  const uint2 r = *reinterpret_cast<const uint2*>(w);
+  return make_float4(__uint_as_float(r.x << 16),
+                     __uint_as_float(r.x & 0xffff0000u),
+                     __uint_as_float(r.y << 16),
+                     __uint_as_float(r.y & 0xffff0000u));
+}
+
+template <typename W>
+__device__ __forceinline__ float4 rnd4(float4 v) {
+  return make_float4(rnd<W>(v.x), rnd<W>(v.y), rnd<W>(v.z), rnd<W>(v.w));
+}
+
+template <typename W, typename R>
+__global__ void __launch_bounds__(kLoopThreads)
+lstm_bwd_loop_kernel(Bwd<W, R> a, int slices, int tiles, int parts) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Cell<W>& p = a.p;
+  const int H = p.H, G = 4 * H, B = a.B, D = p.D;
+  const int sl = blockIdx.x % slices, bt = blockIdx.x / slices;
+  const int j0 = sl * H / slices, nu = (sl + 1) * H / slices - j0;
+  const int b0 = bt * B / tiles, nb = (bt + 1) * B / tiles - b0;
+  const int nb_max = (B + tiles - 1) / tiles;
+  W* s_w = reinterpret_cast<W*>(smem_raw);  // [kUnits][4H], zero past nu
+  float* s_dh = reinterpret_cast<float*>(smem_raw + kUnits * G * sizeof(W));
+  float* s_dc = s_dh + nb_max * kUnits;        // [nb_max][kUnits]
+  float* s_xb = s_dc + nb_max * kUnits;        // [nb_max][kUnits][4]
+  float* s_part = s_xb + 4 * nb_max * kUnits;  // [parts][nb_max][kUnits]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const uint32_t seed = a.drop.seed != nullptr ? (uint32_t)*a.drop.seed : 0u;
+
+  for (int e = tid; e < kUnits * G; e += kLoopThreads) {
+    const int k = e / G, c = e - k * G;
+    s_w[e] = k < nu ? p.wh[(size_t)(j0 + k) * G + c] : from_f<W>(0.0f);
+  }
+  // pair q = (row b0 + q / kUnits, unit j0 + q % kUnits), real when the
+  // unit is below nu; each thread keeps the same pairs throughout
+  const int npairs = nb * kUnits;
+  for (int q = tid; q < npairs; q += kLoopThreads) {
+    const int u = q % kUnits;
+    const size_t at = (size_t)(b0 + q / kUnits) * H + j0 + u;
+    s_dh[q] = (u < nu && a.dhT != nullptr) ? a.dhT[at] : 0.0f;
+    s_dc[q] = (u < nu && a.dcT != nullptr) ? a.dcT[at] : 0.0f;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) s_xb[4 * q + g] = 0.0f;
+  }
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const int ntasks = (nb + kBGroup - 1) / kBGroup * parts;
+
+  for (int s = a.T - 1; s >= 0; --s) {
+    for (int q = tid; q < npairs; q += kLoopThreads) {
+      const int u = q % kUnits;
+      if (u >= nu) continue;
+      const int row = b0 + q / kUnits, j = j0 + u;
+      const size_t at = ((size_t)s * B + row) * H + j;
+      float* dpr = a.dpre + ((size_t)s * B + row) * G;
+      float pre[4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) pre[g] = __ldcg(dpr + g * H + j);
+      const float c_prev = to_f(a.cs[at]);
+      const float dh_tot = s_dh[q] + to_f(a.dhs[at]);
+      const float dc = s_dc[q];
+      const float m = dropout_mask(a.drop, seed, s, B, row, H, j);
+      const float i = sigmoidf_(pre[0]), gu = tanhf(pre[1]);
+      const float f = sigmoidf_(pre[2] + p.forget_bias), o = sigmoidf_(pre[3]);
+      const float nc = c_prev * f + i * (gu * m);
+      const float tanh_c = tanhf(nc);
+      const float dcv = dc + dh_tot * o * (1.0f - tanh_c * tanh_c);
+      const float do_ = dh_tot * tanh_c;
+      const float df = dcv * c_prev;
+      const float di = dcv * (gu * m);
+      const float dgu = dcv * i * m;
+      const float dp[4] = {di * i * (1.0f - i), dgu * (1.0f - gu * gu),
+                           df * f * (1.0f - f), do_ * o * (1.0f - o)};
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        dpr[g * H + j] = dp[g];
+        s_xb[4 * q + g] += dp[g];
+      }
+      s_dc[q] = dcv * f;
+    }
+    grid.sync();  // d_pre[s] complete across the grid
+    // warp task: kBGroup rows x kUnits units over one part of the 4H
+    // columns, taken a quad (4 columns) at a time by the lanes in turn
+    for (int task = warp; task < ntasks; task += kLoopWarps) {
+      const int grp = task / parts, part = task - grp * parts;
+      const int q_lo = part * H / parts, q_hi = (part + 1) * H / parts;
+      const float4* rows[kBGroup];
+      bool valid[kBGroup];
+#pragma unroll
+      for (int r = 0; r < kBGroup; ++r) {
+        const int bl = grp * kBGroup + r;
+        valid[r] = bl < nb;
+        rows[r] = reinterpret_cast<const float4*>(
+            a.dpre + ((size_t)s * B + b0 + (valid[r] ? bl : 0)) * G);
+      }
+      float acc[kBGroup * kUnits];
+#pragma unroll
+      for (int e = 0; e < kBGroup * kUnits; ++e) acc[e] = 0.0f;
+      for (int qd = q_lo + lane; qd < q_hi; qd += 32) {
+        float4 d[kBGroup];
+#pragma unroll
+        for (int r = 0; r < kBGroup; ++r)
+          d[r] = valid[r] ? rnd4<W>(__ldcg(rows[r] + qd))
+                          : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+        for (int k = 0; k < kUnits; ++k) {
+          const float4 w = quad(s_w + (size_t)k * G + 4 * qd);
+#pragma unroll
+          for (int r = 0; r < kBGroup; ++r) {
+            float v = acc[r * kUnits + k];
+            v = fmaf(d[r].x, w.x, v);
+            v = fmaf(d[r].y, w.y, v);
+            v = fmaf(d[r].z, w.z, v);
+            acc[r * kUnits + k] = fmaf(d[r].w, w.w, v);
+          }
+        }
+      }
+      rs_stage<32, 16>(acc, lane);
+      rs_stage<16, 8>(acc, lane);
+      rs_stage<8, 4>(acc, lane);
+      rs_stage<4, 2>(acc, lane);
+      rs_stage<2, 1>(acc, lane);
+      // lane l holds entries 2 l, 2 l + 1: row l / 8, units 2 (l % 8) + 0, 1
+      const int bl = grp * kBGroup + (lane >> 3), k = (lane & 7) * 2;
+      if (bl < nb) {
+        float* dst = s_part + ((size_t)part * nb_max + bl) * kUnits + k;
+        dst[0] = acc[0];
+        dst[1] = acc[1];
+      }
+    }
+    __syncthreads();  // every part of this step's dh written
+    for (int q = tid; q < npairs; q += kLoopThreads) {
+      float sum = 0.0f;
+      for (int pt = 0; pt < parts; ++pt)
+        sum += s_part[(size_t)pt * nb_max * kUnits + q];
+      s_dh[q] = sum;
+    }
+  }
+  // dxs = d_pre @ wx^T for every row-step: no recurrence, so all warps of
+  // the grid share its rows (every d_pre was written before the last
+  // grid barrier)
+  if (a.dxs != nullptr) {
+    const size_t rows_all = (size_t)a.T * B;
+    const size_t nwg = (size_t)gridDim.x * kLoopWarps;
+    for (size_t mr = (size_t)blockIdx.x * kLoopWarps + warp; mr < rows_all;
+         mr += nwg) {
+      const float4* row = reinterpret_cast<const float4*>(a.dpre + mr * G);
+      for (int q0 = 0; q0 < D; q0 += 8) {
+        float acc[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[e] = 0.0f;
+        for (int qd = lane; qd < H; qd += 32) {
+          const float4 dv = rnd4<W>(__ldcg(row + qd));
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            if (q0 + e < D) {
+              const W* w = p.wx + (size_t)(q0 + e) * G + 4 * qd;
+              float v = fmaf(dv.x, to_f(w[0]), acc[e]);
+              v = fmaf(dv.y, to_f(w[1]), v);
+              v = fmaf(dv.z, to_f(w[2]), v);
+              acc[e] = fmaf(dv.w, to_f(w[3]), v);
+            }
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1)
+            acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], off);
+          if (lane == e && q0 + e < D) a.dxs[mr * D + q0 + e] = acc[e];
+        }
+      }
+    }
+  }
+  for (int q = tid; q < npairs; q += kLoopThreads) {
+    const int u = q % kUnits;
+    if (u >= nu) continue;
+    const int row = b0 + q / kUnits, j = j0 + u;
+    if (a.dc0 != nullptr) {
+      a.dc0[(size_t)row * H + j] = s_dc[q];
+      a.dh0[(size_t)row * H + j] = s_dh[q];
+    }
+    if (a.dxb != nullptr) {
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        a.dxb[(size_t)row * G + g * H + j] = s_xb[4 * q + g];
+    }
+  }
+}
+
+// The loop's grid: slices of kUnits hidden units, then as many batch tiles
+// as fill the SMs once; an error, never a fallback, when that many blocks
+// cannot co-reside. Warp tasks split the columns into parts when the
+// tile's row groups would leave warps idle.
+struct LoopGrid {
+  int slices, tiles, parts;
+  size_t smem;
+};
+
+template <typename W>
+LoopGrid loop_grid(int B, int H, int sms) {
+  LoopGrid g;
+  g.slices = (H + kUnits - 1) / kUnits;
+  const int fill = sms / g.slices > 0 ? sms / g.slices : 1;
+  g.tiles = B < fill ? B : fill;
+  const int nb_max = (B + g.tiles - 1) / g.tiles;
+  const int groups = (nb_max + kBGroup - 1) / kBGroup;
+  g.parts = kLoopWarps / groups;
+  if (g.parts > H / 32) g.parts = H / 32;
+  if (g.parts < 1) g.parts = 1;
+  g.smem = (size_t)kUnits * 4 * H * sizeof(W) +
+           (size_t)nb_max * kUnits * (6 + g.parts) * sizeof(float);
+  return g;
+}
+
+template <typename W, typename R>
+cudaError_t launch_loop(const Bwd<W, R>& a, cudaStream_t stream) {
+  if (a.B < 1) return cudaErrorInvalidValue;
+  int dev = 0, sms = 0, occ = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  LoopGrid g = loop_grid<W>(a.B, a.p.H, sms);
+  const void* fn = (const void*)lstm_bwd_loop_kernel<W, R>;
+  err = set_smem(fn, g.smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fn, kLoopThreads,
+                                                        g.smem);
+  if (err != cudaSuccess) return err;
+  if ((long)occ * sms < (long)g.slices * g.tiles)
+    return cudaErrorCooperativeLaunchTooLarge;
+  Bwd<W, R> args = a;
+  void* params[] = {&args, &g.slices, &g.tiles, &g.parts};
+  return cudaLaunchCooperativeKernel(fn, dim3(g.slices * g.tiles),
+                                     dim3(kLoopThreads), params, g.smem,
+                                     stream);
+}
+
+// The three launches in order (stage 0), or one of them (1, 2 or 3).
+template <typename W, typename R>
+cudaError_t launch_lstm_bwd(const Bwd<W, R>& a, int stage, float* dwx,
+                            float* dwh, float* db, cudaStream_t stream) {
+  if (a.p.H < 1 || a.p.H > kMaxThreads || stage < 0 || stage > 3)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSuccess;
+  if (stage == 0 || stage == 1) err = launch_recompute(a, stream);
+  if (err == cudaSuccess && (stage == 0 || stage == 2))
+    err = launch_loop(a, stream);
+  if (err == cudaSuccess && (stage == 0 || stage == 3))
+    err = launch_weight_grad(a, 1, dwx, dwh, db, stream);
+  return err;
+}
+
+// srt_lstm_bwd's arguments as a Bwd, and stage (0: the three launches,
+// 1-3: one of them) or, for stage -1, the row-block design.
+cudaError_t lstm_bwd_any(int stage, const float* xs, const float* xb,
+                         const void* wx, const float* b, const void* wh,
+                         const float* h0, const void* hs, const void* cs,
+                         const void* dhs, const float* dcT, const float* dhT,
+                         const float* masks, const int* seed, int T, int B,
+                         int D, int H, int w_bf16, int r_bf16, float keep,
+                         float inv_keep, float forget_bias, float* dpre,
+                         float* dxs, float* dxb, float* dwx, float* db,
+                         float* dwh, float* dc0, float* dh0, void* stream) {
+  return with_types(w_bf16, r_bf16, [&](auto w, auto r) {
+    using W = decltype(w);
+    using R = decltype(r);
+    Bwd<W, R> a;
+    a.p = make_cell<W>(wx, wh, b, xb, nullptr, nullptr, nullptr, nullptr, D,
+                       H, forget_bias);
+    a.xs = xs;
+    a.h0 = h0;
+    a.hs = static_cast<const R*>(hs);
+    a.cs = static_cast<const R*>(cs);
+    a.dhs = static_cast<const R*>(dhs);
+    a.dcT = dcT;
+    a.dhT = dhT;
+    a.drop = make_dropout(masks, seed, keep, inv_keep);
+    a.dpre = dpre;
+    a.dxs = dxs;
+    a.dxb = dxb;
+    a.dc0 = dc0;
+    a.dh0 = dh0;
+    a.part = nullptr;
+    a.T = T;
+    a.B = B;
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (stage < 0) return launch_bwd<false>(a, 1, dwx, dwh, db, st);
+    return launch_lstm_bwd(a, stage, dwx, dwh, db, st);
+  });
 }
 
 }  // namespace
@@ -429,7 +1098,9 @@ int srt_lstm_fwd(const float* xs, const float* xb, const void* wx,
   });
 }
 
-// dcT, dhT, dxs, dxb, dc0, dh0: or null.
+// dcT, dhT, dxs, dxb, dc0, dh0: or null. The hoisted recompute, the
+// cooperative loop and the weight pass; a grid that cannot co-reside is
+// cudaErrorCooperativeLaunchTooLarge.
 int srt_lstm_bwd(const float* xs, const float* xb, const void* wx,
                  const float* b, const void* wh, const float* h0,
                  const void* hs, const void* cs, const void* dhs,
@@ -438,30 +1109,43 @@ int srt_lstm_bwd(const float* xs, const float* xb, const void* wx,
                  int r_bf16, float keep, float inv_keep, float forget_bias,
                  float* dpre, float* dxs, float* dxb, float* dwx, float* db,
                  float* dwh, float* dc0, float* dh0, void* stream) {
-  return (int)with_types(w_bf16, r_bf16, [&](auto w, auto r) {
-    using W = decltype(w);
-    using R = decltype(r);
-    Bwd<W, R> a;
-    a.p = make_cell<W>(wx, wh, b, xb, nullptr, nullptr, nullptr, nullptr, D,
-                       H, forget_bias);
-    a.xs = xs;
-    a.h0 = h0;
-    a.hs = static_cast<const R*>(hs);
-    a.cs = static_cast<const R*>(cs);
-    a.dhs = static_cast<const R*>(dhs);
-    a.dcT = dcT;
-    a.dhT = dhT;
-    a.drop = make_dropout(masks, seed, keep, inv_keep);
-    a.dpre = dpre;
-    a.dxs = dxs;
-    a.dxb = dxb;
-    a.dc0 = dc0;
-    a.dh0 = dh0;
-    a.part = nullptr;
-    a.T = T;
-    a.B = B;
-    return launch_bwd<false>(a, 1, dwx, dwh, db, (cudaStream_t)stream);
-  });
+  return (int)lstm_bwd_any(0, xs, xb, wx, b, wh, h0, hs, cs, dhs, dcT, dhT,
+                           masks, seed, T, B, D, H, w_bf16, r_bf16, keep,
+                           inv_keep, forget_bias, dpre, dxs, dxb, dwx, db,
+                           dwh, dc0, dh0, stream);
+}
+
+// One of srt_lstm_bwd's three launches (stage 1: recompute, 2: loop, 3:
+// weight pass), on the same arguments, to time them apart.
+int srt_lstm_bwd_stage(int stage, const float* xs, const float* xb,
+                       const void* wx, const float* b, const void* wh, const float* h0,
+                 const void* hs, const void* cs, const void* dhs,
+                 const float* dcT, const float* dhT, const float* masks,
+                 const int* seed, int T, int B, int D, int H, int w_bf16,
+                 int r_bf16, float keep, float inv_keep, float forget_bias,
+                 float* dpre, float* dxs, float* dxb, float* dwx, float* db,
+                 float* dwh, float* dc0, float* dh0, void* stream) {
+  if (stage < 1 || stage > 3) return (int)cudaErrorInvalidValue;
+  return (int)lstm_bwd_any(stage, xs, xb, wx, b, wh, h0, hs, cs, dhs, dcT, dhT,
+                           masks, seed, T, B, D, H, w_bf16, r_bf16, keep,
+                           inv_keep, forget_bias, dpre, dxs, dxb, dwx, db,
+                           dwh, dc0, dh0, stream);
+}
+
+// The row-block design srt_lstm_bwd replaced (rnn_bwd_kernel<false>, then
+// the weight pass), kept to be held and timed beside it.
+int srt_lstm_bwd_rowblock(const float* xs, const float* xb, const void* wx,
+                 const float* b, const void* wh, const float* h0,
+                 const void* hs, const void* cs, const void* dhs,
+                 const float* dcT, const float* dhT, const float* masks,
+                 const int* seed, int T, int B, int D, int H, int w_bf16,
+                 int r_bf16, float keep, float inv_keep, float forget_bias,
+                 float* dpre, float* dxs, float* dxb, float* dwx, float* db,
+                 float* dwh, float* dc0, float* dh0, void* stream) {
+  return (int)lstm_bwd_any(-1, xs, xb, wx, b, wh, h0, hs, cs, dhs, dcT, dhT,
+                           masks, seed, T, B, D, H, w_bf16, r_bf16, keep,
+                           inv_keep, forget_bias, dpre, dxs, dxb, dwx, db,
+                           dwh, dc0, dh0, stream);
 }
 
 int srt_ln_lstm_fwd(const float* xs, const float* xb, const void* wx,

@@ -50,6 +50,9 @@ SIGNATURES = {
     "fused_rnn": {
         "srt_lstm_fwd": [_P] * 9 + [_I] * 6 + [_F] * 3 + [_P] * 5,
         "srt_lstm_bwd": [_P] * 13 + [_I] * 6 + [_F] * 3 + [_P] * 9,
+        "srt_lstm_bwd_stage": [_I] + [_P] * 13 + [_I] * 6 + [_F] * 3
+        + [_P] * 9,
+        "srt_lstm_bwd_rowblock": [_P] * 13 + [_I] * 6 + [_F] * 3 + [_P] * 9,
         "srt_ln_lstm_fwd": [_P] * 12 + [_I] * 6 + [_F] * 3 + [_P] * 5,
         "srt_ln_lstm_bwd": [_P] * 16 + [_I] * 6 + [_F] * 3 + [_P] * 10,
     },

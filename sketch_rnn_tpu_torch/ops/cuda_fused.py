@@ -30,7 +30,9 @@ that training runs. Eight hand-written CUDA kernels (``csrc/fused_rnn.cu``,
 All keep the Pallas kernels' memory contract: no ``[T, B, 4H]`` gate
 buffer and no mask buffer exist in the forward; it saves only ``hs`` and
 the pre-step cell states ``cs``, and the backward recomputes the gates
-from ``(x, h_prev, c_prev)`` walking time backwards. Recurrent dropout on
+from ``(x, h_prev, c_prev)`` walking time backwards (the LSTM backward
+hoists that recompute out of its loop, into the ``d_pre`` scratch it
+then overwrites: ``csrc/fused_rnn.cu``'s header). Recurrent dropout on
 the candidate ``g`` is either streamed ``masks [T, B, H]`` or drawn in
 the kernel from ``dropout_seed`` by :func:`prng_mask`, whose counter does
 not depend on any tiling, so the CUDA kernels reproduce the JAX package's
@@ -798,16 +800,22 @@ def _lstm_fwd_kernel(counter, xs, wx, b, wh, c0, h0, forget_bias, masks,
     return hs, cs, cT, hT
 
 
-def _lstm_bwd_kernel(counter, xs, wx, b, wh, h0, hs, cs, dhs, dcT, dhT,
-                     forget_bias, masks, seed, keep_prob, x_bias, full):
+def _lstm_bwd_args(xs, wx, b, wh, h0, hs, cs, dhs, dcT, dhT, forget_bias,
+                   masks, seed, keep_prob, x_bias, full):
+    """Check the LSTM backward's inputs and allocate its outputs and its
+    ``d_pre`` scratch: ``(args, outs, dpre)``, the arguments of the
+    ``srt_lstm_bwd*`` entries, ``(dxs, dxb, dwx, db, dwh, dc0, dh0)``
+    (the weight gradients float32, ``None`` where not ``full``) and the
+    scratch, which the caller keeps alive while the launches use it
+    (``args`` holds only its address)."""
     dev, t, bsz, d, h, mp, sp, wb = _kernel_common(xs, wx, wh, h0, h0,
                                                    masks, seed)
     rb = _residuals_check(dev, t, bsz, h, hs, cs, dhs)
     _f32_check(dev, (("b", b, (4 * h,)), ("x_bias", x_bias, (bsz, 4 * h)),
                      ("dcT", dcT, (bsz, h)), ("dhT", dhT, (bsz, h))))
     f32 = torch.float32
-    # scratch: the pre-activation gradients of every step (float32,
-    # unrounded), read by the weight-gradient pass
+    # scratch: the recomputed pre-activations of every step, overwritten
+    # by their gradients (float32, unrounded), read by the weight pass
     dpre = torch.empty((t, bsz, 4 * h), dtype=f32, device=dev)
     dwx = torch.empty(wx.shape, dtype=f32, device=dev)
     dwh = torch.empty(wh.shape, dtype=f32, device=dev)
@@ -818,14 +826,48 @@ def _lstm_bwd_kernel(counter, xs, wx, b, wh, h0, hs, cs, dhs, dcT, dhT,
         dc0 = torch.empty((bsz, h), dtype=f32, device=dev)
         dh0 = torch.empty_like(dc0)
         dxb = torch.empty_like(x_bias) if x_bias is not None else None
-    _launch("srt_lstm_bwd", counter.replace("_", " "), counter,
-            xs.data_ptr(), _ptr(x_bias), wx.data_ptr(), b.data_ptr(),
+    args = (xs.data_ptr(), _ptr(x_bias), wx.data_ptr(), b.data_ptr(),
             wh.data_ptr(), h0.data_ptr(), hs.data_ptr(), cs.data_ptr(),
             dhs.data_ptr(), _ptr(dcT), _ptr(dhT), mp, sp, t, bsz, d, h, wb,
             rb, *_keep_args(keep_prob), float(forget_bias), dpre.data_ptr(),
             _ptr(dxs), _ptr(dxb), dwx.data_ptr(), db.data_ptr(),
             dwh.data_ptr(), _ptr(dc0), _ptr(dh0), _stream(dev))
+    return args, (dxs, dxb, dwx, db, dwh, dc0, dh0), dpre
+
+
+def _lstm_bwd_kernel(counter, xs, wx, b, wh, h0, hs, cs, dhs, dcT, dhT,
+                     forget_bias, masks, seed, keep_prob, x_bias, full):
+    args, (dxs, dxb, dwx, db, dwh, dc0, dh0), dpre = _lstm_bwd_args(
+        xs, wx, b, wh, h0, hs, cs, dhs, dcT, dhT, forget_bias, masks, seed,
+        keep_prob, x_bias, full)
+    _launch("srt_lstm_bwd", counter.replace("_", " "), counter, *args)
     return dxs, dxb, dwx.to(wx.dtype), db, dwh.to(wh.dtype), dc0, dh0
+
+
+def lstm_bwd_entries(xs, wx, b, wh, h0, hs, cs, dhs, dcT=None, dhT=None,
+                     forget_bias=1.0, masks=None, dropout_seed=None,
+                     keep_prob=1.0, x_bias=None, full=True):
+    """The C entries behind :func:`lstm_bwd` (``full``) and
+    :func:`lstm_seq_bwd` on CUDA tensors, for the A/B of the backward's
+    two designs; no wrapper calls it, and it counts no launch. Returns
+    ``(run, outs)``: ``run(entry, stage=0)`` launches ``"srt_lstm_bwd"``
+    (the three launches), ``"srt_lstm_bwd_rowblock"`` (the row-block
+    design it replaced) or, with ``stage`` 1-3, ``"srt_lstm_bwd_stage"``
+    (the recompute, the loop or the weight pass alone), all on one set of
+    buffers; ``outs`` are ``(dxs, dxb, dwx, db, dwh, dc0, dh0)`` as the
+    last launches left them (the weight gradients float32)."""
+    from sketch_rnn_tpu_torch.ops import _build
+
+    args, outs, dpre = _lstm_bwd_args(xs, wx, b, wh, h0, hs, cs, dhs, dcT,
+                                      dhT, forget_bias, masks, dropout_seed,
+                                      keep_prob, x_bias, full)
+    lib = _build.load("fused_rnn")
+
+    def run(entry, stage=0, _scratch=dpre):     # holds the scratch
+        pre = (stage,) if entry == "srt_lstm_bwd_stage" else ()
+        _build.check(lib, getattr(lib, entry)(*pre, *args), entry)
+
+    return run, outs
 
 
 def lstm_seq_fwd(xs, wx, b, wh, c0, h0, forget_bias=1.0, masks=None,
@@ -844,7 +886,8 @@ def lstm_seq_fwd(xs, wx, b, wh, c0, h0, forget_bias=1.0, masks=None,
 def lstm_seq_bwd(xs, wx, b, wh, h0, hs, cs, dhs, forget_bias=1.0,
                  masks=None, dropout_seed=None, keep_prob=1.0):
     """Backward of :func:`fused_lstm_seq`: ``(dwx, db, dwh)`` (kernel
-    ``srt_lstm_bwd``: the recurrence, then the weight-gradient pass)."""
+    ``srt_lstm_bwd``: the hoisted gate recompute, the cooperative loop,
+    the weight-gradient pass)."""
     if xs.device.type == "cpu":
         return lstm_seq_bwd_reference(xs, wx, b, wh, h0, hs, cs, dhs,
                                       forget_bias, masks, dropout_seed,
@@ -872,8 +915,9 @@ def lstm_fwd(xs, wx, b, wh, c0, h0, forget_bias=1.0, masks=None,
 def lstm_bwd(xs, wx, b, wh, h0, hs, cs, dhs, dcT, dhT, forget_bias=1.0,
              masks=None, dropout_seed=None, keep_prob=1.0, x_bias=None):
     """Backward of :func:`fused_lstm`: ``(dxs, dxb, dwx, db, dwh, dc0,
-    dh0)`` (kernel ``srt_lstm_bwd``: the recurrence, then the
-    weight-gradient pass with its row of ones for ``db``)."""
+    dh0)`` (kernel ``srt_lstm_bwd``: the hoisted gate recompute, the
+    cooperative loop with ``dxs`` at its end, the weight-gradient pass
+    with its row of ones for ``db``)."""
     if xs.device.type == "cpu":
         return lstm_bwd_reference(xs, wx, b, wh, h0, hs, cs, dhs, dcT, dhT,
                                   forget_bias, masks, dropout_seed,

@@ -149,22 +149,23 @@ def test_wrappers_refuse_bad_inputs(dev):
 FT, FB, FD = 7, 6, 5    # fused kernels: steps, rows, input width
 
 
-def _fused_inputs(cell, h, dev, x_bias, mode, wdt=torch.float32):
+def _fused_inputs(cell, h, dev, x_bias, mode, wdt=torch.float32, t=FT,
+                  bsz=FB):
     g = torch.Generator().manual_seed(h + 3 * x_bias)
     r = lambda *s, sc=1.0: (torch.randn(s, generator=g) * sc).to(dev)
-    d = {"xs": r(FT, FB, FD), "wx": r(FD, 4 * h, sc=0.4).to(wdt),
-         "wh": r(h, 4 * h, sc=0.25).to(wdt), "c0": r(FB, h, sc=0.3),
-         "h0": r(FB, h, sc=0.3)}
+    d = {"xs": r(t, bsz, FD), "wx": r(FD, 4 * h, sc=0.4).to(wdt),
+         "wh": r(h, 4 * h, sc=0.25).to(wdt), "c0": r(bsz, h, sc=0.3),
+         "h0": r(bsz, h, sc=0.3)}
     if cell in ("lstm", "lstm_full"):
         d["b"] = r(4 * h, sc=0.1)
-        d["x_bias"] = r(FB, 4 * h, sc=0.3) if x_bias else None
+        d["x_bias"] = r(bsz, 4 * h, sc=0.3) if x_bias else None
     else:
         d.update(ln_gamma=1 + r(4, h, sc=0.1), ln_beta=r(4, h, sc=0.1),
                  lnc_gamma=1 + r(h, sc=0.1), lnc_beta=r(h, sc=0.1),
-                 x_bias=r(FB, 4 * h, sc=0.3) if x_bias else None)
+                 x_bias=r(bsz, 4 * h, sc=0.3) if x_bias else None)
     masks = seed = None
     if mode == "masks":
-        masks = ((torch.rand((FT, FB, h), generator=g) < 0.9).float()
+        masks = ((torch.rand((t, bsz, h), generator=g) < 0.9).float()
                  / 0.9).to(dev)
     elif mode == "seed":
         seed = torch.tensor(4242, dtype=torch.int32, device=dev)
@@ -241,33 +242,111 @@ def _hold_fused(dev, cell, d, masks, seed, tol, rdt=None):
             1.0, float(b.abs().max()))
 
 
-@pytest.mark.parametrize("cell,h,x_bias,mode", [
-    ("lstm", 16, False, "none"), ("lstm", 16, False, "seed"),
-    ("lstm", 40, False, "masks"), ("layer_norm", 16, False, "none"),
-    ("layer_norm", 16, True, "seed"), ("layer_norm", 40, True, "masks"),
-    ("lstm_full", 16, False, "none"), ("lstm_full", 16, True, "seed"),
-    ("lstm_full", 40, True, "masks")])
-def test_fused_kernels_match_plain_versions(dev, cell, h, x_bias, mode):
+def _cases(names, rows):
+    """Parametrize cases; those at the default (T, B) keep their ids."""
+    out = []
+    for *vals, tb in rows:
+        ident = "-".join(str(v).replace("torch.", "") for v in vals)
+        if tb != (FT, FB):
+            ident += f"-T{tb[0]}-B{tb[1]}"
+        out.append(pytest.param(*vals, tb, id=ident))
+    return pytest.mark.parametrize(names + ",tb", out)
+
+
+# the LSTM backward's loop partitions the hidden units into slices of 16
+# and the batch into tiles: H=136 (not a multiple of 32 nor of the slice
+# count), B=1 and 3, T=1 leave slices, tiles and warp tasks uneven
+@_cases("cell,h,x_bias,mode", [
+    ("lstm", 16, False, "none", (FT, FB)),
+    ("lstm", 16, False, "seed", (FT, FB)),
+    ("lstm", 40, False, "masks", (FT, FB)),
+    ("layer_norm", 16, False, "none", (FT, FB)),
+    ("layer_norm", 16, True, "seed", (FT, FB)),
+    ("layer_norm", 40, True, "masks", (FT, FB)),
+    ("lstm_full", 16, False, "none", (FT, FB)),
+    ("lstm_full", 16, True, "seed", (FT, FB)),
+    ("lstm_full", 40, True, "masks", (FT, FB)),
+    ("lstm", 136, False, "seed", (FT, FB)),
+    ("lstm_full", 136, True, "seed", (FT, FB)),
+    ("lstm", 16, False, "none", (1, 1)),
+    ("lstm", 40, False, "seed", (FT, 3)),
+    ("lstm_full", 40, True, "masks", (FT, 1)),
+    ("lstm_full", 136, True, "masks", (1, 3))])
+def test_fused_kernels_match_plain_versions(dev, cell, h, x_bias, mode, tb):
     """Each of the six training kernels against its plain version on the
     same CUDA tensors (forward values and every gradient), with and
-    without dropout and x_bias; H=40 leaves part of the last warp idle."""
-    d, masks, seed = _fused_inputs(cell, h, dev, x_bias, mode)
+    without dropout and x_bias; H=40 leaves part of the last warp idle.
+    ``lstm_full`` takes nonzero dcT/dhT (its loss reads cT and hT)."""
+    d, masks, seed = _fused_inputs(cell, h, dev, x_bias, mode, t=tb[0],
+                                   bsz=tb[1])
     _hold_fused(dev, cell, d, masks, seed, TOL)
 
 
-@pytest.mark.parametrize("cell,h,mode,wdt,rdt", [
-    ("lstm", 16, "seed", torch.bfloat16, torch.bfloat16),
-    ("lstm_full", 40, "masks", torch.bfloat16, torch.bfloat16),
-    ("lstm_full", 16, "seed", torch.bfloat16, torch.float32),
-    ("layer_norm", 16, "seed", torch.bfloat16, torch.bfloat16),
-    ("layer_norm", 40, "none", torch.float32, torch.bfloat16)])
+@_cases("cell,h,mode,wdt,rdt", [
+    ("lstm", 16, "seed", torch.bfloat16, torch.bfloat16, (FT, FB)),
+    ("lstm_full", 40, "masks", torch.bfloat16, torch.bfloat16, (FT, FB)),
+    ("lstm_full", 16, "seed", torch.bfloat16, torch.float32, (FT, FB)),
+    ("layer_norm", 16, "seed", torch.bfloat16, torch.bfloat16, (FT, FB)),
+    ("layer_norm", 40, "none", torch.float32, torch.bfloat16, (FT, FB)),
+    ("lstm_full", 136, "seed", torch.bfloat16, torch.bfloat16, (FT, 3)),
+    ("lstm", 136, "masks", torch.bfloat16, torch.bfloat16, (1, 1)),
+    ("lstm_full", 40, "seed", torch.bfloat16, torch.float32, (1, 3))])
 def test_fused_kernels_bf16_match_plain_versions(dev, cell, h, mode, wdt,
-                                                 rdt):
+                                                 rdt, tb):
     """The training kernels at bfloat16 weights and/or residuals (the
     flagship preset's setting) against their plain versions: outputs and
     gradients in the same dtypes, within a bfloat16 ulp's reach."""
-    d, masks, seed = _fused_inputs(cell, h, dev, True, mode, wdt)
+    d, masks, seed = _fused_inputs(cell, h, dev, True, mode, wdt, t=tb[0],
+                                   bsz=tb[1])
     _hold_fused(dev, cell, d, masks, seed, BF_TOL, rdt)
+
+
+@pytest.mark.parametrize("h,t,bsz,wdt,rdt,full", [
+    (16, FT, FB, torch.float32, torch.float32, True),
+    (136, FT, 3, torch.float32, torch.float32, True),
+    (40, 1, 1, torch.float32, torch.bfloat16, False),
+    (136, FT, FB, torch.bfloat16, torch.bfloat16, True),
+    (40, FT, 3, torch.bfloat16, torch.float32, False),
+    (256, 9, 100, torch.bfloat16, torch.bfloat16, True)])
+def test_lstm_bwd_matches_row_block_design(dev, h, t, bsz, wdt, rdt, full):
+    """srt_lstm_bwd (hoisted recompute, cooperative loop, weight pass)
+    against the row-block design it replaced, srt_lstm_bwd_rowblock, on
+    the same inputs (dropout seeded, x_bias and carry cotangents when
+    ``full``), within TOL / BF_TOL; two runs of the new entry bitwise
+    equal. B=100 fills the card's SMs with the loop's tiles."""
+    from sketch_rnn_tpu_torch.ops import cuda_fused as cf
+
+    d, _, seed = _fused_inputs("lstm_full", h, dev, full, "seed", wdt, t=t,
+                               bsz=bsz)
+    hs, cs, _, _ = cf.lstm_fwd(d["xs"], d["wx"], d["b"], d["wh"], d["c0"],
+                               d["h0"], 1.0, None, seed, 0.9, d["x_bias"],
+                               rdt)
+    g = torch.Generator().manual_seed(5)
+    dhs = (0.1 * torch.randn(hs.shape, generator=g)).to(dev).to(hs.dtype)
+    cot = (0.1 * torch.randn((2, bsz, h), generator=g)).to(dev)
+    kw = dict(dcT=cot[0] if full else None, dhT=cot[1] if full else None,
+              dropout_seed=seed, keep_prob=0.9, x_bias=d["x_bias"],
+              full=full)
+    before = cf.launch_counts()
+    run, outs = cf.lstm_bwd_entries(d["xs"], d["wx"], d["b"], d["wh"],
+                                    d["h0"], hs, cs, dhs, **kw)
+    snap = lambda: [o.clone() if o is not None else None for o in outs]
+    run("srt_lstm_bwd")
+    first = snap()
+    run("srt_lstm_bwd")
+    second = snap()
+    run("srt_lstm_bwd_rowblock")
+    old = snap()
+    torch.cuda.synchronize()
+    assert cf.launch_counts() == before
+    tol = TOL if wdt == torch.float32 and rdt == torch.float32 else BF_TOL
+    for a, b, c in zip(first, second, old):
+        if a is None:
+            assert b is None and c is None
+            continue
+        assert torch.equal(a, b)
+        assert float((a - c).abs().max()) <= tol * max(
+            1.0, float(c.abs().max()))
 
 
 @pytest.mark.parametrize("cell", ["lstm", "layer_norm"])

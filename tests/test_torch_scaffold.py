@@ -147,3 +147,38 @@ def test_params_round_trip_bitwise(over):
         torch.Generator().manual_seed(0), device="cpu")
     assert jax.tree_util.tree_map(np.shape, params_to_jax(own)) == \
         jax.tree_util.tree_map(np.shape, tree)
+
+
+def _c_prototypes(source):
+    """``{name: [argument type, ...]}`` of the ``int srt_*(...)`` entries
+    of one CUDA source, each argument as ``P`` (pointer), ``I`` (int) or
+    ``F`` (float)."""
+    import re
+
+    text = (PKG / "csrc" / f"{source}.cu").read_text()
+    out = {}
+    for name, params in re.findall(r"^int (srt_\w+)\(([^)]*)\)", text,
+                                   re.M):
+        kinds = []
+        for p in params.split(","):
+            p = " ".join(p.split())
+            kinds.append("P" if "*" in p else p.split()[-2][0].upper())
+        out[name] = kinds
+    return out
+
+
+@pytest.mark.parametrize("source", ["decode", "fused_rnn", "lstm_seq",
+                                    "probe_seq", "probe_ln", "fused_hyper"])
+def test_ctypes_signatures_match_the_c_entries(source):
+    """Every C entry of each CUDA source has its ctypes argtypes in
+    ``ops/_build.py``, argument for argument (a pointer passed as a
+    32-bit int would be cut)."""
+    import ctypes
+
+    from sketch_rnn_tpu_torch.ops import _build
+
+    kind = {ctypes.c_void_p: "P", ctypes.c_int: "I", ctypes.c_float: "F"}
+    protos = _c_prototypes(source)
+    want = {n: [kind[a] for a in args]
+            for n, args in _build.SIGNATURES[source].items()}
+    assert protos == want

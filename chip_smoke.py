@@ -31,6 +31,11 @@ without the final line. With no CUDA device it exits 2 at once.
      FUSED_TOL of its dtype, the in-kernel dropout masks bitwise the plain
      ``prng_mask`` ones, every result identical run to run; for the
      HyperLSTM backward also its scratch and peak bytes;
+   - lstm_fwd_ab: ``srt_lstm_fwd`` (the cooperative loop, one grid
+     barrier per step) against the row-block design it replaced,
+     ``srt_lstm_fwd_rowblock``, at the shapes of ``fused_lstm_seq`` and
+     ``fused_lstm`` above and both dtypes: every output bitwise equal,
+     both timed in turns with CUDA events (new, old, old, new; medians);
    - lstm_bwd_ab: ``srt_lstm_bwd`` (the hoisted recompute, the
      cooperative loop, the weight pass) against the row-block design it
      replaced, ``srt_lstm_bwd_rowblock``, at the shapes of
@@ -814,6 +819,80 @@ AB_REPS = 5        # turns of (new, row-block, row-block, new) per A/B
 LSTM_BWD_STAGES = ("recompute", "loop", "weight_pass")
 
 
+def timed_calls(calls):
+    """Run ``calls`` in order with a CUDA event before and after each;
+    returns the events (read them after a synchronize)."""
+    import torch
+
+    evs = [torch.cuda.Event(enable_timing=True)
+           for _ in range(len(calls) + 1)]
+    evs[0].record()
+    for fn, ev in zip(calls, evs[1:]):
+        fn()
+        ev.record()
+    return evs
+
+
+def ab_turns(entry, extra=None):
+    """AB_REPS turns of (new, old, old, new) over ``entry``'s two calls,
+    each between its own CUDA events, after one warm-up call of each;
+    ``extra`` calls, when given, run after each turn, timed the same way.
+    Returns ``({"new": [ms], "old": [ms]}, [events of each extra run])``."""
+    import torch
+
+    for fn in (*entry.values(), *(extra or ())):
+        fn()
+    turns, extras = [], []
+    for _ in range(AB_REPS):
+        order = ("new", "old", "old", "new")
+        turns.append((order, timed_calls([entry[w] for w in order])))
+        if extra:
+            extras.append(timed_calls(extra))
+    torch.cuda.synchronize()
+    times = {"new": [], "old": []}
+    for order, evs in turns:
+        for i, w in enumerate(order):
+            times[w].append(evs[i].elapsed_time(evs[i + 1]))
+    return times, extras
+
+
+def lstm_fwd_ab(name, dt, fargs, drop_kw, full, rows):
+    """``srt_lstm_fwd`` (the cooperative loop) against the row-block
+    design it replaced, ``srt_lstm_fwd_rowblock``, on the same inputs:
+    every output bitwise equal, then both timed in turns with CUDA events
+    (new, old, old, new; AB_REPS turns, medians). Uncounted launches."""
+    import statistics
+
+    import torch
+
+    from sketch_rnn_tpu_torch.ops import cuda_fused as CF
+
+    run, outs = CF.lstm_fwd_entries(**fargs, **drop_kw, full=full)
+    names = [n for n, o in zip(FUSED_OUTPUTS["fused_lstm_fwd"], outs)
+             if o is not None]
+    snap = lambda: [o.clone() for o in outs if o is not None]
+    run("srt_lstm_fwd")
+    new = snap()
+    run("srt_lstm_fwd_rowblock")
+    old = snap()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(new, old)):
+        ab, rel, per = rel_errs(names, new, old)
+        raise AssertionError(f"{name} [{dt}]: srt_lstm_fwd is not bitwise "
+                             f"the row-block design: rel err {rel}, per "
+                             f"output {per}")
+    del new, old
+    times, _ = ab_turns({"new": lambda: run("srt_lstm_fwd"),
+                         "old": lambda: run("srt_lstm_fwd_rowblock")})
+    res = {"ms": statistics.median(times["new"]),
+           "rowblock_ms": statistics.median(times["old"]),
+           "new_ms_all": times["new"], "rowblock_ms_all": times["old"],
+           "bitwise_rowblock": True}
+    res["speedup"] = res["rowblock_ms"] / res["ms"]
+    rows[name][dt]["ab"] = res
+    log("lstm_fwd_ab", name=name, dtype=dt, reps=AB_REPS, **res)
+
+
 def lstm_bwd_ab(name, dt, bargs, drop_kw, full, rows):
     """``srt_lstm_bwd`` (the hoisted recompute, the cooperative loop, the
     weight pass) against the row-block design it replaced,
@@ -842,30 +921,10 @@ def lstm_bwd_ab(name, dt, bargs, drop_kw, full, rows):
         raise AssertionError(f"{name} [{dt}]: srt_lstm_bwd vs the row-block "
                              f"design, rel err {rel}, per output {per}")
 
-    def timed(calls):
-        evs = [torch.cuda.Event(enable_timing=True)
-               for _ in range(len(calls) + 1)]
-        evs[0].record()
-        for fn, ev in zip(calls, evs[1:]):
-            fn()
-            ev.record()
-        return evs
-
-    entry = {"new": lambda: run("srt_lstm_bwd"),
-             "old": lambda: run("srt_lstm_bwd_rowblock")}
-    stages = [lambda k=k: run("srt_lstm_bwd_stage", k) for k in (1, 2, 3)]
-    for fn in (*entry.values(), *stages):
-        fn()
-    turns, splits = [], []
-    for _ in range(AB_REPS):
-        order = ("new", "old", "old", "new")
-        turns.append((order, timed([entry[w] for w in order])))
-        splits.append(timed(stages))
-    torch.cuda.synchronize()
-    times = {"new": [], "old": []}
-    for order, evs in turns:
-        for i, w in enumerate(order):
-            times[w].append(evs[i].elapsed_time(evs[i + 1]))
+    times, splits = ab_turns(
+        {"new": lambda: run("srt_lstm_bwd"),
+         "old": lambda: run("srt_lstm_bwd_rowblock")},
+        [lambda k=k: run("srt_lstm_bwd_stage", k) for k in (1, 2, 3)])
     split = {st: statistics.median(evs[i].elapsed_time(evs[i + 1])
                                    for evs in splits)
              for i, st in enumerate(LSTM_BWD_STAGES)}
@@ -902,6 +961,7 @@ def check_lstm_seq(inp, rows):
                         lambda **k: CF.lstm_seq_fwd(**fargs, **k),
                         lambda **k: CF.lstm_seq_fwd_reference(**fargs, **k),
                         seed_kw, masks_kw, rows)
+    lstm_fwd_ab("fused_lstm_seq_fwd", dt, fargs, seed_kw, False, rows)
     bargs = dict(xs=xs, wx=ep["wx"], b=ep["b"], wh=ep["wh"], h0=zero, hs=hs,
                  cs=cs, dhs=dhs, forget_bias=cell.forget_bias)
     grads = hold_fused("fused_lstm_seq_bwd", dt,
@@ -967,6 +1027,7 @@ def check_lstm(inp, rows):
         "fused_lstm_fwd", dt, lambda **k: CF.lstm_fwd(**fargs, **k),
         lambda **k: CF.lstm_fwd_reference(**fargs, **k), seed_kw, masks_kw,
         rows)
+    lstm_fwd_ab("fused_lstm_fwd", dt, fargs, seed_kw, True, rows)
     bargs = dict(common, h0=inp["h0"], hs=hs, cs=cs, dhs=dhs,
                  dcT=inp["dcT"], dhT=inp["dhT"])
     grads = hold_fused(

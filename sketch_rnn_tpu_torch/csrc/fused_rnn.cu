@@ -45,8 +45,8 @@
 // masks here are bitwise those of the JAX package; the backward uses the
 // forward's t. uint32 arithmetic, no fast-math.
 //
-// Design of the forwards and of the LayerNorm-LSTM backward. The
-// recurrence of a batch row never reads another row, so each of these
+// Design of the LayerNorm-LSTM forward and backward: the row-block design.
+// The recurrence of a batch row never reads another row, so each of these
 // kernels is one block per row (grid = B) with the T loop inside the
 // block, one thread per hidden unit j (blockDim = H rounded up to a warp,
 // H <= 512): the carry (and, backwards, dh/dc) of the row lives in shared
@@ -54,10 +54,54 @@
 // of the four gates, reading row k of wh coalesced across the block;
 // layer-norm statistics are block reductions. The LN backward's transposed
 // product dh_{t-1} = d_pre @ wh^T (and dx = d_pre @ wx^T) gives each warp
-// whole rows of wh, read coalesced, reduced by shuffles. The LSTM backward
-// ran this row-block design too (rnn_bwd_kernel<false>); it stays
-// reachable as srt_lstm_bwd_rowblock, to be held and timed beside the
-// design that replaced it.
+// whole rows of wh, read coalesced, reduced by shuffles. The LSTM forward
+// and backward ran this row-block design too (rnn_fwd_kernel<false>,
+// rnn_bwd_kernel<false>); they stay reachable as srt_lstm_fwd_rowblock and
+// srt_lstm_bwd_rowblock, to be held and timed beside the designs that
+// replaced them.
+//
+// Design of the LSTM forward (srt_lstm_fwd): one persistent kernel
+// launched cooperatively, on the backward loop's grid: slices of 16
+// hidden units x batch tiles, at most one block per SM, refused (never
+// replaced) when it cannot co-reside. Block (tile, slice) keeps resident
+// in shared memory for the whole sequence the columns g * H + j (g = 0..3)
+// of wh and wx for its units j and the same columns of b, laid out [row
+// k][unit][gate] so one 16-byte read gives a unit's four gates, and the
+// float cell carry of each (row, unit) pair it owns. The weights are held
+// as float: a bf16 weight is widened once, exactly, instead of at every
+// multiply-add. Blocks exchange h through a ping-pong scratch hx[2, B, H]
+// of the weight type: it holds rnd_W(h), the product's operand (the stored
+// hs is rounded to R, which differs from W in the mixed cases). Per step
+// t, the h_{t-1} rows of the tile pass through shared memory, as W, in
+// chunks of rows (all of them at the training shapes; any B up to 4096 at
+// H <= 512 fits, a shape that does not is an error): rnd_W(h0) at t = 0,
+// else hx[(t + 1) & 1], copied by cp.async.cg (through L2: other blocks
+// wrote it in this kernel) in four commit groups over k, so that the
+// product over the first quarter of k starts while the rest is in flight;
+// the x part, x_bias and the dropout mask are read meanwhile. A warp takes
+// one task, 8 units x (4 x ROWS) rows of a chunk, each thread the four
+// gates of one unit in ROWS rows: ROWS = 4 for float weights where a tile
+// has more than 16 rows (H=512 at B=100: four warps, one per SM
+// sub-partition), else 2 (eight warps at H=512 bf16, four at H=256).
+// Every output is one fmaf chain over k = 0..H-1 in order
+// from 0.0f, added to the x part as gate_pre adds it, so each output, and
+// with it the whole forward, is bit for bit the row-block kernel's. The
+// products read their operands from shared memory, whose 128 bytes per
+// clock (a 16-byte read takes four of them whatever it broadcasts) and
+// their latency bound them: 4 rows x 4 gates per thread make two
+// multiply-adds per float read.
+// The gate block is rnn_fwd_kernel's, written out again; it writes cs (the
+// pre-step c) and hs as R, hx[t & 1] as W, and the final carry after the
+// last step. One grid barrier per step is enough: step t + 1 writes the
+// buffer step t read, and every block has left step t once it passes the
+// barrier.
+// Sizing per step at B=100: H=512 (32 slices x 4 tiles = 128 blocks, 25
+// rows a tile) reads 32 x 100 x 512 x sizeof(W) = 6.6 MB of h from L2 at
+// float (3.3 MB bf16) and keeps 200,256 bytes of shared memory per block
+// at float (167,488 bf16; 132,608 of them weights and b); H=256 (16
+// slices x 8 tiles, 12-13 rows) 1.6 MB (0.8 MB), 84,544 bytes (76,352).
+// The row-block design read all of wh per row per step instead: 105 GB per
+// call at H=512 float.
 //
 // Design of the LSTM backward (srt_lstm_bwd): three launches.
 //  1. The hoisted gate recompute. h_{t-1} is read from the stored hs, so
@@ -124,12 +168,17 @@
 // H=512), so latency and L2 bandwidth bound it, not the FLOP count
 // (52.4 GFLOP of SIMT work, 0.78 ms at peak). The weight pass is
 // unchanged (a SIMT product over K = T*B, 0.78 ms at peak float, run far
-// below it: PERF.md). The forwards and the LN backward keep the row-block
-// design: only B=100 of the 132 SMs hold a row, each row's block re-reads
-// wh from L2 on every step (1 MiB encoder, 4 MiB decoder at float; half
-// that at bf16; twice a step backwards), and the step-to-step dependency
-// leaves a block's memory latency exposed. PERF.md keeps the measured
-// times beside these bounds.
+// below it: PERF.md). The LSTM forward's T steps are serial too: each is
+// a grid barrier, an L2 read of the tile's h rows (6.6 MB a step at H=512
+// float) and a (B / tiles) x 16 x 4H product per block from resident
+// weights, in SIMT multiply-adds so that the sums keep the row-block
+// order; its shared-memory reads and their latency bound the product, not
+// the FLOP count (PERF.md has the split of a step). The LN forward and
+// backward keep the row-block design: only B=100 of the 132 SMs hold a
+// row, each row's block re-reads wh from L2 on every step (4 MiB at float,
+// half that at bf16; twice a step backwards), and the step-to-step
+// dependency leaves a block's memory latency exposed. PERF.md keeps the
+// measured times beside these bounds.
 
 #include <cooperative_groups.h>
 
@@ -1015,6 +1064,389 @@ cudaError_t launch_lstm_bwd(const Bwd<W, R>& a, int stage, float* dwx,
   return err;
 }
 
+// ---------------------------------------------------------------------------
+// The LSTM forward of srt_lstm_fwd: one persistent cooperative kernel
+// (header, "Design of the LSTM forward"). Per step and chunk of rows each
+// warp takes at most one task, kTaskUnits units x (kRowLanes * ROWS) rows:
+// lane l takes unit l % 8 and the rows l / 8 + 4 i (i < ROWS), all four
+// gates of each. The chunk's h rows arrive by cp.async in kParts groups
+// over k, so the product over part p runs while the later parts are in
+// flight.
+constexpr int kFwdThreads = 256, kFwdWarps = kFwdThreads / 32;
+constexpr int kTaskUnits = 8;               // units per warp task
+constexpr int kRowLanes = 32 / kTaskUnits;  // row groups per warp task
+constexpr int kParts = 4;                   // cp.async groups over k
+constexpr int kMaxXd = 8;                   // x inputs held in registers
+
+// elements per resident h row: whole 16-byte copies, plus a pad that puts
+// the rows of one 8-byte read (bf16) in distinct banks
+template <typename W>
+__host__ __device__ inline int fwd_row_stride(int H) {
+  return (H + 7) / 8 * 8 + 16 / (int)sizeof(W);
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most n of this thread's cp.async groups are in flight
+__device__ __forceinline__ void cp_async_wait(int n) {
+  static_assert(kParts == 4, "one case per part");
+  if (n <= 0)
+    asm volatile("cp.async.wait_group 0;\n" ::);
+  else if (n == 1)
+    asm volatile("cp.async.wait_group 1;\n" ::);
+  else if (n == 2)
+    asm volatile("cp.async.wait_group 2;\n" ::);
+  else
+    asm volatile("cp.async.wait_group 3;\n" ::);
+}
+
+// one h value written by another block of this kernel (L2, not L1)
+__device__ __forceinline__ float ldcg_raw(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ bf16 ldcg_raw(const bf16* p) {
+  return __ushort_as_bfloat16(
+      __ldcg(reinterpret_cast<const unsigned short*>(p)));
+}
+
+// h_{t-1} of the rows row0 .. row0 + cr - 1 into s_h (row stride rs, type
+// W). At t = 0 (hin null) rnd_W(h0) through registers. After it the hx
+// plane of the previous step, written by other blocks of this kernel: by
+// 16-byte cp.async.cg (L2, never a stale L1 line), kp columns of every row
+// per commit group, when the rows allow it, else element by element. Each
+// thread commits kParts groups either way.
+template <typename W>
+__device__ __forceinline__ void load_h_chunk(W* s_h, int rs, const float* h0,
+                                             const W* hin, bool async,
+                                             size_t row0, int cr, int H,
+                                             int kp) {
+  constexpr int kE = 16 / sizeof(W);  // elements per copy
+  if (hin != nullptr && async) {
+    for (int part = 0; part < kParts; ++part) {
+      const int k0 = part * kp, k1 = k0 + kp < H ? k0 + kp : H;
+      const int n = k0 < H ? (k1 - k0) / kE : 0;  // copies per row
+      for (int e = threadIdx.x; e < cr * n; e += kFwdThreads) {
+        const int r = e / n, k = k0 + (e - r * n) * kE;
+        cp_async16(s_h + r * rs + k, hin + (row0 + r) * H + k);
+      }
+      cp_async_commit();
+    }
+    return;
+  }
+#pragma unroll 4
+  for (int e = threadIdx.x; e < cr * H; e += kFwdThreads) {
+    const int r = e / H, k = e - r * H;
+    const size_t at = (row0 + r) * H + k;
+    s_h[r * rs + k] = hin == nullptr ? from_f<W>(h0[at]) : ldcg_raw(hin + at);
+  }
+  for (int part = 0; part < kParts; ++part) cp_async_commit();
+}
+
+template <typename W, typename R, int ROWS>
+__global__ void __launch_bounds__(kFwdThreads)
+lstm_fwd_loop_kernel(Fwd<W, R> a, W* hx, int slices, int tiles, int chunk) {
+  constexpr int kTaskRows = kRowLanes * ROWS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Cell<W>& p = a.p;
+  const int H = p.H, G = 4 * H, B = a.B, D = p.D;
+  const int sl = blockIdx.x % slices, bt = blockIdx.x / slices;
+  const int j0 = sl * H / slices, nu = (sl + 1) * H / slices - j0;
+  const int b0 = bt * B / tiles, nb = (bt + 1) * B / tiles - b0;
+  const int nb_max = (B + tiles - 1) / tiles;
+  const int rs = fwd_row_stride<W>(H);
+  const int kp = ((H + kParts - 1) / kParts + 7) / 8 * 8;  // k per part
+  // [H + D][kUnits][4]: the wh rows, then the wx rows; zero past nu
+  float* s_w = reinterpret_cast<float*>(smem_raw);
+  const float* s_wx = s_w + (size_t)H * kUnits * 4;
+  float* s_b = s_w + (size_t)(H + D) * kUnits * 4;  // [kUnits][4]
+  float* s_c = s_b + kUnits * 4;                     // [nb_max][kUnits]
+  W* s_h = reinterpret_cast<W*>(s_c + (size_t)nb_max * kUnits);  // [chunk][rs]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const uint32_t seed = a.drop.seed != nullptr ? (uint32_t)*a.drop.seed : 0u;
+  const bool async = H % (16 / (int)sizeof(W)) == 0 &&
+                     (reinterpret_cast<uintptr_t>(hx) & 15) == 0;
+
+  for (int e = tid; e < (H + D) * kUnits * 4; e += kFwdThreads) {
+    const int k = e / (kUnits * 4), u = (e / 4) % kUnits;
+    const int col = (e % 4) * H + j0 + u;
+    float v = 0.0f;
+    if (u < nu)
+      v = to_f(k < H ? p.wh[(size_t)k * G + col]
+                     : p.wx[(size_t)(k - H) * G + col]);
+    s_w[e] = v;
+  }
+  if (tid < kUnits * 4) {
+    const int u = tid / 4;
+    s_b[tid] = (u < nu && p.b != nullptr) ? p.b[(tid % 4) * H + j0 + u]
+                                          : 0.0f;
+  }
+  for (int q = tid; q < nb * kUnits; q += kFwdThreads) {
+    const int u = q % kUnits;
+    s_c[q] = u < nu ? a.c0[(size_t)(b0 + q / kUnits) * H + j0 + u] : 0.0f;
+  }
+  __syncthreads();  // the resident state, before the first x part reads it
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const size_t plane = (size_t)B * H;
+  const int u = (warp % 2) * kTaskUnits + lane % kTaskUnits;
+  const float* wc = s_w + u * 4;
+
+  for (int t = 0; t < a.T; ++t) {
+    const W* hin = t == 0 ? nullptr : hx + ((t + 1) & 1) * plane;
+    W* hout = hx + (t & 1) * plane;
+    for (int r0 = 0; r0 < nb; r0 += chunk) {
+      const int cr = nb - r0 < chunk ? nb - r0 : chunk;
+      // this warp's task (the host keeps a chunk to kFwdWarps tasks)
+      const bool busy =
+          warp < (cr + kTaskRows - 1) / kTaskRows * (kUnits / kTaskUnits);
+      const int lr0 = warp / 2 * kTaskRows + lane / kTaskUnits;
+      float acc[ROWS][4], xp[ROWS][4], xbv[ROWS][4], mv[ROWS];
+      float xq[ROWS][kMaxXd];
+      if (busy) {  // x, x_bias and the mask, asked for ahead of the h copies
+#pragma unroll
+        for (int rr = 0; rr < ROWS; ++rr) {
+          const int lr = lr0 + rr * kRowLanes;
+          const bool ok = lr < cr && u < nu;
+          const int row = b0 + r0 + (ok ? lr : 0), j = j0 + (ok ? u : 0);
+          const float* x = a.xs + ((size_t)t * B + row) * D;
+#pragma unroll
+          for (int q = 0; q < kMaxXd; ++q)
+            xq[rr][q] = q < D ? rnd<W>(x[q]) : 0.0f;
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+            xbv[rr][g] = (ok && p.xb != nullptr)
+                             ? p.xb[(size_t)row * G + g * H + j]
+                             : 0.0f;
+          mv[rr] = dropout_mask(a.drop, seed, t, B, row, H, j);
+        }
+      }
+      load_h_chunk<W>(s_h, rs, a.h0, hin, async, (size_t)(b0 + r0), cr, H,
+                      kp);
+      if (busy) {
+        // while h is in flight: x @ wx + b, gate_pre's first sum (one
+        // in-order fmaf chain over the D inputs per gate)
+#pragma unroll
+        for (int rr = 0; rr < ROWS; ++rr) {
+          float sx[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+          for (int q = 0; q < kMaxXd; ++q) {
+            if (q >= D) break;
+            const float4 w = quad(s_wx + (q * kUnits + u) * 4);
+            sx[0] = fmaf(xq[rr][q], w.x, sx[0]);
+            sx[1] = fmaf(xq[rr][q], w.y, sx[1]);
+            sx[2] = fmaf(xq[rr][q], w.z, sx[2]);
+            sx[3] = fmaf(xq[rr][q], w.w, sx[3]);
+          }
+          if (D > kMaxXd) {
+            const int lr = lr0 + rr * kRowLanes;
+            const int row = b0 + r0 + (lr < cr && u < nu ? lr : 0);
+            const float* x = a.xs + ((size_t)t * B + row) * D;
+            for (int q = kMaxXd; q < D; ++q) {
+              const float xv = rnd<W>(x[q]);
+              const float4 w = quad(s_wx + (q * kUnits + u) * 4);
+              sx[0] = fmaf(xv, w.x, sx[0]);
+              sx[1] = fmaf(xv, w.y, sx[1]);
+              sx[2] = fmaf(xv, w.z, sx[2]);
+              sx[3] = fmaf(xv, w.w, sx[3]);
+            }
+          }
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            xp[rr][g] = p.b != nullptr ? sx[g] + s_b[u * 4 + g] : sx[g];
+            acc[rr][g] = 0.0f;
+          }
+        }
+      }
+      // h @ wh: one in-order fmaf chain over k per output, part by part
+#pragma unroll
+      for (int part = 0; part < kParts; ++part) {
+        cp_async_wait(kParts - 1 - part);
+        __syncthreads();  // this part of k of every row is in s_h
+        if (!busy) continue;
+        const int k1 = (part + 1) * kp < H ? (part + 1) * kp : H;
+        int k = part * kp;
+#pragma unroll 2
+        for (; k + 4 <= k1; k += 4) {
+          float4 hv[ROWS];
+#pragma unroll
+          for (int rr = 0; rr < ROWS; ++rr)
+            hv[rr] = quad(s_h + (size_t)(lr0 + rr * kRowLanes) * rs + k);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const float4 w = quad(wc + (size_t)(k + kk) * kUnits * 4);
+#pragma unroll
+            for (int rr = 0; rr < ROWS; ++rr) {
+              const float h = kk == 0   ? hv[rr].x
+                              : kk == 1 ? hv[rr].y
+                              : kk == 2 ? hv[rr].z
+                                        : hv[rr].w;
+              acc[rr][0] = fmaf(h, w.x, acc[rr][0]);
+              acc[rr][1] = fmaf(h, w.y, acc[rr][1]);
+              acc[rr][2] = fmaf(h, w.z, acc[rr][2]);
+              acc[rr][3] = fmaf(h, w.w, acc[rr][3]);
+            }
+          }
+        }
+        for (; k < k1; ++k) {
+          const float4 w = quad(wc + (size_t)k * kUnits * 4);
+#pragma unroll
+          for (int rr = 0; rr < ROWS; ++rr) {
+            const float h =
+                to_f(s_h[(size_t)(lr0 + rr * kRowLanes) * rs + k]);
+            acc[rr][0] = fmaf(h, w.x, acc[rr][0]);
+            acc[rr][1] = fmaf(h, w.y, acc[rr][1]);
+            acc[rr][2] = fmaf(h, w.z, acc[rr][2]);
+            acc[rr][3] = fmaf(h, w.w, acc[rr][3]);
+          }
+        }
+      }
+      if (busy) {
+        // the gate block of every row, rnn_fwd_kernel's; real pairs stored
+#pragma unroll
+        for (int rr = 0; rr < ROWS; ++rr) {
+          const int lr = lr0 + rr * kRowLanes;
+          const bool ok = lr < cr && u < nu;
+          float pre[4];
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            pre[g] = xp[rr][g] + acc[rr][g];
+            if (p.xb != nullptr) pre[g] = pre[g] + xbv[rr][g];
+          }
+          const float m = mv[rr];
+          float* cp = s_c + (size_t)(r0 + (ok ? lr : 0)) * kUnits + u;
+          const float c = *cp;
+          const float i = sigmoidf_(pre[0]), gu = tanhf(pre[1]);
+          const float f = sigmoidf_(pre[2] + p.forget_bias);
+          const float o = sigmoidf_(pre[3]);
+          const float nc = c * f + i * (gu * m);
+          const float nh = tanhf(nc) * o;
+          if (!ok) continue;
+          const int row = b0 + r0 + lr, j = j0 + u;
+          const size_t at = ((size_t)t * B + row) * H + j;
+          a.cs[at] = from_f<R>(c);
+          a.hs[at] = from_f<R>(nh);
+          hout[(size_t)row * H + j] = from_f<W>(nh);
+          *cp = nc;
+          if (a.cT != nullptr && t == a.T - 1) {
+            a.cT[(size_t)row * H + j] = nc;
+            a.hT[(size_t)row * H + j] = nh;
+          }
+        }
+      }
+      __syncthreads();  // all reads of s_h and s_c done: next chunk
+    }
+    grid.sync();  // hx[t & 1] complete across the grid
+  }
+  if (a.cT != nullptr && a.T == 0) {  // no step: the final carry is the first
+    for (int q = tid; q < nb * kUnits; q += kFwdThreads) {
+      if (q % kUnits >= nu) continue;
+      const size_t at = (size_t)(b0 + q / kUnits) * H + j0 + q % kUnits;
+      a.cT[at] = a.c0[at];
+      a.hT[at] = a.h0[at];
+    }
+  }
+}
+
+// The forward's grid (the backward loop's slices and tiles), rows per
+// thread and shared memory. Rows per thread: 4 for float weights where a
+// tile has more than 16 rows (four warp tasks still keep every SM
+// sub-partition busy, and each float read feeds two multiply-adds), else 2
+// (bf16: its h rows are half as many bytes to read, and eight warps hide
+// latency better than four; measured on an H100). Shared memory: the
+// resident columns, b and the carries, then as many h rows per chunk as
+// fit, a multiple of a task's rows, at most the tile's rows rounded up and
+// at most one task per warp. False when not even one task's rows fit.
+struct FwdGrid {
+  int slices, tiles, rows, chunk;
+  size_t smem;
+};
+
+template <typename W>
+bool fwd_grid(int B, int H, int D, int sms, int smem_max, FwdGrid& g) {
+  const LoopGrid lg = loop_grid<float>(B, H, sms);
+  g.slices = lg.slices;
+  g.tiles = lg.tiles;
+  const int nb_max = (B + g.tiles - 1) / g.tiles;
+  g.rows = sizeof(W) == 4 && nb_max > 4 * kRowLanes ? 4 : 2;
+  const int task_rows = kRowLanes * g.rows;
+  const size_t fixed =
+      ((size_t)(H + D + 1) * kUnits * 4 + (size_t)nb_max * kUnits) *
+      sizeof(float);
+  const size_t row = (size_t)fwd_row_stride<W>(H) * sizeof(W);
+  if (fixed + task_rows * row > (size_t)smem_max) return false;
+  int chunk = (int)(((size_t)smem_max - fixed) / row) / task_rows * task_rows;
+  const int need = (nb_max + task_rows - 1) / task_rows * task_rows;
+  const int most = kFwdWarps / (kUnits / kTaskUnits) * task_rows;
+  if (chunk > need) chunk = need;
+  if (chunk > most) chunk = most;
+  g.chunk = chunk;
+  g.smem = fixed + (size_t)chunk * row;
+  return true;
+}
+
+template <typename W, typename R>
+cudaError_t launch_fwd_loop(const Fwd<W, R>& a, W* hx, cudaStream_t stream) {
+  if (a.B < 1 || a.p.H < 1 || a.p.H > kMaxThreads)
+    return cudaErrorInvalidValue;
+  int dev = 0, sms = 0, smem_max = 0, occ = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  FwdGrid g;
+  if (!fwd_grid<W>(a.B, a.p.H, a.p.D, sms, smem_max, g))
+    return cudaErrorLaunchOutOfResources;
+  const void* fn = g.rows == 4 ? (const void*)lstm_fwd_loop_kernel<W, R, 4>
+                               : (const void*)lstm_fwd_loop_kernel<W, R, 2>;
+  err = set_smem(fn, g.smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fn, kFwdThreads,
+                                                        g.smem);
+  if (err != cudaSuccess) return err;
+  if ((long)occ * sms < (long)g.slices * g.tiles)
+    return cudaErrorCooperativeLaunchTooLarge;
+  Fwd<W, R> args = a;
+  W* hxp = hx;
+  void* params[] = {&args, &hxp, &g.slices, &g.tiles, &g.chunk};
+  return cudaLaunchCooperativeKernel(fn, dim3(g.slices * g.tiles),
+                                     dim3(kFwdThreads), params, g.smem,
+                                     stream);
+}
+
+// srt_lstm_fwd's arguments as a Fwd, launched by the cooperative loop or,
+// with rowblock, by the row-block design (which needs no hx).
+cudaError_t lstm_fwd_any(bool rowblock, const float* xs, const float* xb,
+                         const void* wx, const float* b, const void* wh,
+                         const float* c0, const float* h0,
+                         const float* masks, const int* seed, int T, int B,
+                         int D, int H, int w_bf16, int r_bf16, float keep,
+                         float inv_keep, float forget_bias, void* hs,
+                         void* cs, float* cT, float* hT, void* hx,
+                         void* stream) {
+  return with_types(w_bf16, r_bf16, [&](auto w, auto r) {
+    using W = decltype(w);
+    using R = decltype(r);
+    Fwd<W, R> a;
+    a.p = make_cell<W>(wx, wh, b, xb, nullptr, nullptr, nullptr, nullptr, D,
+                       H, forget_bias);
+    a.xs = xs;
+    a.c0 = c0;
+    a.h0 = h0;
+    a.drop = make_dropout(masks, seed, keep, inv_keep);
+    a.hs = static_cast<R*>(hs);
+    a.cs = static_cast<R*>(cs);
+    a.cT = cT;
+    a.hT = hT;
+    a.T = T;
+    a.B = B;
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (rowblock) return launch_fwd<false>(a, st);
+    return launch_fwd_loop(a, static_cast<W*>(hx), st);
+  });
+}
+
 // srt_lstm_bwd's arguments as a Bwd, and stage (0: the three launches,
 // 1-3: one of them) or, for stage -1, the row-block design.
 cudaError_t lstm_bwd_any(int stage, const float* xs, const float* xb,
@@ -1071,31 +1503,32 @@ const char* srt_error_string(int err) {
 // gradients are written as float32. Each returns the cudaError_t of its
 // launches (0 when all were accepted).
 
-// cT, hT: or null.
+// cT, hT: or null. hx: a [2, B, H] scratch of the weight type, the h
+// exchange between the blocks. The cooperative loop; a grid that cannot
+// co-reside is cudaErrorCooperativeLaunchTooLarge, a shape whose resident
+// state does not fit in shared memory cudaErrorLaunchOutOfResources.
 int srt_lstm_fwd(const float* xs, const float* xb, const void* wx,
                  const float* b, const void* wh, const float* c0,
                  const float* h0, const float* masks, const int* seed, int T,
                  int B, int D, int H, int w_bf16, int r_bf16, float keep,
                  float inv_keep, float forget_bias, void* hs, void* cs,
-                 float* cT, float* hT, void* stream) {
-  return (int)with_types(w_bf16, r_bf16, [&](auto w, auto r) {
-    using W = decltype(w);
-    using R = decltype(r);
-    Fwd<W, R> a;
-    a.p = make_cell<W>(wx, wh, b, xb, nullptr, nullptr, nullptr, nullptr, D,
-                       H, forget_bias);
-    a.xs = xs;
-    a.c0 = c0;
-    a.h0 = h0;
-    a.drop = make_dropout(masks, seed, keep, inv_keep);
-    a.hs = static_cast<R*>(hs);
-    a.cs = static_cast<R*>(cs);
-    a.cT = cT;
-    a.hT = hT;
-    a.T = T;
-    a.B = B;
-    return launch_fwd<false>(a, (cudaStream_t)stream);
-  });
+                 float* cT, float* hT, void* hx, void* stream) {
+  return (int)lstm_fwd_any(false, xs, xb, wx, b, wh, c0, h0, masks, seed, T,
+                           B, D, H, w_bf16, r_bf16, keep, inv_keep,
+                           forget_bias, hs, cs, cT, hT, hx, stream);
+}
+
+// The row-block design srt_lstm_fwd replaced (rnn_fwd_kernel<false>),
+// kept to be held and timed beside it; hx is not used.
+int srt_lstm_fwd_rowblock(const float* xs, const float* xb, const void* wx,
+                 const float* b, const void* wh, const float* c0,
+                 const float* h0, const float* masks, const int* seed, int T,
+                 int B, int D, int H, int w_bf16, int r_bf16, float keep,
+                 float inv_keep, float forget_bias, void* hs, void* cs,
+                 float* cT, float* hT, void* hx, void* stream) {
+  return (int)lstm_fwd_any(true, xs, xb, wx, b, wh, c0, h0, masks, seed, T,
+                           B, D, H, w_bf16, r_bf16, keep, inv_keep,
+                           forget_bias, hs, cs, cT, hT, hx, stream);
 }
 
 // dcT, dhT, dxs, dxb, dc0, dh0: or null. The hoisted recompute, the

@@ -48,7 +48,8 @@ SIGNATURES = {
         "srt_replay_chunk": [_P] * 12 + [_I] * 5 + [_F] + [_P] * 3,
     },
     "fused_rnn": {
-        "srt_lstm_fwd": [_P] * 9 + [_I] * 6 + [_F] * 3 + [_P] * 5,
+        "srt_lstm_fwd": [_P] * 9 + [_I] * 6 + [_F] * 3 + [_P] * 6,
+        "srt_lstm_fwd_rowblock": [_P] * 9 + [_I] * 6 + [_F] * 3 + [_P] * 6,
         "srt_lstm_bwd": [_P] * 13 + [_I] * 6 + [_F] * 3 + [_P] * 9,
         "srt_lstm_bwd_stage": [_I] + [_P] * 13 + [_I] * 6 + [_F] * 3
         + [_P] * 9,

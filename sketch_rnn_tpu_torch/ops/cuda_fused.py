@@ -32,7 +32,8 @@ buffer and no mask buffer exist in the forward; it saves only ``hs`` and
 the pre-step cell states ``cs``, and the backward recomputes the gates
 from ``(x, h_prev, c_prev)`` walking time backwards (the LSTM backward
 hoists that recompute out of its loop, into the ``d_pre`` scratch it
-then overwrites: ``csrc/fused_rnn.cu``'s header). Recurrent dropout on
+then overwrites; the LSTM forward's blocks exchange ``h`` through a
+``[2, B, H]`` scratch: ``csrc/fused_rnn.cu``'s header). Recurrent dropout on
 the candidate ``g`` is either streamed ``masks [T, B, H]`` or drawn in
 the kernel from ``dropout_seed`` by :func:`prng_mask`, whose counter does
 not depend on any tiling, so the CUDA kernels reproduce the JAX package's
@@ -779,8 +780,22 @@ def _launch(entry, what, counter, *args, lib="fused_rnn"):
     _launches[counter] += 1
 
 
-def _lstm_fwd_kernel(counter, xs, wx, b, wh, c0, h0, forget_bias, masks,
-                     seed, keep_prob, x_bias, residual_dtype, final):
+def _entries_on_cuda(what, xs):
+    """The A/B helpers run C entries and have no plain version."""
+    if xs.device.type != "cuda":
+        raise ValueError(f"{what} drives the C entries on CUDA tensors "
+                         f"only, not {xs.device}")
+
+
+def _lstm_fwd_args(xs, wx, b, wh, c0, h0, forget_bias, masks, seed,
+                   keep_prob, x_bias, residual_dtype, final):
+    """Check the LSTM forward's inputs and allocate its outputs and its
+    ``hx`` scratch: ``(args, outs, hx)``, the arguments of the
+    ``srt_lstm_fwd*`` entries, ``(hs, cs, cT, hT)`` (the final carry
+    ``None`` unless ``final``) and the ``[2, B, H]`` weight-dtype scratch
+    through which the kernel's blocks exchange ``h``, which the caller
+    keeps alive while the launches use it (``args`` holds only its
+    address)."""
     dev, t, bsz, d, h, mp, sp, wb = _kernel_common(xs, wx, wh, c0, h0,
                                                    masks, seed)
     rd = _residual(residual_dtype)
@@ -791,13 +806,46 @@ def _lstm_fwd_kernel(counter, xs, wx, b, wh, c0, h0, forget_bias, masks,
     if final:
         cT = torch.empty((bsz, h), dtype=torch.float32, device=dev)
         hT = torch.empty_like(cT)
-    _launch("srt_lstm_fwd", counter.replace("_", " "), counter,
-            xs.data_ptr(), _ptr(x_bias), wx.data_ptr(), b.data_ptr(),
+    hx = torch.empty((2, bsz, h), dtype=wx.dtype, device=dev)
+    args = (xs.data_ptr(), _ptr(x_bias), wx.data_ptr(), b.data_ptr(),
             wh.data_ptr(), c0.data_ptr(), h0.data_ptr(), mp, sp, t, bsz, d,
             h, wb, int(rd == torch.bfloat16), *_keep_args(keep_prob),
             float(forget_bias), hs.data_ptr(), cs.data_ptr(), _ptr(cT),
-            _ptr(hT), _stream(dev))
-    return hs, cs, cT, hT
+            _ptr(hT), hx.data_ptr(), _stream(dev))
+    return args, (hs, cs, cT, hT), hx
+
+
+def _lstm_fwd_kernel(counter, xs, wx, b, wh, c0, h0, forget_bias, masks,
+                     seed, keep_prob, x_bias, residual_dtype, final):
+    args, outs, _hx = _lstm_fwd_args(xs, wx, b, wh, c0, h0, forget_bias,
+                                     masks, seed, keep_prob, x_bias,
+                                     residual_dtype, final)
+    _launch("srt_lstm_fwd", counter.replace("_", " "), counter, *args)
+    return outs
+
+
+def lstm_fwd_entries(xs, wx, b, wh, c0, h0, forget_bias=1.0, masks=None,
+                     dropout_seed=None, keep_prob=1.0, x_bias=None,
+                     residual_dtype=None, full=True):
+    """The C entries behind :func:`lstm_fwd` (``full``: the final carry
+    too) and :func:`lstm_seq_fwd` on CUDA tensors, for the A/B of the
+    forward's two designs; no wrapper calls it, and it counts no launch.
+    Returns ``(run, outs)``: ``run(entry)`` launches ``"srt_lstm_fwd"``
+    (the cooperative loop) or ``"srt_lstm_fwd_rowblock"`` (the row-block
+    design it replaced) on one set of buffers; ``outs`` are ``(hs, cs,
+    cT, hT)`` as the last launch left them."""
+    from sketch_rnn_tpu_torch.ops import _build
+
+    _entries_on_cuda("lstm_fwd_entries", xs)
+    args, outs, hx = _lstm_fwd_args(xs, wx, b, wh, c0, h0, forget_bias,
+                                    masks, dropout_seed, keep_prob, x_bias,
+                                    residual_dtype, full)
+    lib = _build.load("fused_rnn")
+
+    def run(entry, _scratch=hx):     # holds the scratch
+        _build.check(lib, getattr(lib, entry)(*args), entry)
+
+    return run, outs
 
 
 def _lstm_bwd_args(xs, wx, b, wh, h0, hs, cs, dhs, dcT, dhT, forget_bias,
@@ -858,6 +906,7 @@ def lstm_bwd_entries(xs, wx, b, wh, h0, hs, cs, dhs, dcT=None, dhT=None,
     last launches left them (the weight gradients float32)."""
     from sketch_rnn_tpu_torch.ops import _build
 
+    _entries_on_cuda("lstm_bwd_entries", xs)
     args, outs, dpre = _lstm_bwd_args(xs, wx, b, wh, h0, hs, cs, dhs, dcT,
                                       dhT, forget_bias, masks, dropout_seed,
                                       keep_prob, x_bias, full)
@@ -873,7 +922,8 @@ def lstm_bwd_entries(xs, wx, b, wh, h0, hs, cs, dhs, dcT=None, dhT=None,
 def lstm_seq_fwd(xs, wx, b, wh, c0, h0, forget_bias=1.0, masks=None,
                  dropout_seed=None, keep_prob=1.0, residual_dtype=None):
     """Forward of :func:`fused_lstm_seq`: ``(hs, cs)`` (kernel
-    ``srt_lstm_fwd`` with no ``x_bias`` and no final carry)."""
+    ``srt_lstm_fwd``, the cooperative loop, with no ``x_bias`` and no
+    final carry)."""
     if xs.device.type == "cpu":
         return lstm_seq_fwd_reference(xs, wx, b, wh, c0, h0, forget_bias,
                                       masks, dropout_seed, keep_prob,
@@ -902,7 +952,7 @@ def lstm_fwd(xs, wx, b, wh, c0, h0, forget_bias=1.0, masks=None,
              dropout_seed=None, keep_prob=1.0, x_bias=None,
              residual_dtype=None):
     """Forward of :func:`fused_lstm`: ``(hs, cs, cT, hT)`` (kernel
-    ``srt_lstm_fwd``)."""
+    ``srt_lstm_fwd``, the cooperative loop)."""
     if xs.device.type == "cpu":
         return lstm_fwd_reference(xs, wx, b, wh, c0, h0, forget_bias, masks,
                                   dropout_seed, keep_prob, x_bias,

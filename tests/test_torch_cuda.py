@@ -150,10 +150,10 @@ FT, FB, FD = 7, 6, 5    # fused kernels: steps, rows, input width
 
 
 def _fused_inputs(cell, h, dev, x_bias, mode, wdt=torch.float32, t=FT,
-                  bsz=FB):
+                  bsz=FB, dx=FD):
     g = torch.Generator().manual_seed(h + 3 * x_bias)
     r = lambda *s, sc=1.0: (torch.randn(s, generator=g) * sc).to(dev)
-    d = {"xs": r(t, bsz, FD), "wx": r(FD, 4 * h, sc=0.4).to(wdt),
+    d = {"xs": r(t, bsz, dx), "wx": r(dx, 4 * h, sc=0.4).to(wdt),
          "wh": r(h, 4 * h, sc=0.25).to(wdt), "c0": r(bsz, h, sc=0.3),
          "h0": r(bsz, h, sc=0.3)}
     if cell in ("lstm", "lstm_full"):
@@ -347,6 +347,74 @@ def test_lstm_bwd_matches_row_block_design(dev, h, t, bsz, wdt, rdt, full):
         assert torch.equal(a, b)
         assert float((a - c).abs().max()) <= tol * max(
             1.0, float(c.abs().max()))
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+# H=136 leaves uneven slices (15-16 units of 16); B=1 and 3 uneven tiles;
+# B=4096 takes the tile's h rows in several chunks; D=11 passes the 8
+# inputs the kernel holds in registers
+@pytest.mark.parametrize("h,bsz,wdt,rdt,full,mode,dx", [
+    (16, 1, F32, F32, True, "seed", FD),
+    (16, 100, F32, BF16, False, "masks", FD),
+    (136, 3, F32, F32, True, "masks", FD),
+    (136, 100, BF16, BF16, False, "seed", FD),
+    (136, 1, BF16, F32, True, "masks", FD),
+    (256, 100, BF16, BF16, False, "seed", FD),
+    (256, 3, F32, F32, False, "masks", FD),
+    (256, 4096, BF16, BF16, False, "seed", FD),
+    (256, 4096, F32, F32, True, "masks", FD),
+    (512, 100, F32, F32, True, "seed", FD),
+    (512, 100, BF16, BF16, True, "masks", FD),
+    (512, 3, BF16, F32, False, "seed", FD),
+    (40, 6, F32, F32, True, "seed", 11),
+    (512, 100, BF16, BF16, True, "masks", 11)])
+def test_lstm_fwd_matches_row_block_design(dev, h, bsz, wdt, rdt, full,
+                                           mode, dx):
+    """srt_lstm_fwd (the cooperative loop) against the row-block design it
+    replaced, srt_lstm_fwd_rowblock, on the same inputs (x_bias and the
+    final carry when ``full``, else the sequence-only form): every output
+    bitwise equal, and two runs of the new entry bitwise equal."""
+    from sketch_rnn_tpu_torch.ops import cuda_fused as cf
+
+    d, masks, seed = _fused_inputs("lstm_full", h, dev, full, mode, wdt,
+                                   bsz=bsz, dx=dx)
+    before = cf.launch_counts()
+    run, outs = cf.lstm_fwd_entries(d["xs"], d["wx"], d["b"], d["wh"],
+                                    d["c0"], d["h0"], 1.0, masks, seed, 0.9,
+                                    d["x_bias"], rdt, full)
+    snap = lambda: [o.clone() if o is not None else None for o in outs]
+    run("srt_lstm_fwd")
+    first = snap()
+    run("srt_lstm_fwd")
+    second = snap()
+    run("srt_lstm_fwd_rowblock")
+    old = snap()
+    torch.cuda.synchronize()
+    assert cf.launch_counts() == before
+    assert (first[2] is None) == (not full)
+    for a, b, c in zip(first, second, old):
+        if a is None:
+            assert b is None and c is None
+            continue
+        assert torch.equal(a, b)
+        assert torch.equal(a, c)
+
+
+def test_lstm_fwd_refuses_a_shape_it_cannot_hold(dev):
+    """B=8192 at H=512: a tile's cell carries and the resident columns
+    alone exceed a block's shared memory. The wrapper raises, counts no
+    launch, and nothing falls back to the row-block design."""
+    from sketch_rnn_tpu_torch.ops import cuda_fused as cf
+
+    h, bsz = 512, 8192
+    z = lambda *s: torch.zeros(s, device=dev)
+    before = cf.launch_counts()
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cf.lstm_seq_fwd(z(1, bsz, FD), z(FD, 4 * h), z(4 * h),
+                        z(h, 4 * h), z(bsz, h), z(bsz, h))
+    assert cf.launch_counts() == before
 
 
 @pytest.mark.parametrize("cell", ["lstm", "layer_norm"])

@@ -234,6 +234,25 @@ def test_wrappers_refuse_what_they_do_not_take():
             CF.fused_lstm(d["xs"], wx, d["b"], wh, d["c0"], d["h0"])
 
 
+@pytest.mark.parametrize("entries", ["lstm_fwd_entries",
+                                     "lstm_bwd_entries"])
+def test_ab_entries_refuse_cpu_tensors(entries):
+    """The A/B helpers of the LSTM forward's and backward's two C designs
+    take CUDA tensors only: on CPU tensors they raise, and no plain
+    version stands in."""
+    d = {k: torch.from_numpy(v) for k, v in _inputs("lstm").items()}
+    common = (d["xs"], d["wx"], d["b"], d["wh"])
+    if entries == "lstm_fwd_entries":
+        args = (*common, d["c0"], d["h0"])
+    else:
+        res = torch.zeros((T, B, H))
+        args = (*common, d["h0"], res, res, res)
+    before = CF.launch_counts()
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        getattr(CF, entries)(*args)
+    assert CF.launch_counts() == before
+
+
 def _lstm_jloss(names, jm, js, keep, wout, rd=jnp.float32):
     def jloss(*args):
         kw = dict(zip(names, args))

@@ -40,8 +40,15 @@ without the final line. With no CUDA device it exits 2 at once.
      cooperative loop, the weight pass) against the row-block design it
      replaced, ``srt_lstm_bwd_rowblock``, at the shapes of
      ``fused_lstm_seq`` and ``fused_lstm`` above and both dtypes: outputs
-     within FUSED_TOL of each other, both timed in turns with CUDA events,
-     and the split of the new entry into its three launches;
+     within FUSED_TOL of each other, the new entry identical run to run,
+     both timed in turns with CUDA events, and the split of the new entry
+     into its three launches;
+   - ln_lstm_bwd_ab: ``srt_ln_lstm_bwd`` (the hoisted recompute and
+     layer-norm statistics, the cooperative loop with three grid barriers
+     a step, the weight pass) against the row-block design it replaced,
+     ``srt_ln_lstm_bwd_rowblock``, at the decoder's shape of
+     ``fused_ln_lstm`` above (x_bias, seeded dropout) and both dtypes: the
+     same checks and timings, the split into its four launches;
    - kernel_library: cuDNN's LSTM (``torch.nn.LSTM``, TF32 off) timed
      beside ``fused_lstm_seq`` and ``fused_lstm`` (over the unfolded
      inputs [x; z], D=133) as a yardstick only.
@@ -119,7 +126,9 @@ without the final line. With no CUDA device it exits 2 at once.
    the fake-stats backward against their plain versions (1e-2 relative;
    the forward arms also step by step at float32 residuals, 1e-4; the two
    arms whose dh chain overflows by T=250 at T=32), the ``prod`` arms bit
-   for bit and timed beside ``fused_ln_lstm``'s kernels; then both
+   for bit the forward kernel and the row-block LN backward
+   (``srt_ln_lstm_bwd_rowblock``), each timed beside the production
+   entries (the backward beside both of its designs); then both
    ladders and the LN-stats A/B through their run functions with 1 call
    per timing and 2 reps, the ladder's counters zeroed just before each
    and read just after, each record on one line, and the phase's seconds.
@@ -817,6 +826,7 @@ def library_times(lstm, xs, h0, c0, dhs, grad_inputs):
 
 AB_REPS = 5        # turns of (new, row-block, row-block, new) per A/B
 LSTM_BWD_STAGES = ("recompute", "loop", "weight_pass")
+LN_BWD_STAGES = ("recompute", "statistics", "loop", "weight_pass")
 
 
 def timed_calls(calls):
@@ -893,49 +903,73 @@ def lstm_fwd_ab(name, dt, fargs, drop_kw, full, rows):
     log("lstm_fwd_ab", name=name, dtype=dt, reps=AB_REPS, **res)
 
 
-def lstm_bwd_ab(name, dt, bargs, drop_kw, full, rows):
-    """``srt_lstm_bwd`` (the hoisted recompute, the cooperative loop, the
-    weight pass) against the row-block design it replaced,
-    ``srt_lstm_bwd_rowblock``, on the same inputs: every output within
-    FUSED_TOL of the other's, then both timed in turns with CUDA events
-    (new, old, old, new; AB_REPS turns, medians), and the new entry's
-    split: its three launches one at a time (``srt_lstm_bwd_stage``), in
-    order, each between its own events. Uncounted launches."""
+def bwd_ab(phase, name, dt, entry, stages, run, outs, names, rows):
+    """``entry`` (a backward's new design) against the row-block design it
+    replaced, ``entry + "_rowblock"``, through the ``run``/``outs`` of a
+    ``cuda_fused.*_bwd_entries`` helper on one set of inputs: every output
+    (``names``) within FUSED_TOL of the other's and the new entry's
+    identical run to run, then both timed in turns with CUDA events (new,
+    old, old, new; AB_REPS turns, medians), and the new entry's split: its
+    launches one at a time (``entry + "_stage"``, ``stages`` in order),
+    each between its own events. Uncounted launches."""
     import statistics
 
     import torch
 
-    from sketch_rnn_tpu_torch.ops import cuda_fused as CF
-
-    run, outs = CF.lstm_bwd_entries(**bargs, **drop_kw, full=full)
-    names = [n for n, o in zip(FUSED_OUTPUTS["fused_lstm_bwd"], outs)
-             if o is not None]
+    names = [n for n, o in zip(names, outs) if o is not None]
     snap = lambda: [o.clone() for o in outs if o is not None]
-    run("srt_lstm_bwd")
+    run(entry)
     new = snap()
-    run("srt_lstm_bwd_rowblock")
+    run(entry)
+    again = snap()
+    run(entry + "_rowblock")
     old = snap()
     torch.cuda.synchronize()
     ab, rel, per = rel_errs(names, new, old)
-    if not rel <= FUSED_TOL[dt]:
-        raise AssertionError(f"{name} [{dt}]: srt_lstm_bwd vs the row-block "
-                             f"design, rel err {rel}, per output {per}")
-
+    det = all(torch.equal(a, b) for a, b in zip(new, again))
+    if not (rel <= FUSED_TOL[dt] and det):
+        raise AssertionError(f"{name} [{dt}]: {entry} vs the row-block "
+                             f"design, rel err {rel}, per output {per}; "
+                             f"deterministic {det}")
+    del new, again, old
     times, splits = ab_turns(
-        {"new": lambda: run("srt_lstm_bwd"),
-         "old": lambda: run("srt_lstm_bwd_rowblock")},
-        [lambda k=k: run("srt_lstm_bwd_stage", k) for k in (1, 2, 3)])
+        {"new": lambda: run(entry), "old": lambda: run(entry + "_rowblock")},
+        [lambda k=k: run(entry + "_stage", k)
+         for k in range(1, len(stages) + 1)])
     split = {st: statistics.median(evs[i].elapsed_time(evs[i + 1])
                                    for evs in splits)
-             for i, st in enumerate(LSTM_BWD_STAGES)}
+             for i, st in enumerate(stages)}
     res = {"ms": statistics.median(times["new"]),
            "rowblock_ms": statistics.median(times["old"]),
            "new_ms_all": times["new"], "rowblock_ms_all": times["old"],
            "split_ms": split, "err_vs_rowblock": ab,
-           "rel_err_vs_rowblock": rel}
+           "rel_err_vs_rowblock": rel, "deterministic": det,
+           "ab_phase": phase}
     res["speedup"] = res["rowblock_ms"] / res["ms"]
     rows[name][dt]["ab"] = res
-    log("lstm_bwd_ab", name=name, dtype=dt, reps=AB_REPS, **res)
+    log(phase, name=name, dtype=dt, reps=AB_REPS, **res)
+
+
+def lstm_bwd_ab(name, dt, bargs, drop_kw, full, rows):
+    """``srt_lstm_bwd`` (the hoisted recompute, the cooperative loop, the
+    weight pass) against ``srt_lstm_bwd_rowblock`` (``bwd_ab``)."""
+    from sketch_rnn_tpu_torch.ops import cuda_fused as CF
+
+    run, outs = CF.lstm_bwd_entries(**bargs, **drop_kw, full=full)
+    bwd_ab("lstm_bwd_ab", name, dt, "srt_lstm_bwd", LSTM_BWD_STAGES, run,
+           outs, FUSED_OUTPUTS["fused_lstm_bwd"], rows)
+
+
+def ln_lstm_bwd_ab(dt, bargs, drop_kw, rows):
+    """``srt_ln_lstm_bwd`` (the hoisted recompute and statistics, the
+    cooperative loop, the weight pass) against
+    ``srt_ln_lstm_bwd_rowblock`` (``bwd_ab``)."""
+    from sketch_rnn_tpu_torch.ops import cuda_fused as CF
+
+    run, outs = CF.ln_lstm_bwd_entries(**bargs, **drop_kw)
+    bwd_ab("ln_lstm_bwd_ab", "fused_ln_lstm_bwd", dt, "srt_ln_lstm_bwd",
+           LN_BWD_STAGES, run, outs, FUSED_OUTPUTS["fused_ln_lstm_bwd"],
+           rows)
 
 
 def check_lstm_seq(inp, rows):
@@ -1102,6 +1136,7 @@ def check_ln_lstm(inp, rows):
         "fused_ln_lstm_bwd", dt, lambda **k: CF.ln_lstm_bwd(**bargs, **k),
         lambda **k: CF.ln_lstm_bwd_reference(**bargs, **k), seed_kw,
         masks_kw, rows)
+    ln_lstm_bwd_ab(dt, bargs, seed_kw, rows)
     g4 = 4 * h
     fwd_flops = 2 * t * b * (d + h) * g4
     params_in = (w["wx"], w["wh"], *ln.values(), inp["x_bias"])
@@ -1843,10 +1878,12 @@ def check_probe_ladder(card, rows):
     they are held at T=32 at float32 weights and residuals within
     FUSED_TOL["float32"], their bfloat16 gap at T=32 and the outputs that
     are non-finite at T=250, in the kernel and in the plain version, are
-    logged; ``prod`` bit for bit
-    ``fused_ln_lstm``'s backward kernel (its weight gradients rounded as
-    that kernel rounds them). Both ``prod`` arms are timed beside the
-    production kernels. Then each ladder's run function and the LN-stats
+    logged; ``prod`` bit for bit the
+    row-block design of ``fused_ln_lstm``'s backward,
+    ``srt_ln_lstm_bwd_rowblock`` (the weight gradients of both rounded as
+    ``fused_ln_lstm`` rounds them). Both ``prod`` arms are timed beside
+    the production kernels, the backward arm also beside the row-block
+    entry. Then each ladder's run function and the LN-stats
     A/B, the ladder's launch counters zeroed just before each and read
     just after, each record on one line. Returns the launches by row."""
     import torch
@@ -1958,18 +1995,22 @@ def check_probe_ladder(card, rows):
             r["non_finite_at_T250"] = {"kernel": fin(run(**bi)),
                                        "plain": fin(plain(bi))}
         if arm == "prod":
-            got = run(**bi)
-            prodk = lambda: CF.ln_lstm_bwd(**bi)
-            want = prodk()
-            got = (*got[:2], got[2].to(bf), got[3].to(bf), *got[4:])
-            r["bitwise_fused_ln_lstm_bwd"] = same(got, want)
-            if not r["bitwise_fused_ln_lstm_bwd"]:
+            rowblock, want = CF.ln_lstm_bwd_entries(**bi)
+            rnd = lambda o: (*o[:2], o[2].to(bf), o[3].to(bf), *o[4:])
+            rowblock("srt_ln_lstm_bwd_rowblock")
+            r["bitwise_srt_ln_lstm_bwd_rowblock"] = same(rnd(run(**bi)),
+                                                         rnd(want))
+            if not r["bitwise_srt_ln_lstm_bwd_rowblock"]:
                 raise AssertionError("bwd_arm(prod) is not bitwise the "
-                                     "fused_ln_lstm backward kernel")
-            del got, want
+                                     "row-block LN backward")
+            del want
             r["ms_beside_fused_ln_lstm_bwd"] = dict(zip(
-                ("prod_arm", "fused_ln_lstm_bwd"), _probe.interleaved(
-                    [lambda: run(**bi), prodk], 1, 2)))
+                ("prod_arm", "fused_ln_lstm_bwd", "srt_ln_lstm_bwd_rowblock"),
+                _probe.interleaved(
+                    [lambda: run(**bi), lambda: CF.ln_lstm_bwd(**bi),
+                     lambda: rowblock("srt_ln_lstm_bwd_rowblock")], 1, 2)))
+            del rowblock
+            torch.cuda.empty_cache()
         weight = arm in ("prod", "no_lnbwd", "no_ln", "fake", "no_gates")
         fl = (3 * prod_flops if weight else
               prod_flops + 2 * t * b * h * 4 * h if arm == "no_gradmm"

@@ -45,15 +45,17 @@
 // masks here are bitwise those of the JAX package; the backward uses the
 // forward's t. uint32 arithmetic, no fast-math.
 //
-// Design of the LayerNorm-LSTM forward and backward: the row-block design.
-// The recurrence of a batch row never reads another row, so each of these
-// kernels is one block per row (grid = B) with the T loop inside the
-// block, one thread per hidden unit j (blockDim = H rounded up to a warp,
-// H <= 512): the carry (and, backwards, dh/dc) of the row lives in shared
+// Design of the LayerNorm-LSTM forward: the row-block design. (The
+// LayerNorm-LSTM backward ran it too, and keeps it reachable as
+// srt_ln_lstm_bwd_rowblock; its design now is below.) The recurrence of a
+// batch row never reads another row, so each of these kernels is one
+// block per row (grid = B) with the T loop inside the block, one thread
+// per hidden unit j (blockDim = H rounded up to a warp, H <= 512): the
+// carry (and, backwards, dh/dc) of the row lives in shared
 // memory and registers for the whole sequence. Thread j computes column j
 // of the four gates, reading row k of wh coalesced across the block;
-// layer-norm statistics are block reductions. The LN backward's transposed
-// product dh_{t-1} = d_pre @ wh^T (and dx = d_pre @ wx^T) gives each warp
+// layer-norm statistics are block reductions. The row-block LN backward's
+// transposed product dh_{t-1} = d_pre @ wh^T (and dx = d_pre @ wx^T) gives each warp
 // whole rows of wh, read coalesced, reduced by shuffles. The LSTM forward
 // and backward ran this row-block design too (rnn_fwd_kernel<false>,
 // rnn_bwd_kernel<false>); they stay reachable as srt_lstm_fwd_rowblock and
@@ -133,6 +135,51 @@
 // sums; products ~ (B / tiles) x 16 x 4H multiply-adds per block. At H=256
 // (16 slices x 8 tiles): 6.5 MB, 64 / 32 KiB.
 //
+// Design of the LayerNorm-LSTM backward (srt_ln_lstm_bwd): four launches.
+//  1. The LSTM backward's hoisted recompute of pre (no b).
+//  2. The statistics: the loop's layer norms need each row's sums over
+//     all H units, which the loop spreads over H / 16 blocks. Of them only
+//     the forward ones depend on nothing the loop computes, so one small
+//     kernel computes them for every row-step from pre, cs and the mask,
+//     one block per row-step with the row-block design's block sums in
+//     its order: the four gates' mean and rsqrt(var + 1e-6), and those of
+//     the new cell state, into a [T * B, 10] float scratch.
+//  3. The serial loop, one persistent cooperative kernel on the LSTM
+//     loop's grid: block (tile, slice) keeps the wh rows of its 16 units
+//     resident in shared memory, widened to float (unpacking bf16 at
+//     every use cost more than the bytes it saves), and the dh of its
+//     (row, unit) pairs as the parts of the transposed product; each
+//     pair's dc, LN-parameter
+//     and dx_bias sums live in dc0, the [B, 10H] partials and dxb, each
+//     read and written by its owner thread only. A half warp holds the 16
+//     units of one row. Per step: (a) each pair's gate block from pre and
+//     the statistics; per row the sums over the block's units of dxh_c
+//     and dxh_c * xhat_c go to an exchange [B, slices, 2]; grid barrier.
+//     (b) the cell norm's two row sums, the slices' partials added in
+//     slice order (a pass's rows of the exchange first copied to shared
+//     memory by the whole block, so that the sums do not wait on one L2
+//     load after another); dcv, the four dy, the LN sums; dxh = dy * gamma is
+//     stashed ([4, B, H]) and its 8 partials (dxh, dxh * xhat per gate)
+//     go to [B, slices, 8]; grid barrier. (c) those sums in slice order
+//     give d_pre, written over pre, and the dx_bias sums; grid barrier.
+//     (d) dh_{s-1} for the block's rows and units as in the LSTM loop.
+//     After the last step, dxs over the whole grid as there. Every sum
+//     has a fixed order and no atomics, so every result is the same on
+//     every run; the exchanges' sums are taken in another order than the
+//     row-block design's block sums, so the two agree within tolerance,
+//     not bit for bit.
+//  4. The weight pass, weight_grad_kernel over the same scratch.
+//     Each pair's loads come before its stores: through float pointers
+//     the compiler cannot move a load above a store, so read-modify-writes
+//     interleaved with other stores each waited out an L2 round trip.
+// Sizing at H=512, B=100 (32 slices x 4 tiles = 128 blocks of 25 rows):
+// shared memory per block 149,056 bytes at either dtype (wh rows 131,072,
+// dh parts 1,600, a pass's 16 rows of the wider exchange 16,384); scratch
+// 1,947,200 bytes beside d_pre (exchanges 128,000, statistics 1,000,000,
+// the dxh stash 819,200); three grid barriers per step, 750 per call.
+// B=4096 takes 212,992 bytes; B=8192 does not fit (its tile's dh parts and
+// the wh rows exceed a block's shared memory), and the launch is refused.
+//
 // Weight gradients cross every row, and blocks run in no fixed order, so
 // they are NOT accumulated across blocks with atomics (whose order, and so
 // whose rounding, would change from run to run). The recurrence writes
@@ -173,12 +220,13 @@
 // float) and a (B / tiles) x 16 x 4H product per block from resident
 // weights, in SIMT multiply-adds so that the sums keep the row-block
 // order; its shared-memory reads and their latency bound the product, not
-// the FLOP count (PERF.md has the split of a step). The LN forward and
-// backward keep the row-block design: only B=100 of the 132 SMs hold a
-// row, each row's block re-reads wh from L2 on every step (4 MiB at float,
-// half that at bf16; twice a step backwards), and the step-to-step
-// dependency leaves a block's memory latency exposed. PERF.md keeps the
-// measured times beside these bounds.
+// the FLOP count (PERF.md has the split of a step). The LN forward keeps
+// the row-block design: only B=100 of the 132 SMs hold a row, each row's
+// block re-reads wh from L2 on every step (4 MiB at float, half that at
+// bf16), and the step-to-step dependency leaves a block's memory latency
+// exposed. The LN backward's loop is the LSTM loop's plus two exchanges
+// and two grid barriers a step, so latency bounds it too. PERF.md keeps
+// the measured times beside these bounds.
 
 #include <cooperative_groups.h>
 
@@ -822,12 +870,115 @@ __device__ __forceinline__ float4 rnd4(float4 v) {
   return make_float4(rnd<W>(v.x), rnd<W>(v.y), rnd<W>(v.z), rnd<W>(v.w));
 }
 
+// The transposed product of a backward loop's step: the parts of
+// dh_{s-1}[b, k] = sum_c rnd_W(d_pre[s, b, c]) wh[k, c] for the block's nb
+// rows b (d_pre rows from dps on, written by other blocks of the kernel:
+// read through L2) and its kUnits units k (the wh rows resident in s_w,
+// as W or widened to float, zero past the slice), into s_part
+// [parts][nb_max][kUnits]. A warp task
+// is kBGroup rows x kUnits units over one part of the 4H columns, taken a
+// quad (4 columns) at a time by the lanes in turn; a shuffle
+// reduce-scatter leaves each lane two sums. The caller sums the parts in
+// order after a __syncthreads.
+template <typename W, typename S>
+__device__ __forceinline__ void dh_parts(const float* dps, const S* s_w,
+                                         float* s_part, int H, int nb,
+                                         int nb_max, int parts) {
+  const int G = 4 * H, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ntasks = (nb + kBGroup - 1) / kBGroup * parts;
+  for (int task = warp; task < ntasks; task += kLoopWarps) {
+    const int grp = task / parts, part = task - grp * parts;
+    const int q_lo = part * H / parts, q_hi = (part + 1) * H / parts;
+    const float4* rows[kBGroup];
+    bool valid[kBGroup];
+#pragma unroll
+    for (int r = 0; r < kBGroup; ++r) {
+      const int bl = grp * kBGroup + r;
+      valid[r] = bl < nb;
+      rows[r] = reinterpret_cast<const float4*>(
+          dps + (size_t)(valid[r] ? bl : 0) * G);
+    }
+    float acc[kBGroup * kUnits];
+#pragma unroll
+    for (int e = 0; e < kBGroup * kUnits; ++e) acc[e] = 0.0f;
+    for (int qd = q_lo + lane; qd < q_hi; qd += 32) {
+      float4 d[kBGroup];
+#pragma unroll
+      for (int r = 0; r < kBGroup; ++r)
+        d[r] = valid[r] ? rnd4<W>(__ldcg(rows[r] + qd))
+                        : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+      for (int k = 0; k < kUnits; ++k) {
+        const float4 w = quad(s_w + (size_t)k * G + 4 * qd);
+#pragma unroll
+        for (int r = 0; r < kBGroup; ++r) {
+          float v = acc[r * kUnits + k];
+          v = fmaf(d[r].x, w.x, v);
+          v = fmaf(d[r].y, w.y, v);
+          v = fmaf(d[r].z, w.z, v);
+          acc[r * kUnits + k] = fmaf(d[r].w, w.w, v);
+        }
+      }
+    }
+    rs_stage<32, 16>(acc, lane);
+    rs_stage<16, 8>(acc, lane);
+    rs_stage<8, 4>(acc, lane);
+    rs_stage<4, 2>(acc, lane);
+    rs_stage<2, 1>(acc, lane);
+    // lane l holds entries 2 l, 2 l + 1: row l / 8, units 2 (l % 8) + 0, 1
+    const int bl = grp * kBGroup + (lane >> 3), k = (lane & 7) * 2;
+    if (bl < nb) {
+      float* dst = s_part + ((size_t)part * nb_max + bl) * kUnits + k;
+      dst[0] = acc[0];
+      dst[1] = acc[1];
+    }
+  }
+}
+
+// dxs = rnd_W(d_pre) @ wx^T for every row-step after a backward loop's
+// last grid barrier: no recurrence, so every warp of the grid takes rows.
+template <typename W, typename R>
+__device__ __forceinline__ void dxs_rows(const Bwd<W, R>& a) {
+  const int H = a.p.H, G = 4 * H, D = a.p.D, lane = threadIdx.x & 31;
+  const size_t rows_all = (size_t)a.T * a.B;
+  const size_t nwg = (size_t)gridDim.x * kLoopWarps;
+  for (size_t mr = (size_t)blockIdx.x * kLoopWarps + (threadIdx.x >> 5);
+       mr < rows_all; mr += nwg) {
+    const float4* row = reinterpret_cast<const float4*>(a.dpre + mr * G);
+    for (int q0 = 0; q0 < D; q0 += 8) {
+      float acc[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[e] = 0.0f;
+      for (int qd = lane; qd < H; qd += 32) {
+        const float4 dv = rnd4<W>(__ldcg(row + qd));
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          if (q0 + e < D) {
+            const W* w = a.p.wx + (size_t)(q0 + e) * G + 4 * qd;
+            float v = fmaf(dv.x, to_f(w[0]), acc[e]);
+            v = fmaf(dv.y, to_f(w[1]), v);
+            v = fmaf(dv.z, to_f(w[2]), v);
+            acc[e] = fmaf(dv.w, to_f(w[3]), v);
+          }
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], off);
+        if (lane == e && q0 + e < D) a.dxs[mr * D + q0 + e] = acc[e];
+      }
+    }
+  }
+}
+
 template <typename W, typename R>
 __global__ void __launch_bounds__(kLoopThreads)
 lstm_bwd_loop_kernel(Bwd<W, R> a, int slices, int tiles, int parts) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const Cell<W>& p = a.p;
-  const int H = p.H, G = 4 * H, B = a.B, D = p.D;
+  const int H = p.H, G = 4 * H, B = a.B;
   const int sl = blockIdx.x % slices, bt = blockIdx.x / slices;
   const int j0 = sl * H / slices, nu = (sl + 1) * H / slices - j0;
   const int b0 = bt * B / tiles, nb = (bt + 1) * B / tiles - b0;
@@ -837,7 +988,7 @@ lstm_bwd_loop_kernel(Bwd<W, R> a, int slices, int tiles, int parts) {
   float* s_dc = s_dh + nb_max * kUnits;        // [nb_max][kUnits]
   float* s_xb = s_dc + nb_max * kUnits;        // [nb_max][kUnits][4]
   float* s_part = s_xb + 4 * nb_max * kUnits;  // [parts][nb_max][kUnits]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const uint32_t seed = a.drop.seed != nullptr ? (uint32_t)*a.drop.seed : 0u;
 
   for (int e = tid; e < kUnits * G; e += kLoopThreads) {
@@ -856,7 +1007,6 @@ lstm_bwd_loop_kernel(Bwd<W, R> a, int slices, int tiles, int parts) {
     for (int g = 0; g < 4; ++g) s_xb[4 * q + g] = 0.0f;
   }
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
-  const int ntasks = (nb + kBGroup - 1) / kBGroup * parts;
 
   for (int s = a.T - 1; s >= 0; --s) {
     for (int q = tid; q < npairs; q += kLoopThreads) {
@@ -891,55 +1041,8 @@ lstm_bwd_loop_kernel(Bwd<W, R> a, int slices, int tiles, int parts) {
       s_dc[q] = dcv * f;
     }
     grid.sync();  // d_pre[s] complete across the grid
-    // warp task: kBGroup rows x kUnits units over one part of the 4H
-    // columns, taken a quad (4 columns) at a time by the lanes in turn
-    for (int task = warp; task < ntasks; task += kLoopWarps) {
-      const int grp = task / parts, part = task - grp * parts;
-      const int q_lo = part * H / parts, q_hi = (part + 1) * H / parts;
-      const float4* rows[kBGroup];
-      bool valid[kBGroup];
-#pragma unroll
-      for (int r = 0; r < kBGroup; ++r) {
-        const int bl = grp * kBGroup + r;
-        valid[r] = bl < nb;
-        rows[r] = reinterpret_cast<const float4*>(
-            a.dpre + ((size_t)s * B + b0 + (valid[r] ? bl : 0)) * G);
-      }
-      float acc[kBGroup * kUnits];
-#pragma unroll
-      for (int e = 0; e < kBGroup * kUnits; ++e) acc[e] = 0.0f;
-      for (int qd = q_lo + lane; qd < q_hi; qd += 32) {
-        float4 d[kBGroup];
-#pragma unroll
-        for (int r = 0; r < kBGroup; ++r)
-          d[r] = valid[r] ? rnd4<W>(__ldcg(rows[r] + qd))
-                          : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-#pragma unroll
-        for (int k = 0; k < kUnits; ++k) {
-          const float4 w = quad(s_w + (size_t)k * G + 4 * qd);
-#pragma unroll
-          for (int r = 0; r < kBGroup; ++r) {
-            float v = acc[r * kUnits + k];
-            v = fmaf(d[r].x, w.x, v);
-            v = fmaf(d[r].y, w.y, v);
-            v = fmaf(d[r].z, w.z, v);
-            acc[r * kUnits + k] = fmaf(d[r].w, w.w, v);
-          }
-        }
-      }
-      rs_stage<32, 16>(acc, lane);
-      rs_stage<16, 8>(acc, lane);
-      rs_stage<8, 4>(acc, lane);
-      rs_stage<4, 2>(acc, lane);
-      rs_stage<2, 1>(acc, lane);
-      // lane l holds entries 2 l, 2 l + 1: row l / 8, units 2 (l % 8) + 0, 1
-      const int bl = grp * kBGroup + (lane >> 3), k = (lane & 7) * 2;
-      if (bl < nb) {
-        float* dst = s_part + ((size_t)part * nb_max + bl) * kUnits + k;
-        dst[0] = acc[0];
-        dst[1] = acc[1];
-      }
-    }
+    dh_parts<W>(a.dpre + ((size_t)s * B + b0) * G, s_w, s_part, H, nb,
+                nb_max, parts);
     __syncthreads();  // every part of this step's dh written
     for (int q = tid; q < npairs; q += kLoopThreads) {
       float sum = 0.0f;
@@ -948,42 +1051,7 @@ lstm_bwd_loop_kernel(Bwd<W, R> a, int slices, int tiles, int parts) {
       s_dh[q] = sum;
     }
   }
-  // dxs = d_pre @ wx^T for every row-step: no recurrence, so all warps of
-  // the grid share its rows (every d_pre was written before the last
-  // grid barrier)
-  if (a.dxs != nullptr) {
-    const size_t rows_all = (size_t)a.T * B;
-    const size_t nwg = (size_t)gridDim.x * kLoopWarps;
-    for (size_t mr = (size_t)blockIdx.x * kLoopWarps + warp; mr < rows_all;
-         mr += nwg) {
-      const float4* row = reinterpret_cast<const float4*>(a.dpre + mr * G);
-      for (int q0 = 0; q0 < D; q0 += 8) {
-        float acc[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) acc[e] = 0.0f;
-        for (int qd = lane; qd < H; qd += 32) {
-          const float4 dv = rnd4<W>(__ldcg(row + qd));
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            if (q0 + e < D) {
-              const W* w = p.wx + (size_t)(q0 + e) * G + 4 * qd;
-              float v = fmaf(dv.x, to_f(w[0]), acc[e]);
-              v = fmaf(dv.y, to_f(w[1]), v);
-              v = fmaf(dv.z, to_f(w[2]), v);
-              acc[e] = fmaf(dv.w, to_f(w[3]), v);
-            }
-          }
-        }
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], off);
-          if (lane == e && q0 + e < D) a.dxs[mr * D + q0 + e] = acc[e];
-        }
-      }
-    }
-  }
+  if (a.dxs != nullptr) dxs_rows(a);
   for (int q = tid; q < npairs; q += kLoopThreads) {
     const int u = q % kUnits;
     if (u >= nu) continue;
@@ -1028,12 +1096,18 @@ LoopGrid loop_grid(int B, int H, int sms) {
 template <typename W, typename R>
 cudaError_t launch_loop(const Bwd<W, R>& a, cudaStream_t stream) {
   if (a.B < 1) return cudaErrorInvalidValue;
-  int dev = 0, sms = 0, occ = 0;
+  int dev = 0, sms = 0, smem_max = 0, occ = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
   LoopGrid g = loop_grid<W>(a.B, a.p.H, sms);
+  // refused before cudaFuncSetAttribute, whose error the next launch's
+  // cudaGetLastError would report
+  if (g.smem > (size_t)smem_max) return cudaErrorLaunchOutOfResources;
   const void* fn = (const void*)lstm_bwd_loop_kernel<W, R>;
   err = set_smem(fn, g.smem);
   if (err == cudaSuccess)
@@ -1061,6 +1135,470 @@ cudaError_t launch_lstm_bwd(const Bwd<W, R>& a, int stage, float* dwx,
     err = launch_loop(a, stream);
   if (err == cudaSuccess && (stage == 0 || stage == 3))
     err = launch_weight_grad(a, 1, dwx, dwh, db, stream);
+  return err;
+}
+
+// ---------------------------------------------------------------------------
+// The LayerNorm-LSTM backward of srt_ln_lstm_bwd: four launches (header,
+// "Design of the LayerNorm-LSTM backward"). The first is the LSTM's
+// recompute (Cell::b is null).
+
+constexpr int kLnStats = 10;  // per row-step: mean[4], rs[4], cmean, crs
+
+// The scratch of the launches after the recompute, carved from one float
+// buffer in this order (16-byte aligned first): the per-slice partials of
+// the gate norms' row sums (exchange (b), [B][slices][8]) and of the cell
+// norm's (exchange (a), [B][slices][2]), the hoisted statistics
+// ([T * B][kLnStats]) and each pair's dxh = dy * gamma from (b) to (c)
+// ([4][B][H]).
+struct LnWork {
+  float* exb;
+  float* exa;
+  float* stats;
+  float* dxh;
+};
+
+LnWork ln_work(float* work, int T, int B, int H) {
+  const size_t slices = (size_t)(H + kUnits - 1) / kUnits;
+  LnWork w;
+  w.exb = work;
+  w.exa = w.exb + (size_t)B * slices * 8;
+  w.stats = w.exa + (size_t)B * slices * 2;
+  w.dxh = w.stats + (size_t)T * B * kLnStats;
+  return w;
+}
+
+// 2. The statistics of every row-step, which depend on nothing the loop
+// computes: one block per row-step (threads_for(H) threads, one per
+// unit), gate_stats of the recomputed pre, the gate block up to the new
+// cell state, row_stats of it: the row-block design's sums in its order.
+template <typename W, typename R>
+__global__ void __launch_bounds__(kMaxThreads)
+ln_stats_kernel(Bwd<W, R> a, float* stats) {
+  __shared__ float s_red[33 * kRedMax];
+  const Cell<W>& p = a.p;
+  const int H = p.H, B = a.B, j = threadIdx.x;
+  const int m = blockIdx.x, s = m / B, row = m - s * B;
+  const bool own = j < H;
+  const uint32_t seed = a.drop.seed != nullptr ? (uint32_t)*a.drop.seed : 0u;
+  float pre[4] = {0.0f, 0.0f, 0.0f, 0.0f}, c_prev = 0.0f, mk = 1.0f;
+  if (own) {
+    const float* pr = a.dpre + (size_t)m * 4 * H;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) pre[g] = pr[g * H + j];
+    c_prev = to_f(a.cs[(size_t)m * H + j]);
+    mk = dropout_mask(a.drop, seed, s, B, row, H, j);
+  }
+  float mean[4], rs[4], y[4];
+  gate_stats(pre, own, H, s_red, mean, rs);
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    const float xhat = (pre[g] - mean[g]) * rs[g];
+    y[g] = own ? xhat * p.ln_gamma[g * H + j] + p.ln_beta[g * H + j] : 0.0f;
+  }
+  const float i = sigmoidf_(y[0]), gu = tanhf(y[1]);
+  const float f = sigmoidf_(y[2] + p.forget_bias);
+  const float nc = c_prev * f + i * (gu * mk);
+  float cmean, crs;
+  row_stats(nc, own, H, s_red, cmean, crs);
+  if (j == 0) {
+    float* st = stats + (size_t)m * kLnStats;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      st[g] = mean[g];
+      st[4 + g] = rs[g];
+    }
+    st[8] = cmean;
+    st[9] = crs;
+  }
+}
+
+// Sum N values over the 16 lanes of a half warp (one row's units); every
+// lane gets the same sums. All 32 lanes must call it.
+template <int N>
+__device__ __forceinline__ void half_warp_sum(float (&v)[N]) {
+#pragma unroll
+  for (int off = kUnits / 2; off > 0; off >>= 1)
+#pragma unroll
+    for (int g = 0; g < N; ++g)
+      v[g] += __shfl_xor_sync(0xffffffffu, v[g], off);
+}
+
+constexpr int kLnRows = kLoopThreads / kUnits;  // rows per pass over pairs
+
+// n elements of type V (float, or float4 where 16-byte aligned) of an
+// exchange, from ex + first (in floats) on, written by other blocks of
+// the kernel, into s_ex: one coalesced copy through L2 by the whole block,
+// four loads in flight per thread, so that the half warps' in-order sums
+// over the slices read shared memory instead of waiting on one L2 load
+// after another. A __syncthreads must follow.
+template <typename V>
+__device__ __forceinline__ void stage_ex(float* s_ex, const float* ex,
+                                         size_t first, int n) {
+  const V* src = reinterpret_cast<const V*>(ex + first);
+  V* dst = reinterpret_cast<V*>(s_ex);
+  for (int e0 = threadIdx.x; e0 < n; e0 += 4 * kLoopThreads) {
+    V v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (e0 + i * kLoopThreads < n)
+        v[i] = __ldcg(src + e0 + i * kLoopThreads);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (e0 + i * kLoopThreads < n) dst[e0 + i * kLoopThreads] = v[i];
+  }
+}
+
+// The gate block of one (row, unit) pair up to the cell norm's input
+// gradient, from the hoisted pre, the row's statistics st and the pair's
+// c_prev, mask m and dh_tot: ln_gates_bwd before its first block sum.
+struct LnPair {
+  float xhat[4], i, gu, f, o, xhat_c, crs, do_, dyc, c_prev, m;
+};
+
+__device__ __forceinline__ LnPair ln_pair(const float (&pre)[4],
+                                          const float (&st)[kLnStats],
+                                          float c_prev, float m,
+                                          float dh_tot, const float (&gam)[4],
+                                          const float (&bet)[4], float gc,
+                                          float bc, float forget_bias) {
+  LnPair r;
+  r.c_prev = c_prev;
+  r.m = m;
+  r.crs = st[9];
+  float y[4];
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    r.xhat[g] = (pre[g] - st[g]) * st[4 + g];
+    y[g] = r.xhat[g] * gam[g] + bet[g];
+  }
+  r.i = sigmoidf_(y[0]);
+  r.gu = tanhf(y[1]);
+  r.f = sigmoidf_(y[2] + forget_bias);
+  r.o = sigmoidf_(y[3]);
+  const float nc = c_prev * r.f + r.i * (r.gu * m);
+  r.xhat_c = (nc - st[8]) * st[9];
+  const float yc = r.xhat_c * gc + bc;
+  const float tanh_yc = tanhf(yc);
+  r.do_ = dh_tot * tanh_yc;
+  r.dyc = dh_tot * r.o * (1.0f - tanh_yc * tanh_yc);
+  return r;
+}
+
+// 3. The serial loop, one persistent cooperative kernel on the LSTM
+// loop's grid. Block (tile, slice) keeps the wh rows of its units
+// resident (as float) and the dh parts of its pairs in shared memory;
+// thread tid
+// owns the pairs q = tid + k * kLoopThreads, all of unit j0 + tid % kUnits,
+// so a half warp holds the 16 units of one row and the unit's LN
+// parameters sit in registers. Each pair's running dc (in dc0), LN sums
+// (in part, [B, 10H]) and dx_bias sums (in dxb) are read and written by
+// their owner only. Per step s: (a) each pair's gate block from the
+// hoisted pre and statistics; the half warp sums dxh_c and dxh_c * xhat_c
+// over its units into exa; barrier. (b) the cell norm's row sums, over the
+// slices in order; dcv, the four dy, the LN sums, dxh stashed, and the
+// gate norms' 8 partials into exb; barrier. (c) those sums in slice order
+// give d_pre, written over pre in place, and the dx_bias sums; barrier.
+// (d) dh_{s-1} for the block's rows and units (dh_parts). Exchanges and
+// d_pre are written by other blocks during the kernel: read through L2.
+template <typename W, typename R>
+__global__ void __launch_bounds__(kLoopThreads)
+ln_lstm_bwd_loop_kernel(Bwd<W, R> a, LnWork w, int slices, int tiles,
+                        int parts) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Cell<W>& p = a.p;
+  const int H = p.H, G = 4 * H, B = a.B;
+  const int sl = blockIdx.x % slices, bt = blockIdx.x / slices;
+  const int j0 = sl * H / slices, nu = (sl + 1) * H / slices - j0;
+  const int b0 = bt * B / tiles, nb = (bt + 1) * B / tiles - b0;
+  const int nb_max = (B + tiles - 1) / tiles;
+  const int plane = nb_max * kUnits;
+  // [kUnits][4H], zero past nu; a bf16 weight widened once, exactly (its
+  // unpacking at every use cost more than the bytes it saves)
+  float* s_w = reinterpret_cast<float*>(smem_raw);
+  // [parts][nb_max][kUnits]: dh of every pair is the sum of its parts
+  float* s_part = s_w + kUnits * G;
+  float* s_ex = s_part + parts * nb_max * kUnits;  // [kLnRows][slices][8]
+  const int tid = threadIdx.x, u = tid % kUnits;
+  const bool unit = u < nu;
+  const int j = j0 + (unit ? u : 0);
+  const uint32_t seed = a.drop.seed != nullptr ? (uint32_t)*a.drop.seed : 0u;
+  const float fh = (float)H;
+  float gam[4], bet[4];
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    gam[g] = unit ? p.ln_gamma[g * H + j] : 0.0f;
+    bet[g] = unit ? p.ln_beta[g * H + j] : 0.0f;
+  }
+  const float gc = unit ? p.lnc_gamma[j] : 0.0f;
+  const float bc = unit ? p.lnc_beta[j] : 0.0f;
+  const int npairs = nb * kUnits;
+
+  for (int e = tid; e < kUnits * G; e += kLoopThreads) {
+    const int k = e / G, c = e - k * G;
+    s_w[e] = k < nu ? to_f(p.wh[(size_t)(j0 + k) * G + c]) : 0.0f;
+  }
+  for (int e = tid; e < parts * plane; e += kLoopThreads) {
+    const int q = e % plane, bl = q / kUnits, uu = q % kUnits;
+    s_part[e] = (e < plane && bl < nb && uu < nu && a.dhT != nullptr)
+                    ? a.dhT[(size_t)(b0 + bl) * H + j0 + uu]
+                    : 0.0f;
+  }
+  for (int q = tid; q < npairs; q += kLoopThreads) {
+    if (!unit) continue;
+    const size_t at = (size_t)(b0 + q / kUnits) * H + j;
+    a.dc0[at] = a.dcT != nullptr ? a.dcT[at] : 0.0f;
+    float* pr = a.part + (size_t)(b0 + q / kUnits) * 10 * H + j;
+#pragma unroll
+    for (int e = 0; e < 10; ++e) pr[e * H] = 0.0f;
+    if (a.dxb != nullptr) {
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        a.dxb[(size_t)(b0 + q / kUnits) * G + g * H + j] = 0.0f;
+    }
+  }
+  __syncthreads();  // s_part holds dhT
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+
+  // the inputs of pair q's gate block at step s (a real pair only)
+  auto pair_at = [&](int s, int q) {
+    const int row = b0 + q / kUnits;
+    const size_t m = (size_t)s * B + row, at = m * H + j;
+    float pre[4], st[kLnStats];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) pre[g] = __ldcg(a.dpre + m * G + g * H + j);
+    const float2* sp = reinterpret_cast<const float2*>(w.stats +
+                                                       m * kLnStats);
+#pragma unroll
+    for (int e = 0; e < kLnStats / 2; ++e) {
+      const float2 v = sp[e];
+      st[2 * e] = v.x;
+      st[2 * e + 1] = v.y;
+    }
+    float dh = 0.0f;
+    for (int pt = 0; pt < parts; ++pt) dh += s_part[pt * plane + q];
+    const float c_prev = to_f(a.cs[at]);
+    const float mk = dropout_mask(a.drop, seed, s, B, row, H, j);
+    return ln_pair(pre, st, c_prev, mk, dh + to_f(a.dhs[at]), gam, bet, gc,
+                   bc, p.forget_bias);
+  };
+
+  for (int s = a.T - 1; s >= 0; --s) {
+    // (a) the cell norm's partials
+    for (int q0 = 0; q0 < npairs; q0 += kLoopThreads) {
+      const int q = q0 + tid, bl = q / kUnits;
+      float v[2] = {0.0f, 0.0f};
+      if (unit && bl < nb) {
+        const LnPair r = pair_at(s, q);
+        v[0] = r.dyc * gc;
+        v[1] = v[0] * r.xhat_c;
+      }
+      half_warp_sum(v);
+      if (u == 0 && bl < nb)
+        reinterpret_cast<float2*>(w.exa)[(size_t)(b0 + bl) * slices + sl] =
+            make_float2(v[0], v[1]);
+    }
+    grid.sync();  // exa complete
+    // (b) dcv, dy, the LN sums and the gate norms' partials
+    for (int q0 = 0; q0 < npairs; q0 += kLoopThreads) {
+      const int q = q0 + tid, bl = q / kUnits, row = b0 + bl;
+      const int bl0 = q0 / kUnits, nr = nb - bl0 < kLnRows ? nb - bl0 : kLnRows;
+      stage_ex<float>(s_ex, w.exa, (size_t)(b0 + bl0) * slices * 2,
+                      nr * slices * 2);
+      __syncthreads();  // this pass's rows of exa in s_ex
+      float v[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      if (unit && bl < nb) {
+        const float2* ex =
+            reinterpret_cast<const float2*>(s_ex) + (bl - bl0) * slices;
+        float s0 = 0.0f, s1 = 0.0f;
+        for (int k = 0; k < slices; ++k) {
+          const float2 e = ex[k];
+          s0 += e.x;
+          s1 += e.y;
+        }
+        // every load before the first store: the compiler cannot move a
+        // load above a store through another float pointer, and each
+        // would wait out its own L2 round trip
+        float* pr = a.part + (size_t)row * 10 * H + j;
+        float ln[10];
+#pragma unroll
+        for (int e = 0; e < 10; ++e) ln[e] = pr[e * H];
+        const float dc = a.dc0[(size_t)row * H + j];
+        const LnPair r = pair_at(s, q);
+        const float dxh_c = r.dyc * gc;
+        const float dcv =
+            dc + r.crs * (dxh_c - s0 / fh - r.xhat_c * (s1 / fh));
+        const float df = dcv * r.c_prev;
+        const float di = dcv * (r.gu * r.m);
+        const float dgu = dcv * r.i * r.m;
+        const float dy[4] = {di * r.i * (1.0f - r.i),
+                             dgu * (1.0f - r.gu * r.gu),
+                             df * r.f * (1.0f - r.f),
+                             r.do_ * r.o * (1.0f - r.o)};
+        ln[8] += r.dyc * r.xhat_c;
+        ln[9] += r.dyc;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          ln[g] += dy[g] * r.xhat[g];
+          ln[4 + g] += dy[g];
+          v[g] = dy[g] * gam[g];
+          v[4 + g] = v[g] * r.xhat[g];
+        }
+#pragma unroll
+        for (int e = 0; e < 10; ++e) pr[e * H] = ln[e];
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          w.dxh[((size_t)g * B + row) * H + j] = v[g];
+        a.dc0[(size_t)row * H + j] = dcv * r.f;
+      }
+      half_warp_sum(v);
+      if (u == 0 && bl < nb) {
+        float4* dst = reinterpret_cast<float4*>(w.exb) +
+                      ((size_t)row * slices + sl) * 2;
+        dst[0] = make_float4(v[0], v[1], v[2], v[3]);
+        dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+      }
+      __syncthreads();  // s_ex read
+    }
+    grid.sync();  // exb complete
+    // (c) d_pre over pre, the dx_bias sums
+    for (int q0 = 0; q0 < npairs; q0 += kLoopThreads) {
+      const int q = q0 + tid, bl = q / kUnits, row = b0 + bl;
+      const int bl0 = q0 / kUnits, nr = nb - bl0 < kLnRows ? nb - bl0 : kLnRows;
+      stage_ex<float4>(s_ex, w.exb, (size_t)(b0 + bl0) * slices * 8,
+                       nr * slices * 2);
+      __syncthreads();  // this pass's rows of exb in s_ex
+      if (unit && bl < nb) {
+        const float4* ex =
+            reinterpret_cast<const float4*>(s_ex) + (bl - bl0) * slices * 2;
+        float sum[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+        for (int k = 0; k < slices; ++k) {
+          const float4 e0 = ex[2 * k], e1 = ex[2 * k + 1];
+          sum[0] += e0.x;
+          sum[1] += e0.y;
+          sum[2] += e0.z;
+          sum[3] += e0.w;
+          sum[4] += e1.x;
+          sum[5] += e1.y;
+          sum[6] += e1.z;
+          sum[7] += e1.w;
+        }
+        const size_t m = (size_t)s * B + row;
+        const float* st = w.stats + m * kLnStats;
+        float* dpr = a.dpre + m * G + j;
+        float* xb = a.dxb != nullptr ? a.dxb + (size_t)row * G + j : nullptr;
+        float pre[4], dxh[4], xbs[4], mean[4], rs[4];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {  // every load before the first store
+          pre[g] = __ldcg(dpr + g * H);
+          dxh[g] = w.dxh[((size_t)g * B + row) * H + j];
+          xbs[g] = xb != nullptr ? xb[g * H] : 0.0f;
+          mean[g] = st[g];
+          rs[g] = st[4 + g];
+        }
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          const float xhat = (pre[g] - mean[g]) * rs[g];
+          const float dp =
+              rs[g] * (dxh[g] - sum[g] / fh - xhat * (sum[4 + g] / fh));
+          dpr[g * H] = dp;
+          if (xb != nullptr) xb[g * H] = xbs[g] + dp;
+        }
+      }
+      __syncthreads();  // s_ex read
+    }
+    grid.sync();  // d_pre[s] complete across the grid
+    dh_parts<W>(a.dpre + ((size_t)s * B + b0) * G, s_w, s_part, H, nb,
+                nb_max, parts);
+    __syncthreads();  // every part of this step's dh written
+  }
+  if (a.dxs != nullptr) dxs_rows(a);
+  for (int q = tid; q < npairs; q += kLoopThreads) {
+    if (!unit) continue;
+    float dh = 0.0f;
+    for (int pt = 0; pt < parts; ++pt) dh += s_part[pt * plane + q];
+    a.dh0[(size_t)(b0 + q / kUnits) * H + j] = dh;
+  }
+}
+
+// The LN loop's grid (the LSTM loop's) and shared memory (the resident wh
+// rows, the dh parts, a pass's rows of an exchange), checked before
+// anything is launched: an error, never a fallback, when the shared memory does not fit
+// (cudaErrorLaunchOutOfResources, refused before any call that would
+// leave an error behind for the next launch to report) or the blocks
+// cannot co-reside (cudaErrorCooperativeLaunchTooLarge).
+struct LnPlan {
+  LoopGrid g;
+  size_t smem;
+  const void* fn;
+};
+
+template <typename W, typename R>
+cudaError_t ln_loop_plan(const Bwd<W, R>& a, LnPlan& plan) {
+  if (a.B < 1 || a.dc0 == nullptr || a.dh0 == nullptr || a.part == nullptr)
+    return cudaErrorInvalidValue;
+  int dev = 0, sms = 0, smem_max = 0, occ = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  plan.g = loop_grid<W>(a.B, a.p.H, sms);
+  const int nb_max = (a.B + plan.g.tiles - 1) / plan.g.tiles;
+  plan.smem = ((size_t)kUnits * 4 * a.p.H +
+               (size_t)plan.g.parts * nb_max * kUnits +
+               (size_t)kLnRows * plan.g.slices * 8) *
+              sizeof(float);
+  if (plan.smem > (size_t)smem_max) return cudaErrorLaunchOutOfResources;
+  plan.fn = (const void*)ln_lstm_bwd_loop_kernel<W, R>;
+  err = set_smem(plan.fn, plan.smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, plan.fn,
+                                                        kLoopThreads,
+                                                        plan.smem);
+  if (err != cudaSuccess) return err;
+  if ((long)occ * sms < (long)plan.g.slices * plan.g.tiles)
+    return cudaErrorCooperativeLaunchTooLarge;
+  return cudaSuccess;
+}
+
+// The four launches in order (stage 0), or one of them: 1 the recompute,
+// 2 the statistics, 3 the loop with the LN parameters' row sum, 4 the
+// weight pass.
+template <typename W, typename R>
+cudaError_t launch_ln_lstm_bwd(const Bwd<W, R>& a, float* work, int stage,
+                               float* dwx, float* dwh, float* dln,
+                               cudaStream_t stream) {
+  const int H = a.p.H, M = a.T * a.B;
+  if (H < 1 || H > kMaxThreads || stage < 0 || stage > 4)
+    return cudaErrorInvalidValue;
+  const bool loop = stage == 0 || stage == 3;
+  LnPlan plan;
+  cudaError_t err = loop ? ln_loop_plan(a, plan) : cudaSuccess;
+  LnWork w = ln_work(work, a.T, a.B, H);
+  if (err == cudaSuccess && (stage == 0 || stage == 1))
+    err = launch_recompute(a, stream);
+  if (err == cudaSuccess && (stage == 0 || stage == 2) && M > 0) {
+    ln_stats_kernel<W, R><<<M, threads_for(H), 0, stream>>>(a, w.stats);
+    err = cudaGetLastError();
+  }
+  if (err == cudaSuccess && loop) {
+    Bwd<W, R> args = a;
+    void* params[] = {&args, &w, &plan.g.slices, &plan.g.tiles,
+                      &plan.g.parts};
+    err = cudaLaunchCooperativeKernel(
+        plan.fn, dim3(plan.g.slices * plan.g.tiles), dim3(kLoopThreads),
+        params, plan.smem, stream);
+    if (err == cudaSuccess) {
+      sum_rows_kernel<<<(10 * H + 255) / 256, 256, 0, stream>>>(a.part, a.B,
+                                                                10 * H, dln);
+      err = cudaGetLastError();
+    }
+  }
+  if (err == cudaSuccess && (stage == 0 || stage == 4))
+    err = launch_weight_grad(a, 0, dwx, dwh, nullptr, stream);
   return err;
 }
 
@@ -1486,6 +2024,51 @@ cudaError_t lstm_bwd_any(int stage, const float* xs, const float* xb,
   });
 }
 
+// srt_ln_lstm_bwd's arguments as a Bwd, and stage (0: the four launches,
+// 1-4: one of them) or, for stage -1, the row-block design.
+cudaError_t ln_lstm_bwd_any(
+    int stage, const float* xs, const float* xb, const void* wx,
+    const void* wh, const float* ln_gamma, const float* ln_beta,
+    const float* lnc_gamma, const float* lnc_beta, const float* h0,
+    const void* hs, const void* cs, const void* dhs, const float* dcT,
+    const float* dhT, const float* masks, const int* seed, int T, int B,
+    int D, int H, int w_bf16, int r_bf16, float keep, float inv_keep,
+    float forget_bias, float* dpre, float* part, float* work, float* dxs,
+    float* dxb, float* dwx, float* dwh, float* dln, float* dc0, float* dh0,
+    void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  return with_types(w_bf16, r_bf16, [&](auto w, auto r) {
+    using W = decltype(w);
+    using R = decltype(r);
+    Bwd<W, R> a;
+    a.p = make_cell<W>(wx, wh, nullptr, xb, ln_gamma, ln_beta, lnc_gamma,
+                       lnc_beta, D, H, forget_bias);
+    a.xs = xs;
+    a.h0 = h0;
+    a.hs = static_cast<const R*>(hs);
+    a.cs = static_cast<const R*>(cs);
+    a.dhs = static_cast<const R*>(dhs);
+    a.dcT = dcT;
+    a.dhT = dhT;
+    a.drop = make_dropout(masks, seed, keep, inv_keep);
+    a.dpre = dpre;
+    a.dxs = dxs;
+    a.dxb = dxb;
+    a.dc0 = dc0;
+    a.dh0 = dh0;
+    a.part = part;
+    a.T = T;
+    a.B = B;
+    if (stage >= 0)
+      return launch_ln_lstm_bwd(a, work, stage, dwx, dwh, dln, st);
+    cudaError_t err = launch_bwd<true>(a, 0, dwx, dwh, nullptr, st);
+    if (err != cudaSuccess) return err;
+    sum_rows_kernel<<<(10 * H + 255) / 256, 256, 0, st>>>(part, B, 10 * H,
+                                                          dln);
+    return cudaGetLastError();
+  });
+}
+
 }  // namespace
 
 extern "C" {
@@ -1609,6 +2192,13 @@ int srt_ln_lstm_fwd(const float* xs, const float* xb, const void* wx,
   });
 }
 
+// work: a float scratch of (ceil(H / 16) * 10 + T * 10 + 4 * H) * B
+// floats (LnWork).
+// dcT, dhT, dxb: or null. The hoisted recompute, the statistics, the
+// cooperative loop with the LN parameters' row sum, the weight pass; a
+// grid that cannot co-reside is cudaErrorCooperativeLaunchTooLarge, a
+// tile whose dh parts do not fit in shared memory
+// cudaErrorLaunchOutOfResources, both before any launch.
 int srt_ln_lstm_bwd(const float* xs, const float* xb, const void* wx,
                     const void* wh, const float* ln_gamma,
                     const float* ln_beta, const float* lnc_gamma,
@@ -1617,38 +2207,57 @@ int srt_ln_lstm_bwd(const float* xs, const float* xb, const void* wx,
                     const float* dhT, const float* masks, const int* seed,
                     int T, int B, int D, int H, int w_bf16, int r_bf16,
                     float keep, float inv_keep, float forget_bias,
-                    float* dpre, float* part, float* dxs, float* dxb,
-                    float* dwx, float* dwh, float* dln, float* dc0,
-                    float* dh0, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = with_types(w_bf16, r_bf16, [&](auto w, auto r) {
-    using W = decltype(w);
-    using R = decltype(r);
-    Bwd<W, R> a;
-    a.p = make_cell<W>(wx, wh, nullptr, xb, ln_gamma, ln_beta, lnc_gamma,
-                       lnc_beta, D, H, forget_bias);
-    a.xs = xs;
-    a.h0 = h0;
-    a.hs = static_cast<const R*>(hs);
-    a.cs = static_cast<const R*>(cs);
-    a.dhs = static_cast<const R*>(dhs);
-    a.dcT = dcT;
-    a.dhT = dhT;
-    a.drop = make_dropout(masks, seed, keep, inv_keep);
-    a.dpre = dpre;
-    a.dxs = dxs;
-    a.dxb = dxb;
-    a.dc0 = dc0;
-    a.dh0 = dh0;
-    a.part = part;
-    a.T = T;
-    a.B = B;
-    return launch_bwd<true>(a, 0, dwx, dwh, nullptr, st);
-  });
-  if (err != cudaSuccess) return (int)err;
-  const int cols = 10 * H;
-  sum_rows_kernel<<<(cols + 255) / 256, 256, 0, st>>>(part, B, cols, dln);
-  return (int)cudaGetLastError();
+                    float* dpre, float* part, float* work, float* dxs,
+                    float* dxb, float* dwx, float* dwh, float* dln,
+                    float* dc0, float* dh0, void* stream) {
+  return (int)ln_lstm_bwd_any(0, xs, xb, wx, wh, ln_gamma, ln_beta,
+                              lnc_gamma, lnc_beta, h0, hs, cs, dhs, dcT, dhT,
+                              masks, seed, T, B, D, H, w_bf16, r_bf16, keep,
+                              inv_keep, forget_bias, dpre, part, work, dxs,
+                              dxb, dwx, dwh, dln, dc0, dh0, stream);
+}
+
+// One of srt_ln_lstm_bwd's launches (stage 1: recompute, 2: statistics,
+// 3: loop and row sum, 4: weight pass), on the same arguments, to time
+// them apart.
+int srt_ln_lstm_bwd_stage(int stage, const float* xs, const float* xb,
+                          const void* wx, const void* wh,
+                          const float* ln_gamma, const float* ln_beta,
+                          const float* lnc_gamma, const float* lnc_beta,
+                          const float* h0, const void* hs, const void* cs,
+                          const void* dhs, const float* dcT,
+                          const float* dhT, const float* masks,
+                          const int* seed, int T, int B, int D, int H,
+                          int w_bf16, int r_bf16, float keep, float inv_keep,
+                          float forget_bias, float* dpre, float* part,
+                          float* work, float* dxs, float* dxb, float* dwx,
+                          float* dwh, float* dln, float* dc0, float* dh0,
+                          void* stream) {
+  if (stage < 1 || stage > 4) return (int)cudaErrorInvalidValue;
+  return (int)ln_lstm_bwd_any(stage, xs, xb, wx, wh, ln_gamma, ln_beta,
+                              lnc_gamma, lnc_beta, h0, hs, cs, dhs, dcT, dhT,
+                              masks, seed, T, B, D, H, w_bf16, r_bf16, keep,
+                              inv_keep, forget_bias, dpre, part, work, dxs,
+                              dxb, dwx, dwh, dln, dc0, dh0, stream);
+}
+
+// The row-block design srt_ln_lstm_bwd replaced (rnn_bwd_kernel<true>, the
+// weight pass, the row sum), kept to be held and timed beside it; work is
+// not used.
+int srt_ln_lstm_bwd_rowblock(
+    const float* xs, const float* xb, const void* wx, const void* wh,
+    const float* ln_gamma, const float* ln_beta, const float* lnc_gamma,
+    const float* lnc_beta, const float* h0, const void* hs, const void* cs,
+    const void* dhs, const float* dcT, const float* dhT, const float* masks,
+    const int* seed, int T, int B, int D, int H, int w_bf16, int r_bf16,
+    float keep, float inv_keep, float forget_bias, float* dpre, float* part,
+    float* work, float* dxs, float* dxb, float* dwx, float* dwh, float* dln,
+    float* dc0, float* dh0, void* stream) {
+  return (int)ln_lstm_bwd_any(-1, xs, xb, wx, wh, ln_gamma, ln_beta,
+                              lnc_gamma, lnc_beta, h0, hs, cs, dhs, dcT, dhT,
+                              masks, seed, T, B, D, H, w_bf16, r_bf16, keep,
+                              inv_keep, forget_bias, dpre, part, work, dxs,
+                              dxb, dwx, dwh, dln, dc0, dh0, stream);
 }
 
 }  // extern "C"

@@ -55,7 +55,11 @@ SIGNATURES = {
         + [_P] * 9,
         "srt_lstm_bwd_rowblock": [_P] * 13 + [_I] * 6 + [_F] * 3 + [_P] * 9,
         "srt_ln_lstm_fwd": [_P] * 12 + [_I] * 6 + [_F] * 3 + [_P] * 5,
-        "srt_ln_lstm_bwd": [_P] * 16 + [_I] * 6 + [_F] * 3 + [_P] * 10,
+        "srt_ln_lstm_bwd": [_P] * 16 + [_I] * 6 + [_F] * 3 + [_P] * 11,
+        "srt_ln_lstm_bwd_stage": [_I] + [_P] * 16 + [_I] * 6 + [_F] * 3
+        + [_P] * 11,
+        "srt_ln_lstm_bwd_rowblock": [_P] * 16 + [_I] * 6 + [_F] * 3
+        + [_P] * 11,
     },
     "lstm_seq": {
         "srt_lstm_seq_fwd": [_P] * 5 + [_I] * 3 + [_F] + [_P] * 6,

@@ -30,9 +30,10 @@ that training runs. Eight hand-written CUDA kernels (``csrc/fused_rnn.cu``,
 All keep the Pallas kernels' memory contract: no ``[T, B, 4H]`` gate
 buffer and no mask buffer exist in the forward; it saves only ``hs`` and
 the pre-step cell states ``cs``, and the backward recomputes the gates
-from ``(x, h_prev, c_prev)`` walking time backwards (the LSTM backward
-hoists that recompute out of its loop, into the ``d_pre`` scratch it
-then overwrites; the LSTM forward's blocks exchange ``h`` through a
+from ``(x, h_prev, c_prev)`` walking time backwards (the LSTM and
+LayerNorm-LSTM backwards hoist that recompute out of their loops, into
+the ``d_pre`` scratch they then overwrite, the latter its layer-norm
+statistics too; the LSTM forward's blocks exchange ``h`` through a
 ``[2, B, H]`` scratch: ``csrc/fused_rnn.cu``'s header). Recurrent dropout on
 the candidate ``g`` is either streamed ``masks [T, B, H]`` or drawn in
 the kernel from ``dropout_seed`` by :func:`prng_mask`, whose counter does
@@ -1006,29 +1007,42 @@ def ln_lstm_fwd(xs, wx, wh, ln_gamma, ln_beta, lnc_gamma, lnc_beta, c0,
     return hs, cs, cT, hT
 
 
-def ln_lstm_bwd(xs, wx, wh, ln_gamma, ln_beta, lnc_gamma, lnc_beta, h0, hs,
-                cs, dhs, dcT, dhT, forget_bias=1.0, masks=None,
-                dropout_seed=None, keep_prob=1.0, x_bias=None):
-    """Backward of :func:`fused_ln_lstm`: ``(dxs, dxb, dwx, dwh, dgam,
-    dbet, dgc, dbc, dc0, dh0)`` (kernel ``srt_ln_lstm_bwd``: the
-    recurrence, the weight-gradient pass and the LN-parameter sum)."""
-    if xs.device.type == "cpu":
-        return ln_lstm_bwd_reference(xs, wx, wh, ln_gamma, ln_beta,
-                                     lnc_gamma, lnc_beta, h0, hs, cs, dhs,
-                                     dcT, dhT, forget_bias, masks,
-                                     dropout_seed, keep_prob, x_bias)
+LN_UNITS = 16   # hidden units per slice of the LN backward's loop
+
+
+def ln_bwd_work_floats(t, b, h) -> int:
+    """Floats of the LN backward's work scratch (``csrc/fused_rnn.cu``,
+    ``LnWork``): the slices' partials of the layer norms' row sums (10 per
+    row and slice), the hoisted statistics (10 per row-step) and the
+    stashed ``dy * gamma`` of every (row, unit) pair's four gates."""
+    slices = -(-h // LN_UNITS)
+    return (slices * 10 + t * 10 + 4 * h) * b
+
+
+def _ln_lstm_bwd_args(xs, wx, wh, ln_gamma, ln_beta, lnc_gamma, lnc_beta,
+                      h0, hs, cs, dhs, dcT, dhT, forget_bias, masks, seed,
+                      keep_prob, x_bias):
+    """Check the LN-LSTM backward's inputs and allocate its outputs and
+    scratch: ``(args, outs, scratch)``, the arguments of the
+    ``srt_ln_lstm_bwd*`` entries, ``(dxs, dxb, dwx, dwh, dln, dc0, dh0)``
+    (the weight gradients float32, ``dln`` the ten LN-parameter rows
+    ``[10H]``) and the scratch tensors, which the caller keeps alive while
+    the launches use them (``args`` holds only their addresses)."""
     dev, t, bsz, d, h, mp, sp, wb = _kernel_common(xs, wx, wh, h0, h0, masks,
-                                                   dropout_seed)
+                                                   seed)
     rb = _residuals_check(dev, t, bsz, h, hs, cs, dhs)
     _ln_params_check(dev, h, ln_gamma, ln_beta, lnc_gamma, lnc_beta, x_bias,
                      bsz)
     _f32_check(dev, (("dcT", dcT, (bsz, h)), ("dhT", dhT, (bsz, h))))
     f32 = torch.float32
-    # scratch: every step's pre-activation gradients (float32, unrounded;
-    # read by the weight-gradient pass) and each row's LN-parameter
-    # partials
+    # scratch: every step's pre-activations, overwritten by their
+    # gradients (float32, unrounded; read by the weight-gradient pass),
+    # each row's LN-parameter sums, and the loop's work (statistics,
+    # exchanges, stash)
     dpre = torch.empty((t, bsz, 4 * h), dtype=f32, device=dev)
     part = torch.empty((bsz, 10 * h), dtype=f32, device=dev)
+    work = torch.empty((ln_bwd_work_floats(t, bsz, h),), dtype=f32,
+                       device=dev)
     dxs = torch.empty_like(xs)
     dxb = torch.empty_like(x_bias) if x_bias is not None else None
     dwx = torch.empty(wx.shape, dtype=f32, device=dev)
@@ -1036,18 +1050,72 @@ def ln_lstm_bwd(xs, wx, wh, ln_gamma, ln_beta, lnc_gamma, lnc_beta, h0, hs,
     dln = torch.empty((10 * h,), dtype=f32, device=dev)
     dc0 = torch.empty((bsz, h), dtype=f32, device=dev)
     dh0 = torch.empty_like(dc0)
-    _launch("srt_ln_lstm_bwd", "fused_ln_lstm backward", "fused_ln_lstm_bwd",
-            xs.data_ptr(), _ptr(x_bias), wx.data_ptr(), wh.data_ptr(),
+    args = (xs.data_ptr(), _ptr(x_bias), wx.data_ptr(), wh.data_ptr(),
             ln_gamma.data_ptr(), ln_beta.data_ptr(), lnc_gamma.data_ptr(),
             lnc_beta.data_ptr(), h0.data_ptr(), hs.data_ptr(), cs.data_ptr(),
-            dhs.data_ptr(), dcT.data_ptr(), dhT.data_ptr(), mp, sp, t, bsz,
-            d, h, wb, rb, *_keep_args(keep_prob), float(forget_bias),
-            dpre.data_ptr(), part.data_ptr(), dxs.data_ptr(), _ptr(dxb),
+            dhs.data_ptr(), _ptr(dcT), _ptr(dhT), mp, sp, t, bsz, d, h, wb,
+            rb, *_keep_args(keep_prob), float(forget_bias), dpre.data_ptr(),
+            part.data_ptr(), work.data_ptr(), dxs.data_ptr(), _ptr(dxb),
             dwx.data_ptr(), dwh.data_ptr(), dln.data_ptr(), dc0.data_ptr(),
             dh0.data_ptr(), _stream(dev))
-    return (dxs, dxb, dwx.to(wx.dtype), dwh.to(wh.dtype),
-            dln[:4 * h].view(4, h), dln[4 * h:8 * h].view(4, h),
-            dln[8 * h:9 * h], dln[9 * h:], dc0, dh0)
+    return args, (dxs, dxb, dwx, dwh, dln, dc0, dh0), (dpre, part, work)
+
+
+def ln_lstm_bwd_entries(xs, wx, wh, ln_gamma, ln_beta, lnc_gamma, lnc_beta,
+                        h0, hs, cs, dhs, dcT=None, dhT=None, forget_bias=1.0,
+                        masks=None, dropout_seed=None, keep_prob=1.0,
+                        x_bias=None):
+    """The C entries behind :func:`ln_lstm_bwd` on CUDA tensors, for the
+    A/B of the backward's two designs; no wrapper calls it, and it counts
+    no launch. Returns ``(run, outs)``: ``run(entry, stage=0)`` launches
+    ``"srt_ln_lstm_bwd"`` (the four launches), ``"srt_ln_lstm_bwd_rowblock"``
+    (the row-block design it replaced) or, with ``stage`` 1-4,
+    ``"srt_ln_lstm_bwd_stage"`` (the recompute, the statistics, the loop
+    with the LN parameters' row sum, or the weight pass alone), all on one
+    set of buffers; ``outs`` are :func:`ln_lstm_bwd`'s outputs as the
+    last launches left them (the weight gradients float32)."""
+    from sketch_rnn_tpu_torch.ops import _build
+
+    _entries_on_cuda("ln_lstm_bwd_entries", xs)
+    args, (dxs, dxb, dwx, dwh, dln, dc0, dh0), scratch = _ln_lstm_bwd_args(
+        xs, wx, wh, ln_gamma, ln_beta, lnc_gamma, lnc_beta, h0, hs, cs, dhs,
+        dcT, dhT, forget_bias, masks, dropout_seed, keep_prob, x_bias)
+    lib = _build.load("fused_rnn")
+
+    def run(entry, stage=0, _scratch=scratch):     # holds the scratch
+        pre = (stage,) if entry == "srt_ln_lstm_bwd_stage" else ()
+        _build.check(lib, getattr(lib, entry)(*pre, *args), entry)
+
+    return run, (dxs, dxb, dwx, dwh, *_ln_rows(dln), dc0, dh0)
+
+
+def _ln_rows(dln):
+    """``dgam, dbet, dgc, dbc`` as views of the ``[10H]`` row sums."""
+    h = dln.shape[0] // 10
+    return (dln[:4 * h].view(4, h), dln[4 * h:8 * h].view(4, h),
+            dln[8 * h:9 * h], dln[9 * h:])
+
+
+def ln_lstm_bwd(xs, wx, wh, ln_gamma, ln_beta, lnc_gamma, lnc_beta, h0, hs,
+                cs, dhs, dcT, dhT, forget_bias=1.0, masks=None,
+                dropout_seed=None, keep_prob=1.0, x_bias=None):
+    """Backward of :func:`fused_ln_lstm`: ``(dxs, dxb, dwx, dwh, dgam,
+    dbet, dgc, dbc, dc0, dh0)`` (kernel ``srt_ln_lstm_bwd``: the hoisted
+    gate recompute, the hoisted layer-norm statistics, the cooperative
+    loop with ``dxs`` at its end and the LN-parameter row sum, the
+    weight-gradient pass)."""
+    if xs.device.type == "cpu":
+        return ln_lstm_bwd_reference(xs, wx, wh, ln_gamma, ln_beta,
+                                     lnc_gamma, lnc_beta, h0, hs, cs, dhs,
+                                     dcT, dhT, forget_bias, masks,
+                                     dropout_seed, keep_prob, x_bias)
+    args, (dxs, dxb, dwx, dwh, dln, dc0, dh0), _scratch = _ln_lstm_bwd_args(
+        xs, wx, wh, ln_gamma, ln_beta, lnc_gamma, lnc_beta, h0, hs, cs, dhs,
+        dcT, dhT, forget_bias, masks, dropout_seed, keep_prob, x_bias)
+    _launch("srt_ln_lstm_bwd", "fused_ln_lstm backward", "fused_ln_lstm_bwd",
+            *args)
+    return (dxs, dxb, dwx.to(wx.dtype), dwh.to(wh.dtype), *_ln_rows(dln),
+            dc0, dh0)
 
 
 def _hyper_common(xs, w: HyperWeights, x_bias, x_bias_hyper, masks, seed,

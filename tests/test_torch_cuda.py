@@ -417,6 +417,86 @@ def test_lstm_fwd_refuses_a_shape_it_cannot_hold(dev):
     assert cf.launch_counts() == before
 
 
+# the LN backward's loop: H=16 is one slice, H=40 three uneven ones (13,
+# 13, 14 units); B=3 leaves fewer rows than tiles could take, B=100 and
+# 200 more (the tiles fill the SMs); H=512, B=100 is the decoder's shape
+@pytest.mark.parametrize("h,t,bsz,wdt,rdt,full,mode", [
+    (16, FT, FB, F32, F32, True, "seed"),
+    (16, FT, 200, F32, F32, False, "masks"),
+    (16, FT, FB, BF16, F32, False, "none"),
+    (40, FT, 3, F32, F32, True, "masks"),
+    (40, FT, 100, BF16, BF16, True, "seed"),
+    (40, 1, 1, F32, BF16, False, "seed"),
+    (40, FT, 3, BF16, BF16, False, "masks"),
+    (512, 5, 100, F32, F32, True, "masks"),
+    (512, 9, 100, BF16, BF16, True, "seed")])
+def test_ln_lstm_bwd_matches_row_block_design(dev, h, t, bsz, wdt, rdt, full,
+                                              mode):
+    """srt_ln_lstm_bwd (hoisted recompute and statistics, the cooperative
+    loop, the weight pass) against the row-block design it replaced,
+    srt_ln_lstm_bwd_rowblock, and against the plain version on the same
+    inputs (x_bias and carry cotangents when ``full``), within TOL /
+    BF_TOL; two runs of the new entry bitwise equal; no launch counted."""
+    from sketch_rnn_tpu_torch.ops import cuda_fused as cf
+
+    d, masks, seed = _fused_inputs("layer_norm", h, dev, full, mode, wdt,
+                                   t=t, bsz=bsz)
+    ln = (d["ln_gamma"], d["ln_beta"], d["lnc_gamma"], d["lnc_beta"])
+    keep = 0.9 if seed is not None else 1.0
+    hs, cs, _, _ = cf.ln_lstm_fwd(d["xs"], d["wx"], d["wh"], *ln, d["c0"],
+                                  d["h0"], 1.0, masks, seed, keep,
+                                  d["x_bias"], rdt)
+    g = torch.Generator().manual_seed(5)
+    dhs = (0.1 * torch.randn(hs.shape, generator=g)).to(dev).to(hs.dtype)
+    cot = (0.1 * torch.randn((2, bsz, h), generator=g)).to(dev)
+    kw = dict(masks=masks, dropout_seed=seed, keep_prob=keep,
+              x_bias=d["x_bias"])
+    args = (d["xs"], d["wx"], d["wh"], *ln, d["h0"], hs, cs, dhs)
+    before = cf.launch_counts()
+    run, outs = cf.ln_lstm_bwd_entries(
+        *args, dcT=cot[0] if full else None, dhT=cot[1] if full else None,
+        **kw)
+    snap = lambda: [o.clone() if o is not None else None for o in outs]
+    run("srt_ln_lstm_bwd")
+    first = snap()
+    run("srt_ln_lstm_bwd")
+    second = snap()
+    run("srt_ln_lstm_bwd_rowblock")
+    old = snap()
+    torch.cuda.synchronize()
+    assert cf.launch_counts() == before
+    zero = torch.zeros((bsz, h), device=dev)
+    want = cf.ln_lstm_bwd_reference(
+        *args, cot[0] if full else zero, cot[1] if full else zero, **kw,
+        f32_weight_grads=True)
+    tol = TOL if wdt == torch.float32 and rdt == torch.float32 else BF_TOL
+    assert (first[1] is None) == (not full)
+    for a, b, c, w in zip(first, second, old, want):
+        if a is None:
+            assert b is None and c is None and w is None
+            continue
+        assert torch.equal(a, b)
+        for ref in (c, w):
+            assert float((a - ref).abs().max()) <= tol * max(
+                1.0, float(ref.abs().max()))
+
+
+def test_ln_lstm_bwd_refuses_a_shape_it_cannot_hold(dev):
+    """B=8192 at H=512: a tile's dh parts and the resident wh rows exceed a
+    block's shared memory. The wrapper raises before any launch, counts
+    none, and nothing falls back to the row-block design."""
+    from sketch_rnn_tpu_torch.ops import cuda_fused as cf
+
+    h, bsz = 512, 8192
+    z = lambda *s: torch.zeros(s, device=dev)
+    before = cf.launch_counts()
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cf.ln_lstm_bwd(z(1, bsz, FD), z(FD, 4 * h), z(h, 4 * h), z(4, h),
+                       z(4, h), z(h), z(h), z(bsz, h), z(1, bsz, h),
+                       z(1, bsz, h), z(1, bsz, h), z(bsz, h), z(bsz, h))
+    assert cf.launch_counts() == before
+
+
 @pytest.mark.parametrize("cell", ["lstm", "layer_norm"])
 def test_bf16_serving_kernels_match_plain_versions(dev, cell):
     """decode_chunk and replay_chunk at compute_dtype=bfloat16, bfloat16
@@ -863,8 +943,10 @@ def _ladder_inputs(h, dev, wdt, rdt):
 def test_ln_ladder_kernels_match_plain_versions(dev, h, wdt, rdt):
     """Every forward and backward arm of csrc/probe_ln.cu against its plain
     version (one launch each, the backward the same bit for bit run to
-    run), and the prod arms bit for bit fused_ln_lstm's kernels (its
-    backward's weight gradients rounded as that kernel rounds them)."""
+    run), the prod forward arm bit for bit fused_ln_lstm's forward kernel
+    and the prod backward arm bit for bit the row-block design that
+    fused_ln_lstm's backward replaced, srt_ln_lstm_bwd_rowblock (the
+    weight gradients of both rounded as fused_ln_lstm rounds them)."""
     from sketch_rnn_tpu_torch.ops import cuda_fused as cf
     from sketch_rnn_tpu_torch.scripts import probe_dec_bwd_split as ps
     from sketch_rnn_tpu_torch.scripts import probe_ln_stats as pl
@@ -888,9 +970,11 @@ def test_ln_ladder_kernels_match_plain_versions(dev, h, wdt, rdt):
                [p for p in ps.bwd_plain(arm, **bkw) if p is not None], tol)
         assert all(torch.equal(a, b) for a, b in zip(got, again))
         if arm == "prod":
-            want = cf.ln_lstm_bwd(**bkw)
-            got = (*got[:2], got[2].to(wdt), got[3].to(wdt), *got[4:])
-            assert all(torch.equal(a, b) for a, b in zip(got, want))
+            rowblock, want = cf.ln_lstm_bwd_entries(**bkw)
+            rowblock("srt_ln_lstm_bwd_rowblock")
+            rnd = lambda o: (*o[:2], o[2].to(wdt), o[3].to(wdt), *o[4:])
+            assert all(torch.equal(a, b)
+                       for a, b in zip(rnd(got), rnd(want)))
     after = ps.launch_counts()
     assert all(after[f"fwd_{a}"] == before[f"fwd_{a}"] + 1
                for a in ps.FWD_ARMS)

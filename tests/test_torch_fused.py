@@ -161,6 +161,137 @@ def test_ln_lstm_matches_pallas(mode, xb, b):
         _close(g, p[name].grad, f"d{name}")
 
 
+def _slice_sums(v, h):
+    """Row sums over the last axis of ``v [..., H]`` as the LN backward's
+    loop takes them: a partial per slice of ``CF.LN_UNITS`` units (slice
+    ``sl`` holds units ``sl * H // slices`` up to the next slice's), the
+    partials added in slice order."""
+    slices = -(-h // CF.LN_UNITS)
+    out = torch.zeros(v.shape[:-1], dtype=v.dtype)
+    for sl in range(slices):
+        out = out + v[..., sl * h // slices:(sl + 1) * h // slices].sum(-1)
+    return out[..., None]
+
+
+def _ln_bwd_partition(xs, wx, wh, gam, bet, gc, bc, h0, hs, cs, dhs, dcT,
+                      dhT, forget_bias, masks, seed, keep, x_bias):
+    """The LN backward's partition (``srt_ln_lstm_bwd``) in plain PyTorch:
+    the pre-activations of every step and their layer-norm statistics
+    hoisted out of the loop, then per step the cell norm's row sums and
+    the gate norms' row sums as slice partials summed in slice order (the
+    loop's exchanges (a) and (b)), d_pre, and dh through wh; dxs and the
+    weight gradients after the loop. Returns ``ln_lstm_bwd``'s outputs
+    with the weight gradients in float32."""
+    t, b, _ = xs.shape
+    h = wh.shape[0]
+    h_prev = torch.cat([h0[None], hs[:-1]])
+    pre = xs @ wx + h_prev @ wh
+    if x_bias is not None:
+        pre = pre + x_bias
+    pg = pre.view(t, b, 4, h)
+    mean = pg.mean(-1, keepdim=True)
+    rs = torch.rsqrt(((pg - mean) ** 2).mean(-1, keepdim=True) + 1e-6)
+    xhat = (pg - mean) * rs
+    y = xhat * gam + bet
+    i, gu = torch.sigmoid(y[:, :, 0]), torch.tanh(y[:, :, 1])
+    f, o = torch.sigmoid(y[:, :, 2] + forget_bias), torch.sigmoid(y[:, :, 3])
+    m = torch.stack([CF._step_mask(masks, seed, s, b, h, keep)
+                     if masks is not None or seed is not None
+                     else torch.ones(b, h) for s in range(t)])
+    nc = cs * f + i * (gu * m)
+    cmean = nc.mean(-1, keepdim=True)
+    crs = torch.rsqrt(((nc - cmean) ** 2).mean(-1, keepdim=True) + 1e-6)
+    xhat_c = (nc - cmean) * crs
+    tanh_yc = torch.tanh(xhat_c * gc + bc)
+    dh = dhT if dhT is not None else torch.zeros(b, h)
+    dc = dcT if dcT is not None else torch.zeros(b, h)
+    dgam, dbet = torch.zeros(4, h), torch.zeros(4, h)
+    dgc, dbc = torch.zeros(h), torch.zeros(h)
+    d_pre = torch.empty(t, b, 4 * h)
+    for s in range(t - 1, -1, -1):
+        dh_tot = dh + dhs[s]
+        do = dh_tot * tanh_yc[s]
+        dyc = dh_tot * o[s] * (1.0 - tanh_yc[s] ** 2)
+        dgc += (dyc * xhat_c[s]).sum(0)
+        dbc += dyc.sum(0)
+        dxh_c = dyc * gc
+        dcv = dc + crs[s] * (dxh_c - _slice_sums(dxh_c, h) / h
+                             - xhat_c[s] * (_slice_sums(dxh_c * xhat_c[s], h)
+                                            / h))
+        dy = torch.stack([dcv * (gu[s] * m[s]) * i[s] * (1.0 - i[s]),
+                          dcv * i[s] * m[s] * (1.0 - gu[s] ** 2),
+                          dcv * cs[s] * f[s] * (1.0 - f[s]),
+                          do * o[s] * (1.0 - o[s])], 1)
+        dgam += (dy * xhat[s]).sum(0)
+        dbet += dy.sum(0)
+        dxh = dy * gam
+        dp = rs[s] * (dxh - _slice_sums(dxh, h) / h
+                      - xhat[s] * (_slice_sums(dxh * xhat[s], h) / h))
+        d_pre[s] = dp.reshape(b, 4 * h)
+        dh = d_pre[s] @ wh.T
+        dc = dcv * f[s]
+    dxb = d_pre.sum(0) if x_bias is not None else None
+    return (d_pre @ wx.T, dxb,
+            torch.einsum("tbd,tbg->dg", xs, d_pre),
+            torch.einsum("tbk,tbg->kg", h_prev, d_pre), dgam, dbet, dgc, dbc,
+            dc, dh)
+
+
+@pytest.mark.parametrize("mode", ["masks", "seed"])
+def test_ln_bwd_partition_matches_pallas(mode):
+    """The plain model of the LN backward's partition at H=40 (three
+    slices of 13, 13 and 14 units), B=3, float32, x_bias on, nonzero
+    carries and carry cotangents, against the JAX package's fused_ln_lstm
+    VJP (its Pallas kernels in interpret mode) and against
+    ``ln_lstm_bwd_reference``. The partition only reorders float32 sums,
+    so the module's tolerance (the JAX kernels' own) holds."""
+    h, b = 40, 3
+    rng = np.random.default_rng(11)
+    f = lambda *s, sc=1.0: (rng.normal(size=s) * sc).astype(np.float32)
+    d = {"xs": f(T, b, D), "wx": f(D, 4 * h, sc=0.4),
+         "wh": f(h, 4 * h, sc=0.25), "ln_gamma": 1 + f(4, h, sc=0.1),
+         "ln_beta": f(4, h, sc=0.1), "lnc_gamma": 1 + f(h, sc=0.1),
+         "lnc_beta": f(h, sc=0.1), "c0": f(b, h, sc=0.3),
+         "h0": f(b, h, sc=0.3), "x_bias": f(b, 4 * h, sc=0.3)}
+    cot = {"dhs": f(T, b, h, sc=0.1), "dcT": f(b, h, sc=0.1),
+           "dhT": f(b, h, sc=0.1)}
+    if mode == "masks":
+        mk = ((rng.random((T, b, h)) < KEEP) / np.float32(KEEP)).astype(
+            np.float32)
+        (jm, js), (tm, ts) = (jnp.asarray(mk), None), (torch.from_numpy(mk),
+                                                       None)
+    else:
+        (jm, js), (tm, ts) = _dropout_args("seed", b)
+    keep = KEEP if mode == "seed" else 1.0
+    names = ["xs", "wx", "wh", "ln_gamma", "ln_beta", "lnc_gamma",
+             "lnc_beta", "c0", "h0", "x_bias"]
+
+    def jrun(*args):
+        kw = dict(zip(names, args))
+        hs, (cT, hT) = PF.fused_ln_lstm(
+            kw["xs"], kw["wx"], kw["wh"], kw["ln_gamma"], kw["ln_beta"],
+            kw["lnc_gamma"], kw["lnc_beta"], kw["c0"], kw["h0"], 1.0, jm,
+            js, keep, jnp.float32, kw["x_bias"])
+        return hs, cT, hT
+
+    _, vjp = jax.vjp(jrun, *(jnp.asarray(d[n]) for n in names))
+    jg = dict(zip(names, vjp(tuple(jnp.asarray(cot[k])
+                                   for k in ("dhs", "dcT", "dhT")))))
+    t_ = {k: torch.from_numpy(v) for k, v in {**d, **cot}.items()}
+    ln = [t_[k] for k in ("ln_gamma", "ln_beta", "lnc_gamma", "lnc_beta")]
+    hs, cs, _, _ = CF.ln_lstm_fwd_reference(
+        t_["xs"], t_["wx"], t_["wh"], *ln, t_["c0"], t_["h0"], 1.0, tm, ts,
+        keep, t_["x_bias"])
+    args = (t_["xs"], t_["wx"], t_["wh"], *ln, t_["h0"], hs, cs, t_["dhs"],
+            t_["dcT"], t_["dhT"], 1.0, tm, ts, keep, t_["x_bias"])
+    got = _ln_bwd_partition(*args)
+    out_names = ("xs", "x_bias", "wx", "wh", "ln_gamma", "ln_beta",
+                 "lnc_gamma", "lnc_beta", "c0", "h0")
+    for name, g, r in zip(out_names, got, CF.ln_lstm_bwd_reference(*args)):
+        _close(jg[name], g, f"d{name} vs the JAX VJP")
+        _close(r.numpy(), g, f"d{name} vs ln_lstm_bwd_reference")
+
+
 @pytest.mark.parametrize("cell", ["lstm", "layer_norm"])
 @pytest.mark.parametrize("mode", ["none", "seed"])
 def test_plain_backward_matches_autograd_of_plain_forward(cell, mode):
@@ -235,18 +366,22 @@ def test_wrappers_refuse_what_they_do_not_take():
 
 
 @pytest.mark.parametrize("entries", ["lstm_fwd_entries",
-                                     "lstm_bwd_entries"])
+                                     "lstm_bwd_entries",
+                                     "ln_lstm_bwd_entries"])
 def test_ab_entries_refuse_cpu_tensors(entries):
-    """The A/B helpers of the LSTM forward's and backward's two C designs
-    take CUDA tensors only: on CPU tensors they raise, and no plain
-    version stands in."""
-    d = {k: torch.from_numpy(v) for k, v in _inputs("lstm").items()}
-    common = (d["xs"], d["wx"], d["b"], d["wh"])
-    if entries == "lstm_fwd_entries":
-        args = (*common, d["c0"], d["h0"])
+    """The A/B helpers of the LSTM forward's and backward's and the
+    LayerNorm-LSTM backward's two C designs take CUDA tensors only: on
+    CPU tensors they raise, and no plain version stands in."""
+    cell = "layer_norm" if entries.startswith("ln_") else "lstm"
+    d = {k: torch.from_numpy(v) for k, v in _inputs(cell).items()}
+    res = torch.zeros((T, B, H))
+    if entries == "ln_lstm_bwd_entries":
+        args = (d["xs"], d["wx"], d["wh"], d["ln_gamma"], d["ln_beta"],
+                d["lnc_gamma"], d["lnc_beta"], d["h0"], res, res, res)
+    elif entries == "lstm_fwd_entries":
+        args = (d["xs"], d["wx"], d["b"], d["wh"], d["c0"], d["h0"])
     else:
-        res = torch.zeros((T, B, H))
-        args = (*common, d["h0"], res, res, res)
+        args = (d["xs"], d["wx"], d["b"], d["wh"], d["h0"], res, res, res)
     before = CF.launch_counts()
     with pytest.raises(ValueError, match="CUDA tensors only"):
         getattr(CF, entries)(*args)

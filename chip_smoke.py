@@ -43,6 +43,15 @@ without the final line. With no CUDA device it exits 2 at once.
      within FUSED_TOL of each other, the new entry identical run to run,
      both timed in turns with CUDA events, and the split of the new entry
      into its three launches;
+   - ln_lstm_fwd_ab: ``srt_ln_lstm_fwd`` (the cooperative loop, the layer
+     norms' row moments exchanged between its blocks, three grid barriers
+     a step) against the row-block design it replaced,
+     ``srt_ln_lstm_fwd_rowblock``, at the decoder's shape of
+     ``fused_ln_lstm`` above (x_bias, seeded dropout) at both dtypes and
+     at the ladder's B=4096 (the decoder's rows tiled) at bfloat16: every
+     output within FUSED_TOL of the row-block entry's and of the plain
+     version's, the new entry identical run to run, both timed in turns
+     with CUDA events (new, old, old, new; medians);
    - ln_lstm_bwd_ab: ``srt_ln_lstm_bwd`` (the hoisted recompute and
      layer-norm statistics, the cooperative loop with three grid barriers
      a step, the weight pass) against the row-block design it replaced,
@@ -51,7 +60,14 @@ without the final line. With no CUDA device it exits 2 at once.
      same checks and timings, the split into its four launches;
    - kernel_library: cuDNN's LSTM (``torch.nn.LSTM``, TF32 off) timed
      beside ``fused_lstm_seq`` and ``fused_lstm`` (over the unfolded
-     inputs [x; z], D=133) as a yardstick only.
+     inputs [x; z], D=133) as a yardstick only;
+   - batch_windows: each persistent entry (``srt_lstm_fwd``,
+     ``srt_lstm_bwd``, ``srt_ln_lstm_fwd``, ``srt_ln_lstm_bwd``) at
+     H=512, B=8192, float32, and ``srt_lstm_bwd`` at bench.py's encoder
+     shape (H=256, B=4096, bfloat16), T=8: batches whose tiles do not fit
+     in shared memory at once, run as launches over windows of rows,
+     against the row-block entry (bitwise for ``srt_lstm_fwd``, FUSED_TOL
+     for the others), identical run to run, both timed in turns.
 4. serve   — the serving main path: ``ServeEngine`` at the full
    ``layer_norm`` preset (conditional VAE, bi-LSTM encoder 256,
    LayerNorm-LSTM decoder 512, serve_slots=64, serve_chunk=8,
@@ -126,9 +142,9 @@ without the final line. With no CUDA device it exits 2 at once.
    the fake-stats backward against their plain versions (1e-2 relative;
    the forward arms also step by step at float32 residuals, 1e-4; the two
    arms whose dh chain overflows by T=250 at T=32), the ``prod`` arms bit
-   for bit the forward kernel and the row-block LN backward
-   (``srt_ln_lstm_bwd_rowblock``), each timed beside the production
-   entries (the backward beside both of its designs); then both
+   for bit the row-block entries they repeat (``srt_ln_lstm_fwd_rowblock``,
+   ``srt_ln_lstm_bwd_rowblock``), each timed beside the production entry
+   and the row-block one; then both
    ladders and the LN-stats A/B through their run functions with 1 call
    per timing and 2 reps, the ladder's counters zeroed just before each
    and read just after, each record on one line, and the phase's seconds.
@@ -972,6 +988,61 @@ def ln_lstm_bwd_ab(dt, bargs, drop_kw, rows):
            rows)
 
 
+def ln_lstm_fwd_ab(dt, fargs, drop_kw, label):
+    """``srt_ln_lstm_fwd`` (the cooperative loop) against the row-block
+    design it replaced, ``srt_ln_lstm_fwd_rowblock``, on the same inputs:
+    every output within FUSED_TOL of the row-block entry's and of the
+    plain version's, the new entry identical run to run, then both timed
+    in turns with CUDA events (new, old, old, new; AB_REPS turns,
+    medians). Uncounted launches. Returns the record."""
+    import statistics
+
+    import torch
+
+    from sketch_rnn_tpu_torch.ops import cuda_fused as CF
+
+    names = FUSED_OUTPUTS["fused_ln_lstm_fwd"]
+    run, outs = CF.ln_lstm_fwd_entries(**fargs, **drop_kw)
+    snap = lambda: [o.clone() for o in outs]
+    run("srt_ln_lstm_fwd")
+    new = snap()
+    run("srt_ln_lstm_fwd")
+    again = snap()
+    run("srt_ln_lstm_fwd_rowblock")
+    old = snap()
+    torch.cuda.synchronize()
+    ab, rel, per = rel_errs(names, new, old)
+    pab, prel, pper = rel_errs(names, new, CF.ln_lstm_fwd_reference(
+        **fargs, **drop_kw))
+    det = all(torch.equal(a, b) for a, b in zip(new, again))
+    if not (rel <= FUSED_TOL[dt] and prel <= FUSED_TOL[dt] and det):
+        raise AssertionError(
+            f"fused_ln_lstm_fwd [{dt}, {label}]: srt_ln_lstm_fwd vs the "
+            f"row-block design, rel err {rel}, per output {per}; vs the "
+            f"plain version {prel}, {pper}; deterministic {det}")
+    del new, again, old
+    times, _ = ab_turns({"new": lambda: run("srt_ln_lstm_fwd"),
+                         "old": lambda: run("srt_ln_lstm_fwd_rowblock")})
+    res = {"shape": label, "ms": statistics.median(times["new"]),
+           "rowblock_ms": statistics.median(times["old"]),
+           "new_ms_all": times["new"], "rowblock_ms_all": times["old"],
+           "err_vs_rowblock": ab, "rel_err_vs_rowblock": rel,
+           "err_vs_plain": pab, "rel_err_vs_plain": prel,
+           "deterministic": det, "ab_phase": "ln_lstm_fwd_ab"}
+    res["speedup"] = res["rowblock_ms"] / res["ms"]
+    log("ln_lstm_fwd_ab", name="fused_ln_lstm_fwd", dtype=dt, reps=AB_REPS,
+        **res)
+    return res
+
+
+def tiled_rows(x, b, dim):
+    """``x`` repeated along ``dim`` and cut to ``b`` rows there."""
+    import torch
+
+    reps = -(-b // x.shape[dim])
+    return torch.cat([x] * reps, dim).narrow(dim, 0, b).contiguous()
+
+
 def check_lstm_seq(inp, rows):
     """fused_lstm_seq forward and backward (the encoder's forward
     direction) at B=100, T=250, H=256, dropout seeded."""
@@ -1109,7 +1180,11 @@ def check_lstm(inp, rows):
 
 def check_ln_lstm(inp, rows):
     """fused_ln_lstm forward and backward (the decoder) at B=100, T=250,
-    H=512, with its x_bias, dropout seeded."""
+    H=512, with its x_bias, dropout seeded; the forward's and the
+    backward's A/B against their row-block designs (the forward's also at
+    the ladder's B=4096 at bfloat16)."""
+    import torch
+
     from sketch_rnn_tpu_torch.ops import cuda_fused as CF
 
     dt, w = inp["dt"], inp["dec"]
@@ -1130,6 +1205,19 @@ def check_ln_lstm(inp, rows):
         "fused_ln_lstm_fwd", dt, lambda **k: CF.ln_lstm_fwd(**fargs, **k),
         lambda **k: CF.ln_lstm_fwd_reference(**fargs, **k), seed_kw,
         masks_kw, rows)
+    ab = ln_lstm_fwd_ab(dt, fargs, seed_kw, f"B={b}, T={t}, H={h}")
+    if dt == "bfloat16":     # the ladder's batch: the decoder's rows tiled
+        lb = LADDER["b"]
+        wide = dict(fargs, xs=tiled_rows(xs, lb, 1),
+                    x_bias=tiled_rows(inp["x_bias"], lb, 0),
+                    c0=tiled_rows(inp["c0"], lb, 0),
+                    h0=tiled_rows(inp["h0"], lb, 0))
+        ab[f"at_B{lb}"] = ln_lstm_fwd_ab(
+            dt, wide, seed_kw, f"B={lb} (the decoder's rows tiled), "
+                               f"T={t}, H={h}")
+        del wide
+        torch.cuda.empty_cache()
+    rows["fused_ln_lstm_fwd"][dt]["ab"] = ab
     bargs = dict(common, h0=inp["h0"], hs=hs, cs=cs, dhs=dhs,
                  dcT=inp["dcT"], dhT=inp["dhT"])
     grads = hold_fused(
@@ -1149,6 +1237,98 @@ def check_ln_lstm(inp, rows):
                3 * fwd_flops,
                nbytes(xs, *params_in, inp["h0"], hs, cs, dhs, inp["dcT"],
                       inp["dhT"], inp["seed_dec"], *grads), rows)
+
+
+# batches whose tiles do not fit in one block's shared memory at once:
+# each persistent entry at H=512, B=8192 (float32, the weights' most
+# shared memory) and the LSTM backward at bench.py's encoder shape
+WINDOW_CASES = (("srt_lstm_fwd", 512, 8192, "float32"),
+                ("srt_lstm_bwd", 512, 8192, "float32"),
+                ("srt_ln_lstm_fwd", 512, 8192, "float32"),
+                ("srt_ln_lstm_bwd", 512, 8192, "float32"),
+                ("srt_lstm_bwd", 256, 4096, "bfloat16"))
+WINDOW_T = 8
+
+
+def window_entries(entry, h, b, dt, t=WINDOW_T, d=5, seed=11):
+    """The A/B helper's ``(run, outs)`` of one persistent entry on seeded
+    inputs at ``(T, B, H)``: wh N(0, 1 / H), wx N(0, 0.16), both in the
+    weight dtype, x_bias, carries, LN parameters near (1, 0), dropout
+    seeded at keep 0.9, residuals in ``dt``; a backward over the residuals
+    of the matching forward wrapper, with nonzero carry cotangents."""
+    import torch
+
+    from sketch_rnn_tpu_torch.ops import cuda_fused as CF
+
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s, sc=1.0: (sc * torch.randn(s, generator=g)).to(DEV)
+    wdt = torch_dtype(dt)
+    ln = entry.startswith("srt_ln_")
+    xs, c0, h0 = r(t, b, d), r(b, h, sc=0.3), r(b, h, sc=0.3)
+    wx = r(d, 4 * h, sc=0.4).to(wdt)
+    wh = r(h, 4 * h, sc=h ** -0.5).to(wdt)
+    w = ((xs, wx, wh, 1 + r(4, h, sc=0.1), r(4, h, sc=0.1),
+          1 + r(h, sc=0.1), r(h, sc=0.1)) if ln
+         else (xs, wx, r(4 * h, sc=0.1), wh))
+    drop = dict(dropout_seed=torch.tensor(4242, dtype=torch.int32,
+                                          device=DEV), keep_prob=KEEP,
+                x_bias=r(b, 4 * h, sc=0.3))
+    rdt = None if dt == "float32" else wdt
+    if entry.endswith("_fwd"):
+        if ln:
+            return CF.ln_lstm_fwd_entries(*w, c0, h0, **drop,
+                                          residual_dtype=rdt)
+        return CF.lstm_fwd_entries(*w, c0, h0, **drop, residual_dtype=rdt)
+    hs, cs, _, _ = (CF.ln_lstm_fwd if ln else CF.lstm_fwd)(
+        *w, c0, h0, **drop, residual_dtype=rdt)
+    cot = dict(dhs=r(t, b, h, sc=0.1).to(hs.dtype), dcT=r(b, h, sc=0.1),
+               dhT=r(b, h, sc=0.1))
+    return (CF.ln_lstm_bwd_entries if ln else CF.lstm_bwd_entries)(
+        *w, h0, hs, cs, **cot, **drop)
+
+
+def check_batch_windows():
+    """Each WINDOW_CASES entry, which runs as cooperative launches over
+    windows of rows, against its row-block entry on the same inputs
+    (bitwise for ``srt_lstm_fwd``, whose sums keep the row-block order;
+    FUSED_TOL for the others), identical run to run, then both timed in
+    turns (``ab_turns``). Uncounted launches; one line per case."""
+    import statistics
+
+    import torch
+
+    t_phase = time.perf_counter()
+    for entry, h, b, dt in WINDOW_CASES:
+        run, outs = window_entries(entry, h, b, dt)
+        snap = lambda: [o.clone() for o in outs if o is not None]
+        run(entry)
+        new = snap()
+        run(entry)
+        again = snap()
+        run(entry + "_rowblock")
+        old = snap()
+        torch.cuda.synchronize()
+        ab, rel, _ = rel_errs([str(i) for i in range(len(new))], new, old)
+        det = all(torch.equal(x, y) for x, y in zip(new, again))
+        bitwise = all(torch.equal(x, y) for x, y in zip(new, old))
+        ok = bitwise if entry == "srt_lstm_fwd" else rel <= FUSED_TOL[dt]
+        if not (ok and det):
+            raise AssertionError(
+                f"{entry} at H={h}, B={b} [{dt}] in windows: rel err {rel} "
+                f"vs the row-block entry (bitwise {bitwise}), "
+                f"deterministic {det}")
+        del new, again, old
+        times, _ = ab_turns({"new": lambda: run(entry),
+                             "old": lambda: run(entry + "_rowblock")})
+        log("batch_windows", entry=entry, H=h, B=b, T=WINDOW_T, dtype=dt,
+            err_vs_rowblock=ab, rel_err_vs_rowblock=rel,
+            bitwise_rowblock=bitwise, deterministic=det,
+            tol=None if entry == "srt_lstm_fwd" else FUSED_TOL[dt],
+            ms=statistics.median(times["new"]),
+            rowblock_ms=statistics.median(times["old"]))
+        del run, outs
+        torch.cuda.empty_cache()
+    log("batch_windows_done", seconds=time.perf_counter() - t_phase)
 
 
 def flat_hyper(out):
@@ -1871,7 +2051,9 @@ def check_probe_ladder(card, rows):
     with the plain version, B=4096), whatever the kernel. So every arm is
     also held at float32 residuals step by step (the plain step taken from
     the kernel's stored carry) within FUSED_TOL["float32"], and ``prod``
-    bit for bit ``fused_ln_lstm``'s forward kernel. Backward arms (over
+    bit for bit the row-block entry it repeats, ``srt_ln_lstm_fwd_rowblock``
+    (``fused_ln_lstm``'s forward kernel, ``srt_ln_lstm_fwd``, sums its
+    layer norms in another order). Backward arms (over
     the residuals of one production forward): identical run to run,
     within FUSED_TOL["bfloat16"] of their plain versions, except
     ``no_gates`` and ``no_gradmm``, whose gradient grows ~2.26x a step:
@@ -1882,8 +2064,9 @@ def check_probe_ladder(card, rows):
     row-block design of ``fused_ln_lstm``'s backward,
     ``srt_ln_lstm_bwd_rowblock`` (the weight gradients of both rounded as
     ``fused_ln_lstm`` rounds them). Both ``prod`` arms are timed beside
-    the production kernels, the backward arm also beside the row-block
-    entry. Then each ladder's run function and the LN-stats
+    the production kernel and the row-block entry. Then each ladder's run
+    function (whose record names the entry ``prod`` repeats and carries
+    the production entry's time) and the LN-stats
     A/B, the ladder's launch counters zeroed just before each and read
     just after, each record on one line. Returns the launches by row."""
     import torch
@@ -1930,15 +2113,22 @@ def check_probe_ladder(card, rows):
              "free_running_held": arm != "prod",
              "stepwise_f32_rel_err": rel32}
         if arm == "prod":
-            prodk = lambda: CF.ln_lstm_fwd(c0=z, h0=z, residual_dtype=bf,
-                                           **inp)
-            r["bitwise_fused_ln_lstm_fwd"] = same(got, prodk())
-            if not r["bitwise_fused_ln_lstm_fwd"]:
+            rowblock, want = CF.ln_lstm_fwd_entries(c0=z, h0=z,
+                                                    residual_dtype=bf, **inp)
+            rowblock("srt_ln_lstm_fwd_rowblock")
+            r["bitwise_srt_ln_lstm_fwd_rowblock"] = same(got, want)
+            if not r["bitwise_srt_ln_lstm_fwd_rowblock"]:
                 raise AssertionError("fwd_arm(prod) is not bitwise the "
-                                     "fused_ln_lstm forward kernel")
+                                     "row-block LN forward")
+            del want
             r["ms_beside_fused_ln_lstm_fwd"] = dict(zip(
-                ("prod_arm", "fused_ln_lstm_fwd"), _probe.interleaved(
-                    [lambda: PS.fwd_arm("prod", **fkw), prodk], 1, 2)))
+                ("prod_arm", "fused_ln_lstm_fwd", "srt_ln_lstm_fwd_rowblock"),
+                _probe.interleaved(
+                    [lambda: PS.fwd_arm("prod", **fkw),
+                     lambda: CF.ln_lstm_fwd(c0=z, h0=z, residual_dtype=bf,
+                                            **inp),
+                     lambda: rowblock("srt_ln_lstm_fwd_rowblock")], 1, 2)))
+            del rowblock
         fl = 0 if arm == "floor" else prod_flops
         moved = (nbytes(inp["xs"][:, :, :1], inp["x_bias"][:, :h], z, z,
                         *got) if arm == "floor" else
@@ -2186,6 +2376,7 @@ def main():
         del inp
         check_hyper_narrow(dt)
     torch.cuda.empty_cache()
+    check_batch_windows()
 
     launches = serve_main_path(card, "bfloat16")
     serve_main_path(card, "float32")

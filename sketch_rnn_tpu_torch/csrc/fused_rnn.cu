@@ -11,7 +11,8 @@
 //                       with no carry cotangents and no input or carry
 //                       gradients, fused_lstm_seq backward,
 //                       _lstm_seq_bwd_kernel (:771)
-//   srt_ln_lstm_fwd  <- fused_ln_lstm forward, _lnlstm_fwd_kernel (:1016)
+//   srt_ln_lstm_fwd  <- fused_ln_lstm forward, _lnlstm_fwd_kernel (:826,
+//                       pallas_call at :1016)
 //   srt_ln_lstm_bwd  <- fused_ln_lstm backward, _lnlstm_bwd_kernel (:1066)
 //
 // What they compute. The forward runs T steps of the LSTM (gates
@@ -45,22 +46,37 @@
 // masks here are bitwise those of the JAX package; the backward uses the
 // forward's t. uint32 arithmetic, no fast-math.
 //
-// Design of the LayerNorm-LSTM forward: the row-block design. (The
-// LayerNorm-LSTM backward ran it too, and keeps it reachable as
-// srt_ln_lstm_bwd_rowblock; its design now is below.) The recurrence of a
-// batch row never reads another row, so each of these kernels is one
-// block per row (grid = B) with the T loop inside the block, one thread
-// per hidden unit j (blockDim = H rounded up to a warp, H <= 512): the
-// carry (and, backwards, dh/dc) of the row lives in shared
-// memory and registers for the whole sequence. Thread j computes column j
-// of the four gates, reading row k of wh coalesced across the block;
-// layer-norm statistics are block reductions. The row-block LN backward's
-// transposed product dh_{t-1} = d_pre @ wh^T (and dx = d_pre @ wx^T) gives each warp
-// whole rows of wh, read coalesced, reduced by shuffles. The LSTM forward
-// and backward ran this row-block design too (rnn_fwd_kernel<false>,
-// rnn_bwd_kernel<false>); they stay reachable as srt_lstm_fwd_rowblock and
-// srt_lstm_bwd_rowblock, to be held and timed beside the designs that
-// replaced them.
+// The row-block design, which every kernel here ran first and which each
+// keeps reachable as srt_lstm_fwd_rowblock, srt_lstm_bwd_rowblock,
+// srt_ln_lstm_fwd_rowblock and srt_ln_lstm_bwd_rowblock, to be held and
+// timed beside the design that replaced it (rnn_fwd_kernel,
+// rnn_bwd_kernel). The recurrence of a batch row never reads another row,
+// so each of these kernels is one block per row (grid = B) with the T loop
+// inside the block, one thread per hidden unit j (blockDim = H rounded up
+// to a warp, H <= 512): the carry (and, backwards, dh/dc) of the row lives
+// in shared memory and registers for the whole sequence. Thread j computes
+// column j of the four gates, reading row k of wh coalesced across the
+// block; layer-norm statistics are block reductions (block_sum). The
+// backward's transposed product dh_{t-1} = d_pre @ wh^T (and dx = d_pre @
+// wx^T) gives each warp whole rows of wh, read coalesced, reduced by
+// shuffles.
+//
+// Row windows (srt_lstm_fwd, srt_lstm_bwd's loop, srt_ln_lstm_fwd,
+// srt_ln_lstm_bwd's loop). Each persistent loop below holds a batch tile's
+// state in one block's shared memory: the forwards' cell carries, the
+// backwards' dh parts. No row of a recurrence reads another, so where the
+// tiles of the whole batch do not fit, the launcher plans the least number
+// n of windows of rows whose tiles do (window w the rows [w * B / n, (w +
+// 1) * B / n)) and launches the loop once per window, in order on the
+// stream. A window's kernel takes its first row and row count and keeps B
+// as the row stride of every [T, B, .] and [B, .] buffer, so nothing is
+// copied; the hoisted recompute, the LN statistics, the weight pass and
+// the row sums run once over all rows. Where the batch fits, the plan is
+// one window: the launch it always was. A shape whose resident state does
+// not fit even at one row is refused before any launch. A forward's sums
+// do not depend on the tiling, so windows change none of its outputs; a
+// backward's window may split its columns into other parts (the dh sums'
+// order), within tolerance.
 //
 // Design of the LSTM forward (srt_lstm_fwd): one persistent kernel
 // launched cooperatively, on the backward loop's grid: slices of 16
@@ -75,8 +91,8 @@
 // of the weight type: it holds rnd_W(h), the product's operand (the stored
 // hs is rounded to R, which differs from W in the mixed cases). Per step
 // t, the h_{t-1} rows of the tile pass through shared memory, as W, in
-// chunks of rows (all of them at the training shapes; any B up to 4096 at
-// H <= 512 fits, a shape that does not is an error): rnd_W(h0) at t = 0,
+// chunks of rows (all of them at the training shapes; B=4096 at H=512 fits
+// in one window, B=8192 takes two): rnd_W(h0) at t = 0,
 // else hx[(t + 1) & 1], copied by cp.async.cg (through L2: other blocks
 // wrote it in this kernel) in four commit groups over k, so that the
 // product over the first quarter of k starts while the rest is in flight;
@@ -177,8 +193,44 @@
 // dh parts 1,600, a pass's 16 rows of the wider exchange 16,384); scratch
 // 1,947,200 bytes beside d_pre (exchanges 128,000, statistics 1,000,000,
 // the dxh stash 819,200); three grid barriers per step, 750 per call.
-// B=4096 takes 212,992 bytes; B=8192 does not fit (its tile's dh parts and
-// the wh rows exceed a block's shared memory), and the launch is refused.
+// B=4096 takes 212,992 bytes; at B=8192 a tile's dh parts and the wh rows
+// exceed a block's shared memory, and the loop runs in two windows.
+//
+// Design of the LayerNorm-LSTM forward (srt_ln_lstm_fwd): one persistent
+// kernel launched cooperatively on the LSTM forward's grid (slices of 16
+// hidden units x batch tiles, at most one block per SM, refused when it
+// cannot co-reside), with its resident columns of wh and wx (as float),
+// its h exchange hx[2, B, H] and its in-order fmaf chain per output. A
+// row's layer norms sum over all H units, spread over H / 16 blocks, so
+// each step has three phases, each ended by a grid barrier:
+//  (a) the products of the block's (row, unit) pairs, all four gates
+//      (gate_pre's sums: x @ wx, then h @ wh, then x_bias); per row, each
+//      gate's mean and M2 over the slice's units (two passes) go to an
+//      exchange [B, slices, 8];
+//  (b) per row, the slices' partials combined in slice order by Chan's
+//      rule (mean = sum n_s m_s / H, M2 = sum (M2_s + n_s (m_s - mean)^2),
+//      rs = rsqrt(M2 / H + 1e-6)), the gate block up to the new cell state
+//      nc, and nc's slice mean and M2 to an exchange [B, slices, 2];
+//  (c) the cell norm combined the same way, h = tanh(yc) * o, the stores
+//      of cs (the pre-step c), hs and hx[t & 1], the final carry.
+// A warp task is the 16 units of the slice x 2 x 2 rows (lane l: unit l %
+// 16), so a half warp holds one row's units and the slice moments are
+// half-warp shuffles; a lane combines one gate's partials for its rows,
+// all rows' sums advancing together, and the half warp shares them. A
+// chunk's rows of an exchange are first copied to shared memory by the
+// whole block (into the chunk's h buffer, idle after the product). Where a
+// tile's rows pass in one chunk (B=100), each pair's pre-activations, nc
+// and o stay in registers across the barriers; where they take several
+// (B=4096: 1,024 rows a tile, chunks of 16 at float, 32 at bf16), they go
+// through a [4, B, H] stash in the work scratch. Every sum has a fixed
+// order and no atomics, so every run gives the same result; the row
+// moments are summed in another order than block_sum's, so it agrees
+// with the row-block design within tolerance, not bit for bit. Sizing at
+// B=100, H=512 (128 blocks of 25 rows): shared memory 191,872 bytes at
+// float (the wh and wx columns 132,352, the tile's carries 1,600, a chunk
+// buffer of 28 rows 57,792), 163,200 at bf16; the work scratch 947,200
+// bytes (the exchanges 128,000, the stash 819,200, unused there); three
+// grid barriers a step, 750 a call.
 //
 // Weight gradients cross every row, and blocks run in no fixed order, so
 // they are NOT accumulated across blocks with atomics (whose order, and so
@@ -220,13 +272,11 @@
 // float) and a (B / tiles) x 16 x 4H product per block from resident
 // weights, in SIMT multiply-adds so that the sums keep the row-block
 // order; its shared-memory reads and their latency bound the product, not
-// the FLOP count (PERF.md has the split of a step). The LN forward keeps
-// the row-block design: only B=100 of the 132 SMs hold a row, each row's
-// block re-reads wh from L2 on every step (4 MiB at float, half that at
-// bf16), and the step-to-step dependency leaves a block's memory latency
-// exposed. The LN backward's loop is the LSTM loop's plus two exchanges
-// and two grid barriers a step, so latency bounds it too. PERF.md keeps
-// the measured times beside these bounds.
+// the FLOP count (PERF.md has the split of a step). The LN forward's step
+// is the LSTM forward's plus two exchanges and two grid barriers, the LN
+// backward's loop the LSTM loop's plus as many: latency bounds both too
+// (the row-block LN forward, one block per row, re-read wh from L2 every
+// step instead). PERF.md keeps the measured times beside these bounds.
 
 #include <cooperative_groups.h>
 
@@ -935,15 +985,18 @@ __device__ __forceinline__ void dh_parts(const float* dps, const S* s_w,
   }
 }
 
-// dxs = rnd_W(d_pre) @ wx^T for every row-step after a backward loop's
-// last grid barrier: no recurrence, so every warp of the grid takes rows.
+// dxs = rnd_W(d_pre) @ wx^T for every row-step of the window's rows r0 ..
+// r0 + nr - 1 after a backward loop's last grid barrier: no recurrence, so
+// every warp of the grid takes row-steps (t, r0 + i), i + t * nr in turn
+// (with one window, the row-steps in memory order).
 template <typename W, typename R>
-__device__ __forceinline__ void dxs_rows(const Bwd<W, R>& a) {
+__device__ __forceinline__ void dxs_rows(const Bwd<W, R>& a, int r0, int nr) {
   const int H = a.p.H, G = 4 * H, D = a.p.D, lane = threadIdx.x & 31;
-  const size_t rows_all = (size_t)a.T * a.B;
+  const size_t rows_all = (size_t)a.T * nr;
   const size_t nwg = (size_t)gridDim.x * kLoopWarps;
-  for (size_t mr = (size_t)blockIdx.x * kLoopWarps + (threadIdx.x >> 5);
-       mr < rows_all; mr += nwg) {
+  for (size_t i = (size_t)blockIdx.x * kLoopWarps + (threadIdx.x >> 5);
+       i < rows_all; i += nwg) {
+    const size_t mr = i / nr * a.B + r0 + i % nr;
     const float4* row = reinterpret_cast<const float4*>(a.dpre + mr * G);
     for (int q0 = 0; q0 < D; q0 += 8) {
       float acc[8];
@@ -975,14 +1028,16 @@ __device__ __forceinline__ void dxs_rows(const Bwd<W, R>& a) {
 
 template <typename W, typename R>
 __global__ void __launch_bounds__(kLoopThreads)
-lstm_bwd_loop_kernel(Bwd<W, R> a, int slices, int tiles, int parts) {
+lstm_bwd_loop_kernel(Bwd<W, R> a, int slices, int tiles, int parts, int r0,
+                     int nr) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const Cell<W>& p = a.p;
   const int H = p.H, G = 4 * H, B = a.B;
   const int sl = blockIdx.x % slices, bt = blockIdx.x / slices;
   const int j0 = sl * H / slices, nu = (sl + 1) * H / slices - j0;
-  const int b0 = bt * B / tiles, nb = (bt + 1) * B / tiles - b0;
-  const int nb_max = (B + tiles - 1) / tiles;
+  const int b0 = r0 + bt * nr / tiles;
+  const int nb = (bt + 1) * nr / tiles - bt * nr / tiles;
+  const int nb_max = (nr + tiles - 1) / tiles;
   W* s_w = reinterpret_cast<W*>(smem_raw);  // [kUnits][4H], zero past nu
   float* s_dh = reinterpret_cast<float*>(smem_raw + kUnits * G * sizeof(W));
   float* s_dc = s_dh + nb_max * kUnits;        // [nb_max][kUnits]
@@ -1051,7 +1106,7 @@ lstm_bwd_loop_kernel(Bwd<W, R> a, int slices, int tiles, int parts) {
       s_dh[q] = sum;
     }
   }
-  if (a.dxs != nullptr) dxs_rows(a);
+  if (a.dxs != nullptr) dxs_rows(a, r0, nr);
   for (int q = tid; q < npairs; q += kLoopThreads) {
     const int u = q % kUnits;
     if (u >= nu) continue;
@@ -1093,34 +1148,109 @@ LoopGrid loop_grid(int B, int H, int sms) {
   return g;
 }
 
-template <typename W, typename R>
-cudaError_t launch_loop(const Bwd<W, R>& a, cudaStream_t stream) {
-  if (a.B < 1) return cudaErrorInvalidValue;
-  int dev = 0, sms = 0, smem_max = 0, occ = 0;
+// The card's SM count and its opt-in shared memory per block.
+cudaError_t device_limits(int& sms, int& smem_max) {
+  int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(
         &smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  LoopGrid g = loop_grid<W>(a.B, a.p.H, sms);
-  // refused before cudaFuncSetAttribute, whose error the next launch's
-  // cudaGetLastError would report
-  if (g.smem > (size_t)smem_max) return cudaErrorLaunchOutOfResources;
-  const void* fn = (const void*)lstm_bwd_loop_kernel<W, R>;
-  err = set_smem(fn, g.smem);
+  return err;
+}
+
+// Windows of rows (header, "Row windows"): a persistent loop holds its
+// batch tile's state in one block's shared memory, and no row of its
+// recurrence reads another, so a batch whose tiles do not fit runs as nwin
+// cooperative launches, window w over the rows [w * B / nwin, (w + 1) * B /
+// nwin) (rows differ by one at most between windows). nwin is the least
+// whose windows fit: smem_for(rows) is the shared memory of a window's
+// grid, SIZE_MAX where none forms; smem the largest of them. 0 when not
+// even one row fits. One window where the batch fits: the launch it always
+// was.
+struct Windows {
+  int n = 0;
+  size_t smem = 0;
+  int first(int w, int B) const { return (int)((long long)w * B / n); }
+  int rows(int w, int B) const { return first(w + 1, B) - first(w, B); }
+  int most(int B) const { return n > 0 ? (B + n - 1) / n : 1; }
+};
+
+template <typename F>
+Windows plan_windows(int B, size_t smem_max, F&& smem_for) {
+  Windows win;
+  for (int n = 1; n <= B; ++n) {
+    const int hi = (B + n - 1) / n, lo = B / n;
+    size_t s = smem_for(hi);
+    if (lo > 0 && lo != hi) {
+      const size_t t = smem_for(lo);
+      if (t > s) s = t;
+    }
+    if (s <= smem_max) {
+      win.n = n;
+      win.smem = s;
+      return win;
+    }
+  }
+  return win;
+}
+
+// The shared memory attribute, then the co-residency of a window's grid,
+// checked before anything is launched: an error, never a fallback
+// (cudaErrorLaunchOutOfResources where no window fits, checked before any
+// call that would leave an error behind for the next launch to report;
+// cudaErrorCooperativeLaunchTooLarge where the blocks cannot co-reside).
+cudaError_t ready_loop(const void* fn, int threads, const Windows& win,
+                       int blocks, int sms) {
+  if (win.n == 0) return cudaErrorLaunchOutOfResources;
+  int occ = 0;
+  cudaError_t err = set_smem(fn, win.smem);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fn, kLoopThreads,
-                                                        g.smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fn, threads,
+                                                        win.smem);
   if (err != cudaSuccess) return err;
-  if ((long)occ * sms < (long)g.slices * g.tiles)
-    return cudaErrorCooperativeLaunchTooLarge;
-  Bwd<W, R> args = a;
-  void* params[] = {&args, &g.slices, &g.tiles, &g.parts};
-  return cudaLaunchCooperativeKernel(fn, dim3(g.slices * g.tiles),
-                                     dim3(kLoopThreads), params, g.smem,
-                                     stream);
+  if ((long)occ * sms < (long)blocks) return cudaErrorCooperativeLaunchTooLarge;
+  return cudaSuccess;
+}
+
+// The LSTM loop's windows, planned before any of srt_lstm_bwd's launches.
+struct LoopPlan {
+  Windows win;
+  int sms;
+  const void* fn;
+};
+
+template <typename W, typename R>
+cudaError_t loop_plan(const Bwd<W, R>& a, LoopPlan& plan) {
+  if (a.B < 1) return cudaErrorInvalidValue;
+  int smem_max = 0;
+  cudaError_t err = device_limits(plan.sms, smem_max);
+  if (err != cudaSuccess) return err;
+  const int H = a.p.H, sms = plan.sms;
+  plan.win = plan_windows(a.B, (size_t)smem_max, [&](int rows) {
+    return loop_grid<W>(rows, H, sms).smem;
+  });
+  plan.fn = (const void*)lstm_bwd_loop_kernel<W, R>;
+  const LoopGrid g0 = loop_grid<W>(plan.win.most(a.B), H, sms);
+  return ready_loop(plan.fn, kLoopThreads, plan.win, g0.slices * g0.tiles,
+                    sms);
+}
+
+template <typename W, typename R>
+cudaError_t launch_loop(const Bwd<W, R>& a, const LoopPlan& plan,
+                        cudaStream_t stream) {
+  cudaError_t err = cudaSuccess;
+  for (int w = 0; w < plan.win.n && err == cudaSuccess; ++w) {
+    int r0 = plan.win.first(w, a.B), nr = plan.win.rows(w, a.B);
+    LoopGrid g = loop_grid<W>(nr, a.p.H, plan.sms);
+    Bwd<W, R> args = a;
+    void* params[] = {&args, &g.slices, &g.tiles, &g.parts, &r0, &nr};
+    err = cudaLaunchCooperativeKernel(plan.fn, dim3(g.slices * g.tiles),
+                                      dim3(kLoopThreads), params, g.smem,
+                                      stream);
+  }
+  return err;
 }
 
 // The three launches in order (stage 0), or one of them (1, 2 or 3).
@@ -1129,10 +1259,12 @@ cudaError_t launch_lstm_bwd(const Bwd<W, R>& a, int stage, float* dwx,
                             float* dwh, float* db, cudaStream_t stream) {
   if (a.p.H < 1 || a.p.H > kMaxThreads || stage < 0 || stage > 3)
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaSuccess;
-  if (stage == 0 || stage == 1) err = launch_recompute(a, stream);
-  if (err == cudaSuccess && (stage == 0 || stage == 2))
-    err = launch_loop(a, stream);
+  const bool loop = stage == 0 || stage == 2;
+  LoopPlan plan;
+  cudaError_t err = loop ? loop_plan(a, plan) : cudaSuccess;
+  if (err == cudaSuccess && (stage == 0 || stage == 1))
+    err = launch_recompute(a, stream);
+  if (err == cudaSuccess && loop) err = launch_loop(a, plan, stream);
   if (err == cudaSuccess && (stage == 0 || stage == 3))
     err = launch_weight_grad(a, 1, dwx, dwh, db, stream);
   return err;
@@ -1304,14 +1436,15 @@ __device__ __forceinline__ LnPair ln_pair(const float (&pre)[4],
 template <typename W, typename R>
 __global__ void __launch_bounds__(kLoopThreads)
 ln_lstm_bwd_loop_kernel(Bwd<W, R> a, LnWork w, int slices, int tiles,
-                        int parts) {
+                        int parts, int r0, int nr) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const Cell<W>& p = a.p;
   const int H = p.H, G = 4 * H, B = a.B;
   const int sl = blockIdx.x % slices, bt = blockIdx.x / slices;
   const int j0 = sl * H / slices, nu = (sl + 1) * H / slices - j0;
-  const int b0 = bt * B / tiles, nb = (bt + 1) * B / tiles - b0;
-  const int nb_max = (B + tiles - 1) / tiles;
+  const int b0 = r0 + bt * nr / tiles;
+  const int nb = (bt + 1) * nr / tiles - bt * nr / tiles;
+  const int nb_max = (nr + tiles - 1) / tiles;
   const int plane = nb_max * kUnits;
   // [kUnits][4H], zero past nu; a bf16 weight widened once, exactly (its
   // unpacking at every use cost more than the bytes it saves)
@@ -1512,7 +1645,7 @@ ln_lstm_bwd_loop_kernel(Bwd<W, R> a, LnWork w, int slices, int tiles,
                 nb_max, parts);
     __syncthreads();  // every part of this step's dh written
   }
-  if (a.dxs != nullptr) dxs_rows(a);
+  if (a.dxs != nullptr) dxs_rows(a, r0, nr);
   for (int q = tid; q < npairs; q += kLoopThreads) {
     if (!unit) continue;
     float dh = 0.0f;
@@ -1522,46 +1655,32 @@ ln_lstm_bwd_loop_kernel(Bwd<W, R> a, LnWork w, int slices, int tiles,
 }
 
 // The LN loop's grid (the LSTM loop's) and shared memory (the resident wh
-// rows, the dh parts, a pass's rows of an exchange), checked before
-// anything is launched: an error, never a fallback, when the shared memory does not fit
-// (cudaErrorLaunchOutOfResources, refused before any call that would
-// leave an error behind for the next launch to report) or the blocks
-// cannot co-reside (cudaErrorCooperativeLaunchTooLarge).
-struct LnPlan {
-  LoopGrid g;
-  size_t smem;
-  const void* fn;
-};
+// rows, the dh parts, a pass's rows of an exchange) for a window of rows.
+template <typename W>
+size_t ln_loop_smem(int rows, int H, int sms) {
+  const LoopGrid g = loop_grid<W>(rows, H, sms);
+  const int nb_max = (rows + g.tiles - 1) / g.tiles;
+  return ((size_t)kUnits * 4 * H + (size_t)g.parts * nb_max * kUnits +
+          (size_t)kLnRows * g.slices * 8) *
+         sizeof(float);
+}
 
+// The LN loop's windows, planned before any launch (ready_loop).
 template <typename W, typename R>
-cudaError_t ln_loop_plan(const Bwd<W, R>& a, LnPlan& plan) {
+cudaError_t ln_loop_plan(const Bwd<W, R>& a, LoopPlan& plan) {
   if (a.B < 1 || a.dc0 == nullptr || a.dh0 == nullptr || a.part == nullptr)
     return cudaErrorInvalidValue;
-  int dev = 0, sms = 0, smem_max = 0, occ = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(
-        &smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  int smem_max = 0;
+  cudaError_t err = device_limits(plan.sms, smem_max);
   if (err != cudaSuccess) return err;
-  plan.g = loop_grid<W>(a.B, a.p.H, sms);
-  const int nb_max = (a.B + plan.g.tiles - 1) / plan.g.tiles;
-  plan.smem = ((size_t)kUnits * 4 * a.p.H +
-               (size_t)plan.g.parts * nb_max * kUnits +
-               (size_t)kLnRows * plan.g.slices * 8) *
-              sizeof(float);
-  if (plan.smem > (size_t)smem_max) return cudaErrorLaunchOutOfResources;
+  const int H = a.p.H, sms = plan.sms;
+  plan.win = plan_windows(a.B, (size_t)smem_max, [&](int rows) {
+    return ln_loop_smem<W>(rows, H, sms);
+  });
   plan.fn = (const void*)ln_lstm_bwd_loop_kernel<W, R>;
-  err = set_smem(plan.fn, plan.smem);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, plan.fn,
-                                                        kLoopThreads,
-                                                        plan.smem);
-  if (err != cudaSuccess) return err;
-  if ((long)occ * sms < (long)plan.g.slices * plan.g.tiles)
-    return cudaErrorCooperativeLaunchTooLarge;
-  return cudaSuccess;
+  const LoopGrid g0 = loop_grid<W>(plan.win.most(a.B), H, sms);
+  return ready_loop(plan.fn, kLoopThreads, plan.win, g0.slices * g0.tiles,
+                    sms);
 }
 
 // The four launches in order (stage 0), or one of them: 1 the recompute,
@@ -1575,7 +1694,7 @@ cudaError_t launch_ln_lstm_bwd(const Bwd<W, R>& a, float* work, int stage,
   if (H < 1 || H > kMaxThreads || stage < 0 || stage > 4)
     return cudaErrorInvalidValue;
   const bool loop = stage == 0 || stage == 3;
-  LnPlan plan;
+  LoopPlan plan;
   cudaError_t err = loop ? ln_loop_plan(a, plan) : cudaSuccess;
   LnWork w = ln_work(work, a.T, a.B, H);
   if (err == cudaSuccess && (stage == 0 || stage == 1))
@@ -1585,12 +1704,15 @@ cudaError_t launch_ln_lstm_bwd(const Bwd<W, R>& a, float* work, int stage,
     err = cudaGetLastError();
   }
   if (err == cudaSuccess && loop) {
-    Bwd<W, R> args = a;
-    void* params[] = {&args, &w, &plan.g.slices, &plan.g.tiles,
-                      &plan.g.parts};
-    err = cudaLaunchCooperativeKernel(
-        plan.fn, dim3(plan.g.slices * plan.g.tiles), dim3(kLoopThreads),
-        params, plan.smem, stream);
+    for (int win = 0; win < plan.win.n && err == cudaSuccess; ++win) {
+      int r0 = plan.win.first(win, a.B), nr = plan.win.rows(win, a.B);
+      LoopGrid g = loop_grid<W>(nr, H, plan.sms);
+      Bwd<W, R> args = a;
+      void* params[] = {&args, &w, &g.slices, &g.tiles, &g.parts, &r0, &nr};
+      err = cudaLaunchCooperativeKernel(
+          plan.fn, dim3(g.slices * g.tiles), dim3(kLoopThreads), params,
+          ln_loop_smem<W>(nr, H, plan.sms), stream);
+    }
     if (err == cudaSuccess) {
       sum_rows_kernel<<<(10 * H + 255) / 256, 256, 0, stream>>>(a.part, a.B,
                                                                 10 * H, dln);
@@ -1682,15 +1804,17 @@ __device__ __forceinline__ void load_h_chunk(W* s_h, int rs, const float* h0,
 
 template <typename W, typename R, int ROWS>
 __global__ void __launch_bounds__(kFwdThreads)
-lstm_fwd_loop_kernel(Fwd<W, R> a, W* hx, int slices, int tiles, int chunk) {
+lstm_fwd_loop_kernel(Fwd<W, R> a, W* hx, int slices, int tiles, int chunk,
+                     int r0, int nr) {
   constexpr int kTaskRows = kRowLanes * ROWS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const Cell<W>& p = a.p;
   const int H = p.H, G = 4 * H, B = a.B, D = p.D;
   const int sl = blockIdx.x % slices, bt = blockIdx.x / slices;
   const int j0 = sl * H / slices, nu = (sl + 1) * H / slices - j0;
-  const int b0 = bt * B / tiles, nb = (bt + 1) * B / tiles - b0;
-  const int nb_max = (B + tiles - 1) / tiles;
+  const int b0 = r0 + bt * nr / tiles;
+  const int nb = (bt + 1) * nr / tiles - bt * nr / tiles;
+  const int nb_max = (nr + tiles - 1) / tiles;
   const int rs = fwd_row_stride<W>(H);
   const int kp = ((H + kParts - 1) / kParts + 7) / 8 * 8;  // k per part
   // [H + D][kUnits][4]: the wh rows, then the wx rows; zero past nu
@@ -1884,6 +2008,416 @@ lstm_fwd_loop_kernel(Fwd<W, R> a, W* hx, int slices, int tiles, int chunk) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The LayerNorm-LSTM forward of srt_ln_lstm_fwd: one persistent cooperative
+// kernel (header, "Design of the LayerNorm-LSTM forward"), on the LSTM
+// forward's grid with its resident columns and its h exchange. A warp task
+// is the kUnits units of the slice x (kLnRowLanes * ROWS) rows (ROWS =
+// kLnFwdRows): lane l takes unit l % 16 and the rows l / 16 + 2 i (i <
+// ROWS), all four gates
+// of each, so a half warp holds the units of one row and a row's sums over
+// the slice are half-warp shuffles. Per step: (a) the products, each gate's
+// slice mean and M2 to an exchange; grid barrier; (b) the gates' row
+// statistics, the gate block, the new cell state's slice mean and M2 to a
+// second exchange; grid barrier; (c) the cell norm's row statistics, h and
+// the stores; grid barrier.
+constexpr int kLnRowLanes = 32 / kUnits;  // row groups per warp task
+constexpr int kLnFwdRows = 2;             // rows per thread and row group
+constexpr int kLnGateEx = 8;              // per row and slice: mean[4], M2[4]
+
+// The scratch of srt_ln_lstm_fwd beside hx, carved from one float buffer in
+// this order (16-byte aligned first): the gate norms' slice partials
+// ([B][slices][kLnGateEx]), the cell norm's ([B][slices][2]) and, only
+// where a tile's rows pass in several chunks, each pair's pre-activations
+// from (a) to (b), then its new cell state and o from (b) to (c)
+// ([4][B][H]).
+struct LnFwdWork {
+  float* exg;
+  float* exc;
+  float* stash;
+};
+
+LnFwdWork ln_fwd_work(float* work, int B, int H) {
+  const size_t slices = (size_t)(H + kUnits - 1) / kUnits;
+  LnFwdWork w;
+  w.exg = work;
+  w.exc = w.exg + (size_t)B * slices * kLnGateEx;
+  w.stash = w.exc + (size_t)B * slices * 2;
+  return w;
+}
+
+// The slice-local moments of N values per lane over the 16 lanes of a half
+// warp (one row's units; a lane past the slice's n units contributes
+// nothing): mean[g] = sum / n, then m2[g] = sum of (v - mean)^2 (two
+// passes). Every lane gets them. All 32 lanes must call it.
+template <int N>
+__device__ __forceinline__ void slice_moments(const float (&v)[N], bool real,
+                                              float n, float (&mean)[N],
+                                              float (&m2)[N]) {
+#pragma unroll
+  for (int g = 0; g < N; ++g) mean[g] = real ? v[g] : 0.0f;
+  half_warp_sum(mean);
+#pragma unroll
+  for (int g = 0; g < N; ++g) {
+    mean[g] = mean[g] / n;
+    const float d = v[g] - mean[g];
+    m2[g] = real ? d * d : 0.0f;
+  }
+  half_warp_sum(m2);
+}
+
+// The layer-norm statistics of N rows from their slices' (mean, M2)
+// partials, m[n][k * stride] and m[n][k * stride + off], each row's
+// combined in slice order by Chan's rule: mean = sum_k n_k m_k / H, M2 =
+// sum_k (M2_k + n_k (m_k - mean)^2), rs = rsqrt(M2 / H + 1e-6). s_n holds
+// each slice's unit count. The rows' sums advance together, so N
+// independent chains are in flight.
+template <int N>
+__device__ __forceinline__ void chan_stats(const float* const (&m)[N],
+                                           int stride, int off,
+                                           const float* s_n, int slices,
+                                           float fh, float (&mean)[N],
+                                           float (&rs)[N]) {
+  float s[N], q[N];
+#pragma unroll
+  for (int r = 0; r < N; ++r) s[r] = q[r] = 0.0f;
+  for (int k = 0; k < slices; ++k) {
+    const float n = s_n[k];
+#pragma unroll
+    for (int r = 0; r < N; ++r) s[r] += n * m[r][k * stride];
+  }
+#pragma unroll
+  for (int r = 0; r < N; ++r) mean[r] = s[r] / fh;
+  for (int k = 0; k < slices; ++k) {
+    const float n = s_n[k];
+#pragma unroll
+    for (int r = 0; r < N; ++r) {
+      const float d = m[r][k * stride] - mean[r];
+      q[r] += m[r][k * stride + off] + n * (d * d);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < N; ++r) rs[r] = rsqrtf(q[r] / fh + 1e-6f);
+}
+
+template <typename W, typename R>
+__global__ void __launch_bounds__(kFwdThreads)
+ln_lstm_fwd_loop_kernel(Fwd<W, R> a, W* hx, LnFwdWork wk, int slices,
+                        int tiles, int chunk, int r0, int nr) {
+  constexpr int ROWS = kLnFwdRows, kTaskRows = kLnRowLanes * ROWS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Cell<W>& p = a.p;
+  const int H = p.H, G = 4 * H, B = a.B, D = p.D;
+  const int sl = blockIdx.x % slices, bt = blockIdx.x / slices;
+  const int j0 = sl * H / slices, nu = (sl + 1) * H / slices - j0;
+  const int b0 = r0 + bt * nr / tiles;
+  const int nb = (bt + 1) * nr / tiles - bt * nr / tiles;
+  const int nb_max = (nr + tiles - 1) / tiles;
+  const int rs = fwd_row_stride<W>(H);
+  const int kp = ((H + kParts - 1) / kParts + 7) / 8 * 8;  // k per part
+  // [H + D][kUnits][4]: the wh rows, then the wx rows; zero past nu
+  float* s_w = reinterpret_cast<float*>(smem_raw);
+  const float* s_wx = s_w + (size_t)H * kUnits * 4;
+  float* s_n = s_w + (size_t)(H + D) * kUnits * 4;  // [32] units per slice
+  float* s_c = s_n + 32;                             // [nb_max][kUnits]
+  // a chunk's h rows (W, row stride rs) in (a), its rows of an exchange in
+  // (b) and (c)
+  unsigned char* s_buf =
+      reinterpret_cast<unsigned char*>(s_c + (size_t)nb_max * kUnits);
+  W* s_h = reinterpret_cast<W*>(s_buf);
+  float* s_ex = reinterpret_cast<float*>(s_buf);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int u = lane % kUnits, half = lane & ~(kUnits - 1);
+  const bool unit = u < nu;
+  const int j = j0 + (unit ? u : 0);
+  const uint32_t seed = a.drop.seed != nullptr ? (uint32_t)*a.drop.seed : 0u;
+  const bool async = H % (16 / (int)sizeof(W)) == 0 &&
+                     (reinterpret_cast<uintptr_t>(hx) & 15) == 0;
+  const float fh = (float)H, fn = (float)nu;
+  float gam[4], bet[4];
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    gam[g] = unit ? p.ln_gamma[g * H + j] : 0.0f;
+    bet[g] = unit ? p.ln_beta[g * H + j] : 0.0f;
+  }
+  const float gc = unit ? p.lnc_gamma[j] : 0.0f;
+  const float bc = unit ? p.lnc_beta[j] : 0.0f;
+
+  for (int e = tid; e < (H + D) * kUnits * 4; e += kFwdThreads) {
+    const int k = e / (kUnits * 4), uu = (e / 4) % kUnits;
+    const int col = (e % 4) * H + j0 + uu;
+    float v = 0.0f;
+    if (uu < nu)
+      v = to_f(k < H ? p.wh[(size_t)k * G + col]
+                     : p.wx[(size_t)(k - H) * G + col]);
+    s_w[e] = v;
+  }
+  if (tid < slices)
+    s_n[tid] = (float)((tid + 1) * H / slices - tid * H / slices);
+  for (int q = tid; q < nb * kUnits; q += kFwdThreads) {
+    const int uu = q % kUnits;
+    s_c[q] = uu < nu ? a.c0[(size_t)(b0 + q / kUnits) * H + j0 + uu] : 0.0f;
+  }
+  __syncthreads();  // the resident state, before any phase reads it
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const size_t plane = (size_t)B * H;
+  const float* wc = s_w + u * 4;
+  const bool multi = nb > chunk;  // else the pairs stay in registers
+  const int lr0 = warp * kTaskRows + lane / kUnits;  // rows lr0 + 2 i
+  float pre[ROWS][4], keep_c[ROWS], keep_o[ROWS];
+  // the stash of pair (row, j), slot g
+  auto stash = [&](int g, int row) -> float& {
+    return wk.stash[((size_t)g * B + row) * H + j];
+  };
+
+  for (int t = 0; t < a.T; ++t) {
+    const W* hin = t == 0 ? nullptr : hx + ((t + 1) & 1) * plane;
+    W* hout = hx + (t & 1) * plane;
+    // (a) the products and the gates' slice moments
+    for (int ch = 0; ch < nb; ch += chunk) {
+      const int cr = nb - ch < chunk ? nb - ch : chunk;
+      const bool busy = warp < (cr + kTaskRows - 1) / kTaskRows;
+      float acc[ROWS][4], xbv[ROWS][4];
+      float xq[ROWS][kMaxXd];
+      if (busy) {  // x and x_bias, asked for ahead of the h copies
+#pragma unroll
+        for (int rr = 0; rr < ROWS; ++rr) {
+          const int lr = lr0 + rr * kLnRowLanes;
+          const bool ok = lr < cr && unit;
+          const int row = b0 + ch + (ok ? lr : 0);
+          const float* x = a.xs + ((size_t)t * B + row) * D;
+#pragma unroll
+          for (int q = 0; q < kMaxXd; ++q)
+            xq[rr][q] = q < D ? rnd<W>(x[q]) : 0.0f;
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+            xbv[rr][g] = (ok && p.xb != nullptr)
+                             ? p.xb[(size_t)row * G + g * H + j]
+                             : 0.0f;
+        }
+      }
+      load_h_chunk<W>(s_h, rs, a.h0, hin, async, (size_t)(b0 + ch), cr,
+                      H, kp);
+      if (busy) {
+        // while h is in flight: x @ wx, gate_pre's first sum (one in-order
+        // fmaf chain over the D inputs per gate)
+#pragma unroll
+        for (int rr = 0; rr < ROWS; ++rr) {
+          float sx[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+          for (int q = 0; q < kMaxXd; ++q) {
+            if (q >= D) break;
+            const float4 w = quad(s_wx + (q * kUnits + u) * 4);
+            sx[0] = fmaf(xq[rr][q], w.x, sx[0]);
+            sx[1] = fmaf(xq[rr][q], w.y, sx[1]);
+            sx[2] = fmaf(xq[rr][q], w.z, sx[2]);
+            sx[3] = fmaf(xq[rr][q], w.w, sx[3]);
+          }
+          if (D > kMaxXd) {
+            const int lr = lr0 + rr * kLnRowLanes;
+            const int row = b0 + ch + (lr < cr && unit ? lr : 0);
+            const float* x = a.xs + ((size_t)t * B + row) * D;
+            for (int q = kMaxXd; q < D; ++q) {
+              const float xv = rnd<W>(x[q]);
+              const float4 w = quad(s_wx + (q * kUnits + u) * 4);
+              sx[0] = fmaf(xv, w.x, sx[0]);
+              sx[1] = fmaf(xv, w.y, sx[1]);
+              sx[2] = fmaf(xv, w.z, sx[2]);
+              sx[3] = fmaf(xv, w.w, sx[3]);
+            }
+          }
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            pre[rr][g] = sx[g];
+            acc[rr][g] = 0.0f;
+          }
+        }
+      }
+      // h @ wh, part by part: one in-order fmaf chain over k per output
+#pragma unroll
+      for (int part = 0; part < kParts; ++part) {
+        cp_async_wait(kParts - 1 - part);  // this part's copies landed
+        __syncthreads();  // ... for every thread: this part of k in s_h
+        if (!busy) continue;
+        const int k1 = (part + 1) * kp < H ? (part + 1) * kp : H;
+        int k = part * kp;
+#pragma unroll 2
+        for (; k + 4 <= k1; k += 4) {
+          float4 hv[ROWS];
+#pragma unroll
+          for (int rr = 0; rr < ROWS; ++rr)
+            hv[rr] = quad(s_h + (size_t)(lr0 + rr * kLnRowLanes) * rs + k);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const float4 w = quad(wc + (size_t)(k + kk) * kUnits * 4);
+#pragma unroll
+            for (int rr = 0; rr < ROWS; ++rr) {
+              const float h = kk == 0   ? hv[rr].x
+                              : kk == 1 ? hv[rr].y
+                              : kk == 2 ? hv[rr].z
+                                        : hv[rr].w;
+              acc[rr][0] = fmaf(h, w.x, acc[rr][0]);
+              acc[rr][1] = fmaf(h, w.y, acc[rr][1]);
+              acc[rr][2] = fmaf(h, w.z, acc[rr][2]);
+              acc[rr][3] = fmaf(h, w.w, acc[rr][3]);
+            }
+          }
+        }
+        for (; k < k1; ++k) {
+          const float4 w = quad(wc + (size_t)k * kUnits * 4);
+#pragma unroll
+          for (int rr = 0; rr < ROWS; ++rr) {
+            const float h =
+                to_f(s_h[(size_t)(lr0 + rr * kLnRowLanes) * rs + k]);
+            acc[rr][0] = fmaf(h, w.x, acc[rr][0]);
+            acc[rr][1] = fmaf(h, w.y, acc[rr][1]);
+            acc[rr][2] = fmaf(h, w.z, acc[rr][2]);
+            acc[rr][3] = fmaf(h, w.w, acc[rr][3]);
+          }
+        }
+      }
+      if (busy) {
+#pragma unroll
+        for (int rr = 0; rr < ROWS; ++rr) {
+          const int lr = lr0 + rr * kLnRowLanes;
+          const int row = b0 + ch + lr;
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {  // (x @ wx + h @ wh) [+ x_bias]
+            pre[rr][g] = pre[rr][g] + acc[rr][g];
+            if (p.xb != nullptr) pre[rr][g] = pre[rr][g] + xbv[rr][g];
+          }
+          float mean[4], m2[4];
+          slice_moments(pre[rr], unit, fn, mean, m2);
+          if (lr >= cr) continue;
+          if (u == 0) {
+            float4* dst = reinterpret_cast<float4*>(
+                wk.exg + ((size_t)row * slices + sl) * kLnGateEx);
+            dst[0] = make_float4(mean[0], mean[1], mean[2], mean[3]);
+            dst[1] = make_float4(m2[0], m2[1], m2[2], m2[3]);
+          }
+          if (multi && unit) {
+#pragma unroll
+            for (int g = 0; g < 4; ++g) stash(g, row) = pre[rr][g];
+          }
+        }
+      }
+      __syncthreads();  // every read of s_h done: next chunk
+    }
+    grid.sync();  // the gates' slice moments complete across the grid
+    // (b) the gates' row statistics, the gate block, the cell's moments
+    for (int ch = 0; ch < nb; ch += chunk) {
+      const int cr = nb - ch < chunk ? nb - ch : chunk;
+      const bool busy = warp < (cr + kTaskRows - 1) / kTaskRows;
+      stage_ex<float4>(s_ex, wk.exg, (size_t)(b0 + ch) * slices * kLnGateEx,
+                       cr * slices * kLnGateEx / 4);
+      __syncthreads();  // this chunk's rows of the exchange in s_ex
+      if (busy) {
+        // lane u combines gate u % 4 of each of its rows; the half warp
+        // shares them
+        const float* ex[ROWS];
+#pragma unroll
+        for (int rr = 0; rr < ROWS; ++rr) {
+          const int lr = lr0 + rr * kLnRowLanes;
+          ex[rr] = s_ex + (size_t)(lr < cr ? lr : 0) * slices * kLnGateEx +
+                   (u & 3);
+        }
+        float gm[ROWS], gr[ROWS];
+        chan_stats(ex, kLnGateEx, 4, s_n, slices, fh, gm, gr);
+#pragma unroll
+        for (int rr = 0; rr < ROWS; ++rr) {
+          const int lr = lr0 + rr * kLnRowLanes;
+          const bool ok = lr < cr;
+          const int row = b0 + ch + (ok ? lr : 0);
+          float mean[4], rsg[4];
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            mean[g] = __shfl_sync(0xffffffffu, gm[rr], half | g);
+            rsg[g] = __shfl_sync(0xffffffffu, gr[rr], half | g);
+          }
+          if (multi && ok && unit) {
+#pragma unroll
+            for (int g = 0; g < 4; ++g) pre[rr][g] = stash(g, row);
+          }
+          const float c = s_c[(size_t)(ch + (ok ? lr : 0)) * kUnits + u];
+          const float m = dropout_mask(a.drop, seed, t, B, row, H, j);
+          float y[4];
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+            y[g] = (pre[rr][g] - mean[g]) * rsg[g] * gam[g] + bet[g];
+          const float i = sigmoidf_(y[0]), gu = tanhf(y[1]);
+          const float f = sigmoidf_(y[2] + p.forget_bias);
+          keep_o[rr] = sigmoidf_(y[3]);
+          keep_c[rr] = c * f + i * (gu * m);
+          float cm[1], cq[1];
+          const float nc[1] = {keep_c[rr]};
+          slice_moments(nc, unit, fn, cm, cq);
+          if (!ok) continue;
+          if (u == 0)
+            reinterpret_cast<float2*>(wk.exc)[(size_t)row * slices + sl] =
+                make_float2(cm[0], cq[0]);
+          if (multi && unit) {
+            stash(0, row) = keep_c[rr];
+            stash(1, row) = keep_o[rr];
+          }
+        }
+      }
+      __syncthreads();  // s_ex read: next chunk
+    }
+    grid.sync();  // the cell's slice moments complete across the grid
+    // (c) the cell norm, h and the stores
+    for (int ch = 0; ch < nb; ch += chunk) {
+      const int cr = nb - ch < chunk ? nb - ch : chunk;
+      const bool busy = warp < (cr + kTaskRows - 1) / kTaskRows;
+      stage_ex<float2>(s_ex, wk.exc, (size_t)(b0 + ch) * slices * 2,
+                       cr * slices);
+      __syncthreads();  // this chunk's rows of the exchange in s_ex
+      if (busy) {
+        const float* ex[ROWS];
+#pragma unroll
+        for (int rr = 0; rr < ROWS; ++rr) {
+          const int lr = lr0 + rr * kLnRowLanes;
+          ex[rr] = s_ex + (size_t)(lr < cr ? lr : 0) * slices * 2;
+        }
+        float cmean[ROWS], crs[ROWS];
+        chan_stats(ex, 2, 1, s_n, slices, fh, cmean, crs);
+#pragma unroll
+        for (int rr = 0; rr < ROWS; ++rr) {
+          const int lr = lr0 + rr * kLnRowLanes;
+          if (lr >= cr || !unit) continue;
+          const int row = b0 + ch + lr;
+          float nc = keep_c[rr], o = keep_o[rr];
+          if (multi) {
+            nc = stash(0, row);
+            o = stash(1, row);
+          }
+          const float yc = (nc - cmean[rr]) * crs[rr] * gc + bc;
+          const float nh = tanhf(yc) * o;
+          float* cp = s_c + (size_t)(ch + lr) * kUnits + u;
+          const size_t at = ((size_t)t * B + row) * H + j;
+          a.cs[at] = from_f<R>(*cp);
+          a.hs[at] = from_f<R>(nh);
+          hout[(size_t)row * H + j] = from_f<W>(nh);
+          *cp = nc;
+          if (a.cT != nullptr && t == a.T - 1) {
+            a.cT[(size_t)row * H + j] = nc;
+            a.hT[(size_t)row * H + j] = nh;
+          }
+        }
+      }
+      __syncthreads();  // s_ex read: next chunk
+    }
+    grid.sync();  // hx[t & 1] complete: step t + 1 may read it
+  }
+  if (a.T == 0 && a.cT != nullptr) {  // no step: the final carry is the first
+    for (int q = tid; q < nb * kUnits; q += kFwdThreads) {
+      if (q % kUnits >= nu) continue;
+      const size_t at = (size_t)(b0 + q / kUnits) * H + j0 + q % kUnits;
+      a.cT[at] = a.c0[at];
+      a.hT[at] = a.h0[at];
+    }
+  }
+}
+
 // The forward's grid (the backward loop's slices and tiles), rows per
 // thread and shared memory. Rows per thread: 4 for float weights where a
 // tile has more than 16 rows (four warp tasks still keep every SM
@@ -1921,36 +2455,88 @@ bool fwd_grid(int B, int H, int D, int sms, int smem_max, FwdGrid& g) {
   return true;
 }
 
-template <typename W, typename R>
-cudaError_t launch_fwd_loop(const Fwd<W, R>& a, W* hx, cudaStream_t stream) {
+// The LayerNorm-LSTM forward's grid (fwd_grid's slices and tiles) and
+// shared memory: the resident columns, the slices' unit counts and the
+// carries, then a chunk buffer that holds a chunk's h rows in (a) and its
+// rows of an exchange in (b) and (c), as many rows as fit, a multiple of a
+// task's rows, at most the tile's rows rounded up and at most one task per
+// warp. False when not even one task's rows fit. Rows per thread: 2 at
+// either weight type (at B=100, H=512 float 4 rows left four warps to the
+// phases after the product and took 6.53 ms a call against 5.95, the
+// outputs bitwise equal; measured on an H100).
+template <typename W>
+bool ln_fwd_grid(int B, int H, int D, int sms, int smem_max, FwdGrid& g) {
+  const LoopGrid lg = loop_grid<float>(B, H, sms);
+  g.slices = lg.slices;
+  g.tiles = lg.tiles;
+  const int nb_max = (B + g.tiles - 1) / g.tiles;
+  g.rows = kLnFwdRows;
+  const int task_rows = kLnRowLanes * g.rows;
+  const size_t fixed =
+      ((size_t)(H + D) * kUnits * 4 + 32 + (size_t)nb_max * kUnits) *
+      sizeof(float);
+  size_t row = (size_t)fwd_row_stride<W>(H) * sizeof(W);
+  const size_t ex = (size_t)g.slices * kLnGateEx * sizeof(float);
+  if (ex > row) row = ex;
+  if (fixed + task_rows * row > (size_t)smem_max) return false;
+  int chunk = (int)(((size_t)smem_max - fixed) / row) / task_rows * task_rows;
+  const int need = (nb_max + task_rows - 1) / task_rows * task_rows;
+  const int most = kFwdWarps * task_rows;
+  if (chunk > need) chunk = need;
+  if (chunk > most) chunk = most;
+  g.chunk = chunk;
+  g.smem = fixed + (size_t)chunk * row;
+  return true;
+}
+
+// The LSTM forward's cooperative loop (LN false) or the LayerNorm-LSTM
+// forward's (LN true, work its LnFwdWork scratch), over windows of rows.
+template <bool LN, typename W, typename R>
+cudaError_t launch_fwd_loop(const Fwd<W, R>& a, W* hx, float* work,
+                            cudaStream_t stream) {
   if (a.B < 1 || a.p.H < 1 || a.p.H > kMaxThreads)
     return cudaErrorInvalidValue;
-  int dev = 0, sms = 0, smem_max = 0, occ = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(
-        &smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  int sms = 0, smem_max = 0;
+  cudaError_t err = device_limits(sms, smem_max);
   if (err != cudaSuccess) return err;
+  const int H = a.p.H, D = a.p.D;
+  auto grid_for = [&](int rows, FwdGrid& g) {
+    return LN ? ln_fwd_grid<W>(rows, H, D, sms, smem_max, g)
+              : fwd_grid<W>(rows, H, D, sms, smem_max, g);
+  };
+  const Windows win = plan_windows(a.B, (size_t)smem_max, [&](int rows) {
+    FwdGrid g;
+    return grid_for(rows, g) ? g.smem : SIZE_MAX;
+  });
+  // the kernel of a window's rows per thread; both windows' sizes made
+  // ready before the first launch
+  auto kernel = [](const FwdGrid& g) {
+    if constexpr (LN)
+      return (const void*)ln_lstm_fwd_loop_kernel<W, R>;
+    else
+      return g.rows == 4 ? (const void*)lstm_fwd_loop_kernel<W, R, 4>
+                         : (const void*)lstm_fwd_loop_kernel<W, R, 2>;
+  };
   FwdGrid g;
-  if (!fwd_grid<W>(a.B, a.p.H, a.p.D, sms, smem_max, g))
-    return cudaErrorLaunchOutOfResources;
-  const void* fn = g.rows == 4 ? (const void*)lstm_fwd_loop_kernel<W, R, 4>
-                               : (const void*)lstm_fwd_loop_kernel<W, R, 2>;
-  err = set_smem(fn, g.smem);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fn, kFwdThreads,
-                                                        g.smem);
-  if (err != cudaSuccess) return err;
-  if ((long)occ * sms < (long)g.slices * g.tiles)
-    return cudaErrorCooperativeLaunchTooLarge;
-  Fwd<W, R> args = a;
-  W* hxp = hx;
-  void* params[] = {&args, &hxp, &g.slices, &g.tiles, &g.chunk};
-  return cudaLaunchCooperativeKernel(fn, dim3(g.slices * g.tiles),
-                                     dim3(kFwdThreads), params, g.smem,
-                                     stream);
+  const int sizes[2] = {win.most(a.B), win.n > 0 ? a.B / win.n : 1};
+  for (int rows : sizes) {
+    if (err != cudaSuccess || rows < 1) break;
+    grid_for(rows, g);
+    err = ready_loop(kernel(g), kFwdThreads, win, g.slices * g.tiles, sms);
+  }
+  LnFwdWork wk = LN ? ln_fwd_work(work, a.B, H) : LnFwdWork{};
+  for (int w = 0; w < win.n && err == cudaSuccess; ++w) {
+    int r0 = win.first(w, a.B), nr = win.rows(w, a.B);
+    grid_for(nr, g);
+    Fwd<W, R> args = a;
+    W* hxp = hx;
+    void* lstm[] = {&args, &hxp, &g.slices, &g.tiles, &g.chunk, &r0, &nr};
+    void* ln[] = {&args, &hxp, &wk, &g.slices, &g.tiles, &g.chunk, &r0, &nr};
+    err = cudaLaunchCooperativeKernel(kernel(g), dim3(g.slices * g.tiles),
+                                      dim3(kFwdThreads), LN ? ln : lstm,
+                                      g.smem, stream);
+  }
+  return err;
 }
 
 // srt_lstm_fwd's arguments as a Fwd, launched by the cooperative loop or,
@@ -1981,7 +2567,7 @@ cudaError_t lstm_fwd_any(bool rowblock, const float* xs, const float* xb,
     a.B = B;
     const cudaStream_t st = (cudaStream_t)stream;
     if (rowblock) return launch_fwd<false>(a, st);
-    return launch_fwd_loop(a, static_cast<W*>(hx), st);
+    return launch_fwd_loop<false>(a, static_cast<W*>(hx), nullptr, st);
   });
 }
 
@@ -2021,6 +2607,41 @@ cudaError_t lstm_bwd_any(int stage, const float* xs, const float* xb,
     const cudaStream_t st = (cudaStream_t)stream;
     if (stage < 0) return launch_bwd<false>(a, 1, dwx, dwh, db, st);
     return launch_lstm_bwd(a, stage, dwx, dwh, db, st);
+  });
+}
+
+// srt_ln_lstm_fwd's arguments as a Fwd, launched by the cooperative loop
+// or, with rowblock, by the row-block design (which needs no hx and no
+// work).
+cudaError_t ln_lstm_fwd_any(bool rowblock, const float* xs, const float* xb,
+                            const void* wx, const void* wh,
+                            const float* ln_gamma, const float* ln_beta,
+                            const float* lnc_gamma, const float* lnc_beta,
+                            const float* c0, const float* h0,
+                            const float* masks, const int* seed, int T, int B,
+                            int D, int H, int w_bf16, int r_bf16, float keep,
+                            float inv_keep, float forget_bias, void* hs,
+                            void* cs, float* cT, float* hT, void* hx,
+                            float* work, void* stream) {
+  return with_types(w_bf16, r_bf16, [&](auto w, auto r) {
+    using W = decltype(w);
+    using R = decltype(r);
+    Fwd<W, R> a;
+    a.p = make_cell<W>(wx, wh, nullptr, xb, ln_gamma, ln_beta, lnc_gamma,
+                       lnc_beta, D, H, forget_bias);
+    a.xs = xs;
+    a.c0 = c0;
+    a.h0 = h0;
+    a.drop = make_dropout(masks, seed, keep, inv_keep);
+    a.hs = static_cast<R*>(hs);
+    a.cs = static_cast<R*>(cs);
+    a.cT = cT;
+    a.hT = hT;
+    a.T = T;
+    a.B = B;
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (rowblock) return launch_fwd<true>(a, st);
+    return launch_fwd_loop<true>(a, static_cast<W*>(hx), work, st);
   });
 }
 
@@ -2087,9 +2708,10 @@ const char* srt_error_string(int err) {
 // launches (0 when all were accepted).
 
 // cT, hT: or null. hx: a [2, B, H] scratch of the weight type, the h
-// exchange between the blocks. The cooperative loop; a grid that cannot
-// co-reside is cudaErrorCooperativeLaunchTooLarge, a shape whose resident
-// state does not fit in shared memory cudaErrorLaunchOutOfResources.
+// exchange between the blocks. The cooperative loop, over windows of rows
+// where the batch's tiles do not fit at once; a grid that cannot co-reside
+// is cudaErrorCooperativeLaunchTooLarge, a shape whose rows do not fit even
+// one at a time cudaErrorLaunchOutOfResources, both before any launch.
 int srt_lstm_fwd(const float* xs, const float* xb, const void* wx,
                  const float* b, const void* wh, const float* c0,
                  const float* h0, const float* masks, const int* seed, int T,
@@ -2115,8 +2737,9 @@ int srt_lstm_fwd_rowblock(const float* xs, const float* xb, const void* wx,
 }
 
 // dcT, dhT, dxs, dxb, dc0, dh0: or null. The hoisted recompute, the
-// cooperative loop and the weight pass; a grid that cannot co-reside is
-// cudaErrorCooperativeLaunchTooLarge.
+// cooperative loop (over windows of rows where the batch's tiles do not
+// fit at once) and the weight pass; a grid that cannot co-reside is
+// cudaErrorCooperativeLaunchTooLarge, before any launch.
 int srt_lstm_bwd(const float* xs, const float* xb, const void* wx,
                  const float* b, const void* wh, const float* h0,
                  const void* hs, const void* cs, const void* dhs,
@@ -2164,6 +2787,11 @@ int srt_lstm_bwd_rowblock(const float* xs, const float* xb, const void* wx,
                            dwh, dc0, dh0, stream);
 }
 
+// hx: a [2, B, H] scratch of the weight type, the h exchange between the
+// blocks; work: a float scratch of (ceil(H / 16) * 10 + 4 * H) * B floats
+// (LnFwdWork). The cooperative loop; a grid that cannot co-reside is
+// cudaErrorCooperativeLaunchTooLarge, a shape whose rows do not fit even
+// one at a time cudaErrorLaunchOutOfResources, both before any launch.
 int srt_ln_lstm_fwd(const float* xs, const float* xb, const void* wx,
                     const void* wh, const float* ln_gamma,
                     const float* ln_beta, const float* lnc_gamma,
@@ -2171,34 +2799,37 @@ int srt_ln_lstm_fwd(const float* xs, const float* xb, const void* wx,
                     const float* masks, const int* seed, int T, int B, int D,
                     int H, int w_bf16, int r_bf16, float keep,
                     float inv_keep, float forget_bias, void* hs, void* cs,
-                    float* cT, float* hT, void* stream) {
-  return (int)with_types(w_bf16, r_bf16, [&](auto w, auto r) {
-    using W = decltype(w);
-    using R = decltype(r);
-    Fwd<W, R> a;
-    a.p = make_cell<W>(wx, wh, nullptr, xb, ln_gamma, ln_beta, lnc_gamma,
-                       lnc_beta, D, H, forget_bias);
-    a.xs = xs;
-    a.c0 = c0;
-    a.h0 = h0;
-    a.drop = make_dropout(masks, seed, keep, inv_keep);
-    a.hs = static_cast<R*>(hs);
-    a.cs = static_cast<R*>(cs);
-    a.cT = cT;
-    a.hT = hT;
-    a.T = T;
-    a.B = B;
-    return launch_fwd<true>(a, (cudaStream_t)stream);
-  });
+                    float* cT, float* hT, void* hx, float* work,
+                    void* stream) {
+  return (int)ln_lstm_fwd_any(false, xs, xb, wx, wh, ln_gamma, ln_beta,
+                              lnc_gamma, lnc_beta, c0, h0, masks, seed, T, B,
+                              D, H, w_bf16, r_bf16, keep, inv_keep,
+                              forget_bias, hs, cs, cT, hT, hx, work, stream);
+}
+
+// The row-block design srt_ln_lstm_fwd replaced (rnn_fwd_kernel<true>),
+// kept to be held and timed beside it; hx and work are not used.
+int srt_ln_lstm_fwd_rowblock(
+    const float* xs, const float* xb, const void* wx, const void* wh,
+    const float* ln_gamma, const float* ln_beta, const float* lnc_gamma,
+    const float* lnc_beta, const float* c0, const float* h0,
+    const float* masks, const int* seed, int T, int B, int D, int H,
+    int w_bf16, int r_bf16, float keep, float inv_keep, float forget_bias,
+    void* hs, void* cs, float* cT, float* hT, void* hx, float* work,
+    void* stream) {
+  return (int)ln_lstm_fwd_any(true, xs, xb, wx, wh, ln_gamma, ln_beta,
+                              lnc_gamma, lnc_beta, c0, h0, masks, seed, T, B,
+                              D, H, w_bf16, r_bf16, keep, inv_keep,
+                              forget_bias, hs, cs, cT, hT, hx, work, stream);
 }
 
 // work: a float scratch of (ceil(H / 16) * 10 + T * 10 + 4 * H) * B
 // floats (LnWork).
 // dcT, dhT, dxb: or null. The hoisted recompute, the statistics, the
-// cooperative loop with the LN parameters' row sum, the weight pass; a
-// grid that cannot co-reside is cudaErrorCooperativeLaunchTooLarge, a
-// tile whose dh parts do not fit in shared memory
-// cudaErrorLaunchOutOfResources, both before any launch.
+// cooperative loop (over windows of rows where the batch's tiles do not
+// fit at once) with the LN parameters' row sum, the weight pass; a grid
+// that cannot co-reside is cudaErrorCooperativeLaunchTooLarge, before any
+// launch.
 int srt_ln_lstm_bwd(const float* xs, const float* xb, const void* wx,
                     const void* wh, const float* ln_gamma,
                     const float* ln_beta, const float* lnc_gamma,

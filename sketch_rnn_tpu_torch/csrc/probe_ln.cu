@@ -1,7 +1,8 @@
 // The LayerNorm-LSTM decomposition ladder of the PyTorch port, hand-written
-// CUDA C++ for Hopper (sm_90a): the training kernels' LayerNorm-LSTM
-// forward and backward (fused_rnn.cu rnn_fwd_kernel<true, W, R>,
-// rnn_bwd_kernel<true, W, R>) with one term of work taken out per arm, so
+// CUDA C++ for Hopper (sm_90a): the row-block LayerNorm-LSTM forward and
+// backward (fused_rnn.cu rnn_fwd_kernel<true, W, R>, rnn_bwd_kernel<true,
+// W, R>, the entries srt_ln_lstm_fwd_rowblock and
+// srt_ln_lstm_bwd_rowblock) with one term of work taken out per arm, so
 // that the difference of two arms' times prices that term. Built by
 // ops/_build.py with nvcc into a shared library with a plain C interface and
 // bound with ctypes by sketch_rnn_tpu_torch/scripts/probe_dec_bwd_split.py
@@ -21,8 +22,9 @@
 // they are op-count probes, not models.
 //
 // Forward (outputs hs, cs [T, B, H] in R, cT, hT float):
-//   prod      the production forward, operation for operation: bit for bit
-//             srt_ln_lstm_fwd.
+//   prod      the row-block forward, operation for operation: bit for bit
+//             srt_ln_lstm_fwd_rowblock (not the production srt_ln_lstm_fwd,
+//             a persistent kernel since).
 //   no_ln     the ten layer-norm statistics replaced by stand-ins read from
 //             the row's pre-step cell state: mean = c[0] * 1e-3, r = 1 +
 //             c[1] * 1e-3 for the four gates and for the cell norm (which
@@ -51,7 +53,7 @@
 //                 floor (no products: d_pre = dh + 0.1 dc [+ x_bias],
 //                 dh_{t-1} = 0.5 dh + 1e-3 h_prev, dx = 0.5 x).
 //
-// The arms on Hopper. The production LayerNorm backward per step recomputes
+// The arms on Hopper. The row-block LayerNorm backward per step recomputes
 // pre with the two products of gate_pre, runs the gate block, writes d_pre
 // to the [T, B, 4H] float scratch, and computes the transposed product
 // d_pre @ [wx; wh]^T (the wx rows only because dxs is wanted); a second
@@ -75,12 +77,18 @@
 // feeds a store behind a null pointer test the compiler cannot resolve, so
 // the product is not dead code.
 //
-// Every arm keeps the production design (fused_rnn.cu's header): one block
+// Every arm keeps the row-block design (fused_rnn.cu's header): one block
 // per batch row, T inside the block, one thread per hidden unit, weights
 // read from L2 every step, weight gradients by the fixed-order second pass.
-// The prod arms repeat the production kernels' operations in their order
+// The prod arms repeat the row-block kernels' operations in their order
 // (gate_pre is copied here; fused_rnn.cu stays as it is), so they are the
-// production kernels, bit for bit, measured from this library.
+// row-block entries srt_ln_lstm_fwd_rowblock and srt_ln_lstm_bwd_rowblock,
+// bit for bit, measured from this library. They are not the production
+// kernels: fused_ln_lstm's forward and backward (srt_ln_lstm_fwd,
+// srt_ln_lstm_bwd) are persistent cooperative kernels that sum the layer
+// norms' rows in another order, so the ladder prices the terms of the
+// row-block design; its records carry the production entries' times
+// beside prod.
 //
 // Bound on the H100 at the probe's shape (B=4096, T=250, H=512, D=5, bf16
 // weights and residuals): the products of bf16 operands could run on the
@@ -89,7 +97,7 @@
 // that (6.58 ms), no_gradmm the recompute and the dh product (4.3 TFLOP,
 // 4.36 ms); floor moves ~1.1 (fwd) / ~1.6 (bwd) GB at 3.35 TB/s (~0.34 /
 // ~0.48 ms). These kernels run the products as SIMT float multiply-adds, as
-// the production kernels do: the ladder measures differences, not the bound.
+// the row-block kernels do: the ladder measures differences, not the bound.
 
 #include <type_traits>
 

@@ -54,7 +54,9 @@ SIGNATURES = {
         "srt_lstm_bwd_stage": [_I] + [_P] * 13 + [_I] * 6 + [_F] * 3
         + [_P] * 9,
         "srt_lstm_bwd_rowblock": [_P] * 13 + [_I] * 6 + [_F] * 3 + [_P] * 9,
-        "srt_ln_lstm_fwd": [_P] * 12 + [_I] * 6 + [_F] * 3 + [_P] * 5,
+        "srt_ln_lstm_fwd": [_P] * 12 + [_I] * 6 + [_F] * 3 + [_P] * 7,
+        "srt_ln_lstm_fwd_rowblock": [_P] * 12 + [_I] * 6 + [_F] * 3
+        + [_P] * 7,
         "srt_ln_lstm_bwd": [_P] * 16 + [_I] * 6 + [_F] * 3 + [_P] * 11,
         "srt_ln_lstm_bwd_stage": [_I] + [_P] * 16 + [_I] * 6 + [_F] * 3
         + [_P] * 11,

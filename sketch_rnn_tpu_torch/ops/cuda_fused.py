@@ -33,8 +33,10 @@ the pre-step cell states ``cs``, and the backward recomputes the gates
 from ``(x, h_prev, c_prev)`` walking time backwards (the LSTM and
 LayerNorm-LSTM backwards hoist that recompute out of their loops, into
 the ``d_pre`` scratch they then overwrite, the latter its layer-norm
-statistics too; the LSTM forward's blocks exchange ``h`` through a
-``[2, B, H]`` scratch: ``csrc/fused_rnn.cu``'s header). Recurrent dropout on
+statistics too; the forwards' blocks exchange ``h`` through a ``[2, B,
+H]`` scratch, the LayerNorm-LSTM's also its layer norms' row moments;
+a batch whose tiles do not fit in shared memory runs as several launches
+over windows of rows: ``csrc/fused_rnn.cu``'s header). Recurrent dropout on
 the candidate ``g`` is either streamed ``masks [T, B, H]`` or drawn in
 the kernel from ``dropout_seed`` by :func:`prng_mask`, whose counter does
 not depend on any tiling, so the CUDA kernels reproduce the JAX package's
@@ -833,8 +835,9 @@ def lstm_fwd_entries(xs, wx, b, wh, c0, h0, forget_bias=1.0, masks=None,
     forward's two designs; no wrapper calls it, and it counts no launch.
     Returns ``(run, outs)``: ``run(entry)`` launches ``"srt_lstm_fwd"``
     (the cooperative loop) or ``"srt_lstm_fwd_rowblock"`` (the row-block
-    design it replaced) on one set of buffers; ``outs`` are ``(hs, cs,
-    cT, hT)`` as the last launch left them."""
+    design it replaced) on one set of buffers, and keeps the inputs alive
+    (the entries take raw addresses); ``outs`` are ``(hs, cs, cT, hT)`` as
+    the last launch left them."""
     from sketch_rnn_tpu_torch.ops import _build
 
     _entries_on_cuda("lstm_fwd_entries", xs)
@@ -842,8 +845,9 @@ def lstm_fwd_entries(xs, wx, b, wh, c0, h0, forget_bias=1.0, masks=None,
                                     masks, dropout_seed, keep_prob, x_bias,
                                     residual_dtype, full)
     lib = _build.load("fused_rnn")
+    held = (hx, xs, wx, b, wh, c0, h0, masks, dropout_seed, x_bias)
 
-    def run(entry, _scratch=hx):     # holds the scratch
+    def run(entry, _held=held):     # holds the scratch and the inputs
         _build.check(lib, getattr(lib, entry)(*args), entry)
 
     return run, outs
@@ -903,8 +907,9 @@ def lstm_bwd_entries(xs, wx, b, wh, h0, hs, cs, dhs, dcT=None, dhT=None,
     (the three launches), ``"srt_lstm_bwd_rowblock"`` (the row-block
     design it replaced) or, with ``stage`` 1-3, ``"srt_lstm_bwd_stage"``
     (the recompute, the loop or the weight pass alone), all on one set of
-    buffers; ``outs`` are ``(dxs, dxb, dwx, db, dwh, dc0, dh0)`` as the
-    last launches left them (the weight gradients float32)."""
+    buffers, and keeps the inputs alive (the entries take raw addresses);
+    ``outs`` are ``(dxs, dxb, dwx, db, dwh, dc0, dh0)`` as the last
+    launches left them (the weight gradients float32)."""
     from sketch_rnn_tpu_torch.ops import _build
 
     _entries_on_cuda("lstm_bwd_entries", xs)
@@ -912,8 +917,10 @@ def lstm_bwd_entries(xs, wx, b, wh, h0, hs, cs, dhs, dcT=None, dhT=None,
                                       dhT, forget_bias, masks, dropout_seed,
                                       keep_prob, x_bias, full)
     lib = _build.load("fused_rnn")
+    held = (dpre, xs, wx, b, wh, h0, hs, cs, dhs, dcT, dhT, masks,
+            dropout_seed, x_bias)
 
-    def run(entry, stage=0, _scratch=dpre):     # holds the scratch
+    def run(entry, stage=0, _held=held):   # holds the scratch and inputs
         pre = (stage,) if entry == "srt_lstm_bwd_stage" else ()
         _build.check(lib, getattr(lib, entry)(*pre, *args), entry)
 
@@ -978,18 +985,30 @@ def lstm_bwd(xs, wx, b, wh, h0, hs, cs, dhs, dcT, dhT, forget_bias=1.0,
                             keep_prob, x_bias, True)
 
 
-def ln_lstm_fwd(xs, wx, wh, ln_gamma, ln_beta, lnc_gamma, lnc_beta, c0,
-                h0, forget_bias=1.0, masks=None, dropout_seed=None,
-                keep_prob=1.0, x_bias=None, residual_dtype=None):
-    """Forward of :func:`fused_ln_lstm`: ``(hs, cs, cT, hT)`` (kernel
-    ``srt_ln_lstm_fwd``)."""
-    if xs.device.type == "cpu":
-        return ln_lstm_fwd_reference(xs, wx, wh, ln_gamma, ln_beta,
-                                     lnc_gamma, lnc_beta, c0, h0,
-                                     forget_bias, masks, dropout_seed,
-                                     keep_prob, x_bias, residual_dtype)
+LN_UNITS = 16   # hidden units per slice of the LN kernels' loops
+
+
+def ln_fwd_work_floats(b, h) -> int:
+    """Floats of the LN forward's work scratch (``csrc/fused_rnn.cu``,
+    ``LnFwdWork``): the slices' partials of the layer norms' row moments
+    (10 per row and slice) and each (row, unit) pair's four gates, kept
+    from one phase of a step to the next where a tile's rows pass in
+    several chunks."""
+    slices = -(-h // LN_UNITS)
+    return (slices * 10 + 4 * h) * b
+
+
+def _ln_lstm_fwd_args(xs, wx, wh, ln_gamma, ln_beta, lnc_gamma, lnc_beta, c0,
+                      h0, forget_bias, masks, seed, keep_prob, x_bias,
+                      residual_dtype):
+    """Check the LN-LSTM forward's inputs and allocate its outputs and
+    scratch: ``(args, outs, scratch)``, the arguments of the
+    ``srt_ln_lstm_fwd*`` entries, ``(hs, cs, cT, hT)`` and the scratch
+    tensors (the ``[2, B, H]`` weight-dtype ``h`` exchange and the float32
+    work), which the caller keeps alive while the launches use them
+    (``args`` holds only their addresses)."""
     dev, t, bsz, d, h, mp, sp, wb = _kernel_common(xs, wx, wh, c0, h0, masks,
-                                                   dropout_seed)
+                                                   seed)
     rd = _residual(residual_dtype)
     _ln_params_check(dev, h, ln_gamma, ln_beta, lnc_gamma, lnc_beta, x_bias,
                      bsz)
@@ -997,17 +1016,63 @@ def ln_lstm_fwd(xs, wx, wh, ln_gamma, ln_beta, lnc_gamma, lnc_beta, c0,
     cs = torch.empty_like(hs)
     cT = torch.empty((bsz, h), dtype=torch.float32, device=dev)
     hT = torch.empty_like(cT)
-    _launch("srt_ln_lstm_fwd", "fused_ln_lstm forward", "fused_ln_lstm_fwd",
-            xs.data_ptr(), _ptr(x_bias), wx.data_ptr(), wh.data_ptr(),
+    hx = torch.empty((2, bsz, h), dtype=wx.dtype, device=dev)
+    work = torch.empty((ln_fwd_work_floats(bsz, h),), dtype=torch.float32,
+                       device=dev)
+    args = (xs.data_ptr(), _ptr(x_bias), wx.data_ptr(), wh.data_ptr(),
             ln_gamma.data_ptr(), ln_beta.data_ptr(), lnc_gamma.data_ptr(),
             lnc_beta.data_ptr(), c0.data_ptr(), h0.data_ptr(), mp, sp, t,
             bsz, d, h, wb, int(rd == torch.bfloat16), *_keep_args(keep_prob),
             float(forget_bias), hs.data_ptr(), cs.data_ptr(), cT.data_ptr(),
-            hT.data_ptr(), _stream(dev))
-    return hs, cs, cT, hT
+            hT.data_ptr(), hx.data_ptr(), work.data_ptr(), _stream(dev))
+    return args, (hs, cs, cT, hT), (hx, work)
 
 
-LN_UNITS = 16   # hidden units per slice of the LN backward's loop
+def ln_lstm_fwd_entries(xs, wx, wh, ln_gamma, ln_beta, lnc_gamma, lnc_beta,
+                        c0, h0, forget_bias=1.0, masks=None,
+                        dropout_seed=None, keep_prob=1.0, x_bias=None,
+                        residual_dtype=None):
+    """The C entries behind :func:`ln_lstm_fwd` on CUDA tensors, for the
+    A/B of the forward's two designs; no wrapper calls it, and it counts
+    no launch. Returns ``(run, outs)``: ``run(entry)`` launches
+    ``"srt_ln_lstm_fwd"`` (the cooperative loop) or
+    ``"srt_ln_lstm_fwd_rowblock"`` (the row-block design it replaced) on
+    one set of buffers, and keeps the inputs alive (the entries take raw
+    addresses); ``outs`` are ``(hs, cs, cT, hT)`` as the last launch left
+    them."""
+    from sketch_rnn_tpu_torch.ops import _build
+
+    _entries_on_cuda("ln_lstm_fwd_entries", xs)
+    args, outs, scratch = _ln_lstm_fwd_args(
+        xs, wx, wh, ln_gamma, ln_beta, lnc_gamma, lnc_beta, c0, h0,
+        forget_bias, masks, dropout_seed, keep_prob, x_bias, residual_dtype)
+    lib = _build.load("fused_rnn")
+    held = (scratch, xs, wx, wh, ln_gamma, ln_beta, lnc_gamma, lnc_beta,
+            c0, h0, masks, dropout_seed, x_bias)
+
+    def run(entry, _held=held):     # holds the scratch and the inputs
+        _build.check(lib, getattr(lib, entry)(*args), entry)
+
+    return run, outs
+
+
+def ln_lstm_fwd(xs, wx, wh, ln_gamma, ln_beta, lnc_gamma, lnc_beta, c0,
+                h0, forget_bias=1.0, masks=None, dropout_seed=None,
+                keep_prob=1.0, x_bias=None, residual_dtype=None):
+    """Forward of :func:`fused_ln_lstm`: ``(hs, cs, cT, hT)`` (kernel
+    ``srt_ln_lstm_fwd``, the cooperative loop with the layer norms' row
+    moments exchanged between its blocks)."""
+    if xs.device.type == "cpu":
+        return ln_lstm_fwd_reference(xs, wx, wh, ln_gamma, ln_beta,
+                                     lnc_gamma, lnc_beta, c0, h0,
+                                     forget_bias, masks, dropout_seed,
+                                     keep_prob, x_bias, residual_dtype)
+    args, outs, _scratch = _ln_lstm_fwd_args(
+        xs, wx, wh, ln_gamma, ln_beta, lnc_gamma, lnc_beta, c0, h0,
+        forget_bias, masks, dropout_seed, keep_prob, x_bias, residual_dtype)
+    _launch("srt_ln_lstm_fwd", "fused_ln_lstm forward", "fused_ln_lstm_fwd",
+            *args)
+    return outs
 
 
 def ln_bwd_work_floats(t, b, h) -> int:
@@ -1072,8 +1137,9 @@ def ln_lstm_bwd_entries(xs, wx, wh, ln_gamma, ln_beta, lnc_gamma, lnc_beta,
     (the row-block design it replaced) or, with ``stage`` 1-4,
     ``"srt_ln_lstm_bwd_stage"`` (the recompute, the statistics, the loop
     with the LN parameters' row sum, or the weight pass alone), all on one
-    set of buffers; ``outs`` are :func:`ln_lstm_bwd`'s outputs as the
-    last launches left them (the weight gradients float32)."""
+    set of buffers, and keeps the inputs alive (the entries take raw
+    addresses); ``outs`` are :func:`ln_lstm_bwd`'s outputs as the last
+    launches left them (the weight gradients float32)."""
     from sketch_rnn_tpu_torch.ops import _build
 
     _entries_on_cuda("ln_lstm_bwd_entries", xs)
@@ -1081,8 +1147,10 @@ def ln_lstm_bwd_entries(xs, wx, wh, ln_gamma, ln_beta, lnc_gamma, lnc_beta,
         xs, wx, wh, ln_gamma, ln_beta, lnc_gamma, lnc_beta, h0, hs, cs, dhs,
         dcT, dhT, forget_bias, masks, dropout_seed, keep_prob, x_bias)
     lib = _build.load("fused_rnn")
+    held = (scratch, xs, wx, wh, ln_gamma, ln_beta, lnc_gamma, lnc_beta, h0,
+            hs, cs, dhs, dcT, dhT, masks, dropout_seed, x_bias)
 
-    def run(entry, stage=0, _scratch=scratch):     # holds the scratch
+    def run(entry, stage=0, _held=held):   # holds the scratch and inputs
         pre = (stage,) if entry == "srt_ln_lstm_bwd_stage" else ()
         _build.check(lib, getattr(lib, entry)(*pre, *args), entry)
 

@@ -6,7 +6,9 @@ of the one before, so that the difference of two arms' times prices that
 term. :func:`bwd_arm` (kernel ``srt_ln_probe_bwd`` of ``csrc/probe_ln.cu``)
 runs the backward arms:
 
-- ``prod``: the production backward (``fused_ln_lstm``'s), bit for bit;
+- ``prod``: the row-block backward, bit for bit the entry
+  ``srt_ln_lstm_bwd_rowblock`` (the design ``fused_ln_lstm``'s backward,
+  ``srt_ln_lstm_bwd``, replaced: not the production kernel);
 - ``no_lnbwd``: the layer-norm backward's row-mean corrections elided
   (``d_pre = dy * gamma``); the LN-parameter sums kept;
 - ``no_ln``: also the layer-norm statistics of the recomputed forward
@@ -22,14 +24,15 @@ runs the backward arms:
 - ``floor``: no products: ``d_pre = dh + 0.1 dc [+ x_bias]``,
   ``dh_{t-1} = 0.5 dh + 1e-3 h_prev``, ``dx = 0.5 x``.
 
-:func:`fwd_arm` (``srt_ln_probe_fwd``) runs the forward arms ``prod``,
-``no_ln`` (the stand-in statistics), ``no_gates`` (``c' = 0.9 c + 0.1
-pre[:, :H]``, ``h' = 0.5 h + 0.1 pre[:, H:2H]``) and ``floor`` (``c' =
-0.9 c + x[:, :1] * 1e-3``, the product in the weight dtype, ``h' = 0.5 h
-+ 1e-3 x_bias[:, :H]``). The arms are op-count probes: their numbers are
-wrong by design, and the plain versions beside the wrappers compute the
-same wrong numbers. ``csrc/probe_ln.cu``'s header says what each arm
-drops on Hopper.
+:func:`fwd_arm` (``srt_ln_probe_fwd``) runs the forward arms ``prod``
+(bit for bit the row-block entry ``srt_ln_lstm_fwd_rowblock``, not the
+production ``srt_ln_lstm_fwd``), ``no_ln`` (the stand-in statistics),
+``no_gates`` (``c' = 0.9 c + 0.1 pre[:, :H]``, ``h' = 0.5 h + 0.1
+pre[:, H:2H]``) and ``floor`` (``c' = 0.9 c + x[:, :1] * 1e-3``, the
+product in the weight dtype, ``h' = 0.5 h + 1e-3 x_bias[:, :H]``). The
+arms are op-count probes: their numbers are wrong by design, and the
+plain versions beside the wrappers compute the same wrong numbers.
+``csrc/probe_ln.cu``'s header says what each arm drops on Hopper.
 
 :func:`run_bwd_ladder` and :func:`run_fwd_ladder` time the arms on the
 card at the reference's shape (B=4096, T=250, H=512, D=5, bfloat16
@@ -41,6 +44,11 @@ reference took K-chained differences. The backward ladder also times the
 (``flip(cs)``, ``cat`` + ``flip`` of ``h_prev``, ``flip(dhs)``,
 ``flip(dxs)``) as plain PyTorch, each call taking the last one's outputs.
 The port's backward reads natural-order streams, so it never pays this.
+Each ladder's record names the entry its ``prod`` arm repeats
+(``prod_repeats``) and carries the production entry's time beside it
+(``production_entry``, ``production_ms``: ``srt_ln_lstm_fwd`` or
+``srt_ln_lstm_bwd`` through the uncounted ``cuda_fused.*_entries``
+helpers, timed in the same interleaving as the arms).
 The reference's grid-scaling arm (batch tiles 64/128/256) has no
 counterpart: the port's kernels have no batch tile (one block per row)
 and no grid step per time step, so ``grid_scaling_ms`` is null.
@@ -420,14 +428,21 @@ def run_fwd_ladder(b=4096, t=250, k=2, reps=3, device="cuda"):
     inp = probe_inputs(b, t, dev)
     z = torch.zeros((b, H), device=dev)
     calls = [lambda a=a: fwd_arm(a, c0=z, h0=z, **inp) for a in FWD_ARMS]
-    ms = dict(zip(FWD_ARMS, _probe.interleaved(calls, k, reps)))
+    production, _ = CF.ln_lstm_fwd_entries(
+        c0=z, h0=z, residual_dtype=torch.bfloat16, **inp)
+    times = _probe.interleaved(
+        [*calls, lambda: production("srt_ln_lstm_fwd")], k, reps)
+    ms = dict(zip(FWD_ARMS, times))
     recheck = _probe.interleaved(calls[:1], k, reps)[0]
     deltas = {"ln_stack": ms["prod"] - ms["no_ln"],
               "gate_transcendentals": ms["no_ln"] - ms["no_gates"],
               "matmuls_over_floor": ms["no_gates"] - ms["floor"],
               "dma_orchestration_floor_CAUTION": ms["floor"]}
-    return _record("probe_dec_fwd_split", b, t, k, reps, ms, recheck, deltas,
-                   dev)
+    rec = _record("probe_dec_fwd_split", b, t, k, reps, ms, recheck,
+                  deltas, dev)
+    rec.update(prod_repeats="srt_ln_lstm_fwd_rowblock",
+               production_entry="srt_ln_lstm_fwd", production_ms=times[-1])
+    return rec
 
 
 def run_bwd_ladder(b=4096, t=250, k=2, reps=3, device="cuda"):
@@ -442,7 +457,9 @@ def run_bwd_ladder(b=4096, t=250, k=2, reps=3, device="cuda"):
     def glue():
         state[0] = glue_step(state[0], inp["h0"])[0]
 
-    times = _probe.interleaved([*calls, glue], k, reps)
+    production, _ = CF.ln_lstm_bwd_entries(**inp)
+    times = _probe.interleaved(
+        [*calls, glue, lambda: production("srt_ln_lstm_bwd")], k, reps)
     ms = dict(zip((*ARMS, "glue"), times))
     recheck = _probe.interleaved(calls[:1], k, reps)[0]
     # as in the reference, no delta is taken from the zero-product floor
@@ -457,7 +474,8 @@ def run_bwd_ladder(b=4096, t=250, k=2, reps=3, device="cuda"):
                   dev)
     rec.update(glue_ms=ms["glue"],
                floor_arm_uninterpretable=ms["floor"] >= ms["no_gradmm"],
-               grid_scaling_ms=None)
+               grid_scaling_ms=None, prod_repeats="srt_ln_lstm_bwd_rowblock",
+               production_entry="srt_ln_lstm_bwd", production_ms=times[-1])
     return rec
 
 

@@ -403,18 +403,149 @@ def test_lstm_fwd_matches_row_block_design(dev, h, bsz, wdt, rdt, full,
 
 
 def test_lstm_fwd_refuses_a_shape_it_cannot_hold(dev):
-    """B=8192 at H=512: a tile's cell carries and the resident columns
-    alone exceed a block's shared memory. The wrapper raises, counts no
-    launch, and nothing falls back to the row-block design."""
+    """H=512 with D=400 inputs: the resident columns of wh and wx alone
+    exceed a block's shared memory, however few rows a window takes. Both
+    persistent forwards (the LSTM's and the LayerNorm-LSTM's) raise before
+    any launch, count none, and nothing falls back to the row-block design
+    (which holds the shape)."""
     from sketch_rnn_tpu_torch.ops import cuda_fused as cf
 
-    h, bsz = 512, 8192
+    h, bsz, dx = 512, 4, 400
     z = lambda *s: torch.zeros(s, device=dev)
     before = cf.launch_counts()
     with pytest.raises(RuntimeError, match="CUDA error"):
-        cf.lstm_seq_fwd(z(1, bsz, FD), z(FD, 4 * h), z(4 * h),
+        cf.lstm_seq_fwd(z(1, bsz, dx), z(dx, 4 * h), z(4 * h),
                         z(h, 4 * h), z(bsz, h), z(bsz, h))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cf.ln_lstm_fwd(z(1, bsz, dx), z(dx, 4 * h), z(h, 4 * h), z(4, h),
+                       z(4, h), z(h), z(h), z(bsz, h), z(bsz, h))
     assert cf.launch_counts() == before
+
+
+# the LN forward's loop: H=16 one slice, H=40 three uneven ones (13, 13,
+# 14 units), H=136 uneven slices of 15-16; B=1 and 3 fewer rows than tiles
+# could take; B=4096 passes a tile's rows in several chunks (the pairs kept
+# in the work scratch between a step's phases); D=11 passes the 8 inputs
+# the kernel holds in registers; H=512, B=100 is the decoder's shape
+@pytest.mark.parametrize("h,bsz,wdt,rdt,xb,mode,dx", [
+    (16, 1, F32, F32, True, "seed", FD),
+    (16, 100, F32, BF16, False, "masks", FD),
+    (40, 3, F32, F32, True, "masks", FD),
+    (40, 6, BF16, BF16, True, "none", 11),
+    (136, 3, BF16, F32, True, "seed", FD),
+    (136, 100, F32, F32, False, "seed", FD),
+    (512, 100, F32, F32, True, "seed", FD),
+    (512, 100, BF16, BF16, True, "masks", FD),
+    (512, 3, BF16, F32, False, "seed", FD),
+    (256, 4096, F32, BF16, False, "seed", FD),
+    (512, 4096, BF16, BF16, True, "seed", FD),
+    (512, 4096, F32, F32, True, "masks", FD)])
+def test_ln_lstm_fwd_matches_row_block_design(dev, h, bsz, wdt, rdt, xb,
+                                              mode, dx):
+    """srt_ln_lstm_fwd (the cooperative loop, the layer norms' row moments
+    exchanged between its blocks) against the row-block design it
+    replaced, srt_ln_lstm_fwd_rowblock, and against the plain version on
+    the same inputs, within TOL / BF_TOL (the row moments are summed in
+    another order); two runs of the new entry bitwise equal; no launch
+    counted."""
+    from sketch_rnn_tpu_torch.ops import cuda_fused as cf
+
+    d, masks, seed = _fused_inputs("layer_norm", h, dev, xb, mode, wdt,
+                                   bsz=bsz, dx=dx)
+    ln = (d["ln_gamma"], d["ln_beta"], d["lnc_gamma"], d["lnc_beta"])
+    args = (d["xs"], d["wx"], d["wh"], *ln, d["c0"], d["h0"], 1.0, masks,
+            seed, 0.9 if seed is not None else 1.0, d["x_bias"], rdt)
+    before = cf.launch_counts()
+    run, outs = cf.ln_lstm_fwd_entries(*args)
+    snap = lambda: [o.clone() for o in outs]
+    run("srt_ln_lstm_fwd")
+    first = snap()
+    run("srt_ln_lstm_fwd")
+    second = snap()
+    run("srt_ln_lstm_fwd_rowblock")
+    old = snap()
+    torch.cuda.synchronize()
+    assert cf.launch_counts() == before
+    want = cf.ln_lstm_fwd_reference(*args)
+    tol = TOL if wdt == F32 and rdt == F32 else BF_TOL
+    for a, b, c, w in zip(first, second, old, want):
+        assert a.dtype == c.dtype == w.dtype
+        assert torch.equal(a, b)
+        for ref in (c, w):
+            assert float((a.float() - ref.float()).abs().max()) <= tol * max(
+                1.0, float(ref.float().abs().max()))
+
+
+def _entries_of(entry, h, bsz, wdt, dev, t):
+    """The A/B helper's ``(run, outs)`` of one persistent entry on seeded
+    inputs (x_bias, dropout seeded, residuals in the weight dtype; the
+    backwards over the residuals of the matching forward wrapper and
+    nonzero carry cotangents)."""
+    from sketch_rnn_tpu_torch.ops import cuda_fused as cf
+
+    ln = entry.startswith("srt_ln_")
+    d, _, seed = _fused_inputs("layer_norm" if ln else "lstm_full", h, dev,
+                               True, "seed", wdt, t=t, bsz=bsz)
+    lnp = ((d["ln_gamma"], d["ln_beta"], d["lnc_gamma"], d["lnc_beta"])
+           if ln else ())
+    w = (d["xs"], d["wx"], d["wh"], *lnp) if ln else (d["xs"], d["wx"],
+                                                       d["b"], d["wh"])
+    fwd = (*w, d["c0"], d["h0"], 1.0, None, seed, 0.9, d["x_bias"], wdt)
+    if entry.endswith("_fwd"):
+        return (cf.ln_lstm_fwd_entries(*fwd) if ln
+                else cf.lstm_fwd_entries(*fwd, True))
+    hs, cs, _, _ = (cf.ln_lstm_fwd if ln else cf.lstm_fwd)(*fwd)
+    g = torch.Generator().manual_seed(5)
+    dhs = (0.1 * torch.randn(hs.shape, generator=g)).to(dev).to(hs.dtype)
+    cot = (0.1 * torch.randn((2, bsz, h), generator=g)).to(dev)
+    kw = dict(dcT=cot[0], dhT=cot[1], dropout_seed=seed, keep_prob=0.9,
+              x_bias=d["x_bias"])
+    if ln:
+        return cf.ln_lstm_bwd_entries(*w, d["h0"], hs, cs, dhs, **kw)
+    return cf.lstm_bwd_entries(*w, d["h0"], hs, cs, dhs, **kw)
+
+
+# at H=512, B=8192 a batch tile's state does not fit in one block's shared
+# memory (the float wh rows of the LSTM backward's loop leave room for
+# ~226 rows a tile, the forwards' resident columns for ~1,040), so each
+# persistent entry runs as several cooperative launches over windows of
+# rows; bench.py's encoder (H=256, B=4096, bf16) needs two for the LSTM
+# backward
+@pytest.mark.parametrize("entry,h,bsz,wdt", [
+    ("srt_lstm_fwd", 512, 8192, F32), ("srt_lstm_bwd", 512, 8192, F32),
+    ("srt_ln_lstm_fwd", 512, 8192, F32),
+    ("srt_ln_lstm_bwd", 512, 8192, F32), ("srt_lstm_bwd", 256, 4096, BF16)])
+def test_persistent_entries_run_in_row_windows(dev, entry, h, bsz, wdt):
+    """Each persistent entry at a batch its tiles cannot hold at once (T=4)
+    against its row-block entry on the same inputs: bitwise for
+    srt_lstm_fwd (its sums keep the row-block order, whatever the
+    windows), within TOL / BF_TOL for the others (the windows change the
+    backwards' parts, the LN kernels sum their row moments in another
+    order); two runs of the new entry bitwise equal; no launch counted."""
+    from sketch_rnn_tpu_torch.ops import cuda_fused as cf
+
+    run, outs = _entries_of(entry, h, bsz, wdt, dev, 4)
+    before = cf.launch_counts()
+    snap = lambda: [o.clone() if o is not None else None for o in outs]
+    run(entry)
+    first = snap()
+    run(entry)
+    second = snap()
+    run(entry + "_rowblock")
+    old = snap()
+    torch.cuda.synchronize()
+    assert cf.launch_counts() == before
+    tol = TOL if wdt == F32 else BF_TOL
+    for a, b, c in zip(first, second, old):
+        if a is None:
+            assert b is None and c is None
+            continue
+        assert torch.equal(a, b)
+        if entry == "srt_lstm_fwd":
+            assert torch.equal(a, c)
+        else:
+            assert float((a.float() - c.float()).abs().max()) <= tol * max(
+                1.0, float(c.float().abs().max()))
 
 
 # the LN backward's loop: H=16 is one slice, H=40 three uneven ones (13,
@@ -479,22 +610,6 @@ def test_ln_lstm_bwd_matches_row_block_design(dev, h, t, bsz, wdt, rdt, full,
         for ref in (c, w):
             assert float((a - ref).abs().max()) <= tol * max(
                 1.0, float(ref.abs().max()))
-
-
-def test_ln_lstm_bwd_refuses_a_shape_it_cannot_hold(dev):
-    """B=8192 at H=512: a tile's dh parts and the resident wh rows exceed a
-    block's shared memory. The wrapper raises before any launch, counts
-    none, and nothing falls back to the row-block design."""
-    from sketch_rnn_tpu_torch.ops import cuda_fused as cf
-
-    h, bsz = 512, 8192
-    z = lambda *s: torch.zeros(s, device=dev)
-    before = cf.launch_counts()
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        cf.ln_lstm_bwd(z(1, bsz, FD), z(FD, 4 * h), z(h, 4 * h), z(4, h),
-                       z(4, h), z(h), z(h), z(bsz, h), z(1, bsz, h),
-                       z(1, bsz, h), z(1, bsz, h), z(bsz, h), z(bsz, h))
-    assert cf.launch_counts() == before
 
 
 @pytest.mark.parametrize("cell", ["lstm", "layer_norm"])
@@ -943,10 +1058,10 @@ def _ladder_inputs(h, dev, wdt, rdt):
 def test_ln_ladder_kernels_match_plain_versions(dev, h, wdt, rdt):
     """Every forward and backward arm of csrc/probe_ln.cu against its plain
     version (one launch each, the backward the same bit for bit run to
-    run), the prod forward arm bit for bit fused_ln_lstm's forward kernel
-    and the prod backward arm bit for bit the row-block design that
-    fused_ln_lstm's backward replaced, srt_ln_lstm_bwd_rowblock (the
-    weight gradients of both rounded as fused_ln_lstm rounds them)."""
+    run), and the prod arms bit for bit the row-block designs that
+    fused_ln_lstm's kernels replaced, srt_ln_lstm_fwd_rowblock and
+    srt_ln_lstm_bwd_rowblock (the weight gradients of both rounded as
+    fused_ln_lstm rounds them)."""
     from sketch_rnn_tpu_torch.ops import cuda_fused as cf
     from sketch_rnn_tpu_torch.scripts import probe_dec_bwd_split as ps
     from sketch_rnn_tpu_torch.scripts import probe_ln_stats as pl
@@ -959,7 +1074,9 @@ def test_ln_ladder_kernels_match_plain_versions(dev, h, wdt, rdt):
         torch.cuda.synchronize()
         _close(got, ps.fwd_plain(arm, residual_dtype=rdt, **fkw), tol)
         if arm == "prod":
-            want = cf.ln_lstm_fwd(residual_dtype=rdt, **fkw)
+            rowblock, want = cf.ln_lstm_fwd_entries(residual_dtype=rdt,
+                                                    **fkw)
+            rowblock("srt_ln_lstm_fwd_rowblock")
             assert all(torch.equal(a, b) for a, b in zip(got, want))
     for arm in (*ps.ARMS, "fake"):
         run = pl.bwd_fake if arm == "fake" else (

@@ -292,6 +292,118 @@ def test_ln_bwd_partition_matches_pallas(mode):
         _close(r.numpy(), g, f"d{name} vs ln_lstm_bwd_reference")
 
 
+def _slice_moments(v, h):
+    """Each slice's mean and M2 over the last axis of ``v [..., H]`` as the
+    LN forward's loop takes them (slices as :func:`_slice_sums` cuts
+    them): the slice mean, then the sum of squared deviations from it.
+    Returns ``(means, m2s, counts)``, the first two ``[..., slices]``."""
+    slices = -(-h // CF.LN_UNITS)
+    means, m2s, counts = [], [], []
+    for sl in range(slices):
+        part = v[..., sl * h // slices:(sl + 1) * h // slices]
+        m = part.sum(-1) / part.shape[-1]
+        means.append(m)
+        m2s.append(((part - m[..., None]) ** 2).sum(-1))
+        counts.append(float(part.shape[-1]))
+    return torch.stack(means, -1), torch.stack(m2s, -1), counts
+
+
+def _chan(v, h):
+    """A row layer norm's mean and ``rsqrt(var + 1e-6)`` over the last axis
+    of ``v`` from its slices' moments, combined in slice order by Chan's
+    rule: ``mean = sum n_s m_s / H``, ``M2 = sum (M2_s + n_s (m_s -
+    mean)^2)``."""
+    means, m2s, counts = _slice_moments(v, h)
+    s = torch.zeros(v.shape[:-1])
+    for k, n in enumerate(counts):
+        s = s + n * means[..., k]
+    mean = s / h
+    q = torch.zeros(v.shape[:-1])
+    for k, n in enumerate(counts):
+        q = q + (m2s[..., k] + n * (means[..., k] - mean) ** 2)
+    return mean[..., None], torch.rsqrt(q / h + 1e-6)[..., None]
+
+
+def _ln_fwd_partition(xs, wx, wh, gam, bet, gc, bc, c0, h0, forget_bias,
+                      masks, seed, keep, x_bias):
+    """The LN forward's partition (``srt_ln_lstm_fwd``) in plain PyTorch:
+    per step the products, each gate's slice moments combined in slice
+    order (the loop's first exchange), the gate block, the new cell
+    state's slice moments combined the same way (the second exchange),
+    ``h``. Returns ``ln_lstm_fwd``'s ``(hs, cs, cT, hT)``."""
+    t, b, _ = xs.shape
+    h = wh.shape[0]
+    c, hh = c0, h0
+    hs, cs = [], []
+    for s in range(t):
+        pre = xs[s] @ wx + hh @ wh
+        if x_bias is not None:
+            pre = pre + x_bias
+        pg = pre.view(b, 4, h)
+        mean, rs = _chan(pg, h)
+        y = (pg - mean) * rs * gam + bet
+        i, gu = torch.sigmoid(y[:, 0]), torch.tanh(y[:, 1])
+        f, o = torch.sigmoid(y[:, 2] + forget_bias), torch.sigmoid(y[:, 3])
+        m = CF._step_mask(masks, seed, s, b, h, keep)
+        nc = c * f + i * (gu * m if m is not None else gu)
+        cmean, crs = _chan(nc, h)
+        cs.append(c)
+        c, hh = nc, torch.tanh((nc - cmean) * crs * gc + bc) * o
+        hs.append(hh)
+    return torch.stack(hs), torch.stack(cs), c, hh
+
+
+@pytest.mark.parametrize("case", ["masks", "seed", "far_from_zero"])
+def test_ln_fwd_partition_matches_pallas(case):
+    """The plain model of the LN forward's partition at H=40 (three slices
+    of 13, 13 and 14 units), B=3, float32, x_bias on, nonzero carries,
+    against the JAX package's fused_ln_lstm forward (its Pallas kernel in
+    interpret mode) and against ``ln_lstm_fwd_reference``; in
+    ``far_from_zero`` x_bias puts every gate's pre-activations near 12,
+    ten times their spread or more, where one-pass sums of x and x**2
+    would lose two digits to cancellation and the slices' two-pass
+    moments do not (further out the float32 rounding of the
+    pre-activations alone, in any order, outgrows the tolerance). The
+    partition only reorders float32 sums, so the module's tolerance (the
+    JAX kernels' own) holds."""
+    h, b = 40, 3
+    rng = np.random.default_rng(12)
+    f = lambda *s, sc=1.0: (rng.normal(size=s) * sc).astype(np.float32)
+    d = {"xs": f(T, b, D), "wx": f(D, 4 * h, sc=0.4),
+         "wh": f(h, 4 * h, sc=0.25), "ln_gamma": 1 + f(4, h, sc=0.1),
+         "ln_beta": f(4, h, sc=0.1), "lnc_gamma": 1 + f(h, sc=0.1),
+         "lnc_beta": f(h, sc=0.1), "c0": f(b, h, sc=0.3),
+         "h0": f(b, h, sc=0.3), "x_bias": f(b, 4 * h, sc=0.3)}
+    if case == "far_from_zero":
+        d["x_bias"] = d["x_bias"] + np.float32(12.0)
+    if case == "masks":
+        mk = ((rng.random((T, b, h)) < KEEP) / np.float32(KEEP)).astype(
+            np.float32)
+        (jm, js), (tm, ts) = (jnp.asarray(mk), None), (torch.from_numpy(mk),
+                                                       None)
+    else:
+        (jm, js), (tm, ts) = _dropout_args("seed", b)
+    keep = KEEP if ts is not None else 1.0
+    names = ["xs", "wx", "wh", "ln_gamma", "ln_beta", "lnc_gamma",
+             "lnc_beta", "c0", "h0"]
+    jhs, (jcT, jhT) = PF.fused_ln_lstm(
+        *(jnp.asarray(d[n]) for n in names), 1.0, jm, js, keep, jnp.float32,
+        jnp.asarray(d["x_bias"]))
+    t_ = {k: torch.from_numpy(v) for k, v in d.items()}
+    args = (*(t_[n] for n in names), 1.0, tm, ts, keep, t_["x_bias"])
+    got = _ln_fwd_partition(*args)
+    if case == "far_from_zero":      # the case is what it says
+        pre = (t_["xs"][0] @ t_["wx"] + t_["h0"] @ t_["wh"]
+               + t_["x_bias"]).view(b, 4, h)
+        assert float(pre.mean(-1).min()) > 8 * float(pre.std(-1).max())
+    for name, a, g in zip(("hs", "cT", "hT"), (jhs, jcT, jhT),
+                          (got[0], got[2], got[3])):
+        _close(a, g, f"{name} vs the JAX kernel")
+    for name, r, g in zip(("hs", "cs", "cT", "hT"),
+                          CF.ln_lstm_fwd_reference(*args), got):
+        _close(r.numpy(), g, f"{name} vs ln_lstm_fwd_reference")
+
+
 @pytest.mark.parametrize("cell", ["lstm", "layer_norm"])
 @pytest.mark.parametrize("mode", ["none", "seed"])
 def test_plain_backward_matches_autograd_of_plain_forward(cell, mode):
@@ -367,17 +479,21 @@ def test_wrappers_refuse_what_they_do_not_take():
 
 @pytest.mark.parametrize("entries", ["lstm_fwd_entries",
                                      "lstm_bwd_entries",
+                                     "ln_lstm_fwd_entries",
                                      "ln_lstm_bwd_entries"])
 def test_ab_entries_refuse_cpu_tensors(entries):
-    """The A/B helpers of the LSTM forward's and backward's and the
-    LayerNorm-LSTM backward's two C designs take CUDA tensors only: on
-    CPU tensors they raise, and no plain version stands in."""
+    """The A/B helpers of the LSTM's and the LayerNorm-LSTM's forward and
+    backward C designs take CUDA tensors only: on CPU tensors they raise,
+    and no plain version stands in."""
     cell = "layer_norm" if entries.startswith("ln_") else "lstm"
     d = {k: torch.from_numpy(v) for k, v in _inputs(cell).items()}
     res = torch.zeros((T, B, H))
+    ln = (d["ln_gamma"], d["ln_beta"], d["lnc_gamma"], d["lnc_beta"]) \
+        if cell == "layer_norm" else ()
     if entries == "ln_lstm_bwd_entries":
-        args = (d["xs"], d["wx"], d["wh"], d["ln_gamma"], d["ln_beta"],
-                d["lnc_gamma"], d["lnc_beta"], d["h0"], res, res, res)
+        args = (d["xs"], d["wx"], d["wh"], *ln, d["h0"], res, res, res)
+    elif entries == "ln_lstm_fwd_entries":
+        args = (d["xs"], d["wx"], d["wh"], *ln, d["c0"], d["h0"])
     elif entries == "lstm_fwd_entries":
         args = (d["xs"], d["wx"], d["b"], d["wh"], d["c0"], d["h0"])
     else:

@@ -119,6 +119,18 @@ without the final line. With no CUDA device it exits 2 at once.
    gradients through the public ``lstm_seq`` with its counters zeroed
    just before and read just after (one launch each way), against the
    same loss through the plain ``run_rnn(hoist=True)``.
+   Then weight_grad_ab: the weight pass every backward entry ends with
+   (``csrc/weight_grad.cuh``, split-K: the tensor cores at bfloat16, a
+   register-tiled SIMT product at float32) against the pass it replaced
+   (``srt_weight_grad`` variants 0 and 1) over one seeded ``d_pre``
+   scratch, at the decoder's shape (H=512, D=5, no row of ones: 5b;
+   with it: 3b) and the encoder's (H=256, D=5, ones: 4b) at B=100,
+   T=250 and both dtypes, ``lstm_seq``'s dwh (H=512, D=0) at float32,
+   and the decoder and the encoder at B=4096, bfloat16: both within
+   FUSED_TOL of the plain version (and of each other), the new pass
+   identical run to run, both timed in turns (new, old, old, new;
+   medians), beside ``torch.mm`` of the same rounded operands (TF32
+   off) and the bound.
 13. train_plain — the ``vae`` preset exactly as it says, ``fused_rnn=
    false`` (the plain cell loop under autograd, recurrent dropout from
    ``(key, t)``), float32, full width: 1 warm-up step, then 2 timed
@@ -859,8 +871,8 @@ def timed_calls(calls):
     return evs
 
 
-def ab_turns(entry, extra=None):
-    """AB_REPS turns of (new, old, old, new) over ``entry``'s two calls,
+def ab_turns(entry, extra=None, reps=AB_REPS):
+    """``reps`` turns of (new, old, old, new) over ``entry``'s two calls,
     each between its own CUDA events, after one warm-up call of each;
     ``extra`` calls, when given, run after each turn, timed the same way.
     Returns ``({"new": [ms], "old": [ms]}, [events of each extra run])``."""
@@ -869,7 +881,7 @@ def ab_turns(entry, extra=None):
     for fn in (*entry.values(), *(extra or ())):
         fn()
     turns, extras = [], []
-    for _ in range(AB_REPS):
+    for _ in range(reps):
         order = ("new", "old", "old", "new")
         turns.append((order, timed_calls([entry[w] for w in order])))
         if extra:
@@ -1329,6 +1341,116 @@ def check_batch_windows():
         del run, outs
         torch.cuda.empty_cache()
     log("batch_windows_done", seconds=time.perf_counter() - t_phase)
+
+
+# the weight pass's A/B: (label, the kernel row it serves, T, B, D, H,
+# ones, dtypes, turns). At B=4096 the old pass takes ~0.3 s a call: 2
+# turns there.
+WG_AB = (("decoder (5b)", "fused_ln_lstm_bwd", 250, 100, 5, 512, 0, DTYPES,
+          AB_REPS),
+         ("decoder, ones (3b)", "fused_lstm_bwd", 250, 100, 5, 512, 1, DTYPES,
+          AB_REPS),
+         ("encoder (4b)", "fused_lstm_seq_bwd", 250, 100, 5, 256, 1, DTYPES,
+          AB_REPS),
+         ("lstm_seq dwh (7b)", "lstm_seq_bwd", 250, 100, 0, 512, 0,
+          ("float32",), AB_REPS),
+         ("decoder (5b, 8b, 9)", None, 250, 4096, 5, 512, 0, ("bfloat16",), 2),
+         ("encoder (4b)", None, 250, 4096, 5, 256, 1, ("bfloat16",), 2))
+WG_SRC = "sketch_rnn_tpu_torch/csrc/weight_grad.cuh"
+
+
+def weight_grad_ab(rows):
+    """The weight pass (``cuda_fused.weight_grad_entries``: the split-K
+    pass every backward entry runs, variant 0, and the pass it replaced,
+    variant 1) at each shape of WG_AB over one seeded ``d_pre`` scratch
+    (N(0, 0.01)) with seeded ``xs``, ``h0`` and ``hs`` (the residual
+    dtype = the weight dtype): every output within FUSED_TOL of the plain
+    version (``weight_grad_reference``) and of the old pass, relative to
+    each output's largest magnitude; the new pass identical run to run;
+    both timed in turns with CUDA events (new, old, old, new; medians);
+    ``torch.mm`` of the same rounded operands ``[x; h; 1]^T @ d_pre``
+    (TF32 off) as the library time; the bound. Uncounted launches. The
+    B=100 records also go to the kernel row they serve (``weight_pass``).
+    """
+    import statistics
+
+    import torch
+
+    from sketch_rnn_tpu_torch.ops import cuda_fused as CF
+
+    t_phase = time.perf_counter()
+    for label, row, t, b, d, h, ones, dts, reps in WG_AB:
+        for dt in dts:
+            wdt = torch_dtype(dt)
+            g = torch.Generator(device=DEV).manual_seed(t * b + h + ones)
+            r = lambda *sh, sc=1.0: sc * torch.randn(sh, generator=g,
+                                                     device=DEV)
+            xs, h0 = r(t, b, d), r(b, h, sc=0.3)
+            hs = r(t, b, h, sc=0.3).to(wdt)
+            d_pre = r(t, b, 4 * h, sc=0.01)
+            run, outs = CF.weight_grad_entries(xs, h0, hs, d_pre, ones, wdt)
+            # the outputs there are (no dwx at D=0, no db without ones)
+            kept = [i for i, o in enumerate(outs)
+                    if o is not None and o.numel()]
+            names = [("dwx", "dwh", "db")[i] for i in kept]
+            snap = lambda: [outs[i].clone() for i in kept]
+            run(0)
+            new = snap()
+            run(0)
+            again = snap()
+            run(1)
+            old = snap()
+            torch.cuda.synchronize()
+            det = all(torch.equal(a, q) for a, q in zip(new, again))
+            ref = lambda: CF.weight_grad_reference(xs, h0, hs, d_pre, d, h,
+                                                   ones, wdt)
+            want = [ref()[i] for i in kept]
+            ab, rel, per = rel_errs(names, new, want)
+            ab_old, rel_old, _ = rel_errs(names, new, old)
+            del new, again, old, want
+            if not (rel <= FUSED_TOL[dt] and rel_old <= FUSED_TOL[dt]
+                    and det):
+                raise AssertionError(
+                    f"weight pass {label} B={b} [{dt}]: rel err {rel} vs "
+                    f"plain, {rel_old} vs the old pass (tol "
+                    f"{FUSED_TOL[dt]}), per output {per}; deterministic "
+                    f"{det}")
+            times, _ = ab_turns({"new": lambda: run(0),
+                                 "old": lambda: run(1)}, reps=reps)
+            # the library: one product of the same rounded operands
+            k = t * b
+            cols = [xs.reshape(k, d), torch.cat(
+                [h0.to(hs.dtype)[None], hs[:-1]]).reshape(k, h).float()]
+            if ones:
+                cols.append(torch.ones((k, 1), device=DEV))
+            a_op = torch.cat(cols, dim=1).to(wdt)
+            d_op = d_pre.reshape(k, 4 * h).to(wdt)
+            library = cuda_ms(lambda: torch.mm(a_op.t(), d_op), 10)
+            del a_op, d_op, cols
+            plain = cuda_ms(ref, 2)
+            flops = 2 * k * (d + h + ones) * 4 * h
+            moved = nbytes(xs, h0, hs, d_pre) + (d + h + ones) * 4 * h * 4
+            bms, by = bound_ms(flops, moved, dt)
+            plan = CF.weight_grad_plan(t, b, d, h, ones, wdt)
+            res = {"ms": statistics.median(times["new"]),
+                   "old_ms": statistics.median(times["old"]),
+                   "new_ms_all": times["new"], "old_ms_all": times["old"],
+                   "library_ms": library, "plain_ms": plain,
+                   "bound_ms": bms, "bound_by": by, "flops": flops,
+                   "bytes": moved, "slices": plan.slices,
+                   "kslice": plan.kslice, "err": ab, "rel_err": rel,
+                   "errs": per, "rel_err_vs_old": rel_old,
+                   "deterministic": det}
+            res["speedup"] = res["old_ms"] / res["ms"]
+            res["x_library"] = res["ms"] / library
+            res["x_bound"] = res["ms"] / bms
+            log("weight_grad_ab", shape=label, T=t, B=b, D=d, H=h,
+                ones=ones, dtype=dt, tol=FUSED_TOL[dt], reps=reps, **res)
+            if row is not None:
+                rows[row][dt]["weight_pass"] = res
+            del run, outs, xs, h0, hs, d_pre
+            torch.cuda.empty_cache()
+    log("weight_grad_ab_done", seconds=time.perf_counter() - t_phase)
 
 
 def flat_hyper(out):
@@ -2415,6 +2537,7 @@ def main():
     profile_generate("float32", cell="hyper")
 
     check_hoisted_lstm(rows)
+    weight_grad_ab(rows)
     hoisted_launches = hoisted_main_path(card)
     torch.cuda.empty_cache()
     train_plain(card)
@@ -2447,14 +2570,16 @@ def main():
                                "max_abs_err": v["err"],
                                **{k: v[k] for k in keys}}
                            for a, v in r["arms"].items()}
-        if "ab" in r:        # the LSTM backward's A/B and split
-            out["ab"] = r["ab"]
+        for extra in ("ab", "weight_pass"):   # the A/B lines' records
+            if extra in r:
+                out[extra] = r[extra]
         for other in want - {dt}:
             o = rows[name][other]
             out["at_" + other] = {"max_abs_err": o["err"],
                                   **{k: o[k] for k in keys}}
-            if "ab" in o:
-                out["at_" + other]["ab"] = o["ab"]
+            for extra in ("ab", "weight_pass"):
+                if extra in o:
+                    out["at_" + other][extra] = o[extra]
         return out
 
     log("done", seconds=time.perf_counter() - t_start)

@@ -144,7 +144,9 @@
 //     during the kernel, and an L1 line could be stale. After the last
 //     step, dxs = rnd_W(d_pre) @ wx^T has no recurrence, so every warp of
 //     the grid takes rows of it.
-//  3. The weight pass, weight_grad_kernel over the same scratch.
+//  3. The weight pass over the same scratch (weight_grad.cuh: split-K
+//     tiles on the tensor cores at bf16, a register-tiled SIMT product at
+//     float, the slices' partials added in order by a second launch).
 // Sizing per loop step at H=512, B=100 (32 slices x 4 tiles = 128 blocks):
 // L2 reads ~ blocks x (B / tiles) x 4H x 4 B = 26 MB; shared memory per
 // block ~ 16 x 4H x sizeof(W) (128 KiB float, 64 KiB bf16) plus the pairs'
@@ -184,7 +186,7 @@
 //     every run; the exchanges' sums are taken in another order than the
 //     row-block design's block sums, so the two agree within tolerance,
 //     not bit for bit.
-//  4. The weight pass, weight_grad_kernel over the same scratch.
+//  4. The weight pass over the same scratch, as in the LSTM backward.
 //     Each pair's loads come before its stores: through float pointers
 //     the compiler cannot move a load above a store, so read-modify-writes
 //     interleaved with other stores each waited out an L2 round trip.
@@ -236,12 +238,12 @@
 // they are NOT accumulated across blocks with atomics (whose order, and so
 // whose rounding, would change from run to run). The recurrence writes
 // d_pre [T, B, 4H] (float, unrounded) to a scratch the wrapper allocates,
-// and a second kernel (weight_grad_kernel) reduces
+// and a second pass (weight_grad.cuh) reduces
 //   [dwx; dwh; db] = sum over (t, b) of [x_t; h_{t-1}; 1]^T d_pre_t
-// (K = T*B terms) as a tiled product in a fixed order, gathering its left
-// operand from xs, hs and h0 in place. It rounds d_pre to W on load for the
-// dwx/dwh rows and keeps it unrounded for the db row of ones, so the one
-// float scratch serves both. Per-row quantities need no cross-block
+// (K = T*B terms) as a split-K tiled product in a fixed order, gathering
+// its left operand from xs, hs and h0 in place. It rounds d_pre to W for
+// the dwx/dwh rows and keeps it unrounded for db, so the one float scratch
+// serves both. Per-row quantities need no cross-block
 // reduction: dx_bias sums d_pre over time in registers (shared memory in
 // the LSTM loop); the LN parameters' gradients are summed over time per
 // row into a [B, 10H] partials scratch that a third kernel
@@ -265,10 +267,10 @@
 // cores). The loop's T steps are serial: each is a barrier plus a
 // (B / tiles) x 16 x 4H product per block fed by L2 (the 26 MB above at
 // H=512), so latency and L2 bandwidth bound it, not the FLOP count
-// (52.4 GFLOP of SIMT work, 0.78 ms at peak). The weight pass is
-// unchanged (a SIMT product over K = T*B, 0.78 ms at peak float, run far
-// below it: PERF.md). The LSTM forward's T steps are serial too: each is
-// a grid barrier, an L2 read of the tile's h rows (6.6 MB a step at H=512
+// (52.4 GFLOP of SIMT work, 0.78 ms at peak). The weight pass is a
+// product over K = T*B: bound by d_pre's bytes at bf16 (0.07 ms), by
+// operations at float (0.78 ms); weight_grad.cuh has its design. The
+// LSTM forward's T steps are serial too: each is a grid barrier, an L2 read of the tile's h rows (6.6 MB a step at H=512
 // float) and a (B / tiles) x 16 x 4H product per block from resident
 // weights, in SIMT multiply-adds so that the sums keep the row-block
 // order; its shared-memory reads and their latency bound the product, not
@@ -414,6 +416,7 @@ struct Bwd {
   float* dc0;   // [B, H] or null
   float* dh0;   // [B, H] or null
   float* part;  // [B, 10H] LN partials (dgam 4H | dbet 4H | dgc H | dbc H)
+  WgPlan wg;    // the weight pass's split-K plan and partials scratch
   int T, B;
 };
 
@@ -565,11 +568,9 @@ cudaError_t launch_fwd(const Fwd<W, R>& a, cudaStream_t stream) {
 template <typename W, typename R>
 cudaError_t launch_weight_grad(const Bwd<W, R>& a, int ones, float* dwx,
                                float* dwh, float* db, cudaStream_t stream) {
-  const int H = a.p.H, D = a.p.D;
-  const dim3 grid((4 * H + kTN - 1) / kTN, (D + H + ones + kTM - 1) / kTM);
-  weight_grad_kernel<W, R><<<grid, kGemmThreads, 0, stream>>>(
-      a.xs, a.h0, a.hs, a.dpre, a.T, a.B, D, H, ones, dwx, dwh, db);
-  return cudaGetLastError();
+  const WgArgs<R> w = {a.xs, a.h0, a.hs, a.dpre, a.T, a.B, a.p.D, a.p.H,
+                       ones, a.wg, dwx, dwh, db};
+  return launch_weight_grad_pass<W>(w, stream);
 }
 
 template <bool LN, typename W, typename R>
@@ -698,44 +699,9 @@ recompute_simt_kernel(Bwd<W, R> a) {
 // tile arrives by cp.async, the h tile through registers (it is gathered
 // and rounded on the way), the next chunk's copies in flight while this
 // one is multiplied. Rows padded by 8 bf16 so ldmatrix is free of bank
-// conflicts.
+// conflicts (the primitives: mma.cuh).
 constexpr int kMmM = 128, kMmN = 128, kMmK = 32, kMmThreads = 256;
 constexpr int kAPad = kMmK + 8, kBPad = kMmN + 8;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 template <typename R>
 __global__ void __launch_bounds__(kMmThreads)
@@ -790,7 +756,7 @@ recompute_mma_kernel(Bwd<bf16, R> a) {
                                         : __float2bfloat16_rn(0.0f);
       }
     }
-    asm volatile("cp.async.commit_group;\n" ::);
+    cp_async_commit();
   };
   float acc[4][4][4];
 #pragma unroll
@@ -803,7 +769,7 @@ recompute_mma_kernel(Bwd<bf16, R> a) {
   load_a(0);
   load_b(0, 0);
   store_a(0);
-  asm volatile("cp.async.wait_group 0;\n" ::);
+  cp_async_wait_all();
   __syncthreads();
   int buf = 0;
   for (int k0 = 0; k0 < H; k0 += kMmK) {
@@ -838,7 +804,7 @@ recompute_mma_kernel(Bwd<bf16, R> a) {
     }
     if (more) {
       store_a(buf ^ 1);
-      asm volatile("cp.async.wait_group 0;\n" ::);
+      cp_async_wait_all();
     }
     __syncthreads();
     buf ^= 1;
@@ -1745,10 +1711,6 @@ __host__ __device__ inline int fwd_row_stride(int H) {
   return (H + 7) / 8 * 8 + 16 / (int)sizeof(W);
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
 // wait until at most n of this thread's cp.async groups are in flight
 __device__ __forceinline__ void cp_async_wait(int n) {
   static_assert(kParts == 4, "one case per part");
@@ -2581,7 +2543,8 @@ cudaError_t lstm_bwd_any(int stage, const float* xs, const float* xb,
                          int D, int H, int w_bf16, int r_bf16, float keep,
                          float inv_keep, float forget_bias, float* dpre,
                          float* dxs, float* dxb, float* dwx, float* db,
-                         float* dwh, float* dc0, float* dh0, void* stream) {
+                         float* dwh, float* dc0, float* dh0, int wg_slices,
+                         int wg_kslice, float* wg_part, void* stream) {
   return with_types(w_bf16, r_bf16, [&](auto w, auto r) {
     using W = decltype(w);
     using R = decltype(r);
@@ -2602,6 +2565,7 @@ cudaError_t lstm_bwd_any(int stage, const float* xs, const float* xb,
     a.dc0 = dc0;
     a.dh0 = dh0;
     a.part = nullptr;
+    a.wg = {wg_slices, wg_kslice, wg_part};
     a.T = T;
     a.B = B;
     const cudaStream_t st = (cudaStream_t)stream;
@@ -2656,7 +2620,7 @@ cudaError_t ln_lstm_bwd_any(
     int D, int H, int w_bf16, int r_bf16, float keep, float inv_keep,
     float forget_bias, float* dpre, float* part, float* work, float* dxs,
     float* dxb, float* dwx, float* dwh, float* dln, float* dc0, float* dh0,
-    void* stream) {
+    int wg_slices, int wg_kslice, float* wg_part, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   return with_types(w_bf16, r_bf16, [&](auto w, auto r) {
     using W = decltype(w);
@@ -2678,6 +2642,7 @@ cudaError_t ln_lstm_bwd_any(
     a.dc0 = dc0;
     a.dh0 = dh0;
     a.part = part;
+    a.wg = {wg_slices, wg_kslice, wg_part};
     a.T = T;
     a.B = B;
     if (stage >= 0)
@@ -2704,8 +2669,12 @@ const char* srt_error_string(int err) {
 // xb may be null (no streamed masks, no in-kernel dropout, no per-row
 // bias), and so may every output of the LSTM entry points marked
 // "or null" (the sequence-only kernel asks for none of them). The weight
-// gradients are written as float32. Each returns the cudaError_t of its
-// launches (0 when all were accepted).
+// gradients are written as float32. The backward entries' wg_slices,
+// wg_kslice and wg_part are the weight pass's split-K plan
+// (cuda_fused.weight_grad_plan) and its float partials scratch, [wg_slices,
+// D + H + ones, 4H] (weight_grad.cuh); a plan that does not cover T * B is
+// cudaErrorInvalidValue. Each returns the cudaError_t of its launches (0
+// when all were accepted).
 
 // cT, hT: or null. hx: a [2, B, H] scratch of the weight type, the h
 // exchange between the blocks. The cooperative loop, over windows of rows
@@ -2747,11 +2716,13 @@ int srt_lstm_bwd(const float* xs, const float* xb, const void* wx,
                  const int* seed, int T, int B, int D, int H, int w_bf16,
                  int r_bf16, float keep, float inv_keep, float forget_bias,
                  float* dpre, float* dxs, float* dxb, float* dwx, float* db,
-                 float* dwh, float* dc0, float* dh0, void* stream) {
+                 float* dwh, float* dc0, float* dh0, int wg_slices,
+                 int wg_kslice, float* wg_part, void* stream) {
   return (int)lstm_bwd_any(0, xs, xb, wx, b, wh, h0, hs, cs, dhs, dcT, dhT,
                            masks, seed, T, B, D, H, w_bf16, r_bf16, keep,
                            inv_keep, forget_bias, dpre, dxs, dxb, dwx, db,
-                           dwh, dc0, dh0, stream);
+                           dwh, dc0, dh0, wg_slices, wg_kslice, wg_part,
+                           stream);
 }
 
 // One of srt_lstm_bwd's three launches (stage 1: recompute, 2: loop, 3:
@@ -2763,12 +2734,14 @@ int srt_lstm_bwd_stage(int stage, const float* xs, const float* xb,
                  const int* seed, int T, int B, int D, int H, int w_bf16,
                  int r_bf16, float keep, float inv_keep, float forget_bias,
                  float* dpre, float* dxs, float* dxb, float* dwx, float* db,
-                 float* dwh, float* dc0, float* dh0, void* stream) {
+                 float* dwh, float* dc0, float* dh0, int wg_slices,
+                 int wg_kslice, float* wg_part, void* stream) {
   if (stage < 1 || stage > 3) return (int)cudaErrorInvalidValue;
   return (int)lstm_bwd_any(stage, xs, xb, wx, b, wh, h0, hs, cs, dhs, dcT, dhT,
                            masks, seed, T, B, D, H, w_bf16, r_bf16, keep,
                            inv_keep, forget_bias, dpre, dxs, dxb, dwx, db,
-                           dwh, dc0, dh0, stream);
+                           dwh, dc0, dh0, wg_slices, wg_kslice, wg_part,
+                           stream);
 }
 
 // The row-block design srt_lstm_bwd replaced (rnn_bwd_kernel<false>, then
@@ -2780,11 +2753,13 @@ int srt_lstm_bwd_rowblock(const float* xs, const float* xb, const void* wx,
                  const int* seed, int T, int B, int D, int H, int w_bf16,
                  int r_bf16, float keep, float inv_keep, float forget_bias,
                  float* dpre, float* dxs, float* dxb, float* dwx, float* db,
-                 float* dwh, float* dc0, float* dh0, void* stream) {
+                 float* dwh, float* dc0, float* dh0, int wg_slices,
+                 int wg_kslice, float* wg_part, void* stream) {
   return (int)lstm_bwd_any(-1, xs, xb, wx, b, wh, h0, hs, cs, dhs, dcT, dhT,
                            masks, seed, T, B, D, H, w_bf16, r_bf16, keep,
                            inv_keep, forget_bias, dpre, dxs, dxb, dwx, db,
-                           dwh, dc0, dh0, stream);
+                           dwh, dc0, dh0, wg_slices, wg_kslice, wg_part,
+                           stream);
 }
 
 // hx: a [2, B, H] scratch of the weight type, the h exchange between the
@@ -2840,12 +2815,14 @@ int srt_ln_lstm_bwd(const float* xs, const float* xb, const void* wx,
                     float keep, float inv_keep, float forget_bias,
                     float* dpre, float* part, float* work, float* dxs,
                     float* dxb, float* dwx, float* dwh, float* dln,
-                    float* dc0, float* dh0, void* stream) {
+                    float* dc0, float* dh0, int wg_slices, int wg_kslice,
+                    float* wg_part, void* stream) {
   return (int)ln_lstm_bwd_any(0, xs, xb, wx, wh, ln_gamma, ln_beta,
                               lnc_gamma, lnc_beta, h0, hs, cs, dhs, dcT, dhT,
                               masks, seed, T, B, D, H, w_bf16, r_bf16, keep,
                               inv_keep, forget_bias, dpre, part, work, dxs,
-                              dxb, dwx, dwh, dln, dc0, dh0, stream);
+                              dxb, dwx, dwh, dln, dc0, dh0, wg_slices,
+                              wg_kslice, wg_part, stream);
 }
 
 // One of srt_ln_lstm_bwd's launches (stage 1: recompute, 2: statistics,
@@ -2863,13 +2840,15 @@ int srt_ln_lstm_bwd_stage(int stage, const float* xs, const float* xb,
                           float forget_bias, float* dpre, float* part,
                           float* work, float* dxs, float* dxb, float* dwx,
                           float* dwh, float* dln, float* dc0, float* dh0,
+                          int wg_slices, int wg_kslice, float* wg_part,
                           void* stream) {
   if (stage < 1 || stage > 4) return (int)cudaErrorInvalidValue;
   return (int)ln_lstm_bwd_any(stage, xs, xb, wx, wh, ln_gamma, ln_beta,
                               lnc_gamma, lnc_beta, h0, hs, cs, dhs, dcT, dhT,
                               masks, seed, T, B, D, H, w_bf16, r_bf16, keep,
                               inv_keep, forget_bias, dpre, part, work, dxs,
-                              dxb, dwx, dwh, dln, dc0, dh0, stream);
+                              dxb, dwx, dwh, dln, dc0, dh0, wg_slices,
+                              wg_kslice, wg_part, stream);
 }
 
 // The row-block design srt_ln_lstm_bwd replaced (rnn_bwd_kernel<true>, the
@@ -2883,12 +2862,37 @@ int srt_ln_lstm_bwd_rowblock(
     const int* seed, int T, int B, int D, int H, int w_bf16, int r_bf16,
     float keep, float inv_keep, float forget_bias, float* dpre, float* part,
     float* work, float* dxs, float* dxb, float* dwx, float* dwh, float* dln,
-    float* dc0, float* dh0, void* stream) {
+    float* dc0, float* dh0, int wg_slices, int wg_kslice, float* wg_part,
+    void* stream) {
   return (int)ln_lstm_bwd_any(-1, xs, xb, wx, wh, ln_gamma, ln_beta,
                               lnc_gamma, lnc_beta, h0, hs, cs, dhs, dcT, dhT,
                               masks, seed, T, B, D, H, w_bf16, r_bf16, keep,
                               inv_keep, forget_bias, dpre, part, work, dxs,
-                              dxb, dwx, dwh, dln, dc0, dh0, stream);
+                              dxb, dwx, dwh, dln, dc0, dh0, wg_slices,
+                              wg_kslice, wg_part, stream);
+}
+
+// The weight pass alone over a d_pre scratch a backward entry (or one of
+// its stages) left: variant 0 the split-K pass every backward entry runs
+// (wg_* its plan and scratch), 1 the pass it replaced
+// (weight_grad_tiled_kernel, which ignores them), to hold and time them
+// beside each other. hs is float32, or bfloat16 when r_bf16; xs and dwx
+// may be null when D = 0, db when ones = 0.
+int srt_weight_grad(int variant, const float* xs, const float* h0,
+                    const void* hs, const float* dpre, int T, int B, int D,
+                    int H, int ones, int w_bf16, int r_bf16, int wg_slices,
+                    int wg_kslice, float* wg_part, float* dwx, float* dwh,
+                    float* db, void* stream) {
+  if (variant < 0 || variant > 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  return (int)with_types(w_bf16, r_bf16, [&](auto w, auto r) {
+    using W = decltype(w);
+    using R = decltype(r);
+    const WgArgs<R> a = {xs, h0, static_cast<const R*>(hs), dpre, T, B, D, H,
+                         ones, {wg_slices, wg_kslice, wg_part}, dwx, dwh, db};
+    return variant == 0 ? launch_weight_grad_pass<W>(a, st)
+                        : launch_weight_grad_tiled<W>(a, st);
+  });
 }
 
 }  // extern "C"

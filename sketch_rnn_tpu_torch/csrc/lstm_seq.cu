@@ -29,9 +29,9 @@
 // and reduces dh_{t-1}[k] by shuffles. dwh = sum over (t, b) of
 // h_{t-1}^T d_pre crosses rows; blocks run in no order, so it is not
 // summed with atomics (whose order, and so rounding, would change from run
-// to run) but by a second kernel, the tiled fixed-order weight_grad_kernel
-// of weight_grad.cuh (K = T*B), gathering h_{t-1} from hs and h0 in place:
-// the same bits on every run.
+// to run) but by the fixed-order split-K weight pass of weight_grad.cuh
+// (K = T*B), gathering h_{t-1} from hs and h0 in place: the same bits on
+// every run.
 //
 // Bound on the H100 at the path's shape, the `vae` decoder: B=100, T=250,
 // H=512. The products are float32 SIMT multiply-adds (67 TFLOP/s). Forward
@@ -229,12 +229,15 @@ int srt_lstm_seq_fwd(const float* xp, const float* wh, const float* c0,
   return (int)cudaGetLastError();
 }
 
-// hs/h0 give h_{t-1} (h0 at t = 0) to the dwh reduction.
+// hs/h0 give h_{t-1} (h0 at t = 0) to the dwh reduction; wg_slices,
+// wg_kslice and wg_part are its split-K plan (cuda_fused.weight_grad_plan)
+// and float partials scratch, [wg_slices, H, 4H].
 int srt_lstm_seq_bwd(const float* wh, const float* gates, const float* cs,
                      const float* hs, const float* h0, const float* masks,
                      const float* dhs, const float* dcT, const float* dhT,
                      int T, int B, int H, float* dxp, float* dwh, float* dc0,
-                     float* dh0, void* stream) {
+                     float* dh0, int wg_slices, int wg_kslice,
+                     float* wg_part, void* stream) {
   if (H < 1 || H > kMaxThreads) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   SeqBwd a;
@@ -258,10 +261,10 @@ int srt_lstm_seq_bwd(const float* wh, const float* gates, const float* cs,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // dwh: no x rows, no row of ones
-  const dim3 grid((4 * H + kTN - 1) / kTN, (H + kTM - 1) / kTM);
-  weight_grad_kernel<float, float><<<grid, kGemmThreads, 0, st>>>(
-      nullptr, h0, hs, dxp, T, B, 0, H, 0, nullptr, dwh, nullptr);
-  return (int)cudaGetLastError();
+  const WgArgs<float> w = {nullptr, h0, hs, dxp, T, B, 0, H, 0,
+                           {wg_slices, wg_kslice, wg_part}, nullptr, dwh,
+                           nullptr};
+  return (int)launch_weight_grad_pass<float>(w, st);
 }
 
 }  // extern "C"

@@ -57,8 +57,9 @@
 // pre with the two products of gate_pre, runs the gate block, writes d_pre
 // to the [T, B, 4H] float scratch, and computes the transposed product
 // d_pre @ [wx; wh]^T (the wx rows only because dxs is wanted); a second
-// launch, weight_grad_kernel, reduces dwx/dwh over K = T*B in a fixed
-// order, and sum_rows_kernel adds up the per-row LN partials. So:
+// launch, the split-K weight pass of weight_grad.cuh, reduces dwx/dwh
+// over K = T*B in a fixed order, and sum_rows_kernel adds up the per-row
+// LN partials. So:
 //   no_gates   keeps all three kinds of product and the weight-gradient
 //              launch; writes zero LN sums and runs no sum_rows_kernel.
 //   no_gradmm  drops the weight-gradient launch, the d_pre scratch (nothing
@@ -279,6 +280,7 @@ struct Bwd {
   float* dc0;   // [B, H]
   float* dh0;   // [B, H]
   float* part;  // [B, 10H] LN partials (dgam 4H | dbet 4H | dgc H | dbc H)
+  WgPlan wg;    // the weight pass's split-K plan and partials scratch
   int T, B;
 };
 
@@ -554,9 +556,9 @@ cudaError_t launch_bwd(const Bwd<W, R>& a, float* dwx, float* dwh, float* dln,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if constexpr (Plan::kWeightGrads) {
-    const dim3 grid((4 * H + kTN - 1) / kTN, (D + H + kTM - 1) / kTM);
-    weight_grad_kernel<W, R><<<grid, kGemmThreads, 0, stream>>>(
-        a.xs, a.h0, a.hs, a.dpre, a.T, a.B, D, H, 0, dwx, dwh, nullptr);
+    const WgArgs<R> w = {a.xs, a.h0, a.hs, a.dpre, a.T, a.B, D, H, 0,
+                         a.wg, dwx, dwh, nullptr};
+    err = launch_weight_grad_pass<W>(w, stream);
   } else {
     err = cudaMemsetAsync(dwx, 0, (size_t)D * 4 * H * sizeof(float), stream);
     if (err == cudaSuccess)
@@ -597,8 +599,10 @@ const char* srt_error_string(int err) {
 // everything else is float32 unless named int32. seed (int32 scalar, the
 // in-kernel dropout of keep), xb, dcT and dhT may be null; dpre (the
 // [T, B, 4H] float scratch) and part ([B, 10H]) may be null for the arms
-// that do not use them. H is 2..512. Each returns the cudaError_t of its
-// launches (0 when all were accepted).
+// that do not use them, and so may wg_part, the weight pass's [wg_slices,
+// D + H, 4H] partials scratch (wg_slices and wg_kslice: its split-K plan,
+// cuda_fused.weight_grad_plan). H is 2..512. Each returns the cudaError_t
+// of its launches (0 when all were accepted).
 
 // arm: 0 prod, 1 no_ln, 2 no_gates, 3 floor.
 int srt_ln_probe_fwd(int arm, const float* xs, const float* xb,
@@ -645,6 +649,7 @@ int srt_ln_probe_bwd(int arm, const float* xs, const float* xb,
                      float inv_keep, float forget_bias, float* dpre,
                      float* part, float* dxs, float* dxb, float* dwx,
                      float* dwh, float* dln, float* dc0, float* dh0,
+                     int wg_slices, int wg_kslice, float* wg_part,
                      void* stream) {
   if (H < 2 || H > kMaxThreads) return (int)cudaErrorInvalidValue;
   return (int)with_types(w_bf16, r_bf16, [&](auto w, auto r) {
@@ -667,6 +672,7 @@ int srt_ln_probe_bwd(int arm, const float* xs, const float* xb,
     a.dc0 = dc0;
     a.dh0 = dh0;
     a.part = part;
+    a.wg = {wg_slices, wg_kslice, wg_part};
     a.T = T;
     a.B = B;
     return with_arm<kFake>(arm, [&](auto arm_c) {

@@ -40,6 +40,7 @@ _libs: Dict[str, ctypes.CDLL] = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_WG = [_I, _I, _P]      # the weight pass's plan: slices, kslice, scratch
 
 # argtypes of every C entry point, by library
 SIGNATURES = {
@@ -50,22 +51,26 @@ SIGNATURES = {
     "fused_rnn": {
         "srt_lstm_fwd": [_P] * 9 + [_I] * 6 + [_F] * 3 + [_P] * 6,
         "srt_lstm_fwd_rowblock": [_P] * 9 + [_I] * 6 + [_F] * 3 + [_P] * 6,
-        "srt_lstm_bwd": [_P] * 13 + [_I] * 6 + [_F] * 3 + [_P] * 9,
+        "srt_lstm_bwd": [_P] * 13 + [_I] * 6 + [_F] * 3 + [_P] * 8 + _WG
+        + [_P],
         "srt_lstm_bwd_stage": [_I] + [_P] * 13 + [_I] * 6 + [_F] * 3
-        + [_P] * 9,
-        "srt_lstm_bwd_rowblock": [_P] * 13 + [_I] * 6 + [_F] * 3 + [_P] * 9,
+        + [_P] * 8 + _WG + [_P],
+        "srt_lstm_bwd_rowblock": [_P] * 13 + [_I] * 6 + [_F] * 3 + [_P] * 8
+        + _WG + [_P],
         "srt_ln_lstm_fwd": [_P] * 12 + [_I] * 6 + [_F] * 3 + [_P] * 7,
         "srt_ln_lstm_fwd_rowblock": [_P] * 12 + [_I] * 6 + [_F] * 3
         + [_P] * 7,
-        "srt_ln_lstm_bwd": [_P] * 16 + [_I] * 6 + [_F] * 3 + [_P] * 11,
+        "srt_ln_lstm_bwd": [_P] * 16 + [_I] * 6 + [_F] * 3 + [_P] * 10
+        + _WG + [_P],
         "srt_ln_lstm_bwd_stage": [_I] + [_P] * 16 + [_I] * 6 + [_F] * 3
-        + [_P] * 11,
+        + [_P] * 10 + _WG + [_P],
         "srt_ln_lstm_bwd_rowblock": [_P] * 16 + [_I] * 6 + [_F] * 3
-        + [_P] * 11,
+        + [_P] * 10 + _WG + [_P],
+        "srt_weight_grad": [_I] + [_P] * 4 + [_I] * 7 + _WG + [_P] * 4,
     },
     "lstm_seq": {
         "srt_lstm_seq_fwd": [_P] * 5 + [_I] * 3 + [_F] + [_P] * 6,
-        "srt_lstm_seq_bwd": [_P] * 9 + [_I] * 3 + [_P] * 5,
+        "srt_lstm_seq_bwd": [_P] * 9 + [_I] * 3 + [_P] * 4 + _WG + [_P],
     },
     "probe_seq": {
         "srt_dual_seq_fwd": [_P] * 8 + [_I] * 6 + [_F] + [_P] * 5,
@@ -74,7 +79,7 @@ SIGNATURES = {
     "probe_ln": {
         "srt_ln_probe_fwd": [_I] + [_P] * 11 + [_I] * 6 + [_F] * 3 + [_P] * 5,
         "srt_ln_probe_bwd": [_I] + [_P] * 15 + [_I] * 6 + [_F] * 3
-        + [_P] * 10,
+        + [_P] * 9 + _WG + [_P],
     },
     "fused_hyper": {
         "srt_hyper_fwd": [_P] * 28 + [_I] * 8 + [_F] * 3 + [_P] * 9,

@@ -853,14 +853,147 @@ def lstm_fwd_entries(xs, wx, b, wh, c0, h0, forget_bias=1.0, masks=None,
     return run, outs
 
 
+# -- the weight pass (csrc/weight_grad.cuh) -----------------------------------
+#
+# Every backward entry ends with [dwx; dwh; db] = sum over k = t * B + b of
+# [x; h_{t-1}; 1]^T d_pre[k], a product over K = T * B row-steps cut into
+# slices whose partial sums a second launch adds in slice order. The plan
+# depends on the shape alone, never on the card, so the sums' order, and
+# every bit of the result, is the same on any card.
+
+WG_TILE = 128           # output rows and columns of one block
+WG_FOLD = 8             # float32: extra rows that ride with row tile 0
+WG_CHUNK = {torch.float32: 16, torch.bfloat16: 32}   # k rows per step
+WG_BLOCKS = 1024        # blocks the plan aims for (several per SM)
+WG_MAX_SLICES = 64      # caps the partials scratch, whatever K
+WG_SCRATCH_SHARE = 4    # partials at most 1/4 of d_pre's floats
+
+
+class WeightGradPlan(NamedTuple):
+    """Slice ``s`` of ``[0, K)`` is ``[s * kslice, min((s + 1) * kslice,
+    K))``; ``kslice`` is a whole number of the kernel's k steps."""
+    slices: int
+    kslice: int
+
+    def bounds(self, k: int):
+        return [(s * self.kslice, min((s + 1) * self.kslice, k))
+                for s in range(self.slices)]
+
+
+def weight_grad_tiles(d, h, ones, dtype) -> int:
+    """Blocks of one slice of the weight pass (``weight_grad.cuh``,
+    ``wg_row_tiles``): 128 x 128 output tiles over the ``4H`` columns and
+    the ``H`` rows of ``dwh``, then the extra rows in tiles of their own:
+    the ``D`` rows of ``dwx`` at bfloat16 (and ``db``'s sums, alone when
+    ``D = 0``); at float32 ``[x; 1]``, unless their ``D + ones`` rows
+    fold into the first row tile (at most ``WG_FOLD``)."""
+    cdiv = lambda x, y: -(-x // y)
+    if dtype == torch.bfloat16:
+        extra = max(d, ones)
+    else:
+        extra = 0 if d + ones <= WG_FOLD else d + ones
+    return cdiv(4 * h, WG_TILE) * (cdiv(h, WG_TILE) + cdiv(extra, WG_TILE))
+
+
+def weight_grad_plan(t, b, d, h, ones, dtype) -> WeightGradPlan:
+    """The weight pass's split-K plan for ``T * B`` row-steps, ``D``
+    inputs, ``H`` units, a row of ones (``db``) or not, and weight dtype
+    ``dtype``: enough slices that the grid of 128 x 128 tiles holds about
+    ``WG_BLOCKS`` blocks, at most ``WG_MAX_SLICES``, and few enough that
+    the ``[slices, D + H + ones, 4H]`` float partials stay within a
+    ``WG_SCRATCH_SHARE``-th of ``d_pre``'s floats; at least one slice."""
+    if dtype not in WG_CHUNK:
+        raise TypeError(f"weight dtype {dtype}: the weight pass takes "
+                        f"{tuple(WG_CHUNK)}")
+    k, r = t * b, d + h + ones
+    cdiv = lambda x, y: -(-x // y)
+    s = max(1, min(cdiv(WG_BLOCKS, weight_grad_tiles(d, h, ones, dtype)),
+                   WG_MAX_SLICES,
+                   k // (WG_SCRATCH_SHARE * r)))
+    chunk = WG_CHUNK[dtype]
+    kslice = max(chunk, cdiv(cdiv(k, s), chunk) * chunk)
+    return WeightGradPlan(max(1, cdiv(k, kslice)), kslice)
+
+
+def weight_grad_reference(xs, h0, hs, d_pre, d, h, ones, w_dtype,
+                          k_range=None):
+    """The plain version of the weight pass, in one product over all row
+    steps (or those of ``k_range``, ``(k0, k1)``): ``(dwx [D, 4H], dwh
+    [H, 4H], db [4H] or None)`` in float32, from ``xs [T, B, D]``, ``h0
+    [B, H]`` (rounded to ``hs``'s dtype first), ``hs [T, B, H]`` and
+    ``d_pre [T, B, 4H]``. The ``x`` and ``h_{t-1}`` operands and ``d_pre``
+    are rounded to ``w_dtype``, the sums float32; ``db`` sums the
+    unrounded ``d_pre``."""
+    t, b = d_pre.shape[:2]
+    k0, k1 = (0, t * b) if k_range is None else k_range
+    dp = d_pre.reshape(t * b, 4 * h)[k0:k1]
+    dpw = _rnd(dp, w_dtype)
+    h_prev = torch.cat([h0.to(hs.dtype)[None], hs[:-1]]).reshape(t * b, h)
+    dwh = _rnd(h_prev[k0:k1].float(), w_dtype).T @ dpw
+    dwx = _rnd(xs.reshape(t * b, d)[k0:k1], w_dtype).T @ dpw
+    return dwx, dwh, (dp.sum(dim=0) if ones else None)
+
+
+def _wg_scratch(t, b, d, h, ones, w_dtype, dev):
+    """The weight pass's plan and its partials scratch: ``(args, part)``,
+    ``args`` the entries' ``(wg_slices, wg_kslice, wg_part)``."""
+    p = weight_grad_plan(t, b, d, h, ones, w_dtype)
+    part = torch.empty((p.slices, d + h + ones, 4 * h), dtype=torch.float32,
+                       device=dev)
+    return (p.slices, p.kslice, part.data_ptr()), part
+
+
+def weight_grad_entries(xs, h0, hs, d_pre, ones, w_dtype):
+    """``srt_weight_grad`` on CUDA tensors, for the A/B of the weight pass
+    over a ``d_pre`` scratch a backward entry (or one of its stages) left;
+    no wrapper calls it, and it counts no launch. Returns ``(run,
+    outs)``: ``run(variant)`` launches the split-K pass every backward
+    entry runs (0) or the pass it replaced (1), on one set of buffers,
+    and keeps the inputs alive; ``outs`` are ``(dwx, dwh, db)`` in
+    float32 as the last launch left them (``db`` None without
+    ``ones``)."""
+    from sketch_rnn_tpu_torch.ops import _build
+
+    _entries_on_cuda("weight_grad_entries", xs)
+    if w_dtype not in WEIGHT_DTYPES:
+        raise TypeError(f"weight dtype {w_dtype}: the weight pass takes "
+                        f"{WEIGHT_DTYPES}")
+    dev, f32 = xs.device, torch.float32
+    t, b, d = xs.shape
+    h = h0.shape[1]
+    if hs.dtype not in RESIDUAL_DTYPES:
+        raise TypeError(f"hs has dtype {hs.dtype}: the fused RNN kernels "
+                        f"store residuals as {RESIDUAL_DTYPES}")
+    for n, x, dt, shape in (("xs", xs, f32, (t, b, d)), ("h0", h0, f32, (b, h)),
+                            ("hs", hs, hs.dtype, (t, b, h)),
+                            ("d_pre", d_pre, f32, (t, b, 4 * h))):
+        _require(n, x, dev, dt, shape)
+    wg, part = _wg_scratch(t, b, d, h, ones, w_dtype, dev)
+    dwx = torch.empty((d, 4 * h), dtype=f32, device=dev)
+    dwh = torch.empty((h, 4 * h), dtype=f32, device=dev)
+    db = torch.empty((4 * h,), dtype=f32, device=dev) if ones else None
+    args = (xs.data_ptr(), h0.data_ptr(), hs.data_ptr(), d_pre.data_ptr(), t,
+            b, d, h, int(bool(ones)), int(w_dtype == torch.bfloat16),
+            int(hs.dtype == torch.bfloat16), *wg, dwx.data_ptr(),
+            dwh.data_ptr(), _ptr(db), _stream(dev))
+    lib = _build.load("fused_rnn")
+    held = (part, xs, h0, hs, d_pre)
+
+    def run(variant, _held=held):   # holds the scratch and the inputs
+        _build.check(lib, lib.srt_weight_grad(variant, *args),
+                     f"srt_weight_grad({variant})")
+
+    return run, (dwx, dwh, db)
+
+
 def _lstm_bwd_args(xs, wx, b, wh, h0, hs, cs, dhs, dcT, dhT, forget_bias,
                    masks, seed, keep_prob, x_bias, full):
     """Check the LSTM backward's inputs and allocate its outputs and its
-    ``d_pre`` scratch: ``(args, outs, dpre)``, the arguments of the
+    scratch: ``(args, outs, scratch)``, the arguments of the
     ``srt_lstm_bwd*`` entries, ``(dxs, dxb, dwx, db, dwh, dc0, dh0)``
     (the weight gradients float32, ``None`` where not ``full``) and the
-    scratch, which the caller keeps alive while the launches use it
-    (``args`` holds only its address)."""
+    ``d_pre`` and weight-pass scratch, which the caller keeps alive while
+    the launches use them (``args`` holds only their addresses)."""
     dev, t, bsz, d, h, mp, sp, wb = _kernel_common(xs, wx, wh, h0, h0,
                                                    masks, seed)
     rb = _residuals_check(dev, t, bsz, h, hs, cs, dhs)
@@ -879,18 +1012,19 @@ def _lstm_bwd_args(xs, wx, b, wh, h0, hs, cs, dhs, dcT, dhT, forget_bias,
         dc0 = torch.empty((bsz, h), dtype=f32, device=dev)
         dh0 = torch.empty_like(dc0)
         dxb = torch.empty_like(x_bias) if x_bias is not None else None
+    wg, wg_part = _wg_scratch(t, bsz, d, h, 1, wx.dtype, dev)
     args = (xs.data_ptr(), _ptr(x_bias), wx.data_ptr(), b.data_ptr(),
             wh.data_ptr(), h0.data_ptr(), hs.data_ptr(), cs.data_ptr(),
             dhs.data_ptr(), _ptr(dcT), _ptr(dhT), mp, sp, t, bsz, d, h, wb,
             rb, *_keep_args(keep_prob), float(forget_bias), dpre.data_ptr(),
             _ptr(dxs), _ptr(dxb), dwx.data_ptr(), db.data_ptr(),
-            dwh.data_ptr(), _ptr(dc0), _ptr(dh0), _stream(dev))
-    return args, (dxs, dxb, dwx, db, dwh, dc0, dh0), dpre
+            dwh.data_ptr(), _ptr(dc0), _ptr(dh0), *wg, _stream(dev))
+    return args, (dxs, dxb, dwx, db, dwh, dc0, dh0), (dpre, wg_part)
 
 
 def _lstm_bwd_kernel(counter, xs, wx, b, wh, h0, hs, cs, dhs, dcT, dhT,
                      forget_bias, masks, seed, keep_prob, x_bias, full):
-    args, (dxs, dxb, dwx, db, dwh, dc0, dh0), dpre = _lstm_bwd_args(
+    args, (dxs, dxb, dwx, db, dwh, dc0, dh0), _scratch = _lstm_bwd_args(
         xs, wx, b, wh, h0, hs, cs, dhs, dcT, dhT, forget_bias, masks, seed,
         keep_prob, x_bias, full)
     _launch("srt_lstm_bwd", counter.replace("_", " "), counter, *args)
@@ -913,11 +1047,12 @@ def lstm_bwd_entries(xs, wx, b, wh, h0, hs, cs, dhs, dcT=None, dhT=None,
     from sketch_rnn_tpu_torch.ops import _build
 
     _entries_on_cuda("lstm_bwd_entries", xs)
-    args, outs, dpre = _lstm_bwd_args(xs, wx, b, wh, h0, hs, cs, dhs, dcT,
-                                      dhT, forget_bias, masks, dropout_seed,
-                                      keep_prob, x_bias, full)
+    args, outs, scratch = _lstm_bwd_args(xs, wx, b, wh, h0, hs, cs, dhs,
+                                         dcT, dhT, forget_bias, masks,
+                                         dropout_seed, keep_prob, x_bias,
+                                         full)
     lib = _build.load("fused_rnn")
-    held = (dpre, xs, wx, b, wh, h0, hs, cs, dhs, dcT, dhT, masks,
+    held = (scratch, xs, wx, b, wh, h0, hs, cs, dhs, dcT, dhT, masks,
             dropout_seed, x_bias)
 
     def run(entry, stage=0, _held=held):   # holds the scratch and inputs
@@ -1102,8 +1237,8 @@ def _ln_lstm_bwd_args(xs, wx, wh, ln_gamma, ln_beta, lnc_gamma, lnc_beta,
     f32 = torch.float32
     # scratch: every step's pre-activations, overwritten by their
     # gradients (float32, unrounded; read by the weight-gradient pass),
-    # each row's LN-parameter sums, and the loop's work (statistics,
-    # exchanges, stash)
+    # each row's LN-parameter sums, the loop's work (statistics,
+    # exchanges, stash) and the weight pass's partials
     dpre = torch.empty((t, bsz, 4 * h), dtype=f32, device=dev)
     part = torch.empty((bsz, 10 * h), dtype=f32, device=dev)
     work = torch.empty((ln_bwd_work_floats(t, bsz, h),), dtype=f32,
@@ -1115,6 +1250,7 @@ def _ln_lstm_bwd_args(xs, wx, wh, ln_gamma, ln_beta, lnc_gamma, lnc_beta,
     dln = torch.empty((10 * h,), dtype=f32, device=dev)
     dc0 = torch.empty((bsz, h), dtype=f32, device=dev)
     dh0 = torch.empty_like(dc0)
+    wg, wg_part = _wg_scratch(t, bsz, d, h, 0, wx.dtype, dev)
     args = (xs.data_ptr(), _ptr(x_bias), wx.data_ptr(), wh.data_ptr(),
             ln_gamma.data_ptr(), ln_beta.data_ptr(), lnc_gamma.data_ptr(),
             lnc_beta.data_ptr(), h0.data_ptr(), hs.data_ptr(), cs.data_ptr(),
@@ -1122,8 +1258,9 @@ def _ln_lstm_bwd_args(xs, wx, wh, ln_gamma, ln_beta, lnc_gamma, lnc_beta,
             rb, *_keep_args(keep_prob), float(forget_bias), dpre.data_ptr(),
             part.data_ptr(), work.data_ptr(), dxs.data_ptr(), _ptr(dxb),
             dwx.data_ptr(), dwh.data_ptr(), dln.data_ptr(), dc0.data_ptr(),
-            dh0.data_ptr(), _stream(dev))
-    return args, (dxs, dxb, dwx, dwh, dln, dc0, dh0), (dpre, part, work)
+            dh0.data_ptr(), *wg, _stream(dev))
+    return args, (dxs, dxb, dwx, dwh, dln, dc0, dh0), (dpre, part, work,
+                                                       wg_part)
 
 
 def ln_lstm_bwd_entries(xs, wx, wh, ln_gamma, ln_beta, lnc_gamma, lnc_beta,

@@ -17,7 +17,8 @@ only, as the TPU kernel is.
 Two hand-written CUDA kernels (``csrc/lstm_seq.cu``) replace the Pallas
 pair: ``srt_lstm_seq_fwd`` the forward ``_fwd_kernel``,
 ``srt_lstm_seq_bwd`` the backward ``_bwd_kernel`` (the recurrence, then
-``dwh`` by the fixed-order ``weight_grad_kernel``: no atomics). Beside
+``dwh`` by the fixed-order split-K weight pass of ``csrc/weight_grad.cuh``
+on the plan of ``cuda_fused.weight_grad_plan``: no atomics). Beside
 them are their plain PyTorch versions, :func:`lstm_seq_fwd_plain` and
 :func:`lstm_seq_bwd_plain`, which repeat the Pallas bodies step by step.
 The wrappers :func:`lstm_seq_fwd` / :func:`lstm_seq_bwd` take the plain
@@ -32,7 +33,8 @@ from typing import Optional, Tuple
 import torch
 
 from sketch_rnn_tpu_torch.ops.cuda_decode import _require
-from sketch_rnn_tpu_torch.ops.cuda_fused import MAX_HIDDEN, _ptr, _stream
+from sketch_rnn_tpu_torch.ops.cuda_fused import (MAX_HIDDEN, _ptr, _stream,
+                                                 _wg_scratch)
 
 _launches = {"lstm_seq_fwd": 0, "lstm_seq_bwd": 0}
 
@@ -173,11 +175,12 @@ def lstm_seq_bwd(wh, gates, cs, hs, h0, masks, dhs, dcT, dhT):
     dwh = torch.empty_like(wh)
     dc0 = torch.empty((b, h), dtype=f32, device=dev)
     dh0 = torch.empty_like(dc0)
+    wg, _wg_part = _wg_scratch(t, b, 0, h, 0, f32, dev)  # dwh's partials
     _launch("srt_lstm_seq_bwd", "lstm_seq backward", "lstm_seq_bwd",
             wh.data_ptr(), gates.data_ptr(), cs.data_ptr(), hs.data_ptr(),
             h0.data_ptr(), _ptr(masks), dhs.data_ptr(), dcT.data_ptr(),
             dhT.data_ptr(), t, b, h, dxp.data_ptr(), dwh.data_ptr(),
-            dc0.data_ptr(), dh0.data_ptr(), _stream(dev))
+            dc0.data_ptr(), dh0.data_ptr(), *wg, _stream(dev))
     return dxp, dwh, dc0, dh0
 
 

@@ -331,6 +331,10 @@ def bwd_kernel(arm, counts, key, xs, wx, wh, ln_gamma, ln_beta, lnc_gamma,
     dln = torch.empty((10 * h,), dtype=f32, device=dev)
     dc0 = torch.empty((b, h), dtype=f32, device=dev)
     dh0 = torch.empty_like(dc0)
+    # the weight pass's plan and partials, as srt_ln_lstm_bwd's (the
+    # other arms run no weight pass)
+    wg, wg_part = (CF._wg_scratch(t, b, d, h, 0, wx.dtype, dev)
+                   if arm in _WEIGHT_GRAD_ARMS else ((0, 0, None), None))
     _probe.launch("srt_ln_probe_bwd", f"bwd_arm({arm})", BWD_IDS[arm],
                   xs.data_ptr(), CF._ptr(x_bias), wx.data_ptr(),
                   wh.data_ptr(), *(p.data_ptr() for p in ln), h0.data_ptr(),
@@ -339,7 +343,7 @@ def bwd_kernel(arm, counts, key, xs, wx, wh, ln_gamma, ln_beta, lnc_gamma,
                   *CF._keep_args(keep_prob), float(forget_bias),
                   CF._ptr(dpre), CF._ptr(part), dxs.data_ptr(),
                   CF._ptr(dxb), dwx.data_ptr(), dwh.data_ptr(),
-                  dln.data_ptr(), dc0.data_ptr(), dh0.data_ptr(),
+                  dln.data_ptr(), dc0.data_ptr(), dh0.data_ptr(), *wg,
                   CF._stream(dev), lib="probe_ln")
     counts[key] += 1
     return (dxs, dxb, dwx, dwh, dln[:4 * h].view(4, h),

@@ -1128,3 +1128,71 @@ def test_ln_ladder_wrappers_refuse_bad_inputs(dev):
     with pytest.raises(ValueError, match="two columns"):
         ps.fwd_arm("no_ln", **one)
     assert (ps.launch_counts(), pl.launch_counts()) == counts
+
+
+# The weight pass (csrc/weight_grad.cuh) over a seeded d_pre: R = D + H +
+# ones and K = T * B off every tile (128) and k step (16, 32), D = 0 and
+# ones 0 / 1, float and bfloat16 residuals; several slices in each.
+@pytest.mark.parametrize("t,bsz,d,h,ones,wdt,rdt", [
+    (37, 53, 3, 40, 1, F32, F32), (37, 53, 3, 40, 0, BF16, BF16),
+    (37, 53, 0, 40, 0, F32, F32), (19, 101, 5, 136, 1, BF16, BF16),
+    (19, 101, 5, 136, 0, F32, BF16), (41, 47, 0, 136, 1, BF16, F32),
+    (29, 261, 133, 264, 1, BF16, BF16), (50, 100, 5, 256, 1, F32, F32)])
+def test_weight_pass_matches_plain_version(dev, t, bsz, d, h, ones, wdt,
+                                           rdt):
+    """The split-K pass every backward entry runs (srt_weight_grad variant
+    0) against weight_grad_reference on the same CUDA tensors, and against
+    the pass it replaced (variant 1). Both sides round the same operands
+    to the weight dtype and sum exact products in float32, so they part
+    only by the order of the float32 sums: TOL relative to each output's
+    largest magnitude at either dtype. Two runs bitwise equal; no launch
+    counted."""
+    from sketch_rnn_tpu_torch.ops import cuda_fused as cf
+
+    g = torch.Generator().manual_seed(t * h + d)
+    r = lambda *s, sc=1.0: (torch.randn(s, generator=g) * sc).to(dev)
+    xs, h0 = r(t, bsz, d), r(bsz, h, sc=0.3)
+    hs = r(t, bsz, h, sc=0.3).to(rdt)
+    d_pre = r(t, bsz, 4 * h, sc=0.01)
+    assert cf.weight_grad_plan(t, bsz, d, h, ones, wdt).slices > 1
+    before = cf.launch_counts()
+    run, outs = cf.weight_grad_entries(xs, h0, hs, d_pre, ones, wdt)
+    snap = lambda: [o.clone() for o in outs if o is not None]
+    run(0)
+    first = snap()
+    run(0)
+    second = snap()
+    run(1)
+    old = snap()
+    torch.cuda.synchronize()
+    assert cf.launch_counts() == before
+    want = [w for w in cf.weight_grad_reference(xs, h0, hs, d_pre, d, h,
+                                                ones, wdt) if w is not None]
+    assert len(want) == len(first) == (3 if ones else 2)
+    for a, b, c, w in zip(first, second, old, want):
+        assert torch.equal(a, b)
+        if not w.numel():           # dwx at D = 0
+            assert a.shape == w.shape
+            continue
+        scale = max(float(w.abs().max()), 1e-30)
+        assert float((a - w).abs().max()) <= TOL * scale
+        assert float((a - c).abs().max()) <= TOL * scale
+
+
+def test_weight_pass_refuses_a_plan_that_does_not_cover_k(dev, monkeypatch):
+    """A plan whose slices miss part of K, or whose slice is not a whole
+    number of k steps, is refused at launch: the call raises, and no
+    other pass runs in its place."""
+    from sketch_rnn_tpu_torch.ops import cuda_fused as cf
+
+    t, bsz, d, h = 9, 40, 5, 24
+    xs, h0 = torch.zeros((t, bsz, d), device=dev), torch.zeros((bsz, h),
+                                                               device=dev)
+    hs, d_pre = torch.zeros((t, bsz, h), device=dev), torch.zeros(
+        (t, bsz, 4 * h), device=dev)
+    for bad in (cf.WeightGradPlan(2, 64), cf.WeightGradPlan(1, 360),
+                cf.WeightGradPlan(20, 24)):
+        monkeypatch.setattr(cf, "weight_grad_plan", lambda *a, p=bad: p)
+        run, _ = cf.weight_grad_entries(xs, h0, hs, d_pre, 1, F32)
+        with pytest.raises(RuntimeError, match="srt_weight_grad"):
+            run(0)

@@ -142,11 +142,16 @@ without the final line. With no CUDA device it exits 2 at once.
 14. probes — ``dual_seq_fwd`` and ``seq_fwd`` (``csrc/probe_seq.cu``,
    ``sketch_rnn_tpu_torch/scripts/probe_*.py``) against their plain
    versions at the probes' shape, B=4096, T=250, H=256 (1e-2 relative;
-   the dual forward and the float32-gates arm bit for bit the
-   ``fused_lstm_seq`` forward), timed beside cuDNN's bfloat16 LSTM
-   forward (bidirectional for the dual); then each probe's A/B (its
-   ``run_probe``) with 4 calls per timing and 3 reps, counters zeroed
-   just before and read just after, its record on one line.
+   the dual forward bit for bit two launches of the float32-gates arm,
+   both within 1e-2 of the ``fused_lstm_seq`` forward), timed beside
+   cuDNN's bfloat16 LSTM forward (bidirectional for the dual);
+   probe_seq_ab, the persistent tensor-core loop of each against the
+   row-block design it replaced (3 turns of new, old, old, new); then
+   each probe's A/B (its ``run_probe``) with 4 calls per timing and 3
+   reps, counters zeroed just before and read just after, its record on
+   one line, and the dual probe's production arm (the ``fused_lstm_seq``
+   forward at B=4096, bench.py's encoder) on its own ``encoder_fwd``
+   line.
 15. probe_ladder — the LayerNorm ladder (``csrc/probe_ln.cu``,
    ``sketch_rnn_tpu_torch/scripts/probe_dec_bwd_split.py`` and
    ``probe_ln_stats.py``) at the reference probes' shape, B=4096, T=250,
@@ -2028,13 +2033,16 @@ def check_probes(card, rows):
     B=4096, T=250, H=256, D=5, with bfloat16 weights (the encoder's
     initialisation) and residuals. Each against its plain version within
     FUSED_TOL["bfloat16"] relative to each output's largest magnitude and
-    identical run to run; the dual forward and the float32-gates arm of
-    ``seq_fwd`` bit for bit the ``fused_lstm_seq`` forward kernel. The plain
-    versions are timed on the same inputs, cuDNN's bidirectional (dual)
-    and unidirectional (bf16 gates) LSTM forward, bfloat16, as the
-    yardsticks. Then each probe's A/B (``run_probe``, its main path) with
-    K=4 calls per timing and 3 reps, the probes' launch counters zeroed
-    just before and read just after, and its record on one line."""
+    identical run to run; the dual forward bit for bit two launches of
+    the float32-gates arm of ``seq_fwd`` (the same loop over one
+    direction), and both within FUSED_TOL of the production
+    ``fused_lstm_seq`` forward. The plain versions are timed on the same
+    inputs, cuDNN's bidirectional (dual) and unidirectional (bf16 gates)
+    LSTM forward, bfloat16, as the yardsticks. Then ``probe_seq_ab`` (each
+    loop against the row-block design), and each probe's A/B (``run_probe``,
+    its main path) with K=4 calls per timing and 3 reps, the probes' launch
+    counters zeroed just before and read just after, its record on one
+    line, and the dual probe's production arm on its own line."""
     import torch
 
     from sketch_rnn_tpu_torch.ops import cuda_fused as CF
@@ -2044,24 +2052,22 @@ def check_probes(card, rows):
 
     dt, tol, bf = "bfloat16", FUSED_TOL["bfloat16"], torch.bfloat16
     t, b, h, d = PROBE["t"], PROBE["b"], PROBE["h"], PROBE["d"]
+    dnames, snames = ("hs_f", "cs_f", "hs_b", "cs_b"), ("hs", "cs")
+
+    def near(name, got, want, names):
+        ab, rel, per = rel_errs(names, got, want)
+        if not rel <= tol:
+            raise AssertionError(f"{name}: rel err {rel} (tol {tol}), per "
+                                 f"output {per}")
+        return {"err": ab, "rel_err": rel, "errs": per}
 
     def hold(name, run, plain, names):
         got, again = run(), run()
         torch.cuda.synchronize()
-        ab, rel, per = rel_errs(names, got, plain())
         det = all(torch.equal(x, y) for x, y in zip(got, again))
-        if not (rel <= tol and det):
-            raise AssertionError(f"{name}: rel err {rel} (tol {tol}), per "
-                                 f"output {per}, deterministic {det}")
-        return got, {"err": ab, "rel_err": rel, "errs": per,
-                     "deterministic": det}
-
-    def bitwise(name, got, *pairs):
-        same = all(torch.equal(x, y) for x, y in zip(got, pairs))
-        if not same:
-            raise AssertionError(f"{name} is not bitwise the fused_lstm_seq "
-                                 f"forward")
-        return same
+        if not det:
+            raise AssertionError(f"{name}: two runs differ")
+        return got, dict(near(name, got, plain(), names), deterministic=det)
 
     # the checks take the encoder's own initialisation (orthogonal wh):
     # the probes' N(0, 0.1) weights make the recurrence chaotic at H=256,
@@ -2076,25 +2082,29 @@ def check_probes(card, rows):
     dargs = (xs[0], xs_rev[0], w["wx_f"], w["b_f"], w["wh_f"], w["wx_b"],
              w["b_b"], w["wh_b"])
     sargs = (xs[0], w["wx_f"], w["b_f"], w["wh_f"])
+    bargs = (xs_rev[0], w["wx_b"], w["b_b"], w["wh_b"])
     dual_plain = lambda: PD.dual_seq_fwd_plain(*dargs)
     seq_plain = lambda: PB.seq_fwd_plain(*sargs, True)
+    prod = (*CF.lstm_seq_fwd(*sargs, zc, zc, residual_dtype=bf),
+            *CF.lstm_seq_fwd(*bargs, zc, zc, residual_dtype=bf))
     out_d, r_dual = hold("dual_seq_fwd", lambda: PD.dual_seq_fwd(*dargs),
-                         dual_plain, ("hs_f", "cs_f", "hs_b", "cs_b"))
-    r_dual["bitwise_fused_lstm_seq"] = bitwise(
-        "dual_seq_fwd", out_d,
-        *CF.lstm_seq_fwd(*sargs, zc, zc, residual_dtype=bf),
-        *CF.lstm_seq_fwd(xs_rev[0], w["wx_b"], w["b_b"], w["wh_b"], zc, zc,
-                         residual_dtype=bf))
+                         dual_plain, dnames)
+    pair = (*PB.seq_fwd(*sargs, False), *PB.seq_fwd(*bargs, False))
+    if not all(torch.equal(x, y) for x, y in zip(out_d, pair)):
+        raise AssertionError("dual_seq_fwd is not bitwise two seq_fwd "
+                             "(float32 gates) launches")
+    r_dual["bitwise_seq_fwd_pair"] = True
+    r_dual["production"] = near("dual_seq_fwd vs fused_lstm_seq", out_d,
+                                prod, dnames)
+    del pair
     out_f, r_f32 = hold("seq_fwd(bf16_gates=False)",
                         lambda: PB.seq_fwd(*sargs, False),
-                        lambda: PB.seq_fwd_plain(*sargs, False), ("hs", "cs"))
-    r_f32["bitwise_fused_lstm_seq"] = bitwise(
-        "seq_fwd(bf16_gates=False)", out_f,
-        *CF.lstm_seq_fwd(*sargs, zc, zc, residual_dtype=bf))
-    del out_f
+                        lambda: PB.seq_fwd_plain(*sargs, False), snames)
+    r_f32["production"] = near("seq_fwd(bf16_gates=False) vs "
+                               "fused_lstm_seq", out_f, prod[:2], snames)
+    del out_f, prod
     out_s, r_seq = hold("seq_fwd(bf16_gates=True)",
-                        lambda: PB.seq_fwd(*sargs, True), seq_plain,
-                        ("hs", "cs"))
+                        lambda: PB.seq_fwd(*sargs, True), seq_plain, snames)
     r_seq["f32_gates_arm"] = r_f32
 
     one_dir = 2 * t * b * (d + h) * 4 * h
@@ -2121,6 +2131,7 @@ def check_probes(card, rows):
                     f" forward")
     del out_d, out_s, bi, uni
     torch.cuda.empty_cache()
+    probe_seq_ab(rows, dargs, sargs)
 
     # the A/B main paths at the probes' shape and weights
     launches = {}
@@ -2133,11 +2144,78 @@ def check_probes(card, rows):
         launches[name] = mod.launch_counts()[counter]
         if launches[name] == 0:
             raise AssertionError(f"{name}: the probe launched no kernel")
+        if rec.get("bitwise_parity") is False:
+            raise AssertionError(f"{name}: the dual launch is not bitwise "
+                                 f"two same-design launches")
         log(rec["kind"], card=card, launches=launches[name],
             fused_lstm_seq_fwd_launches=CF.launch_counts()[
                 "fused_lstm_seq_fwd"], record=rec)
         rows[name][dt].update(ms=rec[ms], record=rec)
+        if name == "dual_seq_fwd":   # the production arm: bench.py's encoder
+            log("encoder_fwd", kernel="fused_lstm_seq_fwd", dtype=dt, T=t,
+                B=b, H=h, D=d, ms=rec["single_2calls_ms"] / 2, card=card,
+                source="probe_dual_encoder.run_probe single_2calls_ms / 2")
     return launches
+
+
+# the probe loop against the row-block design it replaced, at the probes'
+# shape: turns of (new, old, old, new)
+PROBE_AB_REPS = 3
+
+
+def probe_seq_ab(rows, dargs, sargs):
+    """``srt_dual_seq_fwd`` and ``srt_seq_fwd`` (both gate forms), the
+    persistent tensor-core loop, against the row-block entries on the
+    same inputs (``check_probes``'): outputs within FUSED_TOL["bfloat16"]
+    of each other, then both timed in PROBE_AB_REPS turns (medians), each
+    line with the row's ``library_ms`` and ``bound_ms``. Uncounted
+    launches."""
+    import statistics
+
+    import torch
+
+    from sketch_rnn_tpu_torch.scripts import probe_bf16_gates as PB
+    from sketch_rnn_tpu_torch.scripts import probe_dual_encoder as PD
+
+    dt, tol = "bfloat16", FUSED_TOL["bfloat16"]
+    for row, gates, entries, names in (
+            ("dual_seq_fwd", "float32",
+             lambda: PD.dual_seq_fwd_entries(*dargs),
+             ("hs_f", "cs_f", "hs_b", "cs_b")),
+            ("seq_fwd_bf16_gates", "float32",
+             lambda: PB.seq_fwd_entries(*sargs, False), ("hs", "cs")),
+            ("seq_fwd_bf16_gates", "bfloat16",
+             lambda: PB.seq_fwd_entries(*sargs, True), ("hs", "cs"))):
+        run, outs = entries()
+        run("loop")
+        new = [o.clone() for o in outs]
+        run("rowblock")
+        torch.cuda.synchronize()
+        ab, rel, per = rel_errs(names, new, outs)
+        del new
+        if not rel <= tol:
+            raise AssertionError(f"{row} ({gates} gates): the loop and the "
+                                 f"row-block design differ by {rel} (tol "
+                                 f"{tol}), per output {per}")
+        times, _ = ab_turns({"new": lambda: run("loop"),
+                             "old": lambda: run("rowblock")},
+                            reps=PROBE_AB_REPS)
+        r = rows[row][dt]
+        res = {"ms": statistics.median(times["new"]),
+               "rowblock_ms": statistics.median(times["old"]),
+               "new_ms_all": times["new"], "rowblock_ms_all": times["old"],
+               "rowblock_err": ab, "rowblock_rel_err": rel,
+               "library_ms": r["library_ms"], "bound_ms": r["bound_ms"]}
+        res["speedup"] = res["rowblock_ms"] / res["ms"]
+        res["vs_library"] = r["library_ms"] / res["ms"]
+        log("probe_seq_ab", name=row, gates=gates, dtype=dt,
+            reps=PROBE_AB_REPS, **res)
+        if row == "seq_fwd_bf16_gates" and gates == "float32":
+            r.setdefault("ab", {})["f32_gates"] = res
+        else:
+            r.setdefault("ab", {}).update(res)
+        del run, outs
+        torch.cuda.empty_cache()
 
 
 # the LayerNorm ladder (csrc/probe_ln.cu): its arms against their plain

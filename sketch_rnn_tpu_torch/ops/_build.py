@@ -41,6 +41,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _WG = [_I, _I, _P]      # the weight pass's plan: slices, kslice, scratch
+_PS = [_I] * 5          # the probe loop's plan: slices, tiles, chunk,
+                        # windows, shared memory
 
 # argtypes of every C entry point, by library
 SIGNATURES = {
@@ -73,8 +75,10 @@ SIGNATURES = {
         "srt_lstm_seq_bwd": [_P] * 9 + [_I] * 3 + [_P] * 4 + _WG + [_P],
     },
     "probe_seq": {
-        "srt_dual_seq_fwd": [_P] * 8 + [_I] * 6 + [_F] + [_P] * 5,
-        "srt_seq_fwd": [_P] * 4 + [_I] * 6 + [_F] + [_P] * 3,
+        "srt_dual_seq_fwd": [_P] * 8 + [_I] * 5 + [_F] + _PS + [_P] * 6,
+        "srt_seq_fwd": [_P] * 4 + [_I] * 5 + [_F] + _PS + [_P] * 4,
+        "srt_dual_seq_fwd_rowblock": [_P] * 8 + [_I] * 6 + [_F] + [_P] * 5,
+        "srt_seq_fwd_rowblock": [_P] * 4 + [_I] * 6 + [_F] + [_P] * 3,
     },
     "probe_ln": {
         "srt_ln_probe_fwd": [_I] + [_P] * 11 + [_I] * 6 + [_F] * 3 + [_P] * 5,

@@ -1,12 +1,14 @@
 """Probe: bfloat16 gate transcendentals in the sequence LSTM forward.
 
 The port of ``scripts/probe_bf16_gates.py``. :func:`seq_fwd` (kernel
-``srt_seq_fwd`` of ``csrc/probe_seq.cu``) is the encoder's sequence LSTM
-forward (zero carry, no dropout, bfloat16 ``hs``/``cs``) with the gate
-block in one of two forms (``bf16_gates``):
+``srt_seq_fwd`` of ``csrc/probe_seq.cu``: the persistent loop of the dual
+encoder probe over one direction, the recurrent product on the tensor
+cores) is the encoder's sequence LSTM forward (zero carry, no dropout,
+bfloat16 ``hs``/``cs``) with the gate block in one of two forms
+(``bf16_gates``):
 
-- ``False``: the production recipe, float32 gates; the same function,
-  operation for operation, as the ``fused_lstm_seq`` forward.
+- ``False``: the production recipe, float32 gates; the same function as
+  the ``fused_lstm_seq`` forward (its sums in another order).
 - ``True``: the Pallas arm. The pre-activations rounded to bfloat16,
   then ``sigmoid(v) = 1 / (1 + exp(-v))``, the candidate's ``tanh``,
   ``i * g`` and ``tanh(c) * o`` in bfloat16 (each transcendental
@@ -16,7 +18,7 @@ block in one of two forms (``bf16_gates``):
 :func:`run_probe` times the arms, interleaved, and measures the drift of
 bfloat16 gates against float32 gates over T steps. :func:`main` prints
 the JAX script's record (its keys, ``device_kind`` from the card;
-``tile`` is the rows per block, 1 here). Run on a card:
+``tile`` is the rows of a batch tile). Run on a card:
 
     python -m sketch_rnn_tpu_torch.scripts.probe_bf16_gates [--reps 7] \\
         [--t 250] [--b 4096] [--h 256] [--d 5] [--k 8]
@@ -88,29 +90,67 @@ def seq_fwd_plain(xs, wx, b, wh, bf16_gates, forget_bias=1.0):
     return torch.stack(hs), torch.stack(cs)
 
 
+def _launchers(xs, wx, b, wh, bf16_gates, forget_bias):
+    """The checked operands' launches on one set of outputs: ``(calls,
+    (hs, cs))``, ``calls["rowblock"]`` the row-block entry and, at
+    bfloat16 weights, ``calls["loop"]`` the persistent loop (with its
+    ``hx`` scratch). The caller keeps the inputs alive."""
+    dev = xs.device
+    t, bsz, d = xs.shape
+    h, wb = _probe.check_direction(dev, t, bsz, d, xs, wx, b, wh)
+    hs = torch.empty((t, bsz, h), dtype=torch.bfloat16, device=dev)
+    cs = torch.empty_like(hs)
+    head = (xs.data_ptr(), wx.data_ptr(), b.data_ptr(), wh.data_ptr(), t,
+            bsz, d, h)
+    gf, fb, st = GATE_FORMS[bf16_gates], float(forget_bias), CF._stream(dev)
+    calls = {"rowblock": lambda: _probe.launch(
+        "srt_seq_fwd_rowblock", "seq_fwd", *head, wb, gf, fb,
+        hs.data_ptr(), cs.data_ptr(), st)}
+    if wb:
+        hx = torch.empty((1, 2, bsz, h), dtype=torch.bfloat16, device=dev)
+        plan = _probe.device_plan(dev, bsz, h, d, 1)
+        calls["loop"] = lambda: _probe.launch(
+            "srt_seq_fwd", "seq_fwd", *head, gf, fb, *plan, hs.data_ptr(),
+            cs.data_ptr(), hx.data_ptr(), st)
+    return calls, (hs, cs)
+
+
 def seq_fwd(xs, wx, b, wh, bf16_gates, forget_bias=1.0):
     """The sequence LSTM forward with the gate form ``bf16_gates`` (False
     or True): ``xs [T, B, D]`` and ``b [4H]`` float32, ``wx
     [D, 4H]`` and ``wh [H, 4H]`` of one weight dtype (float32 or
     bfloat16). Returns ``(hs, cs)``, each ``[T, B, H]`` bfloat16 (the JAX
     probe keeps ``hs`` alone). The plain version on CPU tensors; on CUDA
-    tensors the kernel, or a raise."""
+    tensors the kernel, or a raise. The kernel is chosen by the weight
+    dtype: bfloat16 weights run the persistent tensor-core loop
+    (``srt_seq_fwd``), float32 weights the row-block design
+    (``srt_seq_fwd_rowblock``), which no probe runs."""
     if bf16_gates not in GATE_FORMS:
         raise ValueError(f"bf16_gates={bf16_gates!r}: one of "
                          f"{list(GATE_FORMS)}")
     if xs.device.type == "cpu":
         return seq_fwd_plain(xs, wx, b, wh, bf16_gates, forget_bias)
-    dev = xs.device
-    t, bsz, d = xs.shape
-    h, wb = _probe.check_direction(dev, t, bsz, d, xs, wx, b, wh)
-    hs = torch.empty((t, bsz, h), dtype=torch.bfloat16, device=dev)
-    cs = torch.empty_like(hs)
-    _probe.launch("srt_seq_fwd", "seq_fwd", xs.data_ptr(), wx.data_ptr(),
-                  b.data_ptr(), wh.data_ptr(), t, bsz, d, h, wb,
-                  GATE_FORMS[bf16_gates], float(forget_bias), hs.data_ptr(),
-                  cs.data_ptr(), CF._stream(dev))
+    calls, outs = _launchers(xs, wx, b, wh, bf16_gates, forget_bias)
+    calls["loop" if wx.dtype == torch.bfloat16 else "rowblock"]()
     _launches["seq_fwd"] += 1
-    return hs, cs
+    return outs
+
+
+def seq_fwd_entries(xs, wx, b, wh, bf16_gates, forget_bias=1.0):
+    """For the A/B on the card: the persistent loop and the row-block
+    design on one set of outputs, bfloat16 weights, CUDA tensors only,
+    no launch counted. Returns ``(run, (hs, cs))``: ``run("loop")`` or
+    ``run("rowblock")`` launches one (and keeps the inputs alive)."""
+    if xs.device.type != "cuda" or wx.dtype != torch.bfloat16:
+        raise ValueError("seq_fwd_entries: CUDA tensors and bfloat16 "
+                         "weights")
+    ins = (xs, wx, b, wh)
+    calls, outs = _launchers(*ins, bf16_gates, forget_bias)
+
+    def run(design, _held=ins):
+        calls[design]()
+
+    return run, outs
 
 
 def probe_inputs(t, b, h, d, k, device="cuda"):
@@ -139,7 +179,9 @@ def run_probe(t=250, b=4096, h=256, d=5, k=8, reps=7, device="cuda"):
         return call
 
     ms_f, ms_b = _probe.interleaved([arm(g) for g in GATE_FORMS], k, reps)
-    return {"kind": "probe_bf16_gates", "T": t, "B": b, "H": h, "tile": 1,
+    plan = _probe.device_plan(dev, b, h, d, 1)
+    return {"kind": "probe_bf16_gates", "T": t, "B": b, "H": h,
+            "tile": -(-b // (plan.windows * plan.tiles)),
             "calls_per_dispatch": k, "reps": reps, "f32_gates_ms": ms_f,
             "bf16_gates_ms": ms_b, "speedup": ms_f / ms_b,
             "max_abs_err": err, "device_kind": torch.cuda.get_device_name(dev)}

@@ -949,9 +949,13 @@ def _probe_weights(h, dev, wdt):
     (40, torch.float32, torch.bfloat16)])
 def test_dual_seq_fwd_kernel_matches_plain_version(dev, h, wdt, rdt):
     """The dual-direction probe kernel against its plain version (two
-    plain sequence forwards) and against two launches of the
-    fused_lstm_seq forward kernel, which it equals bit for bit."""
+    plain sequence forwards). At bfloat16 weights (the persistent loop)
+    it equals two launches of seq_fwd's float32-gates arm (the same loop
+    over one direction) bit for bit, its outputs rounded to bfloat16 as
+    seq_fwd stores them; at float32 weights (the row-block design) two
+    launches of the fused_lstm_seq forward kernel."""
     from sketch_rnn_tpu_torch.ops import cuda_fused as cf
+    from sketch_rnn_tpu_torch.scripts import probe_bf16_gates as pb
     from sketch_rnn_tpu_torch.scripts import probe_dual_encoder as pd
 
     args = _probe_weights(h, dev, wdt)
@@ -961,19 +965,27 @@ def test_dual_seq_fwd_kernel_matches_plain_version(dev, h, wdt, rdt):
     assert pd.launch_counts()["dual_seq_fwd"] == before + 1
     _close(got, pd.dual_seq_fwd_plain(*args, residual_dtype=rdt),
            BF_TOL if torch.bfloat16 in (wdt, rdt) else TOL)
-    z = torch.zeros((FB, h), device=dev)
-    pair = (*cf.lstm_seq_fwd(args[0], *args[2:5], z, z, residual_dtype=rdt),
-            *cf.lstm_seq_fwd(args[1], *args[5:], z, z, residual_dtype=rdt))
+    if wdt == torch.bfloat16:
+        pair = (*pb.seq_fwd(args[0], *args[2:5], False),
+                *pb.seq_fwd(args[1], *args[5:], False))
+        got = [g.to(torch.bfloat16) for g in got]
+    else:
+        z = torch.zeros((FB, h), device=dev)
+        pair = (*cf.lstm_seq_fwd(args[0], *args[2:5], z, z,
+                                 residual_dtype=rdt),
+                *cf.lstm_seq_fwd(args[1], *args[5:], z, z,
+                                 residual_dtype=rdt))
     assert all(torch.equal(a, b) for a, b in zip(got, pair))
 
 
 @pytest.mark.parametrize("h,wdt", [(16, torch.bfloat16), (40, torch.float32),
                                    (40, torch.bfloat16)])
 def test_seq_fwd_kernel_both_gate_arms(dev, h, wdt):
-    """The bf16-gates probe kernel: the float32-gates arm bit for bit the
-    fused_lstm_seq forward kernel (and within a bfloat16 ulp of its plain
-    version), the bfloat16-gates arm within the bfloat16 tolerance of its
-    plain version."""
+    """The bf16-gates probe kernel: the float32-gates arm within a
+    bfloat16 ulp of its plain version and of the fused_lstm_seq forward
+    kernel (bit for bit that kernel at float32 weights, where both run
+    the row-block order of sums), the bfloat16-gates arm within the
+    bfloat16 tolerance of its plain version."""
     from sketch_rnn_tpu_torch.ops import cuda_fused as cf
     from sketch_rnn_tpu_torch.scripts import probe_bf16_gates as pb
 
@@ -986,7 +998,9 @@ def test_seq_fwd_kernel_both_gate_arms(dev, h, wdt):
     assert pb.launch_counts()["seq_fwd"] == before + 2
     same = cf.lstm_seq_fwd(xs, wx, b, wh, z, z,
                            residual_dtype=torch.bfloat16)
-    assert all(torch.equal(a, c) for a, c in zip(f32, same))
+    if wdt == torch.float32:
+        assert all(torch.equal(a, c) for a, c in zip(f32, same))
+    _close(f32, same, BF_TOL)
     _close(f32, pb.seq_fwd_plain(xs, wx, b, wh, False), BF_TOL)
     _close(bf, pb.seq_fwd_plain(xs, wx, b, wh, True), BF_TOL)
 
@@ -1025,6 +1039,104 @@ def test_lstm_seq_and_probe_wrappers_refuse_bad_inputs(dev):
         pb.seq_fwd(args[0], args[2], args[3], args[4].float(), True)
     assert (cl.launch_counts(), pd.launch_counts(),
             pb.launch_counts()) == counts
+
+
+def _loop_inputs(h, bsz, dev, seed=0, d=FD):
+    """The probe loop's operands at ``T = FT``, bfloat16 weights: ``wh``
+    at ``N(0, 0.25 / H)``, a contracting recurrence, so that the one-ulp
+    flip of a bfloat16 ``h`` where two float sums straddle a rounding
+    boundary does not grow over the steps at any H."""
+    g = torch.Generator().manual_seed(seed * 1000 + h)
+    r = lambda *s, sc=1.0: (torch.randn(s, generator=g) * sc).to(dev)
+    xs = r(FT, bsz, d)
+    w = lambda: (r(d, 4 * h, sc=0.4).to(BF16), r(4 * h, sc=0.1),
+                 r(h, 4 * h, sc=0.5 / h ** 0.5).to(BF16))
+    return (xs, torch.flip(xs, dims=(0,)).contiguous(), *w(), *w())
+
+
+# H = 8 and 24 pad k and the slice's units; B = 600 at H = 256 gives the
+# dual's tiles 75 rows, two chunks of h (64 + 11); D = 9 takes the x
+# inputs past the eight held in registers
+@pytest.mark.parametrize("h,bsz,d", [(8, 6, FD), (24, 100, 9),
+                                     (256, 600, FD)])
+def test_probe_loop_matches_plain_versions(dev, h, bsz, d):
+    """srt_dual_seq_fwd at both residual dtypes and srt_seq_fwd at both
+    gate forms (the persistent tensor-core loop) against their plain
+    versions; the dual bit for bit two single-direction launches; two
+    runs identical; one launch counted per call."""
+    from sketch_rnn_tpu_torch.scripts import probe_bf16_gates as pb
+    from sketch_rnn_tpu_torch.scripts import probe_dual_encoder as pd
+
+    args = _loop_inputs(h, bsz, dev, d=d)
+    fwd, bwd = (args[0], *args[2:5]), (args[1], *args[5:])
+    counts = (pd.launch_counts()["dual_seq_fwd"],
+              pb.launch_counts()["seq_fwd"])
+    for rdt in (F32, BF16):
+        got = pd.dual_seq_fwd(*args, residual_dtype=rdt)
+        again = pd.dual_seq_fwd(*args, residual_dtype=rdt)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        _close(got, pd.dual_seq_fwd_plain(*args, residual_dtype=rdt),
+               BF_TOL)
+    pair = (*pb.seq_fwd(*fwd, False), *pb.seq_fwd(*bwd, False))
+    assert all(torch.equal(a, b) for a, b in zip(got, pair))
+    for gates in (False, True):
+        out = pb.seq_fwd(*fwd, gates)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b)
+                   for a, b in zip(out, pb.seq_fwd(*fwd, gates)))
+        _close(out, pb.seq_fwd_plain(*fwd, gates), BF_TOL)
+    assert (pd.launch_counts()["dual_seq_fwd"],
+            pb.launch_counts()["seq_fwd"]) == (counts[0] + 4,
+                                               counts[1] + 6)
+
+
+@pytest.mark.parametrize("h,bsz", [(24, 100), (256, 600)])
+def test_probe_row_block_entries_match_plain_versions(dev, h, bsz):
+    """The row-block entries kept for the A/B (srt_dual_seq_fwd_rowblock,
+    srt_seq_fwd_rowblock) at bfloat16 weights against the plain versions
+    and within the bfloat16 tolerance of the loop; no launch counted."""
+    from sketch_rnn_tpu_torch.scripts import probe_bf16_gates as pb
+    from sketch_rnn_tpu_torch.scripts import probe_dual_encoder as pd
+
+    args = _loop_inputs(h, bsz, dev, seed=1)
+    counts = (pd.launch_counts(), pb.launch_counts())
+    cases = [(pd.dual_seq_fwd_entries(*args),
+              pd.dual_seq_fwd_plain(*args))]
+    cases += [(pb.seq_fwd_entries(args[0], *args[2:5], g),
+               pb.seq_fwd_plain(args[0], *args[2:5], g))
+              for g in (False, True)]
+    for (run, outs), plain in cases:
+        run("rowblock")
+        old = [o.clone() for o in outs]
+        run("loop")
+        torch.cuda.synchronize()
+        _close(old, plain, BF_TOL)
+        _close(outs, old, BF_TOL)
+    assert (pd.launch_counts(), pb.launch_counts()) == counts
+
+
+def test_probe_loop_refuses_a_plan_it_cannot_run(dev, monkeypatch):
+    """A plan whose blocks cannot co-reside (more tiles than the SMs
+    hold) is refused by the cooperative launch's check, and one whose
+    shared memory does not hold its tiles by the plan's check: the call
+    raises, nothing runs in its place, no launch is counted."""
+    from sketch_rnn_tpu_torch.scripts import _probe
+    from sketch_rnn_tpu_torch.scripts import probe_bf16_gates as pb
+    from sketch_rnn_tpu_torch.scripts import probe_dual_encoder as pd
+
+    h, bsz = 256, 4096
+    args = _loop_inputs(h, bsz, dev)
+    good = _probe.probe_seq_plan(bsz, h, FD, 2)
+    counts = (pd.launch_counts(), pb.launch_counts())
+    for bad in (good._replace(tiles=good.tiles * 4),
+                good._replace(smem=good.smem // 2)):
+        monkeypatch.setattr(_probe, "device_plan", lambda *a, p=bad: p)
+        with pytest.raises(RuntimeError, match="dual_seq_fwd"):
+            pd.dual_seq_fwd(*args)
+        with pytest.raises(RuntimeError, match="seq_fwd"):
+            pb.seq_fwd(args[0], *args[2:5], False)
+    assert (pd.launch_counts(), pb.launch_counts()) == counts
 
 
 # -- the LayerNorm ladder (csrc/probe_ln.cu) ---------------------------------

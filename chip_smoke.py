@@ -115,7 +115,13 @@ without the final line. With no CUDA device it exits 2 at once.
    D=133; nonzero carries; masks from ``make_dropout_masks`` at keep
    0.9): forward and backward against their plain versions (1e-4
    relative), identical run to run, timed beside the bound and cuDNN's
-   LSTM. Then its main path, ``hoisted_lstm``: the decoder's loss and
+   LSTM; lstm_seq_ab, the loops of ``csrc/lstm_loops.cuh`` that both
+   entries run against the row-block design they replaced
+   (``srt_lstm_seq_*_rowblock``) on the same inputs: the forward bit for
+   bit, the backward within FUSED_TOL and identical run to run, both timed
+   in turns (new, old, old, new; medians), the backward's split (loop,
+   weight pass); again at B=4096, T=100 (the backward's loop over windows
+   of rows). Then its main path, ``hoisted_lstm``: the decoder's loss and
    gradients through the public ``lstm_seq`` with its counters zeroed
    just before and read just after (one launch each way), against the
    same loss through the plain ``run_rnn(hoist=True)``.
@@ -936,7 +942,8 @@ def lstm_fwd_ab(name, dt, fargs, drop_kw, full, rows):
     log("lstm_fwd_ab", name=name, dtype=dt, reps=AB_REPS, **res)
 
 
-def bwd_ab(phase, name, dt, entry, stages, run, outs, names, rows):
+def bwd_ab(phase, name, dt, entry, stages, run, outs, names, rows,
+           label=None):
     """``entry`` (a backward's new design) against the row-block design it
     replaced, ``entry + "_rowblock"``, through the ``run``/``outs`` of a
     ``cuda_fused.*_bwd_entries`` helper on one set of inputs: every output
@@ -944,7 +951,8 @@ def bwd_ab(phase, name, dt, entry, stages, run, outs, names, rows):
     identical run to run, then both timed in turns with CUDA events (new,
     old, old, new; AB_REPS turns, medians), and the new entry's split: its
     launches one at a time (``entry + "_stage"``, ``stages`` in order),
-    each between its own events. Uncounted launches."""
+    each between its own events. Uncounted launches. ``label`` names the
+    shape in the record when given."""
     import statistics
 
     import torch
@@ -978,6 +986,8 @@ def bwd_ab(phase, name, dt, entry, stages, run, outs, names, rows):
            "split_ms": split, "err_vs_rowblock": ab,
            "rel_err_vs_rowblock": rel, "deterministic": det,
            "ab_phase": phase}
+    if label is not None:
+        res["shape"] = label
     res["speedup"] = res["rowblock_ms"] / res["ms"]
     rows[name][dt]["ab"] = res
     log(phase, name=name, dtype=dt, reps=AB_REPS, **res)
@@ -1930,6 +1940,73 @@ def check_hoisted_lstm(rows):
                 "off; it also computes the input projection that lstm_seq "
                 "takes precomputed", fwd_ms=lib_fwd, bwd_ms=lib_bwd,
         err_vs_kernel_no_dropout=lib_err)
+    inp = (xp, wh, c0, h0, fb, masks, dhs, dcT, dhT)
+    lstm_seq_ab(inp, rows, f"B={b}, T={t}")
+    t_w, b_w = LSTM_SEQ_AB_WINDOWS
+    wide = [tiled_rows(x[:t_w], b_w, 1) for x in (xp, masks, dhs)]
+    wide_carries = [tiled_rows(x, b_w, 0) for x in (c0, h0, dcT, dhT)]
+    lstm_seq_ab((wide[0], wh, *wide_carries[:2], fb, wide[1], wide[2],
+                 *wide_carries[2:]),
+                {n: {dt: {}} for n in ("lstm_seq_fwd", "lstm_seq_bwd")},
+                f"B={b_w}, T={t_w}")
+    del wide, wide_carries
+    torch.cuda.empty_cache()
+
+
+# lstm_seq_ab's second shape (T, B): the backward's loop runs over windows
+# of rows there (H=512 at float32 holds ~904 rows a launch)
+LSTM_SEQ_AB_WINDOWS = (100, 4096)
+LSTM_SEQ_BWD_STAGES = ("loop", "weight_pass")
+
+
+def lstm_seq_ab(inp, rows, label):
+    """``srt_lstm_seq_fwd`` / ``srt_lstm_seq_bwd`` (the loops of
+    ``csrc/lstm_loops.cuh``) against the row-block design they replaced,
+    ``srt_lstm_seq_fwd_rowblock`` / ``srt_lstm_seq_bwd_rowblock``, on the
+    inputs ``(xp, wh, c0, h0, forget_bias, masks, dhs, dcT, dhT)``: the
+    forward bit for bit, then both timed in turns with CUDA events (new,
+    old, old, new; AB_REPS turns, medians); the backward over the new
+    forward's reserve through ``bwd_ab`` (within FUSED_TOL, identical run
+    to run, the split into loop and weight pass). Uncounted launches. The
+    records go to ``rows`` under ``ab``."""
+    import statistics
+
+    import torch
+
+    from sketch_rnn_tpu_torch.ops import cuda_lstm as CL
+
+    xp, wh, c0, h0, fb, masks, dhs, dcT, dhT = inp
+    run, outs = CL.lstm_seq_fwd_entries(xp, wh, c0, h0, fb, masks)
+    names = ("hs", "cT", "hT", "gates", "cs")
+    snap = lambda: [o.clone() for o in outs]
+    run("srt_lstm_seq_fwd")
+    new = snap()
+    run("srt_lstm_seq_fwd_rowblock")
+    old = snap()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, c) for a, c in zip(new, old)):
+        ab, rel, per = rel_errs(names, new, old)
+        raise AssertionError(f"lstm_seq_fwd [{label}]: srt_lstm_seq_fwd is "
+                             f"not bitwise the row-block design: rel err "
+                             f"{rel}, per output {per}")
+    del old
+    times, _ = ab_turns({"new": lambda: run("srt_lstm_seq_fwd"),
+                         "old": lambda: run("srt_lstm_seq_fwd_rowblock")})
+    res = {"shape": label, "ms": statistics.median(times["new"]),
+           "rowblock_ms": statistics.median(times["old"]),
+           "new_ms_all": times["new"], "rowblock_ms_all": times["old"],
+           "bitwise_rowblock": True, "ab_phase": "lstm_seq_ab"}
+    res["speedup"] = res["rowblock_ms"] / res["ms"]
+    rows["lstm_seq_fwd"]["float32"]["ab"] = res
+    log("lstm_seq_ab", name="lstm_seq_fwd", dtype="float32", reps=AB_REPS,
+        **res)
+    hs, _, _, gates, cs = new
+    del run, outs
+    brun, bouts = CL.lstm_seq_bwd_entries(wh, gates, cs, hs, h0, masks, dhs,
+                                          dcT, dhT)
+    bwd_ab("lstm_seq_ab", "lstm_seq_bwd", "float32", "srt_lstm_seq_bwd",
+           LSTM_SEQ_BWD_STAGES, brun, bouts, ("dxp", "dwh", "dc0", "dh0"),
+           rows, label=label)
 
 
 def hoisted_main_path(card):

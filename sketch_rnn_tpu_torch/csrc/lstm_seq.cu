@@ -19,37 +19,70 @@
 // unmasked g, the mask on dg), dh_{t-1} = d_pre @ wh^T, dc_{t-1} = dc * f.
 // d_pre is the input gradient dxp itself. The masks get no gradient.
 //
-// Design. The recurrence of a batch row reads no other row, so the forward
-// and the backward recurrence are one block per row (grid = B) with the T
-// loop inside, one thread per hidden unit j (blockDim = H rounded up to a
-// warp, H <= 512), the carries in registers and h_{t-1} (forward) or
-// d_pre (backward) in shared memory. Forward: thread j accumulates column j
-// of the four gates over k, reading row k of wh coalesced across the
-// block. Backward: each warp owns whole rows k of wh, reads them coalesced
-// and reduces dh_{t-1}[k] by shuffles. dwh = sum over (t, b) of
-// h_{t-1}^T d_pre crosses rows; blocks run in no order, so it is not
-// summed with atomics (whose order, and so rounding, would change from run
-// to run) but by the fixed-order split-K weight pass of weight_grad.cuh
-// (K = T*B), gathering h_{t-1} from hs and h0 in place: the same bits on
-// every run.
+// Design. Both directions run on the persistent weight-resident loops of
+// lstm_loops.cuh, which fused_rnn.cu's LSTM (rows 3 and 4 of PERF.md's
+// table) runs too; fused_rnn.cu's header has their design. The first
+// design here, kept as srt_lstm_seq_fwd_rowblock and
+// srt_lstm_seq_bwd_rowblock to be held and timed beside the loops, was
+// one block per batch row (one thread per unit): at the path's B=100, 32
+// of the 132 SMs held no row, and every block read all of wh (4 MiB at
+// float) from L2 on every step both ways, ~105 GB a call, with its latency
+// exposed by the step-to-step dependency; in the backward every warp
+// reduced whole rows of wh for every batch row. The loops keep wh resident
+// in shared memory, spread over the grid: block (batch tile, slice of 16
+// units) holds the columns (forward) or rows (backward) of wh of its
+// units, so a step reads from L2 only the h (forward) or d_pre (backward)
+// rows of its tile, and the blocks exchange h through an hx [2, B, H]
+// scratch with one grid barrier per step.
+//  - Forward (srt_lstm_seq_fwd): the loop with the XStreamed x part. The
+//    xp[t] values of the chunk's rows are read while its h rows arrive by
+//    cp.async; the gate block is lstm_seq's (the forget bias on f, the mask
+//    on the candidate only) and stores the post-activation gates, cs and
+//    hs, and the final carry after the last step. Every pre-activation is
+//    xp + acc, acc one fmaf chain over k = 0..H-1 in order from 0.0f, as
+//    the row-block kernel sums it, and both take the gate block with every
+//    sum and product rounded on its own (seq_gates): the two entries agree
+//    bit for bit.
+//  - Backward (srt_lstm_seq_bwd): two launches. The loop with the
+//    GatesReserve source: per step, the gate block of each owned (row,
+//    unit) from the stored gates, cs, the mask and dhs writes d_pre into
+//    dxp and updates dc; one grid barrier; then dh_{s-1} = d_pre[s] @ wh^T
+//    for the block's rows and units (dxp read through L2), the parts summed
+//    in a fixed order. Nothing is recomputed: the reserve holds the gates.
+//    Then dwh = sum over (t, b) of h_{t-1}^T d_pre by the fixed-order
+//    split-K weight pass of weight_grad.cuh (K = T*B), gathering h_{t-1}
+//    from hs and h0 in place. The dh sums take another order than the
+//    row-block kernel's, so the two agree within tolerance; there are no
+//    atomics, so every run gives the same bits.
+// A batch whose tiles do not fit in shared memory runs as windows of rows
+// (persist.cuh); a grid that cannot co-reside is refused
+// (cudaErrorCooperativeLaunchTooLarge), never sent to the row-block design.
 //
 // Bound on the H100 at the path's shape, the `vae` decoder: B=100, T=250,
 // H=512. The products are float32 SIMT multiply-adds (67 TFLOP/s). Forward
 // 2*T*B*H*4H = 52.4 GFLOP: 0.78 ms; its bytes (xp and the gate reserve
 // 204.8 MB each, hs, cs, masks 51.2 MB each) ~0.56 GB, 0.17 ms. Backward
 // 104.9 GFLOP (the transposed product and dwh): 1.57 ms; ~0.61 GB, 0.18
-// ms. Bound by operations. This first design does not approach that: only
-// 100 of the 132 SMs hold a row, each block reads wh (4 MiB) from L2 on
-// every step, and the step-to-step dependency leaves that latency exposed.
-// The reserve writes 205 MB the recompute-backward kernels of fused_rnn.cu
-// do not, and saves the backward its gate product. Sharing wh tiles across
-// rows and tensor cores are later work; PERF.md keeps the measured times.
+// ms. Bound by operations. What holds the loops above that bound: the T
+// steps are serial, each a grid barrier plus a (B / tiles) x 16 x 4H
+// product per block whose operands come from shared memory, so latency
+// and shared-memory bandwidth bound a step, not the FLOP count. The tensor
+// cores would take TF32 operands, which round what the f32 contract keeps.
+// PERF.md keeps the measured times beside these bounds.
 
+#include "lstm_loops.cuh"
 #include "rnn_common.cuh"
 #include "weight_grad.cuh"
 
 namespace {
 
+// The row-block design (srt_lstm_seq_fwd_rowblock,
+// srt_lstm_seq_bwd_rowblock): one block per batch row with the T loop
+// inside, one thread per hidden unit j, the carries in registers and
+// h_{t-1} (forward) or d_pre (backward) in shared memory. Forward: thread
+// j accumulates column j of the four gates over k, reading row k of wh
+// coalesced across the block. Backward: each warp owns whole rows k of wh
+// and reduces dh_{t-1}[k] by shuffles.
 struct SeqFwd {
   const float* xp;     // [T, B, 4H]
   const float* wh;     // [H, 4H]
@@ -87,15 +120,21 @@ __global__ void __launch_bounds__(kMaxThreads) lstm_seq_fwd_kernel(SeqFwd a) {
 #pragma unroll
         for (int g = 0; g < 4; ++g) acc[g] = fmaf(hk, w[g * H], acc[g]);
       }
+      // seq_gates's operations (lstm_loops.cuh), each rounded on its own,
+      // written out: called as a function here, it left the k loop above
+      // a quarter of its loads in flight (26.8 ms a call at the path's
+      // shape on an H100, against 15.6 written out)
       const size_t rt = (size_t)t * B + row;
       const float* xp = a.xp + rt * G + j;
-      const float i = sigmoidf_(xp[0] + acc[0]);
-      const float gu = tanhf(xp[H] + acc[1]);
-      const float f = sigmoidf_(xp[2 * H] + acc[2] + a.forget_bias);
-      const float o = sigmoidf_(xp[3 * H] + acc[3]);
+      const float i = sigmoid_rn(__fadd_rn(xp[0], acc[0]));
+      const float gu = tanhf(__fadd_rn(xp[H], acc[1]));
+      const float f =
+          sigmoid_rn(__fadd_rn(__fadd_rn(xp[2 * H], acc[2]), a.forget_bias));
+      const float o = sigmoid_rn(__fadd_rn(xp[3 * H], acc[3]));
       const float m = a.masks != nullptr ? a.masks[rt * H + j] : 1.0f;
-      const float nc = c * f + i * (gu * m);
-      const float nh = tanhf(nc) * o;
+      const float nc =
+          __fadd_rn(__fmul_rn(c, f), __fmul_rn(i, __fmul_rn(gu, m)));
+      const float nh = __fmul_rn(tanhf(nc), o);
       float* gt = a.gates + rt * G + j;
       gt[0] = i;
       gt[H] = gu;
@@ -192,6 +231,116 @@ __global__ void __launch_bounds__(kMaxThreads) lstm_seq_bwd_kernel(SeqBwd a) {
   }
 }
 
+// The forward: the shared loop with the streamed x part (rowblock false),
+// or the row-block design (which needs no hx).
+cudaError_t seq_fwd_any(bool rowblock, const float* xp, const float* wh,
+                        const float* c0, const float* h0, const float* masks,
+                        int T, int B, int H, float forget_bias, float* hs,
+                        float* cT, float* hT, float* gates, float* cs,
+                        float* hx, cudaStream_t st) {
+  if (H < 1 || H > kMaxThreads) return cudaErrorInvalidValue;
+  if (rowblock) {
+    SeqFwd a;
+    a.xp = xp;
+    a.wh = wh;
+    a.c0 = c0;
+    a.h0 = h0;
+    a.masks = masks;
+    a.hs = hs;
+    a.cT = cT;
+    a.hT = hT;
+    a.gates = gates;
+    a.cs = cs;
+    a.T = T;
+    a.B = B;
+    a.H = H;
+    a.forget_bias = forget_bias;
+    const size_t smem = (size_t)H * sizeof(float);
+    lstm_seq_fwd_kernel<<<B, threads_for(H), smem, st>>>(a);
+    return cudaGetLastError();
+  }
+  Fwd<float, float> a;
+  a.p = make_cell<float>(nullptr, wh, nullptr, nullptr, nullptr, nullptr,
+                         nullptr, nullptr, 0, H, forget_bias);
+  a.xs = nullptr;
+  a.c0 = c0;
+  a.h0 = h0;
+  a.drop = make_dropout(masks, nullptr, 1.0f, 1.0f);
+  a.hs = hs;
+  a.cs = cs;
+  a.cT = cT;
+  a.hT = hT;
+  a.T = T;
+  a.B = B;
+  return launch_lstm_fwd_loop(a, XStreamed{xp, gates}, hx, st);
+}
+
+// The backward: stage 0 the loop then the weight pass, 1 the loop alone, 2
+// the weight pass alone, -1 the row-block design then the weight pass.
+cudaError_t seq_bwd_any(int stage, const float* wh, const float* gates,
+                        const float* cs, const float* hs, const float* h0,
+                        const float* masks, const float* dhs,
+                        const float* dcT, const float* dhT, int T, int B,
+                        int H, float* dxp, float* dwh, float* dc0, float* dh0,
+                        int wg_slices, int wg_kslice, float* wg_part,
+                        cudaStream_t st) {
+  if (H < 1 || H > kMaxThreads || stage < -1 || stage > 2)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSuccess;
+  if (stage < 0) {
+    SeqBwd a;
+    a.wh = wh;
+    a.gates = gates;
+    a.cs = cs;
+    a.masks = masks;
+    a.dhs = dhs;
+    a.dcT = dcT;
+    a.dhT = dhT;
+    a.dxp = dxp;
+    a.dc0 = dc0;
+    a.dh0 = dh0;
+    a.T = T;
+    a.B = B;
+    a.H = H;
+    const size_t smem = (size_t)5 * H * sizeof(float);
+    err = set_smem((const void*)lstm_seq_bwd_kernel, smem);
+    if (err != cudaSuccess) return err;
+    lstm_seq_bwd_kernel<<<B, threads_for(H), smem, st>>>(a);
+    err = cudaGetLastError();
+  } else if (stage != 2) {
+    Bwd<float, float> a;
+    a.p = make_cell<float>(nullptr, wh, nullptr, nullptr, nullptr, nullptr,
+                           nullptr, nullptr, 0, H, 0.0f);
+    a.xs = nullptr;
+    a.h0 = h0;
+    a.hs = hs;
+    a.cs = cs;
+    a.dhs = dhs;
+    a.dcT = dcT;
+    a.dhT = dhT;
+    a.drop = make_dropout(masks, nullptr, 1.0f, 1.0f);
+    a.dpre = dxp;
+    a.dxs = nullptr;
+    a.dxb = nullptr;
+    a.dc0 = dc0;
+    a.dh0 = dh0;
+    a.part = nullptr;
+    a.wg = {wg_slices, wg_kslice, wg_part};
+    a.T = T;
+    a.B = B;
+    LoopPlan plan;
+    err = loop_plan<GatesReserve>(a, plan);
+    if (err == cudaSuccess)
+      err = launch_loop(a, GatesReserve{gates}, plan, st);
+  }
+  if (err != cudaSuccess || stage == 1) return err;
+  // dwh: no x rows, no row of ones
+  const WgArgs<float> w = {nullptr, h0, hs, dxp, T, B, 0, H, 0,
+                           {wg_slices, wg_kslice, wg_part}, nullptr, dwh,
+                           nullptr};
+  return launch_weight_grad_pass<float>(w, st);
+}
+
 }  // namespace
 
 extern "C" {
@@ -204,67 +353,76 @@ const char* srt_error_string(int err) {
 // null. Each returns the cudaError_t of its launches (0 when all were
 // accepted).
 
+// hx: a [2, B, H] float scratch, the h exchange between the loop's blocks.
+// The cooperative loop, over windows of rows where the batch's tiles do
+// not fit at once; a grid that cannot co-reside is
+// cudaErrorCooperativeLaunchTooLarge, before any launch.
 int srt_lstm_seq_fwd(const float* xp, const float* wh, const float* c0,
                      const float* h0, const float* masks, int T, int B,
                      int H, float forget_bias, float* hs, float* cT,
-                     float* hT, float* gates, float* cs, void* stream) {
-  if (H < 1 || H > kMaxThreads) return (int)cudaErrorInvalidValue;
-  SeqFwd a;
-  a.xp = xp;
-  a.wh = wh;
-  a.c0 = c0;
-  a.h0 = h0;
-  a.masks = masks;
-  a.hs = hs;
-  a.cT = cT;
-  a.hT = hT;
-  a.gates = gates;
-  a.cs = cs;
-  a.T = T;
-  a.B = B;
-  a.H = H;
-  a.forget_bias = forget_bias;
-  const size_t smem = (size_t)H * sizeof(float);
-  lstm_seq_fwd_kernel<<<B, threads_for(H), smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+                     float* hT, float* gates, float* cs, float* hx,
+                     void* stream) {
+  return (int)seq_fwd_any(false, xp, wh, c0, h0, masks, T, B, H, forget_bias,
+                          hs, cT, hT, gates, cs, hx, (cudaStream_t)stream);
+}
+
+// The row-block design srt_lstm_seq_fwd replaced (lstm_seq_fwd_kernel),
+// kept to be held and timed beside it; hx is not used.
+int srt_lstm_seq_fwd_rowblock(const float* xp, const float* wh,
+                              const float* c0, const float* h0,
+                              const float* masks, int T, int B, int H,
+                              float forget_bias, float* hs, float* cT,
+                              float* hT, float* gates, float* cs, float* hx,
+                              void* stream) {
+  return (int)seq_fwd_any(true, xp, wh, c0, h0, masks, T, B, H, forget_bias,
+                          hs, cT, hT, gates, cs, hx, (cudaStream_t)stream);
 }
 
 // hs/h0 give h_{t-1} (h0 at t = 0) to the dwh reduction; wg_slices,
 // wg_kslice and wg_part are its split-K plan (cuda_fused.weight_grad_plan)
-// and float partials scratch, [wg_slices, H, 4H].
+// and float partials scratch, [wg_slices, H, 4H]. The cooperative loop
+// over the reserve (over windows of rows where the batch's tiles do not
+// fit at once), then the weight pass; a grid that cannot co-reside is
+// cudaErrorCooperativeLaunchTooLarge, before any launch.
 int srt_lstm_seq_bwd(const float* wh, const float* gates, const float* cs,
                      const float* hs, const float* h0, const float* masks,
                      const float* dhs, const float* dcT, const float* dhT,
                      int T, int B, int H, float* dxp, float* dwh, float* dc0,
                      float* dh0, int wg_slices, int wg_kslice,
                      float* wg_part, void* stream) {
-  if (H < 1 || H > kMaxThreads) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  SeqBwd a;
-  a.wh = wh;
-  a.gates = gates;
-  a.cs = cs;
-  a.masks = masks;
-  a.dhs = dhs;
-  a.dcT = dcT;
-  a.dhT = dhT;
-  a.dxp = dxp;
-  a.dc0 = dc0;
-  a.dh0 = dh0;
-  a.T = T;
-  a.B = B;
-  a.H = H;
-  const size_t smem = (size_t)5 * H * sizeof(float);
-  cudaError_t err = set_smem((const void*)lstm_seq_bwd_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  lstm_seq_bwd_kernel<<<B, threads_for(H), smem, st>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  // dwh: no x rows, no row of ones
-  const WgArgs<float> w = {nullptr, h0, hs, dxp, T, B, 0, H, 0,
-                           {wg_slices, wg_kslice, wg_part}, nullptr, dwh,
-                           nullptr};
-  return (int)launch_weight_grad_pass<float>(w, st);
+  return (int)seq_bwd_any(0, wh, gates, cs, hs, h0, masks, dhs, dcT, dhT, T,
+                          B, H, dxp, dwh, dc0, dh0, wg_slices, wg_kslice,
+                          wg_part, (cudaStream_t)stream);
+}
+
+// One of srt_lstm_seq_bwd's two launches (stage 1: the loop, 2: the weight
+// pass), on the same arguments, to time them apart.
+int srt_lstm_seq_bwd_stage(int stage, const float* wh, const float* gates,
+                           const float* cs, const float* hs, const float* h0,
+                           const float* masks, const float* dhs,
+                           const float* dcT, const float* dhT, int T, int B,
+                           int H, float* dxp, float* dwh, float* dc0,
+                           float* dh0, int wg_slices, int wg_kslice,
+                           float* wg_part, void* stream) {
+  if (stage < 1 || stage > 2) return (int)cudaErrorInvalidValue;
+  return (int)seq_bwd_any(stage, wh, gates, cs, hs, h0, masks, dhs, dcT, dhT,
+                          T, B, H, dxp, dwh, dc0, dh0, wg_slices, wg_kslice,
+                          wg_part, (cudaStream_t)stream);
+}
+
+// The row-block design srt_lstm_seq_bwd replaced (lstm_seq_bwd_kernel, then
+// the same weight pass), kept to be held and timed beside it.
+int srt_lstm_seq_bwd_rowblock(const float* wh, const float* gates,
+                              const float* cs, const float* hs,
+                              const float* h0, const float* masks,
+                              const float* dhs, const float* dcT,
+                              const float* dhT, int T, int B, int H,
+                              float* dxp, float* dwh, float* dc0, float* dh0,
+                              int wg_slices, int wg_kslice, float* wg_part,
+                              void* stream) {
+  return (int)seq_bwd_any(-1, wh, gates, cs, hs, h0, masks, dhs, dcT, dhT, T,
+                          B, H, dxp, dwh, dc0, dh0, wg_slices, wg_kslice,
+                          wg_part, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,5 +1,6 @@
 // The host helpers of the PyTorch port's persistent cooperative loops
-// (fused_rnn.cu's four loops, probe_seq.cu's probe loop): the card's
+// (the LSTM's two in lstm_loops.cuh, fused_rnn.cu's LayerNorm-LSTM two,
+// probe_seq.cu's probe loop): the card's
 // limits, windows of rows for a batch whose tiles do not fit in one
 // launch, and the checks made before any cooperative launch. Everything
 // sits in an unnamed namespace: each translation unit gets its own copy.

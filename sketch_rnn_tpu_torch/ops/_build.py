@@ -70,9 +70,15 @@ SIGNATURES = {
         + [_P] * 10 + _WG + [_P],
         "srt_weight_grad": [_I] + [_P] * 4 + [_I] * 7 + _WG + [_P] * 4,
     },
-    "lstm_seq": {
-        "srt_lstm_seq_fwd": [_P] * 5 + [_I] * 3 + [_F] + [_P] * 6,
+    "lstm_seq": {       # its loops are lstm_loops.cuh's, shared with
+                        # fused_rnn.cu (hashed with every source)
+        "srt_lstm_seq_fwd": [_P] * 5 + [_I] * 3 + [_F] + [_P] * 7,
+        "srt_lstm_seq_fwd_rowblock": [_P] * 5 + [_I] * 3 + [_F] + [_P] * 7,
         "srt_lstm_seq_bwd": [_P] * 9 + [_I] * 3 + [_P] * 4 + _WG + [_P],
+        "srt_lstm_seq_bwd_stage": [_I] + [_P] * 9 + [_I] * 3 + [_P] * 4
+        + _WG + [_P],
+        "srt_lstm_seq_bwd_rowblock": [_P] * 9 + [_I] * 3 + [_P] * 4 + _WG
+        + [_P],
     },
     "probe_seq": {
         "srt_dual_seq_fwd": [_P] * 8 + [_I] * 5 + [_F] + _PS + [_P] * 6,

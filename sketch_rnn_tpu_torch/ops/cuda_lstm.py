@@ -16,14 +16,25 @@ only, as the TPU kernel is.
 
 Two hand-written CUDA kernels (``csrc/lstm_seq.cu``) replace the Pallas
 pair: ``srt_lstm_seq_fwd`` the forward ``_fwd_kernel``,
-``srt_lstm_seq_bwd`` the backward ``_bwd_kernel`` (the recurrence, then
-``dwh`` by the fixed-order split-K weight pass of ``csrc/weight_grad.cuh``
-on the plan of ``cuda_fused.weight_grad_plan``: no atomics). Beside
-them are their plain PyTorch versions, :func:`lstm_seq_fwd_plain` and
-:func:`lstm_seq_bwd_plain`, which repeat the Pallas bodies step by step.
-The wrappers :func:`lstm_seq_fwd` / :func:`lstm_seq_bwd` take the plain
-version for CPU tensors; on CUDA tensors they launch the kernel or
-raise, and count each launch.
+``srt_lstm_seq_bwd`` the backward ``_bwd_kernel``. Both run on the
+persistent weight-resident loops of ``csrc/lstm_loops.cuh``, which the
+fused LSTM of ``cuda_fused`` runs too: the forward with the ``xp`` row
+streamed and the gate reserve stored, bit for bit the row-block design
+it replaced; the backward's loop from the stored gates (no recompute),
+then ``dwh`` by the fixed-order split-K weight pass of
+``csrc/weight_grad.cuh`` on the plan of ``cuda_fused.weight_grad_plan``:
+no atomics. Beside them are their plain PyTorch versions,
+:func:`lstm_seq_fwd_plain` and :func:`lstm_seq_bwd_plain`, which repeat
+the Pallas bodies step by step. The wrappers :func:`lstm_seq_fwd` /
+:func:`lstm_seq_bwd` take the plain version for CPU tensors; on CUDA
+tensors they launch the kernel or raise, and count each launch.
+
+The A/B helpers :func:`lstm_seq_fwd_entries` and
+:func:`lstm_seq_bwd_entries` drive the C entries on CUDA tensors only,
+uncounted and called by no wrapper: the loops, the row-block design they
+replaced (``srt_lstm_seq_fwd_rowblock``, ``srt_lstm_seq_bwd_rowblock``)
+and, backwards, one launch alone (``srt_lstm_seq_bwd_stage``: 1 the loop,
+2 the weight pass), each on one set of buffers.
 """
 
 from __future__ import annotations
@@ -33,8 +44,9 @@ from typing import Optional, Tuple
 import torch
 
 from sketch_rnn_tpu_torch.ops.cuda_decode import _require
-from sketch_rnn_tpu_torch.ops.cuda_fused import (MAX_HIDDEN, _ptr, _stream,
-                                                 _wg_scratch)
+from sketch_rnn_tpu_torch.ops.cuda_fused import (MAX_HIDDEN,
+                                                 _entries_on_cuda, _ptr,
+                                                 _stream, _wg_scratch)
 
 _launches = {"lstm_seq_fwd": 0, "lstm_seq_bwd": 0}
 
@@ -122,16 +134,17 @@ def _shapes(xp_or_gates, wh):
     t, b, _ = xp_or_gates.shape
     h = wh.shape[0]
     if not 0 < h <= MAX_HIDDEN:
-        raise ValueError(f"hidden size {h}: the lstm_seq kernels hold one "
-                         f"thread per hidden unit, at most {MAX_HIDDEN}")
+        raise ValueError(f"hidden size {h}: the lstm_seq kernels take at "
+                         f"most {MAX_HIDDEN} hidden units")
     return dev, t, b, h
 
 
-def lstm_seq_fwd(xp, wh, c0, h0, forget_bias=1.0, masks=None):
-    """Forward of :func:`lstm_seq`: ``(hs, cT, hT, gates, cs)`` (kernel
-    ``srt_lstm_seq_fwd``); every operand float32 and contiguous."""
-    if xp.device.type == "cpu":
-        return lstm_seq_fwd_plain(xp, wh, c0, h0, forget_bias, masks)
+def _fwd_args(xp, wh, c0, h0, forget_bias, masks):
+    """Check the forward's inputs and allocate its outputs and its ``hx``
+    scratch: ``(args, outs, hx)``, the arguments of the
+    ``srt_lstm_seq_fwd*`` entries, ``(hs, cT, hT, gates, cs)`` and the
+    ``[2, B, H]`` float scratch through which the loop's blocks exchange
+    ``h``, which the caller keeps alive while the launches use it."""
     dev, t, b, h = _shapes(xp, wh)
     f32 = torch.float32
     for n, x, shape in (("xp", xp, (t, b, 4 * h)), ("wh", wh, (h, 4 * h)),
@@ -144,23 +157,31 @@ def lstm_seq_fwd(xp, wh, c0, h0, forget_bias=1.0, masks=None):
     gates = torch.empty_like(xp)
     cT = torch.empty((b, h), dtype=f32, device=dev)
     hT = torch.empty_like(cT)
-    _launch("srt_lstm_seq_fwd", "lstm_seq forward", "lstm_seq_fwd",
-            xp.data_ptr(), wh.data_ptr(), c0.data_ptr(), h0.data_ptr(),
+    hx = torch.empty((2, b, h), dtype=f32, device=dev)
+    args = (xp.data_ptr(), wh.data_ptr(), c0.data_ptr(), h0.data_ptr(),
             _ptr(masks), t, b, h, float(forget_bias), hs.data_ptr(),
             cT.data_ptr(), hT.data_ptr(), gates.data_ptr(), cs.data_ptr(),
-            _stream(dev))
-    return hs, cT, hT, gates, cs
+            hx.data_ptr(), _stream(dev))
+    return args, (hs, cT, hT, gates, cs), hx
 
 
-def lstm_seq_bwd(wh, gates, cs, hs, h0, masks, dhs, dcT, dhT):
-    """Backward of :func:`lstm_seq`: ``(dxp, dwh, dc0, dh0)`` (kernel
-    ``srt_lstm_seq_bwd``: the recurrence over the reserve, then the
-    fixed-order ``dwh`` reduction, ``h_{t-1}`` read from ``hs``/``h0`` in
-    place)."""
-    if gates.device.type == "cpu":
-        h_prev = torch.cat([h0[None], hs[:-1]], dim=0)
-        return lstm_seq_bwd_plain(wh, gates, cs, h_prev, masks, dhs, dcT,
-                                  dhT)
+def lstm_seq_fwd(xp, wh, c0, h0, forget_bias=1.0, masks=None):
+    """Forward of :func:`lstm_seq`: ``(hs, cT, hT, gates, cs)`` (kernel
+    ``srt_lstm_seq_fwd``, the cooperative loop); every operand float32
+    and contiguous."""
+    if xp.device.type == "cpu":
+        return lstm_seq_fwd_plain(xp, wh, c0, h0, forget_bias, masks)
+    args, outs, _hx = _fwd_args(xp, wh, c0, h0, forget_bias, masks)
+    _launch("srt_lstm_seq_fwd", "lstm_seq forward", "lstm_seq_fwd", *args)
+    return outs
+
+
+def _bwd_args(wh, gates, cs, hs, h0, masks, dhs, dcT, dhT):
+    """Check the backward's inputs and allocate its outputs and the weight
+    pass's scratch: ``(args, outs, part)``, the arguments of the
+    ``srt_lstm_seq_bwd*`` entries (without the stage), ``(dxp, dwh, dc0,
+    dh0)`` and the partials scratch, which the caller keeps alive while
+    the launches use it."""
     dev, t, b, h = _shapes(gates, wh)
     f32 = torch.float32
     for n, x, shape in (("wh", wh, (h, 4 * h)), ("gates", gates,
@@ -175,13 +196,77 @@ def lstm_seq_bwd(wh, gates, cs, hs, h0, masks, dhs, dcT, dhT):
     dwh = torch.empty_like(wh)
     dc0 = torch.empty((b, h), dtype=f32, device=dev)
     dh0 = torch.empty_like(dc0)
-    wg, _wg_part = _wg_scratch(t, b, 0, h, 0, f32, dev)  # dwh's partials
-    _launch("srt_lstm_seq_bwd", "lstm_seq backward", "lstm_seq_bwd",
-            wh.data_ptr(), gates.data_ptr(), cs.data_ptr(), hs.data_ptr(),
+    wg, part = _wg_scratch(t, b, 0, h, 0, f32, dev)  # dwh's partials
+    args = (wh.data_ptr(), gates.data_ptr(), cs.data_ptr(), hs.data_ptr(),
             h0.data_ptr(), _ptr(masks), dhs.data_ptr(), dcT.data_ptr(),
             dhT.data_ptr(), t, b, h, dxp.data_ptr(), dwh.data_ptr(),
             dc0.data_ptr(), dh0.data_ptr(), *wg, _stream(dev))
-    return dxp, dwh, dc0, dh0
+    return args, (dxp, dwh, dc0, dh0), part
+
+
+def lstm_seq_bwd(wh, gates, cs, hs, h0, masks, dhs, dcT, dhT):
+    """Backward of :func:`lstm_seq`: ``(dxp, dwh, dc0, dh0)`` (kernel
+    ``srt_lstm_seq_bwd``: the cooperative loop over the reserve, then the
+    fixed-order ``dwh`` reduction, ``h_{t-1}`` read from ``hs``/``h0`` in
+    place)."""
+    if gates.device.type == "cpu":
+        h_prev = torch.cat([h0[None], hs[:-1]], dim=0)
+        return lstm_seq_bwd_plain(wh, gates, cs, h_prev, masks, dhs, dcT,
+                                  dhT)
+    args, outs, _part = _bwd_args(wh, gates, cs, hs, h0, masks, dhs, dcT,
+                                  dhT)
+    _launch("srt_lstm_seq_bwd", "lstm_seq backward", "lstm_seq_bwd", *args)
+    return outs
+
+
+# -- the A/B helpers ----------------------------------------------------------
+
+
+def lstm_seq_fwd_entries(xp, wh, c0, h0, forget_bias=1.0, masks=None):
+    """The C entries behind :func:`lstm_seq_fwd` on CUDA tensors, for the
+    A/B of the forward's two designs; no wrapper calls it, and it counts
+    no launch. Returns ``(run, outs)``: ``run(entry)`` launches
+    ``"srt_lstm_seq_fwd"`` (the cooperative loop) or
+    ``"srt_lstm_seq_fwd_rowblock"`` (the row-block design it replaced) on
+    one set of buffers, and keeps the inputs alive (the entries take raw
+    addresses); ``outs`` are ``(hs, cT, hT, gates, cs)`` as the last
+    launch left them."""
+    from sketch_rnn_tpu_torch.ops import _build
+
+    _entries_on_cuda("lstm_seq_fwd_entries", xp)
+    args, outs, hx = _fwd_args(xp, wh, c0, h0, forget_bias, masks)
+    lib = _build.load("lstm_seq")
+    held = (hx, xp, wh, c0, h0, masks)
+
+    def run(entry, _held=held):     # holds the scratch and the inputs
+        _build.check(lib, getattr(lib, entry)(*args), entry)
+
+    return run, outs
+
+
+def lstm_seq_bwd_entries(wh, gates, cs, hs, h0, masks, dhs, dcT, dhT):
+    """The C entries behind :func:`lstm_seq_bwd` on CUDA tensors, for the
+    A/B of the backward's two designs; no wrapper calls it, and it counts
+    no launch. Returns ``(run, outs)``: ``run(entry, stage=0)`` launches
+    ``"srt_lstm_seq_bwd"`` (the loop, then the weight pass),
+    ``"srt_lstm_seq_bwd_rowblock"`` (the row-block design it replaced,
+    then the same weight pass) or, with ``stage`` 1 or 2,
+    ``"srt_lstm_seq_bwd_stage"`` (the loop or the weight pass alone), all
+    on one set of buffers, and keeps the inputs alive; ``outs`` are
+    ``(dxp, dwh, dc0, dh0)`` as the last launches left them."""
+    from sketch_rnn_tpu_torch.ops import _build
+
+    _entries_on_cuda("lstm_seq_bwd_entries", gates)
+    args, outs, part = _bwd_args(wh, gates, cs, hs, h0, masks, dhs, dcT,
+                                 dhT)
+    lib = _build.load("lstm_seq")
+    held = (part, wh, gates, cs, hs, h0, masks, dhs, dcT, dhT)
+
+    def run(entry, stage=0, _held=held):   # holds the scratch and inputs
+        pre = (stage,) if entry == "srt_lstm_seq_bwd_stage" else ()
+        _build.check(lib, getattr(lib, entry)(*pre, *args), entry)
+
+    return run, outs
 
 
 # -- the autograd Function --------------------------------------------------

@@ -1,9 +1,11 @@
 """Where the time of the LSTM forward's cooperative loop goes.
 
-``srt_lstm_fwd`` (``csrc/fused_rnn.cu``, ``lstm_fwd_loop_kernel``) runs
+``srt_lstm_fwd`` (``csrc/fused_rnn.cu``; its ``lstm_fwd_loop_kernel``
+lives in ``csrc/lstm_loops.cuh``, shared with ``csrc/lstm_seq.cu``) runs
 T serial steps, each a grid barrier, an exchange of h through L2 and a
-product from resident weights. This script builds the source a second
-time with ``clock64()`` marks in that kernel (inserted at the source
+product from resident weights. This script builds ``fused_rnn.cu`` a
+second time, the header spliced in with ``clock64()`` marks in that
+kernel (inserted at the source
 lines of ``MARKS``; thread 0 of every block sums the cycles between
 marks) and, with ``--rows``, with the rows per thread forced, and runs
 each build's ``srt_lstm_fwd`` at the training shapes: B=100, T=250, D=5,
@@ -50,7 +52,7 @@ PHASES = ("fetch", "x_part", "part_wait", "product", "gate", "tail_sync",
           "grid_sync")
 MAX_BLOCKS = 1024
 # (source line, where the mark goes, phase the cycles since the last mark
-# are booked to); each line appears once in lstm_fwd_loop_kernel
+# are booked to); each line appears once in csrc/lstm_loops.cuh
 MARKS = (
     ("                      kp);\n", "after", "fetch"),
     ("      // h @ wh: one in-order fmaf chain over k per output, part by "
@@ -67,7 +69,9 @@ MARKS = (
     ("    grid.sync();  // hx[t & 1] complete across the grid\n", "after",
      "grid_sync"),
 )
-KERNEL = "template <typename W, typename R, int ROWS>\n__global__"
+KERNEL = ("template <typename W, typename R, int ROWS, typename X>\n"
+          "__global__")
+HEADER = '#include "lstm_loops.cuh"\n'    # spliced into fused_rnn.cu
 START = ("  __syncthreads();  // the resident state, before the first x part "
          "reads it\n")
 END = "  if (a.cT != nullptr && a.T == 0) {"
@@ -78,15 +82,17 @@ T, B, D, KEEP = 250, 100, 5, 0.9
 
 def _insert(src, line, text, before):
     if src.count(line) != 1:
-        raise ValueError(f"csrc/fused_rnn.cu changed: {line.strip()!r} is "
-                         f"not one line of the forward kernel; update MARKS")
+        raise ValueError(f"csrc/lstm_loops.cuh changed: {line.strip()!r} "
+                         f"is not one line of the forward kernel; update "
+                         f"MARKS")
     return src.replace(line, text + line if before else line + text)
 
 
 def instrumented_source(rows=None):
-    """``csrc/fused_rnn.cu`` with the marks (and ``rows`` per thread
-    forced when given), plus ``srt_fwd_profile`` to read the sums."""
-    src = (_build.CSRC / "fused_rnn.cu").read_text()
+    """``csrc/fused_rnn.cu`` with ``csrc/lstm_loops.cuh`` spliced in,
+    the marks in its forward loop (and ``rows`` per thread forced when
+    given), plus ``srt_fwd_profile`` to read the sums."""
+    src = (_build.CSRC / "lstm_loops.cuh").read_text()
     src = _insert(src, KERNEL, f"__device__ unsigned long long "
                   f"g_prof[{MAX_BLOCKS * 8}];\n", True)
     src = _insert(src, START,
@@ -107,6 +113,11 @@ def instrumented_source(rows=None):
     if rows is not None:
         src = _insert(src, ROWS_RULE, f"  g.rows = {int(rows)};\n", False)
         src = src.replace(ROWS_RULE, "")
+    fused = (_build.CSRC / "fused_rnn.cu").read_text()
+    if fused.count(HEADER) != 1:
+        raise ValueError("csrc/fused_rnn.cu no longer includes "
+                         "lstm_loops.cuh once; update HEADER")
+    src = fused.replace(HEADER, src)
     return src + ('\nextern "C" int srt_fwd_profile(unsigned long long* out, '
                   'int n) {\n  return (int)cudaMemcpyFromSymbol(out, g_prof, '
                   'n * sizeof(unsigned long long));\n}\n')

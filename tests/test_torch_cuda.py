@@ -934,6 +934,63 @@ def test_lstm_seq_kernels_match_plain_versions(dev, h, masks):
     assert all(torch.equal(a, b) for a, b in zip(auto, grads))
 
 
+# lstm_seq's loops against its row-block design: H=16 is one slice, H=40
+# three uneven ones, H=512 the decoder's width; T=1 one step; B=100 fills
+# the SMs with tiles; at H=512, B=1000 the backward's loop runs in two
+# windows of rows (a float32 launch holds ~904)
+@pytest.mark.parametrize("h,t,bsz,masks", [
+    (16, FT, FB, True), (40, 1, 3, False), (40, FT, 100, True),
+    (512, 3, 100, False), (512, 2, 1000, True)])
+def test_lstm_seq_matches_row_block_design(dev, h, t, bsz, masks):
+    """srt_lstm_seq_fwd / srt_lstm_seq_bwd (the loops of
+    csrc/lstm_loops.cuh) against srt_lstm_seq_*_rowblock through the A/B
+    helpers, on nonzero carries and cotangents: the forward bit for bit,
+    the backward within 1e-4 of the row-block entry and of the plain
+    version, the same bits run to run and stage by stage (the loop, then
+    the weight pass); no launch counted."""
+    from sketch_rnn_tpu_torch.ops import cuda_lstm as cl
+
+    g = torch.Generator().manual_seed(h + bsz)
+    r = lambda *s, sc=1.0: (torch.randn(s, generator=g) * sc).to(dev)
+    xp, wh = r(t, bsz, 4 * h, sc=0.5), r(h, 4 * h, sc=1.5 / h ** 0.5)
+    c0, h0 = r(bsz, h, sc=0.3), r(bsz, h, sc=0.3)
+    dhs, dcT, dhT = r(t, bsz, h, sc=0.1), r(bsz, h, sc=0.1), r(bsz, h,
+                                                               sc=0.1)
+    m = ((torch.rand((t, bsz, h), generator=g) < 0.9).float() / 0.9).to(
+        dev) if masks else None
+    before = cl.launch_counts()
+    snap = lambda outs: [o.clone() for o in outs]
+    run, outs = cl.lstm_seq_fwd_entries(xp, wh, c0, h0, 1.0, m)
+    run("srt_lstm_seq_fwd")
+    first = snap(outs)
+    run("srt_lstm_seq_fwd")
+    second = snap(outs)
+    run("srt_lstm_seq_fwd_rowblock")
+    old = snap(outs)
+    hs, _, _, gates, cs = first
+    brun, bouts = cl.lstm_seq_bwd_entries(wh, gates, cs, hs, h0, m, dhs, dcT,
+                                          dhT)
+    brun("srt_lstm_seq_bwd")
+    bfirst = snap(bouts)
+    brun("srt_lstm_seq_bwd")
+    bsecond = snap(bouts)
+    brun("srt_lstm_seq_bwd_stage", 1)
+    brun("srt_lstm_seq_bwd_stage", 2)
+    bstaged = snap(bouts)
+    brun("srt_lstm_seq_bwd_rowblock")
+    bold = snap(bouts)
+    torch.cuda.synchronize()
+    assert cl.launch_counts() == before
+    for a, b, c in zip(first, second, old):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    for a, b, c in zip(bfirst, bsecond, bstaged):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    h_prev = torch.cat([h0[None], hs[:-1]])
+    _close(bfirst, bold, 1e-4)
+    _close(bfirst, cl.lstm_seq_bwd_plain(wh, gates, cs, h_prev, m, dhs, dcT,
+                                         dhT), 1e-4)
+
+
 def _probe_weights(h, dev, wdt):
     g = torch.Generator().manual_seed(h)
     r = lambda *s, sc=1.0: (torch.randn(s, generator=g) * sc).to(dev)

@@ -18,7 +18,12 @@ the JAX ``LSTMCell`` carried across with ``convert.py``.
   gradients up to ~3);
 - ``lstm_seq`` against the port's own ``run_rnn(hoist=True)`` (the plain
   scan it fuses) and its autodiff;
-- ``make_dropout_masks`` and ``prng.bernoulli`` bitwise JAX's.
+- ``make_dropout_masks`` and ``prng.bernoulli`` bitwise JAX's;
+- one more case of the forward and gradient tests at a ragged H=40 and
+  B=1 (the card's loops cut H into uneven slices, B into tiles);
+- the A/B helpers (``lstm_seq_fwd_entries``, ``lstm_seq_bwd_entries``)
+  refuse CPU tensors: the path to the row-block design has no plain
+  fallback.
 """
 
 import jax
@@ -41,21 +46,28 @@ FWD = dict(rtol=2e-5, atol=2e-6)
 GRAD = dict(rtol=2e-5, atol=2e-5)
 
 
-def _inputs(seed=0, carry=False, masks=False):
+def _inputs(seed=0, carry=False, masks=False, h=H, b=B):
     """numpy operands: the JAX cell's weights, ``xp`` from its
     ``precompute_inputs``, carries, masks (keep 0.8), cotangents."""
-    cell = JLSTMCell(H)
+    cell = JLSTMCell(h)
     params = jax.device_get(cell.init_params(jax.random.key(seed), D))
     rng = np.random.default_rng(seed)
-    xs = rng.normal(size=(T, B, D)).astype(np.float32)
+    xs = rng.normal(size=(T, b, D)).astype(np.float32)
     xp = np.asarray(cell.precompute_inputs(params, jnp.asarray(xs)))
-    c0, h0 = ((rng.normal(size=(B, H)) * 0.5).astype(np.float32)
-              if carry else np.zeros((B, H), np.float32) for _ in range(2))
-    m = np.asarray(jmasks(jax.random.key(9), 0.8, T, B, H)) if masks \
+    c0, h0 = ((rng.normal(size=(b, h)) * 0.5).astype(np.float32)
+              if carry else np.zeros((b, h), np.float32) for _ in range(2))
+    m = np.asarray(jmasks(jax.random.key(9), 0.8, T, b, h)) if masks \
         else None
     cot = [(rng.normal(size=s) * 0.1).astype(np.float32)
-           for s in ((T, B, H), (B, H), (B, H))]
+           for s in ((T, b, h), (b, h), (b, h))]
     return params, xs, xp, c0, h0, m, cot
+
+
+def _cases(pairs):
+    """``(carry, masks)`` pairs at the module's H and B, ids as before,
+    then the ragged case: H=40, B=1, carries and masks."""
+    return ([pytest.param(c, m, H, B, id=f"{c}-{m}") for c, m in pairs]
+            + [pytest.param(True, True, 40, 1, id="H40-B1")])
 
 
 def _t(a):
@@ -66,10 +78,11 @@ def _np(t):
     return t.detach().numpy()
 
 
-@pytest.mark.parametrize("carry,masks", [(False, False), (False, True),
-                                         (True, False), (True, True)])
-def test_forward_matches_jax(carry, masks):
-    params, _, xp, c0, h0, m, _ = _inputs(carry=carry, masks=masks)
+@pytest.mark.parametrize("carry,masks,h,b", _cases(
+    [(False, False), (False, True), (True, False), (True, True)]))
+def test_forward_matches_jax(carry, masks, h, b):
+    params, _, xp, c0, h0, m, _ = _inputs(carry=carry, masks=masks, h=h,
+                                          b=b)
     jhs, (jc, jh) = jlstm_seq(*map(jnp.asarray, (xp, params["wh"], c0, h0)),
                               1.0, None if m is None else jnp.asarray(m))
     hs, (cT, hT) = cl.lstm_seq(*map(_t, (xp, params["wh"], c0, h0)), 1.0,
@@ -78,11 +91,11 @@ def test_forward_matches_jax(carry, masks):
         np.testing.assert_allclose(_np(b), np.asarray(a), **FWD)
 
 
-@pytest.mark.parametrize("carry,masks", [(False, True), (True, False),
-                                         (True, True)])
-def test_gradients_match_jax(carry, masks):
-    params, _, xp, c0, h0, m, (w_hs, w_c, w_h) = _inputs(carry=carry,
-                                                         masks=masks)
+@pytest.mark.parametrize("carry,masks,h,b", _cases(
+    [(False, True), (True, False), (True, True)]))
+def test_gradients_match_jax(carry, masks, h, b):
+    params, _, xp, c0, h0, m, (w_hs, w_c, w_h) = _inputs(
+        carry=carry, masks=masks, h=h, b=b)
     jm = None if m is None else jnp.asarray(m)
 
     def jloss(*a):
@@ -99,6 +112,23 @@ def test_gradients_match_jax(carry, masks):
     tg = torch.autograd.grad(loss, leaves)
     for n, a, b in zip(("dxp", "dwh", "dc0", "dh0"), jg, tg):
         np.testing.assert_allclose(_np(b), np.asarray(a), err_msg=n, **GRAD)
+
+
+def test_ab_helpers_refuse_cpu_tensors():
+    """The A/B helpers drive the C entries (the loops and the row-block
+    design) and have no plain version: CPU tensors raise, and no launch
+    is counted."""
+    params, _, xp, c0, h0, m, (dhs, dcT, dhT) = _inputs(carry=True,
+                                                        masks=True)
+    xp, wh, c0, h0, m = map(_t, (xp, params["wh"], c0, h0, m))
+    hs, _, _, gates, cs = cl.lstm_seq_fwd(xp, wh, c0, h0, 1.0, m)
+    before = cl.launch_counts()
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        cl.lstm_seq_fwd_entries(xp, wh, c0, h0, 1.0, m)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        cl.lstm_seq_bwd_entries(wh, gates, cs, hs, h0, m,
+                                *map(_t, (dhs, dcT, dhT)))
+    assert cl.launch_counts() == before
 
 
 def test_masks_get_no_gradient():

@@ -1,8 +1,9 @@
 """The LSTM forward's profile script on the CPU.
 
 ``sketch_rnn_tpu_torch/scripts/profile_lstm_fwd.py`` builds
-``csrc/fused_rnn.cu`` a second time with clock marks inserted at fixed
-lines of the forward's cooperative kernel, and runs that build on the
+``csrc/fused_rnn.cu`` a second time with ``csrc/lstm_loops.cuh`` spliced
+in and clock marks inserted at fixed lines of the forward's cooperative
+kernel there, and runs that build on the
 card. Here, without a card: every mark finds its line (a changed kernel
 fails here, not in a chip run), the ``--rows`` builds replace the rows
 rule, and the script refuses to run without a card.
@@ -27,8 +28,12 @@ def test_instrumented_source_marks_every_phase(rows):
     else:
         assert P.ROWS_RULE not in src
         assert f"  g.rows = {rows};\n" in src
-    # the production source is read, never written
-    assert "mark_(" not in (_build.CSRC / "fused_rnn.cu").read_text()
+    # the header is spliced in once; the production sources are read,
+    # never written
+    assert P.HEADER not in src
+    assert src.count("\nlstm_fwd_loop_kernel(Fwd<W, R> a") == 1
+    for name in ("fused_rnn.cu", "lstm_loops.cuh"):
+        assert "mark_(" not in (_build.CSRC / name).read_text()
 
 
 def test_profile_needs_a_card(monkeypatch):

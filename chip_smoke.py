@@ -58,6 +58,13 @@ without the final line. With no CUDA device it exits 2 at once.
      ``srt_ln_lstm_bwd_rowblock``, at the decoder's shape of
      ``fused_ln_lstm`` above (x_bias, seeded dropout) and both dtypes: the
      same checks and timings, the split into its four launches;
+   - hyper_lstm_bwd_ab: ``srt_hyper_bwd`` (the hoisted recompute and
+     statistics, the cooperative loop with five grid barriers a step,
+     dxs, the eleven products on the split-K weight pass, the row sums)
+     against the row-block design it replaced, ``srt_hyper_bwd_rowblock``,
+     at the ``hyper`` preset's shape of ``fused_hyper_lstm`` above and
+     both dtypes: the same checks and timings, the split into its six
+     stages; the backward's kernel line also carries its loop's plan;
    - kernel_library: cuDNN's LSTM (``torch.nn.LSTM``, TF32 off) timed
      beside ``fused_lstm_seq`` and ``fused_lstm`` (over the unfolded
      inputs [x; z], D=133) as a yardstick only;
@@ -67,7 +74,9 @@ without the final line. With no CUDA device it exits 2 at once.
      shape (H=256, B=4096, bfloat16), T=8: batches whose tiles do not fit
      in shared memory at once, run as launches over windows of rows,
      against the row-block entry (bitwise for ``srt_lstm_fwd``, FUSED_TOL
-     for the others), identical run to run, both timed in turns.
+     for the others), identical run to run, both timed in turns; then
+     ``srt_hyper_bwd`` at H=512, HH=256, e=32, B=8192, T=8, float32 (its
+     loop over windows of rows), as in hyper_lstm_bwd_ab.
 4. serve   — the serving main path: ``ServeEngine`` at the full
    ``layer_norm`` preset (conditional VAE, bi-LSTM encoder 256,
    LayerNorm-LSTM decoder 512, serve_slots=64, serve_chunk=8,
@@ -866,6 +875,8 @@ def library_times(lstm, xs, h0, c0, dhs, grad_inputs):
 AB_REPS = 5        # turns of (new, row-block, row-block, new) per A/B
 LSTM_BWD_STAGES = ("recompute", "loop", "weight_pass")
 LN_BWD_STAGES = ("recompute", "statistics", "loop", "weight_pass")
+HYPER_BWD_STAGES = ("recompute", "statistics", "loop", "dxs", "products",
+                    "row_sums")
 
 
 def timed_calls(calls):
@@ -1013,6 +1024,18 @@ def ln_lstm_bwd_ab(dt, bargs, drop_kw, rows):
     bwd_ab("ln_lstm_bwd_ab", "fused_ln_lstm_bwd", dt, "srt_ln_lstm_bwd",
            LN_BWD_STAGES, run, outs, FUSED_OUTPUTS["fused_ln_lstm_bwd"],
            rows)
+
+
+def hyper_lstm_bwd_ab(dt, bargs, drop_kw, rows, label=None):
+    """``srt_hyper_bwd`` (the hoisted recompute and statistics, the
+    cooperative loop, dxs, the eleven products on the split-K pass, the
+    row sums) against ``srt_hyper_bwd_rowblock`` (``bwd_ab``)."""
+    from sketch_rnn_tpu_torch.ops import cuda_fused as CF
+
+    run, outs = CF.hyper_lstm_bwd_entries(**bargs, **drop_kw)
+    bwd_ab("hyper_lstm_bwd_ab", "fused_hyper_lstm_bwd", dt, "srt_hyper_bwd",
+           HYPER_BWD_STAGES, run, outs, FUSED_OUTPUTS["fused_hyper_lstm_bwd"],
+           rows, label)
 
 
 def ln_lstm_fwd_ab(dt, fargs, drop_kw, label):
@@ -1627,8 +1650,51 @@ def check_hyper(inp, rows):
                {**bargs, **seed_kw}, 3, 3 * w_flops,
                nbytes(*operands, carries[1], carries[3], *fwd[:4], *cots,
                       *grads), rows, f32_flops=3 * zd_flops,
-               scratch_bytes=CF.hyper_scratch_bytes(t, b, h, hh, e),
-               call_peak_bytes=peak)
+               scratch_bytes=CF.hyper_scratch_bytes(t, b, d, h, hh, e, wdt),
+               call_peak_bytes=peak,
+               plan=CF.hyper_bwd_plan(b, h, hh, e, wdt)._asdict())
+    hyper_lstm_bwd_ab(dt, bargs, seed_kw, rows)
+
+
+# the HyperLSTM backward's loop over windows of rows: (T, B, H, HH, e)
+HYPER_WINDOW_CASE = (WINDOW_T, 8192, 512, 256, 32)
+
+
+def check_hyper_windows():
+    """``srt_hyper_bwd`` at a batch whose tiles take several windows of
+    rows (HYPER_WINDOW_CASE, float32, seeded operands, dropout seeded)
+    against the row-block entry on the same inputs (``bwd_ab``: within
+    FUSED_TOL, identical run to run, timed in turns with its split);
+    uncounted launches, its own record (not a kernel row's)."""
+    import torch
+
+    from sketch_rnn_tpu_torch.ops import cuda_fused as CF
+    from sketch_rnn_tpu_torch.utils import prng
+
+    t_phase = time.perf_counter()
+    t, b, h, hh, e = HYPER_WINDOW_CASE
+    xs, w, carries, biases, cots = hyper_kernel_inputs(t, b, 5, h, hh, e,
+                                                       "float32", seed=3)
+    seed = prng.randint(prng.key(9), 0, 2 ** 31 - 1).to(DEV)
+    c0, h0, hc0, hh0 = carries
+    common = dict(xs=xs, w=w, forget_bias=1.0, x_bias=biases[0],
+                  x_bias_hyper=biases[1])
+    drop = dict(dropout_seed=seed, keep_prob=KEEP)
+    hs, cs, hycs, hyhs = CF.hyper_lstm_fwd(**common, c0=c0, h0=h0, hc0=hc0,
+                                           hh0=hh0, **drop)[:4]
+    dhs, dcT, dhT, dhcT, dhhT = cots
+    bargs = dict(common, h0=h0, hh0=hh0, hs=hs, cs=cs, hycs=hycs, hyhs=hyhs,
+                 dhs=dhs, dcT=dcT, dhT=dhT, dhcT=dhcT, dhhT=dhhT)
+    plan = CF.hyper_bwd_plan(b, h, hh, e)
+    rows = {"fused_hyper_lstm_bwd": {"float32": {}}}
+    hyper_lstm_bwd_ab("float32", bargs, drop, rows,
+                      label=f"windows: T={t}, B={b}, H={h}, HH={hh}, e={e}, "
+                            f"{plan.windows} windows")
+    log("batch_windows", entry="srt_hyper_bwd", H=h, HH=hh, e=e, B=b, T=t,
+        dtype="float32", plan=plan._asdict(),
+        seconds=time.perf_counter() - t_phase)
+    del bargs, hs, cs, hycs, hyhs, xs, w, carries, biases, cots
+    torch.cuda.empty_cache()
 
 
 def train_main_path(card, hps, phase, label, per_step, steps, warm,
@@ -2654,6 +2720,7 @@ def main():
         check_hyper_narrow(dt)
     torch.cuda.empty_cache()
     check_batch_windows()
+    check_hyper_windows()
 
     launches = serve_main_path(card, "bfloat16")
     serve_main_path(card, "float32")

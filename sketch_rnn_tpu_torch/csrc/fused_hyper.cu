@@ -42,56 +42,122 @@
 // weight-gradient sums; every bias gradient, both x_bias gradients and the
 // LN sums take the unrounded values.
 //
-// Design. One block per batch row, the T loop inside, blockDim =
-// max(H, HH) rounded up to a warp (both <= 512); every phase is guarded or
-// strided, so H, HH and 4e may stand in any order. Thread j < H owns column
-// j of the four main gates, thread j < HH column j of the auxiliary LSTM's
-// state. Within a step, each phase behind a __syncthreads():
+// Design of the forward (srt_hyper_fwd): one block per batch row, the T
+// loop inside, blockDim = max(H, HH) rounded up to a warp (both <= 512);
+// every phase is guarded or strided, so H, HH and 4e may stand in any
+// order. Thread j < H owns column j of the four main gates, thread j < HH
+// column j of the auxiliary LSTM's state. Within a step, each phase behind
+// a __syncthreads() (hyper_step):
 //   1. the 4HH auxiliary pre-activations, strided over ALL threads (up to
-//      four columns a thread at once, so the block's upper half is not
-//      idle when HH < H), into shared memory; x @ wx and h @ wh of the
-//      thread's own four main columns into registers;
-//   2. the auxiliary gates (threads j < HH); hh_new rounded to W into
-//      shared memory;
+//      four columns a thread at once), into shared memory; x @ wx and h @
+//      wh of the thread's own four main columns into registers;
+//   2. the auxiliary gates (threads j < HH); hh_new rounded to W;
 //   3. the 12e values of z_x, z_h, z_b, strided, into shared memory;
 //   4. the thread's twelve block products (length e), pre, and the
 //      LayerNorm-LSTM gate block shared with fused_ln_lstm
 //      (rnn_common.cuh: block-wide two-pass statistics).
-// Backwards, after the gate block: dz (12e outputs, each a length-H dot
-// of a shared ds vector with one contiguous zd row: one warp per output,
-// shuffle-reduced); dhh (one warp per row of the three w_hz); the
-// auxiliary gates' backward; then the transposed products, one warp per
-// row of [wx|wxh_x], [wh|wxh_h], whh, read coalesced.
+// A row's block re-reads about 8 MiB of weights from L2 on every step at
+// float (wh 4, wxh_h 2, whh 1, zd 0.75, w_hz 0.4), only 100 of 132 SMs
+// hold a row, and the phases of a step are serial: PERF.md keeps its time
+// beside its bound. The backward ran the same design until it was
+// redesigned below; it stays reachable as srt_hyper_bwd_rowblock (one
+// block per row walking time backwards, the gradient streams to scratch,
+// then tn_gemm_kernel's eleven products), to be held and timed beside the
+// new one.
 //
-// Nineteen parameter gradients, no atomics. Blocks run in no fixed order,
-// so nothing is accumulated across blocks. What a row can sum over time it
-// keeps in registers or shared memory and writes once per row (the LN
-// sums, db, dbh, db_hz_x, db_hz_h into a [B, P] partials scratch that
-// sum_rows_kernel adds up in row order; both x_bias gradients straight to
-// their rows). The eleven matrix gradients are products over K = T * B of
-// a left operand (x, h_{t-1}, hh_{t-1}, the recomputed hh_new or z_p) with
-// a per-step gradient stream; the recurrence writes those streams to
-// float scratch (d_pre and its products dxp, dhp, dsx, dsh [T, B, 4H];
-// dh_pre [T, B, 4HH]; dz and z [3, T, B, 4e]; hh_new [T, B, HH]) and
-// tn_gemm_kernel reduces each in a fixed order, rounding its operands to W
-// on load where the Pallas kernel does and leaving the zd products float.
-// h_{t-1} and hh_{t-1} are gathered from hs / hyhs and h0 / hh0 in place.
-// Every result is therefore the same, bit for bit, on every run. At B=100,
-// T=250, H=512, HH=256, e=32 the scratch is 1.23 GB.
-//
-// Bound on the H100 at the hyper preset's shape (B=100, T=250, D=5): the
-// forward's products are 4.29 MFLOP per row-step, 107.3 GFLOP in all, SIMT
-// float multiply-adds at 67 TFLOP/s: 1.60 ms, above the time its bytes
-// need -- bound by operations; the backward about three times that. With
-// bf16 matrices the same products could run on the tensor cores (the zd
-// products stay float). This first design approaches neither: a row's
-// block re-reads about 8 MiB of weights from L2 on every step at float
-// (wh 4, wxh_h 2, whh 1, zd 0.75, w_hz 0.4), only 100 of 132 SMs hold a
-// row, and the phases of a step are serial. Sharing weight tiles across
-// rows, tensor cores and a smaller scratch are later work; PERF.md keeps
-// the measured times beside the bounds.
+// Design of the backward (srt_hyper_bwd): six stages over a stream scratch
+// (carve_streams), a work scratch (hyper_work_floats) and the products'
+// partials, all float, the wrapper's (cuda_fused.hyper_scratch_bytes).
+//  1. The hoisted recompute. The backward reads h_{t-1}, hh_{t-1} and the
+//     pre-step auxiliary cell state from the stored hs, hyhs and hycs, so
+//     everything before the gate block depends on nothing the loop
+//     computes: tiled products over all M = T*B row-steps (recompute.cuh,
+//     mma.sync at bf16 for the W-typed matrices, SIMT float at f32, no
+//     TF32), in hyper_step's sum order: hyper_pre = ((x @ wxh_x + h @
+//     wxh_h) + bh) + hh @ whh [+ xbh] (two products, the second adding to
+//     the first's output), then the auxiliary gates into hhn = rnd_W(hh_new)
+//     [M, HH], z_p = hhn @ w_hz_p (+ b_hz_p) into zs [M, 12e], xp = x @ wx
+//     [+ x_bias] and hp = h @ wh into their streams, the block scales s_x,
+//     s_h (float x float at either W, K = e) into sx, sh and pre = ((s_x *
+//     xp + s_h * hp) + s_b) + b into pre [M, 4H].
+//  2. The LN statistics of pre (ln_loop.cuh's ln_stats_kernel, row 5b's:
+//     each row-step's gate and cell norms' mean and rsqrt in the row-block
+//     design's sum order) into a [M, 10] scratch.
+//  3. The serial loop: one persistent kernel launched cooperatively on a
+//     grid of slices x batch tiles (cuda_fused.hyper_bwd_plan: U = 16 or 8
+//     main units a slice, as many slices of the auxiliary units, at most
+//     one block per SM), refused, never replaced, when it cannot
+//     co-reside; a batch whose tiles do not fit runs in windows of rows
+//     (persist.cuh). The LN phases and (d1), (d2) work on the block's
+//     slice and tile; the transposed products (e) on the same blocks
+//     regrouped by the plan's split F: block (tile, slice) takes U / F
+//     units of its slice (main and auxiliary) for the rows of the F tiles
+//     of its tile's group, so that their weight rows fit beside the rest
+//     (at float the wh and wxh_h rows of 16 units alone are 192 KiB).
+//     Each block keeps resident in shared memory, as float, the wh, wxh_h
+//     and whh rows of its (e) units, the w_hz rows of its (d2) auxiliary
+//     units and the zd columns of its LN units, and the dh, dhh, dhc and
+//     dh_pre sums of its pairs. Per step s, six grid barriers:
+//     (a)-(c) row 5b's LayerNorm gate backward (ln_loop.cuh, the same
+//         exchanges and slice-order sums) gives d_pre; HyperEmit writes it
+//         over pre and dxp = d_pre s_x over sx, dhp = d_pre s_h over sh,
+//         dsx = d_pre xp over xp, dsh = d_pre hp over hp, adds d_pre to
+//         the row's db partial and dxp to its x_bias sum, and per pass of
+//         rows writes each row's 12e partials of dz over the block's units
+//         (u in order) to an exchange exz [B, slices, 12e];
+//     (d1) each output of dz summed over the slices in slice order, by
+//         the block that owns it (dz_share: whole 8-float chunks), into
+//         the dz stream [M, 12e] and the b_hz partials;
+//     (d2) the auxiliary LSTM's backward of the block's (row, unit)
+//         pairs: dhh = its carried dhh + rnd_W(dz) . w_hz[k] (the tile's dz
+//         rows staged through shared memory, a warp a row), the gates
+//         recomputed from hyper_pre and hycs, dh_pre written over
+//         hyper_pre;
+//     (e) the transposed products of the block's (e) units and rows
+//         (hyper_dh): dh_{s-1} = rnd_W(dhp) @ wh^T + rnd_W(dh_pre) @
+//         wxh_h^T over column parts, dhh_{s-1} = rnd_W(dh_pre) @ whh^T,
+//         the parts added in part order into the exchanges dhx [B, H] and
+//         dhhx [B, HH] (dh0, dhh0 after the last step), from which the
+//         pairs' owners read them at the next step.
+//     Streams and exchanges written by other blocks are read through L2
+//     (ld.global.cg): an L1 line could be stale.
+//  4. dxs = rnd_W(dxp) @ wx^T + rnd_W(dh_pre) @ wxh_x^T, one warp a
+//     row-step: no recurrence, so a launch of its own over the whole card
+//     (inside the loop it would run on the loop's 128 blocks and their
+//     shared memory limits, and its time would not show in the split).
+//  5. The eleven matrix gradients on weight_grad.cuh's split-K pass, one
+//     after another over one partials scratch: [x]^T dxp, [h_prev]^T dhp,
+//     [x; h_prev; hh_prev]^T dh_pre (h_prev, hh_prev gathered from the
+//     stored residuals in place), hhn^T dz_p (three), rounded to W; z_p[g]^T
+//     ds_p[g] (twelve blocks), float x float at either W.
+//  6. The row sums of the [B, 14H + 4HH + 8e] partials (sum_rows_kernel).
+// Every sum has a fixed order and no atomics, so every run gives the same
+// bits; the order differs from the row-block design's and the plain
+// version's, which it meets within tolerance. Sizing at the hyper preset
+// (B=100, T=250, D=5, H=512, HH=256, e=32): 32 slices of 16 units x 4
+// tiles = 128 blocks, split 2 (8 units x 50 rows for the products), each
+// 194,624 bytes of shared memory (wh 65,536, wxh_h 32,768, whh 16,384,
+// w_hz 12,288, zd 24,576, the exchange and ds staging 28,672, the pairs'
+// sums 14,400); scratch 1,289,680,448 bytes (the streams 1.23 GB, the work
+// 10.5 MB, the largest product's partials 50.3 MB); 1,499 grid barriers a
+// call. L2 reads a loop step: the transposed products read each dhp and
+// dh_pre row once per group of units, 78.6 MB at 64 groups; the
+// exchanges and dz rows about 19 MB.
+// Bound on the H100 at that shape: the forward's products are 4.29 MFLOP
+// per row-step, 107.3 GFLOP in all, SIMT float multiply-adds at 67 TFLOP/s:
+// 1.60 ms; the backward's about three times that (recompute, transposed
+// products, weight gradients): 4.80 ms at float, 0.74 ms at bf16 (the W
+// products on the tensor cores, the zd products float), by operations.
+// PERF.md keeps the measured times and the split by stage.
 
+#include <cooperative_groups.h>
+
+#include "ln_loop.cuh"
+#include "lstm_loops.cuh"
+#include "persist.cuh"
+#include "recompute.cuh"
 #include "rnn_common.cuh"
+#include "weight_grad.cuh"
 
 namespace {
 
@@ -635,7 +701,6 @@ __device__ __forceinline__ float load_left(const LeftSrc<R>& a, int k, int m) {
 // when round_ops. One 64 x 64 output tile per block, 256 threads of 4 x 4
 // (strided) outputs; gridDim.z batches the four per-gate blocks of a zd
 // gradient.
-constexpr int kTM = 64, kTN = 64, kTK = 16, kGemmThreads = 256;
 
 template <typename W, typename R>
 __global__ void __launch_bounds__(kGemmThreads)
@@ -725,8 +790,9 @@ struct HyperMatGrads {
 };
 
 template <typename W, typename R>
-cudaError_t launch_hyper_bwd(const HyperBwd<W, R>& a, const HyperMatGrads& d,
-                             float* dvec, cudaStream_t stream) {
+cudaError_t launch_hyper_bwd_rowblock(const HyperBwd<W, R>& a,
+                                      const HyperMatGrads& d, float* dvec,
+                                      cudaStream_t stream) {
   const HyperCell<W>& p = a.p;
   const int D = p.D, H = p.H, HH = p.HH, E = p.E, K = a.T * a.B;
   const int G = 4 * H, GH = 4 * HH, E4 = 4 * E;
@@ -762,6 +828,960 @@ cudaError_t launch_hyper_bwd(const HyperBwd<W, R>& a, const HyperMatGrads& d,
   const int P = 14 * H + 4 * HH + 8 * E;
   sum_rows_kernel<<<(P + 255) / 256, 256, 0, stream>>>(a.part, a.B, P, dvec);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The backward of srt_hyper_bwd (header, "Design of the backward"): six
+// stages over one stream scratch and one work scratch.
+
+// The operands every stage reads, beside the main cell's Bwd view (wx, wh,
+// the LN parameters, xs, h0, hs, cs, dhs, dcT, dhT, the dropout, the pre
+// stream as Bwd::dpre, dxs, dxb, dc0, dh0, the row partials as Bwd::part).
+template <typename W, typename R>
+struct HyperArgs {
+  const W* wxh_x;        // [D, 4HH]
+  const W* wxh_h;        // [H, 4HH]
+  const float* bh;       // [4HH]
+  const W* whh;          // [HH, 4HH]
+  const W* w_hz[3];      // [HH, 4e]
+  const float* b_hz[2];  // [4e]
+  const float* zd[3];    // [4, e, H]
+  const float* b;        // [4H]
+  const float* xb;       // [B, 4H] or null
+  const float* xbh;      // [B, 4HH] or null
+  const float* hh0;      // [B, HH]
+  const R* hycs;         // [T, B, HH]
+  const R* hyhs;         // [T, B, HH]
+  const float* dhcT;     // [B, HH]
+  const float* dhhT;     // [B, HH]
+  // the streams, one row per row-step m = t * B + b (HyperStreams)
+  float *pre, *xp, *hp, *sx, *sh;  // [M, 4H]; over them d_pre, dsx, dsh,
+                                   // dxp, dhp
+  float* hpre;                     // [M, 4HH]; over it dh_pre
+  float* zs;                       // [M, 12e] z_x | z_h | z_b
+  float* dz;                       // [M, 12e] their gradients
+  float* hhn;                      // [M, HH] hyper_h, rounded to W
+  float* exz;                      // [B, slices, 12e] dz's slice partials
+  float *dhx, *dhhx;               // [B, H], [B, HH] the loop's dh, dhh
+  float* dxbh;                     // [B, 4HH] or null
+  float *dhc0, *dhh0;              // [B, HH]
+  int HH, E, P;                    // P: the row partials' stride
+};
+
+// The stream scratch, carved in this order: pre, xp, hp, sx, sh [M, 4H];
+// hpre [M, 4HH]; zs, dz [M, 12e]; hhn [M, HH] (cuda_fused.hyper_stream_
+// floats). Every region starts 16-byte aligned.
+size_t hyper_stream_floats(int T, int B, int H, int HH, int E) {
+  return (size_t)T * B * (5 * 4 * H + 4 * HH + 2 * 12 * E + HH);
+}
+
+template <typename W, typename R>
+void carve_streams(HyperArgs<W, R>& h, float* s, int T, int B, int H) {
+  const size_t M = (size_t)T * B, G = 4 * (size_t)H;
+  h.pre = s;
+  h.xp = h.pre + M * G;
+  h.hp = h.xp + M * G;
+  h.sx = h.hp + M * G;
+  h.sh = h.sx + M * G;
+  h.hpre = h.sh + M * G;
+  h.zs = h.hpre + M * 4 * h.HH;
+  h.dz = h.zs + M * 12 * h.E;
+  h.hhn = h.dz + M * 12 * h.E;
+}
+
+// The work scratch, carved in this order: the row partials [B, P] (padded
+// to 16 bytes), the LN loop's work (ln_work: exb, exa, stats, dxh), exz
+// [B, slices, 12e], dhx [B, H], dhhx [B, HH] (cuda_fused.hyper_work_
+// floats).
+size_t hyper_work_floats(int T, int B, int H, int HH, int E, int slices) {
+  const size_t P = 14 * (size_t)H + 4 * HH + 8 * E;
+  return ((size_t)B * P + 3) / 4 * 4 + (size_t)B * slices * 10 +
+         (size_t)T * B * kLnStats + 4 * (size_t)B * H +
+         (size_t)B * slices * 12 * E + (size_t)B * (H + HH);
+}
+
+// 1. The hoisted recompute (recompute.cuh's tiled products), in
+// hyper_step's sum order: hyper_pre = ((x @ wxh_x + h @ wxh_h) + bh) + hh
+// @ whh [+ xbh] as two products (AuxH, then AuxHH adding to it), the
+// auxiliary gates (hyper_gates_kernel) giving hhn, z (ZOp, the three paths
+// as the batch index), xp and hp (HpOp), then the block scales of the
+// three paths (ScaleOp<P>, the four gates as the batch index; float x
+// float at either W), the last giving pre = ((s_x * xp + s_h * hp) + s_b)
+// + b.
+template <typename W, typename R>
+struct AuxHOp {
+  Bwd<W, R> a;
+  HyperArgs<W, R> h;
+  __device__ int M() const { return a.T * a.B; }
+  __device__ int K() const { return a.p.H; }
+  __device__ int N() const { return 4 * h.HH; }
+  __device__ int ldb() const { return 4 * h.HH; }
+  __device__ const W* b(int) const { return h.wxh_h; }
+  __device__ float val(int, int m, int k) const {
+    return prev_row<W, R>(a.h0, a.hs, a.B, a.p.H, m, k);
+  }
+  __device__ bool a16_ok() const { return prev_row16_ok(a.hs, a.p.H); }
+  __device__ const bf16* a16(int, int m, int k) const {
+    return prev_row16(a.hs, a.B, a.p.H, M(), m, k);
+  }
+  __device__ void out(int, int m, int n, float ah) const {
+    const int GH = 4 * h.HH, D = a.p.D;
+    const float* x = a.xs + (size_t)m * D;
+    float ax = 0.0f;
+    for (int q = 0; q < D; ++q)
+      ax = fmaf(rnd<W>(x[q]), to_f(h.wxh_x[(size_t)q * GH + n]), ax);
+    h.hpre[(size_t)m * GH + n] = (ax + ah) + h.bh[n];
+  }
+};
+
+template <typename W, typename R>
+struct AuxHHOp {
+  Bwd<W, R> a;
+  HyperArgs<W, R> h;
+  __device__ int M() const { return a.T * a.B; }
+  __device__ int K() const { return h.HH; }
+  __device__ int N() const { return 4 * h.HH; }
+  __device__ int ldb() const { return 4 * h.HH; }
+  __device__ const W* b(int) const { return h.whh; }
+  __device__ float val(int, int m, int k) const {
+    return prev_row<W, R>(h.hh0, h.hyhs, a.B, h.HH, m, k);
+  }
+  __device__ bool a16_ok() const { return prev_row16_ok(h.hyhs, h.HH); }
+  __device__ const bf16* a16(int, int m, int k) const {
+    return prev_row16(h.hyhs, a.B, h.HH, M(), m, k);
+  }
+  __device__ void out(int, int m, int n, float ar) const {
+    const int GH = 4 * h.HH;
+    float* o = h.hpre + (size_t)m * GH + n;
+    float v = *o + ar;
+    if (h.xbh != nullptr) v = v + h.xbh[(size_t)(m % a.B) * GH + n];
+    *o = v;
+  }
+};
+
+// hyper_h of every row-step from hyper_pre and the stored pre-step
+// auxiliary cell state (no dropout), rounded to W: the left operand of z
+// and of the w_hz gradients
+template <typename W, typename R>
+__global__ void hyper_gates_kernel(HyperArgs<W, R> h, int M, float fb) {
+  const int HH = h.HH;
+  const size_t n = (size_t)M * HH;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const size_t m = i / HH, k = i % HH;
+    const float* hp = h.hpre + m * 4 * HH + k;
+    const float hi = sigmoidf_(hp[0]), hg = tanhf(hp[HH]);
+    const float hf = sigmoidf_(hp[2 * HH] + fb), ho = sigmoidf_(hp[3 * HH]);
+    const float nhc = to_f(h.hycs[i]) * hf + hi * hg;
+    h.hhn[i] = rnd<W>(tanhf(nhc) * ho);
+  }
+}
+
+template <typename W, typename R>
+struct ZOp {
+  Bwd<W, R> a;
+  HyperArgs<W, R> h;
+  __device__ int M() const { return a.T * a.B; }
+  __device__ int K() const { return h.HH; }
+  __device__ int N() const { return 4 * h.E; }
+  __device__ int ldb() const { return 4 * h.E; }
+  __device__ const W* b(int z) const { return h.w_hz[z]; }
+  __device__ float val(int, int m, int k) const {
+    return h.hhn[(size_t)m * h.HH + k];
+  }
+  __device__ bool a16_ok() const { return false; }
+  __device__ const bf16* a16(int, int, int) const { return nullptr; }
+  __device__ void out(int z, int m, int n, float acc) const {
+    if (z < 2) acc = acc + h.b_hz[z][n];
+    h.zs[(size_t)m * 12 * h.E + z * 4 * h.E + n] = acc;
+  }
+};
+
+template <typename W, typename R>
+struct HpOp {
+  Bwd<W, R> a;
+  HyperArgs<W, R> h;
+  __device__ int M() const { return a.T * a.B; }
+  __device__ int K() const { return a.p.H; }
+  __device__ int N() const { return 4 * a.p.H; }
+  __device__ int ldb() const { return 4 * a.p.H; }
+  __device__ const W* b(int) const { return a.p.wh; }
+  __device__ float val(int, int m, int k) const {
+    return prev_row<W, R>(a.h0, a.hs, a.B, a.p.H, m, k);
+  }
+  __device__ bool a16_ok() const { return prev_row16_ok(a.hs, a.p.H); }
+  __device__ const bf16* a16(int, int m, int k) const {
+    return prev_row16(a.hs, a.B, a.p.H, M(), m, k);
+  }
+  __device__ void out(int, int m, int n, float hp) const {
+    const int G = 4 * a.p.H, D = a.p.D;
+    const float* x = a.xs + (size_t)m * D;
+    float xp = 0.0f;
+    for (int q = 0; q < D; ++q)
+      xp = fmaf(rnd<W>(x[q]), to_f(a.p.wx[(size_t)q * G + n]), xp);
+    if (h.xb != nullptr) xp = xp + h.xb[(size_t)(m % a.B) * G + n];
+    h.xp[(size_t)m * G + n] = xp;
+    h.hp[(size_t)m * G + n] = hp;
+  }
+};
+
+// path P's block scale s_P[m, g * H + j] = z_P[m, g * e : g * e + e] .
+// zd_P[g][:, j], gate g the batch index
+template <int P, typename W, typename R>
+struct ScaleOp {
+  Bwd<W, R> a;
+  HyperArgs<W, R> h;
+  __device__ int M() const { return a.T * a.B; }
+  __device__ int K() const { return h.E; }
+  __device__ int N() const { return a.p.H; }
+  __device__ int ldb() const { return a.p.H; }
+  __device__ const float* b(int g) const {
+    return h.zd[P] + (size_t)g * h.E * a.p.H;
+  }
+  __device__ float val(int g, int m, int q) const {
+    return h.zs[(size_t)m * 12 * h.E + (P * 4 + g) * h.E + q];
+  }
+  __device__ bool a16_ok() const { return false; }
+  __device__ const bf16* a16(int, int, int) const { return nullptr; }
+  __device__ void out(int g, int m, int j, float s) const {
+    const size_t at = (size_t)m * 4 * a.p.H + g * a.p.H + j;
+    if (P == 0) {
+      h.sx[at] = s;
+    } else if (P == 1) {
+      h.sh[at] = s;
+    } else {
+      h.pre[at] = ((h.sx[at] * h.xp[at] + h.sh[at] * h.hp[at]) + s) +
+                  h.b[g * a.p.H + j];
+    }
+  }
+};
+
+template <typename W, typename R>
+cudaError_t launch_hyper_recompute(const Bwd<W, R>& a,
+                                   const HyperArgs<W, R>& h,
+                                   cudaStream_t stream) {
+  const int M = a.T * a.B, H = a.p.H, HH = h.HH, E = h.E;
+  if (M == 0) return cudaSuccess;
+  cudaError_t err = launch_product_grid<W>(AuxHOp<W, R>{a, h}, M, 4 * HH, 1,
+                                           stream);
+  if (err == cudaSuccess)
+    err = launch_product_grid<W>(AuxHHOp<W, R>{a, h}, M, 4 * HH, 1, stream);
+  if (err == cudaSuccess) {
+    const size_t n = (size_t)M * HH;
+    const int blocks = (int)((n + 255) / 256 < 8192 ? (n + 255) / 256 : 8192);
+    hyper_gates_kernel<W, R><<<blocks, 256, 0, stream>>>(h, M,
+                                                         a.p.forget_bias);
+    err = cudaGetLastError();
+  }
+  if (err == cudaSuccess)
+    err = launch_product_grid<W>(ZOp<W, R>{a, h}, M, 4 * E, 3, stream);
+  if (err == cudaSuccess)
+    err = launch_product_grid<W>(HpOp<W, R>{a, h}, M, 4 * H, 1, stream);
+  if (err == cudaSuccess)
+    err = launch_product_grid<float>(ScaleOp<0, W, R>{a, h}, M, H, 4, stream);
+  if (err == cudaSuccess)
+    err = launch_product_grid<float>(ScaleOp<1, W, R>{a, h}, M, H, 4, stream);
+  if (err == cudaSuccess)
+    err = launch_product_grid<float>(ScaleOp<2, W, R>{a, h}, M, H, 4, stream);
+  return err;
+}
+
+// 3. The serial loop's plan (cuda_fused.hyper_bwd_plan): U main units a
+// slice of the LN phases (16 or 8; the auxiliary units in as many
+// slices), at most `tiles` batch tiles a window, `windows` windows of
+// rows, the transposed products' split F (each block's weight rows are
+// those of U / F units, for the rows of F tiles), `parts` column parts of
+// the main transposed product, `smem` bytes of shared memory a block.
+struct HyperPlan {
+  int units, split, slices, tiles, windows, parts, smem;
+};
+
+constexpr int kDzChunk = 64;  // (d1)'s slice partials in flight a thread
+constexpr int kStage = 16;    // 16-byte loads in flight a thread (stage_rows)
+
+// n float4 of rows written by other blocks of the kernel (from src on)
+// into shared memory: one coalesced copy through L2 by the whole block,
+// kStage loads in flight a thread. A __syncthreads must follow.
+__device__ __forceinline__ void stage_rows(float4* dst, const float4* src,
+                                           int n) {
+  for (int e0 = threadIdx.x; e0 < n; e0 += kStage * kLoopThreads) {
+    float4 v[kStage];
+#pragma unroll
+    for (int i = 0; i < kStage; ++i)
+      if (e0 + i * kLoopThreads < n) v[i] = __ldcg(src + e0 + i * kLoopThreads);
+#pragma unroll
+    for (int i = 0; i < kStage; ++i)
+      if (e0 + i * kLoopThreads < n) dst[e0 + i * kLoopThreads] = v[i];
+  }
+}
+
+// The outputs of dz a slice owns in (d1): whole chunks of 8 floats (4
+// where 12e is not a multiple of 8), so that every 32-byte sector of a dz
+// row is written by one block (a sector written in parts by two SMs is
+// filled from memory when it is read).
+__host__ __device__ inline void dz_share(int Z, int slices, int sl, int& lo,
+                                         int& hi) {
+  const int zc = Z % 8 == 0 ? 8 : 4, nc = Z / zc;
+  lo = sl * nc / slices * zc;
+  hi = (sl + 1) * nc / slices * zc;
+}
+// The floats of a block's shared region that phases (b) and (c) use (a
+// pass's rows of an exchange, its ds values) and (d2) reuses for dz rows.
+__host__ __device__ inline int hyper_free_floats(int U, int slices) {
+  const int rows = kLoopThreads / U;
+  return rows * slices * 8 + rows * 12 * U;
+}
+
+// A block's shared memory in floats for LN tiles of nb rows
+// (cuda_fused.hyper_bwd_smem, the same sum): the resident rows wh and
+// wxh_h of its U / F transposed-product units [U/F][4H], [U/F][4HH], whh
+// of its auxiliary ones [UAe][4HH], w_hz of its (d2) auxiliary units
+// [UA][12e], the zd columns of its LN units [12][U][e], the free region,
+// the LN pairs' dh and the (d2) pairs' dhh [nb][U] each, the transposed
+// products' parts [parts][F nb][U/F] and auxiliary sums [F nb][U/F], the
+// (d2) pairs' dhc, dh_pre sums and dz . w_hz [nb][UA][6].
+__host__ __device__ inline size_t hyper_smem_floats(int U, int F, int slices,
+                                                    int nb, int H, int HH,
+                                                    int E, int parts) {
+  const int UE = U / F, se = slices * F;
+  const int UA = (HH + slices - 1) / slices, UAe = (HH + se - 1) / se;
+  const size_t enb = (size_t)F * nb;
+  return (size_t)UE * 4 * H + (size_t)UE * 4 * HH + (size_t)UAe * 4 * HH +
+         (size_t)UA * 12 * E + (size_t)12 * U * E +
+         hyper_free_floats(U, slices) + 2 * (size_t)nb * U +
+         (size_t)parts * enb * UE + enb * UE + (size_t)nb * UA * 6;
+}
+
+// Phase (c)'s Emit for the HyperLSTM: pre = s_x * xp + s_h * hp + s_b + b,
+// so beside d_pre (= ds_b, written over pre) the pair writes dxp = d_pre *
+// s_x over sx, dhp = d_pre * s_h over sh, dsx = d_pre * xp over xp, dsh =
+// d_pre * hp over hp; adds d_pre to its db partial and dxp to its x_bias
+// sum; and stages dsx, dsh and d_pre in shared memory ([rows][path][gate]
+// [U]). After each pass, each of the pass's rows gets its 12e partials of
+// dz over the block's units (dz_p[g e + q] = sum_u ds_p[g][u] zd_p[g][q][j0
+// + u], u in order) into exz[row][slice].
+template <int U>
+struct HyperEmit {
+  float *sx, *sh, *xp, *hp, *dxb, *dbp0, *s_ds, *exz;
+  const float* s_zd;
+  int H, E, P, slices, sl, b0, u;
+  size_t off = 0;
+  float* xbp = nullptr;
+  float* dbp = nullptr;
+  float vsx[4], vsh[4], vxp[4], vhp[4], xbs[4], dbs[4];
+  __device__ __forceinline__ void at(size_t m, int row, int j) {
+    off = m * 4 * H + j;
+    xbp = dxb != nullptr ? dxb + (size_t)row * 4 * H + j : nullptr;
+    dbp = dbp0 + (size_t)row * P + j;
+  }
+  __device__ __forceinline__ void load(int g) {
+    const size_t o = off + (size_t)g * H;
+    vsx[g] = sx[o];
+    vsh[g] = sh[o];
+    vxp[g] = xp[o];
+    vhp[g] = hp[o];
+    xbs[g] = xbp != nullptr ? xbp[g * H] : 0.0f;
+    dbs[g] = dbp[g * H];
+  }
+  __device__ __forceinline__ void put(int g, float dp, int lr) {
+    const size_t o = off + (size_t)g * H;
+    const float dxp = dp * vsx[g], dhp = dp * vsh[g];
+    const float dsx = dp * vxp[g], dsh = dp * vhp[g];
+    sx[o] = dxp;
+    sh[o] = dhp;
+    xp[o] = dsx;
+    hp[o] = dsh;
+    if (xbp != nullptr) xbp[g * H] = xbs[g] + dxp;
+    dbp[g * H] = dbs[g] + dp;
+    float* d = s_ds + (size_t)lr * 12 * U + g * U + u;
+    d[0] = dsx;
+    d[4 * U] = dsh;
+    d[8 * U] = dp;
+  }
+  __device__ __forceinline__ void pass_done(int bl0, int nr) {
+    const int Z = 12 * E;
+    for (int c = threadIdx.x; c < Z; c += kLoopThreads) {
+      const int pg = c / E, q = c - pg * E;
+      float zr[U];
+#pragma unroll
+      for (int k = 0; k < U; ++k) zr[k] = s_zd[((size_t)pg * U + k) * E + q];
+      for (int lr = 0; lr < nr; ++lr) {
+        const float4* d =
+            reinterpret_cast<const float4*>(s_ds + ((size_t)lr * 12 + pg) * U);
+        float acc = 0.0f;
+#pragma unroll
+        for (int k4 = 0; k4 < U / 4; ++k4) {
+          const float4 v = d[k4];
+          acc = fmaf(v.x, zr[4 * k4], acc);
+          acc = fmaf(v.y, zr[4 * k4 + 1], acc);
+          acc = fmaf(v.z, zr[4 * k4 + 2], acc);
+          acc = fmaf(v.w, zr[4 * k4 + 3], acc);
+        }
+        exz[((size_t)(b0 + bl0 + lr) * slices + sl) * Z + c] = acc;
+      }
+    }
+    __syncthreads();  // s_ds read: the next pass may write it
+  }
+};
+
+// The transposed products of a step for kLoopThreads / 32 warps: a warp
+// task is RG = 32 / U rows x U units over one part of its columns, a quad
+// (4 columns) at a time by the lanes in turn, the rows' values read
+// through L2 (other blocks wrote them; the next quad's loads in flight
+// while this one is multiplied) and rounded to W, the weight rows from
+// shared memory; a shuffle reduce-scatter leaves lane l the sum of entry l
+// (row l / U, unit l % U). Main tasks (groups x parts): dh_{s-1}[b][k] =
+// sum over the quads of [dhp | dh_pre] with [wh | wxh_h] rows k, into
+// s_part[part][b][k]; auxiliary tasks (groups): dhh_{s-1}[b][k] = sum over
+// dh_pre's quads with whh rows k < UA, into s_pa[b][k].
+template <typename W, int U>
+__device__ __forceinline__ void hyper_dh(const float* dhp, const float* dhpre,
+                                         const float* s_wh, const float* s_wa,
+                                         const float* s_whh, float* s_part,
+                                         float* s_pa, int H, int HH, int UA,
+                                         int nb, int nb_max, int parts) {
+  constexpr int RG = 32 / U;
+  const int G = 4 * H, GH = 4 * HH, lane = threadIdx.x & 31;
+  const int groups = (nb + RG - 1) / RG, nmain = groups * parts;
+  for (int task = threadIdx.x >> 5; task < nmain + groups;
+       task += kLoopWarps) {
+    const bool aux = task >= nmain;
+    const int grp = aux ? task - nmain : task / parts;
+    const int part = aux ? 0 : task - grp * parts;
+    const int nv = nb - grp * RG;  // the task's real rows (may exceed RG)
+    float acc[RG * U];
+#pragma unroll
+    for (int e = 0; e < RG * U; ++e) acc[e] = 0.0f;
+    // the quads [q_lo, q_hi) of the rows from rows (stride ld floats) with
+    // the weight rows sw (stride ld, nk of them)
+    auto quads = [&](const float* rows, const float* sw, int ld, int nk,
+                     int q_lo, int q_hi) {
+      const float4* r0 =
+          reinterpret_cast<const float4*>(rows + (size_t)grp * RG * ld);
+      const int ld4 = ld / 4;
+      auto fetch = [&](float4 (&x)[RG], int q) {
+#pragma unroll
+        for (int r = 0; r < RG; ++r)
+          x[r] = r < nv && q < q_hi ? __ldcg(r0 + (size_t)r * ld4 + q)
+                                    : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      };
+      float4 d[RG];
+      fetch(d, q_lo + lane);
+      for (int qd = q_lo + lane; qd < q_hi; qd += 32) {
+        float4 dn[RG];
+        fetch(dn, qd + 32);
+#pragma unroll
+        for (int r = 0; r < RG; ++r) d[r] = rnd4<W>(d[r]);
+#pragma unroll
+        for (int k = 0; k < U; ++k) {
+          if (k >= nk) break;
+          const float4 w = quad(sw + (size_t)k * ld + 4 * qd);
+#pragma unroll
+          for (int r = 0; r < RG; ++r) {
+            float v = acc[r * U + k];
+            v = fmaf(d[r].x, w.x, v);
+            v = fmaf(d[r].y, w.y, v);
+            v = fmaf(d[r].z, w.z, v);
+            acc[r * U + k] = fmaf(d[r].w, w.w, v);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < RG; ++r) d[r] = dn[r];
+      }
+    };
+    if (aux) {
+      quads(dhpre, s_whh, GH, UA, 0, HH);
+    } else {
+      const int nq = H + HH;  // [dhp quads | dh_pre quads]
+      const int lo = part * nq / parts, hi = (part + 1) * nq / parts;
+      if (lo < H) quads(dhp, s_wh, G, U, lo, hi < H ? hi : H);
+      if (hi > H) quads(dhpre, s_wa, GH, U, (lo > H ? lo : H) - H, hi - H);
+    }
+    rs_stage<16, 16>(acc, lane);
+    rs_stage<8, 8>(acc, lane);
+    rs_stage<4, 4>(acc, lane);
+    rs_stage<2, 2>(acc, lane);
+    rs_stage<1, 1>(acc, lane);
+    const int bl = grp * RG + lane / U, k = lane % U;
+    if (bl < nb)
+      (aux ? s_pa + (size_t)bl * U + k
+           : s_part + ((size_t)part * nb_max + bl) * U + k)[0] = acc[0];
+  }
+}
+
+// The loop, one persistent cooperative kernel on the plan's grid. Block
+// (tile, slice) owns, for the LN phases and (d1), (d2), the main units
+// j0 .. j0 + nu - 1 and the auxiliary units k0 .. k0 + na - 1 of its slice
+// for the rows of its tile; for the transposed products (e) the units of
+// group ge = slice * F + tile % F (U / F of them, main and auxiliary) for
+// the rows of the F tiles from F (tile / F) on. Per step s (six grid
+// barriers): the dh and dhh of its pairs from the exchanges dhx, dhhx
+// (dhT, dhhT before the first step); (a), (b), (c) the LN gate block
+// (ln_loop.cuh) with HyperEmit; (d1) dz of the tile's rows, the slices'
+// partials summed in slice order by the block owning each output (a share
+// of the 12e), into dz and the b_hz partials; (d2) the auxiliary LSTM's
+// backward of the block's (row, auxiliary unit) pairs: dhh = its carried
+// dhh + rnd_W(dz) . w_hz[k], dh_pre written over hyper_pre; (e) the
+// transposed products of its group (hyper_dh), the parts added in part
+// order into dhx and dhhx (dh0 and dhh0 after the last step). Streams and
+// exchanges written by other blocks are read through L2.
+template <typename W, typename R, int U, int F>
+__global__ void __launch_bounds__(kLoopThreads)
+hyper_bwd_loop_kernel(Bwd<W, R> a, HyperArgs<W, R> h, LnWork w, int slices,
+                      int tiles, int parts, int r0, int nr) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kRows = kLoopThreads / U, UE = U / F;
+  const Cell<W>& p = a.p;
+  const int H = p.H, HH = h.HH, E = h.E, G = 4 * H, GH = 4 * HH;
+  const int Z = 12 * E, E4 = 4 * E, B = a.B, P = h.P, tid = threadIdx.x;
+  const int sl = blockIdx.x % slices, bt = blockIdx.x / slices;
+  const int j0 = sl * H / slices, nu = (sl + 1) * H / slices - j0;
+  const int k0 = sl * HH / slices, na = (sl + 1) * HH / slices - k0;
+  const int UA = (HH + slices - 1) / slices;
+  const int b0 = r0 + bt * nr / tiles;
+  const int nb = (bt + 1) * nr / tiles - bt * nr / tiles;
+  const int nb_max = (nr + tiles - 1) / tiles;
+  // the transposed products' group: units and rows
+  const int se = slices * F, ge = sl * F + bt % F, te = bt / F;
+  const int ej0 = ge * H / se, enu = (ge + 1) * H / se - ej0;
+  const int ek0 = ge * HH / se, ena = (ge + 1) * HH / se - ek0;
+  const int UAe = (HH + se - 1) / se;
+  const int eb0 = r0 + te * F * nr / tiles;
+  const int enb = (te * F + F) * nr / tiles - te * F * nr / tiles;
+  const int enb_max = F * nb_max;
+  int o_lo, o_hi;  // the dz outputs this block sums in (d1)
+  dz_share(Z, slices, sl, o_lo, o_hi);
+  const int nz = o_hi - o_lo;
+  float* s_wh = reinterpret_cast<float*>(smem_raw);  // [UE][4H]
+  float* s_wa = s_wh + UE * G;                       // [UE][4HH] wxh_h
+  float* s_whh = s_wa + UE * GH;                     // [UAe][4HH]
+  float* s_whz = s_whh + UAe * GH;                   // [UA][12e]
+  float* s_zd = s_whz + UA * Z;                      // [12][U][e]
+  float* s_ex = s_zd + 12 * U * E;                   // [kRows][slices][8]
+  float* s_ds = s_ex + kRows * slices * 8;           // [kRows][12][U]
+  float* s_part = s_ds + kRows * 12 * U;             // [nb_max][U] dh
+  const int zrows = hyper_free_floats(U, slices) / Z;  // dz rows a chunk
+  float* s_pa = s_part + nb_max * U;                 // [nb_max][U] dhh
+  float* s_ep = s_pa + nb_max * U;                   // [parts][enb_max][UE]
+  float* s_epa = s_ep + parts * enb_max * UE;        // [enb_max][UE]
+  float* s_dhc = s_epa + enb_max * UE;               // [nb_max][UA]
+  float* s_xbh = s_dhc + nb_max * UA;                // [nb_max][UA][4]
+  float* s_dhz = s_xbh + nb_max * UA * 4;            // [nb_max][UA]
+  const LnCtx<U> c = ln_ctx<U>(a, s_part, s_ex, slices, sl, j0, nu, b0,
+                               nb, nb_max, 1, P);
+
+  for (int e = tid; e < UE * G; e += kLoopThreads) {
+    const int k = e / G, cc = e - k * G;
+    s_wh[e] = k < enu ? to_f(p.wh[(size_t)(ej0 + k) * G + cc]) : 0.0f;
+  }
+  for (int e = tid; e < UE * GH; e += kLoopThreads) {
+    const int k = e / GH, cc = e - k * GH;
+    s_wa[e] = k < enu ? to_f(h.wxh_h[(size_t)(ej0 + k) * GH + cc]) : 0.0f;
+  }
+  for (int e = tid; e < UAe * GH; e += kLoopThreads) {
+    const int k = e / GH, cc = e - k * GH;
+    s_whh[e] = k < ena ? to_f(h.whh[(size_t)(ek0 + k) * GH + cc]) : 0.0f;
+  }
+  for (int e = tid; e < UA * Z; e += kLoopThreads) {
+    const int k = e / Z, o = e - k * Z, path = o / E4;
+    s_whz[e] = k < na ? to_f(h.w_hz[path][(size_t)(k0 + k) * E4 + o - path * E4])
+                      : 0.0f;
+  }
+  for (int e = tid; e < 12 * U * E; e += kLoopThreads) {
+    const int pg = e / (U * E), u = (e / E) % U, q = e % E;
+    s_zd[e] = u < nu ? h.zd[pg / 4][((size_t)(pg % 4) * E + q) * H + j0 + u]
+                     : 0.0f;
+  }
+  for (int e = tid; e < kRows * 12 * U; e += kLoopThreads) s_ds[e] = 0.0f;
+  ln_init(a, c, nb_max);
+  for (int q = tid; q < nb * U; q += kLoopThreads) {  // the db partials
+    if (!c.unit) continue;
+    float* pr = a.part + (size_t)(b0 + q / U) * P + 10 * H + c.j;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) pr[g * H] = 0.0f;
+  }
+  for (int e = tid; e < nb_max * U; e += kLoopThreads) {
+    const int bl = e / U, k = e % U;
+    s_pa[e] = (bl < nb && k < na && h.dhhT != nullptr)
+                  ? h.dhhT[(size_t)(b0 + bl) * HH + k0 + k]
+                  : 0.0f;
+  }
+  for (int e = tid; e < nb_max * UA; e += kLoopThreads) {
+    const int bl = e / UA, k = e % UA;
+    s_dhc[e] = (bl < nb && k < na && h.dhcT != nullptr)
+                   ? h.dhcT[(size_t)(b0 + bl) * HH + k0 + k]
+                   : 0.0f;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) s_xbh[4 * e + g] = 0.0f;
+  }
+  for (int e = tid; e < nb * nz; e += kLoopThreads) {
+    const int bl = e / nz, o = o_lo + e % nz;
+    if (o < 2 * E4) a.part[(size_t)(b0 + bl) * P + 14 * H + GH + o] = 0.0f;
+  }
+  __syncthreads();  // the resident state
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  HyperEmit<U> em;
+  em.sx = h.sx;
+  em.sh = h.sh;
+  em.xp = h.xp;
+  em.hp = h.hp;
+  em.dxb = a.dxb;
+  em.dbp0 = a.part + 10 * H;
+  em.s_ds = s_ds;
+  em.exz = h.exz;
+  em.s_zd = s_zd;
+  em.H = H;
+  em.E = E;
+  em.P = P;
+  em.slices = slices;
+  em.sl = sl;
+  em.b0 = b0;
+  em.u = c.u;
+
+  for (int s = a.T - 1; s >= 0; --s) {
+    const size_t ms = (size_t)s * B;
+    if (s < a.T - 1) {  // the pairs' dh and dhh, from the step after
+      for (int e = tid; e < nb * U; e += kLoopThreads) {
+        const int bl = e / U, u = e % U;
+        const size_t row = (size_t)(b0 + bl);
+        s_part[e] = u < nu ? __ldcg(h.dhx + row * H + j0 + u) : 0.0f;
+        s_pa[e] = u < na ? __ldcg(h.dhhx + row * HH + k0 + u) : 0.0f;
+      }
+      __syncthreads();  // s_part, s_pa
+    }
+    ln_phase_a(a, c, w, s);
+    grid.sync();  // exa complete
+    ln_phase_b(a, c, w, s);
+    grid.sync();  // exb complete
+    ln_phase_c(a, c, w, s, em);
+    grid.sync();  // the four streams' step s and exz complete
+    // (d1) dz of the tile's rows: this block's outputs, slices in order,
+    // into dz and the b_hz partials
+    for (int e = tid; e < nb * nz; e += kLoopThreads) {
+      const int bl = e / nz, o = o_lo + e % nz;
+      const int row = b0 + bl;
+      const float* src = h.exz + (size_t)row * slices * Z + o;
+      float* pz = a.part + (size_t)row * P + 14 * H + GH + o;  // o < 8e
+      const float pv = o < 2 * E4 ? *pz : 0.0f;
+      float acc = 0.0f;
+      for (int q0 = 0; q0 < slices; q0 += kDzChunk) {  // loads in flight
+        float v[kDzChunk];
+#pragma unroll
+        for (int q = 0; q < kDzChunk; ++q)
+          v[q] = q0 + q < slices ? __ldcg(src + (size_t)(q0 + q) * Z) : 0.0f;
+#pragma unroll
+        for (int q = 0; q < kDzChunk; ++q)
+          if (q0 + q < slices) acc += v[q];
+      }
+      h.dz[(ms + row) * Z + o] = acc;
+      if (o < 2 * E4) *pz = pv + acc;
+    }
+    grid.sync();  // dz of step s complete
+    // (d2) the auxiliary LSTM's backward: each row's rnd_W(dz) . w_hz[k]
+    // for the block's units k (dz rows staged in chunks through the free
+    // region, a warp a row, lanes over the 12e outputs), then a thread a
+    // (row, unit) pair
+    for (int c0 = 0; c0 < nb; c0 += zrows) {
+      const int cr = nb - c0 < zrows ? nb - c0 : zrows;
+      stage_rows(reinterpret_cast<float4*>(s_ex),
+                 reinterpret_cast<const float4*>(h.dz + (ms + b0 + c0) * Z),
+                 cr * Z / 4);
+      __syncthreads();  // the chunk's dz rows in s_ex
+      for (int bl = c0 + (tid >> 5); bl < c0 + cr; bl += kLoopWarps) {
+        const float* dzr = s_ex + (size_t)(bl - c0) * Z;
+        float acc[U];
+#pragma unroll
+        for (int k = 0; k < U; ++k) acc[k] = 0.0f;
+        for (int o = tid & 31; o < Z; o += 32) {
+          const float v = rnd<W>(dzr[o]);
+#pragma unroll
+          for (int k = 0; k < U; ++k)
+            if (k < na) acc[k] = fmaf(v, s_whz[(size_t)k * Z + o], acc[k]);
+        }
+#pragma unroll
+        for (int k = 0; k < U; ++k) {
+          if (k >= na) break;
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1)
+            acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], off);
+          if ((tid & 31) == 0) s_dhz[bl * UA + k] = acc[k];
+        }
+      }
+      __syncthreads();  // s_ex read
+    }
+    for (int e = tid; e < nb * na; e += kLoopThreads) {
+      const int bl = e / na, k = e - bl * na, row = b0 + bl;
+      const size_t m = ms + row;
+      float* hp = h.hpre + m * GH + k0 + k;
+      const float hp4[4] = {hp[0], hp[HH], hp[2 * HH], hp[3 * HH]};
+      const float hc_prev = to_f(h.hycs[m * HH + k0 + k]);
+      const float hi = sigmoidf_(hp4[0]), hg = tanhf(hp4[1]);
+      const float hf = sigmoidf_(hp4[2] + p.forget_bias);
+      const float ho = sigmoidf_(hp4[3]);
+      const float nhc = hc_prev * hf + hi * hg;
+      const float dhh_tot = s_pa[bl * U + k] + s_dhz[bl * UA + k];
+      const float tanh_hc = tanhf(nhc);
+      float* dhc = s_dhc + bl * UA + k;
+      const float dhcv = *dhc + dhh_tot * ho * (1.0f - tanh_hc * tanh_hc);
+      const float dho = dhh_tot * tanh_hc;
+      const float dhf = dhcv * hc_prev, dhi = dhcv * hg, dhg = dhcv * hi;
+      const float da[4] = {dhi * hi * (1.0f - hi), dhg * (1.0f - hg * hg),
+                           dhf * hf * (1.0f - hf), dho * ho * (1.0f - ho)};
+      float* xs4 = s_xbh + (bl * UA + k) * 4;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        hp[g * HH] = da[g];
+        xs4[g] += da[g];
+      }
+      *dhc = dhcv * hf;
+    }
+    grid.sync();  // dh_pre of step s complete
+    // (e) dh_{s-1}, dhh_{s-1} of the group's units and rows
+    hyper_dh<W, UE>(h.sh + (ms + eb0) * G, h.hpre + (ms + eb0) * GH, s_wh,
+                    s_wa, s_whh, s_ep, s_epa, H, HH, UAe, enb, enb_max,
+                    parts);
+    __syncthreads();  // every part of this step's dh and dhh written
+    float* dh_out = s == 0 ? a.dh0 : h.dhx;
+    float* dhh_out = s == 0 ? h.dhh0 : h.dhhx;
+    for (int e = tid; e < enb * UE; e += kLoopThreads) {
+      const int bl = e / UE, u = e % UE;
+      const size_t row = (size_t)(eb0 + bl);
+      if (u < enu) {
+        float v = 0.0f;
+        for (int pt = 0; pt < parts; ++pt)
+          v += s_ep[((size_t)pt * enb_max + bl) * UE + u];
+        dh_out[row * H + ej0 + u] = v;
+      }
+      if (u < ena) dhh_out[row * HH + ek0 + u] = s_epa[bl * UE + u];
+    }
+    if (s > 0) grid.sync();  // dhx and dhhx complete
+  }
+  if (a.T == 0) {  // no step: the carries' gradients are the final ones
+    ln_dh0(a, c);
+    for (int e = tid; e < nb * na; e += kLoopThreads) {
+      const int bl = e / na, k = e - bl * na;
+      h.dhh0[(size_t)(b0 + bl) * HH + k0 + k] = s_pa[bl * U + k];
+    }
+  }
+  for (int e = tid; e < nb * na; e += kLoopThreads) {
+    const int bl = e / na, k = e - bl * na, row = b0 + bl;
+    h.dhc0[(size_t)row * HH + k0 + k] = s_dhc[bl * UA + k];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const float v = s_xbh[(bl * UA + k) * 4 + g];
+      a.part[(size_t)row * P + 14 * H + g * HH + k0 + k] = v;
+      if (h.dxbh != nullptr)
+        h.dxbh[(size_t)row * GH + g * HH + k0 + k] = v;
+    }
+  }
+}
+
+// The plan checked against the shape before any launch: an error, never a
+// fallback (cudaErrorInvalidValue where the plan does not hold the shape;
+// persist.cuh's checks where its blocks cannot co-reside).
+template <typename W, typename R>
+const void* hyper_loop_fn(int units, int split) {
+  if (units == 16)
+    return split == 2 ? (const void*)hyper_bwd_loop_kernel<W, R, 16, 2>
+                      : (const void*)hyper_bwd_loop_kernel<W, R, 16, 1>;
+  return (const void*)hyper_bwd_loop_kernel<W, R, 8, 1>;
+}
+
+template <typename W, typename R>
+cudaError_t hyper_plan_check(const Bwd<W, R>& a, const HyperArgs<W, R>& h,
+                             const HyperPlan& pl, Windows& win) {
+  const int H = a.p.H, HH = h.HH;
+  if (!((pl.units == 16 && (pl.split == 1 || pl.split == 2)) ||
+        (pl.units == 8 && pl.split == 1)) ||
+      pl.slices < 1 || (H + pl.slices - 1) / pl.slices > pl.units ||
+      (HH + pl.slices - 1) / pl.slices > pl.units || pl.tiles < 1 ||
+      pl.tiles % pl.split != 0 ||
+      hyper_free_floats(pl.units, pl.slices) < 12 * h.E || pl.windows < 1 || pl.windows > a.B || pl.parts < 1 || pl.smem < 0)
+    return cudaErrorInvalidValue;
+  win.n = pl.windows;
+  win.smem = (size_t)pl.smem;
+  int sms = 0, smem_max = 0, tiles0 = 0;
+  for (int i = 0; i < win.n; ++i) {  // every window's tiles split evenly
+    const int nr = win.rows(i, a.B);
+    const int tiles = nr < pl.tiles ? nr : pl.tiles;
+    if (tiles % pl.split != 0) return cudaErrorInvalidValue;
+    if (tiles > tiles0) tiles0 = tiles;
+    if (hyper_smem_floats(pl.units, pl.split, pl.slices,
+                          (nr + tiles - 1) / tiles, H, HH, h.E, pl.parts) *
+            sizeof(float) > win.smem)
+      return cudaErrorInvalidValue;
+  }
+  cudaError_t err = device_limits(sms, smem_max);
+  if (err == cudaSuccess)
+    err = ready_loop(hyper_loop_fn<W, R>(pl.units, pl.split), kLoopThreads,
+                     win, pl.slices * tiles0, sms);
+  return err;
+}
+
+template <typename W, typename R>
+cudaError_t launch_hyper_loop(const Bwd<W, R>& a, const HyperArgs<W, R>& h,
+                              LnWork w, const HyperPlan& pl, const Windows& win,
+                              cudaStream_t stream) {
+  cudaError_t err = cudaSuccess;
+  const void* fn = hyper_loop_fn<W, R>(pl.units, pl.split);
+  for (int i = 0; i < win.n && err == cudaSuccess; ++i) {
+    int r0 = win.first(i, a.B), nr = win.rows(i, a.B);
+    int slices = pl.slices, parts = pl.parts;
+    int tiles = nr < pl.tiles ? nr : pl.tiles;
+    Bwd<W, R> args = a;
+    HyperArgs<W, R> hy = h;
+    LnWork wk = w;
+    void* params[] = {&args, &hy, &wk, &slices, &tiles, &parts, &r0, &nr};
+    err = cudaLaunchCooperativeKernel(fn, dim3(slices * tiles),
+                                      dim3(kLoopThreads), params, win.smem,
+                                      stream);
+  }
+  return err;
+}
+
+// 4. dxs = rnd_W(dxp) @ wx^T + rnd_W(dh_pre) @ wxh_x^T of every row-step,
+// one warp a row-step (no recurrence)
+template <typename W, typename R>
+__global__ void hyper_dxs_kernel(Bwd<W, R> a, HyperArgs<W, R> h) {
+  const int H = a.p.H, G = 4 * H, GH = 4 * h.HH, D = a.p.D;
+  const int lane = threadIdx.x & 31;
+  const size_t M = (size_t)a.T * a.B, nw = (size_t)gridDim.x * blockDim.x / 32;
+  for (size_t m = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) / 32; m < M;
+       m += nw) {
+    const float4* dv = reinterpret_cast<const float4*>(h.sx + m * G);
+    const float4* da = reinterpret_cast<const float4*>(h.hpre + m * GH);
+    for (int q = 0; q < D; ++q) {
+      const W* wr = a.p.wx + (size_t)q * G;
+      const W* wa = h.wxh_x + (size_t)q * GH;
+      float acc = 0.0f, acc2 = 0.0f;
+      for (int qd = lane; qd < H; qd += 32) {
+        const float4 d = rnd4<W>(dv[qd]);
+        const W* wq = wr + 4 * qd;
+        acc = fmaf(d.x, to_f(wq[0]), acc);
+        acc = fmaf(d.y, to_f(wq[1]), acc);
+        acc = fmaf(d.z, to_f(wq[2]), acc);
+        acc = fmaf(d.w, to_f(wq[3]), acc);
+      }
+      for (int qd = lane; qd < h.HH; qd += 32) {
+        const float4 d = rnd4<W>(da[qd]);
+        const W* wq = wa + 4 * qd;
+        acc2 = fmaf(d.x, to_f(wq[0]), acc2);
+        acc2 = fmaf(d.y, to_f(wq[1]), acc2);
+        acc2 = fmaf(d.z, to_f(wq[2]), acc2);
+        acc2 = fmaf(d.w, to_f(wq[3]), acc2);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        acc += __shfl_xor_sync(0xffffffffu, acc, off);
+        acc2 += __shfl_xor_sync(0xffffffffu, acc2, off);
+      }
+      if (lane == 0) a.dxs[m * D + q] = acc + acc2;
+    }
+  }
+}
+
+// 5. The eleven matrix gradients on weight_grad.cuh's split-K pass, one
+// after another over one partials scratch (wg_part, wg_floats floats):
+// [x]^T dxp, [h_prev]^T dhp, [x; h_prev; hh_prev]^T dh_pre, hhn^T dz_p
+// (three), rounded to W; z_p[g]^T ds_p[g] (twelve), float x float.
+template <typename RT>
+WgSrc<RT> wg_stream(const float* f, int ld, int rows) {
+  return {f, nullptr, nullptr, ld, 0, rows};
+}
+
+template <typename W, typename R>
+cudaError_t launch_hyper_products(const Bwd<W, R>& a, const HyperArgs<W, R>& h,
+                                  const HyperMatGrads& d, float* wg_part,
+                                  int wg_floats, cudaStream_t stream) {
+  const int K = a.T * a.B, D = a.p.D, H = a.p.H, HH = h.HH, E = h.E;
+  const int G = 4 * H, GH = 4 * HH, Z = 12 * E;
+  const WgSrc<R> none = {nullptr, nullptr, nullptr, 0, 0, 0};
+  const WgSrc<R> hprev = {nullptr, a.hs, a.h0, H, a.B, H};
+  const WgSrc<R> hhprev = {nullptr, h.hyhs, h.hh0, HH, a.B, HH};
+  cudaError_t err = cudaSuccess;
+  // one product: rows [xs (dx rows); s0; s1] x the stream b (n columns of
+  // stride ldb) into dx, d0, d1, rounded to W when round
+  auto product = [&](const float* xs, int dx_rows, WgSrc<R> s0, WgSrc<R> s1,
+                     const float* b, int ldb, int n, bool round, float* dx,
+                     float* d0, float* d1) {
+    if (err != cudaSuccess) return;
+    WgArgs<R> w;
+    w.xs = xs;
+    w.src[0] = s0;
+    w.src[1] = s1;
+    w.dpre = b;
+    w.K = K;
+    w.D = dx_rows;
+    w.ones = 0;
+    w.ldb = ldb;
+    w.N = n;
+    w.dwx = dx;
+    w.dwh[0] = d0;
+    w.dwh[1] = d1;
+    w.db = nullptr;
+    const int M = s0.rows + s1.rows;
+    w.plan = round && sizeof(W) == 2
+                 ? wg_plan<bf16>(K, dx_rows, M, n, 0, wg_part)
+                 : wg_plan<float>(K, dx_rows, M, n, 0, wg_part);
+    if (wg_part_floats(w) > (size_t)wg_floats) {
+      err = cudaErrorInvalidValue;
+      return;
+    }
+    err = round ? launch_weight_grad_pass<W, true>(w, stream)
+                : launch_weight_grad_pass<float, true>(w, stream);
+  };
+  product(a.xs, D, none, none, h.sx, G, G, true, d.wx, nullptr, nullptr);
+  product(nullptr, 0, hprev, none, h.sh, G, G, true, nullptr, d.wh, nullptr);
+  product(a.xs, D, hprev, hhprev, h.hpre, GH, GH, true, d.wxh_x, d.wxh_h,
+          d.whh);
+  for (int path = 0; path < 3; ++path)
+    product(nullptr, 0, wg_stream<R>(h.hhn, HH, HH), none, h.dz + path * 4 * E,
+            Z, 4 * E, true, nullptr, d.w_hz[path], nullptr);
+  const float* ds[3] = {h.xp, h.hp, h.pre};  // dsx, dsh, d_pre
+  for (int path = 0; path < 3; ++path)
+    for (int g = 0; g < 4; ++g)
+      product(nullptr, 0, wg_stream<R>(h.zs + (path * 4 + g) * E, Z, E), none,
+              ds[path] + g * H, G, H, false, nullptr,
+              d.zd[path] + (size_t)g * E * H, nullptr);
+  return err;
+}
+
+// The six stages in order (stage 0), or one of them: 1 the recompute, 2
+// the statistics, 3 the loop, 4 dxs, 5 the products, 6 the row sums.
+template <typename W, typename R>
+cudaError_t launch_hyper_bwd(const Bwd<W, R>& a, const HyperArgs<W, R>& h,
+                             const HyperPlan& pl, const LnWork& w,
+                             float* wg_part, int wg_floats,
+                             const HyperMatGrads& d, float* dvec, int stage,
+                             cudaStream_t stream) {
+  const int D = a.p.D, H = a.p.H, HH = h.HH, E = h.E, M = a.T * a.B;
+  if (stage < 0 || stage > 6 || a.B < 1 || a.T < 0 || D < 1 || H < 1 ||
+      HH < 1 || E < 1 || H > kMaxThreads || HH > kMaxThreads)
+    return cudaErrorInvalidValue;
+  Windows win;
+  const bool loop = stage == 0 || stage == 3;
+  cudaError_t err = loop ? hyper_plan_check(a, h, pl, win) : cudaSuccess;
+  if (err == cudaSuccess && (stage == 0 || stage == 1))
+    err = launch_hyper_recompute(a, h, stream);
+  if (err == cudaSuccess && (stage == 0 || stage == 2) && M > 0) {
+    ln_stats_kernel<W, R><<<M, threads_for(H), 0, stream>>>(a, w.stats);
+    err = cudaGetLastError();
+  }
+  if (err == cudaSuccess && loop)
+    err = launch_hyper_loop(a, h, w, pl, win, stream);
+  if (err == cudaSuccess && (stage == 0 || stage == 4) && M > 0) {
+    const int blocks = (M + 7) / 8 < 4096 ? (M + 7) / 8 : 4096;
+    hyper_dxs_kernel<W, R><<<blocks, 256, 0, stream>>>(a, h);
+    err = cudaGetLastError();
+  }
+  if (err == cudaSuccess && (stage == 0 || stage == 5))
+    err = launch_hyper_products(a, h, d, wg_part, wg_floats, stream);
+  if (err == cudaSuccess && (stage == 0 || stage == 6)) {
+    sum_rows_kernel<<<(h.P + 255) / 256, 256, 0, stream>>>(a.part, a.B, h.P,
+                                                           dvec);
+    err = cudaGetLastError();
+  }
+  return err;
 }
 
 template <typename W>
@@ -804,6 +1824,87 @@ HyperCell<W> make_hyper_cell(const void* wx, const float* b, const void* wh,
   p.E = E;
   p.forget_bias = forget_bias;
   return p;
+}
+
+
+// The new design's entries (header, "Design of the backward"): the Bwd
+// view of the main cell and the HyperLSTM's own operands, the streams and
+// the work carved from their scratch, the plan, then launch_hyper_bwd.
+template <typename W, typename R>
+cudaError_t hyper_bwd_any(
+    int stage, const float* xs, const float* xb, const float* xbh,
+    const void* wx, const float* b, const void* wh, const void* wxh_x,
+    const void* wxh_h, const float* bh, const void* whh, const void* w_hz_x,
+    const float* b_hz_x, const void* w_hz_h, const float* b_hz_h,
+    const void* w_hz_b, const float* zd_x, const float* zd_h,
+    const float* zd_b, const float* ln_gamma, const float* ln_beta,
+    const float* lnc_gamma, const float* lnc_beta, const float* h0,
+    const float* hh0, const void* hs, const void* cs, const void* hycs,
+    const void* hyhs, const void* dhs, const float* dcT, const float* dhT,
+    const float* dhcT, const float* dhhT, const float* masks, const int* seed,
+    int T, int B, int D, int H, int HH, int E, float keep, float inv_keep,
+    float forget_bias, const HyperPlan& pl, float* streams, float* work,
+    float* wg_part, int wg_floats, float* dxs, float* dxb, float* dxbh,
+    const HyperMatGrads& d, float* dvec, float* dc0, float* dh0,
+    float* dhc0, float* dhh0, cudaStream_t stream) {
+  if (!hyper_sizes_ok(D, H, HH, E) || B < 1 || T < 0 || streams == nullptr ||
+      work == nullptr || wg_part == nullptr || (xb == nullptr) != (xbh == nullptr))
+    return cudaErrorInvalidValue;
+  Bwd<W, R> a;
+  a.p = make_cell<W>(wx, wh, nullptr, nullptr, ln_gamma, ln_beta, lnc_gamma,
+                     lnc_beta, D, H, forget_bias);
+  a.xs = xs;
+  a.h0 = h0;
+  a.hs = static_cast<const R*>(hs);
+  a.cs = static_cast<const R*>(cs);
+  a.dhs = static_cast<const R*>(dhs);
+  a.dcT = dcT;
+  a.dhT = dhT;
+  a.drop = make_dropout(masks, seed, keep, inv_keep);
+  a.dxs = dxs;
+  a.dxb = dxb;
+  a.dc0 = dc0;
+  a.dh0 = dh0;
+  a.part = work;
+  a.wg = {0, 0, nullptr};
+  a.T = T;
+  a.B = B;
+  HyperArgs<W, R> h;
+  h.wxh_x = static_cast<const W*>(wxh_x);
+  h.wxh_h = static_cast<const W*>(wxh_h);
+  h.bh = bh;
+  h.whh = static_cast<const W*>(whh);
+  h.w_hz[0] = static_cast<const W*>(w_hz_x);
+  h.w_hz[1] = static_cast<const W*>(w_hz_h);
+  h.w_hz[2] = static_cast<const W*>(w_hz_b);
+  h.b_hz[0] = b_hz_x;
+  h.b_hz[1] = b_hz_h;
+  h.zd[0] = zd_x;
+  h.zd[1] = zd_h;
+  h.zd[2] = zd_b;
+  h.b = b;
+  h.xb = xb;
+  h.xbh = xbh;
+  h.hh0 = hh0;
+  h.hycs = static_cast<const R*>(hycs);
+  h.hyhs = static_cast<const R*>(hyhs);
+  h.dhcT = dhcT;
+  h.dhhT = dhhT;
+  h.HH = HH;
+  h.E = E;
+  h.P = 14 * H + 4 * HH + 8 * E;
+  carve_streams(h, streams, T, B, H);
+  a.dpre = h.pre;
+  const LnWork w = ln_work(work + ((size_t)B * h.P + 3) / 4 * 4, T, B, H,
+                           pl.slices);
+  h.exz = w.dxh + 4 * (size_t)B * H;
+  h.dhx = h.exz + (size_t)B * pl.slices * 12 * E;
+  h.dhhx = h.dhx + (size_t)B * H;
+  h.dxbh = dxbh;
+  h.dhc0 = dhc0;
+  h.dhh0 = dhh0;
+  return launch_hyper_bwd(a, h, pl, w, wg_part, wg_floats, d, dvec, stage,
+                          stream);
 }
 
 }  // namespace
@@ -869,34 +1970,134 @@ int srt_hyper_fwd(const float* xs, const float* xb, const float* xbh,
   });
 }
 
-// Scratch (float32, any contents): s_dpre, s_dxp, s_dhp, s_dsx, s_dsh
+// The backward (header, "Design of the backward"): the six stages on the
+// plan (units, split, slices, tiles, windows, parts, smem) of
+// cuda_fused.hyper_bwd_plan. Scratch (float32, any contents): streams
+// (cuda_fused.hyper_stream_floats), work (hyper_work_floats), wg_part of
+// wg_floats floats (the largest product's partials). Outputs as
+// srt_hyper_bwd_rowblock's. A plan that does not hold the shape, or
+// partials that do not fit, is cudaErrorInvalidValue; blocks that cannot
+// co-reside cudaErrorCooperativeLaunchTooLarge: never another design.
+int srt_hyper_bwd(
+    const float* xs, const float* xb, const float* xbh, const void* wx,
+    const float* b, const void* wh, const void* wxh_x, const void* wxh_h,
+    const float* bh, const void* whh, const void* w_hz_x, const float* b_hz_x,
+    const void* w_hz_h, const float* b_hz_h, const void* w_hz_b,
+    const float* zd_x, const float* zd_h, const float* zd_b,
+    const float* ln_gamma, const float* ln_beta, const float* lnc_gamma,
+    const float* lnc_beta, const float* h0, const float* hh0, const void* hs,
+    const void* cs, const void* hycs, const void* hyhs, const void* dhs,
+    const float* dcT, const float* dhT, const float* dhcT, const float* dhhT,
+    const float* masks, const int* seed, int T, int B, int D, int H, int HH,
+    int E, int w_bf16, int r_bf16, float keep, float inv_keep,
+    float forget_bias, int units, int split, int slices, int tiles,
+    int windows, int parts, int smem, float* streams, float* work,
+    float* wg_part,
+    int wg_floats, float* dxs, float* dxb, float* dxbh, float* dwx,
+    float* dwh, float* dwxh_x, float* dwxh_h, float* dwhh, float* dw_hz_x,
+    float* dw_hz_h, float* dw_hz_b, float* dzd_x, float* dzd_h, float* dzd_b,
+    float* dvec, float* dc0, float* dh0, float* dhc0, float* dhh0,
+    void* stream) {
+  const HyperPlan pl = {units, split, slices, tiles, windows, parts, smem};
+  HyperMatGrads d;
+  d.wx = dwx;
+  d.wh = dwh;
+  d.wxh_x = dwxh_x;
+  d.wxh_h = dwxh_h;
+  d.whh = dwhh;
+  d.w_hz[0] = dw_hz_x;
+  d.w_hz[1] = dw_hz_h;
+  d.w_hz[2] = dw_hz_b;
+  d.zd[0] = dzd_x;
+  d.zd[1] = dzd_h;
+  d.zd[2] = dzd_b;
+  return (int)with_types(w_bf16, r_bf16, [&](auto w, auto r) -> cudaError_t {
+    return hyper_bwd_any<decltype(w), decltype(r)>(
+        0, xs, xb, xbh, wx, b, wh, wxh_x, wxh_h, bh, whh, w_hz_x, b_hz_x,
+        w_hz_h, b_hz_h, w_hz_b, zd_x, zd_h, zd_b, ln_gamma, ln_beta,
+        lnc_gamma, lnc_beta, h0, hh0, hs, cs, hycs, hyhs, dhs, dcT, dhT, dhcT,
+        dhhT, masks, seed, T, B, D, H, HH, E, keep, inv_keep, forget_bias, pl,
+        streams, work, wg_part, wg_floats, dxs, dxb, dxbh, d, dvec, dc0, dh0,
+        dhc0, dhh0, (cudaStream_t)stream);
+  });
+}
+
+// One stage of srt_hyper_bwd alone (1 the recompute, 2 the statistics, 3
+// the loop, 4 dxs, 5 the products, 6 the row sums), on the buffers the
+// stages before it left, to time the split.
+int srt_hyper_bwd_stage(
+    int stage, const float* xs, const float* xb, const float* xbh,
+    const void* wx, const float* b, const void* wh, const void* wxh_x, const void* wxh_h,
+    const float* bh, const void* whh, const void* w_hz_x, const float* b_hz_x,
+    const void* w_hz_h, const float* b_hz_h, const void* w_hz_b,
+    const float* zd_x, const float* zd_h, const float* zd_b,
+    const float* ln_gamma, const float* ln_beta, const float* lnc_gamma,
+    const float* lnc_beta, const float* h0, const float* hh0, const void* hs,
+    const void* cs, const void* hycs, const void* hyhs, const void* dhs,
+    const float* dcT, const float* dhT, const float* dhcT, const float* dhhT,
+    const float* masks, const int* seed, int T, int B, int D, int H, int HH,
+    int E, int w_bf16, int r_bf16, float keep, float inv_keep,
+    float forget_bias, int units, int split, int slices, int tiles,
+    int windows, int parts, int smem, float* streams, float* work,
+    float* wg_part,
+    int wg_floats, float* dxs, float* dxb, float* dxbh, float* dwx,
+    float* dwh, float* dwxh_x, float* dwxh_h, float* dwhh, float* dw_hz_x,
+    float* dw_hz_h, float* dw_hz_b, float* dzd_x, float* dzd_h, float* dzd_b,
+    float* dvec, float* dc0, float* dh0, float* dhc0, float* dhh0,
+    void* stream) {
+  const HyperPlan pl = {units, split, slices, tiles, windows, parts, smem};
+  HyperMatGrads d;
+  d.wx = dwx;
+  d.wh = dwh;
+  d.wxh_x = dwxh_x;
+  d.wxh_h = dwxh_h;
+  d.whh = dwhh;
+  d.w_hz[0] = dw_hz_x;
+  d.w_hz[1] = dw_hz_h;
+  d.w_hz[2] = dw_hz_b;
+  d.zd[0] = dzd_x;
+  d.zd[1] = dzd_h;
+  d.zd[2] = dzd_b;
+  if (stage < 1 || stage > 6) return (int)cudaErrorInvalidValue;
+  return (int)with_types(w_bf16, r_bf16, [&](auto w, auto r) -> cudaError_t {
+    return hyper_bwd_any<decltype(w), decltype(r)>(
+        stage, xs, xb, xbh, wx, b, wh, wxh_x, wxh_h, bh, whh, w_hz_x, b_hz_x,
+        w_hz_h, b_hz_h, w_hz_b, zd_x, zd_h, zd_b, ln_gamma, ln_beta,
+        lnc_gamma, lnc_beta, h0, hh0, hs, cs, hycs, hyhs, dhs, dcT, dhT, dhcT,
+        dhhT, masks, seed, T, B, D, H, HH, E, keep, inv_keep, forget_bias, pl,
+        streams, work, wg_part, wg_floats, dxs, dxb, dxbh, d, dvec, dc0, dh0,
+        dhc0, dhh0, (cudaStream_t)stream);
+  });
+}
+
+// The row-block design the backward replaced (one block per batch row,
+// then tn_gemm_kernel's eleven products), kept to hold and time the new
+// design beside it. Scratch (float32, any contents): s_dpre, s_dxp, s_dhp,
+// s_dsx, s_dsh
 // [T, B, 4H]; s_dhpre [T, B, 4HH]; s_zs, s_dzs [3, T, B, 4e]; s_hhn
 // [T, B, HH]; s_part [B, 14H + 4HH + 8e]. Outputs: the matrices' gradients
 // as float32 in the matrices' shapes; dvec [14H + 4HH + 8e] = dln_gamma 4H |
 // dln_beta 4H | dlnc_gamma H | dlnc_beta H | db 4H | dbh 4HH | db_hz_x 4e |
 // db_hz_h 4e; dxb / dxbh null when xb / xbh are.
-int srt_hyper_bwd(const float* xs, const float* xb, const float* xbh,
-                  const void* wx, const float* b, const void* wh,
-                  const void* wxh_x, const void* wxh_h, const float* bh,
-                  const void* whh, const void* w_hz_x, const float* b_hz_x,
-                  const void* w_hz_h, const float* b_hz_h, const void* w_hz_b,
-                  const float* zd_x, const float* zd_h, const float* zd_b,
-                  const float* ln_gamma, const float* ln_beta,
-                  const float* lnc_gamma, const float* lnc_beta,
-                  const float* h0, const float* hh0, const void* hs,
-                  const void* cs, const void* hycs, const void* hyhs,
-                  const void* dhs, const float* dcT, const float* dhT,
-                  const float* dhcT, const float* dhhT, const float* masks,
-                  const int* seed, int T, int B, int D, int H, int HH, int E,
-                  int w_bf16, int r_bf16, float keep, float inv_keep,
-                  float forget_bias, float* s_dpre, float* s_dxp,
-                  float* s_dhp, float* s_dsx, float* s_dsh, float* s_dhpre,
-                  float* s_zs, float* s_dzs, float* s_hhn, float* s_part,
-                  float* dxs, float* dxb, float* dxbh, float* dwx, float* dwh,
-                  float* dwxh_x, float* dwxh_h, float* dwhh, float* dw_hz_x,
-                  float* dw_hz_h, float* dw_hz_b, float* dzd_x, float* dzd_h,
-                  float* dzd_b, float* dvec, float* dc0, float* dh0,
-                  float* dhc0, float* dhh0, void* stream) {
+int srt_hyper_bwd_rowblock(
+    const float* xs, const float* xb, const float* xbh, const void* wx,
+    const float* b, const void* wh, const void* wxh_x, const void* wxh_h,
+    const float* bh, const void* whh, const void* w_hz_x, const float* b_hz_x,
+    const void* w_hz_h, const float* b_hz_h, const void* w_hz_b,
+    const float* zd_x, const float* zd_h, const float* zd_b,
+    const float* ln_gamma, const float* ln_beta, const float* lnc_gamma,
+    const float* lnc_beta, const float* h0, const float* hh0, const void* hs,
+    const void* cs, const void* hycs, const void* hyhs, const void* dhs,
+    const float* dcT, const float* dhT, const float* dhcT, const float* dhhT,
+    const float* masks, const int* seed, int T, int B, int D, int H, int HH,
+    int E, int w_bf16, int r_bf16, float keep, float inv_keep,
+    float forget_bias, float* s_dpre, float* s_dxp, float* s_dhp,
+    float* s_dsx, float* s_dsh, float* s_dhpre, float* s_zs, float* s_dzs,
+    float* s_hhn, float* s_part, float* dxs, float* dxb, float* dxbh,
+    float* dwx, float* dwh, float* dwxh_x, float* dwxh_h, float* dwhh,
+    float* dw_hz_x, float* dw_hz_h, float* dw_hz_b, float* dzd_x,
+    float* dzd_h, float* dzd_b, float* dvec, float* dc0, float* dh0,
+    float* dhc0, float* dhh0, void* stream) {
   return (int)with_types(w_bf16, r_bf16, [&](auto w, auto r) -> cudaError_t {
     using W = decltype(w);
     using R = decltype(r);
@@ -949,7 +2150,7 @@ int srt_hyper_bwd(const float* xs, const float* xb, const float* xbh,
     d.zd[0] = dzd_x;
     d.zd[1] = dzd_h;
     d.zd[2] = dzd_b;
-    return launch_hyper_bwd(a, d, dvec, (cudaStream_t)stream);
+    return launch_hyper_bwd_rowblock(a, d, dvec, (cudaStream_t)stream);
   });
 }
 

@@ -291,7 +291,9 @@
 #include <cooperative_groups.h>
 
 #include "lstm_loops.cuh"
+#include "ln_loop.cuh"
 #include "persist.cuh"
+#include "recompute.cuh"
 #include "rnn_common.cuh"
 #include "weight_grad.cuh"
 
@@ -509,8 +511,8 @@ cudaError_t launch_fwd(const Fwd<W, R>& a, cudaStream_t stream) {
 template <typename W, typename R>
 cudaError_t launch_weight_grad(const Bwd<W, R>& a, int ones, float* dwx,
                                float* dwh, float* db, cudaStream_t stream) {
-  const WgArgs<R> w = {a.xs, a.h0, a.hs, a.dpre, a.T, a.B, a.p.D, a.p.H,
-                       ones, a.wg, dwx, dwh, db};
+  const WgArgs<R> w = wg_lstm_args(a.xs, a.h0, a.hs, a.dpre, a.T, a.B,
+                                   a.p.D, a.p.H, ones, a.wg, dwx, dwh, db);
   return launch_weight_grad_pass<W>(w, stream);
 }
 
@@ -533,257 +535,12 @@ cudaError_t launch_bwd(const Bwd<W, R>& a, int ones, float* dwx, float* dwh,
 // The loop (2) and the forward's loop are lstm_loops.cuh's, shared with
 // lstm_seq.cu; this file holds the recompute (1) and the launches.
 
-// 1. The hoisted gate recompute. Its left operand is h_{t-1} of row-step
-// m = t * B + b: the stored value (h0 rounded to R at t = 0), rounded to W.
-template <typename W, typename R>
-__device__ __forceinline__ float h_prev(const Bwd<W, R>& a, int m, int k) {
-  const int H = a.p.H;
-  return rnd<W>(m < a.B ? rnd<R>(a.h0[(size_t)m * H + k])
-                        : to_f(a.hs[(size_t)(m - a.B) * H + k]));
-}
-
-// Output (m, n) of the recompute from the h-part hp: the two sums of
-// gate_pre, ((x_m @ wx[:, n] + b[n]) + hp) [+ xb[b, n]].
-template <typename W, typename R>
-__device__ __forceinline__ float pre_out(const Bwd<W, R>& a, int m, int n,
-                                         float hp) {
-  const Cell<W>& p = a.p;
-  const int G = 4 * p.H;
-  const float* x = a.xs + (size_t)m * p.D;
-  float xp = 0.0f;
-  for (int q = 0; q < p.D; ++q)
-    xp = fmaf(rnd<W>(x[q]), to_f(p.wx[(size_t)q * G + n]), xp);
-  if (p.b != nullptr) xp = xp + p.b[n];
-  float v = xp + hp;
-  if (p.xb != nullptr) v = v + p.xb[(size_t)(m % a.B) * G + n];
-  return v;
-}
-
-// Float weights: a SIMT tiled product (no TF32: it would round operands
-// the float contract keeps). 128 x 128 outputs per block, 256 threads of
-// 8 x 8, k in chunks of 8 in order, the next chunk loaded into registers
-// while this one is multiplied.
-constexpr int kRcM = 128, kRcN = 128, kRcK = 8, kRcThreads = 256;
-
-template <typename W, typename R>
-__global__ void __launch_bounds__(kRcThreads)
-recompute_simt_kernel(Bwd<W, R> a) {
-  __shared__ __align__(16) float sA[2][kRcK][kRcM];
-  __shared__ __align__(16) float sB[2][kRcK][kRcN];
-  const int H = a.p.H, G = 4 * H, M = a.T * a.B;
-  const int m0 = blockIdx.y * kRcM, n0 = blockIdx.x * kRcN;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int am = tid >> 1, ak = (tid & 1) * 4;   // A: 4 k of one row
-  const int bk = tid >> 5, bn = (tid & 31) * 4;  // B: 4 n of one k
-  float ra[4], rb[4];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = m0 + am, k = k0 + ak + i;
-      ra[i] = (m < M && k < H) ? h_prev(a, m, k) : 0.0f;
-      const int kb = k0 + bk, n = n0 + bn + i;
-      rb[i] = (kb < H && n < G) ? to_f(a.p.wh[(size_t)kb * G + n]) : 0.0f;
-    }
-  };
-  auto store = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      sA[buf][ak + i][am] = ra[i];
-      sB[buf][bk][bn + i] = rb[i];
-    }
-  };
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-  load(0);
-  store(0);
-  __syncthreads();
-  int buf = 0;
-  for (int k0 = 0; k0 < H; k0 += kRcK) {
-    const bool more = k0 + kRcK < H;
-    if (more) load(k0 + kRcK);
-#pragma unroll
-    for (int kk = 0; kk < kRcK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&sA[buf][kk][ty * 4]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&sA[buf][kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&sB[buf][kk][tx * 4]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&sB[buf][kk][64 + tx * 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    if (more) store(buf ^ 1);
-    __syncthreads();
-    buf ^= 1;
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (n < G) a.dpre[(size_t)m * G + n] = pre_out(a, m, n, acc[i][j]);
-    }
-  }
-}
-
-// bf16 weights: the tensor cores, mma.sync m16n8k16 (bf16 operands, float
-// sums: a product of two bf16 values is exact in float, so only the order
-// of the float sums differs from the plain version). 128 x 128 outputs per
-// block, 8 warps of 64 x 32, k in chunks of 32, two buffers: the weight
-// tile arrives by cp.async, the h tile through registers (it is gathered
-// and rounded on the way), the next chunk's copies in flight while this
-// one is multiplied. Rows padded by 8 bf16 so ldmatrix is free of bank
-// conflicts (the primitives: mma.cuh).
-constexpr int kMmM = 128, kMmN = 128, kMmK = 32, kMmThreads = 256;
-constexpr int kAPad = kMmK + 8, kBPad = kMmN + 8;
-
-template <typename R>
-__global__ void __launch_bounds__(kMmThreads)
-recompute_mma_kernel(Bwd<bf16, R> a) {
-  __shared__ __align__(16) bf16 sA[2][kMmM][kAPad];
-  __shared__ __align__(16) bf16 sB[2][kMmK][kBPad];
-  const int H = a.p.H, G = 4 * H, M = a.T * a.B;
-  const int m0 = blockIdx.y * kMmM, n0 = blockIdx.x * kMmN;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-  const int am = tid >> 1, ak = (tid & 1) * 16;  // A: 16 k of one row
-  // 16-byte copies of whole chunks need 16-byte aligned rows
-  const bool vec_b =
-      G % 8 == 0 && (reinterpret_cast<uintptr_t>(a.p.wh) & 15) == 0;
-  const bool vec_a = sizeof(R) == 2 && H % 8 == 0 &&
-                     (reinterpret_cast<uintptr_t>(a.hs) & 15) == 0;
-  uint4 ra[2];
-  auto load_a = [&](int k0) {
-    const int m = m0 + am, k = k0 + ak;
-    if (vec_a && m >= a.B && m < M && k + 16 <= H) {
-      // bf16 residuals are bf16 already: copied as they are
-      const uint4* src = reinterpret_cast<const uint4*>(
-          a.hs + (size_t)(m - a.B) * H + k);
-      ra[0] = src[0];
-      ra[1] = src[1];
-      return;
-    }
-    bf16* r = reinterpret_cast<bf16*>(ra);
-#pragma unroll
-    for (int i = 0; i < 16; ++i)
-      r[i] = __float2bfloat16_rn((m < M && k + i < H) ? h_prev(a, m, k + i)
-                                                      : 0.0f);
-  };
-  auto store_a = [&](int buf) {
-    uint4* dst = reinterpret_cast<uint4*>(&sA[buf][am][ak]);
-    dst[0] = ra[0];
-    dst[1] = ra[1];
-  };
-  auto load_b = [&](int k0, int buf) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * kMmThreads;
-      const int kk = c >> 4, nn = (c & 15) * 8;
-      const int k = k0 + kk, n = n0 + nn;
-      bf16* dst = &sB[buf][kk][nn];
-      if (vec_b && k < H && n + 8 <= G) {
-        cp_async16(dst, a.p.wh + (size_t)k * G + n);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          dst[e] = (k < H && n + e < G) ? a.p.wh[(size_t)k * G + n + e]
-                                        : __float2bfloat16_rn(0.0f);
-      }
-    }
-    cp_async_commit();
-  };
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-
-  load_a(0);
-  load_b(0, 0);
-  store_a(0);
-  cp_async_wait_all();
-  __syncthreads();
-  int buf = 0;
-  for (int k0 = 0; k0 < H; k0 += kMmK) {
-    const bool more = k0 + kMmK < H;
-    if (more) {
-      load_a(k0 + kMmK);
-      load_b(k0 + kMmK, buf ^ 1);
-    }
-#pragma unroll
-    for (int kk = 0; kk < kMmK; kk += 16) {
-      uint32_t af[4][4], bfr[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        ldmatrix_x4(af[i],
-                    &sA[buf][wm + i * 16 + (lane & 15)][kk + (lane >> 4) * 8]);
-#pragma unroll
-      for (int jp = 0; jp < 2; ++jp) {
-        uint32_t r[4];
-        ldmatrix_x4_trans(
-            r, &sB[buf][kk + (lane & 7) + ((lane >> 3) & 1) * 8]
-                  [wn + jp * 16 + (lane >> 4) * 8]);
-        bfr[2 * jp][0] = r[0];
-        bfr[2 * jp][1] = r[1];
-        bfr[2 * jp + 1][0] = r[2];
-        bfr[2 * jp + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          mma_bf16(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
-    }
-    if (more) {
-      store_a(buf ^ 1);
-      cp_async_wait_all();
-    }
-    __syncthreads();
-    buf ^= 1;
-  }
-  // accumulator (i, j): rows wm + 16 i + lane / 4 (+ 8), columns
-  // wn + 8 j + 2 (lane % 4) (+ 1)
-  const int gr = lane >> 2, gc = (lane & 3) * 2;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int m = m0 + wm + i * 16 + gr + hh * 8;
-      if (m >= M) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int n = n0 + wn + j * 8 + gc + e;
-          if (n < G)
-            a.dpre[(size_t)m * G + n] = pre_out(a, m, n, acc[i][j][hh * 2 + e]);
-        }
-    }
-}
-
+// 1. The hoisted gate recompute: the tiled products of recompute.cuh over
+// the operand PreOp, pre = ((x @ wx [+ b]) + h_{t-1} @ wh) [+ x_bias] of
+// every row-step into the d_pre scratch.
 template <typename W, typename R>
 cudaError_t launch_recompute(const Bwd<W, R>& a, cudaStream_t stream) {
-  const int G = 4 * a.p.H, M = a.T * a.B;
-  if (M == 0) return cudaSuccess;
-  if constexpr (sizeof(W) == 2) {
-    const dim3 grid((G + kMmN - 1) / kMmN, (M + kMmM - 1) / kMmM);
-    recompute_mma_kernel<R><<<grid, kMmThreads, 0, stream>>>(a);
-  } else {
-    const dim3 grid((G + kRcN - 1) / kRcN, (M + kRcM - 1) / kRcM);
-    recompute_simt_kernel<W, R><<<grid, kRcThreads, 0, stream>>>(a);
-  }
-  return cudaGetLastError();
+  return launch_product<W>(PreOp<W, R>{a}, 1, stream);
 }
 
 // The three launches in order (stage 0), or one of them (1, 2 or 3); the
@@ -810,383 +567,67 @@ cudaError_t launch_lstm_bwd(const Bwd<W, R>& a, int stage, float* dwx,
 // "Design of the LayerNorm-LSTM backward"). The first is the LSTM's
 // recompute (Cell::b is null).
 
-constexpr int kLnStats = 10;  // per row-step: mean[4], rs[4], cmean, crs
-
-// The scratch of the launches after the recompute, carved from one float
-// buffer in this order (16-byte aligned first): the per-slice partials of
-// the gate norms' row sums (exchange (b), [B][slices][8]) and of the cell
-// norm's (exchange (a), [B][slices][2]), the hoisted statistics
-// ([T * B][kLnStats]) and each pair's dxh = dy * gamma from (b) to (c)
-// ([4][B][H]).
-struct LnWork {
-  float* exb;
-  float* exa;
-  float* stats;
-  float* dxh;
-};
-
-LnWork ln_work(float* work, int T, int B, int H) {
-  const size_t slices = (size_t)(H + kUnits - 1) / kUnits;
-  LnWork w;
-  w.exb = work;
-  w.exa = w.exb + (size_t)B * slices * 8;
-  w.stats = w.exa + (size_t)B * slices * 2;
-  w.dxh = w.stats + (size_t)T * B * kLnStats;
-  return w;
-}
-
-// 2. The statistics of every row-step, which depend on nothing the loop
-// computes: one block per row-step (threads_for(H) threads, one per
-// unit), gate_stats of the recomputed pre, the gate block up to the new
-// cell state, row_stats of it: the row-block design's sums in its order.
-template <typename W, typename R>
-__global__ void __launch_bounds__(kMaxThreads)
-ln_stats_kernel(Bwd<W, R> a, float* stats) {
-  __shared__ float s_red[33 * kRedMax];
-  const Cell<W>& p = a.p;
-  const int H = p.H, B = a.B, j = threadIdx.x;
-  const int m = blockIdx.x, s = m / B, row = m - s * B;
-  const bool own = j < H;
-  const uint32_t seed = a.drop.seed != nullptr ? (uint32_t)*a.drop.seed : 0u;
-  float pre[4] = {0.0f, 0.0f, 0.0f, 0.0f}, c_prev = 0.0f, mk = 1.0f;
-  if (own) {
-    const float* pr = a.dpre + (size_t)m * 4 * H;
-#pragma unroll
-    for (int g = 0; g < 4; ++g) pre[g] = pr[g * H + j];
-    c_prev = to_f(a.cs[(size_t)m * H + j]);
-    mk = dropout_mask(a.drop, seed, s, B, row, H, j);
-  }
-  float mean[4], rs[4], y[4];
-  gate_stats(pre, own, H, s_red, mean, rs);
-#pragma unroll
-  for (int g = 0; g < 4; ++g) {
-    const float xhat = (pre[g] - mean[g]) * rs[g];
-    y[g] = own ? xhat * p.ln_gamma[g * H + j] + p.ln_beta[g * H + j] : 0.0f;
-  }
-  const float i = sigmoidf_(y[0]), gu = tanhf(y[1]);
-  const float f = sigmoidf_(y[2] + p.forget_bias);
-  const float nc = c_prev * f + i * (gu * mk);
-  float cmean, crs;
-  row_stats(nc, own, H, s_red, cmean, crs);
-  if (j == 0) {
-    float* st = stats + (size_t)m * kLnStats;
-#pragma unroll
-    for (int g = 0; g < 4; ++g) {
-      st[g] = mean[g];
-      st[4 + g] = rs[g];
-    }
-    st[8] = cmean;
-    st[9] = crs;
-  }
-}
-
-// Sum N values over the 16 lanes of a half warp (one row's units); every
-// lane gets the same sums. All 32 lanes must call it.
-template <int N>
-__device__ __forceinline__ void half_warp_sum(float (&v)[N]) {
-#pragma unroll
-  for (int off = kUnits / 2; off > 0; off >>= 1)
-#pragma unroll
-    for (int g = 0; g < N; ++g)
-      v[g] += __shfl_xor_sync(0xffffffffu, v[g], off);
-}
-
-constexpr int kLnRows = kLoopThreads / kUnits;  // rows per pass over pairs
-
-// n elements of type V (float, or float4 where 16-byte aligned) of an
-// exchange, from ex + first (in floats) on, written by other blocks of
-// the kernel, into s_ex: one coalesced copy through L2 by the whole block,
-// four loads in flight per thread, so that the half warps' in-order sums
-// over the slices read shared memory instead of waiting on one L2 load
-// after another. A __syncthreads must follow.
-template <typename V>
-__device__ __forceinline__ void stage_ex(float* s_ex, const float* ex,
-                                         size_t first, int n) {
-  const V* src = reinterpret_cast<const V*>(ex + first);
-  V* dst = reinterpret_cast<V*>(s_ex);
-  for (int e0 = threadIdx.x; e0 < n; e0 += 4 * kLoopThreads) {
-    V v[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      if (e0 + i * kLoopThreads < n)
-        v[i] = __ldcg(src + e0 + i * kLoopThreads);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      if (e0 + i * kLoopThreads < n) dst[e0 + i * kLoopThreads] = v[i];
-  }
-}
-
-// The gate block of one (row, unit) pair up to the cell norm's input
-// gradient, from the hoisted pre, the row's statistics st and the pair's
-// c_prev, mask m and dh_tot: ln_gates_bwd before its first block sum.
-struct LnPair {
-  float xhat[4], i, gu, f, o, xhat_c, crs, do_, dyc, c_prev, m;
-};
-
-__device__ __forceinline__ LnPair ln_pair(const float (&pre)[4],
-                                          const float (&st)[kLnStats],
-                                          float c_prev, float m,
-                                          float dh_tot, const float (&gam)[4],
-                                          const float (&bet)[4], float gc,
-                                          float bc, float forget_bias) {
-  LnPair r;
-  r.c_prev = c_prev;
-  r.m = m;
-  r.crs = st[9];
-  float y[4];
-#pragma unroll
-  for (int g = 0; g < 4; ++g) {
-    r.xhat[g] = (pre[g] - st[g]) * st[4 + g];
-    y[g] = r.xhat[g] * gam[g] + bet[g];
-  }
-  r.i = sigmoidf_(y[0]);
-  r.gu = tanhf(y[1]);
-  r.f = sigmoidf_(y[2] + forget_bias);
-  r.o = sigmoidf_(y[3]);
-  const float nc = c_prev * r.f + r.i * (r.gu * m);
-  r.xhat_c = (nc - st[8]) * st[9];
-  const float yc = r.xhat_c * gc + bc;
-  const float tanh_yc = tanhf(yc);
-  r.do_ = dh_tot * tanh_yc;
-  r.dyc = dh_tot * r.o * (1.0f - tanh_yc * tanh_yc);
-  return r;
-}
-
 // 3. The serial loop, one persistent cooperative kernel on the LSTM
-// loop's grid. Block (tile, slice) keeps the wh rows of its units
+// loop's grid, its phases (a)-(c) ln_loop.cuh's (shared with the HyperLSTM
+// backward's loop). Block (tile, slice) keeps the wh rows of its units
 // resident (as float) and the dh parts of its pairs in shared memory;
-// thread tid
-// owns the pairs q = tid + k * kLoopThreads, all of unit j0 + tid % kUnits,
-// so a half warp holds the 16 units of one row and the unit's LN
-// parameters sit in registers. Each pair's running dc (in dc0), LN sums
-// (in part, [B, 10H]) and dx_bias sums (in dxb) are read and written by
-// their owner only. Per step s: (a) each pair's gate block from the
-// hoisted pre and statistics; the half warp sums dxh_c and dxh_c * xhat_c
-// over its units into exa; barrier. (b) the cell norm's row sums, over the
-// slices in order; dcv, the four dy, the LN sums, dxh stashed, and the
-// gate norms' 8 partials into exb; barrier. (c) those sums in slice order
-// give d_pre, written over pre in place, and the dx_bias sums; barrier.
-// (d) dh_{s-1} for the block's rows and units (dh_parts). Exchanges and
-// d_pre are written by other blocks during the kernel: read through L2.
+// thread tid owns the pairs q = tid + k * kLoopThreads, all of unit j0 +
+// tid % kUnits, so a half warp holds the 16 units of one row and the
+// unit's LN parameters sit in registers. Each pair's running dc (in dc0),
+// LN sums (in part, [B, 10H]) and dx_bias sums (in dxb) are read and
+// written by their owner only. Per step s: (a) each pair's gate block from
+// the hoisted pre and statistics; the half warp sums dxh_c and dxh_c *
+// xhat_c over its units into exa; barrier. (b) the cell norm's row sums,
+// over the slices in order; dcv, the four dy, the LN sums, dxh stashed,
+// and the gate norms' 8 partials into exb; barrier. (c) those sums in
+// slice order give d_pre, written over pre in place (LnDpre), and the
+// dx_bias sums; barrier. (d) dh_{s-1} for the block's rows and units
+// (dh_parts). Exchanges and d_pre are written by other blocks during the
+// kernel: read through L2.
 template <typename W, typename R>
 __global__ void __launch_bounds__(kLoopThreads)
 ln_lstm_bwd_loop_kernel(Bwd<W, R> a, LnWork w, int slices, int tiles,
                         int parts, int r0, int nr) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const Cell<W>& p = a.p;
-  const int H = p.H, G = 4 * H, B = a.B;
+  const int H = p.H, G = 4 * H;
   const int sl = blockIdx.x % slices, bt = blockIdx.x / slices;
   const int j0 = sl * H / slices, nu = (sl + 1) * H / slices - j0;
   const int b0 = r0 + bt * nr / tiles;
   const int nb = (bt + 1) * nr / tiles - bt * nr / tiles;
   const int nb_max = (nr + tiles - 1) / tiles;
-  const int plane = nb_max * kUnits;
   // [kUnits][4H], zero past nu; a bf16 weight widened once, exactly (its
   // unpacking at every use cost more than the bytes it saves)
   float* s_w = reinterpret_cast<float*>(smem_raw);
   // [parts][nb_max][kUnits]: dh of every pair is the sum of its parts
   float* s_part = s_w + kUnits * G;
   float* s_ex = s_part + parts * nb_max * kUnits;  // [kLnRows][slices][8]
-  const int tid = threadIdx.x, u = tid % kUnits;
-  const bool unit = u < nu;
-  const int j = j0 + (unit ? u : 0);
-  const uint32_t seed = a.drop.seed != nullptr ? (uint32_t)*a.drop.seed : 0u;
-  const float fh = (float)H;
-  float gam[4], bet[4];
-#pragma unroll
-  for (int g = 0; g < 4; ++g) {
-    gam[g] = unit ? p.ln_gamma[g * H + j] : 0.0f;
-    bet[g] = unit ? p.ln_beta[g * H + j] : 0.0f;
-  }
-  const float gc = unit ? p.lnc_gamma[j] : 0.0f;
-  const float bc = unit ? p.lnc_beta[j] : 0.0f;
-  const int npairs = nb * kUnits;
+  const LnCtx<kUnits> c = ln_ctx<kUnits>(a, s_part, s_ex, slices, sl, j0,
+                                         nu, b0, nb, nb_max, parts, 10 * H);
+  const int tid = threadIdx.x;
 
   for (int e = tid; e < kUnits * G; e += kLoopThreads) {
-    const int k = e / G, c = e - k * G;
-    s_w[e] = k < nu ? to_f(p.wh[(size_t)(j0 + k) * G + c]) : 0.0f;
+    const int k = e / G, cc = e - k * G;
+    s_w[e] = k < nu ? to_f(p.wh[(size_t)(j0 + k) * G + cc]) : 0.0f;
   }
-  for (int e = tid; e < parts * plane; e += kLoopThreads) {
-    const int q = e % plane, bl = q / kUnits, uu = q % kUnits;
-    s_part[e] = (e < plane && bl < nb && uu < nu && a.dhT != nullptr)
-                    ? a.dhT[(size_t)(b0 + bl) * H + j0 + uu]
-                    : 0.0f;
-  }
-  for (int q = tid; q < npairs; q += kLoopThreads) {
-    if (!unit) continue;
-    const size_t at = (size_t)(b0 + q / kUnits) * H + j;
-    a.dc0[at] = a.dcT != nullptr ? a.dcT[at] : 0.0f;
-    float* pr = a.part + (size_t)(b0 + q / kUnits) * 10 * H + j;
-#pragma unroll
-    for (int e = 0; e < 10; ++e) pr[e * H] = 0.0f;
-    if (a.dxb != nullptr) {
-#pragma unroll
-      for (int g = 0; g < 4; ++g)
-        a.dxb[(size_t)(b0 + q / kUnits) * G + g * H + j] = 0.0f;
-    }
-  }
+  ln_init(a, c, nb_max);
   __syncthreads();  // s_part holds dhT
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
 
-  // the inputs of pair q's gate block at step s (a real pair only)
-  auto pair_at = [&](int s, int q) {
-    const int row = b0 + q / kUnits;
-    const size_t m = (size_t)s * B + row, at = m * H + j;
-    float pre[4], st[kLnStats];
-#pragma unroll
-    for (int g = 0; g < 4; ++g) pre[g] = __ldcg(a.dpre + m * G + g * H + j);
-    const float2* sp = reinterpret_cast<const float2*>(w.stats +
-                                                       m * kLnStats);
-#pragma unroll
-    for (int e = 0; e < kLnStats / 2; ++e) {
-      const float2 v = sp[e];
-      st[2 * e] = v.x;
-      st[2 * e + 1] = v.y;
-    }
-    float dh = 0.0f;
-    for (int pt = 0; pt < parts; ++pt) dh += s_part[pt * plane + q];
-    const float c_prev = to_f(a.cs[at]);
-    const float mk = dropout_mask(a.drop, seed, s, B, row, H, j);
-    return ln_pair(pre, st, c_prev, mk, dh + to_f(a.dhs[at]), gam, bet, gc,
-                   bc, p.forget_bias);
-  };
-
   for (int s = a.T - 1; s >= 0; --s) {
-    // (a) the cell norm's partials
-    for (int q0 = 0; q0 < npairs; q0 += kLoopThreads) {
-      const int q = q0 + tid, bl = q / kUnits;
-      float v[2] = {0.0f, 0.0f};
-      if (unit && bl < nb) {
-        const LnPair r = pair_at(s, q);
-        v[0] = r.dyc * gc;
-        v[1] = v[0] * r.xhat_c;
-      }
-      half_warp_sum(v);
-      if (u == 0 && bl < nb)
-        reinterpret_cast<float2*>(w.exa)[(size_t)(b0 + bl) * slices + sl] =
-            make_float2(v[0], v[1]);
-    }
+    ln_phase_a(a, c, w, s);
     grid.sync();  // exa complete
-    // (b) dcv, dy, the LN sums and the gate norms' partials
-    for (int q0 = 0; q0 < npairs; q0 += kLoopThreads) {
-      const int q = q0 + tid, bl = q / kUnits, row = b0 + bl;
-      const int bl0 = q0 / kUnits, nr = nb - bl0 < kLnRows ? nb - bl0 : kLnRows;
-      stage_ex<float>(s_ex, w.exa, (size_t)(b0 + bl0) * slices * 2,
-                      nr * slices * 2);
-      __syncthreads();  // this pass's rows of exa in s_ex
-      float v[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-      if (unit && bl < nb) {
-        const float2* ex =
-            reinterpret_cast<const float2*>(s_ex) + (bl - bl0) * slices;
-        float s0 = 0.0f, s1 = 0.0f;
-        for (int k = 0; k < slices; ++k) {
-          const float2 e = ex[k];
-          s0 += e.x;
-          s1 += e.y;
-        }
-        // every load before the first store: the compiler cannot move a
-        // load above a store through another float pointer, and each
-        // would wait out its own L2 round trip
-        float* pr = a.part + (size_t)row * 10 * H + j;
-        float ln[10];
-#pragma unroll
-        for (int e = 0; e < 10; ++e) ln[e] = pr[e * H];
-        const float dc = a.dc0[(size_t)row * H + j];
-        const LnPair r = pair_at(s, q);
-        const float dxh_c = r.dyc * gc;
-        const float dcv =
-            dc + r.crs * (dxh_c - s0 / fh - r.xhat_c * (s1 / fh));
-        const float df = dcv * r.c_prev;
-        const float di = dcv * (r.gu * r.m);
-        const float dgu = dcv * r.i * r.m;
-        const float dy[4] = {di * r.i * (1.0f - r.i),
-                             dgu * (1.0f - r.gu * r.gu),
-                             df * r.f * (1.0f - r.f),
-                             r.do_ * r.o * (1.0f - r.o)};
-        ln[8] += r.dyc * r.xhat_c;
-        ln[9] += r.dyc;
-#pragma unroll
-        for (int g = 0; g < 4; ++g) {
-          ln[g] += dy[g] * r.xhat[g];
-          ln[4 + g] += dy[g];
-          v[g] = dy[g] * gam[g];
-          v[4 + g] = v[g] * r.xhat[g];
-        }
-#pragma unroll
-        for (int e = 0; e < 10; ++e) pr[e * H] = ln[e];
-#pragma unroll
-        for (int g = 0; g < 4; ++g)
-          w.dxh[((size_t)g * B + row) * H + j] = v[g];
-        a.dc0[(size_t)row * H + j] = dcv * r.f;
-      }
-      half_warp_sum(v);
-      if (u == 0 && bl < nb) {
-        float4* dst = reinterpret_cast<float4*>(w.exb) +
-                      ((size_t)row * slices + sl) * 2;
-        dst[0] = make_float4(v[0], v[1], v[2], v[3]);
-        dst[1] = make_float4(v[4], v[5], v[6], v[7]);
-      }
-      __syncthreads();  // s_ex read
-    }
+    ln_phase_b(a, c, w, s);
     grid.sync();  // exb complete
-    // (c) d_pre over pre, the dx_bias sums
-    for (int q0 = 0; q0 < npairs; q0 += kLoopThreads) {
-      const int q = q0 + tid, bl = q / kUnits, row = b0 + bl;
-      const int bl0 = q0 / kUnits, nr = nb - bl0 < kLnRows ? nb - bl0 : kLnRows;
-      stage_ex<float4>(s_ex, w.exb, (size_t)(b0 + bl0) * slices * 8,
-                       nr * slices * 2);
-      __syncthreads();  // this pass's rows of exb in s_ex
-      if (unit && bl < nb) {
-        const float4* ex =
-            reinterpret_cast<const float4*>(s_ex) + (bl - bl0) * slices * 2;
-        float sum[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-        for (int k = 0; k < slices; ++k) {
-          const float4 e0 = ex[2 * k], e1 = ex[2 * k + 1];
-          sum[0] += e0.x;
-          sum[1] += e0.y;
-          sum[2] += e0.z;
-          sum[3] += e0.w;
-          sum[4] += e1.x;
-          sum[5] += e1.y;
-          sum[6] += e1.z;
-          sum[7] += e1.w;
-        }
-        const size_t m = (size_t)s * B + row;
-        const float* st = w.stats + m * kLnStats;
-        float* dpr = a.dpre + m * G + j;
-        float* xb = a.dxb != nullptr ? a.dxb + (size_t)row * G + j : nullptr;
-        float pre[4], dxh[4], xbs[4], mean[4], rs[4];
-#pragma unroll
-        for (int g = 0; g < 4; ++g) {  // every load before the first store
-          pre[g] = __ldcg(dpr + g * H);
-          dxh[g] = w.dxh[((size_t)g * B + row) * H + j];
-          xbs[g] = xb != nullptr ? xb[g * H] : 0.0f;
-          mean[g] = st[g];
-          rs[g] = st[4 + g];
-        }
-#pragma unroll
-        for (int g = 0; g < 4; ++g) {
-          const float xhat = (pre[g] - mean[g]) * rs[g];
-          const float dp =
-              rs[g] * (dxh[g] - sum[g] / fh - xhat * (sum[4 + g] / fh));
-          dpr[g * H] = dp;
-          if (xb != nullptr) xb[g * H] = xbs[g] + dp;
-        }
-      }
-      __syncthreads();  // s_ex read
-    }
+    LnDpre e(a.dxb, H);
+    ln_phase_c(a, c, w, s, e);
     grid.sync();  // d_pre[s] complete across the grid
-    dh_parts<W>(a.dpre + ((size_t)s * B + b0) * G, s_w, s_part, H, nb,
+    dh_parts<W>(a.dpre + ((size_t)s * a.B + b0) * G, s_w, s_part, H, nb,
                 nb_max, parts);
     __syncthreads();  // every part of this step's dh written
   }
   if (a.dxs != nullptr) dxs_rows(a, r0, nr);
-  for (int q = tid; q < npairs; q += kLoopThreads) {
-    if (!unit) continue;
-    float dh = 0.0f;
-    for (int pt = 0; pt < parts; ++pt) dh += s_part[pt * plane + q];
-    a.dh0[(size_t)(b0 + q / kUnits) * H + j] = dh;
-  }
+  ln_dh0(a, c);
 }
 
 // The LN loop's grid (the LSTM loop's) and shared memory (the resident wh
@@ -1231,7 +672,7 @@ cudaError_t launch_ln_lstm_bwd(const Bwd<W, R>& a, float* work, int stage,
   const bool loop = stage == 0 || stage == 3;
   LoopPlan plan;
   cudaError_t err = loop ? ln_loop_plan(a, plan) : cudaSuccess;
-  LnWork w = ln_work(work, a.T, a.B, H);
+  LnWork w = ln_work(work, a.T, a.B, H, (H + kUnits - 1) / kUnits);
   if (err == cudaSuccess && (stage == 0 || stage == 1))
     err = launch_recompute(a, stream);
   if (err == cudaSuccess && (stage == 0 || stage == 2) && M > 0) {
@@ -2116,8 +1557,9 @@ int srt_weight_grad(int variant, const float* xs, const float* h0,
   return (int)with_types(w_bf16, r_bf16, [&](auto w, auto r) {
     using W = decltype(w);
     using R = decltype(r);
-    const WgArgs<R> a = {xs, h0, static_cast<const R*>(hs), dpre, T, B, D, H,
-                         ones, {wg_slices, wg_kslice, wg_part}, dwx, dwh, db};
+    const WgArgs<R> a = wg_lstm_args(
+        xs, h0, static_cast<const R*>(hs), dpre, T, B, D, H, ones,
+        WgPlan{wg_slices, wg_kslice, wg_part}, dwx, dwh, db);
     return variant == 0 ? launch_weight_grad_pass<W>(a, st)
                         : launch_weight_grad_tiled<W>(a, st);
   });

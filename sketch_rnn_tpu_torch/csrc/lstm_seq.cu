@@ -335,9 +335,10 @@ cudaError_t seq_bwd_any(int stage, const float* wh, const float* gates,
   }
   if (err != cudaSuccess || stage == 1) return err;
   // dwh: no x rows, no row of ones
-  const WgArgs<float> w = {nullptr, h0, hs, dxp, T, B, 0, H, 0,
-                           {wg_slices, wg_kslice, wg_part}, nullptr, dwh,
-                           nullptr};
+  const WgArgs<float> w =
+      wg_lstm_args(static_cast<const float*>(nullptr), h0, hs, dxp, T, B, 0,
+                   H, 0, WgPlan{wg_slices, wg_kslice, wg_part}, nullptr, dwh,
+                   nullptr);
   return launch_weight_grad_pass<float>(w, st);
 }
 

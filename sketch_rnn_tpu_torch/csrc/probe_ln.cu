@@ -556,8 +556,8 @@ cudaError_t launch_bwd(const Bwd<W, R>& a, float* dwx, float* dwh, float* dln,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if constexpr (Plan::kWeightGrads) {
-    const WgArgs<R> w = {a.xs, a.h0, a.hs, a.dpre, a.T, a.B, D, H, 0,
-                         a.wg, dwx, dwh, nullptr};
+    const WgArgs<R> w = wg_lstm_args(a.xs, a.h0, a.hs, a.dpre, a.T, a.B, D,
+                                     H, 0, a.wg, dwx, dwh, nullptr);
     err = launch_weight_grad_pass<W>(w, stream);
   } else {
     err = cudaMemsetAsync(dwx, 0, (size_t)D * 4 * H * sizeof(float), stream);

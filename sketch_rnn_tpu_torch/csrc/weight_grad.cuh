@@ -12,6 +12,19 @@
 // and taken unrounded by the row of ones (db). No atomics: every result is
 // the same bit for bit on every run, on any card.
 //
+// The operands in general (WgArgs): the left operand's rows are the extra
+// rows x [K, D] (none when D = 0), then the main rows, a list of two row
+// sources read in place (WgSrc: a float stream, or a stored residual
+// shifted by one step whose first rows come from the initial carry), then
+// an optional row of ones; the right operand is the first N columns of any
+// float stream of row stride ldb. The LSTM backwards' pass is the case
+// [x; h_{t-1}; 1] x d_pre (wg_lstm_args); the HyperLSTM backward's eleven
+// matrix gradients (fused_hyper.cu) are other cases. The rounding is the
+// launch's: launch_weight_grad_pass<bf16> rounds both operands to bf16 on
+// the tensor cores, <float> keeps them (the HyperLSTM's float x float zd
+// products at either dtype). The partials of a product are [slices, D +
+// M + ones, ldp] floats, ldp = N rounded up to a multiple of 4.
+//
 // Design (launch_weight_grad_pass). Split-K on a fixed plan: K is cut into
 // `slices` slices of `kslice` rows (the last one shorter), chosen by the
 // caller from the shape alone (cuda_fused.weight_grad_plan), never from the
@@ -66,18 +79,62 @@ struct WgPlan {
   float* part;
 };
 
+// One row source of the left operand, A[k, r] for r < rows: a float
+// stream f[k * ld + r] (rs null), or a stored residual shifted by `shift`
+// rows, rnd_RT(first[k * ld + r]) for k < shift and rs[(k - shift) * ld +
+// r] after (h_{t-1} gathered from h0 and hs in place).
+template <typename RT>
+struct WgSrc {
+  const float* f;
+  const RT* rs;
+  const float* first;
+  int ld, shift, rows;
+};
+
 template <typename RT>
 struct WgArgs {
-  const float* xs;    // [T, B, D] (unused when D = 0)
-  const float* h0;    // [B, H]
-  const RT* hs;       // [T, B, H]
-  const float* dpre;  // [T, B, 4H]
-  int T, B, D, H, ones;
+  const float* xs;    // [K, D] extra rows (unused when D = 0)
+  WgSrc<RT> src[2];   // the main rows: src[0].rows, then src[1].rows
+  const float* dpre;  // the right operand, [K, ldb], its first N columns
+  int K, D, ones, ldb, N;
   WgPlan plan;
-  float* dwx;  // [D, 4H] or null when D = 0
-  float* dwh;  // [H, 4H]
-  float* db;   // [4H] or null when ones = 0
+  float* dwx;     // [D, N] or null when D = 0
+  float* dwh[2];  // [src[i].rows, N] (null where src[i].rows = 0)
+  float* db;      // [N] or null when ones = 0
 };
+
+// The LSTM backwards' pass: [dwx; dwh; db] = [x; h_{t-1}; 1]^T d_pre
+template <typename RT>
+WgArgs<RT> wg_lstm_args(const float* xs, const float* h0, const RT* hs,
+                        const float* dpre, int T, int B, int D, int H,
+                        int ones, WgPlan plan, float* dwx, float* dwh,
+                        float* db) {
+  WgArgs<RT> a;
+  a.xs = xs;
+  a.src[0] = {nullptr, hs, h0, H, B, H};
+  a.src[1] = {nullptr, nullptr, nullptr, 0, 0, 0};
+  a.dpre = dpre;
+  a.K = T * B;
+  a.D = D;
+  a.ones = ones;
+  a.ldb = 4 * H;
+  a.N = 4 * H;
+  a.plan = plan;
+  a.dwx = dwx;
+  a.dwh[0] = dwh;
+  a.dwh[1] = nullptr;
+  a.db = db;
+  return a;
+}
+
+// the main rows of a pass
+template <typename RT>
+__host__ __device__ __forceinline__ int wg_main(const WgArgs<RT>& a) {
+  return a.src[0].rows + a.src[1].rows;
+}
+
+// the partials' row stride
+__host__ __device__ __forceinline__ int wg_ldp(int N) { return (N + 3) / 4 * 4; }
 
 constexpr int kWgTile = 128, kWgThreads = 256;
 constexpr int kWgChunkBf = 32, kWgChunkF = 16;  // k rows per step
@@ -91,20 +148,48 @@ __host__ __device__ __forceinline__ int wg_h_tiles(int H) {
 }
 
 // bf16 adds db's column sums in the first extra tile (a tile of its own
-// when D = 0); float folds up to kWgFold extra rows into row tile 0
+// when D = 0); float folds up to kWgFold extra rows into row tile 0 (a
+// tile of their own where there are no main rows)
 template <typename W>
 __host__ __device__ __forceinline__ int wg_row_tiles(int D, int H,
                                                      int ones) {
   const int extra = sizeof(W) == 2 ? (D > ones ? D : ones)
-                                   : (D + ones <= kWgFold ? 0 : D + ones);
+                    : (D + ones <= kWgFold && H > 0 ? 0 : D + ones);
   return wg_h_tiles(H) + (extra + kWgTile - 1) / kWgTile;
 }
 
-// A[k, j] of the h rows: h_{t-1} as the forward stored it
 template <typename RT>
+__device__ __forceinline__ float wg_src(const WgSrc<RT>& s, int k, int r) {
+  if (s.rs == nullptr) return s.f[(size_t)k * s.ld + r];
+  return k < s.shift ? rnd<RT>(s.first[(size_t)k * s.ld + r])
+                     : to_f(s.rs[(size_t)(k - s.shift) * s.ld + r]);
+}
+
+// A[k, j] of the main rows (j < wg_main); the LSTM form (kGen false) has
+// one residual source
+template <bool kGen, typename RT>
 __device__ __forceinline__ float wg_h(const WgArgs<RT>& a, int k, int j) {
-  return k < a.B ? rnd<RT>(a.h0[(size_t)k * a.H + j])
-                 : to_f(a.hs[(size_t)(k - a.B) * a.H + j]);
+  if constexpr (!kGen) {
+    const int B = a.src[0].shift, H = a.src[0].ld;
+    return k < B ? rnd<RT>(a.src[0].first[(size_t)k * H + j])
+                 : to_f(a.src[0].rs[(size_t)(k - B) * H + j]);
+  } else {
+    return j < a.src[0].rows ? wg_src(a.src[0], k, j)
+                             : wg_src(a.src[1], k, j - a.src[0].rows);
+  }
+}
+
+// Whether a source's rows take 16-byte copies: a stored residual (or, kF,
+// a float stream) whose rows are 16-byte aligned. Checked once a kernel,
+// by value: taking a kernel argument's address would move it to local
+// memory.
+template <bool kF, typename RT>
+__device__ __forceinline__ bool wg_vec_ok(const WgSrc<RT> s) {
+  constexpr int kE = kF ? 4 : 16 / (int)sizeof(RT);
+  const void* p = kF ? (const void*)s.f : (const void*)s.rs;
+  const bool typed = kF ? s.rs == nullptr && s.f != nullptr : s.rs != nullptr;
+  return typed && s.ld % kE == 0 &&
+         (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 template <typename RT>
@@ -112,14 +197,17 @@ __device__ __forceinline__ bool wg_aligned16(const RT* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-// bf16: 8 warps as 2 (rows) x 4 (columns) of 64 x 32 outputs.
-template <typename RT>
+// bf16: 8 warps as 2 (rows) x 4 (columns) of 64 x 32 outputs. kGen: the
+// general operands; else the LSTM form, compiled as it was before them.
+template <typename RT, bool kGen>
 __global__ void __launch_bounds__(kWgThreads, 2)
 weight_grad_mma_kernel(WgArgs<RT> a) {
   constexpr int BK = kWgChunkBf, P = kWgTile + 8;
   __shared__ __align__(16) bf16 sA[2][BK][P];  // [k][row]
   __shared__ __align__(16) bf16 sB[2][BK][P];  // [k][column]
-  const int H = a.H, D = a.D, G = 4 * H, K = a.T * a.B;
+  const int H = kGen ? wg_main(a) : a.src[0].rows, D = a.D, K = a.K;
+  const int G = kGen ? a.N : 4 * H, ldp = kGen ? wg_ldp(G) : G;
+  const int ldb = kGen ? a.ldb : G;
   const int nh = wg_h_tiles(H), mt = blockIdx.x;
   const bool xtile = mt >= nh;
   const int r0 = (xtile ? mt - nh : mt) * kWgTile;
@@ -129,8 +217,14 @@ weight_grad_mma_kernel(WgArgs<RT> a) {
   const int kbeg = s * a.plan.kslice, kend = min(K, kbeg + a.plan.kslice);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-  const bool vec_h = !xtile && sizeof(RT) == 2 && H % 8 == 0 &&
-                     wg_aligned16(a.hs);
+  // 16-byte copies of bf16 residual rows, per main source
+  const bool vec0 =
+      !xtile && sizeof(RT) == 2 &&
+      (kGen ? wg_vec_ok<false>(a.src[0])
+            : H % 8 == 0 && wg_aligned16(a.src[0].rs));
+  const bool vec1 =
+      kGen && !xtile && sizeof(RT) == 2 && wg_vec_ok<false>(a.src[1]);
+  const int M0 = a.src[0].rows;
   // A: 8 rows of one k per piece, two pieces per thread
   auto load_a = [&](int k0, int buf) {
     if (mrows <= 0) return;
@@ -140,9 +234,16 @@ weight_grad_mma_kernel(WgArgs<RT> a) {
       const int kk = c >> 4, mm = (c & 15) * 8;
       const int k = k0 + kk, r = r0 + mm;
       bf16* dst = &sA[buf][kk][mm];
-      if (vec_h && k >= a.B && k < kend && r + 8 <= H) {
-        // bf16 residuals are bf16 already: copied as they are
-        cp_async16(dst, a.hs + (size_t)(k - a.B) * H + r);
+      // bf16 residuals are bf16 already: copied as they are
+      if (vec0 && k >= a.src[0].shift && k < kend && r + 8 <= M0) {
+        cp_async16(dst, a.src[0].rs + (size_t)(k - a.src[0].shift) *
+                                          a.src[0].ld + r);
+        continue;
+      }
+      if (vec1 && k >= a.src[1].shift && k < kend && r >= M0 &&
+          r + 8 <= H) {
+        cp_async16(dst, a.src[1].rs + (size_t)(k - a.src[1].shift) *
+                                          a.src[1].ld + r - M0);
         continue;
       }
       __align__(16) bf16 v[8];
@@ -150,7 +251,7 @@ weight_grad_mma_kernel(WgArgs<RT> a) {
       for (int e = 0; e < 8; ++e) {
         float f = 0.0f;
         if (k < kend && r + e < (xtile ? D : H))
-          f = xtile ? a.xs[(size_t)k * D + r + e] : wg_h(a, k, r + e);
+          f = xtile ? a.xs[(size_t)k * D + r + e] : wg_h<kGen>(a, k, r + e);
         v[e] = __float2bfloat16_rn(f);
       }
       *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
@@ -167,7 +268,7 @@ weight_grad_mma_kernel(WgArgs<RT> a) {
       const int k = k0 + (tid >> 5) + 8 * i, n = n0 + bn;
       rb[i] = (k < kend && n < G)
                   ? __ldg(reinterpret_cast<const float4*>(
-                        a.dpre + (size_t)k * G + n))
+                        a.dpre + (size_t)k * ldb + n))
                   : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     }
   };
@@ -251,7 +352,7 @@ weight_grad_mma_kernel(WgArgs<RT> a) {
 
   // accumulator (i, j): rows wm + 16 i + lane / 4 (+ 8), columns
   // wn + 8 j + 2 (lane % 4) (+ 1); rows of part in [x; h; 1] order
-  float* part = a.plan.part + (size_t)s * (D + H + a.ones) * G;
+  float* part = a.plan.part + (size_t)s * (D + H + a.ones) * ldp;
   const int rbase = xtile ? r0 : D + r0;
   const int gr = lane >> 2, gc = (lane & 3) * 2;
 #pragma unroll
@@ -264,7 +365,7 @@ weight_grad_mma_kernel(WgArgs<RT> a) {
       for (int j = 0; j < 4; ++j) {
         const int n = n0 + wn + j * 8 + gc;
         if (n < G)
-          *reinterpret_cast<float2*>(part + (size_t)(rbase + row) * G + n) =
+          *reinterpret_cast<float2*>(part + (size_t)(rbase + row) * ldp + n) =
               make_float2(acc[i][j][hh * 2], acc[i][j][hh * 2 + 1]);
       }
     }
@@ -277,7 +378,7 @@ weight_grad_mma_kernel(WgArgs<RT> a) {
     if (tid < kWgTile && n0 + tid < G) {
       float v = 0.0f;
       for (int w = 0; w < kWgThreads / 32; ++w) v += red[w * kWgTile + tid];
-      part[(size_t)(D + H) * G + n0 + tid] = v;
+      part[(size_t)(D + H) * ldp + n0 + tid] = v;
     }
   }
 }
@@ -286,26 +387,38 @@ weight_grad_mma_kernel(WgArgs<RT> a) {
 // + 0..3, columns tx * 4 + 0..3 and 64 + tx * 4 + 0..3; warp w holds rows
 // 8 w .. 8 w + 7 and 64 + 8 w .. 64 + 8 w + 7. Row tile 0 also sums the
 // extra rows [x; 1] when they fold: warp w the row w, each thread 4
-// columns, from the d_pre tile already in shared memory.
-template <typename RT>
+// columns, from the d_pre tile already in shared memory. kGen as above.
+template <typename RT, bool kGen>
 __global__ void __launch_bounds__(kWgThreads, 2)
 weight_grad_simt_kernel(WgArgs<RT> a) {
   constexpr int BK = kWgChunkF;
   __shared__ __align__(16) float sA[2][BK][kWgTile];  // [k][row]
   __shared__ __align__(16) float sB[2][BK][kWgTile];  // [k][column]
   __shared__ __align__(16) float sX[2][BK][kWgFold];  // [k][folded row]
-  const int H = a.H, D = a.D, G = 4 * H, K = a.T * a.B;
+  const int H = kGen ? wg_main(a) : a.src[0].rows, D = a.D, K = a.K;
+  const int G = kGen ? a.N : 4 * H, ldp = kGen ? wg_ldp(G) : G;
   const int nh = wg_h_tiles(H), mt = blockIdx.x;
   const bool xtile = mt >= nh;  // only when the extra rows do not fold
-  const bool xfold = D + a.ones <= kWgFold && mt == 0 && D + a.ones > 0;
+  const bool xfold =
+      nh > 0 && D + a.ones <= kWgFold && mt == 0 && D + a.ones > 0;
   const int r0 = (xtile ? mt - nh : mt) * kWgTile;
   const int mrows = min(kWgTile, (xtile ? D + a.ones : H) - r0);
   const int n0 = blockIdx.y * kWgTile, s = blockIdx.z;
   const int kbeg = s * a.plan.kslice, kend = min(K, kbeg + a.plan.kslice);
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15, warp = tid >> 5;
   const bool lo = 8 * warp < mrows, hi = 64 + 8 * warp < mrows;
-  const bool vec_h = !xtile && sizeof(RT) == 4 && H % 4 == 0 &&
-                     wg_aligned16(a.hs);
+  const bool vec_b = !kGen || (a.ldb % 4 == 0 && wg_aligned16(a.dpre));
+  // 16-byte copies of float rows, per main source: stored residuals (when
+  // RT is float) past their shift, (kGen) float streams
+  const bool res0 =
+      !xtile && sizeof(RT) == 4 &&
+      (kGen ? wg_vec_ok<false>(a.src[0])
+            : H % 4 == 0 && wg_aligned16(a.src[0].rs));
+  const bool res1 =
+      kGen && !xtile && sizeof(RT) == 4 && wg_vec_ok<false>(a.src[1]);
+  const bool str0 = kGen && !xtile && wg_vec_ok<true>(a.src[0]);
+  const bool str1 = kGen && !xtile && wg_vec_ok<true>(a.src[1]);
+  const int M0 = a.src[0].rows;
   // the value of extra row e (x, then the row of ones) at row-step k
   auto extra = [&](int k, int e) {
     return e < D ? a.xs[(size_t)k * D + e] : (e == D && a.ones ? 1.0f : 0.0f);
@@ -327,14 +440,48 @@ weight_grad_simt_kernel(WgArgs<RT> a) {
       const int kk = c >> 5, mm = (c & 31) * 4;
       const int k = k0 + kk, r = r0 + mm, n = n0 + mm;
       float* dst = &sB[buf][kk][mm];
-      if (k < kend && n < G)
-        cp_async16(dst, a.dpre + (size_t)k * G + n);
-      else
-        *reinterpret_cast<float4*>(dst) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (!kGen) {
+        if (k < kend && n < G)
+          cp_async16(dst, a.dpre + (size_t)k * G + n);
+        else
+          *reinterpret_cast<float4*>(dst) =
+              make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      } else if (vec_b && k < kend && n + 4 <= G) {
+        cp_async16(dst, a.dpre + (size_t)k * a.ldb + n);
+      } else {
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          v[e] = (k < kend && n + e < G) ? a.dpre[(size_t)k * a.ldb + n + e]
+                                         : 0.0f;
+        *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+      }
       dst = &sA[buf][kk][mm];
-      if (vec_h && k >= a.B && k < kend && r + 4 <= H) {
-        cp_async16(dst, a.hs + (size_t)(k - a.B) * H + r);
-        continue;
+      if (!kGen) {
+        if (res0 && k >= a.src[0].shift && k < kend && r + 4 <= H) {
+          cp_async16(dst, a.src[0].rs + (size_t)(k - a.src[0].shift) * H + r);
+          continue;
+        }
+      } else if (k < kend && r + 4 <= M0) {
+        if (res0 && k >= a.src[0].shift) {
+          cp_async16(dst, a.src[0].rs + (size_t)(k - a.src[0].shift) *
+                                            a.src[0].ld + r);
+          continue;
+        }
+        if (str0) {
+          cp_async16(dst, a.src[0].f + (size_t)k * a.src[0].ld + r);
+          continue;
+        }
+      } else if (k < kend && r >= M0 && r + 4 <= H) {
+        if (res1 && k >= a.src[1].shift) {
+          cp_async16(dst, a.src[1].rs + (size_t)(k - a.src[1].shift) *
+                                            a.src[1].ld + r - M0);
+          continue;
+        }
+        if (str1) {
+          cp_async16(dst, a.src[1].f + (size_t)k * a.src[1].ld + r - M0);
+          continue;
+        }
       }
       float v[4];
 #pragma unroll
@@ -344,7 +491,7 @@ weight_grad_simt_kernel(WgArgs<RT> a) {
         if (xtile)
           v[e] = extra(k, r + e);
         else if (r + e < H)
-          v[e] = wg_h(a, k, r + e);
+          v[e] = wg_h<kGen>(a, k, r + e);
       }
       *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
     }
@@ -415,7 +562,7 @@ weight_grad_simt_kernel(WgArgs<RT> a) {
   }
 
   // rows of part in [x; h; 1] order: the extra tile's row D is the ones
-  float* part = a.plan.part + (size_t)s * (D + H + a.ones) * G;
+  float* part = a.plan.part + (size_t)s * (D + H + a.ones) * ldp;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int row = i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4;
@@ -426,28 +573,30 @@ weight_grad_simt_kernel(WgArgs<RT> a) {
     for (int h2 = 0; h2 < 2; ++h2) {
       const int n = n0 + h2 * 64 + tx * 4;
       if (n < G)
-        *reinterpret_cast<float4*>(part + pr * G + n) =
+        *reinterpret_cast<float4*>(part + pr * ldp + n) =
             make_float4(acc[i][h2 * 4], acc[i][h2 * 4 + 1],
                         acc[i][h2 * 4 + 2], acc[i][h2 * 4 + 3]);
     }
   }
   if (xfold && warp < D + a.ones && n0 + xn < G) {
     const size_t pr = warp < D ? warp : (size_t)D + H;
-    *reinterpret_cast<float4*>(part + pr * G + n0 + xn) =
+    *reinterpret_cast<float4*>(part + pr * ldp + n0 + xn) =
         make_float4(xacc[0], xacc[1], xacc[2], xacc[3]);
   }
 }
 
-// [dwx; dwh; db] = the slices' partials added in slice order
-__global__ void weight_grad_sum_kernel(const float4* __restrict__ part,
-                                       int slices, int D, int H, int ones,
-                                       float* dwx, float* dwh, float* db) {
-  const int G = 4 * H;
-  const size_t n4 = (size_t)(D + H + ones) * G / 4;
+// [dwx; dwh; db] = the slices' partials added in slice order (rows of the
+// partials in [x; main; 1] order, ldp floats each; N columns of them kept)
+template <typename RT, bool kGen>
+__global__ void weight_grad_sum_kernel(WgArgs<RT> a) {
+  const int D = a.D, M0 = a.src[0].rows, M = kGen ? wg_main(a) : M0;
+  const int G = kGen ? a.N : 4 * M0, ldp = kGen ? wg_ldp(G) : G;
+  const float4* part = reinterpret_cast<const float4*>(a.plan.part);
+  const size_t n4 = (size_t)(D + M + a.ones) * ldp / 4;
   for (size_t q = (size_t)blockIdx.x * blockDim.x + threadIdx.x; q < n4;
        q += (size_t)gridDim.x * blockDim.x) {
     float4 v = part[q];
-    for (int sl = 1; sl < slices; ++sl) {
+    for (int sl = 1; sl < a.plan.slices; ++sl) {
       const float4 w = part[(size_t)sl * n4 + q];
       v.x += w.x;
       v.y += w.y;
@@ -455,49 +604,98 @@ __global__ void weight_grad_sum_kernel(const float4* __restrict__ part,
       v.w += w.w;
     }
     const size_t e = q * 4;
-    const size_t r = e / G, n = e % G;
-    float* dst = r < (size_t)D ? dwx + r * G
-                               : (r < (size_t)(D + H) ? dwh + (r - D) * G : db);
-    *reinterpret_cast<float4*>(dst + n) = v;
+    const size_t r = e / ldp, n = e % ldp;
+    float* dst = r < (size_t)D ? a.dwx + r * G
+                 : r < (size_t)(D + M0) ? a.dwh[0] + (r - D) * G
+                 : r < (size_t)(D + M) ? a.dwh[1] + (r - D - M0) * G
+                                       : a.db;
+    if (!kGen || G % 4 == 0) {
+      *reinterpret_cast<float4*>(dst + n) = v;
+    } else {
+      const float vs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (n + i < (size_t)G) dst[n + i] = vs[i];
+    }
   }
 }
+
+// a pass with no rows at all
+inline bool wg_empty(int D, int M, int ones) { return D + M + ones < 1; }
 
 inline bool wg_misaligned(const void* p) {
   return p != nullptr && (reinterpret_cast<uintptr_t>(p) & 15) != 0;
 }
 
+// The split-K plan of a product over K row-steps with D extra rows, M main
+// rows, N columns and a row of ones or not, on the kernel of the launch's
+// W (bf16: the tensor cores; float: SIMT): cuda_fused.weight_grad_plan's
+// rule (about kWgBlocks blocks, at most kWgMaxSlices slices, partials at
+// most a kWgShare-th of K * (D + M + ones)), from the shape alone.
+constexpr int kWgBlocks = 1024, kWgMaxSlices = 64, kWgShare = 4;
+
+template <typename W>
+WgPlan wg_plan(int K, int D, int M, int N, int ones, float* part) {
+  const int chunk = sizeof(W) == 2 ? kWgChunkBf : kWgChunkF;
+  const int tiles = wg_row_tiles<W>(D, M, ones) * ((N + kWgTile - 1) / kWgTile);
+  const int rows = D + M + ones;
+  int s = (kWgBlocks + tiles - 1) / tiles;
+  if (s > kWgMaxSlices) s = kWgMaxSlices;
+  if (s > K / (kWgShare * rows)) s = K / (kWgShare * rows);
+  if (s < 1) s = 1;
+  int kslice = ((K + s - 1) / s + chunk - 1) / chunk * chunk;
+  if (kslice < chunk) kslice = chunk;
+  WgPlan p;
+  p.kslice = kslice;
+  p.slices = K > 0 ? (K + kslice - 1) / kslice : 1;
+  p.part = part;
+  return p;
+}
+
+// floats of a plan's partials
+template <typename RT>
+size_t wg_part_floats(const WgArgs<RT>& a) {
+  return (size_t)a.plan.slices * (a.D + wg_main(a) + a.ones) * wg_ldp(a.N);
+}
+
 // The pass: the tiles' partials, then their sum. A plan that does not cover
 // [0, K) in whole chunks, or a missing scratch, is cudaErrorInvalidValue,
-// before anything is launched: never another pass.
-template <typename W, typename RT>
+// before anything is launched: never another pass. W bf16 rounds both
+// operands to bf16 (N a multiple of 4 there), float keeps them. kGen false
+// (the LSTM backwards, wg_lstm_args) compiles the LSTM form alone.
+template <typename W, bool kGen = false, typename RT>
 cudaError_t launch_weight_grad_pass(const WgArgs<RT>& a, cudaStream_t stream) {
   const int chunk = sizeof(W) == 2 ? kWgChunkBf : kWgChunkF;
   const WgPlan& p = a.plan;
-  const long long K = (long long)a.T * a.B;
-  if (a.H < 1 || a.D < 0 || a.T < 0 || a.B < 0 || p.part == nullptr ||
+  const long long K = a.K;
+  const int M = wg_main(a);
+  if (M < 0 || a.src[0].rows < 0 || a.src[1].rows < 0 || a.D < 0 ||
+      a.K < 0 || a.N < 1 || a.ldb < a.N || (sizeof(W) == 2 && a.N % 4) ||
+      wg_empty(a.D, M, a.ones) || p.part == nullptr ||
       p.slices < 1 || p.slices > 65535 || p.kslice < chunk ||
       p.kslice % chunk != 0 ||
       (long long)(p.slices - 1) * p.kslice >= (K > 0 ? K : 1) ||
       (long long)p.slices * p.kslice < K ||
       (a.D > 0 && (a.dwx == nullptr || a.xs == nullptr)) ||
+      (a.src[0].rows > 0 && a.dwh[0] == nullptr) ||
+      (a.src[1].rows > 0 && a.dwh[1] == nullptr) ||
       (a.ones && a.db == nullptr) || wg_misaligned(p.part) ||
-      wg_misaligned(a.dpre) || wg_misaligned(a.dwx) ||
-      wg_misaligned(a.dwh) || wg_misaligned(a.db))
+      (sizeof(W) == 2 && (wg_misaligned(a.dpre) || a.ldb % 4)) ||
+      (a.N % 4 == 0 && (wg_misaligned(a.dwx) || wg_misaligned(a.dwh[0]) ||
+                        wg_misaligned(a.dwh[1]) || wg_misaligned(a.db))))
     return cudaErrorInvalidValue;
-  const int G = 4 * a.H;
-  const dim3 grid(wg_row_tiles<W>(a.D, a.H, a.ones),
+  const int G = a.N;
+  const dim3 grid(wg_row_tiles<W>(a.D, M, a.ones),
                   (G + kWgTile - 1) / kWgTile, p.slices);
   if constexpr (sizeof(W) == 2)
-    weight_grad_mma_kernel<RT><<<grid, kWgThreads, 0, stream>>>(a);
+    weight_grad_mma_kernel<RT, kGen><<<grid, kWgThreads, 0, stream>>>(a);
   else
-    weight_grad_simt_kernel<RT><<<grid, kWgThreads, 0, stream>>>(a);
+    weight_grad_simt_kernel<RT, kGen><<<grid, kWgThreads, 0, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t n4 = (size_t)(a.D + a.H + a.ones) * G / 4;
+  const size_t n4 = (size_t)(a.D + M + a.ones) * wg_ldp(G) / 4;
   const int blocks = (int)((n4 + 255) / 256 < 4096 ? (n4 + 255) / 256 : 4096);
-  weight_grad_sum_kernel<<<blocks, 256, 0, stream>>>(
-      reinterpret_cast<const float4*>(p.part), p.slices, a.D, a.H, a.ones,
-      a.dwx, a.dwh, a.db);
+  weight_grad_sum_kernel<RT, kGen><<<blocks, 256, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -584,14 +782,16 @@ weight_grad_tiled_kernel(const float* __restrict__ xs,
   }
 }
 
+// the old pass over the LSTM backwards' operands (wg_lstm_args)
 template <typename W, typename RT>
 cudaError_t launch_weight_grad_tiled(const WgArgs<RT>& a,
                                      cudaStream_t stream) {
-  const dim3 grid((4 * a.H + kTN - 1) / kTN,
-                  (a.D + a.H + a.ones + kTM - 1) / kTM);
+  const WgSrc<RT>& h = a.src[0];
+  const int H = h.rows, B = h.shift;
+  const dim3 grid((4 * H + kTN - 1) / kTN, (a.D + H + a.ones + kTM - 1) / kTM);
   weight_grad_tiled_kernel<W, RT><<<grid, kGemmThreads, 0, stream>>>(
-      a.xs, a.h0, a.hs, a.dpre, a.T, a.B, a.D, a.H, a.ones, a.dwx, a.dwh,
-      a.db);
+      a.xs, h.first, h.rs, a.dpre, B > 0 ? a.K / B : 0, B, a.D, H, a.ones,
+      a.dwx, a.dwh[0], a.db);
   return cudaGetLastError();
 }
 

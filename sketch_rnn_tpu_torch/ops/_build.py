@@ -43,6 +43,11 @@ _F = ctypes.c_float
 _WG = [_I, _I, _P]      # the weight pass's plan: slices, kslice, scratch
 _PS = [_I] * 5          # the probe loop's plan: slices, tiles, chunk,
                         # windows, shared memory
+# the HyperLSTM backward: its operands, the loop's plan (units, split,
+# slices, tiles, windows, parts, shared memory), its scratch (streams,
+# work, partials and their floats), its outputs
+_HB = ([_P] * 35 + [_I] * 8 + [_F] * 3 + [_I] * 7 + [_P] * 3 + [_I]
+       + [_P] * 20)
 
 # argtypes of every C entry point, by library
 SIGNATURES = {
@@ -93,7 +98,10 @@ SIGNATURES = {
     },
     "fused_hyper": {
         "srt_hyper_fwd": [_P] * 28 + [_I] * 8 + [_F] * 3 + [_P] * 9,
-        "srt_hyper_bwd": [_P] * 35 + [_I] * 8 + [_F] * 3 + [_P] * 30,
+        "srt_hyper_bwd": _HB,
+        "srt_hyper_bwd_stage": [_I] + _HB,
+        "srt_hyper_bwd_rowblock": [_P] * 35 + [_I] * 8 + [_F] * 3
+        + [_P] * 30,
     },
 }
 

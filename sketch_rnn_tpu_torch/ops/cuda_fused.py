@@ -880,19 +880,38 @@ class WeightGradPlan(NamedTuple):
                 for s in range(self.slices)]
 
 
-def weight_grad_tiles(d, h, ones, dtype) -> int:
+def weight_grad_tiles(d, h, ones, dtype, n=None) -> int:
     """Blocks of one slice of the weight pass (``weight_grad.cuh``,
-    ``wg_row_tiles``): 128 x 128 output tiles over the ``4H`` columns and
-    the ``H`` rows of ``dwh``, then the extra rows in tiles of their own:
-    the ``D`` rows of ``dwx`` at bfloat16 (and ``db``'s sums, alone when
-    ``D = 0``); at float32 ``[x; 1]``, unless their ``D + ones`` rows
-    fold into the first row tile (at most ``WG_FOLD``)."""
+    ``wg_row_tiles``): 128 x 128 output tiles over the ``n`` columns
+    (``4H`` by default) and the ``H`` main rows (those of ``dwh``), then
+    the extra rows in tiles of their own: the ``D`` rows of ``dwx`` at
+    bfloat16 (and ``db``'s sums, alone when ``D = 0``); at float32 ``[x;
+    1]``, unless their ``D + ones`` rows fold into the first row tile (at
+    most ``WG_FOLD``, and only where there are main rows)."""
     cdiv = lambda x, y: -(-x // y)
     if dtype == torch.bfloat16:
         extra = max(d, ones)
     else:
-        extra = 0 if d + ones <= WG_FOLD else d + ones
-    return cdiv(4 * h, WG_TILE) * (cdiv(h, WG_TILE) + cdiv(extra, WG_TILE))
+        extra = 0 if d + ones <= WG_FOLD and h > 0 else d + ones
+    n = 4 * h if n is None else n
+    return cdiv(n, WG_TILE) * (cdiv(h, WG_TILE) + cdiv(extra, WG_TILE))
+
+
+def _wg_plan(k, d, m, n, ones, dtype) -> WeightGradPlan:
+    """The split-K plan of a product over ``k`` row-steps with ``d`` extra
+    rows, ``m`` main rows, ``n`` columns and a row of ones or not
+    (``weight_grad.cuh``'s ``wg_plan``, the same rule)."""
+    if dtype not in WG_CHUNK:
+        raise TypeError(f"weight dtype {dtype}: the weight pass takes "
+                        f"{tuple(WG_CHUNK)}")
+    r = d + m + ones
+    cdiv = lambda x, y: -(-x // y)
+    s = max(1, min(cdiv(WG_BLOCKS, weight_grad_tiles(d, m, ones, dtype, n)),
+                   WG_MAX_SLICES,
+                   k // (WG_SCRATCH_SHARE * r)))
+    chunk = WG_CHUNK[dtype]
+    kslice = max(chunk, cdiv(cdiv(k, s), chunk) * chunk)
+    return WeightGradPlan(max(1, cdiv(k, kslice)), kslice)
 
 
 def weight_grad_plan(t, b, d, h, ones, dtype) -> WeightGradPlan:
@@ -902,17 +921,7 @@ def weight_grad_plan(t, b, d, h, ones, dtype) -> WeightGradPlan:
     ``WG_BLOCKS`` blocks, at most ``WG_MAX_SLICES``, and few enough that
     the ``[slices, D + H + ones, 4H]`` float partials stay within a
     ``WG_SCRATCH_SHARE``-th of ``d_pre``'s floats; at least one slice."""
-    if dtype not in WG_CHUNK:
-        raise TypeError(f"weight dtype {dtype}: the weight pass takes "
-                        f"{tuple(WG_CHUNK)}")
-    k, r = t * b, d + h + ones
-    cdiv = lambda x, y: -(-x // y)
-    s = max(1, min(cdiv(WG_BLOCKS, weight_grad_tiles(d, h, ones, dtype)),
-                   WG_MAX_SLICES,
-                   k // (WG_SCRATCH_SHARE * r)))
-    chunk = WG_CHUNK[dtype]
-    kslice = max(chunk, cdiv(cdiv(k, s), chunk) * chunk)
-    return WeightGradPlan(max(1, cdiv(k, kslice)), kslice)
+    return _wg_plan(t * b, d, h, 4 * h, ones, dtype)
 
 
 def weight_grad_reference(xs, h0, hs, d_pre, d, h, ones, w_dtype,
@@ -1407,14 +1416,107 @@ def hyper_lstm_fwd(xs, w: HyperWeights, c0, h0, hc0, hh0, forget_bias=1.0,
     return hs, cs, hycs, hyhs, cT, hT, hcT, hhT
 
 
-def hyper_scratch_bytes(t, b, h, hh, e) -> int:
-    """The float32 scratch :func:`hyper_lstm_bwd` allocates on the card:
-    five ``[T, B, 4H]`` streams (``d_pre`` and its four products with
-    ``s_x, s_h, xp, hp``), ``dh_pre [T, B, 4HH]``, the recomputed ``z``
-    and their gradients ``[3, T, B, 4e]`` each, the recomputed
-    ``hyper_h [T, B, HH]`` and the per-row partial sums."""
-    return 4 * (t * b * (5 * 4 * h + 4 * hh + 2 * 3 * 4 * e + hh)
-                + b * _hyper_vec_width(h, hh, e))
+# The HyperLSTM backward (``csrc/fused_hyper.cu``, "Design of the
+# backward"): a hoisted recompute into streams, the LN statistics, a
+# persistent cooperative loop over slices of units x batch tiles, dxs, the
+# eleven matrix gradients on the split-K weight pass, the row sums. The
+# loop's plan depends on the shape alone (an H100's SMs and shared memory),
+# never on the card, so every sum's order, and every bit of the result, is
+# the same on any card that can hold it.
+
+HYPER_LAYOUTS = ((16, 1), (16, 2), (8, 1))   # (units, split), first fits
+HYPER_SMS = 132              # an H100's SMs: at most one block on each
+HYPER_SMEM_MAX = 232_448     # an H100 block's opt-in shared memory, bytes
+HYPER_THREADS = 256          # the loop's threads a block (kLoopThreads)
+
+
+class HyperBwdPlan(NamedTuple):
+    """The loop's plan: ``slices`` slices of at most ``units`` main units
+    for the LayerNorm phases (the auxiliary units in as many slices), at
+    most ``tiles`` batch tiles in each of ``windows`` windows of rows (as
+    the other persistent loops cut them); the transposed products on
+    groups of ``units // split`` units for the rows of ``split`` tiles
+    (the same blocks, so a block's resident weight rows fit); the main
+    product's columns in ``parts`` parts; ``smem`` bytes of shared memory
+    a block."""
+    units: int
+    split: int
+    slices: int
+    tiles: int
+    windows: int
+    parts: int
+    smem: int
+
+
+def hyper_bwd_smem(units, split, slices, nb, h, hh, e, parts) -> int:
+    """A loop block's shared memory for LN tiles of ``nb`` rows
+    (``fused_hyper.cu`` ``hyper_smem_floats``, the same sum): the resident
+    rows of ``wh`` and ``wxh_h`` of its ``units // split`` product units,
+    of ``whh`` of its product's auxiliary units and of ``w_hz`` of its
+    LN slice's, the ``zd`` columns of its LN units, a pass's rows of an
+    exchange and of the ``ds`` values (which also stage ``dz`` rows), the
+    pairs' ``dh`` and ``dhh``, the product's parts and auxiliary sums, the
+    auxiliary pairs' ``dhc``, ``dh_pre`` sums and ``dz . w_hz``."""
+    ue, se = units // split, slices * split
+    ua, uae = -(-hh // slices), -(-hh // se)
+    rows = HYPER_THREADS // units
+    enb = split * nb
+    floats = (ue * 4 * h + ue * 4 * hh + uae * 4 * hh + ua * 12 * e
+              + 12 * units * e + rows * slices * 8 + rows * 12 * units
+              + 2 * nb * units + parts * enb * ue + enb * ue + nb * ua * 6)
+    return 4 * floats
+
+
+def hyper_bwd_plan(b, h, hh, e, dtype=torch.float32, sms=HYPER_SMS,
+                   smem_max=HYPER_SMEM_MAX) -> HyperBwdPlan:
+    """The plan of the HyperLSTM backward's loop for ``B`` rows, ``H``
+    main and ``HH`` auxiliary units and embeddings ``e``: the first of
+    ``HYPER_LAYOUTS`` (units a slice, product split) and the fewest
+    windows of rows whose blocks fit in ``smem_max`` bytes, with
+    ``ceil(max(H, HH) / units)`` slices and as many batch tiles as fill
+    the ``sms`` SMs once (a multiple of the split). The weights sit in
+    shared memory as float at either ``dtype``, so the plan is the same at
+    both. ``parts`` splits the main product's ``H + HH`` quads about as the
+    auxiliary one's ``HH``. Raises ``ValueError`` for a shape it cannot
+    hold."""
+    if dtype not in WEIGHT_DTYPES:
+        raise TypeError(f"weight dtype {dtype}: the HyperLSTM backward "
+                        f"takes {WEIGHT_DTYPES}")
+    if b < 1 or not (0 < h <= MAX_HIDDEN and 0 < hh <= MAX_HIDDEN) or e < 1:
+        raise ValueError(f"HyperLSTM backward: B={b}, H={h}, HH={hh}, e={e}")
+    parts = max(1, min(HYPER_THREADS // 32, -(-(h + hh) // hh)))
+    for units, split in HYPER_LAYOUTS:
+        slices = -(-max(h, hh) // units)
+        fill = sms // slices // split * split
+        free = HYPER_THREADS // units * (slices * 8 + 12 * units)
+        if fill < 1 or free < 12 * e:   # (d2) stages whole dz rows in it
+            continue
+        for windows in range(1, b + 1):
+            lo, hi = b // windows, -(-b // windows)
+            if lo < split:
+                break
+            # every window's tiles: a multiple of the split
+            fits = []
+            for rows in {lo, hi} - {0}:
+                tiles = min(rows, fill) // split * split
+                fits.append(hyper_bwd_smem(units, split, slices,
+                                           -(-rows // tiles), h, hh, e,
+                                           parts))
+            if (min(hi, fill) % split == 0 and min(lo, fill) % split == 0
+                    and max(fits) <= smem_max):
+                return HyperBwdPlan(units, split, slices, min(hi, fill),
+                                    windows, parts, max(fits))
+    raise ValueError(f"HyperLSTM backward: H={h}, HH={hh}, e={e} does not "
+                     f"fit in {smem_max} bytes of shared memory even at one "
+                     f"row")
+
+
+def hyper_stream_floats(t, b, h, hh, e) -> int:
+    """Floats of the backward's streams (``fused_hyper.cu``
+    ``carve_streams``): ``pre, xp, hp, sx, sh [T*B, 4H]`` (their gradients
+    written over them), ``hyper_pre [T*B, 4HH]`` (``dh_pre`` over it),
+    ``z`` and ``dz [T*B, 12e]``, ``hyper_h [T*B, HH]``."""
+    return t * b * (5 * 4 * h + 4 * hh + 2 * 12 * e + hh)
 
 
 def _hyper_vec_width(h, hh, e):
@@ -1423,76 +1525,233 @@ def _hyper_vec_width(h, hh, e):
     return 14 * h + 4 * hh + 8 * e
 
 
-def hyper_lstm_bwd(xs, w: HyperWeights, h0, hh0, hs, cs, hycs, hyhs, dhs,
-                   dcT, dhT, dhcT, dhhT, forget_bias=1.0, masks=None,
-                   dropout_seed=None, keep_prob=1.0, x_bias=None,
-                   x_bias_hyper=None):
-    """Backward of :func:`fused_hyper_lstm`: ``(dxs, dxb, dxbh, dw, dc0,
-    dh0, dhc0, dhh0)`` (kernel ``srt_hyper_bwd``: the recurrence, which
-    writes every step's gradient streams to scratch, then the
-    weight-gradient products over ``T * B`` in a fixed order and the sum
-    of the per-row partials)."""
-    if xs.device.type == "cpu":
-        return hyper_lstm_bwd_reference(
-            xs, w, h0, hh0, hs, cs, hycs, hyhs, dhs, dcT, dhT, dhcT, dhhT,
-            forget_bias, masks, dropout_seed, keep_prob, x_bias,
-            x_bias_hyper)
+def hyper_work_floats(t, b, h, hh, e, slices) -> int:
+    """Floats of the backward's work scratch (``hyper_work_floats`` in
+    ``fused_hyper.cu``): the per-row partials ``[B, P]`` (padded to a
+    multiple of 4), the LN loop's exchanges ``[B, slices, 10]``, the
+    statistics ``[T*B, 10]`` and the ``dy * gamma`` stash ``[4, B, H]``,
+    the ``dz`` exchange ``[B, slices, 12e]``, the ``dh`` and ``dhh``
+    exchanges ``[B, H + HH]``."""
+    p = _hyper_vec_width(h, hh, e)
+    return (-(-b * p // 4) * 4 + b * slices * 10 + t * b * 10 + 4 * b * h
+            + b * slices * 12 * e + b * (h + hh))
+
+
+def hyper_products(d, h, hh, e):
+    """The backward's eleven matrix gradients as split-K products
+    ``(extra rows, main rows, columns, rounded to the weight dtype)``, in
+    launch order: ``x^T dxp``, ``h_prev^T dhp``, ``[x; h_prev;
+    hh_prev]^T dh_pre``, ``hyper_h^T dz_p`` (three), ``z_p[g]^T ds_p[g]``
+    (twelve, float x float)."""
+    return ([(d, 0, 4 * h, True), (0, h, 4 * h, True),
+             (d, h + hh, 4 * hh, True)] + [(0, hh, 4 * e, True)] * 3
+            + [(0, e, h, False)] * 12)
+
+
+def hyper_wg_floats(t, b, d, h, hh, e, dtype) -> int:
+    """Floats of the partials scratch the products share (one after
+    another): the largest ``slices x rows x ldp`` of their plans
+    (``_wg_plan`` on the kernel each takes: the tensor cores' chunk for a
+    rounded product at bfloat16, else float32's)."""
+    most = 0
+    for dx, m, n, rnd in hyper_products(d, h, hh, e):
+        kdt = dtype if rnd else torch.float32
+        p = _wg_plan(t * b, dx, m, n, 0, kdt)
+        most = max(most, p.slices * (dx + m) * (-(-n // 4) * 4))
+    return most
+
+
+def hyper_scratch_bytes(t, b, d, h, hh, e, dtype=torch.float32) -> int:
+    """The float32 scratch :func:`hyper_lstm_bwd` allocates on the card:
+    the streams, the work (on :func:`hyper_bwd_plan`'s slices) and the
+    products' partials."""
+    plan = hyper_bwd_plan(b, h, hh, e, dtype)
+    return 4 * (hyper_stream_floats(t, b, h, hh, e)
+                + hyper_work_floats(t, b, h, hh, e, plan.slices)
+                + hyper_wg_floats(t, b, d, h, hh, e, dtype))
+
+
+def hyper_recompute_reference(xs, w: HyperWeights, h0, hh0, hs, hycs, hyhs,
+                              forget_bias=1.0, x_bias=None,
+                              x_bias_hyper=None):
+    """The plain version of the backward's stage 1: every step's forward
+    up to the gate block, recomputed for all ``T * B`` row-steps at once
+    from the stored residuals (``h_{t-1}`` from ``hs``, ``hh_{t-1}`` from
+    ``hyhs``, ``h0``/``hh0`` rounded to their dtype at step 0; the
+    auxiliary cell state from ``hycs``), in ``_HyperStep``'s sums. Returns
+    a dict of ``[T, B, .]`` tensors: ``hyper_pre``, ``hyper_h`` (rounded
+    to the weight dtype, as the products take it), ``z`` (``z_x | z_h |
+    z_b``, ``12e``), ``xp``, ``hp``, ``sx``, ``sh``, ``pre``."""
+    _check_bias_pair(x_bias, x_bias_hyper)
+    t, b, d = xs.shape
+    h, hh = w.wh.shape[0], w.whh.shape[0]
+    wd = w.wx.dtype
+    acc = _acc_dtype(w.wx)
+    st = _HyperStep(w, forget_bias, None, None)
+    flat = lambda v: v.reshape(t * b, -1)
+    x = flat(xs)
+    h_prev = flat(torch.cat([h0.to(hs.dtype)[None], hs[:-1]])).to(acc)
+    hh_prev = flat(torch.cat([hh0.to(hyhs.dtype)[None], hyhs[:-1]])).to(acc)
+    tile = lambda v: v.repeat(t, 1)         # a [B, .] bias per row-step
+    hyper_pre = (st.mm(x, "wxh_x") + st.mm(h_prev, "wxh_h") + w.bh
+                 + st.mm(hh_prev, "whh"))
+    if x_bias_hyper is not None:
+        hyper_pre = hyper_pre + tile(x_bias_hyper)
+    hi, hg, hf, ho, new_hc = _lstm_gates(hyper_pre, flat(hycs).to(acc), None,
+                                         forget_bias)
+    new_hh = torch.tanh(new_hc) * ho
+    xp = st.mm(x, "wx")
+    if x_bias is not None:
+        xp = xp + tile(x_bias)
+    hp = st.mm(h_prev, "wh")
+    z = [st.mm(new_hh, "w_hz_x") + w.b_hz_x, st.mm(new_hh, "w_hz_h")
+         + w.b_hz_h, st.mm(new_hh, "w_hz_b")]
+    sx, sh, sb = (_block_scale(zp, zd) for zp, zd in
+                  zip(z, (w.zd_x, w.zd_h, w.zd_b)))
+    pre = sx * xp + sh * hp + sb + w.b
+    out = {"hyper_pre": hyper_pre, "hyper_h": _rnd(new_hh, wd),
+           "z": torch.cat(z, dim=-1), "xp": xp, "hp": hp, "sx": sx,
+           "sh": sh, "pre": pre}
+    return {k: v.reshape(t, b, -1) for k, v in out.items()}
+
+
+def _hyper_bwd_args(xs, w: HyperWeights, h0, hh0, hs, cs, hycs, hyhs, dhs,
+                    dcT, dhT, dhcT, dhhT, forget_bias, masks, seed,
+                    keep_prob, x_bias, x_bias_hyper):
+    """Check the HyperLSTM backward's inputs and allocate its outputs and
+    scratch: ``(args, outs, scratch)``, the arguments of
+    ``srt_hyper_bwd`` and ``srt_hyper_bwd_stage`` (after the stage), the
+    arguments of ``srt_hyper_bwd_rowblock`` (its stream scratch carved
+    from the same buffers), ``(dxs, dxb, dxbh, dmat, dvec, dc0, dh0, dhc0,
+    dhh0)`` (``dmat`` the float32 matrix gradients by name) and the
+    scratch tensors, which the caller keeps alive while the launches use
+    them (the arguments hold only addresses). Raises where
+    :func:`hyper_bwd_plan` cannot hold the shape."""
     dev, t, b, d, h, hh, e, wb = _hyper_common(
-        xs, w, x_bias, x_bias_hyper, masks, dropout_seed,
+        xs, w, x_bias, x_bias_hyper, masks, seed,
         (("h0", h0, "h"), ("hh0", hh0, "hh"), ("dcT", dcT, "h"),
          ("dhT", dhT, "h"), ("dhcT", dhcT, "hh"), ("dhhT", dhhT, "hh")))
     rb = _residuals_check(dev, t, b, h, hs, cs, dhs)
     for n, x in (("hycs", hycs), ("hyhs", hyhs)):
         _require(n, x, dev, hs.dtype, (t, b, hh))
+    plan = hyper_bwd_plan(b, h, hh, e, w.wx.dtype)
     f32 = torch.float32
 
     def new(*shape):
         return torch.empty(shape, dtype=f32, device=dev)
 
-    # scratch (see hyper_scratch_bytes)
-    wide = [new(t, b, 4 * h) for _ in range(5)]   # dpre dxp dhp dsx dsh
-    dhpre = new(t, b, 4 * hh)
-    zs, dzs = new(3, t, b, 4 * e), new(3, t, b, 4 * e)
-    hhn = new(t, b, hh)
-    nvec = _hyper_vec_width(h, hh, e)
-    part = new(b, nvec)
-    # outputs
+    m = t * b
+    streams = new(hyper_stream_floats(t, b, h, hh, e))
+    work = new(hyper_work_floats(t, b, h, hh, e, plan.slices))
+    wg_floats = hyper_wg_floats(t, b, d, h, hh, e, w.wx.dtype)
+    wg_part = new(max(wg_floats, 4))
     dxs = torch.empty_like(xs)
     dxb = torch.empty_like(x_bias) if x_bias is not None else None
     dxbh = torch.empty_like(x_bias_hyper) if x_bias is not None else None
     dmat = {n: new(*getattr(w, n).shape)
             for n in HYPER_MATRICES + ("zd_x", "zd_h", "zd_b")}
+    nvec = _hyper_vec_width(h, hh, e)
     dvec = new(nvec)
     dc0, dh0 = new(b, h), new(b, h)
     dhc0, dhh0 = new(b, hh), new(b, hh)
-    _launch("srt_hyper_bwd", "fused_hyper_lstm backward",
-            "fused_hyper_lstm_bwd", xs.data_ptr(), _ptr(x_bias),
-            _ptr(x_bias_hyper), *_weight_ptrs(w), h0.data_ptr(),
-            hh0.data_ptr(), hs.data_ptr(), cs.data_ptr(), hycs.data_ptr(),
-            hyhs.data_ptr(), dhs.data_ptr(), dcT.data_ptr(), dhT.data_ptr(),
-            dhcT.data_ptr(), dhhT.data_ptr(), _ptr(masks),
-            _ptr(dropout_seed), t, b, d, h, hh, e, wb, rb,
-            *_keep_args(keep_prob), float(forget_bias),
-            *(x.data_ptr() for x in wide), dhpre.data_ptr(), zs.data_ptr(),
-            dzs.data_ptr(), hhn.data_ptr(), part.data_ptr(), dxs.data_ptr(),
-            _ptr(dxb), _ptr(dxbh),
-            *(dmat[n].data_ptr() for n in HYPER_MATRICES),
-            dmat["zd_x"].data_ptr(), dmat["zd_h"].data_ptr(),
-            dmat["zd_b"].data_ptr(), dvec.data_ptr(), dc0.data_ptr(),
-            dh0.data_ptr(), dhc0.data_ptr(), dhh0.data_ptr(), _stream(dev),
-            lib="fused_hyper")
+    inputs = (xs.data_ptr(), _ptr(x_bias), _ptr(x_bias_hyper),
+              *_weight_ptrs(w), h0.data_ptr(), hh0.data_ptr(), hs.data_ptr(),
+              cs.data_ptr(), hycs.data_ptr(), hyhs.data_ptr(), dhs.data_ptr(),
+              dcT.data_ptr(), dhT.data_ptr(), dhcT.data_ptr(),
+              dhhT.data_ptr(), _ptr(masks), _ptr(seed), t, b, d, h, hh, e,
+              wb, rb, *_keep_args(keep_prob), float(forget_bias))
+    outputs = (dxs.data_ptr(), _ptr(dxb), _ptr(dxbh),
+               *(dmat[n].data_ptr() for n in HYPER_MATRICES),
+               dmat["zd_x"].data_ptr(), dmat["zd_h"].data_ptr(),
+               dmat["zd_b"].data_ptr(), dvec.data_ptr(), dc0.data_ptr(),
+               dh0.data_ptr(), dhc0.data_ptr(), dhh0.data_ptr(), _stream(dev))
+    args = (*inputs, *plan, streams.data_ptr(), work.data_ptr(),
+            wg_part.data_ptr(), wg_floats, *outputs)
+    # the row-block entry's scratch over the same buffers: dpre, dxp, dhp,
+    # dsx, dsh, dhpre, zs, dzs (as [3, T*B, 4e]), hhn, part
+    w4, at = 4 * h * m, streams.data_ptr()
+    offs = [0, w4, 2 * w4, 3 * w4, 4 * w4, 5 * w4, 5 * w4 + 4 * hh * m,
+            5 * w4 + 4 * hh * m + 12 * e * m,
+            5 * w4 + 4 * hh * m + 24 * e * m]
+    rowblock = (*inputs, *(at + 4 * o for o in offs), work.data_ptr(),
+                *outputs)
+    return args, rowblock, (dxs, dxb, dxbh, dmat, dvec, dc0, dh0, dhc0,
+                            dhh0), (streams, work, wg_part)
+
+
+def _hyper_grad_views(w: HyperWeights, dmat, dvec):
+    """The gradients of ``w`` in its slots, as the kernels left them: the
+    float32 matrix sums ``dmat``, the vectors as views of ``dvec``."""
+    h, hh, e = w.wh.shape[0], w.whh.shape[0], w.zd_x.shape[1]
     dgam, dbet, dgc, dbc, db, dbh, dbzx, dbzh = torch.split(
         dvec, [4 * h, 4 * h, h, h, 4 * h, 4 * hh, 4 * e, 4 * e])
-    wdt = w.wx.dtype
-    dw = HyperWeights(
-        wx=dmat["wx"].to(wdt), b=db, wh=dmat["wh"].to(wdt),
-        wxh_x=dmat["wxh_x"].to(wdt), wxh_h=dmat["wxh_h"].to(wdt), bh=dbh,
-        whh=dmat["whh"].to(wdt), w_hz_x=dmat["w_hz_x"].to(wdt), b_hz_x=dbzx,
-        w_hz_h=dmat["w_hz_h"].to(wdt), b_hz_h=dbzh,
-        w_hz_b=dmat["w_hz_b"].to(wdt), zd_x=dmat["zd_x"],
-        zd_h=dmat["zd_h"], zd_b=dmat["zd_b"], ln_gamma=dgam.view(4, h),
-        ln_beta=dbet.view(4, h), lnc_gamma=dgc, lnc_beta=dbc)
+    vec = dict(b=db, bh=dbh, b_hz_x=dbzx, b_hz_h=dbzh,
+               ln_gamma=dgam.view(4, h), ln_beta=dbet.view(4, h),
+               lnc_gamma=dgc, lnc_beta=dbc)
+    return HyperWeights(**{n: dmat[n] if n in dmat else vec[n]
+                           for n in HyperWeights._fields})
+
+
+def hyper_lstm_bwd(xs, w: HyperWeights, h0, hh0, hs, cs, hycs, hyhs, dhs,
+                   dcT, dhT, dhcT, dhhT, forget_bias=1.0, masks=None,
+                   dropout_seed=None, keep_prob=1.0, x_bias=None,
+                   x_bias_hyper=None):
+    """Backward of :func:`fused_hyper_lstm`: ``(dxs, dxb, dxbh, dw, dc0,
+    dh0, dhc0, dhh0)`` (kernel ``srt_hyper_bwd``: the hoisted recompute,
+    the LN statistics, the cooperative loop on :func:`hyper_bwd_plan`,
+    dxs, the eleven matrix gradients on the split-K pass, the row sums).
+    A shape the plan cannot hold raises."""
+    if xs.device.type == "cpu":
+        return hyper_lstm_bwd_reference(
+            xs, w, h0, hh0, hs, cs, hycs, hyhs, dhs, dcT, dhT, dhcT, dhhT,
+            forget_bias, masks, dropout_seed, keep_prob, x_bias,
+            x_bias_hyper)
+    args, _, outs, _scratch = _hyper_bwd_args(
+        xs, w, h0, hh0, hs, cs, hycs, hyhs, dhs, dcT, dhT, dhcT, dhhT,
+        forget_bias, masks, dropout_seed, keep_prob, x_bias, x_bias_hyper)
+    _launch("srt_hyper_bwd", "fused_hyper_lstm backward",
+            "fused_hyper_lstm_bwd", *args, lib="fused_hyper")
+    dxs, dxb, dxbh, dmat, dvec, dc0, dh0, dhc0, dhh0 = outs
+    g = _hyper_grad_views(w, dmat, dvec)
+    dw = g._replace(**{n: getattr(g, n).to(w.wx.dtype)
+                       for n in HYPER_MATRICES})
     return dxs, dxb, dxbh, dw, dc0, dh0, dhc0, dhh0
+
+
+def hyper_lstm_bwd_entries(xs, w: HyperWeights, h0, hh0, hs, cs, hycs, hyhs,
+                           dhs, dcT, dhT, dhcT, dhhT, forget_bias=1.0,
+                           masks=None, dropout_seed=None, keep_prob=1.0,
+                           x_bias=None, x_bias_hyper=None):
+    """The C entries behind :func:`hyper_lstm_bwd` on CUDA tensors, for
+    the A/B of the backward's two designs; no wrapper calls it, and it
+    counts no launch. Returns ``(run, outs)``: ``run(entry, stage=0)``
+    launches ``"srt_hyper_bwd"`` (the six stages), ``"srt_hyper_bwd_
+    rowblock"`` (the row-block design it replaced) or, with ``stage``
+    1-6, ``"srt_hyper_bwd_stage"`` (the recompute, the statistics, the
+    loop, dxs, the products or the row sums alone), all on one set of
+    buffers, and keeps the inputs alive (the entries take raw addresses);
+    ``outs`` are :func:`hyper_lstm_bwd`'s outputs flattened as the last
+    launches left them (the matrix gradients float32)."""
+    from sketch_rnn_tpu_torch.ops import _build
+
+    _entries_on_cuda("hyper_lstm_bwd_entries", xs)
+    args, rowblock, outs, scratch = _hyper_bwd_args(
+        xs, w, h0, hh0, hs, cs, hycs, hyhs, dhs, dcT, dhT, dhcT, dhhT,
+        forget_bias, masks, dropout_seed, keep_prob, x_bias, x_bias_hyper)
+    lib = _build.load("fused_hyper")
+    held = (scratch, xs, w, h0, hh0, hs, cs, hycs, hyhs, dhs, dcT, dhT, dhcT,
+            dhhT, masks, dropout_seed, x_bias, x_bias_hyper)
+
+    def run(entry, stage=0, _held=held):   # holds the scratch and inputs
+        if entry == "srt_hyper_bwd_rowblock":
+            _build.check(lib, lib.srt_hyper_bwd_rowblock(*rowblock), entry)
+            return
+        pre = (stage,) if entry == "srt_hyper_bwd_stage" else ()
+        _build.check(lib, getattr(lib, entry)(*pre, *args), entry)
+
+    dxs, dxb, dxbh, dmat, dvec, dc0, dh0, dhc0, dhh0 = outs
+    return run, (dxs, dxb, dxbh, *_hyper_grad_views(w, dmat, dvec), dc0,
+                 dh0, dhc0, dhh0)
 
 
 # -- the autograd Functions -------------------------------------------------

@@ -836,6 +836,98 @@ def test_hyper_kernels_bf16_match_plain_versions(dev, h, hh, e, wdt, rdt):
     _hold_hyper(w, d, masks, seed, BF_TOL, rdt)
 
 
+@pytest.mark.parametrize("h,hh,e,bsz,wdt,rdt,biases,mode", [
+    (16, 32, 8, FB, F32, F32, True, "seed"),
+    (16, 32, 8, 100, BF16, BF16, False, "masks"),
+    (40, 8, 4, FB, F32, F32, False, "none"),
+    (40, 8, 4, 100, BF16, F32, True, "seed"),
+    (24, 24, 3, FB, F32, BF16, True, "masks")])
+def test_hyper_bwd_matches_row_block_design(dev, h, hh, e, bsz, wdt, rdt,
+                                            biases, mode):
+    """srt_hyper_bwd (the hoisted recompute and statistics, the
+    cooperative loop, dxs, the split-K products, the row sums) against the
+    row-block design it replaced, srt_hyper_bwd_rowblock, and against the
+    plain version on the same inputs, within TOL / BF_TOL; two runs of the
+    new entry bitwise equal; no launch counted. H=16 under HH=32, H=40
+    over HH=8, e=3 (12e not a multiple of 8)."""
+    from sketch_rnn_tpu_torch.ops import cuda_fused as cf
+
+    w, d, masks, seed = _hyper_inputs(h, hh, e, dev, biases, mode, wdt)
+    g = torch.Generator().manual_seed(7)
+    r = lambda *s, sc=0.3: (sc * torch.randn(s, generator=g)).to(dev)
+    xs = r(FT, bsz, FD, sc=1.0)
+    if masks is not None:
+        masks = ((torch.rand((FT, bsz, h), generator=g) < 0.9).float()
+                 / 0.9).to(dev)
+    keep = 0.9 if seed is not None else 1.0
+    xb = (r(bsz, 4 * h), r(bsz, 4 * hh)) if biases else (None, None)
+    drop = dict(masks=masks, dropout_seed=seed, keep_prob=keep,
+                x_bias=xb[0], x_bias_hyper=xb[1])
+    h0, hh0 = r(bsz, h), r(bsz, hh)
+    hs, cs, hycs, hyhs = cf.hyper_lstm_fwd(
+        xs, w, r(bsz, h), h0, r(bsz, hh), hh0, 1.0, **drop,
+        residual_dtype=rdt)[:4]
+    cot = dict(dhs=r(*hs.shape, sc=0.1).to(hs.dtype), dcT=r(bsz, h, sc=0.1),
+               dhT=r(bsz, h, sc=0.1), dhcT=r(bsz, hh, sc=0.1),
+               dhhT=r(bsz, hh, sc=0.1))
+    args = dict(xs=xs, w=w, h0=h0, hh0=hh0, hs=hs, cs=cs, hycs=hycs,
+                hyhs=hyhs, **cot, forget_bias=1.0, **drop)
+    before = cf.launch_counts()
+    run, outs = cf.hyper_lstm_bwd_entries(**args)
+    snap = lambda: [o.clone() if o is not None else None for o in outs]
+    run("srt_hyper_bwd")
+    first = snap()
+    run("srt_hyper_bwd")
+    second = snap()
+    run("srt_hyper_bwd_rowblock")
+    old = snap()
+    torch.cuda.synchronize()
+    assert cf.launch_counts() == before
+    dxs, dxb, dxbh, dw, dc0, dh0, dhc0, dhh0 = cf.hyper_lstm_bwd_reference(
+        **args)
+    # the matrices' float32 sums against the reference's, rounded to W
+    want = [dxs, dxb, dxbh, *dw, dc0, dh0, dhc0, dhh0]
+    tol = TOL if wdt == F32 and rdt == F32 else BF_TOL
+    assert (first[1] is None) == (not biases)
+    for a, b, c, ref in zip(first, second, old, want):
+        if a is None:
+            assert b is None and c is None and ref is None
+            continue
+        assert torch.equal(a, b)
+        for o in (c, ref.float()):
+            assert float((a - o).abs().max()) <= tol * max(
+                1.0, float(o.abs().max()))
+
+
+def test_hyper_bwd_refuses_a_plan_it_cannot_run(dev, monkeypatch):
+    """A plan whose blocks cannot co-reside (more blocks than the SMs
+    hold), one whose shared memory does not hold its tiles and one whose
+    slices do not cover the units are refused before any launch: the
+    call raises, nothing runs in its place, no launch is counted."""
+    from sketch_rnn_tpu_torch.ops import cuda_fused as cf
+
+    w, d, _, seed = _hyper_inputs(16, 32, 8, dev, True, "seed")
+    fwd = cf.hyper_lstm_fwd(d["xs"], w, d["c0"], d["h0"], d["hc0"],
+                            d["hh0"], 1.0, None, seed, 0.9, d["x_bias"],
+                            d["x_bias_hyper"])
+    hs, cs, hycs, hyhs = fwd[:4]
+    z, zh = torch.zeros_like(d["h0"]), torch.zeros_like(d["hh0"])
+    args = (d["xs"], w, d["h0"], d["hh0"], hs, cs, hycs, hyhs,
+            torch.zeros_like(hs), z, z, zh, zh, 1.0, None, seed, 0.9,
+            d["x_bias"], d["x_bias_hyper"])
+    good = cf.hyper_bwd_plan(FB, 16, 32, 8)
+    before = cf.launch_counts()
+    many = 200          # 200 slices x 6 tiles: more blocks than SMs
+    for bad in (good._replace(slices=many, smem=cf.hyper_bwd_smem(
+                    good.units, good.split, many, 1, 16, 32, 8, good.parts)),
+                good._replace(smem=good.smem // 4),
+                good._replace(slices=1, units=8)):
+        monkeypatch.setattr(cf, "hyper_bwd_plan", lambda *a, p=bad: p)
+        with pytest.raises(RuntimeError, match="fused_hyper_lstm backward"):
+            cf.hyper_lstm_bwd(*args)
+    assert cf.launch_counts() == before
+
+
 def test_hyper_wrappers_refuse_bad_inputs(dev):
     from sketch_rnn_tpu_torch.ops import cuda_fused as cf
 

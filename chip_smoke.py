@@ -65,6 +65,14 @@ without the final line. With no CUDA device it exits 2 at once.
      at the ``hyper`` preset's shape of ``fused_hyper_lstm`` above and
      both dtypes: the same checks and timings, the split into its six
      stages; the backward's kernel line also carries its loop's plan;
+   - hyper_lstm_fwd_ab: ``srt_hyper_fwd`` (the cooperative loop over
+     resident weight columns, five grid barriers a step) against the
+     row-block design it replaced, ``srt_hyper_fwd_rowblock``, at the
+     ``hyper`` preset's shape of ``fused_hyper_lstm`` above and both
+     dtypes: every output within FUSED_TOL of the row-block entry's and of
+     the plain version's, the new entry identical run to run, both timed
+     in turns with CUDA events (new, old, old, new; medians); the
+     forward's kernel line also carries its loop's plan;
    - kernel_library: cuDNN's LSTM (``torch.nn.LSTM``, TF32 off) timed
      beside ``fused_lstm_seq`` and ``fused_lstm`` (over the unfolded
      inputs [x; z], D=133) as a yardstick only;
@@ -75,8 +83,9 @@ without the final line. With no CUDA device it exits 2 at once.
      in shared memory at once, run as launches over windows of rows,
      against the row-block entry (bitwise for ``srt_lstm_fwd``, FUSED_TOL
      for the others), identical run to run, both timed in turns; then
-     ``srt_hyper_bwd`` at H=512, HH=256, e=32, B=8192, T=8, float32 (its
-     loop over windows of rows), as in hyper_lstm_bwd_ab.
+     ``srt_hyper_fwd`` and ``srt_hyper_bwd`` at H=512, HH=256, e=32,
+     B=8192, T=8, float32 (their loops over windows of rows), as in
+     hyper_lstm_fwd_ab and hyper_lstm_bwd_ab.
 4. serve   — the serving main path: ``ServeEngine`` at the full
    ``layer_norm`` preset (conditional VAE, bi-LSTM encoder 256,
    LayerNorm-LSTM decoder 512, serve_slots=64, serve_chunk=8,
@@ -1038,51 +1047,70 @@ def hyper_lstm_bwd_ab(dt, bargs, drop_kw, rows, label=None):
            rows, label)
 
 
-def ln_lstm_fwd_ab(dt, fargs, drop_kw, label):
-    """``srt_ln_lstm_fwd`` (the cooperative loop) against the row-block
-    design it replaced, ``srt_ln_lstm_fwd_rowblock``, on the same inputs:
-    every output within FUSED_TOL of the row-block entry's and of the
-    plain version's, the new entry identical run to run, then both timed
-    in turns with CUDA events (new, old, old, new; AB_REPS turns,
-    medians). Uncounted launches. Returns the record."""
+def fwd_ab(phase, name, entry, entries, reference, dt, fargs, drop_kw,
+           label):
+    """``entry`` (a forward's cooperative loop) against the row-block
+    design it replaced, ``entry + "_rowblock"``, through ``entries`` (a
+    ``cuda_fused.*_fwd_entries`` helper) on one set of inputs: every output
+    (``FUSED_OUTPUTS[name]``) within FUSED_TOL of the row-block entry's and
+    of ``reference``'s (the plain version), the new entry identical run to
+    run, then both timed in turns with CUDA events (new, old, old, new;
+    AB_REPS turns, medians). Uncounted launches. Returns the record."""
     import statistics
 
     import torch
 
-    from sketch_rnn_tpu_torch.ops import cuda_fused as CF
-
-    names = FUSED_OUTPUTS["fused_ln_lstm_fwd"]
-    run, outs = CF.ln_lstm_fwd_entries(**fargs, **drop_kw)
+    names = FUSED_OUTPUTS[name]
+    run, outs = entries(**fargs, **drop_kw)
     snap = lambda: [o.clone() for o in outs]
-    run("srt_ln_lstm_fwd")
+    run(entry)
     new = snap()
-    run("srt_ln_lstm_fwd")
+    run(entry)
     again = snap()
-    run("srt_ln_lstm_fwd_rowblock")
+    run(entry + "_rowblock")
     old = snap()
     torch.cuda.synchronize()
     ab, rel, per = rel_errs(names, new, old)
-    pab, prel, pper = rel_errs(names, new, CF.ln_lstm_fwd_reference(
-        **fargs, **drop_kw))
+    pab, prel, pper = rel_errs(names, new, reference(**fargs, **drop_kw))
     det = all(torch.equal(a, b) for a, b in zip(new, again))
     if not (rel <= FUSED_TOL[dt] and prel <= FUSED_TOL[dt] and det):
         raise AssertionError(
-            f"fused_ln_lstm_fwd [{dt}, {label}]: srt_ln_lstm_fwd vs the "
-            f"row-block design, rel err {rel}, per output {per}; vs the "
-            f"plain version {prel}, {pper}; deterministic {det}")
+            f"{name} [{dt}, {label}]: {entry} vs the row-block design, rel "
+            f"err {rel}, per output {per}; vs the plain version {prel}, "
+            f"{pper}; deterministic {det}")
     del new, again, old
-    times, _ = ab_turns({"new": lambda: run("srt_ln_lstm_fwd"),
-                         "old": lambda: run("srt_ln_lstm_fwd_rowblock")})
+    times, _ = ab_turns({"new": lambda: run(entry),
+                         "old": lambda: run(entry + "_rowblock")})
     res = {"shape": label, "ms": statistics.median(times["new"]),
            "rowblock_ms": statistics.median(times["old"]),
            "new_ms_all": times["new"], "rowblock_ms_all": times["old"],
            "err_vs_rowblock": ab, "rel_err_vs_rowblock": rel,
            "err_vs_plain": pab, "rel_err_vs_plain": prel,
-           "deterministic": det, "ab_phase": "ln_lstm_fwd_ab"}
+           "deterministic": det, "ab_phase": phase}
     res["speedup"] = res["rowblock_ms"] / res["ms"]
-    log("ln_lstm_fwd_ab", name="fused_ln_lstm_fwd", dtype=dt, reps=AB_REPS,
-        **res)
+    log(phase, name=name, dtype=dt, reps=AB_REPS, **res)
     return res
+
+
+def ln_lstm_fwd_ab(dt, fargs, drop_kw, label):
+    """``srt_ln_lstm_fwd`` (the cooperative loop, the layer norms' row
+    moments exchanged between its blocks) against
+    ``srt_ln_lstm_fwd_rowblock`` (:func:`fwd_ab`)."""
+    from sketch_rnn_tpu_torch.ops import cuda_fused as CF
+
+    return fwd_ab("ln_lstm_fwd_ab", "fused_ln_lstm_fwd", "srt_ln_lstm_fwd",
+                  CF.ln_lstm_fwd_entries, CF.ln_lstm_fwd_reference, dt,
+                  fargs, drop_kw, label)
+
+
+def hyper_lstm_fwd_ab(dt, fargs, drop_kw, label):
+    """``srt_hyper_fwd`` (the cooperative loop over resident weight
+    columns) against ``srt_hyper_fwd_rowblock`` (:func:`fwd_ab`)."""
+    from sketch_rnn_tpu_torch.ops import cuda_fused as CF
+
+    return fwd_ab("hyper_lstm_fwd_ab", "fused_hyper_lstm_fwd",
+                  "srt_hyper_fwd", CF.hyper_lstm_fwd_entries,
+                  CF.hyper_lstm_fwd_reference, dt, fargs, drop_kw, label)
 
 
 def tiled_rows(x, b, dim):
@@ -1636,7 +1664,10 @@ def check_hyper(inp, rows):
     operands = (xs, *w, *biases, inp["seed_dec"])
     time_fused("fused_hyper_lstm_fwd", dt, CF.hyper_lstm_fwd,
                CF.hyper_lstm_fwd_reference, {**fargs, **seed_kw}, 5, w_flops,
-               nbytes(*operands, *carries, *fwd), rows, f32_flops=zd_flops)
+               nbytes(*operands, *carries, *fwd), rows, f32_flops=zd_flops,
+               plan=CF.hyper_fwd_plan(b, d, h, hh, e, wdt)._asdict())
+    rows["fused_hyper_lstm_fwd"][dt]["ab"] = hyper_lstm_fwd_ab(
+        dt, fargs, seed_kw, f"B={b}, T={t}, H={h}, HH={hh}, e={e}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -1661,11 +1692,12 @@ HYPER_WINDOW_CASE = (WINDOW_T, 8192, 512, 256, 32)
 
 
 def check_hyper_windows():
-    """``srt_hyper_bwd`` at a batch whose tiles take several windows of
-    rows (HYPER_WINDOW_CASE, float32, seeded operands, dropout seeded)
-    against the row-block entry on the same inputs (``bwd_ab``: within
-    FUSED_TOL, identical run to run, timed in turns with its split);
-    uncounted launches, its own record (not a kernel row's)."""
+    """``srt_hyper_fwd`` and ``srt_hyper_bwd`` at a batch whose tiles take
+    several windows of rows (HYPER_WINDOW_CASE, float32, seeded operands,
+    dropout seeded) against their row-block entries on the same inputs
+    (:func:`hyper_lstm_fwd_ab`; ``bwd_ab``: within FUSED_TOL, identical
+    run to run, timed in turns, the backward with its split); uncounted
+    launches, their own records (not a kernel row's)."""
     import torch
 
     from sketch_rnn_tpu_torch.ops import cuda_fused as CF
@@ -1680,8 +1712,15 @@ def check_hyper_windows():
     common = dict(xs=xs, w=w, forget_bias=1.0, x_bias=biases[0],
                   x_bias_hyper=biases[1])
     drop = dict(dropout_seed=seed, keep_prob=KEEP)
-    hs, cs, hycs, hyhs = CF.hyper_lstm_fwd(**common, c0=c0, h0=h0, hc0=hc0,
-                                           hh0=hh0, **drop)[:4]
+    fargs = dict(common, c0=c0, h0=h0, hc0=hc0, hh0=hh0)
+    fplan = CF.hyper_fwd_plan(b, 5, h, hh, e)
+    hyper_lstm_fwd_ab("float32", fargs, drop,
+                      f"windows: T={t}, B={b}, H={h}, HH={hh}, e={e}, "
+                      f"{fplan.windows} windows")
+    log("batch_windows", entry="srt_hyper_fwd", H=h, HH=hh, e=e, B=b, T=t,
+        dtype="float32", plan=fplan._asdict(),
+        seconds=time.perf_counter() - t_phase)
+    hs, cs, hycs, hyhs = CF.hyper_lstm_fwd(**fargs, **drop)[:4]
     dhs, dcT, dhT, dhcT, dhhT = cots
     bargs = dict(common, h0=h0, hh0=hh0, hs=hs, cs=cs, hycs=hycs, hyhs=hyhs,
                  dhs=dhs, dcT=dcT, dhT=dhT, dhcT=dhcT, dhhT=dhhT)

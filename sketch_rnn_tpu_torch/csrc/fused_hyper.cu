@@ -42,24 +42,63 @@
 // weight-gradient sums; every bias gradient, both x_bias gradients and the
 // LN sums take the unrounded values.
 //
-// Design of the forward (srt_hyper_fwd): one block per batch row, the T
-// loop inside, blockDim = max(H, HH) rounded up to a warp (both <= 512);
-// every phase is guarded or strided, so H, HH and 4e may stand in any
-// order. Thread j < H owns column j of the four main gates, thread j < HH
-// column j of the auxiliary LSTM's state. Within a step, each phase behind
-// a __syncthreads() (hyper_step):
-//   1. the 4HH auxiliary pre-activations, strided over ALL threads (up to
-//      four columns a thread at once), into shared memory; x @ wx and h @
-//      wh of the thread's own four main columns into registers;
-//   2. the auxiliary gates (threads j < HH); hh_new rounded to W;
-//   3. the 12e values of z_x, z_h, z_b, strided, into shared memory;
-//   4. the thread's twelve block products (length e), pre, and the
-//      LayerNorm-LSTM gate block shared with fused_ln_lstm
-//      (rnn_common.cuh: block-wide two-pass statistics).
-// A row's block re-reads about 8 MiB of weights from L2 on every step at
-// float (wh 4, wxh_h 2, whh 1, zd 0.75, w_hz 0.4), only 100 of 132 SMs
-// hold a row, and the phases of a step are serial: PERF.md keeps its time
-// beside its bound. The backward ran the same design until it was
+// Design of the forward (srt_hyper_fwd): one persistent kernel launched
+// cooperatively on a grid of slices x batch tiles (cuda_fused.hyper_fwd_
+// plan: slices of U = 16 main units, or 8 where two tiles cannot be had,
+// as many slices of the auxiliary units, at most one block per SM), refused,
+// never replaced, when it cannot co-reside; a batch whose tiles do not fit
+// runs in windows of rows (persist.cuh). Block (tile, slice) keeps its
+// slice's LayerNorm phases for its tile's rows (row 5f's lanes, moments and
+// Chan's rule) and, regrouped by the split F = U / 8, a product group of at
+// most 8 main and 8 auxiliary units (all four gates of each) for the rows
+// of F tiles, their weight columns resident in shared memory as float: at
+// float the wh, wxh_h and whh columns of a whole slice (16 main, 8
+// auxiliary units) need 229 KB, beside zd and the rows no room. Per step,
+// five phases, each ended by a grid barrier:
+//  (1) the products of the group's rows, h_{t-1} and hh_{t-1} staged from
+//      the exchanges hx, hhx [2, B, H | HH] of the weight type
+//      (cp.async.cg), a pass of rows at a time: hp = h @ wh of its main
+//      units to a [B, 4H] exchange, ((x @ wxh_x + h @ wxh_h) + bh) + hh @
+//      whh [+ xbh] of its auxiliary units, the auxiliary LSTM's gates (no
+//      dropout), hh_t
+//      rounded to W into hhx, hycs and hyhs; the auxiliary cell carries
+//      stay in the block;
+//  (2) z = hh_t @ w_hz (+ b_hz): each output summed by the block that owns
+//      it (whole sectors of the row, as the backward's dz share) for its
+//      tile's rows, into a [B, 12e] exchange; its w_hz columns and the rows
+//      of hh_t staged (read through L1, the columns missed: at 227 KB of
+//      shared memory the L1 left does not hold them);
+//  (3) xp = x @ wx [+ x_bias], the block scales s_p[g] = z_p[g] . zd_p[g]
+//      (zd columns resident, float x float at either W) and pre = ((s_x xp
+//      + s_h hp) + s_b) + b of the block's (row, unit) pairs, the gates'
+//      slice moments to an exchange [B, slices, 8];
+//  (4) the gate norms (the slices' moments in slice order), the gate block
+//      with the dropout mask on g, the new cell state's slice moments to an
+//      exchange [B, slices, 2];
+//  (5) the cell norm, h_t rounded to W into hx, hs and cs.
+// The products of (1) at float weights: a task of 4 units x 16 rows a warp
+// (two rows and one unit's four gates a lane, SIMT multiply-adds from the
+// resident quads). At bf16 weights on the tensor cores (mma.sync m16n8k8 in
+// tf32, which holds a bf16 value exactly: every product exact, float sums
+// in the unit's order); 3xTF32 at float was slower than the multiply-adds
+// and missed float's tolerance at H=512. Every other output, and every
+// float product, is one in-order fmaf chain in hyper_step's k order; the
+// sums are combined in hyper_step's order, each rounded on its own (_rn);
+// no atomics: every run gives the same bits. The layer norms' row moments
+// are summed in another order than block_sum's, so it meets the row-block
+// design and the plain version within tolerance, not bit for bit. Sizing
+// at the hyper preset (B=100, H=512, HH=256, e=32): 32 slices x 4 tiles =
+// 128 blocks, product groups of 8 main and 4 auxiliary units x 50 rows in
+// passes of 25, 229,504 bytes of shared memory a block (the weight columns
+// 116,096, zd 27,648, the rows buffer 77,600); the work scratch 1,920,000
+// bytes and the exchanges 614,400 bytes at float; 1,250 grid barriers a
+// call.
+// The design it replaced, one block per batch row (hyper_fwd_kernel,
+// blockDim = max(H, HH) rounded up to a warp; the four phases of hyper_step
+// behind __syncthreads(), the layer norms' statistics block-wide), stays
+// reachable as srt_hyper_fwd_rowblock, to be held and timed beside it: each
+// row's block re-read about 8 MiB of weights from L2 on every step, and only
+// 100 of 132 SMs held a row. The backward ran the same design until it was
 // redesigned below; it stays reachable as srt_hyper_bwd_rowblock (one
 // block per row walking time backwards, the gradient streams to scratch,
 // then tn_gemm_kernel's eleven products), to be held and timed beside the
@@ -1784,6 +1823,1083 @@ cudaError_t launch_hyper_bwd(const Bwd<W, R>& a, const HyperArgs<W, R>& h,
   return err;
 }
 
+// ---------------------------------------------------------------------------
+// The forward of srt_hyper_fwd (header, "Design of the forward"): one
+// persistent cooperative kernel on the plan's grid, five phases a step.
+
+// The plan (cuda_fused.hyper_fwd_plan): U main units a slice of the
+// LayerNorm phases and the split F = U / 8 of the products ((16, 2) or (8,
+// 1): a product group holds at most 8 main and 8 auxiliary units),
+// `slices` slices, at most `tiles` batch tiles a window (a multiple of F),
+// `windows` windows of rows, `pchunk` rows a pass of the products, `chunk`
+// rows a pass of the LayerNorm phases, `smem` bytes of shared memory a
+// block.
+struct HyperFwdPlan {
+  int units, split, slices, tiles, windows, pchunk, chunk, smem;
+};
+
+constexpr int kPMainCols = 32;  // a product group's main columns (8 units)
+// float weights, a product task: 4 units (all four gates) x 16 rows, lane
+// l taking unit l % 4 and rows l / 4 + 8 i
+constexpr int kPUnits = 4, kPRowLanes = 32 / kPUnits, kPRows = 2;
+constexpr int kPTaskRows = kPRows * kPRowLanes;
+constexpr int kHfRows = 2;  // LayerNorm phases: rows a lane and row lane
+constexpr int kHfStage = 8;  // 16-byte loads in flight a thread, staging
+
+// A product group's auxiliary units, rounded up to a multiple of 4
+__host__ __device__ inline int hf_aux4(int HH, int slices, int F) {
+  const int se = slices * F, n = (HH + se - 1) / se;
+  return (n + 3) / 4 * 4;
+}
+
+// A resident weight column's floats: K rounded up to whole k-steps of 8
+// (zeros past K), and 4 more, so that the 8 columns of an mma fragment's
+// loads fall in distinct banks
+__host__ __device__ inline int hf_col(int K) { return (K + 7) / 8 * 8 + 4; }
+
+// A zd column's stride in shared memory: e rounded up to whole quads, and
+// one quad more, so that the 16 units' quads of one read fall in distinct
+// banks
+__host__ __device__ inline int hf_zd_stride(int E) {
+  return (E + 3) / 4 * 4 + 4;
+}
+
+// The most outputs of z a slice sums (dz_share's whole chunks)
+__host__ __device__ inline int hf_z_share(int E, int slices) {
+  const int Z = 12 * E, zc = Z % 8 == 0 ? 8 : 4;
+  return (Z / zc + slices - 1) / slices * zc;
+}
+
+// The floats of the rows buffer, the most of: a products pass's h and hh
+// rows (at float's row strides, so that the plan is the same at both weight
+// types), a LayerNorm pass's rows of z (stride 12e + 4) or of the gate
+// exchange, the w_hz columns of a z share with one row of hh_t (padded by
+// 16 bytes).
+__host__ __device__ inline size_t hf_buf_floats(int H, int HH, int E,
+                                                int slices, int pchunk,
+                                                int chunk) {
+  const size_t rows = (size_t)pchunk * (fwd_row_stride<float>(H) +
+                                        fwd_row_stride<float>(HH));
+  const size_t wide =
+      12 * E + 4 > 8 * slices ? 12 * (size_t)E + 4 : 8 * (size_t)slices;
+  const size_t zs = (size_t)HH * (hf_z_share(E, slices) + 1) + 4;
+  size_t n = rows > (size_t)chunk * wide ? rows : (size_t)chunk * wide;
+  return n > zs ? n : zs;
+}
+
+// A block's shared memory in floats for LayerNorm tiles of nb rows
+// (cuda_fused.hyper_fwd_smem, the same sum): the resident columns of the
+// product group (wh of 8 main units, wxh_h and whh of its auxiliary units,
+// four gates each, at the tensor cores' padded column stride, which the
+// float tasks' quads fit in; wxh_x and bh), of the LayerNorm slice (wx, the
+// zd columns), the slices' unit counts, its units' LayerNorm parameters
+// and bias, the main and auxiliary cell carries, a products pass's
+// auxiliary sums, the rows buffer.
+__host__ __device__ inline size_t hyper_fwd_smem_floats(int U, int F,
+                                                        int slices, int nb,
+                                                        int D, int H, int HH,
+                                                        int E, int pchunk,
+                                                        int chunk) {
+  const size_t a4 = hf_aux4(HH, slices, F);
+  return (kPMainCols + a4 * 4) * hf_col(H) + a4 * 4 * (hf_col(HH) + D + 1) +
+         (size_t)4 * U * D + (size_t)12 * U * hf_zd_stride(E) + 64 +
+         (size_t)16 * U + (size_t)nb * U + (size_t)F * nb * a4 +
+         2 * (size_t)pchunk * a4 * 4 +
+         hf_buf_floats(H, HH, E, slices, pchunk, chunk);
+}
+
+// The float work scratch of srt_hyper_fwd, carved in this order: z [B,
+// 12e], the gate norms' slice partials [B, slices, 8], the cell norm's [B,
+// slices, 2], hp = h @ wh [B, 4H], the stash [4, B, H] (each pair's
+// pre-activations, then its new cell state and o, from one phase to the
+// next where a tile's rows take several passes) (cuda_fused.hyper_fwd_
+// work_floats).
+struct HyperFwdWork {
+  float *z, *exg, *exc, *hp, *stash;
+};
+
+HyperFwdWork hyper_fwd_work(float* work, int B, int H, int E, int slices) {
+  HyperFwdWork w;
+  w.z = work;
+  w.exg = w.z + (size_t)B * 12 * E;
+  w.exc = w.exg + (size_t)B * slices * 8;
+  w.hp = w.exc + (size_t)B * slices * 2;
+  w.stash = w.hp + (size_t)B * 4 * H;
+  return w;
+}
+
+// The moments of N values per lane over the U lanes of one row's units (a
+// lane past the slice's n units contributes nothing): mean = sum / n, then
+// m2 = sum of (v - mean)^2. Every lane gets them; all 32 lanes call it.
+// fused_rnn.cu's slice_moments for slices of U units. Copied, not shared:
+// moving a loop's LayerNorm phases into a shared header cost row 5b's loop
+// time (PERF.md), and row 5f keeps its code as it was.
+template <int U, int N>
+__device__ __forceinline__ void hf_moments(const float (&v)[N], bool real,
+                                           float n, float (&mean)[N],
+                                           float (&m2)[N]) {
+#pragma unroll
+  for (int g = 0; g < N; ++g) mean[g] = real ? v[g] : 0.0f;
+  unit_sum<U>(mean);
+#pragma unroll
+  for (int g = 0; g < N; ++g) {
+    mean[g] = mean[g] / n;
+    const float d = v[g] - mean[g];
+    m2[g] = real ? d * d : 0.0f;
+  }
+  unit_sum<U>(m2);
+}
+
+// fused_rnn.cu's chan_stats, copied for the same reason: the layer-norm
+// statistics of N rows from their slices' (mean, M2) partials m[n][k *
+// stride] and m[n][k * stride + off], combined in slice order by Chan's
+// rule (s_n: each slice's unit count).
+template <int N>
+__device__ __forceinline__ void hf_chan(const float* const (&m)[N],
+                                        int stride, int off, const float* s_n,
+                                        int slices, float fh,
+                                        float (&mean)[N], float (&rs)[N]) {
+  float s[N], q[N];
+#pragma unroll
+  for (int r = 0; r < N; ++r) s[r] = q[r] = 0.0f;
+  for (int k = 0; k < slices; ++k) {
+    const float n = s_n[k];
+#pragma unroll
+    for (int r = 0; r < N; ++r) s[r] += n * m[r][k * stride];
+  }
+#pragma unroll
+  for (int r = 0; r < N; ++r) mean[r] = s[r] / fh;
+  for (int k = 0; k < slices; ++k) {
+    const float n = s_n[k];
+#pragma unroll
+    for (int r = 0; r < N; ++r) {
+      const float d = m[r][k * stride] - mean[r];
+      q[r] += m[r][k * stride + off] + n * (d * d);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < N; ++r) rs[r] = rsqrtf(q[r] / fh + 1e-6f);
+}
+
+// The units k_lo .. k_hi - 1 (k_lo a multiple of 8) of the cr rows of a
+// products pass (from row0 on) of x_{t-1} (K units) into s (row stride rs,
+// type W): rnd_W(x0) at t = 0 (xin null), after it the exchange plane of
+// the step before, written by other blocks of the kernel (by 16-byte
+// cp.async.cg where the rows allow it, else element by element through
+// L2). The caller commits the group.
+template <typename W>
+__device__ __forceinline__ void hf_load_rows(W* s, int rs, const float* x0,
+                                             const W* xin, bool async,
+                                             size_t row0, int cr, int K,
+                                             int k_lo, int k_hi) {
+  constexpr int kE = 16 / sizeof(W);
+  if (xin != nullptr && async) {
+    const int n = (k_hi - k_lo) / kE;  // k_hi - k_lo a multiple of kE
+    for (int e = threadIdx.x; e < cr * n; e += kFwdThreads) {
+      const int r = e / n, k = k_lo + (e - r * n) * kE;
+      cp_async16(s + r * rs + k, xin + (row0 + r) * K + k);
+    }
+  } else {
+    const int n = k_hi - k_lo;
+#pragma unroll 4
+    for (int e = threadIdx.x; e < cr * n; e += kFwdThreads) {
+      const int r = e / n, k = k_lo + e - r * n;
+      const size_t at = (row0 + r) * K + k;
+      s[r * rs + k] = xin == nullptr ? from_f<W>(x0[at]) : ldcg_raw(xin + at);
+    }
+  }
+}
+
+// cr rows of n floats (n a multiple of 4) from src, written by other blocks
+// of the kernel, into dst at row stride ld (a multiple of 4): one copy
+// through L2 by the whole block, kHfStage loads in flight a thread. A
+// __syncthreads must follow.
+__device__ __forceinline__ void stage_rows_ld(float* dst, int ld,
+                                              const float* src, int cr,
+                                              int n) {
+  const int n4 = n / 4, tot = cr * n4;
+  for (int e0 = threadIdx.x; e0 < tot; e0 += kHfStage * kFwdThreads) {
+    float4 v[kHfStage];
+#pragma unroll
+    for (int i = 0; i < kHfStage; ++i) {
+      const int e = e0 + i * kFwdThreads;
+      if (e < tot) v[i] = __ldcg(reinterpret_cast<const float4*>(src) + e);
+    }
+#pragma unroll
+    for (int i = 0; i < kHfStage; ++i) {
+      const int e = e0 + i * kFwdThreads;
+      if (e < tot) {
+        const int r = e / n4;
+        reinterpret_cast<float4*>(dst + (size_t)r * ld)[e - r * n4] = v[i];
+      }
+    }
+  }
+}
+
+// Float weights: a product task's sums over k in [k_lo, k_hi) (k_lo a
+// multiple of 4): the rows r[i] of rows (stride rs) times the task's
+// resident weight quads w (four gates of one unit, 16 floats a k), each
+// output one in-order fmaf chain over k (hyper_step's).
+__device__ __forceinline__ void hf_task_part(const float* rows, int rs,
+                                             const float* w,
+                                             const int (&r)[kPRows],
+                                             int k_lo, int k_hi,
+                                             float (&acc)[kPRows][4]) {
+  const float* x[kPRows];
+#pragma unroll
+  for (int i = 0; i < kPRows; ++i) x[i] = rows + (size_t)r[i] * rs;
+  int k = k_lo;
+#pragma unroll 2
+  for (; k + 4 <= k_hi; k += 4) {
+    float v[kPRows][4];
+#pragma unroll
+    for (int i = 0; i < kPRows; ++i) {
+      const float4 h = quad(x[i] + k);
+      v[i][0] = h.x;
+      v[i][1] = h.y;
+      v[i][2] = h.z;
+      v[i][3] = h.w;
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 q = quad(w + (size_t)(k + kk) * 16);
+#pragma unroll
+      for (int i = 0; i < kPRows; ++i) {
+        acc[i][0] = fmaf(v[i][kk], q.x, acc[i][0]);
+        acc[i][1] = fmaf(v[i][kk], q.y, acc[i][1]);
+        acc[i][2] = fmaf(v[i][kk], q.z, acc[i][2]);
+        acc[i][3] = fmaf(v[i][kk], q.w, acc[i][3]);
+      }
+    }
+  }
+  for (; k < k_hi; ++k) {
+    const float4 q = quad(w + (size_t)k * 16);
+#pragma unroll
+    for (int i = 0; i < kPRows; ++i) {
+      const float a = x[i][k];
+      acc[i][0] = fmaf(a, q.x, acc[i][0]);
+      acc[i][1] = fmaf(a, q.y, acc[i][1]);
+      acc[i][2] = fmaf(a, q.z, acc[i][2]);
+      acc[i][3] = fmaf(a, q.w, acc[i][3]);
+    }
+  }
+}
+
+// c += a (16 x 8, row-major fragment) * b (8 x 8, column-major), tf32
+// operands, float sums
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Bf16 weights: a product task's k-steps of 8 in [k_lo, k_hi) (k_lo a
+// multiple of 8): acc[j] += rows m0 .. m0 + 15 of rows (stride rs, bf16;
+// rows past cr read row cr - 1, k past K read 0) times the columns n0 + 8
+// j .. + 7 (j < 2) of w (the bf16 weights widened, stride kc = hf_col(K),
+// zeros past K), on the tensor cores (mma.sync m16n8k8, tf32 operands,
+// float sums): a bf16 value is exact in tf32, so every product is exact,
+// as in the float multiply-adds of the row-block design. (3xTF32 at float
+// weights was slower than the multiply-adds and missed 1e-4 at H=512.)
+__device__ __forceinline__ void hf_mma_part(const bf16* rows, int rs, int m0,
+                                            int cr, const float* w, int kc,
+                                            int n0, int K, int k_lo, int k_hi,
+                                            float (&acc)[2][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const bf16* xa = rows + (size_t)(m0 + g < cr ? m0 + g : cr - 1) * rs;
+  const bf16* xb = rows + (size_t)(m0 + g + 8 < cr ? m0 + g + 8 : cr - 1) * rs;
+  const float* w0 = w + (size_t)(n0 + g) * kc;
+  const float* w1 = w0 + (size_t)8 * kc;
+  for (int k0 = k_lo; k0 < k_hi; k0 += 8) {  // warp-uniform: mma.sync
+    const int k = k0 + t;
+    const bool in0 = k < K, in1 = k + 4 < K;
+    const float a[4] = {in0 ? to_f(xa[k]) : 0.0f, in0 ? to_f(xb[k]) : 0.0f,
+                        in1 ? to_f(xa[k + 4]) : 0.0f,
+                        in1 ? to_f(xb[k + 4]) : 0.0f};
+    const uint32_t ab[4] = {__float_as_uint(a[0]), __float_as_uint(a[1]),
+                            __float_as_uint(a[2]), __float_as_uint(a[3])};
+    mma_tf32(acc[0], ab, __float_as_uint(w0[k]), __float_as_uint(w0[k + 4]));
+    mma_tf32(acc[1], ab, __float_as_uint(w1[k]), __float_as_uint(w1[k + 4]));
+  }
+}
+
+// Four outputs of z (the quad oq of row bl of the pass; nz a multiple of
+// 4, o_lo too, so one path), each one in-order fmaf chain over the HH
+// units of hh_t (row bl of s_z, stride zs, type W) with the staged w_hz
+// columns s_whz ([HH][zm]), b_hz added on the paths x and h, into z (row
+// stride Z, zrow0: the pass's first row).
+template <typename W>
+__device__ __forceinline__ void hf_z_quad(const W* s_z, int zs,
+                                          const float* s_whz, int zm, int bl,
+                                          int oq, int HH, int o_lo, int E4,
+                                          const float* bzx, const float* bzh,
+                                          float* zrow0, int Z) {
+  const W* hr = s_z + (size_t)bl * zs;
+  const float* wz = s_whz + 4 * oq;
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 8
+  for (int k = 0; k < HH; ++k) {
+    const float hk = to_f(hr[k]);
+    const float4 w = quad(wz + (size_t)k * zm);
+    acc[0] = fmaf(hk, w.x, acc[0]);
+    acc[1] = fmaf(hk, w.y, acc[1]);
+    acc[2] = fmaf(hk, w.z, acc[2]);
+    acc[3] = fmaf(hk, w.w, acc[3]);
+  }
+  const int o = o_lo + 4 * oq, path = o / E4, q = o - path * E4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float v = acc[i];
+    if (path < 2) v = __fadd_rn(v, (path == 0 ? bzx : bzh)[q + i]);
+    zrow0[(size_t)bl * Z + o + i] = v;
+  }
+}
+
+// The loop, one persistent cooperative kernel on the plan's grid. Block
+// (tile, slice) owns, for the LayerNorm phases, the main units j0 .. j0 +
+// nu - 1 of its slice for the rows of its tile (their cell carries in
+// shared memory) and the z outputs o_lo .. o_hi - 1 of those rows; for the
+// products, the main units ej0 .. and auxiliary units ek0 .. of group ge =
+// slice * F + tile % F (at most 8 of each) for the rows of the F tiles from
+// F (tile / F) on (their auxiliary cell carries in shared memory). Per
+// step t (five grid barriers):
+//  (1) the products, a pass of at most pchunk rows at a time (h_{t-1} and
+//      hh_{t-1} rows staged by parts of k, each part's products while the
+//      later parts land): hp = h @ wh of its main units to the exchange
+//      wk.hp; the auxiliary pre-activations ((x @ wxh_x + h @ wxh_h) + bh)
+//      + hh @ whh [+ xbh] of its auxiliary units, their gates, hh_t to hhx
+//      (rounded to W), hycs and hyhs;
+//  (2) its share of z = hh_t @ w_hz (+ b_hz) for its tile's rows;
+//  (3) xp = x @ wx [+ xb], the block scales s_p = z_p . zd_p and pre =
+//      ((s_x xp + s_h hp) + s_b) + b of its pairs, the gates' slice moments
+//      to wk.exg (pre kept in registers, or in the stash where a tile's
+//      rows take several passes);
+//  (4) the gate norms in slice order (Chan's rule), the gate block, the new
+//      cell state's slice moments to wk.exc;
+//  (5) the cell norm, h_t to hx (rounded to W), hs and cs.
+// A task of (1) at float weights is 4 units (all four gates) x 16 rows of
+// one product (h @ wh, h @ wxh_h or hh @ whh), a warp each, its outputs
+// in-order fmaf chains over k; at bf16 weights 16 rows x 16 columns on the
+// tensor cores (hf_mma_part). The LayerNorm phases take row 5f's lane
+// layout: a warp task is the U units of the slice x (32 / U) x 2 rows.
+// Exchanges written by other blocks are read through L2.
+template <typename W, typename R, int U>
+__global__ void __launch_bounds__(kFwdThreads)
+hyper_fwd_loop_kernel(HyperFwd<W, R> a, W* hx, HyperFwdWork wk, int slices,
+                      int tiles, int pchunk, int chunk, int r0, int nr) {
+  constexpr int F = U / 8, RL = 32 / U, TR = RL * kHfRows;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const HyperCell<W>& p = a.p;
+  const int H = p.H, HH = p.HH, D = p.D, E = p.E, B = a.B;
+  const int G = 4 * H, GH = 4 * HH, E4 = 4 * E, Z = 12 * E, ZS = Z + 4;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int sl = blockIdx.x % slices, bt = blockIdx.x / slices;
+  // the LayerNorm phases' units and rows
+  const int j0 = sl * H / slices, nu = (sl + 1) * H / slices - j0;
+  const int b0 = r0 + bt * nr / tiles;
+  const int nb = (bt + 1) * nr / tiles - bt * nr / tiles;
+  const int nb_max = (nr + tiles - 1) / tiles;
+  // the products' group: its units and the rows of F tiles
+  const int se = slices * F, ge = sl * F + bt % F, te = bt / F;
+  const int ej0 = ge * H / se, enu = (ge + 1) * H / se - ej0;
+  const int ek0 = ge * HH / se, ena = (ge + 1) * HH / se - ek0;
+  const int a4 = hf_aux4(HH, slices, F);
+  const int hc_ = hf_col(H), hhc = hf_col(HH);  // resident column strides
+  const int NH = kPMainCols + 4 * a4;  // the h products' columns
+  const int eb0 = r0 + te * F * nr / tiles;
+  const int enb = (te * F + F) * nr / tiles - te * F * nr / tiles;
+  int o_lo, o_hi;  // the outputs of z this block sums
+  dz_share(Z, slices, sl, o_lo, o_hi);
+  const int nz = o_hi - o_lo, ez = hf_zd_stride(E);
+  float* s_wph = reinterpret_cast<float*>(smem_raw);  // [NH][hc_]
+  float* s_wphh = s_wph + NH * hc_;                   // [4 a4][hhc]
+  float* s_wax = s_wphh + 4 * a4 * hhc;               // [D][a4][4]
+  float* s_bh = s_wax + a4 * 4 * D;                  // [a4][4]
+  float* s_wx = s_bh + a4 * 4;                       // [D][U][4]
+  float* s_zd = s_wx + 4 * U * D;                    // [12][U][ez]
+  float* s_n = s_zd + 12 * U * ez;                   // [64]
+  float* s_lnp = s_n + 64;  // [U][16]: gamma[4], beta[4], b[4], gc, bc
+  float* s_c = s_lnp + 16 * U;                       // [nb_max][U]
+  float* s_hc = s_c + nb_max * U;                    // [F nb_max][a4]
+  float* s_ah = s_hc + F * nb_max * a4;              // [pchunk][a4][4]
+  float* s_ar = s_ah + pchunk * a4 * 4;              // [pchunk][a4][4]
+  unsigned char* s_buf =
+      reinterpret_cast<unsigned char*>(s_ar + pchunk * a4 * 4);
+  float* s_ex = reinterpret_cast<float*>(s_buf);
+  const uint32_t seed = a.drop.seed != nullptr ? (uint32_t)*a.drop.seed : 0u;
+
+  // the resident columns, as float, zero past the units. Float weights:
+  // the SIMT tasks' quads, [group of 4 units][k][unit][gate], over h the 2
+  // main groups then the auxiliary ones, over hh the auxiliary ones. Bf16
+  // (the tensor cores): column c, unit c / 4 (main units, then from
+  // kPMainCols on the auxiliary ones), gate c % 4, k contiguous at stride
+  // hf_col(K), which sizes both.
+  if constexpr (sizeof(W) == 4) {
+    for (int e = tid; e < NH * H; e += kFwdThreads) {  // NH / 16 groups
+      const int grp = e / (H * 16), r = e - grp * H * 16, k = r / 16;
+      const int u = grp * kPUnits + (r / 4) % 4, g = r % 4;
+      float v = 0.0f;
+      if (u < 8 && u < enu)
+        v = p.wh[(size_t)k * G + g * H + ej0 + u];
+      else if (u >= 8 && u - 8 < ena)
+        v = p.wxh_h[(size_t)k * GH + g * HH + ek0 + u - 8];
+      s_wph[e] = v;
+    }
+    for (int e = tid; e < a4 * HH * 4; e += kFwdThreads) {
+      const int grp = e / (HH * 16), r = e - grp * HH * 16, k = r / 16;
+      const int u = grp * kPUnits + (r / 4) % 4, g = r % 4;
+      s_wphh[e] =
+          u < ena ? p.whh[(size_t)k * GH + g * HH + ek0 + u] : 0.0f;
+    }
+  } else {
+    for (int e = tid; e < hc_ * NH; e += kFwdThreads) {
+      const int k = e / NH, c = e - k * NH, u = c / 4, g = c % 4;
+      float v = 0.0f;
+      if (k < H && u < 8 && u < enu)
+        v = to_f(p.wh[(size_t)k * G + g * H + ej0 + u]);
+      else if (k < H && u >= 8 && u - 8 < ena)
+        v = to_f(p.wxh_h[(size_t)k * GH + g * HH + ek0 + u - 8]);
+      s_wph[c * hc_ + k] = v;
+    }
+    for (int e = tid; e < hhc * 4 * a4; e += kFwdThreads) {
+      const int k = e / (4 * a4), c = e - k * 4 * a4, u = c / 4, g = c % 4;
+      s_wphh[c * hhc + k] =
+          k < HH && u < ena ? to_f(p.whh[(size_t)k * GH + g * HH + ek0 + u])
+                            : 0.0f;
+    }
+  }
+  for (int e = tid; e < (D + 1) * a4 * 4; e += kFwdThreads) {  // + s_bh
+    const int q = e / (a4 * 4), kl = (e / 4) % a4;
+    const int col = (e % 4) * HH + ek0 + kl;
+    float v = 0.0f;
+    if (kl < ena) v = q < D ? to_f(p.wxh_x[(size_t)q * GH + col]) : p.bh[col];
+    s_wax[e] = v;
+  }
+  for (int e = tid; e < D * U * 4; e += kFwdThreads) {
+    const int q = e / (U * 4), uu = (e / 4) % U, g = e % 4;
+    s_wx[e] = uu < nu ? to_f(p.wx[(size_t)q * G + g * H + j0 + uu]) : 0.0f;
+  }
+  for (int e = tid; e < 12 * U * ez; e += kFwdThreads) {
+    const int pg = e / (U * ez), uu = (e / ez) % U, q = e % ez;
+    const float* zd = pg < 4 ? p.zd[0] : pg < 8 ? p.zd[1] : p.zd[2];
+    s_zd[e] = uu < nu && q < E ? zd[((size_t)(pg % 4) * E + q) * H + j0 + uu]
+                               : 0.0f;
+  }
+  if (tid < slices)
+    s_n[tid] = (float)((tid + 1) * H / slices - tid * H / slices);
+  for (int e = tid; e < 16 * U; e += kFwdThreads) {
+    const int uu = e / 16, q = e % 16, g = q % 4, jj = j0 + uu;
+    float v = 0.0f;
+    if (uu < nu && q < 14)
+      v = q < 4    ? p.ln.ln_gamma[g * H + jj]
+          : q < 8  ? p.ln.ln_beta[g * H + jj]
+          : q < 12 ? p.b[g * H + jj]
+          : q == 12 ? p.ln.lnc_gamma[jj]
+                    : p.ln.lnc_beta[jj];
+    s_lnp[e] = v;
+  }
+  for (int q = tid; q < nb * U; q += kFwdThreads) {
+    const int uu = q % U;
+    s_c[q] = uu < nu ? a.c0[(size_t)(b0 + q / U) * H + j0 + uu] : 0.0f;
+  }
+  for (int q = tid; q < enb * a4; q += kFwdThreads) {
+    const int kl = q % a4;
+    s_hc[q] = kl < ena ? a.hc0[(size_t)(eb0 + q / a4) * HH + ek0 + kl] : 0.0f;
+  }
+  __syncthreads();  // the resident state, before any phase reads it
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  W* const hhx = hx + 2 * (size_t)B * H;
+  float* const stash = wk.stash;
+  const size_t plane = (size_t)B * H, hplane = (size_t)B * HH;
+  const int rs_h = fwd_row_stride<W>(H), rs_hh = fwd_row_stride<W>(HH);
+  constexpr int kV = 16 / (int)sizeof(W);
+  const bool async_h =
+      H % kV == 0 && (reinterpret_cast<uintptr_t>(hx) & 15) == 0;
+  const bool async_hh =
+      HH % kV == 0 && (reinterpret_cast<uintptr_t>(hhx) & 15) == 0;
+  // (2)'s w_hz columns [HH][zm] at the buffer's start, and the rows of
+  // hh_t that the rest holds
+  const int zm = hf_z_share(E, slices);
+  const int zs = HH + 16 / (int)sizeof(W);  // a staged row, 16 bytes more
+  const int zr = (int)((hf_buf_floats(H, HH, E, slices, pchunk, chunk) -
+                        (size_t)HH * zm) *
+                       sizeof(float) / ((size_t)zs * sizeof(W)));
+  // the k of a part of h and of hh
+  const int kp = ((H + kParts - 1) / kParts + 7) / 8 * 8;
+  const int kph = ((HH + kParts - 1) / kParts + 7) / 8 * 8;
+  // bf16, a product task: an m-tile of 16 rows x two n-tiles of 8 columns,
+  // over h (main, then auxiliary columns) or over hh
+  const int nph = NH / 16, nphh = a4 / 4;
+  // float, the warp's task: main (2 groups of 4 units), auxiliary over h,
+  // auxiliary over hh (a4 / 4 groups each), for rows prt * 16 ..; lane:
+  // unit pu of the task's four, rows prl + 8 i
+  const int ag = a4 / kPUnits, per = 2 + 2 * ag;
+  const int prt = warp / per, kind = warp - prt * per;
+  const bool is_hh = kind >= 2 + ag;
+  const int grp = kind < 2 ? kind : is_hh ? kind - 2 - ag : kind - 2;
+  const float* wt = (kind < 2    ? s_wph + (size_t)grp * H * 16
+                     : is_hh     ? s_wphh + (size_t)grp * HH * 16
+                                 : s_wph + (size_t)(2 + grp) * H * 16) +
+                    (lane % kPUnits) * 4;
+  const int pk = is_hh ? HH : H, pkq = is_hh ? kph : kp;
+  const int pu = lane % kPUnits, prl = lane / kPUnits;
+  // the LayerNorm phases' lane: unit u of the slice, rows lr0 + RL i
+  const int u = lane % U, half = lane & ~(U - 1);
+  const bool unit = u < nu;
+  const int j = j0 + (unit ? u : 0);
+  const int lr0 = warp * TR + lane / U;
+  const float fh = (float)H, fn = nu > 0 ? (float)nu : 1.0f;
+  const float* lnp = s_lnp + u * 16;  // this lane's unit's parameters
+  const bool multi = nb > chunk;  // else the pairs stay in registers
+  float pre[kHfRows][4], keep_c[kHfRows], keep_o[kHfRows];
+
+  for (int t = 0; t < a.T; ++t) {
+    const W* hin = t == 0 ? nullptr : hx + ((t + 1) & 1) * plane;
+    const W* hhin = t == 0 ? nullptr : hhx + ((t + 1) & 1) * hplane;
+    W* hout = hx + (t & 1) * plane;
+    W* hhout = hhx + (t & 1) * hplane;
+    // (1) the products of the group's rows, a pass at a time
+    for (int pc = 0; pc < enb; pc += pchunk) {
+      const int cr = enb - pc < pchunk ? enb - pc : pchunk;
+      W* s_h = reinterpret_cast<W*>(s_buf);
+      W* s_hh = s_h + (size_t)pchunk * rs_h;
+      if constexpr (sizeof(W) == 4) {
+        // float: the hh rows in one cp.async group, then h in kParts groups
+        // over k, each part's sums while the later parts land; a warp a
+        // task, each output one in-order fmaf chain over k
+        hf_load_rows<W>(s_hh, rs_hh, a.hh0, hhin, async_hh,
+                        (size_t)(eb0 + pc), cr, HH, 0, HH);
+        cp_async_commit();
+        for (int part = 0; part < kParts; ++part) {
+          const int lo = part * kp, hi = lo + kp < H ? lo + kp : H;
+          hf_load_rows<W>(s_h, rs_h, a.h0, hin, async_h, (size_t)(eb0 + pc),
+                          cr, H, lo < H ? lo : H, lo < H ? hi : H);
+          cp_async_commit();
+        }
+        const bool busy = prt * kPTaskRows < cr;
+        int l[kPRows], ra[kPRows];  // the lane's rows in the pass, and read
+        float acc[kPRows][4];
+#pragma unroll
+        for (int i = 0; i < kPRows; ++i) {
+          l[i] = prt * kPTaskRows + prl + i * kPRowLanes;
+          ra[i] = l[i] < cr ? l[i] : cr - 1;
+#pragma unroll
+          for (int g = 0; g < 4; ++g) acc[i][g] = 0.0f;
+        }
+#pragma unroll
+        for (int part = 0; part < kParts; ++part) {
+          cp_async_wait(kParts - 1 - part);
+          __syncthreads();  // the hh rows and this part of h, every thread
+          if (!busy) continue;
+          const int lo = part * pkq, hi = lo + pkq < pk ? lo + pkq : pk;
+          if (lo < hi)
+            hf_task_part(reinterpret_cast<const float*>(is_hh ? s_hh : s_h),
+                         is_hh ? rs_hh : rs_h, wt, ra, lo, hi, acc);
+        }
+        if (busy && kind < 2) {  // hp of the main units, to the exchange
+          const int jl = grp * kPUnits + pu;
+#pragma unroll
+          for (int r = 0; r < kPRows; ++r) {
+            if (jl >= enu || l[r] >= cr) continue;
+            float* dst = wk.hp + (size_t)(eb0 + pc + l[r]) * G + ej0 + jl;
+#pragma unroll
+            for (int g = 0; g < 4; ++g) dst[g * H] = acc[r][g];
+          }
+        } else if (busy) {  // the auxiliary sums, by (row, unit)
+          float* dst = (is_hh ? s_ar : s_ah) + (grp * kPUnits + pu) * 4;
+#pragma unroll
+          for (int r = 0; r < kPRows; ++r)
+            if (l[r] < cr)
+              *reinterpret_cast<float4*>(dst + (size_t)l[r] * a4 * 4) =
+                  make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+        }
+      } else {
+        // bf16: the pass's rows of h and hh in kParts cp.async groups over
+        // k, each part's products while the later parts land; a warp takes
+        // the tasks warp and warp + kFwdWarps (at most two: the plan holds
+        // a pass to 32 rows)
+        for (int part = 0; part < kParts; ++part) {
+          const int lo = part * kp, hi = lo + kp < H ? lo + kp : H;
+          const int llo = part * kph, lhi = llo + kph < HH ? llo + kph : HH;
+          hf_load_rows<W>(s_h, rs_h, a.h0, hin, async_h, (size_t)(eb0 + pc),
+                          cr, H, lo, hi);
+          hf_load_rows<W>(s_hh, rs_hh, a.hh0, hhin, async_hh,
+                          (size_t)(eb0 + pc), cr, HH, llo, lhi);
+          cp_async_commit();
+        }
+        const int ntask = (cr + 15) / 16 * (nph + nphh);
+        float acc[2][2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.0f;
+#pragma unroll
+        for (int part = 0; part < kParts; ++part) {
+          cp_async_wait(kParts - 1 - part);
+          __syncthreads();  // this part's rows, for every thread
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int task = warp + i * kFwdWarps;
+            if (task >= ntask) break;
+            const int mt = task / (nph + nphh), ct = task - mt * (nph + nphh);
+            if (ct < nph)
+              hf_mma_part(s_h, rs_h, 16 * mt, cr, s_wph, hc_, 16 * ct, H,
+                          part * kp, (part + 1) * kp < H ? (part + 1) * kp : H,
+                          acc[i]);
+            else
+              hf_mma_part(s_hh, rs_hh, 16 * mt, cr, s_wphh, hhc,
+                          16 * (ct - nph), HH, part * kph,
+                          (part + 1) * kph < HH ? (part + 1) * kph : HH,
+                          acc[i]);
+          }
+        }
+        // the tasks' sums: lane (g, t) holds rows g, g + 8 x columns 2 t,
+        // 2 t + 1 of each n-tile
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int task = warp + i * kFwdWarps;
+          if (task >= ntask) break;
+          const int mt = task / (nph + nphh), ct = task - mt * (nph + nphh);
+          const bool hh = ct >= nph;
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const int l = 16 * mt + lane / 4 + (q >= 2 ? 8 : 0);
+              const int c = 16 * (hh ? ct - nph : ct) + 8 * j + 2 * (lane % 4) +
+                            (q & 1);
+              const int uc = c / 4, g = c % 4;
+              if (l >= cr) continue;
+              if (hh)  // hh @ whh of an auxiliary unit
+                s_ar[((size_t)l * a4 + uc) * 4 + g] = acc[i][j][q];
+              else if (uc >= 8)  // h @ wxh_h of an auxiliary unit
+                s_ah[((size_t)l * a4 + uc - 8) * 4 + g] = acc[i][j][q];
+              else if (uc < enu)  // hp of a main unit, to the exchange
+                wk.hp[(size_t)(eb0 + pc + l) * G + g * H + ej0 + uc] =
+                    acc[i][j][q];
+            }
+        }
+      }
+      __syncthreads();  // the auxiliary sums complete, the rows read
+      // the auxiliary LSTM's gates of the pass's (row, unit) pairs, no
+      // dropout: hyper_step's sums in its order, each rounded on its own
+      for (int e = tid; e < cr * ena; e += kFwdThreads) {
+        const int bl = e / ena, kl = e - bl * ena;
+        const int row = eb0 + pc + bl, col = ek0 + kl;
+        const float* x = a.xs + ((size_t)t * B + row) * D;
+        float ax[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        for (int q = 0; q < D; ++q) {
+          const float xq = rnd<W>(x[q]);
+          const float4 w = quad(s_wax + ((size_t)q * a4 + kl) * 4);
+          ax[0] = fmaf(xq, w.x, ax[0]);
+          ax[1] = fmaf(xq, w.y, ax[1]);
+          ax[2] = fmaf(xq, w.z, ax[2]);
+          ax[3] = fmaf(xq, w.w, ax[3]);
+        }
+        const float4 ah4 = quad(s_ah + ((size_t)bl * a4 + kl) * 4);
+        const float4 ar4 = quad(s_ar + ((size_t)bl * a4 + kl) * 4);
+        const float4 bh4 = quad(s_bh + kl * 4);
+        const float ah[4] = {ah4.x, ah4.y, ah4.z, ah4.w};
+        const float ar[4] = {ar4.x, ar4.y, ar4.z, ar4.w};
+        const float bh[4] = {bh4.x, bh4.y, bh4.z, bh4.w};
+        float v[4];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          v[g] = __fadd_rn(__fadd_rn(__fadd_rn(ax[g], ah[g]), bh[g]), ar[g]);
+          if (p.xbh != nullptr)
+            v[g] = __fadd_rn(v[g], p.xbh[(size_t)row * GH + g * HH + col]);
+        }
+        const float hi = sigmoidf_(v[0]), hg = tanhf(v[1]);
+        const float hf = sigmoidf_(__fadd_rn(v[2], p.forget_bias));
+        const float ho = sigmoidf_(v[3]);
+        float* hcp = s_hc + (size_t)(pc + bl) * a4 + kl;
+        const float hc = *hcp;
+        const float nhc = __fadd_rn(__fmul_rn(hc, hf), __fmul_rn(hi, hg));
+        const float nhh = __fmul_rn(tanhf(nhc), ho);
+        const size_t at = ((size_t)t * B + row) * HH + col;
+        a.hycs[at] = from_f<R>(hc);
+        a.hyhs[at] = from_f<R>(nhh);
+        hhout[(size_t)row * HH + col] = from_f<W>(nhh);
+        *hcp = nhc;
+        if (t == a.T - 1) {
+          a.hcT[(size_t)row * HH + col] = nhc;
+          a.hhT[(size_t)row * HH + col] = nhh;
+        }
+      }  // the pass's auxiliary gates
+    }
+    grid.sync();  // hp and hh_t complete
+    // (2) this block's outputs of z for its tile's rows, each one in-order
+    // fmaf chain over the HH units of hh_t (hyper_step's), two at a time,
+    // from its w_hz columns and the rows of hh_t, both staged
+    float* s_whz = reinterpret_cast<float*>(s_buf);
+    W* s_z = reinterpret_cast<W*>(s_whz + (size_t)HH * zm);
+    for (int zc = 0; zc < nb; zc += zr) {
+      const int zcr = nb - zc < zr ? nb - zc : zr;
+      // w_hz's columns (the first pass): kStage loads a thread in flight
+      // while the pass's rows of hh_t are staged
+      float wv[kStage];
+      for (int e0 = tid; zc == 0 && e0 < HH * nz;
+           e0 += kStage * kFwdThreads) {
+#pragma unroll
+        for (int i = 0; i < kStage; ++i) {
+          const int e = e0 + i * kFwdThreads;
+          if (e >= HH * nz) break;
+          const int k = e / nz, o = o_lo + e - k * nz, path = o / E4;
+          const W* w =
+              path == 0 ? p.w_hz[0] : path == 1 ? p.w_hz[1] : p.w_hz[2];
+          wv[i] = to_f(__ldg(w + (size_t)k * E4 + o - path * E4));
+        }
+        if (e0 == tid) {  // the rows, behind the first loads
+          const W* src = hhout + (size_t)(b0 + zc) * HH;
+          if (async_hh)
+            stage_rows_ld(reinterpret_cast<float*>(s_z),
+                          zs * (int)sizeof(W) / 4,
+                          reinterpret_cast<const float*>(src), zcr,
+                          HH * (int)sizeof(W) / 4);
+          else
+            for (int e = tid; e < zcr * HH; e += kFwdThreads)
+              s_z[e / HH * zs + e % HH] = ldcg_raw(src + e);
+        }
+#pragma unroll
+        for (int i = 0; i < kStage; ++i) {
+          const int e = e0 + i * kFwdThreads;
+          if (e >= HH * nz) break;
+          const int k = e / nz;
+          s_whz[k * zm + e - k * nz] = wv[i];
+        }
+      }
+      if (zc > 0 || HH * nz <= tid) {  // rows the loop above did not stage
+        const W* src = hhout + (size_t)(b0 + zc) * HH;
+        if (async_hh)
+          stage_rows_ld(reinterpret_cast<float*>(s_z),
+                        zs * (int)sizeof(W) / 4,
+                        reinterpret_cast<const float*>(src), zcr,
+                        HH * (int)sizeof(W) / 4);
+        else
+          for (int e = tid; e < zcr * HH; e += kFwdThreads)
+            s_z[e / HH * zs + e % HH] = ldcg_raw(src + e);
+      }
+      __syncthreads();  // w_hz's columns and the pass's rows of hh_t
+      for (int e = tid; e < zcr * (nz / 4); e += kFwdThreads)
+        hf_z_quad<W>(s_z, zs, s_whz, zm, e / (nz / 4), e % (nz / 4), HH, o_lo,
+                     E4, p.b_hz[0], p.b_hz[1], wk.z + (size_t)(b0 + zc) * Z,
+                     Z);
+      __syncthreads();  // s_z read: the next pass may write it
+    }
+    grid.sync();  // z complete
+    // (3) xp, the block scales, pre and the gates' slice moments
+    for (int ch = 0; ch < nb; ch += chunk) {
+      const int cr = nb - ch < chunk ? nb - ch : chunk;
+      const bool busy = warp < (cr + TR - 1) / TR;
+      stage_rows_ld(s_ex, ZS, wk.z + (size_t)(b0 + ch) * Z, cr, Z);
+      __syncthreads();  // this pass's rows of z in s_ex
+      if (busy) {
+        float xp[kHfRows][4], hp[kHfRows][4], sc[kHfRows][12];
+        const float* zrow[kHfRows];
+#pragma unroll
+        for (int rr = 0; rr < kHfRows; ++rr) {
+          const int lr = lr0 + rr * RL;
+          const int lrc = lr < cr ? lr : 0;
+          const int row = b0 + ch + lrc;
+          zrow[rr] = s_ex + (size_t)lrc * ZS;
+          const float* x = a.xs + ((size_t)t * B + row) * D;
+#pragma unroll
+          for (int g = 0; g < 4; ++g) xp[rr][g] = 0.0f;
+          for (int q = 0; q < D; ++q) {  // x @ wx, one in-order chain
+            const float xq = rnd<W>(x[q]);
+            const float4 w = quad(s_wx + ((size_t)q * U + u) * 4);
+            xp[rr][0] = fmaf(xq, w.x, xp[rr][0]);
+            xp[rr][1] = fmaf(xq, w.y, xp[rr][1]);
+            xp[rr][2] = fmaf(xq, w.z, xp[rr][2]);
+            xp[rr][3] = fmaf(xq, w.w, xp[rr][3]);
+          }
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            const size_t at = (size_t)row * G + g * H + j;
+            if (p.xb != nullptr) xp[rr][g] = __fadd_rn(xp[rr][g], p.xb[at]);
+            hp[rr][g] = __ldcg(wk.hp + at);
+          }
+#pragma unroll
+          for (int c = 0; c < 12; ++c) sc[rr][c] = 0.0f;
+        }
+        // s_p[g] = z_p[g e : g e + e] . zd_p[g][:, j], one in-order chain a
+        // (path, gate)
+        const float* zdu = s_zd + (size_t)u * ez;
+        if (E % 4 == 0) {
+          for (int q = 0; q < E; q += 4) {
+#pragma unroll
+            for (int c0 = 0; c0 < 12; c0 += 4) {  // one path's four gates
+              float4 w[4], z[kHfRows][4];
+#pragma unroll
+              for (int cc = 0; cc < 4; ++cc) {
+                w[cc] = quad(zdu + (size_t)(c0 + cc) * U * ez + q);
+#pragma unroll
+                for (int rr = 0; rr < kHfRows; ++rr)
+                  z[rr][cc] = quad(zrow[rr] + (c0 / 4) * E4 + cc * E + q);
+              }
+              // q's four values in order, each step 8 independent chains
+#pragma unroll
+              for (int cc = 0; cc < 4; ++cc)
+#pragma unroll
+                for (int rr = 0; rr < kHfRows; ++rr)
+                  sc[rr][c0 + cc] = fmaf(z[rr][cc].x, w[cc].x, sc[rr][c0 + cc]);
+#pragma unroll
+              for (int cc = 0; cc < 4; ++cc)
+#pragma unroll
+                for (int rr = 0; rr < kHfRows; ++rr)
+                  sc[rr][c0 + cc] = fmaf(z[rr][cc].y, w[cc].y, sc[rr][c0 + cc]);
+#pragma unroll
+              for (int cc = 0; cc < 4; ++cc)
+#pragma unroll
+                for (int rr = 0; rr < kHfRows; ++rr)
+                  sc[rr][c0 + cc] = fmaf(z[rr][cc].z, w[cc].z, sc[rr][c0 + cc]);
+#pragma unroll
+              for (int cc = 0; cc < 4; ++cc)
+#pragma unroll
+                for (int rr = 0; rr < kHfRows; ++rr)
+                  sc[rr][c0 + cc] = fmaf(z[rr][cc].w, w[cc].w, sc[rr][c0 + cc]);
+            }
+          }
+        } else {
+          for (int q = 0; q < E; ++q) {
+#pragma unroll
+            for (int c = 0; c < 12; ++c) {
+              const float w = zdu[(size_t)c * U * ez + q];
+              const int off = (c / 4) * E4 + (c % 4) * E + q;
+#pragma unroll
+              for (int rr = 0; rr < kHfRows; ++rr)
+                sc[rr][c] = fmaf(zrow[rr][off], w, sc[rr][c]);
+            }
+          }
+        }
+#pragma unroll
+        for (int rr = 0; rr < kHfRows; ++rr) {
+          const int lr = lr0 + rr * RL;
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+            pre[rr][g] = __fadd_rn(
+                __fadd_rn(__fadd_rn(__fmul_rn(sc[rr][g], xp[rr][g]),
+                                    __fmul_rn(sc[rr][4 + g], hp[rr][g])),
+                          sc[rr][8 + g]),
+                lnp[8 + g]);
+          float mean[4], m2[4];
+          hf_moments<U>(pre[rr], unit, fn, mean, m2);
+          if (lr >= cr) continue;
+          const int row = b0 + ch + lr;
+          if (u == 0) {
+            float4* dst = reinterpret_cast<float4*>(
+                wk.exg + ((size_t)row * slices + sl) * 8);
+            dst[0] = make_float4(mean[0], mean[1], mean[2], mean[3]);
+            dst[1] = make_float4(m2[0], m2[1], m2[2], m2[3]);
+          }
+          if (multi && unit) {
+#pragma unroll
+            for (int g = 0; g < 4; ++g)
+              stash[((size_t)g * B + row) * H + j] = pre[rr][g];
+          }
+        }
+      }
+      __syncthreads();  // s_ex read: next pass
+    }
+    grid.sync();  // the gates' slice moments complete
+    // (4) the gates' row statistics, the gate block, the cell's moments
+    for (int ch = 0; ch < nb; ch += chunk) {
+      const int cr = nb - ch < chunk ? nb - ch : chunk;
+      const bool busy = warp < (cr + TR - 1) / TR;
+      stage_ex<float4>(s_ex, wk.exg, (size_t)(b0 + ch) * slices * 8,
+                       cr * slices * 2);
+      __syncthreads();  // this pass's rows of the exchange in s_ex
+      if (busy) {
+        // lane u combines gate u % 4 of each of its rows; the unit group
+        // shares them
+        const float* ex[kHfRows];
+#pragma unroll
+        for (int rr = 0; rr < kHfRows; ++rr) {
+          const int lr = lr0 + rr * RL;
+          ex[rr] = s_ex + (size_t)(lr < cr ? lr : 0) * slices * 8 + (u & 3);
+        }
+        float gm[kHfRows], gr[kHfRows];
+        hf_chan(ex, 8, 4, s_n, slices, fh, gm, gr);
+#pragma unroll
+        for (int rr = 0; rr < kHfRows; ++rr) {
+          const int lr = lr0 + rr * RL;
+          const bool ok = lr < cr;
+          const int row = b0 + ch + (ok ? lr : 0);
+          float mean[4], rsg[4];
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            mean[g] = __shfl_sync(0xffffffffu, gm[rr], half | g);
+            rsg[g] = __shfl_sync(0xffffffffu, gr[rr], half | g);
+          }
+          if (multi && ok && unit) {
+#pragma unroll
+            for (int g = 0; g < 4; ++g)
+              pre[rr][g] = stash[((size_t)g * B + row) * H + j];
+          }
+          const float c = s_c[(size_t)(ch + (ok ? lr : 0)) * U + u];
+          const float m = dropout_mask(a.drop, seed, t, B, row, H, j);
+          float y[4];
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+            y[g] = (pre[rr][g] - mean[g]) * rsg[g] * lnp[g] + lnp[4 + g];
+          const float i = sigmoidf_(y[0]), gu = tanhf(y[1]);
+          const float f = sigmoidf_(y[2] + p.forget_bias);
+          keep_o[rr] = sigmoidf_(y[3]);
+          keep_c[rr] = c * f + i * (gu * m);
+          float cm[1], cq[1];
+          const float nc[1] = {keep_c[rr]};
+          hf_moments<U>(nc, unit, fn, cm, cq);
+          if (!ok) continue;
+          if (u == 0)
+            reinterpret_cast<float2*>(wk.exc)[(size_t)row * slices + sl] =
+                make_float2(cm[0], cq[0]);
+          if (multi && unit) {
+            stash[(size_t)row * H + j] = keep_c[rr];
+            stash[((size_t)B + row) * H + j] = keep_o[rr];
+          }
+        }
+      }
+      __syncthreads();  // s_ex read: next pass
+    }
+    grid.sync();  // the cell's slice moments complete
+    // (5) the cell norm, h and the stores
+    for (int ch = 0; ch < nb; ch += chunk) {
+      const int cr = nb - ch < chunk ? nb - ch : chunk;
+      const bool busy = warp < (cr + TR - 1) / TR;
+      stage_ex<float2>(s_ex, wk.exc, (size_t)(b0 + ch) * slices * 2,
+                       cr * slices);
+      __syncthreads();  // this pass's rows of the exchange in s_ex
+      if (busy) {
+        const float* ex[kHfRows];
+#pragma unroll
+        for (int rr = 0; rr < kHfRows; ++rr) {
+          const int lr = lr0 + rr * RL;
+          ex[rr] = s_ex + (size_t)(lr < cr ? lr : 0) * slices * 2;
+        }
+        float cmean[kHfRows], crs[kHfRows];
+        hf_chan(ex, 2, 1, s_n, slices, fh, cmean, crs);
+#pragma unroll
+        for (int rr = 0; rr < kHfRows; ++rr) {
+          const int lr = lr0 + rr * RL;
+          if (lr >= cr || !unit) continue;
+          const int row = b0 + ch + lr;
+          float nc = keep_c[rr], o = keep_o[rr];
+          if (multi) {
+            nc = stash[(size_t)row * H + j];
+            o = stash[((size_t)B + row) * H + j];
+          }
+          const float yc = (nc - cmean[rr]) * crs[rr] * lnp[12] + lnp[13];
+          const float nh = tanhf(yc) * o;
+          float* cp = s_c + (size_t)(ch + lr) * U + u;
+          const size_t at = ((size_t)t * B + row) * H + j;
+          a.cs[at] = from_f<R>(*cp);
+          a.hs[at] = from_f<R>(nh);
+          hout[(size_t)row * H + j] = from_f<W>(nh);
+          *cp = nc;
+          if (t == a.T - 1) {
+            a.cT[(size_t)row * H + j] = nc;
+            a.hT[(size_t)row * H + j] = nh;
+          }
+        }
+      }
+      __syncthreads();  // s_ex read: next pass
+    }
+    grid.sync();  // hx and h_t complete
+  }
+  if (a.T == 0) {  // no step: the final carries are the first
+    for (int q = tid; q < nb * U; q += kFwdThreads) {
+      if (q % U >= nu) continue;
+      const size_t at = (size_t)(b0 + q / U) * H + j0 + q % U;
+      a.cT[at] = a.c0[at];
+      a.hT[at] = a.h0[at];
+    }
+    for (int q = tid; q < enb * a4; q += kFwdThreads) {
+      if (q % a4 >= ena) continue;
+      const size_t at = (size_t)(eb0 + q / a4) * HH + ek0 + q % a4;
+      a.hcT[at] = a.hc0[at];
+      a.hhT[at] = a.hh0[at];
+    }
+  }
+}
+
+template <typename W, typename R>
+const void* hyper_fwd_fn(int units) {
+  return units == 16 ? (const void*)hyper_fwd_loop_kernel<W, R, 16>
+                     : (const void*)hyper_fwd_loop_kernel<W, R, 8>;
+}
+
+// The plan checked against the shape before any launch: an error, never a
+// fallback (cudaErrorInvalidValue where the plan does not hold the shape;
+// persist.cuh's checks where its blocks cannot co-reside).
+template <typename W, typename R>
+cudaError_t hyper_fwd_check(const HyperFwd<W, R>& a, const HyperFwdPlan& pl,
+                            Windows& win) {
+  const int H = a.p.H, HH = a.p.HH, B = a.B, U = pl.units, F = pl.split;
+  if (!((U == 16 && F == 2) || (U == 8 && F == 1)) || pl.slices < 1 ||
+      pl.slices > 64 || (H + pl.slices - 1) / pl.slices > U ||
+      (HH + pl.slices - 1) / pl.slices > U || pl.tiles < F ||
+      pl.tiles % F != 0 || pl.windows < 1 || pl.windows > B ||
+      pl.pchunk < 1 || pl.smem < 0)
+    return cudaErrorInvalidValue;
+  const int tr = 32 / U * kHfRows;
+  // float: a warp a products task (per of each 16 rows); bf16: at most
+  // two a warp, so the same bound holds both
+  const int per = 2 + 2 * (hf_aux4(HH, pl.slices, F) / kPUnits);
+  if (pl.chunk < tr || pl.chunk % tr != 0 || pl.chunk > kFwdWarps * tr ||
+      (pl.pchunk + kPTaskRows - 1) / kPTaskRows * per > kFwdWarps)
+    return cudaErrorInvalidValue;
+  win.n = pl.windows;
+  win.smem = (size_t)pl.smem;
+  int tiles0 = 0;
+  for (int i = 0; i < win.n; ++i) {  // every window's tiles, a multiple of F
+    const int nr = win.rows(i, B);
+    const int tiles = (nr < pl.tiles ? nr : pl.tiles) / F * F;
+    if (tiles < F) return cudaErrorInvalidValue;
+    if (tiles > tiles0) tiles0 = tiles;
+    if (hyper_fwd_smem_floats(U, F, pl.slices, (nr + tiles - 1) / tiles,
+                              a.p.D, H, HH, a.p.E, pl.pchunk, pl.chunk) *
+            sizeof(float) > win.smem)
+      return cudaErrorInvalidValue;
+  }
+  int sms = 0, smem_max = 0;
+  cudaError_t err = device_limits(sms, smem_max);
+  if (err == cudaSuccess)
+    err = ready_loop(hyper_fwd_fn<W, R>(U), kFwdThreads, win,
+                     pl.slices * tiles0, sms);
+  return err;
+}
+
+// srt_hyper_fwd: the plan checked, then one cooperative launch a window.
+template <typename W, typename R>
+cudaError_t launch_hyper_fwd(const HyperFwd<W, R>& a, W* hx, float* work,
+                             const HyperFwdPlan& pl, cudaStream_t stream) {
+  if (a.B < 1 || a.T < 0 || hx == nullptr || work == nullptr)
+    return cudaErrorInvalidValue;
+  Windows win;
+  cudaError_t err = hyper_fwd_check(a, pl, win);
+  const HyperFwdWork wk0 = hyper_fwd_work(work, a.B, a.p.H, a.p.E, pl.slices);
+  const void* fn = hyper_fwd_fn<W, R>(pl.units);
+  for (int i = 0; i < win.n && err == cudaSuccess; ++i) {
+    int r0 = win.first(i, a.B), nr = win.rows(i, a.B);
+    int slices = pl.slices, pchunk = pl.pchunk, chunk = pl.chunk;
+    int tiles = (nr < pl.tiles ? nr : pl.tiles) / pl.split * pl.split;
+    HyperFwd<W, R> args = a;
+    W* hxp = hx;
+    HyperFwdWork wk = wk0;
+    void* params[] = {&args,   &hxp,   &wk, &slices, &tiles,
+                      &pchunk, &chunk, &r0, &nr};
+    err = cudaLaunchCooperativeKernel(fn, dim3(slices * tiles),
+                                      dim3(kFwdThreads), params, win.smem,
+                                      stream);
+  }
+  return err;
+}
+
 template <typename W>
 HyperCell<W> make_hyper_cell(const void* wx, const float* b, const void* wh,
                              const void* wxh_x, const void* wxh_h,
@@ -1826,6 +2942,44 @@ HyperCell<W> make_hyper_cell(const void* wx, const float* b, const void* wh,
   return p;
 }
 
+
+// srt_hyper_fwd's and srt_hyper_fwd_rowblock's arguments as a HyperFwd
+template <typename W, typename R>
+HyperFwd<W, R> make_hyper_fwd(
+    const float* xs, const float* xb, const float* xbh, const void* wx,
+    const float* b, const void* wh, const void* wxh_x, const void* wxh_h,
+    const float* bh, const void* whh, const void* w_hz_x, const float* b_hz_x,
+    const void* w_hz_h, const float* b_hz_h, const void* w_hz_b,
+    const float* zd_x, const float* zd_h, const float* zd_b,
+    const float* ln_gamma, const float* ln_beta, const float* lnc_gamma,
+    const float* lnc_beta, const float* c0, const float* h0, const float* hc0,
+    const float* hh0, const float* masks, const int* seed, int T, int B,
+    int D, int H, int HH, int E, float keep, float inv_keep,
+    float forget_bias, void* hs, void* cs, void* hycs, void* hyhs, float* cT,
+    float* hT, float* hcT, float* hhT) {
+  HyperFwd<W, R> a;
+  a.p = make_hyper_cell<W>(wx, b, wh, wxh_x, wxh_h, bh, whh, w_hz_x, b_hz_x,
+                           w_hz_h, b_hz_h, w_hz_b, zd_x, zd_h, zd_b, ln_gamma,
+                           ln_beta, lnc_gamma, lnc_beta, xb, xbh, D, H, HH, E,
+                           forget_bias);
+  a.xs = xs;
+  a.c0 = c0;
+  a.h0 = h0;
+  a.hc0 = hc0;
+  a.hh0 = hh0;
+  a.drop = make_dropout(masks, seed, keep, inv_keep);
+  a.hs = static_cast<R*>(hs);
+  a.cs = static_cast<R*>(cs);
+  a.hycs = static_cast<R*>(hycs);
+  a.hyhs = static_cast<R*>(hyhs);
+  a.cT = cT;
+  a.hT = hT;
+  a.hcT = hcT;
+  a.hhT = hhT;
+  a.T = T;
+  a.B = B;
+  return a;
+}
 
 // The new design's entries (header, "Design of the backward"): the Bwd
 // view of the main cell and the HyperLSTM's own operands, the streams and
@@ -1922,6 +3076,13 @@ const char* srt_error_string(int err) {
 // and xbh are both null or both given; masks / seed may be null. Each
 // returns the cudaError_t of its launches (0 when all were accepted).
 
+// The forward (header, "Design of the forward"): the persistent loop on
+// the plan (units, split, slices, tiles, windows, pchunk, chunk, smem) of
+// cuda_fused.hyper_fwd_plan. Scratch: hx (2 B (H + HH) elements of the
+// weight type: the h and hh exchanges) and work (float32,
+// cuda_fused.hyper_fwd_work_floats), any contents. A plan that does not
+// hold the shape is cudaErrorInvalidValue, blocks that cannot co-reside
+// cudaErrorCooperativeLaunchTooLarge: never another design.
 int srt_hyper_fwd(const float* xs, const float* xb, const float* xbh,
                   const void* wx, const float* b, const void* wh,
                   const void* wxh_x, const void* wxh_h, const float* bh,
@@ -1934,33 +3095,51 @@ int srt_hyper_fwd(const float* xs, const float* xb, const float* xbh,
                   const float* hh0, const float* masks, const int* seed,
                   int T, int B, int D, int H, int HH, int E, int w_bf16,
                   int r_bf16, float keep, float inv_keep, float forget_bias,
+                  int units, int split, int slices, int tiles, int windows,
+                  int pchunk, int chunk, int smem, void* hx, float* work,
                   void* hs, void* cs, void* hycs, void* hyhs, float* cT,
                   float* hT, float* hcT, float* hhT, void* stream) {
+  const HyperFwdPlan pl = {units, split, slices, tiles,
+                           windows, pchunk, chunk, smem};
+  return (int)with_types(w_bf16, r_bf16, [&](auto w, auto r) -> cudaError_t {
+    using W = decltype(w);
+    using R = decltype(r);
+    if (!hyper_sizes_ok(D, H, HH, E) || (xb == nullptr) != (xbh == nullptr))
+      return cudaErrorInvalidValue;
+    const HyperFwd<W, R> a = make_hyper_fwd<W, R>(
+        xs, xb, xbh, wx, b, wh, wxh_x, wxh_h, bh, whh, w_hz_x, b_hz_x, w_hz_h,
+        b_hz_h, w_hz_b, zd_x, zd_h, zd_b, ln_gamma, ln_beta, lnc_gamma,
+        lnc_beta, c0, h0, hc0, hh0, masks, seed, T, B, D, H, HH, E, keep,
+        inv_keep, forget_bias, hs, cs, hycs, hyhs, cT, hT, hcT, hhT);
+    return launch_hyper_fwd(a, static_cast<W*>(hx), work, pl,
+                            (cudaStream_t)stream);
+  });
+}
+
+// The row-block design srt_hyper_fwd replaced (hyper_fwd_kernel, one block
+// per batch row), kept to hold and time the new design beside it: the
+// arguments of srt_hyper_fwd without the plan and the scratch.
+int srt_hyper_fwd_rowblock(
+    const float* xs, const float* xb, const float* xbh, const void* wx,
+    const float* b, const void* wh, const void* wxh_x, const void* wxh_h,
+    const float* bh, const void* whh, const void* w_hz_x, const float* b_hz_x,
+    const void* w_hz_h, const float* b_hz_h, const void* w_hz_b,
+    const float* zd_x, const float* zd_h, const float* zd_b,
+    const float* ln_gamma, const float* ln_beta, const float* lnc_gamma,
+    const float* lnc_beta, const float* c0, const float* h0, const float* hc0,
+    const float* hh0, const float* masks, const int* seed, int T, int B,
+    int D, int H, int HH, int E, int w_bf16, int r_bf16, float keep,
+    float inv_keep, float forget_bias, void* hs, void* cs, void* hycs,
+    void* hyhs, float* cT, float* hT, float* hcT, float* hhT, void* stream) {
   return (int)with_types(w_bf16, r_bf16, [&](auto w, auto r) -> cudaError_t {
     using W = decltype(w);
     using R = decltype(r);
     if (!hyper_sizes_ok(D, H, HH, E)) return cudaErrorInvalidValue;
-    HyperFwd<W, R> a;
-    a.p = make_hyper_cell<W>(wx, b, wh, wxh_x, wxh_h, bh, whh, w_hz_x, b_hz_x,
-                             w_hz_h, b_hz_h, w_hz_b, zd_x, zd_h, zd_b,
-                             ln_gamma, ln_beta, lnc_gamma, lnc_beta, xb, xbh,
-                             D, H, HH, E, forget_bias);
-    a.xs = xs;
-    a.c0 = c0;
-    a.h0 = h0;
-    a.hc0 = hc0;
-    a.hh0 = hh0;
-    a.drop = make_dropout(masks, seed, keep, inv_keep);
-    a.hs = static_cast<R*>(hs);
-    a.cs = static_cast<R*>(cs);
-    a.hycs = static_cast<R*>(hycs);
-    a.hyhs = static_cast<R*>(hyhs);
-    a.cT = cT;
-    a.hT = hT;
-    a.hcT = hcT;
-    a.hhT = hhT;
-    a.T = T;
-    a.B = B;
+    const HyperFwd<W, R> a = make_hyper_fwd<W, R>(
+        xs, xb, xbh, wx, b, wh, wxh_x, wxh_h, bh, whh, w_hz_x, b_hz_x, w_hz_h,
+        b_hz_h, w_hz_b, zd_x, zd_h, zd_b, ln_gamma, ln_beta, lnc_gamma,
+        lnc_beta, c0, h0, hc0, hh0, masks, seed, T, B, D, H, HH, E, keep,
+        inv_keep, forget_bias, hs, cs, hycs, hyhs, cT, hT, hcT, hhT);
     const size_t smem = (size_t)step_smem_floats(D, H, HH, E) * sizeof(float);
     cudaError_t err = set_smem((const void*)hyper_fwd_kernel<W, R>, smem);
     if (err != cudaSuccess) return err;

@@ -97,7 +97,9 @@ SIGNATURES = {
         + [_P] * 9 + _WG + [_P],
     },
     "fused_hyper": {
-        "srt_hyper_fwd": [_P] * 28 + [_I] * 8 + [_F] * 3 + [_P] * 9,
+        "srt_hyper_fwd": [_P] * 28 + [_I] * 8 + [_F] * 3 + [_I] * 8
+        + [_P] * 11,
+        "srt_hyper_fwd_rowblock": [_P] * 28 + [_I] * 8 + [_F] * 3 + [_P] * 9,
         "srt_hyper_bwd": _HB,
         "srt_hyper_bwd_stage": [_I] + _HB,
         "srt_hyper_bwd_rowblock": [_P] * 35 + [_I] * 8 + [_F] * 3

@@ -1381,20 +1381,161 @@ def _weight_ptrs(w: HyperWeights):
     return [getattr(w, n).data_ptr() for n in HyperWeights._fields]
 
 
-def hyper_lstm_fwd(xs, w: HyperWeights, c0, h0, hc0, hh0, forget_bias=1.0,
-                   masks=None, dropout_seed=None, keep_prob=1.0,
-                   x_bias=None, x_bias_hyper=None, residual_dtype=None):
-    """Forward of :func:`fused_hyper_lstm`: ``(hs, cs, hycs, hyhs, cT, hT,
-    hcT, hhT)`` (kernel ``srt_hyper_fwd``)."""
-    if xs.device.type == "cpu":
-        return hyper_lstm_fwd_reference(
-            xs, w, c0, h0, hc0, hh0, forget_bias, masks, dropout_seed,
-            keep_prob, x_bias, x_bias_hyper, residual_dtype)
+# The HyperLSTM forward (``csrc/fused_hyper.cu``, "Design of the
+# forward"): one persistent cooperative loop over slices of units x batch
+# tiles, five grid barriers a step. Its plan, like the backward's, depends
+# on the shape alone (an H100's SMs and shared memory), never on the card.
+
+HYPER_SMS = 132              # an H100's SMs: at most one block on each
+HYPER_SMEM_MAX = 232_448     # an H100 block's opt-in shared memory, bytes
+HYPER_THREADS = 256          # a loop's threads a block (kLoopThreads)
+# (units a LayerNorm slice, split of the products), first fits: a product
+# group holds units // split = 8 main units (and at most 8 auxiliary ones)
+HYPER_FWD_LAYOUTS = ((16, 2), (8, 1))
+HYPER_FWD_MIN_PASS = 16      # the fewest rows a products pass takes
+HYPER_FWD_LN_ROWS = 2        # LayerNorm phases: rows a lane and row lane
+
+
+class HyperFwdPlan(NamedTuple):
+    """The forward loop's plan: ``slices`` slices of at most ``units`` main
+    units for the LayerNorm phases (the auxiliary units in as many slices),
+    at most ``tiles`` batch tiles in each of ``windows`` windows of rows
+    (as the other persistent loops cut them); the products on groups of
+    ``units // split`` main units (and their share of the auxiliary ones)
+    for the rows of ``split`` tiles, ``pchunk`` rows a pass; the LayerNorm
+    phases ``chunk`` rows a pass; ``smem`` bytes of shared memory a
+    block."""
+    units: int
+    split: int
+    slices: int
+    tiles: int
+    windows: int
+    pchunk: int
+    chunk: int
+    smem: int
+
+
+def _hf_aux4(hh, slices, split):
+    """A product group's auxiliary units, rounded up to a multiple of 4."""
+    n = -(-hh // (slices * split))
+    return -(-n // 4) * 4
+
+
+def _hf_col(k):
+    """A resident weight column's floats (``hf_col``): ``k`` rounded up to
+    8, and 4 more."""
+    return -(-k // 8) * 8 + 4
+
+
+def _row_stride(n):
+    """A staged row's floats (``fwd_row_stride<float>``)."""
+    return -(-n // 8) * 8 + 4
+
+
+def hyper_fwd_smem(units, split, slices, nb, d, h, hh, e, pchunk,
+                   chunk) -> int:
+    """A forward block's shared memory for LayerNorm tiles of ``nb`` rows
+    (``fused_hyper.cu`` ``hyper_fwd_smem_floats``, the same sum): the
+    resident columns of its product group (``wh`` of 8 main units,
+    ``wxh_h`` and ``whh`` of its auxiliary units at ``_hf_col``'s stride;
+    ``wxh_x`` and ``bh``) and of its LayerNorm slice (``wx``, the ``zd``
+    columns at stride ``e`` rounded up to 4, plus 4), the slices' unit
+    counts, its units' LayerNorm parameters and bias (16 floats each), the
+    main and auxiliary cell carries, a products pass's auxiliary sums, and
+    a buffer for the most of a products pass's ``h`` and ``hh`` rows, a
+    LayerNorm pass's rows of ``z`` (stride ``12e + 4``) or of the gate
+    exchange, the ``w_hz`` columns of the slice's share of ``z`` with one
+    ``hh`` row (padded by 16 bytes)."""
+    a4 = _hf_aux4(hh, slices, split)
+    ez = -(-e // 4) * 4 + 4
+    zc = 8 if 12 * e % 8 == 0 else 4            # z's share: whole chunks
+    zm = -(-(12 * e // zc) // slices) * zc
+    buf = max(pchunk * (_row_stride(h) + _row_stride(hh)),
+              chunk * max(12 * e + 4, 8 * slices), hh * (zm + 1) + 4)
+    floats = ((32 + 4 * a4) * _hf_col(h) + a4 * 4 * (_hf_col(hh) + d + 1)
+              + 4 * units * d + 12 * units * ez + 64 + 16 * units
+              + nb * units + split * nb * a4 + 2 * pchunk * a4 * 4 + buf)
+    return 4 * floats
+
+
+def hyper_fwd_plan(b, d, h, hh, e, dtype=torch.float32, sms=HYPER_SMS,
+                   smem_max=HYPER_SMEM_MAX) -> HyperFwdPlan:
+    """The plan of the HyperLSTM forward's loop for ``B`` rows of ``D``
+    inputs, ``H`` main and ``HH`` auxiliary units and embeddings ``e``:
+    the first of ``HYPER_FWD_LAYOUTS`` and the fewest windows of rows
+    whose blocks fit in ``smem_max`` bytes, with ``ceil(max(H, HH) /
+    units)`` slices and as many batch tiles as fill the ``sms`` SMs once
+    (a multiple of the split). The products take the fewest passes of
+    rows that fit, evenly filled, at most as many rows as give every warp
+    one task of 16 rows at float (main, auxiliary over h and over hh for
+    each 16 rows: two m-tiles at bf16), and not fewer than
+    ``HYPER_FWD_MIN_PASS`` where the rows allow; a LayerNorm pass the
+    tile's rows, at most one task a warp. The weights sit in shared memory
+    as float at either ``dtype``, so the plan is the same at both. Raises
+    ``ValueError`` for a shape it cannot hold."""
+    if dtype not in WEIGHT_DTYPES:
+        raise TypeError(f"weight dtype {dtype}: the HyperLSTM forward takes "
+                        f"{WEIGHT_DTYPES}")
+    if (b < 1 or d < 1 or e < 1
+            or not (0 < h <= MAX_HIDDEN and 0 < hh <= MAX_HIDDEN)):
+        raise ValueError(f"HyperLSTM forward: B={b}, D={d}, H={h}, HH={hh}, "
+                         f"e={e}")
+    warps = HYPER_THREADS // 32
+    for units, split in HYPER_FWD_LAYOUTS:
+        slices = -(-max(h, hh) // units)
+        fill = sms // slices // split * split
+        if fill < split:
+            continue
+        per = 2 + 2 * (_hf_aux4(hh, slices, split) // 4)
+        cap = 16 * (warps // per)
+        tr = 32 // units * HYPER_FWD_LN_ROWS
+        for windows in range(1, b + 1):
+            lo, hi = b // windows, -(-b // windows)
+            if lo < split:
+                break
+            tiles = min(hi, fill) // split * split
+            nb = max(-(-r // (min(r, fill) // split * split))
+                     for r in {lo, hi})
+            enb = split * nb
+            chunk = min(-(-nb // tr) * tr, warps * tr)
+            for passes in range(-(-enb // cap), enb + 1):
+                pchunk = -(-enb // passes)
+                if pchunk < min(enb, HYPER_FWD_MIN_PASS):
+                    break
+                smem = hyper_fwd_smem(units, split, slices, nb, d, h, hh, e,
+                                      pchunk, chunk)
+                if smem <= smem_max:
+                    return HyperFwdPlan(units, split, slices, tiles, windows,
+                                        pchunk, chunk, smem)
+    raise ValueError(f"HyperLSTM forward: B={b}, H={h}, HH={hh}, e={e} does "
+                     f"not fit in {smem_max} bytes of shared memory")
+
+
+def hyper_fwd_work_floats(b, h, e, slices) -> int:
+    """Floats of the forward's work scratch (``fused_hyper.cu``
+    ``HyperFwdWork``): ``z [B, 12e]``, the layer norms' slice partials
+    ``[B, slices, 8 + 2]``, the ``hp = h @ wh`` exchange ``[B, 4H]`` and
+    the stash ``[4, B, H]``."""
+    return b * (12 * e + 10 * slices + 8 * h)
+
+
+def _hyper_fwd_args(xs, w: HyperWeights, c0, h0, hc0, hh0, forget_bias,
+                    masks, seed, keep_prob, x_bias, x_bias_hyper,
+                    residual_dtype):
+    """Check the HyperLSTM forward's inputs and allocate its outputs and
+    scratch: ``(args, rowblock, outs, scratch)``, the arguments of
+    ``srt_hyper_fwd`` and of ``srt_hyper_fwd_rowblock``, ``(hs, cs, hycs,
+    hyhs, cT, hT, hcT, hhT)`` and the scratch tensors (the ``h`` and ``hh``
+    exchanges ``[2, B, H + HH]`` of the weight dtype, the float32 work),
+    which the caller keeps alive while the launches use them (the
+    arguments hold only addresses). Raises where :func:`hyper_fwd_plan`
+    cannot hold the shape."""
     dev, t, b, d, h, hh, e, wb = _hyper_common(
-        xs, w, x_bias, x_bias_hyper, masks, dropout_seed,
+        xs, w, x_bias, x_bias_hyper, masks, seed,
         (("c0", c0, "h"), ("h0", h0, "h"), ("hc0", hc0, "hh"),
          ("hh0", hh0, "hh")))
     rd = _residual(residual_dtype)
+    plan = hyper_fwd_plan(b, d, h, hh, e, w.wx.dtype)
     f32 = torch.float32
     hs = torch.empty((t, b, h), dtype=rd, device=dev)
     cs = torch.empty_like(hs)
@@ -1404,16 +1545,66 @@ def hyper_lstm_fwd(xs, w: HyperWeights, c0, h0, hc0, hh0, forget_bias=1.0,
     hT = torch.empty_like(cT)
     hcT = torch.empty((b, hh), dtype=f32, device=dev)
     hhT = torch.empty_like(hcT)
+    xch = torch.empty((2, b, h + hh), dtype=w.wx.dtype, device=dev)
+    work = torch.empty((hyper_fwd_work_floats(b, h, e, plan.slices),),
+                       dtype=f32, device=dev)
+    inputs = (xs.data_ptr(), _ptr(x_bias), _ptr(x_bias_hyper),
+              *_weight_ptrs(w), c0.data_ptr(), h0.data_ptr(), hc0.data_ptr(),
+              hh0.data_ptr(), _ptr(masks), _ptr(seed), t, b, d, h, hh, e, wb,
+              int(rd == torch.bfloat16), *_keep_args(keep_prob),
+              float(forget_bias))
+    outs = (hs, cs, hycs, hyhs, cT, hT, hcT, hhT)
+    outputs = (*(o.data_ptr() for o in outs), _stream(dev))
+    args = (*inputs, *plan, xch.data_ptr(), work.data_ptr(), *outputs)
+    return args, (*inputs, *outputs), outs, (xch, work)
+
+
+def hyper_lstm_fwd(xs, w: HyperWeights, c0, h0, hc0, hh0, forget_bias=1.0,
+                   masks=None, dropout_seed=None, keep_prob=1.0,
+                   x_bias=None, x_bias_hyper=None, residual_dtype=None):
+    """Forward of :func:`fused_hyper_lstm`: ``(hs, cs, hycs, hyhs, cT, hT,
+    hcT, hhT)`` (kernel ``srt_hyper_fwd``, the cooperative loop on
+    :func:`hyper_fwd_plan`). A shape the plan cannot hold raises."""
+    if xs.device.type == "cpu":
+        return hyper_lstm_fwd_reference(
+            xs, w, c0, h0, hc0, hh0, forget_bias, masks, dropout_seed,
+            keep_prob, x_bias, x_bias_hyper, residual_dtype)
+    args, _, outs, _scratch = _hyper_fwd_args(
+        xs, w, c0, h0, hc0, hh0, forget_bias, masks, dropout_seed, keep_prob,
+        x_bias, x_bias_hyper, residual_dtype)
     _launch("srt_hyper_fwd", "fused_hyper_lstm forward",
-            "fused_hyper_lstm_fwd", xs.data_ptr(), _ptr(x_bias),
-            _ptr(x_bias_hyper), *_weight_ptrs(w), c0.data_ptr(),
-            h0.data_ptr(), hc0.data_ptr(), hh0.data_ptr(), _ptr(masks),
-            _ptr(dropout_seed), t, b, d, h, hh, e, wb,
-            int(rd == torch.bfloat16), *_keep_args(keep_prob),
-            float(forget_bias), hs.data_ptr(), cs.data_ptr(),
-            hycs.data_ptr(), hyhs.data_ptr(), cT.data_ptr(), hT.data_ptr(),
-            hcT.data_ptr(), hhT.data_ptr(), _stream(dev), lib="fused_hyper")
-    return hs, cs, hycs, hyhs, cT, hT, hcT, hhT
+            "fused_hyper_lstm_fwd", *args, lib="fused_hyper")
+    return outs
+
+
+def hyper_lstm_fwd_entries(xs, w: HyperWeights, c0, h0, hc0, hh0,
+                           forget_bias=1.0, masks=None, dropout_seed=None,
+                           keep_prob=1.0, x_bias=None, x_bias_hyper=None,
+                           residual_dtype=None):
+    """The C entries behind :func:`hyper_lstm_fwd` on CUDA tensors, for the
+    A/B of the forward's two designs; no wrapper calls it, and it counts
+    no launch. Returns ``(run, outs)``: ``run(entry)`` launches
+    ``"srt_hyper_fwd"`` (the cooperative loop) or
+    ``"srt_hyper_fwd_rowblock"`` (the row-block design it replaced) on one
+    set of buffers, and keeps the inputs alive (the entries take raw
+    addresses); ``outs`` are :func:`hyper_lstm_fwd`'s outputs as the last
+    launch left them."""
+    from sketch_rnn_tpu_torch.ops import _build
+
+    _entries_on_cuda("hyper_lstm_fwd_entries", xs)
+    args, rowblock, outs, scratch = _hyper_fwd_args(
+        xs, w, c0, h0, hc0, hh0, forget_bias, masks, dropout_seed, keep_prob,
+        x_bias, x_bias_hyper, residual_dtype)
+    lib = _build.load("fused_hyper")
+    held = (scratch, xs, w, c0, h0, hc0, hh0, masks, dropout_seed, x_bias,
+            x_bias_hyper)
+
+    def run(entry, _held=held):     # holds the scratch and the inputs
+        _build.check(lib, getattr(lib, entry)(
+            *(rowblock if entry == "srt_hyper_fwd_rowblock" else args)),
+            entry)
+
+    return run, outs
 
 
 # The HyperLSTM backward (``csrc/fused_hyper.cu``, "Design of the
@@ -1425,9 +1616,6 @@ def hyper_lstm_fwd(xs, w: HyperWeights, c0, h0, hc0, hh0, forget_bias=1.0,
 # the same on any card that can hold it.
 
 HYPER_LAYOUTS = ((16, 1), (16, 2), (8, 1))   # (units, split), first fits
-HYPER_SMS = 132              # an H100's SMs: at most one block on each
-HYPER_SMEM_MAX = 232_448     # an H100 block's opt-in shared memory, bytes
-HYPER_THREADS = 256          # the loop's threads a block (kLoopThreads)
 
 
 class HyperBwdPlan(NamedTuple):

@@ -899,6 +899,101 @@ def test_hyper_bwd_matches_row_block_design(dev, h, hh, e, bsz, wdt, rdt,
                 1.0, float(o.abs().max()))
 
 
+@pytest.mark.parametrize("h,hh,e,bsz,wdt,rdt,biases,mode", [
+    (16, 32, 8, FB, F32, F32, True, "seed"),
+    (16, 32, 8, 100, BF16, BF16, False, "masks"),
+    (40, 8, 4, FB, F32, F32, False, "none"),
+    (40, 8, 4, 100, BF16, F32, True, "seed"),
+    (24, 24, 3, FB, F32, BF16, True, "masks"),
+    (24, 24, 3, 1, F32, F32, True, "seed"),
+    (18, 10, 3, FB, F32, F32, True, "seed"),     # k in part-filled quads
+    # a tile's rows take several passes of the LayerNorm phases (their
+    # pre-activations through the stash), at the preset's widths also of
+    # the products
+    (40, 8, 4, 2000, F32, F32, True, "seed"),
+    (512, 256, 32, 520, F32, F32, True, "seed")])
+def test_hyper_fwd_matches_row_block_design(dev, h, hh, e, bsz, wdt, rdt,
+                                            biases, mode):
+    """srt_hyper_fwd (the cooperative loop) against the row-block design
+    it replaced, srt_hyper_fwd_rowblock, and against the plain version on
+    the same inputs, within chip_smoke.py's FUSED_TOL (1e-4 at float32: at
+    H=512 the layer norms' sums over 512 units in another order than the
+    row-block's differ by 1.2e-5 after 7 steps; 1e-2 at bfloat16); two runs
+    of the new entry bitwise equal; no launch counted. H=16 under HH=32,
+    H=40 over HH=8, e=3 (12e not a multiple of 8), one row (slices of 8
+    units, no split)."""
+    from sketch_rnn_tpu_torch.ops import cuda_fused as cf
+
+    w, _, masks, seed = _hyper_inputs(h, hh, e, dev, biases, mode, wdt)
+    g = torch.Generator().manual_seed(7)
+    r = lambda *s, sc=0.3: (sc * torch.randn(s, generator=g)).to(dev)
+    xs = r(FT, bsz, FD, sc=1.0)
+    if masks is not None:
+        masks = ((torch.rand((FT, bsz, h), generator=g) < 0.9).float()
+                 / 0.9).to(dev)
+    keep = 0.9 if seed is not None else 1.0
+    xb = (r(bsz, 4 * h), r(bsz, 4 * hh)) if biases else (None, None)
+    args = dict(xs=xs, w=w, c0=r(bsz, h), h0=r(bsz, h), hc0=r(bsz, hh),
+                hh0=r(bsz, hh), forget_bias=1.0, masks=masks,
+                dropout_seed=seed, keep_prob=keep, x_bias=xb[0],
+                x_bias_hyper=xb[1], residual_dtype=rdt)
+    if bsz >= 520:
+        assert _ln_passes(cf.hyper_fwd_plan(bsz, FD, h, hh, e, wdt), bsz) > 1
+    before = cf.launch_counts()
+    run, outs = cf.hyper_lstm_fwd_entries(**args)
+    snap = lambda: [o.clone() for o in outs]
+    run("srt_hyper_fwd")
+    first = snap()
+    run("srt_hyper_fwd")
+    second = snap()
+    run("srt_hyper_fwd_rowblock")
+    old = snap()
+    torch.cuda.synchronize()
+    assert cf.launch_counts() == before
+    want = cf.hyper_lstm_fwd_reference(**args)
+    tol = 1e-4 if wdt == F32 and rdt in (None, F32) else BF_TOL
+    for a, b, c, ref in zip(first, second, old, want):
+        assert a.dtype == c.dtype == ref.dtype
+        assert torch.equal(a, b)
+        for o in (c, ref):
+            a32, o32 = a.float(), o.float()
+            assert float((a32 - o32).abs().max()) <= tol * max(
+                1.0, float(o32.abs().max()))
+
+
+def _ln_passes(plan, bsz):
+    """How many passes a LayerNorm tile's rows take under ``plan``."""
+    rows = -(-bsz // plan.windows)
+    nb = -(-rows // min(rows, plan.tiles))
+    return -(-nb // plan.chunk)
+
+
+def test_hyper_fwd_refuses_a_plan_it_cannot_run(dev, monkeypatch):
+    """A plan whose blocks cannot co-reside (more blocks than the SMs
+    hold), one whose shared memory does not hold its tiles, one whose
+    slices do not cover the units and one whose LayerNorm pass is not
+    whole warp tasks are refused before any launch: the call raises,
+    nothing runs in its place, no launch is counted."""
+    from sketch_rnn_tpu_torch.ops import cuda_fused as cf
+
+    w, d, _, seed = _hyper_inputs(16, 32, 8, dev, True, "seed")
+    args = (d["xs"], w, d["c0"], d["h0"], d["hc0"], d["hh0"], 1.0, None,
+            seed, 0.9, d["x_bias"], d["x_bias_hyper"])
+    good = cf.hyper_fwd_plan(FB, FD, 16, 32, 8)
+    before = cf.launch_counts()
+    many = 64           # 64 slices x 4 tiles: more blocks than SMs
+    for bad in (good._replace(slices=many, smem=cf.hyper_fwd_smem(
+                    good.units, good.split, many, 2, FD, 16, 32, 8,
+                    good.pchunk, good.chunk)),
+                good._replace(smem=good.smem // 4),
+                good._replace(slices=1),
+                good._replace(chunk=3)):
+        monkeypatch.setattr(cf, "hyper_fwd_plan", lambda *a, p=bad: p)
+        with pytest.raises(RuntimeError, match="fused_hyper_lstm forward"):
+            cf.hyper_lstm_fwd(*args)
+    assert cf.launch_counts() == before
+
+
 def test_hyper_bwd_refuses_a_plan_it_cannot_run(dev, monkeypatch):
     """A plan whose blocks cannot co-reside (more blocks than the SMs
     hold), one whose shared memory does not hold its tiles and one whose

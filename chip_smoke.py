@@ -17,8 +17,23 @@ without the final line. With no CUDA device it exits 2 at once.
    with times (CUDA events) beside the card's bound for the same work:
    - the serving kernels at the serving shapes of the full-width model
      (B=64 slots, K=8 steps, H=512, M=20, Nz=128; replay at E=64), at
-     compute_dtype float32 and bfloat16: errors, exact agreement of
-     t/done/pen away from CDF near-ties;
+     compute_dtype float32 and bfloat16, both cells: errors, exact
+     agreement of t/done/pen away from CDF near-ties; for replay of the
+     lstm cell beside cuDNN's LSTM over ``[x; z]`` packed at seq_len
+     (``pack_padded_sequence``), its carry held to the plain replay;
+   - decode_chunk_ab / replay_chunk_ab: ``srt_decode_chunk`` and
+     ``srt_replay_chunk`` (the persistent cooperative loop, four / three
+     grid barriers a step for the layer_norm cell, two / one for lstm)
+     against the row-block design they replaced
+     (``srt_*_chunk_rowblock``) on the same inputs: t, done and pens exact
+     away from near-ties, offsets and carries within SERVE_TOL of the
+     row-block entry's and of the plain version's, identical run to run,
+     both timed in turns (new, old, old, new; medians); for the lstm cell
+     whether one step's carry is bit for bit the row-block design's;
+     replay also at E=250 (the terminal prefix edge); then decode_profile:
+     cycles per phase of a decode step from an instrumented build
+     (``sketch_rnn_tpu_torch/scripts/profile_decode.py``), both cells and
+     dtypes;
    - the training kernels at the training shapes (B=100, T=250, dropout
      seeded at keep 0.9): ``fused_lstm_seq`` (encoder H=256) and
      ``fused_ln_lstm`` (decoder H=512 with its x_bias) of the flagship
@@ -213,6 +228,7 @@ DTYPES = ("float32", "bfloat16")
 DEV = "cuda"
 
 B, K, E = 64, 8, 64
+E_LONG = 250       # the terminal prefix edge: a long prefix's replay
 # serving kernels vs their plain versions on the card. float32: both sum
 # 512-term dot products, in different orders, so they round differently
 # (~1e-7 relative per step), and the gaps compound through the recurrence
@@ -228,6 +244,10 @@ SERVE_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # a draw whose uniform is this close to a CDF edge may flip under
 # rounding; such rows are counted, not held
 NEAR_TIE = {"float32": 1e-5, "bfloat16": 1e-3}
+# cuDNN's packed LSTM (a yardstick) vs the plain replay's carry: float32
+# sums in another order; at bfloat16 cuDNN also rounds its activations and
+# its carry to bfloat16, which the port's contract keeps in float
+LIBRARY_TOL = {"float32": 1e-4, "bfloat16": 1e-1}
 
 
 def log(phase, **kw):
@@ -309,8 +329,9 @@ def serving_weights(model, params):
             params["out_w"].to(cd.weight_dtype(cdt)))
 
 
-def check_decode(cell, dt):
-    """decode_chunk vs its plain version at the serving shapes."""
+def decode_inputs(cell, dt):
+    """decode_chunk's arguments at the serving shapes: ``(hps, args, kw,
+    t0)``."""
     import torch
 
     from sketch_rnn_tpu_torch.ops import cuda_decode as cd
@@ -343,28 +364,50 @@ def check_decode(cell, dt):
             done0, caps, end)
     kw = dict(cell_kind=cell, num_mixture=hps.num_mixture,
               compute_dtype=model.dec.compute_dtype)
+    return hps, args, kw, t0
+
+
+def hold_decode(what, got, want, near, dt):
+    """t, done and pen states exact away from CDF near-ties (``near``),
+    offsets and carries within SERVE_TOL; returns ``(offset err, carry
+    err)``."""
+    import torch
+
+    keep = ~near
     tol = SERVE_TOL[dt]
+    s_k, s_p = got[0].cpu()[:, keep], want[0].cpu()[:, keep]
+    for name, a, b in (("t", got[3], want[3]), ("done", got[4], want[4])):
+        a, b = a.cpu()[keep], b.cpu()[keep]
+        if name == "done":      # the entries' int32, the wrapper's bool
+            a, b = a != 0, b != 0
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: {name} differs")
+    if not torch.equal(s_k[..., 2:], s_p[..., 2:]):
+        raise AssertionError(f"{what}: pen states differ")
+    off_err = float((s_k[..., :2] - s_p[..., :2]).abs().max())
+    carry_err = max(float((a.cpu()[keep] - b.cpu()[keep]).abs().max())
+                    for a, b in ((got[1], want[1]), (got[2], want[2])))
+    if not (off_err <= tol and carry_err <= tol):
+        raise AssertionError(f"{what}: offsets err {off_err}, carry err "
+                             f"{carry_err} (tol {tol})")
+    return off_err, carry_err
+
+
+def check_decode(cell, dt, inp):
+    """decode_chunk vs its plain version at the serving shapes."""
+    import torch
+
+    from sketch_rnn_tpu_torch.ops import cuda_decode as cd
+
+    hps, args, kw, t0 = inp
+    dec, out_w = args[0], args[1]
     got = cd.decode_chunk(*args, **kw)
     torch.cuda.synchronize()
     *want, margin = cd.decode_chunk_reference(*args, **kw,
                                               return_margin=True)
     near = (margin < NEAR_TIE[dt]).cpu()
-    keep = ~near
-    s_k, s_p = got[0].cpu()[:, keep], want[0].cpu()[:, keep]
-    for name, a, b in (("t", got[3], want[3]), ("done", got[4], want[4])):
-        if not torch.equal(a.cpu()[keep], b.cpu()[keep]):
-            raise AssertionError(f"decode_chunk[{cell}, {dt}]: {name} "
-                                 f"differs from the plain version")
-    if not torch.equal(s_k[..., 2:], s_p[..., 2:]):
-        raise AssertionError(f"decode_chunk[{cell}, {dt}]: pen states "
-                             f"differ")
-    off_err = float((s_k[..., :2] - s_p[..., :2]).abs().max())
-    carry_err = max(float((a.cpu()[keep] - b.cpu()[keep]).abs().max())
-                    for a, b in ((got[1], want[1]), (got[2], want[2])))
-    if not (off_err <= tol and carry_err <= tol):
-        raise AssertionError(
-            f"decode_chunk[{cell}, {dt}]: offsets err {off_err}, carry err "
-            f"{carry_err} (tol {tol})")
+    off_err, carry_err = hold_decode(f"decode_chunk[{cell}, {dt}]", got,
+                                     want, near, dt)
     ms = cuda_ms(lambda: cd.decode_chunk(*args, **kw), 50)
     plain_ms = cuda_ms(lambda: cd.decode_chunk_reference(*args, **kw), 5)
     # the work this run's data needs: the live row-steps' products
@@ -373,24 +416,85 @@ def check_decode(cell, dt):
     flops = 2 * live * (5 * 4 * h + h * 4 * h + h * p)
     ws = out_w.element_size()
     moved = (nbytes(*(dec[k] for k in dec if k != "wx"), out_w,
-                    params["out_b"], c0, h0, prev0, u, temps, t0, done0,
-                    caps, end, *got)
+                    *args[2:6], *args[7:], *got)
              + 5 * 4 * h * ws + B * 4 * h * 4)  # wx[:5], extra @ wx[5:]
     bms, by = bound_ms(flops, moved, dt)
     log("kernel", name="decode_chunk", cell=cell, dtype=dt, B=B, K=K, H=h,
         M=hps.num_mixture, near_tie_rows=int(near.sum()),
-        offset_err=off_err, carry_err=carry_err, tol=tol, ms=ms,
+        offset_err=off_err, carry_err=carry_err, tol=SERVE_TOL[dt], ms=ms,
         plain_ms=plain_ms, bound_ms=bms, bound_by=by, live_row_steps=live,
         flops=flops, bytes=moved)
     return {"err": max(off_err, carry_err), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": None}
 
 
-def check_replay(cell, dt):
-    """replay_chunk vs its plain version at B=64, E=64."""
+def decode_chunk_ab(cell, dt, inp):
+    """``srt_decode_chunk`` (the persistent cooperative loop) against the
+    row-block design it replaced, ``srt_decode_chunk_rowblock``, on one set
+    of inputs (``cuda_decode.decode_chunk_entries``, uncounted): t, done and
+    pens exact away from near-ties, offsets and carries within SERVE_TOL,
+    the new entry identical run to run; for the lstm cell also whether one
+    step's carry is bit for bit the row-block design's; then both timed in
+    turns (new, old, old, new; AB_REPS turns, medians)."""
+    import statistics
+
     import torch
 
     from sketch_rnn_tpu_torch.ops import cuda_decode as cd
+
+    hps, args, kw, _ = inp
+    run, outs = cd.decode_chunk_entries(*args, **kw)
+    snap = lambda: [o.clone() for o in outs]
+    run("srt_decode_chunk")
+    new = snap()
+    run("srt_decode_chunk")
+    again = snap()
+    run("srt_decode_chunk_rowblock")
+    old = snap()
+    torch.cuda.synchronize()
+    *_, margin = cd.decode_chunk_reference(*args, **kw, return_margin=True)
+    near = (margin < NEAR_TIE[dt]).cpu()
+    det = all(torch.equal(a, b) for a, b in zip(new, again))
+    if not det:
+        raise AssertionError(f"decode_chunk [{cell}, {dt}]: the loop is not "
+                             f"identical run to run")
+    off_err, carry_err = hold_decode(
+        f"decode_chunk [{cell}, {dt}] vs the row-block design", new, old,
+        near, dt)
+    del new, again, old
+    res = {"cell": cell}
+    if cell == "lstm":   # one step: the carry's expressions are the same
+        one = list(args)
+        one[7] = args[7][:1].contiguous()
+        run1, outs1 = cd.decode_chunk_entries(*one, **kw)
+        run1("srt_decode_chunk")
+        c_new, h_new = outs1[1].clone(), outs1[2].clone()
+        run1("srt_decode_chunk_rowblock")
+        torch.cuda.synchronize()
+        res["step_bitwise_rowblock"] = bool(
+            torch.equal(c_new, outs1[1]) and torch.equal(h_new, outs1[2]))
+        del run1, outs1
+    times, _ = ab_turns({"new": lambda: run("srt_decode_chunk"),
+                         "old": lambda: run("srt_decode_chunk_rowblock")})
+    res.update({"ms": statistics.median(times["new"]),
+                "rowblock_ms": statistics.median(times["old"]),
+                "new_ms_all": times["new"], "rowblock_ms_all": times["old"],
+                "offset_err_vs_rowblock": off_err,
+                "carry_err_vs_rowblock": carry_err,
+                "near_tie_rows": int(near.sum()), "deterministic": det,
+                "plan": cd.decode_plan(B, hps.dec_rnn_size, hps.num_mixture,
+                                       cd.weight_dtype(kw["compute_dtype"]))
+                ._asdict()})
+    res["speedup"] = res["rowblock_ms"] / res["ms"]
+    log("decode_chunk_ab", name="decode_chunk", dtype=dt, B=B, K=K,
+        reps=AB_REPS, **res)
+    return res
+
+
+def replay_inputs(cell, dt, e=E):
+    """replay_chunk's arguments at B=64 and ``e`` steps: ``(hps, params,
+    args, kw)``; seq_len from 1 to ``e``."""
+    import torch
 
     hps, model, params = full_width(cell, dt=dt)
     dec, _ = serving_weights(model, params)
@@ -399,16 +503,61 @@ def check_replay(cell, dt):
     z = torch.randn((B, hps.z_size), generator=g).to(dev)
     c0, h0 = (x.contiguous() for x in
               model.decoder_initial_carry(params, z, B))
-    xs = torch.zeros((E, B, 5))
-    xs[..., :2] = torch.randn((E, B, 2), generator=g)
-    pen = torch.randint(0, 2, (E, B), generator=g)
+    xs = torch.zeros((e, B, 5))
+    xs[..., :2] = torch.randn((e, B, 2), generator=g)
+    pen = torch.randint(0, 2, (e, B), generator=g)
     xs[..., 2] = (pen == 0).float()
     xs[..., 3] = (pen == 1).float()
     xs = xs.to(dev)
-    seq_len = torch.randint(1, E + 1, (B,), generator=g,
+    seq_len = torch.randint(1, e + 1, (B,), generator=g,
                             dtype=torch.int32).to(dev)
     args = (dec, c0, h0, xs, z, seq_len)
     kw = dict(cell_kind=cell, compute_dtype=model.dec.compute_dtype)
+    return hps, params, args, kw
+
+
+def replay_library(params, args, dt):
+    """cuDNN's LSTM (``torch.nn.LSTM``, TF32 off) over ``[x; z]`` (D=133)
+    packed at ``seq_len`` with ``pack_padded_sequence``: its final carry is
+    each row's at its own length, what ``replay_chunk`` returns. Returns
+    ``(ms, err)``: the LSTM call's time (the packing made once, outside)
+    and its carry's largest gap to the plain replay at float32 weights. A
+    yardstick only: the port never calls it."""
+    import torch
+    from torch.nn.utils.rnn import pack_padded_sequence
+
+    from sketch_rnn_tpu_torch.ops import cuda_decode as cd
+
+    dec, c0, h0, xs, z, seq_len = args
+    cd_ = torch_dtype(dt)
+    p = params["dec"]
+    lstm = cudnn_lstm(p["wx"], p["wh"], p["b"], 1.0, cd_)
+    e = xs.shape[0]
+    inp = torch.cat([xs, z[None].expand(e, *z.shape)], -1).to(cd_)
+    packed = pack_padded_sequence(inp, seq_len.cpu(), enforce_sorted=False)
+    hc = (h0[None].to(cd_), c0[None].to(cd_))
+    with torch.no_grad():
+        _, (hn, cn) = lstm(packed, hc)
+        ms = cuda_ms(lambda: lstm(packed, hc), 20)
+    want = cd.replay_chunk_reference(p, c0, h0, xs, z, seq_len,
+                                     cell_kind="lstm")
+    err = max(float((cn[0].float() - want[0]).abs().max()),
+              float((hn[0].float() - want[1]).abs().max()))
+    if not err <= LIBRARY_TOL[dt]:
+        raise AssertionError(f"cuDNN's packed replay [{dt}]: carry err "
+                             f"{err} (tol {LIBRARY_TOL[dt]})")
+    return ms, err
+
+
+def check_replay(cell, dt, inp):
+    """replay_chunk vs its plain version at B=64, E=64 (for the lstm cell
+    beside cuDNN's packed LSTM)."""
+    import torch
+
+    from sketch_rnn_tpu_torch.ops import cuda_decode as cd
+
+    hps, params, args, kw = inp
+    dec, c0, h0, xs, z, seq_len = args
     tol = SERVE_TOL[dt]
     got = cd.replay_chunk(*args, **kw)
     torch.cuda.synchronize()
@@ -419,6 +568,9 @@ def check_replay(cell, dt):
                              f"(tol {tol})")
     ms = cuda_ms(lambda: cd.replay_chunk(*args, **kw), 20)
     plain_ms = cuda_ms(lambda: cd.replay_chunk_reference(*args, **kw), 3)
+    lib_ms = lib_err = None
+    if cell == "lstm":
+        lib_ms, lib_err = replay_library(params, args, dt)
     h = hps.dec_rnn_size
     live = int(seq_len.sum())
     flops = 2 * live * (5 * 4 * h + h * 4 * h)
@@ -426,11 +578,111 @@ def check_replay(cell, dt):
     moved = (nbytes(*(dec[k] for k in dec if k != "wx"), c0, h0, xs,
                     seq_len, *got) + 5 * 4 * h * ws + B * 4 * h * 4)
     bms, by = bound_ms(flops, moved, dt)
-    log("kernel", name="replay_chunk", cell=cell, dtype=dt, B=B, E=E, H=h,
-        carry_err=err, tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-        bound_by=by, live_row_steps=live, flops=flops, bytes=moved)
-    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-            "bound_by": by, "library_ms": None}
+    log("kernel", name="replay_chunk", cell=cell, dtype=dt, B=B,
+        E=xs.shape[0], H=h, carry_err=err, tol=tol, ms=ms,
+        plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
+        library_err=lib_err, live_row_steps=live, flops=flops, bytes=moved)
+    return {"err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+
+
+def replay_chunk_ab(cell, dt, inp):
+    """``srt_replay_chunk`` (the persistent cooperative loop) against
+    ``srt_replay_chunk_rowblock`` on one set of inputs (uncounted): the
+    carry within SERVE_TOL of the row-block entry's and of the plain
+    version's, the new entry identical run to run, both timed in turns
+    (new, old, old, new; AB_REPS turns, medians)."""
+    import statistics
+
+    import torch
+
+    from sketch_rnn_tpu_torch.ops import cuda_decode as cd
+
+    hps, params, args, kw = inp
+    e = args[3].shape[0]
+    run, outs = cd.replay_chunk_entries(*args, **kw)
+    snap = lambda: [o.clone() for o in outs]
+    run("srt_replay_chunk")
+    new = snap()
+    run("srt_replay_chunk")
+    again = snap()
+    run("srt_replay_chunk_rowblock")
+    old = snap()
+    torch.cuda.synchronize()
+    want = cd.replay_chunk_reference(*args, **kw)
+    det = all(torch.equal(a, b) for a, b in zip(new, again))
+    err = max(float((a - b).abs().max()) for a, b in zip(new, old))
+    perr = max(float((a - b).abs().max()) for a, b in zip(new, want))
+    if not (det and err <= SERVE_TOL[dt] and perr <= SERVE_TOL[dt]):
+        raise AssertionError(f"replay_chunk [{cell}, {dt}, E={e}]: vs the "
+                             f"row-block design {err}, vs the plain version "
+                             f"{perr}, deterministic {det}")
+    del new, again, old
+    times, _ = ab_turns({"new": lambda: run("srt_replay_chunk"),
+                         "old": lambda: run("srt_replay_chunk_rowblock")})
+    res = {"cell": cell, "E": e, "ms": statistics.median(times["new"]),
+           "rowblock_ms": statistics.median(times["old"]),
+           "new_ms_all": times["new"], "rowblock_ms_all": times["old"],
+           "err_vs_rowblock": err, "err_vs_plain": perr,
+           "deterministic": det,
+           "plan": cd.decode_plan(B, hps.dec_rnn_size, 1, cd.weight_dtype(
+               kw["compute_dtype"]), "replay")._asdict()}
+    res["speedup"] = res["rowblock_ms"] / res["ms"]
+    log("replay_chunk_ab", name="replay_chunk", dtype=dt, B=B, reps=AB_REPS,
+        **res)
+    return res
+
+
+def check_serving_kernels(rows):
+    """Rows 1 and 2 at both dtypes and both cells: each kernel against its
+    plain version, its A/B against the row-block design, replay also at
+    E=250 (the terminal prefix edge a long ``complete`` prefix replays);
+    the rows' numbers are the ``layer_norm`` cell's (the main path's), the
+    ``lstm`` cell's beside them. A row's ``ms`` is the public wrapper's
+    time called back to back, as on every other row (its checks, the
+    hoisted ``extra @ wx[5:]`` and the allocations included);
+    ``kernel_ms`` the C entry's alone (the A/B's median)."""
+    for dt in DTYPES:
+        rec = {"decode_chunk": {}, "replay_chunk": {}}
+        for cell in ("layer_norm", "lstm"):
+            inp = decode_inputs(cell, dt)
+            res = check_decode(cell, dt, inp)
+            res["ab"] = decode_chunk_ab(cell, dt, inp)
+            res["kernel_ms"] = res["ab"]["ms"]
+            rec["decode_chunk"][cell] = res
+            inp = replay_inputs(cell, dt)
+            res = check_replay(cell, dt, inp)
+            res["ab"] = replay_chunk_ab(cell, dt, inp)
+            res["kernel_ms"] = res["ab"]["ms"]
+            rec["replay_chunk"][cell] = res
+        res = replay_chunk_ab("layer_norm", dt,
+                              replay_inputs("layer_norm", dt, E_LONG))
+        rec["replay_chunk"]["layer_norm"]["ab_e250"] = res
+        for name, by_cell in rec.items():
+            ln, lstm = by_cell["layer_norm"], by_cell["lstm"]
+            rows[name][dt] = dict(
+                ln, err=max(r["err"] for r in by_cell.values()),
+                lstm={k: lstm[k] for k in ("err", "ms", "kernel_ms",
+                                           "plain_ms", "bound_ms",
+                                           "library_ms", "ab")})
+
+
+def decode_profile():
+    """Cycles per phase of a decode step (``profile_decode.py``'s
+    instrumented build of the serving loop), both cells and dtypes; the
+    instrumented outputs bit for bit the production build's."""
+    import torch
+
+    from sketch_rnn_tpu_torch.scripts import profile_decode
+
+    cases = tuple(c for c in profile_decode.CASES if c[0] == "decode")
+    for rec in profile_decode.run(cases):
+        if not rec["bitwise"]:
+            raise AssertionError(f"decode_profile {rec['cell']} "
+                                 f"{rec['dtype']}: the instrumented build "
+                                 f"is not bitwise the production build")
+        log("decode_profile", **rec)
+    torch.cuda.empty_cache()
 
 
 def synthetic_prefix(rng, n):
@@ -2737,14 +2989,8 @@ def main():
         flags=" ".join(_build.NVCC_FLAGS))
 
     rows = {"decode_chunk": {}, "replay_chunk": {}}
-    for dt in DTYPES:
-        dec = {cell: check_decode(cell, dt) for cell in ("layer_norm",
-                                                         "lstm")}
-        rep = {cell: check_replay(cell, dt) for cell in ("layer_norm",
-                                                         "lstm")}
-        for name, res in (("decode_chunk", dec), ("replay_chunk", rep)):
-            rows[name][dt] = dict(res["layer_norm"], err=max(
-                r["err"] for r in res.values()))
+    check_serving_kernels(rows)
+    decode_profile()
     for dt in DTYPES:
         inp = fused_inputs(train_hps, dt)
         check_lstm_seq(inp, rows)
@@ -2831,14 +3077,14 @@ def main():
                                "max_abs_err": v["err"],
                                **{k: v[k] for k in keys}}
                            for a, v in r["arms"].items()}
-        for extra in ("ab", "weight_pass"):   # the A/B lines' records
-            if extra in r:
+        for extra in ("ab", "weight_pass", "lstm", "kernel_ms"):
+            if extra in r:      # the A/B records, the serving entries alone
                 out[extra] = r[extra]
         for other in want - {dt}:
             o = rows[name][other]
             out["at_" + other] = {"max_abs_err": o["err"],
                                   **{k: o[k] for k in keys}}
-            for extra in ("ab", "weight_pass"):
+            for extra in ("ab", "weight_pass", "lstm", "kernel_ms"):
                 if extra in o:
                     out["at_" + other][extra] = o[extra]
         return out

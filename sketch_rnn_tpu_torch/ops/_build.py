@@ -52,8 +52,14 @@ _HB = ([_P] * 35 + [_I] * 8 + [_F] * 3 + [_I] * 7 + [_P] * 3 + [_I]
 # argtypes of every C entry point, by library
 SIGNATURES = {
     "decode": {
-        "srt_decode_chunk": [_P] * 19 + [_I] * 7 + [_F] + [_P] * 6,
-        "srt_replay_chunk": [_P] * 12 + [_I] * 5 + [_F] + [_P] * 3,
+        # the persistent loop: its plan (slices, tiles, windows, shared
+        # memory) and its scratch before the outputs
+        "srt_decode_chunk": [_P] * 19 + [_I] * 7 + [_F] + [_I] * 4
+        + [_P] * 7,
+        "srt_replay_chunk": [_P] * 12 + [_I] * 5 + [_F] + [_I] * 4
+        + [_P] * 4,
+        "srt_decode_chunk_rowblock": [_P] * 19 + [_I] * 7 + [_F] + [_P] * 6,
+        "srt_replay_chunk_rowblock": [_P] * 12 + [_I] * 5 + [_F] + [_P] * 3,
     },
     "fused_rnn": {
         "srt_lstm_fwd": [_P] * 9 + [_I] * 6 + [_F] * 3 + [_P] * 6,

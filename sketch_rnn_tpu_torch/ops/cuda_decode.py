@@ -6,11 +6,18 @@ CUDA kernels (``csrc/decode.cu``) replace its two Pallas kernels:
 - :func:`decode_chunk` replaces ``pallas_decode.decode_chunk``: the
   engine's whole K-step chunk — cell step, ``h @ out_w + out_b``, MDN
   head, inverse-CDF + Box-Muller sampler, done/cap masking with
-  END_TOKEN emission — as one launch, with the carry, the previous
-  stroke and t/done held in shared memory across the K steps.
+  END_TOKEN emission — as one launch.
 - :func:`replay_chunk` replaces ``pallas_decode.replay_chunk``: the
   teacher-forced prefix replay of the endpoint encode phase, with the
   per-row ``t < seq_len`` liveness mask, returning the final carry.
+
+Both run one persistent cooperative loop (``csrc/decode.cu``, "Design"):
+slices of 16 hidden units x batch tiles with their weight columns resident
+in shared memory, ``h`` and the layer norms' and projection's partials
+exchanged between blocks through a scratch the wrapper allocates, on the
+plan of :func:`decode_plan`. :func:`decode_chunk_entries` and
+:func:`replay_chunk_entries` also reach the first port's row-block design
+(``srt_*_chunk_rowblock``), for the A/B; nothing on the main path does.
 
 Beside each kernel is its plain PyTorch version
 (:func:`decode_chunk_reference`, :func:`replay_chunk_reference`), which
@@ -33,7 +40,7 @@ path went through the kernels.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -243,6 +250,113 @@ def replay_chunk_reference(cell_params, c0, h0, xs,
 
 # -- the kernels --------------------------------------------------------------
 
+# The persistent design (``csrc/decode.cu``, "Design"): one cooperative loop
+# over slices of 16 hidden units x batch tiles. Its plan depends on the
+# shape alone (an H100's SMs and opt-in shared memory), never on the card,
+# so every sum's order, and every bit of the result, is the same on any
+# card that can hold it; the C side checks it and refuses, never falls back.
+
+SERVE_SMS = 132              # an H100's SMs: at most one block on each
+SERVE_SMEM_MAX = 232_448     # an H100 block's opt-in shared memory, bytes
+SLICE_UNITS = 16             # hidden units a slice (kSliceUnits)
+MAX_SLICES = 32              # H <= 512 (kMaxSlices)
+X_DIM = 5                    # stroke-5 inputs (kXd)
+PASS_ROWS = 16               # rows a pass of the products (kPass)
+POLICIES = ("decode", "replay")
+
+
+class DecodePlan(NamedTuple):
+    """A serving loop's plan: ``slices`` slices of at most 16 units, at most
+    ``tiles`` batch tiles in each of ``windows`` windows of rows, ``smem``
+    bytes of shared memory a block, and the ``scratch`` bytes the wrapper
+    allocates beside the kernel (``hx``, the exchanges, the partials)."""
+    slices: int
+    tiles: int
+    windows: int
+    smem: int
+    scratch: int
+
+
+def _al16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _wsize(dtype) -> int:
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"weight dtype {dtype}: the CUDA decode kernels take "
+                        f"float32 or bfloat16 weights")
+    return 2 if dtype == torch.bfloat16 else 4
+
+
+def decode_smem(policy: str, wsize: int, h: int, m: int, slices: int,
+                nb: int) -> int:
+    """A block's shared memory for tiles of ``nb`` rows (``decode.cu``
+    ``serve_smem``, the same parts in the same order): the resident wh and
+    wx columns ``[H + 5][64]`` of the weight type (bf16 rows padded to 72);
+    decode: the slice's ``out_w`` rows ``[16][P]`` as float; the tile's
+    ``extra_xp [nb][64]``, ``b [64]``, the slices' unit counts ``[32]``, the
+    pairs' ``c`` and ``h`` (decode: and the rounded new ``h``) ``[nb][16]``,
+    the pre-activations ``[nb][64]``, x and liveness ``[nb][8]``, the owned
+    rows' state ``[nb][2]``; decode: the sampler's raw row, ``out_b``,
+    END_TOKEN and scratch; a buffer for a pass's ``h`` rows or a pass's
+    rows of the gate exchange."""
+    dec = policy == "decode"
+    p = 6 * m + 3
+    pp, mp = -(-p // 4) * 4, -(-m // 4) * 4
+    rs = -(-h // 8) * 8 + 16 // wsize
+    buf = max(PASS_ROWS * rs * wsize, PASS_ROWS * slices * 8 * 4)
+    return (_al16((h + X_DIM) * (72 if wsize == 2 else 64) * wsize)
+            + (_al16(SLICE_UNITS * p * 4) if dec else 0)
+            + nb * 64 * 4 + 64 * 4 + MAX_SLICES * 4
+            + nb * SLICE_UNITS * 4 * (3 if dec else 2)
+            + nb * 64 * 4 + nb * 8 * 4 + _al16(nb * 2 * 4)
+            + ((2 * pp + 8 + 2 * mp + 4) * 4 if dec else 0) + _al16(buf))
+
+
+def serve_scratch_bytes(policy: str, wsize: int, b: int, h: int, m: int,
+                        slices: int) -> int:
+    """The scratch beside a serving loop (``decode.cu``
+    ``serve_scratch_bytes``): ``hx [2, B, H]`` of the weight type (padded to
+    16 bytes), the gate exchange ``[B, slices, 8]``; decode: the projection
+    partials ``[B, slices, 6M + 3 padded to 4]`` and the stroke exchange
+    ``[B, 8]``; the cell exchange ``[B, slices, 2]``; float32 past ``hx``."""
+    rows = b * slices
+    n = _al16(2 * b * h * wsize) + rows * 8 * 4
+    if policy == "decode":
+        n += rows * (-(-(6 * m + 3) // 4) * 4) * 4 + b * 8 * 4
+    return n + rows * 2 * 4
+
+
+def decode_plan(b: int, h: int, m: int, dtype=torch.float32,
+                policy: str = "decode") -> DecodePlan:
+    """The plan of ``policy``'s loop (``"decode"``: :func:`decode_chunk`,
+    ``"replay"``: :func:`replay_chunk`, which ignores ``m``) for ``B`` rows,
+    ``H`` hidden units, ``M`` mixtures and weights of ``dtype``: ``ceil(H /
+    16)`` slices, as many batch tiles as fill the ``SERVE_SMS`` SMs once,
+    and the fewest windows of rows whose blocks fit in ``SERVE_SMEM_MAX``
+    bytes (windows cut as the other persistent loops cut them). Raises
+    ``ValueError`` for a shape it cannot hold."""
+    if policy not in POLICIES:
+        raise ValueError(f"policy {policy!r}: one of {POLICIES}")
+    wsize = _wsize(dtype)
+    if b < 1 or m < 1 or not 0 < h <= SLICE_UNITS * MAX_SLICES:
+        raise ValueError(f"the serving loop holds B >= 1, M >= 1 and 0 < H "
+                         f"<= {SLICE_UNITS * MAX_SLICES}; got B={b}, H={h}, "
+                         f"M={m}")
+    slices = -(-h // SLICE_UNITS)
+    fill = max(1, SERVE_SMS // slices)
+    for windows in range(1, b + 1):
+        lo, hi = b // windows, -(-b // windows)
+        smem = max(decode_smem(policy, wsize, h, m, slices,
+                               -(-r // min(r, fill))) for r in {lo, hi})
+        if smem <= SERVE_SMEM_MAX:
+            return DecodePlan(slices, min(hi, fill), windows, smem,
+                              serve_scratch_bytes(policy, wsize, b, h, m,
+                                                  slices))
+    raise ValueError(f"the serving loop ({policy}): H={h}, M={m} does not "
+                     f"fit in {SERVE_SMEM_MAX} bytes of shared memory even at one "
+                     f"row a tile")
+
 
 def _require(name, t, dev, dtype, shape):
     if t.device != dev:
@@ -274,6 +388,62 @@ def _cell_args(cell_kind, cp, dev, x_dim, h, wd):
             cp["lnc_gamma"].data_ptr(), cp["lnc_beta"].data_ptr()]
 
 
+def _on_cuda(what, c0):
+    if c0.device.type != "cuda":
+        raise ValueError(f"{what} runs on CUDA or CPU tensors, not "
+                         f"{c0.device}")
+
+
+def _decode_args(cell_params, out_w, out_b, c0, h0, prev0, extra, u, temps,
+                 t0, done0, caps, end_token, cell_kind, num_mixture,
+                 forget_bias, compute_dtype, greedy):
+    """Check :func:`decode_chunk`'s inputs and allocate its outputs and
+    scratch: ``(args, rowblock, outs, held)``, the arguments of
+    ``srt_decode_chunk`` and of ``srt_decode_chunk_rowblock``, ``(strokes,
+    c, h, t, done)`` (``done`` int32) and the tensors the launches read
+    (the scratch, the hoisted ``extra @ wx[5:]``, ``done0`` as int32), which
+    the caller keeps alive while the launches use them (the arguments hold
+    only addresses); the loop's plan is :func:`decode_plan`'s."""
+    dev = c0.device
+    wd = weight_dtype(compute_dtype)
+    k, b, _ = u.shape
+    h = h0.shape[-1]
+    p = 6 * num_mixture + 3
+    cp, extra_xp = _hoist(cell_params, extra, prev0.shape[-1],
+                          compute_dtype)
+    f32, i32 = torch.float32, torch.int32
+    cell = _cell_args(cell_kind, cp, dev, prev0.shape[-1], h, wd)
+    for n, t, dt, shape in (
+            ("out_w", out_w, wd, (h, p)), ("out_b", out_b, f32, (p,)),
+            ("c0", c0, f32, (b, h)), ("h0", h0, f32, (b, h)),
+            ("prev0", prev0, f32, (b, X_DIM)), ("u", u, f32, (k, b, 4)),
+            ("temps", temps, f32, (b,)), ("t0", t0, i32, (b,)),
+            ("done0", done0, torch.bool, (b,)), ("caps", caps, i32, (b,)),
+            ("end_token", end_token, f32, (X_DIM,))):
+        _require(n, t, dev, dt, shape)
+    if extra_xp is not None:
+        _require("extra @ wx[5:]", extra_xp, dev, f32, (b, 4 * h))
+    plan = decode_plan(b, h, num_mixture, wd, "decode")
+    done_i = done0.to(i32)
+    scratch = torch.empty((plan.scratch,), dtype=torch.uint8, device=dev)
+    outs = (torch.empty((k, b, X_DIM), dtype=f32, device=dev),
+            torch.empty((b, h), dtype=f32, device=dev),
+            torch.empty((b, h), dtype=f32, device=dev),
+            torch.empty((b,), dtype=i32, device=dev),
+            torch.empty((b,), dtype=i32, device=dev))
+    inputs = (*cell, out_w.data_ptr(), out_b.data_ptr(), c0.data_ptr(),
+              h0.data_ptr(), prev0.data_ptr(),
+              None if extra_xp is None else extra_xp.data_ptr(),
+              u.data_ptr(), temps.data_ptr(), t0.data_ptr(),
+              done_i.data_ptr(), caps.data_ptr(), end_token.data_ptr(), b,
+              k, h, num_mixture, int(cell_kind == "layer_norm"), int(greedy),
+              int(wd == torch.bfloat16), float(forget_bias))
+    outputs = (*(o.data_ptr() for o in outs),
+               torch.cuda.current_stream(dev).cuda_stream)
+    args = (*inputs, *plan[:4], scratch.data_ptr(), *outputs)
+    return args, (*inputs, *outputs), outs, (scratch, extra_xp, done_i)
+
+
 def decode_chunk(cell_params, out_w, out_b, c0, h0, prev0,
                  extra: Optional[torch.Tensor], u, temps, t0, done0, caps,
                  end_token, *, cell_kind: str, num_mixture: int,
@@ -299,61 +469,96 @@ def decode_chunk(cell_params, out_w, out_b, c0, h0, prev0,
     product's activation operand to it, accumulating in float32.
 
     Returns ``(strokes [K, B, 5], c, h, t, done)``. CPU tensors take the
-    plain version; CUDA tensors launch the kernel.
+    plain version; CUDA tensors launch the kernel (``srt_decode_chunk``,
+    the cooperative loop on :func:`decode_plan`; a shape the plan cannot
+    hold raises).
     """
     global decode_chunk_launches
     check_cell_kind(cell_kind)
-    wd = weight_dtype(compute_dtype)
+    weight_dtype(compute_dtype)
     if c0.device.type == "cpu":
         return decode_chunk_reference(
             cell_params, out_w, out_b, c0, h0, prev0, extra, u, temps, t0,
             done0, caps, end_token, cell_kind=cell_kind,
             num_mixture=num_mixture, forget_bias=forget_bias,
             compute_dtype=compute_dtype, greedy=greedy)
-    if c0.device.type != "cuda":
-        raise ValueError(f"decode_chunk runs on CUDA or CPU tensors, not "
-                         f"{c0.device}")
+    _on_cuda("decode_chunk", c0)
     from sketch_rnn_tpu_torch.ops import _build
 
+    args, _, outs, _held = _decode_args(
+        cell_params, out_w, out_b, c0, h0, prev0, extra, u, temps, t0, done0,
+        caps, end_token, cell_kind, num_mixture, forget_bias, compute_dtype,
+        greedy)
+    lib = _build.load("decode")
+    _build.check(lib, lib.srt_decode_chunk(*args), "decode_chunk")
+    decode_chunk_launches += 1
+    strokes, c_out, h_out, t_out, done_out = outs
+    return strokes, c_out, h_out, t_out, done_out != 0
+
+
+def decode_chunk_entries(cell_params, out_w, out_b, c0, h0, prev0,
+                         extra: Optional[torch.Tensor], u, temps, t0, done0,
+                         caps, end_token, *, cell_kind: str,
+                         num_mixture: int, forget_bias: float = 1.0,
+                         compute_dtype=None, greedy: bool = False):
+    """The C entries behind :func:`decode_chunk` on CUDA tensors, for the
+    A/B of its two designs; no wrapper calls it, and it counts no launch.
+    Returns ``(run, outs)``: ``run(entry)`` launches ``"srt_decode_chunk"``
+    (the cooperative loop) or
+    ``"srt_decode_chunk_rowblock"`` (the row-block design it replaced) on
+    one set of buffers, and keeps the inputs alive (the entries take raw
+    addresses); ``outs`` are ``(strokes, c, h, t, done)`` (``done`` int32)
+    as the last launch left them."""
+    from sketch_rnn_tpu_torch.ops import _build
+
+    check_cell_kind(cell_kind)
+    _on_cuda("decode_chunk_entries", c0)
+    args, rowblock, outs, held = _decode_args(
+        cell_params, out_w, out_b, c0, h0, prev0, extra, u, temps, t0, done0,
+        caps, end_token, cell_kind, num_mixture, forget_bias, compute_dtype,
+        greedy)
+    lib = _build.load("decode")
+    held = (held, cell_params, out_w, out_b, c0, h0, prev0, extra, u, temps,
+            t0, done0, caps, end_token)
+
+    def run(entry, _held=held):     # holds the scratch and the inputs
+        _build.check(lib, getattr(lib, entry)(
+            *(rowblock if entry == "srt_decode_chunk_rowblock" else args)),
+            entry)
+
+    return run, outs
+
+
+def _replay_args(cell_params, c0, h0, xs, extra, seq_len, cell_kind,
+                 forget_bias, compute_dtype):
+    """:func:`_decode_args` for :func:`replay_chunk`: ``(args, rowblock,
+    outs, held)`` with ``outs = (c, h)``."""
     dev = c0.device
-    k, b, _ = u.shape
+    wd = weight_dtype(compute_dtype)
+    e, b, x_dim = xs.shape
     h = h0.shape[-1]
-    p = 6 * num_mixture + 3
-    cp, extra_xp = _hoist(cell_params, extra, prev0.shape[-1],
-                          compute_dtype)
-    f32, i32 = torch.float32, torch.int32
-    args = _cell_args(cell_kind, cp, dev, prev0.shape[-1], h, wd)
+    cp, extra_xp = _hoist(cell_params, extra, x_dim, compute_dtype)
+    f32 = torch.float32
+    cell = _cell_args(cell_kind, cp, dev, x_dim, h, wd)
     for n, t, dt, shape in (
-            ("out_w", out_w, wd, (h, p)), ("out_b", out_b, f32, (p,)),
             ("c0", c0, f32, (b, h)), ("h0", h0, f32, (b, h)),
-            ("prev0", prev0, f32, (b, 5)), ("u", u, f32, (k, b, 4)),
-            ("temps", temps, f32, (b,)), ("t0", t0, i32, (b,)),
-            ("done0", done0, torch.bool, (b,)), ("caps", caps, i32, (b,)),
-            ("end_token", end_token, f32, (5,))):
+            ("xs", xs, f32, (e, b, X_DIM)),
+            ("seq_len", seq_len, torch.int32, (b,))):
         _require(n, t, dev, dt, shape)
     if extra_xp is not None:
         _require("extra @ wx[5:]", extra_xp, dev, f32, (b, 4 * h))
-    done_i = done0.to(i32)
-    strokes = torch.empty((k, b, 5), dtype=f32, device=dev)
-    c_out = torch.empty((b, h), dtype=f32, device=dev)
-    h_out = torch.empty((b, h), dtype=f32, device=dev)
-    t_out = torch.empty((b,), dtype=i32, device=dev)
-    done_out = torch.empty((b,), dtype=i32, device=dev)
-    lib = _build.load("decode")
-    err = lib.srt_decode_chunk(
-        *args, out_w.data_ptr(), out_b.data_ptr(), c0.data_ptr(),
-        h0.data_ptr(), prev0.data_ptr(),
-        None if extra_xp is None else extra_xp.data_ptr(), u.data_ptr(),
-        temps.data_ptr(), t0.data_ptr(), done_i.data_ptr(),
-        caps.data_ptr(), end_token.data_ptr(), b, k, h, num_mixture,
-        int(cell_kind == "layer_norm"), int(greedy),
-        int(wd == torch.bfloat16), float(forget_bias), strokes.data_ptr(),
-        c_out.data_ptr(), h_out.data_ptr(), t_out.data_ptr(),
-        done_out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, "decode_chunk")
-    decode_chunk_launches += 1
-    return strokes, c_out, h_out, t_out, done_out != 0
+    plan = decode_plan(b, h, 1, wd, "replay")
+    scratch = torch.empty((plan.scratch,), dtype=torch.uint8, device=dev)
+    outs = (torch.empty((b, h), dtype=f32, device=dev),
+            torch.empty((b, h), dtype=f32, device=dev))
+    inputs = (*cell, c0.data_ptr(), h0.data_ptr(), xs.data_ptr(),
+              None if extra_xp is None else extra_xp.data_ptr(),
+              seq_len.data_ptr(), b, e, h, int(cell_kind == "layer_norm"),
+              int(wd == torch.bfloat16), float(forget_bias))
+    outputs = (*(o.data_ptr() for o in outs),
+               torch.cuda.current_stream(dev).cuda_stream)
+    args = (*inputs, *plan[:4], scratch.data_ptr(), *outputs)
+    return args, (*inputs, *outputs), outs, (scratch, extra_xp)
 
 
 def replay_chunk(cell_params, c0, h0, xs, extra: Optional[torch.Tensor],
@@ -363,41 +568,47 @@ def replay_chunk(cell_params, c0, h0, xs, extra: Optional[torch.Tensor],
     h0) [B, H]``; row ``b`` advances only while ``t < seq_len[b]``
     (``[B]`` int32). Returns the final ``(c, h)``. ``compute_dtype`` as
     in :func:`decode_chunk`. CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+    tensors launch the kernel (``srt_replay_chunk``, the cooperative loop
+    on :func:`decode_plan`'s replay plan)."""
     global replay_chunk_launches
     check_cell_kind(cell_kind)
-    wd = weight_dtype(compute_dtype)
+    weight_dtype(compute_dtype)
     if c0.device.type == "cpu":
         return replay_chunk_reference(
             cell_params, c0, h0, xs, extra, seq_len, cell_kind=cell_kind,
             forget_bias=forget_bias, compute_dtype=compute_dtype)
-    if c0.device.type != "cuda":
-        raise ValueError(f"replay_chunk runs on CUDA or CPU tensors, not "
-                         f"{c0.device}")
+    _on_cuda("replay_chunk", c0)
     from sketch_rnn_tpu_torch.ops import _build
 
-    dev = c0.device
-    e, b, x_dim = xs.shape
-    h = h0.shape[-1]
-    cp, extra_xp = _hoist(cell_params, extra, x_dim, compute_dtype)
-    f32 = torch.float32
-    args = _cell_args(cell_kind, cp, dev, x_dim, h, wd)
-    for n, t, dt, shape in (
-            ("c0", c0, f32, (b, h)), ("h0", h0, f32, (b, h)),
-            ("xs", xs, f32, (e, b, 5)),
-            ("seq_len", seq_len, torch.int32, (b,))):
-        _require(n, t, dev, dt, shape)
-    if extra_xp is not None:
-        _require("extra @ wx[5:]", extra_xp, dev, f32, (b, 4 * h))
-    c_out = torch.empty((b, h), dtype=f32, device=dev)
-    h_out = torch.empty((b, h), dtype=f32, device=dev)
+    args, _, outs, _held = _replay_args(
+        cell_params, c0, h0, xs, extra, seq_len, cell_kind, forget_bias,
+        compute_dtype)
     lib = _build.load("decode")
-    err = lib.srt_replay_chunk(
-        *args, c0.data_ptr(), h0.data_ptr(), xs.data_ptr(),
-        None if extra_xp is None else extra_xp.data_ptr(),
-        seq_len.data_ptr(), b, e, h, int(cell_kind == "layer_norm"),
-        int(wd == torch.bfloat16), float(forget_bias), c_out.data_ptr(),
-        h_out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, "replay_chunk")
+    _build.check(lib, lib.srt_replay_chunk(*args), "replay_chunk")
     replay_chunk_launches += 1
-    return c_out, h_out
+    return outs
+
+
+def replay_chunk_entries(cell_params, c0, h0, xs,
+                         extra: Optional[torch.Tensor], seq_len, *,
+                         cell_kind: str, forget_bias: float = 1.0,
+                         compute_dtype=None):
+    """:func:`decode_chunk_entries` for :func:`replay_chunk`:
+    ``run("srt_replay_chunk")`` or ``run("srt_replay_chunk_rowblock")`` on
+    one set of buffers, uncounted; ``outs = (c, h)``."""
+    from sketch_rnn_tpu_torch.ops import _build
+
+    check_cell_kind(cell_kind)
+    _on_cuda("replay_chunk_entries", c0)
+    args, rowblock, outs, held = _replay_args(
+        cell_params, c0, h0, xs, extra, seq_len, cell_kind, forget_bias,
+        compute_dtype)
+    lib = _build.load("decode")
+    held = (held, cell_params, c0, h0, xs, extra, seq_len)
+
+    def run(entry, _held=held):     # holds the scratch and the inputs
+        _build.check(lib, getattr(lib, entry)(
+            *(rowblock if entry == "srt_replay_chunk_rowblock" else args)),
+            entry)
+
+    return run, outs

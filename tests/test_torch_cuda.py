@@ -146,6 +146,215 @@ def test_wrappers_refuse_bad_inputs(dev):
     assert cd.decode_chunk_launches == before
 
 
+def _serve_case(cell, h, bsz, k, conditional, dev, wdt=torch.float32,
+                seed=0):
+    """Seeded decode_chunk arguments at width ``h`` and ``bsz`` slots: every
+    third row hits its cap mid-chunk, every fifth starts done; plus the
+    keyword arguments (``compute_dtype`` bfloat16 with bfloat16 weights
+    where ``wdt`` is)."""
+    hps = HParams(**TINY).replace(dec_model=cell, conditional=conditional,
+                                  dec_rnn_size=h, serve_slots=bsz)
+    model = SketchRNN(hps)
+    params = model.init_params(torch.Generator().manual_seed(seed),
+                               device=dev)
+    g = torch.Generator().manual_seed(seed + 1)
+    z = (torch.randn((bsz, hps.z_size), generator=g).to(dev)
+         if conditional else None)
+    c0, h0 = (x.contiguous() for x in
+              model.decoder_initial_carry(params, z, bsz, device=dev))
+    if not conditional:     # a nonzero carry all the same
+        c0 = (0.3 * torch.randn((bsz, h), generator=g)).to(dev)
+        h0 = (0.3 * torch.randn((bsz, h), generator=g)).to(dev)
+    prev0 = torch.tensor([0, 0, 1.0, 0, 0]).repeat(bsz, 1).to(dev)
+    keys = prng.fold_in(prng.key(seed + 4), torch.arange(bsz)).to(dev)
+    t0 = torch.randint(0, 20, (bsz,), generator=g, dtype=torch.int32)
+    rows = torch.arange(bsz)
+    caps = torch.where(rows % 3 == 0,
+                       t0 + torch.randint(1, max(2, k), (bsz,), generator=g,
+                                          dtype=torch.int32), t0 + 100)
+    dec, out_w, kw = params["dec"], params["out_w"], {}
+    if wdt == torch.bfloat16:
+        dec, out_w = cd.cast_weights(dec, wdt), out_w.to(wdt)
+        kw["compute_dtype"] = wdt
+    args = (dec, out_w, params["out_b"], c0, h0, prev0, z,
+            cd.make_uniforms(keys, t0.to(dev), k),
+            (0.4 + torch.rand((bsz,), generator=g)).to(dev), t0.to(dev),
+            (rows % 5 == 2).to(dev), caps.to(dev),
+            torch.tensor([0, 0, 0, 0, 1.0]).to(dev))
+    return hps, args, dict(kw, cell_kind=cell, num_mixture=hps.num_mixture)
+
+
+def _hold_decode(got, want, keep, tol, what):
+    """t, done and pens exact on the kept rows, offsets and carries within
+    ``tol`` of the larger of 1 and the reference's largest magnitude."""
+    for name, a, b in zip(("strokes", "c", "h", "t", "done"), got, want):
+        a, b = a.cpu(), b.cpu()
+        a, b = (a[:, keep], b[:, keep]) if a.dim() == 3 else (a[keep],
+                                                              b[keep])
+        if name == "done":
+            a, b = a != 0, b != 0
+        if a.dtype in (torch.int32, torch.bool):
+            assert torch.equal(a, b), (what, name)
+            continue
+        if name == "strokes":
+            assert torch.equal(a[..., 2:], b[..., 2:]), (what, "pens")
+        err = float((a - b).abs().max())
+        assert err <= tol * max(1.0, float(b.abs().max())), (what, name, err)
+
+
+# the persistent serving loop (csrc/decode.cu, "Design") against the
+# row-block design it replaced and the plain version: H=16 one slice, H=40
+# three uneven slices (staged element by element), H=64 four slices
+@pytest.mark.parametrize("cell,h,conditional,greedy,wdt", [
+    ("layer_norm", 16, True, False, torch.float32),
+    ("layer_norm", 40, False, False, torch.float32),
+    ("layer_norm", 64, True, False, torch.float32),
+    ("layer_norm", 64, True, True, torch.float32),
+    ("layer_norm", 64, True, False, torch.bfloat16),
+    ("layer_norm", 40, True, True, torch.bfloat16),
+    ("lstm", 16, False, False, torch.float32),
+    ("lstm", 40, True, False, torch.float32),
+    ("lstm", 64, False, True, torch.float32),
+    ("lstm", 64, True, False, torch.bfloat16)])
+def test_decode_loop_matches_row_block_design(dev, cell, h, conditional,
+                                              greedy, wdt):
+    bsz, k = 12, 6
+    hps, args, kw = _serve_case(cell, h, bsz, k, conditional, dev, wdt)
+    kw["greedy"] = greedy
+    before = cd.decode_chunk_launches
+    run, outs = cd.decode_chunk_entries(*args, **kw)
+    snap = lambda: [o.clone() for o in outs]
+    run("srt_decode_chunk")
+    new = snap()
+    run("srt_decode_chunk")
+    again = snap()
+    run("srt_decode_chunk_rowblock")
+    old = snap()
+    torch.cuda.synchronize()
+    assert cd.decode_chunk_launches == before        # uncounted
+    assert all(torch.equal(a, b) for a, b in zip(new, again))
+    *plain, margin = cd.decode_chunk_reference(*args, **kw,
+                                               return_margin=True)
+    f32 = wdt == torch.float32
+    keep = (margin >= (1e-5 if f32 else 1e-3)).cpu()
+    assert bool(keep.any())
+    tol = TOL if f32 else 1e-3
+    _hold_decode(new, old, keep, tol, "vs the row-block design")
+    _hold_decode(new, plain, keep, tol, "vs the plain version")
+    # the wrapper launches the same loop, counted
+    got = cd.decode_chunk(*args, **kw)
+    assert cd.decode_chunk_launches == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(got[:4], new[:4]))
+    assert torch.equal(got[4], new[4] != 0)
+
+
+@pytest.mark.parametrize("cell,h,wdt", [
+    ("layer_norm", 40, torch.float32), ("layer_norm", 64, torch.bfloat16),
+    ("lstm", 64, torch.float32), ("lstm", 40, torch.bfloat16)])
+def test_replay_loop_matches_row_block_design(dev, cell, h, wdt):
+    """Replay with seq_len from 1 to E (one row each) and a nonzero carry."""
+    e = bsz = 9
+    hps, args, kw = _serve_case(cell, h, bsz, 1, True, dev, wdt)
+    kw.pop("num_mixture")
+    g = torch.Generator().manual_seed(7)
+    xs = torch.randn((e, bsz, 5), generator=g).to(dev)
+    seq_len = (torch.randperm(bsz, generator=g) + 1).to(torch.int32).to(dev)
+    rargs = (args[0], args[3], args[4], xs, args[6], seq_len)
+    before = cd.replay_chunk_launches
+    run, outs = cd.replay_chunk_entries(*rargs, **kw)
+    snap = lambda: [o.clone() for o in outs]
+    run("srt_replay_chunk")
+    new = snap()
+    run("srt_replay_chunk")
+    again = snap()
+    run("srt_replay_chunk_rowblock")
+    old = snap()
+    torch.cuda.synchronize()
+    assert cd.replay_chunk_launches == before
+    assert all(torch.equal(a, b) for a, b in zip(new, again))
+    want = cd.replay_chunk_reference(*rargs, **kw)
+    tol = TOL if wdt == torch.float32 else 1e-3
+    for a, b, w in zip(new, old, want):
+        for ref in (b, w):
+            assert float((a - ref).abs().max()) <= tol * max(
+                1.0, float(ref.abs().max()))
+    got = cd.replay_chunk(*rargs, **kw)
+    assert cd.replay_chunk_launches == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, new))
+
+
+@pytest.mark.parametrize("what,bsz,wdt", [
+    ("decode", 512, torch.float32), ("replay", 1024, torch.bfloat16)])
+def test_serving_loops_run_in_row_windows(dev, what, bsz, wdt):
+    """At the decoder's width a slot count whose tiles do not fit in one
+    launch runs in windows of rows, within tolerance of the row-block
+    design, identical run to run."""
+    h, k = 512, 2
+    hps, args, kw = _serve_case("layer_norm", h, bsz, k, True, dev, wdt)
+    plan = cd.decode_plan(bsz, h, hps.num_mixture,
+                          cd.weight_dtype(kw.get("compute_dtype")), what)
+    assert plan.windows > 1
+    if what == "decode":
+        run, outs = cd.decode_chunk_entries(*args, **kw)
+        entry = "srt_decode_chunk"
+    else:
+        kw.pop("num_mixture")
+        xs = torch.randn((3, bsz, 5),
+                         generator=torch.Generator().manual_seed(8)).to(dev)
+        seq_len = torch.tensor([1, 2, 3], dtype=torch.int32).repeat(
+            bsz // 3 + 1)[:bsz].to(dev)
+        run, outs = cd.replay_chunk_entries(args[0], args[3], args[4], xs,
+                                            args[6], seq_len, **kw)
+        entry = "srt_replay_chunk"
+    snap = lambda: [o.clone() for o in outs]
+    run(entry)
+    new = snap()
+    run(entry)
+    again = snap()
+    run(entry + "_rowblock")
+    old = snap()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(new, again))
+    tol = TOL if wdt == torch.float32 else 1e-2
+    if what == "decode":
+        _hold_decode(new, old, torch.ones(bsz, dtype=torch.bool), 1e-4,
+                     "windows")
+    else:
+        for a, b in zip(new, old):
+            assert float((a - b).abs().max()) <= tol * max(
+                1.0, float(b.abs().max()))
+
+
+def test_serving_loops_refuse_a_plan_they_cannot_run(dev, monkeypatch):
+    """A plan whose blocks cannot co-reside, one whose shared memory does
+    not hold its tiles, one whose slices do not cover the units and one
+    without windows are refused before any launch: the call raises,
+    nothing runs in its place, no launch is counted."""
+    bsz, h, k = 512, 64, 2
+    hps, args, kw = _serve_case("layer_norm", h, bsz, k, True, dev)
+    good = cd.decode_plan(bsz, h, hps.num_mixture)
+    rgood = cd.decode_plan(bsz, h, 1, policy="replay")
+    xs = torch.zeros((2, bsz, 5), device=dev)
+    seq_len = torch.full((bsz,), 2, dtype=torch.int32, device=dev)
+    before = (cd.decode_chunk_launches, cd.replay_chunk_launches)
+    for fix in (dict(tiles=bsz), dict(smem=0), dict(slices=1),
+                dict(windows=0)):
+        for name, p in (("decode_chunk", good), ("replay_chunk", rgood)):
+            bad = p._replace(**fix)
+            if "tiles" in fix:   # shared memory that holds the tiles
+                bad = bad._replace(smem=cd.decode_smem(
+                    name.split("_")[0], 4, h, hps.num_mixture, p.slices, 1))
+            monkeypatch.setattr(cd, "decode_plan", lambda *a, q=bad, **o: q)
+            with pytest.raises(RuntimeError, match=name):
+                if name == "decode_chunk":
+                    cd.decode_chunk(*args, **kw)
+                else:
+                    cd.replay_chunk(args[0], args[3], args[4], xs, args[6],
+                                    seq_len, cell_kind="layer_norm")
+    torch.cuda.synchronize()
+    assert (cd.decode_chunk_launches, cd.replay_chunk_launches) == before
+
+
 FT, FB, FD = 7, 6, 5    # fused kernels: steps, rows, input width
 
 

@@ -191,21 +191,28 @@ without the final line. With no CUDA device it exits 2 at once.
    one line, and the dual probe's production arm (the ``fused_lstm_seq``
    forward at B=4096, bench.py's encoder) on its own ``encoder_fwd``
    line.
-15. probe_ladder — the LayerNorm ladder (``csrc/probe_ln.cu``,
+15. probe_ladder — the LayerNorm ladder (``csrc/probe_ln.cu``, every arm on
+   the production loops of ``csrc/ln_lstm.cuh``,
    ``sketch_rnn_tpu_torch/scripts/probe_dec_bwd_split.py`` and
    ``probe_ln_stats.py``) at the reference probes' shape, B=4096, T=250,
    H=512, D=5, bfloat16: the four forward arms, the six backward arms and
    the fake-stats backward against their plain versions (1e-2 relative;
    the forward arms also step by step at float32 residuals, 1e-4; the two
-   arms whose dh chain overflows by T=250 at T=32), the ``prod`` arms bit
-   for bit the row-block entries they repeat (``srt_ln_lstm_fwd_rowblock``,
-   ``srt_ln_lstm_bwd_rowblock``), each timed beside the production entry
-   and the row-block one; then both
-   ladders and the LN-stats A/B through their run functions with 1 call
-   per timing and 2 reps, the ladder's counters zeroed just before each
-   and read just after, each record on one line, and the phase's seconds.
+   arms whose dh chain overflows by T=250 at T=32, float32, 1e-4), each
+   identical on two runs, the ``prod`` arms bit for bit the production
+   kernels they are (``srt_ln_lstm_fwd``, ``srt_ln_lstm_bwd``) and timed
+   beside them; each arm against its row-block design
+   (``srt_ln_probe_*_rowblock``, whose ``prod`` arms are bit for bit
+   ``srt_ln_lstm_*_rowblock``) in turns of new, old, old, new, one
+   ``ln_probe_ab`` line each (3 turns forward, 2 backward); then both
+   ladders (with ``grid_scaling_ms``: ``prod`` at 1, 2 and 4 forced
+   windows of rows) and the LN-stats A/B through their run functions
+   with 1 call per timing and 2 reps, the ladder's counters zeroed just
+   before each and read just after, each record on one line, and the
+   phase's seconds.
 16. the kernels line (seventeen kernels; the ladder's three rows carry
-   every arm's numbers under ``arms``), the ``nvidia-smi`` line, and the
+   every arm's numbers under ``arms``, and ``rowblock_ms``, ``speedup``
+   and each arm's A/B under ``ab``), the ``nvidia-smi`` line, and the
    result line.
 
 Random serving weights carry the pen-suppression sentinel ``out_b[2] =
@@ -216,6 +223,7 @@ lengths.
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -2652,9 +2660,10 @@ def probe_seq_ab(rows, dargs, sargs):
         torch.cuda.empty_cache()
 
 
-# the LayerNorm ladder (csrc/probe_ln.cu): its arms against their plain
-# versions, then the two ladders and the LN-stats A/B, at the reference
-# probes' shape, one call per timing, 2 reps
+# the LayerNorm ladder (csrc/probe_ln.cu, every arm on the persistent loops
+# of csrc/ln_lstm.cuh): its arms against their plain versions, each arm
+# against its row-block design in turns, then the two ladders and the
+# LN-stats A/B, at the reference probes' shape, one call per timing, 2 reps
 LADDER = dict(b=4096, t=250, k=1, reps=2)
 # no_gates / no_gradmm: dh_{t-1} = tile4(dh) @ wh^T grows ~2.26x a step
 # (the reference's arithmetic) and overflows before T=250; 2.26**32 ~ 2e11
@@ -2665,17 +2674,81 @@ LADDER_FWD_OUTS = ("hs", "cs", "cT", "hT")
 # arm its TPU kernel function builds first beside production, and every
 # arm's numbers under "arms"
 LADDER_ROWS = ("ln_probe_fwd", "ln_probe_bwd", "ln_probe_bwd_fake_stats")
+# turns of (new, old, old, new) of each arm's A/B against the row-block
+# design (ln_probe_ab lines): 2 for the backward, to keep the phase short
+LADDER_AB_TURNS = {"fwd": 3, "bwd": 2}
 
 
 def ladder_bytes(inp, names, outs):
     return nbytes(*(inp[n] for n in names), *outs)
 
 
+def ladder_ab(way, arm, kw, r):
+    """Arm ``arm`` of the ``way`` ladder ("fwd" or "bwd"): the persistent
+    loop (``srt_ln_probe_<way>``) against the row-block design it replaced
+    (``srt_ln_probe_<way>_rowblock``) on one set of buffers, in
+    LADDER_AB_TURNS[way] turns of (new, old, old, new), medians, into
+    ``r["ab"]`` and one ``ln_probe_ab`` line; the two designs' largest
+    relative gap logged; the row-block ``prod`` arm held bit for bit to
+    the row-block production entry (``srt_ln_lstm_<way>_rowblock``; the
+    backward's weight gradients rounded as ``fused_ln_lstm`` rounds them).
+    Uncounted launches."""
+    import statistics
+
+    import torch
+
+    from sketch_rnn_tpu_torch.ops import cuda_fused as CF
+    from sketch_rnn_tpu_torch.scripts import probe_dec_bwd_split as PS
+
+    entry = f"srt_ln_probe_{way}"
+    run, outs = (PS.fwd_entries if way == "fwd" else PS.bwd_entries)(arm,
+                                                                     **kw)
+    run(entry)
+    new = [o.clone() if o is not None else None for o in outs]
+    run(entry + "_rowblock")
+    torch.cuda.synchronize()
+    pairs = [(n, x) for n, x in zip(new, outs) if n is not None]
+    gap = max(float((x.float() - n.float()).abs().max())
+              / max(float(x.float().abs().max()), 1e-30) for n, x in pairs)
+    gap = gap if math.isfinite(gap) else None    # no_gates' overflow
+    del new, pairs
+    res = {}
+    if arm == "prod":
+        rowblock, want = (
+            CF.ln_lstm_fwd_entries(residual_dtype=torch.bfloat16, **kw)
+            if way == "fwd" else CF.ln_lstm_bwd_entries(**kw))
+        rowblock(f"srt_ln_lstm_{way}_rowblock")
+        rnd = ((lambda o: o) if way == "fwd" else lambda o: (
+            *o[:2], o[2].to(torch.bfloat16), o[3].to(torch.bfloat16),
+            *o[4:]))
+        same = all(p is None and q is None or torch.equal(p, q)
+                   for p, q in zip(rnd(outs), rnd(want)))
+        if not same:
+            raise AssertionError(f"{entry}_rowblock(prod) is not bitwise "
+                                 f"srt_ln_lstm_{way}_rowblock")
+        res[f"bitwise_srt_ln_lstm_{way}_rowblock"] = same
+        del rowblock, want
+    times, _ = ab_turns({"new": lambda: run(entry),
+                         "old": lambda: run(entry + "_rowblock")},
+                        reps=LADDER_AB_TURNS[way])
+    res.update(ms=statistics.median(times["new"]),
+               rowblock_ms=statistics.median(times["old"]),
+               new_ms_all=times["new"], rowblock_ms_all=times["old"],
+               rowblock_rel_gap=gap)
+    res["speedup"] = res["rowblock_ms"] / res["ms"]
+    r["ab"] = res
+    log("ln_probe_ab", way=way, arm=arm, dtype="bfloat16",
+        turns=LADDER_AB_TURNS[way], **res)
+    del run, outs
+    torch.cuda.empty_cache()
+
+
 def check_probe_ladder(card, rows):
-    """The LayerNorm ladder (``csrc/probe_ln.cu``, scripts
-    ``probe_dec_bwd_split.py`` and ``probe_ln_stats.py``) at the reference
-    probes' shape, B=4096, T=250, H=512, D=5, on their seeded inputs
-    (bfloat16 weights and residuals, x_bias, dropout seed 5 at keep 0.9).
+    """The LayerNorm ladder (``csrc/probe_ln.cu`` on the persistent loops
+    of ``csrc/ln_lstm.cuh``, scripts ``probe_dec_bwd_split.py`` and
+    ``probe_ln_stats.py``) at the reference probes' shape, B=4096, T=250,
+    H=512, D=5, on their seeded inputs (bfloat16 weights and residuals,
+    x_bias, dropout seed 5 at keep 0.9).
 
     Forward arms: identical run to run; each against its plain version
     run free within FUSED_TOL["bfloat16"] (relative to each output's
@@ -2685,24 +2758,21 @@ def check_probe_ladder(card, rows):
     with the plain version, B=4096), whatever the kernel. So every arm is
     also held at float32 residuals step by step (the plain step taken from
     the kernel's stored carry) within FUSED_TOL["float32"], and ``prod``
-    bit for bit the row-block entry it repeats, ``srt_ln_lstm_fwd_rowblock``
-    (``fused_ln_lstm``'s forward kernel, ``srt_ln_lstm_fwd``, sums its
-    layer norms in another order). Backward arms (over
-    the residuals of one production forward): identical run to run,
-    within FUSED_TOL["bfloat16"] of their plain versions, except
-    ``no_gates`` and ``no_gradmm``, whose gradient grows ~2.26x a step:
-    they are held at T=32 at float32 weights and residuals within
-    FUSED_TOL["float32"], their bfloat16 gap at T=32 and the outputs that
-    are non-finite at T=250, in the kernel and in the plain version, are
-    logged; ``prod`` bit for bit the
-    row-block design of ``fused_ln_lstm``'s backward,
-    ``srt_ln_lstm_bwd_rowblock`` (the weight gradients of both rounded as
-    ``fused_ln_lstm`` rounds them). Both ``prod`` arms are timed beside
-    the production kernel and the row-block entry. Then each ladder's run
-    function (whose record names the entry ``prod`` repeats and carries
-    the production entry's time) and the LN-stats
-    A/B, the ladder's launch counters zeroed just before each and read
-    just after, each record on one line. Returns the launches by row."""
+    bit for bit the production kernel it is, ``srt_ln_lstm_fwd``.
+    Backward arms (over the residuals of one production forward):
+    identical run to run, within FUSED_TOL["bfloat16"] of their plain
+    versions, except ``no_gates`` and ``no_gradmm``, whose gradient grows
+    ~2.26x a step: they are held at T=32 at float32 weights and residuals
+    within FUSED_TOL["float32"], their bfloat16 gap at T=32 and the
+    outputs that are non-finite at T=250, in the kernel and in the plain
+    version, are logged; ``prod`` bit for bit ``srt_ln_lstm_bwd`` (the
+    weight gradients as float32). Both ``prod`` arms are timed beside
+    the production entry, and every arm against its row-block design
+    (``ladder_ab``). Then each ladder's run function (whose record names
+    the entry ``prod`` is, carries its own time and the grid-scaling
+    runs) and the LN-stats A/B, the ladder's launch counters zeroed just
+    before each and read just after, each record on one line. Returns
+    the launches by row."""
     import torch
 
     from sketch_rnn_tpu_torch.ops import cuda_fused as CF
@@ -2747,33 +2817,36 @@ def check_probe_ladder(card, rows):
              "free_running_held": arm != "prod",
              "stepwise_f32_rel_err": rel32}
         if arm == "prod":
-            rowblock, want = CF.ln_lstm_fwd_entries(c0=z, h0=z,
-                                                    residual_dtype=bf, **inp)
-            rowblock("srt_ln_lstm_fwd_rowblock")
-            r["bitwise_srt_ln_lstm_fwd_rowblock"] = same(got, want)
-            if not r["bitwise_srt_ln_lstm_fwd_rowblock"]:
+            production, want = CF.ln_lstm_fwd_entries(
+                c0=z, h0=z, residual_dtype=bf, **inp)
+            production("srt_ln_lstm_fwd")
+            r["bitwise_srt_ln_lstm_fwd"] = same(got, want)
+            if not r["bitwise_srt_ln_lstm_fwd"]:
                 raise AssertionError("fwd_arm(prod) is not bitwise the "
-                                     "row-block LN forward")
+                                     "production LN forward")
             del want
             r["ms_beside_fused_ln_lstm_fwd"] = dict(zip(
-                ("prod_arm", "fused_ln_lstm_fwd", "srt_ln_lstm_fwd_rowblock"),
+                ("prod_arm", "fused_ln_lstm_fwd", "srt_ln_lstm_fwd"),
                 _probe.interleaved(
                     [lambda: PS.fwd_arm("prod", **fkw),
                      lambda: CF.ln_lstm_fwd(c0=z, h0=z, residual_dtype=bf,
                                             **inp),
-                     lambda: rowblock("srt_ln_lstm_fwd_rowblock")], 1, 2)))
-            del rowblock
+                     lambda: production("srt_ln_lstm_fwd")], 1, 2)))
+            del production
+        del got, again
+        ladder_ab("fwd", arm, fkw, r)
         fl = 0 if arm == "floor" else prod_flops
+        outs = PS.fwd_arm(arm, **fkw)
         moved = (nbytes(inp["xs"][:, :, :1], inp["x_bias"][:, :h], z, z,
-                        *got) if arm == "floor" else
-                 ladder_bytes(inp, ("xs", "x_bias", *params), (z, z, *got)))
+                        *outs) if arm == "floor" else
+                 ladder_bytes(inp, ("xs", "x_bias", *params), (z, z, *outs)))
+        del outs
         bms, by = bound_ms(fl, moved, dt)
         r.update(plain_ms=_probe.events_ms(free, 1), bound_ms=bms,
                  bound_by=by, library_ms=None, flops=fl, bytes=moved)
         arms[f"fwd_{arm}"] = r
         log("kernel", name=f"ln_probe_fwd[{arm}]", dtype=dt, T=t, B=b, H=h,
             D=d, tol=tol, **r)
-        del got, again
 
     bi = PS.bwd_inputs(inp)
     names = FUSED_OUTPUTS["fused_ln_lstm_bwd"]
@@ -2819,22 +2892,21 @@ def check_probe_ladder(card, rows):
             r["non_finite_at_T250"] = {"kernel": fin(run(**bi)),
                                        "plain": fin(plain(bi))}
         if arm == "prod":
-            rowblock, want = CF.ln_lstm_bwd_entries(**bi)
-            rnd = lambda o: (*o[:2], o[2].to(bf), o[3].to(bf), *o[4:])
-            rowblock("srt_ln_lstm_bwd_rowblock")
-            r["bitwise_srt_ln_lstm_bwd_rowblock"] = same(rnd(run(**bi)),
-                                                         rnd(want))
-            if not r["bitwise_srt_ln_lstm_bwd_rowblock"]:
+            production, want = CF.ln_lstm_bwd_entries(**bi)
+            production("srt_ln_lstm_bwd")
+            r["bitwise_srt_ln_lstm_bwd"] = same(run(**bi), want)
+            if not r["bitwise_srt_ln_lstm_bwd"]:
                 raise AssertionError("bwd_arm(prod) is not bitwise the "
-                                     "row-block LN backward")
+                                     "production LN backward")
             del want
             r["ms_beside_fused_ln_lstm_bwd"] = dict(zip(
-                ("prod_arm", "fused_ln_lstm_bwd", "srt_ln_lstm_bwd_rowblock"),
+                ("prod_arm", "fused_ln_lstm_bwd", "srt_ln_lstm_bwd"),
                 _probe.interleaved(
                     [lambda: run(**bi), lambda: CF.ln_lstm_bwd(**bi),
-                     lambda: rowblock("srt_ln_lstm_bwd_rowblock")], 1, 2)))
-            del rowblock
+                     lambda: production("srt_ln_lstm_bwd")], 1, 2)))
+            del production
             torch.cuda.empty_cache()
+        ladder_ab("bwd", arm, bi, r)
         weight = arm in ("prod", "no_lnbwd", "no_ln", "fake", "no_gates")
         fl = (3 * prod_flops if weight else
               prod_flops + 2 * t * b * h * 4 * h if arm == "no_gradmm"
@@ -2882,8 +2954,12 @@ def check_probe_ladder(card, rows):
             LADDER_ROWS, ("fwd", "bwd", "bwd"), ("no_ln", "no_lnbwd", "fake"),
             (PS.FWD_ARMS, PS.ARMS, ("fake",))):
         mine = {a: arms[f"{way}_{a}"] for a in names}
+        ab = {a: {k: v["ab"][k] for k in ("ms", "rowblock_ms", "speedup")}
+              for a, v in mine.items()}
         rows[row] = {dt: dict(mine[shown], arm=shown, arms=mine,
-                              err=max(r["err"] for r in mine.values()))}
+                              err=max(r["err"] for r in mine.values()),
+                              rowblock_ms=ab[shown]["rowblock_ms"],
+                              speedup=ab[shown]["speedup"], ab=ab)}
         by_row[row] = sum(r["launches"] for r in mine.values())
     log("probe_ladder", seconds=time.perf_counter() - t_phase,
         launches=by_row)
@@ -3077,7 +3153,8 @@ def main():
                                "max_abs_err": v["err"],
                                **{k: v[k] for k in keys}}
                            for a, v in r["arms"].items()}
-        for extra in ("ab", "weight_pass", "lstm", "kernel_ms"):
+        for extra in ("ab", "weight_pass", "lstm", "kernel_ms",
+                      "rowblock_ms", "speedup"):
             if extra in r:      # the A/B records, the serving entries alone
                 out[extra] = r[extra]
         for other in want - {dt}:

@@ -85,6 +85,9 @@
 // row 7). Compile-time policies give each user its x part (here XProduct:
 // x @ wx + b from resident wx columns) and its backward gate source (here
 // GatesRecompute: the hoisted recompute's pre); the rest is one code.
+// Likewise the LayerNorm-LSTM's two loops and their launches live in
+// ln_lstm.cuh, shared with probe_ln.cu (the LayerNorm ladder, rows 8-9),
+// whose arms are compile-time policies of them; production is the default.
 //
 // Design of the LSTM forward (srt_lstm_fwd): one persistent kernel
 // launched cooperatively, on the backward loop's grid: slices of 16
@@ -290,8 +293,9 @@
 
 #include <cooperative_groups.h>
 
-#include "lstm_loops.cuh"
+#include "ln_lstm.cuh"
 #include "ln_loop.cuh"
+#include "lstm_loops.cuh"
 #include "persist.cuh"
 #include "recompute.cuh"
 #include "rnn_common.cuh"
@@ -562,614 +566,6 @@ cudaError_t launch_lstm_bwd(const Bwd<W, R>& a, int stage, float* dwx,
   return err;
 }
 
-// ---------------------------------------------------------------------------
-// The LayerNorm-LSTM backward of srt_ln_lstm_bwd: four launches (header,
-// "Design of the LayerNorm-LSTM backward"). The first is the LSTM's
-// recompute (Cell::b is null).
-
-// 3. The serial loop, one persistent cooperative kernel on the LSTM
-// loop's grid, its phases (a)-(c) ln_loop.cuh's (shared with the HyperLSTM
-// backward's loop). Block (tile, slice) keeps the wh rows of its units
-// resident (as float) and the dh parts of its pairs in shared memory;
-// thread tid owns the pairs q = tid + k * kLoopThreads, all of unit j0 +
-// tid % kUnits, so a half warp holds the 16 units of one row and the
-// unit's LN parameters sit in registers. Each pair's running dc (in dc0),
-// LN sums (in part, [B, 10H]) and dx_bias sums (in dxb) are read and
-// written by their owner only. Per step s: (a) each pair's gate block from
-// the hoisted pre and statistics; the half warp sums dxh_c and dxh_c *
-// xhat_c over its units into exa; barrier. (b) the cell norm's row sums,
-// over the slices in order; dcv, the four dy, the LN sums, dxh stashed,
-// and the gate norms' 8 partials into exb; barrier. (c) those sums in
-// slice order give d_pre, written over pre in place (LnDpre), and the
-// dx_bias sums; barrier. (d) dh_{s-1} for the block's rows and units
-// (dh_parts). Exchanges and d_pre are written by other blocks during the
-// kernel: read through L2.
-template <typename W, typename R>
-__global__ void __launch_bounds__(kLoopThreads)
-ln_lstm_bwd_loop_kernel(Bwd<W, R> a, LnWork w, int slices, int tiles,
-                        int parts, int r0, int nr) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Cell<W>& p = a.p;
-  const int H = p.H, G = 4 * H;
-  const int sl = blockIdx.x % slices, bt = blockIdx.x / slices;
-  const int j0 = sl * H / slices, nu = (sl + 1) * H / slices - j0;
-  const int b0 = r0 + bt * nr / tiles;
-  const int nb = (bt + 1) * nr / tiles - bt * nr / tiles;
-  const int nb_max = (nr + tiles - 1) / tiles;
-  // [kUnits][4H], zero past nu; a bf16 weight widened once, exactly (its
-  // unpacking at every use cost more than the bytes it saves)
-  float* s_w = reinterpret_cast<float*>(smem_raw);
-  // [parts][nb_max][kUnits]: dh of every pair is the sum of its parts
-  float* s_part = s_w + kUnits * G;
-  float* s_ex = s_part + parts * nb_max * kUnits;  // [kLnRows][slices][8]
-  const LnCtx<kUnits> c = ln_ctx<kUnits>(a, s_part, s_ex, slices, sl, j0,
-                                         nu, b0, nb, nb_max, parts, 10 * H);
-  const int tid = threadIdx.x;
-
-  for (int e = tid; e < kUnits * G; e += kLoopThreads) {
-    const int k = e / G, cc = e - k * G;
-    s_w[e] = k < nu ? to_f(p.wh[(size_t)(j0 + k) * G + cc]) : 0.0f;
-  }
-  ln_init(a, c, nb_max);
-  __syncthreads();  // s_part holds dhT
-  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
-
-  for (int s = a.T - 1; s >= 0; --s) {
-    ln_phase_a(a, c, w, s);
-    grid.sync();  // exa complete
-    ln_phase_b(a, c, w, s);
-    grid.sync();  // exb complete
-    LnDpre e(a.dxb, H);
-    ln_phase_c(a, c, w, s, e);
-    grid.sync();  // d_pre[s] complete across the grid
-    dh_parts<W>(a.dpre + ((size_t)s * a.B + b0) * G, s_w, s_part, H, nb,
-                nb_max, parts);
-    __syncthreads();  // every part of this step's dh written
-  }
-  if (a.dxs != nullptr) dxs_rows(a, r0, nr);
-  ln_dh0(a, c);
-}
-
-// The LN loop's grid (the LSTM loop's) and shared memory (the resident wh
-// rows, the dh parts, a pass's rows of an exchange) for a window of rows.
-template <typename W>
-size_t ln_loop_smem(int rows, int H, int sms) {
-  const LoopGrid g = loop_grid<W>(rows, H, sms);
-  const int nb_max = (rows + g.tiles - 1) / g.tiles;
-  return ((size_t)kUnits * 4 * H + (size_t)g.parts * nb_max * kUnits +
-          (size_t)kLnRows * g.slices * 8) *
-         sizeof(float);
-}
-
-// The LN loop's windows, planned before any launch (ready_loop).
-template <typename W, typename R>
-cudaError_t ln_loop_plan(const Bwd<W, R>& a, LoopPlan& plan) {
-  if (a.B < 1 || a.dc0 == nullptr || a.dh0 == nullptr || a.part == nullptr)
-    return cudaErrorInvalidValue;
-  int smem_max = 0;
-  cudaError_t err = device_limits(plan.sms, smem_max);
-  if (err != cudaSuccess) return err;
-  const int H = a.p.H, sms = plan.sms;
-  plan.win = plan_windows(a.B, (size_t)smem_max, [&](int rows) {
-    return ln_loop_smem<W>(rows, H, sms);
-  });
-  plan.fn = (const void*)ln_lstm_bwd_loop_kernel<W, R>;
-  const LoopGrid g0 = loop_grid<W>(plan.win.most(a.B), H, sms);
-  return ready_loop(plan.fn, kLoopThreads, plan.win, g0.slices * g0.tiles,
-                    sms);
-}
-
-// The four launches in order (stage 0), or one of them: 1 the recompute,
-// 2 the statistics, 3 the loop with the LN parameters' row sum, 4 the
-// weight pass.
-template <typename W, typename R>
-cudaError_t launch_ln_lstm_bwd(const Bwd<W, R>& a, float* work, int stage,
-                               float* dwx, float* dwh, float* dln,
-                               cudaStream_t stream) {
-  const int H = a.p.H, M = a.T * a.B;
-  if (H < 1 || H > kMaxThreads || stage < 0 || stage > 4)
-    return cudaErrorInvalidValue;
-  const bool loop = stage == 0 || stage == 3;
-  LoopPlan plan;
-  cudaError_t err = loop ? ln_loop_plan(a, plan) : cudaSuccess;
-  LnWork w = ln_work(work, a.T, a.B, H, (H + kUnits - 1) / kUnits);
-  if (err == cudaSuccess && (stage == 0 || stage == 1))
-    err = launch_recompute(a, stream);
-  if (err == cudaSuccess && (stage == 0 || stage == 2) && M > 0) {
-    ln_stats_kernel<W, R><<<M, threads_for(H), 0, stream>>>(a, w.stats);
-    err = cudaGetLastError();
-  }
-  if (err == cudaSuccess && loop) {
-    for (int win = 0; win < plan.win.n && err == cudaSuccess; ++win) {
-      int r0 = plan.win.first(win, a.B), nr = plan.win.rows(win, a.B);
-      LoopGrid g = loop_grid<W>(nr, H, plan.sms);
-      Bwd<W, R> args = a;
-      void* params[] = {&args, &w, &g.slices, &g.tiles, &g.parts, &r0, &nr};
-      err = cudaLaunchCooperativeKernel(
-          plan.fn, dim3(g.slices * g.tiles), dim3(kLoopThreads), params,
-          ln_loop_smem<W>(nr, H, plan.sms), stream);
-    }
-    if (err == cudaSuccess) {
-      sum_rows_kernel<<<(10 * H + 255) / 256, 256, 0, stream>>>(a.part, a.B,
-                                                                10 * H, dln);
-      err = cudaGetLastError();
-    }
-  }
-  if (err == cudaSuccess && (stage == 0 || stage == 4))
-    err = launch_weight_grad(a, 0, dwx, dwh, nullptr, stream);
-  return err;
-}
-
-// ---------------------------------------------------------------------------
-// The LayerNorm-LSTM forward of srt_ln_lstm_fwd: one persistent cooperative
-// kernel (header, "Design of the LayerNorm-LSTM forward"), on the LSTM
-// forward's grid with its resident columns and its h exchange. A warp task
-// is the kUnits units of the slice x (kLnRowLanes * ROWS) rows (ROWS =
-// kLnFwdRows): lane l takes unit l % 16 and the rows l / 16 + 2 i (i <
-// ROWS), all four gates
-// of each, so a half warp holds the units of one row and a row's sums over
-// the slice are half-warp shuffles. Per step: (a) the products, each gate's
-// slice mean and M2 to an exchange; grid barrier; (b) the gates' row
-// statistics, the gate block, the new cell state's slice mean and M2 to a
-// second exchange; grid barrier; (c) the cell norm's row statistics, h and
-// the stores; grid barrier.
-constexpr int kLnRowLanes = 32 / kUnits;  // row groups per warp task
-constexpr int kLnFwdRows = 2;             // rows per thread and row group
-constexpr int kLnGateEx = 8;              // per row and slice: mean[4], M2[4]
-
-// The scratch of srt_ln_lstm_fwd beside hx, carved from one float buffer in
-// this order (16-byte aligned first): the gate norms' slice partials
-// ([B][slices][kLnGateEx]), the cell norm's ([B][slices][2]) and, only
-// where a tile's rows pass in several chunks, each pair's pre-activations
-// from (a) to (b), then its new cell state and o from (b) to (c)
-// ([4][B][H]).
-struct LnFwdWork {
-  float* exg;
-  float* exc;
-  float* stash;
-};
-
-LnFwdWork ln_fwd_work(float* work, int B, int H) {
-  const size_t slices = (size_t)(H + kUnits - 1) / kUnits;
-  LnFwdWork w;
-  w.exg = work;
-  w.exc = w.exg + (size_t)B * slices * kLnGateEx;
-  w.stash = w.exc + (size_t)B * slices * 2;
-  return w;
-}
-
-// The slice-local moments of N values per lane over the 16 lanes of a half
-// warp (one row's units; a lane past the slice's n units contributes
-// nothing): mean[g] = sum / n, then m2[g] = sum of (v - mean)^2 (two
-// passes). Every lane gets them. All 32 lanes must call it.
-template <int N>
-__device__ __forceinline__ void slice_moments(const float (&v)[N], bool real,
-                                              float n, float (&mean)[N],
-                                              float (&m2)[N]) {
-#pragma unroll
-  for (int g = 0; g < N; ++g) mean[g] = real ? v[g] : 0.0f;
-  half_warp_sum(mean);
-#pragma unroll
-  for (int g = 0; g < N; ++g) {
-    mean[g] = mean[g] / n;
-    const float d = v[g] - mean[g];
-    m2[g] = real ? d * d : 0.0f;
-  }
-  half_warp_sum(m2);
-}
-
-// The layer-norm statistics of N rows from their slices' (mean, M2)
-// partials, m[n][k * stride] and m[n][k * stride + off], each row's
-// combined in slice order by Chan's rule: mean = sum_k n_k m_k / H, M2 =
-// sum_k (M2_k + n_k (m_k - mean)^2), rs = rsqrt(M2 / H + 1e-6). s_n holds
-// each slice's unit count. The rows' sums advance together, so N
-// independent chains are in flight.
-template <int N>
-__device__ __forceinline__ void chan_stats(const float* const (&m)[N],
-                                           int stride, int off,
-                                           const float* s_n, int slices,
-                                           float fh, float (&mean)[N],
-                                           float (&rs)[N]) {
-  float s[N], q[N];
-#pragma unroll
-  for (int r = 0; r < N; ++r) s[r] = q[r] = 0.0f;
-  for (int k = 0; k < slices; ++k) {
-    const float n = s_n[k];
-#pragma unroll
-    for (int r = 0; r < N; ++r) s[r] += n * m[r][k * stride];
-  }
-#pragma unroll
-  for (int r = 0; r < N; ++r) mean[r] = s[r] / fh;
-  for (int k = 0; k < slices; ++k) {
-    const float n = s_n[k];
-#pragma unroll
-    for (int r = 0; r < N; ++r) {
-      const float d = m[r][k * stride] - mean[r];
-      q[r] += m[r][k * stride + off] + n * (d * d);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < N; ++r) rs[r] = rsqrtf(q[r] / fh + 1e-6f);
-}
-
-template <typename W, typename R>
-__global__ void __launch_bounds__(kFwdThreads)
-ln_lstm_fwd_loop_kernel(Fwd<W, R> a, W* hx, LnFwdWork wk, int slices,
-                        int tiles, int chunk, int r0, int nr) {
-  constexpr int ROWS = kLnFwdRows, kTaskRows = kLnRowLanes * ROWS;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Cell<W>& p = a.p;
-  const int H = p.H, G = 4 * H, B = a.B, D = p.D;
-  const int sl = blockIdx.x % slices, bt = blockIdx.x / slices;
-  const int j0 = sl * H / slices, nu = (sl + 1) * H / slices - j0;
-  const int b0 = r0 + bt * nr / tiles;
-  const int nb = (bt + 1) * nr / tiles - bt * nr / tiles;
-  const int nb_max = (nr + tiles - 1) / tiles;
-  const int rs = fwd_row_stride<W>(H);
-  const int kp = ((H + kParts - 1) / kParts + 7) / 8 * 8;  // k per part
-  // [H + D][kUnits][4]: the wh rows, then the wx rows; zero past nu
-  float* s_w = reinterpret_cast<float*>(smem_raw);
-  const float* s_wx = s_w + (size_t)H * kUnits * 4;
-  float* s_n = s_w + (size_t)(H + D) * kUnits * 4;  // [32] units per slice
-  float* s_c = s_n + 32;                             // [nb_max][kUnits]
-  // a chunk's h rows (W, row stride rs) in (a), its rows of an exchange in
-  // (b) and (c)
-  unsigned char* s_buf =
-      reinterpret_cast<unsigned char*>(s_c + (size_t)nb_max * kUnits);
-  W* s_h = reinterpret_cast<W*>(s_buf);
-  float* s_ex = reinterpret_cast<float*>(s_buf);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int u = lane % kUnits, half = lane & ~(kUnits - 1);
-  const bool unit = u < nu;
-  const int j = j0 + (unit ? u : 0);
-  const uint32_t seed = a.drop.seed != nullptr ? (uint32_t)*a.drop.seed : 0u;
-  const bool async = H % (16 / (int)sizeof(W)) == 0 &&
-                     (reinterpret_cast<uintptr_t>(hx) & 15) == 0;
-  const float fh = (float)H, fn = (float)nu;
-  float gam[4], bet[4];
-#pragma unroll
-  for (int g = 0; g < 4; ++g) {
-    gam[g] = unit ? p.ln_gamma[g * H + j] : 0.0f;
-    bet[g] = unit ? p.ln_beta[g * H + j] : 0.0f;
-  }
-  const float gc = unit ? p.lnc_gamma[j] : 0.0f;
-  const float bc = unit ? p.lnc_beta[j] : 0.0f;
-
-  for (int e = tid; e < (H + D) * kUnits * 4; e += kFwdThreads) {
-    const int k = e / (kUnits * 4), uu = (e / 4) % kUnits;
-    const int col = (e % 4) * H + j0 + uu;
-    float v = 0.0f;
-    if (uu < nu)
-      v = to_f(k < H ? p.wh[(size_t)k * G + col]
-                     : p.wx[(size_t)(k - H) * G + col]);
-    s_w[e] = v;
-  }
-  if (tid < slices)
-    s_n[tid] = (float)((tid + 1) * H / slices - tid * H / slices);
-  for (int q = tid; q < nb * kUnits; q += kFwdThreads) {
-    const int uu = q % kUnits;
-    s_c[q] = uu < nu ? a.c0[(size_t)(b0 + q / kUnits) * H + j0 + uu] : 0.0f;
-  }
-  __syncthreads();  // the resident state, before any phase reads it
-  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
-  const size_t plane = (size_t)B * H;
-  const float* wc = s_w + u * 4;
-  const bool multi = nb > chunk;  // else the pairs stay in registers
-  const int lr0 = warp * kTaskRows + lane / kUnits;  // rows lr0 + 2 i
-  float pre[ROWS][4], keep_c[ROWS], keep_o[ROWS];
-  // the stash of pair (row, j), slot g
-  auto stash = [&](int g, int row) -> float& {
-    return wk.stash[((size_t)g * B + row) * H + j];
-  };
-
-  for (int t = 0; t < a.T; ++t) {
-    const W* hin = t == 0 ? nullptr : hx + ((t + 1) & 1) * plane;
-    W* hout = hx + (t & 1) * plane;
-    // (a) the products and the gates' slice moments
-    for (int ch = 0; ch < nb; ch += chunk) {
-      const int cr = nb - ch < chunk ? nb - ch : chunk;
-      const bool busy = warp < (cr + kTaskRows - 1) / kTaskRows;
-      float acc[ROWS][4], xbv[ROWS][4];
-      float xq[ROWS][kMaxXd];
-      if (busy) {  // x and x_bias, asked for ahead of the h copies
-#pragma unroll
-        for (int rr = 0; rr < ROWS; ++rr) {
-          const int lr = lr0 + rr * kLnRowLanes;
-          const bool ok = lr < cr && unit;
-          const int row = b0 + ch + (ok ? lr : 0);
-          const float* x = a.xs + ((size_t)t * B + row) * D;
-#pragma unroll
-          for (int q = 0; q < kMaxXd; ++q)
-            xq[rr][q] = q < D ? rnd<W>(x[q]) : 0.0f;
-#pragma unroll
-          for (int g = 0; g < 4; ++g)
-            xbv[rr][g] = (ok && p.xb != nullptr)
-                             ? p.xb[(size_t)row * G + g * H + j]
-                             : 0.0f;
-        }
-      }
-      load_h_chunk<W>(s_h, rs, a.h0, hin, async, (size_t)(b0 + ch), cr,
-                      H, kp);
-      if (busy) {
-        // while h is in flight: x @ wx, gate_pre's first sum (one in-order
-        // fmaf chain over the D inputs per gate)
-#pragma unroll
-        for (int rr = 0; rr < ROWS; ++rr) {
-          float sx[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-          for (int q = 0; q < kMaxXd; ++q) {
-            if (q >= D) break;
-            const float4 w = quad(s_wx + (q * kUnits + u) * 4);
-            sx[0] = fmaf(xq[rr][q], w.x, sx[0]);
-            sx[1] = fmaf(xq[rr][q], w.y, sx[1]);
-            sx[2] = fmaf(xq[rr][q], w.z, sx[2]);
-            sx[3] = fmaf(xq[rr][q], w.w, sx[3]);
-          }
-          if (D > kMaxXd) {
-            const int lr = lr0 + rr * kLnRowLanes;
-            const int row = b0 + ch + (lr < cr && unit ? lr : 0);
-            const float* x = a.xs + ((size_t)t * B + row) * D;
-            for (int q = kMaxXd; q < D; ++q) {
-              const float xv = rnd<W>(x[q]);
-              const float4 w = quad(s_wx + (q * kUnits + u) * 4);
-              sx[0] = fmaf(xv, w.x, sx[0]);
-              sx[1] = fmaf(xv, w.y, sx[1]);
-              sx[2] = fmaf(xv, w.z, sx[2]);
-              sx[3] = fmaf(xv, w.w, sx[3]);
-            }
-          }
-#pragma unroll
-          for (int g = 0; g < 4; ++g) {
-            pre[rr][g] = sx[g];
-            acc[rr][g] = 0.0f;
-          }
-        }
-      }
-      // h @ wh, part by part: one in-order fmaf chain over k per output
-#pragma unroll
-      for (int part = 0; part < kParts; ++part) {
-        cp_async_wait(kParts - 1 - part);  // this part's copies landed
-        __syncthreads();  // ... for every thread: this part of k in s_h
-        if (!busy) continue;
-        const int k1 = (part + 1) * kp < H ? (part + 1) * kp : H;
-        int k = part * kp;
-#pragma unroll 2
-        for (; k + 4 <= k1; k += 4) {
-          float4 hv[ROWS];
-#pragma unroll
-          for (int rr = 0; rr < ROWS; ++rr)
-            hv[rr] = quad(s_h + (size_t)(lr0 + rr * kLnRowLanes) * rs + k);
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            const float4 w = quad(wc + (size_t)(k + kk) * kUnits * 4);
-#pragma unroll
-            for (int rr = 0; rr < ROWS; ++rr) {
-              const float h = kk == 0   ? hv[rr].x
-                              : kk == 1 ? hv[rr].y
-                              : kk == 2 ? hv[rr].z
-                                        : hv[rr].w;
-              acc[rr][0] = fmaf(h, w.x, acc[rr][0]);
-              acc[rr][1] = fmaf(h, w.y, acc[rr][1]);
-              acc[rr][2] = fmaf(h, w.z, acc[rr][2]);
-              acc[rr][3] = fmaf(h, w.w, acc[rr][3]);
-            }
-          }
-        }
-        for (; k < k1; ++k) {
-          const float4 w = quad(wc + (size_t)k * kUnits * 4);
-#pragma unroll
-          for (int rr = 0; rr < ROWS; ++rr) {
-            const float h =
-                to_f(s_h[(size_t)(lr0 + rr * kLnRowLanes) * rs + k]);
-            acc[rr][0] = fmaf(h, w.x, acc[rr][0]);
-            acc[rr][1] = fmaf(h, w.y, acc[rr][1]);
-            acc[rr][2] = fmaf(h, w.z, acc[rr][2]);
-            acc[rr][3] = fmaf(h, w.w, acc[rr][3]);
-          }
-        }
-      }
-      if (busy) {
-#pragma unroll
-        for (int rr = 0; rr < ROWS; ++rr) {
-          const int lr = lr0 + rr * kLnRowLanes;
-          const int row = b0 + ch + lr;
-#pragma unroll
-          for (int g = 0; g < 4; ++g) {  // (x @ wx + h @ wh) [+ x_bias]
-            pre[rr][g] = pre[rr][g] + acc[rr][g];
-            if (p.xb != nullptr) pre[rr][g] = pre[rr][g] + xbv[rr][g];
-          }
-          float mean[4], m2[4];
-          slice_moments(pre[rr], unit, fn, mean, m2);
-          if (lr >= cr) continue;
-          if (u == 0) {
-            float4* dst = reinterpret_cast<float4*>(
-                wk.exg + ((size_t)row * slices + sl) * kLnGateEx);
-            dst[0] = make_float4(mean[0], mean[1], mean[2], mean[3]);
-            dst[1] = make_float4(m2[0], m2[1], m2[2], m2[3]);
-          }
-          if (multi && unit) {
-#pragma unroll
-            for (int g = 0; g < 4; ++g) stash(g, row) = pre[rr][g];
-          }
-        }
-      }
-      __syncthreads();  // every read of s_h done: next chunk
-    }
-    grid.sync();  // the gates' slice moments complete across the grid
-    // (b) the gates' row statistics, the gate block, the cell's moments
-    for (int ch = 0; ch < nb; ch += chunk) {
-      const int cr = nb - ch < chunk ? nb - ch : chunk;
-      const bool busy = warp < (cr + kTaskRows - 1) / kTaskRows;
-      stage_ex<float4>(s_ex, wk.exg, (size_t)(b0 + ch) * slices * kLnGateEx,
-                       cr * slices * kLnGateEx / 4);
-      __syncthreads();  // this chunk's rows of the exchange in s_ex
-      if (busy) {
-        // lane u combines gate u % 4 of each of its rows; the half warp
-        // shares them
-        const float* ex[ROWS];
-#pragma unroll
-        for (int rr = 0; rr < ROWS; ++rr) {
-          const int lr = lr0 + rr * kLnRowLanes;
-          ex[rr] = s_ex + (size_t)(lr < cr ? lr : 0) * slices * kLnGateEx +
-                   (u & 3);
-        }
-        float gm[ROWS], gr[ROWS];
-        chan_stats(ex, kLnGateEx, 4, s_n, slices, fh, gm, gr);
-#pragma unroll
-        for (int rr = 0; rr < ROWS; ++rr) {
-          const int lr = lr0 + rr * kLnRowLanes;
-          const bool ok = lr < cr;
-          const int row = b0 + ch + (ok ? lr : 0);
-          float mean[4], rsg[4];
-#pragma unroll
-          for (int g = 0; g < 4; ++g) {
-            mean[g] = __shfl_sync(0xffffffffu, gm[rr], half | g);
-            rsg[g] = __shfl_sync(0xffffffffu, gr[rr], half | g);
-          }
-          if (multi && ok && unit) {
-#pragma unroll
-            for (int g = 0; g < 4; ++g) pre[rr][g] = stash(g, row);
-          }
-          const float c = s_c[(size_t)(ch + (ok ? lr : 0)) * kUnits + u];
-          const float m = dropout_mask(a.drop, seed, t, B, row, H, j);
-          float y[4];
-#pragma unroll
-          for (int g = 0; g < 4; ++g)
-            y[g] = (pre[rr][g] - mean[g]) * rsg[g] * gam[g] + bet[g];
-          const float i = sigmoidf_(y[0]), gu = tanhf(y[1]);
-          const float f = sigmoidf_(y[2] + p.forget_bias);
-          keep_o[rr] = sigmoidf_(y[3]);
-          keep_c[rr] = c * f + i * (gu * m);
-          float cm[1], cq[1];
-          const float nc[1] = {keep_c[rr]};
-          slice_moments(nc, unit, fn, cm, cq);
-          if (!ok) continue;
-          if (u == 0)
-            reinterpret_cast<float2*>(wk.exc)[(size_t)row * slices + sl] =
-                make_float2(cm[0], cq[0]);
-          if (multi && unit) {
-            stash(0, row) = keep_c[rr];
-            stash(1, row) = keep_o[rr];
-          }
-        }
-      }
-      __syncthreads();  // s_ex read: next chunk
-    }
-    grid.sync();  // the cell's slice moments complete across the grid
-    // (c) the cell norm, h and the stores
-    for (int ch = 0; ch < nb; ch += chunk) {
-      const int cr = nb - ch < chunk ? nb - ch : chunk;
-      const bool busy = warp < (cr + kTaskRows - 1) / kTaskRows;
-      stage_ex<float2>(s_ex, wk.exc, (size_t)(b0 + ch) * slices * 2,
-                       cr * slices);
-      __syncthreads();  // this chunk's rows of the exchange in s_ex
-      if (busy) {
-        const float* ex[ROWS];
-#pragma unroll
-        for (int rr = 0; rr < ROWS; ++rr) {
-          const int lr = lr0 + rr * kLnRowLanes;
-          ex[rr] = s_ex + (size_t)(lr < cr ? lr : 0) * slices * 2;
-        }
-        float cmean[ROWS], crs[ROWS];
-        chan_stats(ex, 2, 1, s_n, slices, fh, cmean, crs);
-#pragma unroll
-        for (int rr = 0; rr < ROWS; ++rr) {
-          const int lr = lr0 + rr * kLnRowLanes;
-          if (lr >= cr || !unit) continue;
-          const int row = b0 + ch + lr;
-          float nc = keep_c[rr], o = keep_o[rr];
-          if (multi) {
-            nc = stash(0, row);
-            o = stash(1, row);
-          }
-          const float yc = (nc - cmean[rr]) * crs[rr] * gc + bc;
-          const float nh = tanhf(yc) * o;
-          float* cp = s_c + (size_t)(ch + lr) * kUnits + u;
-          const size_t at = ((size_t)t * B + row) * H + j;
-          a.cs[at] = from_f<R>(*cp);
-          a.hs[at] = from_f<R>(nh);
-          hout[(size_t)row * H + j] = from_f<W>(nh);
-          *cp = nc;
-          if (a.cT != nullptr && t == a.T - 1) {
-            a.cT[(size_t)row * H + j] = nc;
-            a.hT[(size_t)row * H + j] = nh;
-          }
-        }
-      }
-      __syncthreads();  // s_ex read: next chunk
-    }
-    grid.sync();  // hx[t & 1] complete: step t + 1 may read it
-  }
-  if (a.T == 0 && a.cT != nullptr) {  // no step: the final carry is the first
-    for (int q = tid; q < nb * kUnits; q += kFwdThreads) {
-      if (q % kUnits >= nu) continue;
-      const size_t at = (size_t)(b0 + q / kUnits) * H + j0 + q % kUnits;
-      a.cT[at] = a.c0[at];
-      a.hT[at] = a.h0[at];
-    }
-  }
-}
-
-// The LayerNorm-LSTM forward's grid (fwd_grid's slices and tiles) and
-// shared memory: the resident columns, the slices' unit counts and the
-// carries, then a chunk buffer that holds a chunk's h rows in (a) and its
-// rows of an exchange in (b) and (c), as many rows as fit, a multiple of a
-// task's rows, at most the tile's rows rounded up and at most one task per
-// warp. False when not even one task's rows fit. Rows per thread: 2 at
-// either weight type (at B=100, H=512 float 4 rows left four warps to the
-// phases after the product and took 6.53 ms a call against 5.95, the
-// outputs bitwise equal; measured on an H100).
-template <typename W>
-bool ln_fwd_grid(int B, int H, int D, int sms, int smem_max, FwdGrid& g) {
-  const LoopGrid lg = loop_grid<float>(B, H, sms);
-  g.slices = lg.slices;
-  g.tiles = lg.tiles;
-  const int nb_max = (B + g.tiles - 1) / g.tiles;
-  g.rows = kLnFwdRows;
-  const int task_rows = kLnRowLanes * g.rows;
-  const size_t fixed =
-      ((size_t)(H + D) * kUnits * 4 + 32 + (size_t)nb_max * kUnits) *
-      sizeof(float);
-  size_t row = (size_t)fwd_row_stride<W>(H) * sizeof(W);
-  const size_t ex = (size_t)g.slices * kLnGateEx * sizeof(float);
-  if (ex > row) row = ex;
-  if (fixed + task_rows * row > (size_t)smem_max) return false;
-  int chunk = (int)(((size_t)smem_max - fixed) / row) / task_rows * task_rows;
-  const int need = (nb_max + task_rows - 1) / task_rows * task_rows;
-  const int most = kFwdWarps * task_rows;
-  if (chunk > need) chunk = need;
-  if (chunk > most) chunk = most;
-  g.chunk = chunk;
-  g.smem = fixed + (size_t)chunk * row;
-  return true;
-}
-
-// The LayerNorm-LSTM forward's cooperative loop over windows of rows, work
-// its LnFwdWork scratch (lstm_loops.cuh's fwd_windows).
-template <typename W, typename R>
-cudaError_t launch_ln_fwd_loop(const Fwd<W, R>& a, W* hx, float* work,
-                               cudaStream_t stream) {
-  const int H = a.p.H, D = a.p.D;
-  LnFwdWork wk = ln_fwd_work(work, a.B, H);
-  return fwd_windows(
-      a.B, H,
-      [&](int rows, int sms, int smem_max, FwdGrid& g) {
-        return ln_fwd_grid<W>(rows, H, D, sms, smem_max, g);
-      },
-      [](const FwdGrid&) {
-        return (const void*)ln_lstm_fwd_loop_kernel<W, R>;
-      },
-      [&](const void* fn, FwdGrid& g, int r0, int nr) {
-        Fwd<W, R> args = a;
-        W* hxp = hx;
-        void* params[] = {&args,    &hxp,     &wk, &g.slices,
-                          &g.tiles, &g.chunk, &r0, &nr};
-        return cudaLaunchCooperativeKernel(fn, dim3(g.slices * g.tiles),
-                                           dim3(kFwdThreads), params, g.smem,
-                                           stream);
-      });
-}
-
 // srt_lstm_fwd's arguments as a Fwd, launched by the cooperative loop or,
 // with rowblock, by the row-block design (which needs no hx).
 cudaError_t lstm_fwd_any(bool rowblock, const float* xs, const float* xb,
@@ -1274,7 +670,8 @@ cudaError_t ln_lstm_fwd_any(bool rowblock, const float* xs, const float* xb,
     a.B = B;
     const cudaStream_t st = (cudaStream_t)stream;
     if (rowblock) return launch_fwd<true>(a, st);
-    return launch_ln_fwd_loop(a, static_cast<W*>(hx), work, st);
+    return launch_ln_fwd_loop(a, static_cast<W*>(hx),
+                              ln_fwd_work(work, B, H), st);
   });
 }
 

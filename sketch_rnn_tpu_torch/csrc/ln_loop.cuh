@@ -10,8 +10,11 @@
 // the gate norms' partials, (c) their row sums in slice order and d_pre.
 // Phase (c) hands each pair's d_pre to an Emit policy: LnDpre (row 5b)
 // writes it over pre and adds the dx_bias sums; the HyperLSTM's writes
-// d_pre and its four products with the scales and projections. Everything
-// sits in an unnamed namespace: each translation unit gets its own copy.
+// d_pre and its four products with the scales and projections. The
+// statistics come from a second policy: the hoisted launch's (rows 5b and
+// 6b) or, for two arms of the LayerNorm ladder (probe_ln.cu), stand-ins.
+// Everything sits in an unnamed namespace: each translation unit gets its
+// own copy.
 
 #pragma once
 
@@ -89,6 +92,20 @@ ln_stats_kernel(Bwd<W, R> a, float* stats) {
   }
 }
 
+// Where the loop's layer-norm statistics come from, a compile-time policy.
+// LnStatsHoisted (rows 5b, 6b): the statistics launch's [T * B][kLnStats]
+// scratch. LnStatsStandIn (the ladder's no_ln and fake arms, probe_ln.cu):
+// the reference probes' stand-ins, built from the row's stored pre-step cell
+// state, mean = cs[s, row, 0] * 1e-3 and rs = 1 + cs[s, row, 1] * 1e-3 for
+// the four gates and the cell, whose new state is then built without the
+// mask and hands on g_u * m (masked again by the backward).
+struct LnStatsHoisted {
+  static constexpr bool kStandIn = false;
+};
+struct LnStatsStandIn {
+  static constexpr bool kStandIn = true;
+};
+
 // Sum N values over the U lanes of one row's units (a half warp at U =
 // kUnits); every lane gets the same sums. All 32 lanes must call it.
 template <int U, int N>
@@ -132,11 +149,14 @@ __device__ __forceinline__ void stage_ex(float* s_ex, const float* ex,
 
 // The gate block of one (row, unit) pair up to the cell norm's input
 // gradient, from the hoisted pre, the row's statistics st and the pair's
-// c_prev, mask m and dh_tot: ln_gates_bwd before its first block sum.
+// c_prev, mask m and dh_tot: ln_gates_bwd before its first block sum (with
+// STANDIN, the stand-in forward's: the new cell state without the mask, gu
+// handed on masked).
 struct LnPair {
   float xhat[4], i, gu, f, o, xhat_c, crs, do_, dyc, c_prev, m;
 };
 
+template <bool STANDIN = false>
 __device__ __forceinline__ LnPair ln_pair(const float (&pre)[4],
                                           const float (&st)[kLnStats],
                                           float c_prev, float m,
@@ -157,7 +177,13 @@ __device__ __forceinline__ LnPair ln_pair(const float (&pre)[4],
   r.gu = tanhf(y[1]);
   r.f = sigmoidf_(y[2] + forget_bias);
   r.o = sigmoidf_(y[3]);
-  const float nc = c_prev * r.f + r.i * (r.gu * m);
+  float nc;
+  if constexpr (STANDIN) {
+    nc = c_prev * r.f + r.i * r.gu;
+    r.gu = r.gu * m;
+  } else {
+    nc = c_prev * r.f + r.i * (r.gu * m);
+  }
   r.xhat_c = (nc - st[8]) * st[9];
   const float yc = r.xhat_c * gc + bc;
   const float tanh_yc = tanhf(yc);
@@ -225,7 +251,9 @@ __device__ __forceinline__ LnCtx<U> ln_ctx(const Bwd<W, R>& a,
 // Before the first step: the dh parts hold dhT (part 0) and zeros, and
 // each pair's running dc (dc0), LN sums (part) and dx_bias sums (dxb)
 // start from dcT and zeros. A __syncthreads must follow.
-template <int U, typename W, typename R>
+// Without SUMS (the ladder's arms that keep no LN sums) part is not
+// touched.
+template <int U, bool SUMS = true, typename W, typename R>
 __device__ __forceinline__ void ln_init(const Bwd<W, R>& a, const LnCtx<U> c,
                                         int nb_max) {
   const int H = a.p.H, G = 4 * H, tid = threadIdx.x;
@@ -240,9 +268,11 @@ __device__ __forceinline__ void ln_init(const Bwd<W, R>& a, const LnCtx<U> c,
     if (!c.unit) continue;
     const size_t at = (size_t)(c.b0 + q / U) * H + c.j;
     a.dc0[at] = a.dcT != nullptr ? a.dcT[at] : 0.0f;
-    float* pr = a.part + (size_t)(c.b0 + q / U) * c.pstride + c.j;
+    if constexpr (SUMS) {
+      float* pr = a.part + (size_t)(c.b0 + q / U) * c.pstride + c.j;
 #pragma unroll
-    for (int e = 0; e < 10; ++e) pr[e * H] = 0.0f;
+      for (int e = 0; e < 10; ++e) pr[e * H] = 0.0f;
+    }
     if (a.dxb != nullptr) {
 #pragma unroll
       for (int g = 0; g < 4; ++g)
@@ -251,8 +281,17 @@ __device__ __forceinline__ void ln_init(const Bwd<W, R>& a, const LnCtx<U> c,
   }
 }
 
+// row-step m's stand-in statistics (LnStatsStandIn): mean and rs
+template <typename W, typename R>
+__device__ __forceinline__ void ln_stand_in(const Bwd<W, R>& a, size_t m,
+                                            float& mean, float& rs) {
+  const R* cr = a.cs + m * a.p.H;
+  mean = to_f(cr[0]) * 1e-3f;
+  rs = 1.0f + to_f(cr[1]) * 1e-3f;
+}
+
 // the inputs of pair q's gate block at step s (a real pair only)
-template <int U, typename W, typename R>
+template <int U, typename W, typename R, typename S = LnStatsHoisted>
 __device__ __forceinline__ LnPair ln_pair_at(const Bwd<W, R>& a,
                                              const LnCtx<U> c,
                                              const LnWork& w, int s, int q) {
@@ -262,24 +301,36 @@ __device__ __forceinline__ LnPair ln_pair_at(const Bwd<W, R>& a,
   float pre[4], st[kLnStats];
 #pragma unroll
   for (int g = 0; g < 4; ++g) pre[g] = __ldcg(a.dpre + m * G + g * H + j);
-  const float2* sp = reinterpret_cast<const float2*>(w.stats +
-                                                     m * kLnStats);
+  if constexpr (S::kStandIn) {
+    float mean, rs;
+    ln_stand_in(a, m, mean, rs);
 #pragma unroll
-  for (int e = 0; e < kLnStats / 2; ++e) {
-    const float2 v = sp[e];
-    st[2 * e] = v.x;
-    st[2 * e + 1] = v.y;
+    for (int g = 0; g < 4; ++g) {
+      st[g] = mean;
+      st[4 + g] = rs;
+    }
+    st[8] = mean;
+    st[9] = rs;
+  } else {
+    const float2* sp = reinterpret_cast<const float2*>(w.stats +
+                                                       m * kLnStats);
+#pragma unroll
+    for (int e = 0; e < kLnStats / 2; ++e) {
+      const float2 v = sp[e];
+      st[2 * e] = v.x;
+      st[2 * e + 1] = v.y;
+    }
   }
   float dh = 0.0f;
   for (int pt = 0; pt < c.parts; ++pt) dh += c.s_part[pt * c.plane + q];
   const float c_prev = to_f(a.cs[at]);
   const float mk = dropout_mask(a.drop, c.seed, s, B, row, H, j);
-  return ln_pair(pre, st, c_prev, mk, dh + to_f(a.dhs[at]), c.gam, c.bet,
-                 c.gc, c.bc, a.p.forget_bias);
+  return ln_pair<S::kStandIn>(pre, st, c_prev, mk, dh + to_f(a.dhs[at]),
+                              c.gam, c.bet, c.gc, c.bc, a.p.forget_bias);
 }
 
 // (a) the cell norm's partials of every row into exa [B][slices][2]
-template <int U, typename W, typename R>
+template <int U, typename W, typename R, typename S = LnStatsHoisted>
 __device__ __forceinline__ void ln_phase_a(const Bwd<W, R>& a,
                                            const LnCtx<U> c, const LnWork& w,
                                            int s) {
@@ -288,7 +339,7 @@ __device__ __forceinline__ void ln_phase_a(const Bwd<W, R>& a,
     const int q = q0 + tid, bl = q / U;
     float v[2] = {0.0f, 0.0f};
     if (c.unit && bl < c.nb) {
-      const LnPair r = ln_pair_at(a, c, w, s, q);
+      const LnPair r = ln_pair_at<U, W, R, S>(a, c, w, s, q);
       v[0] = r.dyc * c.gc;
       v[1] = v[0] * r.xhat_c;
     }
@@ -301,7 +352,7 @@ __device__ __forceinline__ void ln_phase_a(const Bwd<W, R>& a,
 
 // (b) dcv, dy, the LN sums and the gate norms' partials into exb
 // [B][slices][8]; dxh stashed
-template <int U, typename W, typename R>
+template <int U, typename W, typename R, typename S = LnStatsHoisted>
 __device__ __forceinline__ void ln_phase_b(const Bwd<W, R>& a,
                                            const LnCtx<U> c, const LnWork& w,
                                            int s) {
@@ -332,7 +383,7 @@ __device__ __forceinline__ void ln_phase_b(const Bwd<W, R>& a,
 #pragma unroll
       for (int e = 0; e < 10; ++e) ln[e] = pr[e * H];
       const float dc = a.dc0[(size_t)row * H + j];
-      const LnPair r = ln_pair_at(a, c, w, s, q);
+      const LnPair r = ln_pair_at<U, W, R, S>(a, c, w, s, q);
       const float dxh_c = r.dyc * c.gc;
       const float dcv =
           dc + r.crs * (dxh_c - s0 / c.fh - r.xhat_c * (s1 / c.fh));
@@ -375,7 +426,8 @@ __device__ __forceinline__ void ln_phase_b(const Bwd<W, R>& a,
 // once a pair, e.load(g) among the pair's loads, e.put(g, dp, lr) after
 // each gate's store (lr the row within the pass), e.pass_done(bl0, nr)
 // after each pass of kLoopThreads / U rows (all its puts visible).
-template <int U, typename W, typename R, typename Emit>
+template <int U, typename W, typename R, typename Emit,
+          typename S = LnStatsHoisted>
 __device__ __forceinline__ void ln_phase_c(const Bwd<W, R>& a,
                                            const LnCtx<U> c, const LnWork& w,
                                            int s, Emit& e) {
@@ -408,13 +460,23 @@ __device__ __forceinline__ void ln_phase_c(const Bwd<W, R>& a,
       float* dpr = a.dpre + m * G + j;
       e.at(m, row, j);
       float pre[4], dxh[4], mean[4], rs[4];
+      if constexpr (S::kStandIn) {
+        ln_stand_in(a, m, mean[0], rs[0]);
+#pragma unroll
+        for (int g = 1; g < 4; ++g) {
+          mean[g] = mean[0];
+          rs[g] = rs[0];
+        }
+      }
 #pragma unroll
       for (int g = 0; g < 4; ++g) {  // every load before the first store
         pre[g] = __ldcg(dpr + g * H);
         dxh[g] = w.dxh[((size_t)g * B + row) * H + j];
         e.load(g);
-        mean[g] = st[g];
-        rs[g] = st[4 + g];
+        if constexpr (!S::kStandIn) {
+          mean[g] = st[g];
+          rs[g] = st[4 + g];
+        }
       }
 #pragma unroll
       for (int g = 0; g < 4; ++g) {

@@ -831,18 +831,23 @@ bool fwd_grid(int B, int H, int D, int sms, int smem_max, FwdGrid& g) {
 // smem_max, g) sizes a window's grid (false where none forms), kernel(g)
 // is the kernel of a window's rows per thread, launch(fn, g, r0, nr)
 // launches it over the window of nr rows from r0. Both windows' sizes are
-// made ready before the first launch.
+// made ready before the first launch. windows > 0 forces that many
+// (forced_windows; cudaErrorInvalidValue where they do not fit).
 template <typename GridFor, typename KernelFor, typename Launch>
 cudaError_t fwd_windows(int B, int H, GridFor&& grid_for, KernelFor&& kernel,
-                        Launch&& launch) {
+                        Launch&& launch, int windows = 0) {
   if (B < 1 || H < 1 || H > kMaxThreads) return cudaErrorInvalidValue;
   int sms = 0, smem_max = 0;
   cudaError_t err = device_limits(sms, smem_max);
   if (err != cudaSuccess) return err;
-  const Windows win = plan_windows(B, (size_t)smem_max, [&](int rows) {
+  auto smem_for = [&](int rows) {
     FwdGrid g;
     return grid_for(rows, sms, smem_max, g) ? g.smem : SIZE_MAX;
-  });
+  };
+  const Windows win =
+      windows > 0 ? forced_windows(B, windows, (size_t)smem_max, smem_for)
+                  : plan_windows(B, (size_t)smem_max, smem_for);
+  if (windows > 0 && win.n == 0) return cudaErrorInvalidValue;
   FwdGrid g;
   const int sizes[2] = {win.most(B), win.n > 0 ? B / win.n : 1};
   for (int rows : sizes) {

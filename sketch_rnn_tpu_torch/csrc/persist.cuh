@@ -1,6 +1,6 @@
 // The host helpers of the PyTorch port's persistent cooperative loops
-// (the LSTM's two in lstm_loops.cuh, fused_rnn.cu's LayerNorm-LSTM two,
-// probe_seq.cu's probe loop): the card's
+// (the LSTM's two in lstm_loops.cuh, the LayerNorm-LSTM's two in
+// ln_lstm.cuh, probe_seq.cu's probe loop): the card's
 // limits, windows of rows for a batch whose tiles do not fit in one
 // launch, and the checks made before any cooperative launch. Everything
 // sits in an unnamed namespace: each translation unit gets its own copy.
@@ -57,6 +57,26 @@ Windows plan_windows(int B, size_t smem_max, F&& smem_for) {
       win.smem = s;
       return win;
     }
+  }
+  return win;
+}
+
+// n windows of B rows, sized as plan_windows sizes them, for the LayerNorm
+// ladder's grid-scaling runs (probe_ln.cu); no windows (n = 0) where they
+// do not fit in smem_max or n is not in [1, B].
+template <typename F>
+Windows forced_windows(int B, int n, size_t smem_max, F&& smem_for) {
+  Windows win;
+  if (n < 1 || n > B) return win;
+  const int hi = (B + n - 1) / n, lo = B / n;
+  size_t s = smem_for(hi);
+  if (lo > 0 && lo != hi) {
+    const size_t t = smem_for(lo);
+    if (t > s) s = t;
+  }
+  if (s <= smem_max) {
+    win.n = n;
+    win.smem = s;
   }
   return win;
 }

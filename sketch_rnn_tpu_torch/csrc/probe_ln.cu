@@ -1,12 +1,11 @@
 // The LayerNorm-LSTM decomposition ladder of the PyTorch port, hand-written
-// CUDA C++ for Hopper (sm_90a): the row-block LayerNorm-LSTM forward and
-// backward (fused_rnn.cu rnn_fwd_kernel<true, W, R>, rnn_bwd_kernel<true,
-// W, R>, the entries srt_ln_lstm_fwd_rowblock and
-// srt_ln_lstm_bwd_rowblock) with one term of work taken out per arm, so
-// that the difference of two arms' times prices that term. Built by
-// ops/_build.py with nvcc into a shared library with a plain C interface and
-// bound with ctypes by sketch_rnn_tpu_torch/scripts/probe_dec_bwd_split.py
-// and probe_ln_stats.py, whose plain PyTorch versions they are held against.
+// CUDA C++ for Hopper (sm_90a): the production LayerNorm-LSTM forward and
+// backward (srt_ln_lstm_fwd, srt_ln_lstm_bwd; rows 5f and 5b) with one term
+// of work taken out per arm, so that the difference of two arms' times
+// prices that term. Built by ops/_build.py with nvcc into a shared library
+// with a plain C interface and bound with ctypes by
+// sketch_rnn_tpu_torch/scripts/probe_dec_bwd_split.py and probe_ln_stats.py,
+// whose plain PyTorch versions they are held against.
 //
 // Which TPU kernels they replace:
 //   srt_ln_probe_fwd <- scripts/probe_dec_bwd_split.py make_fwd_kernel
@@ -22,9 +21,7 @@
 // they are op-count probes, not models.
 //
 // Forward (outputs hs, cs [T, B, H] in R, cT, hT float):
-//   prod      the row-block forward, operation for operation: bit for bit
-//             srt_ln_lstm_fwd_rowblock (not the production srt_ln_lstm_fwd,
-//             a persistent kernel since).
+//   prod      the production forward.
 //   no_ln     the ten layer-norm statistics replaced by stand-ins read from
 //             the row's pre-step cell state: mean = c[0] * 1e-3, r = 1 +
 //             c[1] * 1e-3 for the four gates and for the cell norm (which
@@ -53,43 +50,68 @@
 //                 floor (no products: d_pre = dh + 0.1 dc [+ x_bias],
 //                 dh_{t-1} = 0.5 dh + 1e-3 h_prev, dx = 0.5 x).
 //
-// The arms on Hopper. The row-block LayerNorm backward per step recomputes
-// pre with the two products of gate_pre, runs the gate block, writes d_pre
-// to the [T, B, 4H] float scratch, and computes the transposed product
-// d_pre @ [wx; wh]^T (the wx rows only because dxs is wanted); a second
-// launch, the split-K weight pass of weight_grad.cuh, reduces dwx/dwh
-// over K = T*B in a fixed order, and sum_rows_kernel adds up the per-row
-// LN partials. So:
-//   no_gates   keeps all three kinds of product and the weight-gradient
-//              launch; writes zero LN sums and runs no sum_rows_kernel.
-//   no_gradmm  drops the weight-gradient launch, the d_pre scratch (nothing
-//              reads it) and the wx rows of the transposed product; writes
-//              zero dwx/dwh and LN sums.
-//   floor      has no product at all, no shared operand and so no barrier;
-//              zero dwx/dwh and LN sums.
-// The layer-norm statistics are block reductions (block_sum, three
-// __syncthreads each): the forward runs four a step (gate_stats, row_stats),
-// the backward six (the four recomputed, plus the corrections' q2 and q8).
-// The stand-in stats take c_prev[0] and c_prev[1] of the row through one
-// shared-memory broadcast written before the step's first barrier, which the
-// step has anyway: no_ln (forward) drops four reductions, no_lnbwd two,
-// no_ln (backward) all six, fake four. Where an arm keeps a product whose
-// result it no longer needs (no_gates' forward, gates 2 and 3), the result
-// feeds a store behind a null pointer test the compiler cannot resolve, so
-// the product is not dead code.
+// The arms on Hopper. Every arm runs on the production kernels' persistent
+// cooperative loops (ln_lstm.cuh; fused_rnn.cu's header has their design),
+// its arm a compile-time policy of the loop and of its launches, so that
+// prod IS the production instantiation: bit for bit srt_ln_lstm_fwd and
+// srt_ln_lstm_bwd, over the same windows of rows. What the others take out:
+//   forward (one kernel; per step (a) the products and the gates' slice
+//   moments, (b) the gate block and the cell's moments, (c) the cell norm,
+//   h and the stores, each ended by a grid barrier):
+//     no_ln     both moment exchanges and their barriers: the gate block and
+//               h follow each chunk's products, one barrier a step (the h
+//               exchange). The stand-ins read c_prev[0] and c_prev[1] of the
+//               row, which slice 0 owns: its blocks publish them, in the
+//               phase that writes h, to a [2, B, 2] exchange beside hx.
+//     no_gates  the gate block too: one barrier a step; the float h carry
+//               in a [B, H] scratch; gates 2 and 3's products kept alive by
+//               a store behind a null pointer test the compiler cannot
+//               resolve.
+//     floor     every product, exchange and barrier: on the same grid, each
+//               thread walks its pairs' sequences with the carries in
+//               registers, over the same streams.
+//   backward (production's launches: the hoisted recompute, the statistics,
+//   the loop with (a)-(c) ending in a grid barrier each and (d) the
+//   transposed product, the LN sums' row sum, the weight pass):
+//     no_lnbwd  the corrections' two exchanges and their barriers: one pass
+//               over the pairs and one barrier a step, before (d); the
+//               statistics launch, the LN sums and the row sum kept.
+//     no_ln     also the statistics launch: the stand-ins come from the
+//               residual cs (units 0 and 1 of the row), which every block
+//               reads.
+//     fake      the statistics launch alone: the stand-ins, both exchanges
+//               and all three barriers kept.
+//     no_gates  the gate block: the recompute, then d_pre and dc' as above
+//               in one pass, one barrier a step; the dx product and the
+//               weight pass kept, no row sum, the LN sums zero.
+//     no_gradmm no_gates without the weight pass and the dx product (dx =
+//               0.5 x, zero dwx/dwh). d_pre is still written to the
+//               scratch: (d) reads the other slices' d_pre through it (the
+//               row-block arm kept no d_pre).
+//     floor     the recompute, every product and every barrier: each thread
+//               walks its pairs' sequences backwards with dh and dc in
+//               registers on the loop's grid; zero dwx/dwh and LN sums.
+// The zero outputs are cudaMemsetAsync calls, not kernel launches. The
+// wrappers allocate only what an arm uses (probe_dec_bwd_split.fwd_plan and
+// bwd_plan). windows > 0 forces the loops' windows of rows (the ladder's
+// grid-scaling runs, each window T more steps of grid barriers); 0 takes
+// the production plan.
 //
-// Every arm keeps the row-block design (fused_rnn.cu's header): one block
+// The row-block design, which every arm ran first, stays reachable as
+// srt_ln_probe_fwd_rowblock and srt_ln_probe_bwd_rowblock (namespace
+// rowblock below), to be held and timed beside the design that replaced
+// it: fused_rnn.cu's row-block kernels (rnn_fwd_kernel<true, W, R>,
+// rnn_bwd_kernel<true, W, R>) with the arms' terms taken out, one block
 // per batch row, T inside the block, one thread per hidden unit, weights
-// read from L2 every step, weight gradients by the fixed-order second pass.
-// The prod arms repeat the row-block kernels' operations in their order
-// (gate_pre is copied here; fused_rnn.cu stays as it is), so they are the
-// row-block entries srt_ln_lstm_fwd_rowblock and srt_ln_lstm_bwd_rowblock,
-// bit for bit, measured from this library. They are not the production
-// kernels: fused_ln_lstm's forward and backward (srt_ln_lstm_fwd,
-// srt_ln_lstm_bwd) are persistent cooperative kernels that sum the layer
-// norms' rows in another order, so the ladder prices the terms of the
-// row-block design; its records carry the production entries' times
-// beside prod.
+// read from L2 every step, the layer-norm statistics as block reductions
+// (block_sum), the weight gradients by the fixed-order second pass. Their
+// prod arms repeat the row-block kernels' operations in their order
+// (gate_pre is copied), so they are the row-block entries
+// srt_ln_lstm_fwd_rowblock and srt_ln_lstm_bwd_rowblock, bit for bit.
+// There, no_gradmm drops the d_pre scratch and the wx rows of the
+// transposed product, and floor has no shared operand and so no barrier;
+// the stand-in stats take c_prev[0] and c_prev[1] of the row through one
+// shared-memory broadcast.
 //
 // Bound on the H100 at the probe's shape (B=4096, T=250, H=512, D=5, bf16
 // weights and residuals): the products of bf16 operands could run on the
@@ -97,15 +119,23 @@
 // H)*4H = 2.17 TFLOP (2.19 ms); a backward with every product three times
 // that (6.58 ms), no_gradmm the recompute and the dh product (4.3 TFLOP,
 // 4.36 ms); floor moves ~1.1 (fwd) / ~1.6 (bwd) GB at 3.35 TB/s (~0.34 /
-// ~0.48 ms). These kernels run the products as SIMT float multiply-adds, as
-// the row-block kernels do: the ladder measures differences, not the bound.
+// ~0.48 ms). The loops run the products as production does (SIMT float
+// multiply-adds from resident weights, the recompute and the weight pass on
+// the tensor cores at bf16): the ladder measures differences, not the bound.
 
 #include <type_traits>
 
+#include "ln_lstm.cuh"
 #include "rnn_common.cuh"
 #include "weight_grad.cuh"
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// The row-block design (srt_ln_probe_*_rowblock), as it was before the arms
+// moved onto the persistent loops; its own Cell, Fwd and Bwd.
+namespace rowblock {
+
 
 enum FwdArm { kFwdProd = 0, kFwdNoLn, kFwdNoGates, kFwdFloor };
 enum BwdArm { kProd = 0, kNoLnBwd, kNoLn, kNoGates, kNoGradmm, kFloor, kFake };
@@ -575,6 +605,8 @@ cudaError_t launch_bwd(const Bwd<W, R>& a, float* dwx, float* dwh, float* dln,
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+}  // namespace rowblock
+
 // Call f(std::integral_constant<int, ARM>) for the arm id, or refuse it.
 template <int N, typename F>
 cudaError_t with_arm(int arm, F&& f) {
@@ -604,7 +636,12 @@ const char* srt_error_string(int err) {
 // cuda_fused.weight_grad_plan). H is 2..512. Each returns the cudaError_t
 // of its launches (0 when all were accepted).
 
-// arm: 0 prod, 1 no_ln, 2 no_gates, 3 floor.
+// The persistent arms (ln_lstm.cuh). hx: a [2, B, H] scratch of the weight
+// type, null for floor; work: the arm's float scratch
+// (probe_dec_bwd_split.fwd_plan: prod (ceil(H / 16) * 10 + 4 * H) * B
+// floats, no_ln 4 * B, no_gates B * H, floor none); windows: 0 for the
+// production plan of windows of rows, else that many. prod is
+// srt_ln_lstm_fwd. arm: 0 prod, 1 no_ln, 2 no_gates, 3 floor.
 int srt_ln_probe_fwd(int arm, const float* xs, const float* xb,
                      const void* wx, const void* wh, const float* ln_gamma,
                      const float* ln_beta, const float* lnc_gamma,
@@ -612,14 +649,16 @@ int srt_ln_probe_fwd(int arm, const float* xs, const float* xb,
                      const int* seed, int T, int B, int D, int H, int w_bf16,
                      int r_bf16, float keep, float inv_keep,
                      float forget_bias, void* hs, void* cs, float* cT,
-                     float* hT, void* stream) {
-  if (H < 2 || H > kMaxThreads) return (int)cudaErrorInvalidValue;
+                     float* hT, void* hx, float* work, int windows,
+                     void* stream) {
+  if (H < 2 || H > kMaxThreads || windows < 0)
+    return (int)cudaErrorInvalidValue;
   return (int)with_types(w_bf16, r_bf16, [&](auto w, auto r) {
     using W = decltype(w);
     using R = decltype(r);
     Fwd<W, R> a;
-    a.p = make_cell<W>(wx, wh, xb, ln_gamma, ln_beta, lnc_gamma, lnc_beta, D,
-                       H, forget_bias);
+    a.p = make_cell<W>(wx, wh, nullptr, xb, ln_gamma, ln_beta, lnc_gamma,
+                       lnc_beta, D, H, forget_bias);
     a.xs = xs;
     a.c0 = c0;
     a.h0 = h0;
@@ -628,17 +667,29 @@ int srt_ln_probe_fwd(int arm, const float* xs, const float* xb,
     a.cs = static_cast<R*>(cs);
     a.cT = cT;
     a.hT = hT;
-    a.keep_live = nullptr;
     a.T = T;
     a.B = B;
-    return with_arm<kFwdFloor>(arm, [&](auto arm_c) {
-      return launch_fwd<decltype(arm_c)::value>(a, (cudaStream_t)stream);
+    return with_arm<kLnFwdFloor>(arm, [&](auto arm_c) {
+      constexpr int A = decltype(arm_c)::value;
+      if (A != kLnFwdFloor && (hx == nullptr || work == nullptr))
+        return cudaErrorInvalidValue;
+      return launch_ln_fwd_loop<W, R, A>(a, static_cast<W*>(hx),
+                                         ln_arm_fwd_work<A>(work, B, H),
+                                         (cudaStream_t)stream, windows);
     });
   });
 }
 
-// arm: 0 prod, 1 no_lnbwd, 2 no_ln, 3 no_gates, 4 no_gradmm, 5 floor,
-// 6 fake (probe_ln_stats). dln: [10H] = dgam 4H | dbet 4H | dgc H | dbc H.
+// The persistent arms: production's launches less what each arm takes out
+// (LnBwdPolicy), then the arm's zero outputs (cudaMemsetAsync). dpre: the
+// [T, B, 4H] float scratch (null for floor); part: [B, 10H] (the arms with
+// LN sums); work: the arm's float scratch (bwd_plan: prod (ceil(H / 16) *
+// 10 + T * 10 + 4 * H) * B floats, no_lnbwd T * B * 10, fake
+// (ceil(H / 16) * 10 + 4 * H) * B, the others none); wg_*: the weight
+// pass's plan and partials (the arms with the pass); windows as
+// srt_ln_probe_fwd's. prod is srt_ln_lstm_bwd. arm: 0 prod, 1 no_lnbwd,
+// 2 no_ln, 3 no_gates, 4 no_gradmm, 5 floor, 6 fake (probe_ln_stats).
+// dln: [10H] = dgam 4H | dbet 4H | dgc H | dbc H.
 int srt_ln_probe_bwd(int arm, const float* xs, const float* xb,
                      const void* wx, const void* wh, const float* ln_gamma,
                      const float* ln_beta, const float* lnc_gamma,
@@ -647,17 +698,19 @@ int srt_ln_probe_bwd(int arm, const float* xs, const float* xb,
                      const float* dhT, const int* seed, int T, int B, int D,
                      int H, int w_bf16, int r_bf16, float keep,
                      float inv_keep, float forget_bias, float* dpre,
-                     float* part, float* dxs, float* dxb, float* dwx,
-                     float* dwh, float* dln, float* dc0, float* dh0,
-                     int wg_slices, int wg_kslice, float* wg_part,
-                     void* stream) {
-  if (H < 2 || H > kMaxThreads) return (int)cudaErrorInvalidValue;
+                     float* part, float* work, float* dxs, float* dxb,
+                     float* dwx, float* dwh, float* dln, float* dc0,
+                     float* dh0, int wg_slices, int wg_kslice,
+                     float* wg_part, int windows, void* stream) {
+  if (H < 2 || H > kMaxThreads || windows < 0 || dxs == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
   return (int)with_types(w_bf16, r_bf16, [&](auto w, auto r) {
     using W = decltype(w);
     using R = decltype(r);
     Bwd<W, R> a;
-    a.p = make_cell<W>(wx, wh, xb, ln_gamma, ln_beta, lnc_gamma, lnc_beta, D,
-                       H, forget_bias);
+    a.p = make_cell<W>(wx, wh, nullptr, xb, ln_gamma, ln_beta, lnc_gamma,
+                       lnc_beta, D, H, forget_bias);
     a.xs = xs;
     a.h0 = h0;
     a.hs = static_cast<const R*>(hs);
@@ -675,9 +728,100 @@ int srt_ln_probe_bwd(int arm, const float* xs, const float* xb,
     a.wg = {wg_slices, wg_kslice, wg_part};
     a.T = T;
     a.B = B;
-    return with_arm<kFake>(arm, [&](auto arm_c) {
-      return launch_bwd<decltype(arm_c)::value>(a, dwx, dwh, dln,
-                                                (cudaStream_t)stream);
+    return with_arm<kLnBwdFake>(arm, [&](auto arm_c) {
+      constexpr int A = decltype(arm_c)::value;
+      using P = LnBwdPolicy<A>;
+      if ((P::kRecompute && dpre == nullptr) ||
+          ((P::kStats || P::kExchanges) && work == nullptr))
+        return cudaErrorInvalidValue;
+      cudaError_t err =
+          launch_ln_lstm_bwd<W, R, A>(a, work, 0, dwx, dwh, dln, st, windows);
+      const size_t g4 = (size_t)4 * H * sizeof(float);
+      if (err == cudaSuccess && !P::kWeightPass) {
+        err = cudaMemsetAsync(dwx, 0, (size_t)D * g4, st);
+        if (err == cudaSuccess)
+          err = cudaMemsetAsync(dwh, 0, (size_t)H * g4, st);
+      }
+      if (err == cudaSuccess && !P::kGates)
+        err = cudaMemsetAsync(dln, 0, (size_t)10 * H * sizeof(float), st);
+      return err;
+    });
+  });
+}
+
+// The row-block design (namespace rowblock): the arms as they ran before
+// the persistent loops, prod bit for bit srt_ln_lstm_fwd_rowblock.
+// arm: 0 prod, 1 no_ln, 2 no_gates, 3 floor.
+int srt_ln_probe_fwd_rowblock(
+    int arm, const float* xs, const float* xb, const void* wx, const void* wh,
+    const float* ln_gamma, const float* ln_beta, const float* lnc_gamma,
+    const float* lnc_beta, const float* c0, const float* h0, const int* seed,
+    int T, int B, int D, int H, int w_bf16, int r_bf16, float keep,
+    float inv_keep, float forget_bias, void* hs, void* cs, float* cT, float* hT,
+    void* stream) {
+  if (H < 2 || H > kMaxThreads) return (int)cudaErrorInvalidValue;
+  return (int)with_types(w_bf16, r_bf16, [&](auto w, auto r) {
+    using W = decltype(w);
+    using R = decltype(r);
+    rowblock::Fwd<W, R> a;
+    a.p = rowblock::make_cell<W>(wx, wh, xb, ln_gamma, ln_beta, lnc_gamma,
+                                 lnc_beta, D, H, forget_bias);
+    a.xs = xs;
+    a.c0 = c0;
+    a.h0 = h0;
+    a.drop = make_dropout(nullptr, seed, keep, inv_keep);
+    a.hs = static_cast<R*>(hs);
+    a.cs = static_cast<R*>(cs);
+    a.cT = cT;
+    a.hT = hT;
+    a.keep_live = nullptr;
+    a.T = T;
+    a.B = B;
+    return with_arm<rowblock::kFwdFloor>(arm, [&](auto arm_c) {
+      return rowblock::launch_fwd<decltype(arm_c)::value>(
+          a, (cudaStream_t)stream);
+    });
+  });
+}
+
+// The row-block design: prod bit for bit srt_ln_lstm_bwd_rowblock. arm:
+// as srt_ln_probe_bwd's.
+int srt_ln_probe_bwd_rowblock(
+    int arm, const float* xs, const float* xb, const void* wx, const void* wh,
+    const float* ln_gamma, const float* ln_beta, const float* lnc_gamma,
+    const float* lnc_beta, const float* h0, const void* hs, const void* cs,
+    const void* dhs, const float* dcT, const float* dhT, const int* seed, int T,
+    int B, int D, int H, int w_bf16, int r_bf16, float keep, float inv_keep,
+    float forget_bias, float* dpre, float* part, float* dxs, float* dxb,
+    float* dwx, float* dwh, float* dln, float* dc0, float* dh0, int wg_slices,
+    int wg_kslice, float* wg_part, void* stream) {
+  if (H < 2 || H > kMaxThreads) return (int)cudaErrorInvalidValue;
+  return (int)with_types(w_bf16, r_bf16, [&](auto w, auto r) {
+    using W = decltype(w);
+    using R = decltype(r);
+    rowblock::Bwd<W, R> a;
+    a.p = rowblock::make_cell<W>(wx, wh, xb, ln_gamma, ln_beta, lnc_gamma,
+                                 lnc_beta, D, H, forget_bias);
+    a.xs = xs;
+    a.h0 = h0;
+    a.hs = static_cast<const R*>(hs);
+    a.cs = static_cast<const R*>(cs);
+    a.dhs = static_cast<const R*>(dhs);
+    a.dcT = dcT;
+    a.dhT = dhT;
+    a.drop = make_dropout(nullptr, seed, keep, inv_keep);
+    a.dpre = dpre;
+    a.dxs = dxs;
+    a.dxb = dxb;
+    a.dc0 = dc0;
+    a.dh0 = dh0;
+    a.part = part;
+    a.wg = {wg_slices, wg_kslice, wg_part};
+    a.T = T;
+    a.B = B;
+    return with_arm<rowblock::kFake>(arm, [&](auto arm_c) {
+      return rowblock::launch_bwd<decltype(arm_c)::value>(
+          a, dwx, dwh, dln, (cudaStream_t)stream);
     });
   });
 }

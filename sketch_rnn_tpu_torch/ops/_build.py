@@ -97,9 +97,16 @@ SIGNATURES = {
         "srt_dual_seq_fwd_rowblock": [_P] * 8 + [_I] * 6 + [_F] + [_P] * 5,
         "srt_seq_fwd_rowblock": [_P] * 4 + [_I] * 6 + [_F] + [_P] * 3,
     },
-    "probe_ln": {
-        "srt_ln_probe_fwd": [_I] + [_P] * 11 + [_I] * 6 + [_F] * 3 + [_P] * 5,
+    "probe_ln": {       # its loops are ln_lstm.cuh's, shared with
+                        # fused_rnn.cu: the arm, the operands, the
+                        # scratch, then the forced windows (0: the plan's)
+        "srt_ln_probe_fwd": [_I] + [_P] * 11 + [_I] * 6 + [_F] * 3
+        + [_P] * 6 + [_I, _P],
         "srt_ln_probe_bwd": [_I] + [_P] * 15 + [_I] * 6 + [_F] * 3
+        + [_P] * 10 + _WG + [_I, _P],
+        "srt_ln_probe_fwd_rowblock": [_I] + [_P] * 11 + [_I] * 6 + [_F] * 3
+        + [_P] * 5,
+        "srt_ln_probe_bwd_rowblock": [_I] + [_P] * 15 + [_I] * 6 + [_F] * 3
         + [_P] * 9 + _WG + [_P],
     },
     "fused_hyper": {

@@ -4,8 +4,9 @@ Builds ``fused_rnn.cu`` and ``lstm_seq.cu`` of another checkout of the
 repository (``OTHER``, e.g. an earlier commit unpacked with ``git
 archive``) beside this checkout's, loads both with ctypes under this
 checkout's ``_build.SIGNATURES`` (their C entries must agree), and runs the
-same seeded inputs through both: the LayerNorm-LSTM backward (row 5b),
-the LSTM backward with and without its inputs' gradients (rows 3b, 4b),
+same seeded inputs through both: the LayerNorm-LSTM forward and backward
+(rows 5f, 5b; also at the LayerNorm ladder's B=4096 at bf16), the LSTM
+backward with and without its inputs' gradients (rows 3b, 4b),
 ``lstm_seq``'s backward (row 7b) and the weight pass alone
 (``srt_weight_grad``, row W, at the decoder's and encoder's shapes, with
 and without a row of ones, at D = 0). Each case prints one JSON line:
@@ -63,36 +64,41 @@ def _seeded(seed):
     return lambda *s, sc=1.0: (sc * torch.randn(s, generator=g)).to("cuda")
 
 
-def lstm_case(h, wdt, ln, full):
-    """A backward entry's A/B helper (``*_bwd_entries``) on seeded inputs:
+def lstm_case(h, wdt, ln, full, b=B, fwd=False):
+    """A backward entry's A/B helper (``*_bwd_entries``) on seeded inputs
+    (with ``fwd``, the LayerNorm-LSTM forward's, ``ln_lstm_fwd_entries``):
     ``(made, call)``; ``made()`` returns ``(run, outs)`` bound to the
     library loaded at that moment, ``run(call)`` launches the entry."""
     r = _seeded(h + 7 * ln + 3 * full)
-    xs, c0, h0 = r(T, B, D), r(B, h, sc=0.3), r(B, h, sc=0.3)
+    xs, c0, h0 = r(T, b, D), r(b, h, sc=0.3), r(b, h, sc=0.3)
     wx, wh = r(D, 4 * h, sc=0.4).to(wdt), r(h, 4 * h, sc=h ** -0.5).to(wdt)
     rdt = None if wdt == torch.float32 else wdt
     seed = torch.tensor(4242, dtype=torch.int32, device="cuda")
     drop = dict(dropout_seed=seed, keep_prob=KEEP,
-                x_bias=r(B, 4 * h, sc=0.3))
+                x_bias=r(b, 4 * h, sc=0.3))
     lnp = (1 + r(4, h, sc=0.1), r(4, h, sc=0.1), 1 + r(h, sc=0.1),
            r(h, sc=0.1))
+    if fwd:
+        return (lambda: CF.ln_lstm_fwd_entries(xs, wx, wh, *lnp, c0, h0,
+                                               **drop, residual_dtype=rdt),
+                "srt_ln_lstm_fwd")
     if ln:
         hs, cs = CF.ln_lstm_fwd(xs, wx, wh, *lnp, c0, h0, **drop,
                                 residual_dtype=rdt)[:2]
     else:
         hs, cs = CF.lstm_fwd(xs, wx, r(4 * h, sc=0.1), wh, c0, h0, **drop,
                              residual_dtype=rdt)[:2]
-    cot = dict(dhs=r(T, B, h, sc=0.1).to(hs.dtype), dcT=r(B, h, sc=0.1),
-               dhT=r(B, h, sc=0.1))
+    cot = dict(dhs=r(T, b, h, sc=0.1).to(hs.dtype), dcT=r(b, h, sc=0.1),
+               dhT=r(b, h, sc=0.1))
     if ln:
         return (lambda: CF.ln_lstm_bwd_entries(xs, wx, wh, *lnp, h0, hs, cs,
                                                **cot, **drop),
                 "srt_ln_lstm_bwd")
-    b = r(4 * h, sc=0.1)
+    bias = r(4 * h, sc=0.1)
     if not full:
         cot = dict(dhs=cot["dhs"])
         drop = dict(dropout_seed=seed, keep_prob=KEEP)
-    return (lambda: CF.lstm_bwd_entries(xs, wx, b, wh, h0, hs, cs, **cot,
+    return (lambda: CF.lstm_bwd_entries(xs, wx, bias, wh, h0, hs, cs, **cot,
                                         **drop, full=full), "srt_lstm_bwd")
 
 
@@ -189,17 +195,25 @@ def main(argv=None) -> int:
     for dt in (f32, bf16):
         tag = "f32" if dt == f32 else "bf16"
         for label, case in (
+                (f"5f srt_ln_lstm_fwd H=512 {tag}",
+                 lstm_case(512, dt, 1, 1, fwd=True)),
                 (f"5b srt_ln_lstm_bwd H=512 {tag}", lstm_case(512, dt, 1, 1)),
                 (f"3b srt_lstm_bwd H=512 {tag}", lstm_case(512, dt, 0, 1)),
                 (f"4b srt_lstm_bwd H=256 {tag}", lstm_case(256, dt, 0, 0)),
                 (f"W D=5 H=512 {tag}", weight_case(5, 512, 0, dt)),
                 (f"W D=5 H=512 ones {tag}", weight_case(5, 512, 1, dt)),
                 (f"W D=5 H=256 ones {tag}", weight_case(5, 256, 1, dt))):
-            stages = (() if label.startswith("W") else
+            stages = (() if label[:2] in ("W ", "5f") else
                       (1, 2, 3, 4) if label.startswith("5b") else (1, 2, 3))
             ok &= compare(label, "fused_rnn", case,
                           {"this": this["fused_rnn"],
                            "other": other["fused_rnn"]}, args.reps, stages)
+    for label, fwd in (("5f srt_ln_lstm_fwd H=512 B=4096 bf16", True),
+                       ("5b srt_ln_lstm_bwd H=512 B=4096 bf16", False)):
+        ok &= compare(label, "fused_rnn",
+                      lstm_case(512, bf16, 1, 1, b=4096, fwd=fwd),
+                      {"this": this["fused_rnn"],
+                       "other": other["fused_rnn"]}, args.reps)
     ok &= compare("W D=0 H=512 f32", "fused_rnn",
                   weight_case(0, 512, 0, f32),
                   {"this": this["fused_rnn"], "other": other["fused_rnn"]},

@@ -3,36 +3,49 @@
 The port of ``scripts/probe_dec_bwd_split.py``. A strictly nested ladder
 of arms of the LayerNorm-LSTM kernels, each taking one term of work out
 of the one before, so that the difference of two arms' times prices that
-term. :func:`bwd_arm` (kernel ``srt_ln_probe_bwd`` of ``csrc/probe_ln.cu``)
-runs the backward arms:
+term. Every arm runs on the production kernels' persistent cooperative
+loops (``csrc/ln_lstm.cuh``), its arm a compile-time policy of them, so
+``prod`` IS the production kernel and each delta prices a term of the
+design ``fused_ln_lstm`` runs. :func:`bwd_arm` (kernel
+``srt_ln_probe_bwd`` of ``csrc/probe_ln.cu``) runs the backward arms:
 
-- ``prod``: the row-block backward, bit for bit the entry
-  ``srt_ln_lstm_bwd_rowblock`` (the design ``fused_ln_lstm``'s backward,
-  ``srt_ln_lstm_bwd``, replaced: not the production kernel);
+- ``prod``: ``fused_ln_lstm``'s backward, bit for bit ``srt_ln_lstm_bwd``
+  (the hoisted recompute, the statistics, the loop with three grid
+  barriers a step, the LN sums' row sum, the weight pass);
 - ``no_lnbwd``: the layer-norm backward's row-mean corrections elided
-  (``d_pre = dy * gamma``); the LN-parameter sums kept;
+  (``d_pre = dy * gamma``); the LN-parameter sums kept; on the card the
+  loop's two exchanges and their barriers go (one barrier a step);
 - ``no_ln``: also the layer-norm statistics of the recomputed forward
   replaced by stand-ins (``mean = c_prev[:, 0] * 1e-3``, ``r = 1 +
   c_prev[:, 1] * 1e-3``), the reference's way: the stand-in forward
   builds the new cell state without the mask and hands the backward
-  ``g_u * m``, which it masks again;
+  ``g_u * m``, which it masks again; on the card no statistics launch;
 - ``no_gates``: ``d_pre = 0.25 pre + dh + 0.1 dc`` (each tiled over the
   four gates), ``dc' = 0.9 dc + 1e-3 c_prev``; every product kept, zero
   LN-parameter gradients;
 - ``no_gradmm``: ``no_gates`` without the ``dwx``/``dwh``/``dx``
-  products: ``dh_{t-1} = d_pre @ wh^T`` stays, ``dx = 0.5 x``;
+  products: ``dh_{t-1} = d_pre @ wh^T`` stays, ``dx = 0.5 x`` (the loop
+  still writes ``d_pre`` to its scratch: its transposed product reads the
+  other slices' through it);
 - ``floor``: no products: ``d_pre = dh + 0.1 dc [+ x_bias]``,
-  ``dh_{t-1} = 0.5 dh + 1e-3 h_prev``, ``dx = 0.5 x``.
+  ``dh_{t-1} = 0.5 dh + 1e-3 h_prev``, ``dx = 0.5 x``; no barrier.
 
 :func:`fwd_arm` (``srt_ln_probe_fwd``) runs the forward arms ``prod``
-(bit for bit the row-block entry ``srt_ln_lstm_fwd_rowblock``, not the
-production ``srt_ln_lstm_fwd``), ``no_ln`` (the stand-in statistics),
-``no_gates`` (``c' = 0.9 c + 0.1 pre[:, :H]``, ``h' = 0.5 h + 0.1
-pre[:, H:2H]``) and ``floor`` (``c' = 0.9 c + x[:, :1] * 1e-3``, the
-product in the weight dtype, ``h' = 0.5 h + 1e-3 x_bias[:, :H]``). The
-arms are op-count probes: their numbers are wrong by design, and the
-plain versions beside the wrappers compute the same wrong numbers.
-``csrc/probe_ln.cu``'s header says what each arm drops on Hopper.
+(bit for bit ``srt_ln_lstm_fwd``, three grid barriers a step), ``no_ln``
+(the stand-in statistics, one barrier), ``no_gates`` (``c' = 0.9 c + 0.1
+pre[:, :H]``, ``h' = 0.5 h + 0.1 pre[:, H:2H]``, one barrier) and
+``floor`` (``c' = 0.9 c + x[:, :1] * 1e-3``, the product in the weight
+dtype, ``h' = 0.5 h + 1e-3 x_bias[:, :H]``, no barrier). The arms are
+op-count probes: their numbers are wrong by design, and the plain
+versions beside the wrappers compute the same wrong numbers.
+``csrc/probe_ln.cu``'s header says what each arm drops on Hopper;
+:func:`fwd_plan` and :func:`bwd_plan` give each arm's barriers, launches
+and scratch from the shape alone (the wrappers allocate what they name).
+The row-block design the arms ran before (one block per batch row, wh
+from L2 every step) stays reachable as ``srt_ln_probe_fwd_rowblock`` and
+``srt_ln_probe_bwd_rowblock`` through the uncounted :func:`fwd_entries`
+and :func:`bwd_entries`, its ``prod`` arms bit for bit the row-block
+entries ``srt_ln_lstm_*_rowblock``.
 
 :func:`run_bwd_ladder` and :func:`run_fwd_ladder` time the arms on the
 card at the reference's shape (B=4096, T=250, H=512, D=5, bfloat16
@@ -44,17 +57,17 @@ reference took K-chained differences. The backward ladder also times the
 (``flip(cs)``, ``cat`` + ``flip`` of ``h_prev``, ``flip(dhs)``,
 ``flip(dxs)``) as plain PyTorch, each call taking the last one's outputs.
 The port's backward reads natural-order streams, so it never pays this.
-Each ladder's record names the entry its ``prod`` arm repeats
-(``prod_repeats``) and carries the production entry's time beside it
-(``production_entry``, ``production_ms``: ``srt_ln_lstm_fwd`` or
+Each ladder's record names the entry its ``prod`` arm is
+(``prod_repeats``) and carries that production entry's own time beside
+it (``production_entry``, ``production_ms``: ``srt_ln_lstm_fwd`` or
 ``srt_ln_lstm_bwd`` through the uncounted ``cuda_fused.*_entries``
-helpers, timed in the same interleaving as the arms).
-The reference's grid-scaling arm (batch tiles 64/128/256) has no
-counterpart: the port's kernels have no batch tile (one block per row)
-and no grid step per time step, so ``grid_scaling_ms`` is null.
-:func:`main` prints the reference's record (its keys and deltas,
-``tile`` 1: one row per block, ``device_kind`` from the card). Run on a
-card:
+helpers, timed in the same interleaving as the arms), which matches
+``prod`` within noise. The reference's grid-scaling arm timed its batch
+tiles (64/128/256); its counterpart, ``grid_scaling_ms``, times ``prod``
+at 1, 2 and 4 forced windows of rows (the same work; each window T more
+steps of grid barriers). :func:`main` prints the reference's record (its
+keys and deltas, ``tile`` the loop's rows per batch tile, ``device_kind``
+from the card). Run on a card:
 
     python -m sketch_rnn_tpu_torch.scripts.probe_dec_bwd_split [--fwd] \\
         [--reps 3] [--k 2] [--batch 4096] [--seq_len 250] [--skip_grid]
@@ -66,7 +79,9 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import sys
+from typing import NamedTuple
 
 import torch
 
@@ -83,6 +98,7 @@ BWD_IDS = {**{a: i for i, a in enumerate(ARMS)}, "fake": len(ARMS)}
 _WEIGHT_GRAD_ARMS = ("prod", "no_lnbwd", "no_ln", "fake", "no_gates")
 _LN_GRAD_ARMS = ("prod", "no_lnbwd", "no_ln", "fake")
 H, D = 512, 5           # the reference's decoder width and input width
+GRID_WINDOWS = (1, 2, 4)  # prod's forced windows of rows (grid_scaling_ms)
 
 _launches = {**{f"fwd_{a}": 0 for a in FWD_ARMS},
              **{f"bwd_{a}": 0 for a in ARMS}}
@@ -271,23 +287,100 @@ def bwd_plain(arm, xs, wx, wh, ln_gamma, ln_beta, lnc_gamma, lnc_beta, h0,
 
 
 # -- the kernels -------------------------------------------------------------
+#
+# Every arm runs on the production kernels' persistent loops
+# (csrc/ln_lstm.cuh): srt_ln_probe_fwd / srt_ln_probe_bwd, prod being
+# srt_ln_lstm_fwd / srt_ln_lstm_bwd. The row-block design the arms ran
+# before stays reachable, uncounted, through fwd_entries / bwd_entries
+# (srt_ln_probe_*_rowblock).
 
 
-def fwd_arm(arm, xs, wx, wh, ln_gamma, ln_beta, lnc_gamma, lnc_beta, c0, h0,
-            x_bias=None, dropout_seed=None, keep_prob=1.0, forget_bias=1.0,
-            residual_dtype=torch.bfloat16):
-    """Forward arm ``arm`` of ``FWD_ARMS``: ``xs [T, B, D]``, ``wx [D,
-    4H]`` and ``wh [H, 4H]`` of one weight dtype (float32 or bfloat16),
-    the LN parameters, ``c0``/``h0 [B, H]``, ``x_bias [B, 4H]`` and the
-    int32 ``dropout_seed`` (or None) float32/int32 as
-    ``cuda_fused.ln_lstm_fwd`` takes them. Returns ``(hs, cs, cT, hT)``,
-    ``hs``/``cs`` in ``residual_dtype``. The plain version on CPU
-    tensors; on CUDA tensors the kernel, or a raise."""
+class ArmPlan(NamedTuple):
+    """What one arm of the persistent kernels runs a call and holds:
+    ``barriers`` grid barriers a loop step; ``fixed_launches`` kernel
+    launches besides the loop's one a window of rows; ``scratch``
+    ``{name: (shape, dtype)}``, everything the wrapper allocates beside
+    the outputs. From the shape alone."""
+    barriers: int
+    fixed_launches: int
+    scratch: dict
+
+    def launches(self, windows: int = 1) -> int:
+        return self.fixed_launches + windows
+
+    def scratch_bytes(self) -> int:
+        return sum(math.prod(shape) * torch.empty(0, dtype=dt).element_size()
+                   for shape, dt in self.scratch.values())
+
+
+def fwd_plan(arm, t, b, d, h, w_dtype=torch.bfloat16) -> ArmPlan:
+    """Forward arm ``arm`` at ``T, B, D, H`` and weight dtype ``w_dtype``:
+    one launch a window. ``prod``: production's ``[2, B, H]`` ``h``
+    exchange and its work (``cuda_fused.ln_fwd_work_floats``), three
+    barriers a step; ``no_ln`` the exchange and a ``[2, B, 2]`` one for
+    its stand-ins, ``no_gates`` the exchange and its float ``h`` carry
+    ``[B, H]``, one barrier each; ``floor`` nothing, no barrier."""
     _refuse(arm, FWD_IDS)
+    scratch = {}
+    if arm != "floor":
+        scratch["hx"] = ((2, b, h), w_dtype)
+    work = {"prod": CF.ln_fwd_work_floats(b, h), "no_ln": 4 * b,
+            "no_gates": b * h}.get(arm, 0)
+    if work:
+        scratch["work"] = ((work,), torch.float32)
+    return ArmPlan({"prod": 3, "floor": 0}.get(arm, 1), 0, scratch)
+
+
+def bwd_plan(arm, t, b, d, h, w_dtype=torch.bfloat16) -> ArmPlan:
+    """Backward arm ``arm`` (``BWD_IDS``): production's launches (the
+    recompute, the statistics, the loop, the LN sums' row sum, the
+    weight pass's two) less what the arm takes out, and only the scratch
+    it uses: ``d_pre`` (every arm but ``floor``: ``no_gradmm``'s
+    transposed product reads the other slices' through it), the LN
+    partials (the arms with the gate block), the work (``prod``: the
+    exchanges, the statistics and the ``dxh`` stash; ``fake`` the
+    exchanges and the stash; ``no_lnbwd`` the statistics), the weight
+    pass's partials (the arms with the pass). The arms without the
+    weight pass or the LN sums write those outputs as zeros by
+    ``cudaMemsetAsync``, no kernel."""
+    _refuse(arm, BWD_IDS)
+    f32 = torch.float32
+    slices = -(-h // CF.LN_UNITS)
+    gates = arm in _LN_GRAD_ARMS
+    stats = arm in ("prod", "no_lnbwd")
+    exchanges = arm in ("prod", "fake")
+    weight = arm in _WEIGHT_GRAD_ARMS
+    scratch = {}
+    if arm != "floor":
+        scratch["dpre"] = ((t, b, 4 * h), f32)
+    if gates:
+        scratch["part"] = ((b, 10 * h), f32)
+    work = ((slices * 10 + 4 * h) * b if exchanges else 0) + (
+        t * 10 * b if stats else 0)
+    if work:
+        scratch["work"] = ((work,), f32)
+    if weight:
+        p = CF.weight_grad_plan(t, b, d, h, 0, w_dtype)
+        scratch["wg_part"] = ((p.slices, d + h, 4 * h), f32)
+    fixed = int(arm != "floor") + stats + gates + 2 * weight
+    barriers = 3 if exchanges else 0 if arm == "floor" else 1
+    return ArmPlan(barriers, fixed, scratch)
+
+
+def _alloc(plan, dev):
+    return {n: torch.empty(shape, dtype=dt, device=dev)
+            for n, (shape, dt) in plan.scratch.items()}
+
+
+def _fwd_args(arm, xs, wx, wh, ln_gamma, ln_beta, lnc_gamma, lnc_beta, c0,
+              h0, x_bias, dropout_seed, keep_prob, forget_bias,
+              residual_dtype, windows):
+    """Check a forward arm's operands and allocate its outputs and its
+    plan's scratch: ``(new, old, outs, scratch)``, the arguments of
+    ``srt_ln_probe_fwd`` and of ``srt_ln_probe_fwd_rowblock``, ``(hs, cs,
+    cT, hT)`` and the scratch, which the caller keeps alive while the
+    launches use it."""
     ln = (ln_gamma, ln_beta, lnc_gamma, lnc_beta)
-    if xs.device.type == "cpu":
-        return fwd_plain(arm, xs, wx, wh, *ln, c0, h0, x_bias, dropout_seed,
-                         keep_prob, forget_bias, residual_dtype)
     dev, t, b, d, h, sp, wb = _probe.check_ln(xs, wx, wh, ln, x_bias,
                                               dropout_seed, c0, h0)
     rd = CF._residual(residual_dtype)
@@ -295,35 +388,83 @@ def fwd_arm(arm, xs, wx, wh, ln_gamma, ln_beta, lnc_gamma, lnc_beta, c0, h0,
     cs = torch.empty_like(hs)
     cT = torch.empty((b, h), dtype=torch.float32, device=dev)
     hT = torch.empty_like(cT)
-    _probe.launch("srt_ln_probe_fwd", f"fwd_arm({arm})", FWD_IDS[arm],
-                  xs.data_ptr(), CF._ptr(x_bias), wx.data_ptr(),
-                  wh.data_ptr(), *(p.data_ptr() for p in ln), c0.data_ptr(),
-                  h0.data_ptr(), sp, t, b, d, h, wb,
-                  int(rd == torch.bfloat16), *CF._keep_args(keep_prob),
-                  float(forget_bias), hs.data_ptr(), cs.data_ptr(),
-                  cT.data_ptr(), hT.data_ptr(), CF._stream(dev), lib="probe_ln")
+    scratch = _alloc(fwd_plan(arm, t, b, d, h, wx.dtype), dev)
+    head = (FWD_IDS[arm], xs.data_ptr(), CF._ptr(x_bias), wx.data_ptr(),
+            wh.data_ptr(), *(p.data_ptr() for p in ln), c0.data_ptr(),
+            h0.data_ptr(), sp, t, b, d, h, wb, int(rd == torch.bfloat16),
+            *CF._keep_args(keep_prob), float(forget_bias), hs.data_ptr(),
+            cs.data_ptr(), cT.data_ptr(), hT.data_ptr())
+    st = CF._stream(dev)
+    new = (*head, CF._ptr(scratch.get("hx")), CF._ptr(scratch.get("work")),
+           int(windows), st)
+    return new, (*head, st), (hs, cs, cT, hT), scratch
+
+
+def fwd_arm(arm, xs, wx, wh, ln_gamma, ln_beta, lnc_gamma, lnc_beta, c0, h0,
+            x_bias=None, dropout_seed=None, keep_prob=1.0, forget_bias=1.0,
+            residual_dtype=torch.bfloat16, windows=0):
+    """Forward arm ``arm`` of ``FWD_ARMS``: ``xs [T, B, D]``, ``wx [D,
+    4H]`` and ``wh [H, 4H]`` of one weight dtype (float32 or bfloat16),
+    the LN parameters, ``c0``/``h0 [B, H]``, ``x_bias [B, 4H]`` and the
+    int32 ``dropout_seed`` (or None) float32/int32 as
+    ``cuda_fused.ln_lstm_fwd`` takes them. Returns ``(hs, cs, cT, hT)``,
+    ``hs``/``cs`` in ``residual_dtype``. The plain version on CPU
+    tensors; on CUDA tensors the kernel (``windows``: 0 for production's
+    windows of rows, else that many), or a raise."""
+    _refuse(arm, FWD_IDS)
+    ln = (ln_gamma, ln_beta, lnc_gamma, lnc_beta)
+    if xs.device.type == "cpu":
+        return fwd_plain(arm, xs, wx, wh, *ln, c0, h0, x_bias, dropout_seed,
+                         keep_prob, forget_bias, residual_dtype)
+    new, _, outs, _scratch = _fwd_args(arm, xs, wx, wh, *ln, c0, h0, x_bias,
+                                       dropout_seed, keep_prob, forget_bias,
+                                       residual_dtype, windows)
+    _probe.launch("srt_ln_probe_fwd", f"fwd_arm({arm})", *new, lib="probe_ln")
     _launches[f"fwd_{arm}"] += 1
-    return hs, cs, cT, hT
+    return outs
 
 
-def bwd_kernel(arm, counts, key, xs, wx, wh, ln_gamma, ln_beta, lnc_gamma,
-               lnc_beta, h0, hs, cs, dhs, dcT, dhT, x_bias=None,
-               dropout_seed=None, keep_prob=1.0, forget_bias=1.0):
-    """Launch backward arm ``arm`` (``BWD_IDS``) on CUDA tensors and add
-    one to ``counts[key]``; the operands and results of
-    :func:`bwd_arm`."""
+def fwd_entries(arm, xs, wx, wh, ln_gamma, ln_beta, lnc_gamma, lnc_beta, c0,
+                h0, x_bias=None, dropout_seed=None, keep_prob=1.0,
+                forget_bias=1.0, residual_dtype=torch.bfloat16, windows=0):
+    """The C entries of forward arm ``arm`` on CUDA tensors, for the A/B of
+    its two designs; no wrapper calls it, and it counts no launch.
+    Returns ``(run, outs)``: ``run(entry)`` launches ``"srt_ln_probe_fwd"``
+    (the persistent loop) or ``"srt_ln_probe_fwd_rowblock"`` (the
+    row-block design it replaced) on one set of buffers, and keeps the
+    inputs alive; ``outs`` as the last launch left them."""
+    from sketch_rnn_tpu_torch.ops import _build
+
+    CF._entries_on_cuda("fwd_entries", xs)
+    _refuse(arm, FWD_IDS)
+    held = (xs, wx, wh, ln_gamma, ln_beta, lnc_gamma, lnc_beta, c0, h0,
+            x_bias, dropout_seed)
+    new, old, outs, scratch = _fwd_args(arm, *held[:9], x_bias,
+                                        dropout_seed, keep_prob,
+                                        forget_bias, residual_dtype, windows)
+    lib = _build.load("probe_ln")
+    args = {"srt_ln_probe_fwd": new, "srt_ln_probe_fwd_rowblock": old}
+
+    def run(entry, _held=(held, scratch)):   # holds the scratch and inputs
+        _build.check(lib, getattr(lib, entry)(*args[entry]), entry)
+
+    return run, outs
+
+
+def _bwd_args(arm, xs, wx, wh, ln_gamma, ln_beta, lnc_gamma, lnc_beta, h0,
+              hs, cs, dhs, dcT, dhT, x_bias, dropout_seed, keep_prob,
+              forget_bias, windows):
+    """Check a backward arm's operands and allocate its outputs and its
+    plan's scratch (which holds the row-block design's too): ``(new, old,
+    outs, scratch)`` as :func:`_fwd_args`'s."""
     ln = (ln_gamma, ln_beta, lnc_gamma, lnc_beta)
     dev, t, b, d, h, sp, wb = _probe.check_ln(xs, wx, wh, ln, x_bias,
                                               dropout_seed, h0, h0)
     rb = CF._residuals_check(dev, t, b, h, hs, cs, dhs)
     CF._f32_check(dev, (("dcT", dcT, (b, h)), ("dhT", dhT, (b, h))))
     f32 = torch.float32
-    # scratch: every step's d_pre (float32) for the weight-gradient pass,
-    # each row's LN-parameter partials; only the arms that use them
-    dpre = (torch.empty((t, b, 4 * h), dtype=f32, device=dev)
-            if arm in _WEIGHT_GRAD_ARMS else None)
-    part = (torch.empty((b, 10 * h), dtype=f32, device=dev)
-            if arm in _LN_GRAD_ARMS else None)
+    plan = bwd_plan(arm, t, b, d, h, wx.dtype)
+    scratch = _alloc(plan, dev)
     dxs = torch.empty_like(xs)
     dxb = torch.empty_like(x_bias) if x_bias is not None else None
     dwx = torch.empty(wx.shape, dtype=f32, device=dev)
@@ -331,43 +472,82 @@ def bwd_kernel(arm, counts, key, xs, wx, wh, ln_gamma, ln_beta, lnc_gamma,
     dln = torch.empty((10 * h,), dtype=f32, device=dev)
     dc0 = torch.empty((b, h), dtype=f32, device=dev)
     dh0 = torch.empty_like(dc0)
-    # the weight pass's plan and partials, as srt_ln_lstm_bwd's (the
-    # other arms run no weight pass)
-    wg, wg_part = (CF._wg_scratch(t, b, d, h, 0, wx.dtype, dev)
-                   if arm in _WEIGHT_GRAD_ARMS else ((0, 0, None), None))
-    _probe.launch("srt_ln_probe_bwd", f"bwd_arm({arm})", BWD_IDS[arm],
-                  xs.data_ptr(), CF._ptr(x_bias), wx.data_ptr(),
-                  wh.data_ptr(), *(p.data_ptr() for p in ln), h0.data_ptr(),
-                  hs.data_ptr(), cs.data_ptr(), dhs.data_ptr(),
-                  CF._ptr(dcT), CF._ptr(dhT), sp, t, b, d, h, wb, rb,
-                  *CF._keep_args(keep_prob), float(forget_bias),
-                  CF._ptr(dpre), CF._ptr(part), dxs.data_ptr(),
-                  CF._ptr(dxb), dwx.data_ptr(), dwh.data_ptr(),
-                  dln.data_ptr(), dc0.data_ptr(), dh0.data_ptr(), *wg,
-                  CF._stream(dev), lib="probe_ln")
-    counts[key] += 1
-    return (dxs, dxb, dwx, dwh, dln[:4 * h].view(4, h),
+    wg = (0, 0, None)
+    if "wg_part" in scratch:
+        p = CF.weight_grad_plan(t, b, d, h, 0, wx.dtype)
+        wg = (p.slices, p.kslice, scratch["wg_part"].data_ptr())
+    head = (BWD_IDS[arm], xs.data_ptr(), CF._ptr(x_bias), wx.data_ptr(),
+            wh.data_ptr(), *(p.data_ptr() for p in ln), h0.data_ptr(),
+            hs.data_ptr(), cs.data_ptr(), dhs.data_ptr(), CF._ptr(dcT),
+            CF._ptr(dhT), sp, t, b, d, h, wb, rb, *CF._keep_args(keep_prob),
+            float(forget_bias), CF._ptr(scratch.get("dpre")),
+            CF._ptr(scratch.get("part")))
+    tail = (dxs.data_ptr(), CF._ptr(dxb), dwx.data_ptr(), dwh.data_ptr(),
+            dln.data_ptr(), dc0.data_ptr(), dh0.data_ptr(), *wg)
+    st = CF._stream(dev)
+    new = (*head, CF._ptr(scratch.get("work")), *tail, int(windows), st)
+    outs = (dxs, dxb, dwx, dwh, dln[:4 * h].view(4, h),
             dln[4 * h:8 * h].view(4, h), dln[8 * h:9 * h], dln[9 * h:], dc0,
             dh0)
+    return new, (*head, *tail, st), outs, scratch
+
+
+def bwd_kernel(arm, counts, key, xs, wx, wh, ln_gamma, ln_beta, lnc_gamma,
+               lnc_beta, h0, hs, cs, dhs, dcT, dhT, x_bias=None,
+               dropout_seed=None, keep_prob=1.0, forget_bias=1.0, windows=0):
+    """Launch backward arm ``arm`` (``BWD_IDS``) on CUDA tensors and add
+    one to ``counts[key]``; the operands and results of
+    :func:`bwd_arm`."""
+    new, _, outs, _scratch = _bwd_args(
+        arm, xs, wx, wh, ln_gamma, ln_beta, lnc_gamma, lnc_beta, h0, hs, cs,
+        dhs, dcT, dhT, x_bias, dropout_seed, keep_prob, forget_bias, windows)
+    _probe.launch("srt_ln_probe_bwd", f"bwd_arm({arm})", *new,
+                  lib="probe_ln")
+    counts[key] += 1
+    return outs
 
 
 def bwd_arm(arm, xs, wx, wh, ln_gamma, ln_beta, lnc_gamma, lnc_beta, h0, hs,
             cs, dhs, dcT, dhT, x_bias=None, dropout_seed=None, keep_prob=1.0,
-            forget_bias=1.0):
+            forget_bias=1.0, windows=0):
     """Backward arm ``arm`` of ``ARMS`` over the stored ``hs``/``cs``/
     ``dhs [T, B, H]`` (one residual dtype) and the float32 carry
     cotangents ``dcT``/``dhT [B, H]``, the other operands as
     :func:`fwd_arm` takes them. Returns ``(dxs, dxb, dwx, dwh, dgam,
     dbet, dgc, dbc, dc0, dh0)``, all float32 (``dxb`` None without
     ``x_bias``; the weight gradients not rounded to the weight dtype).
-    The plain version on CPU tensors; on CUDA tensors the kernel, or a
-    raise."""
+    The plain version on CPU tensors; on CUDA tensors the kernel
+    (``windows`` as :func:`fwd_arm`'s), or a raise."""
     _refuse(arm, ARMS)
     args = (xs, wx, wh, ln_gamma, ln_beta, lnc_gamma, lnc_beta, h0, hs, cs,
             dhs, dcT, dhT, x_bias, dropout_seed, keep_prob, forget_bias)
     if xs.device.type == "cpu":
         return bwd_plain(arm, *args)
-    return bwd_kernel(arm, _launches, f"bwd_{arm}", *args)
+    return bwd_kernel(arm, _launches, f"bwd_{arm}", *args, windows=windows)
+
+
+def bwd_entries(arm, xs, wx, wh, ln_gamma, ln_beta, lnc_gamma, lnc_beta, h0,
+                hs, cs, dhs, dcT, dhT, x_bias=None, dropout_seed=None,
+                keep_prob=1.0, forget_bias=1.0, windows=0):
+    """The C entries of backward arm ``arm`` (``BWD_IDS``, ``fake``
+    included) on CUDA tensors, as :func:`fwd_entries`: ``run(entry)``
+    launches ``"srt_ln_probe_bwd"`` or ``"srt_ln_probe_bwd_rowblock"``;
+    uncounted."""
+    from sketch_rnn_tpu_torch.ops import _build
+
+    CF._entries_on_cuda("bwd_entries", xs)
+    _refuse(arm, BWD_IDS)
+    held = (xs, wx, wh, ln_gamma, ln_beta, lnc_gamma, lnc_beta, h0, hs, cs,
+            dhs, dcT, dhT, x_bias, dropout_seed)
+    new, old, outs, scratch = _bwd_args(arm, *held, keep_prob, forget_bias,
+                                        windows)
+    lib = _build.load("probe_ln")
+    args = {"srt_ln_probe_bwd": new, "srt_ln_probe_bwd_rowblock": old}
+
+    def run(entry, _held=(held, scratch)):   # holds the scratch and inputs
+        _build.check(lib, getattr(lib, entry)(*args[entry]), entry)
+
+    return run, outs
 
 
 # -- the ladders on the card -------------------------------------------------
@@ -419,15 +599,30 @@ def glue_step(state, h0):
     return (hs, rev(cs), rev(dhs), rev(dxs)), rev(hp)
 
 
+def batch_tile(b, dev):
+    """Rows per batch tile of the loops at ``B`` rows on ``dev``'s card:
+    slices of ``LN_UNITS`` units, as many tiles as fill its SMs once
+    (``csrc/lstm_loops.cuh`` ``loop_grid``)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tiles = min(b, max(1, sms // -(-H // CF.LN_UNITS)))
+    return -(-b // tiles)
+
+
 def _record(kind, b, t, k, reps, ms, recheck, deltas, dev):
     return {"kind": kind, "device_kind": torch.cuda.get_device_name(dev),
-            "batch_size": b, "seq_len": t, "H": H, "D": D, "tile": 1,
+            "batch_size": b, "seq_len": t, "H": H, "D": D,
+            "tile": batch_tile(b, dev),
             "reps": reps, "calls_per_dispatch": k, "arms_ms": ms,
             "prod_recheck_ms": recheck, "deltas_ms": deltas}
 
 
 def run_fwd_ladder(b=4096, t=250, k=2, reps=3, device="cuda"):
-    """The forward ladder on the card; returns the record."""
+    """The forward ladder on the card; returns the record. ``prod`` is
+    the production kernel, so ``production_ms`` (``srt_ln_lstm_fwd``
+    through ``cuda_fused.ln_lstm_fwd_entries``, in the same turns) should
+    match it within noise. ``grid_scaling_ms``: ``prod`` at each of
+    ``GRID_WINDOWS`` forced windows of rows (``{windows: ms}``), the same
+    work, each window T more steps of three grid barriers."""
     dev = torch.device(device)
     inp = probe_inputs(b, t, dev)
     z = torch.zeros((b, H), device=dev)
@@ -438,20 +633,27 @@ def run_fwd_ladder(b=4096, t=250, k=2, reps=3, device="cuda"):
         [*calls, lambda: production("srt_ln_lstm_fwd")], k, reps)
     ms = dict(zip(FWD_ARMS, times))
     recheck = _probe.interleaved(calls[:1], k, reps)[0]
+    scaling = _probe.interleaved(
+        [lambda n=n: fwd_arm("prod", c0=z, h0=z, windows=n, **inp)
+         for n in GRID_WINDOWS], k, reps)
     deltas = {"ln_stack": ms["prod"] - ms["no_ln"],
               "gate_transcendentals": ms["no_ln"] - ms["no_gates"],
               "matmuls_over_floor": ms["no_gates"] - ms["floor"],
               "dma_orchestration_floor_CAUTION": ms["floor"]}
     rec = _record("probe_dec_fwd_split", b, t, k, reps, ms, recheck,
                   deltas, dev)
-    rec.update(prod_repeats="srt_ln_lstm_fwd_rowblock",
+    rec.update(grid_scaling_ms=dict(zip(GRID_WINDOWS, scaling)),
+               prod_repeats="srt_ln_lstm_fwd",
                production_entry="srt_ln_lstm_fwd", production_ms=times[-1])
     return rec
 
 
 def run_bwd_ladder(b=4096, t=250, k=2, reps=3, device="cuda"):
     """The backward ladder and the glue arm on the card; returns the
-    record."""
+    record. ``production_ms`` and ``grid_scaling_ms`` as
+    :func:`run_fwd_ladder`'s, for ``srt_ln_lstm_bwd``: the reference's
+    grid-scaling arm timed its batch tiles (64, 128, 256), the port
+    times its windows of rows."""
     dev = torch.device(device)
     inp = bwd_inputs(probe_inputs(b, t, dev))
     calls = [lambda a=a: bwd_arm(a, **inp) for a in ARMS]
@@ -466,6 +668,9 @@ def run_bwd_ladder(b=4096, t=250, k=2, reps=3, device="cuda"):
         [*calls, glue, lambda: production("srt_ln_lstm_bwd")], k, reps)
     ms = dict(zip((*ARMS, "glue"), times))
     recheck = _probe.interleaved(calls[:1], k, reps)[0]
+    scaling = _probe.interleaved(
+        [lambda n=n: bwd_arm("prod", windows=n, **inp)
+         for n in GRID_WINDOWS], k, reps)
     # as in the reference, no delta is taken from the zero-product floor
     # arm; no_gradmm (the recompute and serial dh products, the streams,
     # the step loop) is the base term
@@ -478,7 +683,8 @@ def run_bwd_ladder(b=4096, t=250, k=2, reps=3, device="cuda"):
                   dev)
     rec.update(glue_ms=ms["glue"],
                floor_arm_uninterpretable=ms["floor"] >= ms["no_gradmm"],
-               grid_scaling_ms=None, prod_repeats="srt_ln_lstm_bwd_rowblock",
+               grid_scaling_ms=dict(zip(GRID_WINDOWS, scaling)),
+               prod_repeats="srt_ln_lstm_bwd",
                production_entry="srt_ln_lstm_bwd", production_ms=times[-1])
     return rec
 
@@ -492,7 +698,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seq_len", type=int, default=250)
     ap.add_argument("--skip_grid", action="store_true",
                     help="accepted for the reference's command line; the "
-                         "port has no grid-scaling arm")
+                         "grid-scaling runs always run")
     ap.add_argument("--fwd", action="store_true",
                     help="run the forward ladder instead")
     args = ap.parse_args(argv)

@@ -2,26 +2,31 @@
 backward, on the card?
 
 The port of ``scripts/probe_ln_stats.py``. The LayerNorm-LSTM backward
-recomputes the forward's layer norms every step: on the card, four block
-reductions (mean and variance of the four gate norms, then of the cell
-norm) beside the two its own corrections need. Storing the forward's
-(mean, rstd) pairs as residual streams would replace the four with
-elementwise work. :func:`bwd_fake` (kernel ``srt_ln_probe_bwd`` of
-``csrc/probe_ln.cu``, arm ``fake``) is the production backward with the
-five pairs replaced by stand-ins (``mean = c_prev[:, 0] * 1e-3``, ``r =
-1 + c_prev[:, 1] * 1e-3``; numerically wrong, a pure op-count probe, as
-the reference's ``_bwd_kernel_fake``), the corrections and every product
-kept: the lever's upper bound, since a real implementation would also
-read the stats streams.
+needs the forward's layer-norm statistics (mean and rstd of the four gate
+norms and of the cell norm) at every step; on the card production hoists
+them out of its loop into one launch over all row-steps
+(``ln_stats_kernel``). Storing the forward's (mean, rstd) pairs as
+residual streams would replace that launch with reads. :func:`bwd_fake`
+(kernel ``srt_ln_probe_bwd`` of ``csrc/probe_ln.cu``, arm ``fake``) is
+the production backward with the five pairs replaced by stand-ins
+(``mean = c_prev[:, 0] * 1e-3``, ``r = 1 + c_prev[:, 1] * 1e-3``, read
+from the residual ``cs``; numerically wrong, a pure op-count probe, as
+the reference's ``_bwd_kernel_fake``): no statistics launch, the
+corrections' two exchanges, all three grid barriers a step and every
+product kept. It is the lever's upper bound, since a real implementation
+would also read the stats streams.
 
 :func:`run_probe` times the production backward (the ladder's ``prod``
-arm, bit for bit ``fused_ln_lstm``'s) against it, interleaved with CUDA
-events, then the production arm again as the drift check, at the
-reference's shape and inputs (``probe_dec_bwd_split.probe_inputs``). The
-reference's decision rule: the fake-stats arm under 0.95x the production
-time means invest in stats residuals, else record the negative.
-:func:`main` prints the record (the reference's keys, ``tile`` 1,
-``device_kind`` from the card). Run on a card:
+arm, which is ``fused_ln_lstm``'s ``srt_ln_lstm_bwd``) against it,
+interleaved with CUDA events, then the production arm again as the drift
+check, at the reference's shape and inputs
+(``probe_dec_bwd_split.probe_inputs``). The reference's decision rule:
+the fake-stats arm under 0.95x the production time means invest in stats
+residuals, else record the negative. :func:`main` prints the record (the
+reference's keys, ``tile`` the loop's rows per batch tile,
+``device_kind`` from the card). The row-block design the arm ran before
+stays reachable as ``srt_ln_probe_bwd_rowblock``
+(``probe_dec_bwd_split.bwd_entries("fake", ...)``). Run on a card:
 
     python -m sketch_rnn_tpu_torch.scripts.probe_ln_stats [--reps 3] \\
         [--k 2] [--batch 4096] [--seq_len 250]
@@ -78,7 +83,8 @@ def run_probe(b=4096, t=250, k=2, reps=3, device="cuda"):
     a2 = _probe.interleaved([prod], k, reps)[0]
     return {"kind": "probe_ln_stats",
             "device_kind": torch.cuda.get_device_name(dev), "batch_size": b,
-            "seq_len": t, "H": PS.H, "D": PS.D, "tile": 1, "reps": reps,
+            "seq_len": t, "H": PS.H, "D": PS.D,
+            "tile": PS.batch_tile(b, dev), "reps": reps,
             "calls_per_dispatch": k, "prod_bwd_ms": a,
             "fake_stats_bwd_ms": f, "prod_bwd_ms_recheck": a2,
             "speedup_ceiling": a / f,

@@ -1595,7 +1595,7 @@ def test_probe_loop_refuses_a_plan_it_cannot_run(dev, monkeypatch):
 # -- the LayerNorm ladder (csrc/probe_ln.cu) ---------------------------------
 
 
-def _ladder_inputs(h, dev, wdt, rdt):
+def _ladder_inputs(h, dev, wdt, rdt, t=FT, bsz=FB):
     """The ladder's operands at tiny widths: weights of ``wdt``, LN
     parameters away from (1, 0), x_bias, nonzero carries and cotangents,
     dropout seeded at keep 0.9; the backward's residuals from the
@@ -1604,44 +1604,44 @@ def _ladder_inputs(h, dev, wdt, rdt):
 
     g = torch.Generator().manual_seed(h + 7)
     r = lambda *s, sc=1.0: (torch.randn(s, generator=g) * sc).to(dev)
-    kw = dict(xs=r(FT, FB, FD), wx=r(FD, 4 * h, sc=0.4).to(wdt),
+    kw = dict(xs=r(t, bsz, FD), wx=r(FD, 4 * h, sc=0.4).to(wdt),
               wh=r(h, 4 * h, sc=0.25).to(wdt), ln_gamma=1 + r(4, h, sc=0.1),
               ln_beta=r(4, h, sc=0.1), lnc_gamma=1 + r(h, sc=0.1),
-              lnc_beta=r(h, sc=0.1), x_bias=r(FB, 4 * h, sc=0.3),
+              lnc_beta=r(h, sc=0.1), x_bias=r(bsz, 4 * h, sc=0.3),
               dropout_seed=torch.tensor(5, dtype=torch.int32, device=dev),
               keep_prob=0.9)
-    c0, h0 = r(FB, h, sc=0.3), r(FB, h, sc=0.3)
+    c0, h0 = r(bsz, h, sc=0.3), r(bsz, h, sc=0.3)
     hs, cs, _, _ = cf.ln_lstm_fwd(c0=c0, h0=h0, residual_dtype=rdt, **kw)
-    bkw = dict(kw, h0=h0, hs=hs, cs=cs, dhs=r(FT, FB, h, sc=0.1).to(rdt),
-               dcT=r(FB, h, sc=0.1), dhT=r(FB, h, sc=0.1))
+    bkw = dict(kw, h0=h0, hs=hs, cs=cs, dhs=r(t, bsz, h, sc=0.1).to(rdt),
+               dcT=r(bsz, h, sc=0.1), dhT=r(bsz, h, sc=0.1))
     return dict(kw, c0=c0, h0=h0), bkw
 
 
-@pytest.mark.parametrize("h,wdt,rdt", [
-    (16, torch.bfloat16, torch.bfloat16), (40, torch.float32, torch.float32),
-    (40, torch.bfloat16, torch.float32)])
-def test_ln_ladder_kernels_match_plain_versions(dev, h, wdt, rdt):
-    """Every forward and backward arm of csrc/probe_ln.cu against its plain
-    version (one launch each, the backward the same bit for bit run to
-    run), and the prod arms bit for bit the row-block designs that
-    fused_ln_lstm's kernels replaced, srt_ln_lstm_fwd_rowblock and
-    srt_ln_lstm_bwd_rowblock (the weight gradients of both rounded as
-    fused_ln_lstm rounds them)."""
+def _ladder_arms(fkw, bkw, rdt, tol, stepwise=False):
+    """Every forward and backward arm against its plain version (every arm
+    the same bit for bit run to run), prod bit for bit the production
+    entries srt_ln_lstm_fwd and srt_ln_lstm_bwd on the same inputs (the
+    weight gradients as float32, unrounded). ``stepwise``: the forward's
+    plain version takes each step from the kernel's stored carry
+    (``fwd_plain(teacher=...)``, float32 residuals), as chip_smoke.py
+    holds the ladder, instead of running free."""
     from sketch_rnn_tpu_torch.ops import cuda_fused as cf
     from sketch_rnn_tpu_torch.scripts import probe_dec_bwd_split as ps
     from sketch_rnn_tpu_torch.scripts import probe_ln_stats as pl
 
-    fkw, bkw = _ladder_inputs(h, dev, wdt, rdt)
-    tol = BF_TOL if torch.bfloat16 in (wdt, rdt) else TOL
     before = ps.launch_counts()
     for arm in ps.FWD_ARMS:
         got = ps.fwd_arm(arm, residual_dtype=rdt, **fkw)
+        again = ps.fwd_arm(arm, residual_dtype=rdt, **fkw)
         torch.cuda.synchronize()
-        _close(got, ps.fwd_plain(arm, residual_dtype=rdt, **fkw), tol)
+        _close(got, ps.fwd_plain(arm, residual_dtype=rdt,
+                                 teacher=got[:2] if stepwise else None,
+                                 **fkw), tol)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
         if arm == "prod":
-            rowblock, want = cf.ln_lstm_fwd_entries(residual_dtype=rdt,
-                                                    **fkw)
-            rowblock("srt_ln_lstm_fwd_rowblock")
+            production, want = cf.ln_lstm_fwd_entries(residual_dtype=rdt,
+                                                      **fkw)
+            production("srt_ln_lstm_fwd")
             assert all(torch.equal(a, b) for a, b in zip(got, want))
     for arm in (*ps.ARMS, "fake"):
         run = pl.bwd_fake if arm == "fake" else (
@@ -1650,17 +1650,98 @@ def test_ln_ladder_kernels_match_plain_versions(dev, h, wdt, rdt):
         torch.cuda.synchronize()
         _close([g for g in got if g is not None],
                [p for p in ps.bwd_plain(arm, **bkw) if p is not None], tol)
-        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        assert all(torch.equal(a, b) for a, b in zip(got, again)
+                   if a is not None)
+        if arm == "prod":
+            production, want = cf.ln_lstm_bwd_entries(**bkw)
+            production("srt_ln_lstm_bwd")
+            assert all(torch.equal(a, b) for a, b in zip(got, want)
+                       if a is not None)
+    after = ps.launch_counts()
+    assert all(after[f"fwd_{a}"] == before[f"fwd_{a}"] + 2
+               for a in ps.FWD_ARMS)
+    assert all(after[f"bwd_{a}"] == before[f"bwd_{a}"] + 2 for a in ps.ARMS)
+
+
+@pytest.mark.parametrize("h,wdt,rdt", [
+    (16, torch.bfloat16, torch.bfloat16), (40, torch.float32, torch.float32),
+    (40, torch.bfloat16, torch.float32)])
+def test_ln_ladder_kernels_match_plain_versions(dev, h, wdt, rdt):
+    """Every forward and backward arm of csrc/probe_ln.cu (the persistent
+    loops of csrc/ln_lstm.cuh) against its plain version, the same bit for
+    bit run to run, and the prod arms bit for bit the production kernels
+    they are, srt_ln_lstm_fwd and srt_ln_lstm_bwd."""
+    fkw, bkw = _ladder_inputs(h, dev, wdt, rdt)
+    _ladder_arms(fkw, bkw, rdt, BF_TOL if torch.bfloat16 in (wdt, rdt)
+                 else TOL)
+
+
+@pytest.mark.parametrize("h,wdt,rdt", [
+    (16, torch.bfloat16, torch.bfloat16), (40, torch.float32, torch.float32),
+    (40, torch.bfloat16, torch.float32)])
+def test_ln_ladder_rowblock_entries_match_row_block_designs(dev, h, wdt,
+                                                            rdt):
+    """The row-block design the arms ran before, srt_ln_probe_*_rowblock:
+    every arm against its plain version, and its prod arms bit for bit the
+    row-block entries srt_ln_lstm_fwd_rowblock and srt_ln_lstm_bwd_rowblock
+    (the weight gradients of both rounded as fused_ln_lstm rounds them);
+    no launch counted."""
+    from sketch_rnn_tpu_torch.ops import cuda_fused as cf
+    from sketch_rnn_tpu_torch.scripts import probe_dec_bwd_split as ps
+
+    fkw, bkw = _ladder_inputs(h, dev, wdt, rdt)
+    tol = BF_TOL if torch.bfloat16 in (wdt, rdt) else TOL
+    before = ps.launch_counts()
+    for arm in ps.FWD_ARMS:
+        run, got = ps.fwd_entries(arm, residual_dtype=rdt, **fkw)
+        run("srt_ln_probe_fwd_rowblock")
+        torch.cuda.synchronize()
+        _close(got, ps.fwd_plain(arm, residual_dtype=rdt, **fkw), tol)
+        if arm == "prod":
+            rowblock, want = cf.ln_lstm_fwd_entries(residual_dtype=rdt,
+                                                    **fkw)
+            rowblock("srt_ln_lstm_fwd_rowblock")
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+    for arm in (*ps.ARMS, "fake"):
+        run, got = ps.bwd_entries(arm, **bkw)
+        run("srt_ln_probe_bwd_rowblock")
+        torch.cuda.synchronize()
+        _close([g for g in got if g is not None],
+               [p for p in ps.bwd_plain(arm, **bkw) if p is not None], tol)
         if arm == "prod":
             rowblock, want = cf.ln_lstm_bwd_entries(**bkw)
             rowblock("srt_ln_lstm_bwd_rowblock")
             rnd = lambda o: (*o[:2], o[2].to(wdt), o[3].to(wdt), *o[4:])
             assert all(torch.equal(a, b)
                        for a, b in zip(rnd(got), rnd(want)))
-    after = ps.launch_counts()
-    assert all(after[f"fwd_{a}"] == before[f"fwd_{a}"] + 1
-               for a in ps.FWD_ARMS)
-    assert all(after[f"bwd_{a}"] == before[f"bwd_{a}"] + 2 for a in ps.ARMS)
+    assert ps.launch_counts() == before
+
+
+def test_ln_ladder_arms_run_in_row_windows(dev):
+    """At H=512, B=8192 (T=8, float32) a batch tile's state does not fit
+    in one block, so both loops run in two windows of rows: every arm
+    against its plain version (the forward step by step: run free, the
+    carry's float32 gap grows to ~1e-5 of hs by T=8 at this width), the
+    same run to run, prod bit for bit the production entries over the
+    same windows. Then prod over forced
+    windows (the ladder's grid_scaling_ms): the forward bit for bit the
+    same at 4 and 8 as at the planned 2 (its sums do not depend on the
+    tiling), the backward at 4 within TOL of the planned run; one window,
+    which does not fit, refused."""
+    from sketch_rnn_tpu_torch.scripts import probe_dec_bwd_split as ps
+
+    fkw, bkw = _ladder_inputs(512, dev, F32, F32, t=8, bsz=8192)
+    _ladder_arms(fkw, bkw, F32, TOL, stepwise=True)
+    fwd = [ps.fwd_arm("prod", residual_dtype=F32, windows=n, **fkw)
+           for n in (0, 4, 8)]
+    bwd = [ps.bwd_arm("prod", windows=n, **bkw) for n in (0, 4)]
+    torch.cuda.synchronize()
+    # one window of 8192 rows does not fit: refused before any launch
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        ps.fwd_arm("prod", residual_dtype=F32, windows=1, **fkw)
+    assert all(torch.equal(a, b) for f in fwd[1:] for a, b in zip(fwd[0], f))
+    for other in bwd[1:]:
+        _close(other, bwd[0], TOL)
 
 
 def test_ln_ladder_wrappers_refuse_bad_inputs(dev):

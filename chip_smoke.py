@@ -125,24 +125,42 @@ without the final line. With no CUDA device it exits 2 at once.
    same step through the plain versions on the card, and one small step
    on the card against the same step on the CPU.
 8. train_profile — two train steps timed, then profiled.
-9. train_lstm — the ``vae`` preset (lstm decoder) with ``fused_rnn=true``
+9. train_workdir — the two ends of the main path at the flagship's full
+   width (bfloat16, B=100, T=250): ``write_synthetic_npz`` writes one
+   ``.npz`` file for each of the 345 classes (30 train, 4 valid, 4 test
+   sketches each, integer deltas) and ``load_dataset`` reads them; run A
+   trains 4 steps with a workdir, evaluating the valid split and saving
+   in the background every 2 steps, logging every step, then sweeps the
+   test split, with the training kernels' counters zeroed just before and
+   read just after (2 + 2 ``fused_lstm_seq`` and 1 + 1 ``fused_ln_lstm``
+   launches a step, 2 + 1 forwards an eval batch); run B trains to its
+   step-2 save, then to step 4 with fresh loaders, and must end on run A's
+   state bit for bit; ``restore_checkpoint`` of A's last save must equal
+   A's state, and 8 ``generate``, 4 ``complete`` and 4 ``reconstruct``
+   requests served from it must give the strokes served from A's live
+   parameters, with the serving kernels launched. Logged: the corpus's
+   write and read seconds, ms a step without and with a workdir (eval and
+   saves every 2 steps, a log row every step in both) in turns, a
+   synchronous save's ms and bytes, the eval sweep's batches, ms,
+   launches and extra peak memory.
+10. train_lstm — the ``vae`` preset (lstm decoder) with ``fused_rnn=true``
    at full width and float32: 1 warm-up step, then 5 timed steps with the
    counters zeroed just before and read just after (2 launches per step
    of each ``fused_lstm_seq`` kernel, 1 of each ``fused_lstm`` kernel),
    then its one-step references as in 7.
-10. train_hyper — the ``hyper`` preset (HyperLSTM decoder 512 with its
+11. train_hyper — the ``hyper`` preset (HyperLSTM decoder 512 with its
    auxiliary LSTM 256 and embeddings 32) with ``fused_rnn=true`` at full
    width and float32: 1 warm-up step, then 5 timed steps with the
    counters zeroed just before and read just after (2 launches per step
    of each ``fused_lstm_seq`` kernel, 1 of each ``fused_hyper_lstm``
    kernel), losses finite and falling, then its one-step references as
    in 7 and its profile as in 8.
-11. serve_hyper — the ``hyper`` preset served at full width through the
+12. serve_hyper — the ``hyper`` preset served at full width through the
    engine's plain chunk program (the JAX package has no decode kernel for
    this cell either): the same burst as in 4, ``decode_kernel`` reported
    as ``plain``, no ``decode_chunk``/``replay_chunk`` launch; a small
    burst against the CPU; a profiled 64-request burst.
-12. lstm_seq — the cuDNN-layout LSTM with its reserve space
+13. lstm_seq — the cuDNN-layout LSTM with its reserve space
    (``ops/cuda_lstm.py``, ``csrc/lstm_seq.cu``) at the ``vae`` decoder's
    full width (B=100, T=250, H=512; ``xp`` projected from ``[x; z]``,
    D=133; nonzero carries; masks from ``make_dropout_masks`` at keep
@@ -170,7 +188,7 @@ without the final line. With no CUDA device it exits 2 at once.
    identical run to run, both timed in turns (new, old, old, new;
    medians), beside ``torch.mm`` of the same rounded operands (TF32
    off) and the bound.
-13. train_plain — the ``vae`` preset exactly as it says, ``fused_rnn=
+14. train_plain — the ``vae`` preset exactly as it says, ``fused_rnn=
    false`` (the plain cell loop under autograd, recurrent dropout from
    ``(key, t)``), float32, full width: 1 warm-up step, then 2 timed
    steps with every training kernel's counter zeroed just before and
@@ -178,7 +196,7 @@ without the final line. With no CUDA device it exits 2 at once.
    step through the kernels; one small ``layer_norm`` step on the card
    against the CPU; two steps profiled (device time by kernel, busy
    share).
-14. probes — ``dual_seq_fwd`` and ``seq_fwd`` (``csrc/probe_seq.cu``,
+15. probes — ``dual_seq_fwd`` and ``seq_fwd`` (``csrc/probe_seq.cu``,
    ``sketch_rnn_tpu_torch/scripts/probe_*.py``) against their plain
    versions at the probes' shape, B=4096, T=250, H=256 (1e-2 relative;
    the dual forward bit for bit two launches of the float32-gates arm,
@@ -191,7 +209,7 @@ without the final line. With no CUDA device it exits 2 at once.
    one line, and the dual probe's production arm (the ``fused_lstm_seq``
    forward at B=4096, bench.py's encoder) on its own ``encoder_fwd``
    line.
-15. probe_ladder — the LayerNorm ladder (``csrc/probe_ln.cu``, every arm on
+16. probe_ladder — the LayerNorm ladder (``csrc/probe_ln.cu``, every arm on
    the production loops of ``csrc/ln_lstm.cuh``,
    ``sketch_rnn_tpu_torch/scripts/probe_dec_bwd_split.py`` and
    ``probe_ln_stats.py``) at the reference probes' shape, B=4096, T=250,
@@ -210,7 +228,7 @@ without the final line. With no CUDA device it exits 2 at once.
    with 1 call per timing and 2 reps, the ladder's counters zeroed just
    before each and read just after, each record on one line, and the
    phase's seconds.
-16. the kernels line (seventeen kernels; the ladder's three rows carry
+17. the kernels line (seventeen kernels; the ladder's three rows carry
    every arm's numbers under ``arms``, and ``rowblock_ms``, ``speedup``
    and each arm's A/B under ``ab``), the ``nvidia-smi`` line, and the
    result line.
@@ -2193,6 +2211,241 @@ def profile_train(hps, loader, state, preset="quickdraw345_dp"):
               / 1e3, "count": e.count} for e in top])
 
 
+# -- the two ends of the main path: .npz files, eval, checkpoints ----------
+
+# the train_workdir phase's corpus: one file a class, QuickDraw's integer
+# deltas; 345 x 4 valid sketches are 14 eval batches at B=100
+WORKDIR_CLASSES = 345
+WORKDIR_SPLITS = dict(num_train=30, num_valid=4, num_test=4)
+WORKDIR_STEPS = 4          # run A; run B stops at its step-2 save
+WORKDIR_AB_STEPS = 10      # each timed run without / with a workdir
+SERVE_FROM_CKPT = dict(generate=8, complete=4, reconstruct=4)
+
+
+def serve_from(hps, model, params, seed=0):
+    """``SERVE_FROM_CKPT``'s requests through ``serve_requests`` at the
+    flagship's serving settings, with the serving kernels' counters zeroed
+    just before and read just after: ``(results by uid, launches)``."""
+    import numpy as np
+
+    from sketch_rnn_tpu_torch.ops import cuda_decode as cd
+    from sketch_rnn_tpu_torch.serve.endpoints import serve_requests
+    from sketch_rnn_tpu_torch.serve.engine import Request
+    from sketch_rnn_tpu_torch.utils import prng
+
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for ep, n in SERVE_FROM_CKPT.items():
+        for _ in range(n):
+            i = len(reqs)
+            reqs.append(Request(
+                key=prng.fold_in(prng.key(seed), i), endpoint=ep,
+                label=int(rng.integers(hps.num_classes)), temperature=0.8,
+                max_len=int(rng.integers(16, 65)),
+                z=(rng.normal(size=hps.z_size).astype(np.float32)
+                   if ep == "generate" else None),
+                prefix=(None if ep == "generate" else
+                        synthetic_prefix(rng, int(rng.integers(20, 60))))))
+    cd.reset_launch_counts()
+    out = serve_requests(model, hps, params, reqs, device=DEV)
+    launches = {"decode_chunk": cd.decode_chunk_launches,
+                "replay_chunk": cd.replay_chunk_launches}
+    if out["metrics"]["completed"] != len(reqs):
+        raise AssertionError(f"served {out['metrics']['completed']} of "
+                             f"{len(reqs)}")
+    for res in out["results"]:
+        check_result(res, reqs[res.uid].max_len)
+    return {r.uid: r for r in out["results"]}, launches
+
+
+def train_workdir(card):
+    """The two ends of the main path at the flagship's full width (bf16,
+    B=100, T=250): ``write_synthetic_npz`` writes one ``.npz`` file for
+    each of the 345 classes into a temporary directory and
+    ``load_dataset`` reads them; run A trains 4 steps with a workdir,
+    evaluating the valid split and saving in the background every 2
+    steps, logging every step, then sweeping the test split, with the
+    training kernels' counters zeroed just before and read just after
+    (exact launches a step and an eval batch); run B trains to its step-2
+    save, then again to step 4 with fresh loaders, and must end on run
+    A's state bit for bit. ``restore_checkpoint`` of A's last save must
+    equal A's state, and serve the same strokes as A's live parameters.
+    Also timed: the steps without and with a workdir (eval and saves
+    every 2 steps) in turns, a synchronous save, the eval sweep alone
+    (with its peak memory)."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sketch_rnn_tpu_torch.data.loader import (load_dataset,
+                                                  write_synthetic_npz)
+    from sketch_rnn_tpu_torch.models.vae import SketchRNN
+    from sketch_rnn_tpu_torch.ops import cuda_fused as CF
+    from sketch_rnn_tpu_torch.ops import cuda_lstm as CL
+    from sketch_rnn_tpu_torch.train import checkpoint as ck
+    from sketch_rnn_tpu_torch.train.loop import evaluate, train
+    from sketch_rnn_tpu_torch.train.state import states_equal
+    from sketch_rnn_tpu_torch.train.step import make_eval_step
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_workdir_")
+    try:
+        data = os.path.join(tmp, "data")
+        os.makedirs(data)
+        names = tuple(f"class{c:03d}.npz" for c in range(WORKDIR_CLASSES))
+        t0 = time.perf_counter()
+        for c, name in enumerate(names):
+            write_synthetic_npz(os.path.join(data, name), class_id=c,
+                                seed=c, integer_grid=255.0, **WORKDIR_SPLITS)
+        write_s = time.perf_counter() - t0
+        hps = train_hps(**dtype_over("bfloat16"), data_set=names,
+                        save_every=2, eval_every=2, log_every=1)
+        t0 = time.perf_counter()
+        tr, va, te, scale = load_dataset(hps, data)
+        read_s = time.perf_counter() - t0
+        model = SketchRNN(hps)
+        params = model.init_params(torch.Generator().manual_seed(0),
+                                   device=DEV)
+
+        def fresh():
+            return load_dataset(hps, data)[:3]
+
+        workdir = lambda name: os.path.join(tmp, name)
+        n_eval = 2 * va.num_eval_batches + te.num_eval_batches
+        torch.cuda.synchronize()
+        CF.reset_launch_counts()
+        CL.reset_launch_counts()
+        state_a, rows = train(hps, tr, va, te, scale, workdir=workdir("A"),
+                              num_steps=WORKDIR_STEPS, params=params,
+                              device=DEV)
+        torch.cuda.synchronize()
+        launches = {**CF.launch_counts(), **CL.launch_counts()}
+        per_step = {"fused_lstm_seq_fwd": 2, "fused_lstm_seq_bwd": 2,
+                    "fused_ln_lstm_fwd": 1, "fused_ln_lstm_bwd": 1}
+        per_eval = {"fused_lstm_seq_fwd": 2, "fused_ln_lstm_fwd": 1}
+        want = {k: WORKDIR_STEPS * per_step.get(k, 0)
+                + n_eval * per_eval.get(k, 0) for k in launches}
+        if launches != want:
+            raise AssertionError(f"train_workdir launches {launches}, "
+                                 f"expected {want}")
+        files = sorted(os.listdir(workdir("A")))
+        want_files = sorted(
+            [f"ckpt_{s:08d}.{e}" for s in (2, 4) for e in ("json",
+                                                          "msgpack")]
+            + [f"{n}_metrics.{e}" for n in ("train", "valid", "test")
+               for e in ("csv", "jsonl")])
+        if files != want_files:
+            raise AssertionError(f"workdir A holds {files}")
+        if not all(math.isfinite(r["loss"]) for r in rows):
+            raise AssertionError(f"non-finite losses {rows}")
+
+        train(hps, *fresh(), scale, workdir=workdir("B"), num_steps=2,
+              params=params, device=DEV)
+        state_b, _ = train(hps, *fresh(), scale, workdir=workdir("B"),
+                           num_steps=WORKDIR_STEPS, device=DEV)
+        resume_bitwise = states_equal(state_a, state_b)
+        if not resume_bitwise:
+            raise AssertionError("run B resumed at step 2 does not end on "
+                                 "run A's state bit for bit")
+        restored, r_scale, _ = ck.restore_checkpoint(workdir("A"), state_a,
+                                                     device=DEV)
+        if not (states_equal(state_a, restored) and r_scale == scale):
+            raise AssertionError("restore_checkpoint(A) differs from run "
+                                 "A's state")
+
+        def sentinel(p):
+            # the pen-suppression sentinel of serve_main_path, on a copy:
+            # a 4-step model ends its sketches after a few steps
+            p = dict(p, out_b=p["out_b"].clone())
+            p["out_b"][2] = -1e9
+            return p
+
+        served = [serve_from(hps, model, sentinel(p))
+                  for p in (restored.params, state_a.params)]
+        (got, got_launches), (live, live_launches) = served
+        for uid, a in live.items():
+            b = got[uid]
+            if not (a.steps == b.steps and np.array_equal(a.strokes5,
+                                                          b.strokes5)):
+                raise AssertionError(f"request {uid}: strokes from the "
+                                     f"checkpoint differ from the live "
+                                     f"state's")
+        for ln in (got_launches, live_launches):
+            if not (ln["decode_chunk"] > 0 and ln["replay_chunk"] > 0):
+                raise AssertionError(f"serving kernel launches {ln}")
+
+        # steps without and with a workdir, in turns (plain, workdir,
+        # workdir, plain), from the same weights, at run A's cadences: the
+        # workdir arm evaluates the valid split and saves every 2 steps;
+        # both arms drain a log row every step
+        walls = {"plain": [], "workdir": []}
+        for i, way in enumerate(("plain", "workdir", "workdir", "plain")):
+            extra = (dict(valid_loader=va, workdir=workdir(f"ab{i}"))
+                     if way == "workdir" else {})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train(hps, tr, scale_factor=scale, num_steps=WORKDIR_AB_STEPS,
+                  params=params, device=DEV, **extra)
+            torch.cuda.synchronize()
+            walls[way].append(time.perf_counter() - t0)
+        ms = {k: [w * 1e3 / WORKDIR_AB_STEPS for w in v]
+              for k, v in walls.items()}
+        ms_step = {**ms, **{f"{k}_median": float(np.median(v))
+                            for k, v in ms.items()}}
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = ck.save_checkpoint(workdir("sync"), state_a, scale, hps)
+        save_ms = (time.perf_counter() - t0) * 1e3
+
+        eval_step = make_eval_step(model, hps, device=DEV)
+        evaluate(state_a.params, va, eval_step)          # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        CF.reset_launch_counts()
+        t0 = time.perf_counter()
+        ev = evaluate(state_a.params, va, eval_step)
+        torch.cuda.synchronize()
+        eval_ms = (time.perf_counter() - t0) * 1e3
+        eval_launches = {k: v for k, v in CF.launch_counts().items() if v}
+        want = {k: va.num_eval_batches * v for k, v in per_eval.items()}
+        if eval_launches != want:
+            raise AssertionError(f"eval sweep launches {eval_launches}, "
+                                 f"expected {want}")
+        if not all(math.isfinite(v) for v in ev.values()):
+            raise AssertionError(f"non-finite eval metrics {ev}")
+        log("train_workdir", card=card,
+            preset="quickdraw345_dp (bfloat16 compute and residuals)",
+            batch=hps.batch_size, max_seq_len=hps.max_seq_len,
+            files=len(names), corpus_write_s=write_s, corpus_read_s=read_s,
+            sketches={"train": len(tr), "valid": len(va), "test": len(te)},
+            scale_factor=scale, steps=WORKDIR_STEPS, launches=launches,
+            eval_batches_per_sweep=va.num_eval_batches,
+            test_batches=te.num_eval_batches, resume_bitwise=resume_bitwise,
+            restore_bitwise=True, served_identical=True,
+            serve_launches={"restored": got_launches,
+                            "live": live_launches},
+            ms_per_step={"steps": WORKDIR_AB_STEPS, "turns":
+                         ["plain", "workdir", "workdir", "plain"],
+                         **ms_step},
+            sync_save_ms=save_ms, checkpoint_bytes=os.path.getsize(path),
+            eval_sweep={"batches": va.num_eval_batches, "ms": eval_ms,
+                        "ms_per_batch": eval_ms / va.num_eval_batches,
+                        "launches": eval_launches,
+                        "peak_extra_bytes":
+                        torch.cuda.max_memory_allocated() - before,
+                        "loss": ev["loss"]},
+            per_step=[{k: r[k] for k in ("step", "loss", "grad_norm")}
+                      for r in rows],
+            seconds=time.perf_counter() - t_phase)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # -- the hoisted LSTM, the probes, the plain training path -----------------
 
 # one step of the plain cell path (fused_rnn=false) against the same step
@@ -3099,6 +3352,8 @@ def main():
     train_reference(train_hps, "bfloat16", hps, model, loader, state)
     profile_train(hps, loader, state)
     del state
+    torch.cuda.empty_cache()
+    train_workdir(card)
     lstm_launches, (hps, model, loader, state) = train_main_path(
         card, vae_hps(), "train_lstm",
         "vae (lstm decoder, fused_rnn=true, float32)",

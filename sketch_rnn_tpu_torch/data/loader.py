@@ -2,9 +2,11 @@
 
 The port of the parts of ``sketch_rnn_tpu/data/loader.py`` a
 single-host, unbucketed trainer uses: ``_purify``, ``DataLoader``
-(``normalize``, ``random_batch``/``next_batch`` and the numpy assembly
-path) and the synthetic QuickDraw-shaped corpus
-(``make_synthetic_strokes``, ``synthetic_loader``). Batches are numpy
+(``normalize``, ``random_batch``/``next_batch``, ``fast_forward``, the
+eval sweep's ``num_eval_batches``/``get_batch`` and the numpy assembly
+path), ``load_dataset`` over a directory of QuickDraw-shaped ``.npz``
+files, and the synthetic corpus (``make_synthetic_strokes``,
+``synthetic_loader``, ``write_synthetic_npz``). Batches are numpy
 dicts, bitwise the JAX package's numpy path for the same corpus and
 seed: the loader's RNG draws the same values in the same order,
 including the per-batch augmentation seed that the JAX package's native
@@ -12,11 +14,13 @@ batcher would consume, so the streams stay aligned.
 
 Not ported yet (each raises, naming the later slice): the native C++
 batcher, length bucketing (``bucket_edges``, ``next_stack``),
-multi-host striping, and the int16 transfer path.
+multi-host striping and the coordinated global plan (ROADMAP queue 1,
+items 7 and 10), and the int16 transfer path.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -146,6 +150,134 @@ class DataLoader:
         raise NotImplementedError(
             f"stacked batches (steps_per_call > 1) {_LATER}")
 
+    def fast_forward(self, n_batches: int) -> None:
+        """Draw and discard ``n_batches`` training batches through
+        :meth:`next_batch`, so a fresh loader of a run resumed at step
+        ``n`` feeds the batches the uninterrupted run drew from step
+        ``n`` on."""
+        if n_batches < 0:
+            raise ValueError(f"n_batches must be >= 0, got {n_batches}")
+        for _ in range(n_batches):
+            self.next_batch()
+
+    # -- the eval sweep ------------------------------------------------------
+
+    @property
+    def num_eval_batches(self) -> int:
+        """Batches for a full eval sweep, ``ceil(len / batch_size)``: the
+        last wraps around to the corpus start so every batch keeps the
+        full shape. Zero for an empty split."""
+        b = self.hps.batch_size
+        return (len(self.strokes) + b - 1) // b
+
+    def eval_pad_len(self, batch_index: int) -> int:
+        """The pad length of eval batch ``batch_index``: ``max_seq_len``
+        (length buckets come with a later slice)."""
+        return self.hps.max_seq_len
+
+    def _eval_indices(self, batch_index: int) -> np.ndarray:
+        if not 0 <= batch_index < self.num_eval_batches:
+            raise IndexError(f"batch {batch_index} of "
+                             f"{self.num_eval_batches}")
+        lo = batch_index * self.hps.batch_size
+        return np.arange(lo, lo + self.hps.batch_size) % len(self.strokes)
+
+    def get_batch(self, batch_index: int) -> Dict[str, np.ndarray]:
+        """Deterministic eval batch ``batch_index`` with a ``"weights"``
+        [B] vector: 1 on a row's first occurrence, 0 on the rows that wrap
+        around from the corpus start, so weighted eval metrics are exact
+        means over the split."""
+        lo = batch_index * self.hps.batch_size
+        linear = np.arange(lo, lo + self.hps.batch_size)
+        batch = self._assemble(self._eval_indices(batch_index))
+        batch["weights"] = (linear < len(self.strokes)).astype(np.float32)
+        return batch
+
+
+# -- dataset files ---------------------------------------------------------
+
+_SEEDS = {"train": 1, "valid": 2, "test": 3}   # fixed: runs reproduce
+
+
+def load_dataset(hps: HParams, data_dir: Optional[str] = None,
+                 host_id: int = 0, num_hosts: int = 1,
+                 scale_factor: Optional[float] = None,
+                 skip_bad_records: bool = False,
+                 coordinated: Optional[bool] = None,
+                 emit_global: bool = False,
+                 ) -> Tuple[DataLoader, DataLoader, DataLoader, float]:
+    """Read the ``hps.data_set`` ``.npz`` files of ``data_dir`` (default
+    ``hps.data_dir``) into train/valid/test loaders; a file's index in
+    ``hps.data_set`` is its examples' class label. The train split
+    augments; every split is normalized by the full train split's scale
+    factor, or by ``scale_factor`` (a checkpoint's, which is part of the
+    model contract). A missing or unreadable file, a missing or damaged
+    split array, a corrupt record and an empty split each fail with the
+    JAX package's one line; ``skip_bad_records`` skips corrupt records
+    instead. The files' object arrays are pickled, as QuickDraw's are:
+    read only files you trust. Returns ``(train, valid, test,
+    scale_factor)``."""
+    if num_hosts != 1 or host_id != 0:
+        raise NotImplementedError(
+            f"multi-host striping (num_hosts={num_hosts}, host_id="
+            f"{host_id}) {_LATER} (ROADMAP queue 1, items 7 and 10)")
+    if coordinated or emit_global:
+        raise NotImplementedError(
+            f"the coordinated global plan (coordinated={coordinated}, "
+            f"emit_global={emit_global}) {_LATER} (ROADMAP queue 1, "
+            f"items 7 and 10)")
+    data_dir = data_dir or hps.data_dir
+    splits = {"train": ([], []), "valid": ([], []), "test": ([], [])}
+    for label, name in enumerate(hps.data_set):
+        path = os.path.join(data_dir, name)
+        if not os.path.exists(path):
+            raise FileNotFoundError(
+                f"{path} not found; QuickDraw .npz files are required "
+                f"(or use make_synthetic_strokes for a synthetic corpus)")
+        try:
+            npz = np.load(path, allow_pickle=True, encoding="latin1")
+        except Exception as e:  # noqa: BLE001 — np.load's many errors
+            raise RuntimeError(
+                f"{path}: unreadable .npz ({type(e).__name__}: {e}) — "
+                f"corrupt or truncated download?") from None
+        with npz:
+            for split in splits:
+                try:
+                    arr = list(npz[split])
+                except KeyError:
+                    raise RuntimeError(
+                        f"{path}: no {split!r} array — not a sketch-rnn "
+                        f".npz (needs train/valid/test)") from None
+                except Exception as e:  # noqa: BLE001
+                    raise RuntimeError(
+                        f"{path}: corrupt {split!r} array "
+                        f"({type(e).__name__}: {e}) — truncated or "
+                        f"damaged .npz member") from None
+                seqs = _purify(arr, hps.max_seq_len,
+                               source=f"{path}[{split}]",
+                               skip_bad=skip_bad_records)
+                splits[split][0].extend(seqs)
+                splits[split][1].extend([label] * len(seqs))
+
+    def build(split: str, augment: bool) -> DataLoader:
+        seqs, labels = splits[split]
+        if not seqs:
+            raise ValueError(
+                f"{split} split is empty after filtering to "
+                f"max_seq_len={hps.max_seq_len}; raise max_seq_len or check "
+                f"the data files {hps.data_set}")
+        return DataLoader(seqs, hps, labels=np.array(labels, np.int32),
+                          augment=augment, seed=_SEEDS[split])
+
+    train = build("train", augment=True)
+    scale = (scale_factor if scale_factor is not None
+             else S.calculate_normalizing_scale_factor(splits["train"][0]))
+    valid = build("valid", augment=False)
+    test = build("test", augment=False)
+    for dl in (train, valid, test):
+        dl.normalize(scale)
+    return train, valid, test, scale
+
 
 # -- synthetic corpus ------------------------------------------------------
 
@@ -224,3 +356,22 @@ def synthetic_loader(hps: HParams, num: int, seed: int = 0,
                         seed=seed)
     loader.normalize(scale_factor)
     return loader, scale_factor
+
+
+def write_synthetic_npz(path: str, num_train: int = 200, num_valid: int = 50,
+                        num_test: int = 50, class_id: int = 0,
+                        seed: int = 0, **kw) -> None:
+    """Write a synthetic corpus as a QuickDraw-shaped single-class
+    ``.npz`` file (object arrays ``train``/``valid``/``test`` of stroke-3
+    sequences, the splits drawn from seeds ``seed``, ``seed + 1`` and
+    ``seed + 2``); ``class_id`` picks the figure family and ``kw`` goes
+    to :func:`make_synthetic_strokes`. The same arrays as the JAX
+    package's writer for the same arguments."""
+    sets = {}
+    for split, n, s in (("train", num_train, seed),
+                        ("valid", num_valid, seed + 1),
+                        ("test", num_test, seed + 2)):
+        seqs, _ = make_synthetic_strokes(n, fixed_class=class_id, seed=s,
+                                         **kw)
+        sets[split] = np.array(seqs, dtype=object)
+    np.savez_compressed(path, **sets)

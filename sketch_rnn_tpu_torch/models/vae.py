@@ -13,7 +13,8 @@ Randomness derives from one step key exactly as in the JAX package
 (``kenc, kz, kdec = split(key, 3)``; the encoder's dropout keys ``split(
 kenc)``; the decoder's ``split(kdec, 3)[0]``), with the port's bitwise
 threefry (``utils/prng.py``), so the kernels' dropout masks equal the
-JAX package's and ``z``'s noise agrees to an ulp.
+JAX package's and ``z``'s noise agrees to an ulp. ``eval_metrics_per_class``
+gives the eval metrics split by class label in one forward.
 """
 
 from __future__ import annotations
@@ -279,3 +280,46 @@ class SketchRNN:
                    "pen_ce": pen_ce, "kl": kl_floored, "kl_raw": kl_raw,
                    "kl_weight": kl_w}
         return total, metrics
+
+    def eval_metrics_per_class(self, params: Params,
+                               batch: Dict[str, torch.Tensor],
+                               key: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The eval-mode metrics as ``[num_classes]`` vectors in one
+        forward, plus ``weight_sum``, each class's count of real
+        (weight > 0) rows: per-example sums reduced by a ``[C, B]`` class
+        mask. As in eval, no dropout, pen CE masked and KL weight 1, the
+        free-bits floor applied to each class's KL mean over this batch;
+        a class absent from the batch reports zeros at ``weight_sum`` 0.
+        """
+        hps = self.hps
+        if hps.num_classes <= 0:
+            raise ValueError("per-class eval needs num_classes > 0")
+        labels = batch["labels"]
+        weights = batch.get("weights")
+        dev = labels.device
+        w = (torch.ones(labels.shape, dtype=torch.float32, device=dev)
+             if weights is None else weights.to(torch.float32))
+        mp, x_target, _, mu, presig = self._forward(params, batch, key,
+                                                    train=False)
+        kl_ex = (mdn.kl_per_example(mu, presig) if hps.conditional
+                 else torch.zeros(labels.shape, dtype=torch.float32,
+                                  device=dev))
+        nll_ex, pen_ex = mdn.reconstruction_sums(mp, x_target, mask_pen=True)
+        cls = torch.arange(hps.num_classes, device=dev)
+        mask = (labels[None, :] == cls[:, None]).to(torch.float32) \
+            * w[None, :]                                        # [C, B]
+        cnt = mask.sum(dim=-1)
+        safe = torch.clamp_min(cnt, 1.0)
+        offset_nll = (mask @ nll_ex) / (hps.max_seq_len * safe)
+        pen_ce = (mask @ pen_ex) / (hps.max_seq_len * safe)
+        kl_raw = (mask @ kl_ex) / safe
+        recon = offset_nll + pen_ce
+        if hps.conditional:
+            kl_floored = mdn.kl_cost_with_floor(kl_raw, hps.kl_tolerance)
+            total = recon + kl_floored
+        else:
+            kl_floored = torch.zeros_like(kl_raw)
+            total = recon
+        return {"loss": total, "recon": recon, "offset_nll": offset_nll,
+                "pen_ce": pen_ce, "kl": kl_floored, "kl_raw": kl_raw,
+                "kl_weight": torch.ones_like(cnt), "weight_sum": cnt}

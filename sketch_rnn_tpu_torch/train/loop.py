@@ -1,43 +1,125 @@
-"""A minimal training loop.
+"""The training loop and the eval sweep.
 
-The port of the core of ``sketch_rnn_tpu/train/loop.py::train``: the key
-discipline (``root_key, init_key = split(key(seed))``, then step ``s``
-trains with ``fold_in(root_key, s)``), one ``next_batch()`` per step and
-one train step per batch. It returns the final state and one metrics row
-per step. Checkpoints, eval sweeps, prefetch, telemetry, the watchdog
-and elastic runs are not ported yet: asking for one raises, naming the
-later slice.
+The port of ``sketch_rnn_tpu/train/loop.py``'s single-device loop
+(``train``, ``evaluate``, ``evaluate_per_class``). The key discipline:
+``root_key, init_key = split(key(seed))``, step ``s`` trains with
+``fold_in(root_key, s)`` and eval batch ``i`` uses ``fold_in(key, i)``,
+so a run resumed from a checkpoint at step ``R`` continues the stream
+instead of replaying it. With a ``workdir`` the loop writes the metric
+files (``train/metrics.py``; the train rows one log window late), sweeps
+``valid_loader`` every ``eval_every`` steps, checkpoints every
+``save_every`` steps (``train/checkpoint.py``; in the background by
+default, ``train/async_ckpt.py``) and at the end, resumes from the
+latest checkpoint (fast-forwarding a fresh loader to the resumed step
+with ``resume_align``), and sweeps ``test_loader`` at the end.
+
+The JAX package's ``eval_steps_per_call`` only chunks the same sweep into
+a scan (equal to about 1e-6); the port sweeps batch by batch whatever it
+says, and chunking comes with ``steps_per_call``. Prefetch, telemetry,
+the profiler, the watchdog and elastic runs are not ported yet: asking
+for one raises, naming the later slice.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from sketch_rnn_tpu_torch.config import HParams
 from sketch_rnn_tpu_torch.models.vae import SketchRNN
+from sketch_rnn_tpu_torch.train.async_ckpt import AsyncCheckpointer
+from sketch_rnn_tpu_torch.train.checkpoint import (latest_checkpoint,
+                                                   restore_checkpoint,
+                                                   save_checkpoint)
+from sketch_rnn_tpu_torch.train.metrics import (MetricsDrain, MetricsWriter,
+                                                check_finite,
+                                                scalars_from_device)
 from sketch_rnn_tpu_torch.train.state import TrainState, make_train_state
-from sketch_rnn_tpu_torch.train.step import check_trainable, make_train_step
+from sketch_rnn_tpu_torch.train.step import (check_trainable, make_eval_step,
+                                             make_train_step)
 from sketch_rnn_tpu_torch.utils import prng
 from sketch_rnn_tpu_torch.utils.device import resolve_device, tree_to
 
 
-def train(hps: HParams, train_loader, seed: int = 0,
-          num_steps: Optional[int] = None, params=None, device=None,
-          valid_loader=None, workdir: Optional[str] = None,
+def _sweep_rows(params, loader, eval_step, key):
+    """One metrics dict (host floats or numpy vectors) per eval batch over
+    ``loader.num_eval_batches`` batches; batch ``i`` uses ``fold_in(key,
+    i)``."""
+    n = loader.num_eval_batches
+    if n == 0:
+        raise ValueError(
+            f"eval split has no batches ({len(loader)} examples, "
+            f"batch_size={loader.hps.batch_size})")
+    for i in range(n):
+        out = eval_step(params, loader.get_batch(i), prng.fold_in(key, i))
+        if all(v.dim() == 0 for v in out.values()):
+            yield scalars_from_device(out)
+        else:
+            yield {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def evaluate(params, loader, eval_step, key: Optional[torch.Tensor] = None
+             ) -> Dict[str, float]:
+    """Eval metrics over a full sweep of ``loader``: each batch's
+    weighted means combined by its ``weight_sum``, so the result is the
+    exact mean over the split (the wrap-filled rows of the last batch
+    weigh 0)."""
+    if key is None:
+        key = prng.key(0)
+    totals: Dict[str, float] = {}
+    weight_total = 0.0
+    for metrics in _sweep_rows(params, loader, eval_step, key):
+        w = float(metrics.pop("weight_sum", loader.hps.batch_size))
+        weight_total += w
+        for k, v in metrics.items():
+            totals[k] = totals.get(k, 0.0) + float(v) * w
+    return {k: v / max(weight_total, 1.0) for k, v in totals.items()}
+
+
+def evaluate_per_class(params, loader, per_class_step, num_classes: int,
+                       key: Optional[torch.Tensor] = None
+                       ) -> Dict[int, Optional[Dict[str, float]]]:
+    """Per-class eval metrics over one standard sweep of ``loader``:
+    ``{class: metrics}``, each batch's ``[num_classes]`` vectors combined
+    by its per-class real-row counts; None for a class with no example
+    in the split."""
+    if key is None:
+        key = prng.key(0)
+    totals: Dict[str, np.ndarray] = {}
+    counts = np.zeros((num_classes,), np.float64)
+    for metrics in _sweep_rows(params, loader, per_class_step, key):
+        cnt = np.asarray(metrics.pop("weight_sum"), np.float64)
+        counts += cnt
+        for k, v in metrics.items():
+            totals[k] = totals.get(k, 0.0) + np.asarray(v, np.float64) * cnt
+    return {c: (None if counts[c] == 0 else
+                {k: float(v[c] / counts[c]) for k, v in totals.items()})
+            for c in range(num_classes)}
+
+
+def train(hps: HParams, train_loader, valid_loader=None, test_loader=None,
+          scale_factor: float = 1.0, workdir: Optional[str] = None,
+          seed: int = 0, num_steps: Optional[int] = None,
+          resume: bool = True, params=None, device=None,
           profile: bool = False, trace_dir: Optional[str] = None,
           watchdog: bool = False, coordinator=None
           ) -> Tuple[TrainState, List[Dict[str, float]]]:
-    """Train for ``num_steps`` (default ``hps.num_steps``) steps from
-    ``params``, else from the port's own seeded initialization (drawn
-    from ``init_key``; not the JAX package's values), with a fresh
-    optimizer state. Returns ``(state, rows)``: each row holds the step
-    and the step's metrics as floats, read from the device once, at the
-    end."""
-    later = {"valid_loader (eval sweeps)": valid_loader is not None,
-             "workdir (checkpoints and metric files)": workdir is not None,
-             "profile": profile, "trace_dir (telemetry)": trace_dir,
+    """Train until step ``num_steps`` (default ``hps.num_steps``), as the
+    JAX package's ``train`` does, on ``device`` (the card unless
+    ``device="cpu"``).
+
+    The state starts from ``params``, else from the port's own seeded
+    initialization (drawn from ``init_key``; not the JAX package's
+    values), with a fresh optimizer state; with ``workdir`` and
+    ``resume`` the latest checkpoint there wins over both, and its scale
+    factor over ``scale_factor``. ``scale_factor`` is written into every
+    checkpoint. Returns ``(state, rows)``: one row per step this call
+    trained, the step and its metrics as floats, read from the device at
+    the end.
+    """
+    later = {"profile": profile, "trace_dir (telemetry)": trace_dir,
              "watchdog": watchdog,
              "coordinator (elastic runs)": coordinator is not None}
     for what, asked in later.items():
@@ -48,24 +130,102 @@ def train(hps: HParams, train_loader, seed: int = 0,
     check_trainable(hps)
     dev = resolve_device(device)
     num_steps = hps.num_steps if num_steps is None else num_steps
+    # fail fast: an un-evaluable valid split would otherwise raise only at
+    # the first sweep
+    if valid_loader is not None and valid_loader.num_eval_batches == 0:
+        raise ValueError(
+            f"valid split is not evaluable ({len(valid_loader)} local "
+            f"examples, batch_size={hps.batch_size}); enlarge the split, "
+            f"reduce batch_size, or pass valid_loader=None")
     model = SketchRNN(hps)
     root_key, init_key = prng.split(prng.key(seed), 2).unbind(dim=-2)
     if params is None:
         gen = torch.Generator().manual_seed(int(init_key[1]))
         params = model.init_params(gen, device=dev)
     state = make_train_state(tree_to(params, dev))
+    if workdir and resume and latest_checkpoint(workdir) is not None:
+        state, scale_factor, meta = restore_checkpoint(workdir, state,
+                                                       device=dev)
+        print(f"[train] resumed from step {meta['step']}", flush=True)
+        # crash-equivalent resume: a fresh loader's stream starts at batch
+        # 0, so draw the R batches the interrupted run consumed
+        if state.step and hps.resume_align:
+            train_loader.fast_forward(state.step)
+            print(f"[train] resume_align: training feed fast-forwarded "
+                  f"{state.step} batches (hparam resume_align=false to "
+                  f"skip)", flush=True)
+
     step_fn = make_train_step(model, hps, device=dev)
+    eval_step = make_eval_step(model, hps, device=dev)
+    drain = MetricsDrain(MetricsWriter(workdir, "train"),
+                         defer=hps.metrics_defer, check=check_finite)
+    eval_writer = MetricsWriter(workdir, "valid")
+    ckpt = (AsyncCheckpointer(workdir)
+            if workdir and hps.async_checkpoint else None)
+    step = state.step
+    crossed = lambda prev, every: step // every > prev // every
+    last_saved_step = None      # the highest step THIS run checkpointed
     history = []
-    for _ in range(num_steps):
-        step = state.step
-        state, metrics = step_fn(state, train_loader.next_batch(),
-                                 prng.fold_in(root_key, step))
-        history.append((step, metrics))
+    try:
+        while step < num_steps:
+            prev = step
+            state, metrics = step_fn(state, train_loader.next_batch(),
+                                     prng.fold_in(root_key, step))
+            history.append((prev, metrics))
+            step = state.step
+            if crossed(prev, hps.log_every) or step == num_steps:
+                drain.push(step, metrics)
+            if valid_loader is not None and crossed(prev, hps.eval_every):
+                ev = evaluate(state.params, valid_loader, eval_step)
+                eval_writer.write(step, ev)
+                eval_writer.log_console(step, ev)
+            if workdir and crossed(prev, hps.save_every):
+                # drain first, so a divergence in the save step's own
+                # window stops the run before its state is committed
+                drain.flush()
+                if ckpt is not None:
+                    ckpt.save(state, scale_factor, hps)
+                else:
+                    save_checkpoint(workdir, state, scale_factor, hps,
+                                    retries=hps.ckpt_retries,
+                                    retry_backoff_s=hps.ckpt_retry_backoff_s)
+                last_saved_step = step
+        drain.flush()
+    finally:
+        # persist the pending window for a post-mortem; nothing here may
+        # mask the error in flight
+        try:
+            drain.flush()
+        except Exception:  # noqa: BLE001
+            pass
+        if ckpt is not None:
+            ckpt.join()
+            if ckpt.failure is not None:
+                print(f"[ckpt] WARNING: background checkpoint write "
+                      f"failed: {ckpt.failure!r} — latest_checkpoint in "
+                      f"{workdir} is older than the last save cadence",
+                      flush=True)
+
+    if workdir:
+        if ckpt is not None:
+            ckpt.wait()        # raise a background save's failure
+        # the last cadenced save of THIS run may already hold this step; a
+        # stale same-step checkpoint of an earlier run is overwritten
+        if last_saved_step != step:
+            save_checkpoint(workdir, state, scale_factor, hps,
+                            retries=hps.ckpt_retries,
+                            retry_backoff_s=hps.ckpt_retry_backoff_s)
+    if test_loader is not None and test_loader.num_eval_batches > 0:
+        ev = evaluate(state.params, test_loader, eval_step)
+        MetricsWriter(workdir, "test").write(state.step, ev)
+        print("[test] " + " ".join(f"{k}={v:.4f}"
+                                   for k, v in sorted(ev.items())),
+              flush=True)
     rows = []
     if history:
         names = sorted(history[0][1])
         table = torch.stack([torch.stack([m[k].float() for k in names])
                              for _, m in history]).cpu()
-        for (step, _), vals in zip(history, table.tolist()):
-            rows.append({"step": step, **dict(zip(names, vals))})
+        for (s, _), vals in zip(history, table.tolist()):
+            rows.append({"step": s, **dict(zip(names, vals))})
     return state, rows

@@ -65,6 +65,25 @@ def tree_map(fn, *trees):
     return fn(*trees)
 
 
+def states_equal(a: TrainState, b: TrainState) -> bool:
+    """Whether two states hold the same counts and, leaf by leaf, the same
+    paths, dtypes, shapes and values bit for bit (``b``'s leaves compared
+    on ``a``'s device)."""
+    pa, pb = a.opt_state.adam, b.opt_state.adam
+    if (pa.count, a.opt_state.schedule_count, a.step) != (
+            pb.count, b.opt_state.schedule_count, b.step):
+        return False
+    for ta, tb in ((a.params, b.params), (pa.mu, pb.mu), (pa.nu, pb.nu)):
+        la, lb = tree_items(ta), tree_items(tb)
+        if [p for p, _ in la] != [p for p, _ in lb]:
+            return False
+        for (_, x), (_, y) in zip(la, lb):
+            if not (x.dtype == y.dtype and x.shape == y.shape
+                    and torch.equal(x, y.to(x.device))):
+                return False
+    return True
+
+
 def init_opt_state(params) -> OptState:
     zeros = lambda p: torch.zeros_like(p)
     return OptState(AdamState(0, tree_map(zeros, params),

@@ -12,6 +12,12 @@ package's: ``loss``, ``recon``, ``offset_nll``, ``pen_ce``, ``kl``,
 ``kl_raw``, ``kl_weight``, ``grad_norm`` and ``lr``, as 0-dim tensors on
 the device (reading them is the caller's choice, and a host sync).
 
+The eval steps (``make_eval_step``, ``make_per_class_eval_step``) are
+the JAX package's single-device eval cores: the loss with ``train=False``
+(no dropout, pen CE masked, KL weight 1) plus ``weight_sum``, the batch's
+count of real rows, under ``torch.no_grad`` (the fused kernels run their
+forwards only).
+
 Requests this slice does not serve raise, naming the later slice
 (:func:`check_trainable`).
 """
@@ -31,6 +37,7 @@ from sketch_rnn_tpu_torch.utils.device import resolve_device
 
 Metrics = Dict[str, torch.Tensor]
 StepFn = Callable[..., Tuple[TrainState, Metrics]]
+EvalFn = Callable[..., Metrics]
 
 _LATER = "comes with a later slice of the PyTorch port"
 
@@ -93,3 +100,36 @@ def make_train_step(model, hps: HParams, device=None) -> StepFn:
         return TrainState(new_params, opt_state, state.step + 1), metrics
 
     return step_fn
+
+
+def make_eval_step(model, hps: HParams, device=None) -> EvalFn:
+    """``eval(params, batch, key) -> metrics``: the eval-mode loss's
+    metrics plus ``weight_sum``, the sum of the batch's ``weights`` (its
+    rows when it has none), as 0-dim tensors on ``device``."""
+    dev = resolve_device(device)
+
+    @torch.no_grad()
+    def eval_fn(params, batch, key: torch.Tensor) -> Metrics:
+        batch = batch_to_device(batch, dev)
+        _, metrics = model.loss(params, batch, key, 1.0, train=False)
+        if "weights" in batch:
+            ws = batch["weights"].to(torch.float32).sum()
+        else:
+            ws = torch.tensor(float(batch["strokes"].shape[0]), device=dev)
+        metrics["weight_sum"] = ws
+        return metrics
+
+    return eval_fn
+
+
+def make_per_class_eval_step(model, hps: HParams, device=None) -> EvalFn:
+    """``eval(params, batch, key) -> metrics`` with every metric a
+    ``[num_classes]`` vector (``SketchRNN.eval_metrics_per_class``)."""
+    dev = resolve_device(device)
+
+    @torch.no_grad()
+    def eval_fn(params, batch, key: torch.Tensor) -> Metrics:
+        return model.eval_metrics_per_class(params,
+                                            batch_to_device(batch, dev), key)
+
+    return eval_fn

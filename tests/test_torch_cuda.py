@@ -1842,3 +1842,73 @@ def test_weight_pass_refuses_a_plan_that_does_not_cover_k(dev, monkeypatch):
         run, _ = cf.weight_grad_entries(xs, h0, hs, d_pre, 1, F32)
         with pytest.raises(RuntimeError, match="srt_weight_grad"):
             run(0)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_workdir_run_resumes_bitwise_on_the_card(dev, tmp_path, dt):
+    """A small flagship-shaped run from ``.npz`` files with a workdir,
+    evaluation and background saves, against the same run stopped at its
+    step-2 save and resumed with fresh loaders: the final states equal
+    bit for bit, and ``restore_checkpoint(device="cuda")`` of the last
+    save equals the live state."""
+    from sketch_rnn_tpu_torch.data.loader import (load_dataset,
+                                                  write_synthetic_npz)
+    from sketch_rnn_tpu_torch.train.checkpoint import (latest_checkpoint,
+                                                       restore_checkpoint)
+    from sketch_rnn_tpu_torch.train.loop import train
+    from sketch_rnn_tpu_torch.train.state import states_equal
+
+    files = ("a.npz", "b.npz", "c.npz")
+    for i, name in enumerate(files):
+        write_synthetic_npz(str(tmp_path / name), num_train=12,
+                            num_valid=5, num_test=4, class_id=i, seed=i,
+                            max_len=28, integer_grid=255.0)
+    hps = HParams(**TINY).replace(
+        dec_model="layer_norm", conditional=True, num_classes=3,
+        class_embed_size=4, fused_rnn=True, data_set=files, save_every=2,
+        eval_every=2, log_every=1, compute_dtype=dt,
+        fused_residual_dtype=dt)
+    assert hps.async_checkpoint
+
+    def run(sub, steps):
+        tr, va, te, scale = load_dataset(hps, str(tmp_path))
+        return train(hps, tr, va, te, scale, workdir=str(tmp_path / sub),
+                     seed=1, num_steps=steps, device="cuda")[0]
+
+    whole = run("whole", 4)
+    run("resumed", 2)
+    resumed = run("resumed", 4)
+    assert latest_checkpoint(str(tmp_path / "whole")) == 4
+    assert states_equal(whole, resumed)
+    restored, _, _ = restore_checkpoint(str(tmp_path / "whole"), whole,
+                                        device="cuda")
+    assert restored.params["out_b"].device.type == "cuda"
+    assert states_equal(restored, whole)
+
+
+def test_metrics_drain_reads_card_windows_through_pinned_copies(dev):
+    """On the card a pushed window is stacked and copied into a pinned
+    host buffer behind the step that made it; the drained rows hold the
+    device values exactly, in push order."""
+    from sketch_rnn_tpu_torch.train.metrics import MetricsDrain
+
+    class Rows:
+        rows = []
+
+        def write(self, step, scalars):
+            self.rows.append((step, scalars))
+
+        def log_console(self, step, scalars):
+            pass
+
+    out = Rows()
+    drain = MetricsDrain(out)
+    want = []
+    for step in range(1, 5):
+        x = torch.randn(1 << 20, device=dev)
+        m = {"loss": x.sum(), "kl": x.abs().max().to(torch.bfloat16)}
+        want.append((step, {k: float(v.float()) for k, v in m.items()}))
+        drain.push(step, m)
+        assert len(out.rows) == step - 1
+    drain.flush()
+    assert out.rows == want

@@ -1,9 +1,10 @@
 """The PyTorch port's package rules and interchange formats.
 
 - The port imports neither JAX nor anything of ``sketch_rnn_tpu`` or of
-  the root ``scripts/`` and ``bench.py``: a subprocess importing every
-  module of ``sketch_rnn_tpu_torch`` leaves JAX and the reference out of
-  ``sys.modules``, and an AST scan of the package and of
+  the root ``scripts/`` and ``bench.py``, nor flax or the ``msgpack``
+  package (its checkpoints are written by ``utils/msgpack.py``): a
+  subprocess importing every module of ``sketch_rnn_tpu_torch`` leaves
+  them out of ``sys.modules``, and an AST scan of the package and of
   ``chip_smoke.py`` finds no such import.
 - Entry points run on the card unless asked for the CPU: with no CUDA
   device and no ``device="cpu"`` they raise, and ``chip_smoke.py``
@@ -52,7 +53,7 @@ def test_importing_every_module_leaves_jax_out():
         f"for m in {_modules()!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'sketch_rnn_tpu'))\n"
+        "('jax', 'jaxlib', 'sketch_rnn_tpu', 'flax', 'msgpack'))\n"
         "print(len(sys.modules), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -76,7 +77,8 @@ def test_no_jax_or_reference_import(path):
         for n in names:
             assert n.split(".")[0] not in ("jax", "jaxlib",
                                            "sketch_rnn_tpu", "scripts",
-                                           "bench"), (path, n)
+                                           "bench", "flax",
+                                           "msgpack"), (path, n)
 
 
 def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):

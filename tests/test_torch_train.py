@@ -488,7 +488,7 @@ def test_train_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
 def test_train_refuses_later_slice_options():
     _, th = _pair()
     tl, _ = tloader.synthetic_loader(th, num=8)
-    for kw in (dict(workdir="w"), dict(trace_dir="t"), dict(watchdog=True),
-               dict(valid_loader=tl)):
+    for kw in (dict(profile=True), dict(trace_dir="t"), dict(watchdog=True),
+               dict(coordinator=object())):
         with pytest.raises(NotImplementedError, match="later slice"):
             train(th, tl, num_steps=1, device="cpu", **kw)

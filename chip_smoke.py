@@ -2442,8 +2442,295 @@ def train_workdir(card):
             per_step=[{k: r[k] for k in ("step", "loss", "grad_norm")}
                       for r in rows],
             seconds=time.perf_counter() - t_phase)
+        return hps, model, va, state_a.params
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# -- K steps, and K eval batches, a call: one CUDA graph replay -------------
+
+SPC = 5             # steps_per_call: bench.py's BENCH_SPC default
+SPC_STEPS = 20      # each arm's steps a turn, after its warm-up and capture
+SPC_REMAINDER = 7   # the remainder run: one K call, then two single steps
+SPC_TURNS = (1, SPC, SPC, 1)
+FLAGSHIP_PER_STEP = {"fused_lstm_seq_fwd": 2, "fused_lstm_seq_bwd": 2,
+                     "fused_ln_lstm_fwd": 1, "fused_ln_lstm_bwd": 1}
+
+
+def csrc_kernels():
+    """The names of the ``__global__`` functions in the port's CUDA
+    sources: the hand-written kernels a profile can show."""
+    import re
+
+    from sketch_rnn_tpu_torch.ops import _build
+
+    pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+                     r"(\w+)\s*\(")
+    names = set()
+    for f in sorted(_build.CSRC.glob("*.cu*")):
+        names.update(pat.findall(f.read_text()))
+    return names
+
+
+def kernel_events(prof, names):
+    """``{kernel name: count}`` of the profile's device events whose name
+    is one of ``names`` (the hand-written kernels)."""
+    import re
+
+    from torch.autograd import DeviceType
+
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        hit = [n for n in names if re.search(rf"(?<!\w){n}(?!\w)", e.key)]
+        if hit:
+            out[hit[0]] = out.get(hit[0], 0) + e.count
+    return out
+
+
+def train_spc(card, workdir_eval):
+    """``steps_per_call`` and ``eval_steps_per_call`` on the card, at the
+    flagship's full width (bf16, B=100, T=250, synthetic loader). The
+    phase builds the single step and the K=5 step once and drives both as
+    ``train()`` does without a workdir (key ``fold_in(root_key, step)``,
+    K ``next_batch()`` draws stacked a call). Each arm's first two calls
+    (at K=5 the first is five eager steps and the capture) give its
+    device memory beyond what was live before it; then ``SPC_STEPS`` steps
+    an arm in turns (K=1, K=5, K=5, K=1), ms a step and the host's ms a
+    step in the feed and inside the step's calls. Two K=1 steps and two
+    K=5 calls (replays) are profiled: the device's busy share, events a
+    step, and each hand-written kernel's launches: the replays' must be 5x
+    the eager steps', which the launch counters count, and the counters
+    (added at each replay) must read the flagship's launches a step times
+    10. One K=5 replay from a state with moment history against five
+    eager single steps with keys ``fold_in(key, i)``: bit for bit, else
+    held within the train step's tolerance. ``train()`` at K=5 to
+    ``num_steps=7``, the counters zeroed just before and read just after:
+    one K call and two single steps, exactly seven steps' launches. Then
+    ``workdir_eval`` (``train_workdir``'s model, valid split and trained
+    parameters): the 14-batch sweep at ``eval_steps_per_call=8`` (spans 8
+    + 6; one sweep first to capture both graphs) and at 1, in turns."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sketch_rnn_tpu_torch.ops import cuda_fused as CF
+    from sketch_rnn_tpu_torch.ops import cuda_lstm as CL
+    from sketch_rnn_tpu_torch.train.loop import (evaluate, stack_batches,
+                                                 train)
+    from sketch_rnn_tpu_torch.train.state import (make_train_state,
+                                                  states_equal)
+    from sketch_rnn_tpu_torch.train.step import (make_eval_step,
+                                                 make_multi_eval_step,
+                                                 make_multi_train_step,
+                                                 make_train_step,
+                                                 replay_window_metrics)
+    from sketch_rnn_tpu_torch.utils import prng
+
+    t_phase = time.perf_counter()
+    hps1, model, params, loader = setup(train_hps(**dtype_over("bfloat16")))
+    hps5 = hps1.replace(steps_per_call=SPC)
+    single = make_train_step(model, hps1, device=DEV)
+    multi = make_multi_train_step(model, hps5, device=DEV)
+    graphed = multi.graphed
+    fns = {1: single, SPC: multi}
+    root_key = prng.split(prng.key(0), 2)[0]
+
+    host = {}
+
+    def drive(k, steps, state=None):
+        """``steps`` steps from ``state`` (the seeded weights' fresh state
+        by default) in calls of ``k``; ``(wall s, state)``. ``host`` gets
+        the host's seconds in the feed (``next_batch`` and the stack) and
+        in the step function's calls (staging, copies in, the launches or
+        the replay, until it returns)."""
+        state = make_train_state(params) if state is None else state
+        metrics = []
+        feed_s = call_s = 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps // k):
+            t1 = time.perf_counter()
+            batch = (loader.next_batch() if k == 1 else stack_batches(
+                [loader.next_batch() for _ in range(k)]))
+            t2 = time.perf_counter()
+            state, m = fns[k](state, batch, prng.fold_in(root_key,
+                                                         state.step))
+            feed_s += t2 - t1
+            call_s += time.perf_counter() - t2
+            metrics.append(m)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        host.update(feed_ms_per_step=feed_s * 1e3 / steps,
+                    call_ms_per_step=call_s * 1e3 / steps)
+        losses = [float(m["loss"]) for m in metrics]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"K={k}: non-finite losses {losses}")
+        return wall, state
+
+    def counts():
+        return {**CF.launch_counts(), **CL.launch_counts()}
+
+    def reset():
+        CF.reset_launch_counts()
+        CL.reset_launch_counts()
+
+    # each arm's first two calls: its device memory beyond what was live
+    first_s, memory = {}, {}
+    for k in (1, SPC):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        a0 = torch.cuda.memory_allocated()
+        r0 = torch.cuda.memory_reserved()
+        first_s[f"k{k}"], st = drive(k, k)
+        drive(k, k, st)
+        del st
+        torch.cuda.synchronize()
+        peak_r = torch.cuda.max_memory_reserved() - r0
+        peak_a = torch.cuda.max_memory_allocated() - a0
+        torch.cuda.empty_cache()
+        memory[f"k{k}"] = {
+            "peak_reserved_bytes": peak_r, "peak_allocated_bytes": peak_a,
+            "held_reserved_bytes": torch.cuda.memory_reserved() - r0,
+            "held_allocated_bytes": torch.cuda.memory_allocated() - a0}
+    if graphed.captured != 1:
+        raise AssertionError(f"{graphed.captured} graphs after the warm-up")
+
+    walls = {k: [] for k in fns}
+    hosts = {f"k{k}": [] for k in fns}
+    for k in SPC_TURNS:
+        walls[k].append(drive(k, SPC_STEPS)[0])
+        hosts[f"k{k}"].append(dict(host))
+    if graphed.captured != 1:
+        raise AssertionError("the turns captured again")
+    ms = {f"k{k}": [w * 1e3 / SPC_STEPS for w in v] for k, v in walls.items()}
+    med = {f"k{k}_median": float(np.median(v)) for k, v in
+           ((k, [w * 1e3 / SPC_STEPS for w in walls[k]]) for k in fns)}
+
+    # two K=1 steps and two K=5 replays profiled, as profile_train reads it
+    names = csrc_kernels()
+    profiles, ours = {}, {}
+    for k, calls in ((1, 2), (SPC, 2)):
+        steps = k * calls
+        wall = drive(k, steps)[0]
+        reset()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall_prof = drive(k, steps)[0]
+        launched = counts()
+        want = {n: FLAGSHIP_PER_STEP.get(n, 0) * steps for n in launched}
+        if launched != want:
+            raise AssertionError(f"K={k}: launch counters {launched}, "
+                                 f"expected {want}")
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        device_ms = sum(e.self_device_time_total for e in events) / 1e3
+        ours[k] = kernel_events(prof, names)
+        profiles[f"k{k}"] = {
+            "steps": steps, "wall_ms": wall * 1e3,
+            "profiled_wall_ms": wall_prof * 1e3, "device_ms": device_ms,
+            "device_ms_per_step": device_ms / steps,
+            "device_busy_share": device_ms / 1e3 / wall,
+            "device_events_per_step": sum(e.count for e in events) / steps,
+            "kernels": ours[k]}
+    # the replays ran, kernel by kernel, five times the two eager steps'
+    # launches, which the counters counted one by one
+    if (not ours[1] or set(ours[SPC]) != set(ours[1])
+            or any(ours[SPC][n] != SPC * c for n, c in ours[1].items())):
+        raise AssertionError(f"kernels launched: two K=5 replays "
+                             f"{ours[SPC]}, two K=1 steps {ours[1]}")
+    if graphed.captured != 1:
+        raise AssertionError("the profiled calls captured again")
+
+    # one replay against five eager single steps, from a state with history
+    _, state = drive(SPC, SPC)
+    batches, key = [loader.next_batch() for _ in range(SPC)], prng.key(21)
+    got = multi(state, stack_batches(batches), key)
+    st, per = state, []
+    for i, b in enumerate(batches):
+        st, m = single(st, b, prng.fold_in(key, i))
+        per.append(m)
+    want = (st, replay_window_metrics(per))
+    bitwise = (states_equal(got[0], st) and sorted(got[1]) == sorted(want[1])
+               and all(torch.equal(got[1][k], want[1][k]) for k in want[1]))
+    bits = {"bitwise": bitwise, "step": state.step}
+    if not bitwise:
+        bits.update(compare_steps(state, got, want))
+        hold_step("K=5 replay vs five eager steps", bits, "bfloat16")
+    del state, st, got, want
+
+    # train() at K=5 to step 7: one K call, two single steps
+    torch.cuda.synchronize()
+    reset()
+    st7, rows7 = train(hps5, loader, seed=0, num_steps=SPC_REMAINDER,
+                       params=params, device=DEV)
+    torch.cuda.synchronize()
+    launches = counts()
+    want7 = {k: FLAGSHIP_PER_STEP.get(k, 0) * SPC_REMAINDER
+             for k in launches}
+    if launches != want7:
+        raise AssertionError(f"remainder run: launches {launches} "
+                             f"(expected {want7})")
+    if st7.step != SPC_REMAINDER or [r["step"] for r in rows7] != [0, SPC]:
+        raise AssertionError(f"remainder run: step {st7.step}, rows "
+                             f"{[r['step'] for r in rows7]}")
+    del st7
+
+    # the eval sweep at eval_steps_per_call=8 and 1, in turns
+    hps_wd, model_wd, va, wd_params = workdir_eval
+    eval_step = make_eval_step(model_wd, hps_wd, device=DEV)
+    eval_multi = (make_multi_eval_step(model_wd, hps_wd, device=DEV),
+                  hps_wd.eval_steps_per_call)
+    if (va.num_eval_batches, eval_multi[1]) != (14, 8):
+        raise AssertionError(f"{va.num_eval_batches} eval batches at "
+                             f"eval_steps_per_call={eval_multi[1]}")
+    eval_graphs = eval_multi[0].graphed
+    t0 = time.perf_counter()
+    evaluate(wd_params, va, eval_step, multi=eval_multi)
+    torch.cuda.synchronize()
+    eval_first_ms = (time.perf_counter() - t0) * 1e3
+    sweeps = {8: [], 1: []}
+    results = {}
+    for k in (8, 1, 1, 8):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results[k] = evaluate(wd_params, va, eval_step,
+                              multi=eval_multi if k == 8 else None)
+        torch.cuda.synchronize()
+        sweeps[k].append((time.perf_counter() - t0) * 1e3)
+    if eval_graphs.captured != 2:
+        raise AssertionError(f"eval graphs: {eval_graphs.captured}, "
+                             f"expected 2 (spans 8 and 6)")
+    eval_bitwise = results[8] == results[1]
+    if not eval_bitwise:
+        gaps = {k: abs(results[8][k] - results[1][k])
+                / max(abs(results[1][k]), 1e-30) for k in results[1]}
+        if max(gaps.values()) > STEP_TOL["bfloat16"][0]:
+            raise AssertionError(f"eval at 8 vs 1: relative gaps {gaps}")
+    log("train_spc", card=card,
+        preset="quickdraw345_dp (bfloat16 compute and residuals)",
+        batch=hps1.batch_size, max_seq_len=hps1.max_seq_len,
+        steps_per_call=SPC, steps_per_turn=SPC_STEPS,
+        turns=[f"k{k}" for k in SPC_TURNS],
+        ms_per_step={**ms, **med,
+                     "k1_over_k5": med["k1_median"] / med[f"k{SPC}_median"]},
+        host_ms_per_step=hosts,
+        first_call_s=first_s, capture_s=graphed.capture_seconds,
+        memory=memory, profile=profiles, replay_vs_eager=bits,
+        remainder={"num_steps": SPC_REMAINDER, "launches": launches,
+                   "rows": [r["step"] for r in rows7]},
+        eval_sweep={"batches": va.num_eval_batches, "spans": [8, 6],
+                    "first_sweep_ms": eval_first_ms,
+                    "turns": ["k8", "k1", "k1", "k8"],
+                    "ms": {f"k{k}": v for k, v in sweeps.items()},
+                    **{f"k{k}_median_ms": float(np.median(v))
+                       for k, v in sweeps.items()},
+                    "capture_s": eval_graphs.capture_seconds,
+                    "bitwise": eval_bitwise, "loss": results[8]["loss"]},
+        seconds=time.perf_counter() - t_phase)
 
 
 # -- the hoisted LSTM, the probes, the plain training path -----------------
@@ -3353,7 +3640,10 @@ def main():
     profile_train(hps, loader, state)
     del state
     torch.cuda.empty_cache()
-    train_workdir(card)
+    workdir_eval = train_workdir(card)
+    train_spc(card, workdir_eval)
+    del workdir_eval
+    torch.cuda.empty_cache()
     lstm_launches, (hps, model, loader, state) = train_main_path(
         card, vae_hps(), "train_lstm",
         "vae (lstm decoder, fused_rnn=true, float32)",

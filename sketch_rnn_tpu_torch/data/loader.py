@@ -147,8 +147,13 @@ class DataLoader:
         return self.random_batch(int16_scale)
 
     def next_stack(self, k_max: int, int16_scale: Optional[float] = None):
+        """The bucket-run scheduler's stack of one geometry run's prefix
+        (length bucketing); without buckets ``train()`` stacks K
+        :meth:`next_batch` draws itself."""
         raise NotImplementedError(
-            f"stacked batches (steps_per_call > 1) {_LATER}")
+            f"next_stack (the bucket-run scheduler's stacks of one "
+            f"geometry run, with bucket_edges: ROADMAP queue 1, item 10) "
+            f"{_LATER}")
 
     def fast_forward(self, n_batches: int) -> None:
         """Draw and discard ``n_batches`` training batches through

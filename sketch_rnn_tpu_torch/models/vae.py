@@ -13,12 +13,19 @@ Randomness derives from one step key exactly as in the JAX package
 (``kenc, kz, kdec = split(key, 3)``; the encoder's dropout keys ``split(
 kenc)``; the decoder's ``split(kdec, 3)[0]``), with the port's bitwise
 threefry (``utils/prng.py``), so the kernels' dropout masks equal the
-JAX package's and ``z``'s noise agrees to an ulp. ``eval_metrics_per_class``
-gives the eval metrics split by class label in one forward.
+JAX package's and ``z``'s noise agrees to an ulp. :meth:`SketchRNN.draws`
+makes a step's draws from its key (the noise ``eps`` and the dropout
+seeds, or keys on the plain path), and the loss takes either the key or
+the draws: the train and eval steps draw on the host and hand the draws
+to the card in one staged copy (:meth:`SketchRNN.packed_draws`), so no key
+is hashed on the card outside the plain path's masks.
+``eval_metrics_per_class`` gives the eval metrics split by class label in
+one forward.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -27,7 +34,7 @@ from sketch_rnn_tpu_torch.config import HParams
 from sketch_rnn_tpu_torch.ops import linear as L
 from sketch_rnn_tpu_torch.ops import mdn
 from sketch_rnn_tpu_torch.ops.cells import make_cell
-from sketch_rnn_tpu_torch.ops.rnn import (bidirectional_rnn,
+from sketch_rnn_tpu_torch.ops.rnn import (INT32_MAX, bidirectional_rnn,
                                           length_reverse_indices, run_rnn)
 from sketch_rnn_tpu_torch.utils import prng
 from sketch_rnn_tpu_torch.utils.device import resolve_device, tree_to
@@ -105,14 +112,14 @@ class SketchRNN:
     # -- submodules --------------------------------------------------------
 
     def encode(self, params: Params, x_tm: torch.Tensor,
-               seq_len: torch.Tensor, key: Optional[torch.Tensor] = None,
-               train: bool = False,
+               seq_len: torch.Tensor,
+               rdrop: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                x_rev_tm: Optional[torch.Tensor] = None,
                fused: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """Time-major strokes ``[T, B, 5]`` -> (mu, presig), each [B, Nz].
 
-        ``train`` with a ``key`` turns on recurrent dropout (keys
-        ``split(key)`` for the two directions); ``x_rev_tm``: the
+        ``rdrop``: the two directions' recurrent dropout (:meth:`draws`'s
+        ``enc_fwd`` and ``enc_bwd``), None for none; ``x_rev_tm``: the
         length-aware-reversed inputs, gathered by the caller; ``fused``
         runs both directions through ``fused_lstm_seq`` (training at
         ``fused_rnn=true``), else the plain cell path (training at
@@ -120,10 +127,9 @@ class SketchRNN:
         and serving)."""
         hps = self.hps
         gen_f = gen_b = None
-        if train and hps.use_recurrent_dropout and key is not None:
-            kf, kb = prng.split(key, 2).unbind(dim=-2)
-            gen_f = (kf, hps.recurrent_dropout_keep)
-            gen_b = (kb, hps.recurrent_dropout_keep)
+        if rdrop is not None:
+            gen_f = (rdrop[0], hps.recurrent_dropout_keep)
+            gen_b = (rdrop[1], hps.recurrent_dropout_keep)
         h_final, _ = bidirectional_rnn(
             self.enc_fwd, self.enc_bwd, params["enc_fwd"],
             params["enc_bwd"], x_tm.float(), seq_len=seq_len,
@@ -181,25 +187,17 @@ class SketchRNN:
     def decode(self, params: Params, x_in_tm: torch.Tensor,
                z: Optional[torch.Tensor],
                labels: Optional[torch.Tensor] = None,
-               key: Optional[torch.Tensor] = None, train: bool = False,
+               rdrop: Optional[torch.Tensor] = None,
                fused: bool = False) -> torch.Tensor:
         """Teacher-forced decoder -> raw MDN projections ``[T, B, 6M+3]``.
         The time-invariant features (z, class embedding) ride as a
-        per-example gate bias on the fused path; recurrent dropout (in
-        training, with a key) uses ``split(key, 3)[0]``."""
+        per-example gate bias on the fused path; ``rdrop``: the recurrent
+        dropout (:meth:`draws`'s ``dec``), None for none."""
         hps = self.hps
         b = x_in_tm.shape[1]
         extra = self._decoder_extra(params, z, labels)
-        rgen = None
-        if train and key is not None:
-            if hps.use_input_dropout or hps.use_output_dropout:
-                raise NotImplementedError(
-                    "input and output dropout come with a later slice of "
-                    "the PyTorch port; train with use_input_dropout=false "
-                    "and use_output_dropout=false")
-            if hps.use_recurrent_dropout:
-                krec = prng.split(key, 3)[..., 0, :]
-                rgen = (krec, hps.recurrent_dropout_keep)
+        rgen = (None if rdrop is None
+                else (rdrop, hps.recurrent_dropout_keep))
         carry0 = self.decoder_initial_carry(params, z, b,
                                             device=x_in_tm.device)
         _, hs = run_rnn(self.dec, params["dec"], x_in_tm, carry0,
@@ -207,11 +205,93 @@ class SketchRNN:
                         residual_dtype=_rdtype(hps), x_extra=extra)
         return L.matmul(hs, params["out_w"], _dtype(hps)) + params["out_b"]
 
+    # -- randomness --------------------------------------------------------
+
+    def _draw_layout(self, batch_size: int, train: bool):
+        """``(name, shape, dtype)`` of each of :meth:`draws`'s values, in
+        :meth:`packed_draws`'s order."""
+        hps = self.hps
+        out = []
+        if hps.conditional:
+            out.append(("eps", (batch_size, hps.z_size), torch.float32))
+        if train and hps.use_recurrent_dropout:
+            shape, dtype = (((), torch.int32) if hps.fused_rnn
+                            else ((2,), torch.int64))
+            names = (("enc_fwd", "enc_bwd") if hps.conditional else ()) \
+                + ("dec",)
+            out += [(n, shape, dtype) for n in names]
+        return out
+
+    def draws(self, key: torch.Tensor, batch_size: int, train: bool
+              ) -> Dict[str, torch.Tensor]:
+        """A step's randomness from its key (``[..., 2]``; leading
+        dimensions draw for several keys at once), made on the key's
+        device as the JAX package draws it from ``kenc, kz, kdec =
+        split(key, 3)``: ``eps [..., B, Nz] = normal(kz)`` (conditional
+        models) and, in training with recurrent dropout, the encoder's
+        ``enc_fwd``, ``enc_bwd`` (``split(kenc)``) and the decoder's
+        ``dec`` (``split(kdec, 3)[0]``): the fused kernels' dropout seeds
+        ``randint(k, 0, 2**31-1)`` (int32), or on the plain path the
+        keys themselves, from which the masks are drawn."""
+        hps = self.hps
+        if train and (hps.use_input_dropout or hps.use_output_dropout):
+            raise NotImplementedError(
+                "input and output dropout come with a later slice of the "
+                "PyTorch port; train with use_input_dropout=false and "
+                "use_output_dropout=false")
+        kenc, kz, kdec = prng.split(key, 3).unbind(dim=-2)
+        out = {}
+        if hps.conditional:
+            out["eps"] = prng.normal(kz, (batch_size, hps.z_size))
+        if train and hps.use_recurrent_dropout:
+            keys = {"dec": prng.split(kdec, 3)[..., 0, :]}
+            if hps.conditional:
+                keys["enc_fwd"], keys["enc_bwd"] = prng.split(
+                    kenc, 2).unbind(dim=-2)
+            for name, k in keys.items():
+                out[name] = (prng.randint(k, 0, INT32_MAX) if hps.fused_rnn
+                             else k)
+        return out
+
+    def packed_draws(self, key: torch.Tensor, batch_size: int,
+                     train: bool) -> torch.Tensor:
+        """:meth:`draws` as one float32 tensor ``[..., L]`` (the integers
+        by their 32-bit patterns), to cross to the card in one copy;
+        :meth:`unpack_draws` takes one ``[L]`` row apart."""
+        lead = tuple(key.shape[:-1])
+        draws = self.draws(key, batch_size, train)
+        parts = [torch.zeros(lead + (0,))]
+        for name, shape, dtype in self._draw_layout(batch_size, train):
+            v = draws[name]
+            if dtype == torch.int64:        # uint32 words held in int64
+                v = torch.where(v >= 2 ** 31, v - 2 ** 32, v)
+            if dtype != torch.float32:
+                v = v.to(torch.int32).view(torch.float32)
+            parts.append(v.reshape(lead + (-1,)))
+        return torch.cat(parts, dim=-1)
+
+    def unpack_draws(self, row: torch.Tensor, batch_size: int,
+                     train: bool) -> Dict[str, torch.Tensor]:
+        """One step's draws from its packed ``[L]`` row (:meth:`packed_draws`),
+        as views of the row where the dtype allows."""
+        out, at = {}, 0
+        for name, shape, dtype in self._draw_layout(batch_size, train):
+            n = math.prod(shape)
+            v = row[at:at + n]
+            at += n
+            if dtype != torch.float32:
+                v = v.view(torch.int32)
+            if dtype == torch.int64:
+                v = v.to(torch.int64) & 0xFFFFFFFF
+            out[name] = v.reshape(shape)
+        return out
+
     # -- loss --------------------------------------------------------------
 
     def _forward(self, params: Params, batch: Dict[str, torch.Tensor],
-                 key: torch.Tensor, train: bool):
-        """Batch-major strokes -> mixture params (+ posterior). The
+                 key, train: bool):
+        """Batch-major strokes -> mixture params (+ posterior). ``key``:
+        the step's key, or its :meth:`draws` already made. The
         length-aware reversal for the encoder's backward direction is
         gathered on the batch-major raw strokes, as in the JAX package.
         Returns ``(mp, x_target, labels, mu, presig)``; the posterior
@@ -235,25 +315,28 @@ class SketchRNN:
         strokes = prep(raw_bm)                   # [T+1, B, 5]
         x_in, x_target = strokes[:-1], strokes[1:]
         labels = batch.get("labels") if hps.num_classes > 0 else None
-        kenc, kz, kdec = prng.split(key, 3).unbind(dim=-2)
+        d = (key if isinstance(key, dict)
+             else self.draws(key, raw_bm.shape[0], train))
         mu = presig = z = None
         if hps.conditional:
-            mu, presig = self.encode(params, x_target, seq_len, key=kenc,
-                                     train=train, x_rev_tm=prep(raw_rev),
+            enc = ((d["enc_fwd"], d["enc_bwd"]) if "enc_fwd" in d
+                   else None)
+            mu, presig = self.encode(params, x_target, seq_len, rdrop=enc,
+                                     x_rev_tm=prep(raw_rev),
                                      fused=hps.fused_rnn)
-            eps = prng.normal(kz, tuple(mu.shape)).to(mu.device)
-            z = self.sample_z(mu, presig, eps)
-        raw = self.decode(params, x_in, z, labels, key=kdec, train=train,
+            z = self.sample_z(mu, presig, d["eps"].to(mu.device))
+        raw = self.decode(params, x_in, z, labels, rdrop=d.get("dec"),
                           fused=hps.fused_rnn)
         mp = mdn.get_mixture_params(raw, hps.num_mixture)
         return mp, x_target, labels, mu, presig
 
     def loss(self, params: Params, batch: Dict[str, torch.Tensor],
-             key: torch.Tensor, kl_weight, train: bool = True
+             key, kl_weight, train: bool = True
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The VAE loss on a batch of tensors (``strokes [B, Nmax+1, 5]``
         with the start token at t=0, ``seq_len [B]``, ``labels [B]``,
-        optional ``weights [B]``); ``kl_weight`` is the annealed weight.
+        optional ``weights [B]``); ``key``: the step's key or its
+        :meth:`draws`; ``kl_weight`` is the annealed weight.
         Returns ``(total, metrics)`` with the JAX package's metric names.
         """
         hps = self.hps
@@ -269,7 +352,12 @@ class SketchRNN:
             mp, x_target, hps.max_seq_len, mask_pen=not train,
             weights=weights)
         r_cost = offset_nll + pen_ce
-        kl_w = torch.as_tensor(kl_weight, dtype=torch.float32).to(dev)
+        # a fill, not a host copy, for a float weight: a captured CUDA
+        # graph refuses host-to-device copies
+        kl_w = (kl_weight.to(dev, torch.float32)
+                if isinstance(kl_weight, torch.Tensor) else
+                torch.full((), float(kl_weight), dtype=torch.float32,
+                           device=dev))
         if hps.conditional:
             kl_floored = mdn.kl_cost_with_floor(kl_raw, hps.kl_tolerance)
             total = r_cost + kl_w * kl_floored
@@ -283,7 +371,7 @@ class SketchRNN:
 
     def eval_metrics_per_class(self, params: Params,
                                batch: Dict[str, torch.Tensor],
-                               key: torch.Tensor) -> Dict[str, torch.Tensor]:
+                               key) -> Dict[str, torch.Tensor]:
         """The eval-mode metrics as ``[num_classes]`` vectors in one
         forward, plus ``weight_sum``, each class's count of real
         (weight > 0) rows: per-example sums reduced by a ``[C, B]`` class

@@ -98,6 +98,13 @@ def launch_counts() -> dict:
     return dict(_launches)
 
 
+def add_launch_counts(counts: dict) -> None:
+    """Add ``counts`` to the counters: a CUDA graph's replay adds the
+    launches its capture recorded (``train/graph.py``)."""
+    for k, v in counts.items():
+        _launches[k] += v
+
+
 # -- the in-kernel dropout mask ---------------------------------------------
 
 

@@ -54,8 +54,9 @@ def make_dropout_masks(key: torch.Tensor, keep_prob: float, steps: int,
 
 def _scale_mask(m, keep_prob):
     # an element is 0 or float32(1 / keep): JAX's m / keep of a 0/1 mask
-    return m.to(torch.float32) * torch.tensor(
-        np.float32(1.0) / np.float32(keep_prob), device=m.device)
+    return m.to(torch.float32) * torch.full(
+        (), float(np.float32(1.0) / np.float32(keep_prob)),
+        dtype=torch.float32, device=m.device)
 
 
 def step_dropout_masks(key: torch.Tensor, keep_prob: float, steps: int,
@@ -77,7 +78,8 @@ def _run_fused(cell, params, xs, carry0, rdrop_masks, reverse, rdrop_gen,
     ``_run_fused`` does. ``reverse`` flips inputs and outputs around the
     kernel. ``rdrop_gen = (key, keep)`` becomes the kernels' in-kernel
     dropout: the seed is ``randint(key, 0, 2**31-1)``, bitwise the JAX
-    package's, so the masks are too. With the cell's ``compute_dtype``
+    package's, so the masks are too; ``key`` may be that seed already (an
+    int32 scalar, as ``SketchRNN.draws`` makes it). With the cell's ``compute_dtype``
     the weights are cast inside the autograd graph (their gradients come
     back through the cast as float32). ``x_extra [B, E]`` (time-invariant
     inputs) is projected once into the per-example gate bias ``x_extra @
@@ -92,7 +94,8 @@ def _run_fused(cell, params, xs, carry0, rdrop_masks, reverse, rdrop_gen,
     seed, keep = None, 1.0
     if rdrop_gen is not None:
         key, keep = rdrop_gen
-        seed = prng.randint(key, 0, INT32_MAX).to(xs.device)
+        seed = (key if key.dtype == torch.int32
+                else prng.randint(key, 0, INT32_MAX)).to(xs.device)
     if reverse:
         xs = torch.flip(xs, dims=(0,))
         if masks is not None:

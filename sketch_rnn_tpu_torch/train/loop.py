@@ -13,11 +13,21 @@ default, ``train/async_ckpt.py``) and at the end, resumes from the
 latest checkpoint (fast-forwarding a fresh loader to the resumed step
 with ``resume_align``), and sweeps ``test_loader`` at the end.
 
-The JAX package's ``eval_steps_per_call`` only chunks the same sweep into
-a scan (equal to about 1e-6); the port sweeps batch by batch whatever it
-says, and chunking comes with ``steps_per_call``. Prefetch, telemetry,
-the profiler, the watchdog and elastic runs are not ported yet: asking
-for one raises, naming the later slice.
+``steps_per_call = K > 1`` feeds the K-step call
+(``train/step.make_multi_train_step``: one CUDA graph replay on the card)
+``[K, ...]`` stacks of K ``next_batch()`` draws, the JAX package's
+stream; each call's key is ``fold_in(root_key, step)``, and a final
+stretch shorter than K replays its micro-batches through the single step
+with keys ``fold_in(step_key, i)``, folded into one row as the K call
+folds its own (``replay_window_metrics``). A K > 1 run is not
+RNG-identical to a K = 1 run; it matches the JAX package at the same K.
+The cadences fire on crossing a multiple, and ``history`` holds one row
+per call. ``eval_steps_per_call`` chunks the sweeps the same way
+(``multi=`` on :func:`evaluate` and :func:`evaluate_per_class`): runs of
+up to K batches through a K-batch call, a remainder of exactly one
+through the single-batch step. Prefetch, telemetry, the profiler, the
+watchdog and elastic runs are not ported yet: asking for one raises,
+naming the later slice.
 """
 
 from __future__ import annotations
@@ -38,21 +48,54 @@ from sketch_rnn_tpu_torch.train.metrics import (MetricsDrain, MetricsWriter,
                                                 scalars_from_device)
 from sketch_rnn_tpu_torch.train.state import TrainState, make_train_state
 from sketch_rnn_tpu_torch.train.step import (check_trainable, make_eval_step,
-                                             make_train_step)
+                                             make_multi_eval_step,
+                                             make_multi_train_step,
+                                             make_train_step,
+                                             replay_window_metrics)
 from sketch_rnn_tpu_torch.utils import prng
 from sketch_rnn_tpu_torch.utils.device import resolve_device, tree_to
 
 
-def _sweep_rows(params, loader, eval_step, key):
+def geometry_runs(n: int, k_max: int):
+    """``(i, k)`` spans of a sweep of ``n`` batches in runs of up to
+    ``k_max`` (the JAX package's ``GeometryRunScheduler.geometry_runs``
+    with one geometry): runs of ``k_max``, then a shorter last run."""
+    i = 0
+    while i < n:
+        k = min(k_max, n - i)
+        yield i, k
+        i += k
+
+
+def stack_batches(batches) -> Dict[str, np.ndarray]:
+    """Loader dicts stacked ``[K, ...]`` (``data/prefetch.py``'s stack)."""
+    return {k: np.stack([np.asarray(b[k]) for b in batches])
+            for k in batches[0]}
+
+
+def _sweep_rows(params, loader, eval_step, key, multi=None):
     """One metrics dict (host floats or numpy vectors) per eval batch over
     ``loader.num_eval_batches`` batches; batch ``i`` uses ``fold_in(key,
-    i)``."""
+    i)``. ``multi=(multi_step, k_max)`` sweeps in :func:`geometry_runs`
+    of ``k_max``, each run of more than one batch through one K-batch call
+    (one copy back to the host a run), a run of one through
+    ``eval_step``: the same keys and the same bodies, so the rows are the
+    per-batch sweep's."""
     n = loader.num_eval_batches
     if n == 0:
         raise ValueError(
             f"eval split has no batches ({len(loader)} examples, "
             f"batch_size={loader.hps.batch_size})")
-    for i in range(n):
+    multi_step, k_max = multi if multi is not None else (None, 1)
+    for i, k in geometry_runs(n, k_max):
+        if k > 1:
+            out = multi_step(params, stack_batches(
+                [loader.get_batch(j) for j in range(i, i + k)]), key,
+                range(i, i + k))
+            host = {m: v.cpu().numpy() for m, v in out.items()}
+            for j in range(k):
+                yield {m: v[j] for m, v in host.items()}
+            continue
         out = eval_step(params, loader.get_batch(i), prng.fold_in(key, i))
         if all(v.dim() == 0 for v in out.values()):
             yield scalars_from_device(out)
@@ -60,17 +103,18 @@ def _sweep_rows(params, loader, eval_step, key):
             yield {k: v.cpu().numpy() for k, v in out.items()}
 
 
-def evaluate(params, loader, eval_step, key: Optional[torch.Tensor] = None
-             ) -> Dict[str, float]:
+def evaluate(params, loader, eval_step, key: Optional[torch.Tensor] = None,
+             multi=None) -> Dict[str, float]:
     """Eval metrics over a full sweep of ``loader``: each batch's
     weighted means combined by its ``weight_sum``, so the result is the
     exact mean over the split (the wrap-filled rows of the last batch
-    weigh 0)."""
+    weigh 0). ``multi=(make_multi_eval_step(...), k)`` chunks the sweep
+    (:func:`_sweep_rows`)."""
     if key is None:
         key = prng.key(0)
     totals: Dict[str, float] = {}
     weight_total = 0.0
-    for metrics in _sweep_rows(params, loader, eval_step, key):
+    for metrics in _sweep_rows(params, loader, eval_step, key, multi):
         w = float(metrics.pop("weight_sum", loader.hps.batch_size))
         weight_total += w
         for k, v in metrics.items():
@@ -79,17 +123,18 @@ def evaluate(params, loader, eval_step, key: Optional[torch.Tensor] = None
 
 
 def evaluate_per_class(params, loader, per_class_step, num_classes: int,
-                       key: Optional[torch.Tensor] = None
+                       key: Optional[torch.Tensor] = None, multi=None
                        ) -> Dict[int, Optional[Dict[str, float]]]:
     """Per-class eval metrics over one standard sweep of ``loader``:
     ``{class: metrics}``, each batch's ``[num_classes]`` vectors combined
     by its per-class real-row counts; None for a class with no example
-    in the split."""
+    in the split. ``multi=(make_multi_per_class_eval_step(...), k)``
+    chunks the sweep as in :func:`evaluate`."""
     if key is None:
         key = prng.key(0)
     totals: Dict[str, np.ndarray] = {}
     counts = np.zeros((num_classes,), np.float64)
-    for metrics in _sweep_rows(params, loader, per_class_step, key):
+    for metrics in _sweep_rows(params, loader, per_class_step, key, multi):
         cnt = np.asarray(metrics.pop("weight_sum"), np.float64)
         counts += cnt
         for k, v in metrics.items():
@@ -115,9 +160,10 @@ def train(hps: HParams, train_loader, valid_loader=None, test_loader=None,
     values), with a fresh optimizer state; with ``workdir`` and
     ``resume`` the latest checkpoint there wins over both, and its scale
     factor over ``scale_factor``. ``scale_factor`` is written into every
-    checkpoint. Returns ``(state, rows)``: one row per step this call
-    trained, the step and its metrics as floats, read from the device at
-    the end.
+    checkpoint. Returns ``(state, rows)``: one row per call of the step
+    this run made (per step at ``steps_per_call=1``; per K steps, with the
+    window's metrics, above), the call's first step and its metrics as
+    floats, read from the device at the end.
     """
     later = {"profile": profile, "trace_dir (telemetry)": trace_dir,
              "watchdog": watchdog,
@@ -155,8 +201,14 @@ def train(hps: HParams, train_loader, valid_loader=None, test_loader=None,
                   f"{state.step} batches (hparam resume_align=false to "
                   f"skip)", flush=True)
 
-    step_fn = make_train_step(model, hps, device=dev)
+    spc = hps.steps_per_call
+    step_fn = make_multi_train_step(model, hps, device=dev)   # K=1: single
+    # the final stretch shorter than K replays through the single step
+    single_step = make_train_step(model, hps, device=dev)
     eval_step = make_eval_step(model, hps, device=dev)
+    eval_multi = (None if hps.eval_steps_per_call == 1 else
+                  (make_multi_eval_step(model, hps, device=dev),
+                   hps.eval_steps_per_call))
     drain = MetricsDrain(MetricsWriter(workdir, "train"),
                          defer=hps.metrics_defer, check=check_finite)
     eval_writer = MetricsWriter(workdir, "valid")
@@ -169,14 +221,33 @@ def train(hps: HParams, train_loader, valid_loader=None, test_loader=None,
     try:
         while step < num_steps:
             prev = step
-            state, metrics = step_fn(state, train_loader.next_batch(),
-                                     prng.fold_in(root_key, step))
+            remaining = num_steps - step
+            step_key = prng.fold_in(root_key, step)
+            if spc == 1:
+                state, metrics = step_fn(state, train_loader.next_batch(),
+                                         step_key)
+            else:
+                # K draws a call, the remainder's too, as the JAX
+                # package's stacking feeder draws them
+                batches = stack_batches([train_loader.next_batch()
+                                         for _ in range(spc)])
+                if remaining >= spc:
+                    state, metrics = step_fn(state, batches, step_key)
+                else:
+                    per_step = []
+                    for i in range(remaining):
+                        state, m = single_step(
+                            state, {k: v[i] for k, v in batches.items()},
+                            prng.fold_in(step_key, i))
+                        per_step.append(m)
+                    metrics = replay_window_metrics(per_step)
             history.append((prev, metrics))
             step = state.step
             if crossed(prev, hps.log_every) or step == num_steps:
                 drain.push(step, metrics)
             if valid_loader is not None and crossed(prev, hps.eval_every):
-                ev = evaluate(state.params, valid_loader, eval_step)
+                ev = evaluate(state.params, valid_loader, eval_step,
+                              multi=eval_multi)
                 eval_writer.write(step, ev)
                 eval_writer.log_console(step, ev)
             if workdir and crossed(prev, hps.save_every):
@@ -216,7 +287,8 @@ def train(hps: HParams, train_loader, valid_loader=None, test_loader=None,
                             retries=hps.ckpt_retries,
                             retry_backoff_s=hps.ckpt_retry_backoff_s)
     if test_loader is not None and test_loader.num_eval_batches > 0:
-        ev = evaluate(state.params, test_loader, eval_step)
+        ev = evaluate(state.params, test_loader, eval_step,
+                      multi=eval_multi)
         MetricsWriter(workdir, "test").write(state.step, ev)
         print("[test] " + " ".join(f"{k}={v:.4f}"
                                    for k, v in sorted(ev.items())),

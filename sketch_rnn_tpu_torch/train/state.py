@@ -17,6 +17,11 @@ by hand to optax's definitions:
 The optimizer state mirrors optax's: ``OptState(adam=AdamState(count, mu,
 nu), schedule_count)`` (the clip has no state), with the counts held on
 the host as Python ints (they are what optax keeps as int32 scalars).
+What an update derives from them (the step size, the bias corrections)
+is computed on the host (:func:`optimizer_scalars`) and handed to the
+tensor-only update (:func:`adam_update`) as a vector on the device, which
+is what lets K updates run as one captured CUDA graph
+(``train/graph.py``).
 """
 
 from __future__ import annotations
@@ -103,35 +108,54 @@ def global_norm(tree) -> torch.Tensor:
 
 
 def _f32(x, dev) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=dev)
+    # a fill, not a host copy: a captured CUDA graph refuses the latter
+    return torch.full((), float(x), dtype=torch.float32, device=dev)
+
+
+def optimizer_scalars(hps: HParams, count: int, schedule_count: int
+                      ) -> torch.Tensor:
+    """What one update takes from the host counts (``count``, Adam's, and
+    ``schedule_count`` before the update), as a float32 vector on the
+    CPU: ``[-lr_schedule(schedule_count), 1 - b1^c, 1 - b2^c]`` at the
+    incremented count ``c``. Computed on the host for every update, so an
+    update replayed in a CUDA graph and one run eagerly read the same
+    values (:func:`adam_update`)."""
+    c = torch.tensor(count + 1, dtype=torch.float32)
+    return torch.stack([-lr_schedule(hps, schedule_count),
+                        1 - torch.pow(torch.tensor(B1, dtype=torch.float32),
+                                      c),
+                        1 - torch.pow(torch.tensor(B2, dtype=torch.float32),
+                                      c)])
 
 
 @torch.no_grad()
-def apply_optimizer(hps: HParams, grads, opt_state: OptState, params):
-    """One ``clip_by_global_norm -> adam(lr_schedule)`` update. Returns
-    ``(new_params, new_opt_state, grad_norm)``; nothing is updated in
-    place."""
+def adam_update(hps: HParams, grads, mu, nu, params, scalars):
+    """One ``clip_by_global_norm -> adam(lr_schedule)`` update on tensors
+    alone: ``scalars`` is :func:`optimizer_scalars`'s vector on the
+    parameters' device. Returns ``(new_params, mu, nu, grad_norm)``;
+    nothing is updated in place, and nothing is read from or copied from
+    the host, so the update can be captured in a CUDA graph."""
     dev = next(iter(tree_items(params)))[1].device
     g_norm = global_norm(grads)
     clip = _f32(hps.grad_clip, dev)
     trigger = g_norm < clip
     grads = tree_map(lambda g: torch.where(trigger, g, (g / g_norm) * clip),
                      grads)
-    adam = opt_state.adam
-    mu = tree_map(lambda g, m: _f32(1 - B1, dev) * g + _f32(B1, dev) * m,
-                  grads, adam.mu)
-    nu = tree_map(lambda g, v: _f32(1 - B2, dev) * (g * g)
-                  + _f32(B2, dev) * v, grads, adam.nu)
-    count = adam.count + 1
-    c = _f32(count, dev)
-    bc1 = 1 - torch.pow(_f32(B1, dev), c)
-    bc2 = 1 - torch.pow(_f32(B2, dev), c)
-    step_size = -lr_schedule(hps, opt_state.schedule_count).to(dev)
+    # the constants made once an update, not once a leaf
+    b1, b2, c1, c2 = (_f32(x, dev) for x in (B1, B2, 1 - B1, 1 - B2))
+    mu = tree_map(lambda g, m: c1 * g + b1 * m, grads, mu)
+    nu = tree_map(lambda g, v: c2 * (g * g) + b2 * v, grads, nu)
+    step_size, bc1, bc2 = scalars.unbind()
     eps = _f32(EPS, dev)
     new_params = tree_map(
         lambda p, m, v: p + step_size * ((m / bc1) / (torch.sqrt(v / bc2)
                                                       + eps)),
         params, mu, nu)
-    return (new_params,
-            OptState(AdamState(count, mu, nu), opt_state.schedule_count + 1),
-            g_norm)
+    return new_params, mu, nu, g_norm
+
+
+def next_opt_state(opt_state: OptState, mu, nu, k: int = 1) -> OptState:
+    """The optimizer state after ``k`` updates that left moments ``mu``
+    and ``nu``: both counts advanced by ``k``."""
+    return OptState(AdamState(opt_state.adam.count + k, mu, nu),
+                    opt_state.schedule_count + k)

@@ -30,6 +30,12 @@ _MASK = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
+def _f32(x, device) -> torch.Tensor:
+    """A float32 scalar made on ``device`` by a fill, not copied from the
+    host: inside a captured CUDA graph a host-to-device copy is refused."""
+    return torch.full((), float(x), dtype=torch.float32, device=device)
+
+
 def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
     return ((x << r) | (x >> (32 - r))) & _MASK
 
@@ -107,8 +113,8 @@ def uniform(k: torch.Tensor, shape: Union[int, Sequence[int]] = (4,),
     f = f - 1.0
     if (minval, maxval) == (0.0, 1.0):
         return torch.clamp_min(f, 0.0)
-    lo = torch.tensor(minval, dtype=torch.float32, device=k.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=k.device)
+    lo = _f32(minval, k.device)
+    hi = _f32(maxval, k.device)
     return torch.maximum(lo, f * (hi - lo) + lo)
 
 
@@ -117,7 +123,7 @@ def bernoulli(k: torch.Tensor, p: float,
     """``jax.random.bernoulli(key, p, shape)`` for a Python float ``p``
     (mode "low", as JAX defaults): ``uniform(key, shape) < float32(p)``,
     a bool tensor of shape ``[..., *shape]``."""
-    return uniform(k, shape) < torch.tensor(np.float32(p), device=k.device)
+    return uniform(k, shape) < _f32(np.float32(p), k.device)
 
 
 def randint(k: torch.Tensor, minval: int, maxval: int) -> torch.Tensor:
@@ -157,8 +163,7 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
     w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
     p = None
     for a, b in zip(_ERFINV_LT5, _ERFINV_GE5):
-        c = torch.where(lt, torch.tensor(a, dtype=torch.float32),
-                        torch.tensor(b, dtype=torch.float32)).to(x.device)
+        c = torch.where(lt, _f32(a, x.device), _f32(b, x.device))
         p = c if p is None else c + p * w
     return torch.where(x.abs() == 1.0, x * torch.finfo(torch.float32).max,
                        p * x)

@@ -1912,3 +1912,58 @@ def test_metrics_drain_reads_card_windows_through_pinned_copies(dev):
         assert len(out.rows) == step - 1
     drain.flush()
     assert out.rows == want
+
+
+@pytest.mark.parametrize("over", [
+    dict(dec_model="layer_norm", num_classes=3, class_embed_size=4),
+    dict(dec_model="lstm"),
+    dict(dec_model="hyper", hyper_rnn_size=8, hyper_embed_size=4),
+    dict(dec_model="layer_norm", fused_rnn=False, remat=True)])
+def test_multi_step_graph_replay_is_its_eager_steps(dev, over):
+    """``steps_per_call=2`` on the card: the first call runs its two steps
+    eagerly and captures them; a later call is one graph replay, bit for
+    bit two eager single steps with keys ``fold_in(key, i)`` from the
+    same state (parameters, moments, counts and the window's metrics),
+    with the launches of the two steps counted, and the caller's state
+    left as it was."""
+    from sketch_rnn_tpu_torch.data.loader import synthetic_loader
+    from sketch_rnn_tpu_torch.ops import cuda_fused as CF
+    from sketch_rnn_tpu_torch.train.loop import stack_batches
+    from sketch_rnn_tpu_torch.train.state import (make_train_state,
+                                                  states_equal, tree_items,
+                                                  tree_map)
+    from sketch_rnn_tpu_torch.train.step import (make_multi_train_step,
+                                                 make_train_step,
+                                                 replay_window_metrics)
+
+    hps = HParams(**TINY).replace(**{**dict(
+        conditional=True, fused_rnn=True, steps_per_call=2), **over})
+    model = SketchRNN(hps)
+    params = model.init_params(torch.Generator().manual_seed(0), device=dev)
+    loader, _ = synthetic_loader(hps, num=32, seed=1)
+    multi = make_multi_train_step(model, hps, device=dev)
+    single = make_train_step(model, hps, device=dev)
+    state, _ = multi(make_train_state(params), stack_batches(
+        [loader.next_batch() for _ in range(2)]), prng.key(1))
+    assert multi.graphed.captured == 1
+    held = tree_map(torch.clone, state.params)
+    batches, key = [loader.next_batch() for _ in range(2)], prng.key(2)
+    CF.reset_launch_counts()
+    got, met = multi(state, stack_batches(batches), key)
+    torch.cuda.synchronize()
+    replayed = CF.launch_counts()
+    CF.reset_launch_counts()
+    st, per = state, []
+    for i, b in enumerate(batches):
+        st, m = single(st, b, prng.fold_in(key, i))
+        per.append(m)
+    assert multi.graphed.captured == 1
+    assert replayed == CF.launch_counts()
+    assert (sum(replayed.values()) > 0) == hps.fused_rnn
+    assert states_equal(got, st)
+    want = replay_window_metrics(per)
+    assert sorted(met) == sorted(want)
+    for k in want:
+        assert torch.equal(met[k], want[k]), k
+    assert all(torch.equal(a, b) for (_, a), (_, b) in
+               zip(tree_items(held), tree_items(state.params)))

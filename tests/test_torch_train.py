@@ -426,7 +426,6 @@ def test_train_loop_keys_and_rows():
 @pytest.mark.parametrize("over,match", [
     ("use_input_dropout=true", "later slice"),
     ("use_output_dropout=true", "later slice"),
-    ("steps_per_call=2", "later slice"),
     ("bucket_edges=4", "later slice"),
     ("transfer_dtype=int16", "later slice")])
 def test_unserved_training_requests_raise_by_name(over, match):
@@ -437,12 +436,15 @@ def test_unserved_training_requests_raise_by_name(over, match):
 
 @pytest.mark.parametrize("over", ["compute_dtype=bfloat16",
                                   "fused_residual_dtype=bfloat16",
-                                  "dec_model=lstm", "fused_rnn=false"])
+                                  "dec_model=lstm", "fused_rnn=false",
+                                  "steps_per_call=2"])
 def test_formerly_refused_requests_now_train(over):
     """bfloat16 compute, bfloat16 residuals, the lstm decoder (its
-    fused_lstm kernel) and the plain cell path (``fused_rnn=false``, the
-    presets' default) are served: check_trainable accepts them, and a
-    step on the CPU gives finite metrics and moves every parameter."""
+    fused_lstm kernel), the plain cell path (``fused_rnn=false``, the
+    presets' default) and K steps a call (``steps_per_call``; the K call
+    itself is ``tests/test_torch_multi_step.py``'s) are served:
+    check_trainable accepts them, and a step on the CPU gives finite
+    metrics and moves every parameter."""
     jh, th = _pair()
     th = th.parse(over)
     check_trainable(th)

@@ -142,7 +142,19 @@ without the final line. With no CUDA device it exits 2 at once.
    write and read seconds, ms a step without and with a workdir (eval and
    saves every 2 steps, a log row every step in both) in turns, a
    synchronous save's ms and bytes, the eval sweep's batches, ms,
-   launches and extra peak memory.
+   launches and extra peak memory. Then train_spc: ``steps_per_call`` 5
+   against 1 in turns (one CUDA graph replay a K=5 call), the replay bit
+   for bit five eager steps, ``train()`` at K=5 to step 7 with exact
+   launches, the eval sweep at ``eval_steps_per_call`` 8 against 1. Then
+   train_feed: ``data/prefetch.py`` on bench.py's corpus and on the
+   ``.npz`` train split, at K=5 and K=1, float32 at depth 0, float32 at
+   depth 2 and int16 at depth 2 in turns: ms a step, the producer's host
+   ms a batch by part, the consumer's wait and host ms a call, the busy
+   share over two calls, the full queue's reserved memory; the synthetic
+   turns bit for bit one another, an int16 step bit for bit the float32
+   step and a bfloat16-transfer step within STEP_TOL of it; ``train()``
+   at depth 2 and int16, K=5, to step 7 with exact launches, bit for bit
+   ``train()`` at float32 and depth 0.
 10. train_lstm — the ``vae`` preset (lstm decoder) with ``fused_rnn=true``
    at full width and float32: 1 warm-up step, then 5 timed steps with the
    counters zeroed just before and read just after (2 launches per step
@@ -2442,7 +2454,7 @@ def train_workdir(card):
             per_step=[{k: r[k] for k in ("step", "loss", "grad_norm")}
                       for r in rows],
             seconds=time.perf_counter() - t_phase)
-        return hps, model, va, state_a.params
+        return (hps, model, va, state_a.params), tr
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2730,6 +2742,295 @@ def train_spc(card, workdir_eval):
                        for k, v in sweeps.items()},
                     "capture_s": eval_graphs.capture_seconds,
                     "bitwise": eval_bitwise, "loss": results[8]["loss"]},
+        seconds=time.perf_counter() - t_phase)
+
+
+# -- the input pipeline: transfer dtypes and the prefetch thread ------------
+
+FEED_ARMS = {"f32_d0": ("float32", 0), "f32_d2": ("float32", 2),
+             "i16_d2": ("int16", 2)}
+FEED_TURNS = ("f32_d0", "f32_d2", "i16_d2", "i16_d2", "f32_d2", "f32_d0")
+FEED_CALLS = {1: 6, SPC: 3}     # timed calls a turn, after FEED_WARM calls
+FEED_WARM = 1       # the step functions capture once, before the turns
+
+
+def train_feed(card, tr):
+    """``data/prefetch.py`` on the card at the flagship's full width (bf16,
+    B=100, T=250), on two corpora: ``synthetic``, bench.py's (the
+    synthetic loader over B sketches at ``integer_grid=255``, unaugmented)
+    and ``npz``, ``train_workdir``'s augmented train split (``tr``, its
+    train loader, drawn here by fresh loaders over the same strokes).
+
+    At K=5 and K=1 the phase drives one single and one K=5 step function
+    (``train()``'s key per call) from feeders of three arms in turns
+    (FEED_TURNS): ``transfer_dtype=float32`` at depth 0 (the synchronous
+    feed), float32 at depth 2 (``train()``'s default) and ``int16`` at
+    depth 2 (bench.py's defaults), each turn from the
+    seeded weights' fresh state and a fresh loader, ``FEED_WARM`` calls,
+    then ``FEED_CALLS`` timed: ms a step, the producer's host ms a batch by
+    part (the loader's draws with the int16 quantization, the bf16 cast,
+    pinning, issuing the copies; the quantization also timed alone), the
+    consumer's wait in ``get()`` a call and its host ms inside the step
+    function's calls. On the synthetic corpus every turn must end on the
+    same state bit for bit (int16 is exact there, and the capture of the
+    int16 graph happens while the producer runs). Each arm's first turn
+    is followed, on its feeder, by two calls timed and two profiled: the
+    device's busy share. At depth 2, the reserved memory a full queue
+    adds (a feeder filled with no step running). Checks: one eager int16
+    step bit for bit the float32 step, and one bfloat16-transfer step
+    finite and within STEP_TOL of it, from a state with history;
+    ``train()`` at its default depth 2 and int16, K=5, to step 7 with the
+    training kernels' counters zeroed just before and read just after,
+    exactly seven steps' launches, ending on the state of ``train()`` at
+    float32 and depth 0 bit for bit."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sketch_rnn_tpu_torch.data.loader import (DataLoader, quantize_int16,
+                                                  synthetic_loader)
+    from sketch_rnn_tpu_torch.data.prefetch import prefetch_batches
+    from sketch_rnn_tpu_torch.models.vae import SketchRNN
+    from sketch_rnn_tpu_torch.ops import cuda_fused as CF
+    from sketch_rnn_tpu_torch.ops import cuda_lstm as CL
+    from sketch_rnn_tpu_torch.train.loop import train
+    from sketch_rnn_tpu_torch.train.state import (make_train_state,
+                                                  states_equal)
+    from sketch_rnn_tpu_torch.train.step import (make_multi_train_step,
+                                                 make_train_step)
+    from sketch_rnn_tpu_torch.utils import prng
+
+    t_phase = time.perf_counter()
+    hps = train_hps(**dtype_over("bfloat16"))
+    model = SketchRNN(hps)
+    params = model.init_params(torch.Generator().manual_seed(0), device=DEV)
+
+    def npz_loader():
+        loader = DataLoader(tr.strokes, hps, labels=tr.labels, augment=True,
+                            seed=1)
+        loader.scale_factor = tr.scale_factor     # strokes already normal
+        return loader
+
+    corpora = {
+        "synthetic": lambda: synthetic_loader(
+            hps, num=hps.batch_size, seed=0, integer_grid=255.0)[0],
+        "npz": npz_loader}
+    fns = {1: make_train_step(model, hps, device=DEV),
+           SPC: make_multi_train_step(
+               model, hps.replace(steps_per_call=SPC), device=DEV)}
+    root_key = prng.split(prng.key(0), 2)[0]
+
+    def feed_turn(corpus, k, arm, calls, state=None, after=None):
+        """``FEED_WARM`` calls, then ``calls`` timed calls of K=``k`` from
+        a fresh feeder of ``arm`` over a fresh ``corpus`` loader;
+        ``after(feeder, state)`` runs on the open feeder then. Returns
+        ``(wall s, state, the feeder's timings over the timed calls,
+        after's result)``."""
+        dtype, depth = FEED_ARMS[arm]
+        state = make_train_state(params) if state is None else state
+        feeder = prefetch_batches(corpora[corpus](), DEV, depth, stack=k,
+                                  transfer_dtype=dtype)
+        losses = []
+        inside = [0.0]
+
+        def call(st):
+            batch = feeder.get()
+            t0 = time.perf_counter()
+            st, m = fns[k](st, batch, prng.fold_in(root_key, st.step))
+            inside[0] += time.perf_counter() - t0
+            losses.append(m["loss"])
+            return st
+
+        try:
+            for _ in range(FEED_WARM):
+                state = call(state)
+            torch.cuda.synchronize()
+            snap = lambda: dict(feeder.timings, call_s=inside[0])
+            t0_feed = snap()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                state = call(state)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            timings = {n: v - t0_feed[n] for n, v in snap().items()}
+            extra = after(feeder, state) if after is not None else None
+        finally:
+            feeder.close()
+        losses = [float(x) for x in losses]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{corpus} K={k} {arm}: losses {losses}")
+        return wall, state, timings, extra
+
+    def per_batch(t, k):
+        n = t["batches"] * k
+        return {"assemble_ms": t["assemble_s"] * 1e3 / n,
+                "cast_ms": t["cast_s"] * 1e3 / n,
+                "pin_ms": t["pin_s"] * 1e3 / n,
+                "copy_ms": t["copy_s"] * 1e3 / n,
+                "wait_ms_per_call": t["wait_s"] * 1e3 / t["gets"],
+                "call_ms_per_call": t["call_s"] * 1e3 / t["gets"]}
+
+    def profiled(feeder, state, k):
+        """Two calls timed, then two profiled, on the open feeder."""
+        def two(st):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2):
+                st, _ = fns[k](st, feeder.get(),
+                               prng.fold_in(root_key, st.step))
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, st
+
+        wall, state = two(state)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall_prof, _ = two(state)
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        device_ms = sum(e.self_device_time_total for e in events) / 1e3
+        return {"calls": 2, "steps": 2 * k, "wall_ms": wall * 1e3,
+                "profiled_wall_ms": wall_prof * 1e3, "device_ms": device_ms,
+                "device_busy_share": device_ms / 1e3 / wall}
+
+    def queue_memory(corpus, k, arm):
+        """The reserved memory that a depth-2 feeder's full queue adds (the
+        cache emptied first; no step runs), and the bytes of its batches:
+        the queue holds ``depth`` batches, the producer one more."""
+        dtype, depth = FEED_ARMS[arm]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        r0 = torch.cuda.memory_reserved()
+        with prefetch_batches(corpora[corpus](), DEV, depth, stack=k,
+                              transfer_dtype=dtype) as feeder:
+            t0 = time.perf_counter()
+            while feeder.timings["batches"] < depth + 1:
+                if time.perf_counter() - t0 > 60:
+                    raise AssertionError("the producer did not fill its "
+                                         "queue")
+                time.sleep(0.01)
+            time.sleep(0.1)            # the last batch's copies issued
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_reserved() - r0
+        b = ({"float32": 4, "int16": 2}[dtype] * hps.batch_size
+             * (hps.max_seq_len + 1) * 5
+             + 4 * hps.batch_size * (3 if dtype == "int16" else 2))
+        return {"queue_reserved_bytes": held,
+                "queue_batch_bytes": (depth + 1) * k * b}
+
+    results = {}
+    for corpus in corpora:
+        for k in (SPC, 1):
+            calls = FEED_CALLS[k]
+            walls = {arm: [] for arm in FEED_ARMS}
+            feed = {arm: [] for arm in FEED_ARMS}
+            ends, prof = [], {}
+            for arm in FEED_TURNS:
+                # each arm's first turn is profiled after its timed calls
+                first = arm not in prof
+                wall, state, t, p = feed_turn(
+                    corpus, k, arm, calls,
+                    after=(lambda feeder, st: profiled(feeder, st, k))
+                    if first else None)
+                walls[arm].append(wall * 1e3 / (calls * k))
+                feed[arm].append(per_batch(t, k))
+                ends.append(state)
+                if first:
+                    prof[arm] = p
+            for arm, (_, depth) in FEED_ARMS.items():
+                if depth:
+                    prof[arm].update(queue_memory(corpus, k, arm))
+            if corpus == "synthetic" and not all(
+                    states_equal(ends[0], s) for s in ends[1:]):
+                raise AssertionError(f"synthetic K={k}: the turns do not "
+                                     f"all end on one state")
+            del ends, state
+            med = {arm: float(np.median(v)) for arm, v in walls.items()}
+            results[f"{corpus}_k{k}"] = {
+                "ms_per_step": {**walls, **{f"{a}_median": v
+                                            for a, v in med.items()},
+                                **{f"f32_d0_over_{a}": med["f32_d0"] / v
+                                   for a, v in med.items()
+                                   if a != "f32_d0"}},
+                "host_per_batch": feed, "profile": prof}
+
+    # the int16 quantization alone, on float32 batches of each corpus
+    quantize_ms = {}
+    for corpus, make in corpora.items():
+        loader = make()
+        batches = [loader.next_batch()["strokes"] for _ in range(10)]
+        t0 = time.perf_counter()
+        for b in batches:
+            quantize_int16(b, loader.scale_factor)
+        quantize_ms[corpus] = (time.perf_counter() - t0) * 1e3 / len(batches)
+
+    # one eager step at int16 and at bfloat16 against the float32 step,
+    # from a state with history
+    _, state, _, _ = feed_turn("synthetic", 1, "f32_d0", 2)
+    key = prng.fold_in(prng.key(31), state.step)
+    steps = {}
+    for dtype in ("float32", "int16", "bfloat16"):
+        with prefetch_batches(corpora["synthetic"](), DEV, 0,
+                              transfer_dtype=dtype) as feeder:
+            batch = feeder.get()
+        if batch["strokes"].dtype != getattr(torch, dtype):
+            raise AssertionError(f"{dtype} feed gave {batch['strokes'].dtype}")
+        steps[dtype] = fns[1](state, batch, key)
+    i16_bitwise = (states_equal(steps["int16"][0], steps["float32"][0])
+                   and all(torch.equal(steps["int16"][1][n],
+                                       steps["float32"][1][n])
+                           for n in steps["float32"][1]))
+    if not i16_bitwise:
+        raise AssertionError("the int16 step is not the float32 step bit "
+                             "for bit")
+    bf16_gaps = compare_steps(state, steps["bfloat16"], steps["float32"])
+    if not all(math.isfinite(float(v)) for v in steps["bfloat16"][1].values()):
+        raise AssertionError("non-finite bfloat16-transfer step")
+    hold_step("bfloat16 transfer vs float32", bf16_gaps, "bfloat16")
+    del state, steps
+
+    # train() at its defaults (depth 2) with int16, K=5, to step 7
+    hps7 = hps.replace(steps_per_call=SPC)
+    if (hps7.prefetch_depth, hps7.transfer_dtype) != (2, "float32"):
+        raise AssertionError("HParams' defaults moved")
+    ref7, _ = train(hps7.replace(prefetch_depth=0), corpora["synthetic"](),
+                    seed=0, num_steps=SPC_REMAINDER, params=params,
+                    device=DEV)
+    torch.cuda.synchronize()
+    CF.reset_launch_counts()
+    CL.reset_launch_counts()
+    st7, rows7 = train(hps7.replace(transfer_dtype="int16"),
+                       corpora["synthetic"](), seed=0,
+                       num_steps=SPC_REMAINDER, params=params, device=DEV)
+    torch.cuda.synchronize()
+    launches = {**CF.launch_counts(), **CL.launch_counts()}
+    want = {n: FLAGSHIP_PER_STEP.get(n, 0) * SPC_REMAINDER for n in launches}
+    if launches != want:
+        raise AssertionError(f"train() at int16, depth 2: launches "
+                             f"{launches} (expected {want})")
+    if [r["step"] for r in rows7] != [0, SPC] or st7.step != SPC_REMAINDER:
+        raise AssertionError(f"train() at int16: rows {rows7}")
+    if not states_equal(st7, ref7):
+        raise AssertionError("train() at int16 and depth 2 does not end on "
+                             "train() at float32 and depth 0 bit for bit")
+    log("train_feed", card=card,
+        preset="quickdraw345_dp (bfloat16 compute and residuals)",
+        batch=hps.batch_size, max_seq_len=hps.max_seq_len,
+        arms={a: {"transfer_dtype": d, "prefetch_depth": p}
+              for a, (d, p) in FEED_ARMS.items()},
+        turns=list(FEED_TURNS), warm_calls=FEED_WARM,
+        timed_calls={f"k{k}": c for k, c in FEED_CALLS.items()},
+        corpora={"synthetic": f"synthetic_loader, {hps.batch_size} "
+                              f"sketches, integer_grid=255, unaugmented",
+                 "npz": f"train_workdir's train split, {len(tr)} sketches, "
+                        f"augmented"},
+        cells=results, quantize_ms_per_batch=quantize_ms,
+        synthetic_turns_bitwise=True, int16_step_bitwise=i16_bitwise,
+        bf16_step_vs_float32=bf16_gaps,
+        train_int16_depth2={"steps_per_call": SPC,
+                            "num_steps": SPC_REMAINDER, "launches": launches,
+                            "rows": [r["step"] for r in rows7],
+                            "bitwise_float32_depth0": True},
         seconds=time.perf_counter() - t_phase)
 
 
@@ -3640,9 +3941,12 @@ def main():
     profile_train(hps, loader, state)
     del state
     torch.cuda.empty_cache()
-    workdir_eval = train_workdir(card)
+    workdir_eval, npz_train = train_workdir(card)
     train_spc(card, workdir_eval)
     del workdir_eval
+    torch.cuda.empty_cache()
+    train_feed(card, npz_train)
+    del npz_train
     torch.cuda.empty_cache()
     lstm_launches, (hps, model, loader, state) = train_main_path(
         card, vae_hps(), "train_lstm",

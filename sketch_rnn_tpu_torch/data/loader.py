@@ -12,10 +12,14 @@ seed: the loader's RNG draws the same values in the same order,
 including the per-batch augmentation seed that the JAX package's native
 batcher would consume, so the streams stay aligned.
 
+``int16_scale`` (the int16 transfer path, ``data/prefetch.py``)
+quantizes a batch's offsets back to integer data units on that numpy
+path, bitwise the JAX package's numpy quantization, and adds the
+``"transfer_scale"`` leaf.
+
 Not ported yet (each raises, naming the later slice): the native C++
 batcher, length bucketing (``bucket_edges``, ``next_stack``),
-multi-host striping and the coordinated global plan (ROADMAP queue 1,
-items 7 and 10), and the int16 transfer path.
+multi-host striping and the coordinated global plan (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -62,6 +66,17 @@ def _purify(stroke3_list, max_seq_len: int, limit: float = 1000.0,
         print(f"[data] WARNING: skipped {skipped} corrupt record(s) in "
               f"{source or '<in-memory corpus>'}", flush=True)
     return out
+
+
+def quantize_int16(strokes: np.ndarray, scale: float) -> np.ndarray:
+    """A float32 stroke-5 batch as int16: the offsets
+    ``clip(rint(x * scale), -32767, 32767)`` (``np.rint`` rounds half to
+    even), the pen bits copied as 0/1."""
+    q = np.empty(strokes.shape, np.int16)
+    np.clip(np.rint(strokes[..., :2] * scale), -32767, 32767,
+            out=q[..., :2], casting="unsafe")
+    q[..., 2:] = strokes[..., 2:]
+    return q
 
 
 def pad_batch(seqs: Sequence[np.ndarray], max_len: int
@@ -115,7 +130,12 @@ class DataLoader:
         for s in self.strokes:
             s[:, 0:2] /= scale_factor
 
-    def _assemble(self, idx: np.ndarray) -> Dict[str, np.ndarray]:
+    def _assemble(self, idx: np.ndarray,
+                  int16_scale: Optional[float] = None
+                  ) -> Dict[str, np.ndarray]:
+        if int16_scale is not None and not int16_scale > 0:
+            raise ValueError(
+                f"int16_scale must be positive, got {int16_scale}")
         raw = [self.strokes[i] for i in idx]
         # one augmentation seed per batch: the JAX package hands it to its
         # native batcher; drawing it here too keeps the numpy RNG stream
@@ -126,19 +146,24 @@ class DataLoader:
                 S.random_scale(s, self.hps.random_scale_factor, self.rng),
                 self.hps.augment_stroke_prob, self.rng) for s in raw]
         strokes, seq_len = pad_batch(raw, self.hps.max_seq_len)
-        return {"strokes": strokes, "seq_len": seq_len,
-                "labels": self.labels[idx]}
+        batch = {"strokes": strokes, "seq_len": seq_len,
+                 "labels": self.labels[idx]}
+        if int16_scale is not None:
+            batch["strokes"] = quantize_int16(strokes, int16_scale)
+            batch["transfer_scale"] = np.full((len(raw),), int16_scale,
+                                              np.float32)
+        return batch
 
     def random_batch(self, int16_scale: Optional[float] = None
                      ) -> Dict[str, np.ndarray]:
-        if int16_scale is not None:
-            raise NotImplementedError(
-                f"the int16 transfer path {_LATER}; train with "
-                f"transfer_dtype=float32")
+        """A batch of ``batch_size`` examples drawn with replacement only
+        when the corpus is smaller. ``int16_scale``: strokes as int16 data
+        units (:func:`quantize_int16`) with a ``"transfer_scale"`` ``[B]``
+        float32 leaf."""
         b = self.hps.batch_size
         idx = self.rng.choice(len(self.strokes), b,
                               replace=len(self.strokes) < b)
-        return self._assemble(idx)
+        return self._assemble(idx, int16_scale)
 
     def next_batch(self, int16_scale: Optional[float] = None
                    ) -> Dict[str, np.ndarray]:
@@ -148,12 +173,11 @@ class DataLoader:
 
     def next_stack(self, k_max: int, int16_scale: Optional[float] = None):
         """The bucket-run scheduler's stack of one geometry run's prefix
-        (length bucketing); without buckets ``train()`` stacks K
-        :meth:`next_batch` draws itself."""
+        (length bucketing); without buckets the feeder
+        (``data/prefetch.py``) stacks K :meth:`next_batch` draws itself."""
         raise NotImplementedError(
             f"next_stack (the bucket-run scheduler's stacks of one "
-            f"geometry run, with bucket_edges: ROADMAP queue 1, item 10) "
-            f"{_LATER}")
+            f"geometry run, with bucket_edges: ROADMAP queue 1) {_LATER}")
 
     def fast_forward(self, n_batches: int) -> None:
         """Draw and discard ``n_batches`` training batches through

@@ -293,15 +293,14 @@ class SketchRNN:
         """Batch-major strokes -> mixture params (+ posterior). ``key``:
         the step's key, or its :meth:`draws` already made. The
         length-aware reversal for the encoder's backward direction is
-        gathered on the batch-major raw strokes, as in the JAX package.
+        gathered on the batch-major raw strokes, as in the JAX package;
+        then each stream is dequantized (int16 strokes divided by the
+        batch's ``transfer_scale``), made time-major and upcast to
+        float32 (``data/prefetch.py``'s transfer dtypes).
         Returns ``(mp, x_target, labels, mu, presig)``; the posterior
         terms are None for unconditional models."""
         hps = self.hps
         raw_bm = batch["strokes"]
-        if raw_bm.dtype == torch.int16:
-            raise NotImplementedError(
-                "int16-transferred strokes come with a later slice of the "
-                "PyTorch port; train with transfer_dtype=float32")
         seq_len = batch["seq_len"]
         raw_rev = None
         if hps.conditional:
@@ -310,6 +309,14 @@ class SketchRNN:
                                            rev_bm[:, :, None], dim=1)
 
         def prep(bm):
+            if bm.dtype == torch.int16:
+                # integer data units and 0/1 pen bits: the division gives
+                # the host's float32 normalization bit for bit for an
+                # integer-origin corpus
+                sc = batch["transfer_scale"].float()
+                f = bm.float()
+                bm = torch.cat([f[..., :2] / sc[:, None, None], f[..., 2:]],
+                               dim=-1)
             return bm.transpose(0, 1).float()
 
         strokes = prep(raw_bm)                   # [T+1, B, 5]

@@ -13,6 +13,14 @@ default, ``train/async_ckpt.py``) and at the end, resumes from the
 latest checkpoint (fast-forwarding a fresh loader to the resumed step
 with ``resume_align``), and sweeps ``test_loader`` at the end.
 
+The batches come through ``data/prefetch.py``'s feeder, built after a
+resume's fast-forward and closed when the loop ends: at
+``hps.prefetch_depth`` batches ahead on a producer thread, which
+assembles them (as int16 or bfloat16 at ``hps.transfer_dtype``) and
+starts their copy to the card on a stream of its own; depth 0 feeds on
+the calling thread. Every depth trains on the same batches. Eval sweeps
+always feed float32.
+
 ``steps_per_call = K > 1`` feeds the K-step call
 (``train/step.make_multi_train_step``: one CUDA graph replay on the card)
 ``[K, ...]`` stacks of K ``next_batch()`` draws, the JAX package's
@@ -25,9 +33,9 @@ The cadences fire on crossing a multiple, and ``history`` holds one row
 per call. ``eval_steps_per_call`` chunks the sweeps the same way
 (``multi=`` on :func:`evaluate` and :func:`evaluate_per_class`): runs of
 up to K batches through a K-batch call, a remainder of exactly one
-through the single-batch step. Prefetch, telemetry, the profiler, the
-watchdog and elastic runs are not ported yet: asking for one raises,
-naming the later slice.
+through the single-batch step. Telemetry, the profiler, the watchdog and
+elastic runs are not ported yet: asking for one raises, naming the later
+slice.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ import numpy as np
 import torch
 
 from sketch_rnn_tpu_torch.config import HParams
+from sketch_rnn_tpu_torch.data.prefetch import prefetch_batches, stack_batches
 from sketch_rnn_tpu_torch.models.vae import SketchRNN
 from sketch_rnn_tpu_torch.train.async_ckpt import AsyncCheckpointer
 from sketch_rnn_tpu_torch.train.checkpoint import (latest_checkpoint,
@@ -65,12 +74,6 @@ def geometry_runs(n: int, k_max: int):
         k = min(k_max, n - i)
         yield i, k
         i += k
-
-
-def stack_batches(batches) -> Dict[str, np.ndarray]:
-    """Loader dicts stacked ``[K, ...]`` (``data/prefetch.py``'s stack)."""
-    return {k: np.stack([np.asarray(b[k]) for b in batches])
-            for k in batches[0]}
 
 
 def _sweep_rows(params, loader, eval_step, key, multi=None):
@@ -218,29 +221,27 @@ def train(hps: HParams, train_loader, valid_loader=None, test_loader=None,
     crossed = lambda prev, every: step // every > prev // every
     last_saved_step = None      # the highest step THIS run checkpointed
     history = []
+    # after the resume's fast-forward: the producer draws ahead of the
+    # loop. K draws a call, the remainder's too, as the JAX package's
+    # stacking feeder draws them
+    feeder = prefetch_batches(train_loader, dev, hps.prefetch_depth,
+                              stack=spc, transfer_dtype=hps.transfer_dtype)
     try:
         while step < num_steps:
             prev = step
             remaining = num_steps - step
             step_key = prng.fold_in(root_key, step)
-            if spc == 1:
-                state, metrics = step_fn(state, train_loader.next_batch(),
-                                         step_key)
+            batch = feeder.get()
+            if spc == 1 or remaining >= spc:
+                state, metrics = step_fn(state, batch, step_key)
             else:
-                # K draws a call, the remainder's too, as the JAX
-                # package's stacking feeder draws them
-                batches = stack_batches([train_loader.next_batch()
-                                         for _ in range(spc)])
-                if remaining >= spc:
-                    state, metrics = step_fn(state, batches, step_key)
-                else:
-                    per_step = []
-                    for i in range(remaining):
-                        state, m = single_step(
-                            state, {k: v[i] for k, v in batches.items()},
-                            prng.fold_in(step_key, i))
-                        per_step.append(m)
-                    metrics = replay_window_metrics(per_step)
+                per_step = []
+                for i in range(remaining):
+                    state, m = single_step(
+                        state, {k: v[i] for k, v in batch.items()},
+                        prng.fold_in(step_key, i))
+                    per_step.append(m)
+                metrics = replay_window_metrics(per_step)
             history.append((prev, metrics))
             step = state.step
             if crossed(prev, hps.log_every) or step == num_steps:
@@ -263,6 +264,7 @@ def train(hps: HParams, train_loader, valid_loader=None, test_loader=None,
                 last_saved_step = step
         drain.flush()
     finally:
+        feeder.close()
         # persist the pending window for a post-mortem; nothing here may
         # mask the error in flight
         try:

@@ -68,9 +68,6 @@ def check_trainable(hps: HParams) -> None:
         raise NotImplementedError(f"input and output dropout {_LATER}")
     if hps.bucket_edges:
         raise NotImplementedError(f"bucket_edges {_LATER}")
-    if hps.transfer_dtype != "float32":
-        raise NotImplementedError(
-            f"transfer_dtype={hps.transfer_dtype} {_LATER}")
 
 
 def host_tensors(batch) -> Dict[str, torch.Tensor]:

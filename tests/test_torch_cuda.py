@@ -1967,3 +1967,55 @@ def test_multi_step_graph_replay_is_its_eager_steps(dev, over):
         assert torch.equal(met[k], want[k]), k
     assert all(torch.equal(a, b) for (_, a), (_, b) in
                zip(tree_items(held), tree_items(state.params)))
+
+
+def test_feeder_at_depth_2_captures_and_matches_the_synchronous_feed(dev):
+    """``data/prefetch.py`` on the card: at depth 2 the producer thread
+    copies int16 batches to the card on its own stream while the K=2 step
+    captures its graph at the first call; three calls end bit for bit on
+    the state (and the last window's metrics) of the same calls fed
+    float32 at depth 0 (an unaugmented integer-origin corpus, so int16 is
+    exact), and so does ``train()`` at int16, depth 2, K=2, to step 5
+    against ``train()`` at float32, depth 0."""
+    from sketch_rnn_tpu_torch.data.loader import synthetic_loader
+    from sketch_rnn_tpu_torch.data.prefetch import prefetch_batches
+    from sketch_rnn_tpu_torch.train.loop import train
+    from sketch_rnn_tpu_torch.train.state import (make_train_state,
+                                                  states_equal)
+    from sketch_rnn_tpu_torch.train.step import make_multi_train_step
+
+    hps = HParams(**TINY).replace(
+        conditional=True, fused_rnn=True, dec_model="layer_norm",
+        num_classes=3, class_embed_size=4, steps_per_call=2)
+    model = SketchRNN(hps)
+    params = model.init_params(torch.Generator().manual_seed(0), device=dev)
+
+    def loader():
+        return synthetic_loader(hps, num=32, seed=1, integer_grid=255.0)[0]
+
+    def run(dtype, depth):
+        multi = make_multi_train_step(model, hps, device=dev)
+        state = make_train_state(params)
+        with prefetch_batches(loader(), dev, depth, stack=2,
+                              transfer_dtype=dtype) as feeder:
+            for i in range(3):
+                batch = feeder.get()
+                assert batch["strokes"].dtype == getattr(torch, dtype)
+                assert all(v.device.type == "cuda" for v in batch.values())
+                state, met = multi(state, batch,
+                                   prng.fold_in(prng.key(1), i))
+        assert multi.graphed.captured == 1
+        return state, met
+
+    (a, ma), (b, mb) = run("float32", 0), run("int16", 2)
+    assert states_equal(a, b)
+    assert sorted(ma) == sorted(mb)
+    assert all(torch.equal(ma[k], mb[k]) for k in ma)
+
+    def run_train(dtype, depth):
+        h = hps.replace(transfer_dtype=dtype, prefetch_depth=depth)
+        return train(h, loader(), seed=2, num_steps=5, params=params,
+                     device=dev)
+
+    (a, ra), (b, rb) = run_train("float32", 0), run_train("int16", 2)
+    assert states_equal(a, b) and ra == rb

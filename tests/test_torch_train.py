@@ -30,7 +30,7 @@ kernels run in interpret mode, the port's through their plain versions.
   each package;
 - the training requests the port does not serve yet raise by name, the
   ones it now serves (bfloat16, the lstm decoder, ``fused_rnn=false``,
-  the presets) train,
+  the int16 and bfloat16 transfer dtypes, the presets) train,
   and the training entry points need the card unless asked for the
   CPU.
 """
@@ -57,6 +57,7 @@ from sketch_rnn_tpu_torch.convert import (params_from_jax, params_to_jax,
                                           train_state_to_jax)
 from sketch_rnn_tpu_torch.data import loader as tloader
 from sketch_rnn_tpu_torch.data import strokes as tstrokes
+from sketch_rnn_tpu_torch.data.prefetch import prefetch_batches
 from sketch_rnn_tpu_torch.models.vae import SketchRNN
 from sketch_rnn_tpu_torch.ops import cells, mdn
 from sketch_rnn_tpu_torch.train import schedules as tsched
@@ -182,8 +183,10 @@ def test_loader_purify_and_refusals():
     with pytest.raises(NotImplementedError, match="later slice"):
         tloader.DataLoader([np.ones((3, 3))], th.replace(bucket_edges=(4,)))
     tl, _ = tloader.synthetic_loader(th, num=8)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tl.random_batch(int16_scale=10.0)
+    b = tl.random_batch(int16_scale=10.0)
+    assert b["strokes"].dtype == np.int16
+    np.testing.assert_array_equal(b["transfer_scale"],
+                                  np.full((th.batch_size,), 10.0, np.float32))
 
 
 def test_losses_and_schedules():
@@ -426,8 +429,7 @@ def test_train_loop_keys_and_rows():
 @pytest.mark.parametrize("over,match", [
     ("use_input_dropout=true", "later slice"),
     ("use_output_dropout=true", "later slice"),
-    ("bucket_edges=4", "later slice"),
-    ("transfer_dtype=int16", "later slice")])
+    ("bucket_edges=4", "later slice")])
 def test_unserved_training_requests_raise_by_name(over, match):
     _, th = _pair()
     with pytest.raises(NotImplementedError, match=match):
@@ -437,21 +439,31 @@ def test_unserved_training_requests_raise_by_name(over, match):
 @pytest.mark.parametrize("over", ["compute_dtype=bfloat16",
                                   "fused_residual_dtype=bfloat16",
                                   "dec_model=lstm", "fused_rnn=false",
-                                  "steps_per_call=2"])
+                                  "steps_per_call=2", "transfer_dtype=int16",
+                                  "transfer_dtype=bfloat16"])
 def test_formerly_refused_requests_now_train(over):
     """bfloat16 compute, bfloat16 residuals, the lstm decoder (its
     fused_lstm kernel), the plain cell path (``fused_rnn=false``, the
-    presets' default) and K steps a call (``steps_per_call``; the K call
-    itself is ``tests/test_torch_multi_step.py``'s) are served:
-    check_trainable accepts them, and a step on the CPU gives finite
-    metrics and moves every parameter."""
+    presets' default), K steps a call (``steps_per_call``; the K call
+    itself is ``tests/test_torch_multi_step.py``'s) and the int16 and
+    bfloat16 transfer dtypes (fed a real batch of that dtype from the
+    port's feeder; ``tests/test_torch_prefetch.py`` holds them against
+    JAX) are served: check_trainable accepts them, and a step on the CPU
+    gives finite metrics and moves every parameter."""
     jh, th = _pair()
     th = th.parse(over)
     check_trainable(th)
     tm = SketchRNN(th)
     tp = tm.init_params(torch.Generator().manual_seed(0), device="cpu")
+    batch = _batch(jh)
+    if th.transfer_dtype != "float32":
+        tl, _ = tloader.synthetic_loader(th, num=24, integer_grid=255.0)
+        with prefetch_batches(tl, "cpu", 0,
+                              transfer_dtype=th.transfer_dtype) as feeder:
+            batch = feeder.get()
+        assert batch["strokes"].dtype == getattr(torch, th.transfer_dtype)
     state, met = make_train_step(tm, th, device="cpu")(
-        make_train_state(tp), _batch(jh), prng.key(1))
+        make_train_state(tp), batch, prng.key(1))
     assert all(np.isfinite(float(v)) for v in met.values())
     for (_, a), (_, b) in zip(tree_items(tp), tree_items(state.params)):
         assert a.dtype == b.dtype == torch.float32

@@ -154,7 +154,22 @@ without the final line. With no CUDA device it exits 2 at once.
    turns bit for bit one another, an int16 step bit for bit the float32
    step and a bfloat16-transfer step within STEP_TOL of it; ``train()``
    at depth 2 and int16, K=5, to step 7 with exact launches, bit for bit
-   ``train()`` at float32 and depth 0.
+   ``train()`` at float32 and depth 0. Then cli_flow: the port's command
+   line in this process (``cli.main``) on the flagship preset at full
+   width, seeded weights and the synthetic corpus: ``train --preset
+   quickdraw345_dp --synthetic`` to step 4 (an eval sweep and a save
+   every 2 steps), ``eval --split test``, ``sample -n 16``, ``sample
+   --temperatures 0.2,0.5,1.0 -n 8``, ``sample --interpolate -n 8
+   --strokes_out`` and ``sample --reconstruct -n 4 --strokes_out``:
+   every exit code 0, every SVG parsed and holding its grid, rows
+   4f/4b/5f/5b launched in ``train`` and rows 1 and 2 in each endpoint
+   demo (none in the plain ``sample``), the ``--strokes_out`` arrays bit
+   for bit a direct ``serve_requests`` call on the restored checkpoint;
+   the plain sampler on the card against the CPU (float32, 8 rows of 8
+   steps); the sampler's ms per call at n=16 and n=64 (as trained and
+   at full length), its steps and host syncs (also as torch's sync
+   debug mode counts them) beside the engine's ``generate``; the
+   interpolate request's latency and the phase's seconds.
 10. train_lstm — the ``vae`` preset (lstm decoder) with ``fused_rnn=true``
    at full width and float32: 1 warm-up step, then 5 timed steps with the
    counters zeroed just before and read just after (2 launches per step
@@ -3853,6 +3868,301 @@ def train_plain(card):
     return launches
 
 
+# -- the command line -------------------------------------------------------
+
+CLI_STEPS = 4           # train steps, with an eval sweep and a save every 2
+CLI_SAMPLER_NS = (16, 64)
+CLI_SAMPLER_CALLS = 3   # timed calls of each sampler arm, after one warm-up
+SVG_NS = "{http://www.w3.org/2000/svg}"
+
+
+def run_cli(args):
+    """``cli.main(args)`` in this process, its output captured; returns
+    the standard output. A non-zero exit fails with its output's tail."""
+    import io
+
+    from sketch_rnn_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(args)
+    if rc != 0:
+        raise AssertionError(f"cli {' '.join(args[:2])} exited {rc}: "
+                             f"{out.getvalue()[-2000:]}"
+                             f"{err.getvalue()[-2000:]}")
+    return out.getvalue(), time.perf_counter() - t0
+
+
+def svg_cells(path, n, cols):
+    """The SVG at ``path`` parses as XML and its canvas is the grid of
+    ``n`` sketches in rows of ``min(cols, n)`` cells (``svg_grid``);
+    returns the cells that hold a path (an empty sketch draws none)."""
+    import xml.etree.ElementTree as ET
+
+    root = ET.parse(path).getroot()
+    cols = max(1, min(cols, n))
+    rows = -(-n // cols)
+    if (root.get("width"), root.get("height")) != (f"{cols * 160}",
+                                                   f"{rows * 160}"):
+        raise AssertionError(f"{path}: canvas {root.get('width')} x "
+                             f"{root.get('height')}, expected {cols} x "
+                             f"{rows} cells for {n} sketches")
+    cells = set()
+    for p in root.iter(SVG_NS + "path"):
+        x, y = (float(v) for v in p.get("d").split()[0][1:].split(","))
+        cells.add((int(y // 160), int(x // 160)))
+    if not cells <= {(r, c) for r in range(rows) for c in range(cols)}:
+        raise AssertionError(f"{path}: a path outside the grid")
+    return len(cells)
+
+
+def sampler_times(model, hps, params, n, full_length):
+    """The plain sampler's ms per call at ``n`` rows on the card (CUDA
+    synchronised host clock, mean of CLI_SAMPLER_CALLS after a warm-up),
+    the steps it ran, its reads of ``done`` and the synchronising CUDA
+    calls that torch's sync debug mode saw in one call with its fetch;
+    ``full_length``: ``out_b[2] = -1e9``, so no row ends before
+    max_seq_len."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from sketch_rnn_tpu_torch.sample import sampler as sm
+    from sketch_rnn_tpu_torch.utils import prng
+    from sketch_rnn_tpu_torch.utils.device import Staged
+
+    if full_length:
+        params = dict(params, out_b=params["out_b"].clone())
+        params["out_b"][2] = -1e9
+    fn = sm.make_sampler(model, hps, device=DEV)
+    z = prng.normal(prng.key(21), (n, hps.z_size)).to(DEV)
+    labels = torch.zeros((n,), dtype=torch.int64, device=DEV)
+
+    def call(i):
+        return Staged(fn(params, prng.key(i), n, z, labels, 0.5)).fetch()
+
+    call(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(CLI_SAMPLER_CALLS):
+        call(i + 1)
+    ms = (time.perf_counter() - t0) * 1e3 / CLI_SAMPLER_CALLS
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            s5, lengths = call(CLI_SAMPLER_CALLS + 1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    sync_warnings = sum("synchroniz" in str(w.message) for w in seen)
+    steps, checks = fn.stats["steps"], fn.stats["host_syncs"]
+    syncs = checks + 1                   # the reads of done, the fetch
+    cap = math.ceil(steps / sm.DONE_CHECK_EVERY) + 1
+    if not (syncs <= cap and sync_warnings <= syncs):
+        raise AssertionError(f"sampler n={n}: {syncs} syncs counted, "
+                             f"{sync_warnings} seen by the sync debug "
+                             f"mode, over {steps} steps (at most {cap})")
+    if not (np.isfinite(s5).all() and s5.shape == (n, hps.max_seq_len, 5)):
+        raise AssertionError(f"sampler n={n}: bad strokes {s5.shape}")
+    return {"n": n, "ms_per_call": ms, "steps": steps,
+            "ms_per_step": ms / steps, "host_syncs_per_call": syncs,
+            "sync_debug_warnings": sync_warnings,
+            "max_host_syncs": cap, "mean_length": float(lengths.mean())}
+
+
+def engine_times(model, hps, params, n):
+    """The serving engine's ``generate`` at ``n`` requests of
+    max_seq_len steps each (``out_b[2] = -1e9``) on the same weights:
+    ms per burst, mean of CLI_SAMPLER_CALLS after a warm-up."""
+    import numpy as np
+    import torch
+
+    from sketch_rnn_tpu_torch.serve.engine import Request, ServeEngine
+    from sketch_rnn_tpu_torch.utils import prng
+
+    params = dict(params, out_b=params["out_b"].clone())
+    params["out_b"][2] = -1e9
+    engine = ServeEngine(model, hps, params, device=DEV)
+    z = np.random.default_rng(21).normal(
+        size=(n, hps.z_size)).astype(np.float32)
+
+    def burst(i):
+        reqs = [Request(key=prng.fold_in(prng.key(i), j), z=z[j],
+                        temperature=0.5) for j in range(n)]
+        return engine.run(reqs)["metrics"]
+
+    burst(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(CLI_SAMPLER_CALLS):
+        m = burst(i + 1)
+    torch.cuda.synchronize()
+    return {"n": n, "ms_per_burst": (time.perf_counter() - t0) * 1e3
+            / CLI_SAMPLER_CALLS, "chunks": m["chunks"],
+            "host_syncs": m["host_syncs"], "decode_steps": m["decode_steps"]}
+
+
+def sampler_card_vs_cpu(model, hps, params):
+    """The plain sampler on the card against the same sampler on the CPU
+    at float32 compute, 8 rows capped at 8 steps (serve_small_vs_cpu's
+    burst): lengths and pens equal, offsets within SERVE_TOL."""
+    import numpy as np
+
+    from sketch_rnn_tpu_torch.models.vae import SketchRNN
+    from sketch_rnn_tpu_torch.sample import sampler as sm
+    from sketch_rnn_tpu_torch.utils import prng
+    from sketch_rnn_tpu_torch.utils.device import Staged, tree_to
+
+    hps = hps.replace(compute_dtype="float32",
+                      fused_residual_dtype="float32")
+    model = SketchRNN(hps)
+    z = prng.normal(prng.key(3), (8, hps.z_size))
+    labels = np.arange(8)
+    caps = np.full((8,), K, np.int32)
+    got = {}
+    for dev in (DEV, "cpu"):
+        fn = sm._build_sampler(model, hps, max_len=K, device=dev)
+        got[dev] = Staged(fn(tree_to(params, dev), prng.key(3), 8, z,
+                             labels, 0.8, caps)).fetch()
+    (s_card, l_card), (s_cpu, l_cpu) = got[DEV], got["cpu"]
+    if not (np.array_equal(l_card, l_cpu)
+            and np.array_equal(s_card[..., 2:], s_cpu[..., 2:])):
+        raise AssertionError("plain sampler: card and CPU differ in "
+                             "lengths or pen states")
+    err = float(np.abs(s_card - s_cpu).max())
+    if not err <= SERVE_TOL["float32"]:
+        raise AssertionError(f"plain sampler: card vs CPU err {err}")
+    return {"rows": 8, "steps": K, "max_abs_err": err,
+            "tol": SERVE_TOL["float32"]}
+
+
+def cli_flow(card):
+    """The port's command line end to end, in this process
+    (``cli.main``), on the flagship preset at full width with seeded
+    weights and the synthetic corpus: ``train --preset quickdraw345_dp
+    --synthetic`` to step 4 (B=100, T=250, an eval sweep and a save every
+    2 steps), ``eval --split test``, ``sample -n 16``, ``sample
+    --temperatures 0.2,0.5,1.0 -n 8``, ``sample --interpolate -n 8
+    --strokes_out`` and ``sample --reconstruct -n 4 --strokes_out``.
+    Every exit code 0; every SVG parses and holds its grid; the training
+    kernels (rows 4f/4b/5f/5b) launched in ``train`` and the serving
+    kernels (rows 1 and 2) in each endpoint demo, none of them in the
+    plain ``sample``; the ``--strokes_out`` arrays bit for bit a direct
+    ``serve_requests`` call on the restored checkpoint with the same
+    request keys and serving geometry. Then the plain sampler's card run
+    against its CPU run, its ms per call at n=16 and n=64 (its steps and
+    host syncs) beside the engine's ``generate``, and the interpolate
+    request's latency."""
+    import argparse
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from sketch_rnn_tpu_torch import cli
+    from sketch_rnn_tpu_torch.ops import cuda_decode as cd
+    from sketch_rnn_tpu_torch.ops import cuda_fused as CF
+    from sketch_rnn_tpu_torch.serve.endpoints import serve_requests
+    from sketch_rnn_tpu_torch.serve.engine import Request
+    from sketch_rnn_tpu_torch.utils import prng
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        wd = os.path.join(tmp, "work")
+        out = lambda name: os.path.join(tmp, name)
+        common = ["--synthetic", f"--workdir={wd}"]
+        seconds, launches, cells = {}, {}, {}
+
+        CF.reset_launch_counts()
+        cd.reset_launch_counts()
+        _, seconds["train"] = run_cli(
+            ["train", "--preset", "quickdraw345_dp", *common,
+             f"--hparams=num_steps={CLI_STEPS},save_every=2,eval_every=2,"
+             f"log_every=2"])
+        launches["train"] = {k: v for k, v in CF.launch_counts().items()
+                             if v}
+        rows_4_5 = ("fused_lstm_seq_fwd", "fused_lstm_seq_bwd",
+                    "fused_ln_lstm_fwd", "fused_ln_lstm_bwd")
+        if not all(launches["train"].get(k, 0) > 0 for k in rows_4_5):
+            raise AssertionError(f"cli train launched {launches['train']}")
+        text, seconds["eval"] = run_cli(["eval", *common, "--split",
+                                         "test"])
+        ev = json.loads(text.strip().splitlines()[-1])
+        if not (ev["step"] == CLI_STEPS and math.isfinite(ev["loss"])):
+            raise AssertionError(f"cli eval: {ev}")
+
+        demos = (("sample", ["-n", "16"], 16, 5),
+                 ("temperatures", ["--temperatures", "0.2,0.5,1.0", "-n",
+                                   "8"], 24, 8),
+                 ("interpolate", ["--interpolate", "-n", "8"], 8, 5),
+                 ("reconstruct", ["--reconstruct", "-n", "4"], 8, 4))
+        for name, args, n_cells, cols in demos:
+            endpoint = name in ("interpolate", "reconstruct")
+            extra = [f"--strokes_out={out(name + '.npz')}"] if endpoint \
+                else []
+            cd.reset_launch_counts()
+            _, seconds[name] = run_cli(["sample", *common, *args, *extra,
+                                        f"--output={out(name + '.svg')}"])
+            launches[name] = {"decode_chunk": cd.decode_chunk_launches,
+                              "replay_chunk": cd.replay_chunk_launches}
+            ran = [v > 0 for v in launches[name].values()]
+            if ran != [endpoint, endpoint]:
+                raise AssertionError(f"cli sample {name}: serving kernel "
+                                     f"launches {launches[name]}")
+            cells[name] = svg_cells(out(name + ".svg"), n_cells, cols)
+
+        # the same requests served directly from the restored checkpoint
+        hps = cli._workdir_hps(wd)
+        model, state, scale, _ = cli._restore(hps, wd, DEV)
+        data_args = argparse.Namespace(synthetic=True, synthetic_grid=255.0,
+                                       skip_bad_records=False)
+        valid = cli._load_data(hps, data_args, scale_factor=scale)[1]
+        key = prng.key(0)
+        direct = {
+            "interpolate": [Request(
+                key=key, endpoint="interpolate", frames=8,
+                prefix=(valid.strokes[0], valid.strokes[1]),
+                temperature=0.5)],
+            "reconstruct": [Request(
+                key=prng.fold_in(key, i), endpoint="reconstruct",
+                prefix=valid.strokes[i], temperature=0.5,
+                label=int(valid.labels[i])) for i in range(4)]}
+        interp_latency_s = None
+        for name, reqs in direct.items():
+            res = {r.uid: r for r in serve_requests(
+                model, hps, state.params, reqs, device=DEV)["results"]}
+            want = (res[0].frames if name == "interpolate"
+                    else [res[i].strokes5 for i in range(4)])
+            if name == "interpolate":
+                interp_latency_s = res[0].latency_s
+            with np.load(out(name + ".npz")) as z:
+                got = [z[k] for k in z.files]
+            if not (len(got) == len(want) and all(
+                    a.dtype == b.dtype and np.array_equal(a, b)
+                    for a, b in zip(got, want))):
+                raise AssertionError(f"cli sample --{name} --strokes_out "
+                                     f"is not the endpoint's strokes")
+        vs_cpu = sampler_card_vs_cpu(model, hps, state.params)
+        sampler = {f"{'full_length' if full else 'as_trained'}_n{n}":
+                   sampler_times(model, hps, state.params, n, full)
+                   for full in (False, True) for n in CLI_SAMPLER_NS}
+        engine = {f"n{n}": engine_times(model, hps, state.params, n)
+                  for n in CLI_SAMPLER_NS}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("cli_flow", card=card, preset="quickdraw345_dp", batch=hps.batch_size,
+        max_seq_len=hps.max_seq_len, train_steps=CLI_STEPS,
+        eval=ev, seconds=seconds, launches=launches,
+        svg_cells_drawn=cells, strokes_out_equal_serve_requests=True,
+        sampler_card_vs_cpu=vs_cpu, sampler=sampler,
+        engine_generate=engine, interpolate_latency_s=interp_latency_s,
+        phase_seconds=time.perf_counter() - t_phase)
+
+
 # the kernels line: (name, source, TPU kernel, the dtype of its main path)
 KERNEL_ROWS = (
     ("decode_chunk", "sketch_rnn_tpu_torch/csrc/decode.cu",
@@ -3947,6 +4257,8 @@ def main():
     torch.cuda.empty_cache()
     train_feed(card, npz_train)
     del npz_train
+    torch.cuda.empty_cache()
+    cli_flow(card)
     torch.cuda.empty_cache()
     lstm_launches, (hps, model, loader, state) = train_main_path(
         card, vae_hps(), "train_lstm",

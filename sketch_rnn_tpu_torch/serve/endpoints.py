@@ -1,7 +1,7 @@
-"""Multi-task serving endpoints: completion and reconstruction.
+"""Multi-task serving endpoints: completion, reconstruction, interpolation.
 
-The port of ``sketch_rnn_tpu/serve/endpoints.py`` for the ``generate``,
-``complete`` and ``reconstruct`` endpoints:
+The port of ``sketch_rnn_tpu/serve/endpoints.py`` for the single-engine
+path (the fleet's shared-prefix encode reuse comes with the fleet):
 
 - ``generate``    — the engine's native path, untouched.
 - ``complete``    — encode a stroke-3 ``prefix`` with the bidirectional
@@ -13,9 +13,10 @@ The port of ``sketch_rnn_tpu/serve/endpoints.py`` for the ``generate``,
   continuation through the normal chunked pool.
 - ``reconstruct`` — encode a full sketch -> z = mu -> a plain decode
   conditioned on it.
-
-``interpolate`` comes with a later slice of the port and is refused by
-name.
+- ``interpolate`` — encode TWO sketches, slerp a ``frames``-latent grid
+  between their means (``sample/interpolate.py``, the function the
+  offline path uses) and decode the grid as ``frames`` child rows; the
+  parent books ONE result carrying the frames (:func:`assemble_results`).
 
 **The fixed-geometry encode program.** :class:`EncodeProgram` pads every
 prefix to a small ladder of bucket edges (``hps.serve_prefix_edges``,
@@ -27,12 +28,14 @@ so padding does not reach the outputs.
 
 **Planning contract.** Everything here is a pure function of (prefix,
 params): the planner stamps derived decode state onto requests (``z`` /
-``init_carry`` / ``init_prev``), then the engine's per-request RNG
-takes over.
+``init_carry`` / ``init_prev``) and expands interpolations into child
+rows keyed ``fold_in(parent_key, frame)``, then the engine's
+per-request RNG takes over.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -42,9 +45,21 @@ from sketch_rnn_tpu_torch.config import HParams
 from sketch_rnn_tpu_torch.ops.cuda_decode import (cast_weights,
                                                   check_cell_kind,
                                                   replay_chunk)
+from sketch_rnn_tpu_torch.sample.interpolate import interpolate_latents
+from sketch_rnn_tpu_torch.utils import prng
 from sketch_rnn_tpu_torch.utils.device import resolve_device, tree_to
 
 ENDPOINTS = ("generate", "complete", "reconstruct", "interpolate")
+
+# default latent-grid size of an interpolate request; Request.frames
+# overrides it per request
+DEFAULT_FRAMES = 10
+
+# interpolation FRAME rows get engine uids far above any real request
+# uid: child_uid = CHILD_UID_BASE + parent_uid * CHILD_UID_STRIDE +
+# frame, collision-free for parent uids < 2**28 at frames < 4096
+CHILD_UID_BASE = 1 << 40
+CHILD_UID_STRIDE = 4096
 
 
 def default_prefix_edges(max_seq_len: int) -> Tuple[int, ...]:
@@ -98,11 +113,6 @@ def validate_request(req, hps: HParams) -> None:
     if ep not in ENDPOINTS:
         raise ValueError(f"unknown endpoint {ep!r}; this server "
                          f"speaks {ENDPOINTS}")
-    if ep == "interpolate":
-        raise NotImplementedError(
-            "the interpolate endpoint comes with a later slice of the "
-            "PyTorch port; this one serves generate, complete and "
-            "reconstruct")
     if ep == "generate":
         if req.prefix is not None:
             raise ValueError(
@@ -114,7 +124,30 @@ def validate_request(req, hps: HParams) -> None:
             f"endpoint {ep!r} needs the bidirectional encoder but "
             f"this checkpoint is unconditional (hps.conditional="
             f"false)")
-    _check_prefix(req.prefix, prefix_edges(hps), ep)
+    edges = prefix_edges(hps)
+    if ep == "interpolate":
+        pair = req.prefix
+        if pair is None or isinstance(pair, np.ndarray) or \
+                len(pair) != 2:
+            raise ValueError(
+                "interpolate requests carry prefix=(sketch_a, "
+                "sketch_b) — exactly two stroke-3 arrays")
+        frames = int(req.frames) or DEFAULT_FRAMES
+        if frames < 2:
+            raise ValueError(f"interpolate needs frames >= 2, got "
+                             f"{frames}")
+        for side, p in zip("ab", pair):
+            _check_prefix(p, edges, f"interpolate prefix {side}")
+    else:
+        _check_prefix(req.prefix, edges, ep)
+
+
+def pool_rows_of(req) -> int:
+    """Decode-pool rows one request occupies: an interpolation decodes
+    ``frames`` child rows, everything else exactly one."""
+    if (req.endpoint or "generate") == "interpolate":
+        return int(req.frames) or DEFAULT_FRAMES
+    return 1
 
 
 # -- the fixed-geometry encode + prefix-replay program ------------------------
@@ -274,41 +307,143 @@ class EncodeProgram:
 # -- planning & assembly ------------------------------------------------------
 
 
-def plan_batch(engine, requests: Sequence[Any]) -> List[Any]:
-    """Run the encode phase for one burst; returns the decode-pool
-    request list.
+@dataclasses.dataclass
+class BatchPlan:
+    """One burst's endpoint plan: the decode-pool request list
+    (originals stamped with derived state, interpolations replaced by
+    their frame children) plus the parent assembly map."""
 
-    Pure-generate bursts pass through. Encoder-endpoint requests are
-    stamped IN PLACE with their derived decode state — deterministic in
-    (prefix, params). With ``interpolate`` not ported yet every request
-    decodes as exactly one engine row, so the engine's results are the
-    request-level results (the JAX package's ``assemble_results`` is the
-    identity here).
+    engine_requests: List[Any]
+    # parent uid -> its frames' uids, in frame order
+    parents: Dict[int, List[int]]
+
+
+def child_uid(parent_uid: int, frame: int) -> int:
+    return CHILD_UID_BASE + int(parent_uid) * CHILD_UID_STRIDE \
+        + int(frame)
+
+
+def _child_key(key, frame: int) -> np.ndarray:
+    """``fold_in(key, frame)`` as two uint32 words."""
+    words = torch.from_numpy(prng.key_words(key).astype(np.int64))
+    return prng.fold_in(words, frame).numpy().astype(np.uint32)
+
+
+def plan_batch(engine, requests: Sequence[Any]) -> BatchPlan:
+    """Run the encode phase for one burst and build its decode plan.
+
+    Pure-generate bursts pass through as an identity plan.
+    Encoder-endpoint requests are stamped IN PLACE with their derived
+    decode state, deterministic in (prefix, params); both sides of every
+    interpolation are encoded in the same one encode call. Each
+    interpolation expands into ``frames`` child rows keyed
+    ``fold_in(parent_key, frame)`` whose z are the slerp grid between the
+    two means; the parent books one result at :func:`assemble_results`.
     """
     needs = [r for r in requests
-             if (r.endpoint or "generate") != "generate"]
+             if (r.endpoint or "generate") != "generate"
+             and r.parent_uid is None]
+    if not needs:
+        return BatchPlan(list(requests), {})
     for r in needs:
         validate_request(r, engine.hps)
-    if needs:
-        labels = ([r.label for r in needs] if engine.hps.num_classes > 0
-                  else None)
-        mu, carry, prev = engine.encoder.encode(
-            [np.asarray(r.prefix, np.float32) for r in needs], labels)
-        for k, r in enumerate(needs):
+        if r.uid is None:
+            raise ValueError(
+                "endpoint requests need explicit uids before planning "
+                "(serve_requests assigns them)")
+    jobs: List[Tuple[Any, int, np.ndarray]] = []  # (req, side, prefix)
+    for r in needs:
+        if r.endpoint == "interpolate":
+            jobs.append((r, 0, np.asarray(r.prefix[0], np.float32)))
+            jobs.append((r, 1, np.asarray(r.prefix[1], np.float32)))
+        else:
+            jobs.append((r, 0, np.asarray(r.prefix, np.float32)))
+    labels = ([j[0].label for j in jobs] if engine.hps.num_classes > 0
+              else None)
+    mu, carry, prev = engine.encoder.encode([j[2] for j in jobs], labels)
+    enc_of = {(id(j[0]), j[1]): k for k, j in enumerate(jobs)}
+
+    engine_requests: List[Any] = []
+    parents: Dict[int, List[int]] = {}
+    for r in requests:
+        ep = r.endpoint or "generate"
+        if ep == "generate" or r.parent_uid is not None:
+            engine_requests.append(r)
+            continue
+        k = enc_of[(id(r), 0)]
+        if ep == "reconstruct":
             r.z = mu[k]
-            if r.endpoint == "complete":
-                r.init_carry = carry[k]
-                r.init_prev = prev[k]
-    return list(requests)
+            engine_requests.append(r)
+        elif ep == "complete":
+            r.z = mu[k]
+            r.init_carry = carry[k]
+            r.init_prev = prev[k]
+            engine_requests.append(r)
+        else:  # interpolate
+            frames = int(r.frames) or DEFAULT_FRAMES
+            grid = interpolate_latents(
+                torch.from_numpy(mu[k]),
+                torch.from_numpy(mu[enc_of[(id(r), 1)]]), n=frames).numpy()
+            kids = [dataclasses.replace(
+                r, uid=child_uid(r.uid, f), key=_child_key(r.key, f),
+                z=grid[f], prefix=None, frames=0, parent_uid=r.uid)
+                for f in range(frames)]
+            engine_requests += kids
+            parents[r.uid] = [c.uid for c in kids]
+    return BatchPlan(engine_requests, parents)
+
+
+def assemble_results(plan: BatchPlan, engine_results: Sequence[Any]
+                     ) -> List[Any]:
+    """Fold one burst's engine results back to request-level results.
+
+    Non-interpolate results pass through; each interpolate parent books
+    ONE result whose ``frames`` hold the per-frame strokes (``strokes5``
+    is their concatenation), whose latency spans arrival to the last
+    frame, and whose ``attributed_steps`` is the exact integer sum of its
+    frames'."""
+    from sketch_rnn_tpu_torch.serve.engine import Result
+
+    if not plan.parents:
+        return list(engine_results)
+    child_parent = {c: puid for puid, kids in plan.parents.items()
+                    for c in kids}
+    by_uid = {r.uid: r for r in engine_results}
+    out: List[Any] = []
+    done_parents = set()
+    for r in engine_results:
+        puid = child_parent.get(r.uid)
+        if puid is None:
+            out.append(r)
+            continue
+        if puid in done_parents:
+            continue
+        kids = [by_uid.get(c) for c in plan.parents[puid]]
+        if any(k is None for k in kids):
+            continue  # a later result completes the grid
+        done_parents.add(puid)
+        frames = [k.strokes5 for k in kids]
+        queue_wait = min(k.queue_wait_s for k in kids)
+        latency = max(k.latency_s for k in kids)
+        out.append(Result(
+            uid=puid, strokes5=np.concatenate(frames),
+            length=sum(k.length for k in kids),
+            steps=sum(k.steps for k in kids), queue_wait_s=queue_wait,
+            decode_s=latency - queue_wait, latency_s=latency,
+            attributed_steps=sum(k.attributed_steps for k in kids),
+            endpoint="interpolate", frames=frames))
+    return out
 
 
 def serve_requests(model, hps: HParams, params, requests: List[Any],
                    slots: int = 0, chunk: int = 0,
                    max_len: Optional[int] = None, greedy: bool = False,
                    engine=None, device=None) -> Dict[str, Any]:
-    """One-call multi-task API: plan the endpoint batch and serve it
-    through a (given or fresh) engine. Runs on the card unless
-    ``device="cpu"``."""
+    """One-call multi-task API: plan the endpoint batch, serve it through
+    a (given or fresh) engine, assemble request-level results. Runs on
+    the card unless ``device="cpu"``. ``cli sample --interpolate`` and
+    ``--reconstruct`` ride this path, so their strokes are the
+    endpoints' on the same checkpoint, key and serving geometry."""
     from sketch_rnn_tpu_torch.serve.engine import ServeEngine
 
     eng = engine or ServeEngine(model, hps, params, slots=slots,
@@ -318,6 +453,7 @@ def serve_requests(model, hps: HParams, params, requests: List[Any],
         if req.uid is None:
             req.uid = i
         validate_request(req, hps)
-    out = eng.run(plan_batch(eng, requests))
-    return {"results": out["results"], "metrics": out["metrics"],
-            "engine": eng}
+    plan = plan_batch(eng, requests)
+    out = eng.run(plan.engine_requests)
+    return {"results": assemble_results(plan, out["results"]),
+            "metrics": out["metrics"], "engine": eng}

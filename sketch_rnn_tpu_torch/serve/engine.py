@@ -69,7 +69,9 @@ from sketch_rnn_tpu_torch.ops.cuda_decode import (cast_weights,
                                                   sample_mixture_rows,
                                                   weight_dtype)
 from sketch_rnn_tpu_torch.sample.sampler import END_TOKEN, START_TOKEN
-from sketch_rnn_tpu_torch.utils.device import resolve_device, tree_to
+from sketch_rnn_tpu_torch.utils.device import (Staged, resolve_device,
+                                               to_device, tree_to)
+from sketch_rnn_tpu_torch.utils.prng import key_words
 from sketch_rnn_tpu_torch.utils.telemetry import attribute_chunk_steps
 
 
@@ -83,11 +85,14 @@ class Request:
     emitted strokes (default: the engine's max_len).
 
     ``endpoint`` selects the workload: ``generate``, ``complete``
-    (continue a stroke-3 ``prefix``) or ``reconstruct`` (encode
-    ``prefix`` to z and decode). Encoder endpoints are planned by
-    ``serve/endpoints.py`` before the engine sees them: the planner
-    stamps ``z`` and, for ``complete``, the replayed ``init_carry``
-    (flat) and ``init_prev`` (the last prefix row).
+    (continue a stroke-3 ``prefix``), ``reconstruct`` (encode ``prefix``
+    to z and decode) or ``interpolate`` (``prefix`` is a PAIR of
+    sketches; the slerp grid of ``frames`` latents decodes as a batch of
+    child rows). Encoder endpoints are planned by ``serve/endpoints.py``
+    before the engine sees them: the planner stamps ``z`` and, for
+    ``complete``, the replayed ``init_carry`` (flat) and ``init_prev``
+    (the last prefix row). ``parent_uid`` marks an interpolation FRAME
+    row, a child of the named parent request.
     """
 
     key: Any
@@ -98,6 +103,8 @@ class Request:
     uid: Optional[int] = None
     endpoint: str = "generate"
     prefix: Optional[Any] = None
+    frames: int = 0
+    parent_uid: Optional[int] = None
     init_carry: Optional[np.ndarray] = None   # [C] flat replayed carry
     init_prev: Optional[np.ndarray] = None    # [5] last prefix row
 
@@ -117,17 +124,9 @@ class Result:
     # in it, summed over the request's chunks (attribute_chunk_steps)
     attributed_steps: int = 0
     endpoint: str = "generate"
-
-
-def key_words(key) -> np.ndarray:
-    """A request key as its two uint32 words."""
-    if isinstance(key, torch.Tensor):
-        key = key.detach().cpu().numpy()
-    words = np.asarray(key)
-    if words.shape != (2,):
-        raise ValueError(f"a request key is two uint32 words, got shape "
-                         f"{words.shape}")
-    return words.astype(np.uint32)
+    # an interpolate result's per-frame strokes (strokes5 is their
+    # concatenation)
+    frames: Optional[List[np.ndarray]] = None
 
 
 def make_chunk_step(model, hps: HParams, chunk: int, params,
@@ -226,28 +225,6 @@ def make_chunk_step(model, hps: HParams, chunk: int, params,
     return chunk_fn
 
 
-class _Staged:
-    """Chunk outputs on their way to the host: on CUDA, non-blocking
-    copies into pinned memory behind an event; on the CPU, the values."""
-
-    def __init__(self, tensors):
-        if tensors[0].device.type == "cuda":
-            self.host = [torch.empty(t.shape, dtype=t.dtype,
-                                     pin_memory=True) for t in tensors]
-            for h, t in zip(self.host, tensors):
-                h.copy_(t, non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record()
-        else:
-            self.host = [t.clone() for t in tensors]
-            self.event = None
-
-    def fetch(self):
-        if self.event is not None:
-            self.event.synchronize()
-        return [h.numpy() for h in self.host]
-
-
 class ServeEngine:
     """Continuous-batching generation over ``slots`` decoder slots.
 
@@ -312,10 +289,11 @@ class ServeEngine:
         hps = self.hps
         n = len(requests)
         for i, req in enumerate(requests):
-            if req.endpoint == "interpolate":
-                raise NotImplementedError(
-                    f"request {i}: the interpolate endpoint comes with a "
-                    f"later slice of the PyTorch port")
+            if req.endpoint == "interpolate" and req.parent_uid is None:
+                raise ValueError(
+                    f"request {i}: interpolate requests must be "
+                    f"expanded into frame rows by serve/endpoints."
+                    f"plan_batch before engine.run")
             if (req.endpoint == "complete" and req.init_carry is None) \
                     or (req.endpoint == "reconstruct" and req.z is None):
                 raise ValueError(
@@ -367,11 +345,9 @@ class ServeEngine:
                                init_carry, init_prev, init_mask))
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        """A small host array to the device without blocking the host."""
-        t = torch.from_numpy(a.copy())
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
+        """A small host array to the device without blocking the host (a
+        copy: the scheduler goes on writing ``a``)."""
+        return to_device(torch.from_numpy(a.copy()), self.device)
 
     # -- the serving loop --------------------------------------------------
 
@@ -434,7 +410,7 @@ class ServeEngine:
             carry, prev, t_dev, done_dev, strokes_dev = self._chunk_fn(
                 carry, prev, t_dev, done_dev, self._to_device(reset),
                 self._to_device(slot_idx), pool)
-            out = _Staged((t_dev, done_dev, strokes_dev))
+            out = Staged((t_dev, done_dev, strokes_dev))
             reset[:] = False
             cidx = n_disp
             n_disp += 1

@@ -53,7 +53,7 @@ from sketch_rnn_tpu_torch.train.state import (TrainState, adam_update,
                                               next_opt_state,
                                               optimizer_scalars, tree_items)
 from sketch_rnn_tpu_torch.utils import prng
-from sketch_rnn_tpu_torch.utils.device import resolve_device
+from sketch_rnn_tpu_torch.utils.device import resolve_device, to_device
 
 Metrics = Dict[str, torch.Tensor]
 StepFn = Callable[..., Tuple[TrainState, Metrics]]
@@ -79,14 +79,6 @@ def host_tensors(batch) -> Dict[str, torch.Tensor]:
 def batch_to_device(batch, device) -> Dict[str, torch.Tensor]:
     """A loader batch (numpy or tensors) as tensors on ``device``."""
     return {k: v.to(device) for k, v in host_tensors(batch).items()}
-
-
-def to_device(x: torch.Tensor, dev) -> torch.Tensor:
-    """A host tensor on ``dev``; to the card through pinned memory,
-    without waiting for the card."""
-    if dev.type == "cuda" and x.device.type == "cpu":
-        return x.pin_memory().to(dev, non_blocking=True)
-    return x.to(dev)
 
 
 def _with_leaves(params, leaves):

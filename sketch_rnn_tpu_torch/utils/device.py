@@ -1,4 +1,5 @@
-"""Where the port runs: the CUDA card unless the caller asks for the CPU."""
+"""Where the port runs: the CUDA card unless the caller asks for the CPU;
+and moving tensors between the host and the card without waiting."""
 
 from __future__ import annotations
 
@@ -24,3 +25,34 @@ def tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: tree_to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+def to_device(x: torch.Tensor, dev) -> torch.Tensor:
+    """A host tensor on ``dev``; to the card through pinned memory,
+    without waiting for the card."""
+    if dev.type == "cuda" and x.device.type == "cpu":
+        return x.pin_memory().to(dev, non_blocking=True)
+    return x.to(dev)
+
+
+class Staged:
+    """Tensors on their way to the host: on CUDA, non-blocking copies into
+    pinned memory behind an event; on the CPU, clones. ``fetch()`` waits
+    once and returns them as numpy arrays."""
+
+    def __init__(self, tensors):
+        if tensors[0].device.type == "cuda":
+            self.host = [torch.empty(t.shape, dtype=t.dtype,
+                                     pin_memory=True) for t in tensors]
+            for h, t in zip(self.host, tensors):
+                h.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = [t.clone() for t in tensors]
+            self.event = None
+
+    def fetch(self):
+        if self.event is not None:
+            self.event.synchronize()
+        return [h.numpy() for h in self.host]

@@ -67,6 +67,18 @@ def key(seed: int, device=None) -> torch.Tensor:
                         device=device)
 
 
+def key_words(key) -> np.ndarray:
+    """A key (a tensor, an array or JAX's key data) as its two uint32
+    words."""
+    if isinstance(key, torch.Tensor):
+        key = key.detach().cpu().numpy()
+    words = np.asarray(key)
+    if words.shape != (2,):
+        raise ValueError(f"a key is two uint32 words, got shape "
+                         f"{words.shape}")
+    return words.astype(np.uint32)
+
+
 def _as_words(data, like: torch.Tensor) -> torch.Tensor:
     d = torch.as_tensor(data, device=like.device)
     return d.to(torch.int64) & _MASK
@@ -179,3 +191,95 @@ def normal(k: torch.Tensor, shape: Union[int, Sequence[int]]
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
     u = uniform(k, shape, lo, 1.0)
     return float(np.float32(np.sqrt(2.0))) * erfinv(u)
+
+
+# XLA's float32 log on the CPU (Cephes logf): the mantissa shifted to
+# [sqrt(1/2) - 1, sqrt(2) - 1), a degree-8 polynomial in three fused
+# multiply-add chains, and the exponent added back in two parts
+_LOG_P = tuple(float(np.float32(c)) for c in (
+    7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+    1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+    3.3333331174e-1))
+_LOG_Q1 = float(np.float32(-2.12194440e-4))
+_LOG_Q2 = 0.693359375
+_SQRTHF = float(np.float32(0.707106781186547524))
+_MIN_NORMAL = float(np.finfo(np.float32).tiny)
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as a fused multiply-add: the
+    product is exact in float64, the sum is rounded to odd there, so its
+    rounding to float32 is the correctly rounded one."""
+    p = a.double() * b
+    c = c.double() if isinstance(c, torch.Tensor) else c
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, math.inf, -math.inf)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
+def xla_log(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``log`` as XLA's CPU backend computes it, bit for bit
+    (``tests/test_torch_prng.py``), not torch's, which rounds apart from
+    it in about one value in four. Subnormal inputs count as zero."""
+    xm = torch.maximum(x, _f32(_MIN_NORMAL, x.device))
+    bits = xm.view(torch.int32)
+    e = ((bits >> 23) - 0x7F).float() + 1.0
+    m = ((bits & 0x007FFFFF) | 0x3F000000).view(torch.float32)
+    small = m < _SQRTHF
+    tmp = torch.where(small, m, _f32(0.0, x.device))
+    m = m - 1.0
+    e = e - small.float()
+    m = m + tmp
+    x2 = m * m
+    x3 = x2 * m
+    p = _LOG_P
+    y = _fma(m, p[0], p[1])
+    y1 = _fma(m, p[3], p[4])
+    y2 = _fma(m, p[6], p[7])
+    y = _fma(y, m, p[2])
+    y1 = _fma(y1, m, p[5])
+    y2 = _fma(y2, m, p[8])
+    y = _fma(y, x3, y1)
+    y = _fma(y, x3, y2)
+    y = _fma(y, x3, e * _LOG_Q1)
+    m = m - x2 * 0.5
+    m = m + y
+    out = m + e * _LOG_Q2
+    out = torch.where(x < _MIN_NORMAL, _f32(-math.inf, x.device), out)
+    out = torch.where(x == math.inf, x, out)
+    return torch.where((x < 0) | torch.isnan(x), _f32(math.nan, x.device),
+                       out)
+
+
+def gumbel(k: torch.Tensor, shape: Union[int, Sequence[int]]
+           ) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape, float32)`` in its default mode
+    ("low"): ``-log(-log(u))`` with ``u`` uniform in ``[tiny, 1)``, shape
+    ``[..., *shape]``. The uniform is bitwise JAX's, and so is the log
+    (:func:`xla_log`)."""
+    u = uniform(k, shape, _MIN_NORMAL, 1.0)
+    return -xla_log(-xla_log(u))
+
+
+def categorical(k: torch.Tensor, logits: torch.Tensor, axis: int = -1
+                ) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis)`` (with replacement,
+    the Gumbel-max draw): ``argmax(gumbel(key, logits.shape) + logits,
+    axis)``, int64. A key with leading dimensions ``L`` (``[*L, 2]``)
+    takes logits ``[*L, *shape]`` and draws each key's ``shape`` as that
+    key alone would. Ties go to the first index, as in JAX."""
+    lead = k.dim() - 1
+    if tuple(logits.shape[:lead]) != tuple(k.shape[:-1]):
+        raise ValueError(f"logits {tuple(logits.shape)} do not lead with "
+                         f"the keys' dimensions {tuple(k.shape[:-1])}")
+    if axis >= 0:
+        axis -= logits.dim()
+    if not -logits.dim() + lead <= axis < 0:
+        raise ValueError(f"axis {axis} is not a dimension of the per-key "
+                         f"logits {tuple(logits.shape[lead:])}")
+    g = gumbel(k, tuple(logits.shape[lead:]))
+    return torch.argmax(g + logits, dim=axis)

@@ -6,7 +6,9 @@ so one request key drives the same per-step uniforms in both packages
 (the serving engine's determinism contract, ``u = uniform(fold_in(
 request_key, t), (4,))``). The layout checked is the partitionable one
 (``jax_threefry_partitionable=True``, the default of the JAX this repo
-runs); the first test pins that assumption.
+runs); the first test pins that assumption. ``gumbel`` and
+``categorical`` are bitwise too: their log is XLA's CPU one, ported
+(``prng.xla_log``).
 """
 
 import jax
@@ -108,3 +110,62 @@ def test_normal_matches_jax():
         got = prng.normal(prng.key(seed), (100, 128))
         assert got.dtype == torch.float32
         np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+
+
+def test_xla_log_bitwise():
+    """``prng.xla_log`` is bitwise ``jnp.log`` on the CPU over 300000
+    positive floats spread over every exponent (and the uniform range the
+    Gumbel draws feed it); torch's own log rounds apart from XLA's on
+    about one uniform in seven. Zero, subnormals, negatives, inf and NaN map
+    as XLA maps them."""
+    rng = np.random.default_rng(0)
+    exps = rng.integers(1, 255, 300000).astype(np.uint32)
+    x = ((exps << 23) | rng.integers(0, 1 << 23, 300000).astype(np.uint32)
+         ).view(np.float32)
+    u = np.asarray(prng.uniform(prng.key(0), (20000,)))
+    x = np.concatenate([x, u])
+    want = np.asarray(jnp.log(x))
+    got = prng.xla_log(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert (torch.log(torch.from_numpy(u)).numpy()
+            != want[-len(u):]).mean() > 0.1
+    special = np.asarray([0.0, 1e-40, -1.0, np.inf, np.nan, 1.0],
+                         np.float32)
+    np.testing.assert_array_equal(
+        prng.xla_log(torch.from_numpy(special)).numpy(),
+        np.asarray(jnp.log(special)))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_gumbel_bitwise(seed):
+    want = np.asarray(jax.random.gumbel(jax.random.key(seed), (64, 20)))
+    got = prng.gumbel(prng.key(seed), (64, 20)).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_categorical_matches_jax(seed):
+    """``categorical(key, logits)`` at the sampler's shapes: the
+    component draw over M=20 and the pen draw over 3, for B=64 rows of
+    logits made with numpy (seed ``seed``) and divided by temperatures
+    0.1, 0.5 and 1; also one key per leading row (the sampler's chunk of
+    step keys). Indices equal on every case; no draw is a near-tie once
+    the Gumbel noise is bitwise."""
+    rng = np.random.default_rng(seed)
+    for m in (20, 3):
+        logits = rng.normal(size=(64, m)).astype(np.float32)
+        for tau in (0.1, 0.5, 1.0):
+            scaled = logits / np.float32(tau)
+            want = np.asarray(jax.random.categorical(
+                jax.random.key(seed), scaled))
+            got = prng.categorical(prng.key(seed), torch.from_numpy(scaled))
+            assert got.dtype == torch.int64
+            np.testing.assert_array_equal(got.numpy(), want)
+    keys = jax.random.split(jax.random.key(seed), 4)
+    logits = rng.normal(size=(4, 8, 20)).astype(np.float32)
+    want = jax.vmap(jax.random.categorical)(keys, logits)
+    got = prng.categorical(torch.from_numpy(_words(keys)),
+                           torch.from_numpy(logits))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    with pytest.raises(ValueError, match="lead"):
+        prng.categorical(prng.split(prng.key(0), 4), torch.zeros((3, 5)))

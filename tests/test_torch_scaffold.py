@@ -62,6 +62,34 @@ def test_importing_every_module_leaves_jax_out():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+def test_cli_help_runs_without_jax():
+    """``python -m sketch_rnn_tpu_torch.cli --help`` exits 0, and the CLI
+    and the ``sample`` package leave JAX out of ``sys.modules``."""
+    code = (
+        "import runpy, sys\n"
+        "import sketch_rnn_tpu_torch.sample, sketch_rnn_tpu_torch.cli\n"
+        "sys.argv = ['sketch_rnn_tpu_torch.cli', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('sketch_rnn_tpu_torch.cli', "
+        "run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    rc = e.code\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'sketch_rnn_tpu'))\n"
+        "print('RC', rc, bad)\n"
+        "sys.exit(1 if bad or rc else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    for cmd in ("train", "eval", "sample", "distill", "serve-bench"):
+        assert cmd in out.stdout
+    out = subprocess.run([sys.executable, "-m", "sketch_rnn_tpu_torch.cli",
+                          "--help"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and "usage:" in out.stdout
+
+
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")]
     + ["chip_smoke.py"]))

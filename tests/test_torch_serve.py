@@ -15,6 +15,8 @@ margins along the port's own draws, so a near-tie (rounding) is told
 apart from a bug (a flip far from any tie).
 """
 
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -29,7 +31,10 @@ from sketch_rnn_tpu_torch.config import HParams
 from sketch_rnn_tpu_torch.convert import params_from_jax
 from sketch_rnn_tpu_torch.models.vae import SketchRNN
 from sketch_rnn_tpu_torch.ops import cuda_decode
-from sketch_rnn_tpu_torch.serve.endpoints import serve_requests
+from sketch_rnn_tpu_torch.serve.endpoints import (DEFAULT_FRAMES,
+                                                   pool_rows_of,
+                                                   serve_requests,
+                                                   validate_request)
 from sketch_rnn_tpu_torch.serve.engine import Request, ServeEngine
 
 TINY = dict(batch_size=4, max_seq_len=32, enc_rnn_size=12,
@@ -173,9 +178,77 @@ def test_serve_requests_endpoint_mix_matches_jax():
                                           b.init_prev)
 
 
+def test_interpolate_endpoint_matches_jax():
+    """The ``interpolate`` endpoint through both packages'
+    ``serve_requests``, beside generate and complete requests: the same
+    request-level results (one per parent), each frame's strokes (pens
+    and steps exact, offsets within 1e-5), and the cost identity: a
+    parent's ``attributed_steps`` is the integer sum of its frames', and
+    attributed + idle steps equal the dispatched steps."""
+    jm, jp, m, p = _setup("layer_norm")
+    keys, z, temps, caps = _fields(4, seed=13)
+    rng = np.random.default_rng(13)
+    specs = [
+        dict(endpoint="interpolate", prefix=(_prefix(rng, 9),
+                                             _prefix(rng, 14)),
+             frames=5, temperature=float(temps[0]), max_len=int(caps[0])),
+        dict(endpoint="generate", z=z[1], temperature=float(temps[1]),
+             max_len=int(caps[1])),
+        dict(endpoint="interpolate", prefix=(_prefix(rng, 3),
+                                             _prefix(rng, 20)),
+             temperature=float(temps[2]), max_len=int(caps[2])),
+        dict(endpoint="complete", prefix=_prefix(rng, 6),
+             temperature=float(temps[3]), max_len=int(caps[3]))]
+    jreqs = [JRequest(key=keys[i], **specs[i]) for i in range(4)]
+    treqs = [Request(key=np.asarray(jax.random.key_data(keys[i])),
+                     **specs[i]) for i in range(4)]
+    jout = j_serve_requests(jm, jm.hps, jp, jreqs)
+    tout = serve_requests(m, m.hps, p, treqs, device="cpu")
+    _compare_results(jout["results"], tout["results"])
+    for k in SAME_METRICS:
+        assert jout["metrics"][k] == tout["metrics"][k], k
+    tby = {r.uid: r for r in tout["results"]}
+    jby = {r.uid: r for r in jout["results"]}
+    for uid, frames in ((0, 5), (2, DEFAULT_FRAMES)):
+        a, b = jby[uid], tby[uid]
+        assert b.endpoint == "interpolate" and len(b.frames) == frames
+        for fa, fb in zip(a.frames, b.frames):
+            assert fa.shape == fb.shape
+            np.testing.assert_array_equal(fa[:, 2:], fb[:, 2:])
+            np.testing.assert_allclose(fa, fb, rtol=0, atol=TOL)
+        np.testing.assert_array_equal(b.strokes5, np.concatenate(b.frames))
+        assert b.steps == sum(len(f) for f in b.frames)
+    # 2 + 2 * 5 + 10 engine rows; one result per request
+    assert tout["metrics"]["completed"] == 2 + 5 + DEFAULT_FRAMES
+    assert sorted(tby) == [0, 1, 2, 3]
+    m_t = tout["metrics"]
+    assert sum(r.attributed_steps for r in tby.values()) \
+        == m_t["steps_attributed"]
+    assert m_t["steps_attributed"] + m_t["steps_idle"] \
+        == m_t["device_steps"]
+
+
 def test_interpolate_is_refused_by_name():
+    """Malformed interpolations are refused, each with a message naming
+    what is wrong: not exactly two prefixes, fewer than two frames, an
+    unconditional checkpoint, and a bare ``engine.run`` of an unplanned
+    request."""
     _, _, m, p = _setup("lstm")
+    pair = (np.zeros((3, 3)), np.zeros((3, 3)))
+    bad = [(dict(prefix=pair[:1]), "exactly two"),
+           (dict(prefix=np.zeros((2, 3, 3))), "exactly two"),
+           (dict(prefix=pair, frames=1), "frames >= 2")]
+    for kw, why in bad:
+        req = Request(key=np.zeros(2, np.uint32), endpoint="interpolate",
+                      **kw)
+        with pytest.raises(ValueError, match=why):
+            serve_requests(m, m.hps, p, [req], device="cpu")
     req = Request(key=np.zeros(2, np.uint32), endpoint="interpolate",
-                  prefix=(np.zeros((3, 3)), np.zeros((3, 3))))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        serve_requests(m, m.hps, p, [req], device="cpu")
+                  prefix=pair)
+    assert pool_rows_of(req) == DEFAULT_FRAMES
+    assert pool_rows_of(dataclasses.replace(req, frames=4)) == 4
+    with pytest.raises(ValueError, match="plan_batch"):
+        ServeEngine(m, m.hps, p, device="cpu").run([req])
+    uncond = HParams(**dict(TINY, conditional=False, dec_model="lstm"))
+    with pytest.raises(ValueError, match="hps.conditional"):
+        validate_request(req, uncond)

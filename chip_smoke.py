@@ -169,7 +169,25 @@ without the final line. With no CUDA device it exits 2 at once.
    steps); the sampler's ms per call at n=16 and n=64 (as trained and
    at full length), its steps and host syncs (also as torch's sync
    debug mode counts them) beside the engine's ``generate``; the
-   interpolate request's latency and the phase's seconds.
+   interpolate request's latency and the phase's seconds. Then
+   serve_bench: ``cli serve-bench`` in this process at the flagship
+   preset's full width (64 slots, K=8), every sketch run to 250 steps
+   (the sentinel below), the serving counters (rows 1, 2 and 4f) zeroed
+   as each arm's warm-up returns and read just after its timed run: the
+   engine path on seeded random weights (float32 parameters,
+   ``--static``, ``--quantize bfloat16`` and ``int8``), the engine path
+   from cli_flow's trained workdir, the fleet (one replica on the card)
+   with two admission classes closed and open-loop at 0.5x and 2x the
+   closed fleet's sketches per second (3 s of arrivals each), and with
+   the four-endpoint mix: each arm's sketches per second, p50/p99, shed
+   fraction, chunks and launches, row 1 launched once a chunk in every
+   arm, rows 2 and 4f in the endpoint arm only; then the serving
+   encoder (64 rows, real and pad prefixes, every prefix edge) through
+   row 4f against the plain path; one engine on the main thread against
+   a worker thread in turns; then 64 mixed requests served by one
+   engine and by the fleet, the fleet's strokes bit for bit the
+   engine's, both walls per chunk and a profiled fleet burst's device
+   busy share.
 10. train_lstm — the ``vae`` preset (lstm decoder) with ``fused_rnn=true``
    at full width and float32: 1 warm-up step, then 5 timed steps with the
    counters zeroed just before and read just after (2 launches per step
@@ -269,8 +287,11 @@ lengths.
 import contextlib
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
@@ -4038,7 +4059,7 @@ def sampler_card_vs_cpu(model, hps, params):
             "tol": SERVE_TOL["float32"]}
 
 
-def cli_flow(card):
+def cli_flow(card, tmp=None):
     """The port's command line end to end, in this process
     (``cli.main``), on the flagship preset at full width with seeded
     weights and the synthetic corpus: ``train --preset quickdraw345_dp
@@ -4054,7 +4075,9 @@ def cli_flow(card):
     request keys and serving geometry. Then the plain sampler's card run
     against its CPU run, its ms per call at n=16 and n=64 (its steps and
     host syncs) beside the engine's ``generate``, and the interpolate
-    request's latency."""
+    request's latency. Its files go under ``tmp`` when given (the caller
+    removes them; the trained workdir is ``tmp/work``), else under a
+    directory of its own that it removes."""
     import argparse
     import os
     import shutil
@@ -4070,7 +4093,9 @@ def cli_flow(card):
     from sketch_rnn_tpu_torch.utils import prng
 
     t_phase = time.perf_counter()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    own = tmp is None
+    if own:
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     try:
         wd = os.path.join(tmp, "work")
         out = lambda name: os.path.join(tmp, name)
@@ -4153,13 +4178,446 @@ def cli_flow(card):
         engine = {f"n{n}": engine_times(model, hps, state.params, n)
                   for n in CLI_SAMPLER_NS}
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        if own:
+            shutil.rmtree(tmp, ignore_errors=True)
     log("cli_flow", card=card, preset="quickdraw345_dp", batch=hps.batch_size,
         max_seq_len=hps.max_seq_len, train_steps=CLI_STEPS,
         eval=ev, seconds=seconds, launches=launches,
         svg_cells_drawn=cells, strokes_out_equal_serve_requests=True,
         sampler_card_vs_cpu=vs_cpu, sampler=sampler,
         engine_generate=engine, interpolate_latency_s=interp_latency_s,
+        phase_seconds=time.perf_counter() - t_phase)
+
+
+SB_N = 256              # requests of each closed serve-bench arm
+SB_OPEN_S = 3.0         # seconds of each open-loop arm's arrival schedule
+SB_CLASSES = ("interactive:p95<=250ms", "batch:p99<=2")
+SB_ROUTES = ("generate=interactive", "complete=interactive",
+             "reconstruct=batch", "interpolate=batch")
+SB_RATES = (0.5, 2.0)   # open-loop arms, times the closed fleet's rate
+SB_PLACEMENT_N = 64     # requests of the placement check
+SB_ENCODE_SPARSE = 5    # real prefixes in the encoder check's padded group
+SB_REPORT = ("n_requests", "slots", "chunk", "completed",
+             "sketches_per_sec", "wall_s", "latency_p50_s",
+             "latency_p99_s", "param_dtype", "quantized_tensors",
+             "quantize_max_err", "decode_kernel")
+
+
+def serve_counts():
+    """The serving path's kernel counters: rows 1, 2 and 4f."""
+    from sketch_rnn_tpu_torch.ops import cuda_decode as cd
+    from sketch_rnn_tpu_torch.ops import cuda_fused as CF
+
+    return {"decode_chunk": cd.decode_chunk_launches,
+            "replay_chunk": cd.replay_chunk_launches,
+            "fused_lstm_seq_fwd": CF.launch_counts()["fused_lstm_seq_fwd"]}
+
+
+def reset_serve_counts():
+    from sketch_rnn_tpu_torch.ops import cuda_decode as cd
+    from sketch_rnn_tpu_torch.ops import cuda_fused as CF
+
+    cd.reset_launch_counts()
+    CF.reset_launch_counts()
+
+
+@contextlib.contextmanager
+def timed_serving():
+    """Inside this block every ``cli serve-bench`` run serves full-length
+    sketches and counts only its timed window: each ``ServeEngine`` gets
+    its params with the pen-suppression sentinel ``out_b[2] = -1e9``
+    (after any ``--quantize`` rounding; an untrained model ends its
+    sketches within a chunk or two), and the engine path's warm-up
+    (``cli._warm_engine``) and ``ServeFleet.warm`` zero the serving
+    counters as they return. Yields the list of the seconds each
+    ``ServeEngine.run`` took since the last warm-up (the fleet's bursts
+    run in its worker threads)."""
+    from sketch_rnn_tpu_torch import cli
+    from sketch_rnn_tpu_torch.serve.engine import ServeEngine
+    from sketch_rnn_tpu_torch.serve.fleet import ServeFleet
+
+    init, run, warm_engine, warm_fleet = (
+        ServeEngine.__init__, ServeEngine.run, cli._warm_engine,
+        ServeFleet.warm)
+    runs = []
+
+    def sentinel_init(self, model, hps, params, *args, **kwargs):
+        params = dict(params, out_b=params["out_b"].clone())
+        params["out_b"][2] = -1e9
+        init(self, model, hps, params, *args, **kwargs)
+
+    def timed_run(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return run(self, *args, **kwargs)
+        finally:
+            runs.append(time.perf_counter() - t0)
+
+    def then_reset(warm):
+        def warm_then_reset(*args, **kwargs):
+            warm(*args, **kwargs)
+            reset_serve_counts()
+            runs.clear()
+        return warm_then_reset
+
+    ServeEngine.__init__, ServeEngine.run = sentinel_init, timed_run
+    cli._warm_engine = then_reset(warm_engine)
+    ServeFleet.warm = then_reset(warm_fleet)
+    try:
+        yield runs
+    finally:
+        ServeEngine.__init__, ServeEngine.run = init, run
+        cli._warm_engine = warm_engine
+        ServeFleet.warm = warm_fleet
+
+
+def serve_bench_arm(name, args, want, runs):
+    """One ``cli serve-bench`` run in this process (inside
+    timed_serving, whose list is ``runs``), the serving counters read
+    just after: the kernels in ``want`` (row names) launched in the
+    timed window, the others not, and the decode kernel exactly once a
+    chunk the report counts; a fleet arm with no failed request, no dead
+    replica and no requeue. Returns the report's figures, its chunks,
+    shed fraction, launches, and the seconds its engine runs took."""
+    reset_serve_counts()
+    runs.clear()
+    text, seconds = run_cli(["serve-bench", *args])
+    launches = serve_counts()
+    ran = {k for k, v in launches.items() if v > 0}
+    rep = json.loads(text.strip().splitlines()[-1])
+    fleet = rep.get("fleet")
+    chunks = (sum(r["chunks"] for r in fleet["per_replica"]) if fleet
+              else rep["chunks"])
+    if ran != set(want) or launches["decode_chunk"] != chunks:
+        raise AssertionError(f"serve-bench {name}: launches {launches} "
+                             f"for {chunks} chunks, expected "
+                             f"{sorted(want)} only")
+    done = rep["completed"] + (fleet["shed"] if fleet else 0)
+    if done != rep["n_requests"] or not rep["sketches_per_sec"] > 0:
+        raise AssertionError(f"serve-bench {name}: {rep}")
+    out = {k: rep[k] for k in SB_REPORT}
+    out.update(launches=launches, chunks=chunks, seconds=seconds,
+               engine_runs=len(runs), engine_run_s=sum(runs),
+               shed_frac=fleet["shed_frac"] if fleet else 0.0)
+    if fleet:
+        if not (fleet["cost"]["exact"] and fleet["failed"] == 0
+                and fleet["replicas_dead"] == 0 and fleet["requeues"] == 0):
+            raise AssertionError(f"serve-bench {name}: {fleet}")
+        out.update(offered_rate=fleet["offered_rate"],
+                   loadgen_max_lag_s=fleet["loadgen_max_lag_s"],
+                   replicas=fleet["replicas"],
+                   bursts=sum(r["bursts"] for r in fleet["per_replica"]),
+                   latency_by_class=fleet["latency_by_class"],
+                   shed_by_class=fleet["shed_by_class"])
+        if "latency_by_endpoint" in rep:
+            out["latency_by_endpoint"] = rep["latency_by_endpoint"]
+    else:
+        out.update(static=rep["static"],
+                   slot_utilization=rep["slot_utilization"])
+    return out
+
+
+def restored_serving(wd):
+    """cli_flow's trained checkpoint as serve-bench restores it: ``(hps,
+    model, params, valid split)``."""
+    import argparse
+
+    from sketch_rnn_tpu_torch import cli
+
+    hps = cli._workdir_hps(wd)
+    model, state, scale, _ = cli._restore(hps, wd, DEV)
+    data_args = argparse.Namespace(synthetic=True, synthetic_grid=255.0,
+                                   skip_bad_records=False)
+    valid = cli._load_data(hps, data_args, scale_factor=scale)[1]
+    return hps, model, state.params, valid
+
+
+def serving_encoder(hps, model, params, valid):
+    """Row 4f at the serving shapes, against the plain path: the
+    endpoints' ``EncodeProgram`` (``serve_slots`` = 64 rows a group, a
+    group filled up with inert one-row prefixes) at every prefix edge,
+    over one full group of real prefixes whose lengths fill the edge's
+    range and one group of SB_ENCODE_SPARSE real prefixes among pad
+    rows, through ``fused_lstm_seq``'s forward (``fused_rnn=true``, the
+    serving path) and through ``model.encode``'s plain cell path
+    (``fused_rnn=false``) on the same inputs: mu, the replayed carry and
+    prev within FUSED_TOL of the compute dtype, relative to each
+    output's largest magnitude; the kernel launched at every edge by the
+    first and never by the second."""
+    import numpy as np
+    import torch
+
+    from sketch_rnn_tpu_torch.ops import cuda_fused as CF
+    from sketch_rnn_tpu_torch.serve.endpoints import EncodeProgram
+
+    rows = hps.serve_slots
+    fused = EncodeProgram(model, hps, params, rows, device=DEV)
+    plain = EncodeProgram(model, hps.replace(fused_rnn=False), params, rows,
+                          device=DEV)
+    dt = hps.compute_dtype
+    stream = np.concatenate(valid.strokes)
+    rng = np.random.default_rng(47)
+    out, lo = {}, 0
+    for edge in fused.edges:
+        n = rows + SB_ENCODE_SPARSE
+        lens = np.linspace(lo + 1, edge, n).round().astype(int)
+        offs = rng.integers(0, len(stream) - edge, n)
+        prefixes = [stream[o:o + L] for o, L in zip(offs, lens)]
+        labels = rng.integers(0, hps.num_classes, n)
+        got, ms, launched = {}, {}, {}
+        for name, prog in (("fused", fused), ("plain", plain)):
+            reset_serve_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got[name] = prog.encode(prefixes, labels)
+            ms[name] = (time.perf_counter() - t0) * 1e3
+            launched[name] = CF.launch_counts()["fused_lstm_seq_fwd"]
+        if not (launched["fused"] > 0 and launched["plain"] == 0):
+            raise AssertionError(f"serving encoder at edge {edge}: row 4f "
+                                 f"launches {launched}")
+        ab, rel, per = rel_errs(
+            ("mu", "carry", "prev"),
+            [torch.from_numpy(a) for a in got["fused"]],
+            [torch.from_numpy(b) for b in got["plain"]])
+        if not rel <= FUSED_TOL[dt]:
+            raise AssertionError(f"serving encoder at edge {edge} [{dt}]: "
+                                 f"rel err {rel} (tol {FUSED_TOL[dt]}), "
+                                 f"per output {per}")
+        out[str(edge)] = {"prefix_lens": [int(lo + 1), int(edge)],
+                          "groups": 2, "max_abs_err": ab, "rel_err": rel,
+                          "errs": per, "ms": ms, "launches": launched}
+        lo = edge
+    return {"rows": rows, "dtype": dt, "tol": FUSED_TOL[dt], "edges": out}
+
+
+SB_THREAD_TURNS = 3     # turns of thread_ab
+
+
+def thread_ab(hps, model, params):
+    """Where the fleet's longer chunk comes from: one ``ServeEngine`` (on
+    the sentinel params, so every sketch runs to 250 steps) serves the
+    same SB_N seeded ``generate`` requests on this thread and on a fresh
+    ``threading.Thread`` (as a fleet worker runs its bursts, without the
+    fleet), in SB_THREAD_TURNS turns of main then thread after a warm-up;
+    returns each arm's ms a chunk per turn. The strokes must be bitwise
+    equal across arms."""
+    import dataclasses
+    import threading
+
+    import numpy as np
+
+    from sketch_rnn_tpu_torch.serve.engine import Request, ServeEngine
+    from sketch_rnn_tpu_torch.utils import prng
+
+    params = dict(params, out_b=params["out_b"].clone())
+    params["out_b"][2] = -1e9
+    engine = ServeEngine(model, hps, params, device=DEV)
+    k0 = prng.key(53)
+    z = prng.normal(prng.fold_in(k0, 1 << 20),
+                    (SB_N, hps.z_size)).numpy().astype(np.float32)
+    reqs = [Request(key=prng.fold_in(k0, i), z=z[i],
+                    label=i % hps.num_classes,
+                    temperature=0.5) for i in range(SB_N)]
+
+    def serve():
+        out = engine.run([dataclasses.replace(r) for r in reqs])
+        return ({r.uid: r.strokes5 for r in out["results"]},
+                out["metrics"]["wall_s"] * 1e3 / out["metrics"]["chunks"])
+
+    def in_thread():
+        box = []
+        t = threading.Thread(target=lambda: box.append(serve()))
+        t.start()
+        t.join()
+        return box[0]
+
+    want, _ = serve()
+    ms = {"main": [], "thread": []}
+    for _ in range(SB_THREAD_TURNS):
+        for arm, fn in (("main", serve), ("thread", in_thread)):
+            got, per_chunk = fn()
+            if not (sorted(got) == sorted(want) and all(
+                    np.array_equal(got[u], want[u]) for u in want)):
+                raise AssertionError(f"thread_ab: the {arm} arm's strokes "
+                                     f"differ")
+            ms[arm].append(per_chunk)
+    return {"requests": SB_N, "ms_per_chunk": ms,
+            "thread_over_main": sum(ms["thread"]) / sum(ms["main"])}
+
+
+def fleet_placement(hps, model, params, valid):
+    """The fleet's strokes bitwise the engine's: 64 mixed requests
+    (generate, complete, reconstruct, interpolate; prefixes from the
+    valid split) served from the restored checkpoint by
+    ``serve_requests`` on one engine and by a one-replica ``ServeFleet``
+    on this card (micro-bursts padded to its pool_cap), the counters
+    zeroed just before the fleet's run and read just after, the fleet
+    healthy after it; then where a closed fleet burst's time goes: its
+    wall per chunk beside the engine's, and the device's busy share
+    under torch.profiler."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sketch_rnn_tpu_torch.serve.endpoints import serve_requests
+    from sketch_rnn_tpu_torch.serve.engine import Request
+    from sketch_rnn_tpu_torch.serve.fleet import ServeFleet
+    from sketch_rnn_tpu_torch.utils import prng
+
+    rng = np.random.default_rng(31)
+    k0 = prng.key(31)
+    reqs = []
+    for i in range(SB_PLACEMENT_N):
+        ep = ("generate", "complete", "reconstruct", "interpolate")[i % 4]
+        j = (i * 7919) % len(valid.strokes)
+        kw = dict(key=prng.fold_in(k0, i), uid=i, endpoint=ep,
+                  temperature=0.5, label=int(valid.labels[j]))
+        if ep == "generate":
+            kw["z"] = rng.normal(size=hps.z_size).astype(np.float32)
+        elif ep == "complete":
+            p = valid.strokes[j]
+            kw["prefix"] = p[:max(1, len(p) // 2)]
+        elif ep == "reconstruct":
+            kw["prefix"] = valid.strokes[j]
+        else:
+            kw.update(prefix=(valid.strokes[j],
+                              valid.strokes[(j + 5) % len(valid.strokes)]),
+                      frames=6)
+        reqs.append(Request(**kw))
+    copy = lambda: [dataclasses.replace(r) for r in reqs]
+
+    def by_engine():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = serve_requests(model, hps, params, copy(), device=DEV)
+        torch.cuda.synchronize()
+        return ({r.uid: r for r in out["results"]},
+                time.perf_counter() - t0, out["metrics"]["chunks"])
+
+    fleet = ServeFleet(model, hps, params, replicas=1,
+                       devices=[torch.device(DEV)])
+    fleet.warm(reqs[0], endpoints=True)
+
+    def by_fleet():
+        fleet.reset()
+        for r in copy():
+            fleet.submit(r)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with fleet:
+            fleet.drain(timeout=300)
+        torch.cuda.synchronize()
+        s = fleet.summary()
+        return ({u: rec["result"] for u, rec in fleet.results.items()},
+                time.perf_counter() - t0, s["per_replica"][0]["chunks"],
+                s["per_replica"][0]["bursts"])
+
+    engine_res, engine_s, engine_chunks = by_engine()
+    reset_serve_counts()
+    fleet_res, fleet_s, fleet_chunks, bursts = by_fleet()
+    launches = serve_counts()
+    health = fleet.health()
+    if not (all(v > 0 for v in launches.values())
+            and launches["decode_chunk"] == fleet_chunks
+            and health["healthy"]):
+        raise AssertionError(f"fleet placement run: launches {launches} "
+                             f"for {fleet_chunks} chunks, health {health}")
+    if not sorted(fleet_res) == sorted(engine_res) == list(range(
+            SB_PLACEMENT_N)):
+        raise AssertionError("fleet and engine completed other requests")
+    for u, a in engine_res.items():
+        b = fleet_res[u]
+        if not (a.steps == b.steps and np.array_equal(a.strokes5,
+                                                      b.strokes5)):
+            raise AssertionError(f"request {u} ({a.endpoint}): the "
+                                 f"fleet's strokes are not the engine's")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, prof_s, _, _ = by_fleet()
+    fleet.close()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    return {"requests": SB_PLACEMENT_N, "bitwise": True,
+            "launches": launches, "bursts": bursts,
+            "engine_ms_per_chunk": engine_s * 1e3 / engine_chunks,
+            "fleet_ms_per_chunk": fleet_s * 1e3 / fleet_chunks,
+            "engine_chunks": engine_chunks, "fleet_chunks": fleet_chunks,
+            "profiled_fleet_wall_ms": prof_s * 1e3,
+            "profiled_device_ms": device_ms,
+            "device_busy_share": device_ms / 1e3 / prof_s}
+
+
+def serve_bench(card, trained_wd):
+    """``cli serve-bench`` at the flagship preset's full width (the
+    LayerNorm-LSTM decoder 512, M=20, Nz=128, 345 classes, bfloat16
+    compute, 64 slots, K=8), every sketch run to max_seq_len (250 steps)
+    by timed_serving's sentinel, the counters of each arm its timed
+    window's: (a) the engine path on seeded random weights, 256
+    requests, continuous at float32 parameters, ``--static``, and
+    ``--quantize bfloat16`` and ``int8``; (b) the engine path from
+    cli_flow's trained workdir; (c) the fleet (one replica on this card)
+    from that workdir with two admission classes, closed (``--rate 0``,
+    256 requests), then open-loop at 0.5x and 2x the closed fleet's
+    sketches per second, each with SB_OPEN_S seconds of arrivals, then
+    closed with the four-endpoint mix (prefixes from the valid split).
+    Every arm's decode kernel (row 1) launched once a chunk; the replay
+    kernel (row 2) and the encoder's forward (row 4f) in the endpoint arm
+    only. Then on the restored model: serving_encoder (row 4f at the
+    serving shapes against the plain path), thread_ab (one engine on this
+    thread against a worker thread) and fleet_placement (the fleet's
+    strokes bitwise the engine's)."""
+    t_phase = time.perf_counter()
+    rand_wd = tempfile.mkdtemp(prefix="chip_smoke_sb_")
+    common = ["--preset", "quickdraw345_dp", "--random_init",
+              "-n", str(SB_N), f"--workdir={rand_wd}"]
+    decode = ("decode_chunk",)
+    arms = {}
+    with timed_serving() as runs:
+        try:
+            arms["engine_f32"] = serve_bench_arm("engine_f32", common,
+                                                 decode, runs)
+            arms["engine_static"] = serve_bench_arm(
+                "engine_static", [*common, "--static"], decode, runs)
+            for q in ("bfloat16", "int8"):
+                arms[f"engine_{q}"] = serve_bench_arm(
+                    f"engine_{q}", [*common, "--quantize", q], decode,
+                    runs)
+        finally:
+            os.rmdir(rand_wd)
+        if not (arms["engine_int8"]["quantized_tensors"] > 0
+                and arms["engine_int8"]["param_dtype"] == "int8"):
+            raise AssertionError(f"int8 arm: {arms['engine_int8']}")
+        at = [f"--workdir={trained_wd}"]
+        arms["restored"] = serve_bench_arm(
+            "restored", [*at, "-n", str(SB_N)], decode, runs)
+        classes = [a for c in SB_CLASSES for a in ("--classes", c)]
+        fleet = [*at, "--fleet", *classes]
+        arms["fleet_closed"] = serve_bench_arm(
+            "fleet_closed", [*fleet, "-n", str(SB_N), "--rate", "0"],
+            decode, runs)
+        closed_rate = arms["fleet_closed"]["sketches_per_sec"]
+        for x in SB_RATES:
+            n = max(SB_N, math.ceil(x * closed_rate * SB_OPEN_S))
+            arms[f"fleet_open_{x}x"] = serve_bench_arm(
+                f"fleet_open_{x}x", [*fleet, "-n", str(n), "--rate",
+                                     str(x * closed_rate)], decode, runs)
+        routes = [a for r in SB_ROUTES for a in ("--endpoints", r)]
+        arms["fleet_endpoints"] = serve_bench_arm(
+            "fleet_endpoints", [*fleet, "-n", str(SB_N), "--rate", "0",
+                                "--synthetic", *routes],
+            ("decode_chunk", "replay_chunk", "fused_lstm_seq_fwd"), runs)
+    restored = restored_serving(trained_wd)
+    encoder = serving_encoder(*restored)
+    threads = thread_ab(*restored[:3])
+    placement = fleet_placement(*restored)
+    log("serve_bench", card=card, preset="quickdraw345_dp",
+        full_length=True, classes=list(SB_CLASSES),
+        closed_fleet_sketches_per_sec=closed_rate, arms=arms,
+        serving_encoder=encoder, thread_ab=threads, placement=placement,
         phase_seconds=time.perf_counter() - t_phase)
 
 
@@ -4258,7 +4716,13 @@ def main():
     train_feed(card, npz_train)
     del npz_train
     torch.cuda.empty_cache()
-    cli_flow(card)
+    cli_tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        cli_flow(card, cli_tmp)
+        torch.cuda.empty_cache()
+        serve_bench(card, os.path.join(cli_tmp, "work"))
+    finally:
+        shutil.rmtree(cli_tmp, ignore_errors=True)
     torch.cuda.empty_cache()
     lstm_launches, (hps, model, loader, state) = train_main_path(
         card, vae_hps(), "train_lstm",

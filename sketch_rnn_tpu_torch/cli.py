@@ -1,4 +1,5 @@
-"""Command-line interface of the PyTorch port: train / eval / sample.
+"""Command-line interface of the PyTorch port: train / eval / sample /
+serve-bench.
 
 The counterpart of ``sketch_rnn_tpu/cli.py``, with its flag names, its
 presets and its usage checks (exit 2 before any checkpoint is read):
@@ -6,6 +7,7 @@ presets and its usage checks (exit 2 before any checkpoint is read):
     python -m sketch_rnn_tpu_torch.cli train  --data_dir=D --workdir=W [--hparams=...]
     python -m sketch_rnn_tpu_torch.cli eval   --data_dir=D --workdir=W [--split=test]
     python -m sketch_rnn_tpu_torch.cli sample --workdir=W --output=out.svg [-n 10]
+    python -m sketch_rnn_tpu_torch.cli serve-bench --workdir=W [-n 64] [--fleet [N] --rate R]
 
 ``--synthetic`` substitutes the deterministic synthetic corpus for the
 QuickDraw ``.npz`` files. ``--device`` (``cuda``, the default, or
@@ -14,9 +16,18 @@ the default exits 2, and ``--device cpu`` runs the plain PyTorch versions
 of the kernels. A workdir is checkpoint format 1, so either package's
 ``train`` writes what the other's ``eval`` and ``sample`` read.
 
+``serve-bench`` serves a burst through the engine (``--static``: static
+batching) or through the fleet (``--fleet``: open-loop Poisson arrivals
+at ``--rate``, admission ``--classes``, an ``--endpoints`` mix) and
+prints one JSON report, the JAX CLI's ``serve_bench_cli`` keys less
+those of unported features (``run_id``, ``metrics_port``,
+``metrics_prom``; the fleet block's cache, elastic, tenant and tail
+fields).
+
 The flags and subcommands of features the port does not have yet are
 accepted by the parser and refused with exit 2, naming the ROADMAP item
-that brings them (:data:`LATER_FLAGS`, ``distill``, ``serve-bench``).
+that brings them (:data:`LATER_FLAGS`, :data:`SERVE_BENCH_LATER_FLAGS`,
+``distill``).
 """
 
 from __future__ import annotations
@@ -76,11 +87,32 @@ LATER_FLAGS = {
                          "fleet and runtime/coresident.py)"),
 }
 
+_ITEM_5B = ("ROADMAP queue 1 item 5b (result cache, elastic replicas, "
+            "tenants, rollout, metrics_http.py)")
+_ITEM_6 = "ROADMAP queue 1 item 6 (speculative decoding"
+_ITEM_7 = "ROADMAP queue 1 item 7 (utils/telemetry.py and the fault " \
+          "injector of utils/faults.py)"
+
+# serve-bench flags of unported features: dest -> (its default, its item)
+SERVE_BENCH_LATER_FLAGS = {
+    "draft_ckpt": ("", f"{_ITEM_6}: models/draft.py)"),
+    "draft_depth": (0, f"{_ITEM_6}: models/draft.py)"),
+    "draft_tol": (-1.0, f"{_ITEM_6}: models/draft.py)"),
+    "draft_noise": (0.0, f"{_ITEM_6}: models/draft.py)"),
+    "tenants": (0, _ITEM_5B),
+    "tenant_mix": ("", _ITEM_5B),
+    "tenant_cap": (0, _ITEM_5B),
+    "tenant_slo": ([], _ITEM_5B),
+    "watch_ckpt": ("", _ITEM_5B),
+    "metrics_port": (None, _ITEM_5B),
+    "trace_dir": ("", _ITEM_7),
+    "fault_plan": ("", _ITEM_7),
+    "fault_seed": (0, _ITEM_7),
+}
+
 LATER_COMMANDS = {
     "distill": "ROADMAP queue 1 item 6 (speculative decoding: "
                "train/distill.py)",
-    "serve-bench": "ROADMAP queue 1 item 5 (the serving fleet and its "
-                   "benchmarks)",
 }
 
 
@@ -405,13 +437,369 @@ def cmd_sample(args) -> int:
     return 0
 
 
+def _serve_bench_usage(args, hps: HParams):
+    """serve-bench's usage checks, before any checkpoint is read and with
+    the JAX CLI's messages: ``(exit code, slo tracker, endpoints config,
+    device)``, the code 2 on a usage error (said on stderr)."""
+    from sketch_rnn_tpu_torch.serve.admission import \
+        parse_admission_classes
+    from sketch_rnn_tpu_torch.serve.slo import SLOTracker, parse_slo
+    fail = (2, None, None, None)
+    if hps.decode_kernel == "pallas":
+        from sketch_rnn_tpu_torch.ops.cuda_decode import check_cell_kind
+        try:
+            check_cell_kind(hps.dec_model)
+        except ValueError as e:
+            print(f"[cli] {e}", file=sys.stderr)
+            return fail
+    slo_tracker = None
+    if args.slo:
+        try:
+            slo_tracker = SLOTracker([parse_slo(s) for s in args.slo])
+        except ValueError as e:
+            print(f"[cli] {e}", file=sys.stderr)
+            return fail
+    if args.fleet is None and (args.rate or args.classes):
+        print("[cli] --rate/--classes configure the fleet scheduler; "
+              "add --fleet", file=sys.stderr)
+        return fail
+    if args.fleet is not None:
+        if args.static:
+            print("[cli] --static (freeze-until-batch-done) has no "
+                  "fleet equivalent; drop one of --static/--fleet",
+                  file=sys.stderr)
+            return fail
+        try:
+            parse_admission_classes(args.classes)
+        except ValueError as e:
+            print(f"[cli] {e}", file=sys.stderr)
+            return fail
+        if args.rate < 0:
+            print(f"[cli] --rate must be >= 0, got {args.rate}",
+                  file=sys.stderr)
+            return fail
+    endpoints_cfg = None
+    if args.endpoints or args.endpoint_mix:
+        if args.fleet is None:
+            print("[cli] --endpoints/--endpoint_mix configure the "
+                  "multi-task fleet; add --fleet", file=sys.stderr)
+            return fail
+        from sketch_rnn_tpu_torch.serve.endpoints import (
+            ENCODER_ENDPOINTS, ENDPOINTS, parse_endpoint_specs)
+        from sketch_rnn_tpu_torch.serve.fleet import default_pool_cap
+        from sketch_rnn_tpu_torch.serve.loadgen import parse_endpoint_mix
+        try:
+            ep_map, ep_classes = parse_endpoint_specs(
+                args.endpoints,
+                classes=parse_admission_classes(args.classes))
+            mix = (parse_endpoint_mix(args.endpoint_mix)
+                   if args.endpoint_mix else
+                   tuple((e, 1.0) for e in ENDPOINTS if e in ep_map)
+                   or (("generate", 1.0),))
+        except ValueError as e:
+            print(f"[cli] {e}", file=sys.stderr)
+            return fail
+        bad = [name for name, _ in mix if name not in ENDPOINTS]
+        if bad:
+            print(f"[cli] unknown endpoint(s) {bad} in "
+                  f"--endpoint_mix; want {ENDPOINTS}", file=sys.stderr)
+            return fail
+        unrouted = [name for name, _ in mix
+                    if name not in ep_map and len(ep_classes) > 1]
+        if unrouted:
+            print(f"[cli] endpoint(s) {unrouted} in the mix have no "
+                  f"class route; add --endpoints "
+                  f"{unrouted[0]}=CLASS", file=sys.stderr)
+            return fail
+        enc_needed = sorted(set(name for name, _ in mix)
+                            & set(ENCODER_ENDPOINTS))
+        if enc_needed and not hps.conditional:
+            print(f"[cli] endpoint(s) {enc_needed} need the "
+                  f"bidirectional encoder but this checkpoint is "
+                  f"unconditional (hps.conditional=false)",
+                  file=sys.stderr)
+            return fail
+        if args.frames < 2:
+            print(f"[cli] --frames must be >= 2, got {args.frames}",
+                  file=sys.stderr)
+            return fail
+        pool_cap = default_pool_cap(args.slots or hps.serve_slots)
+        if any(name == "interpolate" for name, _ in mix) \
+                and args.frames > pool_cap:
+            print(f"[cli] --frames {args.frames} exceeds the fleet's "
+                  f"pool_cap {pool_cap} (4x slots); shrink --frames "
+                  f"or raise --slots", file=sys.stderr)
+            return fail
+        endpoints_cfg = {"map": ep_map, "classes": ep_classes,
+                         "mix": mix, "frames": args.frames,
+                         "encoder": bool(enc_needed)}
+    dev = _device(args)
+    if dev is None:
+        return fail
+    if args.fleet is not None and dev.type == "cuda" \
+            and args.fleet > torch.cuda.device_count():
+        print(f"[cli] --fleet {args.fleet} needs {args.fleet} "
+              f"devices but only {torch.cuda.device_count()} are "
+              f"available", file=sys.stderr)
+        return fail
+    return 0, slo_tracker, endpoints_cfg, dev
+
+
+def cmd_serve_bench(args) -> int:
+    """Serve a burst of requests and print the serving metrics as one
+    JSON line: through the engine (a warm-up burst, then the timed run;
+    ``--static`` for static batching) or, with ``--fleet``, through the
+    fleet under open-loop Poisson arrivals at ``--rate``. With
+    ``--random_init`` the model is freshly initialized from ``--seed``,
+    else the latest checkpoint in ``--workdir`` is restored."""
+    hps = _resolve_hps(args)
+    if args.decode_kernel:
+        hps = hps.replace(decode_kernel=args.decode_kernel)
+    if args.quantize:
+        hps = hps.replace(serve_quantize=args.quantize)
+    rc, slo_tracker, endpoints_cfg, dev = _serve_bench_usage(args, hps)
+    if rc:
+        return rc
+    return _serve_bench_run(args, hps, slo_tracker, endpoints_cfg, dev)
+
+
+def _json_safe(obj):
+    """A strict-JSON copy: non-finite floats (an infinite SLO burn rate)
+    become their repr strings."""
+    if isinstance(obj, dict):
+        return {k: _json_safe(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_json_safe(v) for v in obj]
+    if isinstance(obj, float) and not np.isfinite(obj):
+        return repr(obj)
+    return obj
+
+
+def _serve_bench_fleet(args, hps, model, params, requests, slo_tracker,
+                       endpoints_cfg, ckpt_id: str, dev):
+    """The fleet's measured section: build and warm the fleet, replay the
+    open-loop schedule through ``submit``, drain. Returns ``(report
+    metrics, fleet summary, per-request rows)``."""
+    from sketch_rnn_tpu_torch.serve.admission import \
+        parse_admission_classes
+    from sketch_rnn_tpu_torch.serve.fleet import ServeFleet
+    from sketch_rnn_tpu_torch.serve.loadgen import (OpenLoopLoadGen,
+                                                    poisson_arrivals)
+
+    if endpoints_cfg is not None:
+        classes = endpoints_cfg["classes"]
+        endpoint_classes = endpoints_cfg["map"]
+    else:
+        classes = parse_admission_classes(args.classes)
+        endpoint_classes = None
+    cls_order = [c.name for c in sorted(classes.values(),
+                                        key=lambda c: c.priority)]
+    # the CPU has no device count: --fleet N gives N CPU replicas
+    devices = ([dev] * max(1, args.fleet) if dev.type == "cpu"
+               else None)
+    fleet = ServeFleet(model, hps, params, replicas=args.fleet,
+                       slots=args.slots, chunk=args.chunk,
+                       greedy=args.greedy, classes=classes,
+                       devices=devices, slo=slo_tracker,
+                       endpoint_classes=endpoint_classes,
+                       ckpt_id=ckpt_id)
+    fleet.warm(requests[0],
+               endpoints=bool(endpoints_cfg
+                              and endpoints_cfg.get("encoder")))
+    for i, r in enumerate(requests):
+        r.uid = i
+
+    def _submit(i):
+        if endpoints_cfg is not None:
+            fleet.submit(requests[i])     # the endpoint routes the class
+        else:
+            fleet.submit(requests[i], cls=cls_order[i % len(cls_order)])
+
+    with fleet:
+        gen = OpenLoopLoadGen(
+            poisson_arrivals(len(requests), args.rate, args.seed),
+            _submit).start()
+        try:
+            gen.join()
+            fleet.drain()
+        finally:
+            gen.stop()
+        fsum = fleet.summary()
+        rows = [{"uid": uid, "replica": rec["replica"],
+                 "class": rec.get("class"),
+                 "endpoint": rec.get("endpoint", "generate"),
+                 "queue_pos": rec.get("queue_pos"),
+                 "steps": rec["result"].steps,
+                 "length": rec["result"].length,
+                 "queue_wait_s": rec["result"].queue_wait_s,
+                 "decode_s": rec["result"].decode_s,
+                 "latency_s": rec["result"].latency_s}
+                for uid, rec in sorted(fleet.results.items())]
+    fsum["offered_rate"] = args.rate
+    fsum["loadgen_max_lag_s"] = round(gen.max_lag_s, 6)
+    out_metrics = {
+        "completed": fsum["completed"],
+        "wall_s": fsum["wall_s"],
+        "sketches_per_sec": fsum["sketches_per_sec"],
+        "requests_shed": fsum["shed"],
+        "shed_frac": fsum["shed_frac"],
+        "latency_p50_s": fsum["latency"]["p50_s"],
+        "latency_p95_s": fsum["latency"]["p95_s"],
+        "latency_p99_s": fsum["latency"]["p99_s"],
+    }
+    if endpoints_cfg is not None:
+        out_metrics["latency_by_endpoint"] = fsum["latency_by_endpoint"]
+        fsum["endpoint_mix"] = [list(m) for m in endpoints_cfg["mix"]]
+        fsum["endpoint_classes"] = dict(endpoints_cfg["map"])
+    if slo_tracker is not None:
+        out_metrics["slo"] = slo_tracker.summary()
+    return out_metrics, fsum, rows
+
+
+def _build_endpoint_requests(args, hps, scale, n, kz, kreq,
+                             endpoints_cfg):
+    """The seeded mixed-endpoint requests (``serve/endpoints.
+    build_mix_requests``) over prefixes from the valid split
+    (``--synthetic``/``--data_dir``) or a synthetic corpus."""
+    from sketch_rnn_tpu_torch.serve.endpoints import build_mix_requests
+    from sketch_rnn_tpu_torch.utils import prng
+
+    mix = endpoints_cfg["mix"]
+    pool, pool_labels = [], None
+    if any(name != "generate" for name, _ in mix):
+        if args.synthetic or args.data_dir:
+            _, valid_l, _, _ = _load_data(hps, args, scale_factor=scale)
+            pool, pool_labels = valid_l.strokes, valid_l.labels
+        else:
+            # --random_init without a corpus: a normalized synthetic pool
+            from sketch_rnn_tpu_torch.data.loader import synthetic_loader
+            loader, _ = synthetic_loader(hps, max(64, min(2 * n, 512)),
+                                         seed=args.seed)
+            pool, pool_labels = loader.strokes, loader.labels
+    z = None
+    if hps.conditional:
+        z = prng.normal(kz, (n, hps.z_size)).numpy().astype(np.float32)
+    return build_mix_requests(hps, mix, n, args.seed, kreq, z, pool,
+                              pool_labels,
+                              frames=endpoints_cfg["frames"],
+                              temperature=args.temperature,
+                              default_label=args.label)
+
+
+def _warm_engine(engine, requests) -> None:
+    """The engine path's warm-up outside the timed run: the same request
+    count, each request capped at one step."""
+    import dataclasses
+
+    engine.run([dataclasses.replace(r, uid=None, max_len=1)
+                for r in requests])
+
+
+def _serve_bench_run(args, hps, slo_tracker, endpoints_cfg, dev) -> int:
+    """The body of ``serve-bench`` after its usage checks."""
+    import time
+
+    from sketch_rnn_tpu_torch.models.vae import SketchRNN
+    from sketch_rnn_tpu_torch.serve.engine import Request, ServeEngine
+    from sketch_rnn_tpu_torch.train.metrics import MetricsWriter
+    from sketch_rnn_tpu_torch.utils import prng
+
+    if args.random_init:
+        model = SketchRNN(hps)
+        params = model.init_params(torch.Generator().manual_seed(args.seed),
+                                   device=dev)
+        scale = 1.0
+        init_ckpt_id = ""
+    else:
+        from sketch_rnn_tpu_torch.train.checkpoint import ckpt_id_of
+        model, state, scale, _ = _restore(hps, args.workdir, dev)
+        params = state.params
+        init_ckpt_id = ckpt_id_of(int(state.step))
+    # quantized serving: round the params through the serving precision
+    # and stamp the serving identity; the engine serves the dequantized
+    # float32 weights
+    qreport = []
+    if hps.serve_quantize != "float32":
+        from sketch_rnn_tpu_torch.serve.quantize import (
+            quantize_for_serving, stamp_ckpt_id)
+        params, qreport = quantize_for_serving(params, hps.serve_quantize)
+        init_ckpt_id = stamp_ckpt_id(init_ckpt_id, hps.serve_quantize)
+    kz, kreq = prng.split(prng.key(args.seed), 2).unbind(dim=-2)
+    n = args.n
+    if endpoints_cfg is not None:
+        requests = _build_endpoint_requests(args, hps, scale, n, kz, kreq,
+                                            endpoints_cfg)
+    else:
+        z = None
+        if hps.conditional:
+            z = prng.normal(kz, (n, hps.z_size)).numpy().astype(
+                np.float32)
+        requests = [
+            Request(key=prng.fold_in(kreq, i),
+                    z=None if z is None else z[i],
+                    label=args.label, temperature=args.temperature)
+            for i in range(n)]
+    writer = (MetricsWriter(args.workdir, name="serve")
+              if args.log_metrics else None)
+    fleet_report = None
+    if args.fleet is not None:
+        t0 = time.time()
+        out_metrics, fleet_report, rows = _serve_bench_fleet(
+            args, hps, model, params, requests, slo_tracker,
+            endpoints_cfg, init_ckpt_id, dev)
+        slots_v, chunk_v = fleet_report["slots"], fleet_report["chunk"]
+        if writer is not None:
+            for i, row in enumerate(rows):
+                writer.write(i + 1, row)
+    else:
+        engine = ServeEngine(model, hps, params, slots=args.slots,
+                             chunk=args.chunk, greedy=args.greedy,
+                             device=dev, ckpt_id=init_ckpt_id)
+        slots_v, chunk_v = engine.slots, engine.chunk
+        _warm_engine(engine, requests)
+        t0 = time.time()
+        out_metrics = engine.run(requests, recycle=not args.static,
+                                 metrics_writer=writer,
+                                 slo=slo_tracker)["metrics"]
+    if slo_tracker is not None:
+        # an SLO that matched nothing reports vacuous compliance: say so
+        for key, rec in sorted(slo_tracker.summary().items()):
+            if rec["total"] == 0:
+                print(f"[slo] WARNING: {key} matched no completed "
+                      f"request (endpoint {rec['endpoint']!r} unseen) "
+                      f"— its compliance is vacuous", file=sys.stderr)
+    report = {
+        "kind": "serve_bench_cli",
+        "n_requests": n,
+        "slots": slots_v,
+        "chunk": chunk_v,
+        "static": bool(args.static),
+        "param_dtype": hps.serve_quantize,
+        "quantized_tensors": len(qreport),
+        "quantize_max_err": max((r["max_err"] for r in qreport),
+                                default=0.0),
+        "scale_factor": scale,
+        "started": t0,
+        **out_metrics,
+        # the chunk the port runs: the CUDA kernel, or the plain chunk
+        # for the hyper cell (hps.decode_kernel is a label here)
+        "decode_kernel": "plain" if hps.dec_model == "hyper" else "cuda",
+    }
+    if fleet_report is not None:
+        report["fleet"] = fleet_report
+    print(json.dumps(_json_safe(report), allow_nan=False))
+    return 0
+
+
 def _refusal(args) -> Optional[str]:
     """What the command line asks for that the port does not have yet,
     naming the ROADMAP item that brings it; None if nothing."""
     if args.cmd in LATER_COMMANDS:
         return f"the {args.cmd} subcommand {_LATER}: " \
                f"{LATER_COMMANDS[args.cmd]}"
-    for dest, (default, item) in LATER_FLAGS.items():
+    later = (SERVE_BENCH_LATER_FLAGS if args.cmd == "serve-bench"
+             else LATER_FLAGS)
+    for dest, (default, item) in later.items():
         if getattr(args, dest, default) != default:
             return f"--{dest} {_LATER}: {item}"
     return None
@@ -498,6 +886,94 @@ def build_parser() -> argparse.ArgumentParser:
                         "checkpoint, key and serving geometry")
     p.add_argument("--cols", type=int, default=5)
     p.set_defaults(fn=cmd_sample)
+
+    p = sub.add_parser("serve-bench",
+                       help="continuous-batching serving benchmark")
+    _add_common(p)
+    p.add_argument("-n", type=int, default=64, help="number of requests")
+    p.add_argument("--slots", type=int, default=0,
+                   help="decoder slots B (0 = hps.serve_slots)")
+    p.add_argument("--chunk", type=int, default=0,
+                   help="decode steps per dispatch K (0 = hps.serve_chunk)")
+    p.add_argument("--temperature", type=float, default=0.5)
+    p.add_argument("--label", type=int, default=0,
+                   help="class id for class-conditional models")
+    p.add_argument("--greedy", action="store_true")
+    p.add_argument("--decode_kernel", default="",
+                   choices=["", "scan", "pallas"],
+                   help="the JAX package's decode flavor, kept as a label: "
+                        "the port serves the lstm and layer_norm cells "
+                        "through its CUDA kernel either way ('pallas' "
+                        "refuses the hyper cell, as in JAX). Default: "
+                        "hps.decode_kernel")
+    p.add_argument("--quantize", default="",
+                   choices=["", "float32", "bfloat16", "int8"],
+                   help="serving-parameter precision: int8 = per-tensor "
+                        "symmetric, dequantized on load (error <= "
+                        "scale/2 per element); bfloat16 = "
+                        "round-through-bf16. The served ckpt_id is "
+                        "stamped ':int8'/':bf16'. Default: "
+                        "hps.serve_quantize")
+    p.add_argument("--static", action="store_true",
+                   help="disable slot recycling (freeze-until-batch-done "
+                        "schedule, for comparison)")
+    p.add_argument("--fleet", type=int, nargs="?", const=0, default=None,
+                   help="serve through a fleet of N device-pinned "
+                        "engines (bare/0 = one per CUDA device; with "
+                        "--device cpu, N CPU replicas): one host "
+                        "scheduler, SLA-aware admission, per-replica "
+                        "queues")
+    p.add_argument("--rate", type=float, default=0.0,
+                   help="open-loop Poisson arrival rate in requests/sec "
+                        "for --fleet (seeded schedule; 0 = closed burst)")
+    p.add_argument("--classes", action="append", default=[],
+                   help="admission class spec for --fleet, repeatable "
+                        "(e.g. 'interactive:p95<=250ms'); first spec = "
+                        "highest priority; requests are assigned "
+                        "round-robin over the classes. Default: one "
+                        "no-deadline 'default' class")
+    p.add_argument("--endpoints", action="append", default=[],
+                   help="endpoint route for --fleet, repeatable: "
+                        "ENDPOINT=CLASS ('complete=interactive:p95<="
+                        "250ms' or 'interpolate=batch'); endpoints "
+                        "generate, complete, reconstruct, interpolate")
+    p.add_argument("--endpoint_mix", default="",
+                   help="seeded endpoint mix, 'name:weight,...'; "
+                        "default: uniform over the routed endpoints")
+    p.add_argument("--frames", type=int, default=6,
+                   help="latent-grid size of interpolate requests (<= "
+                        "pool_cap = 4x slots)")
+    p.add_argument("--random_init", action="store_true",
+                   help="fresh random params instead of a checkpoint")
+    p.add_argument("--log_metrics", action="store_true",
+                   help="write per-request serve_metrics JSONL+CSV into "
+                        "--workdir")
+    p.add_argument("--slo", action="append", default=[],
+                   help="latency SLO spec, repeatable: "
+                        "[endpoint:[metric:]]pNN<=SECONDS; with --fleet "
+                        "the endpoint names an admission class")
+    p.add_argument("--draft_ckpt", default="",
+                   help="speculative decoding (refused: ROADMAP queue 1 "
+                        "item 6), like --draft_depth, --draft_tol and "
+                        "--draft_noise")
+    p.add_argument("--draft_depth", type=int, default=0)
+    p.add_argument("--draft_tol", type=float, default=-1.0)
+    p.add_argument("--draft_noise", type=float, default=0.0)
+    p.add_argument("--tenants", type=int, default=0,
+                   help="multi-tenant serving (refused: ROADMAP queue 1 "
+                        "item 5b), like --tenant_mix, --tenant_cap, "
+                        "--tenant_slo, --watch_ckpt and --metrics_port")
+    p.add_argument("--tenant_mix", default="")
+    p.add_argument("--tenant_cap", type=int, default=0)
+    p.add_argument("--tenant_slo", action="append", default=[])
+    p.add_argument("--watch_ckpt", default="")
+    p.add_argument("--metrics_port", type=int, default=None)
+    p.add_argument("--trace_dir", default="",
+                   help="serving telemetry (refused: ROADMAP queue 1 item "
+                        "7), like --fault_plan and --fault_seed")
+    p.add_argument("--fault_plan", default="")
+    p.add_argument("--fault_seed", type=int, default=0)
+    p.set_defaults(fn=cmd_serve_bench)
 
     for name, item in LATER_COMMANDS.items():
         p = sub.add_parser(name, help=f"refused: {item}")

@@ -121,10 +121,10 @@ class SketchRNN:
         ``rdrop``: the two directions' recurrent dropout (:meth:`draws`'s
         ``enc_fwd`` and ``enc_bwd``), None for none; ``x_rev_tm``: the
         length-aware-reversed inputs, gathered by the caller; ``fused``
-        runs both directions through ``fused_lstm_seq`` (training at
-        ``fused_rnn=true``), else the plain cell path (training at
-        ``fused_rnn=false``, where ``hps.remat`` checkpoints each step,
-        and serving)."""
+        runs both directions through ``fused_lstm_seq`` (training and
+        the serving encoder at ``fused_rnn=true``), else the plain cell
+        path (``fused_rnn=false``, where ``hps.remat`` checkpoints each
+        training step; the sampler's ``encode_mu``)."""
         hps = self.hps
         gen_f = gen_b = None
         if rdrop is not None:

@@ -40,6 +40,7 @@ path went through the kernels.
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -52,6 +53,8 @@ SUPPORTED_CELLS = ("lstm", "layer_norm")
 
 decode_chunk_launches = 0
 replay_chunk_launches = 0
+# the fleet's replicas launch from their own worker threads
+_count_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
@@ -491,7 +494,8 @@ def decode_chunk(cell_params, out_w, out_b, c0, h0, prev0,
         greedy)
     lib = _build.load("decode")
     _build.check(lib, lib.srt_decode_chunk(*args), "decode_chunk")
-    decode_chunk_launches += 1
+    with _count_lock:
+        decode_chunk_launches += 1
     strokes, c_out, h_out, t_out, done_out = outs
     return strokes, c_out, h_out, t_out, done_out != 0
 
@@ -585,7 +589,8 @@ def replay_chunk(cell_params, c0, h0, xs, extra: Optional[torch.Tensor],
         compute_dtype)
     lib = _build.load("decode")
     _build.check(lib, lib.srt_replay_chunk(*args), "replay_chunk")
-    replay_chunk_launches += 1
+    with _count_lock:
+        replay_chunk_launches += 1
     return outs
 
 

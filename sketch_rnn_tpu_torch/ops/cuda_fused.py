@@ -70,6 +70,7 @@ number of CUDA kernels inside), never plain-version calls.
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -87,6 +88,8 @@ _KERNELS = ("fused_lstm_seq_fwd", "fused_lstm_seq_bwd", "fused_lstm_fwd",
             "fused_lstm_bwd", "fused_ln_lstm_fwd", "fused_ln_lstm_bwd",
             "fused_hyper_lstm_fwd", "fused_hyper_lstm_bwd")
 _launches = dict.fromkeys(_KERNELS, 0)
+# the fleet's replicas launch the encoder from their own worker threads
+_count_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
@@ -101,8 +104,9 @@ def launch_counts() -> dict:
 def add_launch_counts(counts: dict) -> None:
     """Add ``counts`` to the counters: a CUDA graph's replay adds the
     launches its capture recorded (``train/graph.py``)."""
-    for k, v in counts.items():
-        _launches[k] += v
+    with _count_lock:
+        for k, v in counts.items():
+            _launches[k] += v
 
 
 # -- the in-kernel dropout mask ---------------------------------------------
@@ -787,7 +791,8 @@ def _launch(entry, what, counter, *args, lib="fused_rnn"):
 
     lib = _build.load(lib)
     _build.check(lib, getattr(lib, entry)(*args), what)
-    _launches[counter] += 1
+    with _count_lock:
+        _launches[counter] += 1
 
 
 def _entries_on_cuda(what, xs):

@@ -1,7 +1,7 @@
 """Multi-task serving endpoints: completion, reconstruction, interpolation.
 
-The port of ``sketch_rnn_tpu/serve/endpoints.py`` for the single-engine
-path (the fleet's shared-prefix encode reuse comes with the fleet):
+The port of ``sketch_rnn_tpu/serve/endpoints.py`` (the fleet's
+shared-prefix encode reuse comes with ROADMAP queue 1 item 5b):
 
 - ``generate``    — the engine's native path, untouched.
 - ``complete``    — encode a stroke-3 ``prefix`` with the bidirectional
@@ -36,6 +36,7 @@ per-request RNG takes over.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -50,6 +51,7 @@ from sketch_rnn_tpu_torch.utils import prng
 from sketch_rnn_tpu_torch.utils.device import resolve_device, tree_to
 
 ENDPOINTS = ("generate", "complete", "reconstruct", "interpolate")
+ENCODER_ENDPOINTS = ("complete", "reconstruct", "interpolate")
 
 # default latent-grid size of an interpolate request; Request.frames
 # overrides it per request
@@ -105,10 +107,11 @@ def _check_prefix(prefix, edges: Sequence[int], what: str) -> np.ndarray:
     return p
 
 
-def validate_request(req, hps: HParams) -> None:
+def validate_request(req, hps: HParams, pool_cap: int = 0) -> None:
     """Fail-fast endpoint/shape validation with one actionable line;
     unconditional checkpoints reject every encoder endpoint naming
-    ``hps.conditional``."""
+    ``hps.conditional``. ``pool_cap`` (the fleet's micro-burst size)
+    refuses an interpolation whose frames would not fit one burst."""
     ep = req.endpoint or "generate"
     if ep not in ENDPOINTS:
         raise ValueError(f"unknown endpoint {ep!r}; this server "
@@ -136,6 +139,11 @@ def validate_request(req, hps: HParams) -> None:
         if frames < 2:
             raise ValueError(f"interpolate needs frames >= 2, got "
                              f"{frames}")
+        if pool_cap and frames > pool_cap:
+            raise ValueError(
+                f"interpolate frames {frames} exceed the fleet's "
+                f"pool_cap {pool_cap} — the grid must fit one "
+                f"micro-burst")
         for side, p in zip("ab", pair):
             _check_prefix(p, edges, f"interpolate prefix {side}")
     else:
@@ -205,7 +213,10 @@ def make_encode_step(model, hps: HParams, params):
     def fn(strokes, seq_len, labels):
         b = strokes.shape[0]
         x_tm = strokes.transpose(0, 1)                 # [E+1, B, 5]
-        mu, _ = model.encode(params, x_tm[1:], seq_len)
+        # the encoder as the JAX package's serves it: through
+        # fused_lstm_seq's forward at fused_rnn=true
+        mu, _ = model.encode(params, x_tm[1:], seq_len,
+                             fused=hps.fused_rnn)
         carry = cell.carry_leaves(
             model.decoder_initial_carry(params, mu, b))
         extra = model._decoder_extra(params, mu, labels)
@@ -257,6 +268,14 @@ class EncodeProgram:
             model, hps,
             tree_to({k: params[k] for k in self._KEEP if k in params},
                     self.device))
+
+    def warm(self) -> None:
+        """Run the program once at every prefix edge (one zero prefix
+        that fills the edge), so a measured window opens with its kernels
+        loaded and its buffers allocated."""
+        for edge in self.edges:
+            self.encode([np.zeros((edge, 3), np.float32)],
+                        [0] if self.hps.num_classes > 0 else None)
 
     def encode(self, prefixes: Sequence[np.ndarray],
                labels: Optional[Sequence[int]] = None
@@ -431,7 +450,9 @@ def assemble_results(plan: BatchPlan, engine_results: Sequence[Any]
             steps=sum(k.steps for k in kids), queue_wait_s=queue_wait,
             decode_s=latency - queue_wait, latency_s=latency,
             attributed_steps=sum(k.attributed_steps for k in kids),
-            endpoint="interpolate", frames=frames))
+            endpoint="interpolate", frames=frames,
+            # the frames decode on one engine: one version stamp
+            ckpt_id=kids[0].ckpt_id))
     return out
 
 
@@ -457,3 +478,117 @@ def serve_requests(model, hps: HParams, params, requests: List[Any],
     out = eng.run(plan.engine_requests)
     return {"results": assemble_results(plan, out["results"]),
             "metrics": out["metrics"], "engine": eng}
+
+
+def build_mix_requests(hps: HParams, mix, n: int, seed: int, kreq, z,
+                       pool, pool_labels, frames: int, temperature: float,
+                       caps=None, default_label: int = 0) -> List[Any]:
+    """The seeded mixed-endpoint request list of ``cli serve-bench
+    --endpoints``, the JAX package's recipe: the endpoint of arrival
+    ``i`` from the weighted ``mix`` (``loadgen.endpoint_mix_ids``), its
+    key ``fold_in(kreq, i)``, prefixes indexed from ``pool`` with a 7919
+    stride, completions continuing the first half of their sketch,
+    interpolations pairing a sketch with its stride-5 partner. ``z [n,
+    Nz]`` feeds generate requests (None for unconditional models);
+    ``caps`` (optional ``[n]``) sets per-request ``max_len``."""
+    from sketch_rnn_tpu_torch.serve.engine import Request
+    from sketch_rnn_tpu_torch.serve.loadgen import endpoint_mix_ids
+
+    names = [m[0] for m in mix]
+    ids = endpoint_mix_ids(n, mix, seed)
+    requests: List[Any] = []
+    for i in range(n):
+        ep = names[int(ids[i])]
+        key_i = prng.fold_in(kreq, i)
+        cap = None if caps is None else int(caps[i])
+        if ep == "generate":
+            requests.append(Request(
+                key=key_i, z=None if z is None else z[i],
+                label=default_label, temperature=temperature,
+                max_len=cap, endpoint="generate"))
+            continue
+        j = (i * 7919) % len(pool)
+        label = (int(pool_labels[j]) if hps.num_classes > 0
+                 else default_label)
+        if ep == "interpolate":
+            requests.append(Request(
+                key=key_i, endpoint="interpolate",
+                prefix=(pool[j], pool[(j + 5) % len(pool)]),
+                frames=frames, label=label, temperature=temperature,
+                max_len=cap))
+        elif ep == "complete":
+            p = pool[j]
+            requests.append(Request(
+                key=key_i, endpoint="complete",
+                prefix=p[:max(1, len(p) // 2)], label=label,
+                temperature=temperature, max_len=cap))
+        else:
+            requests.append(Request(
+                key=key_i, endpoint="reconstruct", prefix=pool[j],
+                label=label, temperature=temperature, max_len=cap))
+    return requests
+
+
+# -- endpoint -> admission-class mapping --------------------------------------
+
+
+def parse_endpoint_specs(specs: Sequence[str], classes=None
+                         ) -> Tuple[Dict[str, str], Dict[str, Any]]:
+    """Parse ``--endpoints`` specs into (endpoint -> class name, class
+    table).
+
+    - ``complete=interactive:p95<=250ms`` declares class ``interactive``
+      (the ``--classes`` grammar) and routes ``complete`` to it;
+    - ``interpolate=batch`` routes to class ``batch``, declared with no
+      deadline if ``classes`` does not hold it.
+
+    ``classes`` seeds the table (spec order = priority); classes
+    declared here come after it. Unknown endpoints, duplicate routes and
+    a class declared again with another objective fail with one line.
+    """
+    from sketch_rnn_tpu_torch.serve.admission import AdmissionClass
+    from sketch_rnn_tpu_torch.serve.slo import SLO, parse_slo
+
+    table: Dict[str, Any] = dict(classes) if classes else {}
+    ep_map: Dict[str, str] = {}
+    for spec in specs:
+        if "=" not in spec:
+            raise ValueError(
+                f"bad endpoint spec {spec!r}: want ENDPOINT=CLASS "
+                f"(e.g. 'complete=interactive:p95<=250ms' or "
+                f"'interpolate=batch')")
+        ep, _, right = spec.partition("=")
+        ep, right = ep.strip(), right.strip()
+        if ep not in ENDPOINTS:
+            raise ValueError(f"unknown endpoint {ep!r} in {spec!r}; "
+                             f"want one of {ENDPOINTS}")
+        if ep in ep_map:
+            raise ValueError(f"duplicate endpoint route for {ep!r} "
+                             f"(from {spec!r})")
+        if not right:
+            raise ValueError(f"empty class in endpoint spec {spec!r}")
+        if "<=" in right:
+            slo = parse_slo(right)
+            name = slo.endpoint
+            if name in table:
+                have = table[name].slo
+                if (have.objective_s, have.target, have.metric) != \
+                        (slo.objective_s, slo.target, slo.metric):
+                    raise ValueError(
+                        f"endpoint spec {spec!r} re-declares class "
+                        f"{name!r} with a different objective "
+                        f"({slo.key} vs the declared {have.key}) — "
+                        f"drop one or make them agree")
+            else:
+                table[name] = AdmissionClass(name=name, slo=slo,
+                                             priority=len(table))
+        else:
+            name = right
+            if name not in table:
+                table[name] = AdmissionClass(
+                    name=name,
+                    slo=SLO(objective_s=math.inf, target=0.95,
+                            endpoint=name),
+                    priority=len(table))
+        ep_map[ep] = name
+    return ep_map, table

@@ -44,10 +44,21 @@ holds. Metrics report ``decode_kernel: "plain"``. It is no fallback:
 the other cells never take it, and they raise if their kernel cannot
 launch.
 
-The sampler is ``ops/cuda_decode.sample_mixture_rows``. Telemetry, fault
-points, SLO tracking, the metrics writer, static batching, pool padding,
-speculative decoding, value-paged params and hot swap come with later
-slices.
+**Options the fleet and ``cli serve-bench`` use** (``run``):
+``recycle=False`` is static batching (admission only when every slot is
+done, the same chunk function), which isolates the continuous-batching
+win; ``pool_pad`` pads the request pool with rows no slot ever points at;
+``slo`` is fed each completed top-level request; ``metrics_writer``
+gets one row per completed request; a request's ``enqueue_ts`` (the
+fleet's arrival stamp) starts its latency clock. ``replica_id``,
+``ckpt_id`` (stamped on every Result) and ``param_dtype`` (a label:
+quantized params arrive already dequantized, ``serve/quantize.py``)
+describe the engine.
+
+The sampler is ``ops/cuda_decode.sample_mixture_rows``. Telemetry and
+fault points come with ROADMAP queue 1 item 7; speculative decoding with
+item 6; value-paged params, hot swap and the shared-prefix encode reuse
+with item 5b. Their arguments raise, naming the item.
 """
 
 from __future__ import annotations
@@ -74,6 +85,11 @@ from sketch_rnn_tpu_torch.utils.device import (Staged, resolve_device,
 from sketch_rnn_tpu_torch.utils.prng import key_words
 from sketch_rnn_tpu_torch.utils.telemetry import attribute_chunk_steps
 
+_LATER = "comes with a later slice of the PyTorch port"
+_ITEM_5B = ("ROADMAP queue 1 item 5b (result cache, elastic replicas, "
+            "tenants, rollout)")
+_ITEM_6 = "ROADMAP queue 1 item 6 (speculative decoding)"
+
 
 @dataclasses.dataclass
 class Request:
@@ -93,6 +109,12 @@ class Request:
     ``complete``, the replayed ``init_carry`` (flat) and ``init_prev``
     (the last prefix row). ``parent_uid`` marks an interpolation FRAME
     row, a child of the named parent request.
+
+    ``cls``, ``queue_pos``, ``enqueue_ts`` and ``attempt`` are stamped by
+    the fleet (``serve/fleet.py``): the admission class, the rows ahead of
+    it at placement, its arrival instant (``time.perf_counter``; the
+    latency clock starts there, else at ``run()`` entry) and its failover
+    retry count. None of them can change the request's strokes.
     """
 
     key: Any
@@ -101,6 +123,10 @@ class Request:
     temperature: float = 1.0
     max_len: Optional[int] = None
     uid: Optional[int] = None
+    cls: Optional[str] = None
+    queue_pos: Optional[int] = None
+    enqueue_ts: Optional[float] = None
+    attempt: int = 0
     endpoint: str = "generate"
     prefix: Optional[Any] = None
     frames: int = 0
@@ -127,6 +153,8 @@ class Result:
     # an interpolate result's per-frame strokes (strokes5 is their
     # concatenation)
     frames: Optional[List[np.ndarray]] = None
+    # which params checkpoint (and precision) made these strokes
+    ckpt_id: str = ""
 
 
 def make_chunk_step(model, hps: HParams, chunk: int, params,
@@ -231,8 +259,12 @@ class ServeEngine:
     ``run(requests)`` drives the request list to completion and returns
     per-request :class:`Result` objects in completion order plus
     aggregate metrics. Finished slots are recycled to queued requests
-    between chunks. ``device``: the card unless ``device="cpu"``; with no
-    CUDA device and no explicit ``device="cpu"`` construction raises.
+    between chunks (``recycle=False``: static batching). ``device``: the
+    card unless ``device="cpu"``; with no CUDA device and no explicit
+    ``device="cpu"`` construction raises. ``replica_id`` names the
+    engine's fleet replica, ``ckpt_id`` is stamped on every Result, and
+    ``param_dtype`` labels the serving precision (default
+    ``hps.serve_quantize``).
     """
 
     # the decode-path weight leaves a chunk consumes
@@ -241,8 +273,23 @@ class ServeEngine:
 
     def __init__(self, model, hps: HParams, params, slots: int = 0,
                  chunk: int = 0, max_len: Optional[int] = None,
-                 greedy: bool = False, device=None):
+                 greedy: bool = False, device=None,
+                 replica_id: Optional[int] = None, ckpt_id: str = "",
+                 param_dtype: Optional[str] = None, draft_params=None,
+                 draft_depth: int = 0, draft_tol: Optional[float] = None,
+                 param_args: bool = False):
+        if (draft_params is not None or draft_depth
+                or draft_tol is not None):
+            raise NotImplementedError(
+                f"speculative decoding (draft_params, draft_depth, "
+                f"draft_tol) {_LATER}: {_ITEM_6}")
+        if param_args:
+            raise NotImplementedError(
+                f"value-paged params (param_args) {_LATER}: {_ITEM_5B}")
         self.device = resolve_device(device)
+        self.replica_id = replica_id
+        self.ckpt_id = str(ckpt_id or "")
+        self.param_dtype = str(param_dtype or hps.serve_quantize)
         self.model = model
         self.hps = hps
         self.slots = int(slots or hps.serve_slots)
@@ -262,6 +309,34 @@ class ServeEngine:
         self._chunk_fn = make_chunk_step(model, hps, self.chunk,
                                          self.params, self.greedy)
 
+    def swap_params(self, params, ckpt_id: str = "",
+                    param_dtype: Optional[str] = None) -> None:
+        raise NotImplementedError(f"swap_params (hot swap) {_LATER}: "
+                                  f"{_ITEM_5B}")
+
+    @property
+    def encode_reuse(self):
+        """The fleet-shared prefix-reuse index: always None here."""
+        return None
+
+    @encode_reuse.setter
+    def encode_reuse(self, index) -> None:
+        if index is not None:
+            raise NotImplementedError(
+                f"the shared-prefix encode reuse (encode_reuse) {_LATER}: "
+                f"{_ITEM_5B}")
+
+    @property
+    def serving_tenant(self) -> str:
+        """The tenant whose params this engine serves: always the base."""
+        return ""
+
+    @serving_tenant.setter
+    def serving_tenant(self, tenant: str) -> None:
+        if tenant:
+            raise NotImplementedError(
+                f"tenants (serving_tenant) {_LATER}: {_ITEM_5B}")
+
     @property
     def encoder(self):
         """This engine's fixed-geometry endpoint encode program, built on
@@ -279,15 +354,20 @@ class ServeEngine:
 
     # -- the request pool --------------------------------------------------
 
-    def _prepare_pool(self, requests: List[Request]):
+    def _prepare_pool(self, requests: List[Request], pad: int = 0):
         """Build + upload the request pool ``[N, ...]`` once per burst.
 
         Host side the key words are uint32 ``[N, 2]`` (the JAX engine's
         raw key data); on the device they are int64 holding those uint32
-        values, since torch has no full uint32 arithmetic.
+        values, since torch has no full uint32 arithmetic. ``pad`` (the
+        fleet's ``pool_cap``) pads every field to that many rows with the
+        JAX engine's fill values; no slot ever points at a pad row, so
+        padding changes no request's strokes.
         """
         hps = self.hps
         n = len(requests)
+        if pad and pad < n:
+            raise ValueError(f"pool pad {pad} < request count {n}")
         for i, req in enumerate(requests):
             if req.endpoint == "interpolate" and req.parent_uid is None:
                 raise ValueError(
@@ -338,6 +418,24 @@ class ServeEngine:
                 init_carry[i] = ic
                 init_prev[i] = np.asarray(r.init_prev, np.float32)
                 init_mask[i] = True
+        if pad and pad > n:
+            extra = pad - n
+
+            def pad_rows(a, fill):
+                return np.concatenate(
+                    [a, np.full((extra,) + a.shape[1:], fill, a.dtype)])
+
+            key_data = pad_rows(key_data, 0)
+            if z is not None:
+                z = pad_rows(z, 0.0)
+            if labels is not None:
+                labels = pad_rows(labels, 0)
+            temps = pad_rows(temps, 1.0)
+            caps = pad_rows(caps, 1)
+            if init_carry is not None:
+                init_carry = pad_rows(init_carry, 0.0)
+                init_prev = pad_rows(init_prev, 0.0)
+                init_mask = pad_rows(init_mask, False)
         key_data = key_data.astype(np.int64)
         return tuple(None if a is None
                      else torch.from_numpy(a).to(self.device)
@@ -351,20 +449,32 @@ class ServeEngine:
 
     # -- the serving loop --------------------------------------------------
 
-    def run(self, requests: List[Request]) -> Dict[str, Any]:
-        """Drive ``requests`` to completion with continuous batching.
+    def run(self, requests: List[Request], recycle: bool = True,
+            metrics_writer=None, slo=None, pool_pad: int = 0
+            ) -> Dict[str, Any]:
+        """Drive ``requests`` to completion; continuous batching when
+        ``recycle`` (default), static batching otherwise (admission only
+        when every slot is done).
 
         Returns ``{"results": [Result...], "metrics": {...}}``; the
         metrics carry the JAX engine's keys except its telemetry-derived
-        ``tail``/``spans``/``slo``. Latency clocks start at ``run()``
-        entry.
+        ``tail`` and ``spans``. ``metrics_writer``
+        (``train/metrics.MetricsWriter``): one row per completed request.
+        ``slo`` (``serve/slo.SLOTracker``): fed each completed request
+        that is no interpolation frame, keyed by its endpoint; its summary
+        goes in ``metrics["slo"]``. ``pool_pad``: pad the request pool to
+        this many rows (:meth:`_prepare_pool`). A request's latency clock
+        starts at its ``enqueue_ts`` when set, else at ``run()`` entry.
         """
         t_start = time.perf_counter()
         for i, req in enumerate(requests):
             if req.uid is None:
                 req.uid = i
         queue = deque(enumerate(requests))
-        pool = self._prepare_pool(requests) if requests else None
+        pool = (self._prepare_pool(requests, pad=pool_pad)
+                if requests else None)
+        enq = {req.uid: (t_start if req.enqueue_ts is None
+                         else req.enqueue_ts) for req in requests}
         admit_t: Dict[int, float] = {}
         slot_req: List[Optional[Request]] = [None] * self.slots
         results: List[Result] = []
@@ -474,17 +584,34 @@ class ServeEngine:
                 s5 = gather(int(b), cidx)
                 steps = int(t[b])
                 length = steps - int(s5[-1, 4] > 0.5)
-                results.append(Result(
+                res = Result(
                     uid=req.uid, strokes5=s5, length=length, steps=steps,
-                    queue_wait_s=admit_t[req.uid] - t_start,
+                    queue_wait_s=admit_t[req.uid] - enq[req.uid],
                     decode_s=now - admit_t[req.uid],
-                    latency_s=now - t_start,
+                    latency_s=now - enq[req.uid],
                     attributed_steps=attr_steps.get(req.uid, 0),
-                    endpoint=req.endpoint or "generate"))
+                    endpoint=req.endpoint or "generate",
+                    ckpt_id=self.ckpt_id)
+                results.append(res)
+                if slo is not None and req.parent_uid is None:
+                    # an interpolation's frames are skipped: its parent
+                    # is one request
+                    slo.observe(res.endpoint, {
+                        "queue_wait_s": res.queue_wait_s,
+                        "decode_s": res.decode_s,
+                        "latency_s": res.latency_s})
                 slot_req[b] = None
                 occupied[b] = False
                 n_live -= 1
-            if queue:
+                if metrics_writer is not None:
+                    metrics_writer.write(len(results), {
+                        "uid": res.uid, "steps": res.steps,
+                        "length": res.length,
+                        "queue_wait_s": res.queue_wait_s,
+                        "decode_s": res.decode_s,
+                        "latency_s": res.latency_s,
+                        "attributed_steps": res.attributed_steps})
+            if queue and (recycle or n_live == 0):
                 admit_free_slots()
                 occupied[:] = [r is not None for r in slot_req]
                 n_live = int(occupied.sum())
@@ -500,7 +627,7 @@ class ServeEngine:
         lat = np.array([r.latency_s for r in results]) if results else \
             np.zeros((1,))
         decode_steps = int(sum(r.steps for r in results))
-        return {"results": results, "metrics": {
+        metrics = {
             "completed": len(results),
             "wall_s": round(wall, 6),
             "sketches_per_sec": round(len(results) / wall, 3) if wall
@@ -526,4 +653,7 @@ class ServeEngine:
             "latency_p99_s": round(float(np.percentile(lat, 99)), 6),
             "decode_kernel": "plain" if self.hps.dec_model == "hyper"
             else "cuda",
-        }}
+        }
+        if slo is not None:
+            metrics["slo"] = slo.summary()
+        return {"results": results, "metrics": metrics}

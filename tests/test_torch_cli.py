@@ -17,8 +17,9 @@
   (ROADMAP queue 1 item 4).
 - The JAX CLI's usage checks exit 2 with the same message in the port,
   and every flag or subcommand of an unported feature exits 2 naming
-  its ROADMAP item. Without a card the default ``--device cuda`` exits
-  2.
+  its ROADMAP item, ``serve-bench``'s flags included (its runs are in
+  ``tests/test_torch_serve_bench.py``). Without a card the default
+  ``--device cuda`` exits 2.
 """
 
 import json
@@ -209,12 +210,23 @@ def test_refused_flags_name_their_item(tmp_path, capsys, dest):
 
 
 @pytest.mark.parametrize("cmd,args", [
-    ("distill", ["--steps", "4"]),
-    ("serve-bench", ["-n", "8", "--fleet", "2"])])
+    ("distill", ["--steps", "4"])])
 def test_refused_subcommands_name_their_item(tmp_path, capsys, cmd, args):
     assert cli.main([cmd, f"--workdir={tmp_path}", *args]) == 2
     err = capsys.readouterr().err
     assert cmd in err and cli.LATER_COMMANDS[cmd] in err
+
+
+@pytest.mark.parametrize("dest", sorted(cli.SERVE_BENCH_LATER_FLAGS))
+def test_refused_serve_bench_flags_name_their_item(tmp_path, capsys, dest):
+    default, item = cli.SERVE_BENCH_LATER_FLAGS[dest]
+    assert cli.main(["serve-bench", "--random_init", "-n", "2",
+                     f"--workdir={tmp_path}", *_flag_value(dest, default),
+                     *CPU]) == 2
+    err = capsys.readouterr().err
+    assert f"--{dest}" in err and "ROADMAP queue 1 item" in err
+    assert item in err
+    assert not any(tmp_path.iterdir())      # refused before any work
 
 
 def test_default_device_without_a_card_exits_2(port_workdir, capsys,

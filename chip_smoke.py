@@ -154,7 +154,18 @@ without the final line. With no CUDA device it exits 2 at once.
    turns bit for bit one another, an int16 step bit for bit the float32
    step and a bfloat16-transfer step within STEP_TOL of it; ``train()``
    at depth 2 and int16, K=5, to step 7 with exact launches, bit for bit
-   ``train()`` at float32 and depth 0. Then cli_flow: the port's command
+   ``train()`` at float32 and depth 0. Then train_buckets: rows 4f/4b/5f/5b
+   at T=32 against their plain versions; the flagship with
+   ``bucket_edges=32;64;96;250`` on 4000 synthetic sketches, ``train()`` at
+   K=1 and K=5 (the bucket-run scheduler) bit for bit, each with exact
+   launches; bucketed against T=250 in turns at K=1 and 5 (ms a step,
+   true stroke points a second, ``padded_frac``), each geometry's ms and
+   launches, each K=5 graph's memory; ``cli train --bucket_edges`` at K=5
+   with both dropouts. Then train_dropout: rows 5f/5b at D=197 with no
+   x_bias (timed), rows 3 and 6 at D=133 held once; the K=5 replay with
+   both dropouts bit for bit five eager steps; ms and device events a step
+   with the dropouts on and off; ``train()`` with both, exact launches.
+   Then cli_flow: the port's command
    line in this process (``cli.main``) on the flagship preset at full
    width, seeded weights and the synthetic corpus: ``train --preset
    quickdraw345_dp --synthetic`` to step 4 (an eval sweep and a save
@@ -275,8 +286,9 @@ without the final line. With no CUDA device it exits 2 at once.
    phase's seconds.
 17. the kernels line (seventeen kernels; the ladder's three rows carry
    every arm's numbers under ``arms``, and ``rowblock_ms``, ``speedup``
-   and each arm's A/B under ``ab``), the ``nvidia-smi`` line, and the
-   result line.
+   and each arm's A/B under ``ab``; rows 4-5 their T=32 and D=197
+   records, rows 3 and 6 their D=133 ones, under ``at_T32``, ``at_D197``,
+   ``at_D133``), the ``nvidia-smi`` line, and the result line.
 
 Random serving weights carry the pen-suppression sentinel ``out_b[2] =
 -1e9`` (an untrained model ends a sketch after a few steps) and requests
@@ -1059,6 +1071,8 @@ def rel_errs(names, got, want):
     ab = rel = 0.0
     per = {}
     for n, a, b in zip(names, got, want):
+        if a is None and b is None:     # dx_bias of a call without x_bias
+            continue
         if a.dtype != b.dtype:
             raise AssertionError(f"{n}: dtype {a.dtype} vs {b.dtype}")
         a, b = a.float(), b.float()
@@ -1116,7 +1130,7 @@ def fused_inputs(hps_fn, dt):
                     "wh": ep["wh"].to(wdt)},
             "dec": {"wx": dp["wx"][:5].to(wdt), "wh": dp["wh"].to(wdt)},
             "x_in": strokes[:-1].contiguous(),
-            "x_tgt": strokes[1:].contiguous(), "z": z,
+            "x_tgt": strokes[1:].contiguous(), "z": z, "extra": extra,
             "x_bias": L.matmul(extra, dp["wx"][5:], cdt), "c0": c0,
             "h0": h0, "seed_enc": seeds[0], "seed_dec": seeds[1],
             "dhs_enc": cot(hps.enc_rnn_size),
@@ -1934,25 +1948,18 @@ def check_hyper_narrow(dt):
                 HH=hh, e=e, tol=FUSED_TOL[dt], **r[dt])
 
 
-def check_hyper(inp, rows):
-    """fused_hyper_lstm forward and backward (the ``hyper`` preset's
-    decoder) at B=100, T=250, H=512, HH=256, e=32, D=5, with both
-    per-example biases (the projections of z) and the four nonzero initial
-    carries, dropout seeded. The model's zero- and constant-initialised
-    projections (``w_hz_x``, ``w_hz_h``, ``w_zd_*``) are perturbed, so
-    every product and every gradient works on dense values."""
+def hyper_model_weights(inp, d):
+    """The ``hyper`` model's decoder weights as the kernel takes them, its
+    input rows cut to the first ``d`` (5: the strokes, with z as the
+    per-example biases; all of them under input dropout). The model's
+    zero- and constant-initialised projections (``w_hz_x``, ``w_hz_h``,
+    ``w_zd_*``) are perturbed, so every product and every gradient works
+    on dense values."""
     import torch
 
     from sketch_rnn_tpu_torch.ops import cuda_fused as CF
-    from sketch_rnn_tpu_torch.ops import linear as L
 
-    dt, model = inp["dt"], inp["model"]
-    dp, cell = inp["params"]["dec"], inp["model"].dec
-    cdt = cell.compute_dtype
-    wdt = torch_dtype(dt)
-    xs = inp["x_in"]
-    t, b, d = xs.shape
-    h, hh, e = cell.hidden_size, cell.hyper_size, cell.embed_size
+    dp, h = inp["params"]["dec"], inp["model"].dec.hidden_size
     g = torch.Generator().manual_seed(13)
     noisy = lambda n, sc: dp[n] + (sc * torch.randn(
         dp[n].shape, generator=g)).to(DEV)
@@ -1967,16 +1974,51 @@ def check_hyper(inp, rows):
         zd_h=noisy("w_zd_h", 0.002), zd_b=noisy("w_zd_b", 0.002),
         ln_gamma=dp["ln_gamma"], ln_beta=dp["ln_beta"],
         lnc_gamma=dp["lnc_gamma"], lnc_beta=dp["lnc_beta"])
-    w = w._replace(**{n: getattr(w, n).to(wdt).contiguous()
-                      for n in CF.HYPER_MATRICES})
-    extra = inp["z"]
-    biases = (inp["x_bias"], L.matmul(extra, wxh[d:d_in], cdt))
+    return w._replace(**{n: getattr(w, n).to(torch_dtype(inp["dt"]))
+                         .contiguous() for n in CF.HYPER_MATRICES})
+
+
+def hyper_carries_and_cots(inp):
+    """The ``hyper`` decoder's four initial carries from ``inp``'s z, and
+    seeded cotangents ``(dhs, dcT, dhT, dhcT, dhhT)``."""
+    import torch
+
+    model, cell = inp["model"], inp["model"].dec
+    b, hh = inp["z"].shape[0], cell.hyper_size
     carries = tuple(x.contiguous() for x in cell.carry_leaves(
-        model.decoder_initial_carry(inp["params"], extra, b)))
+        model.decoder_initial_carry(inp["params"], inp["z"], b)))
     gc = torch.Generator().manual_seed(17)
     cots = (inp["dhs_dec"], inp["dcT"], inp["dhT"],
             (0.01 * torch.randn((b, hh), generator=gc)).to(DEV),
             (0.01 * torch.randn((b, hh), generator=gc)).to(DEV))
+    return carries, cots
+
+
+def check_hyper(inp, rows):
+    """fused_hyper_lstm forward and backward (the ``hyper`` preset's
+    decoder) at B=100, T=250, H=512, HH=256, e=32, D=5, with both
+    per-example biases (the projections of z) and the four nonzero initial
+    carries, dropout seeded. The model's zero- and constant-initialised
+    projections (``w_hz_x``, ``w_hz_h``, ``w_zd_*``) are perturbed, so
+    every product and every gradient works on dense values."""
+    import torch
+
+    from sketch_rnn_tpu_torch.ops import cuda_fused as CF
+    from sketch_rnn_tpu_torch.ops import linear as L
+
+    dt = inp["dt"]
+    dp, cell = inp["params"]["dec"], inp["model"].dec
+    cdt = cell.compute_dtype
+    wdt = torch_dtype(dt)
+    xs = inp["x_in"]
+    t, b, d = xs.shape
+    h, hh, e = cell.hidden_size, cell.hyper_size, cell.embed_size
+    d_in = dp["hyper"]["wx"].shape[0] - h
+    wxh = dp["hyper"]["wx"]
+    w = hyper_model_weights(inp, d)
+    extra = inp["z"]
+    biases = (inp["x_bias"], L.matmul(extra, wxh[d:d_in], cdt))
+    carries, cots = hyper_carries_and_cots(inp)
     fargs, bargs, seed_kw, fwd, grads = hold_hyper(
         dt, xs, w, carries, biases, cots, inp["seed_dec"], rows)
 
@@ -2786,7 +2828,9 @@ def train_spc(card, workdir_eval):
 FEED_ARMS = {"f32_d0": ("float32", 0), "f32_d2": ("float32", 2),
              "i16_d2": ("int16", 2)}
 FEED_TURNS = ("f32_d0", "f32_d2", "i16_d2", "i16_d2", "f32_d2", "f32_d0")
-FEED_CALLS = {1: 6, SPC: 3}     # timed calls a turn, after FEED_WARM calls
+# timed calls a turn, after FEED_WARM calls (6 and 3 until the bucket and
+# dropout phases came, when the whole script passed 700 s)
+FEED_CALLS = {1: 4, SPC: 2}
 FEED_WARM = 1       # the step functions capture once, before the turns
 
 
@@ -3068,6 +3112,586 @@ def train_feed(card, tr):
                             "rows": [r["step"] for r in rows7],
                             "bitwise_float32_depth0": True},
         seconds=time.perf_counter() - t_phase)
+
+
+# -- length-bucketed training and input/output dropout ----------------------
+
+BUCKET_EDGES = (32, 64, 96)     # and the terminal 250 (max_seq_len)
+BUCKET_CORPUS = 4000    # synthetic sketches at grid 255: 24-96 points each
+BUCKET_STEPS = 48       # an epoch is 40 batches here: full stacks, run
+                        # remainders, the weighted tail and the next epoch
+UNBUCKETED_STEPS = 10   # the same model at T=250, for the comparison
+BUCKET_SHORT_T = 32     # rows 4 and 5 held against their plain versions here
+DROP_STEPS = 10         # each dropout arm's timed steps a turn
+DROP_TURNS = ("on", "off", "off", "on")
+DROP_TRAIN_STEPS = 4    # train() with both dropouts, counters read
+CLI_BUCKET_STEPS = 10   # cli train, bucketed at K=5 with both dropouts
+
+
+def kernel_pair(pair, dt, common, carry, dhs, final_cots, seed, shape,
+                timed=True):
+    """A training kernel pair of ``ops/cuda_fused.py`` (``pair``:
+    ``lstm_seq``, ``lstm`` or ``ln_lstm``) forward then backward against
+    their plain versions on the same CUDA inputs (:func:`hold_fused`),
+    then timed; ``common``: the arguments both take, ``carry``: ``c0``
+    and ``h0``, ``final_cots``: ``dcT``/``dhT`` (empty for ``lstm_seq``);
+    ``timed=False`` holds one call each and times nothing. Returns
+    ``{kernel name: its record}`` (each also logged)."""
+    from sketch_rnn_tpu_torch.ops import cuda_fused as CF
+
+    fwd, bwd = getattr(CF, pair + "_fwd"), getattr(CF, pair + "_bwd")
+    fwd_ref = getattr(CF, pair + "_fwd_reference")
+    bwd_ref = getattr(CF, pair + "_bwd_reference")
+    name = "fused_" + pair
+    xs = common["xs"]
+    t, b, d = xs.shape
+    h = common["wh"].shape[0]
+    rdt = None if dt == "float32" else torch_dtype(dt)
+    fargs = dict(common, **carry, residual_dtype=rdt)
+    seed_kw = dict(dropout_seed=seed, keep_prob=KEEP)
+    masks_kw = dict(masks=streamed_masks(seed, t, b, h), keep_prob=KEEP)
+    rows = {}
+    outs = hold_fused(name + "_fwd", dt, lambda **k: fwd(**fargs, **k),
+                      lambda **k: fwd_ref(**fargs, **k), seed_kw, masks_kw,
+                      rows)
+    bargs = dict(common, h0=carry["h0"], hs=outs[0], cs=outs[1], dhs=dhs,
+                 **final_cots)
+    grads = hold_fused(name + "_bwd", dt, lambda **k: bwd(**bargs, **k),
+                       lambda **k: bwd_ref(**bargs, **k), seed_kw, masks_kw,
+                       rows)
+    if not timed:
+        for n, r in rows.items():
+            log("kernel", name=n, dtype=dt, tol=FUSED_TOL[dt], shape=shape,
+                T=t, B=b, D=d, H=h, **r[dt])
+        return {n: r[dt] for n, r in rows.items()}
+    g4 = 4 * h
+    ff = 2 * t * b * (d + h) * g4
+    bf = {"lstm_seq": ff + 2 * t * b * h * g4 + 2 * t * b * (d + h + 1) * g4,
+          "lstm": ff + 2 * t * b * (d + h) * g4
+          + 2 * t * b * (d + h + 1) * g4,
+          "ln_lstm": 3 * ff}[pair]
+    params_in = [v for k, v in common.items()
+                 if k != "xs" and hasattr(v, "element_size")]
+    time_fused(name + "_fwd", dt, fwd, fwd_ref, {**fargs, **seed_kw}, 10, ff,
+               nbytes(xs, *params_in, *carry.values(), seed,
+                      *[o for o in outs if o is not None]),
+               rows, shape=shape, T=t, B=b, D=d, H=h)
+    time_fused(name + "_bwd", dt, bwd, bwd_ref, {**bargs, **seed_kw}, 5, bf,
+               nbytes(xs, *params_in, carry["h0"], *outs[:2], dhs,
+                      *final_cots.values(), seed,
+                      *[g for g in grads if g is not None]),
+               rows, shape=shape, T=t, B=b, D=d, H=h)
+    return {n: r[dt] for n, r in rows.items()}
+
+
+def cut_to(inp, t):
+    """``fused_inputs`` cut to the first ``t`` steps (a bucket's T)."""
+    out = dict(inp)
+    for k in ("x_in", "x_tgt", "dhs_enc", "dhs_dec"):
+        out[k] = inp[k][:t].contiguous()
+    return out
+
+
+def dropped_stream(inp, seed=31):
+    """The decoder's input under input dropout, as ``SketchRNN.decode``
+    makes it: the stream ``[x; z; class embedding]`` ``[T, B, D + E]``
+    times its seeded bernoulli mask over ``keep`` (no gate bias)."""
+    import torch
+
+    from sketch_rnn_tpu_torch.models.vae import _dropout
+    from sketch_rnn_tpu_torch.utils import prng
+
+    x, extra = inp["x_in"], inp["extra"]
+    full = torch.cat([x, extra[None].expand(x.shape[0], *extra.shape)], -1)
+    return _dropout(full, prng.key(seed, device=DEV),
+                    inp["hps"].input_dropout_keep).contiguous()
+
+
+def bucket_geometry(batch, use):
+    """A call's geometry label: ``T<edge>``, ``k<use>`` for a stack, and
+    ``w`` for a weighted (wrap-filled tail) batch."""
+    t = batch["strokes"].shape[-2] - 1
+    k = "" if batch["strokes"].ndim == 3 else f"k{use}_"
+    return f"{k}T{t}" + ("_w" if "weights" in batch else "")
+
+
+def true_points(batch, use):
+    """Stroke points trained on in a call's first ``use`` micro-batches
+    (rows of weight 0, a tail batch's wrap fill, not counted)."""
+    import numpy as np
+
+    sl = np.asarray(batch["seq_len"], np.float64)
+    w = np.asarray(batch["weights"], np.float64) if "weights" in batch \
+        else np.ones_like(sl)
+    if sl.ndim == 1:
+        return float((sl * w).sum())
+    return float((sl[:use] * w[:use]).sum())
+
+
+def bucket_drive(fns, loader, params, k, steps, per_geometry=None):
+    """``steps`` flagship steps from ``params``' fresh state as
+    ``train()`` drives them without a workdir: keys ``fold_in(root_key,
+    step)``; at K=1 the loader's ``next_batch``; at K>1 its ``next_stack(K)``
+    (bucketed) or K ``next_batch`` stacked, through ``dispatch_stack``.
+    With ``per_geometry`` (a dict) each call is synchronized on both sides
+    and booked under its geometry: calls, steps, seconds, launches.
+    Returns ``(state, wall s, true stroke points)``."""
+    import torch
+
+    from sketch_rnn_tpu_torch.data.prefetch import stack_batches
+    from sketch_rnn_tpu_torch.ops import cuda_fused as CF
+    from sketch_rnn_tpu_torch.train.loop import dispatch_stack
+    from sketch_rnn_tpu_torch.train.state import make_train_state
+    from sketch_rnn_tpu_torch.utils import prng
+
+    single, multi = fns
+    root = prng.split(prng.key(0), 2)[0]
+    state, step, points = make_train_state(params), 0, 0.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while step < steps:
+        if k == 1:
+            batch = loader.next_batch()
+        elif loader.bucket_edges:
+            batch = loader.next_stack(k)
+        else:
+            batch = stack_batches([loader.next_batch() for _ in range(k)])
+        if per_geometry is not None:
+            torch.cuda.synchronize()
+            c0, t1 = CF.launch_counts(), time.perf_counter()
+        if k == 1:
+            state, _ = single(state, batch, prng.fold_in(root, step))
+            use = 1
+        else:
+            state, _, use, _ = dispatch_stack(single, multi, state, batch,
+                                              step, steps - step, root, k)
+        points += true_points(batch, use)
+        if per_geometry is not None:
+            torch.cuda.synchronize()
+            c1 = CF.launch_counts()
+            g = per_geometry.setdefault(bucket_geometry(batch, use), {
+                "calls": 0, "steps": 0, "s": 0.0, "launches": {}})
+            g["calls"] += 1
+            g["steps"] += use
+            g["s"] += time.perf_counter() - t1
+            for n in c1:
+                if c1[n] != c0[n]:
+                    g["launches"][n] = g["launches"].get(n, 0) + c1[n] - c0[n]
+        step += use
+    torch.cuda.synchronize()
+    return state, time.perf_counter() - t0, points
+
+
+def train_buckets(card, rows):
+    """Length-bucketed training of the flagship (bf16, B=100) with
+    ``bucket_edges=32;64;96;250`` and ``bucket_run_len=8`` on the synthetic
+    corpus at grid 255 (``BUCKET_CORPUS`` sketches of 24-96 points).
+    First rows 4f/4b/5f/5b at T=32 against their plain versions (the
+    records go into ``rows`` as ``at_T32``). Then ``train()`` itself at
+    K=1 and at K=5 (the bucket-run scheduler) for ``BUCKET_STEPS`` steps
+    from the same weights, the counters zeroed just before each and read
+    just after (the flagship's launches a step, times the steps): the two
+    final states bit for bit equal. Then, in turns, hand-driven runs as
+    ``train()`` drives them (:func:`bucket_drive`), bucketed and at
+    T=250, at K=1 and 5: ms a step and true stroke points a second, the
+    padding ledger's ``padded_frac``; one bucketed run at each K with
+    every call synchronized gives each geometry's ms a step and launches,
+    and each K=5 graph's held memory."""
+    import torch
+
+    from sketch_rnn_tpu_torch.data.loader import synthetic_loader
+    from sketch_rnn_tpu_torch.models.vae import SketchRNN
+    from sketch_rnn_tpu_torch.ops import cuda_fused as CF
+    from sketch_rnn_tpu_torch.ops import cuda_lstm as CL
+    from sketch_rnn_tpu_torch.train.loop import train
+    from sketch_rnn_tpu_torch.train.state import states_equal
+    from sketch_rnn_tpu_torch.train.step import (make_multi_train_step,
+                                                 make_train_step)
+
+    t_phase = time.perf_counter()
+    dt = "bfloat16"
+
+    # rows 4f/4b (the encoder) and 5f/5b (the decoder) at T=32
+    inp = cut_to(fused_inputs(train_hps, dt), BUCKET_SHORT_T)
+    ep, w, dp = inp["enc"], inp["dec"], inp["params"]["dec"]
+    zero = torch.zeros((inp["x_tgt"].shape[1], ep["wh"].shape[0]),
+                       device=DEV)
+    short = kernel_pair(
+        "lstm_seq", dt, dict(xs=inp["x_tgt"], wx=ep["wx"], b=ep["b"],
+                             wh=ep["wh"], forget_bias=1.0),
+        dict(c0=zero, h0=zero), inp["dhs_enc"], {}, inp["seed_enc"],
+        "T=32 (bucket edge)")
+    ln = dict(ln_gamma=dp["ln_gamma"], ln_beta=dp["ln_beta"],
+              lnc_gamma=dp["lnc_gamma"], lnc_beta=dp["lnc_beta"])
+    short.update(kernel_pair(
+        "ln_lstm", dt, dict(xs=inp["x_in"], wx=w["wx"], wh=w["wh"], **ln,
+                            forget_bias=1.0, x_bias=inp["x_bias"]),
+        dict(c0=inp["c0"], h0=inp["h0"]), inp["dhs_dec"],
+        dict(dcT=inp["dcT"], dhT=inp["dhT"]), inp["seed_dec"],
+        "T=32 (bucket edge)"))
+    for name, r in short.items():
+        rows[name][dt]["at_T32"] = r
+    del inp, zero
+    torch.cuda.empty_cache()
+
+    base = train_hps(**dtype_over(dt))
+    hps_b = base.replace(bucket_edges=BUCKET_EDGES, bucket_run_len=8)
+    model = SketchRNN(base)
+    params = model.init_params(torch.Generator().manual_seed(0), device=DEV)
+
+    def loader(hps):
+        return synthetic_loader(hps, num=BUCKET_CORPUS, seed=0,
+                                integer_grid=255.0)[0]
+
+    def counts():
+        return {**CF.launch_counts(), **CL.launch_counts()}
+
+    # train() at K=1 and K=5 from the same weights: bit for bit
+    finals, entry = {}, {}
+    for k in (1, SPC):
+        tl = loader(hps_b)
+        torch.cuda.synchronize()
+        CF.reset_launch_counts()
+        CL.reset_launch_counts()
+        t0 = time.perf_counter()
+        st, hist = train(hps_b.replace(steps_per_call=k), tl, seed=0,
+                         num_steps=BUCKET_STEPS, params=params, device=DEV)
+        torch.cuda.synchronize()
+        launches = counts()
+        want = {n: FLAGSHIP_PER_STEP.get(n, 0) * BUCKET_STEPS
+                for n in launches}
+        if launches != want:
+            raise AssertionError(f"bucketed train() at K={k}: launches "
+                                 f"{launches}, expected {want}")
+        if not all(math.isfinite(r["loss"]) for r in hist):
+            raise AssertionError(f"bucketed K={k}: non-finite losses")
+        finals[k] = st
+        entry[f"k{k}"] = {"s": time.perf_counter() - t0, "calls": len(hist),
+                          "launches": launches,
+                          "ledger": tl.padding_ledger.summary()}
+    bitwise = states_equal(finals[1], finals[SPC])
+    if not bitwise:
+        raise AssertionError("bucketed train(): K=5 is not bit for bit K=1")
+    del finals
+
+    # hand-driven runs, the step functions built once (their graphs kept)
+    fns, loaders = {}, {}
+    for arm, hps in (("bucketed", hps_b), ("unbucketed", base)):
+        loaders[arm] = loader(hps)
+        fns[arm] = {k: (make_train_step(model, hps, device=DEV),
+                        make_multi_train_step(
+                            model, hps.replace(steps_per_call=SPC),
+                            device=DEV, key_by_global_step=True)
+                        if k > 1 else None) for k in (1, SPC)}
+    steps = {"bucketed": BUCKET_STEPS, "unbucketed": UNBUCKETED_STEPS}
+
+    def run(arm, k, per_geometry=None):
+        ld = loaders[arm]
+        if ld.bucket_edges:
+            ld.seek_epoch(0)
+        ld.padding_ledger.window()
+        st, wall, pts = bucket_drive(fns[arm][k], ld, params, k, steps[arm],
+                                     per_geometry)
+        frac = ld.padding_ledger.window()["padded_frac"]
+        return st, {"ms_per_step": wall * 1e3 / steps[arm],
+                    "true_points_per_s": pts / wall, "padded_frac": frac}
+
+    memory, first_seen = {}, {}
+    for arm in fns:     # warm-up: every graph captured, in plan order
+        for k in (1, SPC):
+            torch.cuda.synchronize()
+            r0 = torch.cuda.memory_reserved()
+            run(arm, k, first_seen.setdefault(f"{arm}_k{k}", {}))
+            memory[f"{arm}_k{k}"] = torch.cuda.memory_reserved() - r0
+    turns = [(arm, k) for arm in ("bucketed", "unbucketed")
+             for k in (1, SPC)]
+    turns += turns[::-1]
+    timed, hand = {}, {}
+    for arm, k in turns:
+        st, rec = run(arm, k)
+        timed.setdefault(f"{arm}_k{k}", []).append(rec)
+        if arm == "bucketed" and not states_equal(st, hand.setdefault(k,
+                                                                      st)):
+            raise AssertionError(f"bucketed K={k}: two runs differ")
+    if not states_equal(hand[1], hand[SPC]):
+        raise AssertionError("hand-driven bucketed K=5 is not bit for bit "
+                             "K=1")
+    del hand
+    geometry = {}
+    for k in (1, SPC):
+        per = geometry[f"k{k}"] = {}
+        run("bucketed", k, per)
+        for g in per.values():
+            g["ms_per_step"] = g["s"] * 1e3 / g["steps"]
+    graphs = fns["bucketed"][SPC][1].graphed
+    full = [g for g in first_seen[f"bucketed_k{SPC}"]
+            if g.startswith(f"k{SPC}_")]
+    graph_memory = ({} if graphs is None
+                    else dict(zip(full, graphs.capture_bytes)))
+    mean = lambda arm, key: sum(r[key] for r in timed[arm]) / len(timed[arm])
+    summary = {f"k{k}": {
+        "ms_per_step": {a: mean(f"{a}_k{k}", "ms_per_step")
+                        for a in ("bucketed", "unbucketed")},
+        "true_points_per_s": {a: mean(f"{a}_k{k}", "true_points_per_s")
+                              for a in ("bucketed", "unbucketed")},
+        "padded_frac": {a: timed[f"{a}_k{k}"][0]["padded_frac"]
+                        for a in ("bucketed", "unbucketed")}}
+        for k in (1, SPC)}
+    for v in summary.values():
+        v["throughput_ratio"] = (v["true_points_per_s"]["bucketed"]
+                                 / v["true_points_per_s"]["unbucketed"])
+    at_t32 = geometry["k1"].get(f"T{BUCKET_SHORT_T}", {}).get("launches", {})
+    for name in ("fused_lstm_seq_fwd", "fused_lstm_seq_bwd",
+                 "fused_ln_lstm_fwd", "fused_ln_lstm_bwd"):
+        rows[name][dt]["at_T32"]["launches_bucketed_k1"] = at_t32.get(name,
+                                                                      0)
+    del fns, loaders
+    torch.cuda.empty_cache()
+
+    # the command line: bucketed at K=5, with both dropouts; an eval
+    # sweep at bucket pads, a save and the test sweep
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_buckets_")
+    try:
+        CF.reset_launch_counts()
+        CL.reset_launch_counts()
+        out, cli_s = run_cli([
+            "train", "--preset", "quickdraw345_dp", "--synthetic",
+            f"--workdir={tmp}", "--no_resume", "--bucket_edges=32,64,96,250",
+            f"--steps_per_call={SPC}",
+            f"--hparams=num_steps={CLI_BUCKET_STEPS},save_every="
+            f"{CLI_BUCKET_STEPS},eval_every={CLI_BUCKET_STEPS},log_every=5,"
+            f"use_input_dropout=true,use_output_dropout=true"])
+        torch.cuda.synchronize()
+        cli_launches = counts()
+        with open(os.path.join(tmp, "train_metrics.jsonl")) as f:
+            cli_rows = [json.loads(line) for line in f]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    bwd = ("fused_lstm_seq_bwd", "fused_ln_lstm_bwd")
+    if ("run_sched: steps_per_call=5" not in out
+            or any(cli_launches[n] != FLAGSHIP_PER_STEP[n] * CLI_BUCKET_STEPS
+                   for n in bwd)
+            or not all(cli_launches[n] > 0 for n in FLAGSHIP_PER_STEP)
+            or cli_rows[-1]["step"] != CLI_BUCKET_STEPS
+            or not math.isfinite(cli_rows[-1]["loss"])):
+        raise AssertionError(f"cli train (bucketed, dropout): launches "
+                             f"{cli_launches}, rows {cli_rows}, output "
+                             f"{out[-1500:]}")
+    cli_record = {"seconds": cli_s, "launches": cli_launches,
+                  "last_row": cli_rows[-1]}
+    log("train_buckets", card=card,
+        preset="quickdraw345_dp (bfloat16 compute and residuals)",
+        batch=base.batch_size, bucket_edges=list(hps_b.bucket_edges),
+        bucket_run_len=hps_b.bucket_run_len, corpus=BUCKET_CORPUS,
+        steps={"bucketed": BUCKET_STEPS, "unbucketed": UNBUCKETED_STEPS},
+        steps_per_call=[1, SPC], train_entry=entry,
+        k5_bitwise_k1=bitwise, turns=[f"{a}_k{k}" for a, k in turns],
+        timed=timed, summary=summary, per_geometry=geometry,
+        graph_capture_bytes=graph_memory,
+        graph_capture_s=graphs and graphs.capture_seconds,
+        reserved_growth_bytes=memory, cli_train=cli_record,
+        seconds=time.perf_counter() - t_phase)
+    torch.cuda.empty_cache()
+
+
+def drop_inputs(hps_fn, dt):
+    """``fused_inputs`` with the decoder's input the dropped stream
+    (D = 5 + Nz + class embedding, no gate bias) and the decoder's input
+    weight whole."""
+    inp = fused_inputs(hps_fn, dt)
+    inp["x_in"] = dropped_stream(inp)
+    inp["dec"] = dict(inp["dec"], wx=inp["params"]["dec"]["wx"].to(
+        torch_dtype(dt)))
+    return inp
+
+
+def train_dropout(card, rows):
+    """The flagship (bf16) with input and output dropout. First the
+    kernels at the shapes input dropout gives them, against their plain
+    versions: rows 5f/5b at D=197 (5 + Nz 128 + class embedding 64) with
+    no x_bias (timed; into ``rows`` as ``at_D197``), rows 3f/3b (the
+    ``vae`` preset, f32) and 6f/6b (the ``hyper`` preset, f32) at D=133,
+    one held call each. Then a K=5 replay with both dropouts against five
+    eager steps from a state with history, bit for bit; ms and device
+    events a step with the dropouts on and off, in turns, at K=1 (eager)
+    and K=5 (replays), and two K=1 steps of each profiled; ``train()``
+    with both dropouts for ``DROP_TRAIN_STEPS`` steps, the counters zeroed
+    just before and read just after."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sketch_rnn_tpu_torch.data.prefetch import stack_batches
+    from sketch_rnn_tpu_torch.models.vae import SketchRNN
+    from sketch_rnn_tpu_torch.ops import cuda_fused as CF
+    from sketch_rnn_tpu_torch.ops import cuda_lstm as CL
+    from sketch_rnn_tpu_torch.train.loop import train
+    from sketch_rnn_tpu_torch.train.state import (make_train_state,
+                                                  states_equal)
+    from sketch_rnn_tpu_torch.train.step import (make_multi_train_step,
+                                                 make_train_step,
+                                                 replay_window_metrics)
+    from sketch_rnn_tpu_torch.utils import prng
+
+    t_phase = time.perf_counter()
+    dt = "bfloat16"
+
+    # row 5 at D=197 without x_bias
+    inp = drop_inputs(train_hps, dt)
+    w, dp = inp["dec"], inp["params"]["dec"]
+    ln = dict(ln_gamma=dp["ln_gamma"], ln_beta=dp["ln_beta"],
+              lnc_gamma=dp["lnc_gamma"], lnc_beta=dp["lnc_beta"])
+    d_in = inp["x_in"].shape[-1]
+    d197 = kernel_pair(
+        "ln_lstm", dt, dict(xs=inp["x_in"], wx=w["wx"], wh=w["wh"], **ln,
+                            forget_bias=1.0, x_bias=None),
+        dict(c0=inp["c0"], h0=inp["h0"]), inp["dhs_dec"],
+        dict(dcT=inp["dcT"], dhT=inp["dhT"]), inp["seed_dec"],
+        f"D={d_in}, no x_bias (input dropout)")
+    for name, r in d197.items():
+        rows[name][dt]["at_D197"] = r
+    del inp
+    # rows 3 and 6 at D=133, float32, one held call each
+    held = {}
+    inp = drop_inputs(vae_hps, "float32")
+    w, dp = inp["dec"], inp["params"]["dec"]
+    lstm = kernel_pair(
+        "lstm", "float32", dict(xs=inp["x_in"], wx=w["wx"], b=dp["b"],
+                                wh=w["wh"], forget_bias=1.0, x_bias=None),
+        dict(c0=inp["c0"], h0=inp["h0"]), inp["dhs_dec"],
+        dict(dcT=inp["dcT"], dhT=inp["dhT"]), inp["seed_dec"],
+        f"D={inp['x_in'].shape[-1]}, no x_bias (input dropout)",
+        timed=False)
+    held.update(lstm)
+    for name, r in lstm.items():
+        rows[name]["float32"]["at_D133"] = r
+    del inp
+    inp = drop_inputs(hyper_hps, "float32")
+    hyper_rows = {}
+    carries, cots = hyper_carries_and_cots(inp)
+    hold_hyper("float32", inp["x_in"],
+               hyper_model_weights(inp, inp["x_in"].shape[-1]), carries,
+               (None, None), cots, inp["seed_dec"], hyper_rows)
+    for name, r in hyper_rows.items():
+        r = r["float32"]
+        held[name] = r
+        rows[name]["float32"]["at_D133"] = r
+        log("kernel", name=name, dtype="float32", tol=FUSED_TOL["float32"],
+            shape=f"D={inp['x_in'].shape[-1]}, no biases (input dropout)",
+            **r)
+    del inp
+    torch.cuda.empty_cache()
+
+    hps_off = train_hps(**dtype_over(dt))
+    hps_on = hps_off.replace(use_input_dropout=True, use_output_dropout=True)
+    _, model_on, params, ld = setup(hps_on)
+    models = {"on": model_on, "off": SketchRNN(hps_off)}
+    hpss = {"on": hps_on, "off": hps_off}
+    single = {a: make_train_step(models[a], hpss[a], device=DEV)
+              for a in models}
+    multi = {a: make_multi_train_step(
+        models[a], hpss[a].replace(steps_per_call=SPC), device=DEV)
+        for a in models}
+    root = prng.split(prng.key(0), 2)[0]
+
+    def drive(arm, k, steps, state=None):
+        state = make_train_state(params) if state is None else state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps // k):
+            batch = (ld.next_batch() if k == 1 else
+                     stack_batches([ld.next_batch() for _ in range(k)]))
+            fn = single[arm] if k == 1 else multi[arm]
+            state, m = fn(state, batch, prng.fold_in(root, state.step))
+        torch.cuda.synchronize()
+        if not math.isfinite(float(m["loss"])):
+            raise AssertionError(f"dropout {arm} K={k}: loss {m['loss']}")
+        return time.perf_counter() - t0, state
+
+    # the replay against five eager steps, from a state with history
+    for a in models:
+        for k in (1, SPC):
+            drive(a, k, SPC)          # warm-up; K=5 captures
+    _, state = drive("on", SPC, SPC)
+    batches, key = [ld.next_batch() for _ in range(SPC)], prng.key(23)
+    got = multi["on"](state, stack_batches(batches), key)
+    st, per = state, []
+    for i, b in enumerate(batches):
+        st, m = single["on"](st, b, prng.fold_in(key, i))
+        per.append(m)
+    want = replay_window_metrics(per)
+    bitwise = (states_equal(got[0], st) and sorted(got[1]) == sorted(want)
+               and all(torch.equal(got[1][n], want[n]) for n in want))
+    if not bitwise:
+        raise AssertionError("dropout: the K=5 replay is not bit for bit "
+                             "five eager steps")
+    del state, st, got
+
+    ms = {}
+    for a in DROP_TURNS:
+        for k in (1, SPC):
+            wall, _ = drive(a, k, DROP_STEPS)
+            ms.setdefault(f"{a}_k{k}", []).append(wall * 1e3 / DROP_STEPS)
+    names = csrc_kernels()
+    profiles = {}
+    for a in ("on", "off"):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            drive(a, 1, 2)
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        ours = [e for e in events if any(re.search(rf"(?<!\w){n}(?!\w)",
+                                                   e.key) for n in names)]
+        device_ms = sum(e.self_device_time_total for e in events) / 1e3 / 2
+        kernels_ms = sum(e.self_device_time_total for e in ours) / 1e3 / 2
+        profiles[a] = {
+            "device_ms_per_step": device_ms,
+            "hand_written_kernels_ms_per_step": kernels_ms,
+            "other_device_ms_per_step": device_ms - kernels_ms,
+            "device_events_per_step": sum(e.count for e in events) / 2,
+            "kernels": kernel_events(prof, names)}
+    # the masks' draws and their products are device work outside the
+    # hand-written kernels; the kernels' own growth is the decoder's wider
+    # input (D=197, no x_bias)
+    draw = {k: profiles["on"][k] - profiles["off"][k]
+            for k in ("device_ms_per_step", "other_device_ms_per_step",
+                      "hand_written_kernels_ms_per_step",
+                      "device_events_per_step")}
+    draw["draws_share_of_step"] = (draw["other_device_ms_per_step"] / max(
+        profiles["on"]["device_ms_per_step"], 1e-30))
+    graphs = multi["on"].graphed
+    del single, multi
+
+    # train() with both dropouts, the counters read
+    torch.cuda.synchronize()
+    CF.reset_launch_counts()
+    CL.reset_launch_counts()
+    st, hist = train(hps_on, ld, seed=0, num_steps=DROP_TRAIN_STEPS,
+                     params=params, device=DEV)
+    torch.cuda.synchronize()
+    launches = {**CF.launch_counts(), **CL.launch_counts()}
+    want_l = {n: FLAGSHIP_PER_STEP.get(n, 0) * DROP_TRAIN_STEPS
+              for n in launches}
+    if launches != want_l or not all(math.isfinite(r["loss"])
+                                     for r in hist):
+        raise AssertionError(f"train() with dropout: launches {launches} "
+                             f"(expected {want_l}), rows {hist}")
+    for name in d197:
+        rows[name][dt]["at_D197"]["launches_train_dropout"] = launches[name]
+    med = {n: float(sorted(v)[len(v) // 2]) for n, v in ms.items()}
+    log("train_dropout", card=card,
+        preset="quickdraw345_dp (bfloat16), use_input_dropout and "
+               "use_output_dropout at keep 0.9",
+        decoder_input=d_in, kernels_held=sorted(held),
+        k5_replay_bitwise_eager=bitwise, turns=list(DROP_TURNS),
+        ms_per_step=ms, median_ms_per_step=med, profile=profiles,
+        mask_draws=draw,
+        graph_capture_bytes=graphs and graphs.capture_bytes,
+        train_entry={"steps": DROP_TRAIN_STEPS, "launches": launches},
+        seconds=time.perf_counter() - t_phase)
+    torch.cuda.empty_cache()
 
 
 # -- the hoisted LSTM, the probes, the plain training path -----------------
@@ -4645,6 +5269,9 @@ KERNEL_ROWS = (
      "bfloat16"),
     ("ln_probe_bwd_fake_stats", LADDER_SRC, "scripts/probe_ln_stats.py:87",
      "bfloat16"))
+# the records of a row at the slice's other shapes: T=32 (a bucket edge),
+# the decoder's input under input dropout (D=197 and D=133, no x_bias)
+AT_SHAPES = ("at_T32", "at_D197", "at_D133")
 # the kernels measured at one dtype only; every other row also carries the
 # other dtype's numbers under at_<dtype>
 ONE_DTYPE = ("lstm_seq_fwd", "lstm_seq_bwd", "dual_seq_fwd",
@@ -4716,6 +5343,8 @@ def main():
     train_feed(card, npz_train)
     del npz_train
     torch.cuda.empty_cache()
+    train_buckets(card, rows)
+    train_dropout(card, rows)
     cli_tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     try:
         cli_flow(card, cli_tmp)
@@ -4779,14 +5408,15 @@ def main():
                                **{k: v[k] for k in keys}}
                            for a, v in r["arms"].items()}
         for extra in ("ab", "weight_pass", "lstm", "kernel_ms",
-                      "rowblock_ms", "speedup"):
-            if extra in r:      # the A/B records, the serving entries alone
-                out[extra] = r[extra]
+                      "rowblock_ms", "speedup", *AT_SHAPES):
+            if extra in r:      # the A/B records, the serving entries
+                out[extra] = r[extra]   # alone, the bucket and dropout shapes
         for other in want - {dt}:
             o = rows[name][other]
             out["at_" + other] = {"max_abs_err": o["err"],
                                   **{k: o[k] for k in keys}}
-            for extra in ("ab", "weight_pass", "lstm", "kernel_ms"):
+            for extra in ("ab", "weight_pass", "lstm", "kernel_ms",
+                          *AT_SHAPES):
                 if extra in o:
                     out["at_" + other][extra] = o[extra]
         return out

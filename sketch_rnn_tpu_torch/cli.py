@@ -75,7 +75,6 @@ LATER_FLAGS = {
                        f"of utils/faults.py)"),
     "fault_seed": (0, f"{_TRAIN_FEATURES}: the fault-injection sites "
                       f"of utils/faults.py)"),
-    "bucket_edges": ("", f"{_TRAIN_FEATURES}: bucketed plans)"),
     "elastic_hosts": (0, f"{_TRAIN_FEATURES}: train/elastic.py)"),
     "elastic_host_id": (0, f"{_TRAIN_FEATURES}: train/elastic.py)"),
     "rendezvous": ("", f"{_TRAIN_FEATURES}: train/elastic.py)"),
@@ -220,8 +219,14 @@ def _restore(hps: HParams, workdir: str, device):
 def cmd_train(args) -> int:
     from sketch_rnn_tpu_torch.train.loop import train
     hps = _resolve_hps(args)
+    if args.bucket_edges:
+        # shorthand for --hparams bucket_edges=...: comma or semicolon
+        # separators (the hparam tuple syntax is ';')
+        hps = hps.parse(
+            f"bucket_edges={args.bucket_edges.replace(',', ';')}")
     if args.steps_per_call:
-        # shorthand for --hparams steps_per_call=K
+        # shorthand for --hparams steps_per_call=K (with --bucket_edges:
+        # the bucket-run scheduler)
         hps = hps.replace(steps_per_call=args.steps_per_call)
     if args.sync_io:
         # blocking saves and eager metric conversion in one flag
@@ -825,8 +830,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "(async_checkpoint=false,metrics_defer=false), "
                         "for debugging; results are identical either way")
     p.add_argument("--bucket_edges", default="",
-                   help="length-bucketed execution (refused: "
-                        "ROADMAP queue 1 item 7)")
+                   help="length-bucketed execution: comma/semicolon-"
+                        "separated bucket pad lengths (e.g. 32,64,96,250); "
+                        "batches pad only to their bucket edge and each "
+                        "(B, Tb) geometry gets its own kernel launches "
+                        "(its own CUDA graph at --steps_per_call > 1). "
+                        "Shorthand for --hparams bucket_edges=...")
     for flag in ("--profile", "--watchdog", "--halt_on_anomaly"):
         p.add_argument(flag, action="store_true",
                        help="refused: ROADMAP queue 1 item 7")

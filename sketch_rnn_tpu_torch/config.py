@@ -4,10 +4,11 @@ A copy of ``sketch_rnn_tpu/config.py``: the same frozen dataclass, field
 names, defaults, validation and ``key=value,key=value`` override grammar,
 so a sidecar ``hps`` JSON written by either package loads in the other.
 The port keeps its own copy rather than importing the JAX package's (the
-port imports nothing of ``sketch_rnn_tpu``). Many fields configure parts
-of the system the port does not run yet (training, bucketing, the fused
-training kernels, the fleet); they are kept so the JSON round-trips, and
-their meaning is documented once, in the JAX package's copy.
+port imports nothing of ``sketch_rnn_tpu``). Some fields configure parts
+of the system the port does not run yet (data parallelism and the mesh,
+telemetry, the speculative draft, the fleet's later features); they are
+kept so the JSON round-trips, and every field's meaning is documented
+once, in the JAX package's copy.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Stroke-3 corpora into padded stroke-5 training batches (host numpy).
 
 The port of the parts of ``sketch_rnn_tpu/data/loader.py`` a
-single-host, unbucketed trainer uses: ``_purify``, ``DataLoader``
+single-host trainer uses: ``_purify``, ``DataLoader``
 (``normalize``, ``random_batch``/``next_batch``, ``fast_forward``, the
 eval sweep's ``num_eval_batches``/``get_batch`` and the numpy assembly
 path), ``load_dataset`` over a directory of QuickDraw-shaped ``.npz``
@@ -17,9 +17,18 @@ quantizes a batch's offsets back to integer data units on that numpy
 path, bitwise the JAX package's numpy quantization, and adds the
 ``"transfer_scale"`` leaf.
 
+Length-bucketed execution (``hps.bucket_edges``) is the JAX loader's,
+bit for bit: the seeded epoch plan (``_plan_bucket_epoch``: batches
+padded only to their bucket edge, weighted wrap-filled tail batches,
+the run-aware windowed shuffle), the bucketed ``next_batch`` stream,
+``seek_epoch``, the bucket-run scheduler's ``next_stack``, the eval
+batches at their bucket's pad (``eval_pad_len``, ``get_batch``), the
+plan's part of ``plan_fingerprint``, and the padding ledger
+(``utils/profiling.py``) that every assembled batch is recorded in.
+
 Not ported yet (each raises, naming the later slice): the native C++
-batcher, length bucketing (``bucket_edges``, ``next_stack``),
-multi-host striping and the coordinated global plan (ROADMAP queue 1).
+batcher, multi-host striping and the coordinated global plan (ROADMAP
+queue 1).
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ import numpy as np
 
 from sketch_rnn_tpu_torch.config import HParams
 from sketch_rnn_tpu_torch.data import strokes as S
+from sketch_rnn_tpu_torch.utils.profiling import PaddingLedger
 
 _LATER = "comes with a later slice of the PyTorch port"
 
@@ -100,15 +110,23 @@ class DataLoader:
     ``normalize`` scales them in place. ``random_batch``/``next_batch``
     return ``{"strokes": [B, max_seq_len + 1, 5] float32, "seq_len": [B]
     int32, "labels": [B] int32}``.
+
+    Length-bucketed execution (``hps.bucket_edges``): :meth:`next_batch`
+    feeds training from a seeded epoch plan, each batch padded only to
+    its bucket edge ``Tb`` (strokes ``[B, Tb + 1, 5]``), every example
+    covered once an epoch; :meth:`get_batch` pads eval batches to
+    :meth:`eval_pad_len`. The plan orders its batches into geometry runs
+    (consecutive batches of one ``(Tb, weighted?)``, at most
+    ``hps.bucket_run_len`` long) and :meth:`next_stack` pops up to K of one
+    run stacked ``[k, ...]``: the same micro-batches, in the same order and
+    with the same RNG draws, as :meth:`next_batch`. Without buckets
+    ``next_batch`` is exactly :meth:`random_batch`. Every assembled batch
+    is recorded in ``padding_ledger``.
     """
 
     def __init__(self, stroke3_list: Sequence[np.ndarray], hps: HParams,
                  labels: Optional[np.ndarray] = None,
                  augment: bool = False, seed: int = 0):
-        if hps.bucket_edges:
-            raise NotImplementedError(
-                f"bucket_edges={hps.bucket_edges}: length-bucketed "
-                f"batching {_LATER}; train with bucket_edges=()")
         self.hps = hps
         self.scale_factor = 1.0
         self.strokes: List[np.ndarray] = [np.asarray(s, np.float32)
@@ -121,6 +139,17 @@ class DataLoader:
                              f"{len(self.strokes)} sequences")
         self.augment = augment
         self.rng = np.random.default_rng(seed)
+        self.seed = seed
+        # the effective edges end at max_seq_len (the terminal bucket), so
+        # every admitted sequence has a bucket; () is bucketing off
+        edges = tuple(hps.bucket_edges)
+        if edges and edges[-1] < hps.max_seq_len:
+            edges = edges + (hps.max_seq_len,)
+        self.bucket_edges: Tuple[int, ...] = edges
+        self._lengths = np.array([len(s) for s in self.strokes], np.int32)
+        self._bucket_epoch = 0
+        self._bucket_queue: List[tuple] = []
+        self.padding_ledger = PaddingLedger(edges or (hps.max_seq_len,))
 
     def __len__(self) -> int:
         return len(self.strokes)
@@ -131,11 +160,15 @@ class DataLoader:
             s[:, 0:2] /= scale_factor
 
     def _assemble(self, idx: np.ndarray,
-                  int16_scale: Optional[float] = None
-                  ) -> Dict[str, np.ndarray]:
+                  int16_scale: Optional[float] = None,
+                  pad_to: Optional[int] = None) -> Dict[str, np.ndarray]:
+        """The batch of corpus rows ``idx``, padded to ``pad_to`` (a bucket
+        edge; every row fits, since rows are binned by raw length and
+        augmentation only shortens a sequence) or to ``max_seq_len``."""
         if int16_scale is not None and not int16_scale > 0:
             raise ValueError(
                 f"int16_scale must be positive, got {int16_scale}")
+        pad = self.hps.max_seq_len if pad_to is None else int(pad_to)
         raw = [self.strokes[i] for i in idx]
         # one augmentation seed per batch: the JAX package hands it to its
         # native batcher; drawing it here too keeps the numpy RNG stream
@@ -145,7 +178,8 @@ class DataLoader:
             raw = [S.augment_strokes(
                 S.random_scale(s, self.hps.random_scale_factor, self.rng),
                 self.hps.augment_stroke_prob, self.rng) for s in raw]
-        strokes, seq_len = pad_batch(raw, self.hps.max_seq_len)
+        strokes, seq_len = pad_batch(raw, pad)
+        self.padding_ledger.record(pad, len(raw), int(seq_len.sum()))
         batch = {"strokes": strokes, "seq_len": seq_len,
                  "labels": self.labels[idx]}
         if int16_scale is not None:
@@ -165,29 +199,180 @@ class DataLoader:
                               replace=len(self.strokes) < b)
         return self._assemble(idx, int16_scale)
 
-    def next_batch(self, int16_scale: Optional[float] = None
-                   ) -> Dict[str, np.ndarray]:
-        """The next training batch: without buckets, exactly
-        :meth:`random_batch`."""
-        return self.random_batch(int16_scale)
-
-    def next_stack(self, k_max: int, int16_scale: Optional[float] = None):
-        """The bucket-run scheduler's stack of one geometry run's prefix
-        (length bucketing); without buckets the feeder
-        (``data/prefetch.py``) stacks K :meth:`next_batch` draws itself."""
-        raise NotImplementedError(
-            f"next_stack (the bucket-run scheduler's stacks of one "
-            f"geometry run, with bucket_edges: ROADMAP queue 1) {_LATER}")
-
     def fast_forward(self, n_batches: int) -> None:
         """Draw and discard ``n_batches`` training batches through
-        :meth:`next_batch`, so a fresh loader of a run resumed at step
-        ``n`` feeds the batches the uninterrupted run drew from step
-        ``n`` on."""
+        :meth:`next_batch` (epoch refills included), so a fresh loader of
+        a run resumed at step ``n`` feeds the batches the uninterrupted
+        run drew from step ``n`` on. The padding ledger's window is reset
+        afterwards, so the discarded batches do not count in the resumed
+        run's first ``padded_frac``."""
         if n_batches < 0:
             raise ValueError(f"n_batches must be >= 0, got {n_batches}")
         for _ in range(n_batches):
             self.next_batch()
+        if n_batches:
+            self.padding_ledger.window()
+
+    def plan_fingerprint(self, epoch: Optional[int] = None) -> str:
+        """The JAX package's digest of the schedule: the batch size, the
+        bucket edges, the corpus content (labels and every normalized
+        stroke's bytes) and, under bucketed execution, epoch ``epoch``'s
+        ``(Tb, idx, weights)`` plan (the current epoch by default)."""
+        import hashlib
+
+        h = hashlib.blake2b(digest_size=16)
+        h.update(f"{self.seed}:{self.hps.batch_size}:{self.bucket_edges}:"
+                 f"{len(self.strokes)}:{self.augment}".encode())
+        h.update(np.ascontiguousarray(self.labels).tobytes())
+        for s in self.strokes:
+            h.update(np.ascontiguousarray(s).tobytes())
+        if self.bucket_edges:
+            ep = self._bucket_epoch if epoch is None else int(epoch)
+            for tb, idx, w in self._plan_bucket_epoch(ep):
+                h.update(np.int64(tb).tobytes())
+                h.update(np.ascontiguousarray(idx, np.int64).tobytes())
+                h.update(b"-" if w is None
+                         else np.ascontiguousarray(w, np.float32).tobytes())
+        return h.hexdigest()
+
+    # -- length-bucketed batching --------------------------------------------
+
+    def bucket_edge_of(self, length: int) -> int:
+        """The smallest bucket edge that fits a sequence of ``length``
+        steps (``max_seq_len`` when bucketing is off)."""
+        if not self.bucket_edges:
+            return self.hps.max_seq_len
+        e = int(np.searchsorted(np.asarray(self.bucket_edges), length))
+        if e >= len(self.bucket_edges):
+            raise ValueError(
+                f"sequence length {length} exceeds the terminal bucket "
+                f"edge {self.bucket_edges[-1]} (= max_seq_len); the "
+                f"corpus was not filtered to max_seq_len")
+        return self.bucket_edges[e]
+
+    def _plan_bucket_epoch(self, epoch: int) -> List[tuple]:
+        """Epoch ``epoch``'s plan: ``[(tb, idx [B], weights [B] or
+        None)]``, a function of ``(seed, epoch)`` alone (its own
+        generator, not the augmentation RNG). A seeded permutation is
+        binned by raw length, each bucket cut into full batches, and the
+        buckets' tails merged in order into the last batches (padded to
+        their longest member's edge); the last of those wraps round to
+        its own first rows, which weigh 0, so every example weighs 1
+        exactly once an epoch. The batch order then goes through the
+        windowed shuffle (``bucket_shuffle_window``); with
+        ``bucket_run_len > 0`` it shuffles geometry runs of at most that
+        many batches as units, so the K-step scheduler finds them
+        together."""
+        b = self.hps.batch_size
+        rng = np.random.default_rng([self.seed & 0x7FFFFFFF, 9176, epoch])
+        perm = rng.permutation(len(self.strokes))
+        bins: Dict[int, List[int]] = {e: [] for e in self.bucket_edges}
+        for i in perm:
+            bins[self.bucket_edge_of(int(self._lengths[i]))].append(int(i))
+        batches: List[tuple] = []
+        tails: List[Tuple[int, int]] = []
+        for e in self.bucket_edges:
+            arr = bins[e]
+            for lo in range(0, len(arr) - len(arr) % b, b):
+                batches.append((e, np.array(arr[lo:lo + b], np.int64),
+                                None))
+            tails.extend((e, i) for i in arr[len(arr) - len(arr) % b:])
+        for lo in range(0, len(tails), b):
+            chunk = tails[lo:lo + b]
+            tb = max(e for e, _ in chunk)
+            idx = np.array([i for _, i in chunk], np.int64)
+            w = None
+            if len(idx) < b:
+                w = np.zeros((b,), np.float32)
+                w[:len(idx)] = 1.0
+                idx = idx[np.arange(b) % len(idx)]
+            batches.append((tb, idx, w))
+        if self.hps.bucket_run_len > 0:
+            runs: List[List[tuple]] = []
+            for bt in batches:
+                g = (bt[0], bt[2] is None)
+                if (runs and (runs[-1][0][0], runs[-1][0][2] is None) == g
+                        and len(runs[-1]) < self.hps.bucket_run_len):
+                    runs[-1].append(bt)
+                else:
+                    runs.append([bt])
+            shuffled = _windowed_shuffle(runs,
+                                         self.hps.bucket_shuffle_window,
+                                         rng)
+            return [bt for run in shuffled for bt in run]
+        return _windowed_shuffle(batches, self.hps.bucket_shuffle_window,
+                                 rng)
+
+    @staticmethod
+    def _count_geometry_runs(plan: List[tuple]) -> int:
+        """Maximal consecutive same-geometry stretches of a plan (a run
+        ends wherever ``(Tb, weighted?)`` changes)."""
+        runs, prev = 0, None
+        for tb, _, w in plan:
+            g = (tb, w is None)
+            if g != prev:
+                runs += 1
+                prev = g
+        return runs
+
+    def _refill_bucket_queue(self) -> None:
+        if not self.strokes:
+            raise ValueError("bucketed next_batch on an empty corpus")
+        plan = self._plan_bucket_epoch(self._bucket_epoch)
+        self._bucket_epoch += 1
+        self.padding_ledger.note_epoch_plan(
+            self._count_geometry_runs(plan), len(plan))
+        self._bucket_queue = plan
+
+    def next_batch(self, int16_scale: Optional[float] = None
+                   ) -> Dict[str, np.ndarray]:
+        """The next training batch: the bucketed epoch stream when
+        ``hps.bucket_edges`` is set (a wrap-filled tail batch carries its
+        ``"weights"``), else exactly :meth:`random_batch`."""
+        if not self.bucket_edges:
+            return self.random_batch(int16_scale)
+        if not self._bucket_queue:
+            self._refill_bucket_queue()
+        tb, idx, w = self._bucket_queue.pop(0)
+        batch = self._assemble(idx, int16_scale, pad_to=tb)
+        if w is not None:
+            batch["weights"] = w
+        return batch
+
+    def seek_epoch(self, epoch: int) -> None:
+        """Rewind the bucketed stream to the start of ``epoch``'s plan
+        (the queue refills at the next draw). Bucketed loaders only."""
+        if not self.bucket_edges:
+            raise ValueError("seek_epoch requires bucketed execution "
+                             "(bucket_edges)")
+        self._bucket_queue = []
+        self._bucket_epoch = int(epoch)
+
+    def next_stack(self, k_max: int, int16_scale: Optional[float] = None
+                   ) -> Dict[str, np.ndarray]:
+        """The bucket-run scheduler's feed: up to ``k_max`` consecutive
+        batches of the current geometry run (one ``(Tb, weighted?)``),
+        stacked ``[k, ...]`` with ``1 <= k <= k_max``; a stack never
+        crosses an epoch's end. Successive stacks' micro-batches are the
+        :meth:`next_batch` stream of an identically seeded loader."""
+        if k_max < 1:
+            raise ValueError(f"k_max must be >= 1, got {k_max}")
+        if not self.bucket_edges:
+            raise ValueError(
+                "next_stack is the bucketed scheduler's entry point; "
+                "with bucket_edges unset use next_batch/random_batch "
+                "(fixed-T stacks are plain np.stack over K batches)")
+        if not self._bucket_queue:
+            self._refill_bucket_queue()
+        tb0, _, w0 = self._bucket_queue[0]
+        k = 1
+        while (k < k_max and k < len(self._bucket_queue)
+               and self._bucket_queue[k][0] == tb0
+               and (self._bucket_queue[k][2] is None) == (w0 is None)):
+            k += 1
+        parts = [self.next_batch(int16_scale) for _ in range(k)]
+        return {name: np.stack([p[name] for p in parts])
+                for name in parts[0]}
 
     # -- the eval sweep ------------------------------------------------------
 
@@ -200,9 +385,14 @@ class DataLoader:
         return (len(self.strokes) + b - 1) // b
 
     def eval_pad_len(self, batch_index: int) -> int:
-        """The pad length of eval batch ``batch_index``: ``max_seq_len``
-        (length buckets come with a later slice)."""
-        return self.hps.max_seq_len
+        """The pad length of eval batch ``batch_index``: the bucket edge
+        of its longest row under bucketed execution, else
+        ``max_seq_len``. The eval sweep breaks its K-batch runs where it
+        changes."""
+        if not self.bucket_edges:
+            return self.hps.max_seq_len
+        idx = self._eval_indices(batch_index)
+        return self.bucket_edge_of(int(self._lengths[idx].max()))
 
     def _eval_indices(self, batch_index: int) -> np.ndarray:
         if not 0 <= batch_index < self.num_eval_batches:
@@ -215,12 +405,32 @@ class DataLoader:
         """Deterministic eval batch ``batch_index`` with a ``"weights"``
         [B] vector: 1 on a row's first occurrence, 0 on the rows that wrap
         around from the corpus start, so weighted eval metrics are exact
-        means over the split."""
+        means over the split. Padded to :meth:`eval_pad_len`."""
         lo = batch_index * self.hps.batch_size
         linear = np.arange(lo, lo + self.hps.batch_size)
-        batch = self._assemble(self._eval_indices(batch_index))
+        idx = self._eval_indices(batch_index)
+        pad = self.eval_pad_len(batch_index) if self.bucket_edges else None
+        batch = self._assemble(idx, pad_to=pad)
         batch["weights"] = (linear < len(self.strokes)).astype(np.float32)
         return batch
+
+
+def _windowed_shuffle(items: List, window: int,
+                      rng: np.random.Generator) -> List:
+    """The JAX package's windowed shuffle (tf.data's): emit a uniform draw
+    from a sliding buffer of ``window`` items; a window of at least
+    ``len(items)`` is a full shuffle."""
+    if len(items) <= 1:
+        return list(items)
+    out: List = []
+    buf: List = []
+    for it in items:
+        buf.append(it)
+        if len(buf) >= max(1, window):
+            out.append(buf.pop(int(rng.integers(len(buf)))))
+    while buf:
+        out.append(buf.pop(int(rng.integers(len(buf)))))
+    return out
 
 
 # -- dataset files ---------------------------------------------------------

@@ -37,10 +37,15 @@ stacking; ``cast``, ``pin``, ``copy``), the batches it made, and the
 consumer's seconds waiting in ``get()`` over its ``gets`` (the JAX
 package's ``assemble``/``transfer`` spans and the loop's ``feeder_wait``).
 
-Not ported (refused by name, ROADMAP queue 1): the bucket-run
-scheduler's ``next_stack`` for a loader with ``bucket_edges``, and the
-sharded transfer onto a mesh. The ``prefetch_queue_depth`` gauge and the
-``data.batch`` fault site come with telemetry and faults.
+A loader with ``bucket_edges`` composes with ``stack=K`` through the
+bucket-run scheduler: each ``get()`` is ``loader.next_stack(K)``, up to
+K batches of one geometry run stacked ``[k, B, Tb + 1, 5]`` with ``k <=
+K`` (the training loop replays a short stack step by step); the
+micro-batches are the loader's ``next_batch`` stream.
+
+Not ported (ROADMAP queue 1): the sharded transfer onto a mesh. The
+``prefetch_queue_depth`` gauge and the ``data.batch`` fault site come
+with telemetry and faults.
 """
 
 from __future__ import annotations
@@ -52,8 +57,6 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
-
-_LATER = "comes with a later slice of the PyTorch port"
 
 
 def stack_batches(batches) -> Dict[str, np.ndarray]:
@@ -230,7 +233,8 @@ def prefetch_batches(loader, device=None, depth: int = 2, stack: int = 1,
     loader has no such method): ``depth`` batches ahead on one producer
     thread, or a :class:`SyncFeeder` when ``depth <= 0``. ``stack=K``
     stacks K consecutive draws ``[K, ...]`` a ``get()``: the same draws,
-    in the same order, as K single gets. ``transfer_dtype`` and
+    in the same order, as K single gets (a bucketed loader's
+    ``next_stack(K)``, ``k <= K`` of them). ``transfer_dtype`` and
     ``device``: the module docstring."""
     if stack < 1:
         raise ValueError(f"stack must be >= 1, got {stack}")
@@ -250,17 +254,16 @@ def prefetch_batches(loader, device=None, depth: int = 2, stack: int = 1,
                 f"(max error 0.5/scale normalized units). Use 'bfloat16' "
                 f"or 'float32' for float-natured corpora.")
         quant_scale = float(quant_scale)
-    if stack > 1 and getattr(loader, "bucket_edges", ()):
-        raise NotImplementedError(
-            f"a stacked feed of a bucketed loader (next_stack, the "
-            f"bucket-run scheduler: ROADMAP queue 1) {_LATER}")
     next_fn = getattr(loader, "next_batch", None) or loader.random_batch
+    bucketed_stack = stack > 1 and bool(getattr(loader, "bucket_edges", ()))
     cast = transfer_dtype == "bfloat16"
     timings = _timings()
 
     def host_batch():
         t0 = time.perf_counter()
-        if stack == 1:
+        if bucketed_stack:
+            out = loader.next_stack(stack, int16_scale=quant_scale)
+        elif stack == 1:
             out = dict(next_fn(int16_scale=quant_scale))
         else:
             out = stack_batches([next_fn(int16_scale=quant_scale)

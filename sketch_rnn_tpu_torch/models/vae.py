@@ -11,14 +11,20 @@ across).
 
 Randomness derives from one step key exactly as in the JAX package
 (``kenc, kz, kdec = split(key, 3)``; the encoder's dropout keys ``split(
-kenc)``; the decoder's ``split(kdec, 3)[0]``), with the port's bitwise
-threefry (``utils/prng.py``), so the kernels' dropout masks equal the
-JAX package's and ``z``'s noise agrees to an ulp. :meth:`SketchRNN.draws`
-makes a step's draws from its key (the noise ``eps`` and the dropout
-seeds, or keys on the plain path), and the loss takes either the key or
-the draws: the train and eval steps draw on the host and hand the draws
-to the card in one staged copy (:meth:`SketchRNN.packed_draws`), so no key
-is hashed on the card outside the plain path's masks.
+kenc)``; the decoder's ``krec, kin, kout = split(kdec, 3)``), with the
+port's bitwise threefry (``utils/prng.py``), so every dropout mask equals
+the JAX package's and ``z``'s noise agrees to an ulp.
+:meth:`SketchRNN.draws` makes a step's draws from its key (the noise
+``eps``, the recurrent dropout seeds, or keys on the plain path, and the
+input and output dropout keys ``kin``/``kout``), and the loss takes
+either the key or the draws: the train and eval steps draw on the host
+and hand the draws to the card in one staged copy
+(:meth:`SketchRNN.packed_draws`). The input and output dropout masks
+(``[T, B, D + E]`` and ``[T, B, H]``, millions of elements) are too large
+for that copy: only their keys travel in it, and :meth:`SketchRNN.decode`
+draws the masks from them on the parameters' device with
+``prng.bernoulli``, inside the step (no host sync, so a CUDA graph
+captures it), as the plain path draws its recurrent masks.
 ``eval_metrics_per_class`` gives the eval metrics split by class label in
 one forward.
 """
@@ -50,6 +56,16 @@ def _rdtype(hps: HParams):
     """Fused-kernel residual storage dtype (None = float32)."""
     return {"float32": None,
             "bfloat16": torch.bfloat16}[hps.fused_residual_dtype]
+
+
+def _dropout(x: torch.Tensor, key: torch.Tensor, keep: float
+             ) -> torch.Tensor:
+    """Inverted dropout as the JAX package writes it, ``x * bernoulli(key,
+    keep, x.shape) / keep``, bit for bit: the mask drawn on ``x``'s
+    device, the division by ``keep`` in ``x``'s dtype (JAX's weakly typed
+    Python float)."""
+    mask = prng.bernoulli(key.to(x.device), keep, tuple(x.shape))
+    return (x * mask) / torch.full((), keep, dtype=x.dtype, device=x.device)
 
 
 class SketchRNN:
@@ -188,21 +204,38 @@ class SketchRNN:
                z: Optional[torch.Tensor],
                labels: Optional[torch.Tensor] = None,
                rdrop: Optional[torch.Tensor] = None,
-               fused: bool = False) -> torch.Tensor:
+               fused: bool = False, kin: Optional[torch.Tensor] = None,
+               kout: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Teacher-forced decoder -> raw MDN projections ``[T, B, 6M+3]``.
         The time-invariant features (z, class embedding) ride as a
         per-example gate bias on the fused path; ``rdrop``: the recurrent
-        dropout (:meth:`draws`'s ``dec``), None for none."""
+        dropout (:meth:`draws`'s ``dec``), None for none. ``kin``: the
+        input dropout's key (:meth:`draws`'s), which makes the decoder's
+        input the whole stream ``[x; z; class embedding]`` (``[T, B, D +
+        E]``, no gate bias) times ``bernoulli(kin, keep, [T, B, D + E]) /
+        keep``; ``kout``: the output dropout's, ``hs`` times
+        ``bernoulli(kout, keep, [T, B, H]) / keep``. Both masks are drawn
+        on the inputs' device."""
         hps = self.hps
         b = x_in_tm.shape[1]
         extra = self._decoder_extra(params, z, labels)
+        inputs = x_in_tm
+        if kin is not None:
+            if extra is not None:
+                t = x_in_tm.shape[0]
+                inputs = torch.cat(
+                    [x_in_tm, extra[None].expand(t, *extra.shape)], dim=-1)
+                extra = None
+            inputs = _dropout(inputs, kin, hps.input_dropout_keep)
         rgen = (None if rdrop is None
                 else (rdrop, hps.recurrent_dropout_keep))
         carry0 = self.decoder_initial_carry(params, z, b,
                                             device=x_in_tm.device)
-        _, hs = run_rnn(self.dec, params["dec"], x_in_tm, carry0,
+        _, hs = run_rnn(self.dec, params["dec"], inputs, carry0,
                         rdrop_gen=rgen, remat=hps.remat, fused=fused,
                         residual_dtype=_rdtype(hps), x_extra=extra)
+        if kout is not None:
+            hs = _dropout(hs, kout, hps.output_dropout_keep)
         return L.matmul(hs, params["out_w"], _dtype(hps)) + params["out_b"]
 
     # -- randomness --------------------------------------------------------
@@ -220,6 +253,10 @@ class SketchRNN:
             names = (("enc_fwd", "enc_bwd") if hps.conditional else ()) \
                 + ("dec",)
             out += [(n, shape, dtype) for n in names]
+        if train and hps.use_input_dropout:
+            out.append(("kin", (2,), torch.int64))
+        if train and hps.use_output_dropout:
+            out.append(("kout", (2,), torch.int64))
         return out
 
     def draws(self, key: torch.Tensor, batch_size: int, train: bool
@@ -230,21 +267,24 @@ class SketchRNN:
         split(key, 3)``: ``eps [..., B, Nz] = normal(kz)`` (conditional
         models) and, in training with recurrent dropout, the encoder's
         ``enc_fwd``, ``enc_bwd`` (``split(kenc)``) and the decoder's
-        ``dec`` (``split(kdec, 3)[0]``): the fused kernels' dropout seeds
-        ``randint(k, 0, 2**31-1)`` (int32), or on the plain path the
-        keys themselves, from which the masks are drawn."""
+        ``dec`` (``krec``, ``split(kdec, 3)[0]``): the fused kernels'
+        dropout seeds ``randint(k, 0, 2**31-1)`` (int32), or on the plain
+        path the keys themselves, from which the masks are drawn; with
+        input and output dropout, their keys ``kin`` and ``kout``
+        (``split(kdec, 3)[1:]``), from which :meth:`decode` draws the
+        masks."""
         hps = self.hps
-        if train and (hps.use_input_dropout or hps.use_output_dropout):
-            raise NotImplementedError(
-                "input and output dropout come with a later slice of the "
-                "PyTorch port; train with use_input_dropout=false and "
-                "use_output_dropout=false")
         kenc, kz, kdec = prng.split(key, 3).unbind(dim=-2)
+        krec, kin, kout = prng.split(kdec, 3).unbind(dim=-2)
         out = {}
         if hps.conditional:
             out["eps"] = prng.normal(kz, (batch_size, hps.z_size))
+        if train and hps.use_input_dropout:
+            out["kin"] = kin
+        if train and hps.use_output_dropout:
+            out["kout"] = kout
         if train and hps.use_recurrent_dropout:
-            keys = {"dec": prng.split(kdec, 3)[..., 0, :]}
+            keys = {"dec": krec}
             if hps.conditional:
                 keys["enc_fwd"], keys["enc_bwd"] = prng.split(
                     kenc, 2).unbind(dim=-2)
@@ -333,7 +373,8 @@ class SketchRNN:
                                      fused=hps.fused_rnn)
             z = self.sample_z(mu, presig, d["eps"].to(mu.device))
         raw = self.decode(params, x_in, z, labels, rdrop=d.get("dec"),
-                          fused=hps.fused_rnn)
+                          fused=hps.fused_rnn, kin=d.get("kin"),
+                          kout=d.get("kout"))
         mp = mdn.get_mixture_params(raw, hps.num_mixture)
         return mp, x_target, labels, mu, presig
 

@@ -23,6 +23,11 @@ dtypes and structure of the inputs: one per ``(K, B, T)``):
   writes a tensor that a caller holds, and the caller's inputs are
   never written.
 
+Each graph holds the memory of its own pool (``torch.cuda.graph``'s
+default: no pool is shared between graphs, so graphs may replay in any
+order, as a bucketed plan replays them): ``capture_bytes`` gives, per
+capture, what the card's reserved memory grew by across it.
+
 The training kernels' launch counters (``ops/cuda_fused.py``) count in
 their Python wrappers, which a replay does not run: the launches a
 capture records are taken back out of the counters, and every replay adds
@@ -102,8 +107,10 @@ class GraphedCall:
                              f"eagerly")
         self._graphs: Dict[Any, _Captured] = {}
         self._stream = None
-        # seconds of each capture (the warm-up excluded), in capture order
+        # seconds of each capture (the warm-up excluded) and the reserved
+        # memory it added (the graph's pool), in capture order
         self.capture_seconds: List[float] = []
+        self.capture_bytes: List[int] = []
 
     @property
     def captured(self) -> int:
@@ -146,6 +153,11 @@ class GraphedCall:
             out_leaves = [x.clone() for x in out_leaves]
         graph = torch.cuda.CUDAGraph()
         before = CF.launch_counts()
+        side.synchronize()
+        # torch.cuda.graph empties the allocator's cache as it enters:
+        # empty it first, so the growth measured is the graph's pool
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
         t0 = time.perf_counter()
         try:
             with torch.cuda.graph(graph, stream=side,
@@ -161,6 +173,7 @@ class GraphedCall:
             launches = {k: after[k] - before[k] for k in after}
             CF.add_launch_counts({k: -v for k, v in launches.items()})
         self.capture_seconds.append(time.perf_counter() - t0)
+        self.capture_bytes.append(torch.cuda.memory_reserved(dev) - reserved)
         cap_leaves, cap_spec = flatten(captured)
         if cap_spec != out_spec:
             raise RuntimeError(f"{self.name}: the captured body returned "

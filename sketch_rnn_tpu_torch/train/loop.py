@@ -33,9 +33,22 @@ The cadences fire on crossing a multiple, and ``history`` holds one row
 per call. ``eval_steps_per_call`` chunks the sweeps the same way
 (``multi=`` on :func:`evaluate` and :func:`evaluate_per_class`): runs of
 up to K batches through a K-batch call, a remainder of exactly one
-through the single-batch step. Telemetry, the profiler, the watchdog and
-elastic runs are not ported yet: asking for one raises, naming the later
-slice.
+through the single-batch step.
+
+Length-bucketed execution (a loader with ``bucket_edges``): at K = 1 the
+loop feeds the loader's bucketed ``next_batch`` stream, each batch at its
+bucket's T. At K > 1 the bucket-run scheduler
+drives it (:func:`dispatch_stack`, the JAX package's contract): the feed
+is ``next_stack(K)``, a full stack of K is one K-step call built with
+``key_by_global_step`` (one graph replay per geometry on the card), a
+shorter run remainder replays through the single step, and every
+micro-step uses ``fold_in(root_key, global step)``, so a bucketed K > 1
+run is step for step the bucketed K = 1 run. The eval sweep's runs also
+break where an eval batch's pad length changes. Each logged train row
+carries the loader's padding ledger (``padded_frac``,
+``bucket_T<edge>_n``, ``runs_per_epoch``, ``mean_run_len``,
+``dispatches_saved``). Telemetry, the profiler, the watchdog and elastic
+runs are not ported yet: asking for one raises, naming the later slice.
 """
 
 from __future__ import annotations
@@ -56,7 +69,7 @@ from sketch_rnn_tpu_torch.train.metrics import (MetricsDrain, MetricsWriter,
                                                 check_finite,
                                                 scalars_from_device)
 from sketch_rnn_tpu_torch.train.state import TrainState, make_train_state
-from sketch_rnn_tpu_torch.train.step import (check_trainable, make_eval_step,
+from sketch_rnn_tpu_torch.train.step import (make_eval_step,
                                              make_multi_eval_step,
                                              make_multi_train_step,
                                              make_train_step,
@@ -65,23 +78,56 @@ from sketch_rnn_tpu_torch.utils import prng
 from sketch_rnn_tpu_torch.utils.device import resolve_device, tree_to
 
 
-def geometry_runs(n: int, k_max: int):
+def geometry_runs(n: int, k_max: int, geom_of=None):
     """``(i, k)`` spans of a sweep of ``n`` batches in runs of up to
-    ``k_max`` (the JAX package's ``GeometryRunScheduler.geometry_runs``
-    with one geometry): runs of ``k_max``, then a shorter last run."""
+    ``k_max`` that never cross a change of ``geom_of(i)`` (the JAX
+    package's ``GeometryRunScheduler.geometry_runs``); without
+    ``geom_of``, runs of ``k_max``, then a shorter last run."""
     i = 0
     while i < n:
         k = min(k_max, n - i)
+        if k > 1 and geom_of is not None:
+            run, g0 = 1, geom_of(i)
+            while run < k and geom_of(i + run) == g0:
+                run += 1
+            k = run
         yield i, k
         i += k
+
+
+def dispatch_stack(single_step, multi_step, state, batch, step: int,
+                   remaining: int, root_key, k: int):
+    """One bucket-run scheduler decision (the JAX package's
+    ``dispatch_stack`` contract). ``batch`` is a stacked geometry-run
+    prefix with leading axis ``kk <= k``, of which ``use = min(kk,
+    remaining)`` micro-batches are trained on. A full ``use == k`` stack
+    is one call of ``multi_step`` (built with ``key_by_global_step``: it
+    folds the live step into ``root_key``; one graph replay on the card);
+    anything shorter replays step by step through ``single_step`` with
+    ``fold_in(root_key, step + i)``, the same keys, its metrics folded as
+    the K call folds its own (:func:`replay_window_metrics`). Returns
+    ``(state, metrics, use, dispatches)``, ``dispatches`` being the calls
+    made (1 for a full stack, ``use`` for a replay)."""
+    kk = int(batch["strokes"].shape[0])
+    use = min(kk, remaining)
+    if use == k:
+        state, metrics = multi_step(state, batch, root_key)
+        return state, metrics, use, 1
+    per_step = []
+    for i in range(use):
+        state, m = single_step(state, {n: v[i] for n, v in batch.items()},
+                               prng.fold_in(root_key, step + i))
+        per_step.append(m)
+    return state, replay_window_metrics(per_step), use, use
 
 
 def _sweep_rows(params, loader, eval_step, key, multi=None):
     """One metrics dict (host floats or numpy vectors) per eval batch over
     ``loader.num_eval_batches`` batches; batch ``i`` uses ``fold_in(key,
     i)``. ``multi=(multi_step, k_max)`` sweeps in :func:`geometry_runs`
-    of ``k_max``, each run of more than one batch through one K-batch call
-    (one copy back to the host a run), a run of one through
+    of ``k_max`` that break where ``loader.eval_pad_len`` changes (a
+    bucketed loader's pad), each run of more than one batch through one
+    K-batch call (one copy back to the host a run), a run of one through
     ``eval_step``: the same keys and the same bodies, so the rows are the
     per-batch sweep's."""
     n = loader.num_eval_batches
@@ -90,7 +136,7 @@ def _sweep_rows(params, loader, eval_step, key, multi=None):
             f"eval split has no batches ({len(loader)} examples, "
             f"batch_size={loader.hps.batch_size})")
     multi_step, k_max = multi if multi is not None else (None, 1)
-    for i, k in geometry_runs(n, k_max):
+    for i, k in geometry_runs(n, k_max, loader.eval_pad_len):
         if k > 1:
             out = multi_step(params, stack_batches(
                 [loader.get_batch(j) for j in range(i, i + k)]), key,
@@ -176,7 +222,6 @@ def train(hps: HParams, train_loader, valid_loader=None, test_loader=None,
             raise NotImplementedError(
                 f"train(): {what} comes with a later slice of the PyTorch "
                 f"port")
-    check_trainable(hps)
     dev = resolve_device(device)
     num_steps = hps.num_steps if num_steps is None else num_steps
     # fail fast: an un-evaluable valid split would otherwise raise only at
@@ -205,9 +250,22 @@ def train(hps: HParams, train_loader, valid_loader=None, test_loader=None,
                   f"skip)", flush=True)
 
     spc = hps.steps_per_call
-    step_fn = make_multi_train_step(model, hps, device=dev)   # K=1: single
-    # the final stretch shorter than K replays through the single step
+    # the bucket-run scheduler: stacks of one geometry run, keys by the
+    # global step (dispatch_stack)
+    run_sched = spc > 1 and bool(getattr(train_loader, "bucket_edges", ()))
+    step_fn = make_multi_train_step(model, hps, device=dev,
+                                    key_by_global_step=run_sched)
+    # the final stretch shorter than K, and a bucket run's remainder,
+    # replay through the single step
     single_step = make_train_step(model, hps, device=dev)
+    pad_ledger = getattr(train_loader, "padding_ledger", None)
+    if getattr(train_loader, "bucket_edges", ()):
+        sched = (f" run_sched: steps_per_call={spc} "
+                 f"run_len={hps.bucket_run_len}" if run_sched else "")
+        print(f"[train] bucketed execution: edges="
+              f"{train_loader.bucket_edges} "
+              f"shuffle_window={hps.bucket_shuffle_window}{sched}",
+              flush=True)
     eval_step = make_eval_step(model, hps, device=dev)
     eval_multi = (None if hps.eval_steps_per_call == 1 else
                   (make_multi_eval_step(model, hps, device=dev),
@@ -232,8 +290,13 @@ def train(hps: HParams, train_loader, valid_loader=None, test_loader=None,
             remaining = num_steps - step
             step_key = prng.fold_in(root_key, step)
             batch = feeder.get()
-            if spc == 1 or remaining >= spc:
+            if run_sched:
+                state, metrics, use, calls = dispatch_stack(
+                    single_step, step_fn, state, batch, step, remaining,
+                    root_key, spc)
+            elif spc == 1 or remaining >= spc:
                 state, metrics = step_fn(state, batch, step_key)
+                use, calls = spc, 1
             else:
                 per_step = []
                 for i in range(remaining):
@@ -242,10 +305,14 @@ def train(hps: HParams, train_loader, valid_loader=None, test_loader=None,
                         prng.fold_in(step_key, i))
                     per_step.append(m)
                 metrics = replay_window_metrics(per_step)
+                use = calls = remaining
+            if pad_ledger is not None:
+                pad_ledger.record_dispatch(use, calls)
             history.append((prev, metrics))
             step = state.step
             if crossed(prev, hps.log_every) or step == num_steps:
-                drain.push(step, metrics)
+                drain.push(step, metrics, pad_ledger.window()
+                           if pad_ledger is not None else None)
             if valid_loader is not None and crossed(prev, hps.eval_every):
                 ev = evaluate(state.params, valid_loader, eval_step,
                               multi=eval_multi)

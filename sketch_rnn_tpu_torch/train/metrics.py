@@ -132,8 +132,11 @@ class MetricsDrain:
         self._check = check
         self._pending: Optional[tuple] = None
 
-    def push(self, step: int, device_metrics: Dict[str, Any]) -> None:
-        staged = (step, _stage(device_metrics))
+    def push(self, step: int, device_metrics: Dict[str, Any],
+             extras: Optional[Dict[str, float]] = None) -> None:
+        """``extras``: host floats for the same row (the padding ledger's
+        columns), written after the device metrics."""
+        staged = (step, _stage(device_metrics), extras)
         if not self.defer:
             self._emit(*staged)
             return
@@ -146,12 +149,14 @@ class MetricsDrain:
         if prev is not None:
             self._emit(*prev)
 
-    def _emit(self, step, staged) -> None:
+    def _emit(self, step, staged, extras) -> None:
         names, host, event = staged
         if event is not None:
             event.synchronize()
         scalars = (scalars_from_device(host) if isinstance(host, dict)
                    else dict(zip(names, host.tolist())))
+        if extras:
+            scalars.update(extras)
         self.writer.write(step, scalars)
         self.writer.log_console(step, scalars)
         if self._check is not None:

@@ -23,9 +23,12 @@ no key on the card, and :func:`make_multi_train_step` (the JAX package's
 ``make_multi_train_step``: K optimizer steps a call, ``steps_per_call``)
 runs K bodies as one CUDA graph replay on the card (``train/graph.py``);
 on the CPU, as the same body K times (the plain version). Micro-step
-``i`` trains on ``batches[i]`` with ``fold_in(key, i)``, so the K call is
-bit for bit K single steps with those keys; its metrics are the window's
-(:func:`replay_window_metrics`).
+``i`` trains on ``batches[i]`` with ``fold_in(key, i)``, or with
+``key_by_global_step`` (the bucket-run scheduler's keys) ``fold_in(key,
+s0 + i)`` from global step ``s0``, so the K call is bit for bit K single
+steps with those keys; its metrics are the window's
+(:func:`replay_window_metrics`). A batch's ``weights`` (a bucketed
+plan's wrap-filled tail batch) weight its rows in the loss.
 
 The eval steps (``make_eval_step``, ``make_per_class_eval_step``) are
 the JAX package's single-device eval cores: the loss with ``train=False``
@@ -34,9 +37,6 @@ count of real rows, under ``torch.no_grad`` (the fused kernels run their
 forwards only). Their K-batch forms (``make_multi_eval_step``,
 ``make_multi_per_class_eval_step``, ``eval_steps_per_call``) stack every
 metric ``[K, ...]``, batch ``idx[j]`` with ``fold_in(key, idx[j])``.
-
-Requests this slice does not serve raise, naming the later slice
-(:func:`check_trainable`).
 """
 
 from __future__ import annotations
@@ -58,17 +58,6 @@ from sketch_rnn_tpu_torch.utils.device import resolve_device, to_device
 Metrics = Dict[str, torch.Tensor]
 StepFn = Callable[..., Tuple[TrainState, Metrics]]
 EvalFn = Callable[..., Metrics]
-
-_LATER = "comes with a later slice of the PyTorch port"
-
-
-def check_trainable(hps: HParams) -> None:
-    """Refuse, by name, the training requests this slice does not serve."""
-    if hps.use_input_dropout or hps.use_output_dropout:
-        raise NotImplementedError(f"input and output dropout {_LATER}")
-    if hps.bucket_edges:
-        raise NotImplementedError(f"bucket_edges {_LATER}")
-
 
 def host_tensors(batch) -> Dict[str, torch.Tensor]:
     """A loader batch as tensors where it lies (numpy on the host)."""
@@ -147,7 +136,6 @@ def make_train_step(model, hps: HParams, device=None) -> StepFn:
     """Build ``step(state, batch, key) -> (state, metrics)``. ``batch`` is
     a loader dict (numpy or tensors), moved to ``device`` (the card unless
     ``device="cpu"``); ``key`` a threefry key (``utils/prng.py``)."""
-    check_trainable(hps)
     dev = resolve_device(device)
 
     def step_fn(state: TrainState, batch, key: torch.Tensor
@@ -190,20 +178,20 @@ def make_multi_train_step(model, hps: HParams, device=None,
     dict stacked ``[K, ...]``. Micro-step ``i`` trains on ``batches[i]``
     with ``fold_in(key, i)`` and the schedules at the live step, so a call
     is K single steps with those keys, bit for bit; the metrics are
-    :func:`replay_window_metrics` of the K. On the card the K steps are
-    one CUDA graph replay (``train/graph.py``), held by the returned
-    function as ``graphed``: its first call runs the K steps eagerly as
-    the capture's warm-up and captures them, and the graph's memory goes
-    with the function. On the CPU the same body runs K times. K=1 is
-    :func:`make_train_step`. ``key_by_global_step`` (the bucket-run
-    scheduler's keys) is refused by name."""
-    if key_by_global_step:
-        raise NotImplementedError(
-            f"key_by_global_step (the bucket-run scheduler) {_LATER}")
+    :func:`replay_window_metrics` of the K. ``key_by_global_step`` (the
+    bucket-run scheduler's keys, the JAX package's flag of that name):
+    micro-step ``i`` of a call from global step ``s0`` uses
+    ``fold_in(key, s0 + i)``, so a call with the loop's root key is the
+    K single steps of the K=1 loop. On the card the K steps are one CUDA
+    graph replay (``train/graph.py``), held by the returned function as
+    ``graphed``: its first call at a geometry (one per ``(K, B, T)`` and
+    per ``weights``' presence) runs the K steps eagerly as the capture's
+    warm-up and captures them, and the graphs' memory goes with the
+    function. On the CPU the same body runs K times. K=1 without
+    ``key_by_global_step`` is :func:`make_train_step`."""
     k = hps.steps_per_call
-    if k == 1:
+    if k == 1 and not key_by_global_step:
         return make_train_step(model, hps, device)
-    check_trainable(hps)
     dev = resolve_device(device)
 
     def body(params, mu, nu, batches, rows):
@@ -225,7 +213,9 @@ def make_multi_train_step(model, hps: HParams, device=None,
         if kk != k:
             raise ValueError(f"a {k}-step call takes batches stacked [{k}, "
                              f"...], got {kk}")
-        keys = prng.fold_in(key.cpu(), torch.arange(k))
+        micro = torch.arange(k)
+        keys = prng.fold_in(key.cpu(), state.step + micro
+                            if key_by_global_step else micro)
         rows = stage_steps(model, hps, state, keys, b)
         if dev.type != "cuda":
             batches, rows = batch_to_device(batches, dev), rows.to(dev)

@@ -510,6 +510,20 @@ def test_fused_kernels_bf16_match_plain_versions(dev, cell, h, mode, wdt,
     _hold_fused(dev, cell, d, masks, seed, BF_TOL, rdt)
 
 
+# the decoder's input under input dropout: the whole stream [x; z; class
+# embedding] with no x_bias (the flagship's D=197, the vae preset's 133)
+@pytest.mark.parametrize("cell,h,dx,wdt,rdt", [
+    ("layer_norm", 16, 13, torch.float32, torch.float32),
+    ("layer_norm", 40, 197, torch.bfloat16, torch.bfloat16),
+    ("lstm_full", 16, 133, torch.float32, torch.float32),
+    ("lstm_full", 40, 133, torch.bfloat16, torch.float32)])
+def test_fused_kernels_at_dropout_input_widths_match_plain(dev, cell, h, dx,
+                                                           wdt, rdt):
+    d, masks, seed = _fused_inputs(cell, h, dev, False, "seed", wdt, dx=dx)
+    tol = TOL if wdt == rdt == torch.float32 else BF_TOL
+    _hold_fused(dev, cell, d, masks, seed, tol, rdt)
+
+
 @pytest.mark.parametrize("h,t,bsz,wdt,rdt,full", [
     (16, FT, FB, torch.float32, torch.float32, True),
     (136, FT, 3, torch.float32, torch.float32, True),
@@ -1918,7 +1932,11 @@ def test_metrics_drain_reads_card_windows_through_pinned_copies(dev):
     dict(dec_model="layer_norm", num_classes=3, class_embed_size=4),
     dict(dec_model="lstm"),
     dict(dec_model="hyper", hyper_rnn_size=8, hyper_embed_size=4),
-    dict(dec_model="layer_norm", fused_rnn=False, remat=True)])
+    dict(dec_model="layer_norm", fused_rnn=False, remat=True),
+    dict(dec_model="layer_norm", num_classes=3, class_embed_size=4,
+         use_input_dropout=True, use_output_dropout=True),
+    dict(dec_model="hyper", hyper_rnn_size=8, hyper_embed_size=4,
+         use_input_dropout=True, use_output_dropout=True)])
 def test_multi_step_graph_replay_is_its_eager_steps(dev, over):
     """``steps_per_call=2`` on the card: the first call runs its two steps
     eagerly and captures them; a later call is one graph replay, bit for
@@ -2019,3 +2037,49 @@ def test_feeder_at_depth_2_captures_and_matches_the_synchronous_feed(dev):
 
     (a, ra), (b, rb) = run_train("float32", 0), run_train("int16", 2)
     assert states_equal(a, b) and ra == rb
+
+
+def test_bucketed_train_on_the_card_k3_is_k1(dev):
+    """Length-bucketed ``train()`` on the card (edges 8, 16 under
+    max_seq_len 32): K=3 through the bucket-run scheduler (a graph per
+    full-stack geometry, run remainders through the single step) ends bit
+    for bit on the K=1 run's state, with the same kernel launches, counted
+    at the replays; each graph reports the memory its capture took."""
+    from sketch_rnn_tpu_torch.data.loader import synthetic_loader
+    from sketch_rnn_tpu_torch.ops import cuda_fused as cf
+    from sketch_rnn_tpu_torch.train.loop import train
+    from sketch_rnn_tpu_torch.train.state import (make_train_state,
+                                                  states_equal)
+    from sketch_rnn_tpu_torch.train.step import make_multi_train_step
+
+    hps = HParams(**TINY).replace(
+        conditional=True, fused_rnn=True, dec_model="layer_norm",
+        num_classes=3, class_embed_size=4, bucket_edges=(8, 16),
+        bucket_run_len=4, bucket_shuffle_window=4)
+    model = SketchRNN(hps)
+    params = model.init_params(torch.Generator().manual_seed(0), device=dev)
+
+    def loader():
+        return synthetic_loader(hps, num=40, seed=1)[0]
+
+    runs = {}
+    for k in (1, 3):
+        cf.reset_launch_counts()
+        runs[k] = (train(hps.replace(steps_per_call=k), loader(),
+                         num_steps=14, params=params, device=dev)[0],
+                   cf.launch_counts())
+    assert states_equal(runs[1][0], runs[3][0])
+    assert runs[1][1] == runs[3][1]
+    assert runs[1][1]["fused_ln_lstm_bwd"] == 14
+    multi = make_multi_train_step(model, hps.replace(steps_per_call=3),
+                                  device=dev, key_by_global_step=True)
+    ld = loader()
+    state = make_train_state(params)
+    for _ in range(6):
+        stack = ld.next_stack(3)
+        if stack["strokes"].shape[0] == 3:
+            state, _ = multi(state, stack, prng.key(0))
+    graphs = multi.graphed
+    assert graphs.captured >= 1
+    assert len(graphs.capture_bytes) == graphs.captured
+    assert all(b >= 0 for b in graphs.capture_bytes)

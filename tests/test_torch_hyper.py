@@ -45,7 +45,7 @@ from sketch_rnn_tpu_torch.ops import rnn
 from sketch_rnn_tpu_torch.serve.endpoints import serve_requests
 from sketch_rnn_tpu_torch.serve.engine import Request, ServeEngine
 from sketch_rnn_tpu_torch.train.state import make_train_state, tree_items
-from sketch_rnn_tpu_torch.train.step import check_trainable, make_train_step
+from sketch_rnn_tpu_torch.train.step import make_train_step
 from sketch_rnn_tpu_torch.utils import prng
 
 T, B, D, H = 5, 6, 5, 16
@@ -559,7 +559,6 @@ def test_three_hyper_train_steps_match_jax():
     tx = make_optimizer(jh)
     jstep = jax.jit(_make_single_step_core(jm, jh, None, tx))
     jstate = JTrainState(jp, tx.init(jp), jnp.zeros((), jnp.int32))
-    check_trainable(th)
     step = make_train_step(tm, th, device="cpu")
     state = make_train_state(tp)
     for s, b in enumerate(batches):
@@ -767,15 +766,21 @@ def test_mixed_matrix_dtypes_and_both_dropout_forms_are_refused():
 
 
 def test_hyper_trains_fused_only_and_needs_the_card_unless_cpu(monkeypatch):
-    """``check_trainable`` takes the hyper preset at ``fused_rnn=true``
-    and at its default ``fused_rnn=false`` (the plain cell path, since
-    the plain path came to training); the entry points run on the card
-    unless given ``device="cpu"``."""
+    """The hyper preset trains at ``fused_rnn=true`` and at its default
+    ``fused_rnn=false`` (the plain cell path), with a HyperLSTM encoder
+    too: one CPU step of each gives finite metrics. The entry points run
+    on the card unless given ``device="cpu"``."""
     th = HParams(**TINY)
-    check_trainable(th)
-    check_trainable(th.parse("enc_model=hyper"))
-    check_trainable(th.parse("fused_rnn=false"))
-    check_trainable(th.parse("fused_rnn=false,enc_model=hyper"))
+    batch = jloader.synthetic_loader(JHParams(**TINY), num=24,
+                                     seed=0)[0].random_batch()
+    for over in ("", "enc_model=hyper", "fused_rnn=false",
+                 "fused_rnn=false,enc_model=hyper"):
+        h = th.parse(over) if over else th
+        m = SketchRNN(h)
+        p = m.init_params(torch.Generator().manual_seed(0), device="cpu")
+        _, met = make_train_step(m, h, device="cpu")(
+            make_train_state(p), batch, prng.key(1))
+        assert all(np.isfinite(float(v)) for v in met.values()), over
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     tm = SketchRNN(th)
     tp = tm.init_params(torch.Generator().manual_seed(0), device="cpu")

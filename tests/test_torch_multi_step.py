@@ -17,7 +17,9 @@ steps there).
   order and divides: equal to float32 rounding);
 - the K call bit for bit K single steps with keys ``fold_in(key, i)``,
   with the window's mean, max and last-value semantics; K=1 is the single
-  step; the bucket scheduler's ``key_by_global_step`` is refused by name;
+  step; with the bucket scheduler's ``key_by_global_step`` micro-step
+  ``i`` of a call from step ``s0`` is the single step with ``fold_in(key,
+  s0 + i)``;
 - a step's draws (noise, dropout seeds or keys) packed on the host into
   one row unpack bit for bit to its key's draws, and the step bodies hash
   no key;
@@ -161,9 +163,19 @@ def test_single_step_call_and_refusals():
                                                     batch, prng.key(3))
     assert states_equal(a[0], b[0])
     assert all(torch.equal(a[1][k], b[1][k]) for k in b[1])
-    with pytest.raises(NotImplementedError, match="key_by_global_step"):
-        tstep.make_multi_train_step(tm, th, device="cpu",
-                                    key_by_global_step=True)
+    # key_by_global_step (the bucket-run scheduler's keys): micro-step i
+    # of a call from step s0 is the single step with fold_in(key, s0 + i)
+    st1 = a[0]
+    pair = _batches(th, 2)
+    by_step = tstep.make_multi_train_step(
+        tm, th.replace(steps_per_call=2), device="cpu",
+        key_by_global_step=True)
+    got = by_step(st1, tloop.stack_batches(pair), prng.key(3))
+    want = st1
+    for i, b in enumerate(pair):
+        want, _ = tstep.make_train_step(tm, th, device="cpu")(
+            want, b, prng.fold_in(prng.key(3), st1.step + i))
+    assert states_equal(got[0], want)
     multi = tstep.make_multi_train_step(tm, th.replace(steps_per_call=2),
                                         device="cpu")
     with pytest.raises(ValueError, match=r"stacked \[2"):

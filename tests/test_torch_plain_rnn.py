@@ -47,7 +47,7 @@ from sketch_rnn_tpu_torch.ops import cells, rnn
 from sketch_rnn_tpu_torch.ops import cuda_fused as CF
 from sketch_rnn_tpu_torch.ops import cuda_lstm as CL
 from sketch_rnn_tpu_torch.train.state import make_train_state
-from sketch_rnn_tpu_torch.train.step import check_trainable, make_train_step
+from sketch_rnn_tpu_torch.train.step import make_train_step
 from sketch_rnn_tpu_torch.utils import prng
 
 T, B, D, E, H = 5, 4, 5, 3, 16
@@ -232,7 +232,6 @@ def test_three_plain_train_steps_match_jax(preset, monkeypatch):
     3 jitted JAX steps on the same batches and keys; no fused kernel is
     called on the way."""
     jh, th, jm, tm, jp, tp = _models(preset)
-    check_trainable(th)
     loader, _ = jloader.synthetic_loader(jh, num=24, seed=1)
     batches = [loader.random_batch() for _ in range(3)]
     tx = make_optimizer(jh)

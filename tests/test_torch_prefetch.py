@@ -13,7 +13,8 @@ transfer paths, the port's counterparts of ``tests/test_prefetch.py``:
 - the feeder: depth 0 and depth 2 give the same sequence, a producer
   error is raised again, ``close()`` unblocks a full queue, a bad
   ``stack``, a bad dtype and a float-natured corpus at int16 are refused
-  with JAX's text, a stacked feed of a bucketed loader by name; the int16
+  with JAX's text, a stacked feed of a bucketed loader is JAX's
+  ``next_stack`` feed bit for bit; the int16
   feed of an augmented or non-integer corpus is within half a raw data
   unit of the float32 one;
 - the step: the model's entry at int16 is bit for bit its float32 entry
@@ -257,12 +258,17 @@ def test_refusals_carry_the_jax_text():
     for scale in (0.0, -2.0):
         want = _raised(lambda: jl.random_batch(int16_scale=scale))
         assert _raised(lambda: tl.random_batch(int16_scale=scale)) == want
-    tl.bucket_edges = (8, 16)
-    kind, text = _raised(lambda: tprefetch.prefetch_batches(tl, None, 1,
-                                                            stack=2))
-    assert kind is NotImplementedError and "next_stack" in text
-    with pytest.raises(NotImplementedError, match="next_stack"):
-        tl.next_stack(2)
+    # a stacked feed of a bucketed loader (once refused by name) is the
+    # bucket-run scheduler's next_stack, JAX's stacked feed bit for bit
+    jb, tb = _loaders(bucket_edges=(8, 16))
+    with jprefetch.prefetch_batches(jb, None, 0, stack=2) as jf, \
+            tprefetch.prefetch_batches(tb, None, 0, stack=2) as tf:
+        for _ in range(6):
+            a, b = jf.get(), tf.get()
+            assert sorted(a) == sorted(b)
+            for k in a:
+                np.testing.assert_array_equal(np.asarray(b[k]),
+                                              np.asarray(a[k]), err_msg=k)
 
 
 @pytest.mark.parametrize("corpus", ["augmented", "non_integer"])

@@ -28,11 +28,11 @@ kernels run in interpret mode, the port's through their plain versions.
   1.2e-7, because no element's gradient is at the rounding level;
 - ``train_state_from_jax`` after one JAX step, then one more step in
   each package;
-- the training requests the port does not serve yet raise by name, the
-  ones it now serves (bfloat16, the lstm decoder, ``fused_rnn=false``,
-  the int16 and bfloat16 transfer dtypes, the presets) train,
-  and the training entry points need the card unless asked for the
-  CPU.
+- the training requests the port once refused (input and output
+  dropout, ``bucket_edges``; bfloat16, the lstm decoder,
+  ``fused_rnn=false``, the int16 and bfloat16 transfer dtypes, the
+  presets) train, and the training entry points need the card unless
+  asked for the CPU.
 """
 
 import jax
@@ -63,7 +63,7 @@ from sketch_rnn_tpu_torch.ops import cells, mdn
 from sketch_rnn_tpu_torch.train import schedules as tsched
 from sketch_rnn_tpu_torch.train.loop import train
 from sketch_rnn_tpu_torch.train.state import make_train_state, tree_items
-from sketch_rnn_tpu_torch.train.step import check_trainable, make_train_step
+from sketch_rnn_tpu_torch.train.step import make_train_step
 from sketch_rnn_tpu_torch.utils import prng
 
 TINY = dict(batch_size=4, max_seq_len=8, enc_rnn_size=12, dec_rnn_size=16,
@@ -180,8 +180,10 @@ def test_loader_purify_and_refusals():
     with pytest.raises(ValueError, match="record 1"):
         tloader._purify([np.ones((3, 3)), np.ones((3, 2))], 10)
     _, th = _pair()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tloader.DataLoader([np.ones((3, 3))], th.replace(bucket_edges=(4,)))
+    bucketed = tloader.DataLoader([np.ones((3, 3))],
+                                  th.replace(bucket_edges=(4,)))
+    assert bucketed.bucket_edges == (4, th.max_seq_len)
+    assert bucketed.next_batch()["strokes"].shape == (th.batch_size, 5, 5)
     tl, _ = tloader.synthetic_loader(th, num=8)
     b = tl.random_batch(int16_scale=10.0)
     assert b["strokes"].dtype == np.int16
@@ -426,14 +428,37 @@ def test_train_loop_keys_and_rows():
         assert float(met["loss"]) == rows[s]["loss"]
 
 
+def _one_step_trains(th, seed=0):
+    """One CPU step of ``th`` on its loader's ``next_batch`` (a bucketed
+    one when ``th`` has ``bucket_edges``): finite metrics, every
+    parameter moved. Returns the batch."""
+    tm = SketchRNN(th)
+    tp = tm.init_params(torch.Generator().manual_seed(seed), device="cpu")
+    tl, _ = tloader.synthetic_loader(th, num=24, seed=seed)
+    batch = tl.next_batch()
+    state, met = make_train_step(tm, th, device="cpu")(
+        make_train_state(tp), batch, prng.key(1))
+    assert all(np.isfinite(float(v)) for v in met.values())
+    for (_, a), (_, b) in zip(tree_items(tp), tree_items(state.params)):
+        assert not torch.equal(a, b)
+    return batch
+
+
 @pytest.mark.parametrize("over,match", [
     ("use_input_dropout=true", "later slice"),
     ("use_output_dropout=true", "later slice"),
     ("bucket_edges=4", "later slice")])
 def test_unserved_training_requests_raise_by_name(over, match):
-    _, th = _pair()
-    with pytest.raises(NotImplementedError, match=match):
-        check_trainable(th.parse(over))
+    """Input dropout, output dropout and length buckets, which the port
+    once refused by name (``match``), now train: one step each, and no
+    entry point raises ``match`` any more. (The name is kept from the
+    refusal tests; ``tests/test_torch_dropout.py`` and
+    ``tests/test_torch_bucketed.py`` hold the features against JAX.)"""
+    _, th = _pair(max_seq_len=16)
+    th = th.parse(over)
+    batch = _one_step_trains(th)
+    if th.bucket_edges:
+        assert batch["strokes"].shape[1] - 1 in (4, 16)
 
 
 @pytest.mark.parametrize("over", ["compute_dtype=bfloat16",
@@ -448,11 +473,10 @@ def test_formerly_refused_requests_now_train(over):
     itself is ``tests/test_torch_multi_step.py``'s) and the int16 and
     bfloat16 transfer dtypes (fed a real batch of that dtype from the
     port's feeder; ``tests/test_torch_prefetch.py`` holds them against
-    JAX) are served: check_trainable accepts them, and a step on the CPU
-    gives finite metrics and moves every parameter."""
+    JAX) are served: a step on the CPU gives finite metrics and moves
+    every parameter."""
     jh, th = _pair()
     th = th.parse(over)
-    check_trainable(th)
     tm = SketchRNN(th)
     tp = tm.init_params(torch.Generator().manual_seed(0), device="cpu")
     batch = _batch(jh)
@@ -474,14 +498,15 @@ def test_formerly_refused_requests_now_train(over):
                                   "quickdraw345_dp"])
 def test_presets_trainable_on_the_fused_path(over):
     """The presets the port trains, as ``sketch_rnn_tpu/cli.py`` spells
-    them (the 345 classes of ``quickdraw345_dp`` aside)."""
+    them (the 345 classes of ``quickdraw345_dp`` aside): one CPU step
+    each."""
     presets = {"": "", "vae": "conditional=true,dec_model=lstm",
                "uncond_lstm": "conditional=false,dec_model=lstm",
                "quickdraw345_dp": "conditional=true,dec_model=layer_norm,"
                                   "compute_dtype=bfloat16,fused_rnn=true,"
                                   "fused_residual_dtype=bfloat16,remat=true"}
     _, th = _pair()
-    check_trainable(th.parse(presets[over]) if over else th)
+    _one_step_trains(th.parse(presets[over]) if over else th)
 
 
 def test_train_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):

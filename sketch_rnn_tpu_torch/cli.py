@@ -24,6 +24,18 @@ those of unported features (``run_id``, ``metrics_port``,
 ``metrics_prom``; the fleet block's cache, elastic, tenant and tail
 fields).
 
+Data parallelism: one process per card. ``train``, ``eval`` and
+``sample`` join the process group first (``parallel/multihost.
+initialize``: torchrun's environment, NCCL on the card, gloo with
+``--device cpu``; a no-op without it), so
+
+    torchrun --standalone --nproc_per_node=N -m sketch_rnn_tpu_torch.cli train --preset quickdraw345_dp ...
+
+trains on N cards: each rank loads its stripe of every split at its
+share of the global ``batch_size`` (``local_batch_hps``), and only rank
+0 prints results and writes files (checkpoints, metrics, SVGs); every
+rank reads the shared workdir.
+
 The flags and subcommands of features the port does not have yet are
 accepted by the parser and refused with exit 2, naming the ROADMAP item
 that brings them (:data:`LATER_FLAGS`, :data:`SERVE_BENCH_LATER_FLAGS`,
@@ -166,41 +178,61 @@ def _workdir_hps(workdir: str) -> Optional[HParams]:
 
 
 def _device(args) -> Optional[torch.device]:
-    """``--device`` as a torch device; None (after saying why) when it
-    names the card and there is none."""
+    """``--device`` as a torch device (``cuda``: this rank's card,
+    ``cuda:LOCAL_RANK``); None (after saying why) when it names the card
+    and there is none. Joins the process group first, when launched as
+    one (gloo on the CPU)."""
+    from sketch_rnn_tpu_torch.parallel import multihost as mh
+    from sketch_rnn_tpu_torch.utils.device import resolve_device
     if args.device == "cuda" and not torch.cuda.is_available():
         print("[cli] --device cuda (the default) needs a CUDA card, and "
               "torch.cuda.is_available() is False; pass --device cpu to "
               "run the plain PyTorch versions of the kernels on the CPU",
               file=sys.stderr)
         return None
-    return torch.device(args.device)
+    mh.initialize(backend="gloo" if args.device == "cpu" else None)
+    return resolve_device(None if args.device == "cuda" else args.device)
+
+
+def _primary() -> bool:
+    from sketch_rnn_tpu_torch.parallel import multihost as mh
+    return mh.is_primary()
 
 
 def _load_data(hps: HParams, args, scale_factor: Optional[float] = None
                ) -> Tuple[object, object, object, float]:
-    """Build the loaders of one host; ``scale_factor`` (from a
-    checkpoint) overrides the recomputed train-split normalization:
-    eval/sample must use the scale the model was trained with."""
+    """Build this rank's loaders: its stripe of every split over the
+    mesh's data axis, at its share of the global batch
+    (``local_batch_hps``; ``hps`` carries the global batch size).
+    ``scale_factor`` (from a checkpoint) overrides the recomputed
+    train-split normalization: eval/sample must use the scale the model
+    was trained with."""
     from sketch_rnn_tpu_torch.data.loader import (load_dataset,
                                                   synthetic_loader)
+    from sketch_rnn_tpu_torch.parallel.mesh import make_mesh
+    from sketch_rnn_tpu_torch.parallel.multihost import local_batch_hps
+    mesh = make_mesh(hps)
+    host, nhosts = mesh.data_index, mesh.data_size
+    lhps = local_batch_hps(hps, nhosts)
     if args.synthetic:
         grid = (args.synthetic_grid if args.synthetic_grid > 0 else None)
+        stripe = dict(host_id=host, num_hosts=nhosts, integer_grid=grid)
         if scale_factor is None:
             train_l, scale = synthetic_loader(
-                hps, 20 * hps.batch_size, seed=1, augment=True,
-                integer_grid=grid)
+                lhps, 20 * hps.batch_size, seed=1, augment=True, **stripe)
         else:
             # eval/sample with a checkpointed scale never touch the train
             # corpus: skip generating it
             train_l, scale = None, scale_factor
-        valid_l, _ = synthetic_loader(hps, 2 * hps.batch_size, seed=2,
-                                      scale_factor=scale,
-                                      integer_grid=grid)
-        test_l, _ = synthetic_loader(hps, 2 * hps.batch_size, seed=3,
-                                     scale_factor=scale, integer_grid=grid)
+        # valid/test are striped too: each global eval batch then holds
+        # distinct rows
+        valid_l, _ = synthetic_loader(lhps, 2 * hps.batch_size, seed=2,
+                                      scale_factor=scale, **stripe)
+        test_l, _ = synthetic_loader(lhps, 2 * hps.batch_size, seed=3,
+                                     scale_factor=scale, **stripe)
         return train_l, valid_l, test_l, scale
-    return load_dataset(hps, scale_factor=scale_factor,
+    return load_dataset(lhps, scale_factor=scale_factor, host_id=host,
+                        num_hosts=nhosts,
                         skip_bad_records=args.skip_bad_records)
 
 
@@ -237,8 +269,11 @@ def cmd_train(args) -> int:
     train_l, valid_l, test_l, scale = _load_data(hps, args)
     where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
              else "cpu")
-    print(f"[cli] {len(train_l)} train / {len(valid_l)} valid sketches, "
-          f"scale={scale:.4f}, device={where}", flush=True)
+    if _primary():
+        from sketch_rnn_tpu_torch.parallel import multihost as mh
+        print(f"[cli] {len(train_l)} train / {len(valid_l)} valid sketches "
+              f"(rank 0 of {mh.process_count()}), scale={scale:.4f}, "
+              f"device={where}", flush=True)
     train(hps, train_l, valid_l, test_l, scale_factor=scale,
           workdir=args.workdir, seed=args.seed,
           resume=not args.no_resume, device=dev)
@@ -246,6 +281,7 @@ def cmd_train(args) -> int:
 
 
 def cmd_eval(args) -> int:
+    from sketch_rnn_tpu_torch.parallel.mesh import make_mesh
     from sketch_rnn_tpu_torch.train.loop import evaluate, evaluate_per_class
     from sketch_rnn_tpu_torch.train.step import (
         make_eval_step, make_multi_eval_step,
@@ -261,28 +297,32 @@ def cmd_eval(args) -> int:
     model, state, scale, meta = _restore(hps, args.workdir, dev)
     _, valid_l, test_l, _ = _load_data(hps, args, scale_factor=scale)
     loader = {"valid": valid_l, "test": test_l}[args.split]
+    mesh = make_mesh(hps)
     eval_k = hps.eval_steps_per_call
-    multi = (None if eval_k == 1
-             else (make_multi_eval_step(model, hps, device=dev), eval_k))
+    multi = (None if eval_k == 1 else
+             (make_multi_eval_step(model, hps, device=dev, mesh=mesh),
+              eval_k))
     ev = evaluate(state.params, loader,
-                  make_eval_step(model, hps, device=dev), multi=multi)
+                  make_eval_step(model, hps, device=dev, mesh=mesh), mesh,
+                  multi=multi)
     out = {"split": args.split, "step": meta["step"],
            **{k: round(v, 6) for k, v in sorted(ev.items())}}
     if args.per_class:
         # per-category losses: one masked sweep over the standard eval
         # batches; classes with no examples report null
         pc_multi = (None if eval_k == 1 else
-                    (make_multi_per_class_eval_step(model, hps, device=dev),
-                     eval_k))
+                    (make_multi_per_class_eval_step(model, hps, device=dev,
+                                                    mesh=mesh), eval_k))
         per = evaluate_per_class(
             state.params, loader,
-            make_per_class_eval_step(model, hps, device=dev),
-            hps.num_classes, multi=pc_multi)
+            make_per_class_eval_step(model, hps, device=dev, mesh=mesh),
+            hps.num_classes, mesh, multi=pc_multi)
         out["per_class"] = {
             str(c): (None if r is None
                      else {k: round(v, 6) for k, v in sorted(r.items())})
             for c, r in per.items()}
-    print(json.dumps(out))
+    if _primary():
+        print(json.dumps(out))
     return 0
 
 
@@ -367,6 +407,9 @@ def _sample_endpoints(args, hps, model, state, scale, key, dev) -> int:
     else:
         strokes5 = [by_uid[i].strokes5 for i in range(n)]
         lengths = np.asarray([by_uid[i].length for i in range(n)])
+    if not _primary():
+        # ranks hold other stripes: only the primary writes
+        return 0
     if args.strokes_out:
         np.savez(args.strokes_out,
                  **{f"strokes5_{i:03d}": s for i, s in enumerate(strokes5)})
@@ -428,17 +471,19 @@ def cmd_sample(args) -> int:
                            scale_factor=scale, greedy=args.greedy,
                            device=dev)
             sketches += sk
-        svg_grid(sketches, cols=n, path=args.output)
-        print(f"[cli] wrote {len(temps)} temperature rows ({temps}) x {n} "
-              f"sketches to {args.output}")
+        if _primary():
+            svg_grid(sketches, cols=n, path=args.output)
+            print(f"[cli] wrote {len(temps)} temperature rows ({temps}) x "
+                  f"{n} sketches to {args.output}")
         return 0
     sketches, lengths = sample(model, state.params, hps, key, n=n,
                                temperature=args.temperature, z=z,
                                labels=labels, scale_factor=scale,
                                greedy=args.greedy, device=dev)
-    svg_grid(sketches, cols=args.cols, path=args.output)
-    print(f"[cli] wrote {n} sketches (lengths "
-          f"{[int(x) for x in lengths]}) to {args.output}")
+    if _primary():
+        svg_grid(sketches, cols=args.cols, path=args.output)
+        print(f"[cli] wrote {n} sketches (lengths "
+              f"{[int(x) for x in lengths]}) to {args.output}")
     return 0
 
 

@@ -5,10 +5,11 @@ names, defaults, validation and ``key=value,key=value`` override grammar,
 so a sidecar ``hps`` JSON written by either package loads in the other.
 The port keeps its own copy rather than importing the JAX package's (the
 port imports nothing of ``sketch_rnn_tpu``). Some fields configure parts
-of the system the port does not run yet (data parallelism and the mesh,
-telemetry, the speculative draft, the fleet's later features); they are
-kept so the JSON round-trips, and every field's meaning is documented
-once, in the JAX package's copy.
+of the system the port does not run yet (telemetry, the speculative
+draft, the fleet's later features); they are kept so the JSON
+round-trips, and every field's meaning is documented once, in the JAX
+package's copy. ``mesh_shape``/``mesh_axes`` lay out the ranks of the
+process group (``parallel/mesh.py``).
 """
 
 from __future__ import annotations

@@ -26,9 +26,19 @@ batches at their bucket's pad (``eval_pad_len``, ``get_batch``), the
 plan's part of ``plan_fingerprint``, and the padding ledger
 (``utils/profiling.py``) that every assembled batch is recorded in.
 
+Host striping (``host_id``/``num_hosts`` of ``load_dataset`` and
+``synthetic_loader``) is the JAX package's, bit for bit: every split is
+striped ``seqs[host_id::num_hosts]``, each stripe's RNG seeded ``seed +
+7919 * host_id``, the scale factor taken from the whole train split, and
+the eval sweep's batch count derived from the corpus before striping, so
+every rank makes the same number of eval calls (each holds collectives).
+With ``parallel/multihost.local_batch_hps`` each stripe assembles its
+rank's share of the global batch. Bucketed plans on a striped loader
+raise, as in the JAX package: each rank would plan its own geometries.
+
 Not ported yet (each raises, naming the later slice): the native C++
-batcher, multi-host striping and the coordinated global plan (ROADMAP
-queue 1).
+batcher, and the coordinated global plan (``coordinated``,
+``emit_global``, the elastic runtime's; ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -43,6 +53,8 @@ from sketch_rnn_tpu_torch.data import strokes as S
 from sketch_rnn_tpu_torch.utils.profiling import PaddingLedger
 
 _LATER = "comes with a later slice of the PyTorch port"
+_COORDINATED = (f"the coordinated global plan {_LATER} (ROADMAP queue 1 "
+                f"item 7, the elastic runtime)")
 
 
 def _purify(stroke3_list, max_seq_len: int, limit: float = 1000.0,
@@ -122,11 +134,17 @@ class DataLoader:
     with the same RNG draws, as :meth:`next_batch`. Without buckets
     ``next_batch`` is exactly :meth:`random_batch`. Every assembled batch
     is recorded in ``padding_ledger``.
+
+    A stripe of ``num_hosts`` (``host_id``'s rows of a corpus of
+    ``global_size``) counts its eval batches from the corpus before
+    striping, as the JAX loader does; it refuses ``bucket_edges``.
     """
 
     def __init__(self, stroke3_list: Sequence[np.ndarray], hps: HParams,
                  labels: Optional[np.ndarray] = None,
-                 augment: bool = False, seed: int = 0):
+                 augment: bool = False, seed: int = 0,
+                 global_size: Optional[int] = None, num_hosts: int = 1,
+                 host_id: int = 0):
         self.hps = hps
         self.scale_factor = 1.0
         self.strokes: List[np.ndarray] = [np.asarray(s, np.float32)
@@ -140,6 +158,14 @@ class DataLoader:
         self.augment = augment
         self.rng = np.random.default_rng(seed)
         self.seed = seed
+        self.num_hosts, self.host_id = num_hosts, host_id
+        # a stripe counts its eval batches from the corpus before striping
+        self._global_size = global_size if num_hosts > 1 else None
+        if hps.bucket_edges and num_hosts > 1:
+            raise RuntimeError(
+                f"bucket_edges on a host-striped loader (num_hosts="
+                f"{num_hosts}) would launch mismatched per-host batch "
+                f"geometries; that needs {_COORDINATED}")
         # the effective edges end at max_seq_len (the terminal bucket), so
         # every admitted sequence has a bucket; () is bucketing off
         edges = tuple(hps.bucket_edges)
@@ -378,11 +404,22 @@ class DataLoader:
 
     @property
     def num_eval_batches(self) -> int:
-        """Batches for a full eval sweep, ``ceil(len / batch_size)``: the
-        last wraps around to the corpus start so every batch keeps the
-        full shape. Zero for an empty split."""
+        """Batches for a full eval sweep, ``ceil(len / batch_size)`` (of a
+        stripe: of the longest stripe's length, the same on every rank):
+        the last wrap round to the corpus start so every batch keeps the
+        full shape. Zero for an empty split, or when some stripe is
+        empty."""
+        if self._global_size is None:
+            common = longest = len(self.strokes)
+        else:
+            # the common floor says whether every stripe has rows, the
+            # ceiling is the longest stripe
+            common = self._global_size // self.num_hosts
+            longest = -(-self._global_size // self.num_hosts)
+        if common == 0:
+            return 0
         b = self.hps.batch_size
-        return (len(self.strokes) + b - 1) // b
+        return (longest + b - 1) // b
 
     def eval_pad_len(self, batch_index: int) -> int:
         """The pad length of eval batch ``batch_index``: the bucket edge
@@ -433,6 +470,36 @@ def _windowed_shuffle(items: List, window: int,
     return out
 
 
+# -- host striping ---------------------------------------------------------
+
+
+def _stripe(seqs, labels, host_id: int, num_hosts: int):
+    """Host ``host_id``'s disjoint slice of a corpus, every
+    ``num_hosts``-th example (the JAX package's ``_stripe``)."""
+    if num_hosts <= 1:
+        return seqs, labels
+    return seqs[host_id::num_hosts], labels[host_id::num_hosts]
+
+
+def _host_seed(seed: int, host_id: int) -> int:
+    """A stripe's loader seed: decorrelated per host."""
+    return seed + 7919 * host_id
+
+
+def _refuse_coordinated(hps: HParams, num_hosts: int,
+                        coordinated: Optional[bool],
+                        emit_global: bool) -> None:
+    """The coordinated plan, asked for or picked as the JAX package
+    picks it (``coordinated=None`` with buckets on a striped corpus),
+    raises: it comes with the elastic runtime."""
+    auto = num_hosts > 1 and bool(hps.bucket_edges)
+    if (auto if coordinated is None else coordinated) or emit_global:
+        raise NotImplementedError(
+            f"{_COORDINATED} (coordinated={coordinated}, emit_global="
+            f"{emit_global}, num_hosts={num_hosts}, bucket_edges="
+            f"{tuple(hps.bucket_edges)})")
+
+
 # -- dataset files ---------------------------------------------------------
 
 _SEEDS = {"train": 1, "valid": 2, "test": 3}   # fixed: runs reproduce
@@ -454,17 +521,10 @@ def load_dataset(hps: HParams, data_dir: Optional[str] = None,
     split array, a corrupt record and an empty split each fail with the
     JAX package's one line; ``skip_bad_records`` skips corrupt records
     instead. The files' object arrays are pickled, as QuickDraw's are:
-    read only files you trust. Returns ``(train, valid, test,
-    scale_factor)``."""
-    if num_hosts != 1 or host_id != 0:
-        raise NotImplementedError(
-            f"multi-host striping (num_hosts={num_hosts}, host_id="
-            f"{host_id}) {_LATER} (ROADMAP queue 1, items 7 and 10)")
-    if coordinated or emit_global:
-        raise NotImplementedError(
-            f"the coordinated global plan (coordinated={coordinated}, "
-            f"emit_global={emit_global}) {_LATER} (ROADMAP queue 1, "
-            f"items 7 and 10)")
+    read only files you trust. ``host_id``/``num_hosts`` stripe every
+    split (the module docstring); ``hps.batch_size`` is then the
+    stripe's. Returns ``(train, valid, test, scale_factor)``."""
+    _refuse_coordinated(hps, num_hosts, coordinated, emit_global)
     data_dir = data_dir or hps.data_dir
     splits = {"train": ([], []), "valid": ([], []), "test": ([], [])}
     for label, name in enumerate(hps.data_set):
@@ -505,10 +565,18 @@ def load_dataset(hps: HParams, data_dir: Optional[str] = None,
                 f"{split} split is empty after filtering to "
                 f"max_seq_len={hps.max_seq_len}; raise max_seq_len or check "
                 f"the data files {hps.data_set}")
+        # every split is striped: train for data parallelism, valid/test
+        # so each global eval batch holds distinct rows
+        global_size = len(seqs)
+        seqs, labels = _stripe(seqs, labels, host_id, num_hosts)
         return DataLoader(seqs, hps, labels=np.array(labels, np.int32),
-                          augment=augment, seed=_SEEDS[split])
+                          augment=augment,
+                          seed=_host_seed(_SEEDS[split], host_id),
+                          global_size=global_size, num_hosts=num_hosts,
+                          host_id=host_id)
 
     train = build("train", augment=True)
+    # from the whole train split: every rank normalizes alike
     scale = (scale_factor if scale_factor is not None
              else S.calculate_normalizing_scale_factor(splits["train"][0]))
     valid = build("valid", augment=False)
@@ -577,22 +645,28 @@ def synthetic_loader(hps: HParams, num: int, seed: int = 0,
                      scale_factor: Optional[float] = None,
                      host_id: int = 0, num_hosts: int = 1,
                      integer_grid: Optional[float] = None,
+                     coordinated: Optional[bool] = None,
+                     emit_global: bool = False,
                      ) -> Tuple[DataLoader, float]:
     """One synthetic-corpus loader sized to ``hps``: ``max(num_classes,
     1)`` figure classes, lengths clamped to fit ``max_seq_len``, offsets
-    normalized by the corpus's own scale factor unless ``scale_factor``
-    is given. Returns ``(loader, scale_factor)``."""
-    if num_hosts != 1 or host_id != 0:
-        raise NotImplementedError(
-            f"multi-host striping (num_hosts={num_hosts}) {_LATER}")
+    normalized by the corpus's own scale factor (of the whole corpus,
+    before striping) unless ``scale_factor`` is given;
+    ``host_id``/``num_hosts`` stripe it as :func:`load_dataset` does.
+    Returns ``(loader, scale_factor)``."""
+    _refuse_coordinated(hps, num_hosts, coordinated, emit_global)
     seqs, labels = make_synthetic_strokes(
         num, num_classes=max(hps.num_classes, 1),
         max_len=min(96, hps.max_seq_len - 2), seed=seed,
         integer_grid=integer_grid)
     if scale_factor is None:
         scale_factor = S.calculate_normalizing_scale_factor(seqs)
+    global_size = len(seqs)
+    seqs, labels = _stripe(seqs, labels, host_id, num_hosts)
     loader = DataLoader(seqs, hps, labels=labels, augment=augment,
-                        seed=seed)
+                        seed=_host_seed(seed, host_id),
+                        global_size=global_size, num_hosts=num_hosts,
+                        host_id=host_id)
     loader.normalize(scale_factor)
     return loader, scale_factor
 

@@ -22,14 +22,17 @@ for the K-step call, with ``transfer_dtype``:
   corpus gives the float32 batch bit for bit. A corpus whose scale is
   under 5 is refused with the JAX package's message.
 
-``device`` takes the place of the JAX package's ``mesh``: ``None`` hands
-over the loader's numpy dicts; ``"cpu"`` CPU tensors; a CUDA device,
-tensors on the card, copied by the producer thread through pinned memory
-on a stream of its own. Each batch carries an event recorded after its
-copies, and ``get()`` makes the consumer's current stream wait on it and
-marks the tensors as used there, so a copy never queues behind the step
-it overlaps and the allocator does not hand out a tensor's memory while
-a step still reads it.
+``device`` says where batches go: ``None`` hands over the loader's numpy
+dicts; ``"cpu"`` CPU tensors; a CUDA device, tensors on the card, copied
+by the producer thread through pinned memory on a stream of its own.
+``mesh`` (the JAX package's argument, ``parallel/mesh.py``): each host
+batch is the global batch, and the producer hands this rank its rows of
+it (``shard_batch``, before any cast or copy), on its own card. Each
+batch carries an event recorded after its copies, and ``get()`` makes
+the consumer's current stream wait on it and marks the tensors as used
+there, so a copy never queues behind the step it overlaps and the
+allocator does not hand out a tensor's memory while a step still reads
+it.
 
 Each feeder keeps ``timings``: the producer's host seconds by part
 (``assemble`` is the loader's draws, the int16 quantization and the
@@ -43,9 +46,8 @@ K batches of one geometry run stacked ``[k, B, Tb + 1, 5]`` with ``k <=
 K`` (the training loop replays a short stack step by step); the
 micro-batches are the loader's ``next_batch`` stream.
 
-Not ported (ROADMAP queue 1): the sharded transfer onto a mesh. The
-``prefetch_queue_depth`` gauge and the ``data.batch`` fault site come
-with telemetry and faults.
+The ``prefetch_queue_depth`` gauge and the ``data.batch`` fault site come
+with telemetry and faults (ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -57,6 +59,8 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+
+from sketch_rnn_tpu_torch.parallel.mesh import shard_batch
 
 
 def stack_batches(batches) -> Dict[str, np.ndarray]:
@@ -228,14 +232,14 @@ def _card_transfer(device: torch.device, timings: Dict[str, float]):
 
 
 def prefetch_batches(loader, device=None, depth: int = 2, stack: int = 1,
-                     transfer_dtype: Optional[str] = None):
+                     transfer_dtype: Optional[str] = None, mesh=None):
     """A feeder over ``loader.next_batch()`` (``random_batch`` when the
     loader has no such method): ``depth`` batches ahead on one producer
     thread, or a :class:`SyncFeeder` when ``depth <= 0``. ``stack=K``
     stacks K consecutive draws ``[K, ...]`` a ``get()``: the same draws,
     in the same order, as K single gets (a bucketed loader's
-    ``next_stack(K)``, ``k <= K`` of them). ``transfer_dtype`` and
-    ``device``: the module docstring."""
+    ``next_stack(K)``, ``k <= K`` of them). ``transfer_dtype``,
+    ``device`` and ``mesh``: the module docstring."""
     if stack < 1:
         raise ValueError(f"stack must be >= 1, got {stack}")
     if transfer_dtype not in (None, "float32", "bfloat16", "int16"):
@@ -268,6 +272,8 @@ def prefetch_batches(loader, device=None, depth: int = 2, stack: int = 1,
         else:
             out = stack_batches([next_fn(int16_scale=quant_scale)
                                  for _ in range(stack)])
+        if mesh is not None:
+            out = shard_batch(out, mesh, stacked=stack > 1)
         t1 = time.perf_counter()
         if cast:
             out["strokes"] = torch.from_numpy(

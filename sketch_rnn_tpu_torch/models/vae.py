@@ -379,13 +379,19 @@ class SketchRNN:
         return mp, x_target, labels, mu, presig
 
     def loss(self, params: Params, batch: Dict[str, torch.Tensor],
-             key, kl_weight, train: bool = True
+             key, kl_weight, train: bool = True, axis_name=None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The VAE loss on a batch of tensors (``strokes [B, Nmax+1, 5]``
         with the start token at t=0, ``seq_len [B]``, ``labels [B]``,
         optional ``weights [B]``); ``key``: the step's key or its
         :meth:`draws`; ``kl_weight`` is the annealed weight.
         Returns ``(total, metrics)`` with the JAX package's metric names.
+
+        ``axis_name``: a ``parallel/mesh.Mesh`` when ``batch`` is this
+        rank's rows; every scalar is then the global batch's (``ops/
+        mdn.py``'s global sums), the free-bits floor taken on the global
+        KL, and the gradient of ``total`` is this rank's contribution to
+        the global loss's gradient (the step sums them over the ranks).
         """
         hps = self.hps
         weights = batch.get("weights")
@@ -393,12 +399,12 @@ class SketchRNN:
             params, batch, key, train)
         dev = x_target.device
         zero = torch.zeros((), dtype=torch.float32, device=dev)
-        kl_raw = mdn.kl_loss(mu, presig, weights) if hps.conditional \
-            else zero
+        kl_raw = (mdn.kl_loss(mu, presig, weights, axis_name=axis_name)
+                  if hps.conditional else zero)
         # canonical asymmetry: pen CE unmasked in training, masked in eval
         offset_nll, pen_ce = mdn.reconstruction_loss(
             mp, x_target, hps.max_seq_len, mask_pen=not train,
-            weights=weights)
+            weights=weights, axis_name=axis_name)
         r_cost = offset_nll + pen_ce
         # a fill, not a host copy, for a float weight: a captured CUDA
         # graph refuses host-to-device copies
@@ -419,13 +425,16 @@ class SketchRNN:
 
     def eval_metrics_per_class(self, params: Params,
                                batch: Dict[str, torch.Tensor],
-                               key) -> Dict[str, torch.Tensor]:
+                               key, axis_name=None
+                               ) -> Dict[str, torch.Tensor]:
         """The eval-mode metrics as ``[num_classes]`` vectors in one
         forward, plus ``weight_sum``, each class's count of real
         (weight > 0) rows: per-example sums reduced by a ``[C, B]`` class
         mask. As in eval, no dropout, pen CE masked and KL weight 1, the
         free-bits floor applied to each class's KL mean over this batch;
         a class absent from the batch reports zeros at ``weight_sum`` 0.
+        ``axis_name``: a mesh whose data group's class sums (one
+        all-reduce of the four ``[C]`` sums) make the global batch's.
         """
         hps = self.hps
         if hps.num_classes <= 0:
@@ -444,11 +453,13 @@ class SketchRNN:
         cls = torch.arange(hps.num_classes, device=dev)
         mask = (labels[None, :] == cls[:, None]).to(torch.float32) \
             * w[None, :]                                        # [C, B]
-        cnt = mask.sum(dim=-1)
+        cnt, nll_c, pen_c, kl_c = mdn._global_sum(torch.stack(
+            [mask.sum(dim=-1), mask @ nll_ex, mask @ pen_ex, mask @ kl_ex]),
+            axis_name).unbind()
         safe = torch.clamp_min(cnt, 1.0)
-        offset_nll = (mask @ nll_ex) / (hps.max_seq_len * safe)
-        pen_ce = (mask @ pen_ex) / (hps.max_seq_len * safe)
-        kl_raw = (mask @ kl_ex) / safe
+        offset_nll = nll_c / (hps.max_seq_len * safe)
+        pen_ce = pen_c / (hps.max_seq_len * safe)
+        kl_raw = kl_c / safe
         recon = offset_nll + pen_ce
         if hps.conditional:
             kl_floored = mdn.kl_cost_with_floor(kl_raw, hps.kl_tolerance)

@@ -6,8 +6,14 @@ ls1 | ls2 | rho]``, each block ``M`` wide. The losses keep the canonical
 asymmetry: the offset GMM NLL is masked to each sequence's true length
 (``fs = 1 - p3(target)``), the pen cross-entropy is unmasked in training
 and masked in eval, and both are normalized by ``max_seq_len * B``
-whatever the mask; the KL term has the free-bits floor. Data-parallel
-``axis_name`` sums come with a later slice.
+whatever the mask; the KL term has the free-bits floor.
+
+``axis_name``: a ``parallel/mesh.Mesh`` when the batch is this rank's
+rows of a global batch. Numerators and normalizers are then summed over
+the mesh's data group (:func:`_global_sum`, one all-reduce a loss), so
+every returned scalar is the global batch's, the nonlinear KL floor
+included, and a rank's gradient is its rows' contribution to the
+gradient of the global loss. None (the default): this batch alone.
 """
 
 from __future__ import annotations
@@ -15,6 +21,13 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+
+def _global_sum(x: torch.Tensor, axis_name) -> torch.Tensor:
+    """``x`` summed over the mesh ``axis_name``'s data group (the
+    identity backward of ``Mesh.psum``), else ``x``. Callers stack their
+    scalars into one vector, so a loss costs one all-reduce."""
+    return axis_name.psum(x) if axis_name is not None else x
 
 
 class MixtureParams(NamedTuple):
@@ -108,11 +121,13 @@ def reconstruction_sums(mp: MixtureParams, target: torch.Tensor,
 
 def reconstruction_loss(mp: MixtureParams, target: torch.Tensor,
                         max_seq_len: int, mask_pen: bool = False,
-                        weights: Optional[torch.Tensor] = None
+                        weights: Optional[torch.Tensor] = None,
+                        axis_name=None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Offset-GMM NLL + pen-state CE as scalars, each divided by
     ``max_seq_len * B`` (``weights [B]`` weight each example and replace
-    ``B`` by their sum)."""
+    ``B`` by their sum); with ``axis_name``, the global batch's sums and
+    ``B``."""
     if target.shape[0] > max_seq_len:
         raise ValueError(
             f"target has {target.shape[0]} steps but max_seq_len="
@@ -120,12 +135,19 @@ def reconstruction_loss(mp: MixtureParams, target: torch.Tensor,
             f"every step; pass the model's true max_seq_len")
     nll, pen_ce = reconstruction_sums(mp, target, mask_pen)
     if weights is None:
-        denom = float(max_seq_len * target.shape[1])
+        nll, pen_ce = _global_sum(torch.stack([nll.sum(), pen_ce.sum()]),
+                                  axis_name).unbind()
+        # the global row count, which the psum of a constant gives exactly
+        rows = target.shape[1] * (axis_name.data_size
+                                  if axis_name is not None else 1)
+        denom = float(max_seq_len * rows)
     else:
         w = weights.to(torch.float32)
-        nll, pen_ce = nll * w, pen_ce * w
-        denom = max_seq_len * torch.clamp_min(w.sum(), 1.0)
-    return nll.sum() / denom, pen_ce.sum() / denom
+        nll, pen_ce, wsum = _global_sum(torch.stack(
+            [(nll * w).sum(), (pen_ce * w).sum(), w.sum()]),
+            axis_name).unbind()
+        denom = max_seq_len * torch.clamp_min(wsum, 1.0)
+    return nll / denom, pen_ce / denom
 
 
 def kl_per_example(mu: torch.Tensor, presig: torch.Tensor) -> torch.Tensor:
@@ -135,14 +157,20 @@ def kl_per_example(mu: torch.Tensor, presig: torch.Tensor) -> torch.Tensor:
 
 
 def kl_loss(mu: torch.Tensor, presig: torch.Tensor,
-            weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+            weights: Optional[torch.Tensor] = None,
+            axis_name=None) -> torch.Tensor:
     """KL(q(z|x) || N(0, I)), mean over batch and latent dims (a weighted
-    batch mean with ``weights [B]``)."""
+    batch mean with ``weights [B]``); with ``axis_name``, the global
+    batch's mean."""
     per = kl_per_example(mu, presig)
     if weights is None:
-        return per.sum() / float(per.shape[0])
+        rows = per.shape[0] * (axis_name.data_size
+                               if axis_name is not None else 1)
+        return _global_sum(per.sum(), axis_name) / float(rows)
     w = weights.to(torch.float32)
-    return (per * w).sum() / torch.clamp_min(w.sum(), 1.0)
+    num, den = _global_sum(torch.stack([(per * w).sum(), w.sum()]),
+                           axis_name).unbind()
+    return num / torch.clamp_min(den, 1.0)
 
 
 def kl_cost_with_floor(kl: torch.Tensor, kl_tolerance: float

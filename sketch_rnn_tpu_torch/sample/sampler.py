@@ -26,6 +26,13 @@ log_pi / tau)``, the pen ``categorical(kp, pen_logits / tau)`` (both
 bitwise JAX's draws), the offsets' noise ``normal(kg, (B, 2))`` (within
 1e-6 of JAX's, ``prng.normal``). The chain of step keys is hashed on the
 host with Python integers, so no key is hashed step by step on the card.
+
+``mesh=`` (``parallel/mesh.py``) shards a call over the mesh's data
+axis, as the JAX sampler's ``shard_map`` does: of ``B`` sketches, the
+rank at data index ``d`` of ``n`` draws rows ``[d * B / n, (d + 1) * B /
+n)`` (its rows of ``z``, ``labels`` and ``max_steps``) with
+``fold_in(key, d)``, and the data group's rows are gathered in data
+order, so every rank returns all ``B``.
 """
 
 from __future__ import annotations
@@ -38,6 +45,8 @@ import torch
 from sketch_rnn_tpu_torch.config import HParams
 from sketch_rnn_tpu_torch.data import strokes as S
 from sketch_rnn_tpu_torch.ops import mdn
+from sketch_rnn_tpu_torch.parallel.mesh import (check_batch_divisible,
+                                                shard_batch)
 from sketch_rnn_tpu_torch.utils import prng
 from sketch_rnn_tpu_torch.utils.device import (Staged, resolve_device,
                                                to_device, tree_to)
@@ -124,28 +133,19 @@ def sample_from_mixture(mp: mdn.MixtureParams, key: torch.Tensor,
     return _draw(mp, tau, False, g_comp, g_pen, e)
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "sampling sharded over a device mesh (mesh=) comes with data "
-            "parallelism, ROADMAP queue 1 item 4, in a later slice of the "
-            "PyTorch port")
-
-
 def make_sampler(model, hps: HParams, max_len: Optional[int] = None,
                  greedy: bool = False, mesh=None, device=None):
     """Cached wrapper around :func:`_build_sampler`: one sampler per
-    ``(max_len, greedy, device)`` is kept on the model instance, as the
-    JAX package keeps its compiled samplers. ``mesh`` (generation sharded
-    over a device mesh) is refused: it comes with data parallelism."""
-    _refuse_mesh(mesh)
+    ``(max_len, greedy, device, mesh)`` is kept on the model instance, as
+    the JAX package keeps its compiled samplers. ``mesh``: generation
+    sharded over its data axis (the module docstring)."""
     dev = resolve_device(device)
     cache = getattr(model, "_sampler_cache", None)
     if cache is None:
         cache = model._sampler_cache = {}
-    ckey = (int(max_len or hps.max_seq_len), bool(greedy), dev)
+    ckey = (int(max_len or hps.max_seq_len), bool(greedy), dev, mesh)
     if ckey not in cache:
-        cache[ckey] = _build_sampler(model, hps, max_len, greedy,
+        cache[ckey] = _build_sampler(model, hps, max_len, greedy, mesh=mesh,
                                      device=dev)
     return cache[ckey]
 
@@ -243,9 +243,37 @@ class Sampler:
         return out.transpose(0, 1), length
 
 
+class ShardedSampler:
+    """:class:`Sampler`'s call sharded over a mesh's data axis (the
+    module docstring); ``stats`` are this rank's sampler's."""
+
+    def __init__(self, local: Sampler, mesh):
+        mesh.require_group("sampler")
+        self.local = local
+        self.mesh = mesh
+
+    @property
+    def stats(self):
+        return self.local.stats
+
+    def __call__(self, params, key, batch_size: int, z=None, labels=None,
+                 temperature=1.0, max_steps=None):
+        mesh = self.mesh
+        check_batch_divisible(batch_size, mesh)
+        rows = shard_batch({k: v for k, v in (("z", z), ("labels", labels),
+                                               ("max_steps", max_steps))
+                            if v is not None}, mesh)
+        key = prng.fold_in(torch.as_tensor(prng.key_words(key).astype(
+            np.int64)), mesh.data_index)
+        strokes5, lengths = self.local(
+            params, key, batch_size // mesh.data_size, rows.get("z"),
+            rows.get("labels"), temperature, rows.get("max_steps"))
+        return mesh.gather(strokes5.contiguous()), mesh.gather(lengths)
+
+
 def _build_sampler(model, hps: HParams, max_len: Optional[int] = None,
                    greedy: bool = False, mesh=None, device=None,
-                   check_every: int = DONE_CHECK_EVERY) -> Sampler:
+                   check_every: int = DONE_CHECK_EVERY):
     """Build the batched sampler.
 
     Returns ``fn(params, key, batch_size, z, labels, temperature,
@@ -263,11 +291,11 @@ def _build_sampler(model, hps: HParams, max_len: Optional[int] = None,
 
     ``check_every``: steps between two reads of ``done.all()``; 1 exits
     at the very step the last row finishes, as the JAX loop does, and any
-    value gives the same tensors.
+    value gives the same tensors. ``mesh``: a :class:`ShardedSampler`.
     """
-    _refuse_mesh(mesh)
-    return Sampler(model, hps, int(max_len or hps.max_seq_len),
-                   bool(greedy), resolve_device(device), int(check_every))
+    local = Sampler(model, hps, int(max_len or hps.max_seq_len),
+                    bool(greedy), resolve_device(device), int(check_every))
+    return local if mesh is None else ShardedSampler(local, mesh)
 
 
 def sample(model, params, hps: HParams, key, n: int = 1,
@@ -281,7 +309,8 @@ def sample(model, params, hps: HParams, key, n: int = 1,
     For conditional models with no ``z`` given, draws z ~ N(0, I) (the
     prior) with ``prng.normal``, within 1e-6 of JAX's draw. Offsets are
     multiplied back by ``scale_factor`` so the output is in data units.
-    ``mesh`` is refused (:func:`make_sampler`)."""
+    ``mesh``: generation sharded over its data axis (:func:`make_sampler`);
+    every rank returns all ``n``."""
     sampler = make_sampler(model, hps, max_len=max_len, greedy=greedy,
                            mesh=mesh, device=device)
     k = torch.from_numpy(prng.key_words(key).astype(np.int64))

@@ -23,7 +23,7 @@ check for check, in the same order; a msgpack that does not decode
 names the port's decoder error where the JAX package names msgpack's.
 
 The fault-injection sites of the JAX module (``ckpt.commit``,
-``ckpt.torn``, ``ckpt.load.corrupt``) come with queue 1 item 10.
+``ckpt.torn``, ``ckpt.load.corrupt``) come with queue 1 item 7.
 """
 
 from __future__ import annotations

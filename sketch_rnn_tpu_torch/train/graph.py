@@ -34,6 +34,13 @@ capture records are taken back out of the counters, and every replay adds
 them again, so the counters hold what the card ran. The warm-up's
 launches are counted as the launches they are.
 
+A body on a mesh (``parallel/mesh.py``) issues the data axis's
+all-reduces: under an NCCL group the warm-up's eager run creates the
+communicator, and the capture records the collectives on the capture
+stream with the rest of the K steps, so a replay runs them too. A group
+whose collectives a graph cannot capture (gloo) is refused by the step
+builders before any capture (``train/step.py``).
+
 On the CPU there is nothing to capture: callers run the body eagerly (the
 plain version), and :class:`GraphedCall` refuses CPU devices.
 """

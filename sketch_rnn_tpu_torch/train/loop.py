@@ -47,7 +47,23 @@ run is step for step the bucketed K = 1 run. The eval sweep's runs also
 break where an eval batch's pad length changes. Each logged train row
 carries the loader's padding ledger (``padded_frac``,
 ``bucket_T<edge>_n``, ``runs_per_epoch``, ``mean_run_len``,
-``dispatches_saved``). Telemetry, the profiler, the watchdog and elastic
+``dispatches_saved``).
+
+Data parallelism (``use_mesh=True``, the JAX package's default): the
+loop builds the mesh of ``parallel/mesh.py`` over the process group and
+every step and eval sweep runs on it, so a run over N ranks computes
+what the JAX package computes over N hosts with one device each (keys
+folded with the rank's data index, global-sum losses, one gradient
+all-reduce a step). Each rank feeds its own rows: a loader striped over
+the data axis (``load_dataset(host_id=, num_hosts=)`` at
+``local_batch_hps``) is fed as it is; an unstriped loader's batches are
+the global batch, and each rank takes its rows of it
+(``parallel/mesh.shard_batch``). Only the primary (rank 0) writes
+metrics and checkpoints and prints; every rank restores on resume, so
+``workdir`` must be shared. Without a process group the world is one
+rank: no collective runs, and the keys fold with 0 as on the JAX
+package's one-device mesh. ``use_mesh=False`` is the JAX package's
+``mesh=None`` path. Telemetry, the profiler, the watchdog and elastic
 runs are not ported yet: asking for one raises, naming the later slice.
 """
 
@@ -61,6 +77,8 @@ import torch
 from sketch_rnn_tpu_torch.config import HParams
 from sketch_rnn_tpu_torch.data.prefetch import prefetch_batches, stack_batches
 from sketch_rnn_tpu_torch.models.vae import SketchRNN
+from sketch_rnn_tpu_torch.parallel import multihost as mh
+from sketch_rnn_tpu_torch.parallel.mesh import make_mesh, shard_batch
 from sketch_rnn_tpu_torch.train.async_ckpt import AsyncCheckpointer
 from sketch_rnn_tpu_torch.train.checkpoint import (latest_checkpoint,
                                                    restore_checkpoint,
@@ -121,7 +139,27 @@ def dispatch_stack(single_step, multi_step, state, batch, step: int,
     return state, replay_window_metrics(per_step), use, use
 
 
-def _sweep_rows(params, loader, eval_step, key, multi=None):
+def feed_mesh(loader, mesh):
+    """The mesh by which a rank takes its rows of ``loader``'s batches:
+    None when they are its rows already (no mesh, a mesh of one data
+    rank, or a loader striped over the data axis as this rank's stripe),
+    ``mesh`` when they are the global batch (an unstriped loader); a
+    loader striped another way raises."""
+    if mesh is None:
+        return None
+    n = getattr(loader, "num_hosts", 1)
+    if n == 1:
+        return mesh if mesh.data_size > 1 else None
+    if n != mesh.data_size or loader.host_id != mesh.data_index:
+        raise ValueError(
+            f"a loader striped as host {loader.host_id} of {n} feeds a "
+            f"rank whose data index is {mesh.data_index} of "
+            f"{mesh.data_size}; stripe it with host_id=data index and "
+            f"num_hosts=the data axis's size")
+    return None
+
+
+def _sweep_rows(params, loader, eval_step, key, multi=None, mesh=None):
     """One metrics dict (host floats or numpy vectors) per eval batch over
     ``loader.num_eval_batches`` batches; batch ``i`` uses ``fold_in(key,
     i)``. ``multi=(multi_step, k_max)`` sweeps in :func:`geometry_runs`
@@ -129,41 +167,53 @@ def _sweep_rows(params, loader, eval_step, key, multi=None):
     bucketed loader's pad), each run of more than one batch through one
     K-batch call (one copy back to the host a run), a run of one through
     ``eval_step``: the same keys and the same bodies, so the rows are the
-    per-batch sweep's."""
+    per-batch sweep's. ``mesh``: the steps' mesh; a rank takes its rows
+    of an unstriped loader's batches (:func:`feed_mesh`)."""
     n = loader.num_eval_batches
     if n == 0:
         raise ValueError(
             f"eval split has no batches ({len(loader)} examples, "
-            f"batch_size={loader.hps.batch_size})")
+            f"batch_size={loader.hps.batch_size}; a striped split needs "
+            f"rows in every stripe)")
+    by = feed_mesh(loader, mesh)
+
+    def rows(batch, stacked=False):
+        return batch if by is None else shard_batch(batch, by, stacked)
     multi_step, k_max = multi if multi is not None else (None, 1)
     for i, k in geometry_runs(n, k_max, loader.eval_pad_len):
         if k > 1:
-            out = multi_step(params, stack_batches(
-                [loader.get_batch(j) for j in range(i, i + k)]), key,
+            out = multi_step(params, rows(stack_batches(
+                [loader.get_batch(j) for j in range(i, i + k)]), True), key,
                 range(i, i + k))
             host = {m: v.cpu().numpy() for m, v in out.items()}
             for j in range(k):
                 yield {m: v[j] for m, v in host.items()}
             continue
-        out = eval_step(params, loader.get_batch(i), prng.fold_in(key, i))
+        out = eval_step(params, rows(loader.get_batch(i)),
+                        prng.fold_in(key, i))
         if all(v.dim() == 0 for v in out.values()):
             yield scalars_from_device(out)
         else:
             yield {k: v.cpu().numpy() for k, v in out.items()}
 
 
-def evaluate(params, loader, eval_step, key: Optional[torch.Tensor] = None,
+def evaluate(params, loader, eval_step, mesh=None,
+             key: Optional[torch.Tensor] = None,
              multi=None) -> Dict[str, float]:
     """Eval metrics over a full sweep of ``loader``: each batch's
     weighted means combined by its ``weight_sum``, so the result is the
     exact mean over the split (the wrap-filled rows of the last batch
     weigh 0). ``multi=(make_multi_eval_step(...), k)`` chunks the sweep
-    (:func:`_sweep_rows`)."""
+    (:func:`_sweep_rows`). ``mesh``: the eval steps' mesh, whose
+    ``weight_sum`` is the global batch's, so every rank gets the same
+    result; the batch count comes from the corpus before striping, so
+    every rank makes the same number of calls."""
     if key is None:
         key = prng.key(0)
     totals: Dict[str, float] = {}
     weight_total = 0.0
-    for metrics in _sweep_rows(params, loader, eval_step, key, multi):
+    for metrics in _sweep_rows(params, loader, eval_step, key, multi,
+                               mesh):
         w = float(metrics.pop("weight_sum", loader.hps.batch_size))
         weight_total += w
         for k, v in metrics.items():
@@ -172,18 +222,20 @@ def evaluate(params, loader, eval_step, key: Optional[torch.Tensor] = None,
 
 
 def evaluate_per_class(params, loader, per_class_step, num_classes: int,
-                       key: Optional[torch.Tensor] = None, multi=None
+                       mesh=None, key: Optional[torch.Tensor] = None,
+                       multi=None
                        ) -> Dict[int, Optional[Dict[str, float]]]:
     """Per-class eval metrics over one standard sweep of ``loader``:
     ``{class: metrics}``, each batch's ``[num_classes]`` vectors combined
     by its per-class real-row counts; None for a class with no example
     in the split. ``multi=(make_multi_per_class_eval_step(...), k)``
-    chunks the sweep as in :func:`evaluate`."""
+    chunks the sweep and ``mesh`` shards it as in :func:`evaluate`."""
     if key is None:
         key = prng.key(0)
     totals: Dict[str, np.ndarray] = {}
     counts = np.zeros((num_classes,), np.float64)
-    for metrics in _sweep_rows(params, loader, per_class_step, key, multi):
+    for metrics in _sweep_rows(params, loader, per_class_step, key, multi,
+                               mesh):
         cnt = np.asarray(metrics.pop("weight_sum"), np.float64)
         counts += cnt
         for k, v in metrics.items():
@@ -197,6 +249,7 @@ def train(hps: HParams, train_loader, valid_loader=None, test_loader=None,
           scale_factor: float = 1.0, workdir: Optional[str] = None,
           seed: int = 0, num_steps: Optional[int] = None,
           resume: bool = True, params=None, device=None,
+          use_mesh: bool = True,
           profile: bool = False, trace_dir: Optional[str] = None,
           watchdog: bool = False, coordinator=None
           ) -> Tuple[TrainState, List[Dict[str, float]]]:
@@ -209,10 +262,12 @@ def train(hps: HParams, train_loader, valid_loader=None, test_loader=None,
     values), with a fresh optimizer state; with ``workdir`` and
     ``resume`` the latest checkpoint there wins over both, and its scale
     factor over ``scale_factor``. ``scale_factor`` is written into every
-    checkpoint. Returns ``(state, rows)``: one row per call of the step
-    this run made (per step at ``steps_per_call=1``; per K steps, with the
-    window's metrics, above), the call's first step and its metrics as
-    floats, read from the device at the end.
+    checkpoint. ``use_mesh`` (default True, as in the JAX package): run on
+    the mesh of the process group (the module docstring); False: the JAX
+    package's ``mesh=None`` steps. Returns ``(state, rows)``: one row per
+    call of the step this run made (per step at ``steps_per_call=1``; per
+    K steps, with the window's metrics, above), the call's first step and
+    its metrics as floats, read from the device at the end.
     """
     later = {"profile": profile, "trace_dir (telemetry)": trace_dir,
              "watchdog": watchdog,
@@ -232,49 +287,56 @@ def train(hps: HParams, train_loader, valid_loader=None, test_loader=None,
             f"examples, batch_size={hps.batch_size}); enlarge the split, "
             f"reduce batch_size, or pass valid_loader=None")
     model = SketchRNN(hps)
+    mesh = make_mesh(hps) if use_mesh else None
+    primary = mh.is_primary()
     root_key, init_key = prng.split(prng.key(seed), 2).unbind(dim=-2)
     if params is None:
         gen = torch.Generator().manual_seed(int(init_key[1]))
         params = model.init_params(gen, device=dev)
     state = make_train_state(tree_to(params, dev))
     if workdir and resume and latest_checkpoint(workdir) is not None:
+        # every rank restores: the workdir is shared storage
         state, scale_factor, meta = restore_checkpoint(workdir, state,
                                                        device=dev)
-        print(f"[train] resumed from step {meta['step']}", flush=True)
+        if primary:
+            print(f"[train] resumed from step {meta['step']}", flush=True)
         # crash-equivalent resume: a fresh loader's stream starts at batch
         # 0, so draw the R batches the interrupted run consumed
         if state.step and hps.resume_align:
             train_loader.fast_forward(state.step)
-            print(f"[train] resume_align: training feed fast-forwarded "
-                  f"{state.step} batches (hparam resume_align=false to "
-                  f"skip)", flush=True)
+            if primary:
+                print(f"[train] resume_align: training feed fast-forwarded "
+                      f"{state.step} batches (hparam resume_align=false to "
+                      f"skip)", flush=True)
 
     spc = hps.steps_per_call
     # the bucket-run scheduler: stacks of one geometry run, keys by the
     # global step (dispatch_stack)
     run_sched = spc > 1 and bool(getattr(train_loader, "bucket_edges", ()))
     step_fn = make_multi_train_step(model, hps, device=dev,
-                                    key_by_global_step=run_sched)
+                                    key_by_global_step=run_sched, mesh=mesh)
     # the final stretch shorter than K, and a bucket run's remainder,
     # replay through the single step
-    single_step = make_train_step(model, hps, device=dev)
+    single_step = make_train_step(model, hps, device=dev, mesh=mesh)
     pad_ledger = getattr(train_loader, "padding_ledger", None)
-    if getattr(train_loader, "bucket_edges", ()):
+    if getattr(train_loader, "bucket_edges", ()) and primary:
         sched = (f" run_sched: steps_per_call={spc} "
                  f"run_len={hps.bucket_run_len}" if run_sched else "")
         print(f"[train] bucketed execution: edges="
               f"{train_loader.bucket_edges} "
               f"shuffle_window={hps.bucket_shuffle_window}{sched}",
               flush=True)
-    eval_step = make_eval_step(model, hps, device=dev)
+    eval_step = make_eval_step(model, hps, device=dev, mesh=mesh)
     eval_multi = (None if hps.eval_steps_per_call == 1 else
-                  (make_multi_eval_step(model, hps, device=dev),
+                  (make_multi_eval_step(model, hps, device=dev, mesh=mesh),
                    hps.eval_steps_per_call))
-    drain = MetricsDrain(MetricsWriter(workdir, "train"),
+    # only the primary writes metrics and checkpoints
+    write_dir = workdir if primary else None
+    drain = MetricsDrain(MetricsWriter(write_dir, "train", primary),
                          defer=hps.metrics_defer, check=check_finite)
-    eval_writer = MetricsWriter(workdir, "valid")
-    ckpt = (AsyncCheckpointer(workdir)
-            if workdir and hps.async_checkpoint else None)
+    eval_writer = MetricsWriter(write_dir, "valid", primary)
+    ckpt = (AsyncCheckpointer(write_dir)
+            if write_dir and hps.async_checkpoint else None)
     step = state.step
     crossed = lambda prev, every: step // every > prev // every
     last_saved_step = None      # the highest step THIS run checkpointed
@@ -283,7 +345,8 @@ def train(hps: HParams, train_loader, valid_loader=None, test_loader=None,
     # loop. K draws a call, the remainder's too, as the JAX package's
     # stacking feeder draws them
     feeder = prefetch_batches(train_loader, dev, hps.prefetch_depth,
-                              stack=spc, transfer_dtype=hps.transfer_dtype)
+                              stack=spc, transfer_dtype=hps.transfer_dtype,
+                              mesh=feed_mesh(train_loader, mesh))
     try:
         while step < num_steps:
             prev = step
@@ -314,18 +377,18 @@ def train(hps: HParams, train_loader, valid_loader=None, test_loader=None,
                 drain.push(step, metrics, pad_ledger.window()
                            if pad_ledger is not None else None)
             if valid_loader is not None and crossed(prev, hps.eval_every):
-                ev = evaluate(state.params, valid_loader, eval_step,
+                ev = evaluate(state.params, valid_loader, eval_step, mesh,
                               multi=eval_multi)
                 eval_writer.write(step, ev)
                 eval_writer.log_console(step, ev)
-            if workdir and crossed(prev, hps.save_every):
+            if write_dir and crossed(prev, hps.save_every):
                 # drain first, so a divergence in the save step's own
                 # window stops the run before its state is committed
                 drain.flush()
                 if ckpt is not None:
                     ckpt.save(state, scale_factor, hps)
                 else:
-                    save_checkpoint(workdir, state, scale_factor, hps,
+                    save_checkpoint(write_dir, state, scale_factor, hps,
                                     retries=hps.ckpt_retries,
                                     retry_backoff_s=hps.ckpt_retry_backoff_s)
                 last_saved_step = step
@@ -343,25 +406,26 @@ def train(hps: HParams, train_loader, valid_loader=None, test_loader=None,
             if ckpt.failure is not None:
                 print(f"[ckpt] WARNING: background checkpoint write "
                       f"failed: {ckpt.failure!r} — latest_checkpoint in "
-                      f"{workdir} is older than the last save cadence",
+                      f"{write_dir} is older than the last save cadence",
                       flush=True)
 
-    if workdir:
+    if write_dir:
         if ckpt is not None:
             ckpt.wait()        # raise a background save's failure
         # the last cadenced save of THIS run may already hold this step; a
         # stale same-step checkpoint of an earlier run is overwritten
         if last_saved_step != step:
-            save_checkpoint(workdir, state, scale_factor, hps,
+            save_checkpoint(write_dir, state, scale_factor, hps,
                             retries=hps.ckpt_retries,
                             retry_backoff_s=hps.ckpt_retry_backoff_s)
     if test_loader is not None and test_loader.num_eval_batches > 0:
-        ev = evaluate(state.params, test_loader, eval_step,
+        ev = evaluate(state.params, test_loader, eval_step, mesh,
                       multi=eval_multi)
-        MetricsWriter(workdir, "test").write(state.step, ev)
-        print("[test] " + " ".join(f"{k}={v:.4f}"
-                                   for k, v in sorted(ev.items())),
-              flush=True)
+        MetricsWriter(write_dir, "test").write(state.step, ev)
+        if primary:
+            print("[test] " + " ".join(f"{k}={v:.4f}"
+                                       for k, v in sorted(ev.items())),
+                  flush=True)
     rows = []
     if history:
         names = sorted(history[0][1])

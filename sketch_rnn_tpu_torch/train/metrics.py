@@ -10,11 +10,10 @@ once the next window has been launched, then writes it and runs
 divergent step); the loop flushes it before every save, so a committed
 checkpoint's windows were all finite.
 
-The JAX package's rows also carry the columns of its padding ledger,
-goodput ledger and throughput meter, and its drain holds a fault site;
-those come with queue 1 item 10 (``utils/profiling.py``,
-``utils/faults.py``, ``utils/telemetry.py``), and the port's rows have
-only the step's own metrics until then.
+The JAX package's rows also carry the columns of its goodput ledger and
+throughput meter, and its drain holds a fault site; those come with
+queue 1 item 7 (``utils/profiling.py``, ``utils/faults.py``,
+``utils/telemetry.py``). The padding ledger's columns are there.
 """
 
 from __future__ import annotations
@@ -43,11 +42,15 @@ def check_finite(scalars: Dict[str, float], step: int) -> None:
 
 class MetricsWriter:
     """Append-only scalar logger; one row per logged step. With no
-    ``workdir`` it writes no file and only logs to the console."""
+    ``workdir`` it writes no file and only logs to the console;
+    ``console=False`` (a rank other than the primary) logs nothing
+    there."""
 
-    def __init__(self, workdir: Optional[str], name: str = "train"):
+    def __init__(self, workdir: Optional[str], name: str = "train",
+                 console: bool = True):
         self.workdir = workdir
         self.name = name
+        self.console = console
         self._csv_path = None
         self._jsonl_path = None
         self._fields: Optional[Sequence[str]] = None
@@ -94,6 +97,8 @@ class MetricsWriter:
                 w.writerow(row)
 
     def log_console(self, step: int, scalars: Dict[str, float]) -> None:
+        if not self.console:
+            return
         parts = " ".join(f"{k}={float(v):.4f}"
                          for k, v in sorted(scalars.items()))
         print(f"[{self.name}] step {step} {parts}", flush=True)

@@ -1,8 +1,8 @@
-"""The train steps on one device, single and K at a call.
+"""The train steps, single and K at a call, on one card or on a mesh.
 
-The port of ``sketch_rnn_tpu/train/step.py``'s single-device step
-(``_make_single_step_core`` with no mesh): ``(state, batch, key) ->
-(state, metrics)``. The loss and its gradients go through
+The port of ``sketch_rnn_tpu/train/step.py``'s step
+(``_make_single_step_core``): ``(state, batch, key) -> (state,
+metrics)``. The loss and its gradients go through
 ``SketchRNN.loss`` with ``train=True`` (at ``fused_rnn=true`` the fused
 training kernels carry both RNNs forward and backward; at
 ``fused_rnn=false`` the plain cell loop of ``ops/rnn.py`` does, under
@@ -37,6 +37,20 @@ count of real rows, under ``torch.no_grad`` (the fused kernels run their
 forwards only). Their K-batch forms (``make_multi_eval_step``,
 ``make_multi_per_class_eval_step``, ``eval_steps_per_call``) stack every
 metric ``[K, ...]``, batch ``idx[j]`` with ``fold_in(key, idx[j])``.
+
+Every step and eval step takes ``mesh=`` (``parallel/mesh.py``), the
+JAX package's ``shard_map`` over the ``data`` axis: the batch is then
+this rank's rows of the global batch ``hps.batch_size`` (which must
+divide by the data axis, as the JAX package checks), the rank folds its
+key with its data index before drawing (at its own batch size), every
+loss scalar is the global batch's (``SketchRNN.loss(axis_name=)``), and
+the gradients are summed over the data group in one all-reduce of one
+flat buffer before clip -> Adam, so every rank takes the same update.
+Eval sums ``weight_sum`` too. Without a process group a mesh is one
+rank, whose sums are the identity and whose key folds with 0. On the
+card a K-step call captures the all-reduces into its CUDA graph with the
+rest of the steps (NCCL); a group whose collectives cannot be captured
+(gloo) is refused for K > 1 on the card, never run eagerly instead.
 """
 
 from __future__ import annotations
@@ -47,6 +61,7 @@ import numpy as np
 import torch
 
 from sketch_rnn_tpu_torch.config import HParams
+from sketch_rnn_tpu_torch.parallel.mesh import check_batch_divisible
 from sketch_rnn_tpu_torch.train.graph import GraphedCall
 from sketch_rnn_tpu_torch.train.schedules import kl_weight_schedule, lr_schedule
 from sketch_rnn_tpu_torch.train.state import (TrainState, adam_update,
@@ -111,41 +126,80 @@ def _batch_size(batch) -> int:
     return batch["strokes"].shape[0]
 
 
-def train_body(model, hps: HParams, params, mu, nu, batch, row):
-    """One train step on tensors: the loss and its gradients, then the
-    update. ``row`` is the step's row of :func:`stage_steps`, on the
-    parameters' device, which is where every value of the step is made.
-    Returns ``(params, mu, nu, metrics)``."""
-    kl_w, lr, opt = row[0], row[1], row[2:5]
+def _check_mesh(mesh, hps: HParams, what: str, device, k: int = 1
+                ) -> None:
+    """A step on ``mesh`` must split the global batch over its data axis
+    and must be able to sum over it; a K-step call on the card must be
+    able to capture the sums."""
+    if mesh is None:
+        return
+    check_batch_divisible(hps.batch_size, mesh)
+    mesh.require_group(what)
+    if k > 1 and device.type == "cuda" and not mesh.capturable:
+        raise RuntimeError(
+            f"{what}: a {k}-step call is one CUDA graph replay on the "
+            f"card, and a CUDA graph cannot capture this process group's "
+            f"collectives (backend {mesh.backend}); use NCCL, or 1 step "
+            f"a call")
+
+
+def _fold(keys: torch.Tensor, mesh) -> torch.Tensor:
+    """The keys a rank draws from: folded with its data index on a
+    mesh (the JAX step's ``fold_in(key, axis_index("data"))``)."""
+    return keys if mesh is None else mesh.fold(keys)
+
+
+def grads_and_metrics(model, params, batch, row, mesh=None):
+    """The training loss's gradients (a tree like ``params``) and its
+    metrics on one batch of tensors; ``row``: the step's row of
+    :func:`stage_steps`. On a ``mesh``: the global loss, and the
+    gradients summed over its data group in one all-reduce."""
     draws = model.unpack_draws(row[5:], _batch_size(batch), True)
     leaves = [p.detach().requires_grad_(True) for _, p in tree_items(params)]
     live = _with_leaves(params, leaves)
-    total, metrics = model.loss(live, batch, draws, kl_w, train=True)
+    total, metrics = model.loss(live, batch, draws, row[0], train=True,
+                                axis_name=mesh)
     grads = torch.autograd.grad(total, leaves, allow_unused=True)
-    grads = _with_leaves(params, [
-        g if g is not None else torch.zeros_like(p)
-        for g, p in zip(grads, leaves)])
-    new_params, mu, nu, g_norm = adam_update(hps, grads, mu, nu, params, opt)
-    metrics = {k: v.detach() for k, v in metrics.items()}
+    grads = [g if g is not None else torch.zeros_like(p)
+             for g, p in zip(grads, leaves)]
+    if mesh is not None:
+        grads = mesh.psum_tensors(grads)
+    return (_with_leaves(params, grads),
+            {k: v.detach() for k, v in metrics.items()})
+
+
+def train_body(model, hps: HParams, params, mu, nu, batch, row,
+               mesh=None):
+    """One train step on tensors: :func:`grads_and_metrics`, then the
+    update. ``row`` is the step's row of :func:`stage_steps`, on the
+    parameters' device, which is where every value of the step is made.
+    Returns ``(params, mu, nu, metrics)``."""
+    grads, metrics = grads_and_metrics(model, params, batch, row, mesh)
+    new_params, mu, nu, g_norm = adam_update(hps, grads, mu, nu, params,
+                                             row[2:5])
     metrics["grad_norm"] = g_norm
-    metrics["lr"] = lr
+    metrics["lr"] = row[1]
     return new_params, mu, nu, metrics
 
 
-def make_train_step(model, hps: HParams, device=None) -> StepFn:
+def make_train_step(model, hps: HParams, device=None, mesh=None
+                    ) -> StepFn:
     """Build ``step(state, batch, key) -> (state, metrics)``. ``batch`` is
     a loader dict (numpy or tensors), moved to ``device`` (the card unless
-    ``device="cpu"``); ``key`` a threefry key (``utils/prng.py``)."""
+    ``device="cpu"``); ``key`` a threefry key (``utils/prng.py``).
+    ``mesh``: ``batch`` is this rank's rows (module docstring)."""
     dev = resolve_device(device)
+    _check_mesh(mesh, hps, "train step", dev)
 
     def step_fn(state: TrainState, batch, key: torch.Tensor
                 ) -> Tuple[TrainState, Metrics]:
         batch = batch_to_device(batch, dev)
-        row = to_device(stage_steps(model, hps, state, key[None],
+        row = to_device(stage_steps(model, hps, state,
+                                    _fold(key[None], mesh),
                                     _batch_size(batch)), dev)[0]
         a = state.opt_state.adam
         params, mu, nu, metrics = train_body(model, hps, state.params, a.mu,
-                                             a.nu, batch, row)
+                                             a.nu, batch, row, mesh)
         return TrainState(params, next_opt_state(state.opt_state, mu, nu),
                           state.step + 1), metrics
 
@@ -172,7 +226,8 @@ def replay_window_metrics(per_step: Sequence[Metrics]) -> Metrics:
 
 
 def make_multi_train_step(model, hps: HParams, device=None,
-                          key_by_global_step: bool = False) -> StepFn:
+                          key_by_global_step: bool = False,
+                          mesh=None) -> StepFn:
     """Build ``step(state, batches, key) -> (state, metrics)``: K =
     ``hps.steps_per_call`` optimizer steps a call, ``batches`` a loader
     dict stacked ``[K, ...]``. Micro-step ``i`` trains on ``batches[i]``
@@ -188,18 +243,21 @@ def make_multi_train_step(model, hps: HParams, device=None,
     per ``weights``' presence) runs the K steps eagerly as the capture's
     warm-up and captures them, and the graphs' memory goes with the
     function. On the CPU the same body runs K times. K=1 without
-    ``key_by_global_step`` is :func:`make_train_step`."""
+    ``key_by_global_step`` is :func:`make_train_step`. ``mesh``: each
+    micro-step's key is folded with the rank's data index after the
+    micro-step's fold, and the graph captures its all-reduces."""
     k = hps.steps_per_call
     if k == 1 and not key_by_global_step:
-        return make_train_step(model, hps, device)
+        return make_train_step(model, hps, device, mesh=mesh)
     dev = resolve_device(device)
+    _check_mesh(mesh, hps, f"train step x{k}", dev, k)
 
     def body(params, mu, nu, batches, rows):
         per_step = []
         for i in range(rows.shape[0]):
             params, mu, nu, m = train_body(
                 model, hps, params, mu, nu,
-                {n: v[i] for n, v in batches.items()}, rows[i])
+                {n: v[i] for n, v in batches.items()}, rows[i], mesh)
             per_step.append(m)
         return params, mu, nu, replay_window_metrics(per_step)
 
@@ -216,7 +274,7 @@ def make_multi_train_step(model, hps: HParams, device=None,
         micro = torch.arange(k)
         keys = prng.fold_in(key.cpu(), state.step + micro
                             if key_by_global_step else micro)
-        rows = stage_steps(model, hps, state, keys, b)
+        rows = stage_steps(model, hps, state, _fold(keys, mesh), b)
         if dev.type != "cuda":
             batches, rows = batch_to_device(batches, dev), rows.to(dev)
         a = state.opt_state.adam
@@ -229,16 +287,21 @@ def make_multi_train_step(model, hps: HParams, device=None,
     return multi_fn
 
 
-def eval_body(model, hps: HParams, params, batch, row) -> Metrics:
+def eval_body(model, hps: HParams, params, batch, row, mesh=None
+              ) -> Metrics:
     """The eval-mode loss's metrics plus ``weight_sum`` on one batch of
     tensors; ``row``: the batch's draws (:func:`stage_eval`) on their
-    device."""
+    device. On a ``mesh``: the global batch's metrics and real rows."""
     draws = model.unpack_draws(row, _batch_size(batch), False)
-    _, metrics = model.loss(params, batch, draws, 1.0, train=False)
+    _, metrics = model.loss(params, batch, draws, 1.0, train=False,
+                            axis_name=mesh)
     if "weights" in batch:
         ws = batch["weights"].to(torch.float32).sum()
+        if mesh is not None:
+            ws = mesh.psum(ws)
     else:
-        ws = torch.full((), float(_batch_size(batch)), dtype=torch.float32,
+        rows = _batch_size(batch) * (1 if mesh is None else mesh.data_size)
+        ws = torch.full((), float(rows), dtype=torch.float32,
                         device=batch["strokes"].device)
     metrics["weight_sum"] = ws
     return metrics
@@ -250,49 +313,58 @@ def stage_eval(model, keys: torch.Tensor, batch_size: int) -> torch.Tensor:
     return model.packed_draws(keys.cpu(), batch_size, False)
 
 
-def _eval_step(body, model, hps: HParams, device) -> EvalFn:
+def _eval_step(body, model, hps: HParams, device, mesh, what) -> EvalFn:
     dev = resolve_device(device)
+    _check_mesh(mesh, hps, what, dev)
 
     @torch.no_grad()
     def eval_fn(params, batch, key: torch.Tensor) -> Metrics:
         batch = batch_to_device(batch, dev)
-        row = to_device(stage_eval(model, key[None], _batch_size(batch)),
-                        dev)[0]
-        return body(model, hps, params, batch, row)
+        row = to_device(stage_eval(model, _fold(key[None], mesh),
+                                   _batch_size(batch)), dev)[0]
+        return body(model, hps, params, batch, row, mesh)
 
     return eval_fn
 
 
-def make_eval_step(model, hps: HParams, device=None) -> EvalFn:
+def make_eval_step(model, hps: HParams, device=None, mesh=None) -> EvalFn:
     """``eval(params, batch, key) -> metrics``: the eval-mode loss's
     metrics plus ``weight_sum``, the sum of the batch's ``weights`` (its
-    rows when it has none), as 0-dim tensors on ``device``."""
-    return _eval_step(eval_body, model, hps, device)
+    rows when it has none), as 0-dim tensors on ``device``; ``mesh``:
+    ``batch`` is this rank's rows, the metrics the global batch's."""
+    return _eval_step(eval_body, model, hps, device, mesh, "eval step")
 
 
-def per_class_body(model, hps: HParams, params, batch, row) -> Metrics:
+def per_class_body(model, hps: HParams, params, batch, row, mesh=None
+                   ) -> Metrics:
     draws = model.unpack_draws(row, _batch_size(batch), False)
-    return model.eval_metrics_per_class(params, batch, draws)
+    return model.eval_metrics_per_class(params, batch, draws,
+                                        axis_name=mesh)
 
 
-def make_per_class_eval_step(model, hps: HParams, device=None) -> EvalFn:
+def make_per_class_eval_step(model, hps: HParams, device=None,
+                             mesh=None) -> EvalFn:
     """``eval(params, batch, key) -> metrics`` with every metric a
     ``[num_classes]`` vector (``SketchRNN.eval_metrics_per_class``)."""
-    return _eval_step(per_class_body, model, hps, device)
+    return _eval_step(per_class_body, model, hps, device, mesh,
+                      "per-class eval step")
 
 
-def _make_multi_eval(one, model, hps: HParams, device, name: str):
+def _make_multi_eval(one, model, hps: HParams, device, name: str,
+                     mesh=None):
     """``eval(params, batches, key, idx) -> metrics`` over a ``[K, ...]``
     stack of batches, every metric stacked ``[K, ...]``; batch ``j`` uses
-    ``fold_in(key, idx[j])``. One CUDA graph replay per call on the card
-    (a graph per ``(K, B, T)``, held by the returned function as
-    ``graphed``), the same body K times on the CPU."""
+    ``fold_in(key, idx[j])`` (then the rank's fold on a ``mesh``). One
+    CUDA graph replay per call on the card (a graph per ``(K, B, T)``,
+    held by the returned function as ``graphed``), the same body K times
+    on the CPU."""
     dev = resolve_device(device)
+    _check_mesh(mesh, hps, name, dev, k=hps.eval_steps_per_call)
 
     @torch.no_grad()
     def body(params, batches, rows):
         outs = [one(model, hps, params, {n: v[j] for n, v in batches.items()},
-                    rows[j]) for j in range(rows.shape[0])]
+                    rows[j], mesh) for j in range(rows.shape[0])]
         return {m: torch.stack([o[m] for o in outs]) for m in outs[0]}
 
     call = GraphedCall(body, name, dev) if dev.type == "cuda" else body
@@ -301,7 +373,8 @@ def _make_multi_eval(one, model, hps: HParams, device, name: str):
                  idx: Sequence[int]) -> Metrics:
         batches = host_tensors(batches)
         keys = prng.fold_in(key.cpu(), torch.as_tensor(list(idx)))
-        rows = stage_eval(model, keys, batches["strokes"].shape[1])
+        rows = stage_eval(model, _fold(keys, mesh),
+                          batches["strokes"].shape[1])
         if dev.type != "cuda":
             batches, rows = batch_to_device(batches, dev), rows.to(dev)
         return call(params, batches, rows)
@@ -310,14 +383,16 @@ def _make_multi_eval(one, model, hps: HParams, device, name: str):
     return multi_fn
 
 
-def make_multi_eval_step(model, hps: HParams, device=None):
+def make_multi_eval_step(model, hps: HParams, device=None, mesh=None):
     """K-batch eval (:func:`_make_multi_eval` of :func:`make_eval_step`'s
     body); pair it with ``hps.eval_steps_per_call`` as ``evaluate``'s
     ``multi=`` argument."""
-    return _make_multi_eval(eval_body, model, hps, device, "eval step xK")
+    return _make_multi_eval(eval_body, model, hps, device, "eval step xK",
+                            mesh)
 
 
-def make_multi_per_class_eval_step(model, hps: HParams, device=None):
+def make_multi_per_class_eval_step(model, hps: HParams, device=None,
+                                   mesh=None):
     """K-batch per-class eval (metrics stacked ``[K, C]``)."""
     return _make_multi_eval(per_class_body, model, hps, device,
-                            "per-class eval step xK")
+                            "per-class eval step xK", mesh)

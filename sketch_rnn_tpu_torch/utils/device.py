@@ -1,22 +1,30 @@
-"""Where the port runs: the CUDA card unless the caller asks for the CPU;
-and moving tensors between the host and the card without waiting."""
+"""Where the port runs: this process's CUDA card unless the caller asks
+for the CPU; and moving tensors between the host and the card without
+waiting."""
 
 from __future__ import annotations
 
 import torch
 
+from sketch_rnn_tpu_torch.parallel.multihost import local_rank
+
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` means the card (``cuda``); with no CUDA device that is an
-    error, never a quiet move to the CPU. Pass ``device="cpu"`` to run
-    the plain PyTorch versions of the kernels (the tests do)."""
+    """``None`` means this process's card, ``cuda:LOCAL_RANK`` (torchrun's
+    local rank, 0 without it), which becomes the current device, so every
+    launch and allocation of a rank lands on its own card; with no CUDA
+    device that is an error, never a quiet move to the CPU. Pass
+    ``device="cpu"`` to run the plain PyTorch versions of the kernels
+    (the tests do)."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "sketch_rnn_tpu_torch runs on a CUDA device by default and "
                 "torch.cuda.is_available() is False; pass device='cpu' to "
                 "run the plain PyTorch versions of the kernels on the CPU")
-        return torch.device("cuda")
+        dev = torch.device("cuda", local_rank())
+        torch.cuda.set_device(dev)
+        return dev
     return torch.device(device)
 
 

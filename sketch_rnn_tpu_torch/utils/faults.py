@@ -4,7 +4,7 @@ The port of ``backoff_s`` and ``retry_call`` of
 ``sketch_rnn_tpu/utils/faults.py``, which the checkpoint commit retries a
 transient I/O failure through. The fault injector and its sites
 (``ckpt.commit``, ``ckpt.torn``, ``ckpt.load.corrupt`` and the rest) come
-with queue 1 item 10; so does the telemetry counter a retry ticks.
+with queue 1 item 7; so does the telemetry counter a retry ticks.
 """
 
 from __future__ import annotations

@@ -8,13 +8,15 @@
   ``sample`` read. ``sample --interpolate/--reconstruct --strokes_out``
   of the two packages give the same frames (steps and pens exact,
   offsets within 1e-5): both go through their package's
-  ``serve_requests``. The port's eval line agrees with the JAX CLI's
-  (and with the JAX run's own test sweep) on the step and on
-  ``kl_raw``; the loss terms do not: the JAX CLI evaluates on a device
-  mesh (here the tests' eight virtual CPU devices), whose step folds its
-  key with the axis index (``sketch_rnn_tpu/train/step.py:326``), so its
-  ``z`` noise is another draw than the port's, which has no mesh yet
-  (ROADMAP queue 1 item 4).
+  ``serve_requests``. The JAX CLI evaluates on a device mesh, whose step
+  folds each key with the device's index on the data axis
+  (``sketch_rnn_tpu/train/step.py:326``); the port's ``cli eval`` does
+  the same on its mesh of ranks. On one device (the JAX CLI in a
+  subprocess with one virtual CPU device) and one rank, the two eval
+  lines agree on every term, per class too (within 2e-6: both print
+  six decimals). In process, the tests' eight virtual devices give the
+  JAX CLI eight shards, so there the lines agree on the step and on
+  ``kl_raw``, which draws no ``z``.
 - The JAX CLI's usage checks exit 2 with the same message in the port,
   and every flag or subcommand of an unported feature exits 2 naming
   its ROADMAP item, ``serve-bench``'s flags included (its runs are in
@@ -23,6 +25,9 @@
 """
 
 import json
+import os
+import subprocess
+import sys
 import xml.etree.ElementTree as ET
 
 import numpy as np
@@ -32,6 +37,7 @@ import torch
 from sketch_rnn_tpu import cli as jcli
 from sketch_rnn_tpu_torch import cli
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HP = ("batch_size=8,max_seq_len=32,enc_rnn_size=12,dec_rnn_size=16,"
       "z_size=6,num_mixture=3,num_classes=2,serve_slots=4,serve_chunk=4,"
       "num_steps=4,save_every=2,eval_every=2,log_every=2,"
@@ -153,6 +159,36 @@ def test_jax_cli_reads_a_port_workdir(port_workdir, tmp_path, capsys):
     assert port_ev["step"] == jax_ev["step"] == 4
     assert abs(port_ev["kl_raw"] - jax_ev["kl_raw"]) <= 2e-6
     _same_samples(port_workdir, tmp_path, ["-n", "5", "--interpolate"])
+
+
+def test_eval_matches_the_jax_cli_on_one_device(port_workdir, capsys):
+    """The port's ``cli eval --per_class`` at world 1 against the JAX
+    CLI's on a one-device mesh (a subprocess, so it gets one virtual CPU
+    device): every term of both lines, the per-class ones too."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
+    env.update(XLA_FLAGS="--xla_force_host_platform_device_count=1",
+               JAX_PLATFORMS="cpu",
+               PYTHONPATH=REPO + os.pathsep + env.get("PYTHONPATH", ""))
+    args = ["eval", "--synthetic", f"--workdir={port_workdir}", "--split",
+            "test", "--per_class"]
+    jax_out = subprocess.run([sys.executable, "-m", "sketch_rnn_tpu.cli",
+                              *args], env=env, cwd=REPO,
+                             capture_output=True, text=True, timeout=300)
+    assert jax_out.returncode == 0, jax_out.stderr
+    want = _json_line(jax_out.stdout)
+    assert cli.main([*args, *CPU]) == 0
+    got = _json_line(capsys.readouterr().out)
+    flat = lambda r: {**{k: v for k, v in r.items() if k != "per_class"},
+                      **{f"{c}/{k}": v for c, m in r["per_class"].items()
+                         for k, v in (m or {}).items()}}
+    g, w = flat(got), flat(want)
+    assert sorted(g) == sorted(w) and got["step"] == 4
+    for k in w:
+        if isinstance(w[k], str):
+            assert g[k] == w[k], k
+        else:
+            assert abs(g[k] - w[k]) <= 2e-6, (k, g[k], w[k])
 
 
 def test_port_cli_reads_a_jax_workdir(jax_workdir, tmp_path, capsys):

@@ -150,11 +150,52 @@ def test_load_errors_have_the_same_text(tmp_path):
 
 
 def test_multi_host_loading_is_refused_by_name(corpus):
+    """The coordinated global plan (the elastic runtime's) is refused by
+    name: asked for, or picked as the JAX package picks it (buckets on a
+    striped corpus)."""
     _, th = _pair()
-    for kw in (dict(num_hosts=2), dict(host_id=1), dict(coordinated=True),
-               dict(emit_global=True)):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            tloader.load_dataset(th, corpus, **kw)
+    _, tb = _pair(bucket_edges=(20,))
+    for h, kw in ((th, dict(coordinated=True)), (th, dict(emit_global=True)),
+                  (tb, dict(num_hosts=2, host_id=1))):
+        with pytest.raises(NotImplementedError, match="later slice") as e:
+            tloader.load_dataset(h, corpus, **kw)
+        assert "ROADMAP queue 1 item 7" in str(e.value)
+
+
+@pytest.mark.parametrize("host_id,num_hosts", [(0, 2), (1, 2), (2, 3),
+                                               (1, 1)])
+def test_striped_loading_matches_jax(corpus, host_id, num_hosts,
+                                     monkeypatch):
+    """A stripe of every split, bitwise the JAX package's: the rows, the
+    stripe's seed (its augmented stream), the scale factor of the whole
+    train split, the eval batch count from the corpus before striping
+    and every eval batch."""
+    monkeypatch.setattr(jloader.NB, "assemble_batch_aug",
+                        lambda *a, **k: None)
+    jh, th = _pair(batch_size=2)
+    kw = dict(host_id=host_id, num_hosts=num_hosts)
+    j, t = jloader.load_dataset(jh, corpus, **kw), \
+        tloader.load_dataset(th, corpus, **kw)
+    assert j[3] == t[3]
+    for a, b in zip(j[:3], t[:3]):
+        assert len(a) == len(b)
+        assert a.num_eval_batches == b.num_eval_batches
+        for i in range(a.num_eval_batches):
+            _same_batch(a.get_batch(i), b.get_batch(i))
+    for _ in range(3):
+        _same_batch(j[0].next_batch(), t[0].next_batch())
+    if num_hosts > 1:
+        # each rank would plan its own bucket geometries
+        with pytest.raises(RuntimeError, match="host-striped"):
+            tloader.load_dataset(th.replace(bucket_edges=(20,)), corpus,
+                                 coordinated=False, **kw)
+
+
+def _same_batch(a, b):
+    assert sorted(a) == sorted(b)
+    for k in a:
+        assert a[k].dtype == b[k].dtype, k
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
 def test_writer_matches_jax(tmp_path):

@@ -277,8 +277,10 @@ def test_train_at_k2_rows_cadences_and_hand_driven_calls(corpus, tmp_path):
     tp = _params(th)
     tr, va, te, scale = tloader.load_dataset(th, corpus)
     d = str(tmp_path / "w")
+    # the mesh-less steps, as the hand-driven calls below
     state, rows = tloop.train(th, tr, va, te, scale, workdir=d, seed=3,
-                              num_steps=5, params=tp, device="cpu")
+                              num_steps=5, params=tp, device="cpu",
+                              use_mesh=False)
     assert state.step == 5 and [r["step"] for r in rows] == [0, 2, 4]
     assert sorted(n for n in os.listdir(d) if n.startswith("ckpt_")) == [
         f"ckpt_0000000{s}.{e}" for s in (4, 5) for e in ("json", "msgpack")]

@@ -28,6 +28,7 @@ import torch
 from sketch_rnn_tpu.config import HParams as JHParams
 from sketch_rnn_tpu.models.vae import SketchRNN as JSketchRNN
 from sketch_rnn_tpu.ops import mdn as jmdn
+from sketch_rnn_tpu.parallel.mesh import make_mesh as jmake_mesh
 from sketch_rnn_tpu.sample import interpolate as jinterp
 from sketch_rnn_tpu.sample import sampler as jsampler
 from sketch_rnn_tpu.sample import svg as jsvg
@@ -35,6 +36,7 @@ from sketch_rnn_tpu_torch.config import HParams
 from sketch_rnn_tpu_torch.convert import params_from_jax
 from sketch_rnn_tpu_torch.models.vae import SketchRNN
 from sketch_rnn_tpu_torch.ops import mdn
+from sketch_rnn_tpu_torch.parallel.mesh import make_mesh
 from sketch_rnn_tpu_torch.sample import interpolate, sampler, svg
 from sketch_rnn_tpu_torch.utils import prng
 
@@ -173,9 +175,28 @@ def test_sample_matches_jax_and_scales():
 
 
 def test_sampler_refuses_a_mesh_naming_its_item():
-    _, _, tm, _ = _models("lstm")
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        sampler.make_sampler(tm, tm.hps, mesh=object(), device="cpu")
+    """A mesh of more ranks than the process group holds (none here) is
+    refused, naming what it needs; a mesh of one rank is the JAX
+    package's one-device mesh: the sampler at ``fold_in(key, 0)``, equal
+    to JAX's sharded sampler on one device (the N-rank sampler is in
+    ``tests/test_torch_dp.py``)."""
+    jm, jp, tm, tp = _models("lstm")
+    with pytest.raises(RuntimeError, match="initialize"):
+        sampler.make_sampler(tm, tm.hps, mesh=make_mesh(tm.hps, world=2),
+                             device="cpu")
+    z, labels, caps = _inputs(tm.hps)
+    jk = jax.random.key(3)
+    fn = jsampler.make_sampler(
+        jm, jm.hps, mesh=jmake_mesh(jm.hps, devices=jax.devices()[:1]))
+    want_s, want_l = (np.asarray(a) for a in fn(
+        jp, jk, B, jnp.asarray(z), jnp.asarray(labels), jnp.float32(0.7),
+        jnp.asarray(caps)))
+    got_s, got_l = sampler.make_sampler(
+        tm, tm.hps, mesh=make_mesh(tm.hps), device="cpu")(
+        tp, _words(jk), B, z, labels, 0.7, caps)
+    np.testing.assert_array_equal(got_l.numpy(), want_l)
+    np.testing.assert_array_equal(got_s.numpy()[..., 2:], want_s[..., 2:])
+    np.testing.assert_allclose(got_s.numpy(), want_s, rtol=0, atol=TOL)
 
 
 @pytest.mark.parametrize("mode", ["slerp", "lerp"])

@@ -415,8 +415,9 @@ def test_train_loop_keys_and_rows():
     state and the same batches."""
     _, th, _, tm, _, tp = _models()
     tl, _ = tloader.synthetic_loader(th, num=24, seed=4)
+    # the mesh-less steps, as JAX's tests do (tests/test_bucketed.py:361)
     state, rows = train(th, tl, seed=9, num_steps=2, params=tp,
-                        device="cpu")
+                        device="cpu", use_mesh=False)
     assert [r["step"] for r in rows] == [0, 1] and state.step == 2
     assert all(np.isfinite(r["loss"]) for r in rows)
     tl2, _ = tloader.synthetic_loader(th, num=24, seed=4)

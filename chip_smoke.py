@@ -2155,8 +2155,9 @@ def train_main_path(card, hps, phase, label, per_step, steps, warm,
     CF.reset_launch_counts()
     CL.reset_launch_counts()
     t0 = time.perf_counter()
-    state, rows = train(hps, loader, seed=0, num_steps=steps,
-                        params=params, device=DEV)
+    rows = []
+    state = train(hps, loader, seed=0, num_steps=steps, params=params,
+                  device=DEV, history=rows)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {**CF.launch_counts(), **CL.launch_counts()}
@@ -2383,9 +2384,12 @@ def train_workdir(card):
     evaluating the valid split and saving in the background every 2
     steps, logging every step, then sweeping the test split, with the
     training kernels' counters zeroed just before and read just after
-    (exact launches a step and an eval batch); run B trains to its step-2
-    save, then again to step 4 with fresh loaders, and must end on run
-    A's state bit for bit. ``restore_checkpoint`` of A's last save must
+    (exact launches a step and an eval batch) and the batcher's counters
+    too (every batch assembled natively: the augmented train split by
+    ``assemble_batch_aug``, the eval batches by ``assemble_batch``, none
+    on the numpy path); run B trains to its step-2 save, then again to
+    step 4 with fresh loaders, and must end on run A's state bit for
+    bit. ``restore_checkpoint`` of A's last save must
     equal A's state, and serve the same strokes as A's live parameters.
     Also timed: the steps without and with a workdir (eval and saves
     every 2 steps) in turns, a synchronous save, the eval sweep alone
@@ -2397,6 +2401,7 @@ def train_workdir(card):
     import numpy as np
     import torch
 
+    from sketch_rnn_tpu_torch.data import native_batcher as NB
     from sketch_rnn_tpu_torch.data.loader import (load_dataset,
                                                   write_synthetic_npz)
     from sketch_rnn_tpu_torch.models.vae import SketchRNN
@@ -2435,11 +2440,22 @@ def train_workdir(card):
         torch.cuda.synchronize()
         CF.reset_launch_counts()
         CL.reset_launch_counts()
-        state_a, rows = train(hps, tr, va, te, scale, workdir=workdir("A"),
-                              num_steps=WORKDIR_STEPS, params=params,
-                              device=DEV)
+        NB.reset_call_counts()
+        rows = []
+        state_a = train(hps, tr, va, te, scale, workdir=workdir("A"),
+                        num_steps=WORKDIR_STEPS, params=params, device=DEV,
+                        history=rows)
         torch.cuda.synchronize()
         launches = {**CF.launch_counts(), **CL.launch_counts()}
+        assembled = NB.call_counts()
+        # the producer may draw ahead of the loop's last step
+        if (assembled["assemble_batch_aug"] < WORKDIR_STEPS
+                or assembled["assemble_batch"] != n_eval
+                or assembled["pad_batch_numpy"]
+                or assembled["assemble_batch_aug_i16"]):
+            raise AssertionError(f"train_workdir batcher calls {assembled} "
+                                 f"(expected >= {WORKDIR_STEPS} augmented, "
+                                 f"{n_eval} eval, none on numpy)")
         per_step = {"fused_lstm_seq_fwd": 2, "fused_lstm_seq_bwd": 2,
                     "fused_ln_lstm_fwd": 1, "fused_ln_lstm_bwd": 1}
         per_eval = {"fused_lstm_seq_fwd": 2, "fused_ln_lstm_fwd": 1}
@@ -2461,8 +2477,8 @@ def train_workdir(card):
 
         train(hps, *fresh(), scale, workdir=workdir("B"), num_steps=2,
               params=params, device=DEV)
-        state_b, _ = train(hps, *fresh(), scale, workdir=workdir("B"),
-                           num_steps=WORKDIR_STEPS, device=DEV)
+        state_b = train(hps, *fresh(), scale, workdir=workdir("B"),
+                        num_steps=WORKDIR_STEPS, device=DEV)
         resume_bitwise = states_equal(state_a, state_b)
         if not resume_bitwise:
             raise AssertionError("run B resumed at step 2 does not end on "
@@ -2541,6 +2557,7 @@ def train_workdir(card):
             files=len(names), corpus_write_s=write_s, corpus_read_s=read_s,
             sketches={"train": len(tr), "valid": len(va), "test": len(te)},
             scale_factor=scale, steps=WORKDIR_STEPS, launches=launches,
+            batcher_calls=assembled,
             eval_batches_per_sweep=va.num_eval_batches,
             test_batches=te.num_eval_batches, resume_bitwise=resume_bitwise,
             restore_bitwise=True, served_identical=True,
@@ -2782,8 +2799,9 @@ def train_spc(card, workdir_eval):
     # train() at K=5 to step 7: one K call, two single steps
     torch.cuda.synchronize()
     reset()
-    st7, rows7 = train(hps5, loader, seed=0, num_steps=SPC_REMAINDER,
-                       params=params, device=DEV, use_mesh=False)
+    rows7 = []
+    st7 = train(hps5, loader, seed=0, num_steps=SPC_REMAINDER, params=params,
+                device=DEV, use_mesh=False, history=rows7)
     torch.cuda.synchronize()
     launches = counts()
     want7 = {k: FLAGSHIP_PER_STEP.get(k, 0) * SPC_REMAINDER
@@ -2852,13 +2870,40 @@ def train_spc(card, workdir_eval):
 
 # -- the input pipeline: transfer dtypes and the prefetch thread ------------
 
-FEED_ARMS = {"f32_d0": ("float32", 0), "f32_d2": ("float32", 2),
-             "i16_d2": ("int16", 2)}
-FEED_TURNS = ("f32_d0", "f32_d2", "i16_d2", "i16_d2", "f32_d2", "f32_d0")
+# each arm: (transfer dtype, prefetch depth, the batches' assembly): the
+# native batcher (the loader's default) and the numpy path beside it
+FEED_ARMS = {"f32_d0": ("float32", 0, "native"),
+             "f32_d2": ("float32", 2, "native"),
+             "i16_d2": ("int16", 2, "native"),
+             "np_f32_d0": ("float32", 0, "numpy"),
+             "np_f32_d2": ("float32", 2, "numpy"),
+             "np_i16_d2": ("int16", 2, "numpy")}
+FEED_TURNS = ("f32_d0", "np_f32_d0", "f32_d2", "np_f32_d2", "i16_d2",
+              "np_i16_d2", "np_i16_d2", "i16_d2", "np_f32_d2", "f32_d2",
+              "np_f32_d0", "f32_d0")
 # timed calls a turn, after FEED_WARM calls (6 and 3 until the bucket and
 # dropout phases came, when the whole script passed 700 s)
 FEED_CALLS = {1: 4, SPC: 2}
 FEED_WARM = 1       # the step functions capture once, before the turns
+FEED_ASSEMBLY_BATCHES = 10   # batches timed on the calling thread a path
+
+
+@contextlib.contextmanager
+def batch_path(path):
+    """The loader's batch assembly for the block: ``"native"`` (its
+    default) or ``"numpy"`` (the switch ``SKETCH_RNN_TPU_TORCH_NO_NATIVE``,
+    which the loader reads at each batch)."""
+    from sketch_rnn_tpu_torch.data import native_batcher as NB
+
+    old = os.environ.pop(NB.NO_NATIVE_ENV, None)
+    if path == "numpy":
+        os.environ[NB.NO_NATIVE_ENV] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop(NB.NO_NATIVE_ENV, None)
+        if old is not None:
+            os.environ[NB.NO_NATIVE_ENV] = old
 
 
 def train_feed(card, tr):
@@ -2869,32 +2914,39 @@ def train_feed(card, tr):
     train loader, drawn here by fresh loaders over the same strokes).
 
     At K=5 and K=1 the phase drives one single and one K=5 step function
-    (``train()``'s key per call) from feeders of three arms in turns
+    (``train()``'s key per call) from feeders of six arms in turns
     (FEED_TURNS): ``transfer_dtype=float32`` at depth 0 (the synchronous
     feed), float32 at depth 2 (``train()``'s default) and ``int16`` at
-    depth 2 (bench.py's defaults), each turn from the
-    seeded weights' fresh state and a fresh loader, ``FEED_WARM`` calls,
-    then ``FEED_CALLS`` timed: ms a step, the producer's host ms a batch by
-    part (the loader's draws with the int16 quantization, the bf16 cast,
-    pinning, issuing the copies; the quantization also timed alone), the
+    depth 2 (bench.py's defaults), each with the batches assembled by the
+    native batcher (the loader's default) and on the numpy path (``np_``),
+    each turn from the seeded weights' fresh state and a fresh loader,
+    ``FEED_WARM`` calls, then ``FEED_CALLS`` timed: ms a step, the
+    producer's host ms a batch by part (the loader's draws with the int16
+    quantization, the bf16 cast, pinning, issuing the copies), the
     consumer's wait in ``get()`` a call and its host ms inside the step
     function's calls. On the synthetic corpus every turn must end on the
-    same state bit for bit (int16 is exact there, and the capture of the
-    int16 graph happens while the producer runs). Each arm's first turn
+    same state bit for bit (unaugmented, the native batches are the numpy
+    ones bit for bit; int16 is exact there, and the capture of the int16
+    graph happens while the producer runs). Each native arm's first turn
     is followed, on its feeder, by two calls timed and two profiled: the
     device's busy share. At depth 2, the reserved memory a full queue
-    adds (a feeder filled with no step running). Checks: one eager int16
-    step bit for bit the float32 step, and one bfloat16-transfer step
-    finite and within STEP_TOL of it, from a state with history;
-    ``train()`` at its default depth 2 and int16, K=5, to step 7 with the
-    training kernels' counters zeroed just before and read just after,
-    exactly seven steps' launches, ending on the state of ``train()`` at
-    float32 and depth 0 bit for bit."""
+    adds (a feeder filled with no step running). On the calling thread,
+    with no step running: ms a batch of each corpus's ``next_batch`` on
+    each path at float32 and int16, and the numpy int16 quantization
+    alone. Checks: one eager int16 step bit for bit the float32 step, and
+    one bfloat16-transfer step finite and within STEP_TOL of it, from a
+    state with history; ``train()`` at its default depth 2 and int16,
+    K=5, to step 7 with the training kernels' and the batcher's counters
+    zeroed just before and read just after, exactly seven steps'
+    launches, every batch assembled by the native int16 assembler and
+    none on the numpy path, ending on the state of ``train()`` at float32
+    and depth 0 bit for bit."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from sketch_rnn_tpu_torch.data import native_batcher as NB
     from sketch_rnn_tpu_torch.data.loader import (DataLoader, quantize_int16,
                                                   synthetic_loader)
     from sketch_rnn_tpu_torch.data.prefetch import prefetch_batches
@@ -2934,8 +2986,12 @@ def train_feed(card, tr):
         ``after(feeder, state)`` runs on the open feeder then. Returns
         ``(wall s, state, the feeder's timings over the timed calls,
         after's result)``."""
-        dtype, depth = FEED_ARMS[arm]
         state = make_train_state(params) if state is None else state
+        with batch_path(FEED_ARMS[arm][2]):
+            return feed_calls(corpus, k, arm, calls, state, after)
+
+    def feed_calls(corpus, k, arm, calls, state, after):
+        dtype, depth, _ = FEED_ARMS[arm]
         feeder = prefetch_batches(corpora[corpus](), DEV, depth, stack=k,
                                   transfer_dtype=dtype)
         losses = []
@@ -3004,7 +3060,7 @@ def train_feed(card, tr):
         """The reserved memory that a depth-2 feeder's full queue adds (the
         cache emptied first; no step runs), and the bytes of its batches:
         the queue holds ``depth`` batches, the producer one more."""
-        dtype, depth = FEED_ARMS[arm]
+        dtype, depth, _ = FEED_ARMS[arm]
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         r0 = torch.cuda.memory_reserved()
@@ -3033,8 +3089,9 @@ def train_feed(card, tr):
             feed = {arm: [] for arm in FEED_ARMS}
             ends, prof = [], {}
             for arm in FEED_TURNS:
-                # each arm's first turn is profiled after its timed calls
-                first = arm not in prof
+                # each native arm's first turn is profiled after its timed
+                # calls (the numpy arms' busy share: PR 21's arms)
+                first = arm not in prof and FEED_ARMS[arm][2] == "native"
                 wall, state, t, p = feed_turn(
                     corpus, k, arm, calls,
                     after=(lambda feeder, st: profiled(feeder, st, k))
@@ -3044,8 +3101,8 @@ def train_feed(card, tr):
                 ends.append(state)
                 if first:
                     prof[arm] = p
-            for arm, (_, depth) in FEED_ARMS.items():
-                if depth:
+            for arm, (_, depth, _) in FEED_ARMS.items():
+                if depth and arm in prof:
                     prof[arm].update(queue_memory(corpus, k, arm))
             if corpus == "synthetic" and not all(
                     states_equal(ends[0], s) for s in ends[1:]):
@@ -3058,18 +3115,34 @@ def train_feed(card, tr):
                                             for a, v in med.items()},
                                 **{f"f32_d0_over_{a}": med["f32_d0"] / v
                                    for a, v in med.items()
-                                   if a != "f32_d0"}},
+                                   if a != "f32_d0"},
+                                **{f"np_{a}_over_{a}": med["np_" + a] / v
+                                   for a, v in med.items()
+                                   if not a.startswith("np_")}},
                 "host_per_batch": feed, "profile": prof}
 
-    # the int16 quantization alone, on float32 batches of each corpus
-    quantize_ms = {}
+    # on the calling thread, no step running: a batch's assembly on each
+    # path at float32 and int16, and the numpy int16 quantization alone
+    quantize_ms, assembly_ms = {}, {}
+    n_asm = FEED_ASSEMBLY_BATCHES
     for corpus, make in corpora.items():
         loader = make()
-        batches = [loader.next_batch()["strokes"] for _ in range(10)]
+        batches = [loader.next_batch()["strokes"] for _ in range(n_asm)]
         t0 = time.perf_counter()
         for b in batches:
             quantize_int16(b, loader.scale_factor)
-        quantize_ms[corpus] = (time.perf_counter() - t0) * 1e3 / len(batches)
+        quantize_ms[corpus] = (time.perf_counter() - t0) * 1e3 / n_asm
+        assembly_ms[corpus] = {}
+        for path in ("native", "numpy"):
+            with batch_path(path):
+                for dtype, q in (("float32", None),
+                                 ("int16", loader.scale_factor)):
+                    loader = make()
+                    t0 = time.perf_counter()
+                    for _ in range(n_asm):
+                        loader.next_batch(int16_scale=q)
+                    assembly_ms[corpus][f"{path}_{dtype}"] = (
+                        time.perf_counter() - t0) * 1e3 / n_asm
 
     # one eager step at int16 and at bfloat16 against the float32 step,
     # from a state with history
@@ -3100,21 +3173,30 @@ def train_feed(card, tr):
     hps7 = hps.replace(steps_per_call=SPC)
     if (hps7.prefetch_depth, hps7.transfer_dtype) != (2, "float32"):
         raise AssertionError("HParams' defaults moved")
-    ref7, _ = train(hps7.replace(prefetch_depth=0), corpora["synthetic"](),
-                    seed=0, num_steps=SPC_REMAINDER, params=params,
-                    device=DEV)
+    ref7 = train(hps7.replace(prefetch_depth=0), corpora["synthetic"](),
+                 seed=0, num_steps=SPC_REMAINDER, params=params, device=DEV)
     torch.cuda.synchronize()
     CF.reset_launch_counts()
     CL.reset_launch_counts()
-    st7, rows7 = train(hps7.replace(transfer_dtype="int16"),
-                       corpora["synthetic"](), seed=0,
-                       num_steps=SPC_REMAINDER, params=params, device=DEV)
+    NB.reset_call_counts()
+    rows7 = []
+    st7 = train(hps7.replace(transfer_dtype="int16"), corpora["synthetic"](),
+                seed=0, num_steps=SPC_REMAINDER, params=params, device=DEV,
+                history=rows7)
     torch.cuda.synchronize()
     launches = {**CF.launch_counts(), **CL.launch_counts()}
+    assembled = NB.call_counts()
     want = {n: FLAGSHIP_PER_STEP.get(n, 0) * SPC_REMAINDER for n in launches}
     if launches != want:
         raise AssertionError(f"train() at int16, depth 2: launches "
                              f"{launches} (expected {want})")
+    # the producer draws ahead of the loop: at least the 7 steps' batches
+    if (assembled["assemble_batch_aug_i16"] < SPC_REMAINDER
+            or assembled["pad_batch_numpy"] or assembled["assemble_batch"]
+            or assembled["assemble_batch_aug"]):
+        raise AssertionError(f"train() at int16, depth 2: batcher calls "
+                             f"{assembled} (the native int16 assembler "
+                             f"only, at least {SPC_REMAINDER})")
     if [r["step"] for r in rows7] != [0, SPC] or st7.step != SPC_REMAINDER:
         raise AssertionError(f"train() at int16: rows {rows7}")
     if not states_equal(st7, ref7):
@@ -3123,8 +3205,8 @@ def train_feed(card, tr):
     log("train_feed", card=card,
         preset="quickdraw345_dp (bfloat16 compute and residuals)",
         batch=hps.batch_size, max_seq_len=hps.max_seq_len,
-        arms={a: {"transfer_dtype": d, "prefetch_depth": p}
-              for a, (d, p) in FEED_ARMS.items()},
+        arms={a: {"transfer_dtype": d, "prefetch_depth": p, "assembly": w}
+              for a, (d, p, w) in FEED_ARMS.items()},
         turns=list(FEED_TURNS), warm_calls=FEED_WARM,
         timed_calls={f"k{k}": c for k, c in FEED_CALLS.items()},
         corpora={"synthetic": f"synthetic_loader, {hps.batch_size} "
@@ -3132,10 +3214,12 @@ def train_feed(card, tr):
                  "npz": f"train_workdir's train split, {len(tr)} sketches, "
                         f"augmented"},
         cells=results, quantize_ms_per_batch=quantize_ms,
+        assembly_ms_per_batch=assembly_ms,
         synthetic_turns_bitwise=True, int16_step_bitwise=i16_bitwise,
         bf16_step_vs_float32=bf16_gaps,
         train_int16_depth2={"steps_per_call": SPC,
                             "num_steps": SPC_REMAINDER, "launches": launches,
+                            "batcher_calls": assembled,
                             "rows": [r["step"] for r in rows7],
                             "bitwise_float32_depth0": True},
         seconds=time.perf_counter() - t_phase)
@@ -3393,9 +3477,10 @@ def train_buckets(card, rows):
         CF.reset_launch_counts()
         CL.reset_launch_counts()
         t0 = time.perf_counter()
-        st, hist = train(hps_b.replace(steps_per_call=k), tl, seed=0,
-                         num_steps=BUCKET_STEPS, params=params, device=DEV,
-                         use_mesh=False)
+        hist = []
+        st = train(hps_b.replace(steps_per_call=k), tl, seed=0,
+                   num_steps=BUCKET_STEPS, params=params, device=DEV,
+                   use_mesh=False, history=hist)
         torch.cuda.synchronize()
         launches = counts()
         want = {n: FLAGSHIP_PER_STEP.get(n, 0) * BUCKET_STEPS
@@ -3708,8 +3793,9 @@ def train_dropout(card, rows):
     torch.cuda.synchronize()
     CF.reset_launch_counts()
     CL.reset_launch_counts()
-    st, hist = train(hps_on, ld, seed=0, num_steps=DROP_TRAIN_STEPS,
-                     params=params, device=DEV, use_mesh=False)
+    hist = []
+    st = train(hps_on, ld, seed=0, num_steps=DROP_TRAIN_STEPS, params=params,
+               device=DEV, use_mesh=False, history=hist)
     torch.cuda.synchronize()
     launches = {**CF.launch_counts(), **CL.launch_counts()}
     want_l = {n: FLAGSHIP_PER_STEP.get(n, 0) * DROP_TRAIN_STEPS
@@ -5029,6 +5115,107 @@ def sampler_card_vs_cpu(model, hps, params):
             "tol": SERVE_TOL["float32"]}
 
 
+NDJSON_CATEGORIES = ("cat", "dog")
+NDJSON_DRAWINGS = 300   # a category's drawings, some unrecognized
+NDJSON_SPLIT = 50       # num_valid and num_test of each converted file
+NDJSON_STEPS = 2
+
+
+def write_ndjson(path, word, n, seed):
+    """``n`` QuickDraw-shaped drawings of random-walk strokes at a raw
+    capture's scale (1-4 strokes of 8-60 points), one JSON object a
+    line; every tenth is marked unrecognized."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    with open(path, "w") as f:
+        for i in range(n):
+            strokes = []
+            for _ in range(int(rng.integers(1, 5))):
+                k = int(rng.integers(8, 61))
+                xs = np.cumsum(rng.normal(0, 9, k)) + rng.uniform(200, 800)
+                ys = np.cumsum(rng.normal(0, 9, k)) + rng.uniform(200, 800)
+                strokes.append([np.round(xs, 1).tolist(),
+                                np.round(ys, 1).tolist()])
+            f.write(json.dumps({"word": word, "recognized": i % 10 != 9,
+                                "drawing": strokes}) + "\n")
+
+
+def ndjson_flow(tmp):
+    """QuickDraw ndjson to training, as a user runs it: write
+    ``NDJSON_DRAWINGS`` drawings of each of ``NDJSON_CATEGORIES``, convert
+    them with ``python -m sketch_rnn_tpu_torch.scripts.convert_ndjson``
+    (a process of its own), then ``cli train --preset quickdraw345_dp
+    --data_dir`` on the two ``.npz`` files for ``NDJSON_STEPS`` steps
+    with an eval sweep and a save. Checks: the converter's exit code and
+    split sizes, int16 stroke-3 object arrays, the training kernels
+    launched, every batch assembled by the native batcher (none on the
+    numpy path), a checkpoint at the last step and finite losses."""
+    import numpy as np
+
+    from sketch_rnn_tpu_torch.data import native_batcher as NB
+    from sketch_rnn_tpu_torch.ops import cuda_fused as CF
+
+    raw, data = os.path.join(tmp, "ndjson"), os.path.join(tmp, "npz")
+    os.makedirs(raw)
+    paths = []
+    for i, word in enumerate(NDJSON_CATEGORIES):
+        paths.append(os.path.join(raw, f"{word}.ndjson"))
+        write_ndjson(paths[-1], word, NDJSON_DRAWINGS, seed=i)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "sketch_rnn_tpu_torch.scripts.convert_ndjson",
+         *paths, "--out", data, "--num_valid", str(NDJSON_SPLIT),
+         "--num_test", str(NDJSON_SPLIT)],
+        capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    convert_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"convert_ndjson exited {proc.returncode}: "
+                             f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    usable = NDJSON_DRAWINGS - NDJSON_DRAWINGS // 10
+    sizes = {}
+    for word in NDJSON_CATEGORIES:
+        with np.load(os.path.join(data, f"{word}.npz"), allow_pickle=True,
+                     encoding="latin1") as z:
+            sizes[word] = {k: len(z[k]) for k in ("train", "valid", "test")}
+            if not all(z[k].ndim == 1 and a.dtype == np.int16
+                       and a.shape[1] == 3 for k in z.files for a in z[k]):
+                raise AssertionError(f"{word}.npz is not int16 stroke-3")
+        if sizes[word] != {"train": usable - 2 * NDJSON_SPLIT,
+                           "valid": NDJSON_SPLIT, "test": NDJSON_SPLIT}:
+            raise AssertionError(f"{word}.npz splits {sizes[word]}")
+    wd = os.path.join(tmp, "ndjson_work")
+    CF.reset_launch_counts()
+    NB.reset_call_counts()
+    files = ";".join(f"{w}.npz" for w in NDJSON_CATEGORIES)
+    _, train_s = run_cli(
+        ["train", "--preset", "quickdraw345_dp", f"--data_dir={data}",
+         f"--workdir={wd}",
+         f"--hparams=data_set={files},num_steps={NDJSON_STEPS},"
+         f"save_every={NDJSON_STEPS},eval_every={NDJSON_STEPS},log_every=1"])
+    launches = {k: v for k, v in CF.launch_counts().items() if v}
+    assembled = NB.call_counts()
+    if launches.get("fused_ln_lstm_bwd") != NDJSON_STEPS:
+        raise AssertionError(f"cli train on the ndjson corpus launched "
+                             f"{launches}")
+    if (assembled["assemble_batch_aug"] < NDJSON_STEPS
+            or assembled["pad_batch_numpy"]):
+        raise AssertionError(f"cli train on the ndjson corpus: batcher "
+                             f"calls {assembled}")
+    if not os.path.exists(os.path.join(wd, f"ckpt_{NDJSON_STEPS:08d}.json")):
+        raise AssertionError(f"no checkpoint in {sorted(os.listdir(wd))}")
+    with open(os.path.join(wd, "train_metrics.jsonl")) as f:
+        losses = [json.loads(line)["loss"] for line in f]
+    if len(losses) != NDJSON_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"cli train on the ndjson corpus: {losses}")
+    return {"categories": list(NDJSON_CATEGORIES),
+            "drawings": NDJSON_DRAWINGS, "splits": sizes,
+            "convert_s": convert_s, "train_s": train_s,
+            "steps": NDJSON_STEPS, "launches": launches,
+            "batcher_calls": assembled, "losses": losses}
+
+
 def cli_flow(card, tmp=None):
     """The port's command line end to end, in this process
     (``cli.main``), on the flagship preset at full width with seeded
@@ -5045,9 +5232,11 @@ def cli_flow(card, tmp=None):
     request keys and serving geometry. Then the plain sampler's card run
     against its CPU run, its ms per call at n=16 and n=64 (its steps and
     host syncs) beside the engine's ``generate``, and the interpolate
-    request's latency. Its files go under ``tmp`` when given (the caller
-    removes them; the trained workdir is ``tmp/work``), else under a
-    directory of its own that it removes."""
+    request's latency. Last, :func:`ndjson_flow`: QuickDraw ndjson
+    converted by the port's script and trained on by ``cli train``. Its
+    files go under ``tmp`` when given (the caller removes them; the
+    trained workdir is ``tmp/work``), else under a directory of its own
+    that it removes."""
     import argparse
     import os
     import shutil
@@ -5147,6 +5336,7 @@ def cli_flow(card, tmp=None):
                    for full in (False, True) for n in CLI_SAMPLER_NS}
         engine = {f"n{n}": engine_times(model, hps, state.params, n)
                   for n in CLI_SAMPLER_NS}
+        ndjson = ndjson_flow(tmp)
     finally:
         if own:
             shutil.rmtree(tmp, ignore_errors=True)
@@ -5156,6 +5346,7 @@ def cli_flow(card, tmp=None):
         svg_cells_drawn=cells, strokes_out_equal_serve_requests=True,
         sampler_card_vs_cpu=vs_cpu, sampler=sampler,
         engine_generate=engine, interpolate_latency_s=interp_latency_s,
+        ndjson_to_training=ndjson,
         phase_seconds=time.perf_counter() - t_phase)
 
 
@@ -5639,13 +5830,30 @@ def main():
     log("device", kind=kind, count=torch.cuda.device_count(),
         nvidia_smi=card, torch=torch.__version__, cuda=torch.version.cuda)
 
+    import platform
+    from concurrent.futures import ThreadPoolExecutor
+
+    from sketch_rnn_tpu_torch.data import native_batcher as NB
     from sketch_rnn_tpu_torch.ops import _build
 
+    def build_batcher():
+        t0 = time.perf_counter()
+        NB.load()
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    with phase("build"):
+    with phase("build"), ThreadPoolExecutor(1) as pool:
+        # g++ builds the host batcher while nvcc builds the kernels
+        batcher = pool.submit(build_batcher)
         _build.build_all()
+        batcher_s = batcher.result()
+    gxx = subprocess.run([NB.CXX, "--version"], capture_output=True,
+                         text=True, timeout=60).stdout.splitlines()[0]
     log("build", seconds=time.perf_counter() - t0,
-        flags=" ".join(_build.NVCC_FLAGS))
+        flags=" ".join(_build.NVCC_FLAGS),
+        batcher={"library": NB.lib_path().name, "compiler": gxx,
+                 "flags": " ".join(NB.CXX_FLAGS), "seconds": batcher_s,
+                 "host": platform.machine()})
 
     rows = {"decode_chunk": {}, "replay_chunk": {}}
     with phase("serving_kernels"):

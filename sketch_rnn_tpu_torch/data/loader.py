@@ -7,14 +7,24 @@ eval sweep's ``num_eval_batches``/``get_batch`` and the numpy assembly
 path), ``load_dataset`` over a directory of QuickDraw-shaped ``.npz``
 files, and the synthetic corpus (``make_synthetic_strokes``,
 ``synthetic_loader``, ``write_synthetic_npz``). Batches are numpy
-dicts, bitwise the JAX package's numpy path for the same corpus and
-seed: the loader's RNG draws the same values in the same order,
-including the per-batch augmentation seed that the JAX package's native
-batcher would consume, so the streams stay aligned.
+dicts, bitwise the JAX package's for the same corpus and seed.
+
+Every batch is assembled in one call into the native C++ batcher
+(``data/native_batcher.py``), as the JAX loader assembles it when its
+library builds: unaugmented through ``assemble_batch``; augmented (the
+train split) through ``assemble_batch_aug``, whose scale jitter and point
+dropout draw from the library's own stream, keyed by one seed the
+loader's RNG draws per batch. The numpy path (numpy augmentation from
+the loader's RNG, ``pad_batch_numpy``) is taken only when the caller
+sets ``SKETCH_RNN_TPU_TORCH_NO_NATIVE=1``; it is then bitwise the JAX
+package's numpy path (its native batcher switched off), which draws the
+same per-batch seed first, so the two paths' streams stay aligned up to
+the augmentation. Unaugmented, both paths give the same bits.
 
 ``int16_scale`` (the int16 transfer path, ``data/prefetch.py``)
-quantizes a batch's offsets back to integer data units on that numpy
-path, bitwise the JAX package's numpy quantization, and adds the
+quantizes a batch's offsets back to integer data units, in the same
+native pass (``assemble_batch_aug_i16``) or after the numpy assembly
+(:func:`quantize_int16`), with the same rounding, and adds the
 ``"transfer_scale"`` leaf.
 
 Length-bucketed execution (``hps.bucket_edges``) is the JAX loader's,
@@ -36,9 +46,9 @@ With ``parallel/multihost.local_batch_hps`` each stripe assembles its
 rank's share of the global batch. Bucketed plans on a striped loader
 raise, as in the JAX package: each rank would plan its own geometries.
 
-Not ported yet (each raises, naming the later slice): the native C++
-batcher, and the coordinated global plan (``coordinated``,
-``emit_global``, the elastic runtime's; ROADMAP queue 1 item 7).
+Not ported yet (it raises, naming the later slice): the coordinated
+global plan (``coordinated``, ``emit_global``, the elastic runtime's;
+ROADMAP queue 1 item 7d).
 """
 
 from __future__ import annotations
@@ -49,12 +59,13 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from sketch_rnn_tpu_torch.config import HParams
+from sketch_rnn_tpu_torch.data import native_batcher as NB
 from sketch_rnn_tpu_torch.data import strokes as S
 from sketch_rnn_tpu_torch.utils.profiling import PaddingLedger
 
 _LATER = "comes with a later slice of the PyTorch port"
 _COORDINATED = (f"the coordinated global plan {_LATER} (ROADMAP queue 1 "
-                f"item 7, the elastic runtime)")
+                f"item 7d, the elastic runtime)")
 
 
 def _purify(stroke3_list, max_seq_len: int, limit: float = 1000.0,
@@ -99,20 +110,6 @@ def quantize_int16(strokes: np.ndarray, scale: float) -> np.ndarray:
             out=q[..., :2], casting="unsafe")
     q[..., 2:] = strokes[..., 2:]
     return q
-
-
-def pad_batch(seqs: Sequence[np.ndarray], max_len: int
-              ) -> Tuple[np.ndarray, np.ndarray]:
-    """``strokes [B, max_len+1, 5]`` with the start token ``(0, 0, 1, 0,
-    0)`` at t=0 and ``seq_len [B]`` int32."""
-    out = np.zeros((len(seqs), max_len + 1, 5), dtype=np.float32)
-    lens = np.empty((len(seqs),), dtype=np.int32)
-    for i, s in enumerate(seqs):
-        s = np.asarray(s, np.float32)
-        out[i, 1:, :] = S.to_big_strokes(s, max_len)
-        out[i, 0, :] = [0, 0, 1, 0, 0]
-        lens[i] = len(s)
-    return out, lens
 
 
 class DataLoader:
@@ -190,26 +187,39 @@ class DataLoader:
                   pad_to: Optional[int] = None) -> Dict[str, np.ndarray]:
         """The batch of corpus rows ``idx``, padded to ``pad_to`` (a bucket
         edge; every row fits, since rows are binned by raw length and
-        augmentation only shortens a sequence) or to ``max_seq_len``."""
+        augmentation only shortens a sequence) or to ``max_seq_len``, in
+        one native call (the numpy path when asked for: the module
+        docstring)."""
         if int16_scale is not None and not int16_scale > 0:
             raise ValueError(
                 f"int16_scale must be positive, got {int16_scale}")
         pad = self.hps.max_seq_len if pad_to is None else int(pad_to)
         raw = [self.strokes[i] for i in idx]
-        # one augmentation seed per batch: the JAX package hands it to its
-        # native batcher; drawing it here too keeps the numpy RNG stream
-        # aligned with the JAX package's numpy path
-        if self.augment:
-            self.rng.integers(0, 2 ** 63)
-            raw = [S.augment_strokes(
-                S.random_scale(s, self.hps.random_scale_factor, self.rng),
-                self.hps.augment_stroke_prob, self.rng) for s in raw]
-        strokes, seq_len = pad_batch(raw, pad)
+        # one augmentation seed per batch, drawn on either path, so the
+        # loader's RNG stream does not depend on the path
+        aug_seed = int(self.rng.integers(0, 2 ** 63)) if self.augment else 0
+        scale = self.hps.random_scale_factor if self.augment else 0.0
+        drop = self.hps.augment_stroke_prob if self.augment else 0.0
+        if NB.numpy_requested():
+            if self.augment:
+                raw = [S.augment_strokes(S.random_scale(s, scale, self.rng),
+                                         drop, self.rng) for s in raw]
+            strokes, seq_len = NB.pad_batch_numpy(raw, pad)
+            if int16_scale is not None:
+                strokes = quantize_int16(strokes, int16_scale)
+        elif int16_scale is not None:
+            strokes, seq_len = NB.assemble_batch_aug_i16(
+                raw, pad, scale, drop, seed=aug_seed,
+                quant=float(int16_scale))
+        elif self.augment:
+            strokes, seq_len = NB.assemble_batch_aug(raw, pad, scale, drop,
+                                                     seed=aug_seed)
+        else:
+            strokes, seq_len = NB.assemble_batch(raw, pad)
         self.padding_ledger.record(pad, len(raw), int(seq_len.sum()))
         batch = {"strokes": strokes, "seq_len": seq_len,
                  "labels": self.labels[idx]}
         if int16_scale is not None:
-            batch["strokes"] = quantize_int16(strokes, int16_scale)
             batch["transfer_scale"] = np.full((len(raw),), int16_scale,
                                               np.float32)
         return batch
@@ -224,6 +234,25 @@ class DataLoader:
         idx = self.rng.choice(len(self.strokes), b,
                               replace=len(self.strokes) < b)
         return self._assemble(idx, int16_scale)
+
+    def filter_by_label(self, label: int) -> "DataLoader":
+        """A new loader over this one's class-``label`` examples only, for
+        per-class inspection on one host: it shares the (normalized)
+        stroke arrays, so do not ``normalize`` it, and it does not
+        augment. A striped loader refuses, as the JAX package's does: the
+        per-class count over all ranks is not known locally, so the ranks
+        would make different numbers of eval calls (use
+        ``train.loop.evaluate_per_class``)."""
+        if self.num_hosts > 1:
+            raise RuntimeError(
+                f"filter_by_label on a host-striped loader "
+                f"(num_hosts={self.num_hosts}) would deadlock the SPMD "
+                f"eval sweep (the per-class GLOBAL count is not a batch "
+                f"multiple on every host, coordinated or not); use "
+                f"train.loop.evaluate_per_class instead")
+        sel = np.flatnonzero(self.labels == label)
+        return DataLoader([self.strokes[i] for i in sel], self.hps,
+                          labels=self.labels[sel], augment=False)
 
     def fast_forward(self, n_batches: int) -> None:
         """Draw and discard ``n_batches`` training batches through

@@ -99,8 +99,9 @@ def _cell(name: str) -> dict:
     def run(n):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, rows = train(hps, loader, seed=0, num_steps=n, params=params,
-                        device="cuda")
+        rows = []
+        train(hps, loader, seed=0, num_steps=n, params=params,
+              device="cuda", history=rows)
         torch.cuda.synchronize()
         if not all(math.isfinite(r["loss"]) for r in rows):
             raise AssertionError(f"{name}: non-finite losses {rows}")

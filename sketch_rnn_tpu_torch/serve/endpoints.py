@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from sketch_rnn_tpu_torch.config import HParams
+from sketch_rnn_tpu_torch.data.native_batcher import pad_batch_numpy
 from sketch_rnn_tpu_torch.ops.cuda_decode import (cast_weights,
                                                   check_cell_kind,
                                                   replay_chunk)
@@ -165,23 +166,11 @@ def pad_prefixes(prefixes: Sequence[np.ndarray], edge: int
                  ) -> Tuple[np.ndarray, np.ndarray]:
     """Stroke-3 prefixes -> the loader's batch layout at pad ``edge``:
     ``strokes [B, edge + 1, 5]`` with the start token at t=0 and
-    end-of-sketch rows past each prefix, plus ``seq_len [B]`` (a copy of
-    the JAX package's ``data/native_batcher.pad_batch_numpy``)."""
-    out = np.zeros((len(prefixes), edge + 1, 5), dtype=np.float32)
-    lens = np.empty((len(prefixes),), dtype=np.int32)
-    for i, s in enumerate(prefixes):
-        s = np.asarray(s, np.float32)
-        n = len(s)
-        if n > edge:
-            raise ValueError(
-                f"sequence of length {n} exceeds max_len {edge}")
-        out[i, 1:n + 1, 0:2] = s[:, 0:2]
-        out[i, 1:n + 1, 3] = s[:, 2]          # p2 = pen lifted
-        out[i, 1:n + 1, 2] = 1.0 - s[:, 2]    # p1 = pen down
-        out[i, n + 1:, 4] = 1.0               # p3 for the padding
-        out[i, 0, :] = [0, 0, 1, 0, 0]
-        lens[i] = n
-    return out, lens
+    end-of-sketch rows past each prefix, plus ``seq_len [B]``. The one
+    numpy layout, ``data/native_batcher.pad_batch_numpy``, as the
+    loader's: serve-path encodes are the offline batches' by
+    construction."""
+    return pad_batch_numpy(list(prefixes), edge)
 
 
 def make_encode_step(model, hps: HParams, params):

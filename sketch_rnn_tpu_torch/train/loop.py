@@ -69,7 +69,7 @@ runs are not ported yet: asking for one raises, naming the later slice.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -248,13 +248,14 @@ def evaluate_per_class(params, loader, per_class_step, num_classes: int,
 def train(hps: HParams, train_loader, valid_loader=None, test_loader=None,
           scale_factor: float = 1.0, workdir: Optional[str] = None,
           seed: int = 0, num_steps: Optional[int] = None,
-          resume: bool = True, params=None, device=None,
-          use_mesh: bool = True,
+          use_mesh: bool = True, resume: bool = True,
           profile: bool = False, trace_dir: Optional[str] = None,
-          watchdog: bool = False, coordinator=None
-          ) -> Tuple[TrainState, List[Dict[str, float]]]:
-    """Train until step ``num_steps`` (default ``hps.num_steps``), as the
-    JAX package's ``train`` does, on ``device`` (the card unless
+          watchdog: bool = False, halt_on_anomaly: bool = False,
+          coordinator=None, model=None, *, params=None, device=None,
+          history: Optional[List[Dict[str, float]]] = None) -> TrainState:
+    """Train until step ``num_steps`` (default ``hps.num_steps``) and
+    return the state, as the JAX package's ``train`` does, with its
+    parameters in its order; on ``device`` (the card unless
     ``device="cpu"``).
 
     The state starts from ``params``, else from the port's own seeded
@@ -264,19 +265,26 @@ def train(hps: HParams, train_loader, valid_loader=None, test_loader=None,
     factor over ``scale_factor``. ``scale_factor`` is written into every
     checkpoint. ``use_mesh`` (default True, as in the JAX package): run on
     the mesh of the process group (the module docstring); False: the JAX
-    package's ``mesh=None`` steps. Returns ``(state, rows)``: one row per
-    call of the step this run made (per step at ``steps_per_call=1``; per
-    K steps, with the window's metrics, above), the call's first step and
-    its metrics as floats, read from the device at the end.
+    package's ``mesh=None`` steps. ``history``, a list, is extended at the
+    end with one row per call of the step this run made (per step at
+    ``steps_per_call=1``; per K steps, with the window's metrics, above),
+    the call's first step and its metrics as floats, read from the device
+    at the end.
+
+    Not ported yet, each refused naming its ROADMAP queue 1 item:
+    ``profile``, ``watchdog`` and ``halt_on_anomaly`` (7b), ``trace_dir``
+    (7c), ``coordinator`` (7d) and ``model`` (6, the distillation
+    objective).
     """
-    later = {"profile": profile, "trace_dir (telemetry)": trace_dir,
-             "watchdog": watchdog,
-             "coordinator (elastic runs)": coordinator is not None}
-    for what, asked in later.items():
-        if asked:
+    later = (("profile", profile, "7b"), ("trace_dir", trace_dir, "7c"),
+             ("watchdog", watchdog, "7b"),
+             ("halt_on_anomaly", halt_on_anomaly, "7b"),
+             ("coordinator", coordinator, "7d"), ("model", model, "6"))
+    for what, asked, item in later:
+        if asked not in (False, None):
             raise NotImplementedError(
-                f"train(): {what} comes with a later slice of the PyTorch "
-                f"port")
+                f"train(): {what}={asked!r} comes with a later slice of "
+                f"the PyTorch port (ROADMAP queue 1 item {item})")
     dev = resolve_device(device)
     num_steps = hps.num_steps if num_steps is None else num_steps
     # fail fast: an un-evaluable valid split would otherwise raise only at
@@ -340,7 +348,7 @@ def train(hps: HParams, train_loader, valid_loader=None, test_loader=None,
     step = state.step
     crossed = lambda prev, every: step // every > prev // every
     last_saved_step = None      # the highest step THIS run checkpointed
-    history = []
+    made = []           # (first step, metrics) of each call, for history
     # after the resume's fast-forward: the producer draws ahead of the
     # loop. K draws a call, the remainder's too, as the JAX package's
     # stacking feeder draws them
@@ -371,7 +379,8 @@ def train(hps: HParams, train_loader, valid_loader=None, test_loader=None,
                 use = calls = remaining
             if pad_ledger is not None:
                 pad_ledger.record_dispatch(use, calls)
-            history.append((prev, metrics))
+            if history is not None:
+                made.append((prev, metrics))
             step = state.step
             if crossed(prev, hps.log_every) or step == num_steps:
                 drain.push(step, metrics, pad_ledger.window()
@@ -426,11 +435,10 @@ def train(hps: HParams, train_loader, valid_loader=None, test_loader=None,
             print("[test] " + " ".join(f"{k}={v:.4f}"
                                        for k, v in sorted(ev.items())),
                   flush=True)
-    rows = []
-    if history:
-        names = sorted(history[0][1])
+    if made:
+        names = sorted(made[0][1])
         table = torch.stack([torch.stack([m[k].float() for k in names])
-                             for _, m in history]).cpu()
-        for (s, _), vals in zip(history, table.tolist()):
-            rows.append({"step": s, **dict(zip(names, vals))})
-    return state, rows
+                             for _, m in made]).cpu()
+        history.extend({"step": s, **dict(zip(names, vals))}
+                       for (s, _), vals in zip(made, table.tolist()))
+    return state

@@ -170,8 +170,8 @@ def run_job(name, cfg, mesh_spec, what, inp, out):
         th = hps.replace(steps_per_call=1)
         root = prng.split(prng.key(TRAIN_SEED), 2)[0]
         glob = lambda: synthetic_loader(th, 24, seed=TRAIN_SEED)[0]
-        st, _ = loop.train(th, glob(), seed=TRAIN_SEED, num_steps=2,
-                           params=params, device="cpu")
+        st = loop.train(th, glob(), seed=TRAIN_SEED, num_steps=2,
+                        params=params, device="cpu")
         put("train_params", flat(st.params))
         single, st, ld = step.make_train_step(model, th, device="cpu",
                                               mesh=mesh), state, glob()
@@ -182,8 +182,8 @@ def run_job(name, cfg, mesh_spec, what, inp, out):
         striped, _ = synthetic_loader(
             local_batch_hps(th, mesh.data_size), 24, seed=TRAIN_SEED,
             host_id=mesh.data_index, num_hosts=mesh.data_size)
-        st, _ = loop.train(th, striped, seed=TRAIN_SEED, num_steps=2,
-                           params=params, device="cpu")
+        st = loop.train(th, striped, seed=TRAIN_SEED, num_steps=2,
+                        params=params, device="cpu")
         put("striped_params", flat(st.params))
     if "sample" in what:
         fn = make_sampler(model, hps, mesh=mesh, device="cpu")

@@ -12,8 +12,9 @@ kernels in interpret mode, the port's through their plain versions):
 - the loader, bit for bit the JAX ``DataLoader``: the epoch plans over
   three epochs at ``bucket_run_len`` 0 and 8 and three shuffle windows,
   the ``next_batch`` stream and ``next_stack`` at ``k_max`` 1, 3 and 5
-  (augmented, with the JAX package's native batcher off so both take the
-  numpy path), the tail ``weights``, ``eval_pad_len`` and ``get_batch``,
+  (augmented, with both packages' native batchers off so both take the
+  numpy path; ``tests/test_torch_native_batcher.py`` holds the native
+  streams), the tail ``weights``, ``eval_pad_len`` and ``get_batch``,
   ``plan_fingerprint``, ``seek_epoch``, and the padding ledger's
   ``window()`` and ``summary()`` columns;
 - the step: a ``key_by_global_step`` K=3 call bit for bit three single
@@ -81,11 +82,12 @@ def _one_torch_thread():
 
 @pytest.fixture
 def numpy_path(monkeypatch):
-    """The JAX package's native batchers off: both packages assemble on
-    the numpy path (the native one draws its own augmentation stream)."""
+    """Both packages' native batchers off: both assemble on the numpy
+    path (the native one draws its own augmentation stream)."""
     for name in ("assemble_batch_aug", "assemble_batch_aug_i16",
                  "assemble_batch"):
         monkeypatch.setattr(jloader.NB, name, lambda *a, **k: None)
+    monkeypatch.setenv("SKETCH_RNN_TPU_TORCH_NO_NATIVE", "1")
 
 
 def _pair(**over):
@@ -373,11 +375,12 @@ def test_bucketed_train_k3_is_k1_bitwise():
     """20 steps: an epoch is 18 batches here, so the run crosses an epoch
     boundary, replays run remainders and the weighted tail batch."""
     _, th, _, tm, _, tp = _models(bucket_run_len=4, log_every=3)
-    base, rows1 = tloop.train(th, _train_loader(th), num_steps=20,
-                              params=tp, device="cpu")
+    base = tloop.train(th, _train_loader(th), num_steps=20, params=tp,
+                       device="cpu")
     h3 = th.replace(steps_per_call=3)
-    k3, rows3 = tloop.train(h3, _train_loader(h3), num_steps=20, params=tp,
-                            device="cpu")
+    rows3 = []
+    k3 = tloop.train(h3, _train_loader(h3), num_steps=20, params=tp,
+                     device="cpu", history=rows3)
     assert base.step == k3.step == 20
     assert states_equal(base, k3)
     starts = [r["step"] for r in rows3]
@@ -389,13 +392,14 @@ def test_bucketed_train_k3_is_k1_bitwise():
 def test_bucketed_kill_and_resume_is_bitwise(tmp_path):
     _, th, _, tm, _, tp = _models(save_every=5, log_every=1,
                                   steps_per_call=3, bucket_run_len=4)
-    base, _ = tloop.train(th, _train_loader(th), num_steps=21, params=tp,
-                          device="cpu")
+    base = tloop.train(th, _train_loader(th), num_steps=21, params=tp,
+                       device="cpu")
     d = str(tmp_path / "w")
     tloop.train(th, _train_loader(th), workdir=d, num_steps=10, params=tp,
                 resume=False, device="cpu")
-    resumed, rows = tloop.train(th, _train_loader(th), workdir=d,
-                                num_steps=21, params=tp, device="cpu")
+    rows = []
+    resumed = tloop.train(th, _train_loader(th), workdir=d, num_steps=21,
+                          params=tp, device="cpu", history=rows)
     assert rows[0]["step"] in (10, 11, 12) and resumed.step == 21
     assert states_equal(base, resumed)
     with open(os.path.join(d, "train_metrics.jsonl")) as f:

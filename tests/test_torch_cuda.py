@@ -1887,7 +1887,7 @@ def test_workdir_run_resumes_bitwise_on_the_card(dev, tmp_path, dt):
     def run(sub, steps):
         tr, va, te, scale = load_dataset(hps, str(tmp_path))
         return train(hps, tr, va, te, scale, workdir=str(tmp_path / sub),
-                     seed=1, num_steps=steps, device="cuda")[0]
+                     seed=1, num_steps=steps, device="cuda")
 
     whole = run("whole", 4)
     run("resumed", 2)
@@ -2032,8 +2032,10 @@ def test_feeder_at_depth_2_captures_and_matches_the_synchronous_feed(dev):
 
     def run_train(dtype, depth):
         h = hps.replace(transfer_dtype=dtype, prefetch_depth=depth)
-        return train(h, loader(), seed=2, num_steps=5, params=params,
-                     device=dev)
+        rows = []
+        state = train(h, loader(), seed=2, num_steps=5, params=params,
+                      device=dev, history=rows)
+        return state, rows
 
     (a, ra), (b, rb) = run_train("float32", 0), run_train("int16", 2)
     assert states_equal(a, b) and ra == rb
@@ -2066,7 +2068,7 @@ def test_bucketed_train_on_the_card_k3_is_k1(dev):
     for k in (1, 3):
         cf.reset_launch_counts()
         runs[k] = (train(hps.replace(steps_per_call=k), loader(),
-                         num_steps=14, params=params, device=dev)[0],
+                         num_steps=14, params=params, device=dev),
                    cf.launch_counts())
     assert states_equal(runs[1][0], runs[3][0])
     assert runs[1][1] == runs[3][1]

@@ -6,7 +6,7 @@ deltas) in a temporary directory, read by both packages'
 ``load_dataset``:
 
 - the scale factor, the length of every split, the train split's
-  augmented ``next_batch`` stream (the JAX package's native batcher
+  augmented ``next_batch`` stream (both packages' native batchers
   switched off, so both take the numpy path), ``num_eval_batches`` and
   every ``get_batch`` of the valid and test splits with its ``weights``:
   all bitwise;
@@ -59,6 +59,7 @@ def _same(a, b, what):
 def test_load_dataset_bitwise(corpus, monkeypatch):
     monkeypatch.setattr(jloader.NB, "assemble_batch_aug",
                         lambda *a, **k: None)
+    monkeypatch.setenv("SKETCH_RNN_TPU_TORCH_NO_NATIVE", "1")    # the port's numpy path
     jh, th = _pair()
     jsplits = jloader.load_dataset(jh, corpus)
     tsplits = tloader.load_dataset(th, corpus)
@@ -97,6 +98,7 @@ def test_given_scale_factor_and_skip_bad_records(corpus, tmp_path,
                                                  monkeypatch):
     monkeypatch.setattr(jloader.NB, "assemble_batch_aug",
                         lambda *a, **k: None)
+    monkeypatch.setenv("SKETCH_RNN_TPU_TORCH_NO_NATIVE", "1")    # the port's numpy path
     jh, th = _pair()
     j = jloader.load_dataset(jh, corpus, scale_factor=3.25)
     t = tloader.load_dataset(th, corpus, scale_factor=3.25)
@@ -172,6 +174,7 @@ def test_striped_loading_matches_jax(corpus, host_id, num_hosts,
     and every eval batch."""
     monkeypatch.setattr(jloader.NB, "assemble_batch_aug",
                         lambda *a, **k: None)
+    monkeypatch.setenv("SKETCH_RNN_TPU_TORCH_NO_NATIVE", "1")    # the port's numpy path
     jh, th = _pair(batch_size=2)
     kw = dict(host_id=host_id, num_hosts=num_hosts)
     j, t = jloader.load_dataset(jh, corpus, **kw), \

@@ -457,8 +457,9 @@ def test_loader_striping_matches_jax(host_id, num_hosts):
     kw = dict(num=W.EVAL_NUM, seed=4, host_id=host_id,
               num_hosts=num_hosts, augment=True)
     with pytest.MonkeyPatch.context() as mp:
-        # the JAX native batcher's own augmentation RNG off, as elsewhere
+        # both native batchers' own augmentation RNG off, as elsewhere
         mp.setattr(jloader.NB, "assemble_batch_aug", lambda *a, **k: None)
+        mp.setenv("SKETCH_RNN_TPU_TORCH_NO_NATIVE", "1")
         (jl, js), (tl, ts) = (jloader.synthetic_loader(jh, **kw),
                               tloader.synthetic_loader(th, **kw))
         assert js == ts and len(jl) == len(tl)
@@ -591,9 +592,10 @@ def test_world_one_train_matches_jax_one_device_mesh():
     jm, tm = JSketchRNN(jh), SketchRNN(th)
     jp = jm.init_params(jax.random.key(3))
     tp = params_from_jax(jax.device_get(jp), device="cpu")
-    state, rows = tloop.train(th, tloader.synthetic_loader(
+    rows = []
+    state = tloop.train(th, tloader.synthetic_loader(
         th, num=24, seed=4)[0], seed=9, num_steps=2, params=tp,
-        device="cpu")
+        device="cpu", history=rows)
     mesh = jmake_mesh(jh, devices=jax.devices()[:1])
     step = jstep.make_train_step(jm, jh, mesh)
     jl = jloader.synthetic_loader(jh, num=24, seed=4)[0]

@@ -278,9 +278,10 @@ def test_train_at_k2_rows_cadences_and_hand_driven_calls(corpus, tmp_path):
     tr, va, te, scale = tloader.load_dataset(th, corpus)
     d = str(tmp_path / "w")
     # the mesh-less steps, as the hand-driven calls below
-    state, rows = tloop.train(th, tr, va, te, scale, workdir=d, seed=3,
-                              num_steps=5, params=tp, device="cpu",
-                              use_mesh=False)
+    rows = []
+    state = tloop.train(th, tr, va, te, scale, workdir=d, seed=3,
+                        num_steps=5, params=tp, device="cpu",
+                        use_mesh=False, history=rows)
     assert state.step == 5 and [r["step"] for r in rows] == [0, 2, 4]
     assert sorted(n for n in os.listdir(d) if n.startswith("ckpt_")) == [
         f"ckpt_0000000{s}.{e}" for s in (4, 5) for e in ("json", "msgpack")]
@@ -318,9 +319,11 @@ def test_kill_and_resume_at_k2_is_bitwise(corpus, tmp_path):
 
     def run(steps, workdir=None):
         tr, va, te, scale = tloader.load_dataset(th, corpus)
-        return tloop.train(th, tr, scale_factor=scale, workdir=workdir,
-                           seed=4, num_steps=steps, params=tp,
-                           device="cpu")
+        rows = []
+        state = tloop.train(th, tr, scale_factor=scale, workdir=workdir,
+                            seed=4, num_steps=steps, params=tp,
+                            device="cpu", history=rows)
+        return state, rows
 
     base, _ = run(6)
     d = str(tmp_path / "killed")

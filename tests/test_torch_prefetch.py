@@ -3,8 +3,9 @@
 ``sketch_rnn_tpu_torch/data/prefetch.py`` and the int16 and bfloat16
 transfer paths, the port's counterparts of ``tests/test_prefetch.py``:
 
-- the batches, with both of the JAX package's native batchers switched
-  off so both packages take the numpy path: the int16 strokes and their
+- the batches, with both packages' native batchers switched off so both
+  take the numpy path (``tests/test_torch_native_batcher.py`` holds the
+  native ones): the int16 strokes and their
   ``transfer_scale`` bitwise JAX's ``random_batch(int16_scale=)`` and
   JAX's int16 feed, unaugmented and augmented; the bfloat16 strokes'
   16-bit patterns JAX's (ml_dtypes rounds to nearest even, and so does
@@ -70,12 +71,13 @@ def _one_torch_thread():
 
 @pytest.fixture
 def numpy_path(monkeypatch):
-    """The JAX package's native batchers off: both packages assemble on
-    the numpy path and draw the same augmentation."""
+    """Both packages' native batchers off: both assemble on the numpy
+    path and draw the same augmentation."""
     monkeypatch.setattr(jloader.NB, "assemble_batch_aug",
                         lambda *a, **k: None)
     monkeypatch.setattr(jloader.NB, "assemble_batch_aug_i16",
                         lambda *a, **k: None)
+    monkeypatch.setenv("SKETCH_RNN_TPU_TORCH_NO_NATIVE", "1")
 
 
 def _pair(**over):
@@ -392,9 +394,11 @@ def test_train_at_depth_0_and_2_is_bitwise_with_a_resume(corpus, tmp_path,
         h = th.replace(prefetch_depth=depth)
         tr, va, te, scale = tloader.load_dataset(h, corpus)
         assert scale >= 5.0
-        return tloop.train(h, tr, scale_factor=scale, workdir=workdir,
-                           seed=4, num_steps=steps, params=params,
-                           device="cpu")
+        rows = []
+        state = tloop.train(h, tr, scale_factor=scale, workdir=workdir,
+                            seed=4, num_steps=steps, params=params,
+                            device="cpu", history=rows)
+        return state, rows
 
     base, rows0 = run(0, 5)
     d = str(tmp_path / "w")
@@ -418,8 +422,10 @@ def test_train_at_int16_unaugmented_is_the_float32_run(spc):
         h = th.replace(transfer_dtype=dtype, prefetch_depth=depth)
         tl, _ = tloader.synthetic_loader(h, num=24, seed=2,
                                          integer_grid=255.0)
-        return tloop.train(h, tl, seed=1, num_steps=3, params=params,
-                           device="cpu")
+        rows = []
+        state = tloop.train(h, tl, seed=1, num_steps=3, params=params,
+                            device="cpu", history=rows)
+        return state, rows
 
     (a, ra), (b, rb) = run("float32", 0), run("int16", 2)
     assert states_equal(a, b)

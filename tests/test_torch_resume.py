@@ -4,8 +4,9 @@ One tiny flagship-shaped model (conditional VAE, LayerNorm-LSTM decoder,
 3 classes, the fused kernels: interpret-mode Pallas in the JAX package,
 the plain versions in the port) on three ``.npz`` files written by the
 JAX package's ``write_synthetic_npz``. One JAX ``train`` of 4 steps with
-a workdir (checkpoints at steps 2 and 4; the JAX package's native
-batcher switched off, so both packages draw the same augmented batches)
+a workdir (checkpoints at steps 2 and 4; both packages' native batchers
+switched off where the port meets it, so both draw the same augmented
+batches)
 is shared by the file:
 
 - ``evaluate`` and ``evaluate_per_class`` of the JAX run's final
@@ -139,8 +140,9 @@ def test_kill_and_resume_is_bitwise(run, tmp_path):
         return tloader.load_dataset(hps, corpus)
 
     tr, va, te, scale = loaders(h)
-    base, rows = tloop.train(h, tr, va, te, scale, seed=2, num_steps=6,
-                             device="cpu")
+    rows = []
+    base = tloop.train(h, tr, va, te, scale, seed=2, num_steps=6,
+                       device="cpu", history=rows)
     assert [r["step"] for r in rows] == list(range(6))
 
     def interrupted(sub, align):
@@ -151,8 +153,9 @@ def test_kill_and_resume_is_bitwise(run, tmp_path):
                     resume=False, device="cpu")
         assert tc.latest_checkpoint(d) == 3
         tr, va, te, _ = loaders(hh)       # a fresh process's loaders
-        state, rows = tloop.train(hh, tr, va, te, workdir=d, seed=2,
-                                  num_steps=6, device="cpu")
+        rows = []
+        state = tloop.train(hh, tr, va, te, workdir=d, seed=2, num_steps=6,
+                            device="cpu", history=rows)
         assert [r["step"] for r in rows] == [3, 4, 5]
         return state, d
 
@@ -177,15 +180,18 @@ def test_train_fails_fast_on_unevaluable_valid_split(run):
         tloop.train(th, tr, va, num_steps=1, device="cpu")
 
 
-def test_port_resumes_a_jax_checkpoint(run, tmp_path):
+def test_port_resumes_a_jax_checkpoint(run, tmp_path, monkeypatch):
     corpus, _, th, workdir, final = run
+    # the JAX run trained on its numpy path: the port's too
+    monkeypatch.setenv("SKETCH_RNN_TPU_TORCH_NO_NATIVE", "1")
     for ext in ("json", "msgpack"):
         shutil.copy(os.path.join(workdir, f"ckpt_00000002.{ext}"),
                     tmp_path)
     tr, _, _, _ = tloader.load_dataset(th, corpus)
     # the JAX run above trained without a mesh
-    state, rows = tloop.train(th, tr, workdir=str(tmp_path), seed=5,
-                              num_steps=4, device="cpu", use_mesh=False)
+    rows = []
+    state = tloop.train(th, tr, workdir=str(tmp_path), seed=5, num_steps=4,
+                        device="cpu", use_mesh=False, history=rows)
     assert [r["step"] for r in rows] == [2, 3] and state.step == 4
     got = train_state_to_jax(state)
     for what, a, b, rtol in (("params", final.params, got[0], 0.0),

@@ -8,7 +8,7 @@ kernels run in interpret mode, the port's through their plain versions.
 
 - the stroke utilities bitwise, function by function;
 - the loader: ``synthetic_loader`` batches bitwise (unaugmented; and
-  augmented with the JAX package's native batcher switched off, so both
+  augmented with both packages' native batchers switched off, so both
   take the numpy path);
 - the losses and the schedules against ``ops/mdn.py`` / ``schedules.py``;
 - ``SketchRNN.loss`` and its gradients: measured gap at these shapes 0
@@ -113,10 +113,11 @@ def _tree_close(a, b, atol, rtol=0.0, what=""):
 def test_loader_batches_bitwise(augment, grid, monkeypatch):
     jh, th = _pair(max_seq_len=40, batch_size=6)
     if augment:
-        # the JAX package's native batcher draws its own augmentation
-        # stream; with it off both packages take the numpy path
+        # the native batchers draw their own augmentation stream; with
+        # both off both packages take the numpy path
         monkeypatch.setattr(jloader.NB, "assemble_batch_aug",
                             lambda *a, **k: None)
+        monkeypatch.setenv("SKETCH_RNN_TPU_TORCH_NO_NATIVE", "1")
     kw = dict(num=30, seed=3, augment=augment, integer_grid=grid)
     jl, jsf = jloader.synthetic_loader(jh, **kw)
     tl, tsf = tloader.synthetic_loader(th, **kw)
@@ -416,8 +417,9 @@ def test_train_loop_keys_and_rows():
     _, th, _, tm, _, tp = _models()
     tl, _ = tloader.synthetic_loader(th, num=24, seed=4)
     # the mesh-less steps, as JAX's tests do (tests/test_bucketed.py:361)
-    state, rows = train(th, tl, seed=9, num_steps=2, params=tp,
-                        device="cpu", use_mesh=False)
+    rows = []
+    state = train(th, tl, seed=9, num_steps=2, params=tp, device="cpu",
+                  use_mesh=False, history=rows)
     assert [r["step"] for r in rows] == [0, 1] and state.step == 2
     assert all(np.isfinite(r["loss"]) for r in rows)
     tl2, _ = tloader.synthetic_loader(th, num=24, seed=4)
@@ -526,9 +528,41 @@ def test_train_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
 
 
 def test_train_refuses_later_slice_options():
+    """Each option of the JAX package's ``train`` that the port does not
+    serve yet raises, naming its ROADMAP queue 1 item."""
     _, th = _pair()
     tl, _ = tloader.synthetic_loader(th, num=8)
-    for kw in (dict(profile=True), dict(trace_dir="t"), dict(watchdog=True),
-               dict(coordinator=object())):
-        with pytest.raises(NotImplementedError, match="later slice"):
+    for kw, item in ((dict(profile=True), "7b"), (dict(trace_dir="t"), "7c"),
+                     (dict(watchdog=True), "7b"),
+                     (dict(halt_on_anomaly=True), "7b"),
+                     (dict(coordinator=object()), "7d"),
+                     (dict(model=object()), "6")):
+        with pytest.raises(NotImplementedError,
+                           match=f"later slice.*item {item}\\)"):
             train(th, tl, num_steps=1, device="cpu", **kw)
+
+
+def test_train_signature_is_the_jax_packages():
+    """``train()`` takes the JAX package's parameters, by name, in its
+    order and with its defaults; the port's own extras are keyword-only
+    and come after them. It returns the state; ``history`` collects the
+    rows only when the caller passes a list."""
+    import inspect
+
+    from sketch_rnn_tpu.train.loop import train as jtrain
+
+    jsig, tsig = inspect.signature(jtrain), inspect.signature(train)
+    jparams = list(jsig.parameters.values())
+    tparams = list(tsig.parameters.values())
+    extras = [p for p in tparams if p.kind is p.KEYWORD_ONLY]
+    assert [p.name for p in extras] == ["params", "device", "history"]
+    shared = tparams[:len(tparams) - len(extras)]
+    assert [p.name for p in shared] == [p.name for p in jparams]
+    assert [p.default for p in shared] == [p.default for p in jparams]
+    assert all(p.kind is p.POSITIONAL_OR_KEYWORD for p in shared)
+    _, th = _pair()
+    tl, _ = tloader.synthetic_loader(th, num=8, seed=1)
+    rows = []
+    state = train(th, tl, None, None, 1.0, None, 0, 1, False, device="cpu",
+                  history=rows)
+    assert state.step == 1 and [r["step"] for r in rows] == [0]

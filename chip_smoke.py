@@ -211,7 +211,18 @@ without the final line. With no CUDA device it exits 2 at once.
    a worker thread in turns; then 64 mixed requests served by one
    engine and by the fleet, the fleet's strokes bit for bit the
    engine's, both walls per chunk and a profiled fleet burst's device
-   busy share.
+   busy share. Then serve_tenants, on cli_flow's restored checkpoint with
+   the sentinel below (bfloat16, 64 slots, K=8, caps in [16, 250]): a
+   ``TenantStore`` of tn0..tn3 by the CLI's recipe behind a one-replica
+   ``ServeFleet(tenants=)``, 256 requests over the base and the four
+   tenants and the four endpoints, each tenant's strokes bit for bit a
+   ``ServeEngine`` on its materialized tree, tenant swaps > 0, every
+   weight tensor's ``data_ptr()`` kept, rows 1, 2 and 4f launched; a
+   congruent swap's ms against a rebind's; the cache (128 contents, their
+   twins while in flight, 32 more once stored: bit for bit, zero steps,
+   the misses that computed equal to the contents); the encode reuse (computes equal
+   to the distinct keys, planned rows with the index bit for bit without
+   it); ``cli serve-bench --fleet --tenants 4`` on the workdir.
 10. train_lstm — the ``vae`` preset (lstm decoder) with ``fused_rnn=true``
    at full width and float32: 1 warm-up step, then 5 timed steps with the
    counters zeroed just before and read just after (2 launches per step
@@ -5782,6 +5793,280 @@ def serve_bench(card, trained_wd):
         phase_seconds=time.perf_counter() - t_phase)
 
 
+ST_N = 256              # requests of serve_tenants' tenant run
+ST_BLOCK = 32           # consecutive requests of one tenant
+ST_TENANTS = 4          # tn0..tn3 besides the base, the CLI's recipe
+ST_POOL = 24            # distinct prefixes the encoder requests share
+ST_FRAMES = 4           # frames of an interpolate request
+ST_SWAP_REPS = 5        # timed swaps of each kind (medians)
+ST_HITS = 32            # requests served again once their strokes are stored
+ST_CLI_N = 64           # requests of the serve-bench --tenants run
+
+
+def tenant_requests(hps, valid, store):
+    """ST_N seeded requests at the serving geometry: tenants in blocks of
+    ST_BLOCK cycling over the base and tn0..tn3, endpoints cycling over
+    generate, complete, reconstruct and interpolate, prefixes from
+    ST_POOL sketches of the valid split, caps in [16, 250]."""
+    import numpy as np
+
+    from sketch_rnn_tpu_torch.serve.engine import Request
+    from sketch_rnn_tpu_torch.utils import prng
+
+    names = [""] + list(store.tenants)
+    pool = min(ST_POOL, len(valid.strokes))
+    rng = np.random.default_rng(53)
+    k0 = prng.key(53)
+    out = []
+    for i in range(ST_N):
+        ep = ("generate", "complete", "reconstruct", "interpolate")[i % 4]
+        j = (i * 7) % pool
+        kw = dict(key=prng.fold_in(k0, i), uid=i, endpoint=ep,
+                  temperature=0.5, label=int(valid.labels[j]),
+                  tenant=names[(i // ST_BLOCK) % len(names)],
+                  max_len=int(rng.integers(16, hps.max_seq_len + 1)))
+        if ep == "generate":
+            kw["z"] = rng.normal(size=hps.z_size).astype(np.float32)
+        elif ep == "complete":
+            p = valid.strokes[j]
+            kw["prefix"] = p[:max(1, len(p) // 2)]
+        elif ep == "reconstruct":
+            kw["prefix"] = valid.strokes[j]
+        else:
+            kw.update(prefix=(valid.strokes[j],
+                              valid.strokes[(j + 5) % pool]),
+                      frames=ST_FRAMES)
+        out.append(Request(**kw))
+    return out
+
+
+def same_strokes(a, b):
+    import numpy as np
+
+    return (a.steps == b.steps and np.array_equal(a.strokes5, b.strokes5)
+            and (a.frames is None) == (b.frames is None)
+            and (a.frames is None or all(
+                np.array_equal(x, y) for x, y in zip(a.frames, b.frames))))
+
+
+def serve_tenants(card, trained_wd):
+    """The result cache, the encode reuse and paged tenants at the
+    flagship's full width (bfloat16, 64 slots, K=8), on cli_flow's
+    restored checkpoint with the sentinel ``out_b[2] = -1e9`` (caps in
+    [16, 250] end every sketch): (a) a TenantStore of tn0..tn3 by the
+    CLI's recipe (``cli._tenant_store_of``) behind a one-replica
+    ``ServeFleet(tenants=)``: ST_N requests over the base and the four
+    tenants (blocks of ST_BLOCK) and the four endpoints, each tenant's
+    strokes bitwise a ``ServeEngine`` on ``store.materialize(t)``, tenant
+    swaps > 0, every weight tensor's ``data_ptr()`` unchanged, rows 1, 2
+    and 4f launched; (b) a congruent swap's ms against a rebinding one's
+    (and ``materialize``'s); (c) with a ``ResultCache``: the first half
+    of the requests before ``start`` and their twins right after, then
+    ST_HITS of them once more after the drain, every repeat bitwise (a)
+    at zero steps, the misses that computed equal to the distinct
+    contents; (d) encode computes equal to the distinct (tenant,
+    prefix, edge, label) keys, and a burst's planned encoder rows with
+    the reuse index bitwise without it; (e) ``cli serve-bench --fleet
+    --tenants 4`` with a tenant mix, cap and SLO on the workdir."""
+    import dataclasses
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from sketch_rnn_tpu_torch import cli
+    from sketch_rnn_tpu_torch.serve.cache import ResultCache
+    from sketch_rnn_tpu_torch.serve.endpoints import (plan_batch,
+                                                      prefix_edge_of,
+                                                      serve_requests)
+    from sketch_rnn_tpu_torch.serve.engine import ServeEngine
+    from sketch_rnn_tpu_torch.serve.fleet import ServeFleet
+    from sketch_rnn_tpu_torch.serve.tenants import PrefixReuseIndex
+
+    t_phase = time.perf_counter()
+    hps, model, params, valid = restored_serving(trained_wd)
+    params = dict(params, out_b=params["out_b"].clone())
+    params["out_b"][2] = -1e9
+    names = [f"tn{i}" for i in range(ST_TENANTS)]
+    store = cli._tenant_store_of(params, names, 0, "ckpt_restored")
+    fresh = lambda: tenant_requests(hps, valid, store)
+    fleet = ServeFleet(model, hps, params, replicas=1,
+                       devices=[torch.device(DEV)], tenants=store)
+    fleet.warm(fresh()[0], endpoints=True)
+    eng = fleet._replicas[0].engine
+    ptrs = [t.data_ptr() for _, t in eng.weights]
+    chunk_fn = eng._chunk_fn
+
+    # (a) the tenant run, counters zeroed just before and read just after
+    reqs = fresh()
+    for r in reqs:
+        fleet.submit(r)
+    reset_serve_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with fleet:
+        fleet.drain(timeout=600)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = serve_counts()
+    summ = fleet.summary()
+    tenants = summ["tenants"]
+    got = {u: rec["result"] for u, rec in fleet.results.items()}
+    if not (summ["completed"] == ST_N and tenants["tenant_swaps"] > 0
+            and all(v > 0 for v in launches.values())
+            and [t.data_ptr() for _, t in eng.weights] == ptrs
+            and eng._chunk_fn is chunk_fn and fleet.health()["healthy"]):
+        raise AssertionError(f"serve_tenants (a): {summ['completed']} "
+                             f"completed, launches {launches}, tenants "
+                             f"{tenants}, pointers kept "
+                             f"{[t.data_ptr() for _, t in eng.weights] == ptrs}")
+    per_tenant = {}
+    for t in [""] + names:
+        mine = [r for r in fresh() if r.tenant == t]
+        out = serve_requests(model, hps, store.materialize(t), mine,
+                             device=DEV)
+        for r in out["results"]:
+            if not (same_strokes(r, got[r.uid])
+                    and got[r.uid].ckpt_id == store.ckpt_id_of(t)):
+                raise AssertionError(f"serve_tenants (a): request {r.uid} "
+                                     f"(tenant {t!r}, {r.endpoint}) is not "
+                                     f"its single-tenant engine's")
+        per_tenant[t or "base"] = len(mine)
+    # (d) the reuse index's computes against the distinct keys
+    edges = eng.encoder.edges
+    keys = set()
+    for r in fresh():
+        if r.endpoint == "generate":
+            continue
+        sides = r.prefix if r.endpoint == "interpolate" else (r.prefix,)
+        for p in sides:
+            keys.add(PrefixReuseIndex.key(
+                r.tenant or store.base_ckpt_id, p,
+                prefix_edge_of(len(p), edges), r.label))
+    reuse = tenants["encode_reuse"]
+    if not (reuse["computes"] == len(keys) == reuse["distinct"]):
+        raise AssertionError(f"serve_tenants (d): reuse {reuse}, "
+                             f"{len(keys)} distinct keys")
+    # a burst's planned rows with the index and without it
+    burst = [r for r in fresh() if r.tenant == "tn1"]
+    planned = {}
+    for name, index in (("on", PrefixReuseIndex()), ("off", None)):
+        eng.swap_params(store.materialize("tn1"),
+                        ckpt_id=store.ckpt_id_of("tn1"))
+        eng.serving_tenant, eng.encode_reuse = "tn1", index
+        reqs_x = [dataclasses.replace(r) for r in burst]
+        plan = plan_batch(eng, reqs_x)
+        planned[name] = [(r.uid, r.z, r.init_carry, r.init_prev)
+                         for r in plan.engine_requests]
+    eng.encode_reuse = fleet.encode_reuse
+    if not all(a[0] == b[0] and all(
+            (x is None and y is None) or np.array_equal(x, y)
+            for x, y in zip(a[1:], b[1:]))
+            for a, b in zip(planned["on"], planned["off"])):
+        raise AssertionError("serve_tenants (d): reuse on is not reuse off")
+
+    # (c) the cache: half the requests, then their twins while in flight
+    fleet.reset()
+    fleet.cache = ResultCache(config_hash="chip_smoke")
+    half = fresh()[:ST_N // 2]
+    for r in half:
+        fleet.submit(r)
+    t0 = time.perf_counter()
+    with fleet:
+        for r in fresh()[:ST_N // 2]:
+            r.uid += ST_N
+            fleet.submit(r)
+        fleet.drain(timeout=600)
+        # and a third copy of the first ST_HITS once all are stored
+        for r in fresh()[:ST_HITS]:
+            r.uid += 2 * ST_N
+            fleet.submit(r)
+        fleet.drain(timeout=60)
+    cache_s = time.perf_counter() - t0
+    stats = fleet.summary()["cache"]
+    res = fleet.results
+    for u in range(ST_N // 2):
+        prim = res[u]["result"]
+        twins = [res[v]["result"] for v in (u + ST_N, u + 2 * ST_N)
+                 if v in res]
+        if not (not prim.cached and same_strokes(prim, got[u])
+                and all(t.cached and t.attributed_steps == 0
+                        and same_strokes(t, got[u]) for t in twins)):
+            raise AssertionError(f"serve_tenants (c): request {u}'s twin")
+    if not (stats["misses"] - stats["coalesced"] == ST_N // 2
+            and stats["hits"] + stats["coalesced"] == ST_N // 2 + ST_HITS
+            and stats["hits"] >= ST_HITS):
+        raise AssertionError(f"serve_tenants (c): cache {stats}")
+
+    # (b) a congruent swap (a value copy) against a rebind
+    def timed(fn):
+        out = []
+        for _ in range(ST_SWAP_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(out)
+
+    trees = {t: store.materialize(t) for t in ("tn1", "tn2")}
+    flip = iter(range(1 << 20))
+    swap_ms = timed(lambda: eng.swap_params(
+        trees["tn1" if next(flip) % 2 else "tn2"]))
+    materialize_ms = timed(lambda: store.materialize("tn1"))
+    rebinder = ServeEngine(model, hps, params, device=DEV)
+    rebind_ms = timed(lambda: rebinder.swap_params(
+        trees["tn1" if next(flip) % 2 else "tn2"]))
+    # a value-paged engine's rebind (a new label): new tensors, copies
+    owner = ServeEngine(model, hps, params, device=DEV, param_args=True)
+    rebind_owned_ms = timed(lambda: owner.swap_params(
+        trees["tn1"], param_dtype=("a", "b")[next(flip) % 2]))
+    if not ([t.data_ptr() for _, t in eng.weights] == ptrs
+            and eng._chunk_fn is chunk_fn):
+        raise AssertionError("serve_tenants (b): a congruent swap moved "
+                             "a weight tensor")
+    fleet.close()
+
+    # (e) the command line
+    text, cli_s = run_cli([
+        "serve-bench", f"--workdir={trained_wd}", "--fleet",
+        "--tenants", str(ST_TENANTS),
+        "--tenant_mix", ":1,tn0:1,tn1:2,tn2:1,tn3:1",
+        "--tenant_cap", "96", "--tenant_slo", "tn1:p95<=5",
+        "-n", str(ST_CLI_N), "--rate", "0"])
+    rep = json.loads(text.strip().splitlines()[-1])
+    if not (rep["completed"] + rep["fleet"]["shed"] == ST_CLI_N
+            and rep["tenant_swaps"] > 0
+            and set(rep["latency_by_tenant"]) <= {"", *names}):
+        raise AssertionError(f"serve_tenants (e): {rep}")
+    weights = len({t.data_ptr() for _, t in eng.weights})
+    log("serve_tenants", card=card, preset="quickdraw345_dp",
+        dtype=hps.compute_dtype, slots=hps.serve_slots,
+        chunk=hps.serve_chunk,
+        tenant_run={"requests": ST_N, "per_tenant": per_tenant,
+                    "bitwise_single_tenant": True, "seconds": run_s,
+                    "sketches_per_sec": summ["sketches_per_sec"],
+                    "tenant_swaps": tenants["tenant_swaps"],
+                    "bursts": summ["per_replica"][0]["bursts"],
+                    "chunks": summ["per_replica"][0]["chunks"],
+                    "launches": launches, "weight_tensors": weights,
+                    "data_ptrs_kept": True,
+                    "memory": tenants["memory"]},
+        swap={"congruent_ms": swap_ms, "rebind_ms": rebind_ms,
+              "rebind_owned_ms": rebind_owned_ms,
+              "materialize_ms": materialize_ms, "reps": ST_SWAP_REPS},
+        cache={"requests": ST_N + ST_HITS, "distinct": ST_N // 2, **stats,
+               "seconds": cache_s, "bitwise": True},
+        encode_reuse={**reuse, "distinct_keys": len(keys),
+                      "reuse_on_is_off": True},
+        cli={"sketches_per_sec": rep["sketches_per_sec"],
+             "tenant_swaps": rep["tenant_swaps"],
+             "completed": rep["completed"], "shed": rep["fleet"]["shed"],
+             "latency_by_tenant": rep["latency_by_tenant"],
+             "seconds": cli_s},
+        phase_seconds=time.perf_counter() - t_phase)
+
+
 # the kernels line: (name, source, TPU kernel, the dtype of its main path)
 KERNEL_ROWS = (
     ("decode_chunk", "sketch_rnn_tpu_torch/csrc/decode.cu",
@@ -5919,6 +6204,9 @@ def main():
             torch.cuda.empty_cache()
         with phase("serve_bench"):
             serve_bench(card, os.path.join(cli_tmp, "work"))
+        with phase("serve_tenants"):
+            serve_tenants(card, os.path.join(cli_tmp, "work"))
+            torch.cuda.empty_cache()
     finally:
         shutil.rmtree(cli_tmp, ignore_errors=True)
     torch.cuda.empty_cache()

@@ -18,11 +18,11 @@ of the kernels. A workdir is checkpoint format 1, so either package's
 
 ``serve-bench`` serves a burst through the engine (``--static``: static
 batching) or through the fleet (``--fleet``: open-loop Poisson arrivals
-at ``--rate``, admission ``--classes``, an ``--endpoints`` mix) and
+at ``--rate``, admission ``--classes``, an ``--endpoints`` mix,
+``--tenants`` seeded fine-tunes paged through one value-paged fleet) and
 prints one JSON report, the JAX CLI's ``serve_bench_cli`` keys less
 those of unported features (``run_id``, ``metrics_port``,
-``metrics_prom``; the fleet block's cache, elastic, tenant and tail
-fields).
+``metrics_prom``; the fleet block's elastic and tail fields).
 
 Data parallelism: one process per card. ``train``, ``eval`` and
 ``sample`` join the process group first (``parallel/multihost.
@@ -98,8 +98,8 @@ LATER_FLAGS = {
                          "fleet and runtime/coresident.py)"),
 }
 
-_ITEM_5B = ("ROADMAP queue 1 item 5b (result cache, elastic replicas, "
-            "tenants, rollout, metrics_http.py)")
+_ITEM_5B_II = ("ROADMAP queue 1 item 5b-ii (elastic replicas, rollout, "
+               "metrics_http.py)")
 _ITEM_6 = "ROADMAP queue 1 item 6 (speculative decoding"
 _ITEM_7 = "ROADMAP queue 1 item 7 (utils/telemetry.py and the fault " \
           "injector of utils/faults.py)"
@@ -110,12 +110,8 @@ SERVE_BENCH_LATER_FLAGS = {
     "draft_depth": (0, f"{_ITEM_6}: models/draft.py)"),
     "draft_tol": (-1.0, f"{_ITEM_6}: models/draft.py)"),
     "draft_noise": (0.0, f"{_ITEM_6}: models/draft.py)"),
-    "tenants": (0, _ITEM_5B),
-    "tenant_mix": ("", _ITEM_5B),
-    "tenant_cap": (0, _ITEM_5B),
-    "tenant_slo": ([], _ITEM_5B),
-    "watch_ckpt": ("", _ITEM_5B),
-    "metrics_port": (None, _ITEM_5B),
+    "watch_ckpt": ("", _ITEM_5B_II),
+    "metrics_port": (None, _ITEM_5B_II),
     "trace_dir": ("", _ITEM_7),
     "fault_plan": ("", _ITEM_7),
     "fault_seed": (0, _ITEM_7),
@@ -490,11 +486,12 @@ def cmd_sample(args) -> int:
 def _serve_bench_usage(args, hps: HParams):
     """serve-bench's usage checks, before any checkpoint is read and with
     the JAX CLI's messages: ``(exit code, slo tracker, endpoints config,
-    device)``, the code 2 on a usage error (said on stderr)."""
+    tenants config, device)``, the code 2 on a usage error (said on
+    stderr)."""
     from sketch_rnn_tpu_torch.serve.admission import \
         parse_admission_classes
     from sketch_rnn_tpu_torch.serve.slo import SLOTracker, parse_slo
-    fail = (2, None, None, None)
+    fail = (2, None, None, None, None)
     if hps.decode_kernel == "pallas":
         from sketch_rnn_tpu_torch.ops.cuda_decode import check_cell_kind
         try:
@@ -583,6 +580,45 @@ def _serve_bench_usage(args, hps: HParams):
         endpoints_cfg = {"map": ep_map, "classes": ep_classes,
                          "mix": mix, "frames": args.frames,
                          "encoder": bool(enc_needed)}
+    tenants_cfg = None
+    if args.tenants or args.tenant_mix or args.tenant_cap \
+            or args.tenant_slo:
+        if args.fleet is None:
+            print("[cli] --tenants/--tenant_mix/--tenant_cap/"
+                  "--tenant_slo configure the multi-tenant fleet; add "
+                  "--fleet", file=sys.stderr)
+            return fail
+        if args.tenants < 2:
+            print(f"[cli] --tenants needs >= 2 tenants (got "
+                  f"{args.tenants}); a single-tenant fleet is just "
+                  f"--fleet", file=sys.stderr)
+            return fail
+        if args.tenant_cap < 0:
+            print(f"[cli] --tenant_cap must be >= 0, got "
+                  f"{args.tenant_cap}", file=sys.stderr)
+            return fail
+        from sketch_rnn_tpu_torch.serve.admission import parse_tenant_slos
+        from sketch_rnn_tpu_torch.serve.loadgen import parse_tenant_mix
+        names = [f"tn{i}" for i in range(args.tenants)]
+        try:
+            tslos = parse_tenant_slos(args.tenant_slo)
+            tmix = (parse_tenant_mix(args.tenant_mix)
+                    if args.tenant_mix
+                    else tuple((t, 1.0) for t in [""] + names))
+        except ValueError as e:
+            print(f"[cli] {e}", file=sys.stderr)
+            return fail
+        known = set(names) | {""}
+        bad = sorted({t for t, _ in tmix} - known) \
+            + sorted(set(tslos) - known)
+        if bad:
+            print(f"[cli] unknown tenant(s) {bad} in --tenant_mix/"
+                  f"--tenant_slo; --tenants {args.tenants} registers "
+                  f"tn0..tn{args.tenants - 1} ('' = base)",
+                  file=sys.stderr)
+            return fail
+        tenants_cfg = {"names": names, "mix": tmix,
+                       "cap": args.tenant_cap, "slos": tslos}
     dev = _device(args)
     if dev is None:
         return fail
@@ -592,7 +628,7 @@ def _serve_bench_usage(args, hps: HParams):
               f"devices but only {torch.cuda.device_count()} are "
               f"available", file=sys.stderr)
         return fail
-    return 0, slo_tracker, endpoints_cfg, dev
+    return 0, slo_tracker, endpoints_cfg, tenants_cfg, dev
 
 
 def cmd_serve_bench(args) -> int:
@@ -607,10 +643,12 @@ def cmd_serve_bench(args) -> int:
         hps = hps.replace(decode_kernel=args.decode_kernel)
     if args.quantize:
         hps = hps.replace(serve_quantize=args.quantize)
-    rc, slo_tracker, endpoints_cfg, dev = _serve_bench_usage(args, hps)
+    rc, slo_tracker, endpoints_cfg, tenants_cfg, dev = \
+        _serve_bench_usage(args, hps)
     if rc:
         return rc
-    return _serve_bench_run(args, hps, slo_tracker, endpoints_cfg, dev)
+    return _serve_bench_run(args, hps, slo_tracker, endpoints_cfg,
+                            tenants_cfg, dev)
 
 
 def _json_safe(obj):
@@ -626,10 +664,12 @@ def _json_safe(obj):
 
 
 def _serve_bench_fleet(args, hps, model, params, requests, slo_tracker,
-                       endpoints_cfg, ckpt_id: str, dev):
+                       endpoints_cfg, ckpt_id: str, dev, tenants_cfg=None,
+                       tenant_store=None):
     """The fleet's measured section: build and warm the fleet, replay the
-    open-loop schedule through ``submit``, drain. Returns ``(report
-    metrics, fleet summary, per-request rows)``."""
+    open-loop schedule through ``submit``, drain. With ``tenant_store``
+    the fleet is value-paged over it. Returns ``(report metrics, fleet
+    summary, per-request rows)``."""
     from sketch_rnn_tpu_torch.serve.admission import \
         parse_admission_classes
     from sketch_rnn_tpu_torch.serve.fleet import ServeFleet
@@ -647,12 +687,17 @@ def _serve_bench_fleet(args, hps, model, params, requests, slo_tracker,
     # the CPU has no device count: --fleet N gives N CPU replicas
     devices = ([dev] * max(1, args.fleet) if dev.type == "cpu"
                else None)
+    tenant_kw = {}
+    if tenant_store is not None:
+        tenant_kw = dict(tenants=tenant_store,
+                         tenant_cap=tenants_cfg["cap"],
+                         tenant_slos=tenants_cfg["slos"])
     fleet = ServeFleet(model, hps, params, replicas=args.fleet,
                        slots=args.slots, chunk=args.chunk,
                        greedy=args.greedy, classes=classes,
                        devices=devices, slo=slo_tracker,
                        endpoint_classes=endpoint_classes,
-                       ckpt_id=ckpt_id)
+                       ckpt_id=ckpt_id, **tenant_kw)
     fleet.warm(requests[0],
                endpoints=bool(endpoints_cfg
                               and endpoints_cfg.get("encoder")))
@@ -678,6 +723,7 @@ def _serve_bench_fleet(args, hps, model, params, requests, slo_tracker,
         rows = [{"uid": uid, "replica": rec["replica"],
                  "class": rec.get("class"),
                  "endpoint": rec.get("endpoint", "generate"),
+                 "tenant": rec.get("tenant", ""),
                  "queue_pos": rec.get("queue_pos"),
                  "steps": rec["result"].steps,
                  "length": rec["result"].length,
@@ -701,9 +747,52 @@ def _serve_bench_fleet(args, hps, model, params, requests, slo_tracker,
         out_metrics["latency_by_endpoint"] = fsum["latency_by_endpoint"]
         fsum["endpoint_mix"] = [list(m) for m in endpoints_cfg["mix"]]
         fsum["endpoint_classes"] = dict(endpoints_cfg["map"])
+    if tenant_store is not None:
+        out_metrics["latency_by_tenant"] = \
+            fsum["tenants"]["latency_by_tenant"]
+        out_metrics["tenant_swaps"] = fsum["tenants"]["tenant_swaps"]
+        fsum["tenant_mix"] = [list(m) for m in tenants_cfg["mix"]]
     if slo_tracker is not None:
         out_metrics["slo"] = slo_tracker.summary()
     return out_metrics, fsum, rows
+
+
+def _tenant_store_of(params, names, seed, ckpt_id):
+    """The ``--tenants`` adapter store: N seeded stand-in fine-tunes of
+    the served tree as int8-delta pages, the JAX CLI's recipe (leaves
+    walked in sorted key order, as JAX's trees keep them): ``tn0`` is a
+    copy (a zero delta), ``tn1`` nudges every float leaf by 0.01 N(0, 1),
+    the rest only ``out_w`` and ``out_b``."""
+    from sketch_rnn_tpu_torch.serve.tenants import TenantStore
+
+    def perturb(want, pseed):
+        rng = np.random.default_rng(pseed)
+
+        def walk(node, path=""):
+            if isinstance(node, dict):
+                return {k: walk(node[k], f"{path}/{k}" if path else k)
+                        for k in sorted(node)}
+            a = node.detach().cpu().numpy()
+            hit = want is True or any(w in path for w in want)
+            if (hit and np.issubdtype(a.dtype, np.floating)
+                    and a.ndim >= 1):
+                d = 0.01 * rng.standard_normal(a.shape)
+                return (a + d).astype(a.dtype)
+            return a
+        return walk(params)
+
+    store = TenantStore(params, base_ckpt_id=ckpt_id or "base")
+    for i, t in enumerate(names):
+        want = [] if i == 0 else (True if i == 1
+                                  else ["out_w", "out_b"])
+        rep = store.register(t, perturb(want, seed + 1000 + i))
+        print(f"[cli] tenant {t}: {rep['pages']} adapter page(s), "
+              f"{rep['nbytes']} bytes", file=sys.stderr)
+    mt = store.memory_table()
+    print(f"[cli] adapter memory: resident {mt['resident_bytes']} / "
+          f"{mt['tenants']} full trees {mt['full_bytes']} "
+          f"(ratio {mt['ratio']:.3f})", file=sys.stderr)
+    return store
 
 
 def _build_endpoint_requests(args, hps, scale, n, kz, kreq,
@@ -745,7 +834,8 @@ def _warm_engine(engine, requests) -> None:
                 for r in requests])
 
 
-def _serve_bench_run(args, hps, slo_tracker, endpoints_cfg, dev) -> int:
+def _serve_bench_run(args, hps, slo_tracker, endpoints_cfg, tenants_cfg,
+                     dev) -> int:
     """The body of ``serve-bench`` after its usage checks."""
     import time
 
@@ -789,6 +879,17 @@ def _serve_bench_run(args, hps, slo_tracker, endpoints_cfg, dev) -> int:
                     z=None if z is None else z[i],
                     label=args.label, temperature=args.temperature)
             for i in range(n)]
+    tenant_store = None
+    if tenants_cfg is not None:
+        # pages against the served tree (after any --quantize rounding);
+        # each request's tenant from the seeded mix stream
+        from sketch_rnn_tpu_torch.serve.loadgen import tenant_mix_ids
+        tenant_store = _tenant_store_of(params, tenants_cfg["names"],
+                                        args.seed, init_ckpt_id)
+        tmix = tenants_cfg["mix"]
+        tids = tenant_mix_ids(n, tmix, args.seed)
+        for i, r in enumerate(requests):
+            r.tenant = tmix[int(tids[i])][0]
     writer = (MetricsWriter(args.workdir, name="serve")
               if args.log_metrics else None)
     fleet_report = None
@@ -796,7 +897,7 @@ def _serve_bench_run(args, hps, slo_tracker, endpoints_cfg, dev) -> int:
         t0 = time.time()
         out_metrics, fleet_report, rows = _serve_bench_fleet(
             args, hps, model, params, requests, slo_tracker,
-            endpoints_cfg, init_ckpt_id, dev)
+            endpoints_cfg, init_ckpt_id, dev, tenants_cfg, tenant_store)
         slots_v, chunk_v = fleet_report["slots"], fleet_report["chunk"]
         if writer is not None:
             for i, row in enumerate(rows):
@@ -1014,13 +1115,26 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--draft_tol", type=float, default=-1.0)
     p.add_argument("--draft_noise", type=float, default=0.0)
     p.add_argument("--tenants", type=int, default=0,
-                   help="multi-tenant serving (refused: ROADMAP queue 1 "
-                        "item 5b), like --tenant_mix, --tenant_cap, "
-                        "--tenant_slo, --watch_ckpt and --metrics_port")
-    p.add_argument("--tenant_mix", default="")
-    p.add_argument("--tenant_cap", type=int, default=0)
-    p.add_argument("--tenant_slo", action="append", default=[])
-    p.add_argument("--watch_ckpt", default="")
+                   help="multi-tenant serving for --fleet: register N >= 2 "
+                        "seeded stand-in fine-tunes ('tn0'..) as int8-delta "
+                        "adapter pages against the served checkpoint and "
+                        "serve them through one value-paged fleet; the "
+                        "report grows latency_by_tenant, tenant_swaps and "
+                        "the fleet's tenants block")
+    p.add_argument("--tenant_mix", default="",
+                   help="seeded tenant mix for --tenants runs, "
+                        "'name:weight,...' over tn0..tnN-1 (':1' weights "
+                        "the base checkpoint); default: uniform over base "
+                        "and every tenant")
+    p.add_argument("--tenant_cap", type=int, default=0,
+                   help="cap on a tenant's outstanding pool rows (0 = "
+                        "none); admission sheds a tenant at its cap")
+    p.add_argument("--tenant_slo", action="append", default=[],
+                   help="per-tenant SLO spec, repeatable: "
+                        "tenant:class:pNN<=SECONDS")
+    p.add_argument("--watch_ckpt", default="",
+                   help="checkpoint rollout (refused: ROADMAP queue 1 "
+                        "item 5b-ii), like --metrics_port")
     p.add_argument("--metrics_port", type=int, default=None)
     p.add_argument("--trace_dir", default="",
                    help="serving telemetry (refused: ROADMAP queue 1 item "

@@ -83,8 +83,7 @@ def parse_tenant_slos(specs: Sequence[str]) -> Dict[str, List[SLO]]:
     Grammar: ``tenant:class:pNN<=VALUE``: the leading segment names the
     tenant, the rest is the :func:`parse_slo` grammar with the class in
     the endpoint slot (``acme:interactive:p95<=250ms``). A two-segment
-    spec (``acme:p95<=250ms``) applies to :data:`DEFAULT_CLASS`. (Pure
-    parsing: the tenants themselves come with a later slice.)
+    spec (``acme:p95<=250ms``) applies to :data:`DEFAULT_CLASS`.
     """
     out: Dict[str, List[SLO]] = {}
     seen = set()
@@ -133,8 +132,7 @@ class AdmissionController:
     deadline). The service-time estimate is an EWMA of completed
     requests' ``decode_s``; until the first completion only the hard
     queue cap sheds (a cold fleet must not refuse its first burst).
-    ``tenant_cap`` caps one tenant's outstanding rows (0 = off; every
-    request of this slice has the tenant ``""``).
+    ``tenant_cap`` caps one tenant's outstanding rows (0 = off).
     """
 
     def __init__(self, classes: Dict[str, AdmissionClass],

@@ -1,7 +1,6 @@
 """Multi-task serving endpoints: completion, reconstruction, interpolation.
 
-The port of ``sketch_rnn_tpu/serve/endpoints.py`` (the fleet's
-shared-prefix encode reuse comes with ROADMAP queue 1 item 5b):
+The port of ``sketch_rnn_tpu/serve/endpoints.py``:
 
 - ``generate``    — the engine's native path, untouched.
 - ``complete``    — encode a stroke-3 ``prefix`` with the bidirectional
@@ -31,10 +30,19 @@ params): the planner stamps derived decode state onto requests (``z`` /
 ``init_carry`` / ``init_prev``) and expands interpolations into child
 rows keyed ``fold_in(parent_key, frame)``, then the engine's
 per-request RNG takes over.
+
+**Shared-prefix encode reuse.** With an engine's ``encode_reuse`` set (a
+fleet's ``serve/tenants.PrefixReuseIndex``), the planner groups a burst's
+prefixes by ``(tenant, prefix hash, edge, label)``, encodes only the keys
+no replica has encoded yet, and copies the stored ``(mu, carry, prev)``
+rows to every request that shares a key. An encode row depends only on
+its own prefix at a fixed geometry (the same ``rows``, the same edge), so
+a reused row is bitwise a fresh encode.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -49,7 +57,9 @@ from sketch_rnn_tpu_torch.ops.cuda_decode import (cast_weights,
                                                   replay_chunk)
 from sketch_rnn_tpu_torch.sample.interpolate import interpolate_latents
 from sketch_rnn_tpu_torch.utils import prng
-from sketch_rnn_tpu_torch.utils.device import resolve_device, tree_to
+from sketch_rnn_tpu_torch.utils.device import (congruent, copy_values_,
+                                               resolve_device, tree_leaves,
+                                               tree_to)
 
 ENDPOINTS = ("generate", "complete", "reconstruct", "interpolate")
 ENCODER_ENDPOINTS = ("complete", "reconstruct", "interpolate")
@@ -190,6 +200,9 @@ def make_encode_step(model, hps: HParams, params):
     ``carry_flat`` concatenates the carry's tensors in leaf order (``c,
     h``, then the hyper cell's ``hc, hh``). The hyper decoder replays
     through a plain loop of cell steps with the same masking.
+
+    ``fn.weights`` lists the tensors the step reads weights from, as
+    ``(path into params, tensor)`` (``make_chunk_step``'s contract).
     """
     plain = hps.dec_model == "hyper"
     cell = model.dec
@@ -228,12 +241,19 @@ def make_encode_step(model, hps: HParams, params):
                        seq_len.long()]
         return mu, torch.cat(carry, dim=-1), prev
 
+    fn.weights = tree_leaves(params) + (
+        [] if plain else tree_leaves({"dec": dec_params}))
     return fn
 
 
 class EncodeProgram:
     """Per-device fixed-geometry endpoint encoder (the pre-decode burst
-    phase): every call encodes ``rows`` prefixes padded to one edge."""
+    phase): every call encodes ``rows`` prefixes padded to one edge.
+
+    ``param_args=True`` (a value-paged engine's encoder): the program owns
+    copies of its weights and :meth:`swap_params` copies a congruent
+    tree's values into them. It launches on ``stream`` (default: the
+    device's current stream at construction)."""
 
     # encode-phase parameter subset
     _KEEP = ("enc_fwd", "enc_bwd", "mu_w", "mu_b", "presig_w",
@@ -241,7 +261,8 @@ class EncodeProgram:
              "class_embed")
 
     def __init__(self, model, hps: HParams, params, rows: int,
-                 edges: Optional[Sequence[int]] = None, device=None):
+                 edges: Optional[Sequence[int]] = None, device=None,
+                 param_args: bool = False, stream=None):
         if not hps.conditional:
             raise ValueError(
                 "EncodeProgram needs a conditional model "
@@ -253,10 +274,33 @@ class EncodeProgram:
             raise ValueError(f"rows must be >= 1, got {rows}")
         self.edges = tuple(edges) if edges else prefix_edges(hps)
         self.device = resolve_device(device)
-        self._step = make_encode_step(
-            model, hps,
-            tree_to({k: params[k] for k in self._KEEP if k in params},
-                    self.device))
+        self.param_args = bool(param_args)
+        self.stream = stream if stream is not None else (
+            torch.cuda.current_stream(self.device)
+            if self.device.type == "cuda" else None)
+        self._params = tree_to(
+            {k: params[k] for k in self._KEEP if k in params},
+            self.device, copy=self.param_args)
+        self._step = make_encode_step(model, hps, self._params)
+
+    @property
+    def weights(self) -> List[Tuple[tuple, torch.Tensor]]:
+        """The program's resident weight tensors, ``(path, tensor)``."""
+        return self._step.weights
+
+    def swap_params(self, params) -> None:
+        """Copy a congruent tree's encode-phase values into the resident
+        weights on the program's stream (``param_args=True`` only)."""
+        if not self.param_args:
+            raise ValueError(
+                "EncodeProgram.swap_params needs param_args=True (the "
+                "program's weights are the caller's tensors)")
+        new = {k: params[k] for k in self._KEEP if k in params}
+        if not congruent(self._params, new):
+            raise ValueError(
+                "EncodeProgram.swap_params needs a congruent param "
+                "tree (same structure, leaf shapes and dtypes)")
+        copy_values_(self._step.weights, params, self.stream)
 
     def warm(self) -> None:
         """Run the program once at every prefix edge (one zero prefix
@@ -278,6 +322,11 @@ class EncodeProgram:
         prefixes — the JAX package's grouping, so both packages encode
         the same rows together.
         """
+        with (torch.cuda.stream(self.stream) if self.stream is not None
+              else contextlib.nullcontext()):
+            return self._encode(prefixes, labels)
+
+    def _encode(self, prefixes, labels):
         n = len(prefixes)
         mu = np.zeros((n, self.hps.z_size), np.float32)
         carry = np.zeros((n, self.model.dec.carry_size), np.float32)
@@ -337,6 +386,68 @@ def _child_key(key, frame: int) -> np.ndarray:
     return prng.fold_in(words, frame).numpy().astype(np.uint32)
 
 
+def _encode_with_reuse(engine, index, jobs, labels_of):
+    """One burst's encode phase through a shared ``PrefixReuseIndex``.
+
+    Jobs are grouped by their index key before the index is touched, so
+    duplicates within the burst claim one compute (and never wait on
+    their own claim). Stored rows are stamped; the keys this call claims
+    run through ``engine.encoder.encode`` once each and publish their
+    rows; a failure releases the unfilled claims. A key another replica
+    is computing is waited for only while this call holds no claim (the
+    first key of a later round): two replicas that each hold a claim the
+    other waits on would wait forever. The key's tenant is
+    ``engine.serving_tenant`` (else its ``ckpt_id``)."""
+    encoder = engine.encoder
+    n = len(jobs)
+    mu = np.zeros((n, engine.hps.z_size), np.float32)
+    carry = np.zeros((n, engine.model.dec.carry_size), np.float32)
+    prev = np.zeros((n, 5), np.float32)
+    tenant = engine.serving_tenant or engine.ckpt_id
+    groups: Dict[tuple, List[int]] = {}
+    for pos, (r, _side, prefix) in enumerate(jobs):
+        key = index.key(tenant, prefix,
+                        prefix_edge_of(len(prefix), encoder.edges),
+                        int(r.label or 0))
+        groups.setdefault(key, []).append(pos)
+    pending = list(groups)
+    first_round = True
+    while pending:
+        compute_keys: List[tuple] = []
+        busy: List[tuple] = []
+        for key in pending:
+            status, rows = index.acquire(
+                key, wait=not (first_round or compute_keys or busy))
+            if status == "hit":
+                for pos in groups[key]:
+                    mu[pos], carry[pos], prev[pos] = rows
+            elif status == "compute":
+                compute_keys.append(key)
+            else:
+                busy.append(key)
+        try:
+            if compute_keys:
+                reps = [jobs[groups[key][0]] for key in compute_keys]
+                c_mu, c_carry, c_prev = encoder.encode(
+                    [j[2] for j in reps], labels_of(reps))
+                for i, key in enumerate(compute_keys):
+                    rows = (c_mu[i].copy(), c_carry[i].copy(),
+                            c_prev[i].copy())
+                    index.fill(key, rows)
+                    for pos in groups[key]:
+                        mu[pos], carry[pos], prev[pos] = rows
+        except BaseException:
+            # fill popped the published claims; abandon is a no-op there
+            for key in compute_keys:
+                index.abandon(key)
+            raise
+        pending, first_round = busy, False
+    # duplicates beyond each group's first avoided an encode too (the
+    # index counted the stored hits)
+    index.note_reuses(n - len(groups))
+    return mu, carry, prev
+
+
 def plan_batch(engine, requests: Sequence[Any]) -> BatchPlan:
     """Run the encode phase for one burst and build its decode plan.
 
@@ -347,6 +458,8 @@ def plan_batch(engine, requests: Sequence[Any]) -> BatchPlan:
     interpolation expands into ``frames`` child rows keyed
     ``fold_in(parent_key, frame)`` whose z are the slerp grid between the
     two means; the parent books one result at :func:`assemble_results`.
+    With ``engine.encode_reuse`` set, the encode phase goes through it
+    (:func:`_encode_with_reuse`).
     """
     needs = [r for r in requests
              if (r.endpoint or "generate") != "generate"
@@ -366,9 +479,14 @@ def plan_batch(engine, requests: Sequence[Any]) -> BatchPlan:
             jobs.append((r, 1, np.asarray(r.prefix[1], np.float32)))
         else:
             jobs.append((r, 0, np.asarray(r.prefix, np.float32)))
-    labels = ([j[0].label for j in jobs] if engine.hps.num_classes > 0
-              else None)
-    mu, carry, prev = engine.encoder.encode([j[2] for j in jobs], labels)
+    labels_of = ((lambda js: [j[0].label for j in js])
+                 if engine.hps.num_classes > 0 else (lambda js: None))
+    if engine.encode_reuse is None:
+        mu, carry, prev = engine.encoder.encode([j[2] for j in jobs],
+                                                labels_of(jobs))
+    else:
+        mu, carry, prev = _encode_with_reuse(engine, engine.encode_reuse,
+                                             jobs, labels_of)
     enc_of = {(id(j[0]), j[1]): k for k, j in enumerate(jobs)}
 
     engine_requests: List[Any] = []

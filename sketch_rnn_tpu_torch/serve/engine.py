@@ -55,14 +55,25 @@ fleet's arrival stamp) starts its latency clock. ``replica_id``,
 quantized params arrive already dequantized, ``serve/quantize.py``)
 describe the engine.
 
+**Value-paged params** (``param_args=True``, what a fleet with tenants
+builds): the engine owns its weight tensors (copies of the caller's), and
+:meth:`ServeEngine.swap_params` with a congruent tree (same structure,
+shapes and dtypes, same ``param_dtype``) copies the new values into them
+and into the kernel's cast weights on the engine's stream: no new chunk
+program, no new tensor, every ``data_ptr()`` unchanged. Any other swap
+rebinds (new tensors, a new chunk program, the encoder dropped).
+``serving_tenant`` names the tenant whose values are resident and
+``encode_reuse`` holds the fleet's shared ``PrefixReuseIndex``
+(``serve/tenants.py``) when set.
+
 The sampler is ``ops/cuda_decode.sample_mixture_rows``. Telemetry and
-fault points come with ROADMAP queue 1 item 7; speculative decoding with
-item 6; value-paged params, hot swap and the shared-prefix encode reuse
-with item 5b. Their arguments raise, naming the item.
+fault points come with ROADMAP queue 1 item 7 and speculative decoding
+with item 6: their arguments raise, naming the item.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections import deque
@@ -80,14 +91,14 @@ from sketch_rnn_tpu_torch.ops.cuda_decode import (cast_weights,
                                                   sample_mixture_rows,
                                                   weight_dtype)
 from sketch_rnn_tpu_torch.sample.sampler import END_TOKEN, START_TOKEN
-from sketch_rnn_tpu_torch.utils.device import (Staged, resolve_device,
-                                               to_device, tree_to)
+from sketch_rnn_tpu_torch.utils.device import (Staged, congruent,
+                                               copy_values_, resolve_device,
+                                               to_device, tree_leaves,
+                                               tree_to)
 from sketch_rnn_tpu_torch.utils.prng import key_words
 from sketch_rnn_tpu_torch.utils.telemetry import attribute_chunk_steps
 
 _LATER = "comes with a later slice of the PyTorch port"
-_ITEM_5B = ("ROADMAP queue 1 item 5b (result cache, elastic replicas, "
-            "tenants, rollout)")
 _ITEM_6 = "ROADMAP queue 1 item 6 (speculative decoding)"
 
 
@@ -115,6 +126,9 @@ class Request:
     it at placement, its arrival instant (``time.perf_counter``; the
     latency clock starts there, else at ``run()`` entry) and its failover
     retry count. None of them can change the request's strokes.
+    ``tenant`` names the registered fine-tune that serves the request
+    (``""``: the fleet's base tree); unlike ``cls`` it selects the
+    strokes.
     """
 
     key: Any
@@ -133,6 +147,7 @@ class Request:
     parent_uid: Optional[int] = None
     init_carry: Optional[np.ndarray] = None   # [C] flat replayed carry
     init_prev: Optional[np.ndarray] = None    # [5] last prefix row
+    tenant: str = ""
 
 
 @dataclasses.dataclass
@@ -149,12 +164,20 @@ class Result:
     # each chunk's K device steps split in integers over the slots live
     # in it, summed over the request's chunks (attribute_chunk_steps)
     attributed_steps: int = 0
+    # served from the result cache: the origin computation's strokes,
+    # bitwise, at zero attributed steps
+    cached: bool = False
     endpoint: str = "generate"
     # an interpolate result's per-frame strokes (strokes5 is their
     # concatenation)
     frames: Optional[List[np.ndarray]] = None
     # which params checkpoint (and precision) made these strokes
     ckpt_id: str = ""
+
+    @property
+    def ended(self) -> bool:
+        """Whether the sketch drew its end-of-sketch pen state (vs cap)."""
+        return self.steps > self.length
 
 
 def make_chunk_step(model, hps: HParams, chunk: int, params,
@@ -177,6 +200,11 @@ def make_chunk_step(model, hps: HParams, chunk: int, params,
     chunk as one ``decode_chunk`` launch, or for the hyper cell as the
     plain chunk program (module docstring). Done slots are frozen: they
     emit END_TOKEN rows and keep their carry.
+
+    ``fn.weights`` lists every tensor the program reads weights from as
+    ``(path into params, tensor)``: the tensors of ``params`` and the
+    kernel's cast ``dec`` and ``out_w`` (at float32 the same tensors).
+    A value swap copies into them (``utils/device.copy_values_``).
     """
     plain = hps.dec_model == "hyper"
     cell = model.dec
@@ -250,6 +278,8 @@ def make_chunk_step(model, hps: HParams, chunk: int, params,
             compute_dtype=cd, greedy=greedy)
         return (c, h), strokes[-1], t, done, strokes
 
+    chunk_fn.weights = tree_leaves(params) + (
+        [] if plain else tree_leaves({"dec": dec_params, "out_w": out_w}))
     return chunk_fn
 
 
@@ -264,7 +294,9 @@ class ServeEngine:
     ``device="cpu"`` construction raises. ``replica_id`` names the
     engine's fleet replica, ``ckpt_id`` is stamped on every Result, and
     ``param_dtype`` labels the serving precision (default
-    ``hps.serve_quantize``).
+    ``hps.serve_quantize``). ``param_args=True``: value-paged params
+    (module docstring). The engine launches on the stream that is
+    current for its device at construction, whichever thread runs it.
     """
 
     # the decode-path weight leaves a chunk consumes
@@ -283,10 +315,15 @@ class ServeEngine:
             raise NotImplementedError(
                 f"speculative decoding (draft_params, draft_depth, "
                 f"draft_tol) {_LATER}: {_ITEM_6}")
-        if param_args:
-            raise NotImplementedError(
-                f"value-paged params (param_args) {_LATER}: {_ITEM_5B}")
         self.device = resolve_device(device)
+        self._stream = (torch.cuda.current_stream(self.device)
+                        if self.device.type == "cuda" else None)
+        self.param_args = bool(param_args)
+        # the tenant whose values are resident ("" = the base), stamped by
+        # the fleet; read by the planner's prefix-reuse key
+        self.serving_tenant = ""
+        # the fleet's shared PrefixReuseIndex, or None
+        self.encode_reuse = None
         self.replica_id = replica_id
         self.ckpt_id = str(ckpt_id or "")
         self.param_dtype = str(param_dtype or hps.serve_quantize)
@@ -300,42 +337,60 @@ class ServeEngine:
             raise ValueError(
                 f"slots and chunk must be >= 1, got {self.slots}/"
                 f"{self.chunk}")
+        self._bind_params(params)
+
+    def _bind_params(self, params) -> None:
+        """Bind ``params``: the decode subset on the device (the engine's
+        own copies when value-paged, so a swap never writes into the
+        caller's tensors) and a fresh chunk program over it; the lazily
+        built encoder is dropped."""
         self.params = tree_to(
             {k: params[k] for k in self._DECODE_KEEP if k in params},
-            self.device)
+            self.device, copy=self.param_args)
         # the full tree, for the lazily-built endpoint encoder
         self._full_params = params
         self._encoder = None
-        self._chunk_fn = make_chunk_step(model, hps, self.chunk,
+        self._chunk_fn = make_chunk_step(self.model, self.hps, self.chunk,
                                          self.params, self.greedy)
+
+    def _on_stream(self):
+        return (torch.cuda.stream(self._stream) if self._stream is not None
+                else contextlib.nullcontext())
 
     def swap_params(self, params, ckpt_id: str = "",
                     param_dtype: Optional[str] = None) -> None:
-        raise NotImplementedError(f"swap_params (hot swap) {_LATER}: "
-                                  f"{_ITEM_5B}")
+        """Serve ``params`` from now on; ``ckpt_id`` stamps every later
+        Result and ``param_dtype`` relabels the serving precision.
+
+        Value-paged (``param_args=True``) with a congruent decode subset
+        and an unchanged ``param_dtype``: the values are copied into the
+        resident tensors (the chunk program's and, once built, the
+        encoder's) on the engine's stream, after any chunk queued there;
+        the chunk program, the encoder and every ``data_ptr()`` stay.
+        Otherwise: a rebind (:meth:`_bind_params`)."""
+        relabel = (param_dtype is not None
+                   and str(param_dtype) != self.param_dtype)
+        if (self.param_args and not relabel
+                and congruent(self.params, {k: params[k]
+                                            for k in self._DECODE_KEEP
+                                            if k in params})):
+            if self._encoder is not None:
+                self._encoder.swap_params(params)
+            copy_values_(self._chunk_fn.weights, params, self._stream)
+            self._full_params = params
+            self.ckpt_id = str(ckpt_id or "")
+            return
+        if param_dtype is not None:
+            self.param_dtype = str(param_dtype)
+        self._bind_params(params)
+        self.ckpt_id = str(ckpt_id or "")
 
     @property
-    def encode_reuse(self):
-        """The fleet-shared prefix-reuse index: always None here."""
-        return None
-
-    @encode_reuse.setter
-    def encode_reuse(self, index) -> None:
-        if index is not None:
-            raise NotImplementedError(
-                f"the shared-prefix encode reuse (encode_reuse) {_LATER}: "
-                f"{_ITEM_5B}")
-
-    @property
-    def serving_tenant(self) -> str:
-        """The tenant whose params this engine serves: always the base."""
-        return ""
-
-    @serving_tenant.setter
-    def serving_tenant(self, tenant: str) -> None:
-        if tenant:
-            raise NotImplementedError(
-                f"tenants (serving_tenant) {_LATER}: {_ITEM_5B}")
+    def weights(self) -> List[Any]:
+        """Every resident weight tensor, as ``(path, tensor)``: the chunk
+        program's and, once built, the encoder's."""
+        enc = [] if self._encoder is None else self._encoder.weights
+        return self._chunk_fn.weights + enc
 
     @property
     def encoder(self):
@@ -349,7 +404,8 @@ class ServeEngine:
             from sketch_rnn_tpu_torch.serve.endpoints import EncodeProgram
             self._encoder = EncodeProgram(
                 self.model, self.hps, self._full_params, rows=self.slots,
-                device=self.device)
+                device=self.device, param_args=self.param_args,
+                stream=self._stream)
         return self._encoder
 
     # -- the request pool --------------------------------------------------
@@ -466,6 +522,11 @@ class ServeEngine:
         this many rows (:meth:`_prepare_pool`). A request's latency clock
         starts at its ``enqueue_ts`` when set, else at ``run()`` entry.
         """
+        with self._on_stream():
+            return self._run(requests, recycle, metrics_writer, slo,
+                             pool_pad)
+
+    def _run(self, requests, recycle, metrics_writer, slo, pool_pad):
         t_start = time.perf_counter()
         for i, req in enumerate(requests):
             if req.uid is None:
@@ -657,3 +718,16 @@ class ServeEngine:
         if slo is not None:
             metrics["slo"] = slo.summary()
         return {"results": results, "metrics": metrics}
+
+
+def generate_many(model, params, hps: HParams, requests: List[Request],
+                  slots: int = 0, chunk: int = 0,
+                  max_len: Optional[int] = None, greedy: bool = False,
+                  recycle: bool = True, metrics_writer=None, slo=None,
+                  device=None) -> Dict[str, Any]:
+    """One call: build an engine (on the card unless ``device="cpu"``) and
+    serve ``requests``; long-lived callers hold the engine instead."""
+    eng = ServeEngine(model, hps, params, slots=slots, chunk=chunk,
+                      max_len=max_len, greedy=greedy, device=device)
+    return eng.run(requests, recycle=recycle,
+                   metrics_writer=metrics_writer, slo=slo)

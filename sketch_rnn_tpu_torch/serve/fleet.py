@@ -29,10 +29,24 @@ The port of the core of ``sketch_rnn_tpu/serve/fleet.py``:
   recorded in ``failed``; the death of the last replica fails the fleet
   (``drain()`` raises "fleet worker failed").
 
+- **Result cache** (``cache=``, ``serve/cache.ResultCache``): ``submit``
+  fingerprints a request's content and serves a stored hit at the door
+  (``cached=True``, zero attributed steps, the origin's strokes and
+  ckpt_id); a repeat whose content is still in flight waits on it and is
+  served its strokes at completion (coalescing), or fails with it, so
+  the misses that compute are the distinct contents.
+- **Tenants** (``tenants=``, ``serve/tenants.TenantStore``): ``params`` is
+  the base tree, every engine is value-paged and all replicas share one
+  ``PrefixReuseIndex``. Bursts are single-tenant (``form_burst``'s group
+  stop); before a burst the worker pages its replica to the burst's
+  tenant with ``swap_params`` (a value copy). Fingerprints are taken
+  under the tenant's ckpt_id, ``tenant_cap`` caps a tenant's outstanding
+  rows at admission, and ``tenant_slos`` judge each tenant on its own.
+
 Every started fleet registers process-wide (:func:`stop_all`). The JAX
-fleet's result cache, elastic replicas, tenants and rollout come with
-ROADMAP queue 1 item 5b, its telemetry and fault sites with item 7, its
-draft arguments with item 6: their arguments raise, naming the item.
+fleet's elastic replicas come with ROADMAP queue 1 item 5b-ii, its
+telemetry and fault sites with item 7, its draft arguments with item 6:
+their arguments raise, naming the item.
 """
 
 from __future__ import annotations
@@ -54,9 +68,14 @@ from sketch_rnn_tpu_torch.serve.admission import (DEFAULT_CLASS,
                                                   AdmissionClass,
                                                   AdmissionController,
                                                   parse_admission_classes)
-from sketch_rnn_tpu_torch.serve.engine import (_ITEM_5B, _ITEM_6, _LATER,
-                                               Request, ServeEngine)
+from sketch_rnn_tpu_torch.serve.engine import (_ITEM_6, _LATER, Request,
+                                               Result, ServeEngine)
+from sketch_rnn_tpu_torch.serve.slo import SLOTracker
+from sketch_rnn_tpu_torch.serve.tenants import PrefixReuseIndex
 from sketch_rnn_tpu_torch.utils.faults import backoff_s
+
+_ITEM_5B_II = ("ROADMAP queue 1 item 5b-ii (elastic replicas, rollout, "
+               "metrics_http.py)")
 
 # worker threads' name prefix
 THREAD_PREFIX = "torch-fleet-replica-"
@@ -146,15 +165,19 @@ class _Replica:
         self.live_slot_steps = 0.0
         self.attributed_steps = 0
         self.idle_steps = 0
+        self.tenant_swaps = 0
 
     def pending(self) -> int:
         return sum(len(q) for q in self.queues.values())
 
     def pop_batch(self, cap: int) -> List[Request]:
         """Queued requests in class-priority order, chopped by decode-pool
-        rows (an interpolation costs its ``frames``) to fit ``cap``."""
+        rows (an interpolation costs its ``frames``) to fit ``cap``, and
+        stopped at the first head of another tenant than the first: a
+        burst runs on one tenant's params."""
         return form_burst(self.queues.values(), cap,
-                          cost_of=endpoints_mod.pool_rows_of)
+                          cost_of=endpoints_mod.pool_rows_of,
+                          group_of=lambda r: r.tenant or "")
 
 
 class ServeFleet:
@@ -183,13 +206,9 @@ class ServeFleet:
                  draft_tol: Optional[float] = None,
                  tenants=None, tenant_cap: int = 0,
                  tenant_slos: Optional[Dict[str, List]] = None):
-        later = [name for name, v in (
-            ("max_replicas", max_replicas), ("cache", cache),
-            ("tenants", tenants), ("tenant_cap", tenant_cap),
-            ("tenant_slos", tenant_slos)) if v]
-        if later:
+        if max_replicas:
             raise NotImplementedError(
-                f"ServeFleet({', '.join(later)}) {_LATER}: {_ITEM_5B}")
+                f"ServeFleet(max_replicas) {_LATER}: {_ITEM_5B_II}")
         if (draft_params is not None or draft_depth
                 or draft_tol is not None):
             raise NotImplementedError(
@@ -230,9 +249,21 @@ class ServeFleet:
                 f"endpoint_classes route to undeclared admission "
                 f"class(es) {bad_routes}; declared: "
                 f"{sorted(self.classes)}")
+        # multi-tenant paging: params is the shared base tree
+        self.tenants = tenants
+        self.tenant_cap = int(tenant_cap)
+        self._tenant_slos_cfg = {t: list(v)
+                                 for t, v in (tenant_slos or {}).items()}
+        self._tenant_slo = {t: SLOTracker(v)
+                            for t, v in self._tenant_slos_cfg.items()}
+        self.encode_reuse = (PrefixReuseIndex()
+                             if tenants is not None else None)
+        if tenants is not None and not ckpt_id:
+            ckpt_id = tenants.base_ckpt_id
         self._admission = AdmissionController(
             self.classes, n_replicas=n, slots=self.slots,
-            queue_cap=queue_cap, shed_margin=shed_margin)
+            queue_cap=queue_cap, shed_margin=shed_margin,
+            tenant_cap=self.tenant_cap)
         self._slo = slo
         self._lock = threading.Lock()
         self._done_cv = threading.Condition(self._lock)
@@ -242,11 +273,15 @@ class ServeFleet:
                 eng = ServeEngine(model, hps, params, slots=self.slots,
                                   chunk=self.chunk, max_len=max_len,
                                   greedy=greedy, device=devices[r],
-                                  replica_id=r, ckpt_id=ckpt_id)
+                                  replica_id=r, ckpt_id=ckpt_id,
+                                  param_args=tenants is not None)
+            eng.encode_reuse = self.encode_reuse
             rep = _Replica(r, devices[r], eng, class_order)
             rep.cond = threading.Condition(self._lock)
             self._replicas.append(rep)
         self.serving_ckpt_id = str(ckpt_id or "")
+        # consulted in submit() before admission; assignable between runs
+        self.cache = cache
         self.retry_budget = int(retry_budget)
         self.retry_backoff_s = float(retry_backoff_s)
         self._reset_books()
@@ -255,6 +290,8 @@ class ServeFleet:
         self._error: Optional[BaseException] = None
 
     def _reset_books(self) -> None:
+        self._fp_of: Dict[int, bytes] = {}     # uid -> fingerprint
+        self._pending: Dict[bytes, List] = {}  # fp -> coalesced waiters
         self._next_uid = 0
         self._seen_uids: set = set()
         self._submitted = 0
@@ -350,13 +387,23 @@ class ServeFleet:
             self._admission = AdmissionController(
                 self.classes, n_replicas=self.n_replicas,
                 slots=self.slots, queue_cap=self._admission.queue_cap,
-                shed_margin=self._admission.shed_margin)
+                shed_margin=self._admission.shed_margin,
+                tenant_cap=self.tenant_cap)
+            # fresh per-tenant verdicts and a cold reuse index: both are
+            # measured-window quantities
+            self._tenant_slo = {t: SLOTracker(v)
+                                for t, v in self._tenant_slos_cfg.items()}
+            if self.encode_reuse is not None:
+                self.encode_reuse = PrefixReuseIndex()
+                for rep in self._replicas:
+                    rep.engine.encode_reuse = self.encode_reuse
             self._reset_books()
             for rep in self._replicas:
                 rep.completed = rep.bursts = rep.chunks = 0
                 rep.device_steps = 0
                 rep.live_slot_steps = 0.0
                 rep.attributed_steps = rep.idle_steps = 0
+                rep.tenant_swaps = 0
 
     def close(self, timeout: float = 30.0) -> List[str]:
         """Stop the workers (queued work is abandoned) and unregister.
@@ -402,9 +449,11 @@ class ServeFleet:
 
     def submit(self, req: Request, cls: Optional[str] = None,
                force: bool = False) -> bool:
-        """Admit one request: route it to the least-loaded replica queue
-        or shed it. Returns True iff admitted. Thread-safe; makes no CUDA
-        call. ``force`` skips the shed checks (same placement)."""
+        """Admit one request: serve it from the cache, attach it to the
+        in-flight computation of its content, route it to the
+        least-loaded replica queue, or shed it. Returns True iff not
+        shed. Thread-safe; makes no CUDA call. ``force`` skips the shed
+        checks (same placement)."""
         if (req.endpoint or "generate") != "generate" \
                 or req.prefix is not None:
             endpoints_mod.validate_request(req, self.hps,
@@ -417,6 +466,25 @@ class ServeFleet:
             raise ValueError(
                 f"request needs an admission class (configured: "
                 f"{sorted(self.classes)})")
+        # the tenant door: an unknown tenant would fail every burst
+        tenant = str(req.tenant or "")
+        if self.tenants is not None:
+            if tenant not in self.tenants:
+                raise ValueError(
+                    f"unknown tenant {tenant!r}: registered "
+                    f"{sorted(self.tenants.tenants)} (empty string "
+                    f"serves the base tree)")
+        elif tenant:
+            raise ValueError(
+                f"request names tenant {tenant!r} but the fleet has "
+                f"no TenantStore attached")
+        # the content fingerprint outside the lock, under the tenant's
+        # serving identity (or the fleet's version)
+        fp_ckpt = (self.tenants.ckpt_id_of(tenant)
+                   if self.tenants is not None
+                   else (self.serving_ckpt_id or None))
+        fp = (self.cache.fingerprint(req, ckpt_id=fp_ckpt)
+              if self.cache is not None else None)
         with self._lock:
             if self._stop:
                 raise RuntimeError("fleet is closed")
@@ -435,13 +503,31 @@ class ServeFleet:
             if self._t_first_submit is None:
                 self._t_first_submit = req.enqueue_ts
             self._submitted += 1
+            # a stored hit is served at the door, and a repeat of content
+            # in flight waits on it: neither costs a queue row or a step
+            if fp is not None:
+                entry = self.cache.get(fp)
+                if entry is not None:
+                    self._book_cache_hit(req, cls_name, entry.strokes5,
+                                         entry.length, entry.steps,
+                                         entry.origin_uid,
+                                         endpoint=entry.endpoint,
+                                         frames=entry.frames,
+                                         ckpt_id=entry.ckpt_id,
+                                         tenant=tenant)
+                    return True
+                if fp in self._pending:
+                    self._pending[fp].append(req)
+                    self.cache.note_coalesced()
+                    return True
             decision = self._admission.place(
                 cls_name, force=force,
-                cost=endpoints_mod.pool_rows_of(req))
+                cost=endpoints_mod.pool_rows_of(req), tenant=tenant)
             if decision.shed:
                 self._shed.append({"uid": req.uid, "class": cls_name,
                                    "endpoint": req.endpoint
                                    or "generate",
+                                   "tenant": tenant,
                                    "reason": decision.shed_reason,
                                    "est_wait_s": decision.est_wait_s})
                 self._done_cv.notify_all()
@@ -449,8 +535,48 @@ class ServeFleet:
             req.queue_pos = decision.queue_pos
             rep = self._replicas[decision.replica]
             rep.queues[cls_name].append(req)
+            if fp is not None:
+                # the primary computation of its content (only once
+                # admitted: a shed request anchors no waiters)
+                self._pending[fp] = []
+                self._fp_of[req.uid] = fp
             rep.cond.notify()
             return True
+
+    def _observe(self, cls_name, tenant: str, res) -> None:
+        """Feed one completion to the fleet's SLO (keyed by admission
+        class) and to its tenant's (caller holds the lock)."""
+        lat = {"queue_wait_s": res.queue_wait_s, "decode_s": res.decode_s,
+               "latency_s": res.latency_s}
+        if self._slo is not None:
+            self._slo.observe(cls_name or DEFAULT_CLASS, lat)
+        tslo = self._tenant_slo.get(tenant)
+        if tslo is not None:
+            tslo.observe(cls_name or DEFAULT_CLASS, lat)
+
+    def _book_cache_hit(self, req: Request, cls_name: Optional[str],
+                        strokes5, length: int, steps: int,
+                        origin_uid: int, endpoint: str = "generate",
+                        frames=None, ckpt_id: str = "",
+                        tenant: str = "") -> None:
+        """Serve one request from cached strokes (caller holds the lock):
+        a ``cached=True`` Result with zero attributed steps and the
+        origin's ckpt_id, its small real latency fed to the SLOs."""
+        now = time.perf_counter()
+        qw = now - req.enqueue_ts
+        res = Result(uid=req.uid, strokes5=strokes5, length=length,
+                     steps=steps, queue_wait_s=qw, decode_s=0.0,
+                     latency_s=qw, attributed_steps=0, cached=True,
+                     endpoint=endpoint or "generate", frames=frames,
+                     ckpt_id=ckpt_id)
+        self._results[req.uid] = {
+            "result": res, "replica": None, "class": cls_name,
+            "queue_pos": None, "cached": True,
+            "endpoint": res.endpoint, "tenant": tenant,
+            "origin_uid": origin_uid}
+        self._observe(cls_name, tenant, res)
+        self._t_last_done = now
+        self._done_cv.notify_all()
 
     def _worker(self, rep: _Replica) -> None:
         """One replica's loop: wait for queued work, pop a micro-burst,
@@ -466,6 +592,16 @@ class ServeFleet:
                 batch = rep.pop_batch(self.pool_cap)
             try:
                 with on_device(rep.device):
+                    # page the replica to the burst's tenant: a value
+                    # copy into the engine's resident weights
+                    if self.tenants is not None and batch:
+                        t = batch[0].tenant or ""
+                        if t != rep.engine.serving_tenant:
+                            rep.engine.swap_params(
+                                self.tenants.materialize(t),
+                                ckpt_id=self.tenants.ckpt_id_of(t))
+                            rep.engine.serving_tenant = t
+                            rep.tenant_swaps += 1
                     # the encode phase, then the decode pool; planning is
                     # deterministic, so a survivor's re-plan of a failed
                     # burst stamps the same state
@@ -488,17 +624,32 @@ class ServeFleet:
                     if req is not None:
                         rec["class"] = req.cls
                         rec["queue_pos"] = req.queue_pos
+                    tn = (req.tenant or "") if req is not None else ""
+                    rec["tenant"] = tn
                     self._results[res.uid] = rec
                     self._admission.note_done(
                         rep.idx, res.decode_s,
-                        cost=(len(res.frames) if res.frames else 1))
-                    if self._slo is not None:
-                        # a fleet SLO names the admission class it judges
-                        self._slo.observe(rec.get("class")
-                                          or DEFAULT_CLASS, {
-                            "queue_wait_s": res.queue_wait_s,
-                            "decode_s": res.decode_s,
-                            "latency_s": res.latency_s})
+                        cost=(len(res.frames) if res.frames else 1),
+                        tenant=tn)
+                    self._observe(rec.get("class"), tn, res)
+                    # store the primary's strokes, then serve them to
+                    # every repeat that waited on it
+                    fp = self._fp_of.pop(res.uid, None)
+                    if fp is not None and self.cache is not None:
+                        # filed under the version that computed them
+                        fp_put = fp
+                        if (res.ckpt_id and req is not None
+                                and res.ckpt_id != (self.serving_ckpt_id
+                                                    or self.cache.ckpt_id)):
+                            fp_put = self.cache.fingerprint(
+                                req, ckpt_id=res.ckpt_id)
+                        self.cache.put(fp_put, res)
+                        for w in self._pending.pop(fp, []):
+                            self._book_cache_hit(
+                                w, w.cls, res.strokes5, res.length,
+                                res.steps, res.uid, endpoint=res.endpoint,
+                                frames=res.frames, ckpt_id=res.ckpt_id,
+                                tenant=w.tenant or "")
                 # requests, not engine rows: an interpolation's frames
                 # are one request
                 rep.completed += len(booked)
@@ -558,6 +709,20 @@ class ServeFleet:
                         "reason": f"retry budget ({self.retry_budget}) "
                                   f"exhausted",
                         "error": repr(exc)}
+                    # no completion releases the tenant's rows now
+                    self._admission.drop_tenant(
+                        r.tenant or "",
+                        cost=endpoints_mod.pool_rows_of(r))
+                    # repeats waiting on this computation fail with it
+                    fpx = self._fp_of.pop(r.uid, None)
+                    if fpx is not None:
+                        for w in self._pending.pop(fpx, []):
+                            self._failed[w.uid] = {
+                                "uid": w.uid, "class": w.cls,
+                                "replica": rep.idx, "retries": 0,
+                                "reason": (f"coalesced onto failed "
+                                           f"request {r.uid}"),
+                                "error": repr(exc)}
         # the backoff outside the lock: submits and completions go on
         if requeue and self.retry_backoff_s > 0:
             time.sleep(backoff_s(self.retry_backoff_s, max_attempt - 1))
@@ -634,7 +799,7 @@ class ServeFleet:
         with self._lock:
             dead = [{"replica": r.idx, "error": r.death}
                     for r in self._replicas if r.dead]
-            return {
+            out = {
                 "healthy": not dead and self._error is None
                 and not self._failed,
                 "serving_ckpt_id": self.serving_ckpt_id,
@@ -645,11 +810,23 @@ class ServeFleet:
                 "requests_requeued": self._requeues,
                 "fatal": repr(self._error) if self._error else None,
             }
+            if self.tenants is not None:
+                # which fine-tunes are resident, and each replica's tenant
+                out["tenants"] = {
+                    "adapters_resident": len(self.tenants.tenants),
+                    "registered": sorted(self.tenants.tenants),
+                    "serving": [r.engine.serving_tenant
+                                for r in self._replicas],
+                    "tenant_swaps": sum(r.tenant_swaps
+                                        for r in self._replicas),
+                }
+            return out
 
     def summary(self) -> Dict[str, Any]:
         """Throughput, latency percentiles overall and by class and
-        endpoint, shed and failover accounting, per-replica occupancy and
-        the device-step cost identity (attributed + idle == dispatched)."""
+        endpoint, shed and failover accounting, per-replica occupancy, the
+        device-step cost identity (attributed + idle == dispatched), the
+        cache's counters and, with tenants, the per-tenant block."""
         with self._lock:
             recs = list(self._results.values())
             shed = list(self._shed)
@@ -658,8 +835,10 @@ class ServeFleet:
             submitted = self._submitted
             reps = [(r.idx, r.completed, r.bursts, r.chunks,
                      r.device_steps, r.live_slot_steps, r.dead,
-                     r.attributed_steps, r.idle_steps)
+                     r.attributed_steps, r.idle_steps, r.tenant_swaps)
                     for r in self._replicas]
+            tenant_slo = {t: trk.summary()
+                          for t, trk in self._tenant_slo.items()}
             t0, t1 = self._t_first_submit, self._t_last_done
             admission = self._admission.summary()
         wall = (t1 - t0) if (t0 is not None and t1 is not None) else 0.0
@@ -693,13 +872,40 @@ class ServeFleet:
             "slot_utilization": round(
                 live / max(chunks * self.chunk * self.slots, 1), 4),
             "dead": dead, "steps_attributed": attr, "steps_idle": idle,
-        } for idx, comp, bursts, chunks, steps, live, dead, attr, idle
-            in reps]
+            "tenant_swaps": tswaps,
+        } for idx, comp, bursts, chunks, steps, live, dead, attr, idle,
+            tswaps in reps]
+        n_cached = sum(1 for rec in recs if rec.get("cached"))
         steps_by_class: Dict[str, int] = {}
         for rec in recs:
             c = rec.get("class") or DEFAULT_CLASS
             steps_by_class[c] = (steps_by_class.get(c, 0)
                                  + rec["result"].attributed_steps)
+        tenants_block = None
+        if self.tenants is not None:
+            by_tenant: Dict[str, List[float]] = {}
+            for rec in recs:
+                by_tenant.setdefault(rec.get("tenant") or "",
+                                     []).append(rec["result"].latency_s)
+            shed_by_tenant: Dict[str, int] = {}
+            for s in shed:
+                tn = s.get("tenant") or ""
+                shed_by_tenant[tn] = shed_by_tenant.get(tn, 0) + 1
+            tenants_block = {
+                "registered": sorted(self.tenants.tenants),
+                "tenant_cap": self.tenant_cap,
+                "tenant_swaps": sum(r["tenant_swaps"]
+                                    for r in per_replica),
+                "latency_by_tenant": {
+                    t: {**pct(v), "completed": len(v)}
+                    for t, v in sorted(by_tenant.items())},
+                "shed_by_tenant": shed_by_tenant,
+                "slo_by_tenant": tenant_slo,
+                "memory": self.tenants.memory_table(),
+                "encode_reuse": (self.encode_reuse.stats()
+                                 if self.encode_reuse is not None
+                                 else None),
+            }
         total_attr = sum(r["steps_attributed"] for r in per_replica)
         total_idle = sum(r["steps_idle"] for r in per_replica)
         total_steps = sum(r["device_steps"] for r in per_replica)
@@ -720,6 +926,9 @@ class ServeFleet:
             "pool_cap": self.pool_cap,
             "submitted": submitted,
             "completed": len(recs),
+            "completed_cached": n_cached,
+            "cache": (None if self.cache is None
+                      else self.cache.stats()),
             "shed": len(shed),
             "shed_frac": round(len(shed) / submitted, 4) if submitted
             else 0.0,
@@ -738,6 +947,7 @@ class ServeFleet:
                                     for e, v in
                                     sorted(by_endpoint.items())},
             "cost": cost,
+            "tenants": tenants_block,
             "per_replica": per_replica,
             # the critical path in device steps: deterministic for a
             # closed burst

@@ -4,6 +4,9 @@ waiting."""
 
 from __future__ import annotations
 
+import contextlib
+
+import numpy as np
 import torch
 
 from sketch_rnn_tpu_torch.parallel.multihost import local_rank
@@ -28,11 +31,60 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-def tree_to(tree, device):
-    """A nested dict of tensors moved to ``device``."""
+def tree_to(tree, device, copy: bool = False):
+    """A nested dict of tensors moved to ``device``; ``copy=True`` gives
+    new tensors even where a leaf is already there."""
     if isinstance(tree, dict):
-        return {k: tree_to(v, device) for k, v in tree.items()}
-    return tree.to(device)
+        return {k: tree_to(v, device, copy) for k, v in tree.items()}
+    return tree.to(device, copy=copy)
+
+
+def tree_leaves(tree, path=()):
+    """``(path, leaf)`` pairs of a nested dict in insertion order; a path
+    is the tuple of its keys."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items()
+                for p in tree_leaves(v, path + (k,))]
+    return [(path, tree)]
+
+
+def _signature(leaf):
+    if isinstance(leaf, torch.Tensor):
+        return tuple(leaf.shape), leaf.dtype
+    a = np.asarray(leaf)
+    return a.shape, torch.from_numpy(np.empty(0, a.dtype)).dtype
+
+
+def congruent(resident, tree) -> bool:
+    """Whether ``tree`` has the same structure, leaf shapes and leaf
+    dtypes as the tensors of ``resident`` (its leaves may be tensors or
+    numpy arrays)."""
+    have, new = tree_leaves(resident), tree_leaves(tree)
+    return ([p for p, _ in have] == [p for p, _ in new]
+            and all(_signature(a) == _signature(b)
+                    for (_, a), (_, b) in zip(have, new)))
+
+
+def copy_values_(weights, tree, stream=None) -> None:
+    """Copy ``tree``'s values into resident tensors in place.
+
+    ``weights`` holds ``(path, tensor)`` pairs; each tensor gets the leaf
+    of ``tree`` at its path, cast to the tensor's dtype (``copy_`` rounds
+    as ``.to`` does), so the tensors keep their storage. A tensor listed
+    under two paths is filled once. On a CUDA device the copies are
+    issued on ``stream``, after the work already queued there."""
+    seen = set()
+    ctx = (torch.cuda.stream(stream) if stream is not None
+           else contextlib.nullcontext())
+    with ctx:
+        for path, dst in weights:
+            if dst.data_ptr() in seen:
+                continue
+            seen.add(dst.data_ptr())
+            src = tree
+            for k in path:
+                src = src[k]
+            dst.copy_(torch.as_tensor(src))
 
 
 def to_device(x: torch.Tensor, dev) -> torch.Tensor:

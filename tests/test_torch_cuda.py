@@ -2085,3 +2085,87 @@ def test_bucketed_train_on_the_card_k3_is_k1(dev):
     assert graphs.captured >= 1
     assert len(graphs.capture_bytes) == graphs.captured
     assert all(b >= 0 for b in graphs.capture_bytes)
+
+
+def _tenant_requests(hps):
+    """Six requests, generate and complete, with caps 5..10."""
+    rng = np.random.default_rng(3)
+    out = []
+    for i in range(6):
+        kw = dict(key=np.array([9, i], np.uint32), uid=i, max_len=5 + i,
+                  temperature=0.6)
+        if i % 2:
+            p = np.zeros((4, 3), np.float32)
+            p[:, :2] = rng.normal(size=(4, 2))
+            kw.update(endpoint="complete", prefix=p)
+        else:
+            kw["z"] = rng.standard_normal(hps.z_size).astype(np.float32)
+        out.append(Request(**kw))
+    return out
+
+
+@pytest.mark.parametrize("cell,dt", [("layer_norm", "bfloat16"),
+                                     ("lstm", "float32")])
+def test_congruent_swap_on_the_card_keeps_pointers_and_bits(dev, cell, dt):
+    """A value-paged engine swapped between two tenants' trees keeps every
+    weight tensor's data_ptr and its chunk program and serves each tree
+    bitwise a fresh engine on it (decode and replay kernels, the
+    encoder)."""
+    from sketch_rnn_tpu_torch.serve.endpoints import serve_requests
+    from sketch_rnn_tpu_torch.serve.tenants import TenantStore
+
+    hps = HParams(**TINY).replace(dec_model=cell, conditional=True,
+                                  compute_dtype=dt)
+    model = SketchRNN(hps)
+    base = model.init_params(torch.Generator().manual_seed(0), device=dev)
+    store = TenantStore(base)
+    rng = np.random.default_rng(5)
+    store.register("t1", {k: v for k, v in base.items()} | {
+        "out_w": (base["out_w"].cpu().numpy()
+                  + 0.05 * rng.standard_normal(base["out_w"].shape)
+                  ).astype(np.float32)})
+    eng = ServeEngine(model, hps, base, param_args=True)
+    serve_requests(model, hps, None, _tenant_requests(hps), engine=eng)
+    ptrs = [t.data_ptr() for _, t in eng.weights]
+    chunk_fn = eng._chunk_fn
+    for t in ("t1", "", "t1"):
+        tree = store.materialize(t)
+        eng.swap_params(tree)
+        got = serve_requests(model, hps, None, _tenant_requests(hps),
+                             engine=eng)["results"]
+        want = serve_requests(model, hps, tree,
+                              _tenant_requests(hps))["results"]
+        want = {r.uid: r.strokes5 for r in want}
+        assert all(np.array_equal(r.strokes5, want[r.uid]) for r in got), t
+    assert [t.data_ptr() for _, t in eng.weights] == ptrs
+    assert eng._chunk_fn is chunk_fn
+
+
+def test_cache_hit_on_the_card_is_its_recomputation(dev):
+    """A fleet on the card with a result cache: a repeated request is a
+    zero-step hit whose strokes are bitwise a fresh engine's."""
+    from sketch_rnn_tpu_torch.serve.cache import ResultCache
+    from sketch_rnn_tpu_torch.serve.fleet import ServeFleet
+
+    hps, model, params = _model("layer_norm", True, dev)
+    fleet = ServeFleet(model, hps, params, replicas=1, cache=ResultCache())
+    reqs = _tenant_requests(hps)
+    for r in reqs:
+        fleet.submit(r)
+    with fleet:
+        assert fleet.drain(timeout=120)
+        for r in _tenant_requests(hps):
+            r.uid += 100
+            fleet.submit(r)
+        assert fleet.drain(timeout=60)
+    res = fleet.results
+    fresh = ServeEngine(model, hps, params)
+    from sketch_rnn_tpu_torch.serve.endpoints import serve_requests
+    want = {r.uid: r.strokes5 for r in serve_requests(
+        model, hps, None, _tenant_requests(hps), engine=fresh)["results"]}
+    for u, s5 in want.items():
+        hit = res[u + 100]["result"]
+        assert hit.cached and hit.attributed_steps == 0
+        assert np.array_equal(hit.strokes5, s5)
+        assert np.array_equal(res[u]["result"].strokes5, s5)
+    assert fleet.summary()["cache"]["hits"] == len(want)

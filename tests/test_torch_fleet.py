@@ -16,6 +16,8 @@ by ``convert.py``, inputs made with numpy:
 - The engine at ``recycle=False`` and with ``pool_pad``: strokes within
   1e-5 of the JAX engine's (steps, lengths and pens exact), its metrics,
   its metrics-writer rows and its SLO summary equal.
+- ``generate_many`` and ``Result.ended`` against JAX's; the ``serve``
+  package exports only names of the JAX package's ``__all__``.
 - A closed-burst fleet at R=1 and R=2 (CPU devices) with two classes and
   an endpoint mix: strokes within 1e-5 of the JAX fleet's, bitwise the
   port's own single engine; the placements, sheds, summary and health
@@ -427,20 +429,34 @@ def test_engine_refuses_later_options_by_name(setup):
     _, _, m, p = setup
     with pytest.raises(NotImplementedError, match="item 6"):
         ServeEngine(m, m.hps, p, device="cpu", draft_depth=2)
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        ServeEngine(m, m.hps, p, device="cpu", param_args=True)
-    eng = ServeEngine(m, m.hps, p, device="cpu")
-    for call in (lambda: eng.swap_params(p),
-                 lambda: setattr(eng, "encode_reuse", object()),
-                 lambda: setattr(eng, "serving_tenant", "acme")):
-        with pytest.raises(NotImplementedError, match="item 5b"):
-            call()
-    assert eng.encode_reuse is None and eng.serving_tenant == ""
-    assert eng.param_dtype == "float32"
+    eng = ServeEngine(m, m.hps, p, device="cpu", param_args=True)
+    assert eng.param_args and eng.encode_reuse is None
+    assert eng.serving_tenant == "" and eng.param_dtype == "float32"
     with pytest.raises(ValueError, match="pool pad"):
         eng.run([Request(key=np.zeros(2, np.uint32),
                          z=np.zeros(6, np.float32), uid=i)
                  for i in range(3)], pool_pad=2)
+
+
+def test_generate_many_result_ended_and_exports_match_jax(setup):
+    import sketch_rnn_tpu.serve as jserve
+    import sketch_rnn_tpu_torch.serve as tserve
+    from sketch_rnn_tpu.serve.engine import generate_many as jgen
+    from sketch_rnn_tpu_torch.serve.engine import generate_many
+
+    jm, jp, m, p = setup
+    jreqs, treqs = _requests(_specs(6, seed=3, endpoints=False), seed=3)
+    jout = jgen(jm, jp, jm.hps, jreqs)
+    tout = generate_many(m, p, m.hps, treqs, device="cpu")
+    jres = {r.uid: r for r in jout["results"]}
+    for r in tout["results"]:
+        _same_strokes(jres[r.uid], r)
+        assert r.ended == jres[r.uid].ended
+        assert r.ended == (r.steps > r.length) and not r.cached
+    assert set(tserve.__all__) <= set(jserve.__all__)
+    assert {"ResultCache", "request_fingerprint", "TenantStore",
+            "PrefixReuseIndex", "generate_many"} <= set(tserve.__all__)
+    assert all(hasattr(tserve, n) for n in tserve.__all__)
 
 
 # -- the fleet ----------------------------------------------------------------
@@ -544,9 +560,7 @@ def test_fleet_checks_and_lifecycle(setup, monkeypatch):
     _, _, m, p = setup
     with pytest.raises(ValueError, match="devices"):
         ServeFleet(m, m.hps, p, replicas=3, devices=[CPU] * 2)
-    for kw, item in ((dict(cache=object()), "item 5b"),
-                     (dict(max_replicas=2), "item 5b"),
-                     (dict(tenant_cap=3), "item 5b"),
+    for kw, item in ((dict(max_replicas=2), "item 5b-ii"),
                      (dict(draft_depth=2), "item 6")):
         with pytest.raises(NotImplementedError, match=item):
             ServeFleet(m, m.hps, p, devices=[CPU], **kw)

@@ -24,11 +24,10 @@ HP = ("batch_size=8,max_seq_len=24,enc_rnn_size=12,dec_rnn_size=16,"
 CPU = ["--device", "cpu"]
 # report keys of features the port does not have yet: telemetry and the
 # metrics endpoint (run_id, spans, tail, metrics_port, metrics_prom;
-# ROADMAP items 7, 5b), and the fleet's cache, elastic, tenant and tail
-# blocks (5b, 7)
+# ROADMAP items 7, 5b-ii), and the fleet's elastic and tail blocks
+# (5b-ii, 7)
 UNPORTED = {"run_id", "spans", "tail", "metrics_port", "metrics_prom"}
-UNPORTED_FLEET = {"replicas_retired", "scale_log", "completed_cached",
-                  "cache", "tenants", "tail"}
+UNPORTED_FLEET = {"replicas_retired", "scale_log", "tail"}
 
 
 def _report(out: str) -> dict:
